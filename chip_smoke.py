@@ -12,16 +12,26 @@ device or without the port's sources beside it.  Phases, each fatal:
   2. build every CUDA kernel of the port from the checkout's sources
      (one nvcc per source, all at once) and time the build;
   3. hold each kernel against its plain PyTorch version on the card at
-     the main path's shapes, both dtypes, coverage on and off, with a
-     fully masked row; print errors, CUDA-event times and the bound;
+     the main paths' shapes; print errors, CUDA-event times, the bound
+     and, where one PyTorch call computes the same function, its time:
+     a. the fused additive attention, both dtypes, coverage on and off,
+        with a fully masked row;
+     b. the flash self-attention at the transformer encoder's shape
+        (16 x 400 x 8 heads x hd 32) and the long-context shape
+        (4 x 2048 x 8 x 128), causal on and off, a fully masked article
+        and ragged key masks;
   4. check the beam search on the card against the plain CPU path on a
-     small input (same tokens);
-  5. drive the main path: full-width pointer-generator params from
-     --seed, saved as an npz checkpoint; a synthetic 50k vocab and
-     --articles raw-text articles; ``cli.main(--mode=decode --inference=1
-     --single_pass=1)``; check every article got a decoded file and that
-     the kernel launched twice per decode step; print per-batch latency
-     and tokens/s;
+     small input (same tokens), for each model family;
+  5. drive each main path, the launch counts set to 0 just before it and
+     read just after: full-width params from --seed saved as an npz
+     checkpoint, a synthetic 50k vocab and --articles raw-text articles,
+     ``cli.main(--mode=decode --inference=1 --single_pass=1)``, each in its
+     own log_root; check that every article got a decoded file and the
+     kernel launch counts
+     a. pointer-generator: the fused attention twice per decode step;
+     b. transformer (--model_family=transformer, 6 + 6 layers, 8 heads):
+        the flash kernel once per encoder layer per batch;
+     and print per-batch latency and tokens/s;
   6. print the kernels' JSON line, then, last, the device JSON line.
 """
 
@@ -180,28 +190,145 @@ def phase_attention(seed):
     return main, worst
 
 
-def phase_small_reference(seed):
-    """The beam search through the kernel on the card gives the plain CPU
-    path's tokens on a small input."""
+def flash_inputs(B, T, nh, hd, seed, masked):
+    """q, k, v [B, T, nh, hd] at attention scale; with ``masked`` a ragged
+    key mask [B, T] whose article 1 is fully masked (else None)."""
     import torch
 
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, T, nh, hd, generator=g, device="cuda")
+               for _ in range(3))
+    if not masked:
+        return q, k, v, None
+    lens = torch.randint(T // 2, T + 1, (B,), generator=g, device="cuda")
+    lens[0] = T
+    mask = (torch.arange(T, device="cuda")[None] < lens[:, None]).float()
+    mask[1] = 0.0
+    return q, k, v, mask
+
+
+def flash_bound_ms(q, key_mask, causal):
+    """Least time for the function on an H100: the larger of bytes moved
+    (q, k, v and the mask read once, the output written once) over the
+    memory rate and the operations this run's data needs over the f32
+    peak: 4 * hd operations (two multiply-adds) per (query row, head, key
+    it may attend), counted from the mask and the causal triangle."""
+    import torch
+
+    B, T, nh, hd = q.shape
+    keys = (key_mask > 0).float() if key_mask is not None \
+        else torch.ones((B, T), device=q.device)
+    if causal:  # key j is attended by the rows j .. T-1
+        pairs = float((keys * (T - torch.arange(T, device=q.device))).sum())
+    else:
+        pairs = float(keys.sum()) * T
+    ops = 4 * hd * nh * pairs
+    nbytes = 4 * 4 * B * T * nh * hd + (4 * B * T if key_mask is not None
+                                        else 0)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def phase_flash(seed):
+    """Flash kernel vs plain (and vs scaled_dot_product_attention's time)
+    at the encoder's shape and the long-context shape, causal on and
+    off.  The encoder calls it with its padding mask and causal off; the
+    causal form (the training decoder's) is held here only."""
+    import torch
+    import torch.nn.functional as F
+
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
+    worst = 0.0
+    main = None
+    cases = [(16, 400, 8, 32), (4, 2048, 8, 128)]
+    for (B, T, nh, hd) in cases:
+        for causal in (False, True):
+            # the encoder masks padding keys; the causal decoder has none
+            q, k, v, mask = flash_inputs(B, T, nh, hd, seed, not causal)
+            scale = hd ** -0.5
+            out = fl._flash_cuda(q, k, v, mask, causal, scale)
+            ref = fl._flash_plain(q, k, v, mask, causal, scale)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            finite = bool(torch.isfinite(out).all())
+            masked_zero = mask is None or float(out[1].abs().max()) == 0.0
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B,nh,T,hd]
+            bool_mask = None if mask is None else (mask > 0)[:, None, None, :]
+            ms = time_cuda(lambda: fl._flash_cuda(q, k, v, mask, causal,
+                                                  scale), 20, flush)
+            plain_ms = time_cuda(lambda: fl._flash_plain(q, k, v, mask,
+                                                         causal, scale),
+                                 10, flush)
+            library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bool_mask, is_causal=causal,
+                scale=scale), 20, flush)
+            bound, by, nbytes, ops = flash_bound_ms(q, mask, causal)
+            row = dict(shape=f"{B}x{T}x{nh}x{hd}", causal=causal,
+                       key_mask=mask is not None, max_abs_err=err, ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms,
+                       bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops)
+            print("flash " + json.dumps(row))
+            check(finite, f"non-finite flash output at {row}")
+            check(masked_zero, f"fully masked article not zero at {row}")
+            check(err <= ATTN_TOL,
+                  f"flash kernel disagrees with plain (err {err} > "
+                  f"{ATTN_TOL}) at {row}")
+            worst = max(worst, err)
+            if (B, T, nh, hd) == cases[0] and not causal:
+                main = row
+    return main, worst
+
+
+def kernel_module(family):
+    """The ops module whose kernel the family's decode path launches."""
+    if family == "transformer":
+        from textsummarization_on_flink_tpu_torch.ops import flash_attention
+        return flash_attention
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention
+    return fused_attention
+
+
+def small_hps(family):
+    """A small model whose beams differ, copy OOVs and finish at mixed
+    steps (the card-vs-CPU token check)."""
     from textsummarization_on_flink_tpu_torch.config import HParams
+
+    common = dict(batch_size=4, vocab_size=200, max_enc_steps=40,
+                  max_dec_steps=12, beam_size=4, min_dec_steps=3,
+                  max_oov_buckets=8, mode="decode")
+    if family == "transformer":
+        # hd 32: the flash kernel's head width at the reference
+        return HParams(model_family="transformer", hidden_dim=64,
+                       num_heads=2, enc_layers=2, dec_layers=2, **common)
+    return HParams(hidden_dim=32, emb_dim=16, coverage=True,
+                   trunc_norm_init_std=0.5, rand_unif_init_mag=0.3, **common)
+
+
+def phase_small_reference(seed, family):
+    """The beam search through the kernels on the card gives the plain
+    CPU path's tokens on a small input."""
+    import torch
+
     from textsummarization_on_flink_tpu_torch.decode import beam_search
     from textsummarization_on_flink_tpu_torch.params import (
         from_numpy_tree,
         init_numpy_params,
     )
 
-    hps = HParams(batch_size=4, hidden_dim=32, emb_dim=16, vocab_size=200,
-                  max_enc_steps=40, max_dec_steps=12, beam_size=4,
-                  min_dec_steps=3, max_oov_buckets=8, coverage=True,
-                  trunc_norm_init_std=0.5, rand_unif_init_mag=0.3,
-                  mode="decode")
+    hps = small_hps(family)
     p = init_numpy_params(hps, hps.vocab_size, seed)
-    p["embedding"] *= 4.0
-    p["output_projection"]["w"] *= 4.0
-    p["output_projection"]["v"][:] = 0.0
-    p["output_projection"]["v"][3] = 2.5  # STOP
+    if family == "transformer":
+        p["embedding"] *= 30.0  # tied: also sharpens the vocab scores
+        p["out_bias"][3] = 3.0  # STOP
+    else:
+        p["embedding"] *= 4.0
+        p["output_projection"]["w"] *= 4.0
+        p["output_projection"]["v"][:] = 0.0
+        p["output_projection"]["v"][3] = 2.5  # STOP
     rng = np.random.default_rng(seed)
     B, T = hps.batch_size, hps.max_enc_steps
     lens = rng.integers(T // 2, T + 1, B)
@@ -213,15 +340,20 @@ def phase_small_reference(seed):
                   enc_padding_mask=mask,
                   enc_batch_extend_vocab=ext.astype(np.int32))
     cpu = beam_search.run_beam_search(from_numpy_tree(p, "cpu"), hps, arrays)
+    counter = kernel_module(family)
+    before = counter.launches
     gpu = beam_search.run_beam_search(
         from_numpy_tree(p, torch.device("cuda")), hps, arrays)
+    launched = counter.launches - before
     print("small_reference " + json.dumps(dict(
+        family=family, kernel_launches=launched,
         tokens_equal=bool(np.array_equal(cpu.tokens, gpu.tokens)),
         lengths=gpu.length.tolist(),
         max_avg_log_prob_diff=float(np.abs(cpu.avg_log_prob
                                            - gpu.avg_log_prob).max()))))
+    check(launched > 0, f"the {family} search on the card launched no kernel")
     check(np.array_equal(cpu.tokens, gpu.tokens),
-          "beam search on the card differs from the CPU reference")
+          f"{family} beam search on the card differs from the CPU reference")
     check(np.array_equal(cpu.length, gpu.length), "lengths differ")
     check(np.allclose(cpu.avg_log_prob, gpu.avg_log_prob, atol=1e-4),
           "average log-probs differ beyond 1e-4")
@@ -239,21 +371,38 @@ class _BatchLog(logging.Handler):
             self.batches.append(record.args)
 
 
-def phase_main_path(seed, n_articles, work, device="cuda"):
+def main_path_hps(family):
+    """The reference width of each family (bench.py's reference preset;
+    BENCH_FAMILY=transformer for the second): V=50k, 400 encoder and 100
+    decoder steps (min 35), beam 4, batch 16, pointer_gen on, f32."""
+    from textsummarization_on_flink_tpu_torch.config import HParams
+
+    common = dict(hidden_dim=256, vocab_size=50000, max_enc_steps=400,
+                  max_dec_steps=100, min_dec_steps=35, beam_size=4,
+                  batch_size=16, pointer_gen=True)
+    if family == "transformer":
+        return HParams(model_family="transformer", num_heads=8, enc_layers=6,
+                       dec_layers=6, ffn_dim=1024, **common)
+    return HParams(emb_dim=128, coverage=True, **common)
+
+
+def phase_main_path(seed, n_articles, work, device="cuda",
+                    family="pointer_generator"):
     """cli.main at full width; returns the launch and timing summary.
     (device="cpu" rehearses the control flow without a card.)"""
     from textsummarization_on_flink_tpu_torch import cli
     from textsummarization_on_flink_tpu_torch.checkpoint import (
         checkpointer as ckpt_lib,
     )
-    from textsummarization_on_flink_tpu_torch.config import HParams
     from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.decode.decoder import (
+        get_decode_dir_name,
+    )
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
     from textsummarization_on_flink_tpu_torch.params import init_numpy_params
 
-    hps = HParams(hidden_dim=256, emb_dim=128, vocab_size=50000,
-                  max_enc_steps=400, max_dec_steps=100, min_dec_steps=35,
-                  beam_size=4, batch_size=16, pointer_gen=True, coverage=True)
+    hps = main_path_hps(family)
     rng = np.random.default_rng(seed)
     # vocab: 49,996 words + 4 specials = the reference's 50k
     words = [f"w{i:05d}" for i in range(hps.vocab_size - 4)]
@@ -283,20 +432,34 @@ def phase_main_path(seed, n_articles, work, device="cuda"):
         "textsummarization_on_flink_tpu_torch.decode.decoder")
     dec_log.setLevel(logging.INFO)
     dec_log.addHandler(handler)
-    argv = ["--mode=decode", "--inference=1", "--single_pass=1",
-            f"--data_path={art_dir}/*.txt", f"--vocab_path={vocab_path}",
-            f"--log_root={work}", "--exp_name=exp", "--coverage=1",
-            "--pointer_gen=1", f"--device={device}"]
-    fa.launches = 0
-    beam_search.steps_run = 0
-    t0 = time.perf_counter()
-    rc = cli.main(argv)
-    wall = time.perf_counter() - t0
-    launches, steps = fa.launches, beam_search.steps_run
+    flags = dict(mode="decode", inference=1, single_pass=1,
+                 data_path=f"{art_dir}/*.txt", vocab_path=vocab_path,
+                 log_root=work, exp_name="exp", device=device,
+                 model_family=family, pointer_gen=1,
+                 coverage=int(hps.coverage),
+                 **{k: getattr(hps, k) for k in (
+                     "hidden_dim", "emb_dim", "vocab_size", "max_enc_steps",
+                     "max_dec_steps", "min_dec_steps", "beam_size",
+                     "batch_size")})
+    if family == "transformer":
+        flags.update(num_heads=hps.num_heads, enc_layers=hps.enc_layers,
+                     dec_layers=hps.dec_layers, ffn_dim=hps.ffn_dim)
+    argv = [f"--{k}={v}" for k, v in flags.items()]
+    try:
+        fa.launches = 0
+        fl.launches = 0
+        beam_search.steps_run = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        fused, flash = fa.launches, fl.launches
+        steps = beam_search.steps_run
+    finally:
+        dec_log.removeHandler(handler)
     check(rc == 0, f"cli.main returned {rc}")
 
-    dec_dir = os.path.join(work, "exp", "decode_ckpt-0_400maxenc_4beam_"
-                           "35mindec_100maxdec", "decoded")
+    dec_dir = os.path.join(work, "exp", get_decode_dir_name(hps, path),
+                           "decoded")
     files = sorted(os.listdir(dec_dir))
     check(len(files) == n_articles,
           f"{len(files)} decoded files for {n_articles} articles")
@@ -310,14 +473,29 @@ def phase_main_path(seed, n_articles, work, device="cuda"):
                   or t in ("[UNK]", "[PAD]", "[START]") for t in toks),
               f"{name} holds words outside the vocab and its article")
         n_tokens += len(toks)
-    check(launches > 0, "the fused attention kernel never launched")
-    check(launches == 2 * steps,
-          f"{launches} kernel launches for {steps} decode steps "
-          f"(expected 2 per step)")
     batch_s = [float(s) for _, s in handler.batches]
-    summary = dict(articles=n_articles, batches=len(batch_s),
+    n_batches = len(batch_s)
+    if family == "transformer":
+        launches = flash
+        check(flash > 0, "the flash attention kernel never launched")
+        check(flash == hps.enc_layers * n_batches,
+              f"{flash} flash launches for {n_batches} batches (expected "
+              f"{hps.enc_layers} per batch, one per encoder layer)")
+        check(fused == 0, f"{fused} fused-attention launches in the "
+                          f"transformer path")
+    else:
+        launches = fused
+        check(fused > 0, "the fused attention kernel never launched")
+        check(fused == 2 * steps,
+              f"{fused} kernel launches for {steps} decode steps "
+              f"(expected 2 per step)")
+        check(flash == 0, f"{flash} flash launches in the "
+                          f"pointer-generator path")
+    summary = dict(family=family, articles=n_articles, batches=n_batches,
                    batch_seconds=batch_s, decode_steps=steps,
-                   kernel_launches=launches, decoded_tokens=n_tokens,
+                   kernel_launches=launches,
+                   launches_per_batch=launches / max(n_batches, 1),
+                   decoded_tokens=n_tokens,
                    tokens_per_s=n_tokens / sum(batch_s),
                    cli_wall_s=wall, setup_s=setup_s)
     print("main_path " + json.dumps(summary))
@@ -339,7 +517,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, HERE)
     from textsummarization_on_flink_tpu_torch.device import resolve_device
     from textsummarization_on_flink_tpu_torch.kernels import build
-    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
     resolve_device("cuda")  # also turns TF32 off
     print(card_line())
@@ -354,24 +531,38 @@ def main(argv=None) -> int:
         sys.stdout.write(build.build_log(name))
 
     main_row, worst = phase_attention(args.seed)
-    phase_small_reference(args.seed)
+    flash_row, flash_worst = phase_flash(args.seed)
+    for family in ("pointer_generator", "transformer"):
+        phase_small_reference(args.seed, family)
 
-    work = os.path.join(HERE, ".smoke_work")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    try:
-        summary = phase_main_path(args.seed, args.articles, work)
-    finally:
+    summaries = {}
+    for family in ("pointer_generator", "transformer"):
+        work = os.path.join(HERE, ".smoke_work", family)  # own log_root
         shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            summaries[family] = phase_main_path(args.seed, args.articles,
+                                                work, family=family)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     kernels = [dict(
         name="fused_attention", route="cuda",
         source="textsummarization_on_flink_tpu_torch/kernels/fused_attention.cu",
         replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:58",
-        launches=summary["kernel_launches"], max_abs_err=worst,
-        ms=main_row["ms"], plain_ms=main_row["plain_ms"],
+        launches=summaries["pointer_generator"]["kernel_launches"],
+        max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=None)]
+        library_ms=None), dict(
+        name="flash_attention", route="cuda",
+        source="textsummarization_on_flink_tpu_torch/kernels/flash_attention.cu",
+        # the library Pallas kernel, at its call site in the repo
+        replaces="textsummarization_on_flink_tpu/models/transformer.py:285",
+        launches=summaries["transformer"]["kernel_launches"],
+        max_abs_err=flash_worst, ms=flash_row["ms"],
+        plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
+        bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

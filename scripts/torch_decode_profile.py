@@ -2,10 +2,12 @@
 """Where a full-width beam-decode batch of the PyTorch port spends its time.
 
     python3 scripts/torch_decode_profile.py [--seed N] [--batches N]
+        [--family pointer_generator|transformer]
 
-Needs one CUDA card.  Builds full-width pointer-generator params from
---seed (H=256, E=128, V=50,000, 400 encoder steps, 100 decoder steps,
-beam 4, batch 16, coverage on), decodes one warm-up batch, then decodes
+Needs one CUDA card.  Builds full-width params of the family from --seed
+(V=50,000, 400 encoder steps, 100 decoder steps, beam 4, batch 16;
+pointer-generator H=256, E=128, coverage on; transformer H=256, 8 heads,
+6 + 6 layers, FFN 1024), decodes one warm-up batch, then decodes
 --batches batches under torch.profiler and prints one JSON line:
 
   * batch_ms: host wall time per batch (ends in a device sync);
@@ -15,6 +17,8 @@ beam 4, batch 16, coverage on), decodes one warm-up batch, then decodes
     profiled wall time (kernels do not overlap on one stream, so the sum
     is the time the card was busy); idle share = 1 - busy share;
   * kernels_per_step: CUDA kernel launches per decode step;
+  * attention_launches / flash_launches: the port's own kernels'
+    launch counts over the profiled batches;
   * top_kernels: the device time by kernel name, largest first.
 """
 
@@ -36,6 +40,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batches", type=int, default=2)
+    ap.add_argument("--family", default="pointer_generator",
+                    choices=("pointer_generator", "transformer"))
     args = ap.parse_args(argv)
 
     import torch
@@ -44,6 +50,7 @@ def main(argv=None) -> int:
     from textsummarization_on_flink_tpu_torch.config import HParams
     from textsummarization_on_flink_tpu_torch.decode import beam_search
     from textsummarization_on_flink_tpu_torch.device import resolve_device
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
     from textsummarization_on_flink_tpu_torch.params import (
         from_numpy_tree,
@@ -58,6 +65,10 @@ def main(argv=None) -> int:
     hps = HParams(hidden_dim=256, emb_dim=128, vocab_size=50000,
                   max_enc_steps=400, max_dec_steps=100, min_dec_steps=35,
                   beam_size=4, batch_size=16, coverage=True, mode="decode")
+    if args.family == "transformer":
+        hps = hps.replace(model_family="transformer", coverage=False,
+                          num_heads=8, enc_layers=6, dec_layers=6,
+                          ffn_dim=1024)
     params = from_numpy_tree(
         init_numpy_params(hps, hps.vocab_size, args.seed), dev)
     rng = np.random.default_rng(args.seed)
@@ -78,6 +89,7 @@ def main(argv=None) -> int:
     batches = [batch() for _ in range(args.batches)]
     beam_search.steps_run = 0
     fa.launches = 0
+    fl.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for arrays in batches:
@@ -103,13 +115,14 @@ def main(argv=None) -> int:
     busy_ms = sum(kernel_us.values()) / 1e3
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:15]
     out = dict(
-        card=card, torch=torch.__version__, batches=args.batches,
+        card=card, torch=torch.__version__, family=args.family,
+        batches=args.batches,
         batch_size=B, decode_steps_per_batch=steps / args.batches,
         batch_ms=wall_ms / args.batches, phase_ms=phase_ms,
         device_busy_ms=busy_ms / args.batches,
         device_busy_share=busy_ms / wall_ms,
         kernels_per_step=n_kernels / max(steps, 1),
-        attention_launches=fa.launches,
+        attention_launches=fa.launches, flash_launches=fl.launches,
         top_kernels=[dict(name=k[:80], ms_per_batch=v / 1e3 / args.batches,
                           share_of_busy=v / 1e3 / busy_ms if busy_ms else 0.0)
                      for k, v in top])

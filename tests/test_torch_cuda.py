@@ -1,6 +1,8 @@
-"""The port's CUDA kernel on the card (marker ``cuda``; skips without a
-CUDA device).  This file imports torch, numpy and the port only, so it
-also runs where jax is not installed:
+"""The port's CUDA kernels on the card (marker ``cuda``; skips without a
+CUDA device): the fused additive attention and the flash
+self-attention, each against its plain version.  This file imports
+torch, numpy and the port only, so it also runs where jax is not
+installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
@@ -70,3 +72,62 @@ def test_kernel_rejects_bad_inputs_on_card():
     bad[2] = args[2].cpu()
     with pytest.raises(ValueError, match="mask"):
         fa.fused_attention_shared(*bad, True)
+
+
+def _flash_inputs(B, T, nh, hd, seed=0, empty_article=True):
+    """q, k, v [B, T, nh, hd] at attention scale and a ragged key mask
+    (article 1 fully masked when B > 1 and empty_article)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(B, T, nh, hd, generator=g, device="cuda")
+               for _ in range(3))
+    lens = torch.randint(T // 3, T + 1, (B,), generator=g, device="cuda")
+    lens[0] = T
+    mask = (torch.arange(T, device="cuda")[None] < lens[:, None]).float()
+    if B > 1 and empty_article:
+        mask[1] = 0.0
+    return q, k, v, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,nh,hd", [(3, 100, 8, 32), (2, 333, 2, 32),
+                                       (3, 77, 4, 128), (2, 130, 8, 128),
+                                       (1, 1, 1, 32)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [True, False])
+def test_flash_kernel_matches_plain_on_card(B, T, nh, hd, causal, masked):
+    """Ragged T (not a multiple of either tile), both head dims, causal
+    on and off, with a key mask (one article fully masked) and without."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(B, T, nh, hd)
+    key_mask = mask if masked else None
+    before = fl.launches
+    got = fl.flash_attention(q, k, v, key_mask, causal, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert fl.launches == before + 1
+    want = fl._flash_plain(q, k, v, key_mask, causal, hd ** -0.5)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), **TOL)
+    if masked and B > 1:
+        assert not got[1].any()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_rejects_bad_inputs_on_card():
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(2, 40, 4, 32)
+    cases = [
+        ((q, k.transpose(1, 2).contiguous().transpose(1, 2), v, mask),
+         "contiguous"),
+        ((q, k, v, mask.cpu()), "key_mask"),
+        ((q, k.double(), v, mask), "dtype"),
+        ((q, k[:, :20].contiguous(), v, mask), "shape"),
+        tuple([(*_flash_inputs(2, 40, 2, 64)[:3], mask), "head dim"]),
+    ]
+    before = fl.launches
+    for args, match in cases:
+        with pytest.raises(ValueError, match=match):
+            fl.flash_attention(*args, False, 0.1)
+    assert fl.launches == before

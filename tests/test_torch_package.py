@@ -78,7 +78,10 @@ def test_validate_refuses_unported_options():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_config.HParams(compute_dtype="bfloat16").validate()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_config.HParams(model_family="transformer").validate()
+        torch_config.HParams(model_family="avg_attention").validate()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        torch_config.HParams(model_family="transformer",
+                             decode_cache_dtype="bfloat16").validate()
     with pytest.raises(ValueError):
         get_family("nope")
     with pytest.raises(ValueError, match="device"):

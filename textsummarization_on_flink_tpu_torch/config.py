@@ -21,6 +21,9 @@ from typing import Any, Dict, List
 #: ROADMAP.md names the queue item that brings each missing mode or
 #: family; error messages point there
 ROADMAP_TRAINING = "ROADMAP.md queue 1, item 1 (training)"
+ROADMAP_BF16_CACHE = "ROADMAP.md queue 2, item 6 (bf16 decode KV cache)"
+ROADMAP_AAN = ("ROADMAP.md queue 1, item 5 (AAN draft, speculative decode, "
+               "distillation)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,11 +67,26 @@ class HParams:
     compute_dtype: str = "float32"
     model_family: str = "pointer_generator"
 
+    # transformer family (JAX config.py:77-83): hidden_dim is d_model,
+    # embeddings are tied, ffn_dim=0 means 4*hidden_dim
+    enc_layers: int = 6
+    dec_layers: int = 6
+    num_heads: int = 8
+    ffn_dim: int = 0
+    # storage type of the transformer's decode KV cache (JAX :260);
+    # float32 only in the port
+    decode_cache_dtype: str = "float32"
+
     # ---- the port's own ----
     device: str = "cuda"  # "cuda" or "cpu"; no silent fallback
 
     def replace(self, **kw: Any) -> "HParams":
         return dataclasses.replace(self, **kw)
+
+    @property
+    def ffn_width(self) -> int:
+        """Transformer FFN hidden width (ffn_dim, or 4*hidden_dim when 0)."""
+        return self.ffn_dim or 4 * self.hidden_dim
 
     @classmethod
     def from_argv(cls, argv: List[str]) -> "HParams":
@@ -135,8 +153,22 @@ class HParams:
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got "
                              f"{self.device!r}")
-        # families other than the pointer-generator raise from
-        # models.get_family, which names their roadmap item
+        if self.model_family == "transformer":
+            if self.hidden_dim % self.num_heads != 0:
+                raise ValueError(
+                    f"num_heads={self.num_heads} must divide "
+                    f"hidden_dim={self.hidden_dim}")
+            if self.enc_layers < 1 or self.dec_layers < 1:
+                raise ValueError("enc_layers/dec_layers must be >= 1")
+        if self.decode_cache_dtype == "bfloat16":
+            raise NotImplementedError(
+                f"decode_cache_dtype='bfloat16': the port stores the KV "
+                f"cache in float32 only; {ROADMAP_BF16_CACHE}")
+        if self.decode_cache_dtype != "float32":
+            raise ValueError(f"bad decode_cache_dtype "
+                             f"{self.decode_cache_dtype!r}")
+        # families not ported yet raise from models.get_family, which
+        # names their roadmap item
         from textsummarization_on_flink_tpu_torch.models import get_family
 
         get_family(self.model_family)

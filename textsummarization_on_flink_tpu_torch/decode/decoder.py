@@ -247,7 +247,7 @@ class BeamSearchDecoder:
                 break
         if self._hps.single_pass and with_rouge and counter > 0:
             log.info("Output has been saved in %s and %s. ROUGE scoring is "
-                     "not ported to PyTorch yet (ROADMAP.md queue 1, item 2)",
+                     "not ported to PyTorch yet (ROADMAP.md queue 1, item 3)",
                      self._rouge_ref_dir, self._rouge_dec_dir)
 
     def write_for_rouge(self, res: DecodedResult, ex_index: int) -> None:

@@ -3,21 +3,19 @@
 Every family is a module with the JAX package's functional surface
 (models/__init__.py there): ``beam_encode(params, hps, arrays)`` and
 ``beam_adapter(hps) -> (init_state, step)`` for beam search, and, with
-the training slice, ``forward_train``.  Only the pointer-generator is
-ported so far.
+the training slices, ``forward_train``.  The pointer-generator and the
+transformer are ported; the AAN draft is not yet.
 """
 
 from __future__ import annotations
 
 from types import ModuleType
 
+from textsummarization_on_flink_tpu_torch.config import ROADMAP_AAN
+
 FAMILIES = ("pointer_generator", "transformer", "avg_attention")
 
-_ROADMAP = {
-    "transformer": "ROADMAP.md queue 1, item 4 (transformer family)",
-    "avg_attention": "ROADMAP.md queue 1, item 5 (AAN draft, speculative "
-                     "decode, distillation)",
-}
+_ROADMAP = {"avg_attention": ROADMAP_AAN}
 
 
 def get_family(name: str) -> ModuleType:
@@ -25,6 +23,9 @@ def get_family(name: str) -> ModuleType:
     if name == "pointer_generator":
         from textsummarization_on_flink_tpu_torch.models import pointer_generator
         return pointer_generator
+    if name == "transformer":
+        from textsummarization_on_flink_tpu_torch.models import transformer
+        return transformer
     if name in _ROADMAP:
         raise NotImplementedError(
             f"model_family {name!r} is not ported to PyTorch yet: "

@@ -1,0 +1,277 @@
+"""Transformer summarization family: the decode half.
+
+Port of the JAX package's models/transformer.py (pre-LN encoder-decoder,
+learned positions, tied input/output embedding, the final decoder
+layer's head-averaged cross-attention as the copy distribution, a
+static-shape KV cache for incremental decoding).  Functions take the
+params tree (a nested dict of tensors with the JAX tree's names; layers
+are lists, see params.py) and tensors on one device.  The JAX package
+vmaps its beam step over articles; here the article axis B is written
+out and the beam axis K follows it.
+
+The encoder's self-attention goes through ops/flash_attention.py on
+every shape: the CUDA kernel on the card, its plain version on the CPU.
+The JAX package's gate for its TPU flash kernel (``_use_flash``: TS_FLASH,
+128-aligned shapes, T >= 1024) follows from the Mosaic kernel's 128-lane
+tiling and is not read here; neither is its sequence-parallel branch.
+
+Training (``forward_train``), the speculative verifier (``spec_*``), the
+length-masked ``nb`` cross-attention of the slot engine, a factored
+``vocab_head`` and ``decode_cache_dtype=bfloat16`` wait for later slices
+(ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from textsummarization_on_flink_tpu_torch.config import ROADMAP_AAN, HParams
+from textsummarization_on_flink_tpu_torch.models import pointer_generator as pg
+from textsummarization_on_flink_tpu_torch.ops import flash_attention as fa
+
+Params = Dict[str, Any]
+
+NEG = -1e30  # masked-logit floor, never -inf
+
+BeamStepOut = pg.BeamStepOut  # shared beam protocol output type
+
+
+def _head_dim(hps: HParams) -> int:
+    return hps.hidden_dim // hps.num_heads
+
+
+# --------------------------------------------------------------------------
+# Core blocks
+# --------------------------------------------------------------------------
+
+def _ln(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm with the population variance (jnp.var) and eps 1e-6."""
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
+    return (x - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+
+
+def _split_heads(hps: HParams, x: torch.Tensor) -> torch.Tensor:
+    """[..., H] -> [..., nh, hd]"""
+    return x.reshape(x.shape[:-1] + (hps.num_heads, _head_dim(hps)))
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
+
+
+def _mha(hps: HParams, p: Dict[str, torch.Tensor], q_in: torch.Tensor,
+         kv_in: torch.Tensor, mask: torch.Tensor,
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-head attention in plain PyTorch (transformer.py:149-180).
+
+    q_in: [..., Tq, H]; kv_in: [..., Tk, H]; mask: broadcastable to
+    [..., Tq, Tk] (1 = attend).  Returns (output [..., Tq, H],
+    head-averaged probabilities [..., Tq, Tk])."""
+    q = _split_heads(hps, q_in @ p["wq"])  # [..., Tq, nh, hd]
+    k = _split_heads(hps, kv_in @ p["wk"])
+    v = _split_heads(hps, kv_in @ p["wv"])
+    scale = _head_dim(hps) ** -0.5
+    logits = torch.einsum("...qnd,...knd->...nqk", q, k) * scale
+    m = mask[..., None, :, :] > 0
+    logits = torch.where(m, logits, NEG)
+    probs = torch.softmax(logits, dim=-1)
+    # a fully-masked query row gives a uniform softmax over -1e30 logits;
+    # zero it so padding queries emit exact zeros
+    any_key = torch.sum(mask[..., None, :, :], dim=-1, keepdim=True) > 0
+    probs = torch.where(any_key, probs, 0.0)
+    ctx = torch.einsum("...nqk,...knd->...qnd", probs, v)
+    return _merge_heads(ctx) @ p["wo"], torch.mean(probs, dim=-3)
+
+
+def _ffn_block(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
+    return h @ p["w2"] + p["b2"]
+
+
+def _self_attention(hps: HParams, p: Dict[str, torch.Tensor],
+                    x_norm: torch.Tensor, pad_mask, causal: bool,
+                    ) -> torch.Tensor:
+    """Self-attention block (transformer.py:220-296) through the flash
+    wrapper on every shape.  x_norm [B, T, H]; pad_mask [B, T] or None."""
+    q = _split_heads(hps, x_norm @ p["wq"])  # [B, T, nh, hd], contiguous
+    k = _split_heads(hps, x_norm @ p["wk"])
+    v = _split_heads(hps, x_norm @ p["wv"])
+    ctx = fa.flash_attention(q, k, v, pad_mask, causal,
+                             _head_dim(hps) ** -0.5)
+    return _merge_heads(ctx) @ p["wo"]
+
+
+def _encoder_stack(params: Params, hps: HParams, x: torch.Tensor,
+                   enc_mask: torch.Tensor) -> torch.Tensor:
+    """x: [B, T_enc, H]; enc_mask: [B, T_enc] -> [B, T_enc, H]."""
+    for layer in params["encoder"]["layers"]:
+        x = x + _self_attention(hps, layer["self_attn"],
+                                _ln(layer["ln1"], x), enc_mask, causal=False)
+        x = x + _ffn_block(layer["ffn"], _ln(layer["ln2"], x))
+    return _ln(params["encoder"]["ln_out"], x)
+
+
+class TransformerEncView(NamedTuple):
+    """Per-batch encoder view for decoding: the per-layer cross-attention
+    K/V, precomputed once per article."""
+
+    cross_k: torch.Tensor  # [B, L, T_enc, nh, hd]
+    cross_v: torch.Tensor  # [B, L, T_enc, nh, hd]
+
+
+def _embed_enc(params: Params, hps: HParams,
+               enc_batch: torch.Tensor) -> torch.Tensor:
+    del hps  # f32 only in the port; the JAX package casts for bf16 here
+    T = enc_batch.shape[-1]
+    return params["embedding"][enc_batch] + params["pos_enc"][:T]
+
+
+def _embed_dec(params: Params, hps: HParams, tokens: torch.Tensor,
+               positions: torch.Tensor) -> torch.Tensor:
+    """tokens [B, K] at positions [B] (each article's own step)."""
+    del hps
+    return params["embedding"][tokens] + params["pos_dec"][positions][:, None]
+
+
+# --------------------------------------------------------------------------
+# Decoding (KV-cache incremental step + beam adapter)
+# --------------------------------------------------------------------------
+
+def beam_encode(params: Params, hps: HParams,
+                arrays: Dict[str, torch.Tensor]) -> TransformerEncView:
+    """Encode a batch once and precompute per-layer cross-attention K/V
+    (transformer.py:487-508)."""
+    x = _embed_enc(params, hps, arrays["enc_batch"])
+    enc_out = _encoder_stack(params, hps, x, arrays["enc_padding_mask"])
+    ks, vs = [], []
+    for layer in params["decoder"]["layers"]:
+        p = layer["cross_attn"]
+        ks.append(_split_heads(hps, enc_out @ p["wk"]))
+        vs.append(_split_heads(hps, enc_out @ p["wv"]))
+    return TransformerEncView(cross_k=torch.stack(ks, dim=1),
+                              cross_v=torch.stack(vs, dim=1))
+
+
+def cross_attend_layer(hps: HParams, layer: Dict[str, Any], y: torch.Tensor,
+                       ck: torch.Tensor, cv: torch.Tensor,
+                       enc_mask: torch.Tensor,
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer's cross-attention against its precomputed K/V
+    (transformer.py:514-579, the dense form; the slot engine's ``nb``
+    block chain is ROADMAP.md queue 1, item 4).
+
+    y: [B, K, H]; ck/cv: [B, T_enc, nh, hd]; enc_mask: [B, T_enc].
+    Returns (cross_out [B, K, H] — not yet residual-added — and the
+    head-averaged probabilities [B, K, T_enc])."""
+    hd = _head_dim(hps)
+    cp = layer["cross_attn"]
+    qc = _split_heads(hps, _ln(layer["ln_cross"], y) @ cp["wq"])
+    clogits = torch.einsum("bknd,btnd->bknt", qc, ck) * (hd ** -0.5)
+    clogits = torch.where(enc_mask[:, None, None, :] > 0, clogits, NEG)
+    cprobs = torch.softmax(clogits, dim=-1)
+    any_key = torch.sum(enc_mask, dim=-1) > 0  # [B]
+    cprobs = torch.where(any_key[:, None, None, None], cprobs, 0.0)
+    cctx = torch.einsum("bknt,btnd->bknd", cprobs, cv)
+    cross_out = _merge_heads(cctx) @ cp["wo"]
+    return cross_out, torch.mean(cprobs, dim=2)
+
+
+def vocab_scores_of(params: Params, hps: HParams,
+                    h: torch.Tensor) -> torch.Tensor:
+    """Raw vocabulary scores of final-LN decoder states h [..., H]: the
+    tied-embedding projection (transformer.py:381-397)."""
+    del hps
+    if "vocab_head" in params:
+        raise NotImplementedError(
+            f"a factored vocab_head is not ported yet: {ROADMAP_AAN}")
+    return h @ params["embedding"].T + params["out_bias"]
+
+
+def decode_output_tail(params: Params, hps: HParams, y: torch.Tensor,
+                       cross_ctx: torch.Tensor, attn_dist: torch.Tensor,
+                       ext_ids: torch.Tensor,
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decoder output head (transformer.py:582-604): final LN, vocab
+    projection, p_gen, pointer mixture.  y, cross_ctx [B, K, H];
+    attn_dist [B, K, T_enc]; ext_ids [B, T_enc].  Returns
+    (final_dist [B, K, V_ext], p_gen [B, K], h [B, K, H])."""
+    h = _ln(params["decoder"]["ln_out"], y)
+    vocab_dist = torch.softmax(vocab_scores_of(params, hps, h), dim=-1)
+    pl = params["pgen_linear"]
+    p_gen = torch.sigmoid(torch.cat([h, cross_ctx], dim=-1) @ pl["kernel"]
+                          + pl["bias"])[..., 0]
+    if not hps.pointer_gen:
+        return vocab_dist, p_gen, h
+    B, K, _ = y.shape
+    ext_k = ext_ids[:, None, :].expand(B, K, ext_ids.shape[-1])
+    final_dist = pg.final_distribution(
+        hps, vocab_dist.reshape(B * K, -1), attn_dist.reshape(B * K, -1),
+        p_gen.reshape(B * K), ext_k.reshape(B * K, -1)).reshape(B, K, -1)
+    return final_dist, p_gen, h
+
+
+def beam_adapter(hps: HParams):
+    """(init_state, step) closures implementing the beam protocol for the
+    transformer (transformer.py:607-678).  State: the KV cache
+    ``cache_k`` / ``cache_v`` of [B, K, L, T_dec+1, nh, hd]; a position
+    is valid up to each article's own step t."""
+    K = hps.beam_size
+    L = hps.dec_layers
+    nh, hd = hps.num_heads, _head_dim(hps)
+    T = hps.max_dec_steps + 1
+
+    def init_state(params: Params, enc: TransformerEncView):
+        del params
+        B = enc.cross_k.shape[0]
+        shape = (B, K, L, T, nh, hd)
+        return {"cache_k": enc.cross_k.new_zeros(shape),
+                "cache_v": enc.cross_k.new_zeros(shape)}
+
+    def step(params: Params, enc: TransformerEncView, enc_mask: torch.Tensor,
+             ext_ids: torch.Tensor, t: torch.Tensor, latest: torch.Tensor,
+             state) -> BeamStepOut:
+        """t [B]: each article's step (an article whose search ended
+        keeps stepping masked, up to t = max_dec_steps, which pos_dec and
+        the cache's last column hold); latest [B, K]."""
+        B = latest.shape[0]
+        y = _embed_dec(params, hps, latest, t)  # [B, K, H]
+        pos_ok = torch.arange(T, device=t.device)[None, :] <= t[:, None]
+        # written in place: the state is this step's own (the search
+        # gathers a fresh copy by parent after every step)
+        cache_k, cache_v = state["cache_k"], state["cache_v"]
+        bi = torch.arange(B, device=t.device)[:, None]
+        ki = torch.arange(K, device=t.device)[None, :]
+        ti = t[:, None]
+        attn_dist = cross_ctx = None
+        for li, layer in enumerate(params["decoder"]["layers"]):
+            p = layer["self_attn"]
+            h_norm = _ln(layer["ln1"], y)
+            q = _split_heads(hps, h_norm @ p["wq"])  # [B, K, nh, hd]
+            cache_k[bi, ki, li, ti] = _split_heads(hps, h_norm @ p["wk"])
+            cache_v[bi, ki, li, ti] = _split_heads(hps, h_norm @ p["wv"])
+            logits = torch.einsum("bknd,bktnd->bknt", q,
+                                  cache_k[:, :, li]) * (hd ** -0.5)
+            logits = torch.where(pos_ok[:, None, None, :], logits, NEG)
+            probs = torch.softmax(logits, dim=-1)
+            ctx = torch.einsum("bknt,bktnd->bknd", probs, cache_v[:, :, li])
+            y = y + _merge_heads(ctx) @ p["wo"]
+            cross_out, attn_dist = cross_attend_layer(
+                hps, layer, y, enc.cross_k[:, li], enc.cross_v[:, li],
+                enc_mask)
+            y = y + cross_out
+            y = y + _ffn_block(layer["ffn"], _ln(layer["ln2"], y))
+            cross_ctx = cross_out
+        final_dist, p_gen, _ = decode_output_tail(params, hps, y, cross_ctx,
+                                                  attn_dist, ext_ids)
+        topk_probs, topk_ids = pg.top_k(final_dist, 2 * hps.beam_size)
+        return BeamStepOut(topk_ids=topk_ids,
+                           topk_log_probs=torch.log(topk_probs + 1e-10),
+                           attn_dist=attn_dist, p_gen=p_gen,
+                           state={"cache_k": cache_k, "cache_v": cache_v})
+
+    return init_state, step

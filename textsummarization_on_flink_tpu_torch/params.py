@@ -3,9 +3,10 @@
 ``from_numpy_tree`` takes the JAX package's params as numpy (for example
 ``jax.device_get(init_params(...))``, or the ``params`` subtree of an
 unflattened checkpoint) and returns the port's tree on a device.
-``init_params`` builds a fresh tree of the same names and shapes as
-``models/pointer_generator.py::init_params`` (pointer_generator.py:88-133)
-with the same initializer families, drawn with numpy from a seed.  The
+``init_params`` builds a fresh tree of the same names and shapes as the
+family's ``init_params`` (``models/pointer_generator.py`` :88-133,
+``models/transformer.py`` :73-125; ``hps.model_family`` picks) with the
+same initializer families, drawn with numpy from a seed.  The
 values differ from the JAX package's for the same seed (jax.random and
 numpy are different generators); tests that compare the two packages
 hand both the same numpy tree.
@@ -68,9 +69,16 @@ def _glorot(rng: np.random.Generator, shape) -> np.ndarray:
 
 
 def init_numpy_params(hps: HParams, vsize: int, seed: int) -> Params:
-    """The pointer-generator's params as numpy, names and shapes of
-    pointer_generator.py:88-133 (initializers after the reference's
-    model.py:204-231)."""
+    """The params of ``hps.model_family`` as numpy."""
+    if hps.model_family == "transformer":
+        return _transformer_numpy_params(hps, vsize, seed)
+    return _pointer_generator_numpy_params(hps, vsize, seed)
+
+
+def _pointer_generator_numpy_params(hps: HParams, vsize: int,
+                                    seed: int) -> Params:
+    """Names and shapes of pointer_generator.py:88-133 (initializers
+    after the reference's model.py:204-231)."""
     rng = np.random.default_rng(seed)
     H, E = hps.hidden_dim, hps.emb_dim
     D = 2 * H  # attention vector size == encoder state size
@@ -112,6 +120,42 @@ def init_numpy_params(hps: HParams, vsize: int, seed: int) -> Params:
             "w": _trunc_normal(rng, (H, vsize), tn),
             "v": _trunc_normal(rng, (vsize,), tn),
         },
+    }
+
+
+def _transformer_numpy_params(hps: HParams, vsize: int,
+                              seed: int) -> Params:
+    """Names, shapes and initializer families of transformer.py:73-125:
+    glorot-uniform projections, truncated-normal (std 0.02) embeddings,
+    unit LayerNorm scales, zero biases.  Layers are plain lists."""
+    rng = np.random.default_rng(seed)
+    H, F = hps.hidden_dim, hps.ffn_width
+
+    def attn():
+        return {k: _glorot(rng, (H, H)) for k in ("wq", "wk", "wv", "wo")}
+
+    def ln():
+        return {"scale": np.ones((H,), np.float32),
+                "bias": np.zeros((H,), np.float32)}
+
+    def ffn():
+        return {"w1": _glorot(rng, (H, F)), "b1": np.zeros((F,), np.float32),
+                "w2": _glorot(rng, (F, H)), "b2": np.zeros((H,), np.float32)}
+
+    enc_layers = [{"ln1": ln(), "self_attn": attn(), "ln2": ln(),
+                   "ffn": ffn()} for _ in range(hps.enc_layers)]
+    dec_layers = [{"ln1": ln(), "self_attn": attn(), "ln_cross": ln(),
+                   "cross_attn": attn(), "ln2": ln(), "ffn": ffn()}
+                  for _ in range(hps.dec_layers)]
+    return {
+        "embedding": _trunc_normal(rng, (vsize, H), 0.02),
+        "pos_enc": _trunc_normal(rng, (hps.max_enc_steps, H), 0.02),
+        "pos_dec": _trunc_normal(rng, (hps.max_dec_steps + 1, H), 0.02),
+        "encoder": {"layers": enc_layers, "ln_out": ln()},
+        "decoder": {"layers": dec_layers, "ln_out": ln()},
+        "pgen_linear": {"kernel": _glorot(rng, (2 * H, 1)),
+                        "bias": np.zeros((1,), np.float32)},
+        "out_bias": np.zeros((vsize,), np.float32),
     }
 
 
