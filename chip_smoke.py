@@ -20,8 +20,15 @@ device or without the port's sources beside it.  Phases, each fatal:
         (16 x 400 x 8 heads x hd 32) and the long-context shape
         (4 x 2048 x 8 x 128), causal on and off, a fully masked article
         and ragged key masks;
+     c. the flash backward (the dK/dV and dQ kernels) against its plain
+        version at the training encoder's shape (16 x 400 x 8 x 32, key
+        mask, article 1 empty), the training decoder's (16 x 100 x 8 x
+        32, causal) and the long-context shape (4 x 2048 x 8 x 128, both
+        forms), and the forward's lse output at the first two;
   4. check the beam search on the card against the plain CPU path on a
-     small input (same tokens), for each model family;
+     small input (same tokens), for each model family, and (c) three
+     train steps of a small transformer on the card against the CPU
+     (same losses within 1e-4 relative);
   5. drive each main path, the launch counts set to 0 just before it and
      read just after: full-width params from --seed saved as an npz
      checkpoint, a synthetic 50k vocab and --articles raw-text articles,
@@ -32,6 +39,12 @@ device or without the port's sources beside it.  Phases, each fatal:
      b. transformer (--model_family=transformer, 6 + 6 layers, 8 heads):
         the flash kernel once per encoder layer per batch;
      and print per-batch latency and tokens/s;
+     c. transformer training: 64 synthetic article/abstract pairs written
+        as chunk files, ``cli.main(--mode=train --num_steps=10)`` at the
+        same width (lr 0.015: see phase_train_main_path); check 12 flash forward, 12 dK/dV and 12 dQ launches
+        per step (6 encoder + 6 decoder layers), finite and falling
+        losses and a restorable ``model.ckpt-10.npz``; print the warm
+        step time, target tokens/s and the peak device memory;
   6. print the kernels' JSON line, then, last, the device JSON line.
 """
 
@@ -283,6 +296,137 @@ def phase_flash(seed):
     return main, worst
 
 
+def flash_bwd_bounds(q, key_mask, causal):
+    """Least times on an H100 for the backward, counted as flash_bound_ms
+    does (operations per (row, head, attended key) from the mask and the
+    causal triangle; each input read once, each output written once):
+    the whole backward, 10 * hd operations (s, dO . v, and the dv, dk, dq
+    updates) over q, k, v, out, dO, lse, the mask and dq, dk, dv; the
+    dK/dV kernel's function, 8 * hd over q, k, v, dO, lse, D, the mask and
+    dk, dv; the dQ kernel's, 6 * hd over q, k, v, dO, lse, D, the mask
+    and dq.  Returns {name: (ms, bound_by)}."""
+    B, T, nh, hd = q.shape
+    _, _, _, fwd_ops = flash_bound_ms(q, key_mask, causal)
+    head_pairs = fwd_ops / (4 * hd)  # (row, head, attended key) triples
+    big = 4 * B * T * nh * hd  # bytes of one [B, T, nh, hd] f32 tensor
+    row = 4 * B * T * nh  # one [B, T, nh] f32 tensor
+    mask = 4 * B * T if key_mask is not None else 0
+    out = {}
+    for name, n_big, n_row, ops_per in (("backward", 8, 1, 10),
+                                        ("dkv", 6, 2, 8), ("dq", 5, 2, 6)):
+        t_bytes = (n_big * big + n_row * row + mask) / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops_per * hd * head_pairs / PEAK_F32_OPS_PER_S * 1e3
+        out[name] = (max(t_bytes, t_ops),
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def phase_flash_bwd(seed):
+    """The dK/dV and dQ kernels against the plain backward (and the
+    backward of scaled_dot_product_attention as the library's time) at
+    the training shapes and the long-context shape; the forward's lse
+    output against the plain one at the training shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
+    cases = [(16, 400, 8, 32, False), (16, 100, 8, 32, True),
+             (4, 2048, 8, 128, False), (4, 2048, 8, 128, True)]
+    rows = []
+    worst = dict(dq=0.0, dk=0.0, dv=0.0)
+    for (B, T, nh, hd, causal) in cases:
+        # the encoder masks padding keys (article 1 empty); the causal
+        # decoder has none
+        q, k, v, mask = flash_inputs(B, T, nh, hd, seed, not causal)
+        scale = hd ** -0.5
+        out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
+                                  with_lse=True)
+        do = torch.randn_like(q)
+        dq, dk, dv = fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, causal,
+                                        scale)
+        lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
+        want = fl._flash_bwd_plain(q, k, v, out, lse_p, do, mask, causal,
+                                   scale)
+        torch.cuda.synchronize()
+        names = ("dq", "dk", "dv")
+        errs = {name: float((g - w).abs().max())
+                for name, g, w in zip(names, (dq, dk, dv), want)}
+        # 1e-5 scaled by the gradient's size, as the CPU tests hold it
+        tols = {name: ATTN_TOL * max(1.0, float(w.abs().max()))
+                for name, w in zip(names, want)}
+        finite = all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+        empty_zero = mask is None or all(
+            float(g[1].abs().max()) == 0.0 for g in (dq, dk, dv))
+        dsum = torch.sum(do * out, dim=-1)
+        dkv_ms = time_cuda(lambda: fl._bwd_dkv_cuda(
+            q, k, v, do, lse, dsum, mask, causal, scale), 20, flush)
+        dq_ms = time_cuda(lambda: fl._bwd_dq_cuda(
+            q, k, v, do, lse, dsum, mask, causal, scale), 20, flush)
+        plain_ms = time_cuda(lambda: fl._flash_bwd_plain(
+            q, k, v, out, lse_p, do, mask, causal, scale), 10, flush)
+        # the library's backward alone: the graph is built once and kept
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        bool_mask = None if mask is None else (mask > 0)[:, None, None, :]
+        lib_out = F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=bool_mask, is_causal=causal, scale=scale)
+        do_t = do.transpose(1, 2)
+        library_ms = time_cuda(lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), do_t, retain_graph=True), 20, flush)
+        bounds = flash_bwd_bounds(q, mask, causal)
+        row = dict(shape=f"{B}x{T}x{nh}x{hd}", causal=causal,
+                   key_mask=mask is not None,
+                   max_abs_err_dq=errs["dq"], max_abs_err_dk=errs["dk"],
+                   max_abs_err_dv=errs["dv"], dkv_ms=dkv_ms, dq_ms=dq_ms,
+                   plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bounds["backward"][0],
+                   bound_by=bounds["backward"][1],
+                   dkv_bound_ms=bounds["dkv"][0], dkv_bound_by=bounds["dkv"][1],
+                   dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1])
+        print("flash_bwd " + json.dumps(row))
+        check(finite, f"non-finite flash backward at {row}")
+        check(empty_zero, f"empty article's gradients not zero at {row}")
+        for name, err in errs.items():
+            check(err <= tols[name], f"flash {name} kernel disagrees with "
+                                     f"plain (err {err} > {tols[name]}) at "
+                                     f"{row}")
+            worst[name] = max(worst[name], err)
+        rows.append(row)
+        if T <= 400:  # the training shapes: the forward's lse variant
+            finite_lse = torch.isfinite(lse_p)
+            lse_err = float(torch.where(finite_lse, lse - lse_p, 0.0)
+                            .abs().max())
+            lse_tol = ATTN_TOL * max(1.0, float(torch.where(
+                finite_lse, lse_p, 0.0).abs().max()))
+            ms = time_cuda(lambda: fl._flash_cuda(q, k, v, mask, causal,
+                                                  scale, with_lse=True),
+                           20, flush)
+            plain = time_cuda(lambda: (
+                fl._flash_plain(q, k, v, mask, causal, scale),
+                fl._flash_lse_plain(q, k, mask, causal, scale)), 10, flush)
+            _, _, nbytes, ops = flash_bound_ms(q, mask, causal)
+            t_bytes = (nbytes + 4 * B * T * nh) / PEAK_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+            with torch.no_grad():
+                fwd_library_ms = time_cuda(
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=bool_mask, is_causal=causal,
+                        scale=scale), 20, flush)
+            lse_row = dict(shape=f"{B}x{T}x{nh}x{hd}", causal=causal,
+                           key_mask=mask is not None, lse_max_abs_err=lse_err,
+                           ms=ms, plain_ms=plain, library_ms=fwd_library_ms,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by="bytes" if t_bytes >= t_ops
+                           else "operations")
+            print("flash_fwd_lse " + json.dumps(lse_row))
+            check(bool((torch.isinf(lse) == ~finite_lse).all()),
+                  f"lse sentinel rows differ at {lse_row}")
+            check(lse_err <= lse_tol, f"lse disagrees at {lse_row}")
+    return rows, worst
+
+
 def kernel_module(family):
     """The ops module whose kernel the family's decode path launches."""
     if family == "transformer":
@@ -357,6 +501,83 @@ def phase_small_reference(seed, family):
     check(np.array_equal(cpu.length, gpu.length), "lengths differ")
     check(np.allclose(cpu.avg_log_prob, gpu.avg_log_prob, atol=1e-4),
           "average log-probs differ beyond 1e-4")
+
+
+def small_train_batches(hps, seed, n):
+    """n train batches of ragged articles over a synthetic vocab of
+    hps.vocab_size words, abstracts drawn from their article (so targets
+    copy article OOVs)."""
+    from textsummarization_on_flink_tpu_torch.data import batching
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+
+    words = [f"w{i}" for i in range(hps.vocab_size - 4)]
+    vocab = Vocab(words=words)
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        exs = []
+        for _ in range(hps.batch_size):
+            art = [words[j] if rng.random() < 0.7 else f"oov{j % 6}"
+                   for j in rng.integers(0, len(words),
+                                         rng.integers(10, hps.max_enc_steps))]
+            abs_ = [art[j] for j in rng.integers(0, len(art),
+                                                 rng.integers(3, 14))]
+            exs.append(batching.SummaryExample.build(
+                " ".join(art), [" ".join(abs_)], vocab, hps))
+        out.append(batching.Batch(exs, hps, vocab).as_arrays())
+    return out
+
+
+def phase_small_training(seed):
+    """Three train steps of the small transformer on the card (flash
+    kernels forward and backward) against the same steps on the CPU
+    (plain versions), from one numpy params tree and the same batches.
+    Losses within 1e-4 relative per step: f32 on both sides, but the
+    card's GEMMs and kernels sum in other orders than the CPU's, and
+    three Adagrad steps carry the differences forward."""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.decode.beam_search import (
+        _to_device,
+    )
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+    from textsummarization_on_flink_tpu_torch.params import (
+        init_numpy_params,
+        tree_leaves,
+    )
+    from textsummarization_on_flink_tpu_torch.train import trainer
+
+    hps = small_hps("transformer").replace(mode="train", coverage=True)
+    p = init_numpy_params(hps, hps.vocab_size, seed)
+    batches = small_train_batches(hps, seed, 3)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        hd = hps.replace(device=dev)
+        state = trainer.init_train_state(hd, hps.vocab_size, params=p)
+        before = (fl.launches, fl.launches_bwd_dkv, fl.launches_bwd_dq)
+        losses = []
+        for arrays in batches:
+            state, m = trainer.train_step(hd, state, _to_device(arrays, dev))
+            losses.append(float(m.total_loss))
+        launched = [a - b for a, b in zip(
+            (fl.launches, fl.launches_bwd_dkv, fl.launches_bwd_dq), before)]
+        runs[dev] = (losses, state, launched)
+    (cpu_losses, cpu_state, cpu_launched), (gpu_losses, gpu_state, launched) \
+        = runs["cpu"], runs["cuda"]
+    param_diff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                     for a, b in zip(tree_leaves(gpu_state.params),
+                                     tree_leaves(cpu_state.params)))
+    rel = [abs(g - c) / abs(c) for g, c in zip(gpu_losses, cpu_losses)]
+    print("small_training " + json.dumps(dict(
+        cpu_losses=cpu_losses, card_losses=gpu_losses, loss_rel_diff=rel,
+        max_param_abs_diff=param_diff, card_launches=launched)))
+    layers = hps.enc_layers + hps.dec_layers
+    check(cpu_launched == [0, 0, 0], "the CPU run launched a kernel")
+    check(launched == [3 * layers] * 3,
+          f"card launches {launched}: expected {layers} forward, dK/dV and "
+          f"dQ flash launches per step")
+    check(all(np.isfinite(gpu_losses)), "non-finite loss on the card")
+    check(max(rel) <= 1e-4, f"card losses differ from the CPU's by {rel}")
 
 
 class _BatchLog(logging.Handler):
@@ -502,6 +723,144 @@ def phase_main_path(seed, n_articles, work, device="cuda",
     return summary
 
 
+class _TrainLog(logging.Handler):
+    """Collects the trainer's per-step seconds and losses."""
+
+    def __init__(self):
+        super().__init__()
+        self.seconds, self.losses = [], []
+
+    def emit(self, record):
+        if record.msg.startswith("seconds for training step"):
+            self.seconds.append(float(record.args[0]))
+        elif record.msg.startswith("loss:"):
+            self.losses.append(float(record.args[0]))
+
+
+def write_train_chunks(work, hps, seed, n_pairs):
+    """A synthetic 50k vocab and n_pairs article/abstract pairs as chunk
+    files (the port's writer): articles of 300-800 zipf-ranked words with
+    ~5% OOVs; abstracts of 3 sentences of 8-20 words in <s> ... </s>
+    taken from the article's lead, as news highlights lean on the lead.
+    Returns (vocab path, data glob)."""
+    from textsummarization_on_flink_tpu_torch.data import chunks
+
+    rng = np.random.default_rng(seed)
+    words = [f"w{i:05d}" for i in range(hps.vocab_size - 4)]
+    vocab_path = os.path.join(work, "vocab")
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        f.writelines(f"{w} {len(words) - i}\n" for i, w in enumerate(words))
+    pairs = []
+    for _ in range(n_pairs):
+        n = int(rng.integers(300, 800))
+        ranks = np.minimum(rng.zipf(1.2, n), len(words)) - 1
+        art = [words[r] if rng.random() > 0.05 else f"oov{rng.integers(50)}"
+               for r in ranks]
+        cuts = np.cumsum(rng.integers(8, 20, 3))
+        sents = [" ".join(art[a:b]) + " ."
+                 for a, b in zip([0, *cuts[:2]], cuts)]
+        pairs.append({"article": [" ".join(art) + " ."],
+                      "abstract": [" ".join(f"<s> {x} </s>" for x in sents)]})
+    for c in range(0, n_pairs, 16):
+        chunks.write_chunk_file(os.path.join(work, f"train_{c // 16:03d}.bin"),
+                                pairs[c:c + 16])
+    return vocab_path, os.path.join(work, "train_*.bin")
+
+
+def phase_train_main_path(seed, work, steps=10, device="cuda"):
+    """cli.main(--mode=train) of the transformer at the reference width;
+    returns the launch and timing summary.  (device="cpu" rehearses the
+    control flow without a card.)"""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch import cli
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+    from textsummarization_on_flink_tpu_torch.data.batcher import Batcher
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+
+    # lr 0.015, a tenth of the reference's 0.15: at 0.15 the copy gate
+    # (pgen_linear over unit-variance LayerNorm outputs) of this random
+    # transformer flips between p_gen ~0 and ~1 from step to step and the
+    # loss does not fall in 10 steps, on the card as in the JAX package
+    # (scripts/torch_train_trace.py prints both; PERF.md, PR 3)
+    hps = main_path_hps("transformer").replace(mode="train", coverage=True,
+                                               lr=0.015)
+    t0 = time.perf_counter()
+    vocab_path, data_path = write_train_chunks(work, hps, seed, 64)
+    setup_s = time.perf_counter() - t0
+    flags = dict(mode="train", model_family="transformer",
+                 num_steps=steps, coverage=1, pointer_gen=1,
+                 data_path=data_path, vocab_path=vocab_path, log_root=work,
+                 exp_name="exp", device=device, seed=seed, lr=hps.lr,
+                 **{k: getattr(hps, k) for k in (
+                     "hidden_dim", "num_heads", "enc_layers", "dec_layers",
+                     "ffn_dim", "vocab_size", "max_enc_steps",
+                     "max_dec_steps", "min_dec_steps", "batch_size")})
+    argv = [f"--{k}={v}" for k, v in flags.items()]
+    handler = _TrainLog()
+    tr_log = logging.getLogger(
+        "textsummarization_on_flink_tpu_torch.train.trainer")
+    tr_log.setLevel(logging.INFO)
+    tr_log.addHandler(handler)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        fa.launches = 0
+        fl.launches = fl.launches_bwd_dkv = fl.launches_bwd_dq = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        launched = dict(flash_forward=fl.launches,
+                        flash_bwd_dkv=fl.launches_bwd_dkv,
+                        flash_bwd_dq=fl.launches_bwd_dq, fused=fa.launches)
+    finally:
+        tr_log.removeHandler(handler)
+    check(rc == 0, f"cli.main returned {rc}")
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
+    per_step = hps.enc_layers + hps.dec_layers
+    for name in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
+        check(launched[name] == per_step * steps,
+              f"{launched[name]} {name} launches in {steps} steps (expected "
+              f"{per_step} per step: {hps.enc_layers} encoder + "
+              f"{hps.dec_layers} decoder layers)")
+    check(launched["fused"] == 0,
+          f"{launched['fused']} fused-attention launches in training")
+    losses, seconds = handler.losses, handler.seconds
+    check(len(losses) == steps, f"{len(losses)} logged losses for {steps} "
+                                f"steps")
+    check(all(np.isfinite(losses)), f"non-finite loss in {losses}")
+    check(float(np.mean(losses[-3:])) < losses[0],
+          f"losses did not fall: {losses}")
+    train_dir = os.path.join(work, "exp", "train")
+    path = os.path.join(train_dir, f"model.ckpt-{steps}.npz")
+    check(os.path.exists(path), f"{path} was not written")
+    restored = ckpt_lib.Checkpointer(train_dir).restore(path)
+    check(restored.step == steps, f"restored step {restored.step}")
+    # the target tokens of the steps' batches: the same files in the same
+    # order through a second batcher
+    batcher = Batcher(data_path, Vocab(vocab_path, hps.vocab_size), hps,
+                      single_pass=False)
+    tokens = [float(batcher.next_batch().dec_padding_mask.sum())
+              for _ in range(steps)]
+    warm = seconds[2:]  # steps 3 .. 10
+    warm_s = statistics.median(warm)
+    summary = dict(steps=steps, launches=launched,
+                   launches_per_step={k: v / steps
+                                      for k, v in launched.items()},
+                   losses=losses, step_seconds=seconds,
+                   warm_median_step_s=warm_s,
+                   target_tokens_per_step=statistics.mean(tokens),
+                   target_tokens_per_s=statistics.mean(tokens[2:]) / warm_s,
+                   max_memory_allocated_bytes=peak, cli_wall_s=wall,
+                   setup_s=setup_s)
+    print("train_main_path " + json.dumps(summary))
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -518,6 +877,7 @@ def main(argv=None) -> int:
     from textsummarization_on_flink_tpu_torch.device import resolve_device
     from textsummarization_on_flink_tpu_torch.kernels import build
 
+    t_start = time.perf_counter()
     resolve_device("cuda")  # also turns TF32 off
     print(card_line())
     print(json.dumps(dict(torch=torch.__version__, cuda=torch.version.cuda,
@@ -532,8 +892,10 @@ def main(argv=None) -> int:
 
     main_row, worst = phase_attention(args.seed)
     flash_row, flash_worst = phase_flash(args.seed)
+    bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
     for family in ("pointer_generator", "transformer"):
         phase_small_reference(args.seed, family)
+    phase_small_training(args.seed)
 
     summaries = {}
     for family in ("pointer_generator", "transformer"):
@@ -545,8 +907,17 @@ def main(argv=None) -> int:
                                                 work, family=family)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+    work = os.path.join(HERE, ".smoke_work", "train")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        train = phase_train_main_path(args.seed, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
+    bwd_main = bwd_rows[0]  # the training encoder's shape
+    flash_src = "textsummarization_on_flink_tpu_torch/kernels/flash_attention"
     kernels = [dict(
         name="fused_attention", route="cuda",
         source="textsummarization_on_flink_tpu_torch/kernels/fused_attention.cu",
@@ -559,10 +930,29 @@ def main(argv=None) -> int:
         source="textsummarization_on_flink_tpu_torch/kernels/flash_attention.cu",
         # the library Pallas kernel, at its call site in the repo
         replaces="textsummarization_on_flink_tpu/models/transformer.py:285",
-        launches=summaries["transformer"]["kernel_launches"],
+        # both main paths that run it: decode and training
+        launches=summaries["transformer"]["kernel_launches"]
+        + train["launches"]["flash_forward"],
         max_abs_err=flash_worst, ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
         bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"])]
+    for name, key in (("flash_attention_bwd_dkv", "dkv"),
+                      ("flash_attention_bwd_dq", "dq")):
+        # the library's backward kernels, through the custom_vjp of the
+        # flash_attention called at transformer.py:285; plain and library
+        # times are of the whole backward (both compute dq, dk and dv)
+        kernels.append(dict(
+            name=name, route="cuda", source=flash_src + "_bwd.cu",
+            replaces=("textsummarization_on_flink_tpu/models/transformer.py"
+                      f":285 (library _flash_attention_bwd_{key})"),
+            launches=train["launches"][f"flash_bwd_{key}"],
+            max_abs_err=(max(bwd_worst["dk"], bwd_worst["dv"])
+                         if key == "dkv" else bwd_worst["dq"]),
+            ms=bwd_main[f"{key}_ms"], plain_ms=bwd_main["plain_ms"],
+            bound_ms=bwd_main[f"{key}_bound_ms"],
+            bound_by=bwd_main[f"{key}_bound_by"],
+            library_ms=bwd_main["library_ms"]))
+    print(json.dumps(dict(total_seconds=time.perf_counter() - t_start)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 """The port's CUDA kernels on the card (marker ``cuda``; skips without a
-CUDA device): the fused additive attention and the flash
-self-attention, each against its plain version.  This file imports
+CUDA device): the fused additive attention, the flash self-attention
+and its backward (dK/dV and dQ), each against its plain version.  This file imports
 torch, numpy and the port only, so it also runs where jax is not
 installed:
 
@@ -131,3 +131,60 @@ def test_flash_kernel_rejects_bad_inputs_on_card():
         with pytest.raises(ValueError, match=match):
             fl.flash_attention(*args, False, 0.1)
     assert fl.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 77, 100, 333])
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [True, False])
+def test_flash_backward_kernels_match_plain_on_card(T, hd, causal, masked):
+    """Ragged T (not a multiple of either tile), both head dims, causal on
+    and off, with a key mask (article 1 empty: exact zero gradients) and
+    without.  One backward launches the dK/dV kernel once and the dQ
+    kernel once; the forward's lse equals the plain one."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    B, nh = 3, 2
+    q, k, v, mask = _flash_inputs(B, T, nh, hd, seed=T)
+    key_mask = mask if masked else None
+    scale = hd ** -0.5
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fl.flash_attention(qg, kg, vg, key_mask, causal, scale)
+    do = torch.randn_like(out)
+    counts = (fl.launches_bwd_dkv, fl.launches_bwd_dq)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert (fl.launches_bwd_dkv, fl.launches_bwd_dq) == \
+        (counts[0] + 1, counts[1] + 1)
+    _, lse = fl._flash_cuda(q, k, v, key_mask, causal, scale, with_lse=True)
+    lse_p = fl._flash_lse_plain(q, k, key_mask, causal, scale)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(), **TOL)
+    want = fl._flash_bwd_plain(q, k, v, out.detach(), lse_p, do, key_mask,
+                               causal, scale)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
+    if masked and B > 1:
+        assert all(not g[1].any() for g in got)
+
+
+@pytest.mark.cuda
+def test_flash_backward_takes_a_strided_cotangent_on_card():
+    """A strided dO (as _merge_heads and the wo matmul's backward may
+    give) is made contiguous inside the Function, not rejected."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(2, 40, 4, 32)
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fl.flash_attention(qg, kg, vg, mask, False, 0.2)
+    do = torch.randn(2, 4, 40, 32, device="cuda").transpose(1, 2)
+    assert not do.is_contiguous()
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    lse = fl._flash_lse_plain(q, k, mask, False, 0.2)
+    want = fl._flash_bwd_plain(q, k, v, out.detach(), lse, do.contiguous(),
+                               mask, False, 0.2)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)

@@ -9,8 +9,14 @@ by either package loads in the other, and ``content_fingerprint`` hashes
 the same bytes in the same order, so both packages give one params tree
 one fingerprint.
 
-Saving with training state (the Checkpointer class, retention, the
-best-model track and checkpoint surgery) comes with the training slice.
+Training state: ``state_to_arrays`` / ``arrays_to_state`` (the key scheme
+``params/...``, ``opt_state/accumulators/...``, ``step`` as int32, so
+each package restores the other's training checkpoints), the
+``Checkpointer`` (max_to_keep=3 retention, the ``hparams.json`` sidecar,
+restore with the corrupt-file fallback) and the eval side's
+``BestModelSaver``.  Checkpoint surgery (``convert_to_coverage_model``,
+``restore_best_model``) comes with the pointer-generator training slice
+(config.ROADMAP_PG_TRAINING).
 """
 
 from __future__ import annotations
@@ -26,6 +32,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from textsummarization_on_flink_tpu_torch.config import HParams
+from textsummarization_on_flink_tpu_torch.train import trainer as trainer_lib
 
 log = logging.getLogger(__name__)
 
@@ -245,3 +254,110 @@ def load_ckpt(directory: str, index_file: str = INDEX_FILE,
         log.info("Failed to load checkpoint from %s. Sleeping %.0f secs...",
                  directory, retry_secs)
         time.sleep(retry_secs)
+
+
+# --------------------------------------------------------------------------
+# Training state
+# --------------------------------------------------------------------------
+
+def state_to_arrays(state: "trainer_lib.TrainState") -> Dict[str, np.ndarray]:
+    """The flat npz dict of a TrainState (checkpointer.py:120-128)."""
+    return _flatten({"params": state.params,
+                     "opt_state": {"accumulators":
+                                   state.opt_state.accumulators},
+                     "step": np.asarray(state.step, np.int32)})
+
+
+def arrays_to_state(flat: Dict[str, np.ndarray],
+                    device: Any = "cpu") -> "trainer_lib.TrainState":
+    """A TrainState on ``device`` from a flat npz dict
+    (checkpointer.py:131-140): a params-only checkpoint gets zero
+    accumulators and step 0, as in the JAX package."""
+    tree = _unflatten_dicts(flat)
+    acc = tree.get("opt_state", {}).get("accumulators")
+    return trainer_lib.make_train_state(
+        tree["params"], acc, int(np.asarray(tree.get("step", 0))), device)
+
+
+def _remove_with_manifest(path: str) -> None:
+    for f in (path, path + MANIFEST_SUFFIX):
+        try:
+            os.remove(f)
+        except OSError:  # already gone
+            pass
+
+
+class Checkpointer:
+    """Rolling-retention training checkpoints (Saver(max_to_keep=3)
+    parity, checkpointer.py:360-481)."""
+
+    def __init__(self, directory: str, max_to_keep: int = 3,
+                 hps: Optional[HParams] = None):
+        self.directory = directory
+        self.max_to_keep = max_to_keep
+        self.hps = hps
+        os.makedirs(directory, exist_ok=True)
+        self._sidecar_pending = hps is not None
+
+    def _write_sidecar(self) -> None:
+        tmp = os.path.join(self.directory, f"hparams.json.tmp{os.getpid()}")
+        with open(tmp, "w", encoding="utf-8") as f:
+            f.write(self.hps.to_json())
+        os.replace(tmp, os.path.join(self.directory, "hparams.json"))
+        self._sidecar_pending = False
+
+    def save(self, state: "trainer_lib.TrainState") -> str:
+        flat = state_to_arrays(state)
+        path = os.path.join(self.directory,
+                            f"{CKPT_PREFIX}-{int(flat['step'])}.npz")
+        if self._sidecar_pending:
+            self._write_sidecar()
+        save_arrays(path, flat)
+        write_index(self.directory, path)
+        self._retain()
+        log.info("saved checkpoint %s", path)
+        return path
+
+    def _retain(self) -> None:
+        ckpts = sorted(
+            glob.glob(os.path.join(self.directory, f"{CKPT_PREFIX}-*.npz")),
+            key=_ckpt_step)
+        for old in ckpts[: max(0, len(ckpts) - self.max_to_keep)]:
+            _remove_with_manifest(old)
+            log.info("removed old checkpoint %s", old)
+
+    def restore(self, path: Optional[str] = None, device: Any = "cpu",
+                ) -> Optional["trainer_lib.TrainState"]:
+        """The state of ``path``, or of the newest loadable checkpoint
+        (falling back over corrupt candidates); None when there is none.
+        An explicit ``path`` that fails verification raises."""
+        if path is not None:
+            verify_manifest(path)
+            return arrays_to_state(load_arrays(path), device)
+        try:
+            _, flat = load_ckpt(self.directory, max_retries=0)
+        except FileNotFoundError:  # no loadable checkpoint
+            return None
+        return arrays_to_state(flat, device)
+
+
+class BestModelSaver:
+    """Eval-side best-model track (run_summarization.py:250-292): keeps ONE
+    ``bestmodel-<step>.npz`` under eval_dir, indexed by
+    ``checkpoint_best``."""
+
+    def __init__(self, eval_dir: str):
+        self.eval_dir = eval_dir
+        os.makedirs(eval_dir, exist_ok=True)
+
+    def __call__(self, params: Any, running_avg_loss: float,
+                 step: int) -> str:
+        path = os.path.join(self.eval_dir, f"bestmodel-{step}.npz")
+        old = glob.glob(os.path.join(self.eval_dir, "bestmodel-*.npz"))
+        save_arrays(path, _flatten(params, "params"))
+        write_index(self.eval_dir, path, BEST_INDEX_FILE)
+        for o in old:
+            if o != path:
+                _remove_with_manifest(o)
+        log.info("saved best model (loss %.4f) to %s", running_avg_loss, path)
+        return path

@@ -1,21 +1,29 @@
 """Command-line entry of the port: the reference's run_summarization.py
-surface, decode mode.
+surface.
 
-    python -m textsummarization_on_flink_tpu_torch --mode=decode \
-        --data_path='.../test_*.bin' --vocab_path=.../vocab \
-        --log_root=/tmp/log --exp_name=myexperiment --single_pass=1
+    python -m textsummarization_on_flink_tpu_torch --mode=train \
+        --model_family=transformer --data_path='.../train_*.bin' \
+        --vocab_path=.../vocab --log_root=/tmp/log --exp_name=myexperiment \
+        --num_steps=1000
 
+  * ``--mode=train``: restore the newest checkpoint of
+    ``<log_root>/<exp_name>/train`` or start from fresh params (``--seed``),
+    then train with checkpoints every 60 s (or ``--checkpoint_steps``) and
+    at the end (run_summarization.py:181-244);
+  * ``--mode=eval``: load the newest training checkpoint, evaluate a
+    batch, update the smoothed loss and save ``bestmodel`` when it
+    improves, again and again (run_summarization.py:247-292);
   * ``--mode=decode``: beam-search decode of chunk files (distinct
     articles per batch, one pass);
   * ``--inference=1``: decode raw text files, one article per file
     (RawTextBatcher path, run_summarization.py:339-348).  The JAX package
     repeats one article across the batch here; the port packs distinct
-    articles, which gives the same per-article results;
-  * ``--mode=train`` / ``--mode=eval`` and the checkpoint-surgery flags
-    are not ported yet and raise NotImplementedError.
+    articles, which gives the same per-article results.
 
-Runs on CUDA unless ``--device=cpu``; with no CUDA device and no
-``--device=cpu`` it raises.
+Training and eval run for the transformer family; the pointer-generator's
+training and the checkpoint-surgery flags raise NotImplementedError
+naming their ROADMAP item.  Runs on CUDA unless ``--device=cpu``; with no
+CUDA device and no ``--device=cpu`` it raises.
 """
 
 from __future__ import annotations
@@ -25,8 +33,11 @@ import os
 import sys
 from typing import List, Optional
 
+from textsummarization_on_flink_tpu_torch.checkpoint import (
+    checkpointer as ckpt_lib,
+)
 from textsummarization_on_flink_tpu_torch.config import (
-    ROADMAP_TRAINING,
+    ROADMAP_PG_TRAINING,
     HParams,
 )
 from textsummarization_on_flink_tpu_torch.data.batcher import Batcher
@@ -38,6 +49,7 @@ from textsummarization_on_flink_tpu_torch.decode.decoder import (
     BeamSearchDecoder,
 )
 from textsummarization_on_flink_tpu_torch.device import resolve_device
+from textsummarization_on_flink_tpu_torch.train import trainer as trainer_lib
 
 log = logging.getLogger(__name__)
 
@@ -45,6 +57,51 @@ log = logging.getLogger(__name__)
 def _dirs(hps: HParams):
     root = os.path.join(hps.log_root or ".", hps.exp_name or "exp")
     return root, os.path.join(root, "train"), os.path.join(root, "eval")
+
+
+def setup_training(hps: HParams, vocab: Vocab,
+                   batcher: Optional[Batcher] = None,
+                   ) -> trainer_lib.TrainState:
+    """run_summarization.py:181-209: restore-or-init, then train with
+    periodic checkpoints (JAX cli.py:47-73).  Returns the final state."""
+    _, train_dir, _ = _dirs(hps)
+    device = resolve_device(hps.device)
+    batcher = batcher or Batcher(hps.data_path, vocab, hps,
+                                 single_pass=hps.single_pass)
+    checkpointer = ckpt_lib.Checkpointer(train_dir, hps=hps)
+    state = checkpointer.restore(device=device)
+    if state is not None:
+        log.info("restored training from step %d", state.step)
+    trainer = trainer_lib.Trainer(hps, vocab.size(), batcher, state=state,
+                                  checkpointer=checkpointer,
+                                  train_dir=train_dir)
+    return trainer.train(num_steps=hps.num_steps)
+
+
+def run_eval(hps: HParams, vocab: Vocab, max_iters: int = 0,
+             batcher: Optional[Batcher] = None) -> float:
+    """run_summarization.py:247-292 (JAX cli.py:76-100): each iteration
+    loads the newest training checkpoint, evaluates one batch, updates
+    the smoothed loss and saves ``bestmodel`` on improvement.
+    max_iters=0 runs forever (the reference's behaviour); tests pass a
+    bound.  Returns the running-average loss."""
+    eval_hps = hps.replace(mode="eval")
+    _, train_dir, eval_dir = _dirs(hps)
+    device = resolve_device(hps.device)
+    batcher = batcher or Batcher(hps.data_path, vocab, eval_hps,
+                                 single_pass=False)
+    evaluator = trainer_lib.Evaluator(
+        eval_hps, batcher, eval_dir=eval_dir,
+        best_saver=ckpt_lib.BestModelSaver(eval_dir))
+    iters = 0
+    while True:
+        path, flat = ckpt_lib.load_ckpt(train_dir)
+        state = ckpt_lib.arrays_to_state(flat, device)
+        log.info("evaluating checkpoint %s (step %d)", path, state.step)
+        evaluator.run(state.params, state.step, max_batches=1)
+        iters += 1
+        if max_iters and iters >= max_iters:
+            return evaluator.running_avg_loss
 
 
 def run_decode(hps: HParams, vocab: Vocab,
@@ -76,12 +133,19 @@ def main(argv: Optional[List[str]] = None) -> int:
              hps.device)
     if hps.convert_to_coverage_model or hps.restore_best_model:
         raise NotImplementedError(
-            f"checkpoint surgery is not ported yet: {ROADMAP_TRAINING}")
-    if hps.mode in ("train", "eval") and not hps.inference:
+            f"checkpoint surgery is not ported yet: {ROADMAP_PG_TRAINING}")
+    training = hps.mode in ("train", "eval") and not hps.inference
+    if training and hps.model_family == "pointer_generator":
         raise NotImplementedError(
-            f"--mode={hps.mode} is not ported yet: {ROADMAP_TRAINING}")
+            f"pointer-generator training is not ported yet: "
+            f"{ROADMAP_PG_TRAINING}")
     vocab = Vocab(hps.vocab_path, hps.vocab_size)
-    run_decode(hps, vocab)
+    if not training:
+        run_decode(hps, vocab)
+    elif hps.mode == "train":
+        setup_training(hps, vocab)
+    else:
+        run_eval(hps, vocab)
     return 0
 
 

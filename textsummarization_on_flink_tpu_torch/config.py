@@ -1,26 +1,31 @@
 """Typed hyperparameters for the PyTorch port.
 
 A copy of the part of ``textsummarization_on_flink_tpu/config.py`` that
-the beam-decode serving path reads: the reference's flag names and
-defaults (run_summarization.py:48-88), the static OOV budget, and the
-``--flag=value`` argv parser.  The port adds one field, ``device``:
-entry points run on ``cuda`` unless the caller asks for ``cpu``.
+the port's paths read (beam decode, training and eval): the reference's
+flag names and defaults (run_summarization.py:48-88), the static OOV
+budget, the training cadence fields, and the ``--flag=value`` argv
+parser.  The port adds one field, ``device``: entry points run on
+``cuda`` unless the caller asks for ``cpu``.
 
 Fields of the JAX package that steer paths this package does not have
-yet (mesh axes, serving engines, speculative tiers, training options)
-are left out; ``from_argv`` ignores unknown flags, as the reference's
-``FLAGS(known_only=True)`` does.
+yet (mesh axes, serving engines, speculative tiers, remat, divergence
+recovery, prefetching) are left out; ``from_argv`` ignores unknown
+flags, as the reference's ``FLAGS(known_only=True)`` does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 from typing import Any, Dict, List
 
-#: ROADMAP.md names the queue item that brings each missing mode or
-#: family; error messages point there
-ROADMAP_TRAINING = "ROADMAP.md queue 1, item 1 (training)"
+#: ROADMAP.md names the queue item that brings each missing mode, option
+#: or family; error messages point there
+ROADMAP_PG_TRAINING = ("ROADMAP.md queue 1, item 1 (pointer-generator "
+                       "training and checkpoint surgery)")
+ROADMAP_LOSS_CHUNK = "ROADMAP.md queue 1, item 2a (streaming --loss_chunk)"
+ROADMAP_BF16 = "ROADMAP.md queue 1, item 2b (bfloat16 compute_dtype)"
 ROADMAP_BF16_CACHE = "ROADMAP.md queue 2, item 6 (bf16 decode KV cache)"
 ROADMAP_AAN = ("ROADMAP.md queue 1, item 5 (AAN draft, speculative decode, "
                "distillation)")
@@ -34,6 +39,7 @@ class HParams:
 
     # Important settings (run_summarization.py:52-56)
     mode: str = "train"  # train / eval / decode
+    num_steps: int = 0  # 0 = never stop
     single_pass: bool = False
     inference: bool = False  # decode from raw text files
 
@@ -50,22 +56,38 @@ class HParams:
     beam_size: int = 4
     min_dec_steps: int = 35
     vocab_size: int = 50000
+    lr: float = 0.15
+    adagrad_init_acc: float = 0.1
     rand_unif_init_mag: float = 0.02
     trunc_norm_init_std: float = 1e-4
+    max_grad_norm: float = 2.0
 
     # Pointer-generator / coverage (run_summarization.py:76-81)
     pointer_gen: bool = True
     coverage: bool = False
+    cov_loss_wt: float = 1.0
 
     # Checkpoint surgery flags (run_summarization.py:83-85): parsed so the
-    # CLI can refuse them until the training slice ports them
+    # CLI can refuse them until the pointer-generator training slice
+    # ports them
     convert_to_coverage_model: bool = False
     restore_best_model: bool = False
 
-    # additions of the JAX package that the decode path reads
+    # Debugging (run_summarization.py:88): the trainer dumps the batch of
+    # a non-finite loss to <train_dir>/nan_batch_step<N>.npz
+    debug: bool = False
+
+    # additions of the JAX package that the port's paths read
     max_oov_buckets: int = 128  # static extended-vocab budget
     compute_dtype: str = "float32"
+    seed: int = 111  # the reference seeds tf at 111 (run_summarization.py:329)
     model_family: str = "pointer_generator"
+    # checkpoint cadence in steps; 0 keeps the wall-clock cadence
+    # (save_model_secs=60, run_summarization.py:198)
+    checkpoint_steps: int = 0
+    # > 0: the streaming chunked vocab loss (JAX config.py:92-100); not
+    # ported yet, 0 keeps the materialised loss
+    loss_chunk: int = 0
 
     # transformer family (JAX config.py:77-83): hidden_dim is d_model,
     # embeddings are tied, ffn_dim=0 means 4*hidden_dim
@@ -82,6 +104,9 @@ class HParams:
 
     def replace(self, **kw: Any) -> "HParams":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), sort_keys=True)
 
     @property
     def ffn_width(self) -> int:
@@ -140,8 +165,13 @@ class HParams:
         if self.compute_dtype != "float32":
             raise NotImplementedError(
                 f"compute_dtype={self.compute_dtype!r}: the port computes in "
-                f"float32 only; bfloat16 streams come with "
-                f"{ROADMAP_TRAINING}")
+                f"float32 only; {ROADMAP_BF16}")
+        if self.loss_chunk > 0:
+            raise NotImplementedError(
+                f"loss_chunk={self.loss_chunk}: the port computes the "
+                f"materialised loss only; {ROADMAP_LOSS_CHUNK}")
+        if self.loss_chunk < 0:
+            raise ValueError("loss_chunk must be >= 0")
         if self.max_dec_steps < 1 or self.max_enc_steps < 1:
             raise ValueError("max_enc_steps/max_dec_steps must be >= 1")
         if self.min_dec_steps >= self.max_dec_steps:

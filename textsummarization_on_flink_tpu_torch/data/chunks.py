@@ -1,20 +1,77 @@
-"""Reader for length-prefixed chunk files of serialized tf.Example records.
+"""Length-prefixed chunk files of serialized tf.Example records.
 
-The read half of the JAX package's data/chunks.py and data/tfexample.py,
-enough for ``--mode=decode`` over chunk files: each record is an 8-byte
+A copy of the part of the JAX package's data/chunks.py and
+data/tfexample.py that the port's paths need: each record is an 8-byte
 little-endian signed length followed by that many bytes of a serialized
-``tf.train.Example`` (reference data.py:108-141).  Only bytes features
-are decoded (``article`` and ``abstract`` are all decode reads); writing
-chunk files stays in the JAX package's ETL.
+``tf.train.Example`` (reference data.py:108-141 reader,
+make_datafiles.py:150-209 writer).  Only bytes features are encoded and
+decoded (``article`` and ``abstract`` are all the batcher reads); a
+feature is a ``{name: [bytes or str, ...]}`` entry of a dict, so
+``read_chunk_file`` gives back what ``write_chunk_file`` was given.
 """
 
 from __future__ import annotations
 
 import glob
 import struct
-from typing import Dict, Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Sequence, Tuple, Union
 
 _WIRE_VARINT, _WIRE_I64, _WIRE_LEN, _WIRE_I32 = 0, 1, 2, 5
+
+Features = Dict[str, Sequence[Union[bytes, str]]]
+
+
+def _write_varint(out: bytearray, value: int) -> None:
+    while True:
+        b = value & 0x7F
+        value >>= 7
+        if value:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return
+
+
+def _write_len_delimited(out: bytearray, field: int, payload: bytes) -> None:
+    _write_varint(out, (field << 3) | _WIRE_LEN)
+    _write_varint(out, len(payload))
+    out.extend(payload)
+
+
+def serialize_bytes_features(features: Features) -> bytes:
+    """One tf.Example of bytes_list features, in the dict's order
+    (tfexample.py:36-104 and Example.serialize): Example{features=1} ->
+    Features{map feature=1} -> Feature{bytes_list=1} -> BytesList{value=1}.
+    An empty list encodes as an empty bytes_list."""
+    feats = bytearray()
+    for key, values in features.items():
+        blist = bytearray()
+        for v in values:
+            _write_len_delimited(blist, 1,
+                                 v.encode("utf-8") if isinstance(v, str)
+                                 else bytes(v))
+        feature = bytearray()
+        _write_len_delimited(feature, 1, bytes(blist))
+        entry = bytearray()
+        _write_len_delimited(entry, 1, key.encode("utf-8"))
+        _write_len_delimited(entry, 2, bytes(feature))
+        _write_len_delimited(feats, 1, bytes(entry))
+    out = bytearray()
+    _write_len_delimited(out, 1, bytes(feats))
+    return bytes(out)
+
+
+def write_chunk_file(path: str, examples: Iterable[Features]) -> int:
+    """Write examples to one chunk file (chunks.py:18); returns the record
+    count."""
+    n = 0
+    with open(path, "wb") as f:
+        for ex in examples:
+            blob = serialize_bytes_features(ex)
+            f.write(struct.pack("<q", len(blob)))
+            f.write(blob)
+            n += 1
+    return n
 
 
 def _read_varint(buf: bytes, pos: int) -> Tuple[int, int]:
@@ -93,18 +150,29 @@ def read_chunk_file(path: str) -> Iterator[Dict[str, List[bytes]]]:
             yield parse_bytes_features(blob)
 
 
-def text_pairs(data_path: str) -> Iterator[Tuple[str, str]]:
+def text_pairs(data_path: str, single_pass: bool = True,
+               ) -> Iterator[Tuple[str, str]]:
     """(article, abstract) strings of every record under the glob, files
-    in sorted order, one pass (single_pass semantics, data.py:108-141);
-    records with an empty article are skipped, as the reference does."""
-    filelist = sorted(glob.glob(data_path))
-    if not filelist:
-        raise FileNotFoundError(f"Error: Empty filelist at {data_path}")
-    for path in filelist:
-        for feats in read_chunk_file(path):
-            article = (feats.get("article") or [b""])[0].decode(
-                "utf-8", errors="replace")
-            abstract = (feats.get("abstract") or [b""])[0].decode(
-                "utf-8", errors="replace")
-            if article:
-                yield article, abstract
+    in sorted order (data.py:108-141); records with an empty article are
+    skipped, as the reference does.  single_pass: one pass; otherwise the
+    file list is read again and again, forever (the JAX package shuffles
+    it each pass, chunks.py:114-123; the port keeps file order,
+    ROADMAP.md queue 1, item 3)."""
+    while True:
+        filelist = sorted(glob.glob(data_path))
+        if not filelist:
+            raise FileNotFoundError(f"Error: Empty filelist at {data_path}")
+        found = False
+        for path in filelist:
+            for feats in read_chunk_file(path):
+                article = (feats.get("article") or [b""])[0].decode(
+                    "utf-8", errors="replace")
+                abstract = (feats.get("abstract") or [b""])[0].decode(
+                    "utf-8", errors="replace")
+                if article:
+                    found = True
+                    yield article, abstract
+        if single_pass:
+            return
+        if not found:  # a repeated pass would spin forever on nothing
+            raise ValueError(f"no record with an article under {data_path}")

@@ -15,6 +15,12 @@
 // That is the einsum path of transformer.py `_mha` (:149-180) on every
 // row; padding query rows attend the real keys, as there.
 //
+// Training also asks for each row's log-sum-exp of its attended scores,
+// lse_i = m_i + log(l_i) ([B, T, nh]; +inf for a row with no key to
+// attend), which the backward kernels (flash_attention_bwd.cu) recompute
+// the probabilities from.  With a null `lse` the kernel is the serving
+// kernel and writes nothing else.
+//
 // What bounds it on an H100: operations.  At the encoder's shape (16
 // articles x 400 positions x 8 heads x hd 32) the two products are
 // 2 * 2 * T^2 * hd * B * nh = 2.6 GFLOP, 39 us at the 67 TFLOP/s f32
@@ -50,6 +56,7 @@
 // ctypes from ops/flash_attention.py.
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace {
 
@@ -85,7 +92,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
                  const float* __restrict__ key_mask, float* __restrict__ out,
-                 int T, int nh, int causal, float sm_scale) {
+                 float* __restrict__ lse, int T, int nh, int causal,
+                 float sm_scale) {
   constexpr int G = HD / 32;             // lanes per query row
   constexpr int kRows = kThreads / G;    // query rows per block
   constexpr int kKeys = HD == 128 ? 32 : 64;  // keys per shared tile
@@ -186,38 +194,43 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  acc[i].w / l);
     o_row[i * G + g] = r;
   }
+  if (lse != nullptr && g == 0)
+    lse[((size_t)b * T + qi) * nh + h] = l > 0.f ? m + logf(l) : INFINITY;
 }
 
 template <int HD>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* key_mask, float* out, int B, int T, int nh,
-                   int causal, float sm_scale, cudaStream_t stream) {
+                   const float* key_mask, float* out, float* lse, int B,
+                   int T, int nh, int causal, float sm_scale,
+                   cudaStream_t stream) {
   constexpr int kRows = kThreads / (HD / 32);
   const dim3 grid((T + kRows - 1) / kRows, nh, B);
   flash_fwd_kernel<HD><<<grid, kThreads, 0, stream>>>(
-      q, k, v, key_mask, out, T, nh, causal, sm_scale);
+      q, k, v, key_mask, out, lse, T, nh, causal, sm_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q, k, v, out [B, T, nh, hd] float32, contiguous, on one device; key_mask
-// [B, T] float32 (1 = real token) or null (every key real).  hd is 32 or
-// 128.  Launches on `stream`; returns the cudaError_t of the launch.
+// [B, T] float32 (1 = real token) or null (every key real); lse [B, T, nh]
+// float32 or null (not written).  hd is 32 or 128.  Launches on `stream`;
+// returns the cudaError_t of the launch.
 extern "C" int ts_flash_attention(const float* q, const float* k,
                                   const float* v, const float* key_mask,
-                                  float* out, int B, int T, int nh, int hd,
-                                  int causal, float sm_scale, void* stream) {
+                                  float* out, float* lse, int B, int T,
+                                  int nh, int hd, int causal, float sm_scale,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 65535)
     return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      return (int)launch<32>(q, k, v, key_mask, out, B, T, nh, causal,
+      return (int)launch<32>(q, k, v, key_mask, out, lse, B, T, nh, causal,
                              sm_scale, st);
     case 128:
-      return (int)launch<128>(q, k, v, key_mask, out, B, T, nh, causal,
-                              sm_scale, st);
+      return (int)launch<128>(q, k, v, key_mask, out, lse, B, T, nh,
+                              causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

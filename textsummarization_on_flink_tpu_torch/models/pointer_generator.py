@@ -12,7 +12,10 @@ attention_decoder.py:138-160) are kept exactly, including the quirk that
 the previous step's attention is recomputed to advance coverage while
 the current step's attention does not advance it.
 
-Training (``forward_train``) comes with the training slice.
+Training (``forward_train``) comes with the pointer-generator training
+slice (config.ROADMAP_PG_TRAINING); the ``TrainOutput`` contract the
+Trainer and Evaluator read is defined here for both families, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -21,7 +24,10 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from textsummarization_on_flink_tpu_torch.config import HParams
+from textsummarization_on_flink_tpu_torch.config import (
+    ROADMAP_PG_TRAINING,
+    HParams,
+)
 from textsummarization_on_flink_tpu_torch.ops import attention as attn_ops
 from textsummarization_on_flink_tpu_torch.ops import lstm as lstm_ops
 
@@ -41,6 +47,26 @@ class DecodeStepOutput(NamedTuple):
     attn_dist: torch.Tensor  # [B, K, T_enc]
     p_gen: torch.Tensor  # [B, K]
     coverage: torch.Tensor  # [B, K, T_enc] (zeros if coverage off)
+
+
+class TrainOutput(NamedTuple):
+    """What a family's forward_train returns (pointer_generator.py
+    TrainOutput of the JAX package)."""
+
+    loss: torch.Tensor  # scalar
+    coverage_loss: torch.Tensor  # scalar (0 when coverage is off)
+    total_loss: torch.Tensor  # loss + cov_loss_wt * coverage_loss
+    attn_dists: torch.Tensor  # [B, T_dec, T_enc]
+    p_gens: torch.Tensor  # [B, T_dec]
+
+
+def forward_train(params: Params, hps: HParams,
+                  arrays: Dict[str, torch.Tensor]) -> TrainOutput:
+    """Not ported yet: the pointer-generator's teacher-forced forward and
+    its attention-backward kernel come with its training slice."""
+    raise NotImplementedError(
+        f"pointer-generator training is not ported yet: "
+        f"{ROADMAP_PG_TRAINING}")
 
 
 class BeamStepOut(NamedTuple):

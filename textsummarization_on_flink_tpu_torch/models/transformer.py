@@ -1,4 +1,4 @@
-"""Transformer summarization family: the decode half.
+"""Transformer summarization family: training and beam decode.
 
 Port of the JAX package's models/transformer.py (pre-LN encoder-decoder,
 learned positions, tied input/output embedding, the final decoder
@@ -9,16 +9,19 @@ are lists, see params.py) and tensors on one device.  The JAX package
 vmaps its beam step over articles; here the article axis B is written
 out and the beam axis K follows it.
 
-The encoder's self-attention goes through ops/flash_attention.py on
-every shape: the CUDA kernel on the card, its plain version on the CPU.
-The JAX package's gate for its TPU flash kernel (``_use_flash``: TS_FLASH,
-128-aligned shapes, T >= 1024) follows from the Mosaic kernel's 128-lane
-tiling and is not read here; neither is its sequence-parallel branch.
+The encoder's self-attention and the training decoder's causal
+self-attention go through ops/flash_attention.py on every shape: the
+CUDA kernels on the card (forward, and in training the dK/dV and dQ
+backward kernels), their plain versions on the CPU.  The JAX package's
+gate for its TPU flash kernel (``_use_flash``: TS_FLASH, 128-aligned
+shapes, T >= 1024) follows from the Mosaic kernel's 128-lane tiling and
+is not read here; neither is its sequence-parallel branch.
 
-Training (``forward_train``), the speculative verifier (``spec_*``), the
-length-masked ``nb`` cross-attention of the slot engine, a factored
-``vocab_head`` and ``decode_cache_dtype=bfloat16`` wait for later slices
-(ROADMAP.md).
+``forward_train`` computes the materialised loss only (``--loss_chunk``
+waits, config.ROADMAP_LOSS_CHUNK), and without ``--remat``.  The
+speculative verifier (``spec_*``), the length-masked ``nb``
+cross-attention of the slot engine, a factored ``vocab_head`` and
+``decode_cache_dtype=bfloat16`` wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ import torch.nn.functional as F
 from textsummarization_on_flink_tpu_torch.config import ROADMAP_AAN, HParams
 from textsummarization_on_flink_tpu_torch.models import pointer_generator as pg
 from textsummarization_on_flink_tpu_torch.ops import flash_attention as fa
+from textsummarization_on_flink_tpu_torch.ops import losses as loss_ops
 
 Params = Dict[str, Any]
 
 NEG = -1e30  # masked-logit floor, never -inf
 
 BeamStepOut = pg.BeamStepOut  # shared beam protocol output type
+TrainOutput = pg.TrainOutput  # same contract for the Trainer/Evaluator
 
 
 def _head_dim(hps: HParams) -> int:
@@ -138,6 +143,81 @@ def _embed_dec(params: Params, hps: HParams, tokens: torch.Tensor,
     return params["embedding"][tokens] + params["pos_dec"][positions][:, None]
 
 
+def _embed_dec_train(params: Params, dec_batch: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced decoder inputs dec_batch [B, T_dec] at positions
+    0 .. T_dec-1 for every article (transformer.py:357)."""
+    T = dec_batch.shape[-1]
+    return params["embedding"][dec_batch] + params["pos_dec"][:T]
+
+
+# --------------------------------------------------------------------------
+# Training forward (fully parallel over decode steps)
+# --------------------------------------------------------------------------
+
+def forward_train(params: Params, hps: HParams,
+                  arrays: Dict[str, torch.Tensor]) -> TrainOutput:
+    """Teacher-forced training/eval forward pass (transformer.py:341-378):
+    the masked-average pointer NLL (or the baseline cross-entropy) and
+    the optional coverage penalty on the final layer's copy attention.
+
+    arrays: a Batch's arrays as tensors (data/batching.py) on the params'
+    device."""
+    enc_mask = arrays["enc_padding_mask"]  # [B, T_enc]
+    x = _embed_enc(params, hps, arrays["enc_batch"])
+    enc_out = _encoder_stack(params, hps, x, enc_mask)
+    y = _embed_dec_train(params, arrays["dec_batch"])
+    cross_mask = enc_mask[:, None, :]  # [B, 1, T_enc]
+    cross_ctx = attn_dist = None
+    for layer in params["decoder"]["layers"]:
+        y = y + _self_attention(hps, layer["self_attn"], _ln(layer["ln1"], y),
+                                None, causal=True)
+        cross_ctx, attn_dist = _mha(hps, layer["cross_attn"],
+                                    _ln(layer["ln_cross"], y), enc_out,
+                                    cross_mask)
+        y = y + cross_ctx
+        y = y + _ffn_block(layer["ffn"], _ln(layer["ln2"], y))
+    h = _ln(params["decoder"]["ln_out"], y)
+    return train_output_tail(params, hps, arrays, h, cross_ctx, attn_dist)
+
+
+def train_output_tail(params: Params, hps: HParams,
+                      arrays: Dict[str, torch.Tensor], h: torch.Tensor,
+                      cross_ctx: torch.Tensor, attn_dist: torch.Tensor,
+                      ) -> TrainOutput:
+    """The loss head (transformer.py:416-480, the materialised branch):
+    p_gen from [h, cross_ctx], the tied vocab projection, the pointer
+    mixture's gold probability (or the baseline cross-entropy when
+    pointer_gen is off), the coverage penalty.
+
+    h [B, T_dec, H] final-LN decoder states; cross_ctx the final layer's
+    cross-attention output; attn_dist its head-averaged copy
+    distribution [B, T_dec, T_enc]."""
+    dec_mask = arrays["dec_padding_mask"]  # [B, T_dec]
+    pl = params["pgen_linear"]
+    p_gens = torch.sigmoid(torch.cat([h, cross_ctx], dim=-1) @ pl["kernel"]
+                           + pl["bias"])[..., 0]  # [B, T_dec]
+    targets = arrays["target_batch"]
+    logits = vocab_scores_of(params, hps, h)  # [B, T_dec, V]
+    if hps.pointer_gen:
+        # step-major views, as the JAX package hands them to the shared
+        # mixture function
+        gold = loss_ops.gold_mixture_prob_from_scores(
+            logits.transpose(0, 1), attn_dist.transpose(0, 1),
+            p_gens.transpose(0, 1), targets.transpose(0, 1),
+            arrays["enc_batch_extend_vocab"]).transpose(0, 1)
+        loss = loss_ops.mask_and_avg(-torch.log(gold + 1e-10), dec_mask)
+    else:
+        loss = loss_ops.softmax_cross_entropy_baseline(logits, targets,
+                                                       dec_mask)
+    if hps.coverage:
+        cov_loss = loss_ops.coverage_loss(attn_dist, dec_mask)
+    else:
+        cov_loss = torch.zeros((), device=h.device)
+    total = loss + hps.cov_loss_wt * cov_loss
+    return TrainOutput(loss=loss, coverage_loss=cov_loss, total_loss=total,
+                       attn_dists=attn_dist, p_gens=p_gens)
+
+
 # --------------------------------------------------------------------------
 # Decoding (KV-cache incremental step + beam adapter)
 # --------------------------------------------------------------------------
@@ -185,11 +265,11 @@ def vocab_scores_of(params: Params, hps: HParams,
                     h: torch.Tensor) -> torch.Tensor:
     """Raw vocabulary scores of final-LN decoder states h [..., H]: the
     tied-embedding projection (transformer.py:381-397)."""
-    del hps
     if "vocab_head" in params:
         raise NotImplementedError(
             f"a factored vocab_head is not ported yet: {ROADMAP_AAN}")
-    return h @ params["embedding"].T + params["out_bias"]
+    return loss_ops.project_scores(h, params["embedding"].T,
+                                   hps.compute_dtype) + params["out_bias"]
 
 
 def decode_output_tail(params: Params, hps: HParams, y: torch.Tensor,

@@ -21,17 +21,30 @@ q, k, v are [B, T, nh, hd] float32 (the layout ``_split_heads`` gives, so
 no transposes), key_mask [B, T] float32 (1 = real token) or None (every
 key real); the output is the context [B, T, nh, hd] before ``wo``.
 
-Dispatch: a CPU tensor goes to ``_flash_plain``; a CUDA tensor goes to
-the kernel (kernels/flash_attention.cu), or the wrapper raises.  There is
-no fallback from one to the other.  ``launches`` counts kernel launches.
-Forward only: serving never differentiates; the backward (dK/dV and dQ)
-comes with the transformer's training slice.
+Training differentiates through ``FlashAttention``, a
+``torch.autograd.Function``: its forward also writes each row's
+log-sum-exp ``lse`` [B, T, nh] (+inf for a row with no key to attend),
+and its backward computes ``D = rowsum(dO * O)`` in PyTorch, as the
+library does outside its kernels (flash_attention.py:273-275 of the
+installed jax), then launches the dK/dV kernel and the dQ kernel
+(kernels/flash_attention_bwd.cu; the library's
+``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``).
+``_flash_bwd_plain`` is the explicit backward formula in plain PyTorch,
+the plain version of both backward kernels.
+
+Dispatch: a CPU tensor goes to the plain versions; a CUDA tensor goes to
+the kernels (kernels/flash_attention.cu, kernels/flash_attention_bwd.cu),
+or the wrapper raises.  There is no fallback from one to the other.
+``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq`` count kernel
+launches.  ``flash_attention`` takes the Function only when a gradient is
+needed; under ``torch.no_grad`` (serving) it launches the forward alone,
+without ``lse``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,11 +55,15 @@ NEG = -1e30  # masked-logit floor (transformer._mha), never -inf
 #: head dims the kernel is built for (the switch in ts_flash_attention)
 HEAD_DIMS = (32, 128)
 
-#: kernel launches so far (one per wrapper call on CUDA tensors); set it
-#: to 0 before a run whose launches are to be counted
+#: kernel launches so far (one per forward on CUDA tensors, one per
+#: backward for each backward kernel); set them to 0 before a run whose
+#: launches are to be counted
 launches = 0
+launches_bwd_dkv = 0
+launches_bwd_dq = 0
 
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def _allowed(key_mask: Optional[torch.Tensor], causal: bool, B: int, T: int,
@@ -61,19 +78,62 @@ def _allowed(key_mask: Optional[torch.Tensor], causal: bool, B: int, T: int,
     return ok.expand(B, 1, T, T)
 
 
+def _masked_logits(q, k, key_mask, causal, sm_scale):
+    """([B, nh, T, T] scores at NEG where a row may not attend, the
+    [B, 1, T, T] attend mask)."""
+    B, T = q.shape[:2]
+    logits = torch.einsum("bqnd,bknd->bnqk", q, k) * sm_scale
+    ok = _allowed(key_mask, causal, B, T, q.device)
+    return torch.where(ok, logits, NEG), ok
+
+
 def _flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  key_mask: Optional[torch.Tensor], causal: bool,
                  sm_scale: float) -> torch.Tensor:
     """The einsum formula in plain PyTorch (the [B, nh, T, T] scores are
     materialised).  Returns [B, T, nh, hd] float32."""
-    B, T = q.shape[:2]
-    logits = torch.einsum("bqnd,bknd->bnqk", q, k) * sm_scale
-    ok = _allowed(key_mask, causal, B, T, q.device)
-    logits = torch.where(ok, logits, NEG)
+    logits, ok = _masked_logits(q, k, key_mask, causal, sm_scale)
     probs = torch.softmax(logits, dim=-1)
     # a row with no key to attend: uniform over -1e30 logits -> zeros
     probs = torch.where(ok.any(dim=-1, keepdim=True), probs, 0.0)
     return torch.einsum("bnqk,bknd->bqnd", probs, v)
+
+
+def _flash_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                     key_mask: Optional[torch.Tensor], causal: bool,
+                     sm_scale: float) -> torch.Tensor:
+    """Each row's log-sum-exp of its attended scores, [B, T, nh]; +inf
+    for a row with no key to attend (the forward kernel's lse)."""
+    logits, ok = _masked_logits(q, k, key_mask, causal, sm_scale)
+    lse = torch.logsumexp(logits, dim=-1)  # [B, nh, T]
+    lse = torch.where(ok.any(dim=-1), lse, float("inf"))
+    return lse.transpose(1, 2).contiguous()
+
+
+def _flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                     key_mask: Optional[torch.Tensor], causal: bool,
+                     sm_scale: float,
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward formula in plain PyTorch, the plain version of both
+    backward kernels: (dq, dk, dv), each [B, T, nh, hd].
+
+    P = exp(s - lse) on the pairs a row may attend (0 elsewhere, and on
+    a whole row whose lse is +inf), D = rowsum(dO * O),
+    dS = P * (dO . v - D); dv = P^T dO, dk = scale * dS^T q,
+    dq = scale * dS k."""
+    logits, ok = _masked_logits(q, k, key_mask, causal, sm_scale)
+    lse_r = lse.transpose(1, 2)[..., None]  # [B, nh, T, 1]
+    row_ok = torch.isfinite(lse_r)
+    p = torch.where(ok & row_ok, torch.exp(logits - torch.where(
+        row_ok, lse_r, 0.0)), 0.0)
+    d = torch.sum(do * out, dim=-1).transpose(1, 2)[..., None]
+    dp = torch.einsum("bqnd,bknd->bnqk", do, v)
+    ds = p * (dp - d)
+    dv = torch.einsum("bnqk,bqnd->bknd", p, do)
+    dk = torch.einsum("bnqk,bqnd->bknd", ds, q) * sm_scale
+    dq = torch.einsum("bnqk,bknd->bqnd", ds, k) * sm_scale
+    return dq, dk, dv
 
 
 def _load_library() -> ctypes.CDLL:
@@ -84,7 +144,7 @@ def _load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build.build("flash_attention"))
         fn = lib.ts_flash_attention
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
             + [ctypes.c_float, ctypes.c_void_p]
         lib.ts_flash_error_string.restype = ctypes.c_char_p
         lib.ts_flash_error_string.argtypes = [ctypes.c_int]
@@ -92,17 +152,34 @@ def _load_library() -> ctypes.CDLL:
     return _lib
 
 
-def _flash_cuda(q, k, v, key_mask, causal, sm_scale):
-    """Launch the kernel; same contract as _flash_plain."""
-    global launches
+def _load_bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        from textsummarization_on_flink_tpu_torch.kernels import build
+
+        lib = ctypes.CDLL(build.build("flash_attention_bwd"))
+        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        lib.ts_flash_bwd_dkv.restype = ctypes.c_int
+        lib.ts_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + tail
+        lib.ts_flash_bwd_dq.restype = ctypes.c_int
+        lib.ts_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + tail
+        lib.ts_flash_bwd_error_string.restype = ctypes.c_char_p
+        lib.ts_flash_bwd_error_string.argtypes = [ctypes.c_int]
+        _bwd_lib = lib
+    return _bwd_lib
+
+
+def _check_inputs(what: str, tensors, key_mask) -> None:
+    """Device, type, shape, contiguity and alignment of [B, T, nh, hd]
+    float32 inputs (the first one sets the shape) and the key mask."""
+    q = tensors[0][1]
     dev = q.device
     if dev.type != "cuda":
-        raise ValueError(f"the flash attention kernel needs CUDA tensors, "
-                         f"got {dev}")
+        raise ValueError(f"the {what} kernel needs CUDA tensors, got {dev}")
     if q.dim() != 4:
         raise ValueError(f"q must be [B, T, nh, hd], got {tuple(q.shape)}")
     B, T, nh, hd = q.shape
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in tensors:
         _check(name, x, (B, T, nh, hd), (torch.float32,), dev)
         if x.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
@@ -113,26 +190,128 @@ def _flash_cuda(q, k, v, key_mask, causal, sm_scale):
                          f"{HEAD_DIMS}")
     if B == 0 or T == 0 or nh == 0:
         raise ValueError(f"empty attention input (B={B}, T={T}, nh={nh})")
+
+
+def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False):
+    """Launch the forward kernel; same contract as _flash_plain.  With
+    ``with_lse`` returns (out, lse [B, T, nh])."""
+    global launches
+    _check_inputs("flash attention", (("q", q), ("k", k), ("v", v)),
+                  key_mask)
+    dev = q.device
+    B, T, nh, hd = q.shape
     out = torch.empty_like(q)
+    lse = torch.empty((B, T, nh), device=dev) if with_lse else None
     lib = _load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ts_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if key_mask is None else key_mask.data_ptr(), out.data_ptr(),
+            0 if lse is None else lse.data_ptr(),
             B, T, nh, hd, int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         raise RuntimeError("flash attention kernel launch failed: "
                            + lib.ts_flash_error_string(err).decode())
     launches += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
+    """Launch the dK/dV kernel: (dk, dv).  dsum = rowsum(dO * O)
+    [B, T, nh]."""
+    global launches_bwd_dkv
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _load_bwd_library()
+    B, T, nh, hd = q.shape
+    with torch.cuda.device(q.device):
+        err = lib.ts_flash_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(),
+            0 if key_mask is None else key_mask.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, T, nh, hd, int(bool(causal)), float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash attention dK/dV kernel launch failed: "
+                           + lib.ts_flash_bwd_error_string(err).decode())
+    launches_bwd_dkv += 1
+    return dk, dv
+
+
+def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
+    """Launch the dQ kernel: dq."""
+    global launches_bwd_dq
+    dq = torch.empty_like(q)
+    lib = _load_bwd_library()
+    B, T, nh, hd = q.shape
+    with torch.cuda.device(q.device):
+        err = lib.ts_flash_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(),
+            0 if key_mask is None else key_mask.data_ptr(), dq.data_ptr(),
+            B, T, nh, hd, int(bool(causal)), float(sm_scale),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("flash attention dQ kernel launch failed: "
+                           + lib.ts_flash_bwd_error_string(err).decode())
+    launches_bwd_dq += 1
+    return dq
+
+
+def _flash_bwd_cuda(q, k, v, out, lse, do, key_mask, causal, sm_scale):
+    """D = rowsum(dO * O) in PyTorch (flash_attention.py:273-275 of the
+    installed jax), then the dK/dV kernel and the dQ kernel; same contract
+    as _flash_bwd_plain."""
+    _check_inputs("flash attention backward",
+                  (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)),
+                  key_mask)
+    B, T, nh, _ = q.shape
+    _check("lse", lse, (B, T, nh), (torch.float32,), q.device)
+    dsum = torch.sum(do * out, dim=-1)  # [B, T, nh], contiguous
+    dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal,
+                           sm_scale)
+    dq = _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Self-attention context with a kernel backward (the library's
+    custom_vjp, flash_attention.py:254-318).  CPU tensors take the plain
+    forward and backward, CUDA tensors the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal, sm_scale):
+        if q.device.type == "cpu":
+            out = _flash_plain(q, k, v, key_mask, causal, sm_scale)
+            lse = _flash_lse_plain(q, k, key_mask, causal, sm_scale)
+        else:
+            out, lse = _flash_cuda(q, k, v, key_mask, causal, sm_scale,
+                                   with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, key_mask)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, key_mask = ctx.saved_tensors
+        # the cotangent may arrive strided (from _merge_heads and the wo
+        # matmul's backward); the kernels read contiguous rows
+        do = do.contiguous()
+        bwd = _flash_bwd_plain if q.device.type == "cpu" else _flash_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, out, lse, do, key_mask, ctx.causal,
+                         ctx.sm_scale)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     key_mask: Optional[torch.Tensor], causal: bool,
                     sm_scale: float) -> torch.Tensor:
     """Self-attention context [B, T, nh, hd] (see the module docstring).
-    CPU tensors take the plain version, CUDA tensors the kernel."""
+    CPU tensors take the plain versions, CUDA tensors the kernels; the
+    autograd Function only when a gradient is needed."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, key_mask, causal, sm_scale)
     if q.device.type == "cpu":
         return _flash_plain(q, k, v, key_mask, causal, sm_scale)
     return _flash_cuda(q, k, v, key_mask, causal, sm_scale)

@@ -2,19 +2,23 @@
 
 ``from_numpy_tree`` takes the JAX package's params as numpy (for example
 ``jax.device_get(init_params(...))``, or the ``params`` subtree of an
-unflattened checkpoint) and returns the port's tree on a device.
-``init_params`` builds a fresh tree of the same names and shapes as the
-family's ``init_params`` (``models/pointer_generator.py`` :88-133,
-``models/transformer.py`` :73-125; ``hps.model_family`` picks) with the
-same initializer families, drawn with numpy from a seed.  The
-values differ from the JAX package's for the same seed (jax.random and
+unflattened checkpoint) and returns the port's tree on a device
+(checkpoint/checkpointer.py writes tensors back as numpy).
+``tree_leaves`` and ``tree_map`` walk a tree in the order
+``jax.tree_util`` does (dict keys sorted, lists in order), so sums over
+leaves (the global gradient norm) add in the JAX package's order and
+two trees of one structure pair leaf by leaf.  ``init_params`` builds a
+fresh tree of the same names and shapes as the family's ``init_params``
+(``models/pointer_generator.py`` :88-133, ``models/transformer.py``
+:73-125; ``hps.model_family`` picks) with the same initializer
+families, drawn with numpy from a seed.  The values differ from the JAX package's for the same seed (jax.random and
 numpy are different generators); tests that compare the two packages
 hand both the same numpy tree.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List
 
 import numpy as np
 import torch
@@ -42,6 +46,28 @@ def from_numpy_tree(tree: Any, device: Any = "cpu",
         return torch.from_numpy(np.ascontiguousarray(arr)).to(
             device=device, dtype=dtype)
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device=device)
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    """The leaves of a nested dict/list, dict keys sorted (the order of
+    jax.tree_util.tree_leaves)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """fn over the leaves of one or more trees of the same structure;
+    the result has the first tree's structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
 
 
 def _trunc_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:

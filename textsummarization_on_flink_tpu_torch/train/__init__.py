@@ -1,0 +1,2 @@
+"""Training of the port: TF1 Adagrad with global-norm clipping, the train
+step, the training loop and the eval loop."""
