@@ -13,7 +13,10 @@ device or without the port's sources beside it.  Phases, each fatal:
      (one nvcc per source, all at once) and time the build;
   3. hold each kernel against its plain PyTorch version on the card at
      the main paths' shapes; print errors, CUDA-event times, the bound
-     and, where one PyTorch call computes the same function, its time:
+     (the flash kernels' operations at the f32-accurate tensor-core rate,
+     PEAK_TF32X3_OPS_PER_S) and, where one PyTorch call computes the same
+     function, its time; then the flash kernels' largest errors beside
+     those of the f32 SIMT kernels the 3xTF32 ones replaced:
      a. the fused additive attention, both dtypes, coverage on and off,
         with a fully masked row;
      b. the flash self-attention at the transformer encoder's shape
@@ -68,6 +71,16 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # (non-tensor-core) operations/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+# The flash kernels' products run on the tensor cores at f32 accuracy
+# (3xTF32, kernels/mma_tf32x3.cuh): three TF32 products per f32 product,
+# so the least time for their operations is at 495 TFLOP/s (dense TF32)
+# over 3.  The f32 rate above would let a 3xTF32 kernel beat its bound.
+PEAK_TF32X3_OPS_PER_S = 495e12 / 3
+
+# each flash kernel's largest error against its plain version over phase
+# 3's shapes with the f32 SIMT kernels, before the 3xTF32 redesign
+# (PERF.md), printed beside this run's
+SIMT_MAX_ABS_ERR = dict(forward=1.6e-6, dq=3.2e-6, dk=2.9e-6, dv=2.4e-6)
 
 ATTN_TOL = 1e-5  # f32 math on both sides; only the order of sums differs
 
@@ -90,11 +103,21 @@ def card_line() -> str:
     return out[0]
 
 
+#: clock cycles the card spins between the L2 flush and the start event
+#: (~0.25 ms): long enough for the host to enqueue the timed launch
+SPIN_CYCLES = 500_000
+
+
 def time_cuda(fn, iters: int, flush) -> float:
     """Median milliseconds of fn() over iters launches, each timed with
     CUDA events and preceded by a write of a buffer larger than the L2
     cache (the decode step's other traffic evicts the encoder, so the
-    kernel meets it cold)."""
+    kernel meets it cold).  Between the flush and the start event the
+    card spins (torch.cuda._sleep) while the host enqueues the launch, so
+    the time is the card's alone: without the spin the card, done with the
+    flush, waited for the host's wrapper, and a kernel of a few tens of
+    microseconds was timed with its launch overhead (PERF.md: the
+    harness)."""
     import torch
 
     for _ in range(3):
@@ -102,6 +125,7 @@ def time_cuda(fn, iters: int, flush) -> float:
     times = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -223,9 +247,10 @@ def flash_inputs(B, T, nh, hd, seed, masked):
 def flash_bound_ms(q, key_mask, causal):
     """Least time for the function on an H100: the larger of bytes moved
     (q, k, v and the mask read once, the output written once) over the
-    memory rate and the operations this run's data needs over the f32
-    peak: 4 * hd operations (two multiply-adds) per (query row, head, key
-    it may attend), counted from the mask and the causal triangle."""
+    memory rate and the operations this run's data needs over the
+    f32-accurate tensor-core rate (PEAK_TF32X3_OPS_PER_S): 4 * hd
+    operations (two multiply-adds) per (query row, head, key it may
+    attend), counted from the mask and the causal triangle."""
     import torch
 
     B, T, nh, hd = q.shape
@@ -239,7 +264,7 @@ def flash_bound_ms(q, key_mask, causal):
     nbytes = 4 * 4 * B * T * nh * hd + (4 * B * T if key_mask is not None
                                         else 0)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / PEAK_TF32X3_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
 
@@ -304,7 +329,9 @@ def flash_bwd_bounds(q, key_mask, causal):
     updates) over q, k, v, out, dO, lse, the mask and dq, dk, dv; the
     dK/dV kernel's function, 8 * hd over q, k, v, dO, lse, D, the mask and
     dk, dv; the dQ kernel's, 6 * hd over q, k, v, dO, lse, D, the mask
-    and dq.  Returns {name: (ms, bound_by)}."""
+    and dq.  Operations at PEAK_TF32X3_OPS_PER_S, for all three (the dQ
+    kernel is f32 SIMT still, but its function is the same; its redesign
+    is next).  Returns {name: (ms, bound_by)}."""
     B, T, nh, hd = q.shape
     _, _, _, fwd_ops = flash_bound_ms(q, key_mask, causal)
     head_pairs = fwd_ops / (4 * hd)  # (row, head, attended key) triples
@@ -315,7 +342,7 @@ def flash_bwd_bounds(q, key_mask, causal):
     for name, n_big, n_row, ops_per in (("backward", 8, 1, 10),
                                         ("dkv", 6, 2, 8), ("dq", 5, 2, 6)):
         t_bytes = (n_big * big + n_row * row + mask) / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops_per * hd * head_pairs / PEAK_F32_OPS_PER_S * 1e3
+        t_ops = ops_per * hd * head_pairs / PEAK_TF32X3_OPS_PER_S * 1e3
         out[name] = (max(t_bytes, t_ops),
                      "bytes" if t_bytes >= t_ops else "operations")
     return out
@@ -408,7 +435,7 @@ def phase_flash_bwd(seed):
                 fl._flash_lse_plain(q, k, mask, causal, scale)), 10, flush)
             _, _, nbytes, ops = flash_bound_ms(q, mask, causal)
             t_bytes = (nbytes + 4 * B * T * nh) / PEAK_BYTES_PER_S * 1e3
-            t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+            t_ops = ops / PEAK_TF32X3_OPS_PER_S * 1e3
             with torch.no_grad():
                 fwd_library_ms = time_cuda(
                     lambda: F.scaled_dot_product_attention(
@@ -893,6 +920,10 @@ def main(argv=None) -> int:
     main_row, worst = phase_attention(args.seed)
     flash_row, flash_worst = phase_flash(args.seed)
     bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
+    print("errors_vs_simt " + json.dumps({
+        name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
+        for name, now in (("forward", flash_worst), ("dq", bwd_worst["dq"]),
+                          ("dk", bwd_worst["dk"]), ("dv", bwd_worst["dv"]))}))
     for family in ("pointer_generator", "transformer"):
         phase_small_reference(args.seed, family)
     phase_small_training(args.seed)

@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""CUDA-event times of the port's flash kernels at chip_smoke.py's
+phase-3 shapes, for comparing two checkouts on one card.
+
+    python3 scripts/torch_flash_bench.py [--seed N] [--iters N] [--tag T]
+
+Needs one CUDA card.  It times whichever package comes first on the
+import path: put another checkout on PYTHONPATH to time its kernels with
+this script (the repo root is appended to sys.path, so a PYTHONPATH
+checkout wins).  Shapes (as in chip_smoke.py phase 3): the forward
+without lse at 16x400x8x32 (key mask; causal) and 4x2048x8x128 (key
+mask; causal); the forward with lse at 16x400x8x32 (key mask) and
+16x100x8x32 (causal); the dK/dV and dQ kernels at those two and at
+4x2048x8x128 (key mask; causal).  Each time is the median of --iters
+launches, each after a write of 96 MB (more than the L2 cache), timed
+with CUDA events by this checkout's chip_smoke.time_cuda (also when the
+kernels come from another checkout).  Prints the card's name and power
+limit, the package's path, and one JSON line per (kernel, shape).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.append(ROOT)  # a PYTHONPATH checkout of the package comes first
+
+
+def _this_chip_smoke():
+    """chip_smoke.py beside this script, whatever is on PYTHONPATH: both
+    checkouts are timed with the same harness."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+FWD = [(16, 400, 8, 32, False), (16, 400, 8, 32, True),
+       (4, 2048, 8, 128, False), (4, 2048, 8, 128, True)]
+LSE = [(16, 400, 8, 32, False), (16, 100, 8, 32, True)]
+BWD = LSE + [(4, 2048, 8, 128, False), (4, 2048, 8, 128, True)]
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--tag", default="")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_flash_bench: no CUDA device", file=sys.stderr)
+        return 1
+    chip_smoke = _this_chip_smoke()
+    from textsummarization_on_flink_tpu_torch.device import resolve_device
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    resolve_device("cuda")
+    print(chip_smoke.card_line())
+    print(os.path.dirname(os.path.dirname(os.path.abspath(fl.__file__))))
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")
+
+    def emit(kernel, shape, ms):
+        B, T, nh, hd, causal = shape
+        print(json.dumps(dict(tag=args.tag, kernel=kernel,
+                              shape=f"{B}x{T}x{nh}x{hd}", causal=causal,
+                              key_mask=not causal, ms=ms)))
+
+    for shape in FWD:
+        B, T, nh, hd, causal = shape
+        q, k, v, mask = chip_smoke.flash_inputs(B, T, nh, hd, args.seed,
+                                                not causal)
+        emit("forward", shape, chip_smoke.time_cuda(
+            lambda: fl._flash_cuda(q, k, v, mask, causal, hd ** -0.5),
+            args.iters, flush))
+    for shape in BWD:
+        B, T, nh, hd, causal = shape
+        q, k, v, mask = chip_smoke.flash_inputs(B, T, nh, hd, args.seed,
+                                                not causal)
+        scale = hd ** -0.5
+        if shape in LSE:
+            emit("forward_lse", shape, chip_smoke.time_cuda(
+                lambda: fl._flash_cuda(q, k, v, mask, causal, scale,
+                                       with_lse=True), args.iters, flush))
+        out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
+                                  with_lse=True)
+        do = torch.randn_like(q)
+        dsum = torch.sum(do * out, dim=-1)
+        emit("bwd_dkv", shape, chip_smoke.time_cuda(
+            lambda: fl._bwd_dkv_cuda(q, k, v, do, lse, dsum, mask, causal,
+                                     scale), args.iters, flush))
+        emit("bwd_dq", shape, chip_smoke.time_cuda(
+            lambda: fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, causal,
+                                    scale), args.iters, flush))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

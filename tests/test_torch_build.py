@@ -1,0 +1,57 @@
+"""The kernel build's library names (kernels/build.py), on the CPU: a
+library is named by a hash of its source, every ``kernels/*.cuh`` header
+and the nvcc flags, so an edited source or header never loads a stale
+build.  No nvcc is needed: only the names are computed."""
+
+import os
+
+import pytest
+
+from textsummarization_on_flink_tpu_torch.kernels import build
+
+
+@pytest.fixture
+def kernel_dir(tmp_path, monkeypatch):
+    """A kernel directory with one source and one header, in place of the
+    package's own."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// v1\n")
+    monkeypatch.setattr(build, "KERNEL_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    return tmp_path
+
+
+def _lib_name(name="k"):
+    return os.path.basename(build._paths(name)[1])
+
+
+def test_library_name_is_stable(kernel_dir):
+    assert _lib_name() == _lib_name()
+    assert _lib_name().startswith("libk_") and _lib_name().endswith(".so")
+
+
+@pytest.mark.parametrize("edit", ["h.cuh", "k.cu", "new.cuh"])
+def test_editing_the_source_or_any_header_renames_the_library(kernel_dir,
+                                                               edit):
+    before = _lib_name()
+    path = kernel_dir / edit
+    path.write_text((path.read_text() if path.exists() else "") + "// v2\n")
+    assert _lib_name() != before
+
+
+def test_other_files_do_not_rename_the_library(kernel_dir):
+    before = _lib_name()
+    (kernel_dir / "notes.txt").write_text("not a kernel header\n")
+    (kernel_dir / "other.cu").write_text("// another source\n")
+    assert _lib_name() == before
+
+
+def test_package_sources_hash_their_headers():
+    """The package's flash sources include mma_tf32x3.cuh, which lies in
+    the kernel directory the digest reads."""
+    assert os.path.exists(os.path.join(build.KERNEL_DIR, "mma_tf32x3.cuh"))
+    for name in ("flash_attention", "flash_attention_bwd"):
+        src, lib, log = build._paths(name)
+        with open(src, encoding="utf-8") as f:
+            assert '#include "mma_tf32x3.cuh"' in f.read()
+        assert lib.startswith(build.BUILD_DIR) and log.endswith(".log")

@@ -74,12 +74,13 @@ def test_kernel_rejects_bad_inputs_on_card():
         fa.fused_attention_shared(*bad, True)
 
 
-def _flash_inputs(B, T, nh, hd, seed=0, empty_article=True):
-    """q, k, v [B, T, nh, hd] at attention scale and a ragged key mask
-    (article 1 fully masked when B > 1 and empty_article)."""
+def _flash_inputs(B, T, nh, hd, seed=0, empty_article=True, qk_std=1.0):
+    """q, k, v [B, T, nh, hd] (q and k of std ``qk_std``) and a ragged key
+    mask (article 1 fully masked when B > 1 and empty_article)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn(B, T, nh, hd, generator=g, device="cuda")
                for _ in range(3))
+    q, k = q * qk_std, k * qk_std
     lens = torch.randint(T // 3, T + 1, (B,), generator=g, device="cuda")
     lens[0] = T
     mask = (torch.arange(T, device="cuda")[None] < lens[:, None]).float()
@@ -88,15 +89,22 @@ def _flash_inputs(B, T, nh, hd, seed=0, empty_article=True):
     return q, k, v, mask
 
 
+#: T at the tensor-core kernels' tile edges: 64-row query and key blocks,
+#: 64/32-key forward tiles and 64/16-row backward query tiles
+EDGE_T = (63, 64, 65, 128, 129)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,nh,hd", [(3, 100, 8, 32), (2, 333, 2, 32),
                                        (3, 77, 4, 128), (2, 130, 8, 128),
-                                       (1, 1, 1, 32)])
+                                       (1, 1, 1, 32)]
+                         + [(2, T, 2, hd) for T in EDGE_T for hd in (32, 128)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masked", [True, False])
 def test_flash_kernel_matches_plain_on_card(B, T, nh, hd, causal, masked):
-    """Ragged T (not a multiple of either tile), both head dims, causal
-    on and off, with a key mask (one article fully masked) and without."""
+    """Ragged T (not a multiple of either tile) and T at the tile edges,
+    both head dims, causal on and off, with a key mask (one article fully
+    masked) and without."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     _need_cuda()
@@ -134,7 +142,7 @@ def test_flash_kernel_rejects_bad_inputs_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 77, 100, 333])
+@pytest.mark.parametrize("T", [1, 77, 100, 333, *EDGE_T])
 @pytest.mark.parametrize("hd", [32, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masked", [True, False])
@@ -188,3 +196,41 @@ def test_flash_backward_takes_a_strided_cotangent_on_card():
                                mask, False, 0.2)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernels_at_trained_magnitudes_on_card(hd, causal):
+    """q and k of std 2, so |s| reaches about 20 as in a trained model:
+    the 3xTF32 products keep the forward and the lse within TOL and the
+    three gradients within 1e-5 * max(1, max|g|), the gradient tolerance
+    of the CPU tests (tests/test_torch_flash_backward.py).  An elementwise
+    rtol is not a property of f32 at this scale: the plain version itself
+    is up to ~2e-5 from float64 on gradient entries of size ~1
+    (scripts/torch_flash_precision.py)."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(3, 200, 2, hd, seed=7, qk_std=2.0)
+    scale = hd ** -0.5
+    s_max = float((torch.einsum("bqnd,bknd->bnqk", q, k) * scale).abs().max())
+    assert s_max > 15.0
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fl.flash_attention(qg, kg, vg, mask, causal, scale)
+    do = torch.randn_like(out)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    _, lse = fl._flash_cuda(q, k, v, mask, causal, scale, with_lse=True)
+    torch.cuda.synchronize()
+    want_out = fl._flash_plain(q, k, v, mask, causal, scale)
+    lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
+    np.testing.assert_allclose(out.detach().cpu().numpy(),
+                               want_out.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(), **TOL)
+    want = fl._flash_bwd_plain(q, k, v, out.detach(), lse_p, do, mask,
+                               causal, scale)
+    for g, w in zip(got, want):
+        tol = 1e-5 * max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    assert all(not g[1].any() for g in got)

@@ -2,8 +2,9 @@
 
 Each ``kernels/<name>.cu`` has a plain C interface and compiles alone
 into ``kernels/_build/lib<name>_<hash>.so`` (the directory is git-
-ignored; the hash of the source names the library, so an edited source
-never loads a stale build).  ``build_all`` starts one nvcc per source at
+ignored).  The hash covers the source, every header ``kernels/*.cuh``
+(the 3xTF32 tensor-core helpers of ``mma_tf32x3.cuh``) and the nvcc
+flags, so an edited source or header never loads a stale build.  ``build_all`` starts one nvcc per source at
 once and waits for all of them.  Kernels are built at first use, never at
 import: a machine without nvcc imports the package and runs the plain
 PyTorch versions on the CPU.
@@ -11,6 +12,7 @@ PyTorch versions on the CPU.
 
 from __future__ import annotations
 
+import glob
 import hashlib
 import os
 import shutil
@@ -43,9 +45,13 @@ def nvcc_path() -> str:
 
 def _paths(name: str):
     src = os.path.join(KERNEL_DIR, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:12]
+    h = hashlib.sha256()
+    for path in [src, *sorted(glob.glob(os.path.join(KERNEL_DIR, "*.cuh")))]:
+        h.update(os.path.basename(path).encode() + b"\0")
+        with open(path, "rb") as f:
+            h.update(f.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:12]
     stem = os.path.join(BUILD_DIR, f"lib{name}_{digest}")
     return src, stem + ".so", stem + ".log"
 

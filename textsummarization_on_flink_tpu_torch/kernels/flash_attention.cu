@@ -1,4 +1,5 @@
-// Flash self-attention forward for Hopper, f32.
+// Flash self-attention forward for Hopper, f32-accurate on the tensor
+// cores (3xTF32 mma.sync).
 //
 // Replaces the library Pallas kernel the JAX package's transformer calls
 // for self-attention: `flash_attention` of jax.experimental.pallas.ops.tpu
@@ -21,35 +22,41 @@
 // the probabilities from.  With a null `lse` the kernel is the serving
 // kernel and writes nothing else.
 //
-// What bounds it on an H100: operations.  At the encoder's shape (16
-// articles x 400 positions x 8 heads x hd 32) the two products are
-// 2 * 2 * T^2 * hd * B * nh = 2.6 GFLOP, 39 us at the 67 TFLOP/s f32
-// rate outside the tensor cores, against 26 MB of q, k, v and out
-// (7.8 us at 3.35 TB/s).  The design keeps the [T, T] scores out of
-// device memory (the plain version writes and reads them, 41 MB per
-// call) and feeds the FMA units from registers and shared memory:
+// What bounds it on an H100: operations.  The two products are
+// 4 * hd operations per (row, head, attended key): 2.6 GFLOP at the
+// encoder's shape (16 articles x 400 positions x 8 heads x hd 32), 16 us
+// at 165 TFLOP/s (the TF32 tensor-core rate, 495 TFLOP/s, over the three
+// products of 3xTF32), against 26 MB of q, k, v and out (7.8 us at
+// 3.35 TB/s).  The design, FlashAttention-2 style:
 //
-//   * one block per (query tile, head, article): 128 threads, G = hd/32
-//     lanes per query row, so every lane holds 32 floats of its row's q
-//     and 32 of its accumulator in registers (hd 128 is split over 4
-//     lanes rather than spilling 256 floats); a lane owns the float4
-//     chunks g, g+G, g+2G, ... so the G lanes of a row read neighbouring
-//     16-byte words of shared memory, without bank conflicts;
-//   * the block loops over key/value tiles staged through shared memory
-//     (64 keys at hd 32, 32 at hd 128: 16 or 32 KB); a dot product is 8
-//     float4 loads and 32 FMAs per lane, reduced over the G lanes with
-//     shuffles;
-//   * online softmax over chunks of 16 keys: a running max, sum and f32
-//     accumulator per row, rescaled once per chunk.  A key the row may
-//     not attend gets p = 0 explicitly, so a tile that is wholly masked
-//     (a ragged tail, an empty article) adds nothing, and a row whose sum
-//     stays 0 writes zeros;
-//   * causal: tiles of keys beyond the block's last query row are not
-//     loaded at all.
+//   * one block per (64 query rows, head, article): 4 warps of 16 rows.
+//     At hd 32 a warp's q rows stay in registers for the whole loop,
+//     split to hi/lo once; at hd 128 (where O alone takes 64 registers) q
+//     is staged in shared memory and split at use;
+//   * key/value tiles (64 keys at hd 32, 16 at hd 128) are staged in
+//     shared memory by cp.async, double-buffered, rows padded by 4
+//     floats so the fragment loads are free of bank conflicts, and split
+//     to hi/lo once by the block (mma_tf32x3.cuh, split_tile);
+//   * S = Q K^T and O += P V are m16n8k8 tensor-core products in 3xTF32
+//     (mma_tf32x3.cuh).  The mask and the online softmax run on S's
+//     accumulator fragment: each lane holds two rows, the row max and sum
+//     are reduced over the 4 lanes of a quad with shuffles, and P feeds
+//     P V from the same registers in a permuted key order (a_from_acc /
+//     load_b_perm), with no shuffle;
+//   * a key the row may not attend gets s = -inf, so p = exp(-inf - m) is
+//     exactly 0 (m never drops below -1e30): a ragged tail or an empty
+//     article adds nothing, and a row whose sum stays 0 writes zeros; a
+//     tile none of whose keys is real and unmasked is skipped whole;
+//   * causal: tiles of keys past the block's last row are not loaded, the
+//     diagonal test runs only on tiles that cross the diagonal, a warp
+//     skips a tile that lies wholly past its last row, and the blocks
+//     with the most tiles are started first.
 //
-// Plain f32 FMA and expf (no tensor cores, no TF32, no fast math), so
-// the result differs from the plain version only in the order of sums.
-// wgmma, TMA and bf16 are later work.
+// The products are f32-accurate (mma_tf32x3.cuh); softmax, rescaling and
+// the final division are f32 with expf and logf (no fast math).  The
+// result differs from the plain version by the order of sums and about
+// one f32 rounding per product.  wgmma (its tf32 B operand must be
+// K-major, which V is not) and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see kernels/build.py).  C entry point bound with
@@ -58,144 +65,221 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace {
 
+using tf32x3::FragA;
+
 constexpr float kNeg = -1e30f;  // running-max floor, never -inf
-constexpr int kThreads = 128;
-constexpr int kChunk = 16;  // keys per online-softmax rescale
-constexpr int kVec = 8;     // float4 chunks of q / acc per lane (32 floats)
+constexpr int kThreads = 128;   // 4 warps
+constexpr int kRows = 64;       // query rows per block, 16 per warp
 
-__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float4& acc, float p, float4 x) {
-  acc.x = fmaf(p, x.x, acc.x);
-  acc.y = fmaf(p, x.y, acc.y);
-  acc.z = fmaf(p, x.z, acc.z);
-  acc.w = fmaf(p, x.w, acc.w);
-}
-
-__device__ __forceinline__ void scale4(float4& acc, float a) {
-  acc.x *= a;
-  acc.y *= a;
-  acc.z *= a;
-  acc.w *= a;
-}
-
-// grid (ceil(T / kRows), nh, B); kThreads threads; static shared memory.
+// At hd 32 a warp's q rows live in registers, split to hi/lo once (32
+// registers).  At hd 128 they would take 64 registers as f32 beside O's
+// 64, and the kernel spilled; there q is staged in shared memory with the
+// first tile and split at use, and tiles hold 16 keys so that two blocks
+// still fit on an SM.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+struct Fwd {
+  static constexpr bool kQInRegs = HD <= 64;
+  static constexpr int kKeys = kQInRegs ? 64 : 16;  // keys per tile
+  static constexpr int kStride = HD + 4;  // floats per shared row
+  static constexpr int kKS = HD / 8;      // k-steps of Q K^T
+  static constexpr int kNT = kKeys / 8;   // 8-key column tiles of S
+  static constexpr int kOT = HD / 8;      // 8-wide column tiles of O
+  // 8-key chunks of P per accumulator of O += P V: 32 keys (12 mma)
+  static constexpr int kGroup = kNT < 4 ? kNT : 4;
+  static constexpr int kTile = kKeys * kStride;  // floats of a K or V tile
+  static constexpr int kStage = 2 * kTile + kKeys;  // K, V (hi after the
+                                                    // split), key flags
+  static constexpr int kQ = kQInRegs ? 0 : kRows * kStride;  // shared q
+  // blocks per SM asked of ptxas.  At hd 128 shared memory allows only 2
+  // anyway; an explicit 1 lets ptxas spend more registers than its own
+  // choice (217 against 128, no spills), which ran faster on the card.
+  static constexpr int kMinBlocks = kQInRegs ? 3 : 1;
+  // two stages, the lo parts of the current K and V tiles, q at hd 128
+  static constexpr size_t kSmem =
+      (2 * kStage + 2 * kTile + kQ) * sizeof(float);
+  static_assert(kTile % 4 == 0 && kStage % 4 == 0, "16-byte aligned tiles");
+};
+
+// grid (ceil(T / kRows), nh, B); kThreads threads; Fwd<HD>::kSmem bytes
+// of dynamic shared memory
+template <int HD>
+__global__ void __launch_bounds__(kThreads, Fwd<HD>::kMinBlocks)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
                  const float* __restrict__ key_mask, float* __restrict__ out,
                  float* __restrict__ lse, int T, int nh, int causal,
                  float sm_scale) {
-  constexpr int G = HD / 32;             // lanes per query row
-  constexpr int kRows = kThreads / G;    // query rows per block
-  constexpr int kKeys = HD == 128 ? 32 : 64;  // keys per shared tile
-  constexpr int kC4 = HD / 4;            // float4 per head row
-  static_assert(G * kVec * 4 == HD, "a lane holds 32 floats of a row");
-  static_assert(kKeys % kChunk == 0, "chunks tile the key tile");
+  using S = Fwd<HD>;
+  constexpr int kKeys = S::kKeys, kStride = S::kStride;
+  extern __shared__ __align__(16) float smem[];
 
-  __shared__ float4 k_s[kKeys * kC4];
-  __shared__ float4 v_s[kKeys * kC4];
-  __shared__ float ok_s[kKeys];  // 1: a real key inside [0, T)
-
-  const int tid = threadIdx.x;
-  const int g = tid % G;
-  const int qi = blockIdx.x * kRows + tid / G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // causal: the last query blocks have the most key tiles; start them first
+  const int qb = causal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
-  const bool q_real = qi < T;
   const size_t pos_stride = (size_t)nh * HD;  // floats between positions
   const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* kb = k + base;
+  const float* vb = v + base;
+  const int row0 = qb * kRows + warp * 16;  // the warp's first row
+  const int rows[2] = {row0 + g, row0 + g + 8};  // this lane's two rows
 
-  float4 qv[kVec], acc[kVec];
-  const float4* q_row =
-      reinterpret_cast<const float4*>(q + base + (size_t)qi * pos_stride);
+  // the warp's q rows as A fragments: split once into registers, or (hd
+  // 128) read from the shared q tile and split at use
+  float* q_s = smem + 2 * S::kStage + 2 * S::kTile;
+  const float* q_warp = q_s + warp * 16 * kStride;
+  FragA q_reg[S::kQInRegs ? S::kKS : 1];
+  if constexpr (S::kQInRegs) {
+    const bool in0 = rows[0] < T, in1 = rows[1] < T;
+    const float* q0 = q + base + (size_t)rows[0] * pos_stride;
+    const float* q1 = q + base + (size_t)rows[1] * pos_stride;
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    qv[i] = q_real ? q_row[i * G + g] : zero4;
-    acc[i] = zero4;
+    for (int ks = 0; ks < S::kKS; ++ks) {
+      const int c = 8 * ks + t;
+      q_reg[ks] = tf32x3::split_a(in0 ? q0[c] : 0.f, in1 ? q1[c] : 0.f,
+                                  in0 ? q0[c + 4] : 0.f,
+                                  in1 ? q1[c + 4] : 0.f);
+    }
   }
-  float m = kNeg, l = 0.f;
+  auto q_frag = [&](int kk) -> FragA {
+    if constexpr (S::kQInRegs)
+      return q_reg[kk];
+    else
+      return tf32x3::load_a(q_warp + 8 * kk, kStride, g, t);
+  };
+  float o[S::kOT][4];
+#pragma unroll
+  for (int n = 0; n < S::kOT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // l: this lane's columns
 
   // causal: keys past the block's last row are never attended
-  const int t_end =
-      causal ? min(T, (int)(blockIdx.x + 1) * kRows) : T;  // block-uniform
-  for (int k0 = 0; k0 < t_end; k0 += kKeys) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < kKeys * kC4; idx += kThreads) {
-      const int t = k0 + idx / kC4, c = idx % kC4;
-      float4 kk = zero4, vv = zero4;
-      if (t < T) {
-        kk = reinterpret_cast<const float4*>(k + base + t * pos_stride)[c];
-        vv = reinterpret_cast<const float4*>(v + base + t * pos_stride)[c];
-      }
-      k_s[idx] = kk;
-      v_s[idx] = vv;
-    }
+  const int t_end = causal ? min(T, (qb + 1) * kRows) : T;  // block-uniform
+  const int n_tiles = (t_end + kKeys - 1) / kKeys;
+
+  auto stage = [&](int tile, int buf) {
+    float* ks = smem + buf * S::kStage;
+    float* vs = ks + S::kTile;
+    float* oks = vs + S::kTile;
+    const int k0 = tile * kKeys;
+    tf32x3::stage_rows<HD, kThreads>(ks, kStride, kb, pos_stride, k0, kKeys,
+                                     T, tid);
+    tf32x3::stage_rows<HD, kThreads>(vs, kStride, vb, pos_stride, k0, kKeys,
+                                     T, tid);
     for (int j = tid; j < kKeys; j += kThreads) {
-      const int t = k0 + j;
-      ok_s[j] = (t < T && (key_mask == nullptr ||
-                           key_mask[(size_t)b * T + t] > 0.f))
-                    ? 1.f
-                    : 0.f;
+      const int key = k0 + j;
+      oks[j] = (key < T && (key_mask == nullptr ||
+                            key_mask[(size_t)b * T + key] > 0.f))
+                   ? 1.f
+                   : 0.f;
     }
-    __syncthreads();
+    tf32x3::cp_async_commit();
+  };
 
-    const int nk = min(kKeys, t_end - k0);  // block-uniform
-    for (int j0 = 0; j0 < nk; j0 += kChunk) {
-      float s[kChunk];
-      float cmax = kNeg;
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const float4* kr = k_s + (j0 + c) * kC4;
-        float d = 0.f;
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) d = dot4(d, qv[i], kr[i * G + g]);
-#pragma unroll
-        for (int o = 1; o < G; o <<= 1)
-          d += __shfl_xor_sync(0xffffffffu, d, o);
-        const int t = k0 + j0 + c;
-        const bool ok = ok_s[j0 + c] > 0.f && (!causal || t <= qi);
-        s[c] = ok ? d * sm_scale : kNeg;
-        if (ok) cmax = fmaxf(cmax, s[c]);
-      }
-      const float m_new = fmaxf(m, cmax);
-      const float alpha = expf(m - m_new);  // 0 on the first real key
-      l *= alpha;
-#pragma unroll
-      for (int i = 0; i < kVec; ++i) scale4(acc[i], alpha);
-#pragma unroll
-      for (int c = 0; c < kChunk; ++c) {
-        const int t = k0 + j0 + c;
-        const bool ok = ok_s[j0 + c] > 0.f && (!causal || t <= qi);
-        const float p = ok ? expf(s[c] - m_new) : 0.f;  // masked: exactly 0
-        l += p;
-        const float4* vr = v_s + (j0 + c) * kC4;
-#pragma unroll
-        for (int i = 0; i < kVec; ++i) axpy4(acc[i], p, vr[i * G + g]);
-      }
-      m = m_new;
+  float* k_lo = smem + 2 * S::kStage;  // lo parts of the current tile
+  float* v_lo = k_lo + S::kTile;
+  if (!S::kQInRegs)  // in the first group, with the first tile
+    tf32x3::stage_rows<HD, kThreads>(q_s, kStride, q + base, pos_stride,
+                                     qb * kRows, kRows, T, tid);
+  stage(0, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage(it + 1, (it + 1) & 1);  // its buffer was freed at it - 1's end
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
     }
+    float* ks = smem + (it & 1) * S::kStage;
+    float* vs = ks + S::kTile;
+    const float* oks = vs + S::kTile;
+    // each thread splits the chunks it copied; then the whole tile is
+    // split and has landed for every warp.  The barrier also tells the
+    // block whether any key of the tile is real and unmasked (thread j
+    // wrote flag j): a wholly masked tile adds nothing and is skipped.
+    tf32x3::split_tile<HD, kThreads>(ks, k_lo, kStride, kKeys, tid);
+    tf32x3::split_tile<HD, kThreads>(vs, v_lo, kStride, kKeys, tid);
+    const bool any_key = __syncthreads_or(tid < kKeys && oks[tid] > 0.f);
+
+    const int k0 = it * kKeys;
+    // causal: a warp whose last row precedes the tile attends none of it
+    if (any_key && (!causal || k0 <= row0 + 15)) {
+      const tf32x3::SplitTile kt{ks, k_lo}, vt{vs, v_lo};
+      // S = Q K^T
+      float s[S::kNT][4];
+      tf32x3::head_dim_product<S::kNT, S::kKS>(s, q_frag, kt, kStride, g, t);
+
+      // mask, scale and the tile's row max over this lane's columns
+      const bool diag = causal && k0 + kKeys - 1 > qb * kRows;
+      float cmax[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int j = 0; j < S::kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const int r = e >> 1;
+          const bool ok = oks[col] > 0.f && (!diag || k0 + col <= rows[r]);
+          s[j][e] = ok ? s[j][e] * sm_scale : -INFINITY;
+          cmax[r] = fmaxf(cmax[r], s[j][e]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 1));
+        cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 2));
+        const float m_new = fmaxf(m[r], cmax[r]);
+        alpha[r] = expf(m[r] - m_new);  // 0 on the row's first real key
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < S::kOT; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < S::kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[j][e] - m[e >> 1]);  // masked: exactly 0
+          s[j][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+
+      // O += P V
+      tf32x3::tile_product<S::kNT, S::kOT, S::kGroup>(o, s, vt, kStride, g,
+                                                      t);
+    }
+    __syncthreads();  // every warp is done with buffer it & 1 and the lo
   }
 
-  if (!q_real) return;
-  float4* o_row = reinterpret_cast<float4*>(out + base + (size_t)qi * pos_stride);
 #pragma unroll
-  for (int i = 0; i < kVec; ++i) {
-    float4 r = zero4;
-    if (l > 0.f) r = make_float4(acc[i].x / l, acc[i].y / l, acc[i].z / l,
-                                 acc[i].w / l);
-    o_row[i * G + g] = r;
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  if (lse != nullptr && g == 0)
-    lse[((size_t)b * T + qi) * nh + h] = l > 0.f ? m + logf(l) : INFINITY;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= T) continue;
+    float* o_row = out + base + (size_t)rows[r] * pos_stride;
+#pragma unroll
+    for (int n = 0; n < S::kOT; ++n) {
+      float2 val = make_float2(0.f, 0.f);
+      if (l[r] > 0.f)
+        val = make_float2(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+      *reinterpret_cast<float2*>(o_row + 8 * n + 2 * t) = val;
+    }
+    if (lse != nullptr && t == 0)
+      lse[((size_t)b * T + rows[r]) * nh + h] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
+  }
 }
 
 template <int HD>
@@ -203,19 +287,23 @@ cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* key_mask, float* out, float* lse, int B,
                    int T, int nh, int causal, float sm_scale,
                    cudaStream_t stream) {
-  constexpr int kRows = kThreads / (HD / 32);
+  constexpr size_t smem = Fwd<HD>::kSmem;
+  static unsigned smem_set = 0;  // per instantiation: one per kernel
+  const cudaError_t err =
+      tf32x3::allow_smem(flash_fwd_kernel<HD>, smem, smem_set);
+  if (err != cudaSuccess) return err;
   const dim3 grid((T + kRows - 1) / kRows, nh, B);
-  flash_fwd_kernel<HD><<<grid, kThreads, 0, stream>>>(
+  flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
       q, k, v, key_mask, out, lse, T, nh, causal, sm_scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v, out [B, T, nh, hd] float32, contiguous, on one device; key_mask
-// [B, T] float32 (1 = real token) or null (every key real); lse [B, T, nh]
-// float32 or null (not written).  hd is 32 or 128.  Launches on `stream`;
-// returns the cudaError_t of the launch.
+// q, k, v, out [B, T, nh, hd] float32, contiguous, 16-byte aligned, on one
+// device; key_mask [B, T] float32 (1 = real token) or null (every key
+// real); lse [B, T, nh] float32 or null (not written).  hd is 32 or 128.
+// Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int ts_flash_attention(const float* q, const float* k,
                                   const float* v, const float* key_mask,
                                   float* out, float* lse, int B, int T,

@@ -35,21 +35,40 @@
 // the function needs 10 * hd operations (the products s and dout . v and
 // the dv, dk and dq updates; the two kernels do 14 * hd, since both
 // recompute s and dout . v), 6.6 GFLOP at the encoder's shape
-// (16 x 400 x 8 x hd 32, all keys): 98 us at the 67 TFLOP/s f32 rate
-// outside the tensor cores, against 52 MB of q, k, v, out, dout and the
-// three gradients (16 us at 3.35 TB/s).  The design feeds the FMA units
-// from registers and shared memory, as the forward does:
+// (16 x 400 x 8 x hd 32, all keys): 40 us at 165 TFLOP/s (the TF32
+// tensor-core rate over the three products of 3xTF32), against 52 MB of
+// q, k, v, out, dout and the three gradients (16 us at 3.35 TB/s).
+//
+// The dK/dV kernel runs its four products on the tensor cores, f32-
+// accurate in 3xTF32 (mma_tf32x3.cuh):
+//
+//   * a block owns 64 keys, 16 per warp; their K and V rows are staged in
+//     shared memory once (hi/lo split at use: at hd 128 K, V and the two
+//     accumulators would not fit in registers together), and the block
+//     loops over tiles of queries (64 rows at hd 32, 16 at hd 128) whose
+//     q, dout, lse and D are staged by cp.async, double-buffered, rows
+//     padded by 4 floats so the fragment loads are free of bank conflicts;
+//   * per tile a warp forms S^T = K Q^T, P^T = exp(S^T * scale - lse),
+//     dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - D) and dK += dS^T Q
+//     as m16n8k8 products; P^T and dS^T feed the next product from their
+//     accumulator registers in a permuted query order (a_from_acc /
+//     load_b_perm), and dK is scaled by sm_scale at the end;
+//   * causal: a warp skips a tile all of whose rows precede its first key.
+//
+// The dQ kernel is the f32 SIMT design (its redesign is the next step):
 //
 //   * G = hd / 16 lanes per row (2 at hd 32, 8 at hd 128): a lane holds
-//     16 floats of each of its row's vectors in registers (the dK/dV
-//     kernel holds k, v and the two accumulators: 64 floats; the dQ
-//     kernel q, dout and its accumulator: 48), in float4 chunks
-//     g, g+G, g+2G, g+3G, so the G lanes of a row read neighbouring
-//     16-byte words of shared memory, without bank conflicts; the two dot
-//     products of a pair are reduced over the G lanes with shuffles;
-//   * the other side (queries for dK/dV, keys for dQ) is staged through
-//     shared memory in tiles of 64 rows at hd 32 and 32 at hd 128
-//     (16 or 32 KB); a ragged last tile is zero-filled and masked;
+//     16 floats of each of its row's q, dout and accumulator in registers,
+//     in float4 chunks g, g+G, g+2G, g+3G, so the G lanes of a row read
+//     neighbouring 16-byte words of shared memory, without bank
+//     conflicts; the two dot products of a pair are reduced over the G
+//     lanes with shuffles;
+//   * the keys are staged through shared memory in tiles of 64 rows at
+//     hd 32 and 32 at hd 128 (16 or 32 KB); a ragged last tile is
+//     zero-filled and masked.
+//
+// Both kernels:
+//
 //   * a pair the row may not attend gets p = 0 explicitly, never
 //     exp(s - lse) with a sentinel, so a row with no key to attend (an
 //     empty article) gives exact zeros in dq and nothing to dk or dv; a
@@ -59,9 +78,10 @@
 //     query rows attend none of its keys); the dQ kernel stops at the key
 //     tile past its last query row, as the forward does.
 //
-// Plain f32 FMA and expf (no tensor cores, no TF32, no fast math), so
-// the result differs from the plain version only in the order of sums.
-// wgmma, TMA and register tiling are later work.
+// The dQ kernel is plain f32 FMA; the dK/dV kernel's products are
+// f32-accurate 3xTF32.  Both use expf (no fast math), so the result
+// differs from the plain version by the order of sums and about one f32
+// rounding per product.  wgmma and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see kernels/build.py).  C entry points bound with
@@ -70,7 +90,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_tf32x3.cuh"
+
 namespace {
+
+using tf32x3::FragA;
 
 constexpr int kThreads = 128;
 constexpr int kVec = 4;  // float4 chunks of each row vector per lane
@@ -108,7 +132,29 @@ struct Shape {
   static_assert(G <= 32 && (G & (G - 1)) == 0, "G lanes share a warp");
 };
 
-// grid (ceil(T / kRows), nh, B): one block per (key tile, head, article)
+// The dK/dV kernel's tiling: a block owns 64 keys, 16 per warp, and loops
+// over tiles of kQ query rows staged in shared memory.
+template <int HD>
+struct Dkv {
+  static constexpr int kKeys = 64;                // keys per block
+  static constexpr int kQ = HD == 128 ? 16 : 32;  // query rows per tile
+  static constexpr int kStride = HD + 4;          // floats per shared row
+  static constexpr int kKS = HD / 8;  // k-steps over the head dim
+  static constexpr int kNT = kQ / 8;  // 8-query column tiles of S^T
+  static constexpr int kDT = HD / 8;  // 8-wide column tiles of dK, dV
+  static constexpr int kKV = 2 * kKeys * kStride;  // the block's K and V
+  static constexpr int kTile = kQ * kStride;       // floats of a q/dO tile
+  // q, dO (hi after the split), then lse, D and a row flag (+ kQ floats
+  // of padding)
+  static constexpr int kStage = 2 * kTile + 4 * kQ;
+  // K, V, two stages, then the lo parts of the current q and dO tiles
+  static constexpr size_t kSmem =
+      (kKV + 2 * kStage + 2 * kTile) * sizeof(float);
+  static_assert(kKV % 4 == 0 && kStage % 4 == 0, "16-byte aligned tiles");
+};
+
+// grid (ceil(T / 64), nh, B): one block per (64 keys, head, article);
+// Dkv<HD>::kSmem bytes of dynamic shared memory
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -119,114 +165,177 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ key_mask,
                      float* __restrict__ dk, float* __restrict__ dv, int T,
                      int nh, int causal, float sm_scale) {
-  using S = Shape<HD>;
-  constexpr int G = S::G, kRows = S::kRows, kTile = S::kTile, kC4 = S::kC4;
+  using D = Dkv<HD>;
+  constexpr int kQ = D::kQ, kStride = D::kStride;
+  extern __shared__ __align__(16) float smem[];
+  float* ks = smem;                          // [64][kStride]
+  float* vs = smem + D::kKeys * kStride;     // [64][kStride]
+  float* stages = smem + D::kKV;             // two query-tile buffers
 
-  __shared__ float4 q_s[kTile * kC4];
-  __shared__ float4 do_s[kTile * kC4];
-  __shared__ float lse_s[kTile];
-  __shared__ float d_s[kTile];
-  __shared__ int rok_s[kTile];  // 1: a real row with a key to attend
-
-  const int tid = threadIdx.x;
-  const int g = tid % G;
-  const int kj = blockIdx.x * kRows + tid / G;
-  const int h = blockIdx.y, b = blockIdx.z;
-  const bool k_real = kj < T;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const size_t pos_stride = (size_t)nh * HD;  // floats between positions
   const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
   const size_t row_base = (size_t)b * T * nh + h;  // lse/dsum of (b, 0, h)
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
-  const bool key_ok =
-      k_real && (key_mask == nullptr || key_mask[(size_t)b * T + kj] > 0.f);
-
-  float4* dk_row = reinterpret_cast<float4*>(dk + base + (size_t)kj * pos_stride);
-  float4* dv_row = reinterpret_cast<float4*>(dv + base + (size_t)kj * pos_stride);
-  if (!__syncthreads_or(key_ok)) {  // no key of the tile is attended
-    if (k_real) {
+  const int key0 = kb * D::kKeys + warp * 16;      // the warp's first key
+  const int keys[2] = {key0 + g, key0 + g + 8};   // this lane's two keys
+  bool kok[2];
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        dk_row[c * G + g] = zero4;
-        dv_row[c * G + g] = zero4;
-      }
-    }
-    return;
+  for (int r = 0; r < 2; ++r)
+    kok[r] = keys[r] < T && (key_mask == nullptr ||
+                             key_mask[(size_t)b * T + keys[r]] > 0.f);
+
+  float dka[D::kDT][4], dva[D::kDT][4];
+#pragma unroll
+  for (int n = 0; n < D::kDT; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
   }
 
-  float4 kv[kVec], vv[kVec], dk_acc[kVec], dv_acc[kVec];
-  const float4* k_row =
-      reinterpret_cast<const float4*>(k + base + (size_t)kj * pos_stride);
-  const float4* v_row =
-      reinterpret_cast<const float4*>(v + base + (size_t)kj * pos_stride);
-#pragma unroll
-  for (int c = 0; c < kVec; ++c) {
-    kv[c] = k_real ? k_row[c * G + g] : zero4;
-    vv[c] = k_real ? v_row[c * G + g] : zero4;
-    dk_acc[c] = zero4;
-    dv_acc[c] = zero4;
-  }
-
+  // no key of the block is attended: zeros, without reading anything
+  const bool any = __syncthreads_or(kok[0] || kok[1]);
   // causal: a row before the block's first key attends none of its keys
-  const int q_begin = causal ? (int)blockIdx.x * kRows : 0;  // block-uniform
-  for (int q0 = q_begin; q0 < T; q0 += kTile) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < kTile * kC4; idx += kThreads) {
-      const int t = q0 + idx / kC4, c = idx % kC4;
-      float4 qq = zero4, dd = zero4;
-      if (t < T) {
-        qq = reinterpret_cast<const float4*>(q + base + t * pos_stride)[c];
-        dd = reinterpret_cast<const float4*>(dout + base + t * pos_stride)[c];
-      }
-      q_s[idx] = qq;
-      do_s[idx] = dd;
-    }
-    for (int i = tid; i < kTile; i += kThreads) {
-      const int t = q0 + i;
+  const int q_begin = causal ? kb * D::kKeys : 0;  // block-uniform
+  const int n_tiles = any ? (T - q_begin + kQ - 1) / kQ : 0;
+
+  auto stage = [&](int tile, int buf) {
+    float* qs = stages + buf * D::kStage;
+    float* dos = qs + D::kTile;
+    float* lse_s = dos + D::kTile;
+    float* d_s = lse_s + kQ;
+    float* rok_s = d_s + kQ;
+    const int q0 = q_begin + tile * kQ;
+    tf32x3::stage_rows<HD, kThreads>(qs, kStride, q + base, pos_stride, q0,
+                                     kQ, T, tid);
+    tf32x3::stage_rows<HD, kThreads>(dos, kStride, dout + base, pos_stride,
+                                     q0, kQ, T, tid);
+    for (int i = tid; i < kQ; i += kThreads) {
+      const int row = q0 + i;
       float l = 0.f, d = 0.f;
-      int ok = 0;
-      if (t < T) {
-        l = lse[row_base + (size_t)t * nh];
-        d = dsum[row_base + (size_t)t * nh];
-        ok = isfinite(l) ? 1 : 0;
+      bool ok = false;
+      if (row < T) {
+        l = lse[row_base + (size_t)row * nh];
+        d = dsum[row_base + (size_t)row * nh];
+        ok = isfinite(l);
       }
       lse_s[i] = ok ? l : 0.f;
       d_s[i] = d;
-      rok_s[i] = ok;
+      rok_s[i] = ok ? 1.f : 0.f;  // a real row with a key to attend
     }
+    tf32x3::cp_async_commit();
+  };
+
+  if (n_tiles > 0) {
+    tf32x3::stage_rows<HD, kThreads>(ks, kStride, k + base, pos_stride,
+                                     kb * D::kKeys, D::kKeys, T, tid);
+    tf32x3::stage_rows<HD, kThreads>(vs, kStride, v + base, pos_stride,
+                                     kb * D::kKeys, D::kKeys, T, tid);
+    stage(0, 0);  // one group: K, V and the first query tile
+  }
+  // the warp's 16 keys of K and V as A fragments, split at use
+  const float* kw = ks + warp * 16 * kStride;
+  const float* vw = vs + warp * 16 * kStride;
+  auto k_frag = [&](int kk) {
+    return tf32x3::load_a(kw + 8 * kk, kStride, g, t);
+  };
+  auto v_frag = [&](int kk) {
+    return tf32x3::load_a(vw + 8 * kk, kStride, g, t);
+  };
+  float* q_lo = stages + 2 * D::kStage;  // lo parts of the current tile
+  float* do_lo = q_lo + D::kTile;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage(it + 1, (it + 1) & 1);  // its buffer was freed at it - 1's end
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    float* qs = stages + (it & 1) * D::kStage;
+    float* dos = qs + D::kTile;
+    // each thread splits the chunks it copied; then the whole tile is
+    // split and has landed for every warp (K and V with the first tile)
+    tf32x3::split_tile<HD, kThreads>(qs, q_lo, kStride, kQ, tid);
+    tf32x3::split_tile<HD, kThreads>(dos, do_lo, kStride, kQ, tid);
     __syncthreads();
 
-    const int nq = min(kTile, T - q0);  // block-uniform
-#pragma unroll 2
-    for (int i = 0; i < nq; ++i) {
-      const float4* qr = q_s + i * kC4;
-      const float4* dr = do_s + i * kC4;
-      float s = 0.f, dp = 0.f;
+    const int q0 = q_begin + it * kQ;
+    // causal: every row of the tile precedes the warp's first key
+    if (!causal || q0 + kQ - 1 >= key0) {
+      const tf32x3::SplitTile qt{qs, q_lo}, dot{dos, do_lo};
+      const float* lse_s = dos + D::kTile;
+      const float* d_s = lse_s + kQ;
+      const float* rok_s = d_s + kQ;
+
+      // S^T = K Q^T: this warp's 16 keys x the tile's kQ queries, one
+      // 16-wide slice of the head dim at a time (mma3)
+      float p[D::kNT][4];
+      tf32x3::head_dim_product<D::kNT, D::kKS>(p, k_frag, qt, kStride, g,
+                                               t);
+      // P^T = exp(S^T * scale - lse); exactly 0 where the pair is masked
+      // or the row has no key to attend
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        s = dot4(s, qr[c * G + g], kv[c]);
-        dp = dot4(dp, dr[c * G + g], vv[c]);
-      }
-      s = row_sum<G>(s);
-      dp = row_sum<G>(dp);
-      const bool ok = key_ok && rok_s[i] != 0 && (!causal || kj <= q0 + i);
-      const float p = ok ? expf(s * sm_scale - lse_s[i]) : 0.f;
-      const float ds = p * (dp - d_s[i]);
+      for (int j = 0; j < D::kNT; ++j) {
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        axpy4(dv_acc[c], p, dr[c * G + g]);
-        axpy4(dk_acc[c], ds, qr[c * G + g]);
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const int r = e >> 1;
+          const bool ok = kok[r] && rok_s[col] > 0.f &&
+                          (!causal || keys[r] <= q0 + col);
+          p[j][e] = ok ? expf(p[j][e] * sm_scale - lse_s[col]) : 0.f;
+        }
       }
+      // dV += P^T dO (the tile's queries in a_from_acc's order)
+      tf32x3::tile_product<D::kNT, D::kDT, D::kNT>(dva, p, dot, kStride, g,
+                                                   t);
+      // dP^T = V dO^T
+      float ds[D::kNT][4];
+      tf32x3::head_dim_product<D::kNT, D::kKS>(ds, v_frag, dot, kStride, g,
+                                               t);
+      // dS^T = P^T (dP^T - D)
+#pragma unroll
+      for (int j = 0; j < D::kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = p[j][e] * (ds[j][e] - d_s[8 * j + 2 * t + (e & 1)]);
+      }
+      // dK += dS^T Q
+      tf32x3::tile_product<D::kNT, D::kDT, D::kNT>(dka, ds, qt, kStride, g,
+                                                   t);
     }
+    __syncthreads();  // every warp is done with buffer it & 1 and the lo
   }
 
-  if (!k_real) return;
 #pragma unroll
-  for (int c = 0; c < kVec; ++c) {
-    const float4 a = dk_acc[c];
-    dk_row[c * G + g] = make_float4(a.x * sm_scale, a.y * sm_scale,
-                                    a.z * sm_scale, a.w * sm_scale);
-    dv_row[c * G + g] = dv_acc[c];
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= T) continue;
+    float* dk_row = dk + base + (size_t)keys[r] * pos_stride;
+    float* dv_row = dv + base + (size_t)keys[r] * pos_stride;
+#pragma unroll
+    for (int n = 0; n < D::kDT; ++n) {
+      *reinterpret_cast<float2*>(dk_row + 8 * n + 2 * t) = make_float2(
+          dka[n][2 * r] * sm_scale, dka[n][2 * r + 1] * sm_scale);
+      *reinterpret_cast<float2*>(dv_row + 8 * n + 2 * t) =
+          make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
   }
+}
+
+template <int HD>
+cudaError_t launch_dkv(const float* q, const float* k, const float* v,
+                       const float* dout, const float* lse,
+                       const float* dsum, const float* key_mask, float* dk,
+                       float* dv, int B, int T, int nh, int causal,
+                       float sm_scale, cudaStream_t stream) {
+  constexpr size_t smem = Dkv<HD>::kSmem;
+  static unsigned smem_set = 0;  // per instantiation: one per kernel
+  const cudaError_t err =
+      tf32x3::allow_smem(flash_bwd_dkv_kernel<HD>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + Dkv<HD>::kKeys - 1) / Dkv<HD>::kKeys, nh, B);
+  flash_bwd_dkv_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, dsum, key_mask, dk, dv, T, nh, causal, sm_scale);
+  return cudaGetLastError();
 }
 
 // grid (ceil(T / kRows), nh, B): one block per (query tile, head, article)
@@ -365,19 +474,14 @@ extern "C" int ts_flash_bwd_dkv(const float* q, const float* k,
   if (bad_shape(B, T, nh)) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      flash_bwd_dkv_kernel<32><<<grid_of<32>(B, T, nh), kThreads, 0, st>>>(
-          q, k, v, dout, lse, dsum, key_mask, dk, dv, T, nh, causal,
-          sm_scale);
-      break;
+      return (int)launch_dkv<32>(q, k, v, dout, lse, dsum, key_mask, dk, dv,
+                                 B, T, nh, causal, sm_scale, st);
     case 128:
-      flash_bwd_dkv_kernel<128><<<grid_of<128>(B, T, nh), kThreads, 0, st>>>(
-          q, k, v, dout, lse, dsum, key_mask, dk, dv, T, nh, causal,
-          sm_scale);
-      break;
+      return (int)launch_dkv<128>(q, k, v, dout, lse, dsum, key_mask, dk,
+                                  dv, B, T, nh, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 // As ts_flash_bwd_dkv; writes dq [B, T, nh, hd].
