@@ -15,8 +15,9 @@ device or without the port's sources beside it.  Phases, each fatal:
      the main paths' shapes; print errors, CUDA-event times, the bound
      (the flash kernels' operations at the f32-accurate tensor-core rate,
      PEAK_TF32X3_OPS_PER_S) and, where one PyTorch call computes the same
-     function, its time; then the flash kernels' largest errors beside
-     those of the f32 SIMT kernels the 3xTF32 ones replaced:
+     function, its time; then the largest errors of the redesigned
+     kernels beside those of the kernels they replaced (the flash
+     kernels' f32 SIMT designs, the fused attention's two-launch design):
      a. the fused additive attention, both dtypes, coverage on and off,
         with a fully masked row;
      b. the flash self-attention at the transformer encoder's shape
@@ -81,6 +82,11 @@ PEAK_TF32X3_OPS_PER_S = 495e12 / 3
 # 3's shapes with the f32 SIMT kernels, before the 3xTF32 redesign
 # (PERF.md), printed beside this run's
 SIMT_MAX_ABS_ERR = dict(forward=1.6e-6, dq=3.2e-6, dk=2.9e-6, dv=2.4e-6)
+# the fused attention's largest error over phase 3a's shapes with the
+# two-launch kernel the cluster design replaced (PR 1's kernel, unchanged
+# through PR 4: this script's phase 3a in PR 1; PERF.md), printed beside
+# this run's
+PR4_FUSED_MAX_ABS_ERR = 1.79e-7
 
 ATTN_TOL = 1e-5  # f32 math on both sides; only the order of sums differs
 
@@ -329,9 +335,8 @@ def flash_bwd_bounds(q, key_mask, causal):
     updates) over q, k, v, out, dO, lse, the mask and dq, dk, dv; the
     dK/dV kernel's function, 8 * hd over q, k, v, dO, lse, D, the mask and
     dk, dv; the dQ kernel's, 6 * hd over q, k, v, dO, lse, D, the mask
-    and dq.  Operations at PEAK_TF32X3_OPS_PER_S, for all three (the dQ
-    kernel is f32 SIMT still, but its function is the same; its redesign
-    is next).  Returns {name: (ms, bound_by)}."""
+    and dq.  Operations at PEAK_TF32X3_OPS_PER_S, for all three.  Returns
+    {name: (ms, bound_by)}."""
     B, T, nh, hd = q.shape
     _, _, _, fwd_ops = flash_bound_ms(q, key_mask, causal)
     head_pairs = fwd_ops / (4 * hd)  # (row, head, attended key) triples
@@ -920,10 +925,14 @@ def main(argv=None) -> int:
     main_row, worst = phase_attention(args.seed)
     flash_row, flash_worst = phase_flash(args.seed)
     bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
-    print("errors_vs_simt " + json.dumps({
-        name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
-        for name, now in (("forward", flash_worst), ("dq", bwd_worst["dq"]),
-                          ("dk", bwd_worst["dk"]), ("dv", bwd_worst["dv"]))}))
+    errors = {name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
+              for name, now in (("forward", flash_worst),
+                                ("dq", bwd_worst["dq"]),
+                                ("dk", bwd_worst["dk"]),
+                                ("dv", bwd_worst["dv"]))}
+    errors["fused_attention"] = dict(max_abs_err=worst,
+                                     pr4=PR4_FUSED_MAX_ABS_ERR)
+    print("errors_vs_simt " + json.dumps(errors))
     for family in ("pointer_generator", "transformer"):
         phase_small_reference(args.seed, family)
     phase_small_training(args.seed)
@@ -956,7 +965,7 @@ def main(argv=None) -> int:
         launches=summaries["pointer_generator"]["kernel_launches"],
         max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
-        library_ms=None), dict(
+        library_ms=None, redesigned="PR 5"), dict(
         name="flash_attention", route="cuda",
         source="textsummarization_on_flink_tpu_torch/kernels/flash_attention.cu",
         # the library Pallas kernel, at its call site in the repo
@@ -966,7 +975,8 @@ def main(argv=None) -> int:
         + train["launches"]["flash_forward"],
         max_abs_err=flash_worst, ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
-        bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"])]
+        bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],
+        redesigned="PR 4")]
     for name, key in (("flash_attention_bwd_dkv", "dkv"),
                       ("flash_attention_bwd_dq", "dq")):
         # the library's backward kernels, through the custom_vjp of the
@@ -982,7 +992,8 @@ def main(argv=None) -> int:
             ms=bwd_main[f"{key}_ms"], plain_ms=bwd_main["plain_ms"],
             bound_ms=bwd_main[f"{key}_bound_ms"],
             bound_by=bwd_main[f"{key}_bound_by"],
-            library_ms=bwd_main["library_ms"]))
+            library_ms=bwd_main["library_ms"],
+            redesigned="PR 4" if key == "dkv" else "PR 5"))
     print(json.dumps(dict(total_seconds=time.perf_counter() - t_start)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""What the port's CUDA kernels compiled to, and the instruction floor of
+the fused attention's tanh.
+
+    python3 scripts/torch_kernel_sass.py
+
+Needs nvcc and cuobjdump (the CUDA toolkit) and one CUDA card (for its
+SM clock).  It builds the port's kernels (kernels/build.py) and prints,
+per kernel function of each library, the SASS instruction count, the
+number of 3xTF32 tensor-core instructions (HMMA.1688.F32.TF32), of MUFU
+instructions and ptxas's spill lines.  Then it compiles two probe
+kernels into the git-ignored build directory, y[i] = x[i] and
+y[i] = tanhf(x[i]), and counts the SASS instructions (and MUFU among
+them) that one accurate tanhf adds: with the fused attention's B*K*T*D
+tanh per call at the beam-decode shape (16 x 4 x 400 x 512), that count
+over the card's FP32 issue rate (132 SMs x 128 lanes per clock at the
+maximum SM clock nvidia-smi reports) is the tanh's instruction floor,
+and the MUFU count over the MUFU rate (16 per clock per SM) its MUFU
+floor.  One JSON line each.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+SMS, FP32_LANES, MUFU_PER_CLK = 132, 128, 16  # H100 SXM, per SM per clock
+TANH_PER_CALL = 16 * 4 * 400 * 512  # B*K*T*D at the beam-decode shape
+
+PROBE = r"""
+extern "C" __global__ void probe_copy(const float* x, float* y) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  y[i] = x[i];
+}
+extern "C" __global__ void probe_tanh(const float* x, float* y) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  y[i] = tanhf(x[i]);
+}
+"""
+
+_INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def tool(name: str) -> str:
+    from textsummarization_on_flink_tpu_torch.kernels import build
+
+    return os.path.join(os.path.dirname(build.nvcc_path()), name)
+
+
+def sass_counts(path: str):
+    """{function: Counter of opcodes} of a library or cubin (NOPs out)."""
+    out = subprocess.run([tool("cuobjdump"), "-sass", path],
+                         capture_output=True, text=True, check=True).stdout
+    funcs = collections.OrderedDict()
+    cur = None
+    for line in out.splitlines():
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            funcs[cur] = collections.Counter()
+        elif cur is not None:
+            m = _INSTR.search(line)
+            if m and m.group(1) != "NOP":
+                funcs[cur][m.group(1)] += 1
+    return funcs
+
+
+def summary(ops: collections.Counter):
+    return dict(instructions=sum(ops.values()),
+                hmma_tf32=ops.get("HMMA.1688.F32.TF32", 0),
+                mufu=sum(n for op, n in ops.items() if op.startswith("MUFU")))
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()
+    return float(out[0]) * 1e6
+
+
+def main() -> int:
+    from textsummarization_on_flink_tpu_torch.kernels import build
+
+    libs = build.build_all()
+    for name, lib in libs.items():
+        spills = [ln.strip() for ln in build.build_log(name).splitlines()
+                  if "spill" in ln]
+        print(json.dumps(dict(library=name, spill_lines=sorted(set(spills)))))
+        for func, ops in sass_counts(lib).items():
+            print(json.dumps(dict(library=name, function=func,
+                                  **summary(ops))))
+
+    os.makedirs(build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(build.BUILD_DIR, "tanh_probe.cu")
+    cubin = os.path.join(build.BUILD_DIR, "tanh_probe.cubin")
+    with open(src, "w", encoding="utf-8") as f:
+        f.write(PROBE)
+    subprocess.run([build.nvcc_path(), "-cubin", "-arch=sm_90a", "-O3",
+                    "-o", cubin, src], check=True)
+    funcs = sass_counts(cubin)
+    copy = summary(next(v for k, v in funcs.items() if "probe_copy" in k))
+    tanh = summary(next(v for k, v in funcs.items() if "probe_tanh" in k))
+    per_tanh = tanh["instructions"] - copy["instructions"]
+    mufu = tanh["mufu"] - copy["mufu"]
+    clk = max_sm_clock_hz()
+    print(json.dumps(dict(
+        tanhf_sass_instructions=per_tanh, tanhf_mufu=mufu,
+        tanh_opcodes=dict(funcs[next(k for k in funcs if "probe_tanh" in k)]),
+        max_sm_clock_mhz=clk / 1e6, tanh_per_call=TANH_PER_CALL,
+        tanh_issue_floor_ms=TANH_PER_CALL * per_tanh
+        / (SMS * FP32_LANES * clk) * 1e3,
+        tanh_mufu_floor_ms=TANH_PER_CALL * mufu
+        / (SMS * MUFU_PER_CLK * clk) * 1e3)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

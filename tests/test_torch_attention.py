@@ -137,6 +137,47 @@ def test_kernel_wrapper_refuses_cpu_tensors():
                            t(w_c), True)
 
 
+@pytest.mark.parametrize("dtype,D,T,K,match", [
+    (torch.float32, 6, 37, 4, "multiple of 4"),
+    (torch.bfloat16, 12, 37, 4, "multiple of 8"),
+    (torch.float32, 512, 300_000, 4, "shared memory"),
+    (torch.float32, 24, 0, 4, "empty"),
+    (torch.float32, 24, 37, 0, "empty"),
+])
+def test_kernel_wrapper_refuses_shapes_before_the_device(dtype, D, T, K,
+                                                         match):
+    """The shapes the kernel does not take are refused from the shapes
+    alone, before the device is looked at (so also here, on CPU
+    tensors), and nothing is launched."""
+    B = 2
+    before = fa.launches
+    args = (torch.zeros(B, T, D, dtype=dtype), torch.zeros(B, T, D,
+                                                           dtype=dtype),
+            torch.ones(B, T), torch.zeros(B, K, D), torch.zeros(B, K, T),
+            torch.zeros(D), torch.zeros(D))
+    with pytest.raises(ValueError, match=match):
+        fa._attention_cuda(*args, True)
+    assert fa.launches == before
+
+
+@pytest.mark.parametrize("B,K,T,D,dtype", [
+    (16, 4, 400, 512, torch.float32),   # the beam-decode shape
+    (16, 4, 400, 512, torch.bfloat16),
+    (4, 1, 4096, 512, torch.float32),   # the long form
+    (4, 1, 4096, 512, torch.bfloat16),
+    (3, 4, 100, 64, torch.float32),     # the card tests' widths
+    (2, 6, 70, 512, torch.bfloat16),
+    (2, 1, 333, 96, torch.float32),
+])
+def test_kernel_takes_the_paths_shapes(B, K, T, D, dtype):
+    """No refusal for the shapes the main paths and the card tests give
+    the kernel; its shared memory stays within one block's."""
+    es = torch.zeros(B, T, D, dtype=dtype)
+    assert fa._shape_refusal(es, torch.zeros(B, K, D)) is None
+    elt = 2 if dtype == torch.bfloat16 else 4
+    assert fa._smem_bytes(T, D, K, elt) <= fa._SMEM_MAX
+
+
 @pytest.mark.parametrize("use_cov", [False, True])
 def test_attend_shared_matches_jax(use_cov):
     jhps, thps = make_hps(coverage=use_cov)

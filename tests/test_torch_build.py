@@ -47,10 +47,11 @@ def test_other_files_do_not_rename_the_library(kernel_dir):
 
 
 def test_package_sources_hash_their_headers():
-    """The package's flash sources include mma_tf32x3.cuh, which lies in
-    the kernel directory the digest reads."""
+    """The package's sources include mma_tf32x3.cuh (the flash kernels
+    its 3xTF32 products, the fused attention its cp.async staging), which
+    lies in the kernel directory the digest reads."""
     assert os.path.exists(os.path.join(build.KERNEL_DIR, "mma_tf32x3.cuh"))
-    for name in ("flash_attention", "flash_attention_bwd"):
+    for name in build.SOURCES:
         src, lib, log = build._paths(name)
         with open(src, encoding="utf-8") as f:
             assert '#include "mma_tf32x3.cuh"' in f.read()

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card (marker ``cuda``; skips without a
 CUDA device): the fused additive attention, the flash self-attention
-and its backward (dK/dV and dQ), each against its plain version.  This file imports
+and its backward (dK/dV and dQ), each against its plain version, and
+the bitwise repeatability of the kernels redesigned last.  This file imports
 torch, numpy and the port only, so it also runs where jax is not
 installed:
 
@@ -26,6 +27,7 @@ def _need_cuda():
 
 
 def _inputs(B, K, T, D, dtype, seed=0):
+    """The fused attention's inputs, article 1 fully masked."""
     rng = np.random.RandomState(seed)
     lens = rng.randint(T // 2, T + 1, B)
     mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
@@ -72,6 +74,98 @@ def test_kernel_rejects_bad_inputs_on_card():
     bad[2] = args[2].cpu()
     with pytest.raises(ValueError, match="mask"):
         fa.fused_attention_shared(*bad, True)
+
+
+#: T at the fused attention kernel's edges: one position, the 8-position
+#: chunk (7, 8, 9), clusters of 8 blocks of one chunk each (63, 64, 65)
+#: and of 16 (127, 128, 129: two articles take 16-block clusters, five
+#: take 8), the beam-decode T and the long form
+FUSED_EDGE_T = (1, 7, 8, 9, 63, 64, 65, 127, 128, 129, 400, 4096)
+
+
+def _check_fused(args, use_cov):
+    before = fa.launches
+    ctx, attn = fa.fused_attention_shared(*args, use_cov)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ctx_p, attn_p = fa._attention_plain(*args, use_cov)
+    np.testing.assert_allclose(ctx.cpu().numpy(), ctx_p.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(attn.cpu().numpy(), attn_p.cpu().numpy(),
+                               **TOL)
+    assert not attn[1].any() and not ctx[1].any()  # the empty article
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", FUSED_EDGE_T)
+@pytest.mark.parametrize("B", [2, 5])
+def test_fused_attention_at_chunk_and_cluster_edges_on_card(T, B):
+    """K = 4 (the beam), f32, coverage on, article 1 fully masked."""
+    _need_cuda()
+    _check_fused(_inputs(B, 4, T, 64, torch.float32, seed=T), True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [1, 4, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_cov", [False, True])
+def test_fused_attention_query_counts_on_card(K, dtype, use_cov):
+    """K below, at and above one register pass of 4 queries, both
+    encoder dtypes, coverage on and off, article 1 fully masked."""
+    _need_cuda()
+    _check_fused(_inputs(3, K, 129, 96, dtype, seed=K), use_cov)
+
+
+@pytest.mark.cuda
+def test_fused_attention_refuses_what_the_kernel_does_not_take_on_card():
+    """A row the kernel cannot stage in 16-byte pieces (D not a multiple
+    of 4 in f32, of 8 in bf16) or an encoder that is not 16-byte aligned
+    is refused, and nothing is launched."""
+    _need_cuda()
+    B, K, T = 2, 4, 40
+    cases = [(_inputs(B, K, T, 6, torch.float32), "multiple of 4"),
+             (_inputs(B, K, T, 12, torch.bfloat16), "multiple of 8")]
+    args = _inputs(B, K, T, 64, torch.float32)
+    flat = torch.empty(B * T * 64 + 1, device="cuda")
+    es = flat[1:].view(B, T, 64)  # contiguous, 4 bytes past an alignment
+    es.copy_(args[0])
+    cases.append(([es, *args[1:]], "aligned"))
+    before = fa.launches
+    for bad, match in cases:
+        with pytest.raises(ValueError, match=match):
+            fa.fused_attention_shared(*bad, True)
+    assert fa.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fused_f32", "fused_bf16", "dq_hd32",
+                                    "dq_hd128"])
+def test_redesigned_kernels_repeat_their_bits_on_card(kernel):
+    """Two launches on the same inputs give bitwise-equal outputs: the
+    fused attention merges its blocks in rank order, without atomics, and
+    a dQ block owns its rows."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    if kernel.startswith("fused"):
+        dtype = torch.bfloat16 if kernel.endswith("bf16") else torch.float32
+        args = _inputs(16, 4, 400, 512, dtype)
+
+        def run():
+            return fa.fused_attention_shared(*args, True)
+    else:
+        hd = 32 if kernel.endswith("32") else 128
+        q, k, v, mask = _flash_inputs(4, 300, 4, hd)
+        scale = hd ** -0.5
+        out, lse = fl._flash_cuda(q, k, v, mask, False, scale, with_lse=True)
+        do = torch.randn_like(q)
+        dsum = torch.sum(do * out, dim=-1)
+
+        def run():
+            return (fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, False,
+                                    scale),)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _flash_inputs(B, T, nh, hd, seed=0, empty_article=True, qk_std=1.0):

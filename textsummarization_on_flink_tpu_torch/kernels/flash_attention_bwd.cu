@@ -39,33 +39,39 @@
 // tensor-core rate over the three products of 3xTF32), against 52 MB of
 // q, k, v, out, dout and the three gradients (16 us at 3.35 TB/s).
 //
-// The dK/dV kernel runs its four products on the tensor cores, f32-
-// accurate in 3xTF32 (mma_tf32x3.cuh):
+// Both kernels run their products on the tensor cores, f32-accurate in
+// 3xTF32 (mma_tf32x3.cuh), as m16n8k8 products on tiles staged by
+// cp.async, double-buffered, rows padded by 4 floats so the fragment
+// loads are free of bank conflicts.  P and dS feed the next product from
+// their accumulator registers in a permuted order (a_from_acc /
+// load_b_perm), with no shuffle.
+//
+// The dK/dV kernel:
 //
 //   * a block owns 64 keys, 16 per warp; their K and V rows are staged in
 //     shared memory once (hi/lo split at use: at hd 128 K, V and the two
 //     accumulators would not fit in registers together), and the block
-//     loops over tiles of queries (64 rows at hd 32, 16 at hd 128) whose
-//     q, dout, lse and D are staged by cp.async, double-buffered, rows
-//     padded by 4 floats so the fragment loads are free of bank conflicts;
+//     loops over tiles of queries (32 rows at hd 32, 16 at hd 128) whose
+//     q, dout, lse and D are staged and split once per block;
 //   * per tile a warp forms S^T = K Q^T, P^T = exp(S^T * scale - lse),
-//     dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - D) and dK += dS^T Q
-//     as m16n8k8 products; P^T and dS^T feed the next product from their
-//     accumulator registers in a permuted query order (a_from_acc /
-//     load_b_perm), and dK is scaled by sm_scale at the end;
+//     dV += P^T dO, dP^T = V dO^T, dS^T = P^T (dP^T - D) and dK += dS^T Q;
+//     dK is scaled by sm_scale at the end;
 //   * causal: a warp skips a tile all of whose rows precede its first key.
 //
-// The dQ kernel is the f32 SIMT design (its redesign is the next step):
+// The dQ kernel, the forward (flash_attention.cu) with one more product:
 //
-//   * G = hd / 16 lanes per row (2 at hd 32, 8 at hd 128): a lane holds
-//     16 floats of each of its row's q, dout and accumulator in registers,
-//     in float4 chunks g, g+G, g+2G, g+3G, so the G lanes of a row read
-//     neighbouring 16-byte words of shared memory, without bank
-//     conflicts; the two dot products of a pair are reduced over the G
-//     lanes with shuffles;
-//   * the keys are staged through shared memory in tiles of 64 rows at
-//     hd 32 and 32 at hd 128 (16 or 32 KB); a ragged last tile is
-//     zero-filled and masked.
+//   * a block owns 64 query rows, 16 per warp, and loops over tiles of
+//     keys (64 at hd 32, 32 at hd 128) whose K, V and key flags are staged
+//     and split once per block; q and dO stay in registers, split once, at
+//     hd 32, and are staged in shared memory and split at use at hd 128;
+//   * per chunk of 16 keys a warp forms S = Q K^T,
+//     P = exp(S * scale - lse), dP = dO V^T, dS = P (dP - D) and
+//     dQ += dS K, K taking V's place in the forward's P V; dQ is scaled
+//     by sm_scale at the end;
+//   * causal: tiles past the block's last row are not loaded, a warp
+//     stops at the chunk past its last row, the diagonal test runs only
+//     on chunks that cross it, and the blocks with the most tiles start
+//     first; a tile none of whose keys is real and unmasked is skipped.
 //
 // Both kernels:
 //
@@ -74,14 +80,16 @@
 //     empty article) gives exact zeros in dq and nothing to dk or dv; a
 //     block none of whose rows (dQ) or keys (dK/dV) may attend anything
 //     writes zeros and stops;
+//   * every chain of tensor-core sums is short (a 16-wide slice of the
+//     head dim, or at most 32 keys or queries) in a fresh accumulator,
+//     added to the long-lived sum by round-to-nearest f32 adds (mma3);
 //   * causal: the dK/dV kernel starts at its first key's row (earlier
 //     query rows attend none of its keys); the dQ kernel stops at the key
 //     tile past its last query row, as the forward does.
 //
-// The dQ kernel is plain f32 FMA; the dK/dV kernel's products are
-// f32-accurate 3xTF32.  Both use expf (no fast math), so the result
-// differs from the plain version by the order of sums and about one f32
-// rounding per product.  wgmma and TMA are later work.
+// Softmax terms use expf (no fast math), so the result differs from the
+// plain version by the order of sums and about one f32 rounding per
+// product.  wgmma and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see kernels/build.py).  C entry points bound with
@@ -97,40 +105,6 @@ namespace {
 using tf32x3::FragA;
 
 constexpr int kThreads = 128;
-constexpr int kVec = 4;  // float4 chunks of each row vector per lane
-
-__device__ __forceinline__ float dot4(float acc, float4 a, float4 b) {
-  acc = fmaf(a.x, b.x, acc);
-  acc = fmaf(a.y, b.y, acc);
-  acc = fmaf(a.z, b.z, acc);
-  return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void axpy4(float4& acc, float p, float4 x) {
-  acc.x = fmaf(p, x.x, acc.x);
-  acc.y = fmaf(p, x.y, acc.y);
-  acc.z = fmaf(p, x.z, acc.z);
-  acc.w = fmaf(p, x.w, acc.w);
-}
-
-// sum over the G neighbouring lanes of a row (every lane of the warp
-// takes part; G is a power of two up to 32)
-template <int G>
-__device__ __forceinline__ float row_sum(float d) {
-#pragma unroll
-  for (int o = 1; o < G; o <<= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-  return d;
-}
-
-template <int HD>
-struct Shape {
-  static constexpr int G = HD / (4 * kVec);      // lanes per row
-  static constexpr int kRows = kThreads / G;     // rows per block
-  static constexpr int kTile = HD == 128 ? 32 : 64;  // rows per shared tile
-  static constexpr int kC4 = HD / 4;             // float4 per head row
-  static_assert(G * kVec * 4 == HD, "a lane holds 16 floats of a row");
-  static_assert(G <= 32 && (G & (G - 1)) == 0, "G lanes share a warp");
-};
 
 // The dK/dV kernel's tiling: a block owns 64 keys, 16 per warp, and loops
 // over tiles of kQ query rows staged in shared memory.
@@ -338,9 +312,42 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// grid (ceil(T / kRows), nh, B): one block per (query tile, head, article)
+// The dQ kernel's tiling: a block owns 64 query rows, 16 per warp, and
+// loops over tiles of kKeys keys staged in shared memory; a warp works
+// through a tile in chunks of kChunk keys (S and dP of one chunk are its
+// live registers).  At hd 32 the warp's q and dO rows stay in registers,
+// split to hi/lo once; at hd 128 (where dQ alone takes 64 registers) they
+// are staged in shared memory with the first tile and split at use.
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
+struct Dq {
+  static constexpr bool kQInRegs = HD <= 64;
+  static constexpr int kRows = 64;                    // query rows per block
+  static constexpr int kKeys = HD == 128 ? 32 : 64;   // keys per tile
+  static constexpr int kChunk = 16;                   // keys per warp pass
+  static constexpr int kStride = HD + 4;  // floats per shared row
+  static constexpr int kKS = HD / 8;      // k-steps over the head dim
+  static constexpr int kNT = kChunk / 8;  // 8-key column tiles of a chunk
+  static constexpr int kDT = HD / 8;      // 8-wide column tiles of dQ
+  // 8-key chunks of dS per accumulator of dQ += dS K: at most 32 keys
+  static constexpr int kGroup = kNT < 4 ? kNT : 4;
+  static constexpr int kTile = kKeys * kStride;     // floats of a K or V tile
+  static constexpr int kStage = 2 * kTile + kKeys;  // K, V, key flags
+  static constexpr int kQ = kQInRegs ? 0 : 2 * kRows * kStride;  // q, dO
+  // blocks per SM asked of ptxas: shared memory allows 4 at hd 32 and 1
+  // at hd 128
+  static constexpr int kMinBlocks = kQInRegs ? 3 : 1;
+  // two stages, the lo parts of the current K and V tiles, q and dO at
+  // hd 128
+  static constexpr size_t kSmem =
+      (2 * kStage + 2 * kTile + kQ) * sizeof(float);
+  static_assert(kKeys % kChunk == 0 && kKeys <= kThreads, "whole chunks");
+  static_assert(kTile % 4 == 0 && kStage % 4 == 0, "16-byte aligned tiles");
+};
+
+// grid (ceil(T / 64), nh, B): one block per (64 query rows, head,
+// article); Dq<HD>::kSmem bytes of dynamic shared memory
+template <int HD>
+__global__ void __launch_bounds__(kThreads, Dq<HD>::kMinBlocks)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v,
                     const float* __restrict__ dout,
@@ -349,109 +356,204 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ key_mask,
                     float* __restrict__ dq, int T, int nh, int causal,
                     float sm_scale) {
-  using S = Shape<HD>;
-  constexpr int G = S::G, kRows = S::kRows, kTile = S::kTile, kC4 = S::kC4;
+  using S = Dq<HD>;
+  constexpr int kKeys = S::kKeys, kStride = S::kStride, kChunk = S::kChunk;
+  extern __shared__ __align__(16) float smem[];
 
-  __shared__ float4 k_s[kTile * kC4];
-  __shared__ float4 v_s[kTile * kC4];
-  __shared__ int kok_s[kTile];  // 1: a real key inside [0, T)
-
-  const int tid = threadIdx.x;
-  const int g = tid % G;
-  const int qi = blockIdx.x * kRows + tid / G;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // causal: the last query blocks have the most key tiles; start them first
+  const int qb = causal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z;
-  const bool q_real = qi < T;
-  const size_t pos_stride = (size_t)nh * HD;
+  const size_t pos_stride = (size_t)nh * HD;  // floats between positions
   const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
-  const size_t row_base = (size_t)b * T * nh + h;
-  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  const size_t row_base = (size_t)b * T * nh + h;  // lse/dsum of (b, 0, h)
+  const int row0 = qb * S::kRows + warp * 16;      // the warp's first row
+  const int rows[2] = {row0 + g, row0 + g + 8};    // this lane's two rows
 
-  float l = 0.f, d = 0.f;
-  bool row_ok = false;
-  if (q_real) {
-    l = lse[row_base + (size_t)qi * nh];
-    d = dsum[row_base + (size_t)qi * nh];
-    row_ok = isfinite(l);
-  }
-  float4* dq_row = reinterpret_cast<float4*>(dq + base + (size_t)qi * pos_stride);
-  if (!__syncthreads_or(row_ok)) {  // no row of the tile attends a key
-    if (q_real) {
+  float l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  bool rok[2] = {false, false};  // a real row with a key to attend
 #pragma unroll
-      for (int c = 0; c < kVec; ++c) dq_row[c * G + g] = zero4;
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] < T) {
+      l[r] = lse[row_base + (size_t)rows[r] * nh];
+      dd[r] = dsum[row_base + (size_t)rows[r] * nh];
+      rok[r] = isfinite(l[r]);
+      if (!rok[r]) l[r] = 0.f;
+    }
+  }
+  // no row of the block attends a key: zeros, without reading anything
+  if (!__syncthreads_or(rok[0] || rok[1])) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (rows[r] >= T) continue;
+      float* dq_row = dq + base + (size_t)rows[r] * pos_stride;
+#pragma unroll
+      for (int n = 0; n < S::kDT; ++n)
+        *reinterpret_cast<float2*>(dq_row + 8 * n + 2 * t) =
+            make_float2(0.f, 0.f);
     }
     return;
   }
 
-  float4 qv[kVec], dov[kVec], acc[kVec];
-  const float4* q_row =
-      reinterpret_cast<const float4*>(q + base + (size_t)qi * pos_stride);
-  const float4* do_row =
-      reinterpret_cast<const float4*>(dout + base + (size_t)qi * pos_stride);
+  // the warp's q and dO rows as A fragments: split once into registers,
+  // or (hd 128) read from the shared tiles and split at use
+  float* q_s = smem + 2 * S::kStage + 2 * S::kTile;
+  float* do_s = q_s + S::kRows * kStride;
+  FragA q_reg[S::kQInRegs ? S::kKS : 1], do_reg[S::kQInRegs ? S::kKS : 1];
+  if constexpr (S::kQInRegs) {
+    const bool in0 = rows[0] < T, in1 = rows[1] < T;
+    const size_t o0 = base + (size_t)(in0 ? rows[0] : 0) * pos_stride;
+    const size_t o1 = base + (size_t)(in1 ? rows[1] : 0) * pos_stride;
 #pragma unroll
-  for (int c = 0; c < kVec; ++c) {
-    qv[c] = q_real ? q_row[c * G + g] : zero4;
-    dov[c] = q_real ? do_row[c * G + g] : zero4;
-    acc[c] = zero4;
+    for (int ks = 0; ks < S::kKS; ++ks) {
+      const int c = 8 * ks + t;
+      q_reg[ks] = tf32x3::split_a(in0 ? q[o0 + c] : 0.f, in1 ? q[o1 + c] : 0.f,
+                                  in0 ? q[o0 + c + 4] : 0.f,
+                                  in1 ? q[o1 + c + 4] : 0.f);
+      do_reg[ks] = tf32x3::split_a(
+          in0 ? dout[o0 + c] : 0.f, in1 ? dout[o1 + c] : 0.f,
+          in0 ? dout[o0 + c + 4] : 0.f, in1 ? dout[o1 + c + 4] : 0.f);
+    }
   }
+  auto q_frag = [&](int kk) -> FragA {
+    if constexpr (S::kQInRegs)
+      return q_reg[kk];
+    else
+      return tf32x3::load_a(q_s + warp * 16 * kStride + 8 * kk, kStride, g,
+                            t);
+  };
+  auto do_frag = [&](int kk) -> FragA {
+    if constexpr (S::kQInRegs)
+      return do_reg[kk];
+    else
+      return tf32x3::load_a(do_s + warp * 16 * kStride + 8 * kk, kStride, g,
+                            t);
+  };
+  float dqa[S::kDT][4];
+#pragma unroll
+  for (int n = 0; n < S::kDT; ++n)
+    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
 
   // causal: keys past the block's last row are never attended
-  const int t_end =
-      causal ? min(T, (int)(blockIdx.x + 1) * kRows) : T;  // block-uniform
-  for (int k0 = 0; k0 < t_end; k0 += kTile) {
-    __syncthreads();  // every thread is done with the previous tile
-    for (int idx = tid; idx < kTile * kC4; idx += kThreads) {
-      const int t = k0 + idx / kC4, c = idx % kC4;
-      float4 kk = zero4, vv = zero4;
-      if (t < T) {
-        kk = reinterpret_cast<const float4*>(k + base + t * pos_stride)[c];
-        vv = reinterpret_cast<const float4*>(v + base + t * pos_stride)[c];
-      }
-      k_s[idx] = kk;
-      v_s[idx] = vv;
-    }
-    for (int j = tid; j < kTile; j += kThreads) {
-      const int t = k0 + j;
-      kok_s[j] = (t < T && (key_mask == nullptr ||
-                            key_mask[(size_t)b * T + t] > 0.f))
-                     ? 1
-                     : 0;
-    }
-    __syncthreads();
+  const int t_end = causal ? min(T, (qb + 1) * S::kRows) : T;  // block-uniform
+  const int n_tiles = (t_end + kKeys - 1) / kKeys;
 
-    const int nk = min(kTile, t_end - k0);  // block-uniform
-#pragma unroll 2
-    for (int j = 0; j < nk; ++j) {
-      const float4* kr = k_s + j * kC4;
-      const float4* vr = v_s + j * kC4;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) {
-        s = dot4(s, qv[c], kr[c * G + g]);
-        dp = dot4(dp, dov[c], vr[c * G + g]);
-      }
-      s = row_sum<G>(s);
-      dp = row_sum<G>(dp);
-      const bool ok = row_ok && kok_s[j] != 0 && (!causal || k0 + j <= qi);
-      const float p = ok ? expf(s * sm_scale - l) : 0.f;
-      const float ds = p * (dp - d);
-#pragma unroll
-      for (int c = 0; c < kVec; ++c) axpy4(acc[c], ds, kr[c * G + g]);
+  auto stage = [&](int tile, int buf) {
+    float* ks = smem + buf * S::kStage;
+    float* vs = ks + S::kTile;
+    float* oks = vs + S::kTile;
+    const int k0 = tile * kKeys;
+    tf32x3::stage_rows<HD, kThreads>(ks, kStride, k + base, pos_stride, k0,
+                                     kKeys, T, tid);
+    tf32x3::stage_rows<HD, kThreads>(vs, kStride, v + base, pos_stride, k0,
+                                     kKeys, T, tid);
+    for (int j = tid; j < kKeys; j += kThreads) {
+      const int key = k0 + j;
+      oks[j] = (key < T && (key_mask == nullptr ||
+                            key_mask[(size_t)b * T + key] > 0.f))
+                   ? 1.f
+                   : 0.f;
     }
+    tf32x3::cp_async_commit();
+  };
+
+  float* k_lo = smem + 2 * S::kStage;  // lo parts of the current tile
+  float* v_lo = k_lo + S::kTile;
+  if constexpr (!S::kQInRegs) {  // in the first group, with the first tile
+    tf32x3::stage_rows<HD, kThreads>(q_s, kStride, q + base, pos_stride,
+                                     qb * S::kRows, S::kRows, T, tid);
+    tf32x3::stage_rows<HD, kThreads>(do_s, kStride, dout + base, pos_stride,
+                                     qb * S::kRows, S::kRows, T, tid);
+  }
+  stage(0, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage(it + 1, (it + 1) & 1);  // its buffer was freed at it - 1's end
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    float* ks = smem + (it & 1) * S::kStage;
+    float* vs = ks + S::kTile;
+    const float* oks = vs + S::kTile;
+    // each thread splits the chunks it copied; after the barrier the tile
+    // is split and has landed for every warp, and the block knows whether
+    // any key of the tile is real and unmasked (thread j wrote flag j)
+    tf32x3::split_tile<HD, kThreads>(ks, k_lo, kStride, kKeys, tid);
+    tf32x3::split_tile<HD, kThreads>(vs, v_lo, kStride, kKeys, tid);
+    const bool any_key = __syncthreads_or(tid < kKeys && oks[tid] > 0.f);
+
+    if (any_key) {
+      for (int c = 0; c < kKeys / kChunk; ++c) {
+        const int c0 = it * kKeys + c * kChunk;  // the chunk's first key
+        // causal: this chunk and the later ones lie past the warp's rows
+        if (causal && c0 > row0 + 15) break;
+        const int off = c * kChunk * kStride;
+        const tf32x3::SplitTile kt{ks + off, k_lo + off},
+            vt{vs + off, v_lo + off};
+        const float* okc = oks + c * kChunk;
+        // S = Q K^T
+        float p[S::kNT][4];
+        tf32x3::head_dim_product<S::kNT, S::kKS>(p, q_frag, kt, kStride, g,
+                                                 t);
+        // P = exp(S * scale - lse); exactly 0 where the pair is masked or
+        // the row has no key to attend
+        const bool diag = causal && c0 + kChunk - 1 > row0;
+#pragma unroll
+        for (int j = 0; j < S::kNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            const int r = e >> 1;
+            const bool ok = rok[r] && okc[col] > 0.f &&
+                            (!diag || c0 + col <= rows[r]);
+            p[j][e] = ok ? expf(p[j][e] * sm_scale - l[r]) : 0.f;
+          }
+        }
+        // dP = dO V^T, then dS = P (dP - D) in its registers
+        float ds[S::kNT][4];
+        tf32x3::head_dim_product<S::kNT, S::kKS>(ds, do_frag, vt, kStride,
+                                                 g, t);
+#pragma unroll
+        for (int j = 0; j < S::kNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            ds[j][e] = p[j][e] * (ds[j][e] - dd[e >> 1]);
+        }
+        // dQ += dS K (the chunk's keys in a_from_acc's order)
+        tf32x3::tile_product<S::kNT, S::kDT, S::kGroup>(dqa, ds, kt, kStride,
+                                                        g, t);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer it & 1 and the lo
   }
 
-  if (!q_real) return;
 #pragma unroll
-  for (int c = 0; c < kVec; ++c) {
-    const float4 a = acc[c];
-    dq_row[c * G + g] = make_float4(a.x * sm_scale, a.y * sm_scale,
-                                    a.z * sm_scale, a.w * sm_scale);
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= T) continue;
+    float* dq_row = dq + base + (size_t)rows[r] * pos_stride;
+#pragma unroll
+    for (int n = 0; n < S::kDT; ++n)
+      *reinterpret_cast<float2*>(dq_row + 8 * n + 2 * t) = make_float2(
+          dqa[n][2 * r] * sm_scale, dqa[n][2 * r + 1] * sm_scale);
   }
 }
 
 template <int HD>
-dim3 grid_of(int B, int T, int nh) {
-  constexpr int kRows = Shape<HD>::kRows;
-  return dim3((T + kRows - 1) / kRows, nh, B);
+cudaError_t launch_dq(const float* q, const float* k, const float* v,
+                      const float* dout, const float* lse, const float* dsum,
+                      const float* key_mask, float* dq, int B, int T, int nh,
+                      int causal, float sm_scale, cudaStream_t stream) {
+  constexpr size_t smem = Dq<HD>::kSmem;
+  static unsigned smem_set = 0;  // per instantiation: one per kernel
+  const cudaError_t err =
+      tf32x3::allow_smem(flash_bwd_dq_kernel<HD>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + Dq<HD>::kRows - 1) / Dq<HD>::kRows, nh, B);
+  flash_bwd_dq_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      q, k, v, dout, lse, dsum, key_mask, dq, T, nh, causal, sm_scale);
+  return cudaGetLastError();
 }
 
 bool bad_shape(int B, int T, int nh) {
@@ -495,17 +597,14 @@ extern "C" int ts_flash_bwd_dq(const float* q, const float* k,
   if (bad_shape(B, T, nh)) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      flash_bwd_dq_kernel<32><<<grid_of<32>(B, T, nh), kThreads, 0, st>>>(
-          q, k, v, dout, lse, dsum, key_mask, dq, T, nh, causal, sm_scale);
-      break;
+      return (int)launch_dq<32>(q, k, v, dout, lse, dsum, key_mask, dq, B, T,
+                                nh, causal, sm_scale, st);
     case 128:
-      flash_bwd_dq_kernel<128><<<grid_of<128>(B, T, nh), kThreads, 0, st>>>(
-          q, k, v, dout, lse, dsum, key_mask, dq, T, nh, causal, sm_scale);
-      break;
+      return (int)launch_dq<128>(q, k, v, dout, lse, dsum, key_mask, dq, B,
+                                 T, nh, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ts_flash_bwd_error_string(int err) {

@@ -3,7 +3,7 @@
 // Replaces the TPU kernels of textsummarization_on_flink_tpu/ops/
 // pallas_attention.py: `_kernel` (:58, whole row per grid step) and
 // `_blocked_kernel` (:199, T streamed in blocks with an online softmax).
-// One kernel serves both: it always tiles T.  Per article b and query k
+// One kernel serves both: it always streams T.  Per article b and query k
 // (K beam hypotheses share one article's encoder):
 //
 //   e[t]   = v . tanh(ef[t] + df[k] (+ cov[k, t] * w_c))      t < T
@@ -11,39 +11,146 @@
 //   attn   = exp(e - max e) * (mask > 0) / max(sum, 1e-30)
 //   ctx    = attn^T es                                         (true f32)
 //
-// What bounds it on an H100: memory.  At the beam-decode shape (16
-// articles x 4 beams, T=400, D=512, f32) es + ef are 26 MB per call when
-// each article's encoder is read once for all K hypotheses; the other
-// cost is B*K*T*D = 13 M tanh.  The design therefore reads every
-// encoder row once per call for all K queries (registers hold K partial
-// energies while one ef row streams past; one es row feeds K context
-// accumulators), keeps the [K, T, D] feature tensor out of memory, and
-// spreads the work over (T/32) x B blocks so that 16 articles fill the
-// card's 132 SMs.  Pass 1 (tile_kernel) writes raw masked energies and
-// per-tile (max, sum, partial context); pass 2 (combine_kernel) merges
-// the tiles with the usual max rescaling and writes the normalised
-// attention over the stored energies.  No atomics: the result does not
-// depend on block order.  Plain FMA in f32 (no tensor cores, no TF32).
+// What bounds it on an H100: memory, with the tanh close behind.  At the
+// beam-decode shape (16 articles x 4 beams, T=400, D=512, f32) es + ef
+// are 26 MB per call when each article's encoder is read once for all K
+// queries (7.9 us at 3.35 TB/s); the other cost is B*K*T*D = 13 M
+// tanh, two MUFU operations each (6.3 us at the MUFU rate; PERF.md counts
+// the SASS).  The design:
+//
+//   * one thread block cluster per article: 8 blocks (the portable size),
+//     or 16 when the articles are few enough that their clusters take at
+//     most half the SMs (the long form); block r of the cluster owns a
+//     contiguous range of positions, so 16 articles give 128 blocks for
+//     132 SMs;
+//   * a block streams its ef rows, then its es rows, through a ring of
+//     chunks of 8 rows in shared memory (4 chunks, so two blocks fit on
+//     an SM; 8 with the wide clusters): a chunk's rows are contiguous in
+//     memory, so one TMA bulk copy (cp.async.bulk) moves it, issued by one
+//     thread and completed on the stage's mbarrier; the first es chunks
+//     land during the last ef chunks;
+//   * the queries, v, w_c and the block's mask and coverage come in one
+//     cp.async group at the start, one trip to memory;
+//   * energies: a warp takes one position of a chunk; a lane holds 4 of
+//     its K energies (a register pass covers 4 queries, so each ef row is
+//     read once per pass: once in all for K <= 4) and works on float4
+//     groups of columns, reduced over the warp with shuffles;
+//   * the block's softmax statistics (max, sum) per query, then its
+//     partial context: a thread owns two columns for every query;
+//   * the cluster merges the blocks' (max, sum, partial context) through
+//     distributed shared memory, every sum in rank order, and each block
+//     writes a slice of ctx and the normalised attention of its own
+//     positions: one launch, no scratch in device memory, no atomics, so
+//     a run's results are the same bits every time.
+//
+// Plain f32 FMA, expf, and tanh as 1 - 2 / (1 + 2^(2 f log2 e)) on the
+// MUFU (tanh_mufu: within ~5e-7 of tanh; no tensor cores, no fast-math
+// flags).  bf16 encoder streams are widened to f32 on load.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see kernels/build.py).  C entry point bound with
 // ctypes from ops/fused_attention.py.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "mma_tf32x3.cuh"  // cp.async and allow_smem
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr float kNeg = -1e30f;         // masked-energy floor, never -inf
 constexpr float kDenomFloor = 1e-30f;  // fully masked row -> zero attention
-constexpr int kTileT = 32;             // positions per block == warp size
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kQ = 4;                  // queries held in registers per pass
+constexpr int kChunk = kWarps;  // positions per staged chunk: one per warp
+// chunks in the cp.async ring: 4 (at most ~85 KB of shared memory in
+// all at D 512, f32, so two blocks fit on an SM and every cluster of the
+// beam-decode shape is resident at once), 8 for the wide clusters
+constexpr int kRing = 4, kWideRing = 8;
+constexpr int kQ = 4;           // queries held in registers per pass
+constexpr int kCluster = 8;     // blocks per article (portable cluster)
+constexpr int kWideCluster = 16;  // for few articles (non-portable size)
+constexpr size_t kSmemMax = 232448;  // bytes a block may use on Hopper
+// floats before the ring: its mbarriers (8 bytes each, at most 8), in
+// the dynamic shared memory (a static array would count against the
+// dynamic maximum allow_smem asks for), the ring 16-byte aligned after
+constexpr int kBarFloats = 16;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// 4 bf16 -> f32 (exact: a bf16 is the top half of an f32)
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 4 bytes global -> shared (cp.async; committed with the 16-byte ones)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// an mbarrier that one arrival (with its transaction bytes) completes
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// make the initialised mbarriers visible to the copy engine
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// bytes global -> shared by the TMA unit (cp.async.bulk), completing on
+// `bar`: one thread arrives on it with the byte count, then issues the
+// copy (16-byte aligned ends, a multiple of 16 bytes)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wait for the phase of `bar` with this parity to complete
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -59,209 +166,375 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// grid (S = ceil(T / kTileT), B); dynamic shared memory
-// (K*D + 2*D + K*kTileT) floats.
-template <typename TIn>
-__global__ void __launch_bounds__(kThreads)
-tile_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
-            const float* __restrict__ mask, const float* __restrict__ df,
-            const float* __restrict__ cov, const float* __restrict__ v,
-            const float* __restrict__ wc, float* __restrict__ energy,
-            float* __restrict__ part_m, float* __restrict__ part_l,
-            float* __restrict__ part_ctx, int T, int D, int K, int use_cov) {
-  extern __shared__ float smem[];
-  float* df_s = smem;                  // [K, D]
-  float* v_s = df_s + (size_t)K * D;   // [D]
-  float* wc_s = v_s + D;               // [D]
-  float* p_s = wc_s + D;               // [K, kTileT] energies, then weights
-  const int s = blockIdx.x, b = blockIdx.y, S = gridDim.x;
-  const int t0 = s * kTileT;
-  const int nt = min(kTileT, T - t0);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// tanh(f) = 1 - 2 / (1 + 2^(2 f log2 e)): one ex2 and one rcp on the
+// MUFU (each within about 2^-22 relative), against accurate tanhf's 17
+// instructions (PERF.md); within ~5e-7 of tanh absolute, +-1 exactly for
+// large |f| (2^x overflows to inf, or flushes to 0).  tanh.approx.f32
+// (2^-11) would not hold the 1e-5 tolerance.
+__device__ __forceinline__ float tanh_mufu(float f) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(f * 2.885390081777927f));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + e));
+  return fmaf(-2.f, r, 1.f);
+}
 
-  for (int i = tid; i < K * D; i += kThreads) df_s[i] = df[(size_t)b * K * D + i];
-  for (int i = tid; i < D; i += kThreads) {
-    v_s[i] = v[i];
-    wc_s[i] = wc[i];
+// f += (cov * w_c) when kCov; then acc += v * tanh(f)
+template <bool kCov>
+__device__ __forceinline__ float energy_term(float acc, float x, float d,
+                                             float cv, float w, float vv) {
+  float f = x + d;
+  if (kCov) f = fmaf(cv, w, f);
+  return fmaf(vv, tanh_mufu(f), acc);
+}
+
+// The cluster's geometry for T positions and at most max_c blocks per
+// article: C blocks of P positions each (P a multiple of kChunk; the last
+// block may hold fewer or none).
+struct Geometry {
+  int C, P;
+  Geometry(int T, int max_c) {
+    const int chunks = (T + kChunk - 1) / kChunk;
+    C = chunks < max_c ? chunks : max_c;
+    const int per = (T + C - 1) / C;
+    P = (per + kChunk - 1) / kChunk * kChunk;
   }
-  __syncthreads();
+};
 
+// Dynamic shared memory, in floats: the ring's mbarriers, the ring, df
+// [K, D], v and w_c [D], the block's mask [P], coverage [K, P] and
+// energies / weights [P, K], its partial context [K, D], and per query
+// its max, sum, denominator and the C ranks' maxes (then scales) and
+// sums.  (More blocks per article only make P smaller.)
+inline size_t smem_floats(const Geometry& geo, int D, int K, int elt_bytes,
+                          int stages) {
+  return kBarFloats + (size_t)stages * kChunk * D * elt_bytes / 4 +
+         2 * (size_t)K * D + 2 * (size_t)D + (size_t)geo.P * (2 * K + 1) +
+         (size_t)(3 + 2 * geo.C) * K;
+}
+
+// grid (C, B) in clusters of (C, 1, 1): one cluster per article;
+// smem_floats(...) * 4 bytes of dynamic shared memory
+template <typename TIn, bool kCov, int kStages>
+__global__ void __launch_bounds__(kThreads)
+attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
+                 const float* __restrict__ mask, const float* __restrict__ df,
+                 const float* __restrict__ cov, const float* __restrict__ v,
+                 const float* __restrict__ wc, float* __restrict__ ctx,
+                 float* __restrict__ attn, int T, int D, int K, int P) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y;
+  const int row_floats = D * (int)sizeof(TIn) / 4;  // one staged row
+  const int chunk_floats = kChunk * row_floats;
+
+  extern __shared__ __align__(16) float smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [kStages]
+  float* ring = smem + kBarFloats;
+  float* df_s = ring + kStages * chunk_floats;  // [K, D]
+  float* v_s = df_s + K * D;                    // [D]
+  float* wc_s = v_s + D;                        // [D]
+  float* mask_s = wc_s + D;     // [P] the block's mask
+  float* cov_s = mask_s + P;    // [K, P] the block's coverage
+  float* pe_s = cov_s + K * P;  // [P, K]: energies, then exp(e - max)
+  float* ctx_s = pe_s + P * K;  // [K, D] the block's partial context
+  float* m_s = ctx_s + K * D;   // [K] the block's max
+  float* l_s = m_s + K;         // [K] the block's sum
+  float* den_s = l_s + K;       // [K] the article's denominator
+  float* sc_s = den_s + K;      // [C, K] rank maxes, then exp(max_r - M)
+  float* ls_s = sc_s + C * K;   // [C, K] rank sums
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t_begin = rank * P;
+  const int n_pos = max(0, min(T, t_begin + P) - t_begin);
+  const int n_chunks = (n_pos + kChunk - 1) / kChunk;
   const TIn* ef_b = ef + (size_t)b * T * D;
   const TIn* es_b = es + (size_t)b * T * D;
   const float* mask_b = mask + (size_t)b * T;
 
-  // 1. energies: a warp owns a position; lanes stride over D; the ef row
-  //    is read once per kQ queries (once in all for K <= kQ)
-  for (int tl = warp; tl < kTileT; tl += kWarps) {
-    if (tl >= nt) {  // ragged tail of the last tile (warp-uniform)
-      for (int k = lane; k < K; k += 32) p_s[k * kTileT + tl] = kNeg;
-      continue;
+  // the ring's sequence: ef chunks 0 .. n_chunks - 1, then es chunks
+  const int n_total = 2 * n_chunks;
+  // one bulk copy (TMA) per chunk: its rows are contiguous in memory;
+  // thread 0 arms the stage's mbarrier with the byte count and issues it
+  auto stage = [&](int i) {
+    if (tid == 0 && i < n_total) {
+      const TIn* src = i < n_chunks ? ef_b : es_b;
+      const int c0 = (i < n_chunks ? i : i - n_chunks) * kChunk;
+      const unsigned bytes =
+          (unsigned)(min(kChunk, n_pos - c0) * D * (int)sizeof(TIn));
+      bulk_load(ring + (i % kStages) * chunk_floats,
+                src + (size_t)(t_begin + c0) * D, bytes, &bars[i % kStages]);
     }
-    const int t = t0 + tl;
-    const bool valid = mask_b[t] > 0.f;
-    const TIn* row = ef_b + (size_t)t * D;
-    for (int k0 = 0; k0 < K; k0 += kQ) {
-      float acc[kQ], cv[kQ];
+  };
+  static_assert(2 * kStages <= kBarFloats, "room for the mbarriers");
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(&bars[i]);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  // the queries, v, w_c and the block's mask and coverage: one cp.async
+  // group, issued with the ring's first chunks
+  for (int i = tid; i < K * D / 4; i += kThreads)
+    tf32x3::cp_async16(df_s + 4 * i, df + (size_t)b * K * D + 4 * i, 16);
+  for (int i = tid; i < D / 4; i += kThreads) {
+    tf32x3::cp_async16(v_s + 4 * i, v + 4 * i, 16);
+    tf32x3::cp_async16(wc_s + 4 * i, wc + 4 * i, 16);
+  }
+  for (int tl = tid; tl < n_pos; tl += kThreads)
+    cp_async4(mask_s + tl, mask_b + t_begin + tl);
+  if (kCov) {
+    for (int k = 0; k < K; ++k)
+      for (int tl = tid; tl < n_pos; tl += kThreads)
+        cp_async4(cov_s + k * P + tl,
+                  cov + ((size_t)b * K + k) * T + t_begin + tl);
+  }
+  tf32x3::cp_async_commit();
+  for (int i = 0; i < kStages - 1; ++i) stage(i);
+
+  for (int i = tid; i < K * D; i += kThreads) ctx_s[i] = 0.f;
+  for (int k = tid; k < K; k += kThreads) {  // a block with no positions
+    m_s[k] = kNeg;
+    l_s[k] = 0.f;
+  }
+
+  for (int i = 0; i < n_total; ++i) {
+    mbar_wait(&bars[i % kStages], (unsigned)(i / kStages) & 1u);
+    if (i == 0) tf32x3::cp_async_wait<0>();
+    // chunk i (and the constants) have landed for every thread; every
+    // warp is done with chunk i - 1, whose buffer the next stage refills
+    __syncthreads();
+    stage(i + kStages - 1);
+    const float* buf = ring + (i % kStages) * chunk_floats;
+
+    if (i < n_chunks) {
+      // 1. energies: warp w takes position w of the chunk
+      const int tl = i * kChunk + warp;  // warp-uniform
+      if (tl < n_pos) {
+        const bool valid = mask_s[tl] > 0.f;
+        const TIn* row = reinterpret_cast<const TIn*>(buf + warp * row_floats);
+        for (int k0 = 0; k0 < K; k0 += kQ) {
+          float acc[kQ], cv[kQ];
 #pragma unroll
-      for (int j = 0; j < kQ; ++j) {
-        acc[j] = 0.f;
-        cv[j] = (use_cov && k0 + j < K) ? cov[((size_t)b * K + k0 + j) * T + t]
-                                        : 0.f;
-      }
-      for (int d = lane; d < D; d += 32) {
-        const float x = to_f32(row[d]);
-        const float vd = v_s[d], wd = wc_s[d];
+          for (int j = 0; j < kQ; ++j) {
+            acc[j] = 0.f;
+            cv[j] = (kCov && k0 + j < K) ? cov_s[(k0 + j) * P + tl] : 0.f;
+          }
+#pragma unroll 4
+          for (int c = lane; c < D / 4; c += 32) {
+            const float4 x = load4(row + 4 * c);
+            const float4 vv = *reinterpret_cast<const float4*>(v_s + 4 * c);
+            const float4 w = *reinterpret_cast<const float4*>(wc_s + 4 * c);
 #pragma unroll
-        for (int j = 0; j < kQ; ++j) {
-          if (k0 + j < K) {
-            float f = x + df_s[(k0 + j) * D + d];
-            if (use_cov) f += cv[j] * wd;
-            acc[j] += vd * tanhf(f);
+            for (int j = 0; j < kQ; ++j) {
+              if (k0 + j < K) {
+                const float4 d = *reinterpret_cast<const float4*>(
+                    df_s + (k0 + j) * D + 4 * c);
+                acc[j] = energy_term<kCov>(acc[j], x.x, d.x, cv[j], w.x, vv.x);
+                acc[j] = energy_term<kCov>(acc[j], x.y, d.y, cv[j], w.y, vv.y);
+                acc[j] = energy_term<kCov>(acc[j], x.z, d.z, cv[j], w.z, vv.z);
+                acc[j] = energy_term<kCov>(acc[j], x.w, d.w, cv[j], w.w, vv.w);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < kQ; ++j) {
+            const float e = warp_sum(acc[j]);
+            if (lane == 0 && k0 + j < K) pe_s[tl * K + k0 + j] = valid ? e : kNeg;
           }
         }
       }
+      continue;
+    }
+
+    if (i == n_chunks) {
+      // 2. the block's softmax statistics: a warp per query, lanes over
+      //    the block's positions (every energy written before the barrier
+      //    at the top of this iteration)
+      for (int k = warp; k < K; k += kWarps) {
+        float m = kNeg;
+        for (int tl = lane; tl < n_pos; tl += 32)
+          m = fmaxf(m, pe_s[tl * K + k]);
+        m = warp_max(m);
+        float l = 0.f;
+        for (int tl = lane; tl < n_pos; tl += 32) {
+          const float p =
+              mask_s[tl] > 0.f ? expf(pe_s[tl * K + k] - m) : 0.f;
+          pe_s[tl * K + k] = p;
+          l += p;
+        }
+        l = warp_sum(l);
+        if (lane == 0) {
+          m_s[k] = m;
+          l_s[k] = l;
+        }
+      }
+      __syncthreads();
+    }
+
+    // 3. partial context: a thread owns columns 2c, 2c + 1 of every query
+    const int c0 = (i - n_chunks) * kChunk;  // the chunk's first position
+    const int n_here = min(kChunk, n_pos - c0);
+    const TIn* rows = reinterpret_cast<const TIn*>(buf);
+    for (int c = tid; c < D / 2; c += kThreads) {
+      for (int k0 = 0; k0 < K; k0 += kQ) {
+        float a[kQ][2];
 #pragma unroll
-      for (int j = 0; j < kQ; ++j) {
-        const float e = warp_sum(acc[j]);
-        if (lane == 0 && k0 + j < K) {
-          const float em = valid ? e : kNeg;
-          p_s[(k0 + j) * kTileT + tl] = em;
-          energy[((size_t)b * K + k0 + j) * T + t] = em;
+        for (int j = 0; j < kQ; ++j) a[j][0] = a[j][1] = 0.f;
+        for (int r = 0; r < n_here; ++r) {
+          const float2 x = load2(rows + (size_t)r * D + 2 * c);
+          const float* pr = pe_s + (c0 + r) * K + k0;
+#pragma unroll
+          for (int j = 0; j < kQ; ++j) {
+            if (k0 + j < K) {
+              a[j][0] = fmaf(pr[j], x.x, a[j][0]);
+              a[j][1] = fmaf(pr[j], x.y, a[j][1]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kQ; ++j) {
+          if (k0 + j < K) {
+            float2* dst =
+                reinterpret_cast<float2*>(ctx_s + (k0 + j) * D + 2 * c);
+            const float2 old = *dst;
+            *dst = make_float2(old.x + a[j][0], old.y + a[j][1]);
+          }
         }
       }
     }
   }
-  __syncthreads();
+  tf32x3::cp_async_wait<0>();  // no copy may outlive the block (T = 0)
 
-  // 2. tile softmax statistics: a warp owns a query, lane = position
-  for (int k = warp; k < K; k += kWarps) {
-    const float e = p_s[k * kTileT + lane];
-    const float m = warp_max(e);
-    const bool valid = lane < nt && mask_b[t0 + lane] > 0.f;
-    const float p = valid ? expf(e - m) : 0.f;
-    const float l = warp_sum(p);
-    p_s[k * kTileT + lane] = p;
-    if (lane == 0) {
-      part_m[((size_t)b * S + s) * K + k] = m;
-      part_l[((size_t)b * S + s) * K + k] = l;
+  // 4. merge across the cluster: every block's statistics and partial
+  //    context are complete after this barrier
+  cluster.sync();
+  // every rank's (max, sum) into this block's memory, one remote read
+  // per thread, then the article's max, the rank scales and the
+  // denominator per query
+  for (int i = tid; i < C * K; i += kThreads) {
+    sc_s[i] = cluster.map_shared_rank(m_s, i / K)[i % K];
+    ls_s[i] = cluster.map_shared_rank(l_s, i / K)[i % K];
+  }
+  __syncthreads();
+  for (int k = tid; k < K; k += kThreads) {
+    float M = kNeg;
+    for (int r = 0; r < C; ++r) M = fmaxf(M, sc_s[r * K + k]);
+    float den = 0.f;
+    for (int r = 0; r < C; ++r) {  // rank order: the same bits every run
+      const float sc = expf(sc_s[r * K + k] - M);
+      sc_s[r * K + k] = sc;
+      den = fmaf(ls_s[r * K + k], sc, den);
     }
+    den_s[k] = fmaxf(den, kDenomFloor);
   }
   __syncthreads();
 
-  // 3. partial context: a thread owns columns d; each es row is read
-  //    once per kQ queries, consecutive threads on consecutive columns
-  for (int d = tid; d < D; d += kThreads) {
-    for (int k0 = 0; k0 < K; k0 += kQ) {
-      float acc[kQ];
-#pragma unroll
-      for (int j = 0; j < kQ; ++j) acc[j] = 0.f;
-      for (int tl = 0; tl < nt; ++tl) {
-        const float x = to_f32(es_b[(size_t)(t0 + tl) * D + d]);
-#pragma unroll
-        for (int j = 0; j < kQ; ++j)
-          if (k0 + j < K) acc[j] += p_s[(k0 + j) * kTileT + tl] * x;
-      }
-#pragma unroll
-      for (int j = 0; j < kQ; ++j)
-        if (k0 + j < K)
-          part_ctx[(((size_t)b * S + s) * K + k0 + j) * D + d] = acc[j];
-    }
+  // this block's slice of ctx [K, D], summed over the ranks in order
+  const int KD = K * D;
+  const int per = (KD + C - 1) / C;
+  const int hi = min(KD, (rank + 1) * per);
+  for (int idx = rank * per + tid; idx < hi; idx += kThreads) {
+    const int k = idx / D;
+    float s = 0.f;
+#pragma unroll 8
+    for (int r = 0; r < C; ++r)  // the loads of an unrolled run overlap
+      s = fmaf(cluster.map_shared_rank(ctx_s, r)[idx], sc_s[r * K + k], s);
+    ctx[(size_t)b * KD + idx] = s / den_s[k];
   }
+  // the normalised attention of this block's positions (a masked one has
+  // weight 0, so exactly 0)
+  for (int k = 0; k < K; ++k) {
+    const float sc = sc_s[rank * K + k], den = den_s[k];
+    float* out = attn + ((size_t)b * K + k) * T + t_begin;
+    for (int tl = tid; tl < n_pos; tl += kThreads)
+      out[tl] = pe_s[tl * K + k] * sc / den;
+  }
+  // no block leaves while another may still read its shared memory
+  cluster.sync();
 }
 
-__device__ float block_reduce(float x, bool is_max, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  x = is_max ? warp_max(x) : warp_sum(x);
-  __syncthreads();  // red may still be read from a previous reduction
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  float r = red[0];
-  for (int w = 1; w < kWarps; ++w) r = is_max ? fmaxf(r, red[w]) : r + red[w];
-  return r;
-}
-
-// grid (B*K); dynamic shared memory S floats (per-tile rescale factors).
-__global__ void __launch_bounds__(kThreads)
-combine_kernel(const float* __restrict__ mask, const float* __restrict__ part_m,
-               const float* __restrict__ part_l,
-               const float* __restrict__ part_ctx, float* __restrict__ attn,
-               float* __restrict__ ctx, int T, int D, int K, int S) {
-  extern __shared__ float scale_s[];
-  __shared__ float red[kWarps];
-  const int b = blockIdx.x / K, k = blockIdx.x % K;
-  const int tid = threadIdx.x;
-
-  float m = kNeg;
-  for (int s = tid; s < S; s += kThreads)
-    m = fmaxf(m, part_m[((size_t)b * S + s) * K + k]);
-  const float M = block_reduce(m, true, red);
-
-  float l = 0.f;
-  for (int s = tid; s < S; s += kThreads) {
-    const float sc = expf(part_m[((size_t)b * S + s) * K + k] - M);
-    scale_s[s] = sc;
-    l += part_l[((size_t)b * S + s) * K + k] * sc;
-  }
-  const float denom = fmaxf(block_reduce(l, false, red), kDenomFloor);
-  __syncthreads();  // scale_s complete
-
-  for (int d = tid; d < D; d += kThreads) {
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s)
-      acc += part_ctx[(((size_t)b * S + s) * K + k) * D + d] * scale_s[s];
-    ctx[((size_t)b * K + k) * D + d] = acc / denom;
-  }
-  const float* mask_b = mask + (size_t)b * T;
-  float* row = attn + ((size_t)b * K + k) * T;
-  for (int t = tid; t < T; t += kThreads)
-    row[t] = mask_b[t] > 0.f ? expf(row[t] - M) / denom : 0.f;
-}
-
-template <typename TIn>
-cudaError_t launch_tiles(const void* es, const void* ef, const float* mask,
-                         const float* df, const float* cov, const float* v,
-                         const float* wc, float* attn, float* part_m,
-                         float* part_l, float* part_ctx, int B, int T, int D,
-                         int K, int use_cov, cudaStream_t stream) {
-  const int S = (T + kTileT - 1) / kTileT;
-  const size_t smem =
-      ((size_t)K * D + 2 * (size_t)D + (size_t)K * kTileT) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        tile_kernel<TIn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+template <typename TIn, bool kCov>
+cudaError_t launch(const void* es, const void* ef, const float* mask,
+                   const float* df, const float* cov, const float* v,
+                   const float* wc, float* ctx, float* attn, int B, int T,
+                   int D, int K, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // few articles: 16 blocks each, with a deeper ring, while their clusters
+  // take at most half the SMs, so the long form still spreads over the card
+  const bool wide = B * kWideCluster * 2 <= sms;
+  auto kernel = wide ? attention_kernel<TIn, kCov, kWideRing>
+                     : attention_kernel<TIn, kCov, kRing>;
+  static unsigned smem_set[2] = {0, 0}, wide_set = 0;  // per instantiation
+  // the attribute is the most any call may ask; each launch asks its own
+  err = tf32x3::allow_smem(kernel, kSmemMax, smem_set[wide]);
+  if (err != cudaSuccess) return err;
+  if (wide && !(dev < 32 && (wide_set >> dev) & 1u)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
+    if (dev < 32) wide_set |= 1u << dev;
   }
-  tile_kernel<TIn><<<dim3(S, B), kThreads, smem, stream>>>(
-      static_cast<const TIn*>(es), static_cast<const TIn*>(ef), mask, df, cov,
-      v, wc, attn, part_m, part_l, part_ctx, T, D, K, use_cov);
+  const Geometry geo(T, wide ? kWideCluster : kCluster);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(geo.C, B, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes =
+      smem_floats(geo, D, K, sizeof(TIn), wide ? kWideRing : kRing) *
+      sizeof(float);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = geo.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TIn*>(es),
+                           static_cast<const TIn*>(ef), mask, df, cov, v, wc,
+                           ctx, attn, T, D, K, geo.P);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// es, ef [B, T, D] (f32, or bf16 when is_bf16); mask [B, T]; df [B, K, D];
-// cov [B, K, T]; v, wc [D]; outputs ctx [B, K, D], attn [B, K, T]; scratch
-// part_m, part_l [B, S, K] and part_ctx [B, S, K, D] with
-// S = ceil(T / 32).  All float32 unless noted, contiguous, on one device.
-// Launches on `stream`; returns the cudaError_t of the launches.
-extern "C" int ts_fused_attention_shared(
-    const void* es, const void* ef, const float* mask, const float* df,
-    const float* cov, const float* v, const float* wc, float* ctx, float* attn,
-    float* part_m, float* part_l, float* part_ctx, int B, int T, int D, int K,
-    int use_cov, int is_bf16, void* stream) {
+// es, ef [B, T, D] (f32, or bf16 when is_bf16; 16-byte aligned, D a
+// multiple of 4, of 8 in bf16); mask [B, T]; df [B, K, D]; cov [B, K, T]
+// (read only when use_cov); v, wc [D]; outputs ctx [B, K, D], attn
+// [B, K, T].  All float32 unless noted, contiguous, on one device.
+// Launches on `stream`; returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a shape the kernel does not take).
+extern "C" int ts_fused_attention_shared(const void* es, const void* ef,
+                                         const float* mask, const float* df,
+                                         const float* cov, const float* v,
+                                         const float* wc, float* ctx,
+                                         float* attn, int B, int T, int D,
+                                         int K, int use_cov, int is_bf16,
+                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int S = (T + kTileT - 1) / kTileT;
-  cudaError_t err =
-      is_bf16 ? launch_tiles<__nv_bfloat16>(es, ef, mask, df, cov, v, wc, attn,
-                                            part_m, part_l, part_ctx, B, T, D,
-                                            K, use_cov, st)
-              : launch_tiles<float>(es, ef, mask, df, cov, v, wc, attn, part_m,
-                                    part_l, part_ctx, B, T, D, K, use_cov, st);
-  if (err != cudaSuccess) return (int)err;
-  combine_kernel<<<B * K, kThreads, S * sizeof(float), st>>>(
-      mask, part_m, part_l, part_ctx, attn, ctx, T, D, K, S);
-  return (int)cudaGetLastError();
+  const int elt = is_bf16 ? 2 : 4;
+  if (B <= 0 || T <= 0 || D <= 0 || K <= 0 || B > 65535 ||
+      D % (16 / elt) != 0 ||
+      smem_floats(Geometry(T, kCluster), D, K, elt, kWideRing) *
+              sizeof(float) >
+          kSmemMax)
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16)
+    return (int)(use_cov ? launch<__nv_bfloat16, true>(es, ef, mask, df, cov,
+                                                       v, wc, ctx, attn, B,
+                                                       T, D, K, st)
+                         : launch<__nv_bfloat16, false>(es, ef, mask, df,
+                                                        cov, v, wc, ctx,
+                                                        attn, B, T, D, K,
+                                                        st));
+  return (int)(use_cov ? launch<float, true>(es, ef, mask, df, cov, v, wc,
+                                             ctx, attn, B, T, D, K, st)
+                       : launch<float, false>(es, ef, mask, df, cov, v, wc,
+                                              ctx, attn, B, T, D, K, st));
 }
 
 extern "C" const char* ts_cuda_error_string(int err) {

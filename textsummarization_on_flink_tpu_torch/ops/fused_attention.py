@@ -12,8 +12,10 @@ It is written for the beam search's shared-encoder form: the K
 hypotheses of an article attend against ONE copy of its encoder, so
 ``es``/``ef`` are [B, T, D] and the queries ``df`` [B, K, D]; with K=1 it
 is the per-row form.  It is bound by memory on the card (each article's
-encoder is read once per call for all K queries; see the source's
-header for the numbers and the design).
+encoder is read once per call for all K queries, by one thread block
+cluster per article; see the source's header for the numbers and the
+design).  The wrapper refuses, before it looks at the device, the shapes
+the kernel does not take (``_shape_refusal``).
 
 Dispatch: a CPU tensor goes to ``_attention_plain`` (the formula of
 ``_attention_xla_shared`` / ``_attention_xla``, pallas_attention.py:96-132);
@@ -70,7 +72,7 @@ def _load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build.build("fused_attention"))
         fn = lib.ts_fused_attention_shared
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
             + [ctypes.c_void_p]
         lib.ts_cuda_error_string.restype = ctypes.c_char_p
         lib.ts_cuda_error_string.argtypes = [ctypes.c_int]
@@ -91,13 +93,53 @@ def _check(name: str, x: torch.Tensor, shape, dtypes, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-_TILE_T = 32  # kTileT in the source
+# The kernel's geometry (kernels/fused_attention.cu): chunks of 8 staged
+# positions, a ring of at most 8 chunks, clusters of up to 8 blocks per
+# article (16 for few articles, which only makes a block's share of T
+# smaller)
+_CHUNK, _STAGES, _CLUSTER = 8, 8, 8
+_BAR_FLOATS = 16  # the ring's mbarriers, ahead of it
 _SMEM_MAX = 232_448  # bytes of shared memory a block may use on Hopper
+
+
+def _smem_bytes(T: int, D: int, K: int, elt: int) -> int:
+    """Dynamic shared memory of one block (smem_floats in the source)."""
+    def ceil_div(a, b):
+        return -(-a // b)
+
+    C = min(ceil_div(T, _CHUNK), _CLUSTER)  # blocks per article
+    P = ceil_div(ceil_div(T, C), _CHUNK) * _CHUNK  # positions per block
+    floats = (_BAR_FLOATS + _STAGES * _CHUNK * D * elt // 4 + 2 * K * D
+              + 2 * D + P * (2 * K + 1) + (3 + 2 * C) * K)
+    return 4 * floats
+
+
+def _shape_refusal(es: torch.Tensor, df: torch.Tensor) -> Optional[str]:
+    """Why the kernel does not take these shapes (None when it does).
+    Checked before the device, so it holds for tensors anywhere."""
+    if es.dim() != 3 or df.dim() != 3:
+        return (f"es must be [B, T, D] and df [B, K, D], got "
+                f"{tuple(es.shape)} and {tuple(df.shape)}")
+    B, T, D = es.shape
+    K = df.shape[1]
+    if B == 0 or T == 0 or K == 0 or D == 0:
+        return f"empty attention input (B={B}, T={T}, K={K}, D={D})"
+    elt = 2 if es.dtype == torch.bfloat16 else 4
+    if D % (16 // elt):
+        return (f"D={D} is not a multiple of {16 // elt}: the kernel stages "
+                f"16-byte pieces of each {es.dtype} encoder row")
+    if _smem_bytes(T, D, K, elt) > _SMEM_MAX:
+        return (f"T={T}, K={K}, D={D} exceed one block's shared memory "
+                f"({_smem_bytes(T, D, K, elt)} > {_SMEM_MAX} bytes)")
+    return None
 
 
 def _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage):
     """Launch the kernel; same contract as _attention_plain."""
     global launches
+    refusal = _shape_refusal(es, df)
+    if refusal is not None:
+        raise ValueError(refusal)
     dev = es.device
     if dev.type != "cuda":
         raise ValueError(f"the fused attention kernel needs CUDA tensors, "
@@ -111,24 +153,19 @@ def _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage):
     _check("cov", cov, (B, K, T), (torch.float32,), dev)
     _check("v", v, (D,), (torch.float32,), dev)
     _check("w_c", w_c, (D,), (torch.float32,), dev)
-    if B == 0 or T == 0 or K == 0 or D == 0:
-        raise ValueError(f"empty attention input (B={B}, T={T}, K={K}, D={D})")
-    if ((K + 2) * D + K * _TILE_T) * 4 > _SMEM_MAX:
-        raise ValueError(f"K={K}, D={D} exceed one block's shared memory")
-    S = -(-T // _TILE_T)
+    for name, x in (("es", es), ("ef", ef), ("df", df), ("v", v),
+                    ("w_c", w_c)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (cp.async)")
     ctx = torch.empty((B, K, D), device=dev, dtype=torch.float32)
     attn = torch.empty((B, K, T), device=dev, dtype=torch.float32)
-    part_m = torch.empty((B, S, K), device=dev, dtype=torch.float32)
-    part_l = torch.empty((B, S, K), device=dev, dtype=torch.float32)
-    part_ctx = torch.empty((B, S, K, D), device=dev, dtype=torch.float32)
     lib = _load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.ts_fused_attention_shared(
             es.data_ptr(), ef.data_ptr(), mask.data_ptr(), df.data_ptr(),
             cov.data_ptr(), v.data_ptr(), w_c.data_ptr(), ctx.data_ptr(),
-            attn.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-            part_ctx.data_ptr(), B, T, D, K, int(bool(use_coverage)),
+            attn.data_ptr(), B, T, D, K, int(bool(use_coverage)),
             int(es.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError("fused attention kernel launch failed: "
