@@ -19,36 +19,45 @@ device or without the port's sources beside it.  Phases, each fatal:
      kernels beside those of the kernels they replaced (the flash
      kernels' f32 SIMT designs, the fused attention's two-launch design):
      a. the fused additive attention, both dtypes, coverage on and off,
-        with a fully masked row;
-     b. the flash self-attention at the transformer encoder's shape
+        with a fully masked row, at the beam-decode shape, the long form
+        and the training shape (K = 1); then long encoders whose
+        per-position state lives in device memory (16 x 16 x 2000 and
+        4 x 4 x 17,856 and 20,000 positions), with a bitwise repeat;
+     b. the fused attention's backward kernel at the training shape
+        (16 x 400 x 512, coverage on and off) and a long encoder (4 x
+        4096), against the plain backward, with a bitwise repeat;
+     c. the flash self-attention at the transformer encoder's shape
         (16 x 400 x 8 heads x hd 32) and the long-context shape
         (4 x 2048 x 8 x 128), causal on and off, a fully masked article
         and ragged key masks;
-     c. the flash backward (the dK/dV and dQ kernels) against its plain
+     d. the flash backward (the dK/dV and dQ kernels) against its plain
         version at the training encoder's shape (16 x 400 x 8 x 32, key
         mask, article 1 empty), the training decoder's (16 x 100 x 8 x
         32, causal) and the long-context shape (4 x 2048 x 8 x 128, both
         forms), and the forward's lse output at the first two;
-  4. check the beam search on the card against the plain CPU path on a
-     small input (same tokens), for each model family, and (c) three
-     train steps of a small transformer on the card against the CPU
-     (same losses within 1e-4 relative);
+  4. for each model family, check the beam search on the card against the
+     plain CPU path on a small input (same tokens), and three train steps
+     of a small model on the card against the CPU (same losses within
+     1e-4 relative, the exact kernel launches);
   5. drive each main path, the launch counts set to 0 just before it and
      read just after: full-width params from --seed saved as an npz
      checkpoint, a synthetic 50k vocab and --articles raw-text articles,
      ``cli.main(--mode=decode --inference=1 --single_pass=1)``, each in its
      own log_root; check that every article got a decoded file and the
-     kernel launch counts
+     kernel launch counts (no backward kernel)
      a. pointer-generator: the fused attention twice per decode step;
      b. transformer (--model_family=transformer, 6 + 6 layers, 8 heads):
         the flash kernel once per encoder layer per batch;
-     and print per-batch latency and tokens/s;
-     c. transformer training: 64 synthetic article/abstract pairs written
-        as chunk files, ``cli.main(--mode=train --num_steps=10)`` at the
-        same width (lr 0.015: see phase_train_main_path); check 12 flash forward, 12 dK/dV and 12 dQ launches
-        per step (6 encoder + 6 decoder layers), finite and falling
-        losses and a restorable ``model.ckpt-10.npz``; print the warm
-        step time, target tokens/s and the peak device memory;
+     and print per-batch latency and tokens/s; then each family's
+     training: 64 synthetic article/abstract pairs written as chunk
+     files, ``cli.main(--mode=train --num_steps=10)`` at the same width
+     (the pointer-generator at lr 0.15, the transformer at 0.015: see
+     train_main_path_hps); check the launches (pointer-generator: 100
+     fused forward and 100 fused backward per step; transformer: 12
+     flash forward, 12 dK/dV and 12 dQ per step, 6 encoder + 6 decoder
+     layers), finite and falling losses, a restorable
+     ``model.ckpt-10.npz`` and the vocabulary metadata; print the warm
+     step time, target tokens/s and the peak device memory;
   6. print the kernels' JSON line, then, last, the device JSON line.
 """
 
@@ -183,7 +192,8 @@ def attention_bound_ms(B, K, T, D, elt_bytes, use_cov):
 
 
 def phase_attention(seed):
-    """Kernel vs plain at the beam-decode shape and the long-context shape."""
+    """Kernel vs plain at the beam-decode shape, the long-context shape and
+    the pointer-generator's training shape (K = 1, f32)."""
     import torch
 
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
@@ -192,9 +202,13 @@ def phase_attention(seed):
     rows = []
     worst = 0.0
     main = None
-    cases = [(16, 4, 400, 512), (4, 1, 4096, 512)]
+    # the beam-decode shape, the long form, the training shape (K = 1)
+    cases = [(16, 4, 400, 512), (4, 1, 4096, 512), (16, 1, 400, 512)]
+    rows_k1 = {}
     for (B, K, T, D) in cases:
-        for dtype in (torch.float32, torch.bfloat16):
+        dtypes = (torch.float32,) if K == 1 and T == 400 else (
+            torch.float32, torch.bfloat16)
+        for dtype in dtypes:
             for use_cov in (True, False):
                 args = attention_inputs(B, K, T, D, dtype, seed)
                 ctx, attn = fa._attention_cuda(*args, use_cov)
@@ -230,6 +244,128 @@ def phase_attention(seed):
                 if (B, K, T, D) == cases[0] and dtype == torch.float32 \
                         and use_cov:
                     main = row
+                if (B, K, T, D) == cases[2]:
+                    rows_k1[use_cov] = row
+    return main, rows_k1, worst
+
+
+def phase_attention_long(seed):
+    """Long encoders the kernel refused before: 16 beams over 2,000
+    positions, 4 at the old bound (17,856 positions) and past it, with the
+    per-position state still in shared memory, and two shapes whose state
+    lives in device memory; against the plain version, and a repeat gives
+    the same bits.  Times the kernel only."""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    worst = 0.0
+    # past the old refusal (its bound at K = 16, T 1,792; at K = 4, T
+    # 17,856), then past what the state-in-shared-memory form takes
+    for (B, K, T, D, in_smem) in [(16, 16, 2000, 512, True),
+                                  (4, 4, 17856, 512, True),
+                                  (4, 4, 20000, 512, True),
+                                  (4, 4, 60000, 512, False),
+                                  (16, 16, 8000, 512, False)]:
+        check(fa._state_in_smem(B, T, D, K, 4, sms) == in_smem,
+              f"{B}x{K}x{T}x{D} does not keep its state where expected")
+        args = attention_inputs(B, K, T, D, torch.float32, seed)
+        ctx, attn = fa._attention_cuda(*args, True)
+        again = fa._attention_cuda(*args, True)
+        ctx_p, attn_p = fa._attention_plain(*args, True)
+        torch.cuda.synchronize()
+        err = max(float((ctx - ctx_p).abs().max()),
+                  float((attn - attn_p).abs().max()))
+        same = torch.equal(ctx, again[0]) and torch.equal(attn, again[1])
+        del ctx_p, attn_p, again
+        ms = time_cuda(lambda: fa._attention_cuda(*args, True), 10, flush)
+        bound, by, _, _ = attention_bound_ms(B, K, T, D, 4, True)
+        row = dict(shape=f"{B}x{K}x{T}x{D}",
+                   state="shared memory" if in_smem else "device memory",
+                   max_abs_err=err, bitwise_repeat=same, ms=ms,
+                   bound_ms=bound, bound_by=by)
+        print("attention_long " + json.dumps(row))
+        check(err <= ATTN_TOL, f"long-encoder kernel disagrees with plain "
+                               f"(err {err}) at {row}")
+        check(same, f"long-encoder kernel does not repeat its bits at {row}")
+        worst = max(worst, err)
+    return worst
+
+
+def attention_bwd_bound_ms(B, T, D, use_cov):
+    """Least time for the backward on an H100: bytes (es, ef, mask, cov,
+    attn, g_attn, df, g_ctx, v, w_c read once; d_es, d_ef, d_cov, d_df,
+    d_v, d_w_c written once) over the memory rate, and f32 operations over
+    the f32 peak: per (article, position, column) es . g_ctx (2), the
+    query add (1), the coverage term (2), tanh (counted as 1), 1 - u^2
+    (2), d_e v (1 - u^2) (2), d_es (1), d_df (1), d_v (2), and d_cov and
+    d_w_c (2 + 2) with coverage."""
+    big = 4 * B * T * D
+    rows = 4 * B * T * (6 if use_cov else 5)  # mask, cov, attn, g_attn, d_cov
+    nbytes = 4 * big + rows + 4 * 3 * B * D + 4 * 4 * D
+    ops = B * T * D * (14 + (6 if use_cov else 0))
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, ops)
+
+
+def phase_attention_bwd(seed):
+    """The backward kernel against the plain backward at the training
+    shape (16 articles x 400 positions x 512, K = 1, ragged masks, article
+    1 empty), coverage on and off, and at a long encoder; two launches
+    give the same bits.  No single PyTorch call computes this function,
+    so there is no library time."""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
+    worst, main = 0.0, {}
+    for (B, T, D, use_cov) in [(16, 400, 512, True), (16, 400, 512, False),
+                               (4, 4096, 512, True)]:
+        es, ef, mask, df, cov, v, w_c = attention_inputs(B, 1, T, D,
+                                                         torch.float32, seed)
+        df, cov = df[:, 0].contiguous(), cov[:, 0].contiguous()
+        _, attn = fa._attention_rows(es, ef, mask, df, cov, v, w_c, use_cov)
+        g = torch.Generator(device="cuda").manual_seed(seed + 1)
+        g_ctx = torch.randn(B, D, generator=g, device="cuda")
+        g_attn = torch.randn(B, T, generator=g, device="cuda")
+        args = (es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn, use_cov)
+        got = fa._attention_bwd_cuda(*args)
+        again = fa._attention_bwd_cuda(*args)
+        want = fa._attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        names = ("d_es", "d_ef", "d_df", "d_cov", "d_v", "d_w_c")
+        errs = {k: float((a - w).abs().max()) for k, a, w in
+                zip(names, got, want)}
+        # 1e-5 scaled by the gradient's size, as the CPU tests hold it
+        tols = {k: ATTN_TOL * max(1.0, float(w.abs().max()))
+                for k, w in zip(names, want)}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(a).all()) for a in got)
+        empty_zero = all(float(a[1].abs().max()) == 0.0 for a in got[:4])
+        ms = time_cuda(lambda: fa._attention_bwd_cuda(*args), 20, flush)
+        plain_ms = time_cuda(lambda: fa._attention_bwd_plain(*args), 10,
+                             flush)
+        bound, by, nbytes, ops = attention_bwd_bound_ms(B, T, D, use_cov)
+        err = max(errs.values())
+        row = dict(shape=f"{B}x1x{T}x{D}", coverage=use_cov,
+                   max_abs_err=errs, bitwise_repeat=same, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   bytes=nbytes, ops=ops, library_ms=None)
+        print("attention_bwd " + json.dumps(row))
+        check(finite, f"non-finite backward at {row}")
+        check(empty_zero, f"empty article's gradients not zero at {row}")
+        check(same, f"backward kernel does not repeat its bits at {row}")
+        for k in names:
+            check(errs[k] <= tols[k], f"backward {k} disagrees with plain "
+                                      f"(err {errs[k]} > {tols[k]}) at {row}")
+        worst = max(worst, err)
+        if T == 400:
+            main[use_cov] = row
     return main, worst
 
 
@@ -560,39 +696,68 @@ def small_train_batches(hps, seed, n):
     return out
 
 
-def phase_small_training(seed):
-    """Three train steps of the small transformer on the card (flash
+def launch_counts():
+    """Every kernel wrapper's launch count: the fused attention's forward
+    and backward, the flash forward, dK/dV and dQ."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+
+    return dict(fused=fa.launches, fused_bwd=fa.launches_bwd,
+                flash_forward=fl.launches, flash_bwd_dkv=fl.launches_bwd_dkv,
+                flash_bwd_dq=fl.launches_bwd_dq)
+
+
+def reset_launch_counts():
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+
+    fa.launches = fa.launches_bwd = 0
+    fl.launches = fl.launches_bwd_dkv = fl.launches_bwd_dq = 0
+
+
+def expected_train_launches(hps, steps):
+    """The launches of ``steps`` train steps: the transformer runs the
+    three flash kernels once per layer per step; the pointer-generator
+    the fused attention forward and backward once per decoder step."""
+    counts = dict(fused=0, fused_bwd=0, flash_forward=0, flash_bwd_dkv=0,
+                  flash_bwd_dq=0)
+    if hps.model_family == "transformer":
+        for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
+            counts[k] = (hps.enc_layers + hps.dec_layers) * steps
+    else:
+        counts["fused"] = counts["fused_bwd"] = hps.max_dec_steps * steps
+    return counts
+
+
+def phase_small_training(seed, family):
+    """Three train steps of a small model of ``family`` on the card (its
     kernels forward and backward) against the same steps on the CPU
     (plain versions), from one numpy params tree and the same batches.
     Losses within 1e-4 relative per step: f32 on both sides, but the
     card's GEMMs and kernels sum in other orders than the CPU's, and
     three Adagrad steps carry the differences forward."""
-    import torch
-
     from textsummarization_on_flink_tpu_torch.decode.beam_search import (
         _to_device,
     )
-    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.params import (
         init_numpy_params,
         tree_leaves,
     )
     from textsummarization_on_flink_tpu_torch.train import trainer
 
-    hps = small_hps("transformer").replace(mode="train", coverage=True)
+    hps = small_hps(family).replace(mode="train", coverage=True)
     p = init_numpy_params(hps, hps.vocab_size, seed)
     batches = small_train_batches(hps, seed, 3)
     runs = {}
     for dev in ("cpu", "cuda"):
         hd = hps.replace(device=dev)
         state = trainer.init_train_state(hd, hps.vocab_size, params=p)
-        before = (fl.launches, fl.launches_bwd_dkv, fl.launches_bwd_dq)
+        before = launch_counts()
         losses = []
         for arrays in batches:
             state, m = trainer.train_step(hd, state, _to_device(arrays, dev))
             losses.append(float(m.total_loss))
-        launched = [a - b for a, b in zip(
-            (fl.launches, fl.launches_bwd_dkv, fl.launches_bwd_dq), before)]
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
         runs[dev] = (losses, state, launched)
     (cpu_losses, cpu_state, cpu_launched), (gpu_losses, gpu_state, launched) \
         = runs["cpu"], runs["cuda"]
@@ -601,13 +766,12 @@ def phase_small_training(seed):
                                      tree_leaves(cpu_state.params)))
     rel = [abs(g - c) / abs(c) for g, c in zip(gpu_losses, cpu_losses)]
     print("small_training " + json.dumps(dict(
-        cpu_losses=cpu_losses, card_losses=gpu_losses, loss_rel_diff=rel,
-        max_param_abs_diff=param_diff, card_launches=launched)))
-    layers = hps.enc_layers + hps.dec_layers
-    check(cpu_launched == [0, 0, 0], "the CPU run launched a kernel")
-    check(launched == [3 * layers] * 3,
-          f"card launches {launched}: expected {layers} forward, dK/dV and "
-          f"dQ flash launches per step")
+        family=family, cpu_losses=cpu_losses, card_losses=gpu_losses,
+        loss_rel_diff=rel, max_param_abs_diff=param_diff,
+        card_launches=launched)))
+    check(not any(cpu_launched.values()), "the CPU run launched a kernel")
+    want = expected_train_launches(hps, len(batches))
+    check(launched == want, f"card launches {launched}, expected {want}")
     check(all(np.isfinite(gpu_losses)), "non-finite loss on the card")
     check(max(rel) <= 1e-4, f"card losses differ from the CPU's by {rel}")
 
@@ -651,8 +815,6 @@ def phase_main_path(seed, n_articles, work, device="cuda",
     from textsummarization_on_flink_tpu_torch.decode.decoder import (
         get_decode_dir_name,
     )
-    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
-    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
     from textsummarization_on_flink_tpu_torch.params import init_numpy_params
 
     hps = main_path_hps(family)
@@ -699,17 +861,19 @@ def phase_main_path(seed, n_articles, work, device="cuda",
                      dec_layers=hps.dec_layers, ffn_dim=hps.ffn_dim)
     argv = [f"--{k}={v}" for k, v in flags.items()]
     try:
-        fa.launches = 0
-        fl.launches = 0
+        reset_launch_counts()
         beam_search.steps_run = 0
         t0 = time.perf_counter()
         rc = cli.main(argv)
         wall = time.perf_counter() - t0
-        fused, flash = fa.launches, fl.launches
+        launched = launch_counts()
+        fused, flash = launched["fused"], launched["flash_forward"]
         steps = beam_search.steps_run
     finally:
         dec_log.removeHandler(handler)
     check(rc == 0, f"cli.main returned {rc}")
+    backward = {k: v for k, v in launched.items() if "bwd" in k and v}
+    check(not backward, f"decode launched backward kernels: {backward}")
 
     dec_dir = os.path.join(work, "exp", get_decode_dir_name(hps, path),
                            "decoded")
@@ -799,8 +963,22 @@ def write_train_chunks(work, hps, seed, n_pairs):
     return vocab_path, os.path.join(work, "train_*.bin")
 
 
-def phase_train_main_path(seed, work, steps=10, device="cuda"):
-    """cli.main(--mode=train) of the transformer at the reference width;
+def train_main_path_hps(family):
+    """The training configuration of each family's main path: the
+    reference width (main_path_hps), coverage on.  The pointer-generator
+    trains at the reference's lr 0.15.  The transformer at 0.015, a tenth
+    of it: at 0.15 the copy gate (pgen_linear over unit-variance LayerNorm
+    outputs) of this random transformer flips between p_gen ~0 and ~1
+    from step to step and the loss does not fall in 10 steps, on the card
+    as in the JAX package (scripts/torch_train_trace.py prints both;
+    PERF.md)."""
+    hps = main_path_hps(family).replace(mode="train", coverage=True)
+    return hps.replace(lr=0.015) if family == "transformer" else hps
+
+
+def phase_train_main_path(seed, work, steps=10, device="cuda",
+                          family="transformer"):
+    """cli.main(--mode=train) of ``family`` at the reference width;
     returns the launch and timing summary.  (device="cpu" rehearses the
     control flow without a card.)"""
     import torch
@@ -811,27 +989,20 @@ def phase_train_main_path(seed, work, steps=10, device="cuda"):
     )
     from textsummarization_on_flink_tpu_torch.data.batcher import Batcher
     from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
-    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
-    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
-    # lr 0.015, a tenth of the reference's 0.15: at 0.15 the copy gate
-    # (pgen_linear over unit-variance LayerNorm outputs) of this random
-    # transformer flips between p_gen ~0 and ~1 from step to step and the
-    # loss does not fall in 10 steps, on the card as in the JAX package
-    # (scripts/torch_train_trace.py prints both; PERF.md, PR 3)
-    hps = main_path_hps("transformer").replace(mode="train", coverage=True,
-                                               lr=0.015)
+    hps = train_main_path_hps(family)
     t0 = time.perf_counter()
     vocab_path, data_path = write_train_chunks(work, hps, seed, 64)
     setup_s = time.perf_counter() - t0
-    flags = dict(mode="train", model_family="transformer",
+    widths = ("hidden_dim", "vocab_size", "max_enc_steps", "max_dec_steps",
+              "min_dec_steps", "batch_size")
+    widths += (("num_heads", "enc_layers", "dec_layers", "ffn_dim")
+               if family == "transformer" else ("emb_dim",))
+    flags = dict(mode="train", model_family=family,
                  num_steps=steps, coverage=1, pointer_gen=1,
                  data_path=data_path, vocab_path=vocab_path, log_root=work,
                  exp_name="exp", device=device, seed=seed, lr=hps.lr,
-                 **{k: getattr(hps, k) for k in (
-                     "hidden_dim", "num_heads", "enc_layers", "dec_layers",
-                     "ffn_dim", "vocab_size", "max_enc_steps",
-                     "max_dec_steps", "min_dec_steps", "batch_size")})
+                 **{k: getattr(hps, k) for k in widths})
     argv = [f"--{k}={v}" for k, v in flags.items()]
     handler = _TrainLog()
     tr_log = logging.getLogger(
@@ -841,26 +1012,18 @@ def phase_train_main_path(seed, work, steps=10, device="cuda"):
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     try:
-        fa.launches = 0
-        fl.launches = fl.launches_bwd_dkv = fl.launches_bwd_dq = 0
+        reset_launch_counts()
         t0 = time.perf_counter()
         rc = cli.main(argv)
         wall = time.perf_counter() - t0
-        launched = dict(flash_forward=fl.launches,
-                        flash_bwd_dkv=fl.launches_bwd_dkv,
-                        flash_bwd_dq=fl.launches_bwd_dq, fused=fa.launches)
+        launched = launch_counts()
     finally:
         tr_log.removeHandler(handler)
     check(rc == 0, f"cli.main returned {rc}")
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
-    per_step = hps.enc_layers + hps.dec_layers
-    for name in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
-        check(launched[name] == per_step * steps,
-              f"{launched[name]} {name} launches in {steps} steps (expected "
-              f"{per_step} per step: {hps.enc_layers} encoder + "
-              f"{hps.dec_layers} decoder layers)")
-    check(launched["fused"] == 0,
-          f"{launched['fused']} fused-attention launches in training")
+    want = expected_train_launches(hps, steps)
+    check(launched == want, f"{family} training launched {launched} in "
+                            f"{steps} steps, expected {want}")
     losses, seconds = handler.losses, handler.seconds
     check(len(losses) == steps, f"{len(losses)} logged losses for {steps} "
                                 f"steps")
@@ -872,6 +1035,8 @@ def phase_train_main_path(seed, work, steps=10, device="cuda"):
     check(os.path.exists(path), f"{path} was not written")
     restored = ckpt_lib.Checkpointer(train_dir).restore(path)
     check(restored.step == steps, f"restored step {restored.step}")
+    check(os.path.exists(os.path.join(train_dir, "vocab_metadata.tsv")),
+          "no vocab_metadata.tsv beside the checkpoints")
     # the target tokens of the steps' batches: the same files in the same
     # order through a second batcher
     batcher = Batcher(data_path, Vocab(vocab_path, hps.vocab_size), hps,
@@ -880,7 +1045,7 @@ def phase_train_main_path(seed, work, steps=10, device="cuda"):
               for _ in range(steps)]
     warm = seconds[2:]  # steps 3 .. 10
     warm_s = statistics.median(warm)
-    summary = dict(steps=steps, launches=launched,
+    summary = dict(family=family, lr=hps.lr, steps=steps, launches=launched,
                    launches_per_step={k: v / steps
                                       for k, v in launched.items()},
                    losses=losses, step_seconds=seconds,
@@ -888,7 +1053,8 @@ def phase_train_main_path(seed, work, steps=10, device="cuda"):
                    target_tokens_per_step=statistics.mean(tokens),
                    target_tokens_per_s=statistics.mean(tokens[2:]) / warm_s,
                    max_memory_allocated_bytes=peak, cli_wall_s=wall,
-                   setup_s=setup_s)
+                   setup_s=setup_s,
+                   card=card_line() if device == "cuda" else None)
     print("train_main_path " + json.dumps(summary))
     return summary
 
@@ -922,7 +1088,9 @@ def main(argv=None) -> int:
     for name in libs:
         sys.stdout.write(build.build_log(name))
 
-    main_row, worst = phase_attention(args.seed)
+    main_row, k1_rows, worst = phase_attention(args.seed)
+    worst = max(worst, phase_attention_long(args.seed))
+    bwd_att_rows, bwd_att_worst = phase_attention_bwd(args.seed)
     flash_row, flash_worst = phase_flash(args.seed)
     bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
     errors = {name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
@@ -935,9 +1103,9 @@ def main(argv=None) -> int:
     print("errors_vs_simt " + json.dumps(errors))
     for family in ("pointer_generator", "transformer"):
         phase_small_reference(args.seed, family)
-    phase_small_training(args.seed)
+        phase_small_training(args.seed, family)
 
-    summaries = {}
+    summaries, train = {}, {}
     for family in ("pointer_generator", "transformer"):
         work = os.path.join(HERE, ".smoke_work", family)  # own log_root
         shutil.rmtree(work, ignore_errors=True)
@@ -947,32 +1115,49 @@ def main(argv=None) -> int:
                                                 work, family=family)
         finally:
             shutil.rmtree(work, ignore_errors=True)
-    work = os.path.join(HERE, ".smoke_work", "train")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    try:
-        train = phase_train_main_path(args.seed, work)
-    finally:
+        work = os.path.join(HERE, ".smoke_work", "train_" + family)
         shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        try:
+            train[family] = phase_train_main_path(args.seed, work,
+                                                  family=family)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     bwd_main = bwd_rows[0]  # the training encoder's shape
     flash_src = "textsummarization_on_flink_tpu_torch/kernels/flash_attention"
+    fused_src = "textsummarization_on_flink_tpu_torch/kernels/fused_attention"
+    pg_train = train["pointer_generator"]["launches"]
+    tf_train = train["transformer"]["launches"]
     kernels = [dict(
-        name="fused_attention", route="cuda",
-        source="textsummarization_on_flink_tpu_torch/kernels/fused_attention.cu",
+        name="fused_attention", route="cuda", source=fused_src + ".cu",
         replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:58",
-        launches=summaries["pointer_generator"]["kernel_launches"],
+        # both main paths that run it: decode and training
+        launches=summaries["pointer_generator"]["kernel_launches"]
+        + pg_train["fused"],
         max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+        training_shape=dict(
+            shape=k1_rows[True]["shape"], ms=k1_rows[True]["ms"],
+            plain_ms=k1_rows[True]["plain_ms"],
+            bound_ms=k1_rows[True]["bound_ms"],
+            launches=pg_train["fused"]),
         library_ms=None, redesigned="PR 5"), dict(
+        name="fused_attention_bwd", route="cuda", source=fused_src + "_bwd.cu",
+        # the custom_vjp's backward (jax.vjp of the XLA formula)
+        replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:360",
+        launches=pg_train["fused_bwd"], max_abs_err=bwd_att_worst,
+        ms=bwd_att_rows[True]["ms"], plain_ms=bwd_att_rows[True]["plain_ms"],
+        bound_ms=bwd_att_rows[True]["bound_ms"],
+        bound_by=bwd_att_rows[True]["bound_by"], library_ms=None), dict(
         name="flash_attention", route="cuda",
         source="textsummarization_on_flink_tpu_torch/kernels/flash_attention.cu",
         # the library Pallas kernel, at its call site in the repo
         replaces="textsummarization_on_flink_tpu/models/transformer.py:285",
         # both main paths that run it: decode and training
         launches=summaries["transformer"]["kernel_launches"]
-        + train["launches"]["flash_forward"],
+        + tf_train["flash_forward"],
         max_abs_err=flash_worst, ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
         bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],
@@ -986,7 +1171,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=flash_src + "_bwd.cu",
             replaces=("textsummarization_on_flink_tpu/models/transformer.py"
                       f":285 (library _flash_attention_bwd_{key})"),
-            launches=train["launches"][f"flash_bwd_{key}"],
+            launches=tf_train[f"flash_bwd_{key}"],
             max_abs_err=(max(bwd_worst["dk"], bwd_worst["dv"])
                          if key == "dkv" else bwd_worst["dq"]),
             ms=bwd_main[f"{key}_ms"], plain_ms=bwd_main["plain_ms"],

@@ -9,8 +9,9 @@ import path: put another checkout on PYTHONPATH to time its kernel with
 this script (the repo root is appended to sys.path, so a PYTHONPATH
 checkout wins), as scripts/torch_flash_bench.py does for the flash
 kernels.  Shapes (as in chip_smoke.py phase 3): 16 articles x 4 beams x
-T 400 x D 512 (the beam-decode shape) and 4 x 1 x 4096 x 512 (the long
-form), each in f32 and bf16, coverage on and off, with chip_smoke's
+T 400 x D 512 (the beam-decode shape), 4 x 1 x 4096 x 512 (the long
+form) and 16 x 1 x 400 x 512 (the pointer-generator's training shape),
+each in f32 and bf16, coverage on and off, with chip_smoke's
 inputs (ragged lengths, article 1 fully masked).  Each time is the
 median of --iters launches, each after a write of 96 MB (more than the L2
 cache), timed with CUDA events by this checkout's chip_smoke.time_cuda.
@@ -28,7 +29,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.append(ROOT)  # a PYTHONPATH checkout of the package comes first
 
-SHAPES = [(16, 4, 400, 512), (4, 1, 4096, 512)]
+SHAPES = [(16, 4, 400, 512), (4, 1, 4096, 512), (16, 1, 400, 512)]
 
 
 def _this_chip_smoke():

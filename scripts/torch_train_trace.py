@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Per-step trace and device profile of the PyTorch port's transformer
-training at the reference width.
+"""Per-step trace and device profile of the PyTorch port's training at
+the reference width.
 
-    python3 scripts/torch_train_trace.py [--seed N] [--steps N]
-        [--lr X [X ...]] [--profile_steps N]
+    python3 scripts/torch_train_trace.py [--family F] [--seed N]
+        [--steps N] [--lr X [X ...]] [--profile_steps N]
 
-Needs one CUDA card.  For each --lr it trains the transformer (hidden
-256, 8 heads of 32, 6 + 6 layers, FFN 1024, tied V=50,000, 400 encoder
-and 100 decoder steps, batch 16, pointer_gen and coverage on, f32) from
-fresh params of --seed on the synthetic chunk files chip_smoke.py
-writes, for --steps train steps, and prints one JSON line per lr:
+Needs one CUDA card.  For each --lr it trains --family (transformer, the
+default: hidden 256, 8 heads of 32, 6 + 6 layers, FFN 1024, tied
+V=50,000; pointer_generator: hidden 256, embedding 128, V=50,000; both
+with 400 encoder and 100 decoder steps, batch 16, pointer_gen and
+coverage on, f32) from fresh params of --seed on the synthetic chunk
+files chip_smoke.py writes, for --steps train steps, and prints one JSON
+line per lr:
 
   * per step: loss, coverage_loss, the pre-clip global gradient norm,
     the mean p_gen over the real target positions, the three params with
@@ -21,7 +23,8 @@ first lr under torch.profiler and prints one JSON line:
 
   * step_ms: host wall time per step; device_busy_ms / device_busy_share:
     summed CUDA kernel time over the profiled wall time; kernels_per_step;
-  * flash launches per step (forward, dK/dV, dQ);
+  * kernel launches per step (the fused attention's forward and
+    backward, the flash forward, dK/dV and dQ);
   * top_kernels: the device time by kernel name, largest first.
 """
 
@@ -43,6 +46,8 @@ sys.path.insert(0, ROOT)
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--family", default="transformer",
+                    choices=["transformer", "pointer_generator"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--lr", type=float, nargs="+", default=[0.15, 0.015])
@@ -60,7 +65,6 @@ def main(argv=None) -> int:
         _to_device,
     )
     from textsummarization_on_flink_tpu_torch.device import resolve_device
-    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.params import tree_leaves
     from textsummarization_on_flink_tpu_torch.train import optim, trainer
 
@@ -69,7 +73,7 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
-    base = chip_smoke.main_path_hps("transformer").replace(
+    base = chip_smoke.main_path_hps(args.family).replace(
         mode="train", coverage=True, seed=args.seed)
     work = tempfile.mkdtemp(prefix="train_trace_", dir=ROOT)
     try:
@@ -104,8 +108,8 @@ def main(argv=None) -> int:
                     global_norm=float(gnorm), p_gen=p_gen, seconds=dt,
                     top_grads=[[names[i], norms[i]] for i in top]))
                 state = state._replace(step=state.step + 1)
-            print(json.dumps(dict(card=card, torch=torch.__version__, lr=lr,
-                                  steps=steps)))
+            print(json.dumps(dict(card=card, torch=torch.__version__,
+                                  family=args.family, lr=lr, steps=steps)))
         if args.profile_steps > 0:
             hps = base.replace(lr=args.lr[0])
             batcher = Batcher(data_path, vocab, hps, single_pass=False)
@@ -114,7 +118,7 @@ def main(argv=None) -> int:
                        for _ in range(args.profile_steps + 1)]
             state, _ = trainer.train_step(hps, state, batches[0])  # warm-up
             torch.cuda.synchronize()
-            fl.launches = fl.launches_bwd_dkv = fl.launches_bwd_dq = 0
+            chip_smoke.reset_launch_counts()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -133,14 +137,13 @@ def main(argv=None) -> int:
             busy_ms = sum(kernel_us.values()) / 1e3
             top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:15]
             print(json.dumps(dict(
-                card=card, torch=torch.__version__, lr=hps.lr,
-                profiled_steps=n, step_ms=wall_ms / n,
+                card=card, torch=torch.__version__, family=args.family,
+                lr=hps.lr, profiled_steps=n, step_ms=wall_ms / n,
                 device_busy_ms=busy_ms / n,
                 device_busy_share=busy_ms / wall_ms,
                 kernels_per_step=n_kernels / n,
-                flash_launches_per_step=dict(
-                    forward=fl.launches / n, bwd_dkv=fl.launches_bwd_dkv / n,
-                    bwd_dq=fl.launches_bwd_dq / n),
+                launches_per_step={
+                    k: c / n for k, c in chip_smoke.launch_counts().items()},
                 top_kernels=[dict(name=k[:80], ms_per_step=v / 1e3 / n,
                                   share_of_busy=v / 1e3 / busy_ms
                                   if busy_ms else 0.0)
@@ -157,8 +160,8 @@ def _leaf_names(hps):
         tree_leaves,
     )
 
-    tiny = hps.replace(vocab_size=8, hidden_dim=8, num_heads=1, ffn_dim=8,
-                       max_enc_steps=2, max_dec_steps=2)
+    tiny = hps.replace(vocab_size=8, hidden_dim=8, emb_dim=8, num_heads=1,
+                       ffn_dim=8, max_enc_steps=2, max_dec_steps=2)
     tree = init_numpy_params(tiny, 8, 0)
 
     def named(node, path):

@@ -140,7 +140,10 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("dtype,D,T,K,match", [
     (torch.float32, 6, 37, 4, "multiple of 4"),
     (torch.bfloat16, 12, 37, 4, "multiple of 8"),
-    (torch.float32, 512, 300_000, 4, "shared memory"),
+    # a long encoder: its per-position state moves to device memory, so
+    # the shape is taken (the wrapper goes on to refuse the CPU tensors)
+    (torch.float32, 512, 300_000, 4, None),
+    (torch.float32, 512, 400, 64, "shared memory"),
     (torch.float32, 24, 0, 4, "empty"),
     (torch.float32, 24, 37, 0, "empty"),
 ])
@@ -148,14 +151,19 @@ def test_kernel_wrapper_refuses_shapes_before_the_device(dtype, D, T, K,
                                                          match):
     """The shapes the kernel does not take are refused from the shapes
     alone, before the device is looked at (so also here, on CPU
-    tensors), and nothing is launched."""
+    tensors), and nothing is launched.  ``match`` None: a shape the
+    kernel takes, refused only for its device."""
     B = 2
     before = fa.launches
-    args = (torch.zeros(B, T, D, dtype=dtype), torch.zeros(B, T, D,
-                                                           dtype=dtype),
-            torch.ones(B, T), torch.zeros(B, K, D), torch.zeros(B, K, T),
-            torch.zeros(D), torch.zeros(D))
-    with pytest.raises(ValueError, match=match):
+
+    def zeros(*shape, dtype=torch.float32):  # no memory for long shapes
+        return torch.zeros((1,) * len(shape), dtype=dtype).expand(*shape)
+
+    args = (zeros(B, T, D, dtype=dtype), zeros(B, T, D, dtype=dtype),
+            zeros(B, T), zeros(B, K, D), zeros(B, K, T), zeros(D), zeros(D))
+    if match is None:
+        assert fa._shape_refusal(args[0], args[3]) is None
+    with pytest.raises(ValueError, match=match or "CUDA"):
         fa._attention_cuda(*args, True)
     assert fa.launches == before
 
@@ -176,6 +184,24 @@ def test_kernel_takes_the_paths_shapes(B, K, T, D, dtype):
     assert fa._shape_refusal(es, torch.zeros(B, K, D)) is None
     elt = 2 if dtype == torch.bfloat16 else 4
     assert fa._smem_bytes(T, D, K, elt) <= fa._SMEM_MAX
+
+
+@pytest.mark.parametrize("B,K,T,D,in_smem", [
+    (16, 4, 400, 512, True),      # the beam-decode shape
+    (16, 16, 2000, 512, True),    # refused before the state could move
+    (4, 4, 20000, 512, True),     # the wide clusters halve each block's
+    (4, 4, 60000, 512, False),    # past them: the state in device memory
+    (16, 16, 8000, 512, False),
+    (2, 64, 8000, 64, False),
+])
+def test_kernel_keeps_the_state_in_shared_memory_while_it_fits(B, K, T, D,
+                                                               in_smem):
+    """The block's per-position state (P * (2K + 1) floats) stays in
+    shared memory while it fits beside the ring and the queries on a
+    132-SM card (the H100), and moves to device memory past that."""
+    assert fa._state_in_smem(B, T, D, K, 4, 132) == in_smem
+    es = torch.zeros(1, 1, 1).expand(B, T, D)
+    assert fa._shape_refusal(es, torch.zeros(B, K, D)) is None
 
 
 @pytest.mark.parametrize("use_cov", [False, True])

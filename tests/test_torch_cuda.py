@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card (marker ``cuda``; skips without a
-CUDA device): the fused additive attention, the flash self-attention
-and its backward (dK/dV and dQ), each against its plain version, and
-the bitwise repeatability of the kernels redesigned last.  This file imports
+CUDA device): the fused additive attention and its backward, the flash
+self-attention and its backward (dK/dV and dQ), each against its plain
+version, and the bitwise repeatability of the kernels redesigned last and
+of the fused attention's backward.  This file imports
 torch, numpy and the port only, so it also runs where jax is not
 installed:
 
@@ -226,7 +227,9 @@ def test_flash_kernel_rejects_bad_inputs_on_card():
         ((q, k, v, mask.cpu()), "key_mask"),
         ((q, k.double(), v, mask), "dtype"),
         ((q, k[:, :20].contiguous(), v, mask), "shape"),
-        tuple([(*_flash_inputs(2, 40, 2, 64)[:3], mask), "head dim"]),
+        # head dims up to 128 are padded to the kernels' widths; above
+        # that they are refused
+        tuple([(*_flash_inputs(2, 40, 2, 160)[:3], mask), "head dim"]),
     ]
     before = fl.launches
     for args, match in cases:
@@ -328,3 +331,160 @@ def test_flash_kernels_at_trained_magnitudes_on_card(hd, causal):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
                                    atol=tol)
     assert all(not g[1].any() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("masked", [True, False])
+def test_flash_head_dims_padded_to_the_kernels_on_card(hd, causal, masked):
+    """Head dims the kernels are not built for (16 pads to 32, 64 to 128):
+    the forward and both backward kernels against the plain versions at
+    the true head dim, one launch each."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(3, 77, 2, hd, seed=hd)
+    key_mask = mask if masked else None
+    scale = hd ** -0.5
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    counts = (fl.launches, fl.launches_bwd_dkv, fl.launches_bwd_dq)
+    out = fl.flash_attention(qg, kg, vg, key_mask, causal, scale)
+    do = torch.randn_like(out)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert (fl.launches, fl.launches_bwd_dkv, fl.launches_bwd_dq) == \
+        tuple(c + 1 for c in counts)
+    assert out.shape == q.shape
+    want_out = fl._flash_plain(q, k, v, key_mask, causal, scale)
+    np.testing.assert_allclose(out.detach().cpu().numpy(),
+                               want_out.cpu().numpy(), **TOL)
+    lse_p = fl._flash_lse_plain(q, k, key_mask, causal, scale)
+    want = fl._flash_bwd_plain(q, k, v, out.detach(), lse_p, do, key_mask,
+                               causal, scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
+    with torch.no_grad():  # decode's path: the forward alone
+        np.testing.assert_allclose(
+            fl.flash_attention(q, k, v, key_mask, causal, scale).cpu().numpy(),
+            want_out.cpu().numpy(), **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,T,D", [(16, 16, 2000, 512), (4, 4, 17856, 512),
+                                     (4, 4, 20000, 512), (4, 4, 60000, 512),
+                                     (16, 16, 8000, 512), (2, 64, 8000, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_takes_long_encoders_on_card(B, K, T, D, dtype):
+    """Encoders the kernel refused before (16 beams over 2,000 positions;
+    4 beams at the old bound of 17,856 positions in f32 and past it),
+    and longer ones whose per-position state no longer fits in a block's
+    shared memory and lives in device memory (tests/test_torch_attention.py
+    pins which): the results equal the plain version's and repeat bit for
+    bit."""
+    _need_cuda()
+    args = _inputs(B, K, T, D, dtype, seed=T)
+    _check_fused(args, True)
+    first = fa.fused_attention_shared(*args, True)
+    second = fa.fused_attention_shared(*args, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def _bwd_inputs(B, T, D, seed=0):
+    """The backward's inputs: the per-row forward's (article 1 empty), its
+    attn output from the kernel, and the cotangents."""
+    es, ef, mask, df, cov, v, w_c = _inputs(B, 1, T, D, torch.float32, seed)
+    df, cov = df[:, 0].contiguous(), cov[:, 0].contiguous()
+    _, attn = fa._attention_rows(es, ef, mask, df, cov, v, w_c, True)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    g_ctx = torch.randn(B, D, generator=g, device="cuda")
+    g_attn = torch.randn(B, T, generator=g, device="cuda")
+    return es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn
+
+
+def _close_scaled(got, want):
+    """Within 1e-5 * max(1, max|want|), the CPU tests' gradient tolerance."""
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        tol = 1e-5 * max(1.0, float(w.abs().max()))
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(3, 1, 32), (2, 7, 64), (3, 65, 96),
+                                   (5, 129, 128), (16, 400, 512),
+                                   (2, 4096, 512), (2, 20000, 512)])
+@pytest.mark.parametrize("use_cov", [False, True])
+def test_fused_attention_backward_matches_plain_on_card(B, T, D, use_cov):
+    """Ragged T (one position, the 8-warp and cluster edges, the training
+    shape, long encoders), coverage on and off, article 1 empty: zero
+    gradients, d_cov and d_w_c zero without coverage; one launch."""
+    _need_cuda()
+    args = _bwd_inputs(B, T, D, seed=T)
+    before = fa.launches_bwd
+    got = fa._attention_bwd_cuda(*args, use_cov)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd == before + 1
+    want = fa._attention_bwd_plain(*args, use_cov)
+    _close_scaled(got, want)
+    if B > 1:
+        assert all(not g[1].any() for g in got[:4])
+    if not use_cov:
+        assert not got[3].any() and not got[5].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_cov", [False, True])
+def test_fused_attention_backward_repeats_its_bits_on_card(use_cov):
+    """No float atomics: two launches on the same inputs give the same
+    bits, d_v and d_w_c (sums over articles and positions) included."""
+    _need_cuda()
+    args = _bwd_inputs(16, 400, 512)
+    first = fa._attention_bwd_cuda(*args, use_cov)
+    second = fa._attention_bwd_cuda(*args, use_cov)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_cov", [False, True])
+def test_fused_attention_function_on_card_matches_the_cpu(use_cov):
+    """Autograd through FusedAttention on CUDA tensors (the forward and
+    backward kernels, one launch each) gives the CPU path's gradients."""
+    _need_cuda()
+    es, ef, mask, df, cov, v, w_c, _, g_ctx, g_attn = _bwd_inputs(4, 150, 64)
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        leaves = [x.to(dev).clone().requires_grad_()
+                  for x in (es, ef, df, cov, v, w_c)]
+        counts = (fa.launches, fa.launches_bwd)
+        ctx, attn = fa.fused_attention(leaves[0], leaves[1], mask.to(dev),
+                                       *leaves[2:], use_cov)
+        loss = (ctx * g_ctx.to(dev)).sum() + (attn * g_attn.to(dev)).sum()
+        grads[dev] = torch.autograd.grad(loss, leaves)
+        launched = (fa.launches - counts[0], fa.launches_bwd - counts[1])
+        assert launched == ((1, 1) if dev == "cuda" else (0, 0))
+    _close_scaled([g.cpu() for g in grads["cuda"]], grads["cpu"])
+
+
+@pytest.mark.cuda
+def test_fused_attention_backward_refuses_on_card():
+    """bf16 encoder streams (the port trains in f32) and a D the kernel
+    cannot read in float4 groups are refused, and nothing is launched."""
+    _need_cuda()
+    args = list(_bwd_inputs(2, 40, 64))
+    before = fa.launches_bwd
+    bf16 = [args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)] + args[2:]
+    with pytest.raises(NotImplementedError, match="queue 1, item 2b"):
+        fa._attention_bwd_cuda(*bf16, True)
+    odd = list(_bwd_inputs(2, 40, 64))
+    odd = [odd[0][..., :62].contiguous(), odd[1][..., :62].contiguous(),
+           odd[2], odd[3][..., :62].contiguous(), odd[4],
+           odd[5][:62].contiguous(), odd[6][:62].contiguous(), odd[7],
+           odd[8][..., :62].contiguous(), odd[9]]
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fa._attention_bwd_cuda(*odd, True)
+    assert fa.launches_bwd == before

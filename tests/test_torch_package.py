@@ -92,19 +92,34 @@ def test_validate_refuses_unported_options():
 
 
 def test_cli_refuses_train_and_eval(tmp_path):
-    """Training and eval are ported for the transformer only: the
-    pointer-generator (the default family) and the checkpoint-surgery
-    flags raise, naming their ROADMAP item."""
-    item = "ROADMAP.md queue 1, item"
-    for mode in ("train", "eval"):
-        with pytest.raises(NotImplementedError, match=f"{item} 1"):
-            cli.main([f"--mode={mode}", "--device=cpu",
-                      f"--log_root={tmp_path}"])
-    with pytest.raises(NotImplementedError, match=f"{item} 1"):
-        cli.main(["--mode=train", "--model_family=transformer",
-                  "--convert_to_coverage_model=1", "--device=cpu",
-                  f"--log_root={tmp_path}"])
-    with pytest.raises(NotImplementedError, match=f"{item} 2a"):
+    """Both families train and evaluate now, and the checkpoint-surgery
+    flags run and exit: pointer-generator (the default family) training
+    and eval through the CLI on the CPU, then ``--convert_to_coverage_model``
+    on its checkpoint.  The streaming ``--loss_chunk`` still raises,
+    naming its ROADMAP item."""
+    chunks.write_chunk_file(
+        str(tmp_path / "train_000.bin"),
+        [{"article": [article(i)], "abstract": [abstract(i)]}
+         for i in range(4)])
+    (tmp_path / "vocab").write_text("".join(f"{w} {100 - i}\n"
+                                            for i, w in enumerate(WORDS)))
+    flags = ["--device=cpu", f"--log_root={tmp_path}",
+             f"--data_path={tmp_path / 'train_*.bin'}",
+             f"--vocab_path={tmp_path / 'vocab'}", "--hidden_dim=8",
+             "--emb_dim=8", "--batch_size=2", "--max_enc_steps=16",
+             "--max_dec_steps=6", "--min_dec_steps=2",
+             f"--vocab_size={len(WORDS) + 4}", "--max_oov_buckets=6"]
+    train_dir = tmp_path / "exp" / "train"
+    assert cli.main(["--mode=train", "--num_steps=2", *flags]) == 0
+    assert (train_dir / "model.ckpt-2.npz").exists()
+    hps = torch_config.HParams.from_argv(["--mode=eval", *flags])
+    assert np.isfinite(cli.run_eval(hps, cli.Vocab(hps.vocab_path,
+                                                   hps.vocab_size),
+                                    max_iters=1))
+    assert cli.main(["--mode=train", "--convert_to_coverage_model=1",
+                     *flags]) == 0
+    assert (train_dir / "model.ckpt-2_cov_init.npz").exists()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 2a"):
         cli.main(["--mode=train", "--model_family=transformer",
                   "--loss_chunk=8", "--device=cpu", f"--log_root={tmp_path}"])
 

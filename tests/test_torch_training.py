@@ -174,6 +174,17 @@ def test_adagrad_is_tf1_without_epsilon_and_clips_globally():
 
 
 def test_pointer_generator_forward_train_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 1"):
-        get_family("pointer_generator").forward_train({}, None, {})
+    """The pointer-generator's training slice (ROADMAP.md queue 1, item 1)
+    has landed: its forward_train runs (tests/test_torch_pg_training.py
+    holds it against the JAX package's)."""
+    from textsummarization_on_flink_tpu_torch.models import (
+        pointer_generator as pg,
+    )
+
+    assert get_family("pointer_generator").forward_train is pg.forward_train
     assert get_family("transformer").forward_train is tfm.forward_train
+    _, thps = make_hps(mode="train", coverage=True, vocab_size=VSIZE,
+                       max_oov_buckets=8)
+    out = pg.forward_train(from_numpy_tree(init_numpy_params(thps, VSIZE, 0)),
+                           thps, _to_device(batch_arrays(thps, 0), "cpu"))
+    assert np.isfinite(float(out.total_loss))

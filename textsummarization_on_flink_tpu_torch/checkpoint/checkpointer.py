@@ -15,8 +15,8 @@ each package restores the other's training checkpoints), the
 ``Checkpointer`` (max_to_keep=3 retention, the ``hparams.json`` sidecar,
 restore with the corrupt-file fallback) and the eval side's
 ``BestModelSaver``.  Checkpoint surgery (``convert_to_coverage_model``,
-``restore_best_model``) comes with the pointer-generator training slice
-(config.ROADMAP_PG_TRAINING).
+``restore_best_model``) writes the JAX package's file names and index
+files (checkpointer.py:542-605 there).
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from textsummarization_on_flink_tpu_torch import params as params_lib
 from textsummarization_on_flink_tpu_torch.config import HParams
 from textsummarization_on_flink_tpu_torch.train import trainer as trainer_lib
 
@@ -361,3 +362,70 @@ class BestModelSaver:
                 _remove_with_manifest(o)
         log.info("saved best model (loss %.4f) to %s", running_avg_loss, path)
         return path
+
+
+# --------------------------------------------------------------------------
+# Checkpoint surgery
+# --------------------------------------------------------------------------
+
+def convert_to_coverage_model(train_dir: str, hps: HParams, seed: int = 0,
+                              force: bool = False) -> str:
+    """Add a fresh coverage ``w_c`` to the newest non-coverage checkpoint
+    and save it as ``<ckpt>_cov_init.npz`` (run_summarization.py:157-178:
+    restore the non-coverage variables, initialise the new one, save and
+    exit).  Every other leaf and accumulator is kept; ``w_c``'s
+    accumulator starts at ``adagrad_init_acc``.
+
+    Refuses a checkpoint that is itself a conversion (a second call would
+    overwrite trained coverage params with fresh noise) unless ``force``,
+    and the transformer, whose coverage penalty has no parameters."""
+    path = latest_checkpoint(train_dir)
+    if path is None:
+        raise FileNotFoundError(f"no checkpoint in {train_dir}")
+    if "_cov_init" in os.path.basename(path) and not force:
+        raise RuntimeError(
+            f"latest checkpoint {path} is already a coverage conversion; "
+            "re-converting would destroy trained coverage params "
+            "(pass force=True to override)")
+    tree = _unflatten_dicts(load_arrays(path))
+    params = tree["params"]
+    if "attention" not in (params.get("decoder") or {}):
+        raise ValueError(
+            "coverage conversion applies to the pointer_generator family "
+            "only — the transformer's coverage penalty has no parameters "
+            "to add, set --coverage directly")
+    new_params = params_lib.add_coverage_params(params, seed)
+    acc = tree.get("opt_state", {}).get("accumulators")
+    if acc is None:  # a params-only checkpoint: zeros, as arrays_to_state
+        acc = params_lib.tree_map(np.zeros_like, params)
+    acc["decoder"]["attention"]["w_c"] = np.full_like(
+        new_params["decoder"]["attention"]["w_c"], hps.adagrad_init_acc)
+    out = path[: -len(".npz")] + "_cov_init.npz"
+    save_arrays(out, _flatten({
+        "params": new_params, "opt_state": {"accumulators": acc},
+        "step": np.asarray(tree.get("step", 0), np.int32)}))
+    write_index(train_dir, out)
+    log.info("saved coverage-converted checkpoint %s", out)
+    return out
+
+
+def restore_best_model(eval_dir: str, train_dir: str, hps: HParams) -> str:
+    """Copy the eval best model into the train dir with fresh Adagrad
+    accumulators (run_summarization.py:132-154 restores only the
+    non-Adagrad variables), saved as ``model.ckpt-<step>_restored.npz``
+    with the step from the best model's file name."""
+    path = latest_checkpoint(eval_dir, BEST_INDEX_FILE)
+    if path is None:
+        raise FileNotFoundError(f"no best model in {eval_dir}")
+    params = _unflatten_dicts(load_arrays(path))["params"]
+    acc = params_lib.tree_map(
+        lambda p: np.full_like(p, hps.adagrad_init_acc), params)
+    m = re.search(r"-(\d+)\.npz$", path)
+    step = int(m.group(1)) if m else 0
+    out = os.path.join(train_dir, f"{CKPT_PREFIX}-{step}_restored.npz")
+    save_arrays(out, _flatten({"params": params,
+                               "opt_state": {"accumulators": acc},
+                               "step": np.asarray(step, np.int32)}))
+    write_index(train_dir, out)
+    log.info("restored best model %s -> %s", path, out)
+    return out

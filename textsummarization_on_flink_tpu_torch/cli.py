@@ -20,10 +20,11 @@ surface.
     repeats one article across the batch here; the port packs distinct
     articles, which gives the same per-article results.
 
-Training and eval run for the transformer family; the pointer-generator's
-training and the checkpoint-surgery flags raise NotImplementedError
-naming their ROADMAP item.  Runs on CUDA unless ``--device=cpu``; with no
-CUDA device and no ``--device=cpu`` it raises.
+Both families train, evaluate and decode.  The checkpoint-surgery flags
+run and exit, as the reference's do: ``--convert_to_coverage_model``
+(run_summarization.py:157-178) and ``--restore_best_model`` (:132-154).
+Runs on CUDA unless ``--device=cpu``; with no CUDA device and no
+``--device=cpu`` it raises.
 """
 
 from __future__ import annotations
@@ -36,10 +37,7 @@ from typing import List, Optional
 from textsummarization_on_flink_tpu_torch.checkpoint import (
     checkpointer as ckpt_lib,
 )
-from textsummarization_on_flink_tpu_torch.config import (
-    ROADMAP_PG_TRAINING,
-    HParams,
-)
+from textsummarization_on_flink_tpu_torch.config import HParams
 from textsummarization_on_flink_tpu_torch.data.batcher import Batcher
 from textsummarization_on_flink_tpu_torch.data.etl import (
     raw_text_example_source,
@@ -69,6 +67,8 @@ def setup_training(hps: HParams, vocab: Vocab,
     batcher = batcher or Batcher(hps.data_path, vocab, hps,
                                  single_pass=hps.single_pass)
     checkpointer = ckpt_lib.Checkpointer(train_dir, hps=hps)
+    # embedding-projector metadata (model.py:185-197, data.py:93-105)
+    vocab.write_metadata(os.path.join(train_dir, "vocab_metadata.tsv"))
     state = checkpointer.restore(device=device)
     if state is not None:
         log.info("restored training from step %d", state.step)
@@ -131,14 +131,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     resolve_device(hps.device)  # no card and no --device=cpu: raise here
     log.info("Starting summarization in %s mode on %s...", hps.mode,
              hps.device)
-    if hps.convert_to_coverage_model or hps.restore_best_model:
-        raise NotImplementedError(
-            f"checkpoint surgery is not ported yet: {ROADMAP_PG_TRAINING}")
+    # the surgery flags run and exit (run_summarization.py:341-349)
+    _, train_dir, eval_dir = _dirs(hps)
+    if hps.convert_to_coverage_model:
+        ckpt_lib.convert_to_coverage_model(train_dir, hps, seed=hps.seed)
+        return 0
+    if hps.restore_best_model:
+        ckpt_lib.restore_best_model(eval_dir, train_dir, hps)
+        return 0
     training = hps.mode in ("train", "eval") and not hps.inference
-    if training and hps.model_family == "pointer_generator":
-        raise NotImplementedError(
-            f"pointer-generator training is not ported yet: "
-            f"{ROADMAP_PG_TRAINING}")
     vocab = Vocab(hps.vocab_path, hps.vocab_size)
     if not training:
         run_decode(hps, vocab)

@@ -8,7 +8,7 @@ parser.  The port adds one field, ``device``: entry points run on
 ``cuda`` unless the caller asks for ``cpu``.
 
 Fields of the JAX package that steer paths this package does not have
-yet (mesh axes, serving engines, speculative tiers, remat, divergence
+yet (mesh axes, serving engines, speculative tiers, divergence
 recovery, prefetching) are left out; ``from_argv`` ignores unknown
 flags, as the reference's ``FLAGS(known_only=True)`` does.
 """
@@ -22,13 +22,14 @@ from typing import Any, Dict, List
 
 #: ROADMAP.md names the queue item that brings each missing mode, option
 #: or family; error messages point there
-ROADMAP_PG_TRAINING = ("ROADMAP.md queue 1, item 1 (pointer-generator "
-                       "training and checkpoint surgery)")
 ROADMAP_LOSS_CHUNK = "ROADMAP.md queue 1, item 2a (streaming --loss_chunk)"
 ROADMAP_BF16 = "ROADMAP.md queue 1, item 2b (bfloat16 compute_dtype)"
 ROADMAP_BF16_CACHE = "ROADMAP.md queue 2, item 6 (bf16 decode KV cache)"
 ROADMAP_AAN = ("ROADMAP.md queue 1, item 5 (AAN draft, speculative decode, "
                "distillation)")
+ROADMAP_REMAT = "ROADMAP.md queue 1, item 2c (--remat)"
+ROADMAP_HEAD_DIM = ("ROADMAP.md queue 3, item 1 (transformer head dims above "
+                    "128 on the card)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,9 +68,8 @@ class HParams:
     coverage: bool = False
     cov_loss_wt: float = 1.0
 
-    # Checkpoint surgery flags (run_summarization.py:83-85): parsed so the
-    # CLI can refuse them until the pointer-generator training slice
-    # ports them
+    # Checkpoint surgery flags (run_summarization.py:83-85): the CLI runs
+    # the surgery and exits
     convert_to_coverage_model: bool = False
     restore_best_model: bool = False
 
@@ -88,6 +88,9 @@ class HParams:
     # > 0: the streaming chunked vocab loss (JAX config.py:92-100); not
     # ported yet, 0 keeps the materialised loss
     loss_chunk: int = 0
+    # recompute the vocab projection in the backward (JAX config.py);
+    # parsed so that validate refuses it until it is ported
+    remat: bool = False
 
     # transformer family (JAX config.py:77-83): hidden_dim is d_model,
     # embeddings are tied, ffn_dim=0 means 4*hidden_dim
@@ -170,6 +173,10 @@ class HParams:
             raise NotImplementedError(
                 f"loss_chunk={self.loss_chunk}: the port computes the "
                 f"materialised loss only; {ROADMAP_LOSS_CHUNK}")
+        if self.remat:
+            raise NotImplementedError(
+                f"remat: the port keeps the materialised vocab scores for "
+                f"the backward; {ROADMAP_REMAT}")
         if self.loss_chunk < 0:
             raise ValueError("loss_chunk must be >= 0")
         if self.max_dec_steps < 1 or self.max_enc_steps < 1:
@@ -190,6 +197,12 @@ class HParams:
                     f"hidden_dim={self.hidden_dim}")
             if self.enc_layers < 1 or self.dec_layers < 1:
                 raise ValueError("enc_layers/dec_layers must be >= 1")
+            head_dim = self.hidden_dim // self.num_heads
+            if self.device == "cuda" and head_dim > 128:
+                raise ValueError(
+                    f"head dim {head_dim} (hidden_dim / num_heads): the "
+                    f"flash kernels take head dims up to 128 on the card; "
+                    f"{ROADMAP_HEAD_DIM}")
         if self.decode_cache_dtype == "bfloat16":
             raise NotImplementedError(
                 f"decode_cache_dtype='bfloat16': the port stores the KV "

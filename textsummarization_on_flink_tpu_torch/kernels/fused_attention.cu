@@ -41,7 +41,14 @@
 //     distributed shared memory, every sum in rank order, and each block
 //     writes a slice of ctx and the normalised attention of its own
 //     positions: one launch, no scratch in device memory, no atomics, so
-//     a run's results are the same bits every time.
+//     a run's results are the same bits every time;
+//   * a block keeps its positions' mask, coverage and energies in shared
+//     memory while they fit (P * (2K + 1) floats beside the ring); past
+//     that (a long encoder, or many queries) it reads the mask and the
+//     coverage from device memory where they lie and keeps the energies
+//     in the `attn` output, which is [B, K, T] in device memory already,
+//     so every T is taken.  Only the per-block constants (the ring, the
+//     queries, the partial context) bound K and D.
 //
 // Plain f32 FMA, expf, and tanh as 1 - 2 / (1 + 2^(2 f log2 e)) on the
 // MUFU (tanh_mufu: within ~5e-7 of tanh; no tensor cores, no fast-math
@@ -202,19 +209,23 @@ struct Geometry {
 
 // Dynamic shared memory, in floats: the ring's mbarriers, the ring, df
 // [K, D], v and w_c [D], the block's mask [P], coverage [K, P] and
-// energies / weights [P, K], its partial context [K, D], and per query
-// its max, sum, denominator and the C ranks' maxes (then scales) and
-// sums.  (More blocks per article only make P smaller.)
+// energies / weights [P, K] (only when state_in_smem), its partial
+// context [K, D], and per query its max, sum, denominator and the C
+// ranks' maxes (then scales) and sums.  (More blocks per article only
+// make P smaller.)
 inline size_t smem_floats(const Geometry& geo, int D, int K, int elt_bytes,
-                          int stages) {
+                          int stages, bool state_in_smem) {
   return kBarFloats + (size_t)stages * kChunk * D * elt_bytes / 4 +
-         2 * (size_t)K * D + 2 * (size_t)D + (size_t)geo.P * (2 * K + 1) +
+         2 * (size_t)K * D + 2 * (size_t)D +
+         (state_in_smem ? (size_t)geo.P * (2 * K + 1) : 0) +
          (size_t)(3 + 2 * geo.C) * K;
 }
 
 // grid (C, B) in clusters of (C, 1, 1): one cluster per article;
-// smem_floats(...) * 4 bytes of dynamic shared memory
-template <typename TIn, bool kCov, int kStages>
+// smem_floats(...) * 4 bytes of dynamic shared memory.  kSmemState: the
+// block's mask, coverage and energies in shared memory (else the mask
+// and coverage are read where they lie and the energies kept in attn)
+template <typename TIn, bool kCov, int kStages, bool kSmemState>
 __global__ void __launch_bounds__(kThreads)
 attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
                  const float* __restrict__ mask, const float* __restrict__ df,
@@ -234,10 +245,11 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
   float* df_s = ring + kStages * chunk_floats;  // [K, D]
   float* v_s = df_s + K * D;                    // [D]
   float* wc_s = v_s + D;                        // [D]
-  float* mask_s = wc_s + D;     // [P] the block's mask
-  float* cov_s = mask_s + P;    // [K, P] the block's coverage
-  float* pe_s = cov_s + K * P;  // [P, K]: energies, then exp(e - max)
-  float* ctx_s = pe_s + P * K;  // [K, D] the block's partial context
+  const int P_s = kSmemState ? P : 0;  // positions kept in shared memory
+  float* mask_s = wc_s + D;       // [P] the block's mask
+  float* cov_s = mask_s + P_s;    // [K, P] the block's coverage
+  float* pe_s = cov_s + K * P_s;  // [P, K]: energies, then exp(e - max)
+  float* ctx_s = pe_s + P_s * K;  // [K, D] the block's partial context
   float* m_s = ctx_s + K * D;   // [K] the block's max
   float* l_s = m_s + K;         // [K] the block's sum
   float* den_s = l_s + K;       // [K] the article's denominator
@@ -250,7 +262,24 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
   const int n_chunks = (n_pos + kChunk - 1) / kChunk;
   const TIn* ef_b = ef + (size_t)b * T * D;
   const TIn* es_b = es + (size_t)b * T * D;
-  const float* mask_b = mask + (size_t)b * T;
+  const float* mask_b = mask + (size_t)b * T + t_begin;
+  const float* cov_b = cov + (size_t)b * K * T + t_begin;
+  float* attn_b = attn + (size_t)b * K * T + t_begin;
+  // the block's per-position state at local position tl, query k: in
+  // shared memory, or where it lies in device memory (the energies in
+  // attn, which the last step overwrites with the weights)
+  auto mask_at = [&](int tl) -> float {
+    if constexpr (kSmemState) return mask_s[tl];
+    else return mask_b[tl];
+  };
+  auto cov_at = [&](int k, int tl) -> float {
+    if constexpr (kSmemState) return cov_s[k * P + tl];
+    else return cov_b[(size_t)k * T + tl];
+  };
+  auto pe = [&](int tl, int k) -> float& {
+    if constexpr (kSmemState) return pe_s[tl * K + k];
+    else return attn_b[(size_t)k * T + tl];
+  };
 
   // the ring's sequence: ef chunks 0 .. n_chunks - 1, then es chunks
   const int n_total = 2 * n_chunks;
@@ -280,13 +309,14 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
     tf32x3::cp_async16(v_s + 4 * i, v + 4 * i, 16);
     tf32x3::cp_async16(wc_s + 4 * i, wc + 4 * i, 16);
   }
-  for (int tl = tid; tl < n_pos; tl += kThreads)
-    cp_async4(mask_s + tl, mask_b + t_begin + tl);
-  if (kCov) {
-    for (int k = 0; k < K; ++k)
-      for (int tl = tid; tl < n_pos; tl += kThreads)
-        cp_async4(cov_s + k * P + tl,
-                  cov + ((size_t)b * K + k) * T + t_begin + tl);
+  if (kSmemState) {
+    for (int tl = tid; tl < n_pos; tl += kThreads)
+      cp_async4(mask_s + tl, mask_b + tl);
+    if (kCov) {
+      for (int k = 0; k < K; ++k)
+        for (int tl = tid; tl < n_pos; tl += kThreads)
+          cp_async4(cov_s + k * P + tl, cov_b + (size_t)k * T + tl);
+    }
   }
   tf32x3::cp_async_commit();
   for (int i = 0; i < kStages - 1; ++i) stage(i);
@@ -310,14 +340,14 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
       // 1. energies: warp w takes position w of the chunk
       const int tl = i * kChunk + warp;  // warp-uniform
       if (tl < n_pos) {
-        const bool valid = mask_s[tl] > 0.f;
+        const bool valid = mask_at(tl) > 0.f;
         const TIn* row = reinterpret_cast<const TIn*>(buf + warp * row_floats);
         for (int k0 = 0; k0 < K; k0 += kQ) {
           float acc[kQ], cv[kQ];
 #pragma unroll
           for (int j = 0; j < kQ; ++j) {
             acc[j] = 0.f;
-            cv[j] = (kCov && k0 + j < K) ? cov_s[(k0 + j) * P + tl] : 0.f;
+            cv[j] = (kCov && k0 + j < K) ? cov_at(k0 + j, tl) : 0.f;
           }
 #pragma unroll 4
           for (int c = lane; c < D / 4; c += 32) {
@@ -339,7 +369,7 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
 #pragma unroll
           for (int j = 0; j < kQ; ++j) {
             const float e = warp_sum(acc[j]);
-            if (lane == 0 && k0 + j < K) pe_s[tl * K + k0 + j] = valid ? e : kNeg;
+            if (lane == 0 && k0 + j < K) pe(tl, k0 + j) = valid ? e : kNeg;
           }
         }
       }
@@ -352,14 +382,12 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
       //    at the top of this iteration)
       for (int k = warp; k < K; k += kWarps) {
         float m = kNeg;
-        for (int tl = lane; tl < n_pos; tl += 32)
-          m = fmaxf(m, pe_s[tl * K + k]);
+        for (int tl = lane; tl < n_pos; tl += 32) m = fmaxf(m, pe(tl, k));
         m = warp_max(m);
         float l = 0.f;
         for (int tl = lane; tl < n_pos; tl += 32) {
-          const float p =
-              mask_s[tl] > 0.f ? expf(pe_s[tl * K + k] - m) : 0.f;
-          pe_s[tl * K + k] = p;
+          const float p = mask_at(tl) > 0.f ? expf(pe(tl, k) - m) : 0.f;
+          pe(tl, k) = p;
           l += p;
         }
         l = warp_sum(l);
@@ -382,12 +410,12 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
         for (int j = 0; j < kQ; ++j) a[j][0] = a[j][1] = 0.f;
         for (int r = 0; r < n_here; ++r) {
           const float2 x = load2(rows + (size_t)r * D + 2 * c);
-          const float* pr = pe_s + (c0 + r) * K + k0;
 #pragma unroll
           for (int j = 0; j < kQ; ++j) {
             if (k0 + j < K) {
-              a[j][0] = fmaf(pr[j], x.x, a[j][0]);
-              a[j][1] = fmaf(pr[j], x.y, a[j][1]);
+              const float pr = pe(c0 + r, k0 + j);
+              a[j][0] = fmaf(pr, x.x, a[j][0]);
+              a[j][1] = fmaf(pr, x.y, a[j][1]);
             }
           }
         }
@@ -443,34 +471,27 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
   }
   // the normalised attention of this block's positions (a masked one has
   // weight 0, so exactly 0)
+  // (read and written by one thread, in place when kept in attn)
   for (int k = 0; k < K; ++k) {
     const float sc = sc_s[rank * K + k], den = den_s[k];
-    float* out = attn + ((size_t)b * K + k) * T + t_begin;
+    float* out = attn_b + (size_t)k * T;
     for (int tl = tid; tl < n_pos; tl += kThreads)
-      out[tl] = pe_s[tl * K + k] * sc / den;
+      out[tl] = pe(tl, k) * sc / den;
   }
   // no block leaves while another may still read its shared memory
   cluster.sync();
 }
 
-template <typename TIn, bool kCov>
-cudaError_t launch(const void* es, const void* ef, const float* mask,
-                   const float* df, const float* cov, const float* v,
-                   const float* wc, float* ctx, float* attn, int B, int T,
-                   int D, int K, cudaStream_t stream) {
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  // few articles: 16 blocks each, with a deeper ring, while their clusters
-  // take at most half the SMs, so the long form still spreads over the card
-  const bool wide = B * kWideCluster * 2 <= sms;
-  auto kernel = wide ? attention_kernel<TIn, kCov, kWideRing>
-                     : attention_kernel<TIn, kCov, kRing>;
-  static unsigned smem_set[2] = {0, 0}, wide_set = 0;  // per instantiation
+template <typename TIn, bool kCov, int kStages, bool kSmemState>
+cudaError_t launch_one(const void* es, const void* ef, const float* mask,
+                       const float* df, const float* cov, const float* v,
+                       const float* wc, float* ctx, float* attn, int B,
+                       int T, int D, int K, const Geometry& geo, bool wide,
+                       size_t smem_bytes, int dev, cudaStream_t stream) {
+  auto kernel = attention_kernel<TIn, kCov, kStages, kSmemState>;
+  static unsigned smem_set = 0, wide_set = 0;  // per instantiation
   // the attribute is the most any call may ask; each launch asks its own
-  err = tf32x3::allow_smem(kernel, kSmemMax, smem_set[wide]);
+  cudaError_t err = tf32x3::allow_smem(kernel, kSmemMax, smem_set);
   if (err != cudaSuccess) return err;
   if (wide && !(dev < 32 && (wide_set >> dev) & 1u)) {
     err = cudaFuncSetAttribute(
@@ -478,13 +499,10 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
     if (err != cudaSuccess) return err;
     if (dev < 32) wide_set |= 1u << dev;
   }
-  const Geometry geo(T, wide ? kWideCluster : kCluster);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(geo.C, B, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes =
-      smem_floats(geo, D, K, sizeof(TIn), wide ? kWideRing : kRing) *
-      sizeof(float);
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -500,6 +518,38 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
   return cudaGetLastError();
 }
 
+template <typename TIn, bool kCov>
+cudaError_t launch(const void* es, const void* ef, const float* mask,
+                   const float* df, const float* cov, const float* v,
+                   const float* wc, float* ctx, float* attn, int B, int T,
+                   int D, int K, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // few articles: 16 blocks each, with a deeper ring, while their clusters
+  // take at most half the SMs, so the long form still spreads over the card
+  const bool wide = B * kWideCluster * 2 <= sms;
+  const Geometry geo(T, wide ? kWideCluster : kCluster);
+  const int stages = wide ? kWideRing : kRing;
+  const size_t with_state =
+      smem_floats(geo, D, K, sizeof(TIn), stages, true) * sizeof(float);
+  const size_t without =
+      smem_floats(geo, D, K, sizeof(TIn), stages, false) * sizeof(float);
+  if (without > kSmemMax) return cudaErrorInvalidValue;
+  const bool in_smem = with_state <= kSmemMax;
+  const size_t bytes = in_smem ? with_state : without;
+#define TS_LAUNCH(STAGES, STATE)                                             \
+  launch_one<TIn, kCov, STAGES, STATE>(es, ef, mask, df, cov, v, wc, ctx,   \
+                                       attn, B, T, D, K, geo, wide, bytes,  \
+                                       dev, stream)
+  if (wide) return in_smem ? TS_LAUNCH(kWideRing, true)
+                           : TS_LAUNCH(kWideRing, false);
+  return in_smem ? TS_LAUNCH(kRing, true) : TS_LAUNCH(kRing, false);
+#undef TS_LAUNCH
+}
+
 }  // namespace
 
 // es, ef [B, T, D] (f32, or bf16 when is_bf16; 16-byte aligned, D a
@@ -507,7 +557,9 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
 // (read only when use_cov); v, wc [D]; outputs ctx [B, K, D], attn
 // [B, K, T].  All float32 unless noted, contiguous, on one device.
 // Launches on `stream`; returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a shape the kernel does not take).
+// (cudaErrorInvalidValue for a shape the kernel does not take: more
+// articles than the grid's y extent, or K and D whose per-block
+// constants do not fit in shared memory at the widest cluster and ring).
 extern "C" int ts_fused_attention_shared(const void* es, const void* ef,
                                          const float* mask, const float* df,
                                          const float* cov, const float* v,
@@ -519,7 +571,7 @@ extern "C" int ts_fused_attention_shared(const void* es, const void* ef,
   const int elt = is_bf16 ? 2 : 4;
   if (B <= 0 || T <= 0 || D <= 0 || K <= 0 || B > 65535 ||
       D % (16 / elt) != 0 ||
-      smem_floats(Geometry(T, kCluster), D, K, elt, kWideRing) *
+      smem_floats(Geometry(T, kWideCluster), D, K, elt, kWideRing, false) *
               sizeof(float) >
           kSmemMax)
     return (int)cudaErrorInvalidValue;

@@ -4,9 +4,8 @@ Every family is a module with the JAX package's functional surface
 (models/__init__.py there): ``beam_encode(params, hps, arrays)`` and
 ``beam_adapter(hps) -> (init_state, step)`` for beam search, and
 ``forward_train(params, hps, arrays) -> TrainOutput`` for training and
-eval.  Both families decode; the transformer also trains (the
-pointer-generator's ``forward_train`` raises, naming its ROADMAP item).
-The AAN draft is not ported yet.
+eval.  Both families decode and train.  The AAN draft is not ported
+yet.
 """
 
 from __future__ import annotations

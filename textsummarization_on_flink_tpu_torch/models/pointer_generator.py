@@ -1,8 +1,8 @@
-"""Pointer-generator seq2seq model (See et al. 2017): the decode half.
+"""Pointer-generator seq2seq model (See et al. 2017).
 
-Port of the JAX package's models/pointer_generator.py (encoder, one
-decode step with the reference's decode-mode semantics, and the beam
-adapter).  Functions take the params tree (a nested dict of tensors with
+Port of the JAX package's models/pointer_generator.py (encoder, the
+teacher-forced training forward, one decode step with the reference's
+decode-mode semantics, and the beam adapter).  Functions take the params tree (a nested dict of tensors with
 the JAX tree's names, see params.py) and tensors on one device.  The
 JAX package vmaps its step over articles; here the article axis B is
 written out and the beam axis K follows it.
@@ -12,10 +12,14 @@ attention_decoder.py:138-160) are kept exactly, including the quirk that
 the previous step's attention is recomputed to advance coverage while
 the current step's attention does not advance it.
 
-Training (``forward_train``) comes with the pointer-generator training
-slice (config.ROADMAP_PG_TRAINING); the ``TrainOutput`` contract the
-Trainer and Evaluator read is defined here for both families, as in the
-JAX package.
+``forward_train`` keeps the JAX package's hoisting: the embedding half
+of ``input_linear`` is one [B, T_dec, E] matmul before the decoder loop,
+the loop carries (state, context, coverage) from zeros with one
+attention per step (ops/attention.attend: the fused attention's autograd
+Function, its kernels forward and backward on the card), and the
+[T_dec, B, H] @ [H, V] projection and the losses run once after the
+loop.  The ``TrainOutput`` contract the Trainer and Evaluator read is
+defined here for both families, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -24,11 +28,9 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
-from textsummarization_on_flink_tpu_torch.config import (
-    ROADMAP_PG_TRAINING,
-    HParams,
-)
+from textsummarization_on_flink_tpu_torch.config import HParams
 from textsummarization_on_flink_tpu_torch.ops import attention as attn_ops
+from textsummarization_on_flink_tpu_torch.ops import losses as loss_ops
 from textsummarization_on_flink_tpu_torch.ops import lstm as lstm_ops
 
 Params = Dict[str, Any]
@@ -58,15 +60,6 @@ class TrainOutput(NamedTuple):
     total_loss: torch.Tensor  # loss + cov_loss_wt * coverage_loss
     attn_dists: torch.Tensor  # [B, T_dec, T_enc]
     p_gens: torch.Tensor  # [B, T_dec]
-
-
-def forward_train(params: Params, hps: HParams,
-                  arrays: Dict[str, torch.Tensor]) -> TrainOutput:
-    """Not ported yet: the pointer-generator's teacher-forced forward and
-    its attention-backward kernel come with its training slice."""
-    raise NotImplementedError(
-        f"pointer-generator training is not ported yet: "
-        f"{ROADMAP_PG_TRAINING}")
 
 
 class BeamStepOut(NamedTuple):
@@ -105,6 +98,85 @@ def encode(params: Params, hps: HParams, enc_batch: torch.Tensor,
     enc_feats = attn_ops.encoder_features(params["decoder"]["attention"],
                                           enc_states)
     return EncoderOutput(enc_states, enc_feats, (new_c, new_h))
+
+
+def _decoder_core(params: Params, hps: HParams, enc: EncoderOutput,
+                  enc_padding_mask: torch.Tensor,
+                  state: Tuple[torch.Tensor, torch.Tensor],
+                  coverage: torch.Tensor, x: torch.Tensor,
+                  ) -> Dict[str, Any]:
+    """One train-mode decoder step (attention_decoder.py:141-174): the
+    merged input+context ``x`` -> cell -> attention (advances coverage)
+    -> p_gen -> the output projection's input.  Coverage always flows;
+    with coverage off the energies do not read it.  ``x`` is the
+    input_linear output (forward_train adds its context half per step)."""
+    dp = params["decoder"]
+    cell_out, new_state = lstm_ops.lstm_cell(dp["cell"], x, state)
+    new_context, attn_dist, new_cov = attn_ops.attend(
+        dp["attention"], enc.enc_states, enc.enc_features, enc_padding_mask,
+        new_state, coverage if hps.coverage else None, hps.coverage)
+    if new_cov is None:
+        new_cov = coverage
+    p_gen = torch.sigmoid(
+        _linear(dp["pgen_linear"], new_context, new_state[0], new_state[1], x)
+    )[:, 0]
+    output = _linear(dp["output_linear"], cell_out, new_context)
+    return dict(state=new_state, context=new_context, attn_dist=attn_dist,
+                coverage=new_cov, p_gen=p_gen, output=output)
+
+
+def forward_train(params: Params, hps: HParams,
+                  arrays: Dict[str, torch.Tensor]) -> TrainOutput:
+    """The training and eval forward (model.py:199-277 semantics; JAX
+    pointer_generator.py:221-315 without --loss_chunk and --remat, which
+    HParams.validate refuses)."""
+    B, T_enc = arrays["enc_batch"].shape
+    enc = encode(params, hps, arrays["enc_batch"], arrays["enc_lens"],
+                 arrays["enc_padding_mask"])
+    emb_dec = params["embedding"][arrays["dec_batch"]]  # [B, T_dec, E]
+    ip = params["decoder"]["input_linear"]
+    E = emb_dec.shape[-1]
+    emb_proj = emb_dec @ ip["kernel"][:E] + ip["bias"]  # [B, T_dec, E]
+    k_ctx = ip["kernel"][E:]
+    D = enc.enc_states.shape[-1]
+    state = enc.dec_in_state
+    context = enc.enc_states.new_zeros((B, D))
+    coverage = enc.enc_states.new_zeros((B, T_enc))
+    outputs, attn_dists, p_gens = [], [], []
+    for t in range(emb_proj.shape[1]):
+        x = emb_proj[:, t] + context @ k_ctx
+        res = _decoder_core(params, hps, enc, arrays["enc_padding_mask"],
+                            state, coverage, x)
+        state, context, coverage = res["state"], res["context"], \
+            res["coverage"]
+        outputs.append(res["output"])
+        attn_dists.append(res["attn_dist"])
+        p_gens.append(res["p_gen"])
+    outputs_t = torch.stack(outputs)  # [T_dec, B, H]
+    attn_t = torch.stack(attn_dists)  # [T_dec, B, T_enc]
+    p_gens_t = torch.stack(p_gens)  # [T_dec, B]
+
+    # the projection and the loss over all steps at once
+    dec_mask = arrays["dec_padding_mask"]
+    scores = loss_ops.project_scores(
+        outputs_t, params["output_projection"]["w"], hps.compute_dtype) \
+        + params["output_projection"]["v"]  # [T_dec, B, V]
+    if hps.pointer_gen:
+        gold = loss_ops.gold_mixture_prob_from_scores(
+            scores, attn_t, p_gens_t, arrays["target_batch"].T,
+            arrays["enc_batch_extend_vocab"])
+        loss = loss_ops.pointer_nll(gold.T, dec_mask)
+    else:
+        loss = loss_ops.softmax_cross_entropy_baseline(
+            scores.transpose(0, 1), arrays["target_batch"], dec_mask)
+    attn_b = attn_t.transpose(0, 1)  # [B, T_dec, T_enc]
+    if hps.coverage:
+        cov_loss = loss_ops.coverage_loss(attn_b, dec_mask)
+    else:
+        cov_loss = loss.new_zeros(())
+    return TrainOutput(loss=loss, coverage_loss=cov_loss,
+                       total_loss=loss + hps.cov_loss_wt * cov_loss,
+                       attn_dists=attn_b, p_gens=p_gens_t.T)
 
 
 def run_encoder(params: Params, hps: HParams,

@@ -32,6 +32,15 @@ installed jax), then launches the dK/dV kernel and the dQ kernel
 ``_flash_bwd_plain`` is the explicit backward formula in plain PyTorch,
 the plain version of both backward kernels.
 
+Head dims: the kernels are built for 32 and 128.  On the card any other
+head dim up to 128 is zero-padded to the next of them on the way in
+(q, k, v, and for the backward out and dO) and the outputs and gradients
+are sliced back: zero columns add nothing to q . k, give zero output
+columns and zero gradient columns, and ``sm_scale`` is passed by the
+caller from the true head dim (the JAX package pads the same way for
+the library kernel, models/transformer.py:262-272).  Head dims above 128
+are refused (config.ROADMAP_HEAD_DIM).
+
 Dispatch: a CPU tensor goes to the plain versions; a CUDA tensor goes to
 the kernels (kernels/flash_attention.cu, kernels/flash_attention_bwd.cu),
 or the wrapper raises.  There is no fallback from one to the other.
@@ -47,12 +56,15 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
+from textsummarization_on_flink_tpu_torch.config import ROADMAP_HEAD_DIM
 from textsummarization_on_flink_tpu_torch.ops.fused_attention import _check
 
 NEG = -1e30  # masked-logit floor (transformer._mha), never -inf
 
-#: head dims the kernel is built for (the switch in ts_flash_attention)
+#: head dims the kernel is built for (the switch in ts_flash_attention);
+#: the others up to the largest are zero-padded to the next one
 HEAD_DIMS = (32, 128)
 
 #: kernel launches so far (one per forward on CUDA tensors, one per
@@ -136,6 +148,21 @@ def _flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dq, dk, dv
 
 
+def _padded_head_dim(hd: int) -> int:
+    """The head dim the kernels run at for a head dim of ``hd``."""
+    for width in HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise ValueError(f"head dim {hd} is above the largest the kernels are "
+                     f"built for ({HEAD_DIMS[-1]}); {ROADMAP_HEAD_DIM}")
+
+
+def _pad_head_dim(width: int, *xs: torch.Tensor):
+    """Each [..., hd] tensor with zero columns up to ``width``."""
+    return tuple(x if x.shape[-1] == width else
+                 F.pad(x, (0, width - x.shape[-1])) for x in xs)
+
+
 def _load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
@@ -185,9 +212,7 @@ def _check_inputs(what: str, tensors, key_mask) -> None:
             raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
     if key_mask is not None:
         _check("key_mask", key_mask, (B, T), (torch.float32,), dev)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} is not one the kernel is built for "
-                         f"{HEAD_DIMS}")
+    _padded_head_dim(hd)
     if B == 0 or T == 0 or nh == 0:
         raise ValueError(f"empty attention input (B={B}, T={T}, nh={nh})")
 
@@ -199,7 +224,10 @@ def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False):
     _check_inputs("flash attention", (("q", q), ("k", k), ("v", v)),
                   key_mask)
     dev = q.device
-    B, T, nh, hd = q.shape
+    hd = q.shape[-1]
+    width = _padded_head_dim(hd)
+    q, k, v = _pad_head_dim(width, q, k, v)
+    B, T, nh, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, T, nh), device=dev) if with_lse else None
     lib = _load_library()
@@ -209,11 +237,13 @@ def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False):
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if key_mask is None else key_mask.data_ptr(), out.data_ptr(),
             0 if lse is None else lse.data_ptr(),
-            B, T, nh, hd, int(bool(causal)), float(sm_scale), stream)
+            B, T, nh, width, int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         raise RuntimeError("flash attention kernel launch failed: "
                            + lib.ts_flash_error_string(err).decode())
     launches += 1
+    if width != hd:
+        out = out[..., :hd].contiguous()
     return (out, lse) if with_lse else out
 
 
@@ -265,12 +295,16 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, key_mask, causal, sm_scale):
     _check_inputs("flash attention backward",
                   (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)),
                   key_mask)
-    B, T, nh, _ = q.shape
+    B, T, nh, hd = q.shape
     _check("lse", lse, (B, T, nh), (torch.float32,), q.device)
+    width = _padded_head_dim(hd)
+    q, k, v, out, do = _pad_head_dim(width, q, k, v, out, do)
     dsum = torch.sum(do * out, dim=-1)  # [B, T, nh], contiguous
     dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal,
                            sm_scale)
     dq = _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale)
+    if width != hd:
+        dq, dk, dv = (x[..., :hd].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv
 
 

@@ -21,8 +21,15 @@ Dispatch: a CPU tensor goes to ``_attention_plain`` (the formula of
 ``_attention_xla_shared`` / ``_attention_xla``, pallas_attention.py:96-132);
 a CUDA tensor goes to the kernel, or the wrapper raises.  There is no
 fallback from one to the other.  ``launches`` counts kernel launches.
-Forward only: serving never differentiates; the backward comes with
-the training slice.
+
+Training differentiates the per-row form through ``FusedAttention``, a
+``torch.autograd.Function`` (the JAX package's custom_vjp,
+pallas_attention.py:335-372): its forward is the forward above and saves
+its inputs and the ``attn`` output; its backward is
+``_attention_bwd_plain`` on the CPU (the explicit gradient formulas) and
+kernels/fused_attention_bwd.cu on the card (``_attention_bwd_cuda``,
+counted by ``launches_bwd``).  f32 only: a bf16 encoder stream is
+refused there (config.ROADMAP_BF16).
 """
 
 from __future__ import annotations
@@ -32,13 +39,18 @@ from typing import Optional, Tuple
 
 import torch
 
+from textsummarization_on_flink_tpu_torch.config import ROADMAP_BF16
+
 NEG = -1e30  # masked-energy floor (pallas_attention.NEG), never -inf
 
-#: kernel launches so far (one per wrapper call on CUDA tensors); set it
-#: to 0 before a run whose launches are to be counted
+#: kernel launches so far (one per wrapper call on CUDA tensors: the
+#: forward, and the backward's pair of kernels); set them to 0 before a
+#: run whose launches are to be counted
 launches = 0
+launches_bwd = 0
 
 _lib: Optional[ctypes.CDLL] = None
+_bwd_lib: Optional[ctypes.CDLL] = None
 
 
 def _attention_plain(es: torch.Tensor, ef: torch.Tensor, mask: torch.Tensor,
@@ -64,6 +76,58 @@ def _attention_plain(es: torch.Tensor, ef: torch.Tensor, mask: torch.Tensor,
     return ctx, attn
 
 
+def _attention_bwd_plain(es: torch.Tensor, ef: torch.Tensor,
+                         mask: torch.Tensor, df: torch.Tensor,
+                         cov: torch.Tensor, v: torch.Tensor, w_c: torch.Tensor,
+                         attn: torch.Tensor, g_ctx: torch.Tensor,
+                         g_attn: torch.Tensor, use_coverage: bool,
+                         ) -> Tuple[torch.Tensor, ...]:
+    """The backward of the per-row form as explicit formulas, the plain
+    version of kernels/fused_attention_bwd.cu.
+
+    es, ef [B, T, D]; mask, cov, attn (the forward's), g_attn [B, T];
+    df, g_ctx [B, D]; v, w_c [D], all f32.  With u = tanh(ef + df
+    [+ cov w_c]) recomputed:
+
+        d_es[t] = attn[t] g_ctx
+        ga[t]   = g_attn[t] + es[t] . g_ctx
+        d_e[t]  = attn[t] (ga[t] - sum_s attn[s] ga[s])   (0 where masked)
+        d_f[t]  = d_e[t] v (1 - u[t]^2)
+        d_ef = d_f, d_df = sum_t d_f, d_cov[t] = d_f[t] . w_c,
+        d_v = sum_{b,t} d_e u, d_w_c = sum_{b,t} d_f cov
+
+    The max shift is not differentiated (stop_gradient in the JAX
+    formula) and the denominator's 1e-30 clamp is not passed through: a
+    fully masked row has attn 0, so its gradients are 0, never NaN.
+    Returns (d_es, d_ef, d_df, d_cov, d_v, d_w_c); d_cov and d_w_c are
+    zeros when coverage is off."""
+    _refuse_bwd_dtype(es)
+    feats = ef + df[:, None, :]
+    if use_coverage:
+        feats = feats + cov[:, :, None] * w_c
+    u = torch.tanh(feats)  # [B, T, D]
+    ga = g_attn + torch.einsum("btd,bd->bt", es, g_ctx)
+    d_e = attn * (ga - torch.sum(attn * ga, dim=-1, keepdim=True))
+    d_e = torch.where(mask > 0, d_e, 0.0)
+    d_f = d_e[:, :, None] * v * (1.0 - u * u)
+    d_es = attn[:, :, None] * g_ctx[:, None, :]
+    d_v = torch.sum(d_e[:, :, None] * u, dim=(0, 1))
+    if use_coverage:
+        d_cov = torch.sum(d_f * w_c, dim=-1)
+        d_w_c = torch.sum(d_f * cov[:, :, None], dim=(0, 1))
+    else:
+        d_cov, d_w_c = torch.zeros_like(attn), torch.zeros_like(v)
+    return d_es, d_f, torch.sum(d_f, dim=1), d_cov, d_v, d_w_c
+
+
+def _refuse_bwd_dtype(es: torch.Tensor) -> None:
+    if es.dtype != torch.float32:
+        raise NotImplementedError(
+            f"the fused attention's backward takes float32 encoder streams "
+            f"only, got {es.dtype}: the port trains in float32; "
+            f"{ROADMAP_BF16}")
+
+
 def _load_library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
@@ -80,6 +144,22 @@ def _load_library() -> ctypes.CDLL:
     return _lib
 
 
+def _load_bwd_library() -> ctypes.CDLL:
+    global _bwd_lib
+    if _bwd_lib is None:
+        from textsummarization_on_flink_tpu_torch.kernels import build
+
+        lib = ctypes.CDLL(build.build("fused_attention_bwd"))
+        fn = lib.ts_fused_attention_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 \
+            + [ctypes.c_void_p]
+        lib.ts_fused_attention_bwd_error_string.restype = ctypes.c_char_p
+        lib.ts_fused_attention_bwd_error_string.argtypes = [ctypes.c_int]
+        _bwd_lib = lib
+    return _bwd_lib
+
+
 def _check(name: str, x: torch.Tensor, shape, dtypes, device) -> None:
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
@@ -94,24 +174,40 @@ def _check(name: str, x: torch.Tensor, shape, dtypes, device) -> None:
 
 
 # The kernel's geometry (kernels/fused_attention.cu): chunks of 8 staged
-# positions, a ring of at most 8 chunks, clusters of up to 8 blocks per
-# article (16 for few articles, which only makes a block's share of T
-# smaller)
-_CHUNK, _STAGES, _CLUSTER = 8, 8, 8
+# positions; clusters of 8 blocks per article with a ring of 4 chunks, or
+# of 16 with a ring of 8 (the wide form, for few articles)
+_CHUNK = 8
+_CLUSTER, _RING, _WIDE_CLUSTER, _WIDE_RING = 8, 4, 16, 8
 _BAR_FLOATS = 16  # the ring's mbarriers, ahead of it
 _SMEM_MAX = 232_448  # bytes of shared memory a block may use on Hopper
+_MAX_ARTICLES = 65_535  # the grid's y extent
 
 
-def _smem_bytes(T: int, D: int, K: int, elt: int) -> int:
-    """Dynamic shared memory of one block (smem_floats in the source)."""
+def _smem_bytes(T: int, D: int, K: int, elt: int, wide: bool = True,
+                state: bool = False) -> int:
+    """Dynamic shared memory of one block (smem_floats in the source), in
+    the wide or the narrow form, with or without the per-position state
+    (mask, coverage, energies).  The defaults give the most a block ever
+    needs for its constants: past that the state moves to device memory,
+    so T is not bounded."""
     def ceil_div(a, b):
         return -(-a // b)
 
-    C = min(ceil_div(T, _CHUNK), _CLUSTER)  # blocks per article
+    C = min(ceil_div(T, _CHUNK), _WIDE_CLUSTER if wide else _CLUSTER)
     P = ceil_div(ceil_div(T, C), _CHUNK) * _CHUNK  # positions per block
-    floats = (_BAR_FLOATS + _STAGES * _CHUNK * D * elt // 4 + 2 * K * D
-              + 2 * D + P * (2 * K + 1) + (3 + 2 * C) * K)
+    stages = _WIDE_RING if wide else _RING
+    floats = (_BAR_FLOATS + stages * _CHUNK * D * elt // 4 + 2 * K * D
+              + 2 * D + (P * (2 * K + 1) if state else 0) + (3 + 2 * C) * K)
     return 4 * floats
+
+
+def _state_in_smem(B: int, T: int, D: int, K: int, elt: int,
+                   sms: int) -> bool:
+    """Whether the kernel keeps the per-position state in shared memory
+    (else in device memory) on a card with ``sms`` SMs: the choice of
+    launch() in the source."""
+    wide = B * _WIDE_CLUSTER * 2 <= sms
+    return _smem_bytes(T, D, K, elt, wide, state=True) <= _SMEM_MAX
 
 
 def _shape_refusal(es: torch.Tensor, df: torch.Tensor) -> Optional[str]:
@@ -128,9 +224,12 @@ def _shape_refusal(es: torch.Tensor, df: torch.Tensor) -> Optional[str]:
     if D % (16 // elt):
         return (f"D={D} is not a multiple of {16 // elt}: the kernel stages "
                 f"16-byte pieces of each {es.dtype} encoder row")
-    if _smem_bytes(T, D, K, elt) > _SMEM_MAX:
-        return (f"T={T}, K={K}, D={D} exceed one block's shared memory "
-                f"({_smem_bytes(T, D, K, elt)} > {_SMEM_MAX} bytes)")
+    if B > _MAX_ARTICLES:
+        return f"B={B} articles exceed the grid's {_MAX_ARTICLES}"
+    need = _smem_bytes(T, D, K, elt)
+    if need > _SMEM_MAX:
+        return (f"K={K}, D={D} exceed one block's shared memory "
+                f"({need} > {_SMEM_MAX} bytes)")
     return None
 
 
@@ -174,6 +273,61 @@ def _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage):
     return ctx, attn
 
 
+#: the backward kernel's shared memory: g_ctx, df, v, w_c and each of its
+#: 8 warps' three column sums, [4 + 24] x D floats, and 16 more
+_BWD_SMEM_FLOATS_PER_COLUMN, _BWD_SMEM_EXTRA = 28, 16
+
+
+def _attention_bwd_cuda(es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn,
+                        use_coverage):
+    """Launch the backward kernels; same contract as _attention_bwd_plain."""
+    global launches_bwd
+    _refuse_bwd_dtype(es)
+    dev = es.device
+    if dev.type != "cuda":
+        raise ValueError(f"the fused attention backward kernel needs CUDA "
+                         f"tensors, got {dev}")
+    if es.dim() != 3:
+        raise ValueError(f"es must be [B, T, D], got {tuple(es.shape)}")
+    B, T, D = es.shape
+    if B == 0 or T == 0 or D == 0 or B > _MAX_ARTICLES:
+        raise ValueError(f"the backward kernel does not take B={B}, T={T}, "
+                         f"D={D}")
+    if D % 4 or 4 * (_BWD_SMEM_FLOATS_PER_COLUMN * D + _BWD_SMEM_EXTRA) \
+            > _SMEM_MAX:
+        raise ValueError(f"D={D} must be a multiple of 4 whose column sums "
+                         f"fit in one block's shared memory")
+    for name, x, shape in (("es", es, (B, T, D)), ("ef", ef, (B, T, D)),
+                           ("mask", mask, (B, T)), ("df", df, (B, D)),
+                           ("cov", cov, (B, T)), ("v", v, (D,)),
+                           ("w_c", w_c, (D,)), ("attn", attn, (B, T)),
+                           ("g_ctx", g_ctx, (B, D)),
+                           ("g_attn", g_attn, (B, T))):
+        _check(name, x, shape, (torch.float32,), dev)
+        if x.data_ptr() % 16 and x.dim() == 3:
+            raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+    d_es, d_ef = torch.empty_like(es), torch.empty_like(ef)
+    d_df, d_cov = torch.empty_like(df), torch.empty_like(attn)
+    d_v, d_w_c = torch.empty_like(v), torch.empty_like(w_c)
+    part = torch.empty((2, B, D), device=dev, dtype=torch.float32)
+    lib = _load_bwd_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.ts_fused_attention_bwd(
+            es.data_ptr(), ef.data_ptr(), mask.data_ptr(), df.data_ptr(),
+            cov.data_ptr(), v.data_ptr(), w_c.data_ptr(), attn.data_ptr(),
+            g_ctx.data_ptr(), g_attn.data_ptr(), d_es.data_ptr(),
+            d_ef.data_ptr(), d_df.data_ptr(), d_cov.data_ptr(),
+            d_v.data_ptr(), d_w_c.data_ptr(), part.data_ptr(), B, T, D,
+            int(bool(use_coverage)), stream)
+    if err != 0:
+        raise RuntimeError(
+            "fused attention backward kernel launch failed: "
+            + lib.ts_fused_attention_bwd_error_string(err).decode())
+    launches_bwd += 1
+    return d_es, d_ef, d_df, d_cov, d_v, d_w_c
+
+
 def fused_attention_shared(es: torch.Tensor, ef: torch.Tensor,
                            mask: torch.Tensor, df: torch.Tensor,
                            cov: torch.Tensor, v: torch.Tensor,
@@ -189,13 +343,51 @@ def fused_attention_shared(es: torch.Tensor, ef: torch.Tensor,
     return _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage)
 
 
+def _attention_rows(es, ef, mask, df, cov, v, w_c, use_coverage):
+    """The per-row forward: df [B, D], cov [B, T] -> (ctx [B, D],
+    attn [B, T])."""
+    ctx, attn = fused_attention_shared(
+        es, ef, mask, df[:, None, :].contiguous(),
+        cov[:, None, :].contiguous(), v, w_c, use_coverage)
+    return ctx[:, 0], attn[:, 0]
+
+
+class FusedAttention(torch.autograd.Function):
+    """The per-row form with a kernel backward (the custom_vjp of
+    pallas_attention.fused_attention).  CPU tensors take the plain forward
+    and backward, CUDA tensors the kernels.  Saves its inputs and the
+    attn output (references, not copies)."""
+
+    @staticmethod
+    def forward(ctx, es, ef, mask, df, cov, v, w_c, use_coverage):
+        _refuse_bwd_dtype(es)
+        context, attn = _attention_rows(es, ef, mask, df, cov, v, w_c,
+                                        use_coverage)
+        ctx.save_for_backward(es, ef, mask, df, cov, v, w_c, attn)
+        ctx.use_coverage = use_coverage
+        return context, attn
+
+    @staticmethod
+    def backward(ctx, g_ctx, g_attn):
+        es, ef, mask, df, cov, v, w_c, attn = ctx.saved_tensors
+        bwd = (_attention_bwd_plain if es.device.type == "cpu"
+               else _attention_bwd_cuda)
+        d_es, d_ef, d_df, d_cov, d_v, d_w_c = bwd(
+            es, ef, mask, df, cov, v, w_c, attn, g_ctx.contiguous(),
+            g_attn.contiguous(), ctx.use_coverage)
+        return d_es, d_ef, None, d_df, d_cov, d_v, d_w_c, None
+
+
 def fused_attention(es: torch.Tensor, ef: torch.Tensor, mask: torch.Tensor,
                     df: torch.Tensor, cov: torch.Tensor, v: torch.Tensor,
                     w_c: torch.Tensor, use_coverage: bool,
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The per-row form (one query per row, pallas_attention.fused_attention):
-    df [B, D], cov [B, T] -> (ctx [B, D], attn [B, T])."""
-    ctx, attn = fused_attention_shared(
-        es, ef, mask, df[:, None, :].contiguous(),
-        cov[:, None, :].contiguous(), v, w_c, use_coverage)
-    return ctx[:, 0], attn[:, 0]
+    df [B, D], cov [B, T] -> (ctx [B, D], attn [B, T]).  Through the
+    autograd Function when a gradient is needed; under no grad (decode)
+    the forward alone."""
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (es, ef, df, cov, v, w_c)):
+        return FusedAttention.apply(es, ef, mask, df, cov, v, w_c,
+                                    use_coverage)
+    return _attention_rows(es, ef, mask, df, cov, v, w_c, use_coverage)

@@ -185,6 +185,19 @@ def _transformer_numpy_params(hps: HParams, vsize: int,
     }
 
 
+def add_coverage_params(params: Params, seed: int) -> Params:
+    """A copy of the pointer-generator ``params`` (leaves shared, dicts
+    new) with a fresh glorot ``decoder/attention/w_c`` for coverage
+    conversion (JAX pointer_generator.py:136-141;
+    run_summarization.py:157-178).  Drawn with numpy from ``seed``: the
+    law is the JAX package's, the bits cannot be jax.random's."""
+    new = tree_map(lambda x: x, params)
+    D = np.shape(new["decoder"]["attention"]["W_h"])[0]
+    new["decoder"]["attention"]["w_c"] = _glorot(np.random.default_rng(seed),
+                                                 (D,))
+    return new
+
+
 def init_params(hps: HParams, vsize: int, seed: int,
                 device: Any = "cpu") -> Params:
     """A fresh params tree on ``device`` (see init_numpy_params)."""
