@@ -23,9 +23,10 @@ device or without the port's sources beside it.  Phases, each fatal:
         and the training shape (K = 1); then long encoders whose
         per-position state lives in device memory (16 x 16 x 2000 and
         4 x 4 x 17,856 and 20,000 positions), with a bitwise repeat;
-     b. the fused attention's backward kernel at the training shape
-        (16 x 400 x 512, coverage on and off) and a long encoder (4 x
-        4096), against the plain backward, with a bitwise repeat;
+     b. the fused attention's backward kernel (one launch) at the
+        training shape (16 x 400 x 512, coverage on and off) and a long
+        encoder (4 x 4096), against the plain backward, with a bitwise
+        repeat and zero gradients for the empty article;
      c. the flash self-attention at the transformer encoder's shape
         (16 x 400 x 8 heads x hd 32) and the long-context shape
         (4 x 2048 x 8 x 128), causal on and off, a fully masked article
@@ -312,6 +313,29 @@ def attention_bwd_bound_ms(B, T, D, use_cov):
             nbytes, ops)
 
 
+def attention_bwd_args(fa, B, T, D, use_cov, seed):
+    """The backward's arguments at (B, T, D): attention_inputs at K = 1,
+    attn from the forward kernel of ``fa`` (the port's
+    ops.fused_attention) and gradients of the context and the weights
+    from seed + 1."""
+    import torch
+
+    es, ef, mask, df, cov, v, w_c = attention_inputs(B, 1, T, D,
+                                                     torch.float32, seed)
+    df, cov = df[:, 0].contiguous(), cov[:, 0].contiguous()
+    _, attn = fa._attention_rows(es, ef, mask, df, cov, v, w_c, use_cov)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    g_ctx = torch.randn(B, D, generator=g, device="cuda")
+    g_attn = torch.randn(B, T, generator=g, device="cuda")
+    return (es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn, use_cov)
+
+
+#: the backward's shapes (B, T, D, coverage): the training shape with
+#: coverage on and off, and a long encoder
+ATTENTION_BWD_CASES = [(16, 400, 512, True), (16, 400, 512, False),
+                       (4, 4096, 512, True)]
+
+
 def phase_attention_bwd(seed):
     """The backward kernel against the plain backward at the training
     shape (16 articles x 400 positions x 512, K = 1, ragged masks, article
@@ -324,16 +348,8 @@ def phase_attention_bwd(seed):
 
     flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
     worst, main = 0.0, {}
-    for (B, T, D, use_cov) in [(16, 400, 512, True), (16, 400, 512, False),
-                               (4, 4096, 512, True)]:
-        es, ef, mask, df, cov, v, w_c = attention_inputs(B, 1, T, D,
-                                                         torch.float32, seed)
-        df, cov = df[:, 0].contiguous(), cov[:, 0].contiguous()
-        _, attn = fa._attention_rows(es, ef, mask, df, cov, v, w_c, use_cov)
-        g = torch.Generator(device="cuda").manual_seed(seed + 1)
-        g_ctx = torch.randn(B, D, generator=g, device="cuda")
-        g_attn = torch.randn(B, T, generator=g, device="cuda")
-        args = (es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn, use_cov)
+    for (B, T, D, use_cov) in ATTENTION_BWD_CASES:
+        args = attention_bwd_args(fa, B, T, D, use_cov, seed)
         got = fa._attention_bwd_cuda(*args)
         again = fa._attention_bwd_cuda(*args)
         want = fa._attention_bwd_plain(*args)

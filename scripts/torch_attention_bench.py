@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""CUDA-event times of the port's fused additive attention kernel at
-chip_smoke.py's phase-3 shapes, for comparing two checkouts on one card.
+"""CUDA-event times of the port's fused additive attention kernel and
+its backward at chip_smoke.py's phase-3 shapes, for comparing two
+checkouts on one card.
 
     python3 scripts/torch_attention_bench.py [--seed N] [--iters N] [--tag T]
+        [--which forward|backward|both]
 
 Needs one CUDA card.  It times whichever package comes first on the
 import path: put another checkout on PYTHONPATH to time its kernel with
@@ -12,11 +14,15 @@ kernels.  Shapes (as in chip_smoke.py phase 3): 16 articles x 4 beams x
 T 400 x D 512 (the beam-decode shape), 4 x 1 x 4096 x 512 (the long
 form) and 16 x 1 x 400 x 512 (the pointer-generator's training shape),
 each in f32 and bf16, coverage on and off, with chip_smoke's
-inputs (ragged lengths, article 1 fully masked).  Each time is the
+inputs (ragged lengths, article 1 fully masked).  The backward
+(``_attention_bwd_cuda``, whose signature has not changed since it was
+ported) at chip_smoke's phase-3b shapes: 16 x 1 x 400 x 512 with
+coverage on and off, and 4 x 1 x 4096 x 512, with chip_smoke's
+attention_bwd_args and attention_bwd_bound_ms.  Each time is the
 median of --iters launches, each after a write of 96 MB (more than the L2
 cache), timed with CUDA events by this checkout's chip_smoke.time_cuda.
 Prints the card's name and power limit, the package's path, and one JSON
-line per (shape, dtype, coverage) with the time and the byte bound.
+line per (kernel, shape, dtype, coverage) with the time and the bound.
 """
 
 from __future__ import annotations
@@ -49,6 +55,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--which", choices=("forward", "backward", "both"),
+                    default="both")
     args = ap.parse_args(argv)
 
     import torch
@@ -64,6 +72,16 @@ def main(argv=None) -> int:
     print(chip_smoke.card_line())
     print(os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__))))
     flush = torch.empty(96 * 2**20 // 4, device="cuda")
+    if args.which != "backward":
+        _bench_forward(chip_smoke, fa, flush, args)
+    if args.which != "forward":
+        _bench_backward(chip_smoke, fa, flush, args)
+    return 0
+
+
+def _bench_forward(chip_smoke, fa, flush, args):
+    import torch
+
     for (B, K, T, D) in SHAPES:
         for dtype in (torch.float32, torch.bfloat16):
             for use_cov in (True, False):
@@ -80,7 +98,19 @@ def main(argv=None) -> int:
                     shape=f"{B}x{K}x{T}x{D}",
                     dtype=str(dtype).replace("torch.", ""),
                     coverage=use_cov, ms=ms, bound_ms=bound, bound_by=by)))
-    return 0
+
+
+def _bench_backward(chip_smoke, fa, flush, args):
+    for (B, T, D, use_cov) in chip_smoke.ATTENTION_BWD_CASES:
+        bwd_args = chip_smoke.attention_bwd_args(fa, B, T, D, use_cov,
+                                                 args.seed)
+        ms = chip_smoke.time_cuda(lambda: fa._attention_bwd_cuda(*bwd_args),
+                                  args.iters, flush)
+        bound, by, _, _ = chip_smoke.attention_bwd_bound_ms(B, T, D, use_cov)
+        print(json.dumps(dict(
+            tag=args.tag, kernel="fused_attention_bwd",
+            shape=f"{B}x1x{T}x{D}", dtype="float32", coverage=use_cov,
+            ms=ms, bound_ms=bound, bound_by=by)))
 
 
 if __name__ == "__main__":

@@ -204,6 +204,68 @@ def test_kernel_keeps_the_state_in_shared_memory_while_it_fits(B, K, T, D,
     assert fa._shape_refusal(es, torch.zeros(B, K, D)) is None
 
 
+def _bwd_args(B, T, D):
+    """The backward's ten tensors at (B, T, D), zeros broadcast from one
+    element (no memory for long shapes)."""
+    def zeros(*shape):
+        return torch.zeros((1,) * len(shape)).expand(*shape)
+
+    return (zeros(B, T, D), zeros(B, T, D), zeros(B, T), zeros(B, D),
+            zeros(B, T), zeros(D), zeros(D), zeros(B, T), zeros(B, D),
+            zeros(B, T))
+
+
+@pytest.mark.parametrize("B,T,D,match", [
+    (16, 400, 512, None),     # the pointer-generator's training shape
+    (4, 4096, 512, None),     # the long encoder
+    (2, 20000, 512, None),
+    (3, 65, 132, None),       # D not a multiple of 128
+    (2, 40, 2308, None),      # three column groups a thread, 3 chunks
+    (2, 40, 62, "multiple of 4"),
+    (65_536, 4, 8, "grid"),
+    (2, 40, 2312, "do not fit"),
+    (2, 40, 4096, "do not fit"),
+    (2, 0, 8, "empty"),
+])
+def test_backward_wrapper_refuses_shapes_before_the_device(B, T, D, match):
+    """The backward kernel's refusals come from the shapes alone, before
+    the device is looked at (so also here, on CPU tensors), and nothing
+    is launched.  ``match`` None: a shape the kernel takes, refused only
+    for its device."""
+    before = fa.launches_bwd
+    args = _bwd_args(B, T, D)
+    assert (fa._bwd_shape_refusal(args[0]) is None) == (match is None)
+    with pytest.raises(ValueError, match=match or "CUDA"):
+        fa._attention_bwd_cuda(*args, True)
+    assert fa.launches_bwd == before
+
+
+@pytest.mark.parametrize("D", [4, 128, 132, 516, 1024, 1028, 2048, 2052,
+                               2072])
+def test_backward_takes_every_width_it_took_before(D):
+    """Every D the first backward kernel took (a multiple of 4 whose 28
+    columns of sums fit in shared memory: up to 2,072) is still taken,
+    within one block's shared memory."""
+    assert fa._bwd_shape_refusal(torch.zeros(1, 1, 1).expand(2, 40, D)) \
+        is None
+    assert fa._bwd_smem_bytes(D) <= fa._SMEM_MAX
+
+
+def test_backward_scratch_is_kept_per_stream_and_grown():
+    """The backward's scratch (its ticket and partials) is one zeroed
+    buffer per (device, stream), replaced by a larger zeroed one when a
+    shape needs more."""
+    cpu = torch.device("cpu")
+    first = fa._bwd_scratch(cpu, 12345, 20)
+    assert fa._bwd_scratch(cpu, 12345, 8) is first
+    assert fa._bwd_scratch(cpu, 54321, 8) is not first
+    grown = fa._bwd_scratch(cpu, 12345, 40)
+    assert grown.numel() == 40 and not grown.any()
+    assert fa._bwd_scratch(cpu, 12345, 20) is grown
+    for key in ((None, 12345), (None, 54321)):
+        fa._bwd_scratch_cache.pop(key)
+
+
 @pytest.mark.parametrize("use_cov", [False, True])
 def test_attend_shared_matches_jax(use_cov):
     jhps, thps = make_hps(coverage=use_cov)

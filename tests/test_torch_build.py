@@ -56,3 +56,40 @@ def test_package_sources_hash_their_headers():
         with open(src, encoding="utf-8") as f:
             assert '#include "mma_tf32x3.cuh"' in f.read()
         assert lib.startswith(build.BUILD_DIR) and log.endswith(".log")
+
+
+def test_tma_header_renames_both_fused_attention_libraries(tmp_path,
+                                                           monkeypatch):
+    """The fused attention's forward and backward include the TMA ring's
+    helpers from kernels/tma_ring.cuh: an edit there renames both
+    libraries, so neither loads a build of the old helpers."""
+    import shutil
+
+    for path in os.listdir(build.KERNEL_DIR):
+        if path.endswith((".cu", ".cuh")):
+            shutil.copy(os.path.join(build.KERNEL_DIR, path), tmp_path)
+    monkeypatch.setattr(build, "KERNEL_DIR", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    names = ("fused_attention", "fused_attention_bwd")
+    for name in names:
+        with open(tmp_path / f"{name}.cu", encoding="utf-8") as f:
+            assert '#include "tma_ring.cuh"' in f.read()
+    before = {name: _lib_name(name) for name in names}
+    header = tmp_path / "tma_ring.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    assert all(_lib_name(name) != before[name] for name in names)
+
+
+@pytest.mark.parametrize("defines", [("-DTRACE",), ("-DTRACE", "-DN=2"),
+                                     ("-DN=2",)])
+def test_defines_rename_the_library(kernel_dir, defines):
+    """A build with extra defines (scripts/torch_bwd_phases.py's traced
+    build of the backward) is a library of its own, and leaves the plain
+    build's name as it was."""
+    plain = _lib_name()
+    named = os.path.basename(build._paths("k", defines)[1])
+    assert named != plain and named.startswith("libk_")
+    assert os.path.basename(build._paths("k", ())[1]) == plain
+    others = {("-DTRACE",), ("-DTRACE", "-DN=2"), ("-DN=2",)} - {defines}
+    assert all(os.path.basename(build._paths("k", d)[1]) != named
+               for d in others)

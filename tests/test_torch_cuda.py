@@ -32,7 +32,8 @@ def _inputs(B, K, T, D, dtype, seed=0):
     rng = np.random.RandomState(seed)
     lens = rng.randint(T // 2, T + 1, B)
     mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
-    mask[1] = 0.0  # an empty article
+    if B > 1:
+        mask[1] = 0.0  # an empty article
     arrs = [rng.randn(B, T, D), rng.randn(B, T, D), mask,
             rng.randn(B, K, D), np.abs(rng.randn(B, K, T)) * mask[:, None],
             rng.randn(D) * 0.1, rng.randn(D) * 0.1]
@@ -394,10 +395,16 @@ def test_fused_attention_takes_long_encoders_on_card(B, K, T, D, dtype):
 
 def _bwd_inputs(B, T, D, seed=0):
     """The backward's inputs: the per-row forward's (article 1 empty), its
-    attn output from the kernel, and the cotangents."""
+    attn output (from the forward kernel where it takes the width, else
+    from the plain forward), and the cotangents."""
     es, ef, mask, df, cov, v, w_c = _inputs(B, 1, T, D, torch.float32, seed)
-    df, cov = df[:, 0].contiguous(), cov[:, 0].contiguous()
-    _, attn = fa._attention_rows(es, ef, mask, df, cov, v, w_c, True)
+    if fa._shape_refusal(es, df) is None:
+        df, cov = df[:, 0].contiguous(), cov[:, 0].contiguous()
+        _, attn = fa._attention_rows(es, ef, mask, df, cov, v, w_c, True)
+    else:
+        _, attn = fa._attention_plain(es, ef, mask, df, cov, v, w_c, True)
+        df, cov, attn = df[:, 0].contiguous(), cov[:, 0].contiguous(), \
+            attn[:, 0].contiguous()
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
     g_ctx = torch.randn(B, D, generator=g, device="cuda")
     g_attn = torch.randn(B, T, generator=g, device="cuda")
@@ -416,12 +423,19 @@ def _close_scaled(got, want):
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,D", [(3, 1, 32), (2, 7, 64), (3, 65, 96),
                                    (5, 129, 128), (16, 400, 512),
-                                   (2, 4096, 512), (2, 20000, 512)])
+                                   (2, 4096, 512), (2, 20000, 512),
+                                   (2, 5, 64), (3, 300, 132), (2, 333, 516),
+                                   (2, 50, 1028), (2, 60, 2308),
+                                   (1, 400, 512), (4, 4096, 512),
+                                   (40, 400, 512)])
 @pytest.mark.parametrize("use_cov", [False, True])
 def test_fused_attention_backward_matches_plain_on_card(B, T, D, use_cov):
-    """Ragged T (one position, the 8-warp and cluster edges, the training
-    shape, long encoders), coverage on and off, article 1 empty: zero
-    gradients, d_cov and d_w_c zero without coverage; one launch."""
+    """Ragged T (one position, fewer than a ring chunk's 8 rows, the
+    cluster edges, the training shape, long encoders), D not a multiple
+    of 128 and past 1,024 (two and three column groups a thread), one and
+    four articles (wide clusters), 40 (more clusters than fit at once),
+    coverage on and off, article 1 empty: zero gradients, d_cov and d_w_c
+    zero without coverage; one launch."""
     _need_cuda()
     args = _bwd_inputs(B, T, D, seed=T)
     before = fa.launches_bwd
@@ -437,16 +451,63 @@ def test_fused_attention_backward_matches_plain_on_card(B, T, D, use_cov):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,T", [(16, 400), (4, 4096)])
 @pytest.mark.parametrize("use_cov", [False, True])
-def test_fused_attention_backward_repeats_its_bits_on_card(use_cov):
+def test_fused_attention_backward_repeats_its_bits_on_card(B, T, use_cov):
     """No float atomics: two launches on the same inputs give the same
-    bits, d_v and d_w_c (sums over articles and positions) included."""
+    bits, d_v and d_w_c (sums over articles and positions, the last
+    cluster's) included, at the training shape and a long encoder."""
     _need_cuda()
-    args = _bwd_inputs(16, 400, 512)
+    args = _bwd_inputs(B, T, 512)
     first = fa._attention_bwd_cuda(*args, use_cov)
     second = fa._attention_bwd_cuda(*args, use_cov)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2304, 2308, 2312, 3072, 3076])
+def test_fused_attention_backward_refusal_matches_the_kernel_on_card(D):
+    """_bwd_shape_refusal mirrors the kernel's sizes: the C entry point
+    launches exactly the widths the wrapper takes and returns
+    cudaErrorInvalidValue (1) for the others, before it touches memory."""
+    _need_cuda()
+    B, T = 2, 20
+    args = _bwd_inputs(B, T, D)
+    refused = fa._bwd_shape_refusal(args[0]) is not None
+    outs = [torch.empty_like(x) for x in (args[0], args[1], args[3],
+                                          args[7], args[5], args[6])]
+    stream = torch.cuda.current_stream()
+    part = fa._bwd_scratch(args[0].device, stream.cuda_stream,
+                           fa._BWD_TICKET_FLOATS + 2 * B * D)
+    err = fa._load_bwd_library().ts_fused_attention_bwd(
+        *(x.data_ptr() for x in args), *(x.data_ptr() for x in outs),
+        part.data_ptr(), B, T, D, 1, stream.cuda_stream)
+    torch.cuda.synchronize()
+    assert err == (1 if refused else 0)
+    if not refused:
+        _close_scaled(outs, fa._attention_bwd_plain(*args, True))
+
+
+@pytest.mark.cuda
+def test_fused_attention_backward_leaves_its_ticket_zero_on_card():
+    """The one-launch backward learns which cluster ends last from an
+    unsigned ticket at the start of its per-stream scratch: every launch,
+    at any article count and on any stream, sets it back to 0, so the
+    next launch on that scratch computes d_v and d_w_c."""
+    _need_cuda()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    side = torch.cuda.Stream()
+    for stream in (torch.cuda.current_stream(), side):
+        with torch.cuda.stream(stream):
+            for B, T, D in ((1, 300, 512), (16, 400, 512), (40, 60, 132),
+                            (4, 4096, 512), (16, 400, 512)):
+                args = _bwd_inputs(B, T, D, seed=B)
+                got = fa._attention_bwd_cuda(*args, True)
+                stream.synchronize()
+                part = fa._bwd_scratch(dev, stream.cuda_stream, 4)
+                assert int(part[:1].view(torch.int32)) == 0
+                _close_scaled(got, fa._attention_bwd_plain(*args, True))
 
 
 @pytest.mark.cuda

@@ -4,7 +4,8 @@ Each ``kernels/<name>.cu`` has a plain C interface and compiles alone
 into ``kernels/_build/lib<name>_<hash>.so`` (the directory is git-
 ignored).  The hash covers the source, every header ``kernels/*.cuh``
 (the 3xTF32 tensor-core helpers of ``mma_tf32x3.cuh``) and the nvcc
-flags, so an edited source or header never loads a stale build.  ``build_all`` starts one nvcc per source at
+flags, extra defines included, so an edited source or header never loads
+a stale build.  ``build_all`` starts one nvcc per source at
 once and waits for all of them.  Kernels are built at first use, never at
 import: a machine without nvcc imports the package and runs the plain
 PyTorch versions on the CPU.
@@ -44,32 +45,34 @@ def nvcc_path() -> str:
     return found
 
 
-def _paths(name: str):
+def _paths(name: str, defines: Sequence[str] = ()):
     src = os.path.join(KERNEL_DIR, name + ".cu")
     h = hashlib.sha256()
     for path in [src, *sorted(glob.glob(os.path.join(KERNEL_DIR, "*.cuh")))]:
         h.update(os.path.basename(path).encode() + b"\0")
         with open(path, "rb") as f:
             h.update(f.read())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join((*NVCC_FLAGS, *defines)).encode())
     digest = h.hexdigest()[:12]
     stem = os.path.join(BUILD_DIR, f"lib{name}_{digest}")
     return src, stem + ".so", stem + ".log"
 
 
-def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
+def build_all(names: Sequence[str] = SOURCES,
+              defines: Sequence[str] = ()) -> Dict[str, str]:
     """{name: path of its .so}, compiling the ones not built yet, all
-    nvcc processes at once."""
+    nvcc processes at once; ``defines`` (e.g. ``-DTS_BWD_TRACE``) are
+    passed to every nvcc."""
     os.makedirs(BUILD_DIR, exist_ok=True)
     out: Dict[str, str] = {}
     procs: List = []
     for name in names:
-        src, lib, log_path = _paths(name)
+        src, lib, log_path = _paths(name, defines)
         out[name] = lib
         if os.path.exists(lib):
             continue
         tmp = f"{lib}.tmp{os.getpid()}"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src]
+        cmd = [nvcc_path(), *NVCC_FLAGS, *defines, "-o", tmp, src]
         log_f = open(log_path, "w", encoding="utf-8")
         procs.append((name, tmp, lib, log_path, log_f,
                       subprocess.Popen(cmd, stdout=log_f,
@@ -87,8 +90,8 @@ def build_all(names: Sequence[str] = SOURCES) -> Dict[str, str]:
     return out
 
 
-def build(name: str) -> str:
-    return build_all([name])[name]
+def build(name: str, defines: Sequence[str] = ()) -> str:
+    return build_all([name], defines)[name]
 
 
 def build_log(name: str) -> str:

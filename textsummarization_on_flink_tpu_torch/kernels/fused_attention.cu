@@ -64,6 +64,7 @@
 #include <stdint.h>
 
 #include "mma_tf32x3.cuh"  // cp.async and allow_smem
+#include "tma_ring.cuh"    // the ring's mbarriers and bulk copies
 
 namespace cg = cooperative_groups;
 
@@ -107,58 +108,11 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
                      __uint_as_float(u & 0xffff0000u));
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 4 bytes global -> shared (cp.async; committed with the 16-byte ones)
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   smem_addr(dst)),
-               "l"(src)
-               : "memory");
-}
-
-// an mbarrier that one arrival (with its transaction bytes) completes
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared.b64 [%0], 1;" ::"r"(smem_addr(bar))
-               : "memory");
-}
-
-// make the initialised mbarriers visible to the copy engine
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// bytes global -> shared by the TMA unit (cp.async.bulk), completing on
-// `bar`: one thread arrives on it with the byte count, then issues the
-// copy (16-byte aligned ends, a multiple of 16 bytes)
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared.b64 _, [%0], %1;" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// wait for the phase of `bar` with this parity to complete
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  }
-}
+using tma::bulk_load;
+using tma::mbar_fence_init;
+using tma::mbar_init;
+using tma::mbar_wait;
+using tf32x3::cp_async4;
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll

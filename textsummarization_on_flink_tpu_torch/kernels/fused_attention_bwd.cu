@@ -20,28 +20,60 @@
 //
 // What bounds it on an H100: memory.  es and ef are read once and d_es
 // and d_ef written once, 4 * B*T*D*4 bytes: at the training shape (16
-// articles, T=400, D=512, f32) 52.4 MB, 15.6 us at 3.35 TB/s; the
-// B*T*D = 3.3 M tanh recomputed are far below that.  The design, a
-// simple one:
+// articles, T=400, D=512, f32) 52.4 MB, 15.6 us at 3.35 TB/s.  The
+// B*T*D = 3.3 M accurate tanhf cost ~44 SASS instructions an element
+// with the rest of the row's work, ~4 us of issue over the card.  The
+// design keeps bytes in flight on every SM and puts the work where the
+// memory is idle:
 //
-//   * one thread block cluster per article (up to 8 blocks, the portable
-//     size), block r owning a contiguous range of positions; a warp takes
-//     one position at a time, its lanes float4 groups of columns;
-//   * pass one reads the block's es rows, forms ga (kept in the d_cov
-//     output, which pass two overwrites) and the block's share of
-//     sum attn * ga; the cluster adds the shares through distributed
-//     shared memory in rank order;
-//   * pass two reads the ef rows, recomputes u and writes d_ef, d_es and
-//     d_cov; each warp accumulates its d_df, d_v and d_w_c columns in its
-//     own slice of shared memory, the block adds its warps in order and
-//     the cluster its blocks in rank order: d_df per article, and per
-//     article partials of d_v and d_w_c;
-//   * a second small kernel adds the partials over the articles in order.
+//   * one thread block cluster per article: 8 blocks (the portable size),
+//     or 16 when the articles are few enough that their clusters take at
+//     most half the SMs; block r owns a contiguous range of positions,
+//     so its rows are contiguous in memory;
+//   * each block streams its es rows (pass one), then its ef rows (pass
+//     two), through a ring of chunks of 8 rows in shared memory, each
+//     chunk one TMA bulk copy (cp.async.bulk on an mbarrier) issued by
+//     one thread: 6 chunks of 16 KB at D 512 (96 KB), so ~80 KB are in
+//     flight per SM from the start (Little's law asks ~20 KB per SM for
+//     3.35 TB/s at ~0.8 us) and the first ef chunks land while the
+//     cluster adds up pass one.  96 KB lets two blocks share an SM: 16
+//     clusters of 8 blocks do not all fit on the H100's GPCs at one block
+//     per SM, and a second wave doubled the time (PERF.md);
+//   * the rows' scalars (attn, g_attn; then attn, ga, mask, cov) come 4
+//     chunks ahead by cp.async into a small ring of their own, so no warp
+//     waits on a scalar load in a row's chain;
+//   * pass one: warp w takes row w of a chunk, forms ga = g_attn + es .
+//     g_ctx (g_ctx in shared memory), keeps it in the d_cov output (pass
+//     two overwrites it) and adds attn * ga to its share of the article's
+//     sum S.  It reads es and the prefetched ef at the memory's rate;
+//   * the cluster adds the blocks' shares in rank order (distributed
+//     shared memory): S;
+//   * pass two: a thread owns fixed float4 groups of columns (column group
+//     k of rows l, l + kL, ... of each chunk: at D 512 two lanes of rows,
+//     128 threads each) and takes its rows 4 at a time with no branch
+//     between them, so their tanh chains overlap.  df, v, w_c and g_ctx of
+//     its columns and its d_df, d_v and d_w_c sums stay in registers
+//     across all its rows: the sums touch shared memory once, at the end.
+//     It writes the rows of d_ef and of d_es (attn g_ctx needs no S, but
+//     pass one is at the memory's rate already and pass two's tanh leaves
+//     it idle: writing d_es here measured 1-3 us faster).  kG, the groups
+//     a thread owns (1 up to D 1024, then 2, 3), and kL, the lanes of
+//     rows, are the template's counts: every D the wrapper takes runs this
+//     one kernel, with idle threads where D/4 does not fill a lane.
+//     d_cov[t] is a warp sum per row, added over the row's warps in order;
+//   * at the end the block adds its lanes of rows in order, the cluster
+//     its blocks in rank order (d_df per article, per-article partials of
+//     d_v and d_w_c in `part`), and the last cluster to finish adds the
+//     partials over the articles in order.  It learns that it is last
+//     from an unsigned ticket in `part` (atomicAdd between __threadfence
+//     calls; an integer atomic changes no float bits) and sets it back to
+//     0: one launch.
 //
 // Nothing is kept per position in shared memory, so every T is taken.  No
 // float atomics: every sum has a fixed order, and two launches on the
-// same inputs give the same bits.  Accurate tanhf (the energies'
-// tanh is recomputed, not read back).
+// same inputs give the same bits.  Accurate tanhf (the energies' tanh is
+// recomputed, not read back).  ops/fused_attention.py mirrors the sizes
+// below in its shape refusal (_bwd_shape_refusal).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see kernels/build.py).  C entry point bound with
@@ -51,7 +83,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mma_tf32x3.cuh"  // allow_smem
+#include "mma_tf32x3.cuh"  // cp.async and allow_smem
+#include "tma_ring.cuh"    // the ring's mbarriers and bulk copies
 
 namespace cg = cooperative_groups;
 
@@ -59,9 +92,61 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCluster = 8;  // blocks per article at most (portable size)
+constexpr int kChunk = 8;  // rows per ring stage: one per warp in pass one
+constexpr int kCluster = 8;  // blocks per article (the portable size)
+constexpr int kWideCluster = 16;  // for few articles (non-portable size)
+// the ring: as many chunks as fit in kRingBytes, within these bounds
+constexpr int kMinStages = 3, kMaxStages = 12;
+constexpr size_t kRingBytes = 96 * 1024;
+constexpr int kAhead = 4;  // chunks whose row scalars are in flight
+constexpr int kSlots = kAhead + 1;  // the scalars' ring
+constexpr int kMaxGroups = 3;  // column groups a thread owns (D <= 3072)
 constexpr size_t kSmemMax = 232448;  // bytes a block may use on Hopper
-constexpr int kSmall = 16;  // floats for the block's scalars
+// floats before the ring: its mbarriers (8 bytes each), 16-byte aligned
+constexpr int kBarFloats = 2 * kMaxStages;
+constexpr int kSmall = kWarps + 16;  // floats for the block's scalars
+// part: the ticket (an unsigned in the first 16 bytes), then [2, B, D]
+constexpr int kTicketFloats = 4;
+
+static_assert(kBarFloats % 4 == 0, "the ring is 16-byte aligned");
+static_assert(kChunk * 4 == 32 && kChunk <= kWarps,
+              "warp 0 loads a chunk's scalars, a warp takes a row");
+
+// Built with -DTS_BWD_TRACE (scripts/torch_bwd_phases.py), thread 0 of
+// each block records when it reaches each phase: the global timer at the
+// start and at its last mark, its SM clock at the start and the clocks
+// since then at marks 1-8, and its SM.  Off by default: the marks
+// compile to nothing.
+#ifdef TS_BWD_TRACE
+constexpr int kTraceBlocks = 4096, kTraceSlots = 12;
+__device__ unsigned long long g_trace[kTraceBlocks * kTraceSlots];
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+#define TS_MARK(k)                                                        \
+  do {                                                                    \
+    const int blk_ = blockIdx.y * gridDim.x + blockIdx.x;                 \
+    if (threadIdx.x == 0 && blk_ < kTraceBlocks) {                        \
+      unsigned long long* t_ = g_trace + blk_ * kTraceSlots;              \
+      if ((k) == 0) {                                                     \
+        unsigned sm_;                                                     \
+        asm volatile("mov.u32 %0, %%smid;" : "=r"(sm_));                  \
+        t_[0] = global_ns();                                              \
+        t_[2] = clock64();                                                \
+        t_[11] = sm_;                                                     \
+      } else {                                                            \
+        t_[1] = global_ns();                                              \
+        t_[(k) + 2] = clock64() - t_[2];                                  \
+      }                                                                   \
+    }                                                                     \
+  } while (0)
+#else
+#define TS_MARK(k) \
+  do {             \
+  } while (0)
+#endif
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -73,69 +158,38 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;  // the same bits in every lane (a butterfly of pairwise adds)
 }
 
-// Dynamic shared memory, in floats: g_ctx, df, v and w_c [D], then per
-// warp its d_df, d_v and d_w_c columns [3][D], then the block's scalars.
-inline size_t smem_floats(int D) {
-  return (size_t)(4 + 3 * kWarps) * D + kSmall;
+// chunks in the ring at width D
+inline int ring_stages(int D) {
+  const int fit = (int)(kRingBytes / ((size_t)kChunk * D * sizeof(float)));
+  return fit < kMinStages ? kMinStages : fit > kMaxStages ? kMaxStages : fit;
 }
 
-// blocks per article and positions per block
+// Dynamic shared memory, in floats: the mbarriers, the ring, g_ctx [D],
+// the scalars' ring [kSlots][kChunk][4], the d_cov warp sums
+// [2][kChunk][kWarps] and the block's scalars.  The column sums reuse
+// the ring at the end.
+inline size_t smem_floats(int D, int stages) {
+  return kBarFloats + (size_t)stages * kChunk * D + D + kSlots * kChunk * 4 +
+         2 * kChunk * kWarps + kSmall;
+}
+
+// C blocks of P positions (a multiple of kChunk) per article, at most
+// max_c, none of them empty
 struct Geometry {
   int C, P;
-  explicit Geometry(int T) {
-    const int need = (T + kWarps - 1) / kWarps;  // a position per warp
-    C = need < kCluster ? need : kCluster;
-    P = (T + C - 1) / C;
+  Geometry(int T, int max_c) {
+    const int chunks = (T + kChunk - 1) / kChunk;
+    const int c0 = chunks < max_c ? chunks : max_c;
+    P = ((T + c0 - 1) / c0 + kChunk - 1) / kChunk * kChunk;
+    C = (T + P - 1) / P;
   }
 };
 
-// one position's column group c (4 columns) of pass two
-template <bool kCov>
-__device__ __forceinline__ void pass_two_group(
-    const float* ef_row, float* d_ef_row, float* d_es_row, const float* g_s,
-    const float* df_s, const float* v_s, const float* wc_s, float* acc,
-    int D, int c, float a, float de, float cv, float& dcov) {
-  const float4 x = load4(ef_row + 4 * c);
-  const float4 d = load4(df_s + 4 * c);
-  const float4 vv = load4(v_s + 4 * c);
-  const float4 w = load4(wc_s + 4 * c);
-  const float4 g = load4(g_s + 4 * c);
-  const float xs[4] = {x.x, x.y, x.z, x.w}, ds[4] = {d.x, d.y, d.z, d.w};
-  const float vs[4] = {vv.x, vv.y, vv.z, vv.w}, ws[4] = {w.x, w.y, w.z, w.w};
-  float df_[4], u_[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    float f = xs[j] + ds[j];
-    if (kCov) f = fmaf(cv, ws[j], f);
-    const float u = tanhf(f);
-    u_[j] = u;
-    df_[j] = de * vs[j] * fmaf(-u, u, 1.f);
-    if (kCov) dcov = fmaf(df_[j], ws[j], dcov);
-  }
-  *reinterpret_cast<float4*>(d_ef_row + 4 * c) =
-      make_float4(df_[0], df_[1], df_[2], df_[3]);
-  *reinterpret_cast<float4*>(d_es_row + 4 * c) =
-      make_float4(a * g.x, a * g.y, a * g.z, a * g.w);
-  float4* a_df = reinterpret_cast<float4*>(acc + 4 * c);
-  float4* a_v = reinterpret_cast<float4*>(acc + D + 4 * c);
-  float4* a_wc = reinterpret_cast<float4*>(acc + 2 * D + 4 * c);
-  float4 o = *a_df;
-  *a_df = make_float4(o.x + df_[0], o.y + df_[1], o.z + df_[2],
-                      o.w + df_[3]);
-  o = *a_v;
-  *a_v = make_float4(fmaf(de, u_[0], o.x), fmaf(de, u_[1], o.y),
-                     fmaf(de, u_[2], o.z), fmaf(de, u_[3], o.w));
-  if (kCov) {
-    o = *a_wc;
-    *a_wc = make_float4(fmaf(df_[0], cv, o.x), fmaf(df_[1], cv, o.y),
-                        fmaf(df_[2], cv, o.z), fmaf(df_[3], cv, o.w));
-  }
-}
-
-// grid (C, B) in clusters of (C, 1, 1); smem_floats(D) * 4 bytes.
-// part: [2, B, D] per-article partials of d_v and d_w_c.
-template <bool kCov>
-__global__ void __launch_bounds__(kThreads)
+// grid (C, B) in clusters of (C, 1, 1); smem_floats(D, stages) * 4 bytes.
+// Pass two: kG float4 column groups a thread owns, in kL lanes of rows
+// (kG > 1 only with kL == 1).
+template <bool kCov, int kG, int kL>
+__global__ void __launch_bounds__(kThreads, kG == 1 ? 2 : 1)  // blocks per SM
 attention_bwd_kernel(const float* __restrict__ es,
                      const float* __restrict__ ef,
                      const float* __restrict__ mask,
@@ -145,149 +199,381 @@ attention_bwd_kernel(const float* __restrict__ es,
                      const float* __restrict__ wc,
                      const float* __restrict__ attn,
                      const float* __restrict__ g_ctx,
-                     const float* __restrict__ g_attn, float* d_es,
-                     float* d_ef, float* d_df, float* d_cov, float* part,
-                     int B, int T, int D, int P) {
+                     const float* __restrict__ g_attn,
+                     float* __restrict__ d_es, float* __restrict__ d_ef,
+                     float* __restrict__ d_df, float* d_cov, float* d_v,
+                     float* d_wc, float* part, int B, int T, int D, int P,
+                     int stages) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int n4 = D / 4;  // float4 groups of a row
+  const int chunk_floats = kChunk * D;
 
+  TS_MARK(0);
   extern __shared__ __align__(16) float smem[];
-  float* g_s = smem;          // [D] g_ctx of the article
-  float* df_s = g_s + D;      // [D]
-  float* v_s = df_s + D;      // [D]
-  float* wc_s = v_s + D;      // [D]
-  float* acc_s = wc_s + D;    // [kWarps][3][D]: d_df, d_v, d_w_c columns
-  float* small = acc_s + 3 * kWarps * D;
-  float* wsum_s = small;      // [kWarps] each warp's sum of attn * ga
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [stages]
+  float* ring = smem + kBarFloats;            // [stages][kChunk][D]
+  float* g_s = ring + stages * chunk_floats;  // [D] g_ctx of the article
+  float* sc_s = g_s + D;                      // [kSlots][kChunk][4]
+  float* dc_s = sc_s + kSlots * kChunk * 4;   // [2][kChunk][kWarps]
+  float* small = dc_s + 2 * kChunk * kWarps;
+  float* wsum_s = small;           // [kWarps] each warp's sum of attn * ga
   float* bsum_s = small + kWarps;  // [1] the block's
-  float* s_s = bsum_s + 1;         // [1] the article's
+  float* s_s = bsum_s + 1;         // [1] the article's: S
+  float* last_s = s_s + 1;         // [1] 1 in the cluster that ends last
 
   const int t_begin = rank * P;
   const int n_pos = max(0, min(T, t_begin + P) - t_begin);
+  const int n_chunks = (n_pos + kChunk - 1) / kChunk;
+  const int n_total = 2 * n_chunks;  // es chunks, then ef chunks
   const size_t row0 = (size_t)b * T + t_begin;  // the block's first row
-  for (int i = tid; i < D; i += kThreads) {
-    g_s[i] = g_ctx[(size_t)b * D + i];
-    df_s[i] = df[(size_t)b * D + i];
-    v_s[i] = v[i];
-    wc_s[i] = wc[i];
-  }
-  for (int i = tid; i < 3 * kWarps * D; i += kThreads) acc_s[i] = 0.f;
-  __syncthreads();
 
-  // pass one: ga = g_attn + es . g_ctx (kept in d_cov), the block's share
-  // of sum attn * ga
-  float wpart = 0.f;
-  for (int tl = warp; tl < n_pos; tl += kWarps) {
-    const float* row = es + (row0 + tl) * D;
-    float dot = 0.f;
-    for (int c = lane; c < D / 4; c += 32) {
-      const float4 x = load4(row + 4 * c);
-      const float4 g = load4(g_s + 4 * c);
-      dot = fmaf(x.x, g.x, dot);
-      dot = fmaf(x.y, g.y, dot);
-      dot = fmaf(x.z, g.z, dot);
-      dot = fmaf(x.w, g.w, dot);
+  // chunk i of the ring's sequence: its first local position, its rows
+  auto chunk_pos = [&](int i) {
+    return (i < n_chunks ? i : i - n_chunks) * kChunk;
+  };
+  auto stage = [&](int i) {
+    if (tid == 0 && i < n_total) {
+      const int c0 = chunk_pos(i);
+      const unsigned bytes =
+          (unsigned)(min(kChunk, n_pos - c0) * D * (int)sizeof(float));
+      tma::bulk_load(ring + (i % stages) * chunk_floats,
+                     (i < n_chunks ? es : ef) + (row0 + c0) * D, bytes,
+                     &bars[i % stages]);
     }
-    const float ga = g_attn[row0 + tl] + warp_sum(dot);
-    wpart = fmaf(attn[row0 + tl], ga, wpart);
-    if (lane == 0) d_cov[row0 + tl] = ga;
+  };
+  // the row scalars of chunk j into its slot, by warp 0 (a lane per row
+  // and field): pass one attn, g_attn; pass two attn, ga (kept in d_cov),
+  // mask, cov.  Pass two's are issued only once pass one has written ga.
+  bool ga_written = false;
+  auto load_scalars = [&](int j) {
+    if (warp != 0 || j >= n_total || (j >= n_chunks && !ga_written)) return;
+    const bool one = j < n_chunks;
+    const int r = lane >> 2, f = lane & 3;
+    const int tl = chunk_pos(j) + r;
+    if (tl >= n_pos || (one && f >= 2) || (!kCov && f == 3)) return;
+    const size_t i = row0 + tl;
+    const float* src = f == 0 ? attn + i
+                       : one  ? g_attn + i
+                       : f == 1 ? d_cov + i
+                       : f == 2 ? mask + i
+                                : cov + i;
+    tf32x3::cp_async4(sc_s + ((j % kSlots) * kChunk + r) * 4 + f, src);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) tma::mbar_init(&bars[s]);
+    tma::mbar_fence_init();
   }
+  // g_ctx with chunk 0's scalars: the first cp.async group; then one
+  // group per chunk, in the ring's order (empty where nothing is issued)
+  for (int c = tid; c < n4; c += kThreads)
+    tf32x3::cp_async16(g_s + 4 * c, g_ctx + (size_t)b * D + 4 * c, 16);
+  for (int j = 0; j < kAhead; ++j) {
+    load_scalars(j);
+    tf32x3::cp_async_commit();
+  }
+  __syncthreads();  // the mbarriers are initialised
+  for (int i = 0; i < stages - 1; ++i) stage(i);
+
+  // pass two's columns: kL lanes of rows of W threads each; thread k of
+  // lane l takes rows l, l + kL, ... of a chunk and column groups
+  // k + W * g (those past D / 4 idle)
+  constexpr int W = kThreads / kL;
+  const int l = tid / W, k = tid % W, wl = k / 32;  // wl: warp in the lane
+  float4 dfr[kG], vr[kG], wr[kG], gr[kG];  // df, v, w_c, g_ctx columns
+  float4 s_df[kG], s_v[kG], s_wc[kG];  // its sums of d_f, d_e u, d_f cov
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    const int c = k + W * g;
+    const bool ok = c < n4;
+    dfr[g] = ok ? load4(df + (size_t)b * D + 4 * c) : zero4;
+    vr[g] = ok ? load4(v + 4 * c) : zero4;
+    wr[g] = ok ? load4(wc + 4 * c) : zero4;
+    gr[g] = ok ? load4(g_ctx + (size_t)b * D + 4 * c) : zero4;
+    s_df[g] = s_v[g] = s_wc[g] = zero4;
+  }
+
+  // the top of chunk i: it and its scalars have landed for every thread,
+  // and every thread is done with chunk i - 1, whose stage and scalar
+  // slot are refilled
+  auto next_chunk = [&](int i) {
+    tma::mbar_wait(&bars[i % stages], (unsigned)(i / stages) & 1u);
+    tf32x3::cp_async_wait<kAhead - 1>();
+    __syncthreads();
+    stage(i + stages - 1);
+    load_scalars(i + kAhead);
+    tf32x3::cp_async_commit();
+  };
+  // d_cov of pass-two chunk i: its rows' warp sums, in order
+  auto finish_cov = [&](int i) {
+    const int c0 = chunk_pos(i);
+    if (tid < min(kChunk, n_pos - c0)) {
+      float s = 0.f;
+      if (kCov) {
+        const float* dc = dc_s + ((i & 1) * kChunk + tid) * kWarps;
+        for (int q = 0; q < W / 32; ++q) s += dc[q];
+      }
+      d_cov[row0 + c0 + tid] = s;
+    }
+  };
+
+  // pass one: ga (kept in d_cov) and the block's share of S
+  float wpart = 0.f;
+  for (int i = 0; i < n_chunks; ++i) {
+    next_chunk(i);
+    if (i == 0) TS_MARK(1);
+    const int tl = chunk_pos(i) + warp;  // warp-uniform
+    if (warp < kChunk && tl < n_pos) {
+      const float* row = ring + (i % stages) * chunk_floats + warp * D;
+      float dot = 0.f;
+#pragma unroll 4
+      for (int c = lane; c < n4; c += 32) {
+        const float4 x = load4(row + 4 * c);
+        const float4 g = load4(g_s + 4 * c);
+        dot = fmaf(x.x, g.x, dot);
+        dot = fmaf(x.y, g.y, dot);
+        dot = fmaf(x.z, g.z, dot);
+        dot = fmaf(x.w, g.w, dot);
+      }
+      const float* sc = sc_s + ((i % kSlots) * kChunk + warp) * 4;
+      const float a = sc[0];
+      const float ga = sc[1] + warp_sum(dot);
+      wpart = fmaf(a, ga, wpart);
+      if (lane == 0) d_cov[row0 + tl] = ga;
+    }
+  }
+
+  TS_MARK(2);
+  // S: the block's warps in order, then the cluster's blocks in rank
+  // order; pass two's first scalars fly meanwhile
   if (lane == 0) wsum_s[warp] = wpart;
-  __syncthreads();
+  __syncthreads();  // every ga of the block is in d_cov
+  ga_written = true;
+  for (int j = n_chunks; j < min(n_total, n_chunks + kAhead); ++j)
+    load_scalars(j);
+  tf32x3::cp_async_commit();
   if (tid == 0) {
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += wsum_s[w];
     bsum_s[0] = s;
   }
   cluster.sync();  // every block's share is in its shared memory
-  if (tid == 0) {
+  TS_MARK(8);
+  if (warp == 0) {  // lane r reads rank r's; lane 0 adds them in order
+    const float x = lane < C ? cluster.map_shared_rank(bsum_s, lane)[0] : 0.f;
     float s = 0.f;
-    for (int r = 0; r < C; ++r) s += cluster.map_shared_rank(bsum_s, r)[0];
-    s_s[0] = s;
+    for (int r = 0; r < C; ++r) s += __shfl_sync(0xffffffffu, x, r);
+    if (lane == 0) s_s[0] = s;
   }
+  tf32x3::cp_async_wait<0>();
   __syncthreads();
   const float S = s_s[0];
+  TS_MARK(3);
 
-  // pass two: d_e, then the rows of d_ef and d_es, d_cov, and the warp's
-  // column sums
-  float* acc = acc_s + 3 * warp * D;
-  for (int tl = warp; tl < n_pos; tl += kWarps) {
-    const size_t r = row0 + tl;
-    const float a = attn[r];
-    // pass one's ga, read and then overwritten by this warp's lane 0 alone
-    const float ga = __shfl_sync(0xffffffffu, lane == 0 ? d_cov[r] : 0.f, 0);
-    const float de = mask[r] > 0.f ? a * (ga - S) : 0.f;
-    const float cv = kCov ? cov[r] : 0.f;
-    float dcov = 0.f;
-    for (int c = lane; c < D / 4; c += 32)
-      pass_two_group<kCov>(ef + r * D, d_ef + r * D, d_es + r * D, g_s,
-                           df_s, v_s, wc_s, acc, D, c, a, de, cv, dcov);
-    dcov = warp_sum(dcov);
-    if (lane == 0) d_cov[r] = kCov ? dcov : 0.f;
+  // pass two: the rows of d_ef, d_cov's warp sums, the column sums.  A
+  // thread takes kRows rows of each chunk, kBatch at a time, with no
+  // branch between them (a row past the chunk computes on zeros and
+  // stores nothing), so their tanh chains and loads overlap; d_cov's warp
+  // sums come after the batch, interleaved.
+  constexpr int kRows = kChunk / kL;
+  constexpr int kBatch = kG == 1 ? (kRows < 4 ? kRows : 4) : kG == 2 ? 2 : 1;
+  for (int i = n_chunks; i < n_total; ++i) {
+    next_chunk(i);
+    if (i > n_chunks) finish_cov(i - 1);
+    const int c0 = chunk_pos(i);
+    const int n_here = min(kChunk, n_pos - c0);
+    const float* buf = ring + (i % stages) * chunk_floats;
+    float* dc = dc_s + (i & 1) * kChunk * kWarps;
+#pragma unroll
+    for (int q0 = 0; q0 < kRows; q0 += kBatch) {
+      float dcv[kBatch];
+#pragma unroll
+      for (int q = 0; q < kBatch; ++q) {
+        const int r = l + (q0 + q) * kL;
+        const bool valid = r < n_here;
+        const float* sc = sc_s + ((i % kSlots) * kChunk + r) * 4;
+        const float a = sc[0];
+        const float de = valid && sc[2] > 0.f ? a * (sc[1] - S) : 0.f;
+        const float cv = kCov && valid ? sc[3] : 0.f;
+        const float* row = buf + r * D;
+        float* out = d_ef + (row0 + c0 + r) * D;
+        float* out_es = d_es + (row0 + c0 + r) * D;
+        float dcov = 0.f;
+#pragma unroll
+        for (int g = 0; g < kG; ++g) {
+          const int c = k + W * g;
+          const bool ok = valid && c < n4;
+          const float4 x = ok ? load4(row + 4 * c) : zero4;
+          const float xs[4] = {x.x, x.y, x.z, x.w};
+          const float ds[4] = {dfr[g].x, dfr[g].y, dfr[g].z, dfr[g].w};
+          const float vs[4] = {vr[g].x, vr[g].y, vr[g].z, vr[g].w};
+          const float ws[4] = {wr[g].x, wr[g].y, wr[g].z, wr[g].w};
+          float f_[4], u_[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float f = xs[j] + ds[j];
+            if (kCov) f = fmaf(cv, ws[j], f);
+            const float u = tanhf(f);
+            u_[j] = u;
+            f_[j] = de * vs[j] * fmaf(-u, u, 1.f);
+            if (kCov) dcov = fmaf(f_[j], ws[j], dcov);
+          }
+          if (ok)
+            *reinterpret_cast<float4*>(out + 4 * c) =
+                make_float4(f_[0], f_[1], f_[2], f_[3]);
+          if (ok)
+            *reinterpret_cast<float4*>(out_es + 4 * c) = make_float4(
+                a * gr[g].x, a * gr[g].y, a * gr[g].z, a * gr[g].w);
+          s_df[g] = make_float4(s_df[g].x + f_[0], s_df[g].y + f_[1],
+                                s_df[g].z + f_[2], s_df[g].w + f_[3]);
+          s_v[g] = make_float4(fmaf(de, u_[0], s_v[g].x),
+                               fmaf(de, u_[1], s_v[g].y),
+                               fmaf(de, u_[2], s_v[g].z),
+                               fmaf(de, u_[3], s_v[g].w));
+          if (kCov)
+            s_wc[g] = make_float4(fmaf(f_[0], cv, s_wc[g].x),
+                                  fmaf(f_[1], cv, s_wc[g].y),
+                                  fmaf(f_[2], cv, s_wc[g].z),
+                                  fmaf(f_[3], cv, s_wc[g].w));
+        }
+        dcv[q] = dcov;
+      }
+      if (kCov) {
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) dcv[q] = warp_sum(dcv[q]);
+#pragma unroll
+        for (int q = 0; q < kBatch; ++q) {
+          const int r = l + (q0 + q) * kL;
+          if (lane == 0 && r < n_here) dc[r * kWarps + wl] = dcv[q];
+        }
+      }
+    }
+  }
+  __syncthreads();  // every thread is done with the ring
+  if (n_chunks > 0) finish_cov(n_total - 1);
+  TS_MARK(4);
+
+  // the block's column sums [3][D]: each lane of rows' sums, then the
+  // lanes added in order, in the ring's memory
+  float* acc = ring;  // [kL][3][D], kL * 3 * D <= kMinStages * kChunk * D
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    const int c = k + W * g;
+    if (c < n4) {
+      float* dst = acc + (size_t)l * 3 * D + 4 * c;
+      *reinterpret_cast<float4*>(dst) = s_df[g];
+      *reinterpret_cast<float4*>(dst + D) = s_v[g];
+      *reinterpret_cast<float4*>(dst + 2 * D) = s_wc[g];
+    }
   }
   __syncthreads();
-  // the block's column sums: its warps in order, into warp 0's slice
   for (int i = tid; i < 3 * D; i += kThreads) {
-    float s = acc_s[i];
-    for (int w = 1; w < kWarps; ++w) s += acc_s[w * 3 * D + i];
-    acc_s[i] = s;
+    float s = acc[i];
+    for (int q = 1; q < kL; ++q) s += acc[q * 3 * D + i];
+    acc[i] = s;
   }
   cluster.sync();
   // the article's: block r adds a slice of the columns over the ranks in
-  // order
+  // order; d_df, and the article's partials of d_v and d_w_c
+  float* part_v = part + kTicketFloats;
+  float* part_wc = part_v + (size_t)B * D;
   const int per = (D + C - 1) / C;
-  const int hi = min(D, (rank + 1) * per);
-  for (int d = rank * per + tid; d < hi; d += kThreads) {
+  const int lo = rank * per, hi = min(D, lo + per);
+  for (int d = lo + tid; d < hi; d += kThreads) {
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    for (int q = 0; q < C; ++q) {
-      const float* src = cluster.map_shared_rank(acc_s, q);
-      s0 += src[d];
-      s1 += src[D + d];
-      s2 += src[2 * D + d];
+    for (int q0 = 0; q0 < C; q0 += 8) {  // 8 ranks' loads at once
+      float x[3][8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float* src = cluster.map_shared_rank(acc, min(q0 + j, C - 1));
+        x[0][j] = src[d];
+        x[1][j] = src[D + d];
+        x[2][j] = src[2 * D + d];
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (q0 + j < C) {
+          s0 += x[0][j];
+          s1 += x[1][j];
+          s2 += x[2][j];
+        }
+      }
     }
     d_df[(size_t)b * D + d] = s0;
-    part[(size_t)b * D + d] = s1;
-    part[((size_t)B + b) * D + d] = s2;
+    part_v[(size_t)b * D + d] = s1;
+    part_wc[(size_t)b * D + d] = s2;
   }
-  // no block leaves while another may still read its shared memory
+  // the partials are written before the ticket: the cluster barrier
+  // orders them before thread 0's fence and atomic below (and the last
+  // cluster's reads after its own), with no fence in every thread
+  cluster.sync();   // no block reads another's shared memory after this
+  TS_MARK(5);
+  if (rank == 0 && tid == 0) {
+    unsigned* ticket = reinterpret_cast<unsigned*>(part);
+    __threadfence();
+    const bool last = atomicAdd(ticket, 1u) == (unsigned)(B - 1);
+    __threadfence();
+    if (last) atomicExch(ticket, 0u);  // every cluster has taken its ticket
+    for (int q = 0; q < C; ++q)
+      cluster.map_shared_rank(last_s, q)[0] = last ? 1.f : 0.f;
+  }
   cluster.sync();
-}
-
-// d_v, d_w_c [D]: the per-article partials added over the articles in
-// order
-__global__ void __launch_bounds__(kThreads)
-sum_articles_kernel(const float* __restrict__ part, float* d_v, float* d_wc,
-                    int B, int D, int use_cov) {
-  const int d = blockIdx.x * kThreads + threadIdx.x;
-  if (d >= D) return;
-  float s1 = 0.f, s2 = 0.f;
-  for (int b = 0; b < B; ++b) {
-    s1 += part[(size_t)b * D + d];
-    s2 += part[((size_t)B + b) * D + d];
+  TS_MARK(6);
+  if (last_s[0] == 0.f) return;
+  // the last cluster: d_v and d_w_c, the partials added over the articles
+  // in order (read past L1: other SMs wrote them), 8 articles' loads at
+  // once
+  for (int d = lo + tid; d < hi; d += kThreads) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int a0 = 0; a0 < B; a0 += 8) {
+      float x1[8], x2[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const size_t at = (size_t)min(a0 + j, B - 1) * D + d;
+        x1[j] = __ldcg(part_v + at);
+        x2[j] = __ldcg(part_wc + at);
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (a0 + j < B) {
+          s1 += x1[j];
+          s2 += x2[j];
+        }
+      }
+    }
+    d_v[d] = s1;
+    d_wc[d] = kCov ? s2 : 0.f;
   }
-  d_v[d] = s1;
-  d_wc[d] = use_cov ? s2 : 0.f;
+  TS_MARK(7);
 }
 
-template <bool kCov>
-cudaError_t launch(const float* es, const float* ef, const float* mask,
-                   const float* df, const float* cov, const float* v,
-                   const float* wc, const float* attn, const float* g_ctx,
-                   const float* g_attn, float* d_es, float* d_ef,
-                   float* d_df, float* d_cov, float* d_v, float* d_wc,
-                   float* part, int B, int T, int D, cudaStream_t stream) {
-  auto kernel = attention_bwd_kernel<kCov>;
-  static unsigned smem_set = 0;  // per instantiation
+template <bool kCov, int kG, int kL>
+cudaError_t launch_one(const float* es, const float* ef, const float* mask,
+                       const float* df, const float* cov, const float* v,
+                       const float* wc, const float* attn, const float* g_ctx,
+                       const float* g_attn, float* d_es, float* d_ef,
+                       float* d_df, float* d_cov, float* d_v, float* d_wc,
+                       float* part, int B, int T, int D, const Geometry& geo,
+                       bool wide, int stages, int dev, cudaStream_t stream) {
+  auto kernel = attention_bwd_kernel<kCov, kG, kL>;
+  static unsigned smem_set = 0, wide_set = 0;  // per instantiation
   cudaError_t err = tf32x3::allow_smem(kernel, kSmemMax, smem_set);
   if (err != cudaSuccess) return err;
-  const Geometry geo(T);
+  if (wide && !(dev < 32 && (wide_set >> dev) & 1u)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    if (dev < 32) wide_set |= 1u << dev;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(geo.C, B, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem_floats(D) * sizeof(float);
+  cfg.dynamicSmemBytes = smem_floats(D, stages) * sizeof(float);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -297,14 +583,49 @@ cudaError_t launch(const float* es, const float* ef, const float* mask,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, es, ef, mask, df, cov, v, wc, attn,
-                           g_ctx, g_attn, d_es, d_ef, d_df, d_cov, part, B,
-                           T, D, geo.P);
+                           g_ctx, g_attn, d_es, d_ef, d_df, d_cov, d_v, d_wc,
+                           part, B, T, D, geo.P, stages);
   if (err != cudaSuccess) return err;
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  sum_articles_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0,
-                        stream>>>(part, d_v, d_wc, B, D, kCov ? 1 : 0);
   return cudaGetLastError();
+}
+
+template <bool kCov>
+cudaError_t launch(const float* es, const float* ef, const float* mask,
+                   const float* df, const float* cov, const float* v,
+                   const float* wc, const float* attn, const float* g_ctx,
+                   const float* g_attn, float* d_es, float* d_ef,
+                   float* d_df, float* d_cov, float* d_v, float* d_wc,
+                   float* part, int B, int T, int D, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // few articles: 16 blocks each while their clusters take at most half
+  // the SMs, as the forward
+  const bool wide = B * kWideCluster * 2 <= sms;
+  const Geometry geo(T, wide ? kWideCluster : kCluster);
+  const int stages = ring_stages(D);
+  // pass two's column groups per thread, and its lanes of rows: as many
+  // as leave a lane's threads at least D / 4
+  const int n4 = D / 4;
+  const int groups = (n4 + kThreads - 1) / kThreads;
+  const int lanes = groups > 1          ? 1
+                    : n4 <= kThreads / 8 ? 8
+                    : n4 <= kThreads / 4 ? 4
+                    : n4 <= kThreads / 2 ? 2
+                                         : 1;
+#define TS_LAUNCH(G, L)                                                    \
+  launch_one<kCov, G, L>(es, ef, mask, df, cov, v, wc, attn, g_ctx,        \
+                         g_attn, d_es, d_ef, d_df, d_cov, d_v, d_wc, part, \
+                         B, T, D, geo, wide, stages, dev, stream)
+  if (groups == 3) return TS_LAUNCH(3, 1);
+  if (groups == 2) return TS_LAUNCH(2, 1);
+  if (lanes == 8) return TS_LAUNCH(1, 8);
+  if (lanes == 4) return TS_LAUNCH(1, 4);
+  if (lanes == 2) return TS_LAUNCH(1, 2);
+  return TS_LAUNCH(1, 1);
+#undef TS_LAUNCH
 }
 
 }  // namespace
@@ -313,10 +634,12 @@ cudaError_t launch(const float* es, const float* ef, const float* mask,
 // mask, cov (read only when use_cov), attn (the forward's output),
 // g_attn [B, T]; df, g_ctx [B, D]; v, wc [D].  Outputs d_es, d_ef
 // [B, T, D]; d_df [B, D]; d_cov [B, T] (0 when !use_cov); d_v, d_wc [D]
-// (d_wc 0 when !use_cov); part: scratch [2, B, D].  All float32,
-// contiguous, on one device.  Launches the two kernels on `stream`;
-// returns the cudaError_t of the launches (cudaErrorInvalidValue for a
-// shape the kernel does not take).
+// (d_wc 0 when !use_cov).  part: scratch of 4 + 2 * B * D floats whose
+// first 4 bytes, an unsigned ticket, are 0 before the launch and 0 again
+// after it (keep one per stream: launches on one stream run in turn).
+// All float32, contiguous, on one device.  Launches one kernel on
+// `stream`; returns the cudaError_t of the launch (cudaErrorInvalidValue
+// for a shape the kernel does not take).
 extern "C" int ts_fused_attention_bwd(
     const float* es, const float* ef, const float* mask, const float* df,
     const float* cov, const float* v, const float* wc, const float* attn,
@@ -325,7 +648,8 @@ extern "C" int ts_fused_attention_bwd(
     int T, int D, int use_cov, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B <= 0 || T <= 0 || D <= 0 || B > 65535 || D % 4 != 0 ||
-      smem_floats(D) * sizeof(float) > kSmemMax)
+      D > 4 * kThreads * kMaxGroups ||
+      smem_floats(D, ring_stages(D)) * sizeof(float) > kSmemMax)
     return (int)cudaErrorInvalidValue;
   return (int)(use_cov ? launch<true>(es, ef, mask, df, cov, v, wc, attn,
                                       g_ctx, g_attn, d_es, d_ef, d_df, d_cov,
@@ -334,6 +658,20 @@ extern "C" int ts_fused_attention_bwd(
                                        g_ctx, g_attn, d_es, d_ef, d_df,
                                        d_cov, d_v, d_wc, part, B, T, D, st));
 }
+
+#ifdef TS_BWD_TRACE
+// the marks of the last launch (n <= kTraceBlocks * kTraceSlots values),
+// then cleared for the next
+extern "C" int ts_fused_attention_bwd_trace(unsigned long long* out, int n) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, g_trace,
+                                         sizeof(unsigned long long) * n);
+  void* p = nullptr;
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&p, g_trace);
+  if (err == cudaSuccess) err = cudaMemset(p, 0, sizeof(g_trace));
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  return (int)err;
+}
+#endif
 
 extern "C" const char* ts_fused_attention_bwd_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -220,6 +220,14 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src,
                : "memory");
 }
 
+// 4 bytes global -> shared (cp.async through L1; committed with the
+// 16-byte ones)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;" ::: "memory");
 }

@@ -1,0 +1,62 @@
+// A ring of row chunks in shared memory filled by the TMA unit: the
+// mbarrier and bulk-copy helpers the fused attention's forward and
+// backward share.
+//
+// One thread arms a stage's mbarrier with the chunk's byte count and
+// issues one bulk copy (cp.async.bulk) of the chunk's contiguous rows;
+// the copy completes the barrier's phase, and every thread waits on that
+// phase's parity before it reads the stage.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tma {
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// an mbarrier that one arrival (with its transaction bytes) completes
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared.b64 [%0], 1;" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+// make the initialised mbarriers visible to the copy engine
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// bytes global -> shared by the TMA unit (cp.async.bulk), completing on
+// `bar`: one thread arrives on it with the byte count, then issues the
+// copy (16-byte aligned ends, a multiple of 16 bytes)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared.b64 _, [%0], %1;" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wait for the phase of `bar` with this parity to complete
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}" : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+}  // namespace tma

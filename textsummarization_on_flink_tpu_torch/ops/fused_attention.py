@@ -44,8 +44,8 @@ from textsummarization_on_flink_tpu_torch.config import ROADMAP_BF16
 NEG = -1e30  # masked-energy floor (pallas_attention.NEG), never -inf
 
 #: kernel launches so far (one per wrapper call on CUDA tensors: the
-#: forward, and the backward's pair of kernels); set them to 0 before a
-#: run whose launches are to be counted
+#: forward, and the backward); set them to 0 before a run whose launches
+#: are to be counted
 launches = 0
 launches_bwd = 0
 
@@ -144,19 +144,24 @@ def _load_library() -> ctypes.CDLL:
     return _lib
 
 
+def _bind_bwd(path: str) -> ctypes.CDLL:
+    """The backward kernel's library at ``path``, its entry points typed."""
+    lib = ctypes.CDLL(path)
+    fn = lib.ts_fused_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    lib.ts_fused_attention_bwd_error_string.restype = ctypes.c_char_p
+    lib.ts_fused_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
 def _load_bwd_library() -> ctypes.CDLL:
     global _bwd_lib
     if _bwd_lib is None:
         from textsummarization_on_flink_tpu_torch.kernels import build
 
-        lib = ctypes.CDLL(build.build("fused_attention_bwd"))
-        fn = lib.ts_fused_attention_bwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
-        lib.ts_fused_attention_bwd_error_string.restype = ctypes.c_char_p
-        lib.ts_fused_attention_bwd_error_string.argtypes = [ctypes.c_int]
-        _bwd_lib = lib
+        _bwd_lib = _bind_bwd(build.build("fused_attention_bwd"))
     return _bwd_lib
 
 
@@ -273,30 +278,90 @@ def _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage):
     return ctx, attn
 
 
-#: the backward kernel's shared memory: g_ctx, df, v, w_c and each of its
-#: 8 warps' three column sums, [4 + 24] x D floats, and 16 more
-_BWD_SMEM_FLOATS_PER_COLUMN, _BWD_SMEM_EXTRA = 28, 16
+# The backward kernel's sizes: kernels/fused_attention_bwd.cu's kThreads,
+# kChunk, kMinStages, kMaxStages, kRingBytes and kMaxGroups (keep them in
+# step; a card test holds the refusal against the kernel's).  Its shared
+# memory: a ring of 8-row chunks, as many as fit in 96 KB (3 to 12), with
+# the mbarriers (2 floats each of kMaxStages) ahead of it; g_ctx [D]; the
+# row scalars' ring (5 x 8 x 4 floats), the d_cov warp sums (2 x 8 x
+# warps) and warps + 16 floats of the block's scalars
+_BWD_THREADS, _BWD_CHUNK, _BWD_MIN_STAGES, _BWD_MAX_STAGES = 256, 8, 3, 12
+_BWD_RING_BYTES, _BWD_MAX_GROUPS = 96 * 1024, 3
+_BWD_WARPS = _BWD_THREADS // 32
+_BWD_FIXED_FLOATS = (2 * _BWD_MAX_STAGES + 5 * _BWD_CHUNK * 4
+                     + 2 * _BWD_CHUNK * _BWD_WARPS + _BWD_WARPS + 16)
+_BWD_MAX_D = 4 * _BWD_THREADS * _BWD_MAX_GROUPS
+#: part's first 16 bytes: the kernel's ticket (an unsigned, 0 between
+#: launches), then the per-article partials of d_v and d_w_c
+_BWD_TICKET_FLOATS = 4
+
+
+def _bwd_stages(D: int) -> int:
+    """Chunks in the backward kernel's ring at width D (ring_stages)."""
+    fit = _BWD_RING_BYTES // (_BWD_CHUNK * D * 4)
+    return min(max(fit, _BWD_MIN_STAGES), _BWD_MAX_STAGES)
+
+
+def _bwd_smem_bytes(D: int) -> int:
+    """Dynamic shared memory of one backward block (smem_floats)."""
+    return 4 * (_BWD_FIXED_FLOATS + _bwd_stages(D) * _BWD_CHUNK * D + D)
+
+
+def _bwd_shape_refusal(es: torch.Tensor) -> Optional[str]:
+    """Why the backward kernel does not take encoder streams of this shape
+    (None when it does).  Checked before the device, as _shape_refusal is
+    for the forward."""
+    if es.dim() != 3:
+        return f"es must be [B, T, D], got {tuple(es.shape)}"
+    B, T, D = es.shape
+    if B == 0 or T == 0 or D == 0:
+        return f"empty attention input (B={B}, T={T}, D={D})"
+    if D % 4:
+        return (f"D={D} is not a multiple of 4: the kernel reads float4 "
+                f"groups of each row")
+    if B > _MAX_ARTICLES:
+        return f"B={B} articles exceed the grid's {_MAX_ARTICLES}"
+    need = _bwd_smem_bytes(D)
+    if D > _BWD_MAX_D or need > _SMEM_MAX:
+        return (f"D={D}: the backward's ring of {_BWD_MIN_STAGES} chunks and "
+                f"its column sums do not fit one block ({need} bytes of "
+                f"shared memory, at most {_SMEM_MAX}; at most {_BWD_MAX_D} "
+                f"columns)")
+    return None
+
+
+#: the backward's scratch per (device, stream): its ticket must be 0 at a
+#: launch, and every launch leaves it 0 (the last cluster resets it; a
+#: launch the kernel refuses does not touch it, and one that faults leaves
+#: the CUDA context unusable), so launches on one stream (which run in
+#: turn) share one buffer, grown when a shape needs more.  A zeroed buffer
+#: per call would cost a fill kernel, as much as the second launch the
+#: ticket saves (PERF.md, the backward's findings)
+_bwd_scratch_cache: dict = {}
+
+
+def _bwd_scratch(dev: torch.device, stream: int, floats: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    part = _bwd_scratch_cache.get(key)
+    if part is None or part.numel() < floats:
+        part = torch.zeros(floats, device=dev, dtype=torch.float32)
+        _bwd_scratch_cache[key] = part
+    return part
 
 
 def _attention_bwd_cuda(es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn,
                         use_coverage):
-    """Launch the backward kernels; same contract as _attention_bwd_plain."""
+    """Launch the backward kernel; same contract as _attention_bwd_plain."""
     global launches_bwd
     _refuse_bwd_dtype(es)
+    refusal = _bwd_shape_refusal(es)
+    if refusal is not None:
+        raise ValueError(refusal)
     dev = es.device
     if dev.type != "cuda":
         raise ValueError(f"the fused attention backward kernel needs CUDA "
                          f"tensors, got {dev}")
-    if es.dim() != 3:
-        raise ValueError(f"es must be [B, T, D], got {tuple(es.shape)}")
     B, T, D = es.shape
-    if B == 0 or T == 0 or D == 0 or B > _MAX_ARTICLES:
-        raise ValueError(f"the backward kernel does not take B={B}, T={T}, "
-                         f"D={D}")
-    if D % 4 or 4 * (_BWD_SMEM_FLOATS_PER_COLUMN * D + _BWD_SMEM_EXTRA) \
-            > _SMEM_MAX:
-        raise ValueError(f"D={D} must be a multiple of 4 whose column sums "
-                         f"fit in one block's shared memory")
     for name, x, shape in (("es", es, (B, T, D)), ("ef", ef, (B, T, D)),
                            ("mask", mask, (B, T)), ("df", df, (B, D)),
                            ("cov", cov, (B, T)), ("v", v, (D,)),
@@ -306,13 +371,17 @@ def _attention_bwd_cuda(es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn,
         _check(name, x, shape, (torch.float32,), dev)
         if x.data_ptr() % 16 and x.dim() == 3:
             raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+    # df, g_ctx, v and w_c are read in float4 groups too: a view that
+    # starts off a 16-byte boundary is copied to one that does not
+    df, g_ctx, v, w_c = (x if x.data_ptr() % 16 == 0 else x.clone()
+                         for x in (df, g_ctx, v, w_c))
     d_es, d_ef = torch.empty_like(es), torch.empty_like(ef)
     d_df, d_cov = torch.empty_like(df), torch.empty_like(attn)
     d_v, d_w_c = torch.empty_like(v), torch.empty_like(w_c)
-    part = torch.empty((2, B, D), device=dev, dtype=torch.float32)
     lib = _load_bwd_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        part = _bwd_scratch(dev, stream, _BWD_TICKET_FLOATS + 2 * B * D)
         err = lib.ts_fused_attention_bwd(
             es.data_ptr(), ef.data_ptr(), mask.data_ptr(), df.data_ptr(),
             cov.data_ptr(), v.data_ptr(), w_c.data_ptr(), attn.data_ptr(),
