@@ -19,8 +19,9 @@ device or without the port's sources beside it.  Phases, each fatal:
      kernels beside those of the kernels they replaced (the flash
      kernels' f32 SIMT designs, the fused attention's two-launch design):
      a. the fused additive attention, both dtypes, coverage on and off,
-        with a fully masked row, at the beam-decode shape, the long form
-        and the training shape (K = 1); then long encoders whose
+        with a fully masked row, at the beam-decode shape, the long form,
+        the training shape (K = 1) and the App's decode shape (4 articles
+        x 4 beams, f32); then long encoders whose
         per-position state lives in device memory (16 x 16 x 2000 and
         4 x 4 x 17,856 and 20,000 positions), with a bitwise repeat;
      b. the fused attention's backward kernel (one launch) at the
@@ -59,7 +60,17 @@ device or without the port's sources beside it.  Phases, each fatal:
      layers), finite and falling losses, a restorable
      ``model.ckpt-10.npz`` and the vocabulary metadata; print the warm
      step time, target tokens/s and the peak device memory;
-  6. print the kernels' JSON line, then, last, the device JSON line.
+  6. drive the pipeline layer, the reference's own main path, through
+     ``App``: ``start_training`` fits the pointer-generator at the
+     training width from a CollectionSource of 64 synthetic rows (4
+     steps), ``start_inference`` transforms 16 more rows with the App's
+     decode defaults (batch 4, beam 4) into a CollectionSink; check the
+     rows, the checkpoint, the config-only model JSON, the launches (100
+     fused forward and 100 backward per train step, 2 fused per beam
+     step) and the first 4 summaries against a transform on the CPU from
+     the same checkpoint; print fit and transform seconds, the median
+     train step, seconds per decoded batch and the launches;
+  7. print the kernels' JSON line, then, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -193,8 +204,9 @@ def attention_bound_ms(B, K, T, D, elt_bytes, use_cov):
 
 
 def phase_attention(seed):
-    """Kernel vs plain at the beam-decode shape, the long-context shape and
-    the pointer-generator's training shape (K = 1, f32)."""
+    """Kernel vs plain at the beam-decode shape, the long-context shape,
+    the pointer-generator's training shape (K = 1, f32) and the App's
+    decode shape (4 articles x 4 beams, f32)."""
     import torch
 
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
@@ -203,11 +215,13 @@ def phase_attention(seed):
     rows = []
     worst = 0.0
     main = None
-    # the beam-decode shape, the long form, the training shape (K = 1)
-    cases = [(16, 4, 400, 512), (4, 1, 4096, 512), (16, 1, 400, 512)]
-    rows_k1 = {}
+    # the beam-decode shape, the long form, the training shape (K = 1),
+    # the App's decode shape (batch 4, beam 4: a 16-block cluster)
+    cases = [(16, 4, 400, 512), (4, 1, 4096, 512), (16, 1, 400, 512),
+             (4, 4, 400, 512)]
+    rows_k1, rows_app = {}, {}
     for (B, K, T, D) in cases:
-        dtypes = (torch.float32,) if K == 1 and T == 400 else (
+        dtypes = (torch.float32,) if T == 400 and (K == 1 or B == 4) else (
             torch.float32, torch.bfloat16)
         for dtype in dtypes:
             for use_cov in (True, False):
@@ -247,7 +261,9 @@ def phase_attention(seed):
                     main = row
                 if (B, K, T, D) == cases[2]:
                     rows_k1[use_cov] = row
-    return main, rows_k1, worst
+                if (B, K, T, D) == cases[3]:
+                    rows_app[use_cov] = row
+    return main, rows_k1, rows_app, worst
 
 
 def phase_attention_long(seed):
@@ -836,7 +852,7 @@ def phase_main_path(seed, n_articles, work, device="cuda",
     hps = main_path_hps(family)
     rng = np.random.default_rng(seed)
     # vocab: 49,996 words + 4 specials = the reference's 50k
-    words = [f"w{i:05d}" for i in range(hps.vocab_size - 4)]
+    words = synthetic_words(hps.vocab_size)
     vocab_path = os.path.join(work, "vocab")
     with open(vocab_path, "w", encoding="utf-8") as f:
         f.writelines(f"{w} {len(words) - i}\n" for i, w in enumerate(words))
@@ -949,19 +965,16 @@ class _TrainLog(logging.Handler):
             self.losses.append(float(record.args[0]))
 
 
-def write_train_chunks(work, hps, seed, n_pairs):
-    """A synthetic 50k vocab and n_pairs article/abstract pairs as chunk
-    files (the port's writer): articles of 300-800 zipf-ranked words with
-    ~5% OOVs; abstracts of 3 sentences of 8-20 words in <s> ... </s>
-    taken from the article's lead, as news highlights lean on the lead.
-    Returns (vocab path, data glob)."""
-    from textsummarization_on_flink_tpu_torch.data import chunks
+def synthetic_words(vocab_size):
+    """The synthetic vocabulary: vocab_size - 4 words, most frequent
+    first (the 4 specials complete it)."""
+    return [f"w{i:05d}" for i in range(vocab_size - 4)]
 
-    rng = np.random.default_rng(seed)
-    words = [f"w{i:05d}" for i in range(hps.vocab_size - 4)]
-    vocab_path = os.path.join(work, "vocab")
-    with open(vocab_path, "w", encoding="utf-8") as f:
-        f.writelines(f"{w} {len(words) - i}\n" for i, w in enumerate(words))
+
+def synthetic_pairs(rng, words, n_pairs):
+    """n_pairs (article, lead sentences): articles of 300-800
+    zipf-ranked words with ~5% OOVs; 3 sentences of 8-20 words taken
+    from the article's lead, as news highlights lean on the lead."""
     pairs = []
     for _ in range(n_pairs):
         n = int(rng.integers(300, 800))
@@ -971,8 +984,24 @@ def write_train_chunks(work, hps, seed, n_pairs):
         cuts = np.cumsum(rng.integers(8, 20, 3))
         sents = [" ".join(art[a:b]) + " ."
                  for a, b in zip([0, *cuts[:2]], cuts)]
-        pairs.append({"article": [" ".join(art) + " ."],
-                      "abstract": [" ".join(f"<s> {x} </s>" for x in sents)]})
+        pairs.append((" ".join(art) + " .", sents))
+    return pairs
+
+
+def write_train_chunks(work, hps, seed, n_pairs):
+    """A synthetic 50k vocab and n_pairs article/abstract pairs
+    (synthetic_pairs, the abstract's sentences in <s> ... </s>) as chunk
+    files (the port's writer).  Returns (vocab path, data glob)."""
+    from textsummarization_on_flink_tpu_torch.data import chunks
+
+    rng = np.random.default_rng(seed)
+    words = synthetic_words(hps.vocab_size)
+    vocab_path = os.path.join(work, "vocab")
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        f.writelines(f"{w} {len(words) - i}\n" for i, w in enumerate(words))
+    pairs = [{"article": [art],
+              "abstract": [" ".join(f"<s> {x} </s>" for x in sents)]}
+             for art, sents in synthetic_pairs(rng, words, n_pairs)]
     for c in range(0, n_pairs, 16):
         chunks.write_chunk_file(os.path.join(work, f"train_{c // 16:03d}.bin"),
                                 pairs[c:c + 16])
@@ -1075,6 +1104,136 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
     return summary
 
 
+def pipeline_hps(work, seed, device="cuda"):
+    """The App's hyperparameters for the pipeline phase: training at the
+    reference width of phase_train_main_path (H 256, E 128, V 50,000,
+    400/100 steps, batch 16, coverage on, lr 0.15), 4 steps from fresh
+    params of --seed; decoding with the App's defaults (batch 4, 400/100
+    steps, beam 4, min 35, V 50,000, coverage on)."""
+    from textsummarization_on_flink_tpu_torch.pipeline import app
+
+    train = train_main_path_hps("pointer_generator").replace(
+        num_steps=4, log_root=work, exp_name="exp", seed=seed, device=device)
+    infer = app.default_inference_hps(work).replace(device=device)
+    return train, infer
+
+
+def pipeline_rows(seed, words, n, start=0):
+    """n (uuid, article, summary, reference) rows of synthetic_pairs, the
+    reference the lead sentences, the summary column empty."""
+    return [(f"uuid-{start + i}", art, "", " ".join(sents))
+            for i, (art, sents) in enumerate(
+                synthetic_pairs(np.random.default_rng(seed), words, n))]
+
+
+def phase_pipeline(seed, work, device="cuda"):
+    """``App.main`` through the pipeline layer: ``start_training`` fits
+    the estimator on a CollectionSource of 64 rows (4 steps), then
+    ``start_inference`` transforms 16 further rows into a CollectionSink
+    from the model JSON, each with the launch counts set to 0 just before
+    and read just after.  Checks: 16 rows with exactly the input uuids, a
+    checkpoint, a model JSON without weights, exactly 100 fused forward
+    and 100 fused backward launches per train step and 2 fused launches
+    per beam step, and the first 4 summaries equal to a second transform
+    of those rows with --device=cpu from the same checkpoint.  (device=
+    "cpu" rehearses the control flow without a card.)"""
+    import shlex
+
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.pipeline import app as app_lib
+    from textsummarization_on_flink_tpu_torch.pipeline import estimator
+    from textsummarization_on_flink_tpu_torch.pipeline import io
+
+    train_hps, infer_hps = pipeline_hps(work, seed, device)
+    words = synthetic_words(train_hps.vocab_size)
+    vocab = Vocab(words=words)
+    train_rows = pipeline_rows(seed, words, 64)
+    infer_rows = pipeline_rows(seed + 1, words, 16, start=64)
+    app = app_lib.App(train_hps, infer_hps, vocab=vocab)
+    train_log, batch_log = _TrainLog(), _BatchLog()
+    loggers = [(logging.getLogger(
+        "textsummarization_on_flink_tpu_torch." + name), h) for name, h in (
+            ("train.trainer", train_log), ("decode.decoder", batch_log))]
+    for lg, h in loggers:
+        lg.setLevel(logging.INFO)
+        lg.addHandler(h)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        model_json = app.start_training(io.CollectionSource(train_rows))
+        fit_s = time.perf_counter() - t0
+        fit_launches = launch_counts()
+        reset_launch_counts()
+        beam_search.steps_run = 0
+        t0 = time.perf_counter()
+        sink = app.start_inference(model_json,
+                                   source=io.CollectionSource(infer_rows),
+                                   sink=io.CollectionSink())
+        transform_s = time.perf_counter() - t0
+        transform_launches = launch_counts()
+        beam_steps = beam_search.steps_run
+    finally:
+        for lg, h in loggers:
+            lg.removeHandler(h)
+    steps = train_hps.num_steps
+    check(len(sink.rows) == 16, f"{len(sink.rows)} rows out for 16 in")
+    check(sorted(r[0] for r in sink.rows) == sorted(r[0] for r in infer_rows),
+          "the output uuids are not the input uuids")
+    check(all(r[2] for r in sink.rows), "an empty summary")
+    train_dir = estimator.train_dir_for(train_hps)
+    check(os.path.exists(os.path.join(train_dir, f"model.ckpt-{steps}.npz")),
+          f"no model.ckpt-{steps}.npz in {train_dir}")
+    params = json.loads(model_json)
+    check(len(model_json) < 10_000 and all(
+        isinstance(v, (str, int, float, bool, list, type(None)))
+        for v in params.values()), "the model JSON holds more than config")
+    want_fit = expected_train_launches(train_hps, steps)
+    check(fit_launches == want_fit,
+          f"fit launched {fit_launches}, expected {want_fit}")
+    want_tf = dict(want_fit, fused=2 * beam_steps, fused_bwd=0)
+    check(beam_steps > 0 and transform_launches == want_tf,
+          f"transform launched {transform_launches} in {beam_steps} beam "
+          f"steps, expected {want_tf}")
+
+    # the first 4 rows again, on the CPU, from the same checkpoint
+    first = infer_rows[:4]
+    cpu_model = estimator.SummarizationModel().load_json(model_json)
+    cpu_model.set_inference_hyper_params(
+        shlex.split(infer_hps.replace(device="cpu").to_argv()))
+    cpu_model.with_vocab(vocab)
+    t0 = time.perf_counter()
+    cpu_rows = cpu_model.transform(io.CollectionSource(first)).rows
+    cpu_s = time.perf_counter() - t0
+    card = {r[0]: r[2] for r in sink.rows}
+    differ = [r[0] for r in cpu_rows if card[r[0]] != r[2]]
+    check(len(cpu_rows) == 4 and not differ,
+          f"card summaries differ from the CPU's for {differ}")
+    step_s = train_log.seconds
+    batch_s = [float(sec) for _, sec in batch_log.batches]
+    summary = dict(
+        fit_wall_s=fit_s, transform_wall_s=transform_s,
+        train_step_seconds=step_s,
+        median_train_step_s=statistics.median(step_s[1:] or step_s),
+        losses=train_log.losses, decoded_batches=len(batch_s),
+        batch_seconds=batch_s, seconds_per_batch=statistics.median(batch_s),
+        rows_out=len(sink.rows), beam_steps=beam_steps,
+        fit_launches=fit_launches, transform_launches=transform_launches,
+        launches_per_train_step={k: v / steps
+                                 for k, v in fit_launches.items()},
+        fused_launches_per_beam_step=transform_launches["fused"]
+        / beam_steps,
+        cpu_check_rows=len(cpu_rows), cpu_check_s=cpu_s,
+        summary_words=[len(card[r[0]].split()) for r in first],
+        card=card_line() if device == "cuda" else None)
+    print("pipeline " + json.dumps(summary))
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1104,7 +1263,7 @@ def main(argv=None) -> int:
     for name in libs:
         sys.stdout.write(build.build_log(name))
 
-    main_row, k1_rows, worst = phase_attention(args.seed)
+    main_row, k1_rows, app_rows, worst = phase_attention(args.seed)
     worst = max(worst, phase_attention_long(args.seed))
     bwd_att_rows, bwd_att_worst = phase_attention_bwd(args.seed)
     flash_row, flash_worst = phase_flash(args.seed)
@@ -1139,6 +1298,13 @@ def main(argv=None) -> int:
                                                   family=family)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+    work = os.path.join(HERE, ".smoke_work", "pipeline")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        pipe = phase_pipeline(args.seed, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     bwd_main = bwd_rows[0]  # the training encoder's shape
@@ -1149,21 +1315,29 @@ def main(argv=None) -> int:
     kernels = [dict(
         name="fused_attention", route="cuda", source=fused_src + ".cu",
         replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:58",
-        # both main paths that run it: decode and training
+        # every main path that runs it: decode, training, the pipeline's
+        # fit and transform
         launches=summaries["pointer_generator"]["kernel_launches"]
-        + pg_train["fused"],
+        + pg_train["fused"] + pipe["fit_launches"]["fused"]
+        + pipe["transform_launches"]["fused"],
         max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         training_shape=dict(
             shape=k1_rows[True]["shape"], ms=k1_rows[True]["ms"],
             plain_ms=k1_rows[True]["plain_ms"],
             bound_ms=k1_rows[True]["bound_ms"],
-            launches=pg_train["fused"]),
+            launches=pg_train["fused"] + pipe["fit_launches"]["fused"]),
+        app_decode_shape=dict(
+            shape=app_rows[True]["shape"], ms=app_rows[True]["ms"],
+            plain_ms=app_rows[True]["plain_ms"],
+            bound_ms=app_rows[True]["bound_ms"],
+            launches=pipe["transform_launches"]["fused"]),
         library_ms=None, redesigned="PR 5"), dict(
         name="fused_attention_bwd", route="cuda", source=fused_src + "_bwd.cu",
         # the custom_vjp's backward (jax.vjp of the XLA formula)
         replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:360",
-        launches=pg_train["fused_bwd"], max_abs_err=bwd_att_worst,
+        launches=pg_train["fused_bwd"] + pipe["fit_launches"]["fused_bwd"],
+        max_abs_err=bwd_att_worst,
         ms=bwd_att_rows[True]["ms"], plain_ms=bwd_att_rows[True]["plain_ms"],
         bound_ms=bwd_att_rows[True]["bound_ms"],
         bound_by=bwd_att_rows[True]["bound_by"], library_ms=None), dict(

@@ -549,3 +549,80 @@ def test_fused_attention_backward_refuses_on_card():
     with pytest.raises(ValueError, match="multiple of 4"):
         fa._attention_bwd_cuda(*odd, True)
     assert fa.launches_bwd == before
+
+
+@pytest.mark.cuda
+def test_pipeline_fit_then_transform_on_card_matches_the_cpu(tmp_path):
+    """SummarizationEstimator.fit (2 steps) then SummarizationModel.transform
+    at a small width, once with --device=cuda and once with --device=cpu,
+    from one initial checkpoint: the same rows (summaries equal), params
+    and accumulators within 1e-4 relative to max(1, max|x|), and on the
+    card exactly one fused forward and one backward launch per decoder
+    step per train step and two fused launches per beam step (none on
+    the CPU)."""
+    import shlex
+
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+    from textsummarization_on_flink_tpu_torch.config import HParams
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.params import init_numpy_params
+    from textsummarization_on_flink_tpu_torch.pipeline import estimator as est
+    from textsummarization_on_flink_tpu_torch.pipeline import io
+    from textsummarization_on_flink_tpu_torch.train import trainer
+
+    _need_cuda()
+    words = [f"w{i}" for i in range(96)]
+    rng = np.random.RandomState(0)
+    rows = []
+    for i in range(8):
+        art = [words[j] if rng.rand() < 0.8 else f"oov{j % 5}"
+               for j in rng.randint(0, len(words), rng.randint(12, 40))]
+        rows.append((f"u{i}", " ".join(art) + " .", "",
+                     " ".join(art[:6]) + " ."))
+    fields = dict(batch_size=4, hidden_dim=32, emb_dim=16, vocab_size=100,
+                  max_enc_steps=40, max_dec_steps=12, min_dec_steps=3,
+                  beam_size=4, max_oov_buckets=8, coverage=True,
+                  exp_name="exp", trunc_norm_init_std=0.5,
+                  rand_unif_init_mag=0.3)
+    params = init_numpy_params(HParams(**fields), 100, 0)
+    params["embedding"] *= 4.0
+    params["output_projection"]["w"] *= 4.0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        root = str(tmp_path / dev)
+        hps = {m: HParams(mode=m, num_steps=2, log_root=root, device=dev,
+                          **fields) for m in ("train", "decode")}
+        ckpt_lib.Checkpointer(est.train_dir_for(hps["train"])).save(
+            trainer.make_train_state(params, None, 0, "cpu",
+                                     init_acc=hps["train"].adagrad_init_acc))
+        e = est.SummarizationEstimator()
+        e.set_train_selected_cols(["uuid", "article", "reference"])
+        e.set_inference_selected_cols(["uuid", "article", "reference"])
+        e.set_inference_output_cols(["uuid", "article", "summary",
+                                     "reference"])
+        e.set_inference_output_types(["STRING"] * 4)
+        e.set_train_hyper_params(shlex.split(hps["train"].to_argv()))
+        e.set_inference_hyper_params(shlex.split(hps["decode"].to_argv()))
+        e.with_vocab(Vocab(words=words))
+        counts = (fa.launches, fa.launches_bwd)
+        model = e.fit(io.CollectionSource(rows))
+        fit = (fa.launches - counts[0], fa.launches_bwd - counts[1])
+        counts, steps = fa.launches, beam_search.steps_run
+        sink = model.transform(io.CollectionSource(rows))
+        transform = (fa.launches - counts, beam_search.steps_run - steps)
+        out[dev] = (sorted(sink.rows), ckpt_lib.load_arrays(
+            ckpt_lib.latest_checkpoint(est.train_dir_for(hps["train"]))),
+            fit, transform)
+    (cpu_rows, cpu_arrays, cpu_fit, cpu_tf) = out["cpu"]
+    (rows_, arrays, fit, (tf_launches, beam_steps)) = out["cuda"]
+    assert cpu_fit == (0, 0) and cpu_tf[0] == 0
+    assert fit == (2 * 12, 2 * 12)
+    assert beam_steps > 0 and tf_launches == 2 * beam_steps
+    assert len(rows_) == 8 and rows_ == cpu_rows
+    assert int(arrays["step"]) == 2
+    for k, w in cpu_arrays.items():
+        err = float(np.max(np.abs(arrays[k] - w)))
+        assert err <= 1e-4 * max(1.0, float(np.max(np.abs(w)))), (k, err)

@@ -42,6 +42,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted(PKG.rglob("*.py")) + [repo / "chip_smoke.py"] + \
         sorted((repo / "scripts").glob("torch_*.py"))
     assert len(files) > 10
+    scanned = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
+    assert {"obs.py", "resilience/errors.py", "data/tfexample.py",
+            "pipeline/estimator.py", "pipeline/io.py", "pipeline/app.py",
+            "pipeline/raw_driver.py"} <= scanned
     bad = []
     for f in files:
         for mod in _imported_modules(f):

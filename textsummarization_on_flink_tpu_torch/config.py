@@ -4,7 +4,7 @@ A copy of the part of ``textsummarization_on_flink_tpu/config.py`` that
 the port's paths read (beam decode, training and eval): the reference's
 flag names and defaults (run_summarization.py:48-88), the static OOV
 budget, the training cadence fields, and the ``--flag=value`` argv
-parser.  The port adds one field, ``device``: entry points run on
+parser and renderer (the pipeline's hyperparameter strings).  The port adds one field, ``device``: entry points run on
 ``cuda`` unless the caller asks for ``cpu``.
 
 Fields of the JAX package that steer paths this package does not have
@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shlex
 from typing import Any, Dict, List
 
 #: ROADMAP.md names the queue item that brings each missing mode, option
@@ -30,6 +31,11 @@ ROADMAP_AAN = ("ROADMAP.md queue 1, item 5 (AAN draft, speculative decode, "
 ROADMAP_REMAT = "ROADMAP.md queue 1, item 2c (--remat)"
 ROADMAP_HEAD_DIM = ("ROADMAP.md queue 3, item 1 (transformer head dims above "
                     "128 on the card)")
+ROADMAP_SERVING = ("ROADMAP.md queue 1, item 3 (the serve layer behind "
+                   "transform(serving=True))")
+ROADMAP_HIERSUM = ("ROADMAP.md queue 1, item 7 (hierarchical summarization "
+                   "and the document framing behind "
+                   "transform(hierarchical=True))")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +167,23 @@ class HParams:
             else:
                 out[name] = val
         return cls(**out)
+
+    def to_argv(self) -> str:
+        """Render as the reference's hyperparameter string (JAX
+        config.py:548-556): every field as ``--name=value``, values with
+        whitespace shell-quoted, an empty value as ``--name=``.  Parse
+        it back with ``from_string``."""
+        parts = []
+        for f in dataclasses.fields(self):
+            v = str(getattr(self, f.name))
+            parts.append(f"--{f.name}={shlex.quote(v) if v else ''}")
+        return " ".join(parts)
+
+    @classmethod
+    def from_string(cls, s: str) -> "HParams":
+        """Parse a whole hyperparameter string (shlex-split, so quoted
+        values with spaces survive the round trip)."""
+        return cls.from_argv(shlex.split(s))
 
     def validate(self) -> None:
         if self.mode not in ("train", "eval", "decode"):

@@ -101,6 +101,11 @@ class DecodedResult:
     def summary(self) -> str:
         return " ".join(self.decoded_sents)
 
+    def as_row(self) -> Tuple[str, str, str, str]:
+        """(uuid, article, summary, reference): the write_for_flink row
+        (flink_writer.py:22-34), the pipeline's output row."""
+        return (self.uuid, self.article, self.summary, self.reference)
+
 
 class BeamSearchDecoder:
     """The decode loop over a batcher (decode.py:42-157).
@@ -216,12 +221,13 @@ class BeamSearchDecoder:
 
     def decode(self, with_rouge: bool = True,
                result_sink: Optional[Callable[[DecodedResult], None]] = None,
-               max_batches: int = 0) -> None:
+               max_batches: int = 0, log_results: bool = True) -> None:
         """The main loop (decode.py:131-157) over the batcher's one pass:
         single_pass writes the pyrouge files of every result; otherwise
-        each result is logged.  Every result also goes to ``result_sink``
-        at once.  ROUGE scoring is not ported yet: with_rouge logs where
-        the files are instead."""
+        each result is logged, unless ``log_results`` is False (the
+        pipeline's transform wants its rows through the sink only).
+        Every result also goes to ``result_sink`` at once.  ROUGE scoring
+        is not ported yet: with_rouge logs where the files are instead."""
         counter = 0
         n_batches = 0
         while True:
@@ -237,7 +243,7 @@ class BeamSearchDecoder:
                 if self._hps.single_pass:
                     self.write_for_rouge(res, counter)
                     counter += 1
-                else:
+                elif log_results:
                     log.info("ARTICLE: %s", res.article)
                     log.info("GENERATED SUMMARY: %s", res.summary)
                 if result_sink is not None:

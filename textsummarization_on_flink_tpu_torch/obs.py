@@ -1,0 +1,121 @@
+"""A minimal metrics registry: counters and duration spans.
+
+The part of the JAX package's obs/ that the pipeline layer reports
+through: monotonic counters (``pipeline/rows_in_total``,
+``rows_out_total``, ``codec_errors_total``, ``feeder_errors_total``,
+``source_rows_total``, ``sink_rows_total``, ``train_jobs_total``,
+``inference_jobs_total``) and spans that record how long a stage took
+(``pipeline/fit``, ``pipeline/transform``, ``pipeline/train_job``,
+``pipeline/inference_job``).  The full registry (gauges, histograms,
+labels, exporters) and the flight recorder are ROADMAP.md queue 1,
+item 2d.
+
+``registry()`` is the process default; ``use_registry(reg)`` routes the
+module functions through another one for a block (tests).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from typing import Any, Dict, Iterator, List, Optional
+
+
+class Counter:
+    """Monotonic float counter."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, n: float = 1.0) -> None:
+        if n < 0:
+            raise ValueError(f"counter {self.name} cannot decrease")
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+
+class Registry:
+    """Named counters and the durations of finished spans."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._counters: Dict[str, Counter] = {}
+        self._spans: Dict[str, List[float]] = {}
+
+    def counter(self, name: str) -> Counter:
+        with self._lock:
+            c = self._counters.get(name)
+            if c is None:
+                c = self._counters[name] = Counter(name)
+            return c
+
+    def record_span(self, name: str, seconds: float) -> None:
+        with self._lock:
+            self._spans.setdefault(name, []).append(seconds)
+
+    def span_seconds(self, name: str) -> List[float]:
+        """The durations of every finished span of ``name``, in order."""
+        with self._lock:
+            return list(self._spans.get(name, ()))
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"counters": {k: c.value
+                                 for k, c in self._counters.items()},
+                    "spans": {k: list(v) for k, v in self._spans.items()}}
+
+
+_default: Optional[Registry] = None
+_default_lock = threading.Lock()
+
+
+def registry() -> Registry:
+    """The process-wide default registry (created on first use)."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = Registry()
+        return _default
+
+
+@contextlib.contextmanager
+def use_registry(reg: Registry) -> Iterator[Registry]:
+    """Route the module functions through ``reg`` inside the block."""
+    global _default
+    prev = registry()
+    with _default_lock:
+        _default = reg
+    try:
+        yield reg
+    finally:
+        with _default_lock:
+            _default = prev
+
+
+def registry_for(hps: Any) -> Registry:
+    """The registry a job reports through: the process default.  (The
+    JAX package's ``obs=False`` hyperparameter, which runs a job dark,
+    comes with the full registry.)"""
+    return registry()
+
+
+def counter(name: str) -> Counter:
+    return registry().counter(name)
+
+
+@contextlib.contextmanager
+def span(reg: Registry, name: str) -> Iterator[None]:
+    """Record the block's wall-clock duration as a span of ``name``, also
+    when it raises."""
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        reg.record_span(name, time.monotonic() - t0)
