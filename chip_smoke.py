@@ -20,14 +20,15 @@ device or without the port's sources beside it.  Phases, each fatal:
      kernels' f32 SIMT designs, the fused attention's two-launch design):
      a. the fused additive attention, both dtypes, coverage on and off,
         with a fully masked row, at the beam-decode shape, the long form,
-        the training shape (K = 1) and the App's decode shape (4 articles
-        x 4 beams, f32); then long encoders whose
-        per-position state lives in device memory (16 x 16 x 2000 and
-        4 x 4 x 17,856 and 20,000 positions), with a bitwise repeat;
+        the training shape (K = 1; in bf16 the byte-diet run's) and the
+        App's decode shape (4 articles x 4 beams, f32); then long encoders
+        whose per-position state lives in device memory (16 x 16 x 2000
+        and 4 x 4 x 17,856 and 20,000 positions), with a bitwise repeat;
      b. the fused attention's backward kernel (one launch) at the
         training shape (16 x 400 x 512, coverage on and off) and a long
-        encoder (4 x 4096), against the plain backward, with a bitwise
-        repeat and zero gradients for the empty article;
+        encoder (4 x 4096), on f32 and on bf16 encoder streams, against
+        the plain backward, with a bitwise repeat and zero gradients for
+        the empty article;
      c. the flash self-attention at the transformer encoder's shape
         (16 x 400 x 8 heads x hd 32) and the long-context shape
         (4 x 2048 x 8 x 128), causal on and off, a fully masked article
@@ -40,7 +41,8 @@ device or without the port's sources beside it.  Phases, each fatal:
   4. for each model family, check the beam search on the card against the
      plain CPU path on a small input (same tokens), and three train steps
      of a small model on the card against the CPU (same losses within
-     1e-4 relative, the exact kernel launches);
+     1e-4 relative, the exact kernel launches), the transformer also
+     under --remat (its flash forward twice per layer);
   5. drive each main path, the launch counts set to 0 just before it and
      read just after: full-width params from --seed saved as an npz
      checkpoint, a synthetic 50k vocab and --articles raw-text articles,
@@ -70,7 +72,16 @@ device or without the port's sources beside it.  Phases, each fatal:
      step) and the first 4 summaries against a transform on the CPU from
      the same checkpoint; print fit and transform seconds, the median
      train step, seconds per decoded batch and the launches;
-  7. print the kernels' JSON line, then, last, the device JSON line.
+  7. the pointer-generator's byte-diet and long-run options through
+     ``cli.main`` at the training width (phase_byte_diet): 10 steps with
+     BYTE_DIET_FLAGS (the streaming loss, bf16 compute and Adagrad state,
+     2 steps per dispatch, metrics every 2; every fused launch on a bf16
+     stream, the peak memory beside the materialised run's), 3 steps of
+     the f32 streaming loss against the materialised run's losses, the
+     recovery run (RECOVERY_FLAGS: 2 skips, 1 rollback, lr_scale 0.5)
+     and a bf16 beam decode of 16 articles (2 bf16 fused launches per
+     step);
+  8. print the kernels' JSON line, then, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -205,8 +216,9 @@ def attention_bound_ms(B, K, T, D, elt_bytes, use_cov):
 
 def phase_attention(seed):
     """Kernel vs plain at the beam-decode shape, the long-context shape,
-    the pointer-generator's training shape (K = 1, f32) and the App's
-    decode shape (4 articles x 4 beams, f32)."""
+    the pointer-generator's training shape (K = 1), each on f32 and bf16
+    encoder streams, and the App's decode shape (4 articles x 4 beams,
+    f32)."""
     import torch
 
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
@@ -214,14 +226,16 @@ def phase_attention(seed):
     flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
     rows = []
     worst = 0.0
-    main = None
+    main = main_bf16 = None
     # the beam-decode shape, the long form, the training shape (K = 1),
     # the App's decode shape (batch 4, beam 4: a 16-block cluster)
     cases = [(16, 4, 400, 512), (4, 1, 4096, 512), (16, 1, 400, 512),
              (4, 4, 400, 512)]
     rows_k1, rows_app = {}, {}
     for (B, K, T, D) in cases:
-        dtypes = (torch.float32,) if T == 400 and (K == 1 or B == 4) else (
+        # the App decodes in f32 only; the training shape also runs on a
+        # bf16 stream (--compute_dtype=bfloat16 training)
+        dtypes = (torch.float32,) if (B, K) == (4, 4) else (
             torch.float32, torch.bfloat16)
         for dtype in dtypes:
             for use_cov in (True, False):
@@ -256,14 +270,16 @@ def phase_attention(seed):
                       f"{ATTN_TOL}) at {row}")
                 worst = max(worst, err)
                 rows.append(row)
-                if (B, K, T, D) == cases[0] and dtype == torch.float32 \
-                        and use_cov:
-                    main = row
+                if (B, K, T, D) == cases[0] and use_cov:
+                    if dtype == torch.float32:
+                        main = row
+                    else:
+                        main_bf16 = row
                 if (B, K, T, D) == cases[2]:
-                    rows_k1[use_cov] = row
+                    rows_k1[(row["dtype"], use_cov)] = row
                 if (B, K, T, D) == cases[3]:
                     rows_app[use_cov] = row
-    return main, rows_k1, rows_app, worst
+    return main, main_bf16, rows_k1, rows_app, worst
 
 
 def phase_attention_long(seed):
@@ -311,15 +327,16 @@ def phase_attention_long(seed):
     return worst
 
 
-def attention_bwd_bound_ms(B, T, D, use_cov):
+def attention_bwd_bound_ms(B, T, D, use_cov, elt_bytes=4):
     """Least time for the backward on an H100: bytes (es, ef, mask, cov,
     attn, g_attn, df, g_ctx, v, w_c read once; d_es, d_ef, d_cov, d_df,
-    d_v, d_w_c written once) over the memory rate, and f32 operations over
-    the f32 peak: per (article, position, column) es . g_ctx (2), the
-    query add (1), the coverage term (2), tanh (counted as 1), 1 - u^2
+    d_v, d_w_c written once; es, ef, d_es and d_ef of ``elt_bytes`` each,
+    2 for a bf16 encoder stream) over the memory rate, and f32 operations
+    over the f32 peak: per (article, position, column) es . g_ctx (2),
+    the query add (1), the coverage term (2), tanh (counted as 1), 1 - u^2
     (2), d_e v (1 - u^2) (2), d_es (1), d_df (1), d_v (2), and d_cov and
     d_w_c (2 + 2) with coverage."""
-    big = 4 * B * T * D
+    big = elt_bytes * B * T * D
     rows = 4 * B * T * (6 if use_cov else 5)  # mask, cov, attn, g_attn, d_cov
     nbytes = 4 * big + rows + 4 * 3 * B * D + 4 * 4 * D
     ops = B * T * D * (14 + (6 if use_cov else 0))
@@ -329,15 +346,16 @@ def attention_bwd_bound_ms(B, T, D, use_cov):
             nbytes, ops)
 
 
-def attention_bwd_args(fa, B, T, D, use_cov, seed):
-    """The backward's arguments at (B, T, D): attention_inputs at K = 1,
+def attention_bwd_args(fa, B, T, D, use_cov, seed, dtype=None):
+    """The backward's arguments at (B, T, D): attention_inputs at K = 1 in
+    ``dtype`` (f32 when None; bf16 es and ef are the f32 draws rounded),
     attn from the forward kernel of ``fa`` (the port's
     ops.fused_attention) and gradients of the context and the weights
     from seed + 1."""
     import torch
 
-    es, ef, mask, df, cov, v, w_c = attention_inputs(B, 1, T, D,
-                                                     torch.float32, seed)
+    es, ef, mask, df, cov, v, w_c = attention_inputs(
+        B, 1, T, D, dtype or torch.float32, seed)
     df, cov = df[:, 0].contiguous(), cov[:, 0].contiguous()
     _, attn = fa._attention_rows(es, ef, mask, df, cov, v, w_c, use_cov)
     g = torch.Generator(device="cuda").manual_seed(seed + 1)
@@ -352,52 +370,85 @@ ATTENTION_BWD_CASES = [(16, 400, 512, True), (16, 400, 512, False),
                        (4, 4096, 512, True)]
 
 
+def bf16_ulp(x):
+    """One bf16 unit in the last place of each value of x (8 significant
+    bits), as f32."""
+    import torch
+
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
 def phase_attention_bwd(seed):
     """The backward kernel against the plain backward at the training
     shape (16 articles x 400 positions x 512, K = 1, ragged masks, article
-    1 empty), coverage on and off, and at a long encoder; two launches
-    give the same bits.  No single PyTorch call computes this function,
-    so there is no library time."""
+    1 empty), coverage on and off, and at a long encoder, on f32 and on
+    bf16 encoder streams; two launches give the same bits.  Tolerances:
+    f32 gradients within 1e-5 * max(1, max|g|); in bf16 d_es and d_ef
+    (f32 values within that tolerance, rounded once to bf16 by both)
+    within one bf16 ulp of the plain version's plus the f32 tolerance,
+    the f32 rest as in f32.  The largest absolute error returned per
+    dtype covers all six outputs, the bf16 d_es and d_ef included.  No
+    single PyTorch call computes this function, so there is no library
+    time."""
     import torch
 
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
     flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
-    worst, main = 0.0, {}
-    for (B, T, D, use_cov) in ATTENTION_BWD_CASES:
-        args = attention_bwd_args(fa, B, T, D, use_cov, seed)
-        got = fa._attention_bwd_cuda(*args)
-        again = fa._attention_bwd_cuda(*args)
-        want = fa._attention_bwd_plain(*args)
-        torch.cuda.synchronize()
-        names = ("d_es", "d_ef", "d_df", "d_cov", "d_v", "d_w_c")
-        errs = {k: float((a - w).abs().max()) for k, a, w in
-                zip(names, got, want)}
-        # 1e-5 scaled by the gradient's size, as the CPU tests hold it
-        tols = {k: ATTN_TOL * max(1.0, float(w.abs().max()))
-                for k, w in zip(names, want)}
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        finite = all(bool(torch.isfinite(a).all()) for a in got)
-        empty_zero = all(float(a[1].abs().max()) == 0.0 for a in got[:4])
-        ms = time_cuda(lambda: fa._attention_bwd_cuda(*args), 20, flush)
-        plain_ms = time_cuda(lambda: fa._attention_bwd_plain(*args), 10,
-                             flush)
-        bound, by, nbytes, ops = attention_bwd_bound_ms(B, T, D, use_cov)
-        err = max(errs.values())
-        row = dict(shape=f"{B}x1x{T}x{D}", coverage=use_cov,
-                   max_abs_err=errs, bitwise_repeat=same, ms=ms,
-                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                   bytes=nbytes, ops=ops, library_ms=None)
-        print("attention_bwd " + json.dumps(row))
-        check(finite, f"non-finite backward at {row}")
-        check(empty_zero, f"empty article's gradients not zero at {row}")
-        check(same, f"backward kernel does not repeat its bits at {row}")
-        for k in names:
-            check(errs[k] <= tols[k], f"backward {k} disagrees with plain "
-                                      f"(err {errs[k]} > {tols[k]}) at {row}")
-        worst = max(worst, err)
-        if T == 400:
-            main[use_cov] = row
+    worst, main = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for (B, T, D, use_cov) in ATTENTION_BWD_CASES:
+            args = attention_bwd_args(fa, B, T, D, use_cov, seed, dtype)
+            got = fa._attention_bwd_cuda(*args)
+            again = fa._attention_bwd_cuda(*args)
+            want = fa._attention_bwd_plain(*args)
+            torch.cuda.synchronize()
+            names = ("d_es", "d_ef", "d_df", "d_cov", "d_v", "d_w_c")
+            errs = {k: float((a.float() - w.float()).abs().max())
+                    for k, a, w in zip(names, got, want)}
+            # 1e-5 scaled by the gradient's size, as the CPU tests hold it
+            tols = {k: ATTN_TOL * max(1.0, float(w.float().abs().max()))
+                    for k, w in zip(names, want)}
+            ulps, in_bf16_tol = {}, {}
+            if dtype == torch.bfloat16:
+                for k, a, w in list(zip(names, got, want))[:2]:
+                    diff = (a.float() - w.float()).abs()
+                    ulps[k] = float((diff / bf16_ulp(w)).max())
+                    in_bf16_tol[k] = bool((diff <= bf16_ulp(w)
+                                           + tols[k]).all())
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            finite = all(bool(torch.isfinite(a).all()) for a in got)
+            empty_zero = all(float(a[1].abs().max()) == 0.0 for a in got[:4])
+            right_dtype = got[0].dtype == got[1].dtype == dtype
+            ms = time_cuda(lambda: fa._attention_bwd_cuda(*args), 20, flush)
+            plain_ms = time_cuda(lambda: fa._attention_bwd_plain(*args), 10,
+                                 flush)
+            bound, by, nbytes, ops = attention_bwd_bound_ms(
+                B, T, D, use_cov, 2 if dtype == torch.bfloat16 else 4)
+            row = dict(shape=f"{B}x1x{T}x{D}", dtype=dname, coverage=use_cov,
+                       max_abs_err=errs, bf16_ulps=ulps or None,
+                       bitwise_repeat=same, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops,
+                       library_ms=None)
+            print("attention_bwd " + json.dumps(row))
+            check(finite, f"non-finite backward at {row}")
+            check(right_dtype, f"d_es/d_ef not in {dname} at {row}")
+            check(empty_zero, f"empty article's gradients not zero at {row}")
+            check(same, f"backward kernel does not repeat its bits at {row}")
+            for k in names:
+                if k in ulps:
+                    check(in_bf16_tol[k], f"backward {k} more than one bf16 "
+                                          f"ulp and the f32 tolerance from "
+                                          f"plain at {row}")
+                else:
+                    check(errs[k] <= tols[k],
+                          f"backward {k} disagrees with plain (err "
+                          f"{errs[k]} > {tols[k]}) at {row}")
+            worst[dname] = max(worst.get(dname, 0.0), *errs.values())
+            if T == 400:
+                main[(dname, use_cov)] = row
     return main, worst
 
 
@@ -730,11 +781,14 @@ def small_train_batches(hps, seed, n):
 
 def launch_counts():
     """Every kernel wrapper's launch count: the fused attention's forward
-    and backward, the flash forward, dK/dV and dQ."""
+    and backward (and of those, the launches on a bf16 encoder stream),
+    the flash forward, dK/dV and dQ."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
     return dict(fused=fa.launches, fused_bwd=fa.launches_bwd,
+                fused_bf16=fa.launches_bf16,
+                fused_bwd_bf16=fa.launches_bwd_bf16,
                 flash_forward=fl.launches, flash_bwd_dkv=fl.launches_bwd_dkv,
                 flash_bwd_dq=fl.launches_bwd_dq)
 
@@ -744,30 +798,39 @@ def reset_launch_counts():
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
     fa.launches = fa.launches_bwd = 0
+    fa.launches_bf16 = fa.launches_bwd_bf16 = 0
     fl.launches = fl.launches_bwd_dkv = fl.launches_bwd_dq = 0
 
 
 def expected_train_launches(hps, steps):
     """The launches of ``steps`` train steps: the transformer runs the
-    three flash kernels once per layer per step; the pointer-generator
-    the fused attention forward and backward once per decoder step."""
-    counts = dict(fused=0, fused_bwd=0, flash_forward=0, flash_bwd_dkv=0,
-                  flash_bwd_dq=0)
+    three flash kernels once per layer per step, and under --remat the
+    forward twice (a non-reentrant checkpoint reruns each layer's forward
+    in the backward, tests/test_torch_byte_diet.py counts it); the
+    pointer-generator the fused attention forward and backward once per
+    decoder step (its --remat recomputes only the loss head)."""
+    counts = dict(fused=0, fused_bwd=0, fused_bf16=0, fused_bwd_bf16=0,
+                  flash_forward=0, flash_bwd_dkv=0, flash_bwd_dq=0)
     if hps.model_family == "transformer":
         for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
             counts[k] = (hps.enc_layers + hps.dec_layers) * steps
+        if hps.remat:
+            counts["flash_forward"] *= 2
     else:
         counts["fused"] = counts["fused_bwd"] = hps.max_dec_steps * steps
+        if hps.compute_dtype == "bfloat16":  # every launch on a bf16 stream
+            counts["fused_bf16"] = counts["fused_bwd_bf16"] = counts["fused"]
     return counts
 
 
-def phase_small_training(seed, family):
+def phase_small_training(seed, family, remat=False):
     """Three train steps of a small model of ``family`` on the card (its
     kernels forward and backward) against the same steps on the CPU
-    (plain versions), from one numpy params tree and the same batches.
-    Losses within 1e-4 relative per step: f32 on both sides, but the
-    card's GEMMs and kernels sum in other orders than the CPU's, and
-    three Adagrad steps carry the differences forward."""
+    (plain versions), from one numpy params tree and the same batches;
+    with ``remat`` under --remat (the transformer's flash forward then
+    runs twice per layer).  Losses within 1e-4 relative per step: f32 on
+    both sides, but the card's GEMMs and kernels sum in other orders than
+    the CPU's, and three Adagrad steps carry the differences forward."""
     from textsummarization_on_flink_tpu_torch.decode.beam_search import (
         _to_device,
     )
@@ -777,7 +840,7 @@ def phase_small_training(seed, family):
     )
     from textsummarization_on_flink_tpu_torch.train import trainer
 
-    hps = small_hps(family).replace(mode="train", coverage=True)
+    hps = small_hps(family).replace(mode="train", coverage=True, remat=remat)
     p = init_numpy_params(hps, hps.vocab_size, seed)
     batches = small_train_batches(hps, seed, 3)
     runs = {}
@@ -798,7 +861,8 @@ def phase_small_training(seed, family):
                                      tree_leaves(cpu_state.params)))
     rel = [abs(g - c) / abs(c) for g, c in zip(gpu_losses, cpu_losses)]
     print("small_training " + json.dumps(dict(
-        family=family, cpu_losses=cpu_losses, card_losses=gpu_losses,
+        family=family, remat=remat, cpu_losses=cpu_losses,
+        card_losses=gpu_losses,
         loss_rel_diff=rel, max_param_abs_diff=param_diff,
         card_launches=launched)))
     check(not any(cpu_launched.values()), "the CPU run launched a kernel")
@@ -836,8 +900,10 @@ def main_path_hps(family):
 
 
 def phase_main_path(seed, n_articles, work, device="cuda",
-                    family="pointer_generator"):
+                    family="pointer_generator", compute_dtype="float32"):
     """cli.main at full width; returns the launch and timing summary.
+    With compute_dtype="bfloat16" (the pointer-generator) the encoder
+    stream is bf16 and every fused launch takes the kernel's bf16 form.
     (device="cpu" rehearses the control flow without a card.)"""
     from textsummarization_on_flink_tpu_torch import cli
     from textsummarization_on_flink_tpu_torch.checkpoint import (
@@ -883,6 +949,7 @@ def phase_main_path(seed, n_articles, work, device="cuda",
                  data_path=f"{art_dir}/*.txt", vocab_path=vocab_path,
                  log_root=work, exp_name="exp", device=device,
                  model_family=family, pointer_gen=1,
+                 compute_dtype=compute_dtype,
                  coverage=int(hps.coverage),
                  **{k: getattr(hps, k) for k in (
                      "hidden_dim", "emb_dim", "vocab_size", "max_enc_steps",
@@ -940,9 +1007,15 @@ def phase_main_path(seed, n_articles, work, device="cuda",
               f"(expected 2 per step)")
         check(flash == 0, f"{flash} flash launches in the "
                           f"pointer-generator path")
-    summary = dict(family=family, articles=n_articles, batches=n_batches,
+        bf16 = compute_dtype == "bfloat16"
+        check(launched["fused_bf16"] == (fused if bf16 else 0),
+              f"{launched['fused_bf16']} of {fused} fused launches took a "
+              f"bf16 encoder stream in a {compute_dtype} decode")
+    summary = dict(family=family, compute_dtype=compute_dtype,
+                   articles=n_articles, batches=n_batches,
                    batch_seconds=batch_s, decode_steps=steps,
                    kernel_launches=launches,
+                   bf16_launches=launched["fused_bf16"],
                    launches_per_batch=launches / max(n_batches, 1),
                    decoded_tokens=n_tokens,
                    tokens_per_s=n_tokens / sum(batch_s),
@@ -952,7 +1025,9 @@ def phase_main_path(seed, n_articles, work, device="cuda",
 
 
 class _TrainLog(logging.Handler):
-    """Collects the trainer's per-step seconds and losses."""
+    """Collects the trainer's seconds per step and losses: one seconds
+    line per metrics window (its average over the window's steps),
+    repeated here once per step of the window."""
 
     def __init__(self):
         super().__init__()
@@ -960,7 +1035,7 @@ class _TrainLog(logging.Handler):
 
     def emit(self, record):
         if record.msg.startswith("seconds for training step"):
-            self.seconds.append(float(record.args[0]))
+            self.seconds += [float(record.args[0])] * int(record.args[1])
         elif record.msg.startswith("loss:"):
             self.losses.append(float(record.args[0]))
 
@@ -1022,20 +1097,25 @@ def train_main_path_hps(family):
 
 
 def phase_train_main_path(seed, work, steps=10, device="cuda",
-                          family="transformer"):
-    """cli.main(--mode=train) of ``family`` at the reference width;
-    returns the launch and timing summary.  (device="cpu" rehearses the
-    control flow without a card.)"""
+                          family="transformer", extra=None, fires=0):
+    """cli.main(--mode=train) of ``family`` at the reference width, with
+    the flags ``extra`` on top (the metrics read every step unless they
+    say otherwise); returns the launch and timing summary and the
+    trainer's recovery counters.  ``fires``: the dispatches an injected
+    train.step_nan fault discards (their kernels ran; no loss is logged
+    for them).  (device="cpu" rehearses the control flow without a
+    card.)"""
     import torch
 
-    from textsummarization_on_flink_tpu_torch import cli
+    from textsummarization_on_flink_tpu_torch import cli, obs
     from textsummarization_on_flink_tpu_torch.checkpoint import (
         checkpointer as ckpt_lib,
     )
     from textsummarization_on_flink_tpu_torch.data.batcher import Batcher
     from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
 
-    hps = train_main_path_hps(family)
+    extra = dict(dict(metrics_every=1), **(extra or {}))
+    hps = train_main_path_hps(family).replace(**extra)
     t0 = time.perf_counter()
     vocab_path, data_path = write_train_chunks(work, hps, seed, 64)
     setup_s = time.perf_counter() - t0
@@ -1047,9 +1127,10 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
                  num_steps=steps, coverage=1, pointer_gen=1,
                  data_path=data_path, vocab_path=vocab_path, log_root=work,
                  exp_name="exp", device=device, seed=seed, lr=hps.lr,
-                 **{k: getattr(hps, k) for k in widths})
+                 **{k: getattr(hps, k) for k in widths}, **extra)
     argv = [f"--{k}={v}" for k, v in flags.items()]
     handler = _TrainLog()
+    reg = obs.Registry()
     tr_log = logging.getLogger(
         "textsummarization_on_flink_tpu_torch.train.trainer")
     tr_log.setLevel(logging.INFO)
@@ -1057,23 +1138,24 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     try:
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        rc = cli.main(argv)
-        wall = time.perf_counter() - t0
-        launched = launch_counts()
+        with obs.use_registry(reg):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli.main(argv)
+            wall = time.perf_counter() - t0
+            launched = launch_counts()
     finally:
         tr_log.removeHandler(handler)
     check(rc == 0, f"cli.main returned {rc}")
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
-    want = expected_train_launches(hps, steps)
+    want = expected_train_launches(hps, steps + fires)
     check(launched == want, f"{family} training launched {launched} in "
                             f"{steps} steps, expected {want}")
     losses, seconds = handler.losses, handler.seconds
     check(len(losses) == steps, f"{len(losses)} logged losses for {steps} "
                                 f"steps")
     check(all(np.isfinite(losses)), f"non-finite loss in {losses}")
-    check(float(np.mean(losses[-3:])) < losses[0],
+    check(steps < 5 or float(np.mean(losses[-3:])) < losses[0],
           f"losses did not fall: {losses}")
     train_dir = os.path.join(work, "exp", "train")
     path = os.path.join(train_dir, f"model.ckpt-{steps}.npz")
@@ -1088,17 +1170,30 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
                       single_pass=False)
     tokens = [float(batcher.next_batch().dec_padding_mask.sum())
               for _ in range(steps)]
-    warm = seconds[2:]  # steps 3 .. 10
+    warm = seconds[2:] or seconds  # steps 3 .. 10
     warm_s = statistics.median(warm)
-    summary = dict(family=family, lr=hps.lr, steps=steps, launches=launched,
-                   launches_per_step={k: v / steps
+    counters = reg.snapshot()
+    summary = dict(family=family, lr=hps.lr, steps=steps,
+                   flags={k: v for k, v in extra.items()},
+                   launches=launched,
+                   launches_per_step={k: v / (steps + fires)
                                       for k, v in launched.items()},
                    losses=losses, step_seconds=seconds,
                    warm_median_step_s=warm_s,
                    target_tokens_per_step=statistics.mean(tokens),
-                   target_tokens_per_s=statistics.mean(tokens[2:]) / warm_s,
+                   target_tokens_per_s=statistics.mean(tokens[2:] or tokens)
+                   / warm_s,
                    max_memory_allocated_bytes=peak, cli_wall_s=wall,
                    setup_s=setup_s,
+                   recovery=dict(
+                       nan_skips=counters["counters"].get(
+                           "resilience/train/nan_skips_total", 0.0),
+                       rollbacks=counters["counters"].get(
+                           "resilience/train/rollbacks_total", 0.0),
+                       watchdog=counters["counters"].get(
+                           "train/nan_watchdog_total", 0.0),
+                       lr_scale=counters["gauges"].get(
+                           "resilience/train/lr_scale")),
                    card=card_line() if device == "cuda" else None)
     print("train_main_path " + json.dumps(summary))
     return summary
@@ -1113,7 +1208,8 @@ def pipeline_hps(work, seed, device="cuda"):
     from textsummarization_on_flink_tpu_torch.pipeline import app
 
     train = train_main_path_hps("pointer_generator").replace(
-        num_steps=4, log_root=work, exp_name="exp", seed=seed, device=device)
+        num_steps=4, log_root=work, exp_name="exp", seed=seed, device=device,
+        metrics_every=1)
     infer = app.default_inference_hps(work).replace(device=device)
     return train, infer
 
@@ -1234,6 +1330,97 @@ def phase_pipeline(seed, work, device="cuda"):
     return summary
 
 
+#: the byte-diet training run: the streaming loss in chunks of 10 decoder
+#: steps, bf16 compute (a bf16 encoder stream through both fused
+#: kernels), bf16 Adagrad state, 2 steps per dispatch, metrics every 2
+BYTE_DIET_FLAGS = dict(loss_chunk=10, compute_dtype="bfloat16",
+                       opt_state_dtype="bfloat16", steps_per_dispatch=2,
+                       metrics_every=2)
+#: the recovery run: train.step_nan injected on the first 3 dispatches
+#: (seed 7), 2 skips, then 1 rollback with the LR halved
+RECOVERY_FLAGS = dict(faults="train.step_nan:1.0:7:3", nan_skip_steps=2,
+                      nan_max_rollbacks=1)
+
+
+def _in_work(name, fn):
+    """fn(work) in a fresh scratch directory .smoke_work/<name> (its own
+    log_root), removed afterwards."""
+    work = os.path.join(HERE, ".smoke_work", name)
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    try:
+        return fn(work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase_byte_diet(seed, materialised, device="cuda"):
+    """The pointer-generator's byte-diet and long-run options at the
+    reference width, each run through cli.main with the launch counts set
+    to 0 just before and read just after:
+
+      * 10 steps with BYTE_DIET_FLAGS: every fused launch, forward and
+        backward, on a bf16 stream (100 + 100 per step); losses finite and
+        falling; the peak memory beside the materialised run's, and the
+        median step time of the 2-step metrics windows beside the
+        materialised run's over the same windows;
+      * 3 steps of the f32 streaming loss (--loss_chunk=10) on the
+        materialised run's batches from the same params: its losses within
+        1e-4 relative of that run's first 3;
+      * the recovery run (RECOVERY_FLAGS, 4 steps): 2 skips, 1 rollback,
+        lr_scale 0.5, the 3 discarded dispatches' launches counted;
+      * a bf16 beam decode of 16 articles: 2 fused launches per beam step,
+        each on the kernel's bf16 form.
+
+    ``materialised``: phase_train_main_path's pointer-generator summary.
+    (device="cpu" rehearses the control flow without a card.)"""
+    pg = "pointer_generator"
+    diet = _in_work("diet", lambda w: phase_train_main_path(
+        seed, w, device=device, family=pg, extra=BYTE_DIET_FLAGS))
+    chunked = _in_work("chunk_f32", lambda w: phase_train_main_path(
+        seed, w, steps=3, device=device, family=pg,
+        extra=dict(loss_chunk=10)))
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(chunked["losses"], materialised["losses"][:3])]
+    check(max(rel) <= 1e-4, f"the f32 streaming loss differs from the "
+                            f"materialised one by {rel} (relative)")
+    recovery = _in_work("recovery", lambda w: phase_train_main_path(
+        seed, w, steps=4, device=device, family=pg, extra=RECOVERY_FLAGS,
+        fires=3))
+    rec = recovery["recovery"]
+    check((rec["nan_skips"], rec["rollbacks"], rec["watchdog"],
+           rec["lr_scale"]) == (2.0, 1.0, 3.0, 0.5),
+          f"recovery took {rec}, expected 2 skips, 1 rollback, 3 watchdog "
+          f"fires, lr_scale 0.5")
+    decode = _in_work("decode_bf16", lambda w: phase_main_path(
+        seed, 16, w, device=device, family=pg, compute_dtype="bfloat16"))
+    # the byte-diet run's host reads one metrics window of 2 steps at a
+    # time, so its step times are window averages; the materialised run
+    # (a read per step) is averaged over the same windows to compare
+    width = BYTE_DIET_FLAGS["metrics_every"]
+    warm = materialised["step_seconds"][2:]
+    mat_windows = [statistics.mean(warm[i:i + width])
+                   for i in range(0, len(warm), width)]
+    summary = dict(
+        diet_warm_median_window_step_s=diet["warm_median_step_s"],
+        materialised_warm_median_window_step_s=statistics.median(
+            mat_windows),
+        materialised_warm_median_step_s=materialised["warm_median_step_s"],
+        window_steps=width,
+        diet_target_tokens_per_s=diet["target_tokens_per_s"],
+        diet_peak_bytes=diet["max_memory_allocated_bytes"],
+        materialised_peak_bytes=materialised["max_memory_allocated_bytes"],
+        diet_launches_per_step=diet["launches_per_step"],
+        diet_losses=diet["losses"], chunk_f32_losses=chunked["losses"],
+        chunk_f32_rel_diff=rel, recovery=rec,
+        recovery_launches=recovery["launches"],
+        decode_bf16_launches_per_step=decode["kernel_launches"]
+        / max(decode["decode_steps"], 1),
+        decode_bf16_batch_seconds=decode["batch_seconds"])
+    print("byte_diet " + json.dumps(summary))
+    return dict(diet=diet, chunked=chunked, recovery=recovery, decode=decode)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1263,7 +1450,7 @@ def main(argv=None) -> int:
     for name in libs:
         sys.stdout.write(build.build_log(name))
 
-    main_row, k1_rows, app_rows, worst = phase_attention(args.seed)
+    main_row, bf16_row, k1_rows, app_rows, worst = phase_attention(args.seed)
     worst = max(worst, phase_attention_long(args.seed))
     bwd_att_rows, bwd_att_worst = phase_attention_bwd(args.seed)
     flash_row, flash_worst = phase_flash(args.seed)
@@ -1279,53 +1466,58 @@ def main(argv=None) -> int:
     for family in ("pointer_generator", "transformer"):
         phase_small_reference(args.seed, family)
         phase_small_training(args.seed, family)
+    phase_small_training(args.seed, "transformer", remat=True)
 
     summaries, train = {}, {}
-    for family in ("pointer_generator", "transformer"):
-        work = os.path.join(HERE, ".smoke_work", family)  # own log_root
-        shutil.rmtree(work, ignore_errors=True)
-        os.makedirs(work)
-        try:
-            summaries[family] = phase_main_path(args.seed, args.articles,
-                                                work, family=family)
-        finally:
-            shutil.rmtree(work, ignore_errors=True)
-        work = os.path.join(HERE, ".smoke_work", "train_" + family)
-        shutil.rmtree(work, ignore_errors=True)
-        os.makedirs(work)
-        try:
-            train[family] = phase_train_main_path(args.seed, work,
-                                                  family=family)
-        finally:
-            shutil.rmtree(work, ignore_errors=True)
-    work = os.path.join(HERE, ".smoke_work", "pipeline")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    try:
-        pipe = phase_pipeline(args.seed, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    for family in ("pointer_generator", "transformer"):  # own log_roots
+        summaries[family] = _in_work(family, lambda w: phase_main_path(
+            args.seed, args.articles, w, family=family))
+        train[family] = _in_work("train_" + family, lambda w:
+                                 phase_train_main_path(args.seed, w,
+                                                       family=family))
+    pipe = _in_work("pipeline", lambda w: phase_pipeline(args.seed, w))
+    diet = phase_byte_diet(args.seed, train["pointer_generator"])
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     bwd_main = bwd_rows[0]  # the training encoder's shape
+    # the fused attention's backward at the training shape, coverage on
+    bwd_f32 = bwd_att_rows[("float32", True)]
+    bwd_bf16 = bwd_att_rows[("bfloat16", True)]
+    # the fused attention at the training shape (K = 1), coverage on
+    k1_f32, k1_bf16 = k1_rows[("float32", True)], k1_rows[("bfloat16", True)]
     flash_src = "textsummarization_on_flink_tpu_torch/kernels/flash_attention"
     fused_src = "textsummarization_on_flink_tpu_torch/kernels/fused_attention"
     pg_train = train["pointer_generator"]["launches"]
     tf_train = train["transformer"]["launches"]
+    # the byte-diet phase's paths: bf16 training, f32 streaming loss,
+    # recovery, bf16 decode
+    diet_runs = [diet[k]["launches"] for k in ("diet", "chunked", "recovery")]
+    bf16_bwd = diet["diet"]["launches"]["fused_bwd_bf16"]
     kernels = [dict(
         name="fused_attention", route="cuda", source=fused_src + ".cu",
         replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:58",
         # every main path that runs it: decode, training, the pipeline's
-        # fit and transform
+        # fit and transform, the byte-diet phase's runs and bf16 decode
         launches=summaries["pointer_generator"]["kernel_launches"]
         + pg_train["fused"] + pipe["fit_launches"]["fused"]
-        + pipe["transform_launches"]["fused"],
+        + pipe["transform_launches"]["fused"]
+        + sum(r["fused"] for r in diet_runs)
+        + diet["decode"]["kernel_launches"],
         max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
+        # the bf16 stream at the decode shape and at the training shape
+        bf16_stream=dict(
+            shape=bf16_row["shape"], ms=bf16_row["ms"],
+            plain_ms=bf16_row["plain_ms"], bound_ms=bf16_row["bound_ms"],
+            launches=diet["decode"]["bf16_launches"]),
+        bf16_training_shape=dict(
+            shape=k1_bf16["shape"], ms=k1_bf16["ms"],
+            plain_ms=k1_bf16["plain_ms"], bound_ms=k1_bf16["bound_ms"],
+            bound_by=k1_bf16["bound_by"],
+            launches=diet["diet"]["launches"]["fused_bf16"]),
         training_shape=dict(
-            shape=k1_rows[True]["shape"], ms=k1_rows[True]["ms"],
-            plain_ms=k1_rows[True]["plain_ms"],
-            bound_ms=k1_rows[True]["bound_ms"],
+            shape=k1_f32["shape"], ms=k1_f32["ms"],
+            plain_ms=k1_f32["plain_ms"], bound_ms=k1_f32["bound_ms"],
             launches=pg_train["fused"] + pipe["fit_launches"]["fused"]),
         app_decode_shape=dict(
             shape=app_rows[True]["shape"], ms=app_rows[True]["ms"],
@@ -1336,11 +1528,20 @@ def main(argv=None) -> int:
         name="fused_attention_bwd", route="cuda", source=fused_src + "_bwd.cu",
         # the custom_vjp's backward (jax.vjp of the XLA formula)
         replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:360",
-        launches=pg_train["fused_bwd"] + pipe["fit_launches"]["fused_bwd"],
-        max_abs_err=bwd_att_worst,
-        ms=bwd_att_rows[True]["ms"], plain_ms=bwd_att_rows[True]["plain_ms"],
-        bound_ms=bwd_att_rows[True]["bound_ms"],
-        bound_by=bwd_att_rows[True]["bound_by"], library_ms=None), dict(
+        launches=pg_train["fused_bwd"] + pipe["fit_launches"]["fused_bwd"]
+        + sum(r["fused_bwd"] - r["fused_bwd_bf16"] for r in diet_runs),
+        max_abs_err=bwd_att_worst["float32"],
+        ms=bwd_f32["ms"], plain_ms=bwd_f32["plain_ms"],
+        bound_ms=bwd_f32["bound_ms"], bound_by=bwd_f32["bound_by"],
+        library_ms=None), dict(
+        # the same kernel's bf16 encoder-stream form
+        name="fused_attention_bwd_bf16", route="cuda",
+        source=fused_src + "_bwd.cu",
+        replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:360",
+        launches=bf16_bwd, max_abs_err=bwd_att_worst["bfloat16"],
+        bf16_ulps=bwd_bf16["bf16_ulps"], ms=bwd_bf16["ms"],
+        plain_ms=bwd_bf16["plain_ms"], bound_ms=bwd_bf16["bound_ms"],
+        bound_by=bwd_bf16["bound_by"], library_ms=None), dict(
         name="flash_attention", route="cuda",
         source="textsummarization_on_flink_tpu_torch/kernels/flash_attention.cu",
         # the library Pallas kernel, at its call site in the repo

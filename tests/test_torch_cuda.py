@@ -10,7 +10,11 @@ installed:
 
 Tolerance 1e-5 absolute: kernel and plain version compute in f32 on the
 same values (bf16 inputs are upcast on load by both) and differ only in
-the order of their sums."""
+the order of their sums; a bf16 output both round once from f32 (the
+backward's d_es and d_ef on a bf16 stream) within one bf16 ulp plus
+that tolerance.  The
+training tests at the end (the streaming loss, a bf16 train step, the
+pipeline) hold the card against --device=cpu."""
 
 import numpy as np
 import pytest
@@ -45,12 +49,13 @@ def _inputs(B, K, T, D, dtype, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(3, 4, 100, 64), (2, 1, 333, 96),
-                                   (2, 6, 70, 512)])
+                                   (2, 6, 70, 512), (16, 1, 400, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("use_cov", [False, True])
 def test_kernel_matches_plain_on_card(shape, dtype, use_cov):
     """Ragged last tiles, K below, at and above the kernel's 4 queries per
-    register pass, one fully masked row."""
+    register pass, one fully masked row; and the pointer-generator's
+    training shape (K = 1), which bf16 training runs on a bf16 stream."""
     _need_cuda()
     args = _inputs(*shape, dtype)
     before = fa.launches
@@ -482,11 +487,82 @@ def test_fused_attention_backward_refusal_matches_the_kernel_on_card(D):
                            fa._BWD_TICKET_FLOATS + 2 * B * D)
     err = fa._load_bwd_library().ts_fused_attention_bwd(
         *(x.data_ptr() for x in args), *(x.data_ptr() for x in outs),
-        part.data_ptr(), B, T, D, 1, stream.cuda_stream)
+        part.data_ptr(), B, T, D, 1, 0, stream.cuda_stream)
     torch.cuda.synchronize()
     assert err == (1 if refused else 0)
     if not refused:
         _close_scaled(outs, fa._attention_bwd_plain(*args, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2312, 3068, 3072, 3076, 3080])
+def test_fused_attention_backward_bf16_refusal_matches_the_kernel_on_card(D):
+    """The same for bf16 encoder streams: D a multiple of 8 (16-byte rows
+    for the TMA copies) up to 3,072 columns, where f32 stops at 2,308."""
+    _need_cuda()
+    B, T = 2, 20
+    args = list(_bwd_inputs(B, T, D))
+    args[0], args[1] = args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)
+    refused = fa._bwd_shape_refusal(args[0]) is not None
+    assert refused == (D % 8 != 0 or D > 3072)
+    outs = [torch.empty_like(x) for x in (args[0], args[1], args[3],
+                                          args[7], args[5], args[6])]
+    stream = torch.cuda.current_stream()
+    part = fa._bwd_scratch(args[0].device, stream.cuda_stream,
+                           fa._BWD_TICKET_FLOATS + 2 * B * D)
+    err = fa._load_bwd_library().ts_fused_attention_bwd(
+        *(x.data_ptr() for x in args), *(x.data_ptr() for x in outs),
+        part.data_ptr(), B, T, D, 1, 1, stream.cuda_stream)
+    torch.cuda.synchronize()
+    assert err == (1 if refused else 0)
+    if not refused:
+        _close_bf16(outs, fa._attention_bwd_plain(*args, True))
+
+
+def _bf16_ulp(x):
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def _close_bf16(got, want):
+    """bf16 streams: d_es and d_ef are f32 values within _close_scaled's
+    tolerance of each other (the sums run in other orders, and a
+    difference of nearby terms keeps that absolute error), rounded once
+    to bf16 by kernel and plain version alike: within one bf16 ulp of the
+    plain version's plus that tolerance.  The f32 rest as _close_scaled
+    holds them."""
+    for g, w in zip(got[:2], want[:2]):
+        assert g.dtype == w.dtype == torch.bfloat16
+        tol = 1e-5 * max(1.0, float(w.float().abs().max()))
+        assert bool(((g.float() - w.float()).abs()
+                     <= _bf16_ulp(w) + tol).all())
+    _close_scaled(got[2:], want[2:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(16, 400, 512), (4, 4096, 512),
+                                   (2, 1, 8), (3, 65, 136), (2, 333, 520),
+                                   (2, 60, 2312), (40, 400, 512)])
+@pytest.mark.parametrize("use_cov", [False, True])
+def test_fused_attention_backward_bf16_matches_plain_on_card(B, T, D,
+                                                              use_cov):
+    """The backward kernel's bf16 encoder-stream form against the plain
+    backward: the training shape, a long encoder, one position, ragged T
+    and D, past 2,308 columns (taken in bf16 only), 40 articles; coverage
+    on and off; article 1 empty; two launches give the same bits."""
+    _need_cuda()
+    args = list(_bwd_inputs(B, T, D, seed=T))
+    args[0], args[1] = args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)
+    before = (fa.launches_bwd, fa.launches_bwd_bf16)
+    got = fa._attention_bwd_cuda(*args, use_cov)
+    again = fa._attention_bwd_cuda(*args, use_cov)
+    torch.cuda.synchronize()
+    assert (fa.launches_bwd, fa.launches_bwd_bf16) == (before[0] + 2,
+                                                       before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _close_bf16(got, fa._attention_bwd_plain(*args, use_cov))
+    if B > 1:
+        assert all(not g[1].any() for g in got[:4])
 
 
 @pytest.mark.cuda
@@ -533,13 +609,19 @@ def test_fused_attention_function_on_card_matches_the_cpu(use_cov):
 
 @pytest.mark.cuda
 def test_fused_attention_backward_refuses_on_card():
-    """bf16 encoder streams (the port trains in f32) and a D the kernel
-    cannot read in float4 groups are refused, and nothing is launched."""
+    """An fp16 encoder stream (the kernel takes f32 and bf16), a bf16
+    stream with D not a multiple of 8, and an f32 one with D not a
+    multiple of 4 are refused, and nothing is launched."""
     _need_cuda()
     args = list(_bwd_inputs(2, 40, 64))
     before = fa.launches_bwd
-    bf16 = [args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)] + args[2:]
-    with pytest.raises(NotImplementedError, match="queue 1, item 2b"):
+    fp16 = [args[0].half(), args[1].half()] + args[2:]
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa._attention_bwd_cuda(*fp16, True)
+    args12 = list(_bwd_inputs(2, 40, 12))
+    bf16 = [args12[0].to(torch.bfloat16), args12[1].to(torch.bfloat16)] + \
+        args12[2:]
+    with pytest.raises(ValueError, match="multiple of 8"):
         fa._attention_bwd_cuda(*bf16, True)
     odd = list(_bwd_inputs(2, 40, 64))
     odd = [odd[0][..., :62].contiguous(), odd[1][..., :62].contiguous(),
@@ -626,3 +708,128 @@ def test_pipeline_fit_then_transform_on_card_matches_the_cpu(tmp_path):
     for k, w in cpu_arrays.items():
         err = float(np.max(np.abs(arrays[k] - w)))
         assert err <= 1e-4 * max(1.0, float(np.max(np.abs(w)))), (k, err)
+
+
+def _small_pg(**kw):
+    from textsummarization_on_flink_tpu_torch.config import HParams
+
+    return HParams(mode="train", batch_size=4, hidden_dim=32, emb_dim=16,
+                   vocab_size=100, max_enc_steps=40, max_dec_steps=12,
+                   min_dec_steps=3, max_oov_buckets=8, coverage=True,
+                   **kw)
+
+
+def _small_batches(hps, n):
+    from textsummarization_on_flink_tpu_torch.data import batching
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+
+    words = [f"w{i}" for i in range(hps.vocab_size - 4)]
+    vocab = Vocab(words=words)
+    rng = np.random.RandomState(3)
+    out = []
+    for _ in range(n):
+        exs = []
+        for _ in range(hps.batch_size):
+            art = [words[j] if rng.rand() < 0.8 else f"oov{j % 5}"
+                   for j in rng.randint(0, len(words), rng.randint(12, 40))]
+            abs_ = [art[j] for j in rng.randint(0, len(art),
+                                                rng.randint(3, 11))]
+            exs.append(batching.SummaryExample.build(
+                " ".join(art), [" ".join(abs_)], vocab, hps))
+        out.append(batching.Batch(exs, hps, vocab).as_arrays())
+    return out
+
+
+def _loss_and_grads(hps, params, arrays, dev):
+    from textsummarization_on_flink_tpu_torch.decode.beam_search import (
+        _to_device,
+    )
+    from textsummarization_on_flink_tpu_torch.models import (
+        pointer_generator as pg,
+    )
+    from textsummarization_on_flink_tpu_torch.params import (
+        from_numpy_tree,
+        tree_leaves,
+    )
+
+    p = from_numpy_tree(params, dev)
+    for x in tree_leaves(p):
+        x.requires_grad_(True)
+    out = pg.forward_train(p, hps, _to_device(arrays, dev))
+    grads = torch.autograd.grad(out.total_loss, tree_leaves(p))
+    return float(out.total_loss.detach()), [g.cpu().numpy() for g in grads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1, 5, 99])
+def test_streaming_loss_on_card_matches_the_materialised_loss(chunk):
+    """--loss_chunk on the card (the fused kernels forward and backward,
+    the chunks' recomputed scores): the loss and every gradient of the
+    pointer-generator equal the card's materialised loss within 1e-5 *
+    max(1, max|g|), and the CPU's streaming loss within 1e-4 (other sum
+    orders on the card)."""
+    from textsummarization_on_flink_tpu_torch.params import init_numpy_params
+
+    _need_cuda()
+    hps = _small_pg(loss_chunk=chunk, device="cuda")
+    params = init_numpy_params(hps, hps.vocab_size, 0)
+    arrays = _small_batches(hps, 1)[0]
+    loss, grads = _loss_and_grads(hps, params, arrays, "cuda")
+    m_loss, m_grads = _loss_and_grads(hps.replace(loss_chunk=0), params,
+                                      arrays, "cuda")
+    c_loss, c_grads = _loss_and_grads(hps, params, arrays, "cpu")
+    assert loss == pytest.approx(m_loss, rel=1e-6)
+    assert loss == pytest.approx(c_loss, rel=1e-4)
+    for g, m, c in zip(grads, m_grads, c_grads):
+        assert np.max(np.abs(g - m)) <= 1e-5 * max(1.0, np.max(np.abs(m)))
+        assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))
+
+
+@pytest.mark.cuda
+def test_bf16_train_step_on_card_matches_the_cpu():
+    """One train step of the pointer-generator with --compute_dtype=
+    bfloat16 --opt_state_dtype=bfloat16 --loss_chunk=5 on the card (the
+    fused kernels' bf16 forms, bf16 GEMMs) against --device=cpu: the loss,
+    the new params and accumulators within 4 times the CPU's own distance
+    between its bf16 and f32 steps (the rule of the CPU tests against the
+    JAX package: the card's GEMMs round bf16 at other places), and every
+    fused launch on a bf16 stream."""
+    from textsummarization_on_flink_tpu_torch.decode.beam_search import (
+        _to_device,
+    )
+    from textsummarization_on_flink_tpu_torch.params import (
+        init_numpy_params,
+        tree_leaves,
+    )
+    from textsummarization_on_flink_tpu_torch.train import trainer
+
+    _need_cuda()
+    hps = _small_pg(compute_dtype="bfloat16", opt_state_dtype="bfloat16",
+                    loss_chunk=5)
+    params = init_numpy_params(hps, hps.vocab_size, 1)
+    params["embedding"] *= 4.0
+    arrays = _small_batches(hps, 1)[0]
+    runs = {}
+    for dev, h in (("cuda", hps), ("cpu", hps),
+                   ("cpu32", hps.replace(compute_dtype="float32",
+                                         opt_state_dtype="float32"))):
+        d = "cpu" if dev == "cpu32" else dev
+        h = h.replace(device=d)
+        state = trainer.init_train_state(h, h.vocab_size, params=params)
+        counts = (fa.launches_bf16, fa.launches_bwd_bf16)
+        state, m = trainer.train_step(h, state, _to_device(arrays, d))
+        launched = (fa.launches_bf16 - counts[0],
+                    fa.launches_bwd_bf16 - counts[1])
+        runs[dev] = (float(m.loss), [
+            x.detach().float().cpu().numpy() for x in
+            tree_leaves(state.params) + tree_leaves(
+                state.opt_state.accumulators)], launched)
+    (g_loss, g_leaves, launched), (c_loss, c_leaves, _), (f_loss, f_leaves,
+                                                          _) = (
+        runs["cuda"], runs["cpu"], runs["cpu32"])
+    assert launched == (hps.max_dec_steps, hps.max_dec_steps)
+    assert abs(g_loss - c_loss) <= 4 * abs(c_loss - f_loss) + 1e-5
+    for g, c, f in zip(g_leaves, c_leaves, f_leaves):
+        bound = 4 * float(np.max(np.abs(c - f))) + 1e-5 * max(
+            1.0, float(np.max(np.abs(c))))
+        assert float(np.max(np.abs(g - c))) <= bound

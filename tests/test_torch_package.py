@@ -66,6 +66,8 @@ def test_cli_without_cpu_request_raises_when_no_cuda(tmp_path):
     assert device_lib.resolve_device("cpu") == torch.device("cpu")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+    assert torch.backends.cuda.matmul.\
+        allow_bf16_reduced_precision_reduction is False
 
 
 def test_from_argv_matches_jax_on_shared_fields():
@@ -82,8 +84,12 @@ def test_from_argv_matches_jax_on_shared_fields():
 
 
 def test_validate_refuses_unported_options():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_config.HParams(compute_dtype="bfloat16").validate()
+    """bf16 compute is taken for the pointer-generator; the transformer in
+    bf16 waits for its flash kernels' bf16 forms (ROADMAP item 2g)."""
+    torch_config.HParams(compute_dtype="bfloat16").validate()
+    with pytest.raises(NotImplementedError, match="item 2g"):
+        torch_config.HParams(compute_dtype="bfloat16",
+                             model_family="transformer").validate()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_config.HParams(model_family="avg_attention").validate()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -99,8 +105,8 @@ def test_cli_refuses_train_and_eval(tmp_path):
     """Both families train and evaluate now, and the checkpoint-surgery
     flags run and exit: pointer-generator (the default family) training
     and eval through the CLI on the CPU, then ``--convert_to_coverage_model``
-    on its checkpoint.  The streaming ``--loss_chunk`` still raises,
-    naming its ROADMAP item."""
+    on its checkpoint.  The transformer in bf16 still raises, naming its
+    ROADMAP item (``--loss_chunk`` is taken now)."""
     chunks.write_chunk_file(
         str(tmp_path / "train_000.bin"),
         [{"article": [article(i)], "abstract": [abstract(i)]}
@@ -123,9 +129,10 @@ def test_cli_refuses_train_and_eval(tmp_path):
     assert cli.main(["--mode=train", "--convert_to_coverage_model=1",
                      *flags]) == 0
     assert (train_dir / "model.ckpt-2_cov_init.npz").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 2a"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 2g"):
         cli.main(["--mode=train", "--model_family=transformer",
-                  "--loss_chunk=8", "--device=cpu", f"--log_root={tmp_path}"])
+                  "--compute_dtype=bfloat16", "--loss_chunk=8",
+                  "--device=cpu", f"--log_root={tmp_path}"])
 
 
 def test_tokenizer_matches_jax():

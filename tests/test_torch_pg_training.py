@@ -132,18 +132,28 @@ def test_autograd_function_matches_jax_custom_vjp(use_cov):
 
 
 def test_backward_refuses_bf16_encoder_streams():
+    """The backward no longer refuses a bf16 encoder stream: through the
+    autograd Function, bf16 es/ef give bf16 d_es/d_ef (the primal's
+    dtype, as jax.vjp gives them) and f32 gradients of the rest, and a
+    stream of another dtype is still refused (fp16 is no stream the
+    forward takes)."""
     x = attention_inputs()
     args = {k: t(x[k]) for k in x}
-    es16 = args["es"].to(torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="queue 1, item 2b"):
-        fa._attention_bwd_plain(es16, args["ef"].to(torch.bfloat16),
-                                args["mask"], args["df"], args["cov"],
-                                args["v"], args["w_c"], args["g_attn"],
-                                args["g_ctx"], args["g_attn"], True)
+    es16 = args["es"].to(torch.bfloat16).requires_grad_()
+    ef16 = args["ef"].to(torch.bfloat16).requires_grad_()
     df = args["df"].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="queue 1, item 2b"):
-        fa.fused_attention(es16, args["ef"].to(torch.bfloat16), args["mask"],
-                           df, args["cov"], args["v"], args["w_c"], True)
+    ctx, attn = fa.fused_attention(es16, ef16, args["mask"], df, args["cov"],
+                                   args["v"], args["w_c"], True)
+    d_es, d_ef, d_df = torch.autograd.grad(
+        (ctx * args["g_ctx"]).sum() + (attn * args["g_attn"]).sum(),
+        (es16, ef16, df))
+    assert (d_es.dtype, d_ef.dtype, d_df.dtype) == (
+        torch.bfloat16, torch.bfloat16, torch.float32)
+    with pytest.raises(ValueError, match="dtype"):
+        fa._attention_bwd_cuda(args["es"].half(), args["ef"].half(),
+                               args["mask"], args["df"], args["cov"],
+                               args["v"], args["w_c"], args["g_attn"],
+                               args["g_ctx"], args["g_attn"], True)
 
 
 def hps_pair(**kw):
@@ -248,13 +258,17 @@ def test_three_train_steps_track_jax():
 
 
 def test_validate_refuses_remat_and_loss_chunk():
-    """The streaming loss and remat are not ported: validate names their
-    ROADMAP items."""
+    """remat and the streaming loss are taken now; validate still refuses
+    a negative chunk, as the JAX package's does, and names ROADMAP item
+    2g for the transformer in bf16."""
     _, thps = hps_pair()
-    with pytest.raises(NotImplementedError, match="queue 1, item 2c"):
-        thps.replace(remat=True).validate()
-    with pytest.raises(NotImplementedError, match="queue 1, item 2a"):
-        thps.replace(loss_chunk=4).validate()
+    thps.replace(remat=True).validate()
+    thps.replace(loss_chunk=4).validate()
+    with pytest.raises(ValueError, match="loss_chunk"):
+        thps.replace(loss_chunk=-1).validate()
+    with pytest.raises(NotImplementedError, match="queue 1, item 2g"):
+        thps.replace(model_family="transformer", hidden_dim=32, num_heads=2,
+                     compute_dtype="bfloat16").validate()
 
 
 def test_backward_kernel_wrapper_refuses_cpu_tensors():

@@ -334,7 +334,10 @@ def test_a_consumer_that_stops_early_cancels_the_feeder(port_run, tmp_path):
         make_estimator("port", tmp_path).fit(io.IteratorSource(endless))
         assert not _feeder_threads()
         fed = reg.counter("pipeline/rows_in_total").value
-        assert 8 <= fed <= 8 + 1024 + 1  # two batches, the queue's bound
+        # two batches trained, the trainer's prefetcher ahead by at most
+        # its queue's 2 batches and the one it holds (of 4 rows each),
+        # the record queue's bound and one row in flight
+        assert 8 <= fed <= 8 + 3 * 4 + 1024 + 1
         model = make_estimator("port", port_run["root"])._model()
         sink = model.transform(io.IteratorSource(endless), max_batches=1)
     assert len(sink.rows) == 4

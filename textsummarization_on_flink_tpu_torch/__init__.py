@@ -5,11 +5,12 @@ keeps its counterpart's name and is held against it by the
 ``tests/test_torch_*.py`` parity tests.  This package imports torch and
 numpy, never jax and nothing of the JAX package.
 
-Ported so far: the batch beam-decode serving path (``cli.py
---mode=decode``) of the pointer-generator and of the transformer family,
-with two hand-written CUDA kernels for Hopper: the fused additive
-attention (``ops/fused_attention.py``, ``kernels/fused_attention.cu``)
-and the transformer encoder's flash self-attention
-(``ops/flash_attention.py``, ``kernels/flash_attention.cu``).
-ROADMAP.md lists what remains.
+Ported so far: beam decode, training and eval of the pointer-generator
+and of the transformer family (``cli.py --mode=train|eval|decode``) with
+the trainer's byte-diet and long-run options, checkpoints both packages
+read, and the pipeline layer (``pipeline/``), over five hand-written
+CUDA kernels for Hopper (``kernels/``): the fused additive attention and
+its backward (``ops/fused_attention.py``), and the flash self-attention
+forward, dK/dV and dQ (``ops/flash_attention.py``).  ROADMAP.md lists
+what remains.
 """

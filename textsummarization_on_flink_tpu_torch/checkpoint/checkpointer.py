@@ -13,8 +13,12 @@ Training state: ``state_to_arrays`` / ``arrays_to_state`` (the key scheme
 ``params/...``, ``opt_state/accumulators/...``, ``step`` as int32, so
 each package restores the other's training checkpoints), the
 ``Checkpointer`` (max_to_keep=3 retention, the ``hparams.json`` sidecar,
-restore with the corrupt-file fallback) and the eval side's
-``BestModelSaver``.  Checkpoint surgery (``convert_to_coverage_model``,
+restore with the corrupt-file fallback and the ``ckpt.load`` fault
+point, which the trainer's divergence rollback also restores through)
+and the eval side's ``BestModelSaver``.  bf16 accumulators
+(``--opt_state_dtype=bfloat16``) are widened to f32 on save, as the JAX
+package writes them (npz has no bf16; the widening is exact); the
+Trainer narrows them again on resume.  Checkpoint surgery (``convert_to_coverage_model``,
 ``restore_best_model``) writes the JAX package's file names and index
 files (checkpointer.py:542-605 there).
 """
@@ -33,8 +37,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch import params as params_lib
 from textsummarization_on_flink_tpu_torch.config import HParams
+from textsummarization_on_flink_tpu_torch.resilience import faultinject
 from textsummarization_on_flink_tpu_torch.train import trainer as trainer_lib
 
 log = logging.getLogger(__name__)
@@ -186,6 +192,23 @@ def verify_manifest(path: str) -> bool:
     return True
 
 
+def load_arrays_verified(path: str, faults: Optional[Any] = None,
+                         ) -> Dict[str, np.ndarray]:
+    """Checksum-verify ``path`` (when it has a manifest), then load it
+    (JAX checkpointer.py:236-251).  The ``ckpt.load`` fault point fires
+    here, and a payload that will not decode is a CheckpointCorruptError,
+    so every corruption takes the same fallback."""
+    plan = faults if faults is not None else faultinject.plan()
+    if plan.fire("ckpt.load"):
+        raise CheckpointCorruptError(f"injected ckpt.load fault for {path}")
+    verify_manifest(path)
+    try:
+        return load_arrays(path)
+    except (ValueError, OSError, KeyError) as e:
+        raise CheckpointCorruptError(
+            f"checkpoint {path} failed to decode: {e}") from e
+
+
 def _ckpt_step(path: str) -> Tuple[int, int]:
     """Sort key (step, is_surgery): surgery outputs (`-<N>_cov_init.npz`)
     sort after the plain checkpoint of the same step."""
@@ -231,18 +254,21 @@ def _candidates(directory: str, index_file: str) -> List[str]:
 
 def load_ckpt(directory: str, index_file: str = INDEX_FILE,
               max_retries: Optional[int] = None, retry_secs: float = 10.0,
+              faults: Optional[Any] = None,
               ) -> Tuple[str, Dict[str, np.ndarray]]:
     """(path, flat arrays) of the newest loadable checkpoint, checksum-
-    verified, falling back over corrupt candidates, retrying every
-    ``retry_secs`` until one appears (the reference's util.py:29-41
-    waits forever; ``max_retries`` bounds it)."""
+    verified, falling back over corrupt candidates
+    (``resilience/ckpt_fallbacks_total``), retrying every ``retry_secs``
+    until one appears (the reference's util.py:29-41 waits forever;
+    ``max_retries`` bounds it).  ``faults``: the plan whose ``ckpt.load``
+    point fires per candidate (the process default when None)."""
     attempt = 0
     while True:
         for path in _candidates(directory, index_file):
             try:
-                verify_manifest(path)
-                return path, load_arrays(path)
-            except (CheckpointCorruptError, ValueError, KeyError) as e:
+                return path, load_arrays_verified(path, faults)
+            except CheckpointCorruptError as e:
+                obs.counter("resilience/ckpt_fallbacks_total").inc()
                 log.warning("checkpoint %s unusable (%s); falling back to "
                             "the next-older checkpoint", path, e)
             except OSError as e:  # raced with retention cleanup
@@ -297,8 +323,17 @@ class Checkpointer:
         self.directory = directory
         self.max_to_keep = max_to_keep
         self.hps = hps
+        # a per-job fault plan (hps.faults) is resolved once, so its RNG
+        # streams and fire budgets persist across restore() calls; the
+        # process default (TS_FAULTS) stays resolved per use
+        self._job_faults = (faultinject.plan_for(hps)
+                            if hps is not None and hps.faults else None)
         os.makedirs(directory, exist_ok=True)
         self._sidecar_pending = hps is not None
+
+    def _faults(self) -> Any:
+        return (self._job_faults if self._job_faults is not None
+                else faultinject.plan())
 
     def _write_sidecar(self) -> None:
         tmp = os.path.join(self.directory, f"hparams.json.tmp{os.getpid()}")
@@ -331,12 +366,14 @@ class Checkpointer:
                 ) -> Optional["trainer_lib.TrainState"]:
         """The state of ``path``, or of the newest loadable checkpoint
         (falling back over corrupt candidates); None when there is none.
-        An explicit ``path`` that fails verification raises."""
+        An explicit ``path`` that fails verification raises.  Accumulators
+        come back as stored on disk (f32)."""
         if path is not None:
-            verify_manifest(path)
-            return arrays_to_state(load_arrays(path), device)
+            return arrays_to_state(load_arrays_verified(path, self._faults()),
+                                   device)
         try:
-            _, flat = load_ckpt(self.directory, max_retries=0)
+            _, flat = load_ckpt(self.directory, max_retries=0,
+                                faults=self._faults())
         except FileNotFoundError:  # no loadable checkpoint
             return None
         return arrays_to_state(flat, device)

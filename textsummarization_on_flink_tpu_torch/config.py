@@ -3,14 +3,18 @@
 A copy of the part of ``textsummarization_on_flink_tpu/config.py`` that
 the port's paths read (beam decode, training and eval): the reference's
 flag names and defaults (run_summarization.py:48-88), the static OOV
-budget, the training cadence fields, and the ``--flag=value`` argv
-parser and renderer (the pipeline's hyperparameter strings).  The port adds one field, ``device``: entry points run on
-``cuda`` unless the caller asks for ``cpu``.
+budget, the training cadence fields, the byte-diet and long-run options
+of the trainer (``loss_chunk``, ``compute_dtype``, ``opt_state_dtype``,
+``remat``, ``metrics_every``, ``steps_per_dispatch``, ``profile_dir``,
+the divergence-recovery budgets and ``faults``), and the
+``--flag=value`` argv parser and renderer (the pipeline's
+hyperparameter strings).  The port adds one field, ``device``: entry
+points run on ``cuda`` unless the caller asks for ``cpu``.
 
 Fields of the JAX package that steer paths this package does not have
-yet (mesh axes, serving engines, speculative tiers, divergence
-recovery, prefetching) are left out; ``from_argv`` ignores unknown
-flags, as the reference's ``FLAGS(known_only=True)`` does.
+yet (mesh axes, serving engines, speculative tiers) are left out;
+``from_argv`` ignores unknown flags, as the reference's
+``FLAGS(known_only=True)`` does.
 """
 
 from __future__ import annotations
@@ -23,12 +27,12 @@ from typing import Any, Dict, List
 
 #: ROADMAP.md names the queue item that brings each missing mode, option
 #: or family; error messages point there
-ROADMAP_LOSS_CHUNK = "ROADMAP.md queue 1, item 2a (streaming --loss_chunk)"
-ROADMAP_BF16 = "ROADMAP.md queue 1, item 2b (bfloat16 compute_dtype)"
+ROADMAP_BF16_TRANSFORMER = (
+    "ROADMAP.md queue 1, item 2g (the transformer in bfloat16: bf16-operand "
+    "forms of the flash kernels)")
 ROADMAP_BF16_CACHE = "ROADMAP.md queue 2, item 6 (bf16 decode KV cache)"
 ROADMAP_AAN = ("ROADMAP.md queue 1, item 5 (AAN draft, speculative decode, "
                "distillation)")
-ROADMAP_REMAT = "ROADMAP.md queue 1, item 2c (--remat)"
 ROADMAP_HEAD_DIM = ("ROADMAP.md queue 3, item 1 (transformer head dims above "
                     "128 on the card)")
 ROADMAP_SERVING = ("ROADMAP.md queue 1, item 3 (the serve layer behind "
@@ -91,12 +95,37 @@ class HParams:
     # checkpoint cadence in steps; 0 keeps the wall-clock cadence
     # (save_model_secs=60, run_summarization.py:198)
     checkpoint_steps: int = 0
-    # > 0: the streaming chunked vocab loss (JAX config.py:92-100); not
-    # ported yet, 0 keeps the materialised loss
+    # metrics fetch cadence in steps (one device sync per window); 0 =
+    # auto: 1 under --debug, 10 otherwise (JAX config.py:84-86)
+    metrics_every: int = 0
+    # > 0: the streaming chunked vocab loss, [chunk, B, V] scores at a
+    # time in the forward and the backward (JAX config.py:92-100); 0
+    # keeps the materialised loss
     loss_chunk: int = 0
-    # recompute the vocab projection in the backward (JAX config.py);
-    # parsed so that validate refuses it until it is ported
+    # Adagrad accumulator storage dtype; the update math stays f32 (JAX
+    # config.py:101-105)
+    opt_state_dtype: str = "float32"
+    # recompute in the backward instead of keeping activations: the
+    # transformer's layers, the pointer-generator's hoisted scores and
+    # loss (JAX config.py:115-118)
     remat: bool = False
+    # train steps per dispatch: k batches run back to back and their
+    # metrics are read once; checkpoint and metrics cadences quantize to
+    # dispatches; --debug forces 1 (JAX config.py:119-126)
+    steps_per_dispatch: int = 1
+    # profiler trace directory for the steps 2-7 capture window; "" =
+    # none (TS_PROFILE_DIR is the fallback) (JAX config.py:155-163)
+    profile_dir: str = ""
+    # fault-injection arming for this job, "point:prob:seed[:max]"
+    # comma-separated (resilience/faultinject.py; JAX config.py:178-184)
+    faults: str = ""
+    # divergence recovery: skip up to nan_skip_steps consecutive
+    # non-finite steps, then roll back (cutting the LR by nan_lr_cut) up
+    # to nan_max_rollbacks times, then raise NanLossError; both 0 keeps
+    # the hard abort (JAX config.py:185-197)
+    nan_skip_steps: int = 0
+    nan_max_rollbacks: int = 0
+    nan_lr_cut: float = 0.5
 
     # transformer family (JAX config.py:77-83): hidden_dim is d_model,
     # embeddings are tied, ffn_dim=0 means 4*hidden_dim
@@ -188,20 +217,30 @@ class HParams:
     def validate(self) -> None:
         if self.mode not in ("train", "eval", "decode"):
             raise ValueError(f"mode must be train/eval/decode, got {self.mode!r}")
-        if self.compute_dtype != "float32":
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"bad compute_dtype {self.compute_dtype!r}")
+        if self.compute_dtype == "bfloat16" and \
+                self.model_family == "transformer":
             raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: the port computes in "
-                f"float32 only; {ROADMAP_BF16}")
-        if self.loss_chunk > 0:
-            raise NotImplementedError(
-                f"loss_chunk={self.loss_chunk}: the port computes the "
-                f"materialised loss only; {ROADMAP_LOSS_CHUNK}")
-        if self.remat:
-            raise NotImplementedError(
-                f"remat: the port keeps the materialised vocab scores for "
-                f"the backward; {ROADMAP_REMAT}")
+                f"compute_dtype='bfloat16' with the transformer: its flash "
+                f"kernels take float32 operands only; "
+                f"{ROADMAP_BF16_TRANSFORMER}")
         if self.loss_chunk < 0:
-            raise ValueError("loss_chunk must be >= 0")
+            raise ValueError(
+                f"loss_chunk must be >= 0 (0 = materialized loss), got "
+                f"{self.loss_chunk}")
+        if self.opt_state_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"bad opt_state_dtype {self.opt_state_dtype!r} "
+                f"(float32/bfloat16)")
+        if self.steps_per_dispatch < 1:
+            raise ValueError(f"steps_per_dispatch must be >= 1, got "
+                             f"{self.steps_per_dispatch}")
+        if self.nan_skip_steps < 0 or self.nan_max_rollbacks < 0:
+            raise ValueError("nan_skip_steps/nan_max_rollbacks must be >= 0")
+        if not 0.0 < self.nan_lr_cut <= 1.0:
+            raise ValueError(
+                f"nan_lr_cut must be in (0, 1], got {self.nan_lr_cut}")
         if self.max_dec_steps < 1 or self.max_enc_steps < 1:
             raise ValueError("max_enc_steps/max_dec_steps must be >= 1")
         if self.min_dec_steps >= self.max_dec_steps:
@@ -233,6 +272,14 @@ class HParams:
         if self.decode_cache_dtype != "float32":
             raise ValueError(f"bad decode_cache_dtype "
                              f"{self.decode_cache_dtype!r}")
+        if self.faults:
+            # parse for validation only: unknown points and bad
+            # probabilities fail here, not at the injection site
+            from textsummarization_on_flink_tpu_torch.resilience import (
+                faultinject,
+            )
+
+            faultinject.parse(self.faults)
         # families not ported yet raise from models.get_family, which
         # names their roadmap item
         from textsummarization_on_flink_tpu_torch.models import get_family

@@ -21,6 +21,10 @@ def resolve_device(name: str = "cuda") -> torch.device:
     # to on)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # under compute_dtype=bfloat16 the bf16 GEMMs sum in f32 and round
+    # once, as the JAX package's preferred_element_type=f32 products do:
+    # no reduced-precision partial sums (on by default)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     if name == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' "

@@ -18,6 +18,17 @@
 // article (attn all 0) gets zero gradients, with no division: the
 // forward's clamp of the denominator is not differentiated through.
 //
+// The encoder stream (es, ef, and so d_es, d_ef) is float32 or bfloat16,
+// as in the forward.  In bf16 the rows are widened to f32 as they are
+// read from the ring (a bf16 is the top half of an f32: exact), all the
+// arithmetic is f32 as above, and d_es and d_ef are rounded once to bf16
+// (round to nearest even) as they are stored: jax.vjp of the reference
+// formula with bf16 es and ef promotes them to f32 (feats = ef + df, df
+// f32) and casts the two cotangents back to bf16.  d_df, d_cov, d_v and
+// d_w_c stay f32 sums of the unrounded d_f.  A chunk of bf16 rows is
+// half the bytes, so the ring holds twice the chunks; the TMA copies
+// need 16-byte rows, so D is a multiple of 8 in bf16 (of 4 in f32).
+//
 // What bounds it on an H100: memory.  es and ef are read once and d_es
 // and d_ef written once, 4 * B*T*D*4 bytes: at the training shape (16
 // articles, T=400, D=512, f32) 52.4 MB, 15.6 us at 3.35 TB/s.  The
@@ -80,6 +91,7 @@
 // ctypes from ops/fused_attention.py.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -151,6 +163,27 @@ __device__ __forceinline__ unsigned long long global_ns() {
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
+// 4 bf16 -> f32 (exact: a bf16 is the top half of an f32)
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+__device__ __forceinline__ void store4(float* p, float4 x) {
+  *reinterpret_cast<float4*>(p) = x;
+}
+// f32 -> 4 bf16, each rounded to nearest even, the first at the lowest
+// address
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(x.x, x.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(x.z, x.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = u;
+}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
@@ -158,18 +191,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;  // the same bits in every lane (a butterfly of pairwise adds)
 }
 
-// chunks in the ring at width D
-inline int ring_stages(int D) {
-  const int fit = (int)(kRingBytes / ((size_t)kChunk * D * sizeof(float)));
+// chunks in the ring at width D, rows of elt-byte elements
+inline int ring_stages(int D, int elt) {
+  const int fit = (int)(kRingBytes / ((size_t)kChunk * D * elt));
   return fit < kMinStages ? kMinStages : fit > kMaxStages ? kMaxStages : fit;
+}
+
+// the ring's floats: stages chunks of kChunk rows of D elt-byte elements
+__host__ __device__ inline size_t ring_floats(int D, int stages, int elt) {
+  return (size_t)stages * kChunk * D * elt / sizeof(float);
 }
 
 // Dynamic shared memory, in floats: the mbarriers, the ring, g_ctx [D],
 // the scalars' ring [kSlots][kChunk][4], the d_cov warp sums
 // [2][kChunk][kWarps] and the block's scalars.  The column sums reuse
 // the ring at the end.
-inline size_t smem_floats(int D, int stages) {
-  return kBarFloats + (size_t)stages * kChunk * D + D + kSlots * kChunk * 4 +
+inline size_t smem_floats(int D, int stages, int elt) {
+  return kBarFloats + ring_floats(D, stages, elt) + D + kSlots * kChunk * 4 +
          2 * kChunk * kWarps + kSmall;
 }
 
@@ -185,13 +223,14 @@ struct Geometry {
   }
 };
 
-// grid (C, B) in clusters of (C, 1, 1); smem_floats(D, stages) * 4 bytes.
-// Pass two: kG float4 column groups a thread owns, in kL lanes of rows
+// grid (C, B) in clusters of (C, 1, 1); smem_floats(D, stages, elt) * 4
+// bytes.  TE: the encoder stream's element (float or __nv_bfloat16).
+// Pass two: kG groups of 4 columns a thread owns, in kL lanes of rows
 // (kG > 1 only with kL == 1).
-template <bool kCov, int kG, int kL>
+template <typename TE, bool kCov, int kG, int kL>
 __global__ void __launch_bounds__(kThreads, kG == 1 ? 2 : 1)  // blocks per SM
-attention_bwd_kernel(const float* __restrict__ es,
-                     const float* __restrict__ ef,
+attention_bwd_kernel(const TE* __restrict__ es,
+                     const TE* __restrict__ ef,
                      const float* __restrict__ mask,
                      const float* __restrict__ df,
                      const float* __restrict__ cov,
@@ -200,7 +239,7 @@ attention_bwd_kernel(const float* __restrict__ es,
                      const float* __restrict__ attn,
                      const float* __restrict__ g_ctx,
                      const float* __restrict__ g_attn,
-                     float* __restrict__ d_es, float* __restrict__ d_ef,
+                     TE* __restrict__ d_es, TE* __restrict__ d_ef,
                      float* __restrict__ d_df, float* d_cov, float* d_v,
                      float* d_wc, float* part, int B, int T, int D, int P,
                      int stages) {
@@ -209,14 +248,15 @@ attention_bwd_kernel(const float* __restrict__ es,
   const int rank = (int)cluster.block_rank();
   const int b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n4 = D / 4;  // float4 groups of a row
-  const int chunk_floats = kChunk * D;
+  const int n4 = D / 4;  // groups of 4 columns of a row
+  const int chunk_elems = kChunk * D;
 
   TS_MARK(0);
   extern __shared__ __align__(16) float smem[];
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [stages]
-  float* ring = smem + kBarFloats;            // [stages][kChunk][D]
-  float* g_s = ring + stages * chunk_floats;  // [D] g_ctx of the article
+  TE* ring = reinterpret_cast<TE*>(smem + kBarFloats);  // [stages][kChunk][D]
+  float* g_s = smem + kBarFloats +
+               ring_floats(D, stages, (int)sizeof(TE));  // [D] g_ctx
   float* sc_s = g_s + D;                      // [kSlots][kChunk][4]
   float* dc_s = sc_s + kSlots * kChunk * 4;   // [2][kChunk][kWarps]
   float* small = dc_s + 2 * kChunk * kWarps;
@@ -239,8 +279,8 @@ attention_bwd_kernel(const float* __restrict__ es,
     if (tid == 0 && i < n_total) {
       const int c0 = chunk_pos(i);
       const unsigned bytes =
-          (unsigned)(min(kChunk, n_pos - c0) * D * (int)sizeof(float));
-      tma::bulk_load(ring + (i % stages) * chunk_floats,
+          (unsigned)(min(kChunk, n_pos - c0) * D * (int)sizeof(TE));
+      tma::bulk_load(ring + (i % stages) * chunk_elems,
                      (i < n_chunks ? es : ef) + (row0 + c0) * D, bytes,
                      &bars[i % stages]);
     }
@@ -329,7 +369,7 @@ attention_bwd_kernel(const float* __restrict__ es,
     if (i == 0) TS_MARK(1);
     const int tl = chunk_pos(i) + warp;  // warp-uniform
     if (warp < kChunk && tl < n_pos) {
-      const float* row = ring + (i % stages) * chunk_floats + warp * D;
+      const TE* row = ring + (i % stages) * chunk_elems + warp * D;
       float dot = 0.f;
 #pragma unroll 4
       for (int c = lane; c < n4; c += 32) {
@@ -387,7 +427,7 @@ attention_bwd_kernel(const float* __restrict__ es,
     if (i > n_chunks) finish_cov(i - 1);
     const int c0 = chunk_pos(i);
     const int n_here = min(kChunk, n_pos - c0);
-    const float* buf = ring + (i % stages) * chunk_floats;
+    const TE* buf = ring + (i % stages) * chunk_elems;
     float* dc = dc_s + (i & 1) * kChunk * kWarps;
 #pragma unroll
     for (int q0 = 0; q0 < kRows; q0 += kBatch) {
@@ -400,9 +440,9 @@ attention_bwd_kernel(const float* __restrict__ es,
         const float a = sc[0];
         const float de = valid && sc[2] > 0.f ? a * (sc[1] - S) : 0.f;
         const float cv = kCov && valid ? sc[3] : 0.f;
-        const float* row = buf + r * D;
-        float* out = d_ef + (row0 + c0 + r) * D;
-        float* out_es = d_es + (row0 + c0 + r) * D;
+        const TE* row = buf + r * D;
+        TE* out = d_ef + (row0 + c0 + r) * D;
+        TE* out_es = d_es + (row0 + c0 + r) * D;
         float dcov = 0.f;
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
@@ -423,12 +463,10 @@ attention_bwd_kernel(const float* __restrict__ es,
             f_[j] = de * vs[j] * fmaf(-u, u, 1.f);
             if (kCov) dcov = fmaf(f_[j], ws[j], dcov);
           }
+          if (ok) store4(out + 4 * c, make_float4(f_[0], f_[1], f_[2], f_[3]));
           if (ok)
-            *reinterpret_cast<float4*>(out + 4 * c) =
-                make_float4(f_[0], f_[1], f_[2], f_[3]);
-          if (ok)
-            *reinterpret_cast<float4*>(out_es + 4 * c) = make_float4(
-                a * gr[g].x, a * gr[g].y, a * gr[g].z, a * gr[g].w);
+            store4(out_es + 4 * c, make_float4(a * gr[g].x, a * gr[g].y,
+                                               a * gr[g].z, a * gr[g].w));
           s_df[g] = make_float4(s_df[g].x + f_[0], s_df[g].y + f_[1],
                                 s_df[g].z + f_[2], s_df[g].w + f_[3]);
           s_v[g] = make_float4(fmaf(de, u_[0], s_v[g].x),
@@ -459,8 +497,9 @@ attention_bwd_kernel(const float* __restrict__ es,
   TS_MARK(4);
 
   // the block's column sums [3][D]: each lane of rows' sums, then the
-  // lanes added in order, in the ring's memory
-  float* acc = ring;  // [kL][3][D], kL * 3 * D <= kMinStages * kChunk * D
+  // lanes added in order, in the ring's memory (kL * 3 * D floats fit:
+  // launch() checks)
+  float* acc = smem + kBarFloats;  // [kL][3][D]
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
     const int c = k + W * g;
@@ -552,15 +591,15 @@ attention_bwd_kernel(const float* __restrict__ es,
   TS_MARK(7);
 }
 
-template <bool kCov, int kG, int kL>
-cudaError_t launch_one(const float* es, const float* ef, const float* mask,
+template <typename TE, bool kCov, int kG, int kL>
+cudaError_t launch_one(const TE* es, const TE* ef, const float* mask,
                        const float* df, const float* cov, const float* v,
                        const float* wc, const float* attn, const float* g_ctx,
-                       const float* g_attn, float* d_es, float* d_ef,
+                       const float* g_attn, TE* d_es, TE* d_ef,
                        float* d_df, float* d_cov, float* d_v, float* d_wc,
                        float* part, int B, int T, int D, const Geometry& geo,
                        bool wide, int stages, int dev, cudaStream_t stream) {
-  auto kernel = attention_bwd_kernel<kCov, kG, kL>;
+  auto kernel = attention_bwd_kernel<TE, kCov, kG, kL>;
   static unsigned smem_set = 0, wide_set = 0;  // per instantiation
   cudaError_t err = tf32x3::allow_smem(kernel, kSmemMax, smem_set);
   if (err != cudaSuccess) return err;
@@ -573,7 +612,8 @@ cudaError_t launch_one(const float* es, const float* ef, const float* mask,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(geo.C, B, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem_floats(D, stages) * sizeof(float);
+  cfg.dynamicSmemBytes =
+      smem_floats(D, stages, (int)sizeof(TE)) * sizeof(float);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -589,11 +629,11 @@ cudaError_t launch_one(const float* es, const float* ef, const float* mask,
   return cudaGetLastError();
 }
 
-template <bool kCov>
-cudaError_t launch(const float* es, const float* ef, const float* mask,
+template <typename TE, bool kCov>
+cudaError_t launch(const TE* es, const TE* ef, const float* mask,
                    const float* df, const float* cov, const float* v,
                    const float* wc, const float* attn, const float* g_ctx,
-                   const float* g_attn, float* d_es, float* d_ef,
+                   const float* g_attn, TE* d_es, TE* d_ef,
                    float* d_df, float* d_cov, float* d_v, float* d_wc,
                    float* part, int B, int T, int D, cudaStream_t stream) {
   int dev = 0, sms = 0;
@@ -605,7 +645,7 @@ cudaError_t launch(const float* es, const float* ef, const float* mask,
   // the SMs, as the forward
   const bool wide = B * kWideCluster * 2 <= sms;
   const Geometry geo(T, wide ? kWideCluster : kCluster);
-  const int stages = ring_stages(D);
+  const int stages = ring_stages(D, (int)sizeof(TE));
   // pass two's column groups per thread, and its lanes of rows: as many
   // as leave a lane's threads at least D / 4
   const int n4 = D / 4;
@@ -615,8 +655,13 @@ cudaError_t launch(const float* es, const float* ef, const float* mask,
                     : n4 <= kThreads / 4 ? 4
                     : n4 <= kThreads / 2 ? 2
                                          : 1;
+  // the column sums reuse the ring: [lanes][3][D] floats must fit (in
+  // f32 3 stages of 8 rows hold 8 lanes; in bf16 the ring has 12 stages
+  // wherever there is more than one lane)
+  if ((size_t)3 * lanes * D > ring_floats(D, stages, (int)sizeof(TE)))
+    return cudaErrorInvalidValue;
 #define TS_LAUNCH(G, L)                                                    \
-  launch_one<kCov, G, L>(es, ef, mask, df, cov, v, wc, attn, g_ctx,        \
+  launch_one<TE, kCov, G, L>(es, ef, mask, df, cov, v, wc, attn, g_ctx,    \
                          g_attn, d_es, d_ef, d_df, d_cov, d_v, d_wc, part, \
                          B, T, D, geo, wide, stages, dev, stream)
   if (groups == 3) return TS_LAUNCH(3, 1);
@@ -630,33 +675,40 @@ cudaError_t launch(const float* es, const float* ef, const float* mask,
 
 }  // namespace
 
-// Per-row form: es, ef [B, T, D] (16-byte aligned, D a multiple of 4);
-// mask, cov (read only when use_cov), attn (the forward's output),
+// Per-row form: es, ef [B, T, D] (16-byte aligned; float32 with D a
+// multiple of 4, or with is_bf16 bfloat16 with D a multiple of 8, as
+// d_es, d_ef); mask, cov (read only when use_cov), attn (the forward's output),
 // g_attn [B, T]; df, g_ctx [B, D]; v, wc [D].  Outputs d_es, d_ef
 // [B, T, D]; d_df [B, D]; d_cov [B, T] (0 when !use_cov); d_v, d_wc [D]
 // (d_wc 0 when !use_cov).  part: scratch of 4 + 2 * B * D floats whose
 // first 4 bytes, an unsigned ticket, are 0 before the launch and 0 again
 // after it (keep one per stream: launches on one stream run in turn).
-// All float32, contiguous, on one device.  Launches one kernel on
+// The rest float32; all contiguous, on one device.  Launches one kernel on
 // `stream`; returns the cudaError_t of the launch (cudaErrorInvalidValue
 // for a shape the kernel does not take).
 extern "C" int ts_fused_attention_bwd(
-    const float* es, const float* ef, const float* mask, const float* df,
+    const void* es, const void* ef, const float* mask, const float* df,
     const float* cov, const float* v, const float* wc, const float* attn,
-    const float* g_ctx, const float* g_attn, float* d_es, float* d_ef,
+    const float* g_ctx, const float* g_attn, void* d_es, void* d_ef,
     float* d_df, float* d_cov, float* d_v, float* d_wc, float* part, int B,
-    int T, int D, int use_cov, void* stream) {
+    int T, int D, int use_cov, int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T <= 0 || D <= 0 || B > 65535 || D % 4 != 0 ||
+  const int elt = is_bf16 ? 2 : 4;
+  if (B <= 0 || T <= 0 || D <= 0 || B > 65535 || (D * elt) % 16 != 0 ||
       D > 4 * kThreads * kMaxGroups ||
-      smem_floats(D, ring_stages(D)) * sizeof(float) > kSmemMax)
+      smem_floats(D, ring_stages(D, elt), elt) * sizeof(float) > kSmemMax)
     return (int)cudaErrorInvalidValue;
-  return (int)(use_cov ? launch<true>(es, ef, mask, df, cov, v, wc, attn,
-                                      g_ctx, g_attn, d_es, d_ef, d_df, d_cov,
-                                      d_v, d_wc, part, B, T, D, st)
-                       : launch<false>(es, ef, mask, df, cov, v, wc, attn,
-                                       g_ctx, g_attn, d_es, d_ef, d_df,
-                                       d_cov, d_v, d_wc, part, B, T, D, st));
+#define TS_DISPATCH(TE)                                                     \
+  (use_cov ? launch<TE, true>((const TE*)es, (const TE*)ef, mask, df, cov,  \
+                              v, wc, attn, g_ctx, g_attn, (TE*)d_es,        \
+                              (TE*)d_ef, d_df, d_cov, d_v, d_wc, part, B, T, \
+                              D, st)                                         \
+           : launch<TE, false>((const TE*)es, (const TE*)ef, mask, df, cov, \
+                               v, wc, attn, g_ctx, g_attn, (TE*)d_es,       \
+                               (TE*)d_ef, d_df, d_cov, d_v, d_wc, part, B,  \
+                               T, D, st))
+  return (int)(is_bf16 ? TS_DISPATCH(__nv_bfloat16) : TS_DISPATCH(float));
+#undef TS_DISPATCH
 }
 
 #ifdef TS_BWD_TRACE

@@ -18,15 +18,26 @@ the loop carries (state, context, coverage) from zeros with one
 attention per step (ops/attention.attend: the fused attention's autograd
 Function, its kernels forward and backward on the card), and the
 [T_dec, B, H] @ [H, V] projection and the losses run once after the
-loop.  The ``TrainOutput`` contract the Trainer and Evaluator read is
-defined here for both families, as in the JAX package.
+loop: materialised, under ``--remat`` recomputed in the backward
+(``torch.utils.checkpoint``), or with ``--loss_chunk`` streamed in
+chunks of decoder steps (ops/losses.py).  The ``TrainOutput`` contract
+the Trainer and Evaluator read is defined here for both families, as in
+the JAX package.
+
+Under ``compute_dtype=bfloat16`` (JAX pointer_generator.py:154-200) the
+encoder runs in bf16 (embeddings, the biLSTM's weights and state), its
+states and features stay bf16 (the fused attention reads that stream,
+forward and backward, and widens it to f32), the decoder's LSTM, p_gen
+and output layers stay f32, and the vocab projection takes bf16
+operands with f32 sums.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from textsummarization_on_flink_tpu_torch.config import HParams
 from textsummarization_on_flink_tpu_torch.ops import attention as attn_ops
@@ -80,19 +91,36 @@ def _linear(p: Dict[str, torch.Tensor], *args: torch.Tensor) -> torch.Tensor:
     return x @ p["kernel"] + p["bias"]
 
 
+def _cast(hps: HParams, x: torch.Tensor) -> torch.Tensor:
+    """x in bf16 under compute_dtype=bfloat16, else unchanged."""
+    return x.to(torch.bfloat16) if hps.compute_dtype == "bfloat16" else x
+
+
+def maybe_remat(hps: HParams, fn: Callable) -> Callable:
+    """fn recomputed in the backward under --remat (jax.checkpoint in the
+    JAX package) while a gradient is being taken, fn itself otherwise.
+    Non-reentrant: the recompute runs when the backward needs fn's saved
+    tensors."""
+    if not (hps.remat and torch.is_grad_enabled()):
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
 def encode(params: Params, hps: HParams, enc_batch: torch.Tensor,
            enc_lens: torch.Tensor, enc_padding_mask: torch.Tensor,
            ) -> EncoderOutput:
-    """Embed + biLSTM + state reduction (model.py:210-221)."""
-    del hps  # f32 only in the port; the JAX package casts for bf16 here
-    emb = params["embedding"][enc_batch]  # [B, T, E]
+    """Embed + biLSTM + state reduction (model.py:210-221).  Under bf16
+    the encoder states and features stay bf16: the attention re-reads
+    both every decoder step, so they are its bytes."""
+    emb = _cast(hps, params["embedding"][enc_batch])  # [B, T, E]
     enc_states, fw_st, bw_st = lstm_ops.bidirectional_encoder(
         params["encoder"]["fw"], params["encoder"]["bw"], emb, enc_lens,
         enc_padding_mask)
-    # _reduce_states (model.py:97-121): ReLU linear from fw||bw to H
+    # _reduce_states (model.py:97-121): ReLU linear from fw||bw to H, in
+    # f32 (the JAX package's bf16 state promotes against f32 weights)
     r = params["reduce"]
-    old_c = torch.cat([fw_st[0], bw_st[0]], dim=-1)
-    old_h = torch.cat([fw_st[1], bw_st[1]], dim=-1)
+    old_c = torch.cat([fw_st[0], bw_st[0]], dim=-1).float()
+    old_h = torch.cat([fw_st[1], bw_st[1]], dim=-1).float()
     new_c = torch.relu(old_c @ r["w_reduce_c"] + r["bias_reduce_c"])
     new_h = torch.relu(old_h @ r["w_reduce_h"] + r["bias_reduce_h"])
     enc_feats = attn_ops.encoder_features(params["decoder"]["attention"],
@@ -128,8 +156,7 @@ def _decoder_core(params: Params, hps: HParams, enc: EncoderOutput,
 def forward_train(params: Params, hps: HParams,
                   arrays: Dict[str, torch.Tensor]) -> TrainOutput:
     """The training and eval forward (model.py:199-277 semantics; JAX
-    pointer_generator.py:221-315 without --loss_chunk and --remat, which
-    HParams.validate refuses)."""
+    pointer_generator.py:221-315)."""
     B, T_enc = arrays["enc_batch"].shape
     enc = encode(params, hps, arrays["enc_batch"], arrays["enc_lens"],
                  arrays["enc_padding_mask"])
@@ -140,8 +167,8 @@ def forward_train(params: Params, hps: HParams,
     k_ctx = ip["kernel"][E:]
     D = enc.enc_states.shape[-1]
     state = enc.dec_in_state
-    context = enc.enc_states.new_zeros((B, D))
-    coverage = enc.enc_states.new_zeros((B, T_enc))
+    context = emb_proj.new_zeros((B, D))
+    coverage = emb_proj.new_zeros((B, T_enc))
     outputs, attn_dists, p_gens = [], [], []
     for t in range(emb_proj.shape[1]):
         x = emb_proj[:, t] + context @ k_ctx
@@ -156,19 +183,39 @@ def forward_train(params: Params, hps: HParams,
     attn_t = torch.stack(attn_dists)  # [T_dec, B, T_enc]
     p_gens_t = torch.stack(p_gens)  # [T_dec, B]
 
-    # the projection and the loss over all steps at once
+    # the projection and the loss over all steps at once: the [T_dec, B,
+    # V] f32 scores are also kept for the backward, so the training peak
+    # grows by about twice their size; --remat recomputes them in the
+    # backward instead, and --loss_chunk streams them in chunks of
+    # decoder steps in both passes
     dec_mask = arrays["dec_padding_mask"]
-    scores = loss_ops.project_scores(
-        outputs_t, params["output_projection"]["w"], hps.compute_dtype) \
-        + params["output_projection"]["v"]  # [T_dec, B, V]
-    if hps.pointer_gen:
-        gold = loss_ops.gold_mixture_prob_from_scores(
-            scores, attn_t, p_gens_t, arrays["target_batch"].T,
-            arrays["enc_batch_extend_vocab"])
-        loss = loss_ops.pointer_nll(gold.T, dec_mask)
+    w = params["output_projection"]["w"]
+    v = params["output_projection"]["v"]
+    targets_t = arrays["target_batch"].T  # [T_dec, B]
+    if hps.loss_chunk > 0:
+        if hps.pointer_gen:
+            gold = loss_ops.streaming_gold_probs(
+                outputs_t, attn_t, p_gens_t, targets_t,
+                arrays["enc_batch_extend_vocab"], w, v,
+                chunk=hps.loss_chunk, compute_dtype=hps.compute_dtype)
+            loss = loss_ops.pointer_nll(gold.T, dec_mask)
+        else:
+            loss = loss_ops.streaming_softmax_cross_entropy(
+                outputs_t, targets_t, dec_mask.T, w, v,
+                chunk=hps.loss_chunk, compute_dtype=hps.compute_dtype)
     else:
-        loss = loss_ops.softmax_cross_entropy_baseline(
-            scores.transpose(0, 1), arrays["target_batch"], dec_mask)
+        def scores_loss(outputs_t, attn_t, p_gens_t):
+            scores = loss_ops.project_scores(outputs_t, w,
+                                             hps.compute_dtype) + v
+            if hps.pointer_gen:
+                gold = loss_ops.gold_mixture_prob_from_scores(
+                    scores, attn_t, p_gens_t, targets_t,
+                    arrays["enc_batch_extend_vocab"])
+                return loss_ops.pointer_nll(gold.T, dec_mask)
+            return loss_ops.softmax_cross_entropy_baseline(
+                scores.transpose(0, 1), arrays["target_batch"], dec_mask)
+
+        loss = maybe_remat(hps, scores_loss)(outputs_t, attn_t, p_gens_t)
     attn_b = attn_t.transpose(0, 1)  # [B, T_dec, T_enc]
     if hps.coverage:
         cov_loss = loss_ops.coverage_loss(attn_b, dec_mask)
@@ -254,7 +301,8 @@ def decode_onestep_shared(params: Params, hps: HParams, enc: EncoderOutput,
         _linear(dp["pgen_linear"], context, new_state[0], new_state[1], x)
     )[..., 0]  # [B, K]
     output = _linear(dp["output_linear"], cell_out, context)
-    vocab_scores = output @ params["output_projection"]["w"] + \
+    vocab_scores = loss_ops.project_scores(
+        output, params["output_projection"]["w"], hps.compute_dtype) + \
         params["output_projection"]["v"]
     vocab_dist = torch.softmax(vocab_scores, dim=-1)  # [B, K, V]
     B, K = latest_tokens.shape

@@ -17,9 +17,13 @@ gate for its TPU flash kernel (``_use_flash``: TS_FLASH, 128-aligned
 shapes, T >= 1024) follows from the Mosaic kernel's 128-lane tiling and
 is not read here; neither is its sequence-parallel branch.
 
-``forward_train`` computes the materialised loss only (``--loss_chunk``
-waits, config.ROADMAP_LOSS_CHUNK), and without ``--remat``.  The
-speculative verifier (``spec_*``), the length-masked ``nb``
+``forward_train`` computes the materialised loss or, with
+``--loss_chunk``, the streaming one (ops/losses.py), and under
+``--remat`` recomputes each layer of both stacks in the backward
+(``torch.utils.checkpoint``, non-reentrant: each layer's forward, its
+flash kernel included, runs again in the backward).  f32 only: the
+transformer in bf16 is ROADMAP.md queue 1 item 2g.  The speculative
+verifier (``spec_*``), the length-masked ``nb``
 cross-attention of the slot engine, a factored ``vocab_head`` and
 ``decode_cache_dtype=bfloat16`` wait for later slices (ROADMAP.md).
 """
@@ -114,10 +118,15 @@ def _self_attention(hps: HParams, p: Dict[str, torch.Tensor],
 def _encoder_stack(params: Params, hps: HParams, x: torch.Tensor,
                    enc_mask: torch.Tensor) -> torch.Tensor:
     """x: [B, T_enc, H]; enc_mask: [B, T_enc] -> [B, T_enc, H]."""
-    for layer in params["encoder"]["layers"]:
+
+    def layer_fn(layer, x, enc_mask):
         x = x + _self_attention(hps, layer["self_attn"],
                                 _ln(layer["ln1"], x), enc_mask, causal=False)
-        x = x + _ffn_block(layer["ffn"], _ln(layer["ln2"], x))
+        return x + _ffn_block(layer["ffn"], _ln(layer["ln2"], x))
+
+    layer_fn = pg.maybe_remat(hps, layer_fn)  # JAX transformer.py:309
+    for layer in params["encoder"]["layers"]:
+        x = layer_fn(layer, x, enc_mask)
     return _ln(params["encoder"]["ln_out"], x)
 
 
@@ -167,15 +176,19 @@ def forward_train(params: Params, hps: HParams,
     enc_out = _encoder_stack(params, hps, x, enc_mask)
     y = _embed_dec_train(params, arrays["dec_batch"])
     cross_mask = enc_mask[:, None, :]  # [B, 1, T_enc]
-    cross_ctx = attn_dist = None
-    for layer in params["decoder"]["layers"]:
+
+    def layer_fn(layer, y, enc_out, cross_mask):
         y = y + _self_attention(hps, layer["self_attn"], _ln(layer["ln1"], y),
                                 None, causal=True)
-        cross_ctx, attn_dist = _mha(hps, layer["cross_attn"],
-                                    _ln(layer["ln_cross"], y), enc_out,
-                                    cross_mask)
-        y = y + cross_ctx
-        y = y + _ffn_block(layer["ffn"], _ln(layer["ln2"], y))
+        c, probs = _mha(hps, layer["cross_attn"], _ln(layer["ln_cross"], y),
+                        enc_out, cross_mask)
+        y = y + c
+        return y + _ffn_block(layer["ffn"], _ln(layer["ln2"], y)), c, probs
+
+    layer_fn = pg.maybe_remat(hps, layer_fn)  # JAX transformer.py:370
+    cross_ctx = attn_dist = None
+    for layer in params["decoder"]["layers"]:
+        y, cross_ctx, attn_dist = layer_fn(layer, y, enc_out, cross_mask)
     h = _ln(params["decoder"]["ln_out"], y)
     return train_output_tail(params, hps, arrays, h, cross_ctx, attn_dist)
 
@@ -184,10 +197,11 @@ def train_output_tail(params: Params, hps: HParams,
                       arrays: Dict[str, torch.Tensor], h: torch.Tensor,
                       cross_ctx: torch.Tensor, attn_dist: torch.Tensor,
                       ) -> TrainOutput:
-    """The loss head (transformer.py:416-480, the materialised branch):
-    p_gen from [h, cross_ctx], the tied vocab projection, the pointer
-    mixture's gold probability (or the baseline cross-entropy when
-    pointer_gen is off), the coverage penalty.
+    """The loss head (transformer.py:416-480): p_gen from [h, cross_ctx],
+    the tied vocab projection (materialised, or streamed in chunks of
+    decoder steps with --loss_chunk), the pointer mixture's gold
+    probability (or the baseline cross-entropy when pointer_gen is off),
+    the coverage penalty.
 
     h [B, T_dec, H] final-LN decoder states; cross_ctx the final layer's
     cross-attention output; attn_dist its head-averaged copy
@@ -197,6 +211,24 @@ def train_output_tail(params: Params, hps: HParams,
     p_gens = torch.sigmoid(torch.cat([h, cross_ctx], dim=-1) @ pl["kernel"]
                            + pl["bias"])[..., 0]  # [B, T_dec]
     targets = arrays["target_batch"]
+    if hps.loss_chunk > 0:
+        # step-major views for the streaming losses; the [B, T_dec, V]
+        # logits never exist
+        h_t = h.transpose(0, 1)  # [T_dec, B, H]
+        w = params["embedding"].T
+        if hps.pointer_gen:
+            gold = loss_ops.streaming_gold_probs(
+                h_t, attn_dist.transpose(0, 1), p_gens.transpose(0, 1),
+                targets.transpose(0, 1), arrays["enc_batch_extend_vocab"],
+                w, params["out_bias"], chunk=hps.loss_chunk,
+                compute_dtype=hps.compute_dtype).transpose(0, 1)
+            loss = loss_ops.mask_and_avg(-torch.log(gold + 1e-10), dec_mask)
+        else:
+            loss = loss_ops.streaming_softmax_cross_entropy(
+                h_t, targets.transpose(0, 1), dec_mask.transpose(0, 1), w,
+                params["out_bias"], chunk=hps.loss_chunk,
+                compute_dtype=hps.compute_dtype)
+        return _with_coverage(hps, loss, dec_mask, attn_dist, p_gens)
     logits = vocab_scores_of(params, hps, h)  # [B, T_dec, V]
     if hps.pointer_gen:
         # step-major views, as the JAX package hands them to the shared
@@ -209,10 +241,17 @@ def train_output_tail(params: Params, hps: HParams,
     else:
         loss = loss_ops.softmax_cross_entropy_baseline(logits, targets,
                                                        dec_mask)
+    return _with_coverage(hps, loss, dec_mask, attn_dist, p_gens)
+
+
+def _with_coverage(hps: HParams, loss: torch.Tensor,
+                   dec_mask: torch.Tensor, attn_dist: torch.Tensor,
+                   p_gens: torch.Tensor) -> TrainOutput:
+    """The TrainOutput of ``loss`` with the coverage penalty added."""
     if hps.coverage:
         cov_loss = loss_ops.coverage_loss(attn_dist, dec_mask)
     else:
-        cov_loss = torch.zeros((), device=h.device)
+        cov_loss = torch.zeros((), device=loss.device)
     total = loss + hps.cov_loss_wt * cov_loss
     return TrainOutput(loss=loss, coverage_loss=cov_loss, total_loss=total,
                        attn_dists=attn_dist, p_gens=p_gens)

@@ -1,14 +1,20 @@
-"""A minimal metrics registry: counters and duration spans.
+"""A minimal metrics registry: counters, gauges and duration spans.
 
-The part of the JAX package's obs/ that the pipeline layer reports
-through: monotonic counters (``pipeline/rows_in_total``,
+The part of the JAX package's obs/ that the pipeline layer and the
+trainer report through: monotonic counters (``pipeline/rows_in_total``,
 ``rows_out_total``, ``codec_errors_total``, ``feeder_errors_total``,
 ``source_rows_total``, ``sink_rows_total``, ``train_jobs_total``,
-``inference_jobs_total``) and spans that record how long a stage took
-(``pipeline/fit``, ``pipeline/transform``, ``pipeline/train_job``,
-``pipeline/inference_job``).  The full registry (gauges, histograms,
-labels, exporters) and the flight recorder are ROADMAP.md queue 1,
-item 2d.
+``inference_jobs_total``; the trainer's ``train/nan_watchdog_total``,
+``resilience/train/nan_skips_total``, ``resilience/train/rollbacks_total``,
+``train/prefetch_batches_total``, ``train/prefetch_errors_total``; the
+fault points' ``resilience/fault/<point>`` and
+``resilience/faults_fired_total``; ``resilience/ckpt_fallbacks_total``),
+gauges (``resilience/train/lr_scale``, ``train/prefetch_queue_depth``)
+and spans that record how long a stage took (``pipeline/fit``,
+``pipeline/transform``, ``pipeline/train_job``,
+``pipeline/inference_job``, ``train/metrics_flush``,
+``train/profiler_capture``).  The full registry (histograms, labels,
+exporters) and the flight recorder are ROADMAP.md queue 1, item 2d.
 
 ``registry()`` is the process default; ``use_registry(reg)`` routes the
 module functions through another one for a block (tests).
@@ -41,12 +47,24 @@ class Counter:
         return self._value
 
 
+class Gauge:
+    """Last-written float value."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.value = 0.0
+
+    def set(self, v: float) -> None:
+        self.value = float(v)
+
+
 class Registry:
-    """Named counters and the durations of finished spans."""
+    """Named counters and gauges, and the durations of finished spans."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._counters: Dict[str, Counter] = {}
+        self._gauges: Dict[str, Gauge] = {}
         self._spans: Dict[str, List[float]] = {}
 
     def counter(self, name: str) -> Counter:
@@ -55,6 +73,13 @@ class Registry:
             if c is None:
                 c = self._counters[name] = Counter(name)
             return c
+
+    def gauge(self, name: str) -> Gauge:
+        with self._lock:
+            g = self._gauges.get(name)
+            if g is None:
+                g = self._gauges[name] = Gauge(name)
+            return g
 
     def record_span(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -69,6 +94,7 @@ class Registry:
         with self._lock:
             return {"counters": {k: c.value
                                  for k, c in self._counters.items()},
+                    "gauges": {k: g.value for k, g in self._gauges.items()},
                     "spans": {k: list(v) for k, v in self._spans.items()}}
 
 

@@ -24,8 +24,10 @@ from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
 def encoder_features(attn_params: Dict[str, torch.Tensor],
                      enc_states: torch.Tensor) -> torch.Tensor:
-    """W_h h_i for every encoder position: [B, T, D] -> [B, T, D]."""
-    return enc_states @ attn_params["W_h"]
+    """W_h h_i for every encoder position: [B, T, D] -> [B, T, D], in the
+    encoder stream's dtype (bf16 under compute_dtype=bfloat16: the
+    attention re-reads it every decoder step and widens it to f32)."""
+    return enc_states @ attn_params["W_h"].to(enc_states.dtype)
 
 
 def _dec_feats(attn_params, dec_state):

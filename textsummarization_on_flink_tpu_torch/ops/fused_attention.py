@@ -28,8 +28,11 @@ pallas_attention.py:335-372): its forward is the forward above and saves
 its inputs and the ``attn`` output; its backward is
 ``_attention_bwd_plain`` on the CPU (the explicit gradient formulas) and
 kernels/fused_attention_bwd.cu on the card (``_attention_bwd_cuda``,
-counted by ``launches_bwd``).  f32 only: a bf16 encoder stream is
-refused there (config.ROADMAP_BF16).
+counted by ``launches_bwd``).  Both take f32 or bf16 encoder streams (es,
+ef), as the forward does: the arithmetic is f32, and d_es, d_ef come back
+in the stream's dtype, rounded once (the JAX package's custom_vjp takes
+``jax.vjp`` of the formula, which promotes bf16 es/ef to f32 and casts
+their cotangents back).
 """
 
 from __future__ import annotations
@@ -39,15 +42,16 @@ from typing import Optional, Tuple
 
 import torch
 
-from textsummarization_on_flink_tpu_torch.config import ROADMAP_BF16
-
 NEG = -1e30  # masked-energy floor (pallas_attention.NEG), never -inf
 
 #: kernel launches so far (one per wrapper call on CUDA tensors: the
-#: forward, and the backward); set them to 0 before a run whose launches
-#: are to be counted
+#: forward, and the backward), and of those the launches on a bf16
+#: encoder stream; set them to 0 before a run whose launches are to be
+#: counted
 launches = 0
 launches_bwd = 0
+launches_bf16 = 0
+launches_bwd_bf16 = 0
 
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
@@ -85,9 +89,9 @@ def _attention_bwd_plain(es: torch.Tensor, ef: torch.Tensor,
     """The backward of the per-row form as explicit formulas, the plain
     version of kernels/fused_attention_bwd.cu.
 
-    es, ef [B, T, D]; mask, cov, attn (the forward's), g_attn [B, T];
-    df, g_ctx [B, D]; v, w_c [D], all f32.  With u = tanh(ef + df
-    [+ cov w_c]) recomputed:
+    es, ef [B, T, D], f32 or bf16 (widened here); mask, cov, attn (the
+    forward's), g_attn [B, T]; df, g_ctx [B, D]; v, w_c [D], f32.  With
+    u = tanh(ef + df [+ cov w_c]) recomputed, all in f32:
 
         d_es[t] = attn[t] g_ctx
         ga[t]   = g_attn[t] + es[t] . g_ctx
@@ -99,9 +103,12 @@ def _attention_bwd_plain(es: torch.Tensor, ef: torch.Tensor,
     The max shift is not differentiated (stop_gradient in the JAX
     formula) and the denominator's 1e-30 clamp is not passed through: a
     fully masked row has attn 0, so its gradients are 0, never NaN.
-    Returns (d_es, d_ef, d_df, d_cov, d_v, d_w_c); d_cov and d_w_c are
-    zeros when coverage is off."""
-    _refuse_bwd_dtype(es)
+    Returns (d_es, d_ef, d_df, d_cov, d_v, d_w_c); d_es and d_ef in es's
+    dtype (rounded once from f32, the cast of jax.vjp's cotangents), the
+    rest f32 sums of the unrounded d_f; d_cov and d_w_c are zeros when
+    coverage is off."""
+    stream_dtype = es.dtype
+    es, ef = es.float(), ef.float()
     feats = ef + df[:, None, :]
     if use_coverage:
         feats = feats + cov[:, :, None] * w_c
@@ -117,15 +124,8 @@ def _attention_bwd_plain(es: torch.Tensor, ef: torch.Tensor,
         d_w_c = torch.sum(d_f * cov[:, :, None], dim=(0, 1))
     else:
         d_cov, d_w_c = torch.zeros_like(attn), torch.zeros_like(v)
-    return d_es, d_f, torch.sum(d_f, dim=1), d_cov, d_v, d_w_c
-
-
-def _refuse_bwd_dtype(es: torch.Tensor) -> None:
-    if es.dtype != torch.float32:
-        raise NotImplementedError(
-            f"the fused attention's backward takes float32 encoder streams "
-            f"only, got {es.dtype}: the port trains in float32; "
-            f"{ROADMAP_BF16}")
+    return (d_es.to(stream_dtype), d_f.to(stream_dtype), torch.sum(d_f, dim=1),
+            d_cov, d_v, d_w_c)
 
 
 def _load_library() -> ctypes.CDLL:
@@ -149,7 +149,7 @@ def _bind_bwd(path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     fn = lib.ts_fused_attention_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 4 \
+    fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
     lib.ts_fused_attention_bwd_error_string.restype = ctypes.c_char_p
     lib.ts_fused_attention_bwd_error_string.argtypes = [ctypes.c_int]
@@ -240,7 +240,7 @@ def _shape_refusal(es: torch.Tensor, df: torch.Tensor) -> Optional[str]:
 
 def _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage):
     """Launch the kernel; same contract as _attention_plain."""
-    global launches
+    global launches, launches_bf16
     refusal = _shape_refusal(es, df)
     if refusal is not None:
         raise ValueError(refusal)
@@ -275,16 +275,18 @@ def _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage):
         raise RuntimeError("fused attention kernel launch failed: "
                            + lib.ts_cuda_error_string(err).decode())
     launches += 1
+    if es.dtype == torch.bfloat16:
+        launches_bf16 += 1
     return ctx, attn
 
 
 # The backward kernel's sizes: kernels/fused_attention_bwd.cu's kThreads,
 # kChunk, kMinStages, kMaxStages, kRingBytes and kMaxGroups (keep them in
 # step; a card test holds the refusal against the kernel's).  Its shared
-# memory: a ring of 8-row chunks, as many as fit in 96 KB (3 to 12), with
-# the mbarriers (2 floats each of kMaxStages) ahead of it; g_ctx [D]; the
-# row scalars' ring (5 x 8 x 4 floats), the d_cov warp sums (2 x 8 x
-# warps) and warps + 16 floats of the block's scalars
+# memory: a ring of 8-row chunks of the stream's dtype, as many as fit in
+# 96 KB (3 to 12), with the mbarriers (2 floats each of kMaxStages) ahead
+# of it; g_ctx [D]; the row scalars' ring (5 x 8 x 4 floats), the d_cov
+# warp sums (2 x 8 x warps) and warps + 16 floats of the block's scalars
 _BWD_THREADS, _BWD_CHUNK, _BWD_MIN_STAGES, _BWD_MAX_STAGES = 256, 8, 3, 12
 _BWD_RING_BYTES, _BWD_MAX_GROUPS = 96 * 1024, 3
 _BWD_WARPS = _BWD_THREADS // 32
@@ -296,15 +298,17 @@ _BWD_MAX_D = 4 * _BWD_THREADS * _BWD_MAX_GROUPS
 _BWD_TICKET_FLOATS = 4
 
 
-def _bwd_stages(D: int) -> int:
-    """Chunks in the backward kernel's ring at width D (ring_stages)."""
-    fit = _BWD_RING_BYTES // (_BWD_CHUNK * D * 4)
+def _bwd_stages(D: int, elt: int = 4) -> int:
+    """Chunks in the backward kernel's ring at width D, rows of
+    ``elt``-byte elements (ring_stages)."""
+    fit = _BWD_RING_BYTES // (_BWD_CHUNK * D * elt)
     return min(max(fit, _BWD_MIN_STAGES), _BWD_MAX_STAGES)
 
 
-def _bwd_smem_bytes(D: int) -> int:
+def _bwd_smem_bytes(D: int, elt: int = 4) -> int:
     """Dynamic shared memory of one backward block (smem_floats)."""
-    return 4 * (_BWD_FIXED_FLOATS + _bwd_stages(D) * _BWD_CHUNK * D + D)
+    ring = _bwd_stages(D, elt) * _BWD_CHUNK * D * elt // 4
+    return 4 * (_BWD_FIXED_FLOATS + ring + D)
 
 
 def _bwd_shape_refusal(es: torch.Tensor) -> Optional[str]:
@@ -316,12 +320,16 @@ def _bwd_shape_refusal(es: torch.Tensor) -> Optional[str]:
     B, T, D = es.shape
     if B == 0 or T == 0 or D == 0:
         return f"empty attention input (B={B}, T={T}, D={D})"
-    if D % 4:
-        return (f"D={D} is not a multiple of 4: the kernel reads float4 "
-                f"groups of each row")
+    if es.dtype not in (torch.float32, torch.bfloat16):
+        return (f"es has dtype {es.dtype}: the kernel takes float32 or "
+                f"bfloat16 encoder streams")
+    elt = 2 if es.dtype == torch.bfloat16 else 4
+    if D % (16 // elt):
+        return (f"D={D} is not a multiple of {16 // elt}: the kernel copies "
+                f"16-byte pieces of each {es.dtype} row")
     if B > _MAX_ARTICLES:
         return f"B={B} articles exceed the grid's {_MAX_ARTICLES}"
-    need = _bwd_smem_bytes(D)
+    need = _bwd_smem_bytes(D, elt)
     if D > _BWD_MAX_D or need > _SMEM_MAX:
         return (f"D={D}: the backward's ring of {_BWD_MIN_STAGES} chunks and "
                 f"its column sums do not fit one block ({need} bytes of "
@@ -352,8 +360,7 @@ def _bwd_scratch(dev: torch.device, stream: int, floats: int) -> torch.Tensor:
 def _attention_bwd_cuda(es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn,
                         use_coverage):
     """Launch the backward kernel; same contract as _attention_bwd_plain."""
-    global launches_bwd
-    _refuse_bwd_dtype(es)
+    global launches_bwd, launches_bwd_bf16
     refusal = _bwd_shape_refusal(es)
     if refusal is not None:
         raise ValueError(refusal)
@@ -362,15 +369,17 @@ def _attention_bwd_cuda(es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn,
         raise ValueError(f"the fused attention backward kernel needs CUDA "
                          f"tensors, got {dev}")
     B, T, D = es.shape
-    for name, x, shape in (("es", es, (B, T, D)), ("ef", ef, (B, T, D)),
-                           ("mask", mask, (B, T)), ("df", df, (B, D)),
-                           ("cov", cov, (B, T)), ("v", v, (D,)),
-                           ("w_c", w_c, (D,)), ("attn", attn, (B, T)),
-                           ("g_ctx", g_ctx, (B, D)),
-                           ("g_attn", g_attn, (B, T))):
-        _check(name, x, shape, (torch.float32,), dev)
-        if x.data_ptr() % 16 and x.dim() == 3:
-            raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+    _check("es", es, (B, T, D), (torch.float32, torch.bfloat16), dev)
+    for name, x, shape, dtype in (
+            ("ef", ef, (B, T, D), es.dtype), ("mask", mask, (B, T), None),
+            ("df", df, (B, D), None), ("cov", cov, (B, T), None),
+            ("v", v, (D,), None), ("w_c", w_c, (D,), None),
+            ("attn", attn, (B, T), None), ("g_ctx", g_ctx, (B, D), None),
+            ("g_attn", g_attn, (B, T), None)):
+        _check(name, x, shape, (dtype or torch.float32,), dev)
+    for name, x in (("es", es), ("ef", ef)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (TMA copies)")
     # df, g_ctx, v and w_c are read in float4 groups too: a view that
     # starts off a 16-byte boundary is copied to one that does not
     df, g_ctx, v, w_c = (x if x.data_ptr() % 16 == 0 else x.clone()
@@ -388,12 +397,14 @@ def _attention_bwd_cuda(es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn,
             g_ctx.data_ptr(), g_attn.data_ptr(), d_es.data_ptr(),
             d_ef.data_ptr(), d_df.data_ptr(), d_cov.data_ptr(),
             d_v.data_ptr(), d_w_c.data_ptr(), part.data_ptr(), B, T, D,
-            int(bool(use_coverage)), stream)
+            int(bool(use_coverage)), int(es.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(
             "fused attention backward kernel launch failed: "
             + lib.ts_fused_attention_bwd_error_string(err).decode())
     launches_bwd += 1
+    if es.dtype == torch.bfloat16:
+        launches_bwd_bf16 += 1
     return d_es, d_ef, d_df, d_cov, d_v, d_w_c
 
 
@@ -429,7 +440,6 @@ class FusedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, es, ef, mask, df, cov, v, w_c, use_coverage):
-        _refuse_bwd_dtype(es)
         context, attn = _attention_rows(es, ef, mask, df, cov, v, w_c,
                                         use_coverage)
         ctx.save_for_backward(es, ef, mask, df, cov, v, w_c, attn)

@@ -17,16 +17,21 @@ distribution or the [T, B, V] softmax:
     p_gen * exp(score_w - logsumexp(scores)) * [w < V]
         + (1 - p_gen) * sum_{i: ext_ids_i = w} a_i
 
-The streaming ``--loss_chunk`` forms (JAX ops/losses.py:139-318) are not
-ported yet (config.ROADMAP_LOSS_CHUNK); HParams.validate refuses the
-flag.
+The streaming ``--loss_chunk`` forms (JAX ops/losses.py:139-318),
+``streaming_gold_probs`` and ``streaming_softmax_cross_entropy``, take
+the pre-projection decoder outputs and project [chunk, B, V] scores at
+a time; each is a ``torch.autograd.Function`` that saves only its inputs
+and whose backward rebuilds one chunk's scores at a time, so no
+[T, B, V] tensor exists in either pass.  ``project_scores`` is the one
+vocab projection of the losses and the decode heads: bf16 operands with
+f32 sums and an f32 result under ``compute_dtype=bfloat16``.
 """
 
 from __future__ import annotations
 
-import torch
+from typing import Tuple
 
-from textsummarization_on_flink_tpu_torch.config import ROADMAP_BF16
+import torch
 
 
 def mask_and_avg(values: torch.Tensor,
@@ -91,12 +96,214 @@ def softmax_cross_entropy_baseline(vocab_scores: torch.Tensor,
     return torch.sum(nll * dec_padding_mask) / torch.sum(dec_padding_mask)
 
 
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M, K] @ b [K, N] of bf16 operands with f32 sums and an f32
+    result.  On the card one GEMM of bf16 operands
+    (``torch.mm(out_dtype=...)``; device.resolve_device turns the bf16
+    reduced-precision reduction off).  The CPU has no such GEMM, so the
+    operands are widened to f32, which gives the same exact products."""
+    if a.device.type == "cuda":
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
+class _Bf16Projection(torch.autograd.Function):
+    """x @ w with both operands rounded to bf16 (jnp.dot(x.astype(bf16),
+    w.astype(bf16), preferred_element_type=f32)).  Its backward is what
+    jax.vjp gives that expression: each cotangent is an f32 product of
+    the f32 gradient with the other bf16 operand, rounded to bf16 (the
+    operand's dtype) and widened back (the astype's transpose).  Saves
+    the two bf16 operands."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16)
+        wb = w.to(torch.bfloat16)
+        ctx.save_for_backward(xb, wb)
+        ctx.dtypes = (x.dtype, w.dtype)
+        return _mm_f32(xb, wb).reshape(*x.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        xb, wb = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).float()
+        d_x = d_w = None
+        if ctx.needs_input_grad[0]:
+            d_x = (g2 @ wb.float().T).to(torch.bfloat16).to(ctx.dtypes[0])
+            d_x = d_x.reshape(*g.shape[:-1], wb.shape[0])
+        if ctx.needs_input_grad[1]:
+            d_w = (xb.float().T @ g2).to(torch.bfloat16).to(ctx.dtypes[1])
+        return d_x, d_w
+
+
 def project_scores(x: torch.Tensor, w: torch.Tensor,
                    compute_dtype: str = "float32") -> torch.Tensor:
     """x @ w, the vocab projection every loss and decode head goes
-    through.  f32 only in the port (the JAX package's bf16 operands wait
-    for config.ROADMAP_BF16)."""
-    if compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype!r}: {ROADMAP_BF16}")
+    through (JAX ops/losses.py:139-151): in f32, or with bf16 operands,
+    f32 sums and an f32 result under ``compute_dtype="bfloat16"``."""
+    if compute_dtype == "bfloat16":
+        return _Bf16Projection.apply(x, w)
     return x @ w
+
+
+def _chunks(chunk: int, T: int) -> Tuple[int, int]:
+    """(chunks, padded length) for T steps in chunks of ``chunk``."""
+    n = -(-T // chunk)
+    return n, n * chunk
+
+
+def _pad_steps(x: torch.Tensor, length: int) -> torch.Tensor:
+    """Zero rows after x's leading T up to ``length`` (_pack_chunks,
+    JAX ops/losses.py:160-173: the padded tail computes on zeros, is
+    sliced away in the forward and gets zero cotangents)."""
+    pad = length - x.shape[0]
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+
+
+def _clamp_chunk(chunk: int, T: int) -> int:
+    return int(min(max(chunk, 1), T))
+
+
+def _chunk_gold(o, a, p, t, ext, w, v, compute_dtype):
+    scores = project_scores(o, w, compute_dtype) + v  # [chunk, B, V]
+    return gold_mixture_prob_from_scores(scores, a, p, t, ext)
+
+
+def _chunk_nll(o, t, w, v, compute_dtype):
+    scores = project_scores(o, w, compute_dtype) + v
+    log_probs = torch.log_softmax(scores, dim=-1)
+    return -torch.gather(log_probs, -1, t.long()[..., None])[..., 0]
+
+
+def _recompute_grads(fn, diff, g_c):
+    """The vjp of one chunk: ``fn(*diff)`` rebuilt with ``diff`` as fresh
+    leaves (its scores recomputed), differentiated against the cotangent
+    ``g_c``."""
+    leaves = [x.detach().requires_grad_(True) for x in diff]
+    with torch.enable_grad():
+        out = fn(*leaves)
+    return torch.autograd.grad(out, leaves, g_c)
+
+
+class _StreamingGold(torch.autograd.Function):
+    """Gold mixture probability [T, B] from decoder outputs [T, B, H],
+    ``chunk`` steps at a time (JAX ``_streaming_gold`` and its custom
+    VJP).  Saves its inputs only; the backward rebuilds each chunk's
+    scores and sums dw, dv over the chunks in order."""
+
+    @staticmethod
+    def forward(ctx, chunk, compute_dtype, outputs, attn_dists, p_gens,
+                targets, ext, w, v):
+        T = targets.shape[0]
+        n, Tp = _chunks(chunk, T)
+        o, a, p, t = (_pad_steps(x, Tp) for x in
+                      (outputs, attn_dists, p_gens, targets))
+        gold = torch.cat([
+            _chunk_gold(o[i * chunk:(i + 1) * chunk],
+                        a[i * chunk:(i + 1) * chunk],
+                        p[i * chunk:(i + 1) * chunk],
+                        t[i * chunk:(i + 1) * chunk], ext, w, v,
+                        compute_dtype) for i in range(n)])
+        ctx.save_for_backward(outputs, attn_dists, p_gens, targets, ext, w,
+                              v)
+        ctx.chunk, ctx.compute_dtype = chunk, compute_dtype
+        return gold[:T]
+
+    @staticmethod
+    def backward(ctx, g):
+        outputs, attn_dists, p_gens, targets, ext, w, v = ctx.saved_tensors
+        chunk, cd = ctx.chunk, ctx.compute_dtype
+        T = targets.shape[0]
+        n, Tp = _chunks(chunk, T)
+        o, a, p, t, gp = (_pad_steps(x, Tp) for x in
+                          (outputs, attn_dists, p_gens, targets, g))
+        dw, dv = torch.zeros_like(w), torch.zeros_like(v)
+        do, da, dp = [], [], []
+        for i in range(n):
+            s = slice(i * chunk, (i + 1) * chunk)
+            t_c = t[s]
+            do_c, da_c, dp_c, dw_c, dv_c = _recompute_grads(
+                lambda o_, a_, p_, w_, v_: _chunk_gold(o_, a_, p_, t_c, ext,
+                                                       w_, v_, cd),
+                (o[s], a[s], p[s], w, v), gp[s])
+            dw, dv = dw + dw_c, dv + dv_c
+            do.append(do_c)
+            da.append(da_c)
+            dp.append(dp_c)
+        return (None, None, torch.cat(do)[:T], torch.cat(da)[:T],
+                torch.cat(dp)[:T], None, None, dw, dv)
+
+
+def streaming_gold_probs(outputs: torch.Tensor, attn_dists: torch.Tensor,
+                         p_gens: torch.Tensor, targets: torch.Tensor,
+                         enc_batch_extend_vocab: torch.Tensor,
+                         w: torch.Tensor, v: torch.Tensor, *, chunk: int,
+                         compute_dtype: str = "float32") -> torch.Tensor:
+    """Chunked gold_mixture_prob_from_scores from pre-projection decoder
+    outputs (JAX ops/losses.py:231-249).
+
+    outputs [T, B, H] (step-major); attn_dists [T, B, T_enc]; p_gens,
+    targets [T, B]; enc_batch_extend_vocab [B, T_enc]; w [H, V]; v [V].
+    Returns [T, B], equal to the materialised formula on
+    ``project_scores(outputs, w) + v``, with one [chunk, B, V] scores
+    block at a time in the forward and the backward."""
+    T = outputs.shape[0]
+    return _StreamingGold.apply(_clamp_chunk(chunk, T), compute_dtype,
+                                outputs, attn_dists, p_gens, targets,
+                                enc_batch_extend_vocab, w, v)
+
+
+class _StreamingNll(torch.autograd.Function):
+    """Per-token NLL [T, B] of the plain vocab softmax, ``chunk`` steps at
+    a time (JAX ``_streaming_ce_nll`` and its custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, chunk, compute_dtype, outputs, targets, w, v):
+        T = targets.shape[0]
+        n, Tp = _chunks(chunk, T)
+        o, t = _pad_steps(outputs, Tp), _pad_steps(targets, Tp)
+        nll = torch.cat([
+            _chunk_nll(o[i * chunk:(i + 1) * chunk],
+                       t[i * chunk:(i + 1) * chunk], w, v, compute_dtype)
+            for i in range(n)])
+        ctx.save_for_backward(outputs, targets, w, v)
+        ctx.chunk, ctx.compute_dtype = chunk, compute_dtype
+        return nll[:T]
+
+    @staticmethod
+    def backward(ctx, g):
+        outputs, targets, w, v = ctx.saved_tensors
+        chunk, cd = ctx.chunk, ctx.compute_dtype
+        T = targets.shape[0]
+        n, Tp = _chunks(chunk, T)
+        o, t, gp = (_pad_steps(x, Tp) for x in (outputs, targets, g))
+        dw, dv = torch.zeros_like(w), torch.zeros_like(v)
+        do = []
+        for i in range(n):
+            s = slice(i * chunk, (i + 1) * chunk)
+            t_c = t[s]
+            do_c, dw_c, dv_c = _recompute_grads(
+                lambda o_, w_, v_: _chunk_nll(o_, t_c, w_, v_, cd),
+                (o[s], w, v), gp[s])
+            dw, dv = dw + dw_c, dv + dv_c
+            do.append(do_c)
+        return None, None, torch.cat(do)[:T], None, dw, dv
+
+
+def streaming_softmax_cross_entropy(outputs: torch.Tensor,
+                                    targets: torch.Tensor,
+                                    dec_padding_mask: torch.Tensor,
+                                    w: torch.Tensor, v: torch.Tensor, *,
+                                    chunk: int,
+                                    compute_dtype: str = "float32",
+                                    ) -> torch.Tensor:
+    """Chunked softmax_cross_entropy_baseline from pre-projection outputs
+    (JAX ops/losses.py:306-318), all step-major: outputs [T, B, H],
+    targets and dec_padding_mask [T, B].  The same global token-weighted
+    mean as the materialised formula."""
+    T = outputs.shape[0]
+    nll = _StreamingNll.apply(_clamp_chunk(chunk, T), compute_dtype,
+                              outputs, targets, w, v)
+    return torch.sum(nll * dec_padding_mask) / torch.sum(dec_padding_mask)

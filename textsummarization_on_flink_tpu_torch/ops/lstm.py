@@ -67,13 +67,17 @@ def bidirectional_encoder(fw_params: Dict[str, torch.Tensor],
     """bidirectional_dynamic_rnn parity (model.py:76-94).
 
     inputs [B, T, I]; lens [B]; mask [B, T].  Returns (outputs [B, T, 2H]
-    fw||bw, fw_state, bw_state)."""
+    fw||bw, fw_state, bw_state), in the inputs' dtype: the weights are
+    cast to it, so bf16 inputs run the whole recurrence in bf16, as the
+    JAX package's does."""
     B, T, I = inputs.shape
     H = fw_params["kernel"].shape[1] // 4
     rev_inputs = reverse_sequence(inputs, lens)
     inputs2 = torch.stack([inputs, rev_inputs])  # [2, B, T, I]
-    kernel2 = torch.stack([fw_params["kernel"], bw_params["kernel"]])
-    bias2 = torch.stack([fw_params["bias"], bw_params["bias"]])  # [2, 4H]
+    kernel2 = torch.stack([fw_params["kernel"], bw_params["kernel"]]
+                          ).to(inputs.dtype)
+    bias2 = torch.stack([fw_params["bias"], bw_params["bias"]]
+                        ).to(inputs.dtype)  # [2, 4H]
     k_x2, k_h2 = kernel2[:, :I], kernel2[:, I:]  # [2, I, 4H], [2, H, 4H]
     # input half hoisted out of the recurrence, both directions at once
     x_proj2 = torch.einsum("dbti,dif->dbtf", inputs2, k_x2) \

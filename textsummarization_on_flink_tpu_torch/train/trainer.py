@@ -6,20 +6,35 @@ Port of the single-device path of the JAX package's train/trainer.py
 
   * ``train_step``: gradients of the objective (``total_loss`` with
     coverage, else ``loss``; model.py:291) -> global-norm clip -> TF1
-    Adagrad -> step + 1, params and accumulators updated in place;
-  * ``Trainer.train``: per-step ``loss`` and ``seconds for training step``
-    log lines, JSON-lines summaries, a non-finite-loss watchdog that reads
-    the loss after every step (train.py:107-108), checkpoints every
-    ``CHECKPOINT_SECS`` (save_model_secs=60 parity) or every
-    ``hps.checkpoint_steps``, and one at the end;
+    Adagrad (accumulators stored in ``--opt_state_dtype``) -> step + 1,
+    params and accumulators updated in place, or out of place while
+    divergence recovery needs the pre-step state;
+  * ``Trainer.train``: batches from a ``DevicePrefetcher`` (a thread that
+    reads the batcher and copies each batch to the device ahead of the
+    step), ``steps_per_dispatch`` steps back to back per dispatch, the
+    metrics read in windows of ``metrics_every`` steps (one device sync
+    per window) with their per-step ``loss`` and ``seconds for training
+    step`` log lines, JSON-lines summaries and the non-finite-loss
+    watchdog (train.py:107-108), divergence recovery (skip, roll back
+    with an LR cut, then ``NanLossError``) with the ``train.step_nan``
+    fault point, a ``torch.profiler`` capture of steps 2-7 into
+    ``profile_dir``, checkpoints every ``CHECKPOINT_SECS``
+    (save_model_secs=60 parity) or every ``hps.checkpoint_steps``, and
+    one at the end;
   * ``Evaluator.run``: the exponentially smoothed running-average loss
     (decay .99, clipped at 12) driving best-model saves.
 
-Not ported yet (ROADMAP.md queue 1, items 2c-2f and 6): remat, the obs
-registry, flight recorder and fault injection, divergence recovery
-(nan_skip_steps / nan_max_rollbacks), the DevicePrefetcher,
-steps_per_dispatch, the profiler hooks, and the mesh.  Batches come
-synchronously from data/batcher.py and move to the device per step.
+Eager PyTorch has no ``lax.scan``: a dispatch of k steps is k calls of
+``train_step`` with no host sync between them, the same operations in
+the same order as k dispatches of one.  So ``steps_per_dispatch`` saves
+no launch, and no sync while ``metrics_every`` >= k; it sets the unit
+the JAX package works in, so that one set of flags acts on the same
+steps in both packages: the ``train.step_nan`` fault point fires once
+per dispatch, a recovery skip discards a whole dispatch (armed recovery
+reads the metrics once per dispatch), and the checkpoint and profiler
+cadences fall on dispatch boundaries.  Not ported yet (ROADMAP.md
+queue 1, items 2d and 6): the full obs registry and flight recorder,
+the JAX profiler ledger, and the mesh.
 """
 
 from __future__ import annotations
@@ -27,12 +42,15 @@ from __future__ import annotations
 import json
 import logging
 import os
+import queue as queue_lib
+import threading
 import time
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch.config import HParams
 from textsummarization_on_flink_tpu_torch.decode.beam_search import (
     _to_device as batch_to_device,
@@ -43,7 +61,9 @@ from textsummarization_on_flink_tpu_torch.params import (
     from_numpy_tree,
     init_numpy_params,
     tree_leaves,
+    tree_map,
 )
+from textsummarization_on_flink_tpu_torch.resilience import faultinject
 from textsummarization_on_flink_tpu_torch.train import optim
 
 log = logging.getLogger(__name__)
@@ -66,33 +86,53 @@ class StepMetrics(NamedTuple):
     global_norm: torch.Tensor
 
 
+def opt_state_dtype(hps: HParams) -> Optional[torch.dtype]:
+    """The accumulators' storage dtype (None: the params' own, f32)."""
+    return torch.bfloat16 if hps.opt_state_dtype == "bfloat16" else None
+
+
 def init_train_state(hps: HParams, vsize: int, params: Optional[Any] = None,
                      device: Any = None) -> TrainState:
     """Fresh params of the family from ``hps.seed`` or the given tree
     (numpy or tensors), on ``device`` (hps.device when None), with
-    accumulators at ``adagrad_init_acc`` and step 0."""
+    accumulators at ``adagrad_init_acc`` in ``--opt_state_dtype`` and
+    step 0."""
     device = resolve_device(hps.device) if device is None else device
     if params is None:
         params = init_numpy_params(hps, vsize, hps.seed)
     return make_train_state(params, None, 0, device,
-                            init_acc=hps.adagrad_init_acc)
+                            init_acc=hps.adagrad_init_acc,
+                            acc_dtype=opt_state_dtype(hps))
 
 
 def make_train_state(params: Any, accumulators: Optional[Any], step: int,
-                     device: Any, init_acc: float = 0.0) -> TrainState:
+                     device: Any, init_acc: float = 0.0,
+                     acc_dtype: Optional[torch.dtype] = None) -> TrainState:
     """A TrainState on ``device`` from numpy or tensor trees; the params
     get ``requires_grad``; accumulators of None start at ``init_acc``
     (0 is what the JAX package's arrays_to_state gives a params-only
-    checkpoint)."""
+    checkpoint), in ``acc_dtype`` (None: the params')."""
     params = from_numpy_tree(params, device)
     for p in tree_leaves(params):
         p.requires_grad_(True)
     if accumulators is None:
-        opt_state = optim.adagrad_init(params, init_acc)
+        opt_state = optim.adagrad_init(params, init_acc, dtype=acc_dtype)
     else:
         opt_state = optim.AdagradState(
             accumulators=from_numpy_tree(accumulators, device))
     return TrainState(params=params, opt_state=opt_state, step=int(step))
+
+
+def cast_opt_state(hps: HParams, state: TrainState) -> TrainState:
+    """The state with its accumulators in ``--opt_state_dtype`` (JAX
+    trainer.py:74-86): a checkpoint holds them in f32 (npz has no bf16),
+    so a bf16-state run narrows them again on resume."""
+    dtype = opt_state_dtype(hps) or torch.float32
+    acc = state.opt_state.accumulators
+    if all(a.dtype == dtype for a in tree_leaves(acc)):
+        return state
+    return state._replace(opt_state=optim.AdagradState(
+        accumulators=tree_map(lambda a: a.to(dtype), acc)))
 
 
 def make_loss_fn(hps: HParams) -> Callable:
@@ -111,11 +151,13 @@ def make_loss_fn(hps: HParams) -> Callable:
 
 def train_step(hps: HParams, state: TrainState,
                arrays: Dict[str, torch.Tensor],
-               loss_fn: Optional[Callable] = None,
+               loss_fn: Optional[Callable] = None, inplace: bool = True,
                ) -> Tuple[TrainState, StepMetrics]:
-    """grads -> clip -> Adagrad -> step + 1 (trainer.py:139-148).  The
-    params and accumulators of ``state`` are updated in place; the
-    returned state holds them with the new step."""
+    """grads -> clip -> Adagrad -> step + 1 (trainer.py:139-148).  With
+    ``inplace`` the params and accumulators of ``state`` are updated in
+    place and the returned state holds them with the new step; without
+    it ``state`` is left as it was and the returned state holds new
+    tensors (the same arithmetic)."""
     loss_fn = loss_fn if loss_fn is not None else make_loss_fn(hps)
     leaves = tree_leaves(state.params)
     objective, out = loss_fn(state.params, arrays)
@@ -124,13 +166,18 @@ def train_step(hps: HParams, state: TrainState,
     grads = list(torch.autograd.grad(objective, leaves,
                                      materialize_grads=True))
     grads, gnorm = optim.clip_by_global_norm(grads, hps.max_grad_norm)
-    opt_state = optim.adagrad_update(grads, state.opt_state, state.params,
-                                     hps.lr)
+    if inplace:
+        params = state.params
+        opt_state = optim.adagrad_update(grads, state.opt_state, params,
+                                         hps.lr)
+    else:
+        params, opt_state = optim.adagrad_step(grads, state.opt_state,
+                                               state.params, hps.lr)
     metrics = StepMetrics(loss=out.loss.detach(),
                           coverage_loss=out.coverage_loss.detach(),
                           total_loss=out.total_loss.detach(),
                           global_norm=gnorm)
-    return TrainState(state.params, opt_state, state.step + 1), metrics
+    return TrainState(params, opt_state, state.step + 1), metrics
 
 
 def calc_running_avg_loss(loss: float, running_avg_loss: float,
@@ -168,10 +215,249 @@ class NonFiniteLossError(RuntimeError):
 
 
 class NanLossError(NonFiniteLossError):
-    """Divergence recovery exhausted its budgets (JAX trainer.py:278).
-    The port has no divergence recovery yet (ROADMAP.md queue 1, item
-    2e), so it never raises this; the type is kept so handlers written
-    against the JAX package's hierarchy work unchanged."""
+    """Divergence recovery exhausted its budgets (JAX trainer.py:278): the
+    watchdog skipped ``hps.nan_skip_steps`` batches and rolled back
+    ``hps.nan_max_rollbacks`` times, and the loss still went non-finite.
+    A ``NonFiniteLossError`` subclass, so watchdog handlers keep
+    working."""
+
+
+class _DivergenceRecovery:
+    """Armed NaN/Inf recovery (hps.nan_skip_steps > 0 or
+    hps.nan_max_rollbacks > 0; JAX trainer.py:286-360).
+
+    On a non-finite dispatch:
+      1. SKIP: discard the dispatch (the trainer updates out of place
+         while armed, so the pre-dispatch state is intact) and take the
+         next batch, up to ``nan_skip_steps`` consecutive skips; a
+         finite dispatch restores the budget;
+      2. ROLLBACK: restore the last good checkpoint (or, with no
+         checkpointer or before its first save, the last snapshot) and
+         cut the LR by ``nan_lr_cut``, up to ``nan_max_rollbacks`` times;
+      3. RAISE ``NanLossError``.
+
+    Counters ``resilience/train/nan_skips_total`` and
+    ``resilience/train/rollbacks_total``; gauge
+    ``resilience/train/lr_scale``.  The snapshot holds references to a
+    state's tensors, not copies: while armed, no update writes into a
+    tensor in place, so an earlier state stays as it was."""
+
+    SNAPSHOT_EVERY = 10  # good dispatches between snapshots (no checkpointer)
+
+    def __init__(self, hps: HParams, checkpointer: Any,
+                 registry: obs.Registry, initial_state: TrainState,
+                 device: Any):
+        self.hps = hps
+        self.checkpointer = checkpointer
+        self.device = device
+        self.skips_left = hps.nan_skip_steps
+        self.rollbacks_left = hps.nan_max_rollbacks
+        self.lr_scale = 1.0
+        self._c_skips = registry.counter("resilience/train/nan_skips_total")
+        self._c_rollbacks = registry.counter(
+            "resilience/train/rollbacks_total")
+        self._g_lr_scale = registry.gauge("resilience/train/lr_scale")
+        self._g_lr_scale.set(1.0)
+        self.snapshot = initial_state
+        self._good_since_snapshot = 0
+
+    def note_good(self, state: TrainState) -> None:
+        self.skips_left = self.hps.nan_skip_steps  # a consecutive budget
+        if self.checkpointer is None:
+            self._good_since_snapshot += 1
+            if self._good_since_snapshot >= self.SNAPSHOT_EVERY:
+                self.snapshot = state
+                self._good_since_snapshot = 0
+
+    def next_action(self) -> str:
+        if self.skips_left > 0:
+            return "skip"
+        if self.rollbacks_left > 0:
+            return "rollback"
+        return "raise"
+
+    def take_skip(self) -> None:
+        self.skips_left -= 1
+        self._c_skips.inc()
+
+    def take_rollback(self) -> TrainState:
+        """Consume one rollback: cut the LR and return the state to
+        resume from, its accumulators in ``--opt_state_dtype``."""
+        self.rollbacks_left -= 1
+        self.skips_left = self.hps.nan_skip_steps
+        self.lr_scale *= self.hps.nan_lr_cut
+        self._g_lr_scale.set(self.lr_scale)
+        self._c_rollbacks.inc()
+        restored = (self.checkpointer.restore(device=self.device)
+                    if self.checkpointer is not None else None)
+        if restored is None:
+            return self.snapshot
+        return cast_opt_state(self.hps, restored)
+
+
+class PrefetchError(RuntimeError):
+    """The DevicePrefetcher's thread failed; the cause is chained
+    (``raise ... from``).  A RuntimeError subclass, so handlers written
+    for the JAX package's hierarchy keep working."""
+
+
+class _CudaTransfer:
+    """A batch to the card off the main stream: the host arrays are
+    copied into pinned memory and from there, without blocking, on a
+    side stream (in the prefetcher's thread); ``ready`` (in the
+    consumer's thread) makes the current stream wait for those copies
+    and marks the tensors as used by it, so the allocator does not hand
+    their memory back to the side stream early."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+
+    def __call__(self, arrays: Dict[str, np.ndarray]):
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            out = {}
+            for k, v in arrays.items():
+                t = torch.as_tensor(np.asarray(v))
+                t = t.float() if t.dtype.is_floating_point else t.long()
+                out[k] = t.pin_memory().to(self.device, non_blocking=True)
+            event = self.stream.record_event()
+        return out, event
+
+    def ready(self, item) -> Dict[str, torch.Tensor]:
+        out, event = item
+        main = torch.cuda.current_stream(self.device)
+        main.wait_event(event)
+        for t in out.values():
+            t.record_stream(main)
+        return out
+
+
+class _CpuTransfer:
+    """A batch to CPU tensors (no stream)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+
+    def __call__(self, arrays: Dict[str, np.ndarray]):
+        return batch_to_device(arrays, self.device)
+
+    def ready(self, item) -> Dict[str, torch.Tensor]:
+        return item
+
+
+def make_transfer(device: torch.device):
+    return (_CudaTransfer(device) if device.type == "cuda"
+            else _CpuTransfer(device))
+
+
+class DevicePrefetcher:
+    """The batcher read, and each batch copied to the device, by a thread
+    ahead of the train loop (JAX trainer.py:363-476): ``next_batch()``
+    returns (batch, device arrays) in the batcher's order, or None once
+    the batcher is exhausted.
+
+    A failure of the thread surfaces on the next ``next_batch()`` call as
+    a ``PrefetchError`` chained to its cause; the consumer polls, so a
+    dead thread never strands it on an empty queue.  ``stop()`` joins the
+    thread.  Counters ``train/prefetch_batches_total`` and
+    ``train/prefetch_errors_total``; gauge ``train/prefetch_queue_depth``.
+    """
+
+    def __init__(self, batcher: Any, transfer: Any, depth: int = 2,
+                 registry: Optional[obs.Registry] = None):
+        self._batcher = batcher
+        self._transfer = transfer
+        self._q: Any = queue_lib.Queue(maxsize=max(depth, 1))
+        self._done = object()
+        self._stopped = threading.Event()
+        self.error: Optional[BaseException] = None
+        reg = registry if registry is not None else obs.registry()
+        self._g_depth = reg.gauge("train/prefetch_queue_depth")
+        self._c_errors = reg.counter("train/prefetch_errors_total")
+        self._c_batches = reg.counter("train/prefetch_batches_total")
+        self._thread = threading.Thread(target=self._pump, daemon=True,
+                                        name="device-prefetcher")
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        while not self._stopped.is_set():
+            try:
+                self._q.put(item, timeout=0.2)
+                return True
+            except queue_lib.Full:
+                continue
+        return False
+
+    def _pump(self) -> None:
+        try:
+            while not self._stopped.is_set():
+                batch = self._batcher.next_batch()
+                if batch is None:
+                    break
+                # the copy to the device starts here, ahead of the step
+                if not self._put((batch, self._transfer(batch.as_arrays()))):
+                    return  # stopped while the queue was full
+        except BaseException as e:  # re-raised by the consumer
+            self.error = e
+            self._c_errors.inc()
+            log.exception("device prefetcher failed")
+        finally:
+            self._put(self._done)
+
+    def next_batch(self):
+        self._g_depth.set(self._q.qsize())
+        while True:
+            try:
+                item = self._q.get(timeout=0.2)
+                break
+            except queue_lib.Empty:
+                # the thread died before it could queue its sentinel
+                if self.error is not None and self._q.empty():
+                    raise PrefetchError(
+                        "input pipeline failed mid-training") from self.error
+        if item is self._done:
+            if self.error is not None:
+                raise PrefetchError(
+                    "input pipeline failed mid-training") from self.error
+            return None
+        self._c_batches.inc()
+        batch, moved = item
+        return batch, self._transfer.ready(moved)
+
+    def stop(self) -> None:
+        """Stop and join the thread (an exit at the step limit or on an
+        error must not go on draining the batcher)."""
+        self._stopped.set()
+        self._thread.join(timeout=10.0)
+
+
+class _Profiler:
+    """torch.profiler over the capture window from ``start_step``; the
+    trace is written into ``directory`` as a Chrome trace,
+    ``train_steps_<first>-<last>.pt.trace.json``, when the window closes
+    (``-aborted`` in place of the last step when the run failed)."""
+
+    def __init__(self, directory: str, device: torch.device,
+                 start_step: int):
+        from torch.profiler import ProfilerActivity, profile
+
+        self.directory = directory
+        self.start_step = start_step
+        activities = [ProfilerActivity.CPU]
+        if device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.start()
+
+    def stop(self, last_step: Optional[int] = None) -> str:
+        self._prof.stop()
+        os.makedirs(self.directory, exist_ok=True)
+        last = "aborted" if last_step is None else last_step
+        path = os.path.join(self.directory,
+                            f"train_steps_{self.start_step}-{last}"
+                            f".pt.trace.json")
+        self._prof.export_chrome_trace(path)
+        return path
 
 
 class Trainer:
@@ -179,88 +465,273 @@ class Trainer:
     single-device path).
 
     batcher: anything with next_batch() -> Batch | None.  checkpointer:
-    optional; saves every ``CHECKPOINT_SECS`` (or every
-    ``hps.checkpoint_steps`` when > 0) and at the end.  A step's logged
-    seconds are host wall time ending in the loss read, a device sync."""
+    optional; saves every ``checkpoint_secs`` (or every
+    ``hps.checkpoint_steps`` when > 0) and at the end.  A window's logged
+    seconds per step are host wall time over the window, ending in the
+    metrics read, a device sync."""
 
     def __init__(self, hps: HParams, vsize: int, batcher: Any,
                  state: Optional[TrainState] = None,
                  checkpointer: Optional[Any] = None,
-                 train_dir: Optional[str] = None):
+                 train_dir: Optional[str] = None,
+                 checkpoint_secs: float = CHECKPOINT_SECS,
+                 metrics_every: int = 0):
         self.hps = hps
         self.batcher = batcher
         self.device = resolve_device(hps.device)
-        self.state = state if state is not None else init_train_state(
+        # metrics are read, logged and checked in windows of this many
+        # steps (one device sync per window); 0 = auto: every step under
+        # --debug, every 10 otherwise.  Every step still gets a summary
+        # record.
+        self.metrics_every = (metrics_every or hps.metrics_every
+                              or (1 if hps.debug else 10))
+        self.checkpoint_secs = checkpoint_secs
+        state = state if state is not None else init_train_state(
             hps, vsize, device=self.device)
+        # a checkpoint holds f32 accumulators: narrow them for bf16 state
+        self.state = cast_opt_state(hps, state)
+        # --debug pins one step per dispatch: the exact watchdog reads
+        # every step
+        self.steps_per_dispatch = max(
+            1 if hps.debug else hps.steps_per_dispatch, 1)
         self.checkpointer = checkpointer
         self.train_dir = train_dir or os.path.join(
             hps.log_root or ".", hps.exp_name or "exp", "train")
         self.writer: Optional[SummaryWriter] = None
+        self._obs = obs.registry_for(hps)
+        self._c_nan = self._obs.counter("train/nan_watchdog_total")
+        # the fault plan is resolved once, so each point's RNG stream runs
+        # on across the whole run
+        self._faults = faultinject.plan_for(hps)
+        self._recovery: Optional[_DivergenceRecovery] = None
+        if hps.nan_skip_steps > 0 or hps.nan_max_rollbacks > 0:
+            self._recovery = _DivergenceRecovery(
+                hps, checkpointer, self._obs, self.state, self.device)
         self._loss_fn = make_loss_fn(hps)
+        self._step_hps = hps
+        self._profiler: Optional[_Profiler] = None
 
     def train(self, num_steps: Optional[int] = None) -> TrainState:
         """Run until step ``num_steps`` (hps.num_steps when None; 0 = until
-        the batcher is exhausted)."""
+        the batcher is exhausted).  With ``hps.profile_dir`` (else the
+        TS_PROFILE_DIR environment variable) steps 2-7 of this run are
+        traced by torch.profiler into that directory."""
         limit = self.hps.num_steps if num_steps is None else num_steps
-        # the cadence is a duration: monotonic, never the wall clock
-        last_ckpt = time.monotonic()
-        step = self.state.step
+        profile_dir = self.hps.profile_dir or os.environ.get(
+            "TS_PROFILE_DIR", "")
         self.writer = SummaryWriter(self.train_dir)
+        prefetcher = DevicePrefetcher(
+            self.batcher, make_transfer(self.device),
+            depth=max(2, self.steps_per_dispatch + 1), registry=self._obs)
         try:
-            while not (limit and step >= limit):
-                batch = self.batcher.next_batch()
-                if batch is None:
-                    log.info("batcher exhausted; stopping training at step "
-                             "%d", step)
-                    break
-                step = self._one_step(step, batch)
-                if self.checkpointer is not None and self._due(
-                        step, last_ckpt):
-                    self.checkpointer.save(self.state)
-                    last_ckpt = time.monotonic()
-            if self.checkpointer is not None:
-                self.checkpointer.save(self.state)
+            return self._train_steps(limit, prefetcher, profile_dir)
         finally:
+            prefetcher.stop()
+            if self._profiler is not None:  # a capture the run aborted
+                self._profiler.stop()
+                self._profiler = None
             self.writer.close()
-        return self.state
 
-    def _due(self, step: int, last_ckpt: float) -> bool:
-        if self.hps.checkpoint_steps > 0:
-            return step % self.hps.checkpoint_steps == 0
-        return time.monotonic() - last_ckpt >= CHECKPOINT_SECS
+    def _dispatch(self, items: List[Tuple[Any, Dict[str, torch.Tensor]]],
+                  ) -> Tuple[TrainState, List[StepMetrics]]:
+        """The steps of one dispatch back to back, no host sync between
+        them; out of place while recovery is armed, so ``self.state``
+        stays the pre-dispatch state."""
+        state, metrics = self.state, []
+        for _, arrays in items:
+            state, m = train_step(self._step_hps, state, arrays,
+                                  self._loss_fn,
+                                  inplace=self._recovery is None)
+            metrics.append(m)
+        return state, metrics
 
-    def _one_step(self, step: int, batch: Any) -> int:
-        arrays = batch_to_device(batch.as_arrays(), self.device)
-        t0 = time.perf_counter()
-        self.state, m = train_step(self.hps, self.state, arrays,
-                                   self._loss_fn)
-        loss = float(m.loss)  # the watchdog's read: a device sync
-        dt = time.perf_counter() - t0
-        log.info("seconds for training step: %.3f", dt)
-        log.info("loss: %f", loss)
-        scalars = dict(loss=loss, total_loss=float(m.total_loss),
-                       global_norm=float(m.global_norm), step_time=dt)
-        if self.hps.coverage:
-            scalars["coverage_loss"] = float(m.coverage_loss)
-            log.info("coverage_loss: %f", scalars["coverage_loss"])
-        if not np.isfinite(loss):
-            self._dump_nan_batch(step, batch)
-            raise NonFiniteLossError(
-                f"Loss is not finite. Stopping. (step {step}, loss {loss})")
-        self.writer.scalars(step + 1, **scalars)
-        return step + 1
+    @staticmethod
+    def _fetch(metrics: List[StepMetrics]) -> np.ndarray:
+        """[n, 4] host array (loss, coverage_loss, total_loss,
+        global_norm) of device metrics: one copy, one sync."""
+        return torch.stack([torch.stack(tuple(m)) for m in metrics]
+                           ).float().cpu().numpy()
 
-    def _dump_nan_batch(self, step: int, batch: Any) -> None:
+    def _flush_metrics(self, pending, window_dt: float) -> None:
+        """Read a window of metrics, log and summarize each step, and run
+        the watchdog (train.py:107-108; detection deferred by up to
+        ``metrics_every`` steps unless --debug pins the window to 1).
+        pending: [(first step, metrics of its steps: a list of
+        StepMetrics or an [n, 4] host array, host arrays or None)]."""
+        if not pending:
+            return
+        on_device = [m for _, m, _ in pending if isinstance(m, list)]
+        fetched = iter(np.split(self._fetch(sum(on_device, [])),
+                                np.cumsum([len(m) for m in on_device])[:-1])
+                       if on_device else [])
+        total = sum(len(m) for _, m, _ in pending)
+        step_time = window_dt / max(total, 1)
+        log.info("seconds for training step: %.3f (avg over %d)", step_time,
+                 total)
+        for step0, m, arrays in pending:
+            host = next(fetched) if isinstance(m, list) else m
+            for i, (loss, cov, total_loss, gnorm) in enumerate(host):
+                step = step0 + i
+                loss = float(loss)
+                log.info("loss: %f", loss)
+                scalars = dict(loss=loss, total_loss=float(total_loss),
+                               global_norm=float(gnorm), step_time=step_time)
+                if self.hps.coverage:
+                    scalars["coverage_loss"] = float(cov)
+                    log.info("coverage_loss: %f", scalars["coverage_loss"])
+                if not np.isfinite(loss):
+                    self._c_nan.inc()
+                    self._dump_nan_batch(step, arrays)
+                    # the bad step opens a window read at >= metrics_every
+                    # steps, in whole dispatches
+                    lag = max(self.metrics_every + self.steps_per_dispatch
+                              - 2, 0)
+                    raise NonFiniteLossError(
+                        f"Loss is not finite. Stopping. (step {step}, loss "
+                        f"{loss}; detection is windowed: up to {lag} "
+                        f"optimizer steps may have run past the first bad "
+                        f"one; --debug pins the window to 1 for step-exact "
+                        f"detection)")
+                self.writer.scalars(step + 1, **scalars)
+
+    def _dump_nan_batch(self, step: int, arrays) -> None:
         """--debug: keep the batch of a non-finite loss (the reference
         wires tfdbg's has_inf_or_nan filter here,
         run_summarization.py:216-218)."""
-        if not self.hps.debug:
+        if not self.hps.debug or arrays is None:
             return
         path = os.path.join(self.train_dir, f"nan_batch_step{step}.npz")
         os.makedirs(self.train_dir, exist_ok=True)
-        np.savez(path, **batch.as_arrays())
+        np.savez(path, **arrays)
         log.error("non-finite loss at step %d; offending batch dumped to %s",
                   step, path)
+
+    def _recover(self, step: int) -> bool:
+        """Armed handling of one non-finite dispatch: True when the run
+        goes on (``self.state`` is the state to resume from), False when
+        both budgets are spent."""
+        rec = self._recovery
+        action = rec.next_action()
+        if action == "skip":
+            rec.take_skip()
+            log.warning("non-finite loss at step %d: skipping the batch "
+                        "(%d consecutive skips left before rollback)", step,
+                        rec.skips_left)
+            return True
+        if action == "rollback":
+            self.state = rec.take_rollback()
+            # the LR cut applies to the steps from here on
+            self._step_hps = self.hps.replace(lr=self.hps.lr * rec.lr_scale)
+            log.warning("non-finite loss at step %d: rolled back to step %d "
+                        "with lr scale %.3g (%d rollbacks left)", step,
+                        self.state.step, rec.lr_scale, rec.rollbacks_left)
+            return True
+        return False
+
+    def _due(self, step: int, prev_step: int, last_ckpt: float) -> bool:
+        if self.hps.checkpoint_steps > 0:
+            # crossed a cadence boundary in this dispatch
+            cs = self.hps.checkpoint_steps
+            return step // cs != prev_step // cs
+        return time.monotonic() - last_ckpt >= self.checkpoint_secs
+
+    def _train_steps(self, limit: int, prefetcher: DevicePrefetcher,
+                     profile_dir: str) -> TrainState:
+        flush_every = max(self.metrics_every, 1)
+        pending: List[Tuple[int, Any, Optional[Dict[str, np.ndarray]]]] = []
+        pending_steps = 0
+        # the cadence is a duration: monotonic, never the wall clock
+        last_ckpt = window_t0 = time.monotonic()
+        step = self.state.step
+        # the capture window: steps 2-7 of this run (it may resume)
+        profile_start, profile_stop = step + 2, step + 7
+        profile_done = False
+        exhausted = False
+        while not exhausted:
+            if limit and step >= limit:
+                break
+            # k batches per dispatch, clipped to the steps left
+            k = self.steps_per_dispatch
+            if limit:
+                k = min(k, limit - step)
+            items = []
+            while len(items) < k:
+                item = prefetcher.next_batch()
+                if item is None:
+                    exhausted = True
+                    break
+                items.append(item)
+            if not items:
+                log.info("batcher exhausted; stopping training at step %d",
+                         step)
+                break
+            if profile_dir and self._profiler is None and not profile_done \
+                    and step >= profile_start:
+                self._flush_metrics(pending, time.monotonic() - window_t0)
+                pending, pending_steps = [], 0
+                self._profiler = _Profiler(profile_dir, self.device, step)
+                window_t0 = time.monotonic()
+                log.info("profiler trace started -> %s", profile_dir)
+            n = len(items)
+            arrays = items[0][0].as_arrays() if self.hps.debug else None
+            new_state, metrics = self._dispatch(items)
+            injected = self._faults.fire("train.step_nan")
+            if self._recovery is not None:
+                # armed: one metrics read per dispatch, so a bad state never
+                # outlives the dispatch that made it
+                fetched = self._fetch(metrics)
+                if injected or not np.all(np.isfinite(fetched[:, 0])):
+                    self._c_nan.inc()
+                    self._dump_nan_batch(step, arrays)
+                    # new_state is dropped; self.state is the pre-dispatch
+                    # state, untouched (out-of-place updates)
+                    if self._recover(step):
+                        step = self.state.step
+                        continue
+                    raise NanLossError(
+                        f"Loss is not finite and divergence recovery is "
+                        f"exhausted. Stopping. (step {step}"
+                        f"{'; injected train.step_nan' if injected else ''})")
+                self.state = new_state
+                self._recovery.note_good(new_state)
+                metrics = fetched
+            else:
+                self.state = new_state
+                if injected:
+                    self._c_nan.inc()
+                    raise NonFiniteLossError(
+                        f"injected train.step_nan fault at step {step} "
+                        f"(divergence recovery unarmed: nan_skip_steps and "
+                        f"nan_max_rollbacks are 0)")
+            pending.append((step, metrics, arrays))
+            prev_step = step
+            step += n
+            pending_steps += n
+            if pending_steps >= flush_every or self._recovery is not None:
+                self._flush_metrics(pending, time.monotonic() - window_t0)
+                pending, pending_steps = [], 0
+                window_t0 = time.monotonic()
+            if self._profiler is not None and step > profile_stop:
+                with obs.span(self._obs, "train/profiler_capture"):
+                    path = self._profiler.stop(step - 1)
+                self._profiler = None
+                profile_done = True
+                log.info("profiler trace written to %s", path)
+            if self.checkpointer is not None and self._due(step, prev_step,
+                                                           last_ckpt):
+                # the save reads the state anyway: flush with it
+                self._flush_metrics(pending, time.monotonic() - window_t0)
+                pending, pending_steps = [], 0
+                self.checkpointer.save(self.state)
+                last_ckpt = window_t0 = time.monotonic()
+        self._flush_metrics(pending, time.monotonic() - window_t0)
+        if self._profiler is not None:
+            path = self._profiler.stop(step - 1)
+            self._profiler = None
+            log.info("profiler trace written to %s", path)
+        if self.checkpointer is not None:
+            self.checkpointer.save(self.state)
+        return self.state
 
 
 class Evaluator:
