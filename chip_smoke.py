@@ -20,24 +20,27 @@ device or without the port's sources beside it.  Phases, each fatal:
      kernels' f32 SIMT designs, the fused attention's two-launch design):
      a. the fused additive attention, both dtypes, coverage on and off,
         with a fully masked row, at the beam-decode shape, the long form,
-        the training shape (K = 1; in bf16 the byte-diet run's) and the
-        App's decode shape (4 articles x 4 beams, f32); then long encoders
+        the training shape (K = 1; in bf16 the byte-diet run's), the
+        App's decode shape (4 articles x 4 beams, f32) and the wide
+        pointer-generators (D 800 at 16 x 4, D 860 at 16 x 1, f32); then
+        long encoders
         whose per-position state lives in device memory (16 x 16 x 2000
         and 4 x 4 x 17,856 and 20,000 positions), with a bitwise repeat;
      b. the fused attention's backward kernel (one launch) at the
         training shape (16 x 400 x 512, coverage on and off) and a long
-        encoder (4 x 4096), on f32 and on bf16 encoder streams, against
-        the plain backward, with a bitwise repeat and zero gradients for
-        the empty article;
+        encoder (4 x 4096), on f32 and on bf16 encoder streams, and at
+        D 860 (f32), against the plain backward, with a bitwise repeat
+        and zero gradients for the empty article;
      c. the flash self-attention at the transformer encoder's shape
-        (16 x 400 x 8 heads x hd 32) and the long-context shape
-        (4 x 2048 x 8 x 128), causal on and off, a fully masked article
-        and ragged key masks;
+        (16 x 400 x 8 heads x hd 32), the long-context shape
+        (4 x 2048 x 8 x 128) and head dim 256 (16 x 400 x 2 x 256),
+        causal on and off, a fully masked article and ragged key masks;
      d. the flash backward (the dK/dV and dQ kernels) against its plain
         version at the training encoder's shape (16 x 400 x 8 x 32, key
         mask, article 1 empty), the training decoder's (16 x 100 x 8 x
-        32, causal) and the long-context shape (4 x 2048 x 8 x 128, both
-        forms), and the forward's lse output at the first two;
+        32, causal), the long-context shape (4 x 2048 x 8 x 128, both
+        forms) and head dim 256 (16 x 400 and 16 x 100 x 2 x 256), and
+        the forward's lse output at the training shapes;
   4. for each model family, check the beam search on the card against the
      plain CPU path on a small input (same tokens), and three train steps
      of a small model on the card against the CPU (same losses within
@@ -81,7 +84,17 @@ device or without the port's sources beside it.  Phases, each fatal:
      recovery run (RECOVERY_FLAGS: 2 skips, 1 rollback, lr_scale 0.5)
      and a bf16 beam decode of 16 articles (2 bf16 fused launches per
      step);
-  8. print the kernels' JSON line, then, last, the device JSON line.
+  8. the decoder's scoring and continuous mode (phase_rouge_decode,
+     phase_continuous_decode): a single-pass decode of 16 chunk-file
+     articles through ``cli.main`` scored with ROUGE, equal to the
+     scores of a --device=cpu decode; a continuous decode of 3 batches
+     through ``cli.run_decode`` that reloads a checkpoint written
+     mid-run and writes the attention-visualizer file;
+  9. the widths the card refused before (phase_wide_widths): the
+     pointer-generator at hidden_dim 400 (decode) and 430 (a train
+     step), the transformer at head dim 256 (a small beam search and a
+     train step against the CPU, a decode through cli.main);
+ 10. print the kernels' JSON line, then, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -228,14 +241,17 @@ def phase_attention(seed):
     worst = 0.0
     main = main_bf16 = None
     # the beam-decode shape, the long form, the training shape (K = 1),
-    # the App's decode shape (batch 4, beam 4: a 16-block cluster)
+    # the App's decode shape (batch 4, beam 4: a 16-block cluster), and
+    # the wide pointer-generators: decode at hidden_dim 400 (D 800) and
+    # training at 430 (D 860, past the 8-chunk ring the kernel refused)
     cases = [(16, 4, 400, 512), (4, 1, 4096, 512), (16, 1, 400, 512),
-             (4, 4, 400, 512)]
-    rows_k1, rows_app = {}, {}
+             (4, 4, 400, 512), (16, 4, 400, 800), (16, 1, 400, 860)]
+    rows_k1, rows_app, rows_wide = {}, {}, {}
     for (B, K, T, D) in cases:
-        # the App decodes in f32 only; the training shape also runs on a
-        # bf16 stream (--compute_dtype=bfloat16 training)
-        dtypes = (torch.float32,) if (B, K) == (4, 4) else (
+        # the App and the wide widths decode and train in f32 only; the
+        # training shape also runs on a bf16 stream
+        # (--compute_dtype=bfloat16 training)
+        dtypes = (torch.float32,) if (B, K) == (4, 4) or D > 512 else (
             torch.float32, torch.bfloat16)
         for dtype in dtypes:
             for use_cov in (True, False):
@@ -279,7 +295,9 @@ def phase_attention(seed):
                     rows_k1[(row["dtype"], use_cov)] = row
                 if (B, K, T, D) == cases[3]:
                     rows_app[use_cov] = row
-    return main, main_bf16, rows_k1, rows_app, worst
+                if D > 512 and use_cov:
+                    rows_wide[D] = row
+    return main, main_bf16, rows_k1, rows_app, rows_wide, worst
 
 
 def phase_attention_long(seed):
@@ -365,9 +383,10 @@ def attention_bwd_args(fa, B, T, D, use_cov, seed, dtype=None):
 
 
 #: the backward's shapes (B, T, D, coverage): the training shape with
-#: coverage on and off, and a long encoder
+#: coverage on and off, a long encoder, and the training shape at
+#: hidden_dim 430 (D 860)
 ATTENTION_BWD_CASES = [(16, 400, 512, True), (16, 400, 512, False),
-                       (4, 4096, 512, True)]
+                       (4, 4096, 512, True), (16, 400, 860, True)]
 
 
 def bf16_ulp(x):
@@ -383,7 +402,8 @@ def phase_attention_bwd(seed):
     """The backward kernel against the plain backward at the training
     shape (16 articles x 400 positions x 512, K = 1, ragged masks, article
     1 empty), coverage on and off, and at a long encoder, on f32 and on
-    bf16 encoder streams; two launches give the same bits.  Tolerances:
+    bf16 encoder streams, and at the training shape of hidden_dim 430
+    (D 860, f32); two launches give the same bits.  Tolerances:
     f32 gradients within 1e-5 * max(1, max|g|); in bf16 d_es and d_ef
     (f32 values within that tolerance, rounded once to bf16 by both)
     within one bf16 ulp of the plain version's plus the f32 tolerance,
@@ -400,6 +420,8 @@ def phase_attention_bwd(seed):
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).replace("torch.", "")
         for (B, T, D, use_cov) in ATTENTION_BWD_CASES:
+            if D > 512 and dtype == torch.bfloat16:
+                continue  # the wide width trains in f32 on the main path
             args = attention_bwd_args(fa, B, T, D, use_cov, seed, dtype)
             got = fa._attention_bwd_cuda(*args)
             again = fa._attention_bwd_cuda(*args)
@@ -448,7 +470,7 @@ def phase_attention_bwd(seed):
                           f"{errs[k]} > {tols[k]}) at {row}")
             worst[dname] = max(worst.get(dname, 0.0), *errs.values())
             if T == 400:
-                main[(dname, use_cov)] = row
+                main[(dname, use_cov, D)] = row
     return main, worst
 
 
@@ -506,8 +528,11 @@ def phase_flash(seed):
 
     flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
     worst = 0.0
-    main = None
-    cases = [(16, 400, 8, 32), (4, 2048, 8, 128)]
+    main = hd256 = None
+    # the encoder's shape, the long-context shape, and the encoder of the
+    # transformer at --hidden_dim=512 --num_heads=2 (head dim 256, whose
+    # kernels split the output's columns over two blocks)
+    cases = [(16, 400, 8, 32), (4, 2048, 8, 128), (16, 400, 2, 256)]
     for (B, T, nh, hd) in cases:
         for causal in (False, True):
             # the encoder masks padding keys; the causal decoder has none
@@ -543,7 +568,9 @@ def phase_flash(seed):
             worst = max(worst, err)
             if (B, T, nh, hd) == cases[0] and not causal:
                 main = row
-    return main, worst
+            if hd == 256 and not causal:
+                hd256 = row
+    return main, hd256, worst
 
 
 def flash_bwd_bounds(q, key_mask, causal):
@@ -584,7 +611,8 @@ def phase_flash_bwd(seed):
 
     flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
     cases = [(16, 400, 8, 32, False), (16, 100, 8, 32, True),
-             (4, 2048, 8, 128, False), (4, 2048, 8, 128, True)]
+             (4, 2048, 8, 128, False), (4, 2048, 8, 128, True),
+             (16, 400, 2, 256, False), (16, 100, 2, 256, True)]
     rows = []
     worst = dict(dq=0.0, dk=0.0, dv=0.0)
     for (B, T, nh, hd, causal) in cases:
@@ -703,9 +731,10 @@ def small_hps(family):
                    trunc_norm_init_std=0.5, rand_unif_init_mag=0.3, **common)
 
 
-def phase_small_reference(seed, family):
+def phase_small_reference(seed, family, widths=None):
     """The beam search through the kernels on the card gives the plain
-    CPU path's tokens on a small input."""
+    CPU path's tokens on a small input (``widths`` replaces fields of
+    small_hps)."""
     import torch
 
     from textsummarization_on_flink_tpu_torch.decode import beam_search
@@ -714,7 +743,7 @@ def phase_small_reference(seed, family):
         init_numpy_params,
     )
 
-    hps = small_hps(family)
+    hps = small_hps(family).replace(**(widths or {}))
     p = init_numpy_params(hps, hps.vocab_size, seed)
     if family == "transformer":
         p["embedding"] *= 30.0  # tied: also sharpens the vocab scores
@@ -741,7 +770,7 @@ def phase_small_reference(seed, family):
         from_numpy_tree(p, torch.device("cuda")), hps, arrays)
     launched = counter.launches - before
     print("small_reference " + json.dumps(dict(
-        family=family, kernel_launches=launched,
+        family=family, widths=widths, kernel_launches=launched,
         tokens_equal=bool(np.array_equal(cpu.tokens, gpu.tokens)),
         lengths=gpu.length.tolist(),
         max_avg_log_prob_diff=float(np.abs(cpu.avg_log_prob
@@ -900,11 +929,14 @@ def main_path_hps(family):
 
 
 def phase_main_path(seed, n_articles, work, device="cuda",
-                    family="pointer_generator", compute_dtype="float32"):
+                    family="pointer_generator", compute_dtype="float32",
+                    widths=None):
     """cli.main at full width; returns the launch and timing summary.
     With compute_dtype="bfloat16" (the pointer-generator) the encoder
     stream is bf16 and every fused launch takes the kernel's bf16 form.
-    (device="cpu" rehearses the control flow without a card.)"""
+    ``widths`` replaces fields of main_path_hps (another width of the
+    family).  (device="cpu" rehearses the control flow without a
+    card.)"""
     from textsummarization_on_flink_tpu_torch import cli
     from textsummarization_on_flink_tpu_torch.checkpoint import (
         checkpointer as ckpt_lib,
@@ -915,7 +947,7 @@ def phase_main_path(seed, n_articles, work, device="cuda",
     )
     from textsummarization_on_flink_tpu_torch.params import init_numpy_params
 
-    hps = main_path_hps(family)
+    hps = main_path_hps(family).replace(**(widths or {}))
     rng = np.random.default_rng(seed)
     # vocab: 49,996 words + 4 specials = the reference's 50k
     words = synthetic_words(hps.vocab_size)
@@ -1012,7 +1044,7 @@ def phase_main_path(seed, n_articles, work, device="cuda",
               f"{launched['fused_bf16']} of {fused} fused launches took a "
               f"bf16 encoder stream in a {compute_dtype} decode")
     summary = dict(family=family, compute_dtype=compute_dtype,
-                   articles=n_articles, batches=n_batches,
+                   widths=widths, articles=n_articles, batches=n_batches,
                    batch_seconds=batch_s, decode_steps=steps,
                    kernel_launches=launches,
                    bf16_launches=launched["fused_bf16"],
@@ -1097,22 +1129,22 @@ def train_main_path_hps(family):
 
 
 def phase_train_main_path(seed, work, steps=10, device="cuda",
-                          family="transformer", extra=None, fires=0):
+                          family="transformer", extra=None, fires=0,
+                          expect_kernels=True):
     """cli.main(--mode=train) of ``family`` at the reference width, with
     the flags ``extra`` on top (the metrics read every step unless they
     say otherwise); returns the launch and timing summary and the
     trainer's recovery counters.  ``fires``: the dispatches an injected
     train.step_nan fault discards (their kernels ran; no loss is logged
-    for them).  (device="cpu" rehearses the control flow without a
-    card.)"""
+    for them).  Without ``expect_kernels`` (a --device=cpu reference run)
+    no kernel may launch.  (device="cpu" rehearses the control flow
+    without a card.)"""
     import torch
 
     from textsummarization_on_flink_tpu_torch import cli, obs
     from textsummarization_on_flink_tpu_torch.checkpoint import (
         checkpointer as ckpt_lib,
     )
-    from textsummarization_on_flink_tpu_torch.data.batcher import Batcher
-    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
 
     extra = dict(dict(metrics_every=1), **(extra or {}))
     hps = train_main_path_hps(family).replace(**extra)
@@ -1127,7 +1159,8 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
                  num_steps=steps, coverage=1, pointer_gen=1,
                  data_path=data_path, vocab_path=vocab_path, log_root=work,
                  exp_name="exp", device=device, seed=seed, lr=hps.lr,
-                 **{k: getattr(hps, k) for k in widths}, **extra)
+                 **{k: getattr(hps, k) for k in widths})
+    flags.update(extra)
     argv = [f"--{k}={v}" for k, v in flags.items()]
     handler = _TrainLog()
     reg = obs.Registry()
@@ -1148,7 +1181,8 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
         tr_log.removeHandler(handler)
     check(rc == 0, f"cli.main returned {rc}")
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else None
-    want = expected_train_launches(hps, steps + fires)
+    want = (expected_train_launches(hps, steps + fires) if expect_kernels
+            else dict.fromkeys(launched, 0))
     check(launched == want, f"{family} training launched {launched} in "
                             f"{steps} steps, expected {want}")
     losses, seconds = handler.losses, handler.seconds
@@ -1164,15 +1198,15 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
     check(restored.step == steps, f"restored step {restored.step}")
     check(os.path.exists(os.path.join(train_dir, "vocab_metadata.tsv")),
           "no vocab_metadata.tsv beside the checkpoints")
-    # the target tokens of the steps' batches: the same files in the same
-    # order through a second batcher
-    batcher = Batcher(data_path, Vocab(vocab_path, hps.vocab_size), hps,
-                      single_pass=False)
-    tokens = [float(batcher.next_batch().dec_padding_mask.sum())
-              for _ in range(steps)]
+    counters = reg.snapshot()
+    n_batches = counters["counters"].get("train/batches_total", 0.0)
+    check(n_batches == steps + fires, f"the trainer took {n_batches} "
+                                      f"batches in {steps} steps")
+    # the target tokens of the batches the trainer took, per batch
+    tokens_per_step = counters["counters"].get(
+        "train/target_tokens_total", 0.0) / n_batches
     warm = seconds[2:] or seconds  # steps 3 .. 10
     warm_s = statistics.median(warm)
-    counters = reg.snapshot()
     summary = dict(family=family, lr=hps.lr, steps=steps,
                    flags={k: v for k, v in extra.items()},
                    launches=launched,
@@ -1180,9 +1214,8 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
                                       for k, v in launched.items()},
                    losses=losses, step_seconds=seconds,
                    warm_median_step_s=warm_s,
-                   target_tokens_per_step=statistics.mean(tokens),
-                   target_tokens_per_s=statistics.mean(tokens[2:] or tokens)
-                   / warm_s,
+                   target_tokens_per_step=tokens_per_step,
+                   target_tokens_per_s=tokens_per_step / warm_s,
                    max_memory_allocated_bytes=peak, cli_wall_s=wall,
                    setup_s=setup_s,
                    recovery=dict(
@@ -1364,9 +1397,10 @@ def phase_byte_diet(seed, materialised, device="cuda"):
         falling; the peak memory beside the materialised run's, and the
         median step time of the 2-step metrics windows beside the
         materialised run's over the same windows;
-      * 3 steps of the f32 streaming loss (--loss_chunk=10) on the
-        materialised run's batches from the same params: its losses within
-        1e-4 relative of that run's first 3;
+      * 3 steps of the f32 streaming loss (--loss_chunk=10) beside 3
+        steps of the materialised loss, both --single_pass=1 (one example
+        thread, the files in order, no batch shuffle: the same batches)
+        from the same params: the losses within 1e-4 relative;
       * the recovery run (RECOVERY_FLAGS, 4 steps): 2 skips, 1 rollback,
         lr_scale 0.5, the 3 discarded dispatches' launches counted;
       * a bf16 beam decode of 16 articles: 2 fused launches per beam step,
@@ -1379,9 +1413,12 @@ def phase_byte_diet(seed, materialised, device="cuda"):
         seed, w, device=device, family=pg, extra=BYTE_DIET_FLAGS))
     chunked = _in_work("chunk_f32", lambda w: phase_train_main_path(
         seed, w, steps=3, device=device, family=pg,
-        extra=dict(loss_chunk=10)))
+        extra=dict(loss_chunk=10, single_pass=1)))
+    reference = _in_work("materialised_f32", lambda w: phase_train_main_path(
+        seed, w, steps=3, device=device, family=pg,
+        extra=dict(single_pass=1)))
     rel = [abs(a - b) / abs(b) for a, b in
-           zip(chunked["losses"], materialised["losses"][:3])]
+           zip(chunked["losses"], reference["losses"])]
     check(max(rel) <= 1e-4, f"the f32 streaming loss differs from the "
                             f"materialised one by {rel} (relative)")
     recovery = _in_work("recovery", lambda w: phase_train_main_path(
@@ -1412,13 +1449,272 @@ def phase_byte_diet(seed, materialised, device="cuda"):
         materialised_peak_bytes=materialised["max_memory_allocated_bytes"],
         diet_launches_per_step=diet["launches_per_step"],
         diet_losses=diet["losses"], chunk_f32_losses=chunked["losses"],
+        materialised_f32_losses=reference["losses"],
         chunk_f32_rel_diff=rel, recovery=rec,
         recovery_launches=recovery["launches"],
         decode_bf16_launches_per_step=decode["kernel_launches"]
         / max(decode["decode_steps"], 1),
         decode_bf16_batch_seconds=decode["batch_seconds"])
     print("byte_diet " + json.dumps(summary))
-    return dict(diet=diet, chunked=chunked, recovery=recovery, decode=decode)
+    return dict(diet=diet, chunked=chunked, reference=reference,
+                recovery=recovery, decode=decode)
+
+
+def _decode_flags(hps, **kw):
+    """cli flags of a pointer-generator decode at hps's widths."""
+    flags = dict(mode="decode", model_family="pointer_generator",
+                 pointer_gen=1, coverage=int(hps.coverage), exp_name="exp",
+                 **{k: getattr(hps, k) for k in (
+                     "hidden_dim", "emb_dim", "vocab_size", "max_enc_steps",
+                     "max_dec_steps", "min_dec_steps", "beam_size",
+                     "batch_size")})
+    flags.update(kw)
+    return [f"--{k}={v}" for k, v in flags.items()]
+
+
+def _save_params(train_dir, params, step):
+    """params as checkpoint ``step`` of train_dir; returns its path."""
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+
+    path = os.path.join(train_dir, f"model.ckpt-{step}.npz")
+    ckpt_lib.save_arrays(path, ckpt_lib._flatten({"params": params}))
+    ckpt_lib.write_index(train_dir, path)
+    return path
+
+
+def phase_rouge_decode(seed, work, device="cuda"):
+    """``cli.main --mode=decode --single_pass=1`` (chunk files, no
+    --inference) of the pointer-generator at the reference width over 16
+    synthetic articles whose lead sentences are the abstracts, from a
+    checkpoint trained 4 steps (--single_pass=1) on 64 others: the
+    decoder writes the pyrouge files and scores them with the port's
+    ROUGE into ROUGE_results.txt.  Checks: exactly 2 fused launches per
+    beam step, the file equal to rouge_log of rouge_eval over the written
+    files, and the scores equal to rouge_eval over a --device=cpu decode
+    of the same articles from the same checkpoint, whose decoded files
+    equal the card's (trained params, as the pipeline phase's: a random
+    model's near-uniform scores leave its beams to rounding).
+    (device="cpu" rehearses the control flow without a card.)"""
+    from textsummarization_on_flink_tpu_torch import cli
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.decode.decoder import (
+        get_decode_dir_name,
+    )
+    from textsummarization_on_flink_tpu_torch.evaluate import rouge
+
+    hps = main_path_hps("pointer_generator")
+    os.makedirs(os.path.join(work, "train"))
+    trained = phase_train_main_path(seed, os.path.join(work, "train"),
+                                    steps=4, device=device,
+                                    family="pointer_generator",
+                                    extra=dict(single_pass=1))
+    flat = ckpt_lib.load_arrays(os.path.join(work, "train", "exp", "train",
+                                             "model.ckpt-4.npz"))
+    params = ckpt_lib._unflatten_dicts(flat)["params"]
+    test_dir = os.path.join(work, "test")
+    os.makedirs(test_dir)
+    vocab_path, data_path = write_train_chunks(test_dir, hps, seed + 1, 16)
+    runs = {}
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        root = os.path.join(work, name)
+        path = _save_params(os.path.join(root, "exp", "train"), params, 4)
+        argv = _decode_flags(hps, single_pass=1, data_path=data_path,
+                             vocab_path=vocab_path, log_root=root,
+                             device=dev)
+        reset_launch_counts()
+        beam_search.steps_run = 0
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        wall = time.perf_counter() - t0
+        launched, steps = launch_counts(), beam_search.steps_run
+        check(rc == 0, f"cli.main returned {rc}")
+        ddir = os.path.join(root, "exp", get_decode_dir_name(hps, path))
+        ref, dec = (os.path.join(ddir, d) for d in ("reference", "decoded"))
+        scores = rouge.rouge_eval(ref, dec)
+        with open(os.path.join(ddir, "ROUGE_results.txt"),
+                  encoding="utf-8") as f:
+            written = f.read()
+        check(written == rouge.rouge_log(scores, os.path.join(root, "log")),
+              "ROUGE_results.txt is not the scores of the written files")
+        texts = []
+        for fname in sorted(os.listdir(dec)):
+            with open(os.path.join(dec, fname), encoding="utf-8") as f:
+                texts.append(f.read())
+        runs[name] = (scores, texts, launched, steps, wall)
+    (scores, texts, launched, steps, wall), (cpu_scores, cpu_texts,
+                                             cpu_launched, _, cpu_wall) = (
+        runs["card"], runs["cpu"])
+    check(len(texts) == 16, f"{len(texts)} decoded files for 16 articles")
+    if device == "cuda":
+        check(not any(cpu_launched.values()),
+              "the CPU decode launched kernels")
+        check(steps > 0 and launched == dict(
+            dict.fromkeys(launched, 0), fused=2 * steps),
+            f"{launched} launches in {steps} beam steps, expected 2 fused "
+            f"per step")
+    differ = [i for i, (a, b) in enumerate(zip(texts, cpu_texts)) if a != b]
+    summary = dict(
+        articles=len(texts), beam_steps=steps, launches=launched,
+        train_launches=trained["launches"],
+        rouge_f={m: scores[m]["f_score"] for m in scores},
+        rouge_equal_to_cpu=scores == cpu_scores, files_differing=differ,
+        cli_wall_s=wall, cpu_cli_wall_s=cpu_wall)
+    print("rouge_decode " + json.dumps(summary))
+    check(not differ, f"the card's decoded files {differ} differ from the "
+                      f"CPU's")
+    check(scores == cpu_scores, "the card's ROUGE differs from rouge_eval "
+                                "over the CPU decode")
+    return summary
+
+
+class _SaveOnFirstBatch(logging.Handler):
+    """Writes a second checkpoint when the decoder logs its first batch,
+    as a trainer would while a continuous decoder runs."""
+
+    def __init__(self, save):
+        super().__init__()
+        self.save, self.batches = save, 0
+
+    def emit(self, record):
+        if record.msg.startswith("decoded batch of"):
+            self.batches += 1
+            if self.batches == 1:
+                self.save()
+
+
+def phase_continuous_decode(seed, work, device="cuda", batches=3):
+    """Continuous decode (``--single_pass=0``) of the pointer-generator at
+    the reference width through ``cli.run_decode`` with ``max_batches``:
+    the streaming batcher reshuffles the 16 articles' chunk file every
+    pass; the module's SECS_UNTIL_NEW_CKPT is patched to 0 here and a
+    second checkpoint is written when the first batch is decoded.
+    Checks: exactly one reload (``decode/ckpt_reloads_total``) onto the
+    new checkpoint, attn_vis_data.json with the JAX field layout, no
+    ROUGE, and exactly 2 fused launches per beam step.  (device="cpu"
+    rehearses the control flow without a card.)"""
+    from textsummarization_on_flink_tpu_torch import cli, obs
+    from textsummarization_on_flink_tpu_torch.config import HParams
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.decode import decoder
+    from textsummarization_on_flink_tpu_torch.params import init_numpy_params
+
+    hps = main_path_hps("pointer_generator")
+    vocab_path, data_path = write_train_chunks(work, hps, seed, 16)
+    train_dir = os.path.join(work, "exp", "train")
+    _save_params(train_dir, init_numpy_params(hps, hps.vocab_size, seed), 0)
+    dhps = HParams.from_argv(_decode_flags(
+        hps, single_pass=0, data_path=data_path, vocab_path=vocab_path,
+        log_root=work, device=device))
+    handler = _SaveOnFirstBatch(
+        lambda: _save_params(train_dir, init_numpy_params(
+            hps, hps.vocab_size, seed + 1), 1))
+    dec_log = logging.getLogger(decoder.__name__)
+    level, interval = dec_log.level, decoder.SECS_UNTIL_NEW_CKPT
+    dec_log.setLevel(logging.INFO)
+    dec_log.addHandler(handler)
+    decoder.SECS_UNTIL_NEW_CKPT = 0
+    reg = obs.Registry()
+    try:
+        with obs.use_registry(reg):
+            reset_launch_counts()
+            beam_search.steps_run = 0
+            t0 = time.perf_counter()
+            dec = cli.run_decode(dhps, Vocab(vocab_path, hps.vocab_size),
+                                 max_batches=batches)
+            wall = time.perf_counter() - t0
+            launched, steps = launch_counts(), beam_search.steps_run
+    finally:
+        decoder.SECS_UNTIL_NEW_CKPT = interval
+        dec_log.removeHandler(handler)
+        dec_log.setLevel(level)
+    reloads = reg.counter("decode/ckpt_reloads_total").value
+    ckpt = dec._params_snapshot()[1]
+    ddir = os.path.join(work, "exp", "decode")
+    with open(os.path.join(ddir, "attn_vis_data.json"),
+              encoding="utf-8") as f:
+        vis = json.load(f)
+    check(handler.batches == batches, f"{handler.batches} batches decoded, "
+                                      f"expected {batches}")
+    check(reloads == 1 and ckpt.endswith("model.ckpt-1.npz"),
+          f"{reloads} reloads, decoding from {ckpt}")
+    check(set(vis) == {"article_lst", "decoded_lst", "abstract_str",
+                       "attn_dists", "p_gens"}
+          and len(vis["attn_dists"]) == len(vis["p_gens"])
+          == max(len(vis["decoded_lst"]), 1),
+          "attn_vis_data.json lacks the JAX field layout")
+    check(dec.rouge_results is None and not os.path.exists(
+        os.path.join(ddir, "reference")), "a continuous decode scored ROUGE")
+    if device == "cuda":
+        check(steps > 0 and launched == dict(
+            dict.fromkeys(launched, 0), fused=2 * steps),
+            f"{launched} launches in {steps} beam steps, expected 2 fused "
+            f"per step")
+    summary = dict(batches=handler.batches, reloads=reloads,
+                   checkpoint=os.path.basename(ckpt), beam_steps=steps,
+                   launches=launched, attn_vis_words=len(vis["decoded_lst"]),
+                   cli_wall_s=wall)
+    print("continuous_decode " + json.dumps(summary))
+    return summary
+
+
+#: the transformer whose head dim is 256 (--hidden_dim=512
+#: --num_heads=2): its flash kernels split the output's columns over two
+#: blocks; depth cut to 2 + 2 layers (FFN 4 x 512) so that the CPU
+#: reference runs stay short
+HD256_WIDTHS = dict(hidden_dim=512, num_heads=2, enc_layers=2, dec_layers=2,
+                    ffn_dim=2048)
+
+
+def phase_wide_widths(seed, device="cuda"):
+    """The widths the card refused before this slice, each on a main path
+    with its launch counts set to 0 just before and read just after:
+
+      * the pointer-generator at hidden_dim 400 (D 800): a beam decode of
+        16 articles through cli.main (2 fused launches per beam step) and
+        at hidden_dim 430 (D 860) one train step (100 + 100 fused
+        launches);
+      * the transformer at --hidden_dim=512 --num_heads=2 (head dim 256):
+        the beam search of phase_small_reference at that width on the
+        card against the CPU (the same tokens); a decode of 8 articles
+        through cli.main at HD256_WIDTHS (one flash forward per encoder
+        layer per batch); one train step (--single_pass=1) through
+        cli.main on the card and with --device=cpu, the losses within
+        1e-4 relative (one forward, dK/dV and dQ per layer).
+
+    (device="cpu" rehearses the control flow without a card.)"""
+    pg, tf = "pointer_generator", "transformer"
+    out = dict(
+        pg_decode=_in_work("pg_h400", lambda w: phase_main_path(
+            seed, 16, w, device=device, family=pg,
+            widths=dict(hidden_dim=400))),
+        pg_train=_in_work("pg_h430", lambda w: phase_train_main_path(
+            seed, w, steps=1, device=device, family=pg,
+            extra=dict(hidden_dim=430))))
+    if device == "cuda":  # the same tokens as the CPU's at head dim 256
+        phase_small_reference(seed, tf, widths=dict(hidden_dim=512,
+                                                    num_heads=2))
+    out["hd256_decode"] = _in_work("hd256", lambda w: phase_main_path(
+        seed, 8, w, device=device, family=tf, widths=HD256_WIDTHS))
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        out[f"hd256_train_{name}"] = _in_work(
+            f"hd256_train_{name}", lambda w: phase_train_main_path(
+                seed, w, steps=1, device=dev, family=tf,
+                extra=dict(HD256_WIDTHS, single_pass=1),
+                expect_kernels=name == "card"))
+    card_loss, cpu_loss = (out[f"hd256_train_{n}"]["losses"][0]
+                           for n in ("card", "cpu"))
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print("head_dim_256 " + json.dumps(dict(
+        card_loss=card_loss, cpu_loss=cpu_loss, loss_rel_diff=rel)))
+    check(rel <= 1e-4, f"head dim 256: the card's loss differs from the "
+                       f"CPU's by {rel} (relative)")
+    return out
 
 
 def main(argv=None) -> int:
@@ -1427,6 +1723,10 @@ def main(argv=None) -> int:
     ap.add_argument("--articles", type=int, default=32)
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
+    # the phases listen to the decoder's and trainer's INFO records; the
+    # console shows warnings and errors only
+    for h in logging.getLogger().handlers:
+        h.setLevel(logging.WARNING)
 
     import torch
 
@@ -1450,10 +1750,11 @@ def main(argv=None) -> int:
     for name in libs:
         sys.stdout.write(build.build_log(name))
 
-    main_row, bf16_row, k1_rows, app_rows, worst = phase_attention(args.seed)
+    main_row, bf16_row, k1_rows, app_rows, wide_rows, worst = \
+        phase_attention(args.seed)
     worst = max(worst, phase_attention_long(args.seed))
     bwd_att_rows, bwd_att_worst = phase_attention_bwd(args.seed)
-    flash_row, flash_worst = phase_flash(args.seed)
+    flash_row, flash_hd256, flash_worst = phase_flash(args.seed)
     bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
     errors = {name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
               for name, now in (("forward", flash_worst),
@@ -1477,12 +1778,18 @@ def main(argv=None) -> int:
                                                        family=family))
     pipe = _in_work("pipeline", lambda w: phase_pipeline(args.seed, w))
     diet = phase_byte_diet(args.seed, train["pointer_generator"])
+    scored = _in_work("rouge", lambda w: phase_rouge_decode(args.seed, w))
+    streamed = _in_work("continuous", lambda w: phase_continuous_decode(
+        args.seed, w))
+    wide = phase_wide_widths(args.seed)
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     bwd_main = bwd_rows[0]  # the training encoder's shape
+    bwd_hd256 = next(r for r in bwd_rows if r["shape"] == "16x400x2x256")
     # the fused attention's backward at the training shape, coverage on
-    bwd_f32 = bwd_att_rows[("float32", True)]
-    bwd_bf16 = bwd_att_rows[("bfloat16", True)]
+    bwd_f32 = bwd_att_rows[("float32", True, 512)]
+    bwd_bf16 = bwd_att_rows[("bfloat16", True, 512)]
+    bwd_wide = bwd_att_rows[("float32", True, 860)]
     # the fused attention at the training shape (K = 1), coverage on
     k1_f32, k1_bf16 = k1_rows[("float32", True)], k1_rows[("bfloat16", True)]
     flash_src = "textsummarization_on_flink_tpu_torch/kernels/flash_attention"
@@ -1491,8 +1798,16 @@ def main(argv=None) -> int:
     tf_train = train["transformer"]["launches"]
     # the byte-diet phase's paths: bf16 training, f32 streaming loss,
     # recovery, bf16 decode
-    diet_runs = [diet[k]["launches"] for k in ("diet", "chunked", "recovery")]
+    diet_runs = [diet[k]["launches"] for k in ("diet", "chunked", "reference",
+                                               "recovery")]
     bf16_bwd = diet["diet"]["launches"]["fused_bwd_bf16"]
+    # this slice's paths: ROUGE and continuous decode, and the widths the
+    # card refused before (pointer-generator D 800 and 860, head dim 256)
+    wide_pg_decode = wide["pg_decode"]["kernel_launches"]
+    wide_pg_train = wide["pg_train"]["launches"]
+    hd256_train = wide["hd256_train_card"]["launches"]
+    hd256_flash = (wide["hd256_decode"]["kernel_launches"]
+                   + hd256_train["flash_forward"])
     kernels = [dict(
         name="fused_attention", route="cuda", source=fused_src + ".cu",
         replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:58",
@@ -1502,7 +1817,9 @@ def main(argv=None) -> int:
         + pg_train["fused"] + pipe["fit_launches"]["fused"]
         + pipe["transform_launches"]["fused"]
         + sum(r["fused"] for r in diet_runs)
-        + diet["decode"]["kernel_launches"],
+        + diet["decode"]["kernel_launches"] + scored["launches"]["fused"]
+        + scored["train_launches"]["fused"] + streamed["launches"]["fused"]
+        + wide_pg_decode + wide_pg_train["fused"],
         max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         # the bf16 stream at the decode shape and at the training shape
@@ -1524,15 +1841,38 @@ def main(argv=None) -> int:
             plain_ms=app_rows[True]["plain_ms"],
             bound_ms=app_rows[True]["bound_ms"],
             launches=pipe["transform_launches"]["fused"]),
+        # pointer-generator widths the kernel refused before: decode at
+        # hidden_dim 400, training at 430 (a narrow cluster's 4-chunk ring)
+        wide_decode=dict(
+            shape=wide_rows[800]["shape"], ms=wide_rows[800]["ms"],
+            plain_ms=wide_rows[800]["plain_ms"],
+            bound_ms=wide_rows[800]["bound_ms"],
+            bound_by=wide_rows[800]["bound_by"],
+            max_abs_err=wide_rows[800]["max_abs_err"],
+            launches=wide_pg_decode),
+        wide_training=dict(
+            shape=wide_rows[860]["shape"], ms=wide_rows[860]["ms"],
+            plain_ms=wide_rows[860]["plain_ms"],
+            bound_ms=wide_rows[860]["bound_ms"],
+            bound_by=wide_rows[860]["bound_by"],
+            max_abs_err=wide_rows[860]["max_abs_err"],
+            launches=wide_pg_train["fused"]),
         library_ms=None, redesigned="PR 5"), dict(
         name="fused_attention_bwd", route="cuda", source=fused_src + "_bwd.cu",
         # the custom_vjp's backward (jax.vjp of the XLA formula)
         replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:360",
         launches=pg_train["fused_bwd"] + pipe["fit_launches"]["fused_bwd"]
-        + sum(r["fused_bwd"] - r["fused_bwd_bf16"] for r in diet_runs),
+        + sum(r["fused_bwd"] - r["fused_bwd_bf16"] for r in diet_runs)
+        + scored["train_launches"]["fused_bwd"] + wide_pg_train["fused_bwd"],
         max_abs_err=bwd_att_worst["float32"],
         ms=bwd_f32["ms"], plain_ms=bwd_f32["plain_ms"],
         bound_ms=bwd_f32["bound_ms"], bound_by=bwd_f32["bound_by"],
+        wide_training=dict(
+            shape=bwd_wide["shape"], ms=bwd_wide["ms"],
+            plain_ms=bwd_wide["plain_ms"], bound_ms=bwd_wide["bound_ms"],
+            bound_by=bwd_wide["bound_by"],
+            max_abs_err=max(bwd_wide["max_abs_err"].values()),
+            launches=wide_pg_train["fused_bwd"]),
         library_ms=None), dict(
         # the same kernel's bf16 encoder-stream form
         name="fused_attention_bwd_bf16", route="cuda",
@@ -1548,10 +1888,18 @@ def main(argv=None) -> int:
         replaces="textsummarization_on_flink_tpu/models/transformer.py:285",
         # both main paths that run it: decode and training
         launches=summaries["transformer"]["kernel_launches"]
-        + tf_train["flash_forward"],
+        + tf_train["flash_forward"] + hd256_flash,
         max_abs_err=flash_worst, ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
         bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],
+        # head dim 256 (the output's columns split over two blocks)
+        head_dim_256=dict(
+            shape=flash_hd256["shape"], ms=flash_hd256["ms"],
+            plain_ms=flash_hd256["plain_ms"],
+            library_ms=flash_hd256["library_ms"],
+            bound_ms=flash_hd256["bound_ms"],
+            bound_by=flash_hd256["bound_by"],
+            max_abs_err=flash_hd256["max_abs_err"], launches=hd256_flash),
         redesigned="PR 4")]
     for name, key in (("flash_attention_bwd_dkv", "dkv"),
                       ("flash_attention_bwd_dq", "dq")):
@@ -1562,13 +1910,25 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=flash_src + "_bwd.cu",
             replaces=("textsummarization_on_flink_tpu/models/transformer.py"
                       f":285 (library _flash_attention_bwd_{key})"),
-            launches=tf_train[f"flash_bwd_{key}"],
+            launches=tf_train[f"flash_bwd_{key}"]
+            + hd256_train[f"flash_bwd_{key}"],
             max_abs_err=(max(bwd_worst["dk"], bwd_worst["dv"])
                          if key == "dkv" else bwd_worst["dq"]),
             ms=bwd_main[f"{key}_ms"], plain_ms=bwd_main["plain_ms"],
             bound_ms=bwd_main[f"{key}_bound_ms"],
             bound_by=bwd_main[f"{key}_bound_by"],
             library_ms=bwd_main["library_ms"],
+            head_dim_256=dict(
+                shape=bwd_hd256["shape"], ms=bwd_hd256[f"{key}_ms"],
+                plain_ms=bwd_hd256["plain_ms"],
+                library_ms=bwd_hd256["library_ms"],
+                bound_ms=bwd_hd256[f"{key}_bound_ms"],
+                bound_by=bwd_hd256[f"{key}_bound_by"],
+                max_abs_err=(max(bwd_hd256["max_abs_err_dk"],
+                                 bwd_hd256["max_abs_err_dv"])
+                             if key == "dkv"
+                             else bwd_hd256["max_abs_err_dq"]),
+                launches=hd256_train[f"flash_bwd_{key}"]),
             redesigned="PR 4" if key == "dkv" else "PR 5"))
     print(json.dumps(dict(total_seconds=time.perf_counter() - t_start)))
     print(json.dumps({"kernels": kernels}))

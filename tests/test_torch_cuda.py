@@ -125,21 +125,28 @@ def test_fused_attention_query_counts_on_card(K, dtype, use_cov):
 @pytest.mark.cuda
 def test_fused_attention_refuses_what_the_kernel_does_not_take_on_card():
     """A row the kernel cannot stage in 16-byte pieces (D not a multiple
-    of 4 in f32, of 8 in bf16) or an encoder that is not 16-byte aligned
-    is refused, and nothing is launched."""
+    of 4 in f32, of 8 in bf16) is refused by the kernel's wrapper (the
+    entry point pads it: one launch, the plain version's result), and an
+    encoder that is not 16-byte aligned is refused; nothing is launched
+    for a refusal."""
     _need_cuda()
     B, K, T = 2, 4, 40
     cases = [(_inputs(B, K, T, 6, torch.float32), "multiple of 4"),
              (_inputs(B, K, T, 12, torch.bfloat16), "multiple of 8")]
+    before = fa.launches
+    for bad, match in cases:
+        with pytest.raises(ValueError, match=match):
+            fa._attention_cuda(*bad, True)
+    assert fa.launches == before
+    for padded, _ in cases:
+        _check_fused(padded, True)
     args = _inputs(B, K, T, 64, torch.float32)
     flat = torch.empty(B * T * 64 + 1, device="cuda")
     es = flat[1:].view(B, T, 64)  # contiguous, 4 bytes past an alignment
     es.copy_(args[0])
-    cases.append(([es, *args[1:]], "aligned"))
     before = fa.launches
-    for bad, match in cases:
-        with pytest.raises(ValueError, match=match):
-            fa.fused_attention_shared(*bad, True)
+    with pytest.raises(ValueError, match="aligned"):
+        fa.fused_attention_shared(es, *args[1:], True)
     assert fa.launches == before
 
 
@@ -198,8 +205,10 @@ EDGE_T = (63, 64, 65, 128, 129)
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,nh,hd", [(3, 100, 8, 32), (2, 333, 2, 32),
                                        (3, 77, 4, 128), (2, 130, 8, 128),
-                                       (1, 1, 1, 32)]
-                         + [(2, T, 2, hd) for T in EDGE_T for hd in (32, 128)])
+                                       (1, 1, 1, 32), (3, 77, 2, 256),
+                                       (16, 400, 2, 256)]
+                         + [(2, T, 2, hd) for T in EDGE_T
+                            for hd in (32, 128, 256)])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masked", [True, False])
 def test_flash_kernel_matches_plain_on_card(B, T, nh, hd, causal, masked):
@@ -233,9 +242,9 @@ def test_flash_kernel_rejects_bad_inputs_on_card():
         ((q, k, v, mask.cpu()), "key_mask"),
         ((q, k.double(), v, mask), "dtype"),
         ((q, k[:, :20].contiguous(), v, mask), "shape"),
-        # head dims up to 128 are padded to the kernels' widths; above
+        # head dims up to 256 are padded to the kernels' widths; above
         # that they are refused
-        tuple([(*_flash_inputs(2, 40, 2, 160)[:3], mask), "head dim"]),
+        tuple([(*_flash_inputs(2, 40, 2, 320)[:3], mask), "head dim"]),
     ]
     before = fl.launches
     for args, match in cases:
@@ -246,7 +255,7 @@ def test_flash_kernel_rejects_bad_inputs_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("T", [1, 77, 100, 333, *EDGE_T])
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("hd", [32, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masked", [True, False])
 def test_flash_backward_kernels_match_plain_on_card(T, hd, causal, masked):
@@ -302,7 +311,7 @@ def test_flash_backward_takes_a_strided_cotangent_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 128])
+@pytest.mark.parametrize("hd", [32, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_kernels_at_trained_magnitudes_on_card(hd, causal):
     """q and k of std 2, so |s| reaches about 20 as in a trained model:
@@ -340,11 +349,12 @@ def test_flash_kernels_at_trained_magnitudes_on_card(hd, causal):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("hd", [16, 64, 160])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("masked", [True, False])
 def test_flash_head_dims_padded_to_the_kernels_on_card(hd, causal, masked):
-    """Head dims the kernels are not built for (16 pads to 32, 64 to 128):
+    """Head dims the kernels are not built for (16 pads to 32, 64 to 128,
+    160 to 256):
     the forward and both backward kernels against the plain versions at
     the true head dim, one launch each."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
@@ -713,10 +723,10 @@ def test_pipeline_fit_then_transform_on_card_matches_the_cpu(tmp_path):
 def _small_pg(**kw):
     from textsummarization_on_flink_tpu_torch.config import HParams
 
-    return HParams(mode="train", batch_size=4, hidden_dim=32, emb_dim=16,
-                   vocab_size=100, max_enc_steps=40, max_dec_steps=12,
-                   min_dec_steps=3, max_oov_buckets=8, coverage=True,
-                   **kw)
+    return HParams(**{**dict(mode="train", batch_size=4, hidden_dim=32,
+                             emb_dim=16, vocab_size=100, max_enc_steps=40,
+                             max_dec_steps=12, min_dec_steps=3,
+                             max_oov_buckets=8, coverage=True), **kw})
 
 
 def _small_batches(hps, n):
@@ -833,3 +843,77 @@ def test_bf16_train_step_on_card_matches_the_cpu():
         bound = 4 * float(np.max(np.abs(c - f))) + 1e-5 * max(
             1.0, float(np.max(np.abs(c))))
         assert float(np.max(np.abs(g - c))) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [255, 400, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_takes_wide_pointer_generators_on_card(hidden,
+                                                              dtype):
+    """Encoder widths D = 2 * hidden_dim the kernels refused before (odd
+    hidden_dim: D not a multiple of 4 in f32 or 8 in bf16; D past the
+    8-chunk ring's shared memory): the beam-decode shape (16 articles x 4
+    beams, T 400) and the per-row training shape with its backward
+    through FusedAttention (16 x 400), then 2 articles x 4 beams (the
+    wide clusters, whose ring steps down at these widths), each against
+    the plain version, one launch per call."""
+    _need_cuda()
+    D = 2 * hidden
+    for B, K in ((16, 4), (2, 4)):
+        args = _inputs(B, K, 400, D, dtype, seed=hidden)
+        before = fa.launches
+        ctx, attn = fa.fused_attention_shared(*args, True)
+        torch.cuda.synchronize()
+        assert fa.launches == before + 1
+        ctx_p, attn_p = fa._attention_plain(*args, True)
+        np.testing.assert_allclose(ctx.cpu().numpy(), ctx_p.cpu().numpy(),
+                                   **TOL)
+        np.testing.assert_allclose(attn.cpu().numpy(), attn_p.cpu().numpy(),
+                                   **TOL)
+    es, ef, mask, df, cov, v, w_c = _inputs(16, 1, 400, D, dtype,
+                                            seed=hidden)
+    df, cov = df[:, 0].contiguous(), cov[:, 0].contiguous()
+    leaves = [x.clone().requires_grad_() for x in (es, ef, df, cov, v, w_c)]
+    gen = torch.Generator(device="cuda").manual_seed(hidden)
+    g_ctx = torch.randn(16, D, generator=gen, device="cuda")
+    g_attn = torch.randn(16, 400, generator=gen, device="cuda")
+    counts = (fa.launches, fa.launches_bwd)
+    ctx, attn = fa.fused_attention(leaves[0], leaves[1], mask, *leaves[2:],
+                                   True)
+    got = torch.autograd.grad((ctx * g_ctx).sum() + (attn * g_attn).sum(),
+                              leaves)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.launches_bwd) == (counts[0] + 1, counts[1] + 1)
+    _, attn_p = fa._attention_plain(es, ef, mask, df[:, None], cov[:, None],
+                                    v, w_c, True)
+    want = fa._attention_bwd_plain(es, ef, mask, df, cov, v, w_c,
+                                   attn_p[:, 0].contiguous(), g_ctx, g_attn,
+                                   True)
+    if dtype == torch.bfloat16:
+        _close_bf16(got, want)
+    else:
+        _close_scaled(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [255, 400, 512])
+def test_wide_pointer_generator_train_step_on_card_matches_the_cpu(hidden):
+    """The pointer-generator's loss and every gradient at hidden_dim 255,
+    400 and 512 (the fused kernels at D = 510 padded to 512, 800 and
+    1,024) on the card against --device=cpu: within 1e-4 relative, and 1
+    fused forward and 1 backward launch per decoder step."""
+    from textsummarization_on_flink_tpu_torch.params import init_numpy_params
+
+    _need_cuda()
+    hps = _small_pg(hidden_dim=hidden, device="cuda")
+    hps.validate()
+    params = init_numpy_params(hps, hps.vocab_size, 0)
+    arrays = _small_batches(hps, 1)[0]
+    counts = (fa.launches, fa.launches_bwd)
+    loss, grads = _loss_and_grads(hps, params, arrays, "cuda")
+    assert (fa.launches - counts[0], fa.launches_bwd - counts[1]) == \
+        (hps.max_dec_steps, hps.max_dec_steps)
+    c_loss, c_grads = _loss_and_grads(hps, params, arrays, "cpu")
+    assert loss == pytest.approx(c_loss, rel=1e-4)
+    for g, c in zip(grads, c_grads):
+        assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))

@@ -45,6 +45,7 @@ from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch.checkpoint import (
     checkpointer as ckpt_lib,
 )
+from textsummarization_on_flink_tpu_torch.data import batcher
 from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
 from textsummarization_on_flink_tpu_torch.pipeline import app
 from textsummarization_on_flink_tpu_torch.pipeline import estimator as est
@@ -336,8 +337,11 @@ def test_a_consumer_that_stops_early_cancels_the_feeder(port_run, tmp_path):
         fed = reg.counter("pipeline/rows_in_total").value
         # two batches trained, the trainer's prefetcher ahead by at most
         # its queue's 2 batches and the one it holds (of 4 rows each),
-        # the record queue's bound and one row in flight
-        assert 8 <= fed <= 8 + 3 * 4 + 1024 + 1
+        # the threaded batcher's example and batch queues (100 batches'
+        # worth each), the batch it is bucketing and the example it is
+        # building, the record queue's bound and one row in flight
+        cap = batcher.Batcher.BATCH_QUEUE_MAX * 4
+        assert 8 <= fed <= 8 + 3 * 4 + 2 * cap + 4 + 1 + 1024 + 1
         model = make_estimator("port", port_run["root"])._model()
         sink = model.transform(io.IteratorSource(endless), max_batches=1)
     assert len(sink.rows) == 4

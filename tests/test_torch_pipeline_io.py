@@ -439,8 +439,10 @@ def test_decode_batch_ships_partial_after_the_trickle_wait():
             yield batcher.IDLE
         yield items[2]
 
-    b = batcher.Batcher("", Vocab(words=WORDS), thps, example_source=source)
+    # the batcher's threads read the source from construction on, so the
+    # wait is measured from there
     t0 = time.monotonic()
+    b = batcher.Batcher("", Vocab(words=WORDS), thps, example_source=source)
     first = b.next_batch()
     waited = time.monotonic() - t0
     assert first.uuids[:2] == ["u0", "u1"]

@@ -318,6 +318,27 @@ def test_steps_per_dispatch_matches_one_step_dispatches(tmp_path):
         np.testing.assert_array_equal(a, b)
 
 
+def test_the_trainer_counts_the_batches_and_target_tokens_it_takes(
+        tmp_path):
+    """train/batches_total and train/target_tokens_total count the
+    batches the loop took and the target tokens in them (the sum of their
+    dec_padding_mask), at one step per dispatch and at three (a dispatch
+    of 3, then one clipped to the 2 steps left)."""
+    _, thps = make_hps(mode="train", max_oov_buckets=8, coverage=True)
+    batches = [batch_arrays(thps, s) for s in range(6)]
+    want = sum(float(a["dec_padding_mask"].sum()) for a in batches[:5])
+    for k in (1, 3):
+        h = thps.replace(steps_per_dispatch=k,
+                         log_root=str(tmp_path / f"k{k}"))
+        with obs.use_registry(obs.Registry()) as reg:
+            tr = trainer_lib.Trainer(
+                h, VSIZE, ListBatcher(ArraysBatch(a) for a in batches),
+                state=trainer_lib.init_train_state(h, VSIZE))
+            tr.train(num_steps=5)
+        assert reg.counter("train/batches_total").value == 5
+        assert reg.counter("train/target_tokens_total").value == want
+
+
 def test_debug_forces_one_step_per_dispatch():
     hps = hps_tiny(steps_per_dispatch=8, debug=True)
     batch, vsize = tiny_batch(hps)

@@ -1,0 +1,224 @@
+"""The port's repairs of the widths the card refused (ROADMAP queue 3,
+items 1, 4 and 5), on the CPU:
+
+  * the fused attention's D padding: ``_padded_forward`` and
+    ``_padded_backward`` around the plain versions equal the plain
+    versions at the true D, odd D in f32 and D not a multiple of 8 in
+    bf16: each output within 1e-6 times the larger of 1 and its largest
+    magnitude, since the padded sums add exact zeros and only the order
+    of f32 sums may differ; bf16 outputs, rounded once from those f32
+    values, within one bf16 ulp beside that);
+  * the launch form the wrappers mirror (a ring that steps down with D)
+    and ``width_refusal``, which ``HParams.validate`` asks on the card;
+  * the JAX-only hyperparameters: every one accepted at its JAX default,
+    any other value refused naming its ROADMAP item.
+
+The flash kernels' head-dim padding (160 to 256) is held in
+tests/test_torch_pg_checkpoint.py::test_flash_head_dim_padding_is_exact.
+"""
+
+import dataclasses
+import re
+import shlex
+
+import numpy as np
+import pytest
+import torch
+
+from textsummarization_on_flink_tpu.config import HParams as JaxHParams
+from textsummarization_on_flink_tpu_torch import config
+from textsummarization_on_flink_tpu_torch.config import HParams
+from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+
+
+def _inputs(B, K, T, D, dtype, seed=0):
+    """The fused attention's per-row inputs (K = 1 drops the query axis),
+    article 1 fully masked."""
+    rng = np.random.RandomState(seed)
+    mask = (np.arange(T)[None] < rng.randint(T // 2, T + 1, B)[:, None])
+    mask = mask.astype(np.float32)
+    mask[1] = 0.0
+    t = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    es, ef = (t(rng.randn(B, T, D)).to(dtype) for _ in range(2))
+    df = t(rng.randn(B, K, D))
+    cov = t(np.abs(rng.randn(B, K, T)) * mask[:, None])
+    v, w_c = t(rng.randn(D) * 0.1), t(rng.randn(D) * 0.1)
+    return es, ef, t(mask), df, cov, v, w_c
+
+
+def _bf16_ulp(x):
+    return torch.finfo(torch.bfloat16).eps * x.float().abs().clamp(
+        min=torch.finfo(torch.bfloat16).tiny)
+
+
+def _close(got, want):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        extra = _bf16_ulp(w) if w.dtype == torch.bfloat16 else 0.0
+        tol = 1e-6 * max(1.0, float(w.float().abs().max()))
+        assert bool(((g.float() - w.float()).abs() <= tol + extra).all())
+
+
+@pytest.mark.parametrize("D,dtype", [(7, torch.float32),
+                                     (510, torch.float32),
+                                     (12, torch.bfloat16),
+                                     (510, torch.bfloat16),
+                                     (860, torch.bfloat16)])
+@pytest.mark.parametrize("K", [1, 4])
+def test_padded_forward_equals_the_plain_version(D, dtype, K):
+    """Zero columns up to the 16-byte multiple add v . tanh(0) = 0 to
+    every energy and give zero context columns, which are sliced away."""
+    args = _inputs(3, K, 37, D, dtype, seed=D)
+    assert fa._padded_width(D, dtype) % (8 if dtype == torch.bfloat16
+                                          else 4) == 0
+    got = fa._padded_forward(fa._attention_plain, *args, True)
+    want = fa._attention_plain(*args, True)
+    _close(got, want)
+    assert not got[0][1].any() and not got[1][1].any()
+
+
+@pytest.mark.parametrize("D,dtype", [(7, torch.float32),
+                                     (510, torch.float32),
+                                     (12, torch.bfloat16),
+                                     (510, torch.bfloat16)])
+@pytest.mark.parametrize("use_cov", [False, True])
+def test_padded_backward_equals_the_plain_version(D, dtype, use_cov):
+    """The backward at the padded width: every gradient equals the plain
+    backward's at the true D (d_es, d_ef, d_df, d_v and d_w_c sliced back
+    to D columns; d_cov over positions)."""
+    es, ef, mask, df, cov, v, w_c = _inputs(3, 1, 29, D, dtype, seed=D)
+    df, cov = df[:, 0], cov[:, 0]
+    _, attn = fa._attention_plain(es, ef, mask, df[:, None], cov[:, None],
+                                  v, w_c, use_cov)
+    g = torch.Generator().manual_seed(D)
+    g_ctx, g_attn = torch.randn(3, D, generator=g), torch.randn(3, 29,
+                                                                generator=g)
+    args = (es, ef, mask, df, cov, v, w_c, attn[:, 0], g_ctx, g_attn,
+            use_cov)
+    got = fa._padded_backward(fa._attention_bwd_plain, *args)
+    want = fa._attention_bwd_plain(*args)
+    _close(got, want)
+    assert all(not x[1].any() for x in got[:4])
+
+
+def test_an_aligned_width_is_not_copied():
+    """D already a multiple of the 16-byte step goes to the kernel as it
+    is: the same tensors, no padding copy."""
+    seen = []
+    args = _inputs(3, 2, 11, 16, torch.float32)
+    fa._padded_forward(lambda *a: seen.append(a) or (a[3], a[4]), *args,
+                       True)
+    assert all(a is b for a, b in zip(seen[0], args))
+
+
+@pytest.mark.parametrize("B,K,D,elt,form", [
+    (16, 4, 512, 4, (False, 4, True)),    # the beam-decode shape
+    (16, 1, 860, 4, (False, 4, True)),    # hidden 430 in training
+    (16, 4, 800, 4, (False, 4, True)),    # hidden 400 at beam 4
+    (4, 4, 512, 4, (True, 8, True)),      # the App's decode: wide clusters
+    (4, 4, 800, 4, (True, 4, True)),      # the wide ring steps down
+    (2, 4, 2048, 4, (True, 2, True)),     # ... to its last 2 chunks
+    (16, 4, 2236, 4, None),               # past even that
+    (16, 4, 1384, 2, (False, 4, True)),   # bf16 rows: half the ring bytes
+])
+def test_the_launch_form_steps_its_ring_down_with_d(B, K, D, elt, form):
+    """The form launch() takes on a 132-SM card (wide clusters, ring
+    chunks, state in shared memory): the ring halves, down to 2 chunks,
+    while the block's constants do not fit beside it, and the refusal
+    follows that form, not the widest ring."""
+    assert fa._launch_form(B, 400, D, K, elt, 132) == form
+    es = torch.empty(B, 400, D, device="meta",
+                     dtype=torch.bfloat16 if elt == 2 else torch.float32)
+    refusal = fa._shape_refusal(es, torch.empty(B, K, D, device="meta"))
+    assert (refusal is None) == (form is not None)
+
+
+@pytest.mark.parametrize("hidden,mode,refused", [
+    (256, "decode", False), (400, "decode", False), (430, "train", False),
+    (691, "decode", False), (1117, "decode", True), (1155, "train", True),
+    (255, "train", False), (1155, "eval", False), (1117, "eval", False)])
+def test_width_refusal_names_what_does_not_fit(hidden, mode, refused,
+                                               monkeypatch):
+    """What ``HParams.validate`` refuses on a 132-SM card at batch 16,
+    T 400, before any model is built: beam 4 in decode, the backward too
+    in training, the forward alone in eval (which trains nothing, so a
+    width whose backward does not fit still evaluates)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(fa, "_sm_count", lambda dev: 132)
+    hps = HParams(mode=mode, hidden_dim=hidden, batch_size=16,
+                  max_enc_steps=400, beam_size=4)
+    if refused:
+        with pytest.raises(ValueError,
+                           match=re.escape(config.ROADMAP_PG_WIDTH)):
+            hps.validate()
+    else:
+        hps.validate()
+    why = fa.width_refusal(16, 400, 2 * hidden, 4 if mode == "decode" else 1,
+                           torch.float32, backward=mode == "train")
+    assert (why is not None) == refused
+
+
+def _jax_only_nondefault():
+    """A value other than the JAX default for every JAX-only field."""
+    for name, (ftype, default, item) in config.JAX_ONLY_FIELDS.items():
+        if ftype is bool:
+            other = not default
+        elif ftype is str:
+            other = "other"
+        else:
+            other = ftype(default + 3)
+        yield name, other, item
+
+
+def test_jax_only_fields_mirror_the_jax_hparams():
+    """JAX_ONLY_FIELDS is exactly the JAX HParams fields the port lacks,
+    with the JAX types and defaults; the port and it cover every JAX
+    field."""
+    port = {f.name for f in dataclasses.fields(HParams)}
+    jax_fields = {f.name: f for f in dataclasses.fields(JaxHParams)}
+    assert set(config.JAX_ONLY_FIELDS) == set(jax_fields) - port
+    for name, (ftype, default, _) in config.JAX_ONLY_FIELDS.items():
+        assert jax_fields[name].type == ftype.__name__
+        assert jax_fields[name].default == default
+
+
+def test_jax_only_fields_at_their_defaults_are_accepted():
+    """The JAX to_argv renders every field at its default (True, 5.0,
+    ''): the port parses the string, and its own fields come through."""
+    hps = HParams.from_string(JaxHParams(lr=0.25, hidden_dim=24).to_argv())
+    assert (hps.lr, hps.hidden_dim) == (0.25, 24)
+    argv = [f"--{n}={shlex.quote(str(d)) if str(d) else ''}"
+            for n, (_, d, _) in config.JAX_ONLY_FIELDS.items()]
+    assert HParams.from_string(" ".join(argv)) == HParams()
+
+
+@pytest.mark.parametrize("name,other,item",
+                         list(_jax_only_nondefault()),
+                         ids=[n for n, _, _ in _jax_only_nondefault()])
+def test_a_jax_only_field_off_its_default_names_its_item(name, other, item):
+    """Any other value raises NotImplementedError naming the ROADMAP item
+    (scan_unroll, which changes no result, is taken and ignored)."""
+    argv = [f"--{name}={other}", "--mode=decode", "--device=cpu"]
+    if item is None:
+        assert HParams.from_argv(argv) == HParams(mode="decode",
+                                                  device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, "
+                       "item " + item.split("item ")[1].split(" ")[0]):
+        HParams.from_argv(argv)
+
+
+def test_jax_flags_that_parsed_silently_now_raise():
+    """The flags that parsed silently before the repair."""
+    with pytest.raises(NotImplementedError, match="item 6"):
+        HParams.from_argv(
+            "--dp=2 --decode_deadline_secs=2 --spec_draft=map "
+            "--serve_default_tier=greedy --grad_allreduce_dtype=bfloat16 "
+            "--mode=decode --device=cpu".split())
+    for flags, item in (("--obs False", "2d"), ("--serve_slots 4", "item 4"),
+                        ("--serve_replicas=2", "item 7"),
+                        ("--spec_k_adaptive", "item 5")):
+        with pytest.raises(NotImplementedError, match=item):
+            HParams.from_argv(flags.split())
+    # a name neither package knows is ignored, as the reference does
+    assert HParams.from_argv(["--no_such_flag=3"]) == HParams()

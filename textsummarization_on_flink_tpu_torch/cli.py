@@ -14,11 +14,14 @@ surface.
     batch, update the smoothed loss and save ``bestmodel`` when it
     improves, again and again (run_summarization.py:247-292);
   * ``--mode=decode``: beam-search decode of chunk files (distinct
-    articles per batch, one pass);
-  * ``--inference=1``: decode raw text files, one article per file
-    (RawTextBatcher path, run_summarization.py:339-348).  The JAX package
-    repeats one article across the batch here; the port packs distinct
-    articles, which gives the same per-article results.
+    articles per batch): with ``--single_pass=1`` one pass, scored with
+    ROUGE into ``ROUGE_results.txt``; otherwise continuous decoding of
+    the files, reshuffled every pass, reloading the newest checkpoint
+    every 60 s and writing ``attn_vis_data.json``;
+  * ``--inference=1``: decode raw text files, one article per file, in
+    one bounded pass (RawTextBatcher path, run_summarization.py:339-348).
+    The JAX package repeats one article across the batch here; the port
+    packs distinct articles, which gives the same per-article results.
 
 Both families train, evaluate and decode.  The checkpoint-surgery flags
 run and exit, as the reference's do: ``--convert_to_coverage_model``
@@ -105,19 +108,28 @@ def run_eval(hps: HParams, vocab: Vocab, max_iters: int = 0,
 
 
 def run_decode(hps: HParams, vocab: Vocab,
-               batcher: Optional[Batcher] = None) -> BeamSearchDecoder:
-    """run_summarization.py:360-365 (+ raw-text inference :339-348).
-    Returns the decoder after its pass."""
+               batcher: Optional[Batcher] = None,
+               max_batches: int = 0) -> BeamSearchDecoder:
+    """run_summarization.py:360-365 (+ raw-text inference :339-348; JAX
+    cli.py:103-131).  Raw-text inference is one bounded pass; chunk files
+    are read once with ``--single_pass`` (then scored with ROUGE) or
+    streamed forever otherwise (``max_batches`` bounds that, for tests).
+    Returns the decoder after its loop; ``rouge_results`` holds the
+    ROUGE scores of a single pass."""
     decode_hps = hps.replace(mode="decode")
     if batcher is None:
-        source = (raw_text_example_source(hps.data_path) if hps.inference
-                  else None)
-        batcher = Batcher(hps.data_path, vocab, decode_hps,
-                          example_source=source)
+        if hps.inference:
+            batcher = Batcher("", vocab, decode_hps, single_pass=True,
+                              example_source=raw_text_example_source(
+                                  hps.data_path))
+        else:
+            batcher = Batcher(hps.data_path, vocab, decode_hps,
+                              single_pass=hps.single_pass)
     _, train_dir, _ = _dirs(hps)
     decoder = BeamSearchDecoder(decode_hps, vocab, batcher,
                                 train_dir=train_dir)
-    decoder.decode(with_rouge=hps.single_pass and not hps.inference)
+    decoder.decode(with_rouge=hps.single_pass and not hps.inference,
+                   max_batches=max_batches)
     return decoder
 
 

@@ -12,8 +12,13 @@ hyperparameter strings).  The port adds one field, ``device``: entry
 points run on ``cuda`` unless the caller asks for ``cpu``.
 
 Fields of the JAX package that steer paths this package does not have
-yet (mesh axes, serving engines, speculative tiers) are left out;
-``from_argv`` ignores unknown flags, as the reference's
+yet (mesh axes, serving engines, speculative tiers) are not fields here:
+``JAX_ONLY_FIELDS`` lists them with their JAX types and defaults, and
+``from_argv`` (so ``from_string`` and the pipeline's hyperparameter
+strings too) accepts one at its default and raises
+``NotImplementedError`` naming the ROADMAP item that brings it for any
+other value, so a JAX run's flags never silently become a different
+run.  Flags unknown to both packages are ignored, as the reference's
 ``FLAGS(known_only=True)`` does.
 """
 
@@ -23,7 +28,7 @@ import dataclasses
 import json
 import os
 import shlex
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 #: ROADMAP.md names the queue item that brings each missing mode, option
 #: or family; error messages point there
@@ -34,12 +39,108 @@ ROADMAP_BF16_CACHE = "ROADMAP.md queue 2, item 6 (bf16 decode KV cache)"
 ROADMAP_AAN = ("ROADMAP.md queue 1, item 5 (AAN draft, speculative decode, "
                "distillation)")
 ROADMAP_HEAD_DIM = ("ROADMAP.md queue 3, item 1 (transformer head dims above "
-                    "128 on the card)")
-ROADMAP_SERVING = ("ROADMAP.md queue 1, item 3 (the serve layer behind "
+                    "256 on the card)")
+ROADMAP_PG_WIDTH = ("ROADMAP.md queue 3, item 4 (pointer-generator widths "
+                    "past the fused attention kernels' shared memory on the "
+                    "card)")
+ROADMAP_SERVING = ("ROADMAP.md queue 1, item 3b (the serve layer behind "
                    "transform(serving=True))")
+ROADMAP_MULTI_GPU = ("ROADMAP.md queue 1, item 6 (multi-GPU: data, tensor "
+                     "and sequence parallelism)")
+ROADMAP_OBS = ("ROADMAP.md queue 1, item 2d (the obs registry, flight "
+               "recorder and resilience policy)")
+ROADMAP_FLEET = ("ROADMAP.md queue 1, item 7 (the fleet layer: replicas, "
+                 "hedging, the process fleet, hierarchical summarization)")
+ROADMAP_SLOTS = ("ROADMAP.md queue 1, item 4 (the slot and paged decode "
+                 "engine)")
 ROADMAP_HIERSUM = ("ROADMAP.md queue 1, item 7 (hierarchical summarization "
                    "and the document framing behind "
                    "transform(hierarchical=True))")
+
+
+#: the JAX package's HParams fields that the port does not have, as
+#: name -> (type, JAX default, what brings it): a copy of the field list of
+#: textsummarization_on_flink_tpu/config.py, kept literal under the import
+#: rule.  A value other than the default raises NotImplementedError naming
+#: the ROADMAP item.  ``scan_unroll`` (the lax.scan unroll factor of the
+#: LSTM recurrences) names no item: it changes XLA's compile, never a
+#: result, and eager PyTorch has no scan to unroll, so any value is taken
+#: and ignored.
+JAX_ONLY_FIELDS: Dict[str, Tuple[type, Any, Optional[str]]] = {
+    "dp": (int, 1, ROADMAP_MULTI_GPU),
+    "tp": (int, 1, ROADMAP_MULTI_GPU),
+    "sp": (int, 1, ROADMAP_MULTI_GPU),
+    "sp_attention": (str, "", ROADMAP_MULTI_GPU),
+    "grad_allreduce_dtype": (str, "float32", ROADMAP_MULTI_GPU),
+    "scan_unroll": (int, 8, None),
+    "obs": (bool, True, ROADMAP_OBS),
+    "obs_http_port": (int, 0, ROADMAP_OBS),
+    "flight_frames": (int, 64, ROADMAP_OBS),
+    "summary_flush_every": (int, 1, ROADMAP_OBS),
+    "profile_analytic": (bool, False, ROADMAP_OBS),
+    "profile_divergence_factor": (float, 5.0, ROADMAP_OBS),
+    "decode_deadline_secs": (float, 0.0, ROADMAP_SERVING),
+    "serve_max_batch": (int, 0, ROADMAP_SERVING),
+    "serve_max_wait_ms": (float, 20.0, ROADMAP_SERVING),
+    "serve_max_queue": (int, 256, ROADMAP_SERVING),
+    "serve_buckets": (str, "", ROADMAP_SERVING),
+    "serve_mode": (str, "microbatch", ROADMAP_SERVING),
+    "serve_cache_entries": (int, 0, ROADMAP_SERVING),
+    "serve_cache_bytes": (int, 0, ROADMAP_SERVING),
+    "serve_coalesce": (bool, False, ROADMAP_SERVING),
+    "serve_tenant_rate": (float, 0.0, ROADMAP_SERVING),
+    "serve_tenant_burst": (int, 0, ROADMAP_SERVING),
+    "serve_fair_weights": (str, "", ROADMAP_SERVING),
+    "serve_slots": (int, 0, ROADMAP_SLOTS),
+    "serve_refill_chunk": (int, 0, ROADMAP_SLOTS),
+    "serve_prefill_depth": (int, 2, ROADMAP_SLOTS),
+    "serve_arena_pages": (int, 0, ROADMAP_SLOTS),
+    "serve_arena_mb": (float, 0.0, ROADMAP_SLOTS),
+    "decode_enc_block": (int, 64, ROADMAP_SLOTS),
+    "spec_k": (int, 4, ROADMAP_AAN),
+    "spec_draft": (str, "", ROADMAP_AAN),
+    "draft_dec_layers": (int, 0, ROADMAP_AAN),
+    "draft_hidden": (int, 0, ROADMAP_AAN),
+    "draft_vocab_rank": (int, 0, ROADMAP_AAN),
+    "spec_k_adaptive": (bool, False, ROADMAP_AAN),
+    "spec_k_min": (int, 1, ROADMAP_AAN),
+    "spec_k_max": (int, 8, ROADMAP_AAN),
+    "serve_default_tier": (str, "beam", ROADMAP_AAN),
+    "serve_degrade_tier": (str, "greedy", ROADMAP_AAN),
+    "serve_replicas": (int, 1, ROADMAP_FLEET),
+    "serve_hedge_ms": (float, 0.0, ROADMAP_FLEET),
+    "serve_hedge_max_ratio": (float, 0.1, ROADMAP_FLEET),
+    "serve_fleet_transport": (str, "inproc", ROADMAP_FLEET),
+    "serve_scrape_timeout_ms": (float, 250.0, ROADMAP_FLEET),
+    "serve_scrape_interval_ms": (float, 50.0, ROADMAP_FLEET),
+    "hier_chunk_words": (int, 0, ROADMAP_FLEET),
+    "hier_overlap_words": (int, 0, ROADMAP_FLEET),
+    "hier_chunk_tier": (str, "greedy", ROADMAP_FLEET),
+    "hier_reduce_tier": (str, "beam", ROADMAP_FLEET),
+}
+
+
+def _parse_flag(ftype: Any, val: str) -> Any:
+    """A flag's string value as the field's type (the reference's absl
+    parsing: a boolean is true for 1/true/yes)."""
+    if ftype in ("bool", bool):
+        return str(val).lower() in ("1", "true", "yes")
+    if ftype in ("int", int):
+        return int(val)
+    if ftype in ("float", float):
+        return float(val)
+    return val
+
+
+def _refuse_jax_only(name: str, val: str) -> None:
+    """Raise NotImplementedError when a JAX-only field gets a value other
+    than its JAX default (compared as the field's type: ``to_argv``
+    renders ``True``, ``0.15``, ``''``)."""
+    ftype, default, item = JAX_ONLY_FIELDS[name]
+    if item is not None and _parse_flag(ftype, val) != default:
+        raise NotImplementedError(
+            f"--{name}={val}: the PyTorch port has no {name!r} yet (only the "
+            f"JAX default {default!r} is accepted); {item}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,8 +256,12 @@ class HParams:
     def from_argv(cls, argv: List[str]) -> "HParams":
         """Parse the reference's space-joined ``--flag value`` /
         ``--flag=value`` hyperparameter string (known flags only, like
-        FLAGS(known_only=True) at run_summarization.py:420)."""
-        fields = {f.name: f for f in dataclasses.fields(cls)}
+        FLAGS(known_only=True) at run_summarization.py:420).  A JAX-only
+        field (``JAX_ONLY_FIELDS``) away from its default raises
+        NotImplementedError."""
+        fields = {f.name: f.type for f in dataclasses.fields(cls)}
+        types = dict(fields)
+        types.update((n, t) for n, (t, _, _) in JAX_ONLY_FIELDS.items())
         bool_literals = ("1", "0", "true", "false", "yes", "no")
         out: Dict[str, Any] = {}
         i = 0
@@ -167,8 +272,7 @@ class HParams:
                 i += 1
                 continue
             body = tok[2:]
-            is_bool = body.split("=", 1)[0] in fields and \
-                fields[body.split("=", 1)[0]].type in ("bool", bool)
+            is_bool = types.get(body.split("=", 1)[0]) in ("bool", bool)
             if "=" in body:
                 name, val = body.split("=", 1)
                 i += 1
@@ -184,17 +288,10 @@ class HParams:
             else:  # non-bool flag with no value: skip it
                 i += 1
                 continue
-            if name not in fields:
-                continue
-            ftype = fields[name].type
-            if ftype in ("bool", bool):
-                out[name] = str(val).lower() in ("1", "true", "yes")
-            elif ftype in ("int", int):
-                out[name] = int(val)
-            elif ftype in ("float", float):
-                out[name] = float(val)
-            else:
-                out[name] = val
+            if name in JAX_ONLY_FIELDS:
+                _refuse_jax_only(name, val)
+            if name in fields:
+                out[name] = _parse_flag(fields[name], val)
         return cls(**out)
 
     def to_argv(self) -> str:
@@ -260,11 +357,13 @@ class HParams:
             if self.enc_layers < 1 or self.dec_layers < 1:
                 raise ValueError("enc_layers/dec_layers must be >= 1")
             head_dim = self.hidden_dim // self.num_heads
-            if self.device == "cuda" and head_dim > 128:
+            if self.device == "cuda" and head_dim > 256:
                 raise ValueError(
                     f"head dim {head_dim} (hidden_dim / num_heads): the "
-                    f"flash kernels take head dims up to 128 on the card; "
+                    f"flash kernels take head dims up to 256 on the card; "
                     f"{ROADMAP_HEAD_DIM}")
+        if self.device == "cuda" and self.model_family == "pointer_generator":
+            self._refuse_pg_width()
         if self.decode_cache_dtype == "bfloat16":
             raise NotImplementedError(
                 f"decode_cache_dtype='bfloat16': the port stores the KV "
@@ -285,6 +384,32 @@ class HParams:
         from textsummarization_on_flink_tpu_torch.models import get_family
 
         get_family(self.model_family)
+
+
+    def _refuse_pg_width(self) -> None:
+        """On the card, refuse before a model is built an encoder width
+        the fused attention kernels do not take (at the batch, the beam in
+        decode, and with the backward only in training: eval runs the
+        forward alone); without a card the entry points raise on the
+        device instead."""
+        import torch
+
+        if not torch.cuda.is_available():
+            return
+        from textsummarization_on_flink_tpu_torch.ops import fused_attention
+
+        dtype = (torch.bfloat16 if self.compute_dtype == "bfloat16"
+                 else torch.float32)
+        decode = self.mode == "decode" or self.inference
+        refusal = fused_attention.width_refusal(
+            self.batch_size, self.max_enc_steps, 2 * self.hidden_dim,
+            self.beam_size if decode else 1, dtype,
+            backward=self.mode == "train" and not self.inference)
+        if refusal is not None:
+            raise ValueError(
+                f"hidden_dim={self.hidden_dim}: the fused attention kernels "
+                f"do not take this width on the card ({refusal}); "
+                f"{ROADMAP_PG_WIDTH}")
 
 
 def beam_chunk_from_env() -> int:

@@ -1,2 +1,2 @@
 """Data layer of the port: vocab, OOV ids, static-shape batches, the
-raw-text and chunk-file sources, and the synchronous decode batcher."""
+raw-text and chunk-file sources, and the threaded bucketing batcher."""

@@ -7,13 +7,18 @@ followed by that many bytes of a serialized ``tf.train.Example``
 encoded and decoded by data/tfexample.py.  A record is a
 ``{name: [values]}`` dict of features, so ``read_chunk_file`` gives back
 what ``write_chunk_file`` was given (bytes for str).
+``example_generator`` streams the records, and ``text_pairs`` their
+non-empty (article, abstract) strings as the batcher reads them: the
+files sorted and read once in single-pass mode, shuffled every pass
+otherwise.
 """
 
 from __future__ import annotations
 
 import glob
+import random
 import struct
-from typing import Dict, Iterable, Iterator, Tuple
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 from textsummarization_on_flink_tpu_torch.data.tfexample import (
     Example,
@@ -59,27 +64,61 @@ def read_chunk_file(path: str) -> Iterator[Features]:
             yield Example.parse(blob).features
 
 
-def text_pairs(data_path: str, single_pass: bool = True,
-               ) -> Iterator[Tuple[str, str]]:
-    """(article, abstract) strings of every record under the glob, files
-    in sorted order (data.py:108-141); records with an empty article are
-    skipped, as the reference does.  single_pass: one pass; otherwise the
-    file list is read again and again, forever (the JAX package shuffles
-    it each pass, chunks.py:114-123; the port keeps file order,
-    ROADMAP.md queue 1, item 3)."""
+def _one_pass(data_path: str, single_pass: bool,
+              rng: random.Random) -> Iterator[Example]:
+    """The records of one pass over the glob: files sorted in single_pass,
+    shuffled by ``rng`` otherwise."""
+    filelist = glob.glob(data_path)
+    if not filelist:
+        raise FileNotFoundError(f"Error: Empty filelist at {data_path}")
+    if single_pass:
+        filelist = sorted(filelist)
+    else:
+        rng.shuffle(filelist)
+    for path in filelist:
+        for feats in read_chunk_file(path):
+            yield Example(feats)
+
+
+def example_generator(data_path: str, single_pass: bool,
+                      rng: Optional[random.Random] = None,
+                      ) -> Iterator[Example]:
+    """Examples of every record under the glob (data.py:108-141; JAX
+    data/chunks.py:111-127).  single_pass: the files in sorted order,
+    once.  Otherwise the file list is shuffled each pass by ``rng`` (a
+    fresh ``random.Random()`` when None, never the global generator),
+    forever; a pass that finds no record at all raises rather than spin."""
+    rng = rng or random.Random()
     while True:
-        filelist = sorted(glob.glob(data_path))
-        if not filelist:
-            raise FileNotFoundError(f"Error: Empty filelist at {data_path}")
         found = False
-        for path in filelist:
-            for feats in read_chunk_file(path):
-                ex = Example(feats)
-                article = ex.get_str("article")
-                abstract = ex.get_str("abstract")
-                if article:
-                    found = True
-                    yield article, abstract
+        for ex in _one_pass(data_path, single_pass, rng):
+            found = True
+            yield ex
+        if single_pass:
+            return
+        if not found:  # a repeated pass would spin forever on nothing
+            raise ValueError(f"no record under {data_path}")
+
+
+def text_pairs(data_path: str, single_pass: bool = True,
+               rng: Optional[random.Random] = None,
+               on_empty: Optional[Callable[[], None]] = None,
+               ) -> Iterator[Tuple[str, str]]:
+    """(article, abstract) strings of the records, passes as
+    ``example_generator``'s.  Records with an empty article are skipped,
+    as the reference does, calling ``on_empty`` for each; a streaming
+    pass with no article at all raises rather than spin."""
+    rng = rng or random.Random()
+    while True:
+        found = False
+        for ex in _one_pass(data_path, single_pass, rng):
+            article = ex.get_str("article")
+            if not article:
+                if on_empty is not None:
+                    on_empty()
+                continue
+            found = True
+            yield article, ex.get_str("abstract")
         if single_pass:
             return
         if not found:  # a repeated pass would spin forever on nothing

@@ -7,25 +7,32 @@ layer replaces the TF Saver.
 
 Kept: decode-dir naming from the checkpoint name + key hps
 (``get_decode_dir_name``, decode.py:303-313); single-pass mode writes
-pyrouge-layout reference/decoded files (decode.py:187-222);
+pyrouge-layout reference/decoded files and scores them with the native
+ROUGE of evaluate/rouge.py, writing ``ROUGE_results.txt``
+(decode.py:133-147, 187-222, 268-301); continuous mode decodes until the
+batcher ends (or ``max_batches``), reloads the newest checkpoint once
+``SECS_UNTIL_NEW_CKPT`` seconds have passed (decode.py:36, 149-157) and
+writes the attention-visualizer JSON of each result (decode.py:225-249);
 ``[STOP]``-truncation of the emitted tokens (decode.py:112-118);
 html-escaping of <, > (``make_html_safe``); the summary is
 sentence-split on '.'.
 
-Not yet ported (ROADMAP.md): ROUGE scoring, continuous-mode checkpoint
-reloads and the attention-visualizer file, the spec/draft tiers, the
-mesh, deadline degradation and the slot engine.
+Not yet ported (ROADMAP.md): the spec/draft tiers, the mesh, deadline
+degradation and the slot engine.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
+import threading
 import time
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch.checkpoint import (
     checkpointer as ckpt_lib,
 )
@@ -35,9 +42,12 @@ from textsummarization_on_flink_tpu_torch.data.batching import Batch
 from textsummarization_on_flink_tpu_torch.data.vocab import STOP_DECODING, Vocab
 from textsummarization_on_flink_tpu_torch.decode import beam_search
 from textsummarization_on_flink_tpu_torch.device import resolve_device
+from textsummarization_on_flink_tpu_torch.evaluate import rouge
 from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
 
 log = logging.getLogger(__name__)
+
+SECS_UNTIL_NEW_CKPT = 60  # decode.py:36
 
 TIERS = ("beam", "greedy")
 
@@ -112,7 +122,8 @@ class BeamSearchDecoder:
 
     Params come either as a tree (``params=``: the port's tensors, or the
     JAX package's numpy tree, moved to ``hps.device``) or from the newest
-    checkpoint in ``train_dir``."""
+    checkpoint in ``train_dir`` (reloaded in continuous mode).  After a
+    single pass with ROUGE, ``rouge_results`` holds the scores."""
 
     def __init__(self, hps: HParams, vocab: Vocab, batcher: Any,
                  params: Optional[Any] = None,
@@ -127,8 +138,14 @@ class BeamSearchDecoder:
         self._train_dir = train_dir
         self._max_ckpt_retries = max_ckpt_retries
         self._device = resolve_device(hps.device)
+        # guards the (params, ckpt_path) pair, which a continuous-mode
+        # reload replaces together
+        self._params_lock = threading.Lock()
         self._ckpt_path: Optional[str] = None
         self._fp_cache: Optional[Tuple[Any, str]] = None
+        self._c_reloads = obs.registry_for(hps).counter(
+            "decode/ckpt_reloads_total")
+        self.rouge_results: Optional[Dict[str, Dict[str, float]]] = None
         if params is None:
             self._load_params()
         else:
@@ -152,12 +169,17 @@ class BeamSearchDecoder:
             os.makedirs(self._rouge_ref_dir, exist_ok=True)
             os.makedirs(self._rouge_dec_dir, exist_ok=True)
 
+    def _params_snapshot(self) -> Tuple[Any, Optional[str]]:
+        """The (params, ckpt_path) pair, read atomically."""
+        with self._params_lock:
+            return self._params, self._ckpt_path
+
     @property
     def params_fingerprint(self) -> str:
         """Content fingerprint of the active params
         (checkpoint.checkpointer.content_fingerprint — byte for byte the
         JAX package's), computed once per params object."""
-        params = self._params
+        params, _ = self._params_snapshot()
         cached = self._fp_cache
         if cached is not None and cached[0] is params:
             return cached[1]
@@ -169,9 +191,31 @@ class BeamSearchDecoder:
         path, flat = ckpt_lib.load_ckpt(self._train_dir,
                                         max_retries=self._max_ckpt_retries)
         tree = ckpt_lib._unflatten_dicts(flat)
-        self._params = from_numpy_tree(tree["params"], self._device)
-        self._ckpt_path = path
+        params = from_numpy_tree(tree["params"], self._device)
+        with self._params_lock:  # the load stays outside the lock
+            self._params, self._ckpt_path = params, path
         log.info("decoder loaded checkpoint %s", path)
+
+    def maybe_reload_checkpoint(self, last_load: float) -> float:
+        """Continuous-mode checkpoint refresh (decode.py:149-157): once
+        ``SECS_UNTIL_NEW_CKPT`` seconds have passed since ``last_load`` (a
+        ``time.monotonic()`` reference, so a wall-clock jump neither
+        storms nor starves reloads), load the newest checkpoint of the
+        train dir if it is not the one in use; the (params, ckpt_path)
+        pair swaps under the lock and ``decode/ckpt_reloads_total``
+        counts it.  Returns the new reference time."""
+        if self._train_dir is None:
+            return last_load
+        if time.monotonic() - last_load < SECS_UNTIL_NEW_CKPT:
+            return last_load
+        latest = ckpt_lib.latest_checkpoint(self._train_dir)
+        _, current = self._params_snapshot()
+        if latest is not None and latest != current:
+            log.info("Decoder has been decoding for %.0f seconds; loading "
+                     "new checkpoint", time.monotonic() - last_load)
+            self._load_params()
+            self._c_reloads.inc()
+        return time.monotonic()
 
     def decode_batch(self, batch: Batch,
                      tier: Optional[str] = None) -> List[DecodedResult]:
@@ -184,7 +228,8 @@ class BeamSearchDecoder:
                 f"tier {tier!r} is not ported to PyTorch yet (ported: "
                 f"{TIERS}); see ROADMAP.md queue 1, item 5")
         hps = self._hps.replace(beam_size=1) if tier == "greedy" else self._hps
-        out = beam_search.run_beam_search(self._params, hps, batch.as_arrays())
+        params, _ = self._params_snapshot()
+        out = beam_search.run_beam_search(params, hps, batch.as_arrays())
         results: List[DecodedResult] = []
         for b in range(len(batch.original_articles)):
             if not batch.real_mask[b]:
@@ -221,13 +266,20 @@ class BeamSearchDecoder:
 
     def decode(self, with_rouge: bool = True,
                result_sink: Optional[Callable[[DecodedResult], None]] = None,
-               max_batches: int = 0, log_results: bool = True) -> None:
-        """The main loop (decode.py:131-157) over the batcher's one pass:
-        single_pass writes the pyrouge files of every result; otherwise
-        each result is logged, unless ``log_results`` is False (the
-        pipeline's transform wants its rows through the sink only).
-        Every result also goes to ``result_sink`` at once.  ROUGE scoring
-        is not ported yet: with_rouge logs where the files are instead."""
+               max_batches: int = 0, log_results: bool = True,
+               ) -> Optional[Dict[str, Dict[str, float]]]:
+        """The main loop (decode.py:131-157).
+
+        single_pass: decode the batcher's one pass, write the pyrouge
+        files of every result, then (with_rouge) score them, write
+        ``ROUGE_results.txt`` into the decode dir and return the scores
+        (also kept as ``rouge_results``).  Otherwise decode until the
+        batcher ends or ``max_batches``, logging each result and writing
+        its attention-visualizer file unless ``log_results`` is False (the
+        pipeline's transform wants its rows through the sink only), and
+        reload a newer checkpoint every ``SECS_UNTIL_NEW_CKPT`` seconds.
+        Every result also goes to ``result_sink`` at once."""
+        t_last = time.monotonic()
         counter = 0
         n_batches = 0
         while True:
@@ -246,15 +298,23 @@ class BeamSearchDecoder:
                 elif log_results:
                     log.info("ARTICLE: %s", res.article)
                     log.info("GENERATED SUMMARY: %s", res.summary)
+                    self.write_for_attnvis(res)
                 if result_sink is not None:
                     result_sink(res)
             n_batches += 1
             if max_batches and n_batches >= max_batches:
                 break
+            if not self._hps.single_pass:
+                t_last = self.maybe_reload_checkpoint(t_last)
         if self._hps.single_pass and with_rouge and counter > 0:
-            log.info("Output has been saved in %s and %s. ROUGE scoring is "
-                     "not ported to PyTorch yet (ROADMAP.md queue 1, item 3)",
-                     self._rouge_ref_dir, self._rouge_dec_dir)
+            log.info("Output has been saved in %s and %s. Now starting "
+                     "ROUGE eval...", self._rouge_ref_dir,
+                     self._rouge_dec_dir)
+            self.rouge_results = rouge.rouge_eval(self._rouge_ref_dir,
+                                                  self._rouge_dec_dir)
+            rouge.rouge_log(self.rouge_results, self._decode_dir)
+            return self.rouge_results
+        return None
 
     def write_for_rouge(self, res: DecodedResult, ex_index: int) -> None:
         """pyrouge file layout (decode.py:187-222)."""
@@ -269,3 +329,21 @@ class BeamSearchDecoder:
         with open(decoded_file, "w", encoding="utf-8") as f:
             f.write("\n".join(decoded_sents))
         log.info("Wrote example %i to file", ex_index)
+
+    def write_for_attnvis(self, res: DecodedResult) -> None:
+        """The attention visualizer's JSON (decode.py:225-249 field
+        layout), rewritten for each result."""
+        article_lst = res.article.split()
+        to_write = {
+            "article_lst": [make_html_safe(t) for t in article_lst],
+            "decoded_lst": [make_html_safe(t) for t in res.decoded_words],
+            "abstract_str": make_html_safe(" ".join(res.abstract_sents)),
+            "attn_dists": (res.attn_dists[:, : len(article_lst)].tolist()
+                           if res.attn_dists is not None else []),
+        }
+        if self._hps.pointer_gen and res.p_gens is not None:
+            to_write["p_gens"] = res.p_gens.tolist()
+        output_fname = os.path.join(self._decode_dir, "attn_vis_data.json")
+        with open(output_fname, "w", encoding="utf-8") as f:
+            json.dump(to_write, f)
+        log.info("Wrote visualization data to %s", output_fname)

@@ -31,9 +31,13 @@
 //
 //   * one block per (64 query rows, head, article): 4 warps of 16 rows.
 //     At hd 32 a warp's q rows stay in registers for the whole loop,
-//     split to hi/lo once; at hd 128 (where O alone takes 64 registers) q
-//     is staged in shared memory and split at use;
-//   * key/value tiles (64 keys at hd 32, 16 at hd 128) are staged in
+//     split to hi/lo once; at hd 128 and 256 (where O alone takes 64
+//     registers) q is staged in shared memory and split at use;
+//   * at hd 256 the output's columns are split over two blocks (the
+//     grid's y axis holds head x half): each block forms S over the full
+//     head dim, and keeps and writes only its 128 columns of O, so its
+//     registers are hd 128's, at the cost of forming S twice;
+//   * key/value tiles (64 keys at hd 32, 16 at hd 128 and 256) are staged in
 //     shared memory by cp.async, double-buffered, rows padded by 4
 //     floats so the fragment loads are free of bank conflicts, and split
 //     to hi/lo once by the block (mma_tf32x3.cuh, split_tile);
@@ -79,15 +83,20 @@ constexpr int kRows = 64;       // query rows per block, 16 per warp
 // registers).  At hd 128 they would take 64 registers as f32 beside O's
 // 64, and the kernel spilled; there q is staged in shared memory with the
 // first tile and split at use, and tiles hold 16 keys so that two blocks
-// still fit on an SM.
+// still fit on an SM.  At hd 256 a block keeps half of O's columns (kOD),
+// 64 registers as at hd 128; its shared memory (q, K and V tiles at the
+// full 256) is 166,528 bytes, one block per SM.
 template <int HD>
 struct Fwd {
+  static_assert(HD == 32 || HD == 128 || HD == 256, "built head dims");
   static constexpr bool kQInRegs = HD <= 64;
   static constexpr int kKeys = kQInRegs ? 64 : 16;  // keys per tile
   static constexpr int kStride = HD + 4;  // floats per shared row
   static constexpr int kKS = HD / 8;      // k-steps of Q K^T
   static constexpr int kNT = kKeys / 8;   // 8-key column tiles of S
-  static constexpr int kOT = HD / 8;      // 8-wide column tiles of O
+  static constexpr int kSplit = HD > 128 ? 2 : 1;  // blocks per (rows, head)
+  static constexpr int kOD = HD / kSplit;  // O's columns a block keeps
+  static constexpr int kOT = kOD / 8;      // 8-wide column tiles of them
   // 8-key chunks of P per accumulator of O += P V: 32 keys (12 mma)
   static constexpr int kGroup = kNT < 4 ? kNT : 4;
   static constexpr int kTile = kKeys * kStride;  // floats of a K or V tile
@@ -104,8 +113,8 @@ struct Fwd {
   static_assert(kTile % 4 == 0 && kStage % 4 == 0, "16-byte aligned tiles");
 };
 
-// grid (ceil(T / kRows), nh, B); kThreads threads; Fwd<HD>::kSmem bytes
-// of dynamic shared memory
+// grid (ceil(T / kRows), nh * kSplit, B); kThreads threads; Fwd<HD>::kSmem
+// bytes of dynamic shared memory
 template <int HD>
 __global__ void __launch_bounds__(kThreads, Fwd<HD>::kMinBlocks)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -121,7 +130,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   // causal: the last query blocks have the most key tiles; start them first
   const int qb = causal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y / S::kSplit, b = blockIdx.z;
+  const int col0 = (blockIdx.y % S::kSplit) * S::kOD;  // O's first column
   const size_t pos_stride = (size_t)nh * HD;  // floats between positions
   const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
   const float* kb = k + base;
@@ -207,7 +217,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = it * kKeys;
     // causal: a warp whose last row precedes the tile attends none of it
     if (any_key && (!causal || k0 <= row0 + 15)) {
-      const tf32x3::SplitTile kt{ks, k_lo}, vt{vs, v_lo};
+      // V's columns of this block's part of O
+      const tf32x3::SplitTile kt{ks, k_lo}, vt{vs + col0, v_lo + col0};
       // S = Q K^T
       float s[S::kNT][4];
       tf32x3::head_dim_product<S::kNT, S::kKS>(s, q_frag, kt, kStride, g, t);
@@ -274,9 +285,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float2 val = make_float2(0.f, 0.f);
       if (l[r] > 0.f)
         val = make_float2(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
-      *reinterpret_cast<float2*>(o_row + 8 * n + 2 * t) = val;
+      *reinterpret_cast<float2*>(o_row + col0 + 8 * n + 2 * t) = val;
     }
-    if (lse != nullptr && t == 0)
+    if (lse != nullptr && t == 0 && col0 == 0)  // one block of a split
       lse[((size_t)b * T + rows[r]) * nh + h] =
           l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
   }
@@ -292,7 +303,7 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   const cudaError_t err =
       tf32x3::allow_smem(flash_fwd_kernel<HD>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kRows - 1) / kRows, nh, B);
+  const dim3 grid((T + kRows - 1) / kRows, nh * Fwd<HD>::kSplit, B);
   flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
       q, k, v, key_mask, out, lse, T, nh, causal, sm_scale);
   return cudaGetLastError();
@@ -302,7 +313,8 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 
 // q, k, v, out [B, T, nh, hd] float32, contiguous, 16-byte aligned, on one
 // device; key_mask [B, T] float32 (1 = real token) or null (every key
-// real); lse [B, T, nh] float32 or null (not written).  hd is 32 or 128.
+// real); lse [B, T, nh] float32 or null (not written).  hd is 32, 128 or
+// 256.
 // Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int ts_flash_attention(const float* q, const float* k,
                                   const float* v, const float* key_mask,
@@ -310,7 +322,7 @@ extern "C" int ts_flash_attention(const float* q, const float* k,
                                   int nh, int hd, int causal, float sm_scale,
                                   void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 65535)
+  if (B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 32767)
     return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
@@ -318,6 +330,9 @@ extern "C" int ts_flash_attention(const float* q, const float* k,
                              sm_scale, st);
     case 128:
       return (int)launch<128>(q, k, v, key_mask, out, lse, B, T, nh,
+                              causal, sm_scale, st);
+    case 256:
+      return (int)launch<256>(q, k, v, key_mask, out, lse, B, T, nh,
                               causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;

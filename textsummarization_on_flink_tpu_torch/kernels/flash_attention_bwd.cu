@@ -73,6 +73,15 @@
 //     on chunks that cross it, and the blocks with the most tiles start
 //     first; a tile none of whose keys is real and unmasked is skipped.
 //
+// Head dim 256: each kernel splits its output's columns over two blocks
+// (the grid's y axis holds head x half).  A block forms S and dP over the
+// full head dim, from q, K, V and dO tiles staged at the full 256, and
+// keeps and writes only its 128 columns of dK and dV, or of dQ: its
+// registers are hd 128's, at the cost of forming S and dP twice.  Its
+// tiles are narrower to fit one block's shared memory (8 query rows per
+// dK/dV tile, 183,296 bytes; 8 keys per dQ tile and warp pass, 183,104
+// bytes).
+//
 // Both kernels:
 //
 //   * a pair the row may not attend gets p = 0 explicitly, never
@@ -106,16 +115,27 @@ using tf32x3::FragA;
 
 constexpr int kThreads = 128;
 
+// The head dims the kernels are built for; above 128 a block keeps half
+// of its output's columns (kSplit blocks per tile and head)
+template <int HD>
+struct Split {
+  static_assert(HD == 32 || HD == 128 || HD == 256, "built head dims");
+  static constexpr int kSplit = HD > 128 ? 2 : 1;
+  static constexpr int kOD = HD / kSplit;  // output columns a block keeps
+};
+
 // The dK/dV kernel's tiling: a block owns 64 keys, 16 per warp, and loops
 // over tiles of kQ query rows staged in shared memory.
 template <int HD>
-struct Dkv {
-  static constexpr int kKeys = 64;                // keys per block
-  static constexpr int kQ = HD == 128 ? 16 : 32;  // query rows per tile
-  static constexpr int kStride = HD + 4;          // floats per shared row
-  static constexpr int kKS = HD / 8;  // k-steps over the head dim
-  static constexpr int kNT = kQ / 8;  // 8-query column tiles of S^T
-  static constexpr int kDT = HD / 8;  // 8-wide column tiles of dK, dV
+struct Dkv : Split<HD> {
+  static constexpr int kKeys = 64;  // keys per block
+  // query rows per tile: 32 at hd 32, 16 at 128, 8 at 256 (16 would need
+  // 233,472 bytes of shared memory, past one block's 232,448)
+  static constexpr int kQ = HD <= 64 ? 32 : HD <= 128 ? 16 : 8;
+  static constexpr int kStride = HD + 4;  // floats per shared row
+  static constexpr int kKS = HD / 8;      // k-steps over the head dim
+  static constexpr int kNT = kQ / 8;      // 8-query column tiles of S^T
+  static constexpr int kDT = Split<HD>::kOD / 8;  // 8-wide tiles of dK, dV
   static constexpr int kKV = 2 * kKeys * kStride;  // the block's K and V
   static constexpr int kTile = kQ * kStride;       // floats of a q/dO tile
   // q, dO (hi after the split), then lse, D and a row flag (+ kQ floats
@@ -127,8 +147,8 @@ struct Dkv {
   static_assert(kKV % 4 == 0 && kStage % 4 == 0, "16-byte aligned tiles");
 };
 
-// grid (ceil(T / 64), nh, B): one block per (64 keys, head, article);
-// Dkv<HD>::kSmem bytes of dynamic shared memory
+// grid (ceil(T / 64), nh * kSplit, B): one block per (64 keys, head and
+// column half, article); Dkv<HD>::kSmem bytes of dynamic shared memory
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -148,7 +168,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int kb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int kb = blockIdx.x, h = blockIdx.y / D::kSplit, b = blockIdx.z;
+  // the first column of dK and dV this block keeps
+  const int col0 = (blockIdx.y % D::kSplit) * D::kOD;
   const size_t pos_stride = (size_t)nh * HD;  // floats between positions
   const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
   const size_t row_base = (size_t)b * T * nh + h;  // lse/dsum of (b, 0, h)
@@ -237,6 +259,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     // causal: every row of the tile precedes the warp's first key
     if (!causal || q0 + kQ - 1 >= key0) {
       const tf32x3::SplitTile qt{qs, q_lo}, dot{dos, do_lo};
+      // their columns of this block's part of dK and dV
+      const tf32x3::SplitTile qt_out{qs + col0, q_lo + col0},
+          dot_out{dos + col0, do_lo + col0};
       const float* lse_s = dos + D::kTile;
       const float* d_s = lse_s + kQ;
       const float* rok_s = d_s + kQ;
@@ -260,8 +285,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       // dV += P^T dO (the tile's queries in a_from_acc's order)
-      tf32x3::tile_product<D::kNT, D::kDT, D::kNT>(dva, p, dot, kStride, g,
-                                                   t);
+      tf32x3::tile_product<D::kNT, D::kDT, D::kNT>(dva, p, dot_out, kStride,
+                                                   g, t);
       // dP^T = V dO^T
       float ds[D::kNT][4];
       tf32x3::head_dim_product<D::kNT, D::kKS>(ds, v_frag, dot, kStride, g,
@@ -274,8 +299,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           ds[j][e] = p[j][e] * (ds[j][e] - d_s[8 * j + 2 * t + (e & 1)]);
       }
       // dK += dS^T Q
-      tf32x3::tile_product<D::kNT, D::kDT, D::kNT>(dka, ds, qt, kStride, g,
-                                                   t);
+      tf32x3::tile_product<D::kNT, D::kDT, D::kNT>(dka, ds, qt_out, kStride,
+                                                   g, t);
     }
     __syncthreads();  // every warp is done with buffer it & 1 and the lo
   }
@@ -283,8 +308,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (keys[r] >= T) continue;
-    float* dk_row = dk + base + (size_t)keys[r] * pos_stride;
-    float* dv_row = dv + base + (size_t)keys[r] * pos_stride;
+    float* dk_row = dk + base + (size_t)keys[r] * pos_stride + col0;
+    float* dv_row = dv + base + (size_t)keys[r] * pos_stride + col0;
 #pragma unroll
     for (int n = 0; n < D::kDT; ++n) {
       *reinterpret_cast<float2*>(dk_row + 8 * n + 2 * t) = make_float2(
@@ -306,7 +331,8 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
   const cudaError_t err =
       tf32x3::allow_smem(flash_bwd_dkv_kernel<HD>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + Dkv<HD>::kKeys - 1) / Dkv<HD>::kKeys, nh, B);
+  const dim3 grid((T + Dkv<HD>::kKeys - 1) / Dkv<HD>::kKeys,
+                  nh * Dkv<HD>::kSplit, B);
   flash_bwd_dkv_kernel<HD><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, lse, dsum, key_mask, dk, dv, T, nh, causal, sm_scale);
   return cudaGetLastError();
@@ -316,25 +342,29 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v,
 // loops over tiles of kKeys keys staged in shared memory; a warp works
 // through a tile in chunks of kChunk keys (S and dP of one chunk are its
 // live registers).  At hd 32 the warp's q and dO rows stay in registers,
-// split to hi/lo once; at hd 128 (where dQ alone takes 64 registers) they
-// are staged in shared memory with the first tile and split at use.
+// split to hi/lo once; at hd 128 and 256 (where dQ alone takes 64
+// registers) they are staged in shared memory with the first tile and
+// split at use.
 template <int HD>
-struct Dq {
+struct Dq : Split<HD> {
   static constexpr bool kQInRegs = HD <= 64;
-  static constexpr int kRows = 64;                    // query rows per block
-  static constexpr int kKeys = HD == 128 ? 32 : 64;   // keys per tile
-  static constexpr int kChunk = 16;                   // keys per warp pass
+  static constexpr int kRows = 64;  // query rows per block
+  // keys per tile and per warp pass: 64 and 16 at hd 32, 32 and 16 at
+  // 128, 8 and 8 at 256 (16 keys a tile would need 233,088 bytes of
+  // shared memory beside the staged q and dO, past one block's 232,448)
+  static constexpr int kKeys = HD <= 64 ? 64 : HD <= 128 ? 32 : 8;
+  static constexpr int kChunk = HD <= 128 ? 16 : 8;
   static constexpr int kStride = HD + 4;  // floats per shared row
   static constexpr int kKS = HD / 8;      // k-steps over the head dim
   static constexpr int kNT = kChunk / 8;  // 8-key column tiles of a chunk
-  static constexpr int kDT = HD / 8;      // 8-wide column tiles of dQ
+  static constexpr int kDT = Split<HD>::kOD / 8;  // 8-wide tiles of dQ
   // 8-key chunks of dS per accumulator of dQ += dS K: at most 32 keys
   static constexpr int kGroup = kNT < 4 ? kNT : 4;
   static constexpr int kTile = kKeys * kStride;     // floats of a K or V tile
   static constexpr int kStage = 2 * kTile + kKeys;  // K, V, key flags
   static constexpr int kQ = kQInRegs ? 0 : 2 * kRows * kStride;  // q, dO
   // blocks per SM asked of ptxas: shared memory allows 4 at hd 32 and 1
-  // at hd 128
+  // at hd 128 and 256
   static constexpr int kMinBlocks = kQInRegs ? 3 : 1;
   // two stages, the lo parts of the current K and V tiles, q and dO at
   // hd 128
@@ -344,8 +374,8 @@ struct Dq {
   static_assert(kTile % 4 == 0 && kStage % 4 == 0, "16-byte aligned tiles");
 };
 
-// grid (ceil(T / 64), nh, B): one block per (64 query rows, head,
-// article); Dq<HD>::kSmem bytes of dynamic shared memory
+// grid (ceil(T / 64), nh * kSplit, B): one block per (64 query rows, head
+// and column half, article); Dq<HD>::kSmem bytes of dynamic shared memory
 template <int HD>
 __global__ void __launch_bounds__(kThreads, Dq<HD>::kMinBlocks)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -364,7 +394,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int g = lane >> 2, t = lane & 3;
   // causal: the last query blocks have the most key tiles; start them first
   const int qb = causal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z;
+  const int h = blockIdx.y / S::kSplit, b = blockIdx.z;
+  const int col0 = (blockIdx.y % S::kSplit) * S::kOD;  // dQ's first column
   const size_t pos_stride = (size_t)nh * HD;  // floats between positions
   const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
   const size_t row_base = (size_t)b * T * nh + h;  // lse/dsum of (b, 0, h)
@@ -387,7 +418,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (rows[r] >= T) continue;
-      float* dq_row = dq + base + (size_t)rows[r] * pos_stride;
+      float* dq_row = dq + base + (size_t)rows[r] * pos_stride + col0;
 #pragma unroll
       for (int n = 0; n < S::kDT; ++n)
         *reinterpret_cast<float2*>(dq_row + 8 * n + 2 * t) =
@@ -521,9 +552,11 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
           for (int e = 0; e < 4; ++e)
             ds[j][e] = p[j][e] * (ds[j][e] - dd[e >> 1]);
         }
-        // dQ += dS K (the chunk's keys in a_from_acc's order)
-        tf32x3::tile_product<S::kNT, S::kDT, S::kGroup>(dqa, ds, kt, kStride,
-                                                        g, t);
+        // dQ += dS K (the chunk's keys in a_from_acc's order; K's columns
+        // of this block's part of dQ)
+        const tf32x3::SplitTile kt_out{kt.hi + col0, kt.lo + col0};
+        tf32x3::tile_product<S::kNT, S::kDT, S::kGroup>(dqa, ds, kt_out,
+                                                        kStride, g, t);
       }
     }
     __syncthreads();  // every warp is done with buffer it & 1 and the lo
@@ -532,7 +565,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (rows[r] >= T) continue;
-    float* dq_row = dq + base + (size_t)rows[r] * pos_stride;
+    float* dq_row = dq + base + (size_t)rows[r] * pos_stride + col0;
 #pragma unroll
     for (int n = 0; n < S::kDT; ++n)
       *reinterpret_cast<float2*>(dq_row + 8 * n + 2 * t) = make_float2(
@@ -550,21 +583,23 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
   const cudaError_t err =
       tf32x3::allow_smem(flash_bwd_dq_kernel<HD>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + Dq<HD>::kRows - 1) / Dq<HD>::kRows, nh, B);
+  const dim3 grid((T + Dq<HD>::kRows - 1) / Dq<HD>::kRows,
+                  nh * Dq<HD>::kSplit, B);
   flash_bwd_dq_kernel<HD><<<grid, kThreads, smem, stream>>>(
       q, k, v, dout, lse, dsum, key_mask, dq, T, nh, causal, sm_scale);
   return cudaGetLastError();
 }
 
 bool bad_shape(int B, int T, int nh) {
-  return B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 65535;
+  return B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 32767;
 }
 
 }  // namespace
 
 // q, k, v, dout [B, T, nh, hd], lse and dsum [B, T, nh], dk and dv
 // [B, T, nh, hd]: float32, contiguous, on one device; key_mask [B, T]
-// float32 (1 = real token) or null (every key real).  hd is 32 or 128.
+// float32 (1 = real token) or null (every key real).  hd is 32, 128 or
+// 256.
 // Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int ts_flash_bwd_dkv(const float* q, const float* k,
                                 const float* v, const float* dout,
@@ -580,6 +615,9 @@ extern "C" int ts_flash_bwd_dkv(const float* q, const float* k,
                                  B, T, nh, causal, sm_scale, st);
     case 128:
       return (int)launch_dkv<128>(q, k, v, dout, lse, dsum, key_mask, dk,
+                                  dv, B, T, nh, causal, sm_scale, st);
+    case 256:
+      return (int)launch_dkv<256>(q, k, v, dout, lse, dsum, key_mask, dk,
                                   dv, B, T, nh, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -601,6 +639,9 @@ extern "C" int ts_flash_bwd_dq(const float* q, const float* k,
                                 nh, causal, sm_scale, st);
     case 128:
       return (int)launch_dq<128>(q, k, v, dout, lse, dsum, key_mask, dq, B,
+                                 T, nh, causal, sm_scale, st);
+    case 256:
+      return (int)launch_dq<256>(q, k, v, dout, lse, dsum, key_mask, dq, B,
                                  T, nh, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;

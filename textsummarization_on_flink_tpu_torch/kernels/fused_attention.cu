@@ -25,7 +25,9 @@
 //     132 SMs;
 //   * a block streams its ef rows, then its es rows, through a ring of
 //     chunks of 8 rows in shared memory (4 chunks, so two blocks fit on
-//     an SM; 8 with the wide clusters): a chunk's rows are contiguous in
+//     an SM; 8 with the wide clusters; fewer, down to 2, where a wide D
+//     leaves no room for them, so the launch takes every width whose
+//     queries and partial context fit): a chunk's rows are contiguous in
 //     memory, so one TMA bulk copy (cp.async.bulk) moves it, issued by one
 //     thread and completed on the stage's mbarrier; the first es chunks
 //     land during the last ef chunks;
@@ -79,6 +81,9 @@ constexpr int kChunk = kWarps;  // positions per staged chunk: one per warp
 // all at D 512, f32, so two blocks fit on an SM and every cluster of the
 // beam-decode shape is resident at once), 8 for the wide clusters
 constexpr int kRing = 4, kWideRing = 8;
+// the fewest chunks a ring steps down to when D leaves no room for more:
+// one chunk lands while the other is read
+constexpr int kMinRing = 2;
 constexpr int kQ = 4;           // queries held in registers per pass
 constexpr int kCluster = 8;     // blocks per article (portable cluster)
 constexpr int kWideCluster = 16;  // for few articles (non-portable size)
@@ -486,11 +491,15 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
   // take at most half the SMs, so the long form still spreads over the card
   const bool wide = B * kWideCluster * 2 <= sms;
   const Geometry geo(T, wide ? kWideCluster : kCluster);
-  const int stages = wide ? kWideRing : kRing;
-  const size_t with_state =
-      smem_floats(geo, D, K, sizeof(TIn), stages, true) * sizeof(float);
-  const size_t without =
-      smem_floats(geo, D, K, sizeof(TIn), stages, false) * sizeof(float);
+  // the form's ring, halved while the block's constants do not fit
+  // beside it (a wide D); refused when even kMinRing chunks do not
+  int stages = wide ? kWideRing : kRing;
+  auto bytes_at = [&](int n, bool state) {
+    return smem_floats(geo, D, K, sizeof(TIn), n, state) * sizeof(float);
+  };
+  while (stages > kMinRing && bytes_at(stages, false) > kSmemMax) stages /= 2;
+  const size_t with_state = bytes_at(stages, true);
+  const size_t without = bytes_at(stages, false);
   if (without > kSmemMax) return cudaErrorInvalidValue;
   const bool in_smem = with_state <= kSmemMax;
   const size_t bytes = in_smem ? with_state : without;
@@ -498,9 +507,16 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
   launch_one<TIn, kCov, STAGES, STATE>(es, ef, mask, df, cov, v, wc, ctx,   \
                                        attn, B, T, D, K, geo, wide, bytes,  \
                                        dev, stream)
-  if (wide) return in_smem ? TS_LAUNCH(kWideRing, true)
-                           : TS_LAUNCH(kWideRing, false);
-  return in_smem ? TS_LAUNCH(kRing, true) : TS_LAUNCH(kRing, false);
+  static_assert(kWideRing == 8 && kRing == 4 && kMinRing == 2,
+                "the instantiations below");
+  switch (stages) {
+    case 8:
+      return in_smem ? TS_LAUNCH(8, true) : TS_LAUNCH(8, false);
+    case 4:
+      return in_smem ? TS_LAUNCH(4, true) : TS_LAUNCH(4, false);
+    default:
+      return in_smem ? TS_LAUNCH(2, true) : TS_LAUNCH(2, false);
+  }
 #undef TS_LAUNCH
 }
 
@@ -513,7 +529,8 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
 // Launches on `stream`; returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for a shape the kernel does not take: more
 // articles than the grid's y extent, or K and D whose per-block
-// constants do not fit in shared memory at the widest cluster and ring).
+// constants do not fit in shared memory beside a ring of kMinRing chunks
+// in the form launch() takes for B on this card).
 extern "C" int ts_fused_attention_shared(const void* es, const void* ef,
                                          const float* mask, const float* df,
                                          const float* cov, const float* v,
@@ -524,10 +541,7 @@ extern "C" int ts_fused_attention_shared(const void* es, const void* ef,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int elt = is_bf16 ? 2 : 4;
   if (B <= 0 || T <= 0 || D <= 0 || K <= 0 || B > 65535 ||
-      D % (16 / elt) != 0 ||
-      smem_floats(Geometry(T, kWideCluster), D, K, elt, kWideRing, false) *
-              sizeof(float) >
-          kSmemMax)
+      D % (16 / elt) != 0)
     return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)(use_cov ? launch<__nv_bfloat16, true>(es, ef, mask, df, cov,

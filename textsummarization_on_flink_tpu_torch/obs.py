@@ -13,8 +13,13 @@ gauges (``resilience/train/lr_scale``, ``train/prefetch_queue_depth``)
 and spans that record how long a stage took (``pipeline/fit``,
 ``pipeline/transform``, ``pipeline/train_job``,
 ``pipeline/inference_job``, ``train/metrics_flush``,
-``train/profiler_capture``).  The full registry (histograms, labels,
-exporters) and the flight recorder are ROADMAP.md queue 1, item 2d.
+``train/profiler_capture``), and the threaded batcher's
+(data/batcher.py) ``resilience/etl_worker_restarts_total``,
+``data/examples_total``, ``data/empty_articles_total``,
+``data/batches_total``, ``data/oov_words_total``,
+``data/enc_tokens_total`` and gauge ``data/batch_queue_depth``.  The
+full registry (histograms, labels, exporters) and the flight recorder
+are ROADMAP.md queue 1, item 2d.
 
 ``registry()`` is the process default; ``use_registry(reg)`` routes the
 module functions through another one for a block (tests).

@@ -32,14 +32,15 @@ installed jax), then launches the dK/dV kernel and the dQ kernel
 ``_flash_bwd_plain`` is the explicit backward formula in plain PyTorch,
 the plain version of both backward kernels.
 
-Head dims: the kernels are built for 32 and 128.  On the card any other
-head dim up to 128 is zero-padded to the next of them on the way in
-(q, k, v, and for the backward out and dO) and the outputs and gradients
-are sliced back: zero columns add nothing to q . k, give zero output
-columns and zero gradient columns, and ``sm_scale`` is passed by the
-caller from the true head dim (the JAX package pads the same way for
-the library kernel, models/transformer.py:262-272).  Head dims above 128
-are refused (config.ROADMAP_HEAD_DIM).
+Head dims: the kernels are built for 32, 128 and 256 (at 256 each kernel
+splits its output's columns over two blocks; see the sources).  On the
+card any other head dim up to 256 is zero-padded to the next of them on
+the way in (q, k, v, and for the backward out and dO) and the outputs
+and gradients are sliced back: zero columns add nothing to q . k, give
+zero output columns and zero gradient columns, and ``sm_scale`` is
+passed by the caller from the true head dim (the JAX package pads the
+same way for the library kernel, models/transformer.py:262-272).  Head
+dims above 256 are refused (config.ROADMAP_HEAD_DIM).
 
 Dispatch: a CPU tensor goes to the plain versions; a CUDA tensor goes to
 the kernels (kernels/flash_attention.cu, kernels/flash_attention_bwd.cu),
@@ -65,7 +66,7 @@ NEG = -1e30  # masked-logit floor (transformer._mha), never -inf
 
 #: head dims the kernel is built for (the switch in ts_flash_attention);
 #: the others up to the largest are zero-padded to the next one
-HEAD_DIMS = (32, 128)
+HEAD_DIMS = (32, 128, 256)
 
 #: kernel launches so far (one per forward on CUDA tensors, one per
 #: backward for each backward kernel); set them to 0 before a run whose

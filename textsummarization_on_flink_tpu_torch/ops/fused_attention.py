@@ -17,6 +17,17 @@ cluster per article; see the source's header for the numbers and the
 design).  The wrapper refuses, before it looks at the device, the shapes
 the kernel does not take (``_shape_refusal``).
 
+Widths: the kernels stage 16-byte pieces of each encoder row, so D must
+be a multiple of 4 in f32 and of 8 in bf16.  On the card the entry
+points (``fused_attention_shared`` and ``FusedAttention``'s backward)
+zero-pad any other D up to that multiple on the way in (es, ef, df, v,
+w_c and, for the backward, g_ctx) and slice ctx and the D-wide gradients
+back (``_padded_forward``, ``_padded_backward``): a zero column adds
+v . tanh(0) = 0 to every energy and gives zero context and gradient
+columns, so the result is exact.  What still does not fit one block's
+shared memory is refused by ``width_refusal``, which ``HParams.validate``
+asks before a model is built (config.ROADMAP_PG_WIDTH).
+
 Dispatch: a CPU tensor goes to ``_attention_plain`` (the formula of
 ``_attention_xla_shared`` / ``_attention_xla``, pallas_attention.py:96-132);
 a CUDA tensor goes to the kernel, or the wrapper raises.  There is no
@@ -41,6 +52,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG = -1e30  # masked-energy floor (pallas_attention.NEG), never -inf
 
@@ -180,30 +192,50 @@ def _check(name: str, x: torch.Tensor, shape, dtypes, device) -> None:
 
 # The kernel's geometry (kernels/fused_attention.cu): chunks of 8 staged
 # positions; clusters of 8 blocks per article with a ring of 4 chunks, or
-# of 16 with a ring of 8 (the wide form, for few articles)
+# of 16 with a ring of 8 (the wide form, for few articles); a ring halves,
+# down to 2 chunks, while a wide D leaves no room for it
 _CHUNK = 8
 _CLUSTER, _RING, _WIDE_CLUSTER, _WIDE_RING = 8, 4, 16, 8
+_MIN_RING = 2
 _BAR_FLOATS = 16  # the ring's mbarriers, ahead of it
 _SMEM_MAX = 232_448  # bytes of shared memory a block may use on Hopper
 _MAX_ARTICLES = 65_535  # the grid's y extent
+_H100_SMS = 132  # the SM count a refusal assumes for a tensor off the card
 
 
 def _smem_bytes(T: int, D: int, K: int, elt: int, wide: bool = True,
-                state: bool = False) -> int:
+                state: bool = False, stages: Optional[int] = None) -> int:
     """Dynamic shared memory of one block (smem_floats in the source), in
-    the wide or the narrow form, with or without the per-position state
-    (mask, coverage, energies).  The defaults give the most a block ever
-    needs for its constants: past that the state moves to device memory,
-    so T is not bounded."""
+    the wide or the narrow form, with a ring of ``stages`` chunks (None:
+    the form's full ring), with or without the per-position state (mask,
+    coverage, energies).  Past the state's room it moves to device
+    memory, so T is not bounded."""
     def ceil_div(a, b):
         return -(-a // b)
 
     C = min(ceil_div(T, _CHUNK), _WIDE_CLUSTER if wide else _CLUSTER)
     P = ceil_div(ceil_div(T, C), _CHUNK) * _CHUNK  # positions per block
-    stages = _WIDE_RING if wide else _RING
+    if stages is None:
+        stages = _WIDE_RING if wide else _RING
     floats = (_BAR_FLOATS + stages * _CHUNK * D * elt // 4 + 2 * K * D
               + 2 * D + (P * (2 * K + 1) if state else 0) + (3 + 2 * C) * K)
     return 4 * floats
+
+
+def _launch_form(B: int, T: int, D: int, K: int, elt: int,
+                 sms: int) -> Optional[Tuple[bool, int, bool]]:
+    """The form launch() in the source takes on a card with ``sms`` SMs:
+    (wide clusters, ring chunks, state in shared memory), or None when
+    even the smallest ring does not fit beside the block's constants."""
+    wide = B * _WIDE_CLUSTER * 2 <= sms
+    stages = _WIDE_RING if wide else _RING
+    while (stages > _MIN_RING
+           and _smem_bytes(T, D, K, elt, wide, stages=stages) > _SMEM_MAX):
+        stages //= 2
+    if _smem_bytes(T, D, K, elt, wide, stages=stages) > _SMEM_MAX:
+        return None
+    return wide, stages, _smem_bytes(T, D, K, elt, wide, True,
+                                     stages) <= _SMEM_MAX
 
 
 def _state_in_smem(B: int, T: int, D: int, K: int, elt: int,
@@ -211,13 +243,22 @@ def _state_in_smem(B: int, T: int, D: int, K: int, elt: int,
     """Whether the kernel keeps the per-position state in shared memory
     (else in device memory) on a card with ``sms`` SMs: the choice of
     launch() in the source."""
-    wide = B * _WIDE_CLUSTER * 2 <= sms
-    return _smem_bytes(T, D, K, elt, wide, state=True) <= _SMEM_MAX
+    form = _launch_form(B, T, D, K, elt, sms)
+    return form is not None and form[2]
 
 
-def _shape_refusal(es: torch.Tensor, df: torch.Tensor) -> Optional[str]:
-    """Why the kernel does not take these shapes (None when it does).
-    Checked before the device, so it holds for tensors anywhere."""
+def _sm_count(dev: torch.device) -> int:
+    """SMs of the card a tensor lies on (the H100's for other devices)."""
+    if dev.type != "cuda":
+        return _H100_SMS
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _shape_refusal(es: torch.Tensor, df: torch.Tensor,
+                   sms: int = _H100_SMS) -> Optional[str]:
+    """Why the kernel does not take these shapes on a card with ``sms``
+    SMs (None when it does).  Checked before the device, so it holds for
+    tensors anywhere."""
     if es.dim() != 3 or df.dim() != 3:
         return (f"es must be [B, T, D] and df [B, K, D], got "
                 f"{tuple(es.shape)} and {tuple(df.shape)}")
@@ -231,17 +272,20 @@ def _shape_refusal(es: torch.Tensor, df: torch.Tensor) -> Optional[str]:
                 f"16-byte pieces of each {es.dtype} encoder row")
     if B > _MAX_ARTICLES:
         return f"B={B} articles exceed the grid's {_MAX_ARTICLES}"
-    need = _smem_bytes(T, D, K, elt)
-    if need > _SMEM_MAX:
+    if _launch_form(B, T, D, K, elt, sms) is None:
+        wide = B * _WIDE_CLUSTER * 2 <= sms
+        need = _smem_bytes(T, D, K, elt, wide, stages=_MIN_RING)
         return (f"K={K}, D={D} exceed one block's shared memory "
-                f"({need} > {_SMEM_MAX} bytes)")
+                f"({need} > {_SMEM_MAX} bytes with a ring of {_MIN_RING} "
+                f"chunks)")
     return None
 
 
 def _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage):
-    """Launch the kernel; same contract as _attention_plain."""
+    """Launch the kernel; same contract as _attention_plain, for a D the
+    kernel takes (``_padded_forward`` pads the others)."""
     global launches, launches_bf16
-    refusal = _shape_refusal(es, df)
+    refusal = _shape_refusal(es, df, _sm_count(es.device))
     if refusal is not None:
         raise ValueError(refusal)
     dev = es.device
@@ -359,7 +403,8 @@ def _bwd_scratch(dev: torch.device, stream: int, floats: int) -> torch.Tensor:
 
 def _attention_bwd_cuda(es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn,
                         use_coverage):
-    """Launch the backward kernel; same contract as _attention_bwd_plain."""
+    """Launch the backward kernel; same contract as _attention_bwd_plain,
+    for a D the kernel takes (``_padded_backward`` pads the others)."""
     global launches_bwd, launches_bwd_bf16
     refusal = _bwd_shape_refusal(es)
     if refusal is not None:
@@ -408,6 +453,71 @@ def _attention_bwd_cuda(es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn,
     return d_es, d_ef, d_df, d_cov, d_v, d_w_c
 
 
+def _padded_width(D: int, dtype: torch.dtype) -> int:
+    """D rounded up to the kernels' 16-byte multiple for encoder rows of
+    ``dtype`` (4 columns in f32, 8 in bf16)."""
+    step = 8 if dtype == torch.bfloat16 else 4
+    return -(-D // step) * step
+
+
+def _pad_columns(width: int, *xs: torch.Tensor):
+    """Each [..., D] tensor with zero columns up to ``width``."""
+    return tuple(F.pad(x, (0, width - x.shape[-1])) for x in xs)
+
+
+def _padded_forward(kernel, es, ef, mask, df, cov, v, w_c, use_coverage):
+    """``kernel`` (the CUDA launch, or the plain version in a test) at D
+    padded to the 16-byte multiple, ctx sliced back to D: exact, since a
+    zero column adds v . tanh(0) = 0 to every energy and gives a zero
+    context column.  No copy when D is a multiple already."""
+    D = es.shape[-1]
+    width = _padded_width(D, es.dtype)
+    if width == D:
+        return kernel(es, ef, mask, df, cov, v, w_c, use_coverage)
+    es, ef, df, v, w_c = _pad_columns(width, es, ef, df, v, w_c)
+    ctx, attn = kernel(es, ef, mask, df, cov, v, w_c, use_coverage)
+    return ctx[..., :D].contiguous(), attn
+
+
+def _padded_backward(kernel, es, ef, mask, df, cov, v, w_c, attn, g_ctx,
+                     g_attn, use_coverage):
+    """``kernel`` (the backward launch, or the plain version in a test) at
+    D padded as in _padded_forward, the D-wide gradients (d_es, d_ef,
+    d_df, d_v, d_w_c) sliced back: the zero columns' energies terms are
+    0 and their gradient columns are dropped, so the rest is exact."""
+    D = es.shape[-1]
+    width = _padded_width(D, es.dtype)
+    if width == D:
+        return kernel(es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn,
+                      use_coverage)
+    es, ef, df, v, w_c, g_ctx = _pad_columns(width, es, ef, df, v, w_c,
+                                             g_ctx)
+    d_es, d_ef, d_df, d_cov, d_v, d_w_c = kernel(
+        es, ef, mask, df, cov, v, w_c, attn, g_ctx, g_attn, use_coverage)
+    d_es, d_ef, d_df, d_v, d_w_c = (x[..., :D].contiguous() for x in
+                                    (d_es, d_ef, d_df, d_v, d_w_c))
+    return d_es, d_ef, d_df, d_cov, d_v, d_w_c
+
+
+def width_refusal(batch: int, T: int, D: int, K: int, dtype: torch.dtype,
+                  backward: bool) -> Optional[str]:
+    """Why the card's kernels do not take the pointer-generator's
+    attention at encoder width D (2 * hidden_dim) once it is padded, with
+    ``K`` queries per article (the beam, or 1 in training and eval) and,
+    when ``backward`` (training), the backward kernel too (None when they
+    do).  Sized for the card present, else for an H100.
+    ``HParams.validate`` asks it before a model is built."""
+    sms = (_sm_count(torch.device("cuda")) if torch.cuda.is_available()
+           else _H100_SMS)
+    width = _padded_width(D, dtype)
+    es = torch.empty((batch, T, width), dtype=dtype, device="meta")
+    refusal = _shape_refusal(es, torch.empty((batch, K, width),
+                                             device="meta"), sms)
+    if refusal is None and backward:
+        refusal = _bwd_shape_refusal(es)
+    return refusal
+
+
 def fused_attention_shared(es: torch.Tensor, ef: torch.Tensor,
                            mask: torch.Tensor, df: torch.Tensor,
                            cov: torch.Tensor, v: torch.Tensor,
@@ -420,7 +530,8 @@ def fused_attention_shared(es: torch.Tensor, ef: torch.Tensor,
     tensors the kernel."""
     if es.device.type == "cpu":
         return _attention_plain(es, ef, mask, df, cov, v, w_c, use_coverage)
-    return _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage)
+    return _padded_forward(_attention_cuda, es, ef, mask, df, cov, v, w_c,
+                           use_coverage)
 
 
 def _attention_rows(es, ef, mask, df, cov, v, w_c, use_coverage):
@@ -449,11 +560,13 @@ class FusedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_ctx, g_attn):
         es, ef, mask, df, cov, v, w_c, attn = ctx.saved_tensors
-        bwd = (_attention_bwd_plain if es.device.type == "cpu"
-               else _attention_bwd_cuda)
-        d_es, d_ef, d_df, d_cov, d_v, d_w_c = bwd(
-            es, ef, mask, df, cov, v, w_c, attn, g_ctx.contiguous(),
-            g_attn.contiguous(), ctx.use_coverage)
+        args = (es, ef, mask, df, cov, v, w_c, attn, g_ctx.contiguous(),
+                g_attn.contiguous(), ctx.use_coverage)
+        if es.device.type == "cpu":
+            grads = _attention_bwd_plain(*args)
+        else:
+            grads = _padded_backward(_attention_bwd_cuda, *args)
+        d_es, d_ef, d_df, d_cov, d_v, d_w_c = grads
         return d_es, d_ef, None, d_df, d_cov, d_v, d_w_c, None
 
 

@@ -20,7 +20,7 @@ streaming I/O surface without the Flink runtime:
 
 The reconnecting ``ResilientSource``, the circuit-breaking
 ``BreakerSink`` and the fault-injection points are ROADMAP.md queue 1,
-items 2d and 3.
+items 2d and 3b.
 """
 
 from __future__ import annotations

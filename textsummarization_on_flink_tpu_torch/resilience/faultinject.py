@@ -4,9 +4,9 @@ A copy of the JAX package's resilience/faultinject.py (the port imports
 nothing of that package): the same spec syntax, the same known points
 and a seeded ``random.Random`` per point, so one spec fires on the same
 call indices in both packages.  The port wires ``train.step_nan``
-(train/trainer.py) and ``ckpt.load`` (checkpoint/checkpointer.py); the
-other points get their call sites with the modules that hold them
-(ROADMAP.md queue 1, items 2d and 3).
+(train/trainer.py), ``ckpt.load`` (checkpoint/checkpointer.py) and
+``etl.worker`` (data/batcher.py); the other points get their call sites
+with the modules that hold them (ROADMAP.md queue 1, items 2d and 3b).
 
 Chaos tests (and staging soaks) drive the recovery paths through *named
 injection points* compiled into the production code:

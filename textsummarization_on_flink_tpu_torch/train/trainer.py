@@ -500,6 +500,10 @@ class Trainer:
         self.writer: Optional[SummaryWriter] = None
         self._obs = obs.registry_for(hps)
         self._c_nan = self._obs.counter("train/nan_watchdog_total")
+        # the batches the loop takes (skipped ones too) and their target
+        # tokens: a run's tokens per second divides them by its time
+        self._c_batches = self._obs.counter("train/batches_total")
+        self._c_tokens = self._obs.counter("train/target_tokens_total")
         # the fault plan is resolved once, so each point's RNG stream runs
         # on across the whole run
         self._faults = faultinject.plan_for(hps)
@@ -673,6 +677,10 @@ class Trainer:
                 window_t0 = time.monotonic()
                 log.info("profiler trace started -> %s", profile_dir)
             n = len(items)
+            self._c_batches.inc(n)
+            self._c_tokens.inc(sum(
+                float(b.as_arrays()["dec_padding_mask"].sum())
+                for b, _ in items))
             arrays = items[0][0].as_arrays() if self.hps.debug else None
             new_state, metrics = self._dispatch(items)
             injected = self._faults.fire("train.step_nan")
