@@ -94,7 +94,17 @@ device or without the port's sources beside it.  Phases, each fatal:
      pointer-generator at hidden_dim 400 (decode) and 430 (a train
      step), the transformer at head dim 256 (a small beam search and a
      train step against the CPU, a decode through cli.main);
- 10. print the kernels' JSON line, then, last, the device JSON line.
+ 10. online serving (phase_serve): the micro-batch ServingServer at the
+     reference width over the ROUGE phase's trained checkpoint: a pinned
+     group of 16 equal to a CPU ServingServer's summaries token for
+     token, 32 concurrent requests from 8 threads (each resolved once,
+     mean fill above 1), a request whose deadline is below the warm
+     full-beam estimate re-tiered to greedy (equal to
+     decode_batch(tier="greedy")), and App.start_inference(serving=True)
+     over 16 rows; 2 fused launches per beam step throughout; prints
+     e2e latency p50/p99, time in queue p50, the mean fill and
+     requests/s;
+ 11. print the kernels' JSON line, then, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -1198,13 +1208,12 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
     check(restored.step == steps, f"restored step {restored.step}")
     check(os.path.exists(os.path.join(train_dir, "vocab_metadata.tsv")),
           "no vocab_metadata.tsv beside the checkpoints")
-    counters = reg.snapshot()
-    n_batches = counters["counters"].get("train/batches_total", 0.0)
+    n_batches = reg.counter("train/batches_total").value
     check(n_batches == steps + fires, f"the trainer took {n_batches} "
                                       f"batches in {steps} steps")
     # the target tokens of the batches the trainer took, per batch
-    tokens_per_step = counters["counters"].get(
-        "train/target_tokens_total", 0.0) / n_batches
+    tokens_per_step = reg.counter(
+        "train/target_tokens_total").value / n_batches
     warm = seconds[2:] or seconds  # steps 3 .. 10
     warm_s = statistics.median(warm)
     summary = dict(family=family, lr=hps.lr, steps=steps,
@@ -1219,14 +1228,15 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
                    max_memory_allocated_bytes=peak, cli_wall_s=wall,
                    setup_s=setup_s,
                    recovery=dict(
-                       nan_skips=counters["counters"].get(
-                           "resilience/train/nan_skips_total", 0.0),
-                       rollbacks=counters["counters"].get(
-                           "resilience/train/rollbacks_total", 0.0),
-                       watchdog=counters["counters"].get(
-                           "train/nan_watchdog_total", 0.0),
-                       lr_scale=counters["gauges"].get(
-                           "resilience/train/lr_scale")),
+                       nan_skips=reg.counter(
+                           "resilience/train/nan_skips_total").value,
+                       rollbacks=reg.counter(
+                           "resilience/train/rollbacks_total").value,
+                       watchdog=reg.counter(
+                           "train/nan_watchdog_total").value,
+                       # None when the run never set it
+                       lr_scale=getattr(reg.get(
+                           "resilience/train/lr_scale"), "value", None)),
                    card=card_line() if device == "cuda" else None)
     print("train_main_path " + json.dumps(summary))
     return summary
@@ -1569,7 +1579,8 @@ def phase_rouge_decode(seed, work, device="cuda"):
                       f"CPU's")
     check(scores == cpu_scores, "the card's ROUGE differs from rouge_eval "
                                 "over the CPU decode")
-    return summary
+    # the trained params, for the serve phase's card-vs-CPU check
+    return dict(summary, trained_params=params)
 
 
 class _SaveOnFirstBatch(logging.Handler):
@@ -1717,6 +1728,235 @@ def phase_wide_widths(seed, device="cuda"):
     return out
 
 
+def _serve_latencies(reg):
+    """The serve layer's end-to-end metrics of one run, from its
+    registry: e2e latency p50/p99, time in queue p50 (estimates within
+    the histograms' factor-2 buckets), the mean fill."""
+    e2e = reg.histogram("serve/e2e_latency_seconds")
+    fill = reg.histogram("serve/batch_fill")
+    # percentile() takes q in [0, 100] and interpolates in the bucket
+    return dict(
+        e2e_p50_s=e2e.percentile(50), e2e_p99_s=e2e.percentile(99),
+        queue_p50_s=reg.histogram("serve/time_in_queue_seconds")
+        .percentile(50),
+        mean_fill=fill.mean, dispatches=fill.count)
+
+
+def phase_serve(seed, work, params, device="cuda"):
+    """The micro-batch ``ServingServer`` (serve/server.py) at the reference
+    width (main_path_hps: H 256, E 128, V 50,000, 400/100 steps, min 35,
+    beam 4, batch 16, coverage on, f32) over ``params`` (the ROUGE
+    phase's checkpoint, trained 4 steps from --seed: a random model's
+    near-uniform scores leave its beams to rounding) and the phase's
+    synthetic articles, each part with the launch counts set to 0 just
+    before and read just after:
+
+      a. one pinned group: 16 articles submitted before start(), one
+         serve bucket at max_enc_steps, so the first dispatch takes all
+         16; every summary equals a CPU ServingServer's (device="cpu"),
+         token for token;
+      b. 32 articles from 8 threads: each future resolves exactly once
+         with its own uuid, the mean of serve/batch_fill is above 1;
+      c. after those warm full-beam dispatches, a request whose budget
+         (decode_deadline_secs) is half the decoder's full-beam estimate
+         is re-tiered to greedy: serve/degraded_total rises and its
+         summary equals decode_batch(tier="greedy") of the same batch;
+      d. ``App.start_inference(serving=True)`` at the App's decode
+         defaults (batch 4) writes one row per input row for 16 rows.
+
+    Every part launches the fused attention exactly twice per beam step
+    (greedy: K = 1).  Prints e2e latency p50/p99 and time in queue p50
+    (the server's histograms), the callers' exact e2e p50/p99 in (b),
+    the mean fill and requests/s of (b).  (device="cpu" rehearses the control
+    flow without a card.)"""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from textsummarization_on_flink_tpu_torch import obs
+    from textsummarization_on_flink_tpu_torch.data.batching import (
+        SummaryExample,
+    )
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.decode.decoder import (
+        BeamSearchDecoder,
+    )
+    from textsummarization_on_flink_tpu_torch.pipeline import app as app_lib
+    from textsummarization_on_flink_tpu_torch.pipeline import estimator
+    from textsummarization_on_flink_tpu_torch.pipeline import io
+    from textsummarization_on_flink_tpu_torch.serve import (
+        MicroBatcher,
+        RequestQueue,
+        ServeRequest,
+    )
+    from textsummarization_on_flink_tpu_torch.serve.server import (
+        ServingServer,
+    )
+
+    hps = main_path_hps("pointer_generator")
+    hps = hps.replace(mode="decode", device=device,
+                      serve_buckets=str(hps.max_enc_steps))
+    words = synthetic_words(hps.vocab_size)
+    vocab = Vocab(words=words)
+    summary = {}
+
+    def counted(fn):
+        """fn() with the launch counts set to 0 just before; returns
+        (result, fused launches, beam steps, other launches, seconds)."""
+        reset_launch_counts()
+        beam_search.steps_run = 0
+        t0 = time.perf_counter()
+        out = fn()
+        dt = time.perf_counter() - t0
+        launched = launch_counts()
+        fused = launched.pop("fused")
+        return out, fused, beam_search.steps_run, launched, dt
+
+    def check_launches(part, fused, steps, others, dev):
+        if dev != "cuda":
+            return
+        check(steps > 0 and fused == 2 * steps,
+              f"serve {part}: {fused} fused launches in {steps} beam steps "
+              f"(expected 2 per step)")
+        check(not any(others.values()),
+              f"serve {part}: other kernels launched: {others}")
+
+    # (a) one pinned group, on the card and on the CPU
+    rows = pipeline_rows(seed + 2, words, 16, start=200)
+
+    def pinned(dev):
+        reg = obs.Registry()
+        server = ServingServer(hps.replace(device=dev), vocab, params=params,
+                               decode_root=os.path.join(work, "a_" + dev),
+                               registry=reg)
+        futs = [server.submit(art, uuid=u, reference=ref)
+                for u, art, _, ref in rows]
+        with server:
+            return {f.uuid: f.result(timeout=900).decoded_words
+                    for f in futs}, reg
+
+    (card, reg_a), fused, steps, others, card_s = counted(
+        lambda: pinned(device))
+    check_launches("a", fused, steps, others, device)
+    (cpu, _), _, _, _, cpu_s = counted(lambda: pinned("cpu"))
+    fill = reg_a.histogram("serve/batch_fill")
+    check((fill.count, fill.sum) == (1, 16.0),
+          f"the pinned group took {fill.count} dispatches")
+    differ = sorted(u for u in card if card[u] != cpu[u])
+    check(len(card) == 16 and all(card.values()), "an empty summary")
+    check(not differ, f"card summaries differ from the CPU server's for "
+                      f"{differ}")
+    summary["pinned"] = dict(articles=16, seconds=card_s, cpu_seconds=cpu_s,
+                             launches=fused, beam_steps=steps,
+                             **_serve_latencies(reg_a))
+
+    # (b) 32 concurrent requests from 8 threads
+    rows_b = pipeline_rows(seed + 3, words, 32, start=300)
+    dec = BeamSearchDecoder(hps.replace(single_pass=False), vocab, None,
+                            params=params,
+                            decode_root=os.path.join(work, "b"))
+    reg_b = obs.Registry()
+    server = ServingServer(hps, vocab, decoder=dec, registry=reg_b)
+    resolutions, waits, lock = {}, [], threading.Lock()
+
+    def submit(row):
+        """One caller: submit, and note when its future resolves (the
+        exact e2e latency the caller sees; the server's histogram keeps
+        bucket counts only)."""
+        t0 = time.perf_counter()
+        fut = server.submit(row[1], uuid=row[0], reference=row[3])
+
+        def note(f):
+            with lock:
+                resolutions[f.uuid] = resolutions.get(f.uuid, 0) + 1
+                waits.append(time.perf_counter() - t0)
+
+        fut.add_done_callback(note)
+        return fut
+
+    def concurrent():
+        with server:
+            with ThreadPoolExecutor(max_workers=8) as ex:
+                futs = list(ex.map(submit, rows_b))
+            return [(f.uuid, f.result(timeout=900)) for f in futs]
+
+    results, fused, steps, others, conc_s = counted(concurrent)
+    check_launches("b", fused, steps, others, device)
+    check(all(u == r.uuid for u, r in results) and len(results) == 32,
+          "a future resolved with another request's result")
+    check(resolutions == {r[0]: 1 for r in rows_b},
+          "not every future resolved exactly once")
+    lat_b = _serve_latencies(reg_b)
+    check(lat_b["mean_fill"] > 1.0,
+          f"mean fill {lat_b['mean_fill']}: no request coalesced")
+    summary["concurrent"] = dict(
+        requests=32, threads=8, seconds=conc_s, requests_per_s=32 / conc_s,
+        launches=fused, beam_steps=steps,
+        caller_e2e_p50_s=float(np.percentile(waits, 50)),
+        caller_e2e_p99_s=float(np.percentile(waits, 99)), **lat_b)
+
+    # (c) a budget below the warm full-beam estimate degrades to greedy
+    check(dec._beam_secs is not None,
+          "no full-beam latency estimate after the warm dispatches")
+    budget = 0.5 * dec._beam_secs
+    reg_c = obs.Registry()
+    tight = ServingServer(
+        hps.replace(decode_deadline_secs=budget, serve_max_wait_ms=0.0),
+        vocab, decoder=dec, registry=reg_c)
+    u, art, _, ref = rows_b[0]
+
+    def degraded():
+        with tight:
+            return tight.submit(art, uuid="tight-" + u,
+                                reference=ref).result(timeout=900)
+
+    res, fused, steps, others, deg_s = counted(degraded)
+    check_launches("c", fused, steps, others, device)
+    check(res.degraded and res.tier == "greedy",
+          f"the tight request ran at {res.tier} (degraded={res.degraded})")
+    check(reg_c.counter("serve/degraded_total").value == 1,
+          "serve/degraded_total did not rise")
+    ex = SummaryExample.build(art, [], vocab, hps, uuid="tight-" + u,
+                              reference=ref)
+    batch = MicroBatcher(hps, vocab, RequestQueue(4),
+                         registry=obs.Registry()).build(
+        [ServeRequest("tight-" + u, art, ref, ex)])
+    want = dec.decode_batch(batch, tier="greedy")[0]
+    check(res.decoded_words == want.decoded_words,
+          "the degraded summary differs from decode_batch(tier=greedy)")
+    summary["deadline"] = dict(budget_s=budget, beam_estimate_s=dec._beam_secs,
+                               seconds=deg_s, launches=fused,
+                               beam_steps=steps, words=len(res.decoded_words))
+
+    # (d) the App's inference job through the serve layer
+    train_hps, infer_hps = pipeline_hps(work, seed, device)
+    _save_params(estimator.train_dir_for(infer_hps), params, 4)
+    rows_d = pipeline_rows(seed + 4, words, 16, start=400)
+    app = app_lib.App(train_hps, infer_hps, vocab=vocab)
+    reg_d = obs.Registry()
+
+    def app_serving():
+        with obs.use_registry(reg_d):
+            return app.start_inference(source=io.CollectionSource(rows_d),
+                                       sink=io.CollectionSink(),
+                                       serving=True)
+
+    sink, fused, steps, others, app_s = counted(app_serving)
+    check_launches("d", fused, steps, others, device)
+    check(len(sink.rows) == 16 and sorted(r[0] for r in sink.rows)
+          == sorted(r[0] for r in rows_d),
+          f"{len(sink.rows)} rows out for 16 in, or other uuids")
+    check(all(r[2] for r in sink.rows), "an empty summary")
+    summary["app"] = dict(rows=len(sink.rows), seconds=app_s,
+                          launches=fused, beam_steps=steps,
+                          **_serve_latencies(reg_d))
+    summary["launches"] = sum(summary[k]["launches"] for k in (
+        "pinned", "concurrent", "deadline", "app"))
+    summary["card"] = card_line() if device == "cuda" else None
+    print("serve " + json.dumps(summary))
+    return summary
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1782,6 +2022,8 @@ def main(argv=None) -> int:
     streamed = _in_work("continuous", lambda w: phase_continuous_decode(
         args.seed, w))
     wide = phase_wide_widths(args.seed)
+    served = _in_work("serve", lambda w: phase_serve(
+        args.seed, w, scored["trained_params"]))
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     bwd_main = bwd_rows[0]  # the training encoder's shape
@@ -1819,7 +2061,7 @@ def main(argv=None) -> int:
         + sum(r["fused"] for r in diet_runs)
         + diet["decode"]["kernel_launches"] + scored["launches"]["fused"]
         + scored["train_launches"]["fused"] + streamed["launches"]["fused"]
-        + wide_pg_decode + wide_pg_train["fused"],
+        + wide_pg_decode + wide_pg_train["fused"] + served["launches"],
         max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         # the bf16 stream at the decode shape and at the training shape
@@ -1857,6 +2099,18 @@ def main(argv=None) -> int:
             bound_by=wide_rows[860]["bound_by"],
             max_abs_err=wide_rows[860]["max_abs_err"],
             launches=wide_pg_train["fused"]),
+        # the serve phase's launches by shape, each pointing to the entry
+        # that times that shape: the beam dispatches of (a) and (b) at
+        # the decode shape (this entry's own ms), (c)'s greedy dispatch
+        # at K = 1, the App's (d) at 4 x 4
+        serve=dict(launches=served["launches"], by_shape=[
+            dict(shape=main_row["shape"], timed_in="ms",
+                 launches=served["pinned"]["launches"]
+                 + served["concurrent"]["launches"]),
+            dict(shape=k1_f32["shape"], timed_in="training_shape",
+                 launches=served["deadline"]["launches"]),
+            dict(shape=app_rows[True]["shape"], timed_in="app_decode_shape",
+                 launches=served["app"]["launches"])]),
         library_ms=None, redesigned="PR 5"), dict(
         name="fused_attention_bwd", route="cuda", source=fused_src + "_bwd.cu",
         # the custom_vjp's backward (jax.vjp of the XLA formula)

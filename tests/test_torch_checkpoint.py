@@ -19,6 +19,7 @@ from textsummarization_on_flink_tpu_torch.data import batching
 from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
 from textsummarization_on_flink_tpu_torch.decode import decoder as dec_lib
 from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
+from textsummarization_on_flink_tpu_torch.resilience import errors
 
 
 @pytest.fixture()
@@ -91,6 +92,25 @@ def test_corrupt_latest_falls_back_to_older(tmp_path):
     path, _ = ckpt_lib.load_ckpt(str(d), max_retries=0)
     assert path.endswith("model.ckpt-1.npz")
     assert ckpt_lib.latest_checkpoint(str(d)).endswith("model.ckpt-2.npz")
+
+
+def test_a_corrupt_checkpoint_is_a_resilience_error(tmp_path):
+    """The checkpointer raises the resilience package's one class, as the
+    JAX checkpointer does, so `except ResilienceError` catches it."""
+    _, thps = make_hps()
+    d = tmp_path / "train"
+    path = str(d / "model.ckpt-1.npz")
+    ckpt_lib.save_arrays(path, ckpt_lib._flatten(
+        {"params": decode_params(thps, 30)}, ""))
+    ckpt_lib.write_index(str(d), path)
+    with open(path, "r+b") as f:
+        f.seek(100)
+        f.write(b"\x00\xff\x00\xff")
+    assert ckpt_lib.CheckpointCorruptError is errors.CheckpointCorruptError
+    with pytest.raises(errors.ResilienceError):
+        ckpt_lib.verify_manifest(path)
+    with pytest.raises(errors.CheckpointCorruptError):
+        ckpt_lib.load_arrays_verified(path)
 
 
 def test_flatten_round_trip_keeps_key_scheme():

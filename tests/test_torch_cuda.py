@@ -917,3 +917,83 @@ def test_wide_pointer_generator_train_step_on_card_matches_the_cpu(hidden):
     assert loss == pytest.approx(c_loss, rel=1e-4)
     for g, c in zip(grads, c_grads):
         assert np.max(np.abs(g - c)) <= 1e-4 * max(1.0, np.max(np.abs(c)))
+
+
+def _serve_setup(**kw):
+    """A small pointer-generator with its params and 8 seeded articles,
+    for the serve layer on the card."""
+    from textsummarization_on_flink_tpu_torch.config import HParams
+    from textsummarization_on_flink_tpu_torch.params import init_numpy_params
+
+    words = [f"w{i}" for i in range(96)]
+    rng = np.random.RandomState(1)
+    articles = [" ".join(words[j] if rng.rand() < 0.8 else f"oov{j % 5}"
+                         for j in rng.randint(0, len(words),
+                                              rng.randint(12, 40))) + " ."
+                for _ in range(8)]
+    fields = dict(mode="decode", batch_size=8, hidden_dim=32, emb_dim=16,
+                  vocab_size=100, max_enc_steps=40, max_dec_steps=12,
+                  min_dec_steps=3, beam_size=4, max_oov_buckets=8,
+                  coverage=True, trunc_norm_init_std=0.5,
+                  rand_unif_init_mag=0.3, serve_buckets="40",
+                  serve_max_wait_ms=200.0, **kw)
+    params = init_numpy_params(HParams(**fields), 100, 0)
+    params["embedding"] *= 4.0
+    params["output_projection"]["w"] *= 4.0
+    return fields, params, words, articles
+
+
+def _serve_pinned(hps, params, words, articles, root):
+    """The articles submitted before start(): one dispatch."""
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.obs import Registry
+    from textsummarization_on_flink_tpu_torch.serve.server import (
+        ServingServer,
+    )
+
+    reg = Registry()
+    server = ServingServer(hps, Vocab(words=words), params=params,
+                           decode_root=root, registry=reg)
+    futs = [server.submit(a, uuid=f"u{i}") for i, a in enumerate(articles)]
+    with server:
+        res = [f.result(timeout=300) for f in futs]
+    return [r.decoded_words for r in res], reg
+
+
+@pytest.mark.cuda
+def test_serving_server_matches_the_cpu_on_card(tmp_path):
+    """A pinned group of 8 through the ServingServer on the card and on
+    the CPU (device="cpu"): the same summaries, token for token, in one
+    dispatch each."""
+    from textsummarization_on_flink_tpu_torch.config import HParams
+
+    _need_cuda()
+    fields, params, words, articles = _serve_setup()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = _serve_pinned(HParams(device=dev, **fields), params,
+                                 words, articles, str(tmp_path / dev))
+    assert out["cuda"][0] == out["cpu"][0]
+    assert any(out["cuda"][0])
+    for _, reg in out.values():
+        fill = reg.histogram("serve/batch_fill")
+        assert (fill.count, fill.sum) == (1, 8.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tier", ["beam", "greedy"])
+def test_serve_dispatch_runs_the_fused_kernel_on_card(tmp_path, tier):
+    """Every beam step of a serve dispatch launches the fused attention
+    kernel twice, at the beam tier and at the greedy tier (K = 1)."""
+    from textsummarization_on_flink_tpu_torch.config import HParams
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+
+    _need_cuda()
+    fields, params, words, articles = _serve_setup(serve_default_tier=tier)
+    counts, steps = fa.launches, beam_search.steps_run
+    got, reg = _serve_pinned(HParams(device="cuda", **fields), params, words,
+                             articles, str(tmp_path))
+    launched, beam_steps = fa.launches - counts, beam_search.steps_run - steps
+    assert beam_steps > 0 and launched == 2 * beam_steps
+    assert reg.counter(f"serve/tier_{tier}_total").value == 8
+    assert len(got) == 8

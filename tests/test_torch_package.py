@@ -43,9 +43,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         sorted((repo / "scripts").glob("torch_*.py"))
     assert len(files) > 10
     scanned = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
-    assert {"obs.py", "resilience/errors.py", "data/tfexample.py",
+    assert {"resilience/errors.py", "data/tfexample.py",
             "pipeline/estimator.py", "pipeline/io.py", "pipeline/app.py",
-            "pipeline/raw_driver.py"} <= scanned
+            "pipeline/raw_driver.py", "resilience/policy.py"} <= scanned
+    assert {f"obs/{m}.py" for m in (
+        "__init__", "registry", "spans", "export", "flightrec", "locksan",
+        "profile", "slo", "http")} <= scanned
+    assert {f"serve/{m}.py" for m in (
+        "__init__", "errors", "queue", "batcher", "frontdoor",
+        "server")} <= scanned
     bad = []
     for f in files:
         for mod in _imported_modules(f):

@@ -499,9 +499,11 @@ def test_obs_counts_and_spans():
             obs.counter("pipeline/rows_in_total").inc(-1)
     assert obs.registry() is not reg
     with pytest.raises(KeyError):
-        with obs.span(reg, "pipeline/fit"):
+        with obs.spans.span(reg, "pipeline/fit"):
             raise KeyError("recorded anyway")
-    snap = reg.snapshot()
-    assert snap["counters"] == {"pipeline/rows_in_total": 2.0}
-    assert len(snap["spans"]["pipeline/fit"]) == 1
+    snap = reg.snapshot(compact=True)
+    assert {k: v["value"] for k, v in snap.items()
+            if v["type"] == "counter"} == {"pipeline/rows_in_total": 2.0}
+    assert len([r for r in obs.tracer_for(reg).finished()
+                if r.name == "pipeline/fit"]) == 1
     assert json.dumps(snap)

@@ -215,10 +215,75 @@ def test_jax_flags_that_parsed_silently_now_raise():
             "--dp=2 --decode_deadline_secs=2 --spec_draft=map "
             "--serve_default_tier=greedy --grad_allreduce_dtype=bfloat16 "
             "--mode=decode --device=cpu".split())
-    for flags, item in (("--obs False", "2d"), ("--serve_slots 4", "item 4"),
+    for flags, item in (("--serve_slots 4", "item 4"),
                         ("--serve_replicas=2", "item 7"),
                         ("--spec_k_adaptive", "item 5")):
         with pytest.raises(NotImplementedError, match=item):
             HParams.from_argv(flags.split())
+    # the obs fields came with the obs package: taken as JAX takes them
+    assert HParams.from_argv("--obs False".split()).obs is False
     # a name neither package knows is ignored, as the reference does
     assert HParams.from_argv(["--no_such_flag=3"]) == HParams()
+
+
+#: the fields the obs package and the serve layer brought, each at a
+#: value other than its JAX default; None where the value still needs an
+#: unported item, else the item's label
+PORTED_FLAGS = [
+    ("obs", "False", None), ("obs_http_port", "9000", None),
+    ("flight_frames", "8", None), ("summary_flush_every", "4", None),
+    ("decode_deadline_secs", "2.5", None), ("serve_max_batch", "4", None),
+    ("serve_max_wait_ms", "5.0", None), ("serve_max_queue", "32", None),
+    ("serve_buckets", "100,200", None),
+    ("serve_mode", "continuous", "item 4"),
+    ("serve_cache_entries", "16", None), ("serve_cache_bytes", "4096", None),
+    ("serve_coalesce", "True", None), ("serve_tenant_rate", "2.5", None),
+    ("serve_tenant_burst", "3", None),
+    ("serve_fair_weights", "free:1,paid:4", None),
+    ("serve_default_tier", "greedy", None),
+    ("serve_degrade_tier", "spec", "item 5"),
+]
+
+
+@pytest.mark.parametrize("name,value,item", PORTED_FLAGS,
+                         ids=[n for n, _, _ in PORTED_FLAGS])
+def test_a_ported_flag_off_its_default_parses_as_jax_parses_it(name, value,
+                                                              item):
+    """The port's from_argv gives what the JAX HParams.from_argv gives;
+    a value that needs an unported item raises naming it."""
+    argv = [f"--{name}={value}", "--mode=decode", "--device=cpu"]
+    assert name not in config.JAX_ONLY_FIELDS
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1, " + item):
+            HParams.from_argv(argv)
+        return
+    got = HParams.from_argv(argv)
+    want = JaxHParams.from_argv(argv[:2])
+    assert getattr(got, name) == getattr(want, name) != getattr(
+        JaxHParams(), name)
+    assert type(getattr(got, name)) is type(getattr(want, name))
+    got.validate()
+
+
+def test_summary_flush_every_buffers_as_the_jax_writer_does(tmp_path):
+    """--summary_flush_every=k: both packages' writers hold k records
+    before a flush, and write the same bytes."""
+    from textsummarization_on_flink_tpu.train import trainer as jax_trainer
+    from textsummarization_on_flink_tpu_torch.train import trainer
+
+    mine = trainer.SummaryWriter(str(tmp_path / "port"), flush_every=3)
+    theirs = jax_trainer.SummaryWriter(str(tmp_path / "jax"), flush_every=3)
+
+    def on_disk(d):
+        with open(tmp_path / d / "events.jsonl", "rb") as f:
+            return f.read()
+
+    for step in (1, 2):
+        mine.scalars(step, loss=2.5 / step)
+        theirs.scalars(step, loss=2.5 / step)
+        assert on_disk("port") == on_disk("jax") == b""
+    mine.scalars(3, loss=0.75)
+    theirs.scalars(3, loss=0.75)
+    assert on_disk("port") == on_disk("jax")
+    assert on_disk("port").count(b"\n") == 3

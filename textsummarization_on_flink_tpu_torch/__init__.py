@@ -8,7 +8,10 @@ numpy, never jax and nothing of the JAX package.
 Ported so far: beam decode, training and eval of the pointer-generator
 and of the transformer family (``cli.py --mode=train|eval|decode``) with
 the trainer's byte-diet and long-run options, checkpoints both packages
-read, and the pipeline layer (``pipeline/``), over five hand-written
+read, the pipeline layer (``pipeline/``), the offline ETL
+(``data/etl.py``), the obs plane (``obs/``), the resilience policy
+(``resilience/``) and the micro-batch serve layer (``serve/``), over
+five hand-written
 CUDA kernels for Hopper (``kernels/``): the fused additive attention and
 its backward (``ops/fused_attention.py``), and the flash self-attention
 forward, dK/dV and dQ (``ops/flash_attention.py``).  ROADMAP.md lists

@@ -41,6 +41,9 @@ from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch import params as params_lib
 from textsummarization_on_flink_tpu_torch.config import HParams
 from textsummarization_on_flink_tpu_torch.resilience import faultinject
+from textsummarization_on_flink_tpu_torch.resilience.errors import (
+    CheckpointCorruptError,
+)
 from textsummarization_on_flink_tpu_torch.train import trainer as trainer_lib
 
 log = logging.getLogger(__name__)
@@ -49,10 +52,6 @@ CKPT_PREFIX = "model.ckpt"
 INDEX_FILE = "checkpoint"  # latest-pointer file, tf.train.Saver protocol
 BEST_INDEX_FILE = "checkpoint_best"
 MANIFEST_SUFFIX = ".sum"  # checksum manifest sidecar
-
-
-class CheckpointCorruptError(RuntimeError):
-    """A checkpoint failed its checksum or would not decode."""
 
 
 def _to_numpy(node: Any) -> np.ndarray:

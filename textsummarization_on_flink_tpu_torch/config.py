@@ -11,8 +11,21 @@ the divergence-recovery budgets and ``faults``), and the
 hyperparameter strings).  The port adds one field, ``device``: entry
 points run on ``cuda`` unless the caller asks for ``cpu``.
 
+From the serve layer on it also carries the JAX package's observability
+fields (``obs``, ``obs_http_port``, ``flight_frames``,
+``summary_flush_every``) and its micro-batch serving fields
+(``decode_deadline_secs`` and the ``serve_*`` queue, bucket, front-door
+and tier fields), with the JAX types, defaults and checks, and the
+serving helpers ``SERVE_TIERS``, ``parse_bucket_spec``,
+``parse_fair_weights``, ``resolve_tenant_burst`` and ``bucket_for``.
+A tier takes ``beam`` or ``greedy``: ``spec`` and ``draft`` raise
+naming ROADMAP.md queue 1, item 5, and ``serve_mode=continuous`` given
+as a flag raises naming item 4 (the slot engine; a ``ServingServer``
+takes a continuous engine only when one is injected).
+
 Fields of the JAX package that steer paths this package does not have
-yet (mesh axes, serving engines, speculative tiers) are not fields here:
+yet (mesh axes, slot engines, speculative tiers, the profiler's
+analytic pricing) are not fields here:
 ``JAX_ONLY_FIELDS`` lists them with their JAX types and defaults, and
 ``from_argv`` (so ``from_string`` and the pipeline's hyperparameter
 strings too) accepts one at its default and raises
@@ -43,16 +56,15 @@ ROADMAP_HEAD_DIM = ("ROADMAP.md queue 3, item 1 (transformer head dims above "
 ROADMAP_PG_WIDTH = ("ROADMAP.md queue 3, item 4 (pointer-generator widths "
                     "past the fused attention kernels' shared memory on the "
                     "card)")
-ROADMAP_SERVING = ("ROADMAP.md queue 1, item 3b (the serve layer behind "
-                   "transform(serving=True))")
 ROADMAP_MULTI_GPU = ("ROADMAP.md queue 1, item 6 (multi-GPU: data, tensor "
                      "and sequence parallelism)")
-ROADMAP_OBS = ("ROADMAP.md queue 1, item 2d (the obs registry, flight "
-               "recorder and resilience policy)")
 ROADMAP_FLEET = ("ROADMAP.md queue 1, item 7 (the fleet layer: replicas, "
                  "hedging, the process fleet, hierarchical summarization)")
 ROADMAP_SLOTS = ("ROADMAP.md queue 1, item 4 (the slot and paged decode "
                  "engine)")
+ROADMAP_PROFILE = ("ROADMAP.md queue 1, item 2h (the profiler's analytic "
+                   "pricing and divergence sentinel, the trainer's flight "
+                   "frames and profiler phases)")
 ROADMAP_HIERSUM = ("ROADMAP.md queue 1, item 7 (hierarchical summarization "
                    "and the document framing behind "
                    "transform(hierarchical=True))")
@@ -73,24 +85,6 @@ JAX_ONLY_FIELDS: Dict[str, Tuple[type, Any, Optional[str]]] = {
     "sp_attention": (str, "", ROADMAP_MULTI_GPU),
     "grad_allreduce_dtype": (str, "float32", ROADMAP_MULTI_GPU),
     "scan_unroll": (int, 8, None),
-    "obs": (bool, True, ROADMAP_OBS),
-    "obs_http_port": (int, 0, ROADMAP_OBS),
-    "flight_frames": (int, 64, ROADMAP_OBS),
-    "summary_flush_every": (int, 1, ROADMAP_OBS),
-    "profile_analytic": (bool, False, ROADMAP_OBS),
-    "profile_divergence_factor": (float, 5.0, ROADMAP_OBS),
-    "decode_deadline_secs": (float, 0.0, ROADMAP_SERVING),
-    "serve_max_batch": (int, 0, ROADMAP_SERVING),
-    "serve_max_wait_ms": (float, 20.0, ROADMAP_SERVING),
-    "serve_max_queue": (int, 256, ROADMAP_SERVING),
-    "serve_buckets": (str, "", ROADMAP_SERVING),
-    "serve_mode": (str, "microbatch", ROADMAP_SERVING),
-    "serve_cache_entries": (int, 0, ROADMAP_SERVING),
-    "serve_cache_bytes": (int, 0, ROADMAP_SERVING),
-    "serve_coalesce": (bool, False, ROADMAP_SERVING),
-    "serve_tenant_rate": (float, 0.0, ROADMAP_SERVING),
-    "serve_tenant_burst": (int, 0, ROADMAP_SERVING),
-    "serve_fair_weights": (str, "", ROADMAP_SERVING),
     "serve_slots": (int, 0, ROADMAP_SLOTS),
     "serve_refill_chunk": (int, 0, ROADMAP_SLOTS),
     "serve_prefill_depth": (int, 2, ROADMAP_SLOTS),
@@ -105,8 +99,6 @@ JAX_ONLY_FIELDS: Dict[str, Tuple[type, Any, Optional[str]]] = {
     "spec_k_adaptive": (bool, False, ROADMAP_AAN),
     "spec_k_min": (int, 1, ROADMAP_AAN),
     "spec_k_max": (int, 8, ROADMAP_AAN),
-    "serve_default_tier": (str, "beam", ROADMAP_AAN),
-    "serve_degrade_tier": (str, "greedy", ROADMAP_AAN),
     "serve_replicas": (int, 1, ROADMAP_FLEET),
     "serve_hedge_ms": (float, 0.0, ROADMAP_FLEET),
     "serve_hedge_max_ratio": (float, 0.1, ROADMAP_FLEET),
@@ -117,6 +109,8 @@ JAX_ONLY_FIELDS: Dict[str, Tuple[type, Any, Optional[str]]] = {
     "hier_overlap_words": (int, 0, ROADMAP_FLEET),
     "hier_chunk_tier": (str, "greedy", ROADMAP_FLEET),
     "hier_reduce_tier": (str, "beam", ROADMAP_FLEET),
+    "profile_analytic": (bool, False, ROADMAP_PROFILE),
+    "profile_divergence_factor": (float, 5.0, ROADMAP_PROFILE),
 }
 
 
@@ -141,6 +135,24 @@ def _refuse_jax_only(name: str, val: str) -> None:
         raise NotImplementedError(
             f"--{name}={val}: the PyTorch port has no {name!r} yet (only the "
             f"JAX default {default!r} is accepted); {item}")
+
+
+#: values of ported fields that still need an unported item: a serving
+#: tier below greedy needs the draft model, and the continuous engine
+#: the slot engine, which no flag can inject
+_UNPORTED_VALUES: Dict[str, Dict[str, str]] = {
+    "serve_default_tier": {"spec": ROADMAP_AAN, "draft": ROADMAP_AAN},
+    "serve_degrade_tier": {"spec": ROADMAP_AAN, "draft": ROADMAP_AAN},
+    "serve_mode": {"continuous": ROADMAP_SLOTS},
+}
+
+
+def _refuse_unported_value(name: str, val: str) -> None:
+    item = _UNPORTED_VALUES[name].get(val)
+    if item is not None:
+        raise NotImplementedError(
+            f"--{name}={val}: the PyTorch port has no {val!r} {name} yet; "
+            f"{item}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,6 +240,45 @@ class HParams:
     nan_max_rollbacks: int = 0
     nan_lr_cut: float = 0.5
 
+    # observability (obs/, JAX config.py:135-177): False runs this job
+    # dark (obs.registry_for(hps) hands back the null registry); the
+    # live exposition port (0 = off, TS_OBS_HTTP the fallback); the
+    # flight recorder's ring in frames (0 = off); the summary writer's
+    # flush cadence in records
+    obs: bool = True
+    obs_http_port: int = 0
+    flight_frames: int = 64
+    summary_flush_every: int = 1
+
+    # per-request decode deadline in seconds; once a full-beam latency
+    # estimate exists and the budget cannot cover it, beam degrades to
+    # greedy (0 = no deadline) (JAX config.py:201-207)
+    decode_deadline_secs: float = 0.0
+    # micro-batch serving (serve/, JAX config.py:208-239): requests per
+    # dispatch (0 = batch_size), the coalescing window, the admission
+    # queue's depth, the encoder-length buckets ("" = auto), the engine
+    # ("continuous" needs an injected engine: ROADMAP_SLOTS)
+    serve_max_batch: int = 0
+    serve_max_wait_ms: float = 20.0
+    serve_max_queue: int = 256
+    serve_buckets: str = ""
+    serve_mode: str = "microbatch"
+    # the tier a request gets when it names none, and the tier a beam
+    # request falls to under deadline pressure (JAX config.py:351-360;
+    # beam or greedy here: spec and draft are ROADMAP_AAN)
+    serve_default_tier: str = "beam"
+    serve_degrade_tier: str = "greedy"
+    # the front door (serve/frontdoor.py, JAX config.py:381-421): summary
+    # cache entries and bytes (0 = off / unbounded), in-flight
+    # coalescing, per-tenant token buckets (0 = unlimited; burst 0 =
+    # about one second of rate), weighted-fair pickup "tenant:weight,..."
+    serve_cache_entries: int = 0
+    serve_cache_bytes: int = 0
+    serve_coalesce: bool = False
+    serve_tenant_rate: float = 0.0
+    serve_tenant_burst: int = 0
+    serve_fair_weights: str = ""
+
     # transformer family (JAX config.py:77-83): hidden_dim is d_model,
     # embeddings are tied, ffn_dim=0 means 4*hidden_dim
     enc_layers: int = 6
@@ -290,6 +341,8 @@ class HParams:
                 continue
             if name in JAX_ONLY_FIELDS:
                 _refuse_jax_only(name, val)
+            elif name in _UNPORTED_VALUES:
+                _refuse_unported_value(name, val)
             if name in fields:
                 out[name] = _parse_flag(fields[name], val)
         return cls(**out)
@@ -338,6 +391,16 @@ class HParams:
         if not 0.0 < self.nan_lr_cut <= 1.0:
             raise ValueError(
                 f"nan_lr_cut must be in (0, 1], got {self.nan_lr_cut}")
+        if not 0 <= self.obs_http_port <= 65535:
+            raise ValueError(f"obs_http_port must be in [0, 65535] "
+                             f"(0 = off), got {self.obs_http_port}")
+        if self.flight_frames < 0:
+            raise ValueError(f"flight_frames must be >= 0 (0 = off), got "
+                             f"{self.flight_frames}")
+        if self.summary_flush_every < 1:
+            raise ValueError(f"summary_flush_every must be >= 1, got "
+                             f"{self.summary_flush_every}")
+        self._validate_serving()
         if self.max_dec_steps < 1 or self.max_enc_steps < 1:
             raise ValueError("max_enc_steps/max_dec_steps must be >= 1")
         if self.min_dec_steps >= self.max_dec_steps:
@@ -386,6 +449,63 @@ class HParams:
         get_family(self.model_family)
 
 
+    def _validate_serving(self) -> None:
+        """The JAX package's checks of the serving fields (JAX
+        config.py:628-636, :694-757); a spec or draft tier raises naming
+        ROADMAP_AAN."""
+        for name in ("serve_default_tier", "serve_degrade_tier"):
+            tier = getattr(self, name)
+            if tier in ("spec", "draft"):
+                raise NotImplementedError(
+                    f"{name}={tier!r}: the spec and draft tiers need the "
+                    f"draft model; {ROADMAP_AAN}")
+        if self.serve_default_tier not in SERVE_TIERS:
+            raise ValueError(
+                f"serve_default_tier must be one of {SERVE_TIERS}, got "
+                f"{self.serve_default_tier!r}")
+        if (self.serve_degrade_tier not in SERVE_TIERS
+                or self.serve_degrade_tier == "beam"):
+            raise ValueError(
+                f"serve_degrade_tier must be a tier BELOW beam "
+                f"({SERVE_TIERS[1:]}), got {self.serve_degrade_tier!r}")
+        if self.decode_deadline_secs < 0:
+            raise ValueError(f"decode_deadline_secs must be >= 0, got "
+                             f"{self.decode_deadline_secs}")
+        if self.serve_max_batch < 0 or self.serve_max_batch > self.batch_size:
+            raise ValueError(
+                f"serve_max_batch must be in [0, batch_size={self.batch_size}]"
+                f", got {self.serve_max_batch}")
+        if self.serve_max_wait_ms < 0:
+            raise ValueError(f"serve_max_wait_ms must be >= 0, got "
+                             f"{self.serve_max_wait_ms}")
+        if self.serve_max_queue < 1:
+            raise ValueError(f"serve_max_queue must be >= 1, got "
+                             f"{self.serve_max_queue}")
+        # parse for validation only: bad bucket specs fail at config
+        # time, not at the first micro-batch
+        parse_bucket_spec(self.serve_buckets, self.max_enc_steps)
+        if self.serve_mode not in ("microbatch", "continuous"):
+            raise ValueError(
+                f"serve_mode must be 'microbatch' or 'continuous', got "
+                f"{self.serve_mode!r}")
+        if self.serve_cache_entries < 0:
+            raise ValueError(
+                f"serve_cache_entries must be >= 0 (0 = cache off), got "
+                f"{self.serve_cache_entries}")
+        if self.serve_cache_bytes < 0:
+            raise ValueError(
+                f"serve_cache_bytes must be >= 0 (0 = no byte bound), "
+                f"got {self.serve_cache_bytes}")
+        if self.serve_tenant_rate < 0:
+            raise ValueError(
+                f"serve_tenant_rate must be >= 0 (0 = unlimited), got "
+                f"{self.serve_tenant_rate}")
+        if self.serve_tenant_burst < 0:
+            raise ValueError(
+                f"serve_tenant_burst must be >= 0 (0 = auto), got "
+                f"{self.serve_tenant_burst}")
+        parse_fair_weights(self.serve_fair_weights)
+
     def _refuse_pg_width(self) -> None:
         """On the card, refuse before a model is built an encoder width
         the fused attention kernels do not take (at the batch, the beam in
@@ -417,3 +537,99 @@ def beam_chunk_from_env() -> int:
     loop (one host sync per chunk).  TS_BEAM_CHUNK, default 25 — the
     same variable and default as the JAX package."""
     return int(os.environ.get("TS_BEAM_CHUNK", "25"))
+
+
+#: per-request serving quality tiers, costliest first (JAX config.py:
+#: 772-775); the port serves beam and greedy, spec and draft are
+#: ROADMAP_AAN
+SERVE_TIERS = ("beam", "greedy", "spec", "draft")
+
+
+def parse_bucket_spec(spec: str, max_enc_steps: int) -> List[int]:
+    """Resolve ``serve_buckets`` to the ascending encoder-length bucket
+    list the serve micro-batcher pads into (JAX config.py:849-891).
+
+    The one parser: HParams.validate() and serve/batcher.py both resolve
+    through this.  ``max_enc_steps`` is always the top bucket.  Auto ("")
+    is {max//4, max//2, max} without the buckets under 64 (except
+    ``max_enc_steps`` itself); explicit specs keep every entry."""
+    spec = (spec or "").strip()
+    if not spec:
+        buckets = sorted({max_enc_steps // 4, max_enc_steps // 2,
+                          max_enc_steps})
+        return [b for b in buckets
+                if b == max_enc_steps or b >= 64]
+    out = []
+    for tok in spec.split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        try:
+            b = int(tok)
+        except ValueError:
+            raise ValueError(
+                f"serve_buckets entry {tok!r} is not an integer") from None
+        if b < 1:
+            raise ValueError(f"serve_buckets entries must be >= 1, got {b}")
+        if b > max_enc_steps:
+            raise ValueError(
+                f"serve_buckets entry {b} exceeds max_enc_steps="
+                f"{max_enc_steps} (padding past the model's static "
+                f"encoder budget buys nothing)")
+        out.append(b)
+    buckets = sorted(set(out))
+    if not buckets or buckets[-1] != max_enc_steps:
+        # the top bucket must cover every admissible article
+        buckets.append(max_enc_steps)
+    return buckets
+
+
+def parse_fair_weights(spec: str) -> Dict[str, float]:
+    """Resolve ``serve_fair_weights`` to a {tenant: weight} dict (JAX
+    config.py:893-932); unlisted tenants weigh 1.0 at pickup."""
+    spec = (spec or "").strip()
+    if not spec:
+        return {}
+    out: Dict[str, float] = {}
+    for tok in spec.split(","):
+        tok = tok.strip()
+        if not tok:
+            continue
+        if ":" not in tok:
+            raise ValueError(
+                f"serve_fair_weights entry {tok!r} must be tenant:weight")
+        tenant, _, w = tok.rpartition(":")
+        tenant = tenant.strip()
+        if not tenant:
+            raise ValueError(
+                f"serve_fair_weights entry {tok!r} names no tenant (the "
+                f"default tenant's weight is always 1.0)")
+        try:
+            weight = float(w)
+        except ValueError:
+            raise ValueError(
+                f"serve_fair_weights weight {w!r} is not a number"
+            ) from None
+        if weight <= 0:
+            raise ValueError(
+                f"serve_fair_weights weight for {tenant!r} must be > 0, "
+                f"got {weight}")
+        out[tenant] = weight
+    return out
+
+
+def resolve_tenant_burst(hps: "HParams") -> int:
+    """Effective per-tenant token-bucket burst depth: serve_tenant_burst,
+    or about one second of the rate (min 1) when 0 (JAX config.py:934)."""
+    if hps.serve_tenant_burst:
+        return hps.serve_tenant_burst
+    return max(1, int(hps.serve_tenant_rate + 0.999999))
+
+
+def bucket_for(buckets: List[int], enc_len: int) -> int:
+    """Smallest bucket covering ``enc_len`` (JAX config.py:975); articles
+    are already truncated to buckets[-1]."""
+    for b in buckets:
+        if enc_len <= b:
+            return b
+    return buckets[-1]

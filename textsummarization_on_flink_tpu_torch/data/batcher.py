@@ -30,7 +30,7 @@ and sees the end of a single pass.
 
 The port's pipeline contract: a source may yield ``IDLE`` when nothing
 arrived within its poll interval (pipeline/estimator.py's queue reader
-does); the example threads skip it.  Counters and the gauge of obs.py:
+does); the example threads skip it.  Counters and the gauge of obs/:
 ``resilience/etl_worker_restarts_total``, ``data/examples_total``,
 ``data/empty_articles_total``, ``data/batches_total``,
 ``data/oov_words_total``, ``data/enc_tokens_total``,

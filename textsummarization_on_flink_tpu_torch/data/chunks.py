@@ -10,7 +10,9 @@ what ``write_chunk_file`` was given (bytes for str).
 ``example_generator`` streams the records, and ``text_pairs`` their
 non-empty (article, abstract) strings as the batcher reads them: the
 files sorted and read once in single-pass mode, shuffled every pass
-otherwise.
+otherwise.  ``write_chunked_iter`` writes a stream of records into
+numbered chunk files ``<prefix>_000.bin``, ... (the offline ETL's
+writer, data/etl.py).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from __future__ import annotations
 import glob
 import random
 import struct
-from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterable, Iterator, List, Optional, Tuple
 
 from textsummarization_on_flink_tpu_torch.data.tfexample import (
     Example,
@@ -45,6 +47,39 @@ def write_chunk_file(path: str, examples: Iterable[Features]) -> int:
             f.write(blob)
             n += 1
     return n
+
+
+def chunk_path(prefix: str, index: int, total_chunks: int = 0) -> str:
+    """The chunk-file naming of make_datafiles.py:42 (JAX chunks.py:130):
+    ``<prefix>_NNN.bin``, at least 3 digits and enough that lexicographic
+    order is numeric order."""
+    width = max(3, len(str(max(total_chunks - 1, index))))
+    return f"{prefix}_{index:0{width}d}.bin"
+
+
+def write_chunked_iter(prefix: str, examples: Iterable[Features],
+                       chunk_size: int = 1000,
+                       total_chunks: int = 0) -> List[str]:
+    """Write a stream of records into ``chunk_size``-record chunk files
+    ``<prefix>_000.bin``, ... holding one chunk in memory at a time (JAX
+    chunks.py:151; make_datafiles.py:36-64); an empty stream writes one
+    empty file.  Returns the paths."""
+    paths: List[str] = []
+    pending: List[Features] = []
+
+    def flush() -> None:
+        path = chunk_path(prefix, len(paths), total_chunks)
+        write_chunk_file(path, pending)
+        paths.append(path)
+        pending.clear()
+
+    for ex in examples:
+        pending.append(ex)
+        if len(pending) >= chunk_size:
+            flush()
+    if pending or not paths:
+        flush()
+    return paths
 
 
 def read_chunk_file(path: str) -> Iterator[Features]:

@@ -15,10 +15,14 @@ batcher ends (or ``max_batches``), reloads the newest checkpoint once
 writes the attention-visualizer JSON of each result (decode.py:225-249);
 ``[STOP]``-truncation of the emitted tokens (decode.py:112-118);
 html-escaping of <, > (``make_html_safe``); the summary is
-sentence-split on '.'.
+sentence-split on '.'.  Each ``decode_batch`` runs under a
+``Deadline`` (the caller's, or ``decode_deadline_secs``): with no
+explicit tier, a budget short of the full-beam latency estimate degrades
+the batch to greedy (``should_degrade``, the serve layer's per-request
+predicate), and the results say ``degraded``.
 
-Not yet ported (ROADMAP.md): the spec/draft tiers, the mesh, deadline
-degradation and the slot engine.
+Not yet ported (ROADMAP.md queue 1): the spec/draft tiers (item 5), the
+slot engine (item 4) and the mesh (item 6).
 """
 
 from __future__ import annotations
@@ -36,7 +40,11 @@ from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch.checkpoint import (
     checkpointer as ckpt_lib,
 )
-from textsummarization_on_flink_tpu_torch.config import HParams
+from textsummarization_on_flink_tpu_torch.config import (
+    ROADMAP_AAN,
+    SERVE_TIERS,
+    HParams,
+)
 from textsummarization_on_flink_tpu_torch.data import oov as oov_lib
 from textsummarization_on_flink_tpu_torch.data.batching import Batch
 from textsummarization_on_flink_tpu_torch.data.vocab import STOP_DECODING, Vocab
@@ -44,11 +52,14 @@ from textsummarization_on_flink_tpu_torch.decode import beam_search
 from textsummarization_on_flink_tpu_torch.device import resolve_device
 from textsummarization_on_flink_tpu_torch.evaluate import rouge
 from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
+from textsummarization_on_flink_tpu_torch.resilience.policy import Deadline
 
 log = logging.getLogger(__name__)
 
 SECS_UNTIL_NEW_CKPT = 60  # decode.py:36
 
+#: the tiers the port's decoder dispatches (spec and draft need the
+#: draft model: ROADMAP_AAN)
 TIERS = ("beam", "greedy")
 
 
@@ -91,7 +102,8 @@ class DecodedResult:
                  reference: str, abstract_sents: List[str],
                  attn_dists: Optional[np.ndarray] = None,
                  p_gens: Optional[np.ndarray] = None,
-                 tier: str = "beam", params_fingerprint: str = ""):
+                 degraded: bool = False, tier: str = "beam",
+                 params_fingerprint: str = ""):
         self.uuid = uuid
         self.article = article
         self.decoded_words = decoded_words
@@ -99,6 +111,8 @@ class DecodedResult:
         self.abstract_sents = abstract_sents
         self.attn_dists = attn_dists
         self.p_gens = p_gens
+        # True when the decode deadline forced beam search down to greedy
+        self.degraded = degraded
         self.tier = tier
         # fingerprint of the params that decoded this result
         self.params_fingerprint = params_fingerprint
@@ -143,8 +157,25 @@ class BeamSearchDecoder:
         self._params_lock = threading.Lock()
         self._ckpt_path: Optional[str] = None
         self._fp_cache: Optional[Tuple[Any, str]] = None
-        self._c_reloads = obs.registry_for(hps).counter(
-            "decode/ckpt_reloads_total")
+        # the JAX decoder's metrics: per-request latency, finished
+        # beams, token volume, busy seconds, checkpoint reloads
+        self._obs = obs.registry_for(hps)
+        self._m_latency = self._obs.histogram("decode/request_latency_seconds")
+        self._c_requests = self._obs.counter("decode/requests_total")
+        self._c_beams = self._obs.counter("decode/beams_finished_total")
+        self._c_tokens = self._obs.counter("decode/tokens_total")
+        self._c_busy = self._obs.counter("decode/busy_seconds_total")
+        self._c_reloads = self._obs.counter("decode/ckpt_reloads_total")
+        # deadline degradation: `_beam_secs` is an EMA of full-beam
+        # dispatch latency; the first full-beam dispatch (CUDA context,
+        # kernel builds) is not sampled, so the estimate starts at the
+        # second
+        self._c_degraded = self._obs.counter(
+            "resilience/decode_degraded_total")
+        self._g_beam_est = self._obs.gauge(
+            "resilience/decode_beam_latency_est_seconds")
+        self._beam_secs: Optional[float] = None
+        self._beam_warm = False
         self.rouge_results: Optional[Dict[str, Dict[str, float]]] = None
         if params is None:
             self._load_params()
@@ -217,16 +248,78 @@ class BeamSearchDecoder:
             self._c_reloads.inc()
         return time.monotonic()
 
+    def should_degrade(self, deadline: Deadline) -> bool:
+        """True when the remaining budget cannot cover a full-beam
+        dispatch (JAX decode/decoder.py:343-360): needs an estimate from
+        a completed full-beam dispatch after the first one, so early
+        requests never degrade."""
+        return (deadline.bounded
+                and self._hps.beam_size > 1
+                and self._beam_secs is not None
+                and deadline.remaining() < self._beam_secs)
+
     def decode_batch(self, batch: Batch,
+                     deadline: Optional[Deadline] = None,
                      tier: Optional[str] = None) -> List[DecodedResult]:
-        """Decode one batch; one result per REAL input row
-        (``batch.real_mask``: padding rows are dropped).  ``tier`` is
-        "beam" (the default) or "greedy" (beam_size=1)."""
-        tier = tier or "beam"
+        """One dispatch for the whole batch; one result per REAL input
+        row (``batch.real_mask``: padding rows are dropped).
+
+        An explicit ``tier`` ("beam", or "greedy": beam_size=1) is
+        dispatched as given: the serve layer already decided each
+        request's degradation.  With ``tier=None`` the batch runs at the
+        beam tier unless its deadline (the caller's, or one of
+        ``decode_deadline_secs``; 0 never degrades) cannot cover the
+        full-beam estimate: then it runs greedy, and its results are
+        ``degraded`` and counted in ``resilience/decode_degraded_total``
+        (JAX decode/decoder.py:382-450)."""
+        if deadline is None:
+            deadline = Deadline.after(self._hps.decode_deadline_secs)
+        if tier is not None:
+            if tier not in SERVE_TIERS:
+                raise ValueError(
+                    f"tier must be one of {SERVE_TIERS}, got {tier!r}")
+            degraded = False
+            eff_tier = tier
+        else:
+            degraded = self.should_degrade(deadline)
+            eff_tier = "greedy" if degraded else "beam"
+        t0 = time.perf_counter()
+        with obs.spans.span(self._obs, "decode/batch", tier=eff_tier):
+            results = self._decode_batch_inner(batch, eff_tier)
+        dt = time.perf_counter() - t0
+        if degraded:
+            for res in results:
+                res.degraded = True
+            self._c_degraded.inc(len(results))
+            log.warning("decode deadline short of full-beam estimate "
+                        "(%.3fs remaining < %.3fs est); degraded %d "
+                        "result(s) to greedy", deadline.remaining(),
+                        self._beam_secs, len(results))
+        elif eff_tier == "beam":
+            if not self._beam_warm:
+                self._beam_warm = True  # the first dispatch: not sampled
+            else:
+                # EMA of full-beam dispatch latency only: greedy
+                # dispatches must not pull the estimate down
+                self._beam_secs = (dt if self._beam_secs is None
+                                   else 0.7 * self._beam_secs + 0.3 * dt)
+                self._g_beam_est.set(self._beam_secs)
+        self._c_busy.inc(dt)
+        # requests in a batch share one dispatch: the batch wall time is
+        # each request's latency
+        for res in results:
+            self._m_latency.observe(dt)
+            self._c_tokens.inc(len(res.decoded_words))
+        self._c_requests.inc(len(results))
+        self._c_beams.inc(len(results))
+        return results
+
+    def _decode_batch_inner(self, batch: Batch,
+                            tier: str) -> List[DecodedResult]:
         if tier not in TIERS:
             raise NotImplementedError(
                 f"tier {tier!r} is not ported to PyTorch yet (ported: "
-                f"{TIERS}); see ROADMAP.md queue 1, item 5")
+                f"{TIERS}); {ROADMAP_AAN}")
         hps = self._hps.replace(beam_size=1) if tier == "greedy" else self._hps
         params, _ = self._params_snapshot()
         out = beam_search.run_beam_search(params, hps, batch.as_arrays())

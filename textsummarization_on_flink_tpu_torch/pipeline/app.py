@@ -118,7 +118,7 @@ class App:
                                     max_count=max_count)
         estimator = self.create_estimator()
         reg = obs.registry_for(self.train_hps)
-        with obs.span(reg, "pipeline/train_job"):
+        with obs.spans.span(reg, "pipeline/train_job"):
             model = estimator.fit(src)
         reg.counter("pipeline/train_jobs_total").inc()
         model_json = model.to_json()
@@ -130,8 +130,10 @@ class App:
                         sink: Optional[Sink] = None,
                         max_count: int = 0, serving: bool = False) -> Sink:
         """Serve summaries from the stream (App.startInference, :108-132).
-        ``serving=True`` (the concurrent serve layer) is not ported yet
-        and raises."""
+        ``serving=True`` routes the rows through the concurrent serve
+        layer (micro-batches, admission control; serve/server.py) instead
+        of the synchronous decode loop: the same sources, sinks and
+        output rows (JAX pipeline/app.py:127-150)."""
         src = source or KafkaSource(INPUT_TOPIC, self.bootstrap_servers,
                                     max_count=max_count)
         out = sink or KafkaSink(OUTPUT_TOPIC, self.bootstrap_servers)
@@ -142,7 +144,7 @@ class App:
         else:
             model = self.create_model()
         reg = obs.registry_for(self.inference_hps)
-        with obs.span(reg, "pipeline/inference_job"):
+        with obs.spans.span(reg, "pipeline/inference_job"):
             result = model.transform(src, out, serving=serving)
         reg.counter("pipeline/inference_jobs_total").inc()
         return result

@@ -27,9 +27,12 @@ fit() and transform() run in one process, so ``Pipeline(estimator ->
 model)`` composes.  Both run on ``cuda`` unless the hyperparameters say
 ``--device=cpu``, and raise with no card otherwise.  ``--debug`` is
 applied by the trainer, as for ``cli.py --mode=train``: the batch of a
-non-finite loss is dumped.  ``transform(serving=True)`` (the concurrent
-serve layer) and ``transform(hierarchical=True)`` (long documents) are
-not ported yet and raise, naming their ROADMAP.md items.
+non-finite loss is dumped.  ``transform(serving=True)`` runs the rows
+through the concurrent serve layer (serve/server.py: an admission
+queue, micro-batches, deadlines) instead of the synchronous decode
+loop, with the same output rows.  ``transform(hierarchical=True)``
+(long documents) is not ported yet and raises, naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
@@ -46,7 +49,6 @@ from textsummarization_on_flink_tpu_torch.checkpoint import (
 )
 from textsummarization_on_flink_tpu_torch.config import (
     ROADMAP_HIERSUM,
-    ROADMAP_SERVING,
     HParams,
 )
 from textsummarization_on_flink_tpu_torch.data.batcher import IDLE, Batcher
@@ -297,9 +299,8 @@ class SummarizationModel(Model,
                 f"transform(hierarchical=True) is not ported yet; "
                 f"{ROADMAP_HIERSUM}")
         if serving:
-            raise NotImplementedError(
-                f"transform(serving=True) is not ported yet; "
-                f"{ROADMAP_SERVING}")
+            return self._transform_serving(source, sink,
+                                           max_batches=max_batches)
         hps = self._hps()
         hps.validate()
         vocab = self._vocab(hps)
@@ -323,11 +324,51 @@ class SummarizationModel(Model,
 
         feeder.start()
         try:
-            with obs.span(reg, "pipeline/transform"):
+            with obs.spans.span(reg, "pipeline/transform"):
                 decoder.decode(result_sink=emit, max_batches=max_batches,
                                log_results=False)
         finally:
             feeder.finish()
+        return out_sink
+
+    def _transform_serving(self, source: Source,
+                           sink: Optional[Sink] = None,
+                           max_batches: int = 0) -> Sink:
+        """Concurrent transform: a ServingServer drives the source/sink
+        pair through its admission-controlled queue (JAX
+        pipeline/estimator.py:320-355).  Serving batches are dynamic, so
+        ``max_batches`` bounds the rows to ``max_batches * batch_size``
+        (0 = the whole source)."""
+        from textsummarization_on_flink_tpu_torch.serve.server import (
+            ServingServer,
+        )
+
+        hps = self._hps()
+        hps.validate()
+        vocab = self._vocab(hps)
+        out_sink = sink if sink is not None else CollectionSink()
+        reg = obs.registry_for(hps)
+        c_out = reg.counter("pipeline/rows_out_total")
+
+        class _CountedSink(Sink):
+            # the synchronous path's row accounting, into the caller's
+            # own sink
+            def write(self, row: Row) -> None:
+                out_sink.write(row)
+                c_out.inc()
+
+        # raises with no card and no --device=cpu
+        server = ServingServer(
+            hps.replace(single_pass=False), vocab,
+            train_dir=train_dir_for(hps),
+            decode_root=os.path.join(hps.log_root or ".",
+                                     hps.exp_name or "exp"),
+            registry=reg)
+        with obs.spans.span(reg, "pipeline/transform_serving"):
+            with server:
+                server.serve(source, _CountedSink(),
+                             cols=self.get_inference_selected_cols(),
+                             max_count=max_batches * hps.batch_size)
         return out_sink
 
 
@@ -383,7 +424,7 @@ class SummarizationEstimator(Estimator,
                                       train_dir=train_dir)
         feeder.start()
         try:
-            with obs.span(obs.registry_for(hps), "pipeline/fit"):
+            with obs.spans.span(obs.registry_for(hps), "pipeline/fit"):
                 trainer.train(num_steps=hps.num_steps)
         finally:
             feeder.finish()

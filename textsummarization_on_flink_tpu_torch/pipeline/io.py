@@ -18,26 +18,50 @@ streaming I/O surface without the Flink runtime:
     each flushed per record (the reference's bridge surfaced a result
     only when the NEXT record arrived, Integration Report:879-941).
 
-The reconnecting ``ResilientSource``, the circuit-breaking
-``BreakerSink`` and the fault-injection points are ROADMAP.md queue 1,
-items 2d and 3b.
+Resilience (RESILIENCE.md):
+  * ``ResilientSource`` wraps any source factory (socket, Kafka,
+    iterator) with reconnect-with-backoff and uuid-keyed dedup, so a
+    flapping peer delivers every row exactly once downstream;
+  * ``BreakerSink`` wraps any sink with a circuit breaker: a down broker
+    sheds rows (counted) instead of blocking the pipeline;
+  * the fault points ``io.connect`` / ``io.read`` (socket and Kafka
+    sources) and ``io.write`` (``BreakerSink``) drive these paths
+    deterministically (resilience/faultinject.py).
 """
 
 from __future__ import annotations
 
+import collections
 import json
 import logging
 import queue
 import socket as socket_lib
 import threading
+import time
 from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 from textsummarization_on_flink_tpu_torch import obs
+from textsummarization_on_flink_tpu_torch.resilience import faultinject
 from textsummarization_on_flink_tpu_torch.resilience.errors import (
     StreamIdleError,
 )
+from textsummarization_on_flink_tpu_torch.resilience.policy import (
+    CircuitBreaker,
+    RetryPolicy,
+)
 
 log = logging.getLogger(__name__)
+
+# the failure classes a reconnect can fix: connection/socket errors, the
+# typed idle timeout, and (when kafka-python is present) KafkaError,
+# which subclasses RuntimeError rather than OSError
+try:  # pragma: no cover - optional dependency
+    from kafka.errors import KafkaError as _KafkaError
+
+    _RECONNECT_ERRORS: Tuple[type, ...] = (
+        OSError, StreamIdleError, _KafkaError)
+except ImportError:
+    _RECONNECT_ERRORS = (OSError, StreamIdleError)
 
 Row = Tuple[Any, ...]
 
@@ -204,7 +228,8 @@ class SocketSource(Source):
     A long-lived stream read is never left with ``settimeout(None)``
     (one dead peer would hang the job): a connection that goes
     ``idle_timeout`` seconds without delivering a byte raises the typed
-    ``StreamIdleError``.
+    ``StreamIdleError``.  Wrap in ``ResilientSource`` for
+    reconnect-with-backoff on top.
 
     Schema contract: a payload that parses but
     cannot project onto the declared schema raises the typed
@@ -222,10 +247,14 @@ class SocketSource(Source):
         self._max = max_count
         self._timeout = timeout
         self._idle_timeout = idle_timeout
+        self._faults = faultinject.plan()
         self.schema = schema or ARTICLE_INPUT_SCHEMA
 
     def rows(self) -> Iterator[Row]:
         n = 0
+        if self._faults.fire("io.connect"):
+            raise ConnectionRefusedError(
+                f"injected io.connect fault for {self._host}:{self._port}")
         with socket_lib.create_connection((self._host, self._port),
                                           timeout=self._timeout) as sock:
             # `timeout` governed CONNECT; from here the idle window
@@ -234,6 +263,9 @@ class SocketSource(Source):
             sock.settimeout(self._idle_timeout or None)
             f = sock.makefile("r", encoding="utf-8")
             while True:
+                if self._faults.fire("io.read"):
+                    raise ConnectionResetError(
+                        f"injected io.read fault after {n} row(s)")
                 try:
                     line = f.readline()
                 except TimeoutError as e:  # socket.timeout alias (py3.10+)
@@ -295,7 +327,8 @@ class KafkaSource(Source):
     because a quiet topic is normal) bounds how long the consumer may
     sit with no messages: an unbounded stream that idles past it raises
     ``StreamIdleError`` (same contract as SocketSource) so a dead
-    broker/partition is a typed, retryable event.
+    broker/partition is a typed, retryable event; wrap in
+    ``ResilientSource`` for reconnect-with-backoff.
     """
 
     def __init__(self, topic: str, bootstrap_servers: str = "localhost:9092",
@@ -307,6 +340,7 @@ class KafkaSource(Source):
         self.group_id = group_id
         self._max = max_count
         self._idle_timeout = idle_timeout
+        self._faults = faultinject.plan()
         self.schema = schema or ARTICLE_INPUT_SCHEMA
 
     def rows(self) -> Iterator[Row]:
@@ -316,6 +350,9 @@ class KafkaSource(Source):
             raise RuntimeError(
                 "KafkaSource needs the kafka-python package; use "
                 "CollectionSource/SocketSource or install kafka-python") from e
+        if self._faults.fire("io.connect"):
+            raise ConnectionRefusedError(
+                f"injected io.connect fault for {self.bootstrap_servers}")
         kwargs = {}
         if self._idle_timeout:
             # kafka-python ends iteration (no exception) on this timeout;
@@ -327,6 +364,9 @@ class KafkaSource(Source):
         n = 0
         try:
             for msg in consumer:  # pragma: no cover - needs a broker
+                if self._faults.fire("io.read"):
+                    raise ConnectionResetError(
+                        f"injected io.read fault after {n} row(s)")
                 try:
                     row = Message.from_json(
                         msg.value.decode("utf-8")).to_row()
@@ -349,6 +389,91 @@ class KafkaSource(Source):
             # an abandoned consumer stays in its group until the broker
             # times it out; leave the group on every exit path
             consumer.close()
+
+
+class ResilientSource(Source):
+    """Reconnect-with-backoff + exactly-once wrapper for any source.
+
+    ``factory`` builds a fresh inner source per (re)connection attempt
+    (construction must be cheap and side-effect free, which holds for
+    every source here: sockets/consumers open inside ``rows()``).  On a
+    connection-class failure — ``OSError`` (covers ConnectionError and
+    socket errors), ``StreamIdleError``, or (when kafka-python is
+    installed) ``KafkaError``, which subclasses RuntimeError rather than
+    OSError — the stream reconnects with decorrelated-jitter backoff up
+    to ``max_reconnects`` times, then surfaces ``RetriesExhaustedError``
+    with the last cause chained.
+
+    Exactly-once: a reconnected peer typically replays from its own
+    notion of the start (a socket server re-streams; a Kafka consumer
+    re-polls uncommitted offsets), so rows are deduped by their first
+    column (the Message uuid) before reaching the consumer; replayed
+    duplicates are counted in ``resilience/io_dup_rows_total``, and
+    reconnects in ``resilience/io_reconnects_total``.  Pass
+    ``dedup=False`` for schemas whose first column is not a unique key.
+    The dedup memory is BOUNDED: only the ``dedup_window``
+    least-recently-SEEN keys are held (LRU — a replayed key refreshes
+    its recency, so a peer that replays the same prefix on every
+    reconnect cannot age the live keys out; default 65536, evictions
+    counted in ``pipeline/dedup_evictions_total``).  The window only
+    needs to cover replay depth since the last reconnect, and an
+    unbounded set would leak on exactly the long-running streams this
+    wrapper is for; ``dedup_window=0`` keeps every key (short bounded
+    streams).
+
+    ``seed``/``sleep`` pin the backoff for deterministic chaos tests.
+    """
+
+    def __init__(self, factory: Callable[[], Source],
+                 max_reconnects: int = 8, base_delay: float = 0.05,
+                 max_delay: float = 5.0, seed: Optional[int] = None,
+                 dedup: bool = True, dedup_window: int = 65536,
+                 schema: Optional[RowSchema] = None,
+                 sleep: Callable[[float], None] = time.sleep):
+        self._factory = factory
+        self._max_reconnects = max_reconnects
+        self._base_delay = base_delay
+        self._max_delay = max_delay
+        self._seed = seed
+        self._dedup = dedup
+        self._dedup_window = dedup_window
+        self._sleep = sleep
+        self._c_reconnects = obs.counter("resilience/io_reconnects_total")
+        self._c_dups = obs.counter("resilience/io_dup_rows_total")
+        self._c_dedup_evicted = obs.counter("pipeline/dedup_evictions_total")
+        self.schema = schema or factory().schema
+
+    def rows(self) -> Iterator[Row]:
+        policy = RetryPolicy(
+            max_attempts=self._max_reconnects + 1,
+            base_delay=self._base_delay, max_delay=self._max_delay,
+            seed=self._seed, name="io.source", sleep=self._sleep)
+        seen: "collections.OrderedDict[Any, None]" = collections.OrderedDict()
+        while True:
+            src = self._factory()
+            try:
+                for row in src.rows():
+                    if self._dedup:
+                        key = row[0] if row else None
+                        if key in seen:
+                            # LRU refresh: a replayed key is evidence it
+                            # is still live replay depth — keep it young
+                            seen.move_to_end(key)
+                            self._c_dups.inc()
+                            continue
+                        seen[key] = None
+                        if self._dedup_window and len(seen) > self._dedup_window:
+                            seen.popitem(last=False)  # oldest-seen out
+                            self._c_dedup_evicted.inc()
+                    yield row
+                return  # clean end of stream
+            except _RECONNECT_ERRORS as e:
+                policy.note_failure(e)  # raises when the budget is spent
+                self._c_reconnects.inc()
+                delay = policy.next_delay()
+                log.warning("stream source failed (%s); reconnecting in "
+                            "%.2fs", e, delay)
+                self._sleep(delay)
 
 
 # --------------------------------------------------------------------------
@@ -437,3 +562,58 @@ class QueueSink(Sink):
     def write(self, row: Row) -> None:
         self.queue.put(row)
         _count_sink_row()
+
+
+class BreakerSink(Sink):
+    """Circuit-breaker wrapper: a failing sink SHEDS rows instead of
+    blocking (or repeatedly stalling) the whole pipeline job.
+
+    Semantics (RESILIENCE.md "graceful degradation"): while the breaker
+    is closed, writes flow and failures are counted against it; after
+    ``threshold`` consecutive failures it opens and rows are dropped
+    immediately (``resilience/sink_shed_total``) for ``reset_secs``,
+    then a half-open probe write decides recovery.  Shedding loses data
+    BY DESIGN — a streaming job that blocks on a dead broker loses all
+    of it — and every loss is counted (``resilience/sink_errors_total``,
+    ``resilience/sink_shed_total``).  ``raise_on_error=True`` restores
+    fail-stop for pipelines that prefer crashing to shedding.
+
+    Injection point ``io.write`` fires inside the protected write.
+    """
+
+    def __init__(self, inner: Sink, breaker: Optional[CircuitBreaker] = None,
+                 raise_on_error: bool = False):
+        self._inner = inner
+        self._breaker = breaker if breaker is not None else CircuitBreaker(
+            threshold=5, reset_secs=30.0, name="io.sink")
+        self._raise = raise_on_error
+        self._faults = faultinject.plan()
+        self._c_shed = obs.counter("resilience/sink_shed_total")
+        self._c_errors = obs.counter("resilience/sink_errors_total")
+
+    @property
+    def breaker(self) -> CircuitBreaker:
+        return self._breaker
+
+    def write(self, row: Row) -> None:
+        if not self._breaker.allow():
+            self._c_shed.inc()
+            return
+        try:
+            if self._faults.fire("io.write"):
+                raise ConnectionResetError("injected io.write fault")
+            self._inner.write(row)
+        except (OSError, RuntimeError) as e:
+            self._breaker.record_failure()
+            self._c_errors.inc()
+            self._c_shed.inc()
+            log.warning("sink write failed (%s); row shed "
+                        "(breaker %s)", e, self._breaker.state)
+            if self._raise:
+                raise
+        else:
+            self._breaker.record_success()
+
+    def close(self) -> None:
+        self._inner.close()
+

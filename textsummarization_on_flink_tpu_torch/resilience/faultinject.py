@@ -4,9 +4,11 @@ A copy of the JAX package's resilience/faultinject.py (the port imports
 nothing of that package): the same spec syntax, the same known points
 and a seeded ``random.Random`` per point, so one spec fires on the same
 call indices in both packages.  The port wires ``train.step_nan``
-(train/trainer.py), ``ckpt.load`` (checkpoint/checkpointer.py) and
-``etl.worker`` (data/batcher.py); the other points get their call sites
-with the modules that hold them (ROADMAP.md queue 1, items 2d and 3b).
+(train/trainer.py), ``ckpt.load`` (checkpoint/checkpointer.py),
+``etl.worker`` (data/batcher.py), ``io.connect`` / ``io.read`` /
+``io.write`` (pipeline/io.py) and ``serve.dispatch``,
+``serve.cache_fault`` and ``serve.arena_full`` (serve/); the other points
+get their call sites with the modules that hold them.
 
 Chaos tests (and staging soaks) drive the recovery paths through *named
 injection points* compiled into the production code:

@@ -1,0 +1,787 @@
+"""ServingServer: concurrent request serving over the decode path.
+
+A copy of the JAX package's serve/server.py.  The server builds the
+port's ``BeamSearchDecoder`` on ``hps.device``, so a dispatch runs the
+beam search (and on the card the fused attention kernel) in eager
+PyTorch.  Not ported yet, and refused with the item's name: the
+continuous mode's real slot engine (``serve_mode="continuous"`` without
+an injected ``engine=``, ROADMAP.md queue 1, item 4) and the spec and
+draft tiers (item 5).  The fleet (router, hedging, replicas) is item 7,
+and the copy leaves out the hooks only a router calls (``kill``,
+``hot_swap``, ``disable_front_door``, ``disable_ingress_tracking``,
+``tick_once``, ``idle``, ``stats``, ``load``, ``registry``).
+
+The reference's whole point is *streaming* summarization (Kafka rows
+through Flink into TF and back out, App.java inference job), but the
+repo's decode loop was synchronous — one caller, one batch at a time
+(decode/decoder.py ``decode()``).  This module turns the decoder into a
+shared service:
+
+    server = ServingServer(hps, vocab, train_dir=...)   # or params=
+    with server:
+        fut = server.submit("some article text .", uuid="u1")
+        result = fut.result(timeout=30)                 # DecodedResult
+
+Many callers submit concurrently; ONE dispatch thread consumes the
+admission-controlled queue (serve/queue.py) through the engine
+``hps.serve_mode`` selects:
+
+  * ``microbatch`` (default/fallback) — coalesce into micro-batches
+    (serve/batcher.MicroBatcher) and run each through
+    ``BeamSearchDecoder.decode_batch``: independent requests share
+    device dispatches (batch-fill > 1 under load), jit cache bounded by
+    the shape buckets;
+  * ``continuous`` — a persistent slotted decode loop
+    (serve/batcher.ContinuousBatcher over decode/decoder.
+    SlotDecodeEngine): queued requests run a bucketed PREFILL stage
+    (encoder + cross-attention cache at the article's serve bucket) into a small ready queue, free slots refill from it at
+    chunk boundaries, and resident decode is length-masked — per-chunk
+    cost follows the longest active article's true length, not the
+    padded shape; each future resolves the moment ITS sequence
+    finishes — no dispatch-window straggler barrier (SERVING.md
+    "Continuous batching" / "Prefill/decode disaggregation").
+
+Contracts (both modes):
+  * every admitted request resolves EXACTLY ONCE — with a
+    ``DecodedResult`` or with the typed error that killed its batch
+    (microbatch) / its residency (continuous);
+  * per-request ``Deadline`` measured from enqueue, and a request whose
+    budget died waiting in the queue is evicted with the typed
+    ``DeadlineExceededError`` (counted in
+    ``serve/deadline_evictions_total``) instead of burning a dispatch.
+    Beyond that the modes differ: micro-batch requests carry a quality
+    TIER (``submit(tier=...)`` — beam|greedy|spec|draft, SERVING.md
+    "Quality tiers") and each group member whose budget cannot cover
+    the full-beam estimate is re-tiered ALONE
+    (beam->``serve_degrade_tier``, spec->draft; counted per request in
+    ``serve/degraded_total`` and per requested tier) — the group then
+    dispatches once per effective tier under each sub-group's tightest
+    deadline; continuous mode never degrades (the slot state is
+    fixed-beam, non-beam tiers are rejected at submit) — an expired
+    RESIDENT is evicted typed at the next chunk boundary;
+  * checkpoint hot-swap happens BETWEEN dispatches via the decoder's
+    lock-guarded ``maybe_reload_checkpoint`` — between batches
+    (microbatch) or ticks (continuous, where new params land at the
+    next chunk boundary, so a resident article may finish under
+    refreshed weights);
+  * ``serve(source, sink)`` drives any pipeline/io.py Source/Sink pair
+    through the queue with blocking-submit backpressure — the
+    concurrency upgrade for ``pipeline/app.py:start_inference``.
+
+Speculative tier (SERVING.md "Quality tiers"): spec-tier sub-batches
+dispatch through the decoder's draft-then-verify engine; with
+``hps.spec_k_adaptive`` the decoder's ONE SpecKController adapts the
+draft length between cycles inside each dispatch and carries its
+learned acceptance estimate across requests — this dispatch loop is
+single-threaded, which is what makes the controller's unlocked
+mutation safe (decode/speculative.py; the current pick is on the
+``decode/spec_k_current`` gauge).
+
+Observability (SERVING.md): serve/queue_depth, serve/time_in_queue_
+seconds, serve/batch_fill, serve/e2e_latency_seconds, serve/shed_total,
+serve/degraded_total, serve/errors_total, and the per-tier family
+(serve/tier_*_total).  Chaos: injection point ``serve.dispatch`` fails
+whole (sub-)batches deterministically.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+from typing import Any, List, Optional, Sequence
+
+from textsummarization_on_flink_tpu_torch import obs
+from textsummarization_on_flink_tpu_torch.obs import flightrec
+from textsummarization_on_flink_tpu_torch.obs import http as obs_http
+from textsummarization_on_flink_tpu_torch.obs import profile as profile_lib
+from textsummarization_on_flink_tpu_torch.obs import slo as slo_lib
+from textsummarization_on_flink_tpu_torch.config import (
+    ROADMAP_AAN,
+    ROADMAP_SLOTS,
+    SERVE_TIERS,
+    HParams,
+    parse_fair_weights,
+)
+from textsummarization_on_flink_tpu_torch.data.batching import SummaryExample
+from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+from textsummarization_on_flink_tpu_torch.pipeline.io import (
+    CollectionSink,
+    SchemaProjectionError,
+    Sink,
+    Source,
+)
+from textsummarization_on_flink_tpu_torch.resilience import faultinject
+from textsummarization_on_flink_tpu_torch.resilience.errors import (
+    DeadlineExceededError,
+)
+from textsummarization_on_flink_tpu_torch.resilience.policy import Deadline
+from textsummarization_on_flink_tpu_torch.serve.batcher import (
+    ContinuousBatcher,
+    MicroBatcher,
+)
+from textsummarization_on_flink_tpu_torch.serve.errors import (
+    ServeClosedError,
+    ServeOverloadError,
+)
+from textsummarization_on_flink_tpu_torch.serve.frontdoor import FrontDoor
+from textsummarization_on_flink_tpu_torch.serve.queue import (
+    RequestQueue,
+    ServeFuture,
+    ServeRequest,
+    track_rejection,
+    track_request,
+)
+
+log = logging.getLogger(__name__)
+
+#: columns the serving path consumes from a pipeline row (the
+#: inference_selected_cols default, App.java:100)
+SERVE_COLS = ("uuid", "article", "reference")
+
+
+class ServingServer:
+    """Thread-safe concurrent serving front-end for one decoder.
+
+    Construct with ``params=`` (static weights) or ``train_dir=``
+    (checkpoint dir: continuous mode hot-swaps the newest checkpoint
+    between batches), or inject a prebuilt ``decoder=`` (tests, custom
+    wiring).  ``start()`` launches the dispatch thread; ``stop()``
+    drains the queue and joins (context-manager sugar does both).
+    """
+
+    def __init__(self, hps: HParams, vocab: Vocab,
+                 params: Optional[Any] = None,
+                 train_dir: Optional[str] = None,
+                 decoder: Optional[Any] = None,
+                 decode_root: Optional[str] = None,
+                 engine: Optional[Any] = None,
+                 registry: Optional[obs.Registry] = None,
+                 clock: Any = time.monotonic):
+        self._hps = hps
+        self._vocab = vocab
+        self._clock = clock
+        self._reg = registry if registry is not None else obs.registry_for(hps)
+        # the phase ledger (obs/profile.py): installed before the
+        # batcher wiring so every phase timer shares THIS server's
+        # clock (virtual in the deterministic gates); first install on
+        # the registry wins, like the SLO engine below
+        profile_lib.install_profiler(self._reg, clock=clock)
+        self._mode = getattr(hps, "serve_mode", "microbatch")
+        if self._mode == "continuous" and engine is None:
+            # before the decoder is built: no device work for a server
+            # that cannot run
+            raise NotImplementedError(
+                "serve_mode='continuous' needs a slot engine: the port's "
+                f"decoder has none yet (inject engine=); {ROADMAP_SLOTS}")
+        if decoder is None:
+            # deferred: the decoder pulls in torch and the model; a server
+            # built around an injected stub must not pay that import.  It
+            # runs on hps.device (cuda unless the caller asks for cpu)
+            from textsummarization_on_flink_tpu_torch.decode.decoder import (
+                BeamSearchDecoder,
+            )
+
+            decoder = BeamSearchDecoder(
+                hps.replace(single_pass=False), vocab, batcher=None,
+                params=params, train_dir=train_dir, decode_root=decode_root)
+        self._decoder = decoder
+        self._queue = RequestQueue(
+            hps.serve_max_queue, registry=self._reg,
+            fair_weights=parse_fair_weights(
+                getattr(hps, "serve_fair_weights", "")))
+        self._faults = faultinject.plan_for(hps)
+        # the serving front door (SERVING.md "Front door"):
+        # per-tenant token-bucket admission, the (content_hash, tier,
+        # params_fingerprint) summary cache, and in-flight coalescing —
+        # all between submit and the queue.  `clock` is injectable so
+        # the virtual-time SLO gate refills tenant buckets on virtual
+        # seconds.  Lookups key on THIS server's live fingerprint.
+        self._door = FrontDoor(hps, registry=self._reg,
+                               fingerprint=lambda: self.params_fingerprint,
+                               clock=clock, faults=self._faults)
+        self._batcher: Optional[MicroBatcher] = None
+        self._cont: Optional[ContinuousBatcher] = None
+        if self._mode == "continuous":
+            # engine= injects a stub (tests); the real slot engine is
+            # ROADMAP_SLOTS, refused above
+            self._cont = ContinuousBatcher(hps, self._queue, engine,
+                                           registry=self._reg,
+                                           faults=self._faults)
+        else:
+            self._batcher = MicroBatcher(hps, vocab, self._queue,
+                                         registry=self._reg)
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        # failure flight recorder (OBSERVABILITY.md "Flight recorder"):
+        # per-tick/per-dispatch frames ring in memory; the serve-side
+        # triggers (dispatch failure, breaker open, eviction storm) dump
+        # them next to the decode output.  Needs a directory to land in:
+        # the decoder's decode dir when it has one, else the job's log
+        # root; stub wirings with neither run without a recorder.
+        if self._reg.enabled and getattr(hps, "flight_frames", 0) > 0:
+            flight_dir = getattr(decoder, "_decode_dir", None)
+            if flight_dir is None and hps.log_root:
+                flight_dir = os.path.join(hps.log_root,
+                                          hps.exp_name or "exp")
+            if flight_dir:
+                flightrec.install_flight_recorder(
+                    self._reg, flight_dir, capacity=hps.flight_frames)
+        # live exposition plane (/metrics, /healthz, /snapshot, /spans):
+        # off unless TS_OBS_HTTP / HParams(obs_http_port) says otherwise
+        obs_http.maybe_serve(self._reg, hps)
+        # the effective serve_mode rides /healthz beside the
+        # queue-depth/slots-free gauges, with the ACTIVE params
+        # fingerprint: an external cache tier keys on exactly what the
+        # in-process summary cache keys on, and a checkpoint reload is
+        # observable as the value changing.
+        # the eager sha (one D2H + full-tree hash) is only worth paying
+        # when something will read it: an enabled registry's /healthz,
+        # or an armed door's cache lookups (which memoize through the
+        # decoder anyway).  A dark job skips it entirely.
+        self._published_fp = (self.params_fingerprint
+                              if self._reg.enabled else "")
+        obs_http.set_health_info(self._reg, serve_mode=self._mode,
+                                 params_fingerprint=self._published_fp)
+        self._h_queue_time = self._reg.histogram(
+            "serve/time_in_queue_seconds")
+        self._h_e2e = self._reg.histogram("serve/e2e_latency_seconds")
+        self._c_done = self._reg.counter("serve/completed_total")
+        self._c_degraded = self._reg.counter("serve/degraded_total")
+        self._c_errors = self._reg.counter("serve/errors_total")
+        self._c_rows_out = self._reg.counter("serve/sink_rows_total")
+        self._c_evictions = self._reg.counter(
+            "serve/deadline_evictions_total")
+        # per-tier telemetry (SERVING.md "Quality tiers"): completions
+        # by EFFECTIVE tier, and degradations by the tier the request
+        # ASKED for — literal metric names (the obs doc-drift gate scans
+        # for literals), looked up through these dicts
+        self._c_tier_done = {
+            "beam": self._reg.counter("serve/tier_beam_total"),
+            "greedy": self._reg.counter("serve/tier_greedy_total"),
+            "spec": self._reg.counter("serve/tier_spec_total"),
+            "draft": self._reg.counter("serve/tier_draft_total"),
+        }
+        self._c_tier_degraded = {
+            "beam": self._reg.counter("serve/tier_degraded_beam_total"),
+            "spec": self._reg.counter("serve/tier_degraded_spec_total"),
+        }
+        # per-tenant cost accounting: decoded tokens charged to the
+        # tenant that asked for them (the front door's savings
+        # counterpart lives in serve/frontdoor.py)
+        self._c_tenant_tokens = self._reg.counter(
+            "serve/tenant_tokens_total")
+        # the SLO burn-rate engine (obs/slo.py; SLO_POLICY.json at the
+        # repo root): first install on this registry wins, the clock is
+        # THIS server's (virtual in the committed gate) — request
+        # resolutions feed it via queue.track_request, dispatch rounds
+        # evaluate it
+        self._c_requests = self._reg.counter("serve/requests_total")
+        slo_lib.install_slo_engine(self._reg, clock=clock)
+
+    # -- lifecycle --
+    def start(self) -> "ServingServer":
+        if self._thread is not None:
+            return self
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="serve-dispatch")
+        self._thread.start()
+        return self
+
+    def stop(self, timeout: Optional[float] = 60.0) -> None:
+        """Refuse new submits, drain everything already admitted, join.
+
+        Every admitted request still resolves (the exactly-once
+        contract survives shutdown); only if the dispatcher fails to
+        drain within `timeout` are leftovers rejected with the typed
+        ``ServeClosedError``."""
+        self._queue.close()
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=timeout)
+            if self._thread.is_alive():  # pragma: no cover - defensive
+                log.warning("serve dispatch thread still draining after "
+                            "%.0fs; rejecting leftovers", timeout or 0)
+        n = self._queue.drain_reject(
+            ServeClosedError("server stopped before this request ran"))
+        if n:
+            self._c_errors.inc(n)
+        if self._cont is not None:
+            # shutdown backstop for the prefill queue: a
+            # dispatch thread that died past its join timeout may leave
+            # prefilled-but-unslotted requests behind; their futures
+            # must resolve (fail_pending counts its own errors)
+            self._cont.fail_pending(
+                ServeClosedError("server stopped before this request ran"))
+        self._thread = None
+        # a stopped server's silence is not a failure: retire the beat
+        # so /healthz reflects the components still running
+        obs_http.retire_heartbeat(self._reg, "serve/dispatch")
+
+    @property
+    def params_fingerprint(self) -> str:
+        """The ACTIVE params fingerprint (the decoder's cached sha over
+        its current ``_params_snapshot``; "" for decoders without the
+        surface — stubs, the SLO gate's sims — which therefore cache
+        consistently under the empty fingerprint).  The summary cache's
+        lookup key (SERVING.md "Front door")."""
+        fp = getattr(self._decoder, "params_fingerprint", "")
+        return fp if isinstance(fp, str) else ""
+
+    def _publish_fingerprint(self) -> None:
+        """Refresh the /healthz fingerprint after a (possible) swap.
+        Called once per dispatch loop / tick but gated on the CHANGE:
+        the decoder's sha is memoized per params object, and the
+        health-info dict update only runs when the value moved (at
+        most once per actual reload, not per tick).  Dark registries
+        skip even the memoized read — nothing would serve the value."""
+        if not self._reg.enabled:
+            return
+        fp = self.params_fingerprint
+        if fp != self._published_fp:
+            self._published_fp = fp  # tslint: disable=TS009 — written only by the one dispatch thread
+            obs_http.set_health_info(self._reg, params_fingerprint=fp)
+
+    @property
+    def serve_mode(self) -> str:
+        return self._mode
+
+    def __enter__(self) -> "ServingServer":
+        return self.start()
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        self.stop()
+
+    def _track_request(self, fut: "ServeFuture", tenant: str,
+                       tier: str) -> "ServeFuture":
+        """Ingress accounting for one admitted future — the shared
+        ``queue.track_request`` helper (labeled requests_total + SLO
+        feed)."""
+        track_request(self._reg, self._clock, fut, tenant, tier,
+                      counter=self._c_requests)
+        return fut
+
+    # -- request API --
+    def submit(self, article: str, uuid: str = "", reference: str = "",
+               block: bool = False, timeout: Optional[float] = None,
+               tier: str = "",
+               trace: Optional[obs.TraceContext] = None,
+               tenant: str = "") -> ServeFuture:
+        """Admit one request; returns its future.
+
+        Non-blocking (default): full queue / open admission breaker
+        raises ``ServeOverloadError`` immediately — the caller sheds or
+        retries with backoff.  ``block=True`` waits up to `timeout` for
+        queue space instead (pipeline backpressure mode).
+
+        ``tier`` picks the request's quality tier
+        (beam|greedy|spec|draft, SERVING.md "Quality tiers"; "" = the
+        job's ``serve_default_tier``).  Tier problems are caller errors
+        and fail HERE, synchronously: an unknown tier, a spec/draft ask
+        against a decoder with no draft model, or a non-beam tier on a
+        continuous-mode server (the persistent slot state is fixed-beam
+        by construction).
+
+        ``tenant`` names the request's fairness/admission tenant
+        (SERVING.md "Front door"; "" = the default tenant, today's
+        behavior).  With ``serve_tenant_rate`` armed, an over-rate
+        tenant's submit sheds HERE with the typed
+        ``TenantThrottledError``; with fair weights configured, pickup
+        interleaves tenants by weight.
+
+        Front door: with the summary cache armed a hit
+        resolves the returned future SYNCHRONOUSLY (byte-identical to
+        a fresh decode of the same (article, tier, fingerprint), queue
+        untouched); with coalescing armed a duplicate of an in-flight
+        (content_hash, tier) attaches to that one computation and
+        resolves from its result.
+
+        The per-request Deadline starts NOW (enqueue), so queue wait
+        spends the ``decode_deadline_secs`` budget and an aged request
+        degrades to greedy exactly like a slow one (RESILIENCE.md).
+
+        ``trace`` injects an externally-minted TraceContext; None mints
+        a fresh per-request root."""
+        tier = tier or getattr(self._hps, "serve_default_tier", "beam")
+        if tier not in SERVE_TIERS:
+            raise ValueError(
+                f"tier must be one of {SERVE_TIERS}, got {tier!r}")
+        if self._mode == "continuous" and tier != "beam":
+            raise ValueError(
+                f"continuous serving decodes at the beam tier only (the "
+                f"resident slot state is fixed-beam); got tier={tier!r} "
+                f"— use serve_mode=microbatch for tiered requests")
+        if tier in ("spec", "draft") and not getattr(
+                self._decoder, "has_draft", False):
+            raise NotImplementedError(
+                f"tier={tier!r} needs a draft model, which the port's "
+                f"decoder does not have yet; {ROADMAP_AAN}")
+        flight = None
+        try:
+            if self._door.armed:
+                # a stopped server refuses new submits — checked
+                # BEFORE the door, or a cached article would keep
+                # "succeeding" against a dead server while uncached ones
+                # raise typed (the shutdown contract must not depend on
+                # what happens to be cached)
+                if self._queue.closed:
+                    raise ServeClosedError("serving queue is closed")
+                # tenant bucket FIRST (a throttled tenant must not probe
+                # the cache), then cache/coalescing — both before the
+                # queue, so a hit or a follower never spends queue depth
+                self._door.admit_tenant(tenant, uuid)
+                kind, val = self._door.open(article, tier, uuid, reference,
+                                            trace=trace, tenant=tenant)
+                if kind in ("hit", "follower"):
+                    return self._track_request(val, tenant, tier)
+                if kind == "leader":
+                    flight = val
+            try:
+                example = SummaryExample.build(
+                    article, [], self._vocab, self._hps,
+                    uuid=uuid, reference=reference)
+                req = ServeRequest(
+                    uuid, article, reference, example,
+                    deadline=Deadline.after(
+                        getattr(self._hps, "decode_deadline_secs", 0.0)),
+                    registry=self._reg, tier=tier, trace=trace,
+                    tenant=tenant)
+                self._queue.submit(req, block=block, timeout=timeout)
+            except BaseException as e:
+                if flight is not None:
+                    # the leader died before admission completed —
+                    # tokenization error, queue full, closed: any
+                    # follower that attached in the window fails with
+                    # the same typed cause (it asked for exactly this
+                    # computation), and the flight is retired so later
+                    # duplicates lead fresh
+                    self._door.abort(flight, e)
+                raise
+        except ServeOverloadError:
+            # a caller-visible shed (tenant throttle, open breaker,
+            # full queue) is a BAD event for the SLO burn windows:
+            # without this, total admission failure — the exact outage
+            # the engine pages on — reads as a healthy SLO because only
+            # admitted futures reach track_request's done-callback
+            track_rejection(self._reg, tenant, tier)
+            raise
+        if flight is not None:
+            self._door.commit(flight, req.future)
+        return self._track_request(req.future, tenant, tier)
+
+    def pending(self) -> int:
+        return self._queue.qsize()
+
+    # -- pipeline driving --
+    def serve(self, source: Source, sink: Optional[Sink] = None,
+              cols: Sequence[str] = SERVE_COLS, max_count: int = 0,
+              result_timeout: Optional[float] = 600.0) -> Sink:
+        """Drive a pipeline Source through the queue into a Sink.
+
+        Rows are projected to `cols` (uuid, article, reference) via the
+        source's schema, submitted with BLOCKING backpressure (a full
+        queue slows the feed instead of shedding pipeline rows), and
+        each result row (uuid, article, summary, reference) is written
+        to the sink the moment its future resolves — per-record
+        immediacy, the Issue-6 contract, but now out-of-order under
+        concurrency (rows are uuid-keyed by design).  Returns the sink
+        after every submitted row resolved; the first request failure
+        re-raises after the drain."""
+        out = sink if sink is not None else CollectionSink()
+        cols = list(cols)
+        try:
+            source.schema.select(cols)
+        except ValueError as e:
+            self._reg.counter("pipeline/feeder_errors_total").inc()
+            raise SchemaProjectionError(
+                f"source schema {source.schema!r} cannot provide serving "
+                f"columns {cols}") from e
+
+        def write_row(fut: ServeFuture) -> None:
+            if fut.error is None:
+                out.write(fut.result().as_row())
+                self._c_rows_out.inc()
+
+        futures: List[ServeFuture] = []
+        n = 0
+        for row in source.rows():
+            try:
+                uuid, article, reference = source.schema.project_row(
+                    row, cols)
+            except (IndexError, ValueError) as e:
+                self._reg.counter("pipeline/feeder_errors_total").inc()
+                raise SchemaProjectionError(
+                    f"row {row!r} does not match schema "
+                    f"{source.schema!r}") from e
+            fut = self.submit(str(article), uuid=str(uuid),
+                              reference=str(reference), block=True)
+            fut.add_done_callback(write_row)
+            futures.append(fut)
+            n += 1
+            if max_count and n >= max_count:
+                break
+        first_error: Optional[BaseException] = None
+        for fut in futures:
+            try:
+                fut.result(timeout=result_timeout)
+            except Exception as e:  # noqa: PERF203  # tslint: disable=TS005 — deferred re-raise: the first failure is raised after ALL futures drain; counting here would double serve/errors_total (the rejection site already counted)
+                if first_error is None:
+                    first_error = e
+        if first_error is not None:
+            raise first_error
+        return out
+
+    # -- dispatch loop --
+    def _tightest_deadline(self, group: List[ServeRequest]) -> Deadline:
+        """The batch runs under the most urgent member's budget: one
+        dispatch serves them all, so the least headroom decides whether
+        the whole batch degrades to greedy."""
+        bounded = [r.deadline for r in group if r.deadline.bounded]
+        if not bounded:
+            return Deadline.never()
+        return min(bounded, key=lambda d: d.remaining())
+
+    def _beat(self) -> None:
+        # one beat per dispatch-loop iteration; the shared
+        # LOOP_HEARTBEAT_PERIOD carries the jit-compile-tolerance
+        # rationale (obs/http.py) and keeps the trainer's and this
+        # loop's /healthz semantics from drifting
+        obs_http.heartbeat(self._reg, "serve/dispatch",
+                           period=obs_http.LOOP_HEARTBEAT_PERIOD)
+
+    def _run(self) -> None:
+        if self._mode == "continuous":
+            self._run_continuous()
+            return
+        t_last = time.monotonic()
+        while True:
+            self._beat()
+            group = self._batcher.next_group()
+            if group is None:
+                if self._stop.is_set() and self._queue.empty():
+                    return
+                continue
+            self._dispatch(group)
+            # burn-rate refresh once per dispatch round: the group's
+            # resolutions just landed in the SLO windows, so alert
+            # transitions (and the slo_burn flight dump) fire on the
+            # dispatch thread, deterministically per round
+            slo_lib.evaluate(self._reg)
+            if self._stop.is_set() and self._queue.empty():
+                return
+            try:
+                # hot-swap strictly BETWEEN batches; the decoder's param
+                # lock makes the (params, ckpt_name) swap atomic even
+                # against out-of-band decode_batch callers
+                t_last = self._decoder.maybe_reload_checkpoint(t_last)
+                self._publish_fingerprint()
+            except Exception:
+                # a failed reload must not kill the dispatch thread —
+                # that would hang every queued and future request; the
+                # decoder keeps serving its current params and the next
+                # reload window retries
+                self._reg.counter("serve/ckpt_reload_errors_total").inc()
+                log.exception("between-batch checkpoint reload failed; "
+                              "continuing on current params")
+                t_last = time.monotonic()
+
+    def _continuous_round(self, t_last: float, poll: float = 0.05) -> float:
+        """ONE continuous-mode scheduler round (beat -> tick -> between-
+        chunk hot-swap).  A failed tick — injected serve.dispatch fault, engine error —
+        fails the RESIDENT requests only (each resolves exactly once
+        with the typed cause) and the round returns normally, mirroring
+        the micro-batch 'a failed dispatch fails its batch only'
+        contract at slot granularity."""
+        self._beat()
+        try:
+            self._cont.tick(poll)
+        except Exception as e:  # tslint: disable=TS005 — every resident future is rejected with the typed cause and counted in serve/errors_total by fail_resident; the loop must outlive any one tick
+            flightrec.trigger(self._reg, "serve_dispatch",
+                              error=type(e).__name__)
+            n = self._cont.fail_resident(e)
+            log.exception("continuous dispatch tick failed; rejected "
+                          "%d resident request(s)", n)
+        # burn-rate refresh once per scheduler round (same rationale as
+        # the micro-batch loop's per-dispatch evaluate)
+        slo_lib.evaluate(self._reg)
+        try:
+            # same hot-swap cadence as the micro-batch loop (the
+            # decoder self-gates at 60s); a resident article picks
+            # up new params at its next chunk boundary (SERVING.md)
+            t_next = self._decoder.maybe_reload_checkpoint(t_last)
+            self._publish_fingerprint()
+            return t_next
+        except Exception:
+            self._reg.counter("serve/ckpt_reload_errors_total").inc()
+            log.exception("between-chunk checkpoint reload failed; "
+                          "continuing on current params")
+            return time.monotonic()
+
+    def _run_continuous(self) -> None:
+        """The continuous-mode dispatch loop: drive scheduler rounds
+        until stopped AND drained."""
+        t_last = time.monotonic()
+        while True:
+            t_last = self._continuous_round(t_last)
+            # drain condition: queue empty AND no residents AND no
+            # prefilled-but-unslotted requests (a tick can harvest every
+            # resident right after the prefill stage drained the
+            # queue's tail — those entries must pack on the next tick,
+            # not be rejected by stop()'s backstop)
+            if (self._stop.is_set() and self._queue.empty()
+                    and not self._cont.busy()
+                    and not self._cont.pending()):
+                return
+
+    #: deadline-pressure re-tiering per REQUESTED tier: beam falls to
+    #: the configured target, spec falls to its verify-free draft;
+    #: greedy/draft are already the floor of their branch
+    def _degrade_target(self, tier: str) -> Optional[str]:
+        if tier == "beam":
+            return self._hps.serve_degrade_tier
+        if tier == "spec":
+            return "draft"
+        return None
+
+    def _effective_tier(self, r: ServeRequest) -> tuple:
+        """(effective tier, degraded?) for one request:
+        degradation is decided PER REQUEST against its
+        own deadline, not once for the whole micro-batch, so one
+        tight-deadline member no longer drags its batchmates down to
+        greedy with it."""
+        tier = r.tier or getattr(self._hps, "serve_default_tier", "beam")
+        target = self._degrade_target(tier)
+        if target is None or not self._decoder.should_degrade(r.deadline):
+            return tier, False
+        if target in ("spec", "draft") and not getattr(
+                self._decoder, "has_draft", False):
+            target = "greedy"  # draftless jobs keep the legacy ladder
+        return target, True
+
+    def _dispatch(self, group: List[ServeRequest]) -> None:
+        now = time.monotonic()
+        # decoders without the tier surface (should_degrade — legacy
+        # stubs, custom wirings) keep the pre-tier contract: one
+        # whole-group dispatch, degradation decided inside decode_batch
+        legacy = not hasattr(self._decoder, "should_degrade")
+        #: effective tier -> [(request, degraded?)] — a mixed group
+        #: dispatches once per tier (a dispatch runs ONE compiled
+        #: program, so tiers cannot share a device batch)
+        by_tier: dict = {}
+        for r in group:
+            queue_s = now - r.enqueue_t
+            self._h_queue_time.observe(
+                queue_s,
+                trace_id=r.trace.trace_id if r.trace is not None else None)
+            if r.deadline.expired():
+                # micro-batch side of the eviction contract: a request whose
+                # budget died in the queue is resolved typed instead of
+                # burning a dispatch on an answer nobody is waiting for
+                self._c_evictions.inc()
+                obs.spans.request_event(self._reg, "evict", r.trace,
+                                        r.uuid, where="queue")
+                r.future._reject(DeadlineExceededError(
+                    f"request {r.uuid!r} deadline expired while queued"))
+                continue
+            tattr = {"tenant": r.tenant} if r.tenant else {}
+            if legacy:
+                obs.spans.request_event(
+                    self._reg, "admit", r.trace, r.uuid,
+                    queue_ms=round(queue_s * 1e3, 3), **tattr)
+                by_tier.setdefault(None, []).append((r, False))
+                continue
+            tier, degraded = self._effective_tier(r)
+            obs.spans.request_event(
+                self._reg, "admit", r.trace, r.uuid,
+                queue_ms=round(queue_s * 1e3, 3), tier=tier, **tattr)
+            by_tier.setdefault(tier, []).append((r, degraded))
+        for tier, members in by_tier.items():
+            self._dispatch_tier(tier, members)
+
+    def _dispatch_tier(self, tier: Optional[str],
+                       members: List[tuple]) -> None:
+        """One device dispatch for one tier's sub-group (tier=None is
+        the legacy whole-group path for tier-less decoders — the
+        decoder decides its own degradation from the deadline)."""
+        group = [r for r, _ in members]
+        degraded_map = {id(r): d for r, d in members}
+        # micro-batch flight frame (the per-dispatch analogue of the
+        # continuous per-tick frame), recorded before the dispatch so a
+        # failing batch leaves its own pre-failure frame behind
+        flightrec.record(self._reg, "serve_dispatch", fill=len(group),
+                         queue_depth=self._queue.qsize(),
+                         tier=tier or "legacy")
+        # per-tier micro-batch dispatch phase (obs/profile.py):
+        # one labeled phase sample per device dispatch, keyed by
+        # the effective tier so the /profile phase table splits beam
+        # from greedy from spec wall time
+        prof = profile_lib.profiler_for(self._reg)
+        t0 = prof.start()
+        try:
+            with obs.spans.span(self._reg, "serve/dispatch",
+                                fill=len(group), tier=tier or "legacy"):
+                if self._faults.fire("serve.dispatch"):
+                    raise RuntimeError("injected serve.dispatch fault")
+                batch = self._batcher.build(group)
+                deadline = self._tightest_deadline(group)
+                if tier is None:
+                    results = self._decoder.decode_batch(
+                        batch, deadline=deadline)
+                else:
+                    results = self._decoder.decode_batch(
+                        batch, deadline=deadline, tier=tier)
+            prof.end("serve/dispatch", t0)
+            if len(results) != len(group):
+                raise RuntimeError(
+                    f"decoder returned {len(results)} results for "
+                    f"{len(group)} real rows (real_mask drift?)")
+        except Exception as e:
+            # a failed dispatch fails ITS tier sub-batch only — each
+            # member resolves exactly once with the typed cause; the
+            # server lives on to serve the next group
+            flightrec.trigger(self._reg, "serve_dispatch",
+                              error=type(e).__name__, tier=tier)
+            self._c_errors.inc(len(group))
+            log.exception("serve dispatch failed; rejecting %d request(s)",
+                          len(group))
+            for r in group:
+                r.future._reject(e)
+            return
+        done_t = time.monotonic()
+        for r, res in zip(group, results):
+            degraded = degraded_map.get(id(r), False)
+            res.degraded = bool(degraded or getattr(res, "degraded",
+                                                    False))
+            if tier is None:
+                if res.degraded:  # legacy path: the decoder decided
+                    self._c_degraded.inc()
+            elif degraded:
+                # counted HERE, on successful completion, so a failed
+                # sub-dispatch can never report more degraded results
+                # than completions (same semantics as the legacy path)
+                asked = r.tier or getattr(self._hps, "serve_default_tier",
+                                          "beam")
+                self._c_degraded.inc()  # per REQUEST, not per batch
+                if asked in self._c_tier_degraded:
+                    self._c_tier_degraded[asked].inc()
+            if tier in self._c_tier_done:
+                self._c_tier_done[tier].inc()
+            # the landing bucket's exemplar is THIS request's trace_id
+            #: a fat p99 bucket on /metrics names a concrete
+            # uuid to chase through trace_summary.py --request
+            self._h_e2e.observe(
+                done_t - r.enqueue_t,
+                trace_id=r.trace.trace_id if r.trace is not None else None)
+            self._c_tenant_tokens.labels(
+                tenant=r.tenant or "default").inc(
+                len(getattr(res, "decoded_words", ()) or ()))
+            self._c_done.inc()
+            obs.spans.request_event(
+                self._reg, "finish", r.trace, r.uuid,
+                tier=tier or "legacy", degraded=bool(res.degraded))
+            r.future._resolve(res)
+
+
+__all__ = ["ServingServer", "ServeFuture", "ServeOverloadError",
+           "ServeClosedError", "SERVE_COLS"]

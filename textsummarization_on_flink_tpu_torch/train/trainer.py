@@ -32,9 +32,10 @@ the JAX package works in, so that one set of flags acts on the same
 steps in both packages: the ``train.step_nan`` fault point fires once
 per dispatch, a recovery skip discards a whole dispatch (armed recovery
 reads the metrics once per dispatch), and the checkpoint and profiler
-cadences fall on dispatch boundaries.  Not ported yet (ROADMAP.md
-queue 1, items 2d and 6): the full obs registry and flight recorder,
-the JAX profiler ledger, and the mesh.
+cadences fall on dispatch boundaries.  The trainer reports through the
+obs registry (obs/); it records no flight-recorder frames or profiler
+phases of its own yet (ROADMAP.md queue 1, item 2h).  Not ported yet:
+the mesh (item 6).
 """
 
 from __future__ import annotations
@@ -192,19 +193,26 @@ def calc_running_avg_loss(loss: float, running_avg_loss: float,
 
 class SummaryWriter:
     """JSON-lines scalar summaries under ``<directory>/events.jsonl``, one
-    ``{"step": N, name: value, ...}`` record per call, flushed at once
-    (the JAX package's records; a TensorBoard-writer stand-in)."""
+    ``{"step": N, name: value, ...}`` record per call (the JAX package's
+    records; a TensorBoard-writer stand-in).  ``flush_every=k`` buffers
+    k records per flush (``hps.summary_flush_every``; the default
+    flushes every record, as the JAX writer does)."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, flush_every: int = 1):
         os.makedirs(directory, exist_ok=True)
         self.path = os.path.join(directory, "events.jsonl")
         self._f = open(self.path, "a", encoding="utf-8")
+        self._flush_every = max(int(flush_every), 1)
+        self._unflushed = 0
 
     def scalars(self, step: int, **values: float) -> None:
         rec = {"step": int(step)}
         rec.update({k: float(v) for k, v in values.items()})
         self._f.write(json.dumps(rec) + "\n")
-        self._f.flush()
+        self._unflushed += 1
+        if self._unflushed >= self._flush_every:
+            self._f.flush()
+            self._unflushed = 0
 
     def close(self) -> None:
         self._f.close()
@@ -523,7 +531,8 @@ class Trainer:
         limit = self.hps.num_steps if num_steps is None else num_steps
         profile_dir = self.hps.profile_dir or os.environ.get(
             "TS_PROFILE_DIR", "")
-        self.writer = SummaryWriter(self.train_dir)
+        self.writer = SummaryWriter(self.train_dir,
+                                    flush_every=self.hps.summary_flush_every)
         prefetcher = DevicePrefetcher(
             self.batcher, make_transfer(self.device),
             depth=max(2, self.steps_per_dispatch + 1), registry=self._obs)
@@ -720,7 +729,7 @@ class Trainer:
                 pending, pending_steps = [], 0
                 window_t0 = time.monotonic()
             if self._profiler is not None and step > profile_stop:
-                with obs.span(self._obs, "train/profiler_capture"):
+                with obs.spans.span(self._obs, "train/profiler_capture"):
                     path = self._profiler.stop(step - 1)
                 self._profiler = None
                 profile_done = True
@@ -754,7 +763,8 @@ class Evaluator:
         self.device = resolve_device(hps.device)
         self.eval_dir = eval_dir or os.path.join(
             hps.log_root or ".", hps.exp_name or "exp", "eval")
-        self.writer = SummaryWriter(self.eval_dir)
+        self.writer = SummaryWriter(self.eval_dir,
+                                    flush_every=hps.summary_flush_every)
         self.best_saver = best_saver
         self.running_avg_loss = 0.0
         self.best_loss: Optional[float] = None
