@@ -14,7 +14,8 @@ device or without the port's sources beside it.  Phases, each fatal:
   3. hold each kernel against its plain PyTorch version on the card at
      the main paths' shapes; print errors, CUDA-event times, the bound
      (the flash kernels' operations at the f32-accurate tensor-core rate,
-     PEAK_TF32X3_OPS_PER_S) and, where one PyTorch call computes the same
+     PEAK_TF32X3_OPS_PER_S, their bf16 forms' at PEAK_BF16_OPS_PER_S)
+     and, where one PyTorch call computes the same
      function, its time; then the largest errors of the redesigned
      kernels beside those of the kernels they replaced (the flash
      kernels' f32 SIMT designs, the fused attention's two-launch design):
@@ -41,6 +42,12 @@ device or without the port's sources beside it.  Phases, each fatal:
         32, causal), the long-context shape (4 x 2048 x 8 x 128, both
         forms) and head dim 256 (16 x 400 and 16 x 100 x 2 x 256), and
         the forward's lse output at the training shapes;
+     e. the flash kernels' bf16 forms (forward, dK/dV, dQ; the
+        transformer under --compute_dtype=bfloat16) against their plain
+        bf16 versions within FLASH_BF16_ULPS bf16 ulps at 16 x 400 x 8 x
+        32 (key mask), 16 x 100 x 8 x 32 (causal), 4 x 2048 x 8 x 128
+        (both) and 16 x 400 x 2 x 256, timed beside
+        scaled_dot_product_attention in bf16 (phase_flash_bf16);
   4. for each model family, check the beam search on the card against the
      plain CPU path on a small input (same tokens), and three train steps
      of a small model on the card against the CPU (same losses within
@@ -62,9 +69,17 @@ device or without the port's sources beside it.  Phases, each fatal:
      train_main_path_hps); check the launches (pointer-generator: 100
      fused forward and 100 fused backward per step; transformer: 12
      flash forward, 12 dK/dV and 12 dQ per step, 6 encoder + 6 decoder
-     layers), finite and falling losses, a restorable
+     layers), finite losses, the objective lower after the run than
+     before on one fixed batch (fixed_batch_losses), a restorable
      ``model.ckpt-10.npz`` and the vocabulary metadata; print the warm
-     step time, target tokens/s and the peak device memory;
+     step time, target tokens/s and the peak device memory; then the
+     transformer under --compute_dtype=bfloat16 (phase_transformer_bf16):
+     a decode of 16 articles (6 bf16 flash launches per batch, no f32
+     one), 10 train steps with --loss_chunk=10 (12 + 12 + 12 bf16
+     launches per step; peak memory and warm step beside the f32 run's),
+     2 steps under --remat (24 bf16 forward launches per step) and a
+     small-width card-vs-CPU check of a bf16 train step and of a bf16
+     decode's first-step distributions;
   6. drive the pipeline layer, the reference's own main path, through
      ``App``: ``start_training`` fits the pointer-generator at the
      training width from a CollectionSource of 64 synthetic rows (4
@@ -132,6 +147,9 @@ PEAK_F32_OPS_PER_S = 67e12
 # so the least time for their operations is at 495 TFLOP/s (dense TF32)
 # over 3.  The f32 rate above would let a 3xTF32 kernel beat its bound.
 PEAK_TF32X3_OPS_PER_S = 495e12 / 3
+# The flash kernels' bf16 forms multiply bf16 operands on the tensor cores
+# (kernels/mma_bf16.cuh): dense bf16, 989 TFLOP/s
+PEAK_BF16_OPS_PER_S = 989e12
 
 # each flash kernel's largest error against its plain version over phase
 # 3's shapes with the f32 SIMT kernels, before the 3xTF32 redesign
@@ -144,6 +162,12 @@ SIMT_MAX_ABS_ERR = dict(forward=1.6e-6, dq=3.2e-6, dk=2.9e-6, dv=2.4e-6)
 PR4_FUSED_MAX_ABS_ERR = 1.79e-7
 
 ATTN_TOL = 1e-5  # f32 math on both sides; only the order of sums differs
+# the flash kernels' bf16 forms against their plain bf16 versions: within
+# this many bf16 ulps of the tensor's largest |value| (both round P and
+# dS to bf16 at the same points, the forward against the online
+# softmax's running max where the plain version takes the row max, and
+# the f32 sums before each final rounding run in other orders)
+FLASH_BF16_ULPS = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -503,11 +527,13 @@ def flash_inputs(B, T, nh, hd, seed, masked):
 
 def flash_bound_ms(q, key_mask, causal):
     """Least time for the function on an H100: the larger of bytes moved
-    (q, k, v and the mask read once, the output written once) over the
-    memory rate and the operations this run's data needs over the
-    f32-accurate tensor-core rate (PEAK_TF32X3_OPS_PER_S): 4 * hd
-    operations (two multiply-adds) per (query row, head, key it may
-    attend), counted from the mask and the causal triangle."""
+    (q, k, v and the mask read once, the output written once; q's element
+    size for q, k, v and out, 4 bytes for the mask) over the memory rate
+    and the operations this run's data needs over the tensor-core rate
+    of q's dtype (PEAK_TF32X3_OPS_PER_S for f32, the 3xTF32 rate;
+    PEAK_BF16_OPS_PER_S for bf16): 4 * hd operations (two multiply-adds)
+    per (query row, head, key it may attend), counted from the mask and
+    the causal triangle."""
     import torch
 
     B, T, nh, hd = q.shape
@@ -518,12 +544,20 @@ def flash_bound_ms(q, key_mask, causal):
     else:
         pairs = float(keys.sum()) * T
     ops = 4 * hd * nh * pairs
-    nbytes = 4 * 4 * B * T * nh * hd + (4 * B * T if key_mask is not None
-                                        else 0)
+    nbytes = 4 * q.element_size() * B * T * nh * hd + (
+        4 * B * T if key_mask is not None else 0)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_TF32X3_OPS_PER_S * 1e3
+    t_ops = ops / flash_peak_ops(q) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
             nbytes, ops)
+
+
+def flash_peak_ops(q):
+    """The tensor-core rate of the flash kernels' form for q's dtype."""
+    import torch
+
+    return (PEAK_BF16_OPS_PER_S if q.dtype == torch.bfloat16
+            else PEAK_TF32X3_OPS_PER_S)
 
 
 def phase_flash(seed):
@@ -591,19 +625,21 @@ def flash_bwd_bounds(q, key_mask, causal):
     updates) over q, k, v, out, dO, lse, the mask and dq, dk, dv; the
     dK/dV kernel's function, 8 * hd over q, k, v, dO, lse, D, the mask and
     dk, dv; the dQ kernel's, 6 * hd over q, k, v, dO, lse, D, the mask
-    and dq.  Operations at PEAK_TF32X3_OPS_PER_S, for all three.  Returns
-    {name: (ms, bound_by)}."""
+    and dq.  Operations at the rate of q's dtype (flash_peak_ops), for
+    all three; [B, T, nh, hd] tensors at q's element size, lse, D and the
+    mask at 4 bytes.  Returns {name: (ms, bound_by)}."""
     B, T, nh, hd = q.shape
     _, _, _, fwd_ops = flash_bound_ms(q, key_mask, causal)
     head_pairs = fwd_ops / (4 * hd)  # (row, head, attended key) triples
-    big = 4 * B * T * nh * hd  # bytes of one [B, T, nh, hd] f32 tensor
+    # bytes of one [B, T, nh, hd] tensor
+    big = q.element_size() * B * T * nh * hd
     row = 4 * B * T * nh  # one [B, T, nh] f32 tensor
     mask = 4 * B * T if key_mask is not None else 0
     out = {}
     for name, n_big, n_row, ops_per in (("backward", 8, 1, 10),
                                         ("dkv", 6, 2, 8), ("dq", 5, 2, 6)):
         t_bytes = (n_big * big + n_row * row + mask) / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops_per * hd * head_pairs / PEAK_TF32X3_OPS_PER_S * 1e3
+        t_ops = ops_per * hd * head_pairs / flash_peak_ops(q) * 1e3
         out[name] = (max(t_bytes, t_ops),
                      "bytes" if t_bytes >= t_ops else "operations")
     return out
@@ -716,6 +752,127 @@ def phase_flash_bwd(seed):
     return rows, worst
 
 
+def flash_bf16_err(got, want):
+    """(largest absolute error, the same in bf16 ulps of want's largest
+    |value|) of a bf16 kernel output against its plain version."""
+    err = float((got.float() - want.float()).abs().max())
+    top = bf16_ulp(want.float().abs().max().reshape(1))
+    return err, err / float(top[0])
+
+
+def phase_flash_bf16(seed):
+    """The flash kernels' bf16 forms (the transformer under
+    --compute_dtype=bfloat16) against their plain bf16 versions at the
+    transformer's shapes: the encoder's (16 x 400 x 8 x 32, key mask,
+    article 1 empty), the training decoder's (16 x 100 x 8 x 32, causal),
+    the long-context shape (4 x 2048 x 8 x 128, key mask and causal) and
+    head dim 256 (16 x 400 x 2 x 256, key mask).  out, dq, dk and dv
+    within FLASH_BF16_ULPS bf16 ulps of the tensor's largest |value|,
+    lse (f32) within ATTN_TOL * max(1, |lse|); an empty article's
+    outputs zeros.  Times: the forward (the serving form, no lse), the
+    dK/dV and dQ kernels, the plain forward and whole backward, and
+    scaled_dot_product_attention's forward and backward in bf16 (the
+    library column, for time only); bounds at PEAK_BF16_OPS_PER_S with
+    2-byte q, k, v, out, dO and gradients.  Returns ({shape: row},
+    {kernel: (largest error, in ulps)})."""
+    import torch
+    import torch.nn.functional as F
+
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
+    cases = [(16, 400, 8, 32, False), (16, 100, 8, 32, True),
+             (4, 2048, 8, 128, False), (4, 2048, 8, 128, True),
+             (16, 400, 2, 256, False)]
+    rows = {}
+    worst = dict(forward=(0.0, 0.0), dkv=(0.0, 0.0), dq=(0.0, 0.0))
+    bf16 = torch.bfloat16
+    for (B, T, nh, hd, causal) in cases:
+        q, k, v, mask = flash_inputs(B, T, nh, hd, seed, not causal)
+        q, k, v = (x.to(bf16) for x in (q, k, v))
+        scale = hd ** -0.5
+        out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
+                                  with_lse=True)
+        serve_out = fl._flash_cuda(q, k, v, mask, causal, scale)
+        do = torch.randn(q.shape, device="cuda").to(bf16)
+        dq, dk, dv = fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, causal,
+                                        scale)
+        ref = fl._flash_plain(q, k, v, mask, causal, scale)
+        lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
+        want = fl._flash_bwd_plain(q, k, v, out, lse_p, do, mask, causal,
+                                   scale)
+        torch.cuda.synchronize()
+        errs = {name: flash_bf16_err(g, w) for name, g, w in (
+            ("out", out, ref), ("serve_out", serve_out, ref),
+            ("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2]))}
+        finite_lse = torch.isfinite(lse_p)
+        lse_err = float(torch.where(finite_lse, lse - lse_p, 0.0)
+                        .abs().max())
+        lse_tol = ATTN_TOL * max(1.0, float(torch.where(
+            finite_lse, lse_p, 0.0).abs().max()))
+        outs = (out, serve_out, dq, dk, dv)
+        finite = all(bool(torch.isfinite(x.float()).all()) for x in outs)
+        right_dtype = all(x.dtype == bf16 for x in outs)
+        empty_zero = mask is None or all(float(x[1].float().abs().max())
+                                         == 0.0 for x in outs)
+        dsum = torch.sum(do.float() * out.float(), dim=-1)
+        ms = time_cuda(lambda: fl._flash_cuda(q, k, v, mask, causal, scale),
+                       20, flush)
+        plain_ms = time_cuda(lambda: fl._flash_plain(q, k, v, mask, causal,
+                                                     scale), 10, flush)
+        dkv_ms = time_cuda(lambda: fl._bwd_dkv_cuda(
+            q, k, v, do, lse, dsum, mask, causal, scale), 20, flush)
+        dq_ms = time_cuda(lambda: fl._bwd_dq_cuda(
+            q, k, v, do, lse, dsum, mask, causal, scale), 20, flush)
+        bwd_plain_ms = time_cuda(lambda: fl._flash_bwd_plain(
+            q, k, v, out, lse_p, do, mask, causal, scale), 10, flush)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # [B,nh,T,hd]
+        bool_mask = None if mask is None else (mask > 0)[:, None, None, :]
+        with torch.no_grad():
+            library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=bool_mask, is_causal=causal,
+                scale=scale), 20, flush)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+        lib_out = F.scaled_dot_product_attention(
+            qg, kg, vg, attn_mask=bool_mask, is_causal=causal, scale=scale)
+        do_t = do.transpose(1, 2)
+        bwd_library_ms = time_cuda(lambda: torch.autograd.grad(
+            lib_out, (qg, kg, vg), do_t, retain_graph=True), 20, flush)
+        bound, by, nbytes, ops = flash_bound_ms(q, mask, causal)
+        bounds = flash_bwd_bounds(q, mask, causal)
+        row = dict(shape=f"{B}x{T}x{nh}x{hd}", causal=causal,
+                   key_mask=mask is not None,
+                   max_abs_err={k: e for k, (e, _) in errs.items()},
+                   bf16_ulps={k: u for k, (_, u) in errs.items()},
+                   lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
+                   library_ms=library_ms, bound_ms=bound, bound_by=by,
+                   bytes=nbytes, ops=ops, dkv_ms=dkv_ms, dq_ms=dq_ms,
+                   bwd_plain_ms=bwd_plain_ms, bwd_library_ms=bwd_library_ms,
+                   dkv_bound_ms=bounds["dkv"][0],
+                   dkv_bound_by=bounds["dkv"][1],
+                   dq_bound_ms=bounds["dq"][0], dq_bound_by=bounds["dq"][1],
+                   bwd_bound_ms=bounds["backward"][0],
+                   bwd_bound_by=bounds["backward"][1])
+        print("flash_bf16 " + json.dumps(row))
+        check(finite, f"non-finite bf16 flash output at {row}")
+        check(right_dtype, f"bf16 flash outputs not in bf16 at {row}")
+        check(empty_zero, f"empty article's bf16 outputs not zero at {row}")
+        check(bool((torch.isinf(lse) == ~finite_lse).all()),
+              f"bf16 lse sentinel rows differ at {row}")
+        check(lse_err <= lse_tol, f"bf16 lse disagrees at {row}")
+        for name, (err, ulps) in errs.items():
+            check(ulps <= FLASH_BF16_ULPS,
+                  f"bf16 flash {name} {ulps} ulps from plain (> "
+                  f"{FLASH_BF16_ULPS}) at {row}")
+        for kernel, names in (("forward", ("out", "serve_out")),
+                              ("dkv", ("dk", "dv")), ("dq", ("dq",))):
+            worst[kernel] = tuple(max(worst[kernel][i],
+                                      *(errs[n][i] for n in names))
+                                  for i in (0, 1))
+        rows[row["shape"] + ("c" if causal else "")] = row
+    return rows, worst
+
+
 def kernel_module(family):
     """The ops module whose kernel the family's decode path launches."""
     if family == "transformer":
@@ -821,7 +978,8 @@ def small_train_batches(hps, seed, n):
 def launch_counts():
     """Every kernel wrapper's launch count: the fused attention's forward
     and backward (and of those, the launches on a bf16 encoder stream),
-    the flash forward, dK/dV and dQ."""
+    the flash forward, dK/dV and dQ (and of those, the launches of their
+    bf16 forms)."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
@@ -829,7 +987,10 @@ def launch_counts():
                 fused_bf16=fa.launches_bf16,
                 fused_bwd_bf16=fa.launches_bwd_bf16,
                 flash_forward=fl.launches, flash_bwd_dkv=fl.launches_bwd_dkv,
-                flash_bwd_dq=fl.launches_bwd_dq)
+                flash_bwd_dq=fl.launches_bwd_dq,
+                flash_forward_bf16=fl.launches_bf16,
+                flash_bwd_dkv_bf16=fl.launches_bwd_dkv_bf16,
+                flash_bwd_dq_bf16=fl.launches_bwd_dq_bf16)
 
 
 def reset_launch_counts():
@@ -839,6 +1000,7 @@ def reset_launch_counts():
     fa.launches = fa.launches_bwd = 0
     fa.launches_bf16 = fa.launches_bwd_bf16 = 0
     fl.launches = fl.launches_bwd_dkv = fl.launches_bwd_dq = 0
+    fl.launches_bf16 = fl.launches_bwd_dkv_bf16 = fl.launches_bwd_dq_bf16 = 0
 
 
 def expected_train_launches(hps, steps):
@@ -847,14 +1009,20 @@ def expected_train_launches(hps, steps):
     forward twice (a non-reentrant checkpoint reruns each layer's forward
     in the backward, tests/test_torch_byte_diet.py counts it); the
     pointer-generator the fused attention forward and backward once per
-    decoder step (its --remat recomputes only the loss head)."""
+    decoder step (its --remat recomputes only the loss head).  Under
+    --compute_dtype=bfloat16 every launch takes the bf16 form."""
     counts = dict(fused=0, fused_bwd=0, fused_bf16=0, fused_bwd_bf16=0,
-                  flash_forward=0, flash_bwd_dkv=0, flash_bwd_dq=0)
+                  flash_forward=0, flash_bwd_dkv=0, flash_bwd_dq=0,
+                  flash_forward_bf16=0, flash_bwd_dkv_bf16=0,
+                  flash_bwd_dq_bf16=0)
     if hps.model_family == "transformer":
         for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
             counts[k] = (hps.enc_layers + hps.dec_layers) * steps
         if hps.remat:
             counts["flash_forward"] *= 2
+        if hps.compute_dtype == "bfloat16":
+            for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
+                counts[k + "_bf16"] = counts[k]
     else:
         counts["fused"] = counts["fused_bwd"] = hps.max_dec_steps * steps
         if hps.compute_dtype == "bfloat16":  # every launch on a bf16 stream
@@ -942,8 +1110,9 @@ def phase_main_path(seed, n_articles, work, device="cuda",
                     family="pointer_generator", compute_dtype="float32",
                     widths=None):
     """cli.main at full width; returns the launch and timing summary.
-    With compute_dtype="bfloat16" (the pointer-generator) the encoder
-    stream is bf16 and every fused launch takes the kernel's bf16 form.
+    With compute_dtype="bfloat16" the pointer-generator's encoder stream
+    is bf16 and every fused launch takes the kernel's bf16 form, and the
+    transformer's every flash launch takes the forward's bf16 form.
     ``widths`` replaces fields of main_path_hps (another width of the
     family).  (device="cpu" rehearses the control flow without a
     card.)"""
@@ -1033,12 +1202,16 @@ def phase_main_path(seed, n_articles, work, device="cuda",
         n_tokens += len(toks)
     batch_s = [float(s) for _, s in handler.batches]
     n_batches = len(batch_s)
+    bf16 = compute_dtype == "bfloat16"
     if family == "transformer":
-        launches = flash
+        launches, bf16_launches = flash, launched["flash_forward_bf16"]
         check(flash > 0, "the flash attention kernel never launched")
         check(flash == hps.enc_layers * n_batches,
               f"{flash} flash launches for {n_batches} batches (expected "
               f"{hps.enc_layers} per batch, one per encoder layer)")
+        check(bf16_launches == (flash if bf16 else 0),
+              f"{bf16_launches} of {flash} flash launches took the bf16 "
+              f"form in a {compute_dtype} decode")
         check(fused == 0, f"{fused} fused-attention launches in the "
                           f"transformer path")
     else:
@@ -1049,15 +1222,14 @@ def phase_main_path(seed, n_articles, work, device="cuda",
               f"(expected 2 per step)")
         check(flash == 0, f"{flash} flash launches in the "
                           f"pointer-generator path")
-        bf16 = compute_dtype == "bfloat16"
+        bf16_launches = launched["fused_bf16"]
         check(launched["fused_bf16"] == (fused if bf16 else 0),
               f"{launched['fused_bf16']} of {fused} fused launches took a "
               f"bf16 encoder stream in a {compute_dtype} decode")
     summary = dict(family=family, compute_dtype=compute_dtype,
                    widths=widths, articles=n_articles, batches=n_batches,
                    batch_seconds=batch_s, decode_steps=steps,
-                   kernel_launches=launches,
-                   bf16_launches=launched["fused_bf16"],
+                   kernel_launches=launches, bf16_launches=bf16_launches,
                    launches_per_batch=launches / max(n_batches, 1),
                    decoded_tokens=n_tokens,
                    tokens_per_s=n_tokens / sum(batch_s),
@@ -1138,6 +1310,33 @@ def train_main_path_hps(family):
     return hps.replace(lr=0.015) if family == "transformer" else hps
 
 
+def fixed_batch_losses(argv, params, device):
+    """The training objective, under the flags ``argv`` of a cli.main
+    training run, of the run's fresh params (from its --seed) and of
+    ``params``, on one batch: the first of the run's data, read in one
+    pass (one example thread, the files in order).  Returns [fresh,
+    params]."""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.config import HParams
+    from textsummarization_on_flink_tpu_torch.data.batcher import Batcher
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.train import (
+        trainer as trainer_lib,
+    )
+
+    hps = HParams.from_argv(argv)
+    vocab = Vocab(hps.vocab_path, hps.vocab_size)
+    batch = Batcher(hps.data_path, vocab, hps, single_pass=True).next_batch()
+    arrays = trainer_lib.batch_to_device(batch.as_arrays(),
+                                         torch.device(device))
+    fresh = trainer_lib.init_train_state(hps, vocab.size(),
+                                         device=torch.device(device)).params
+    loss_fn = trainer_lib.make_loss_fn(hps)
+    with torch.no_grad():
+        return [float(loss_fn(p, arrays)[0]) for p in (fresh, params)]
+
+
 def phase_train_main_path(seed, work, steps=10, device="cuda",
                           family="transformer", extra=None, fires=0,
                           expect_kernels=True):
@@ -1199,13 +1398,20 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
     check(len(losses) == steps, f"{len(losses)} logged losses for {steps} "
                                 f"steps")
     check(all(np.isfinite(losses)), f"non-finite loss in {losses}")
-    check(steps < 5 or float(np.mean(losses[-3:])) < losses[0],
-          f"losses did not fall: {losses}")
     train_dir = os.path.join(work, "exp", "train")
     path = os.path.join(train_dir, f"model.ckpt-{steps}.npz")
     check(os.path.exists(path), f"{path} was not written")
-    restored = ckpt_lib.Checkpointer(train_dir).restore(path)
+    restored = ckpt_lib.Checkpointer(train_dir).restore(path, device=device)
     check(restored.step == steps, f"restored step {restored.step}")
+    # the logged losses are of a different batch each step, in the
+    # threaded batcher's nondeterministic order, and vary more from batch
+    # to batch than 10 steps lower them: the fall is read on one batch
+    fixed = None
+    if steps >= 5:
+        fixed = fixed_batch_losses(argv, restored.params, device)
+        check(fixed[1] < fixed[0], f"the loss did not fall on a fixed "
+                                   f"batch: {fixed[0]} before training, "
+                                   f"{fixed[1]} after")
     check(os.path.exists(os.path.join(train_dir, "vocab_metadata.tsv")),
           "no vocab_metadata.tsv beside the checkpoints")
     n_batches = reg.counter("train/batches_total").value
@@ -1221,8 +1427,8 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
                    launches=launched,
                    launches_per_step={k: v / (steps + fires)
                                       for k, v in launched.items()},
-                   losses=losses, step_seconds=seconds,
-                   warm_median_step_s=warm_s,
+                   losses=losses, fixed_batch_losses=fixed,
+                   step_seconds=seconds, warm_median_step_s=warm_s,
                    target_tokens_per_step=tokens_per_step,
                    target_tokens_per_s=tokens_per_step / warm_s,
                    max_memory_allocated_bytes=peak, cli_wall_s=wall,
@@ -1240,6 +1446,176 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
                    card=card_line() if device == "cuda" else None)
     print("train_main_path " + json.dumps(summary))
     return summary
+
+
+def phase_small_bf16_transformer(seed):
+    """A small transformer under --compute_dtype=bfloat16 on the card (the
+    flash kernels' bf16 forms, bf16 GEMMs) against --device=cpu (the plain
+    bf16 versions), from one numpy params tree:
+
+      * one train step (--loss_chunk=5, coverage on): the loss and every
+        new param and accumulator within 4 times the CPU's own distance
+        between its bf16 and f32 steps, the rule of the CPU tests against
+        the JAX package (the card's GEMMs round bf16 at other places);
+        exactly one bf16 forward, dK/dV and dQ launch per layer;
+      * beam decode from a sharpened checkpoint: the first step's top-k
+        log-probs (the step's distributions) within 4 times the CPU's own
+        bf16-to-f32 distance and the same best ids, and the share of
+        equal tokens over whole summaries reported, not held (bf16
+        rounding may split near-equal beams later on)."""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.decode.beam_search import (
+        _to_device,
+    )
+    from textsummarization_on_flink_tpu_torch.models import transformer as tfm
+    from textsummarization_on_flink_tpu_torch.params import (
+        from_numpy_tree,
+        init_numpy_params,
+        tree_leaves,
+    )
+    from textsummarization_on_flink_tpu_torch.train import trainer
+
+    hps = small_hps("transformer").replace(
+        mode="train", coverage=True, compute_dtype="bfloat16", loss_chunk=5)
+    p = init_numpy_params(hps, hps.vocab_size, seed)
+    arrays = small_train_batches(hps, seed, 1)[0]
+    runs = {}
+    for name, dev, dt in (("card", "cuda", "bfloat16"),
+                          ("cpu", "cpu", "bfloat16"),
+                          ("cpu32", "cpu", "float32")):
+        h = hps.replace(device=dev, compute_dtype=dt)
+        state = trainer.init_train_state(h, h.vocab_size, params=p)
+        before = launch_counts()
+        state, m = trainer.train_step(h, state, _to_device(arrays, dev))
+        launched = {k: v - before[k] for k, v in launch_counts().items()}
+        runs[name] = (float(m.loss), [
+            x.detach().float().cpu().numpy() for x in
+            tree_leaves(state.params)
+            + tree_leaves(state.opt_state.accumulators)], launched)
+    (g_loss, g_leaves, launched), (c_loss, c_leaves, _), (f_loss, f_leaves,
+                                                          _) = (
+        runs["card"], runs["cpu"], runs["cpu32"])
+    loss_bound = 4 * abs(c_loss - f_loss) + 1e-5
+    leaf_ok = all(
+        float(np.max(np.abs(g - c))) <= 4 * float(np.max(np.abs(c - f)))
+        + 1e-5 * max(1.0, float(np.max(np.abs(c))))
+        for g, c, f in zip(g_leaves, c_leaves, f_leaves))
+    want = expected_train_launches(hps, 1)
+
+    # decode: the first step's distributions, then whole summaries
+    dhps = small_hps("transformer").replace(compute_dtype="bfloat16")
+    dp = init_numpy_params(dhps, dhps.vocab_size, seed)
+    dp["embedding"] *= 30.0  # tied: also sharpens the vocab scores
+    dp["out_bias"][3] = 3.0  # STOP
+    rng = np.random.default_rng(seed)
+    B, T = dhps.batch_size, dhps.max_enc_steps
+    lens = rng.integers(T // 2, T + 1, B)
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    ids = np.where(mask > 0, rng.integers(4, dhps.vocab_size, (B, T)), 1)
+    ext = np.where((rng.random((B, T)) < 0.2) & (mask > 0),
+                   dhps.vocab_size + rng.integers(0, 4, (B, T)), ids)
+    darrays = dict(enc_batch=ids.astype(np.int32),
+                   enc_lens=lens.astype(np.int32), enc_padding_mask=mask,
+                   enc_batch_extend_vocab=ext.astype(np.int32))
+    first = {}
+    for name, dev, dt in (("card", "cuda", "bfloat16"),
+                          ("cpu", "cpu", "bfloat16"),
+                          ("cpu32", "cpu", "float32")):
+        h = dhps.replace(compute_dtype=dt)
+        tp = from_numpy_tree(dp, torch.device(dev))
+        a = _to_device(darrays, dev)
+        with torch.no_grad():
+            enc = tfm.beam_encode(tp, h, a)
+            init_state, step = tfm.beam_adapter(h)
+            o = step(tp, enc, a["enc_padding_mask"],
+                     a["enc_batch_extend_vocab"],
+                     torch.zeros(B, dtype=torch.long, device=dev),
+                     torch.full((B, h.beam_size), 2, dtype=torch.long,
+                                device=dev), init_state(tp, enc))
+        first[name] = (o.topk_ids.cpu().numpy(),
+                       o.topk_log_probs.float().cpu().numpy())
+    step_bound = 4 * float(np.max(np.abs(first["cpu"][1]
+                                         - first["cpu32"][1]))) + 1e-5
+    step_err = float(np.max(np.abs(first["card"][1] - first["cpu"][1])))
+    best_equal = bool(np.array_equal(first["card"][0][..., 0],
+                                     first["cpu"][0][..., 0]))
+    cpu = beam_search.run_beam_search(from_numpy_tree(dp, "cpu"), dhps,
+                                      darrays)
+    before = launch_counts()
+    gpu = beam_search.run_beam_search(
+        from_numpy_tree(dp, torch.device("cuda")), dhps, darrays)
+    dec_launched = {k: v - before[k] for k, v in launch_counts().items()}
+    equal_share = float(np.mean(cpu.tokens == gpu.tokens))
+    row = dict(cpu_loss=c_loss, card_loss=g_loss, cpu_f32_loss=f_loss,
+               loss_abs_diff=abs(g_loss - c_loss), loss_bound=loss_bound,
+               leaves_within_bound=leaf_ok, train_launches=launched,
+               first_step_logprob_abs_diff=step_err,
+               first_step_bound=step_bound, first_step_best_ids_equal=best_equal,
+               decode_launches=dec_launched,
+               summary_token_equal_share=equal_share,
+               card_lengths=gpu.length.tolist(),
+               cpu_lengths=cpu.length.tolist())
+    print("small_bf16_transformer " + json.dumps(row))
+    check(launched == want, f"bf16 small train step launched {launched}, "
+                            f"expected {want}")
+    check(abs(g_loss - c_loss) <= loss_bound,
+          f"bf16 card loss {g_loss} vs CPU {c_loss} beyond {loss_bound}")
+    check(leaf_ok, "bf16 card params or accumulators beyond 4x the CPU's "
+                   "own bf16-to-f32 distance")
+    check(step_err <= step_bound, f"bf16 first-step log-probs differ by "
+                                  f"{step_err} > {step_bound}")
+    check(best_equal, "bf16 first-step best ids differ card vs CPU")
+    check(dec_launched["flash_forward_bf16"] == dhps.enc_layers
+          and dec_launched["flash_forward"] == dhps.enc_layers,
+          f"bf16 small decode launched {dec_launched}")
+    return row
+
+
+def phase_transformer_bf16(seed, f32_train, device="cuda"):
+    """The transformer under --compute_dtype=bfloat16 at the reference
+    width through cli.main, each run with its launch counts set to 0 just
+    before and read just after:
+
+      * a decode of 16 articles (phase_main_path): exactly 6 bf16 flash
+        forward launches per batch and none of the f32 form;
+      * 10 train steps with --loss_chunk=10: exactly 12 + 12 + 12 bf16
+        launches per step (forward, dK/dV, dQ) and none of the f32 forms,
+        losses finite, falling on a fixed batch; the peak memory and the
+        warm median step beside the f32 transformer run's (``f32_train``,
+        phase_train_main_path's summary);
+      * 2 steps under --remat: 24 bf16 forward launches per step;
+      * the small-width card-vs-CPU checks of
+        phase_small_bf16_transformer.
+
+    (device="cpu" rehearses the control flow without a card, without the
+    card-vs-CPU checks.)"""
+    tf = "transformer"
+    flags = dict(compute_dtype="bfloat16", loss_chunk=10)
+    decode = _in_work("tf_decode_bf16", lambda w: phase_main_path(
+        seed, 16, w, device=device, family=tf, compute_dtype="bfloat16"))
+    train = _in_work("tf_train_bf16", lambda w: phase_train_main_path(
+        seed, w, device=device, family=tf, extra=flags))
+    remat = _in_work("tf_remat_bf16", lambda w: phase_train_main_path(
+        seed, w, steps=2, device=device, family=tf,
+        extra=dict(flags, remat=1)))
+    small = phase_small_bf16_transformer(seed) if device == "cuda" else None
+    summary = dict(
+        decode_batch_seconds=decode["batch_seconds"],
+        decode_launches_per_batch=decode["launches_per_batch"],
+        decode_bf16_launches=decode["bf16_launches"],
+        train_warm_median_step_s=train["warm_median_step_s"],
+        f32_train_warm_median_step_s=f32_train["warm_median_step_s"],
+        train_target_tokens_per_s=train["target_tokens_per_s"],
+        train_peak_bytes=train["max_memory_allocated_bytes"],
+        f32_train_peak_bytes=f32_train["max_memory_allocated_bytes"],
+        train_launches_per_step=train["launches_per_step"],
+        train_losses=train["losses"], remat_losses=remat["losses"],
+        remat_launches_per_step=remat["launches_per_step"],
+        small=small)
+    print("transformer_bf16 " + json.dumps(summary))
+    return dict(decode=decode, train=train, remat=remat, small=small)
 
 
 def pipeline_hps(work, seed, device="cuda"):
@@ -1403,10 +1779,10 @@ def phase_byte_diet(seed, materialised, device="cuda"):
     to 0 just before and read just after:
 
       * 10 steps with BYTE_DIET_FLAGS: every fused launch, forward and
-        backward, on a bf16 stream (100 + 100 per step); losses finite and
-        falling; the peak memory beside the materialised run's, and the
-        median step time of the 2-step metrics windows beside the
-        materialised run's over the same windows;
+        backward, on a bf16 stream (100 + 100 per step); losses finite,
+        falling on a fixed batch; the peak memory beside the materialised
+        run's, and the median step time of the 2-step metrics windows
+        beside the materialised run's over the same windows;
       * 3 steps of the f32 streaming loss (--loss_chunk=10) beside 3
         steps of the materialised loss, both --single_pass=1 (one example
         thread, the files in order, no batch shuffle: the same batches)
@@ -1996,6 +2372,7 @@ def main(argv=None) -> int:
     bwd_att_rows, bwd_att_worst = phase_attention_bwd(args.seed)
     flash_row, flash_hd256, flash_worst = phase_flash(args.seed)
     bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
+    fb_rows, fb_worst = phase_flash_bf16(args.seed)
     errors = {name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
               for name, now in (("forward", flash_worst),
                                 ("dq", bwd_worst["dq"]),
@@ -2016,6 +2393,7 @@ def main(argv=None) -> int:
         train[family] = _in_work("train_" + family, lambda w:
                                  phase_train_main_path(args.seed, w,
                                                        family=family))
+    tf_bf16 = phase_transformer_bf16(args.seed, train["transformer"])
     pipe = _in_work("pipeline", lambda w: phase_pipeline(args.seed, w))
     diet = phase_byte_diet(args.seed, train["pointer_generator"])
     scored = _in_work("rouge", lambda w: phase_rouge_decode(args.seed, w))
@@ -2184,6 +2562,49 @@ def main(argv=None) -> int:
                              else bwd_hd256["max_abs_err_dq"]),
                 launches=hd256_train[f"flash_bwd_{key}"]),
             redesigned="PR 4" if key == "dkv" else "PR 5"))
+    # the bf16 forms (the transformer under --compute_dtype=bfloat16): the
+    # encoder's shape as the headline, every shape of phase_flash_bf16
+    # beside it, and the f32 form's time at the headline shape
+    fb_main = fb_rows["16x400x8x32"]
+    bf16_train = tf_bf16["train"]["launches"]
+    bf16_remat = tf_bf16["remat"]["launches"]
+    lib_call = ("textsummarization_on_flink_tpu/models/transformer.py:285 "
+                "(library {} on bf16 q, k, v under compute_dtype=bfloat16)")
+    kernels.append(dict(
+        name="flash_attention_bf16", route="cuda", source=flash_src + ".cu",
+        replaces=lib_call.format("_flash_attention_kernel"),
+        launches=tf_bf16["decode"]["bf16_launches"]
+        + bf16_train["flash_forward_bf16"] + bf16_remat["flash_forward_bf16"],
+        max_abs_err=fb_worst["forward"][0], bf16_ulps=fb_worst["forward"][1],
+        ms=fb_main["ms"], plain_ms=fb_main["plain_ms"],
+        bound_ms=fb_main["bound_ms"], bound_by=fb_main["bound_by"],
+        library_ms=fb_main["library_ms"], f32_form_ms=flash_row["ms"],
+        shapes=[dict(shape=r["shape"], causal=r["causal"], ms=r["ms"],
+                     plain_ms=r["plain_ms"], library_ms=r["library_ms"],
+                     bound_ms=r["bound_ms"], bound_by=r["bound_by"])
+                for r in fb_rows.values()],
+        added="PR 13"))
+    for name, key in (("flash_attention_bwd_dkv_bf16", "dkv"),
+                      ("flash_attention_bwd_dq_bf16", "dq")):
+        # plain and library times are of the whole bf16 backward
+        kernels.append(dict(
+            name=name, route="cuda", source=flash_src + "_bwd.cu",
+            replaces=lib_call.format(f"_flash_attention_bwd_{key}"),
+            launches=bf16_train[f"flash_bwd_{key}_bf16"]
+            + bf16_remat[f"flash_bwd_{key}_bf16"],
+            max_abs_err=fb_worst[key][0], bf16_ulps=fb_worst[key][1],
+            ms=fb_main[f"{key}_ms"], plain_ms=fb_main["bwd_plain_ms"],
+            bound_ms=fb_main[f"{key}_bound_ms"],
+            bound_by=fb_main[f"{key}_bound_by"],
+            library_ms=fb_main["bwd_library_ms"],
+            f32_form_ms=bwd_main[f"{key}_ms"],
+            shapes=[dict(shape=r["shape"], causal=r["causal"],
+                         ms=r[f"{key}_ms"], plain_ms=r["bwd_plain_ms"],
+                         library_ms=r["bwd_library_ms"],
+                         bound_ms=r[f"{key}_bound_ms"],
+                         bound_by=r[f"{key}_bound_by"])
+                    for r in fb_rows.values()],
+            added="PR 13"))
     print(json.dumps(dict(total_seconds=time.perf_counter() - t_start)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

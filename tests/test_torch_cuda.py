@@ -997,3 +997,212 @@ def test_serve_dispatch_runs_the_fused_kernel_on_card(tmp_path, tier):
     assert beam_steps > 0 and launched == 2 * beam_steps
     assert reg.counter(f"serve/tier_{tier}_total").value == 8
     assert len(got) == 8
+
+
+# ---------------------------------------------------------------------------
+# the flash kernels' bf16 forms (the transformer under compute_dtype=
+# bfloat16): within FLASH_BF16_ULPS bf16 ulps of the tensor's largest
+# |value| of their plain bf16 versions
+# ---------------------------------------------------------------------------
+
+#: kernel and plain version round P (and dS) to bf16 at the same points,
+#: but the forward rounds P against the online softmax's running max and
+#: the plain version against the row max, and the f32 sums before each
+#: final rounding run in other orders
+FLASH_BF16_ULPS = 2
+
+
+def _within_bf16_ulps(got, want, ulps=FLASH_BF16_ULPS):
+    assert got.dtype == want.dtype == torch.bfloat16
+    bound = ulps * float(_bf16_ulp(want.float().abs().max()))
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= bound, (err, bound)
+
+
+def _flash_bf16_inputs(B, T, nh, hd, seed=0):
+    q, k, v, mask = _flash_inputs(B, T, nh, hd, seed=seed)
+    return (*(x.to(torch.bfloat16) for x in (q, k, v)), mask)
+
+
+@pytest.mark.cuda
+def test_mma_bf16_fragments_on_card():
+    """One warp's m16n8k16 product (kernels/mma_bf16.cuh): A by ldmatrix,
+    B by ldmatrix.trans from row-major B and by ldmatrix from row-major
+    B^T, against torch.matmul in f32.  Small integers, so every product
+    and sum is exact and the two must be equal."""
+    import ctypes
+
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randint(-8, 9, (16, 16), generator=g, device="cuda")
+    b = torch.randint(-8, 9, (16, 16), generator=g, device="cuda")
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    c1 = torch.empty(16, 16, device="cuda")
+    c2 = torch.empty(16, 16, device="cuda")
+    lib = fl._load_library()
+    fn = lib.ts_flash_mma_bf16_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5
+    err = fn(a.data_ptr(), b.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want = a.float() @ b.float()
+    assert torch.equal(c1, want)
+    assert torch.equal(c2, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,nh,hd,causal,masked", [
+    (16, 400, 8, 32, False, True), (16, 100, 8, 32, True, False),
+    (4, 2048, 8, 128, False, True), (4, 2048, 8, 128, True, False),
+    (16, 400, 2, 256, False, True), (16, 100, 2, 256, True, False),
+    (3, 77, 4, 128, True, True), (1, 1, 1, 32, False, False)]
+    + [(2, T, 2, hd, causal, True) for T in EDGE_T for hd in (32, 128, 256)
+       for causal in (False, True)])
+def test_flash_bf16_kernels_match_plain_on_card(B, T, nh, hd, causal,
+                                                masked):
+    """The bf16 forms of the forward, dK/dV and dQ kernels at the
+    transformer's shapes (the encoder's key mask, the training decoder's
+    causal form, the long-context shape, head dim 256) and at the tile
+    edges: out and the three gradients in bf16 within FLASH_BF16_ULPS of
+    the plain bf16 versions, lse (f32) within 1e-5 * max(1, |lse|); one
+    launch of each bf16 form, none of the f32 forms; an empty article's
+    outputs exact zeros."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_bf16_inputs(B, T, nh, hd, seed=T + hd)
+    key_mask = mask if masked else None
+    scale = hd ** -0.5
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    counts = (fl.launches, fl.launches_bf16, fl.launches_bwd_dkv_bf16,
+              fl.launches_bwd_dq_bf16)
+    out = fl.flash_attention(qg, kg, vg, key_mask, causal, scale)
+    do = torch.randn(out.shape, device="cuda").to(torch.bfloat16)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert (fl.launches, fl.launches_bf16, fl.launches_bwd_dkv_bf16,
+            fl.launches_bwd_dq_bf16) == tuple(c + 1 for c in counts)
+    assert out.dtype == torch.bfloat16
+    assert all(g.dtype == torch.bfloat16 for g in got)
+    _within_bf16_ulps(out.detach(),
+                      fl._flash_plain(q, k, v, key_mask, causal, scale))
+    _, lse = fl._flash_cuda(q, k, v, key_mask, causal, scale, with_lse=True)
+    lse_p = fl._flash_lse_plain(q, k, key_mask, causal, scale)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+    fin = torch.isfinite(lse_p)
+    assert float((lse - lse_p)[fin].abs().max()) <= 1e-5 * max(
+        1.0, float(lse_p[fin].abs().max()))
+    want = fl._flash_bwd_plain(q, k, v, out.detach(), lse_p, do, key_mask,
+                               causal, scale)
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all()
+        _within_bf16_ulps(g, w)
+    if masked and B > 1:
+        assert not out[1].any() and all(not g[1].any() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [16, 64, 160])
+def test_flash_bf16_head_dims_padded_on_card(hd):
+    """bf16 head dims the kernels are not built for, zero-padded like the
+    f32 ones: forward and both gradients within FLASH_BF16_ULPS."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_bf16_inputs(3, 77, 2, hd, seed=hd)
+    scale = hd ** -0.5
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fl.flash_attention(qg, kg, vg, mask, False, scale)
+    do = torch.randn(out.shape, device="cuda").to(torch.bfloat16)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    _within_bf16_ulps(out.detach(), fl._flash_plain(q, k, v, mask, False,
+                                                    scale))
+    lse_p = fl._flash_lse_plain(q, k, mask, False, scale)
+    want = fl._flash_bwd_plain(q, k, v, out.detach(), lse_p, do, mask, False,
+                               scale)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        _within_bf16_ulps(g, w)
+
+
+@pytest.mark.cuda
+def test_flash_kernels_refuse_mixed_dtypes_on_card():
+    """An f32/bf16 mix raises before any launch, in the forward and the
+    backward's entry point; a bf16 key mask is refused too."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(2, 40, 4, 32)
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    before = (fl.launches, fl.launches_bwd_dkv, fl.launches_bwd_dq)
+    for args in ((qb, k, v), (q, kb, v), (qb, kb, v), (q, k, vb)):
+        with pytest.raises(ValueError, match="dtype"):
+            fl.flash_attention(*args, mask, False, 0.2)
+    with pytest.raises(ValueError, match="key_mask"):
+        fl.flash_attention(qb, kb, vb, mask.to(torch.bfloat16), False, 0.2)
+    lse = torch.zeros(2, 40, 4, device="cuda")
+    with pytest.raises(ValueError, match="dtype"):
+        fl._flash_bwd_cuda(qb, kb, vb, qb, lse, q, mask, False, 0.2)
+    assert (fl.launches, fl.launches_bwd_dkv, fl.launches_bwd_dq) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_bf16_transformer_train_step_on_card_matches_the_cpu(remat):
+    """One train step of a small transformer with --compute_dtype=bfloat16
+    --loss_chunk=5 on the card (the flash kernels' bf16 forms, bf16 GEMMs)
+    against --device=cpu: the loss, the new params and accumulators within
+    4 times the CPU's own distance between its bf16 and f32 steps (as the
+    pointer-generator's bf16 step above); every flash launch a bf16 one,
+    one forward per layer (two under --remat) and one dK/dV and dQ."""
+    from textsummarization_on_flink_tpu_torch.config import HParams
+    from textsummarization_on_flink_tpu_torch.decode.beam_search import (
+        _to_device,
+    )
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+    from textsummarization_on_flink_tpu_torch.params import (
+        init_numpy_params,
+        tree_leaves,
+    )
+    from textsummarization_on_flink_tpu_torch.train import trainer
+
+    _need_cuda()
+    hps = HParams(model_family="transformer", hidden_dim=64, num_heads=2,
+                  enc_layers=2, dec_layers=2, batch_size=4, vocab_size=200,
+                  max_enc_steps=40, max_dec_steps=12, min_dec_steps=3,
+                  beam_size=4, max_oov_buckets=8, mode="train",
+                  coverage=True, compute_dtype="bfloat16", loss_chunk=5,
+                  remat=remat)
+    params = init_numpy_params(hps, hps.vocab_size, 1)
+    arrays = _small_batches(hps, 1)[0]
+    runs = {}
+    for dev, h in (("cuda", hps), ("cpu", hps),
+                   ("cpu32", hps.replace(compute_dtype="float32"))):
+        d = "cpu" if dev == "cpu32" else dev
+        h = h.replace(device=d)
+        state = trainer.init_train_state(h, h.vocab_size, params=params)
+        counts = (fl.launches, fl.launches_bf16, fl.launches_bwd_dkv_bf16,
+                  fl.launches_bwd_dq_bf16)
+        state, m = trainer.train_step(h, state, _to_device(arrays, d))
+        launched = tuple(a - b for a, b in zip(
+            (fl.launches, fl.launches_bf16, fl.launches_bwd_dkv_bf16,
+             fl.launches_bwd_dq_bf16), counts))
+        runs[dev] = (float(m.loss), [
+            x.detach().float().cpu().numpy() for x in
+            tree_leaves(state.params) + tree_leaves(
+                state.opt_state.accumulators)], launched)
+    (g_loss, g_leaves, launched), (c_loss, c_leaves, _), (f_loss, f_leaves,
+                                                          _) = (
+        runs["cuda"], runs["cpu"], runs["cpu32"])
+    layers = hps.enc_layers + hps.dec_layers
+    fwd = 2 * layers if remat else layers
+    assert launched == (fwd, fwd, layers, layers)
+    assert abs(g_loss - c_loss) <= 4 * abs(c_loss - f_loss) + 1e-5
+    for g, c, f in zip(g_leaves, c_leaves, f_leaves):
+        bound = 4 * float(np.max(np.abs(c - f))) + 1e-5 * max(
+            1.0, float(np.max(np.abs(c))))
+        assert float(np.max(np.abs(g - c))) <= bound

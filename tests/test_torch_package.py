@@ -90,17 +90,20 @@ def test_from_argv_matches_jax_on_shared_fields():
 
 
 def test_validate_refuses_unported_options():
-    """bf16 compute is taken for the pointer-generator; the transformer in
-    bf16 waits for its flash kernels' bf16 forms (ROADMAP item 2g)."""
+    """bf16 compute is taken for both families (the transformer's flash
+    kernels have their bf16 forms); the families and options still to
+    port raise naming their ROADMAP item (the bf16 KV cache queue 2 item
+    6, in bf16 compute too)."""
     torch_config.HParams(compute_dtype="bfloat16").validate()
-    with pytest.raises(NotImplementedError, match="item 2g"):
-        torch_config.HParams(compute_dtype="bfloat16",
-                             model_family="transformer").validate()
+    torch_config.HParams(compute_dtype="bfloat16",
+                         model_family="transformer").validate()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         torch_config.HParams(model_family="avg_attention").validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_config.HParams(model_family="transformer",
-                             decode_cache_dtype="bfloat16").validate()
+    for dt in ("float32", "bfloat16"):
+        with pytest.raises(NotImplementedError, match="queue 2, item 6"):
+            torch_config.HParams(model_family="transformer",
+                                 compute_dtype=dt,
+                                 decode_cache_dtype="bfloat16").validate()
     with pytest.raises(ValueError):
         get_family("nope")
     with pytest.raises(ValueError, match="device"):
@@ -111,8 +114,9 @@ def test_cli_refuses_train_and_eval(tmp_path):
     """Both families train and evaluate now, and the checkpoint-surgery
     flags run and exit: pointer-generator (the default family) training
     and eval through the CLI on the CPU, then ``--convert_to_coverage_model``
-    on its checkpoint.  The transformer in bf16 still raises, naming its
-    ROADMAP item (``--loss_chunk`` is taken now)."""
+    on its checkpoint.  The transformer in bf16 with ``--loss_chunk``
+    trains too (it raised before its flash kernels had bf16 forms), in
+    an experiment of its own."""
     chunks.write_chunk_file(
         str(tmp_path / "train_000.bin"),
         [{"article": [article(i)], "abstract": [abstract(i)]}
@@ -135,10 +139,13 @@ def test_cli_refuses_train_and_eval(tmp_path):
     assert cli.main(["--mode=train", "--convert_to_coverage_model=1",
                      *flags]) == 0
     assert (train_dir / "model.ckpt-2_cov_init.npz").exists()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 2g"):
-        cli.main(["--mode=train", "--model_family=transformer",
-                  "--compute_dtype=bfloat16", "--loss_chunk=8",
-                  "--device=cpu", f"--log_root={tmp_path}"])
+    assert cli.main(["--mode=train", "--num_steps=1", *flags,
+                     "--exp_name=transformer_bf16",
+                     "--model_family=transformer", "--num_heads=2",
+                     "--enc_layers=1", "--dec_layers=1",
+                     "--compute_dtype=bfloat16", "--loss_chunk=8"]) == 0
+    assert (tmp_path / "transformer_bf16" / "train" /
+            "model.ckpt-1.npz").exists()
 
 
 def test_tokenizer_matches_jax():

@@ -259,16 +259,17 @@ def test_three_train_steps_track_jax():
 
 def test_validate_refuses_remat_and_loss_chunk():
     """remat and the streaming loss are taken now; validate still refuses
-    a negative chunk, as the JAX package's does, and names ROADMAP item
-    2g for the transformer in bf16."""
+    a negative chunk, as the JAX package's does, and takes the
+    transformer in bf16 with both (it raised before its flash kernels had
+    bf16 forms)."""
     _, thps = hps_pair()
     thps.replace(remat=True).validate()
     thps.replace(loss_chunk=4).validate()
     with pytest.raises(ValueError, match="loss_chunk"):
         thps.replace(loss_chunk=-1).validate()
-    with pytest.raises(NotImplementedError, match="queue 1, item 2g"):
-        thps.replace(model_family="transformer", hidden_dim=32, num_heads=2,
-                     compute_dtype="bfloat16").validate()
+    thps.replace(model_family="transformer", hidden_dim=32, num_heads=2,
+                 compute_dtype="bfloat16", remat=True,
+                 loss_chunk=4).validate()
 
 
 def test_backward_kernel_wrapper_refuses_cpu_tensors():

@@ -45,9 +45,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 #: ROADMAP.md names the queue item that brings each missing mode, option
 #: or family; error messages point there
-ROADMAP_BF16_TRANSFORMER = (
-    "ROADMAP.md queue 1, item 2g (the transformer in bfloat16: bf16-operand "
-    "forms of the flash kernels)")
 ROADMAP_BF16_CACHE = "ROADMAP.md queue 2, item 6 (bf16 decode KV cache)"
 ROADMAP_AAN = ("ROADMAP.md queue 1, item 5 (AAN draft, speculative decode, "
                "distillation)")
@@ -369,12 +366,6 @@ class HParams:
             raise ValueError(f"mode must be train/eval/decode, got {self.mode!r}")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"bad compute_dtype {self.compute_dtype!r}")
-        if self.compute_dtype == "bfloat16" and \
-                self.model_family == "transformer":
-            raise NotImplementedError(
-                f"compute_dtype='bfloat16' with the transformer: its flash "
-                f"kernels take float32 operands only; "
-                f"{ROADMAP_BF16_TRANSFORMER}")
         if self.loss_chunk < 0:
             raise ValueError(
                 f"loss_chunk must be >= 0 (0 = materialized loss), got "

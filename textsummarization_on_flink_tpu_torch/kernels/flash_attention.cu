@@ -1,5 +1,8 @@
-// Flash self-attention forward for Hopper, f32-accurate on the tensor
-// cores (3xTF32 mma.sync).
+// Flash self-attention forward for Hopper: an f32 form, f32-accurate on
+// the tensor cores (3xTF32 mma.sync), and a bf16 form (bf16 mma.sync with
+// f32 sums, below flash_fwd_bf16_kernel) for the transformer under
+// compute_dtype=bfloat16, whose JAX package hands the library kernel bf16
+// q, k and v.
 //
 // Replaces the library Pallas kernel the JAX package's transformer calls
 // for self-attention: `flash_attention` of jax.experimental.pallas.ops.tpu
@@ -63,12 +66,14 @@
 // K-major, which V is not) and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-// -Xcompiler -fPIC (see kernels/build.py).  C entry point bound with
-// ctypes from ops/flash_attention.py.
+// -Xcompiler -fPIC (see kernels/build.py).  C entry points (one per
+// dtype, and the bf16 fragment check of the card tests) bound with ctypes
+// from ops/flash_attention.py.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
@@ -309,6 +314,269 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 form: q, k, v and out in bf16, lse in f32.
+//
+// The library kernel's arithmetic for bf16 operands
+// (_flash_attention_kernel, flash_attention.py:396 and :471): S from bf16
+// q and k with f32 sums, the online softmax in f32, P = exp(S - m) rounded
+// to bf16 before P V, whose sums are f32, l summed from the unrounded P,
+// the output divided by l and rounded once to bf16.  The products are
+// m16n8k16 bf16 mma.sync (mma_bf16.cuh): a product of bf16 values is
+// exact and the tensor core sums in f32, so no f32 accuracy trick is
+// needed.  The design is the f32 form's with bf16 tiles:
+//
+//   * one block per (64 query rows, head, article), 4 warps of 16 rows;
+//     the block's q rows are staged in shared memory with the first tile
+//     and each warp loads its A fragments with ldmatrix at use;
+//   * K and V tiles of 64 keys (32 at hd 256) are staged by cp.async at
+//     16 bytes, double-buffered, rows padded by 8 bf16 so that ldmatrix
+//     is free of bank conflicts; K's B fragments come from ldmatrix, V's
+//     from ldmatrix.trans (V row-major is P V's B operand transposed);
+//   * P goes from S's accumulator registers to P V's A fragment, rounded
+//     to bf16, without a shuffle (a_from_acc);
+//   * the mask, the -1e30 running-max floor, +inf lse for a row with no
+//     key, zeros out for such a row, the skipped empty tiles and the
+//     causal skips are the f32 form's;
+//   * at hd 256 the output's columns are split over two blocks, as in
+//     the f32 form: a block keeps 128 columns of O (64 registers).
+//
+// What bounds it on an H100: operations, as the f32 form, but at the
+// dense bf16 rate (989 TFLOP/s): 2.6 GFLOP at the encoder's shape is
+// 2.7 us, against 13 MB of bf16 q, k, v and out (3.9 us at 3.35 TB/s), so
+// at that shape the bytes bound it.  wgmma and TMA are later work.
+
+template <int HD>
+struct FwdBf16 {
+  static_assert(HD == 32 || HD == 128 || HD == 256, "built head dims");
+  static constexpr int kKeys = HD > 128 ? 32 : 64;  // keys per tile
+  static constexpr int kStride = HD + 8;  // bf16 per shared row
+  static constexpr int kNT = kKeys / 8;   // 8-key column tiles of S
+  static constexpr int kSplit = HD > 128 ? 2 : 1;  // blocks per (rows, head)
+  static constexpr int kOD = HD / kSplit;  // O's columns a block keeps
+  static constexpr int kOT = kOD / 8;      // 8-wide column tiles of them
+  static constexpr int kTile = kKeys * kStride;  // bf16 of a K or V tile
+  static constexpr int kQ = kRows * kStride;     // bf16 of the q tile
+  // per stage: K, V, then kKeys f32 key flags
+  static constexpr size_t kStageBytes = 2 * kTile * 2 + kKeys * 4;
+  static constexpr size_t kSmem = kQ * 2 + 2 * kStageBytes;
+  static_assert(kTile % 8 == 0 && kQ % 8 == 0, "16-byte aligned tiles");
+};
+
+// grid (ceil(T / kRows), nh * kSplit, B); kThreads threads;
+// FwdBf16<HD>::kSmem bytes of dynamic shared memory
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_bf16_kernel(const bf16mma::bf16* __restrict__ q,
+                      const bf16mma::bf16* __restrict__ k,
+                      const bf16mma::bf16* __restrict__ v,
+                      const float* __restrict__ key_mask,
+                      bf16mma::bf16* __restrict__ out,
+                      float* __restrict__ lse, int T, int nh, int causal,
+                      float sm_scale) {
+  using S = FwdBf16<HD>;
+  using bf16mma::bf16;
+  constexpr int kKeys = S::kKeys, kStride = S::kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  unsigned char* stages = smem_raw + S::kQ * 2;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // causal: the last query blocks have the most key tiles; start them first
+  const int qb = causal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
+  const int h = blockIdx.y / S::kSplit, b = blockIdx.z;
+  const int col0 = (blockIdx.y % S::kSplit) * S::kOD;  // O's first column
+  const size_t pos_stride = (size_t)nh * HD;  // elements between positions
+  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
+  const int row0 = qb * kRows + warp * 16;  // the warp's first row
+  const int rows[2] = {row0 + g, row0 + g + 8};  // this lane's two rows
+  const bf16* q_warp = q_s + warp * 16 * kStride;
+  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
+    bf16mma::load_a(a, q_warp + 16 * kk, kStride, lane);
+  };
+
+  float o[S::kOT][4];
+#pragma unroll
+  for (int n = 0; n < S::kOT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // l: this lane's columns
+
+  // causal: keys past the block's last row are never attended
+  const int t_end = causal ? min(T, (qb + 1) * kRows) : T;  // block-uniform
+  const int n_tiles = (t_end + kKeys - 1) / kKeys;
+
+  auto stage = [&](int tile, int buf) {
+    bf16* ks = reinterpret_cast<bf16*>(stages + buf * S::kStageBytes);
+    bf16* vs = ks + S::kTile;
+    float* oks = reinterpret_cast<float*>(vs + S::kTile);
+    const int k0 = tile * kKeys;
+    bf16mma::stage_rows<HD, kThreads>(ks, kStride, k + base, pos_stride, k0,
+                                      kKeys, T, tid);
+    bf16mma::stage_rows<HD, kThreads>(vs, kStride, v + base, pos_stride, k0,
+                                      kKeys, T, tid);
+    for (int j = tid; j < kKeys; j += kThreads) {
+      const int key = k0 + j;
+      oks[j] = (key < T && (key_mask == nullptr ||
+                            key_mask[(size_t)b * T + key] > 0.f))
+                   ? 1.f
+                   : 0.f;
+    }
+    tf32x3::cp_async_commit();
+  };
+
+  // q in the first group, with the first tile
+  bf16mma::stage_rows<HD, kThreads>(q_s, kStride, q + base, pos_stride,
+                                    qb * kRows, kRows, T, tid);
+  stage(0, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage(it + 1, (it + 1) & 1);  // its buffer was freed at it - 1's end
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    const bf16* ks =
+        reinterpret_cast<const bf16*>(stages + (it & 1) * S::kStageBytes);
+    const bf16* vs = ks + S::kTile;
+    const float* oks = reinterpret_cast<const float*>(vs + S::kTile);
+    // the tile (and q) has landed for every warp; the barrier also tells
+    // the block whether any key of the tile is real and unmasked
+    const bool any_key = __syncthreads_or(tid < kKeys && oks[tid] > 0.f);
+
+    const int k0 = it * kKeys;
+    // causal: a warp whose last row precedes the tile attends none of it
+    if (any_key && (!causal || k0 <= row0 + 15)) {
+      // S = Q K^T
+      float s[S::kNT][4];
+      bf16mma::head_dim_product<S::kNT, HD>(s, q_frag, ks, kStride, lane);
+
+      // mask, scale and the tile's row max over this lane's columns
+      const bool diag = causal && k0 + kKeys - 1 > qb * kRows;
+      float cmax[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int j = 0; j < S::kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const int r = e >> 1;
+          const bool ok = oks[col] > 0.f && (!diag || k0 + col <= rows[r]);
+          s[j][e] = ok ? s[j][e] * sm_scale : -INFINITY;
+          cmax[r] = fmaxf(cmax[r], s[j][e]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 1));
+        cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 2));
+        const float m_new = fmaxf(m[r], cmax[r]);
+        alpha[r] = expf(m[r] - m_new);  // 0 on the row's first real key
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < S::kOT; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < S::kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[j][e] - m[e >> 1]);  // masked: exactly 0
+          s[j][e] = p;
+          l[e >> 1] += p;  // the unrounded P, as the library sums it
+        }
+      }
+
+      // O += P V, P rounded to bf16 on its way to the A operand; V's
+      // columns of this block's part of O
+      bf16mma::tile_product<S::kNT, S::kOT>(o, s, vs + col0, kStride, lane);
+    }
+    __syncthreads();  // every warp is done with buffer it & 1
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= T) continue;
+    bf16* o_row = out + base + (size_t)rows[r] * pos_stride + col0;
+#pragma unroll
+    for (int n = 0; n < S::kOT; ++n) {
+      const uint32_t val = l[r] > 0.f
+          ? bf16mma::pack(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r])
+          : 0u;
+      *reinterpret_cast<uint32_t*>(o_row + 8 * n + 2 * t) = val;
+    }
+    if (lse != nullptr && t == 0 && col0 == 0)  // one block of a split
+      lse[((size_t)b * T + rows[r]) * nh + h] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
+  }
+}
+
+template <int HD>
+cudaError_t launch_bf16(const bf16mma::bf16* q, const bf16mma::bf16* k,
+                        const bf16mma::bf16* v, const float* key_mask,
+                        bf16mma::bf16* out, float* lse, int B, int T, int nh,
+                        int causal, float sm_scale, cudaStream_t stream) {
+  constexpr size_t smem = FwdBf16<HD>::kSmem;
+  static unsigned smem_set = 0;  // per instantiation: one per kernel
+  const cudaError_t err =
+      tf32x3::allow_smem(flash_fwd_bf16_kernel<HD>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + kRows - 1) / kRows, nh * FwdBf16<HD>::kSplit, B);
+  flash_fwd_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(
+      q, k, v, key_mask, out, lse, T, nh, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+// One warp: C1 = A B from B stored row-major [k][n] (ldmatrix.trans) and
+// C2 = A B from B^T stored row-major [n][k] (ldmatrix), A [16][16], B
+// [16][16] bf16, C [16][16] f32 row-major: the m16n8k16 fragment layouts
+// of mma_bf16.cuh held against a plain product by a card test.
+__global__ void mma_bf16_check_kernel(const bf16mma::bf16* __restrict__ a,
+                                      const bf16mma::bf16* __restrict__ b,
+                                      float* __restrict__ c1,
+                                      float* __restrict__ c2) {
+  using bf16mma::bf16;
+  constexpr int kStride = 16 + 8;
+  __shared__ __align__(16) unsigned short raw[3][16 * kStride];
+  const unsigned short* a16 = reinterpret_cast<const unsigned short*>(a);
+  const unsigned short* b16 = reinterpret_cast<const unsigned short*>(b);
+  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+  for (int i = lane; i < 256; i += 32) {
+    const int r = i / 16, c = i % 16;
+    raw[0][r * kStride + c] = a16[i];
+    raw[1][r * kStride + c] = b16[i];
+    raw[2][c * kStride + r] = b16[i];  // B^T
+  }
+  __syncwarp();
+  const bf16* as = reinterpret_cast<const bf16*>(raw[0]);
+  const bf16* bs = reinterpret_cast<const bf16*>(raw[1]);
+  const bf16* bts = reinterpret_cast<const bf16*>(raw[2]);
+  uint32_t af[4], bt[2][2], bn[2][2];
+  bf16mma::load_a(af, as, kStride, lane);
+  bf16mma::load_b_trans(bt, bs, kStride, lane);
+  bf16mma::load_b_t(bn, bts, kStride, lane);
+  float d1[2][4] = {}, d2[2][4] = {};
+  for (int j = 0; j < 2; ++j) {
+    bf16mma::mma(d1[j], af, bt[j][0], bt[j][1]);
+    bf16mma::mma(d2[j], af, bn[j][0], bn[j][1]);
+  }
+  for (int j = 0; j < 2; ++j)
+    for (int e = 0; e < 4; ++e) {
+      const int r = g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
+      c1[r * 16 + c] = d1[j][e];
+      c2[r * 16 + c] = d2[j][e];
+    }
+}
 }  // namespace
 
 // q, k, v, out [B, T, nh, hd] float32, contiguous, 16-byte aligned, on one
@@ -337,6 +605,46 @@ extern "C" int ts_flash_attention(const float* q, const float* k,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The bf16 form: q, k, v, out [B, T, nh, hd] bfloat16, contiguous,
+// 16-byte aligned; key_mask and lse as ts_flash_attention's.
+extern "C" int ts_flash_attention_bf16(const void* q, const void* k,
+                                       const void* v, const float* key_mask,
+                                       void* out, float* lse, int B, int T,
+                                       int nh, int hd, int causal,
+                                       float sm_scale, void* stream) {
+  using bf16mma::bf16;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 32767)
+    return (int)cudaErrorInvalidValue;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  bf16* ob = static_cast<bf16*>(out);
+  switch (hd) {
+    case 32:
+      return (int)launch_bf16<32>(qb, kb, vb, key_mask, ob, lse, B, T, nh,
+                                  causal, sm_scale, st);
+    case 128:
+      return (int)launch_bf16<128>(qb, kb, vb, key_mask, ob, lse, B, T, nh,
+                                   causal, sm_scale, st);
+    case 256:
+      return (int)launch_bf16<256>(qb, kb, vb, key_mask, ob, lse, B, T, nh,
+                                   causal, sm_scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// a, b [16][16] bfloat16 and c1, c2 [16][16] float32 on the device: one
+// warp's fragment check (mma_bf16_check_kernel)
+extern "C" int ts_flash_mma_bf16_check(const void* a, const void* b,
+                                       float* c1, float* c2, void* stream) {
+  mma_bf16_check_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16mma::bf16*>(a),
+      static_cast<const bf16mma::bf16*>(b), c1, c2);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ts_flash_error_string(int err) {

@@ -21,11 +21,25 @@ is not read here; neither is its sequence-parallel branch.
 ``--loss_chunk``, the streaming one (ops/losses.py), and under
 ``--remat`` recomputes each layer of both stacks in the backward
 (``torch.utils.checkpoint``, non-reentrant: each layer's forward, its
-flash kernel included, runs again in the backward).  f32 only: the
-transformer in bf16 is ROADMAP.md queue 1 item 2g.  The speculative
-verifier (``spec_*``), the length-masked ``nb``
-cross-attention of the slot engine, a factored ``vocab_head`` and
-``decode_cache_dtype=bfloat16`` wait for later slices (ROADMAP.md).
+flash kernel included, runs again in the backward).
+
+Under ``compute_dtype=bfloat16`` the cast points are the JAX package's:
+master params stay f32 and each weight is cast to the activation dtype
+at its use (``.to(x.dtype)``, so autograd carries each gradient back to
+the f32 leaf); the embeddings are summed in f32 and rounded once; the
+residual streams, projections and FFN are bf16; LayerNorm computes in
+f32 and returns its input's dtype; attention logits are f32 sums of
+exact bf16 products, masking and softmax f32, P rounded to bf16 before
+P V (the self-attention's flash kernels take bf16 q, k, v); the
+encoder's output is f32 and cast to bf16 again for the cross-attention;
+the final LN and the cross-attention context are f32 for p_gen and the
+vocab projection (bf16 operands, f32 sums).  Decoding keeps the KV cache
+in float32 (it holds the bf16 projections widened) and forms both
+attentions' logits and contexts in f32, rounding each context to bf16
+before ``wo``.  In f32 every cast is a no-op.  The speculative verifier
+(``spec_*``), the length-masked ``nb`` cross-attention of the slot
+engine, a factored ``vocab_head`` and ``decode_cache_dtype=bfloat16``
+wait for later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -57,10 +71,13 @@ def _head_dim(hps: HParams) -> int:
 # --------------------------------------------------------------------------
 
 def _ln(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """LayerNorm with the population variance (jnp.var) and eps 1e-6."""
-    mu = torch.mean(x, dim=-1, keepdim=True)
-    var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
-    return (x - mu) * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+    """LayerNorm with the population variance (jnp.var) and eps 1e-6,
+    computed in f32 and returned in x's dtype (transformer.py:132-137)."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    return ((x32 - mu) * torch.rsqrt(var + 1e-6) * p["scale"]
+            + p["bias"]).to(x.dtype)
 
 
 def _split_heads(hps: HParams, x: torch.Tensor) -> torch.Tensor:
@@ -78,13 +95,18 @@ def _mha(hps: HParams, p: Dict[str, torch.Tensor], q_in: torch.Tensor,
     """Multi-head attention in plain PyTorch (transformer.py:149-180).
 
     q_in: [..., Tq, H]; kv_in: [..., Tk, H]; mask: broadcastable to
-    [..., Tq, Tk] (1 = attend).  Returns (output [..., Tq, H],
-    head-averaged probabilities [..., Tq, Tk])."""
-    q = _split_heads(hps, q_in @ p["wq"])  # [..., Tq, nh, hd]
-    k = _split_heads(hps, kv_in @ p["wk"])
-    v = _split_heads(hps, kv_in @ p["wv"])
+    [..., Tq, Tk] (1 = attend).  Returns (output [..., Tq, H] in q_in's
+    dtype, head-averaged probabilities [..., Tq, Tk] in f32).  The
+    projections run in the activation dtype; the logits are f32 sums of
+    exact products (preferred_element_type=f32), P is rounded to that
+    dtype before P V, whose f32 sums are rounded once."""
+    dt = q_in.dtype
+    q = _split_heads(hps, q_in @ p["wq"].to(dt))  # [..., Tq, nh, hd]
+    k = _split_heads(hps, kv_in @ p["wk"].to(dt))
+    v = _split_heads(hps, kv_in @ p["wv"].to(dt))
     scale = _head_dim(hps) ** -0.5
-    logits = torch.einsum("...qnd,...knd->...nqk", q, k) * scale
+    logits = torch.einsum("...qnd,...knd->...nqk", q.float(),
+                          k.float()) * scale
     m = mask[..., None, :, :] > 0
     logits = torch.where(m, logits, NEG)
     probs = torch.softmax(logits, dim=-1)
@@ -92,32 +114,39 @@ def _mha(hps: HParams, p: Dict[str, torch.Tensor], q_in: torch.Tensor,
     # zero it so padding queries emit exact zeros
     any_key = torch.sum(mask[..., None, :, :], dim=-1, keepdim=True) > 0
     probs = torch.where(any_key, probs, 0.0)
-    ctx = torch.einsum("...nqk,...knd->...qnd", probs, v)
-    return _merge_heads(ctx) @ p["wo"], torch.mean(probs, dim=-3)
+    ctx = torch.einsum("...nqk,...knd->...qnd", probs.to(dt).float(),
+                       v.float()).to(dt)
+    return _merge_heads(ctx) @ p["wo"].to(dt), torch.mean(probs, dim=-3)
 
 
 def _ffn_block(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """The FFN in x's dtype, weights and biases cast at their use."""
+    dt = x.dtype
     # jax.nn.gelu defaults to the tanh approximation
-    h = F.gelu(x @ p["w1"] + p["b1"], approximate="tanh")
-    return h @ p["w2"] + p["b2"]
+    h = F.gelu(x @ p["w1"].to(dt) + p["b1"].to(dt), approximate="tanh")
+    return h @ p["w2"].to(dt) + p["b2"].to(dt)
 
 
 def _self_attention(hps: HParams, p: Dict[str, torch.Tensor],
                     x_norm: torch.Tensor, pad_mask, causal: bool,
                     ) -> torch.Tensor:
     """Self-attention block (transformer.py:220-296) through the flash
-    wrapper on every shape.  x_norm [B, T, H]; pad_mask [B, T] or None."""
-    q = _split_heads(hps, x_norm @ p["wq"])  # [B, T, nh, hd], contiguous
-    k = _split_heads(hps, x_norm @ p["wk"])
-    v = _split_heads(hps, x_norm @ p["wv"])
+    wrapper on every shape, in x_norm's dtype (the flash kernels' bf16
+    forms under bf16).  x_norm [B, T, H]; pad_mask [B, T] or None."""
+    dt = x_norm.dtype
+    # [B, T, nh, hd], contiguous
+    q = _split_heads(hps, x_norm @ p["wq"].to(dt))
+    k = _split_heads(hps, x_norm @ p["wk"].to(dt))
+    v = _split_heads(hps, x_norm @ p["wv"].to(dt))
     ctx = fa.flash_attention(q, k, v, pad_mask, causal,
                              _head_dim(hps) ** -0.5)
-    return _merge_heads(ctx) @ p["wo"]
+    return _merge_heads(ctx) @ p["wo"].to(dt)
 
 
 def _encoder_stack(params: Params, hps: HParams, x: torch.Tensor,
                    enc_mask: torch.Tensor) -> torch.Tensor:
-    """x: [B, T_enc, H]; enc_mask: [B, T_enc] -> [B, T_enc, H]."""
+    """x: [B, T_enc, H] in the activation dtype; enc_mask: [B, T_enc] ->
+    [B, T_enc, H] f32 (transformer.py:313)."""
 
     def layer_fn(layer, x, enc_mask):
         x = x + _self_attention(hps, layer["self_attn"],
@@ -127,7 +156,7 @@ def _encoder_stack(params: Params, hps: HParams, x: torch.Tensor,
     layer_fn = pg.maybe_remat(hps, layer_fn)  # JAX transformer.py:309
     for layer in params["encoder"]["layers"]:
         x = layer_fn(layer, x, enc_mask)
-    return _ln(params["encoder"]["ln_out"], x)
+    return _ln(params["encoder"]["ln_out"], x).float()
 
 
 class TransformerEncView(NamedTuple):
@@ -140,23 +169,27 @@ class TransformerEncView(NamedTuple):
 
 def _embed_enc(params: Params, hps: HParams,
                enc_batch: torch.Tensor) -> torch.Tensor:
-    del hps  # f32 only in the port; the JAX package casts for bf16 here
+    """Summed in f32, then rounded once to the compute dtype
+    (transformer.py:329-332)."""
     T = enc_batch.shape[-1]
-    return params["embedding"][enc_batch] + params["pos_enc"][:T]
+    return pg._cast(hps, params["embedding"][enc_batch]
+                    + params["pos_enc"][:T])
 
 
 def _embed_dec(params: Params, hps: HParams, tokens: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     """tokens [B, K] at positions [B] (each article's own step)."""
-    del hps
-    return params["embedding"][tokens] + params["pos_dec"][positions][:, None]
+    return pg._cast(hps, params["embedding"][tokens]
+                    + params["pos_dec"][positions][:, None])
 
 
-def _embed_dec_train(params: Params, dec_batch: torch.Tensor) -> torch.Tensor:
+def _embed_dec_train(params: Params, hps: HParams,
+                     dec_batch: torch.Tensor) -> torch.Tensor:
     """Teacher-forced decoder inputs dec_batch [B, T_dec] at positions
     0 .. T_dec-1 for every article (transformer.py:357)."""
     T = dec_batch.shape[-1]
-    return params["embedding"][dec_batch] + params["pos_dec"][:T]
+    return pg._cast(hps, params["embedding"][dec_batch]
+                    + params["pos_dec"][:T])
 
 
 # --------------------------------------------------------------------------
@@ -173,8 +206,9 @@ def forward_train(params: Params, hps: HParams,
     device."""
     enc_mask = arrays["enc_padding_mask"]  # [B, T_enc]
     x = _embed_enc(params, hps, arrays["enc_batch"])
-    enc_out = _encoder_stack(params, hps, x, enc_mask)
-    y = _embed_dec_train(params, arrays["dec_batch"])
+    # f32 out of the encoder, cast again for the cross-attention (:355)
+    enc_out = pg._cast(hps, _encoder_stack(params, hps, x, enc_mask))
+    y = _embed_dec_train(params, hps, arrays["dec_batch"])
     cross_mask = enc_mask[:, None, :]  # [B, 1, T_enc]
 
     def layer_fn(layer, y, enc_out, cross_mask):
@@ -189,7 +223,7 @@ def forward_train(params: Params, hps: HParams,
     cross_ctx = attn_dist = None
     for layer in params["decoder"]["layers"]:
         y, cross_ctx, attn_dist = layer_fn(layer, y, enc_out, cross_mask)
-    h = _ln(params["decoder"]["ln_out"], y)
+    h = _ln(params["decoder"]["ln_out"], y).float()
     return train_output_tail(params, hps, arrays, h, cross_ctx, attn_dist)
 
 
@@ -203,13 +237,14 @@ def train_output_tail(params: Params, hps: HParams,
     probability (or the baseline cross-entropy when pointer_gen is off),
     the coverage penalty.
 
-    h [B, T_dec, H] final-LN decoder states; cross_ctx the final layer's
-    cross-attention output; attn_dist its head-averaged copy
-    distribution [B, T_dec, T_enc]."""
+    h [B, T_dec, H] final-LN decoder states (f32); cross_ctx the final
+    layer's cross-attention output (in the activation dtype, widened
+    here); attn_dist its head-averaged copy distribution [B, T_dec,
+    T_enc] (f32)."""
     dec_mask = arrays["dec_padding_mask"]  # [B, T_dec]
     pl = params["pgen_linear"]
-    p_gens = torch.sigmoid(torch.cat([h, cross_ctx], dim=-1) @ pl["kernel"]
-                           + pl["bias"])[..., 0]  # [B, T_dec]
+    p_gens = torch.sigmoid(torch.cat([h, cross_ctx.float()], dim=-1)
+                           @ pl["kernel"] + pl["bias"])[..., 0]  # [B, T_dec]
     targets = arrays["target_batch"]
     if hps.loss_chunk > 0:
         # step-major views for the streaming losses; the [B, T_dec, V]
@@ -264,14 +299,16 @@ def _with_coverage(hps: HParams, loss: torch.Tensor,
 def beam_encode(params: Params, hps: HParams,
                 arrays: Dict[str, torch.Tensor]) -> TransformerEncView:
     """Encode a batch once and precompute per-layer cross-attention K/V
-    (transformer.py:487-508)."""
+    (transformer.py:487-508), in the compute dtype."""
     x = _embed_enc(params, hps, arrays["enc_batch"])
-    enc_out = _encoder_stack(params, hps, x, arrays["enc_padding_mask"])
+    enc_out = pg._cast(hps, _encoder_stack(params, hps, x,
+                                           arrays["enc_padding_mask"]))
+    dt = enc_out.dtype
     ks, vs = [], []
     for layer in params["decoder"]["layers"]:
         p = layer["cross_attn"]
-        ks.append(_split_heads(hps, enc_out @ p["wk"]))
-        vs.append(_split_heads(hps, enc_out @ p["wv"]))
+        ks.append(_split_heads(hps, enc_out @ p["wk"].to(dt)))
+        vs.append(_split_heads(hps, enc_out @ p["wv"].to(dt)))
     return TransformerEncView(cross_k=torch.stack(ks, dim=1),
                               cross_v=torch.stack(vs, dim=1))
 
@@ -285,18 +322,21 @@ def cross_attend_layer(hps: HParams, layer: Dict[str, Any], y: torch.Tensor,
     block chain is ROADMAP.md queue 1, item 4).
 
     y: [B, K, H]; ck/cv: [B, T_enc, nh, hd]; enc_mask: [B, T_enc].
-    Returns (cross_out [B, K, H] — not yet residual-added — and the
-    head-averaged probabilities [B, K, T_enc])."""
+    Returns (cross_out [B, K, H] in y's dtype — not yet residual-added —
+    and the head-averaged probabilities [B, K, T_enc], f32).  The logits
+    and the context are f32 products of the widened q and K/V."""
     hd = _head_dim(hps)
+    dt = y.dtype
     cp = layer["cross_attn"]
-    qc = _split_heads(hps, _ln(layer["ln_cross"], y) @ cp["wq"])
-    clogits = torch.einsum("bknd,btnd->bknt", qc, ck) * (hd ** -0.5)
+    qc = _split_heads(hps, _ln(layer["ln_cross"], y) @ cp["wq"].to(dt))
+    clogits = torch.einsum("bknd,btnd->bknt", qc.float(),
+                           ck.float()) * (hd ** -0.5)
     clogits = torch.where(enc_mask[:, None, None, :] > 0, clogits, NEG)
     cprobs = torch.softmax(clogits, dim=-1)
     any_key = torch.sum(enc_mask, dim=-1) > 0  # [B]
     cprobs = torch.where(any_key[:, None, None, None], cprobs, 0.0)
-    cctx = torch.einsum("bknt,btnd->bknd", cprobs, cv)
-    cross_out = _merge_heads(cctx) @ cp["wo"]
+    cctx = torch.einsum("bknt,btnd->bknd", cprobs, cv.float())
+    cross_out = _merge_heads(cctx).to(dt) @ cp["wo"].to(dt)
     return cross_out, torch.mean(cprobs, dim=2)
 
 
@@ -318,12 +358,12 @@ def decode_output_tail(params: Params, hps: HParams, y: torch.Tensor,
     """Decoder output head (transformer.py:582-604): final LN, vocab
     projection, p_gen, pointer mixture.  y, cross_ctx [B, K, H];
     attn_dist [B, K, T_enc]; ext_ids [B, T_enc].  Returns
-    (final_dist [B, K, V_ext], p_gen [B, K], h [B, K, H])."""
-    h = _ln(params["decoder"]["ln_out"], y)
+    (final_dist [B, K, V_ext], p_gen [B, K], h [B, K, H] f32)."""
+    h = _ln(params["decoder"]["ln_out"], y).float()
     vocab_dist = torch.softmax(vocab_scores_of(params, hps, h), dim=-1)
     pl = params["pgen_linear"]
-    p_gen = torch.sigmoid(torch.cat([h, cross_ctx], dim=-1) @ pl["kernel"]
-                          + pl["bias"])[..., 0]
+    p_gen = torch.sigmoid(torch.cat([h, cross_ctx.float()], dim=-1)
+                          @ pl["kernel"] + pl["bias"])[..., 0]
     if not hps.pointer_gen:
         return vocab_dist, p_gen, h
     B, K, _ = y.shape
@@ -337,8 +377,10 @@ def decode_output_tail(params: Params, hps: HParams, y: torch.Tensor,
 def beam_adapter(hps: HParams):
     """(init_state, step) closures implementing the beam protocol for the
     transformer (transformer.py:607-678).  State: the KV cache
-    ``cache_k`` / ``cache_v`` of [B, K, L, T_dec+1, nh, hd]; a position
-    is valid up to each article's own step t."""
+    ``cache_k`` / ``cache_v`` of [B, K, L, T_dec+1, nh, hd], float32
+    whatever the compute dtype (the JAX package's cache_dtype; a bf16
+    cache is decode_cache_dtype=bfloat16, refused); a position is valid
+    up to each article's own step t."""
     K = hps.beam_size
     L = hps.dec_layers
     nh, hd = hps.num_heads, _head_dim(hps)
@@ -348,8 +390,9 @@ def beam_adapter(hps: HParams):
         del params
         B = enc.cross_k.shape[0]
         shape = (B, K, L, T, nh, hd)
-        return {"cache_k": enc.cross_k.new_zeros(shape),
-                "cache_v": enc.cross_k.new_zeros(shape)}
+        f32 = dict(dtype=torch.float32, device=enc.cross_k.device)
+        return {"cache_k": torch.zeros(shape, **f32),
+                "cache_v": torch.zeros(shape, **f32)}
 
     def step(params: Params, enc: TransformerEncView, enc_mask: torch.Tensor,
              ext_ids: torch.Tensor, t: torch.Tensor, latest: torch.Tensor,
@@ -367,18 +410,23 @@ def beam_adapter(hps: HParams):
         ki = torch.arange(K, device=t.device)[None, :]
         ti = t[:, None]
         attn_dist = cross_ctx = None
+        dt = y.dtype  # projections in the activation dtype; the cache,
+        # logits and softmax f32
         for li, layer in enumerate(params["decoder"]["layers"]):
             p = layer["self_attn"]
             h_norm = _ln(layer["ln1"], y)
-            q = _split_heads(hps, h_norm @ p["wq"])  # [B, K, nh, hd]
-            cache_k[bi, ki, li, ti] = _split_heads(hps, h_norm @ p["wk"])
-            cache_v[bi, ki, li, ti] = _split_heads(hps, h_norm @ p["wv"])
-            logits = torch.einsum("bknd,bktnd->bknt", q,
+            # [B, K, nh, hd]
+            q = _split_heads(hps, h_norm @ p["wq"].to(dt))
+            cache_k[bi, ki, li, ti] = _split_heads(
+                hps, h_norm @ p["wk"].to(dt)).float()
+            cache_v[bi, ki, li, ti] = _split_heads(
+                hps, h_norm @ p["wv"].to(dt)).float()
+            logits = torch.einsum("bknd,bktnd->bknt", q.float(),
                                   cache_k[:, :, li]) * (hd ** -0.5)
             logits = torch.where(pos_ok[:, None, None, :], logits, NEG)
             probs = torch.softmax(logits, dim=-1)
             ctx = torch.einsum("bknt,bktnd->bknd", probs, cache_v[:, :, li])
-            y = y + _merge_heads(ctx) @ p["wo"]
+            y = y + _merge_heads(ctx).to(dt) @ p["wo"].to(dt)
             cross_out, attn_dist = cross_attend_layer(
                 hps, layer, y, enc.cross_k[:, li], enc.cross_v[:, li],
                 enc_mask)

@@ -17,9 +17,26 @@ let a padding query attend the padding keys.  Only padding rows differ
 between the two, and the cross-attention masks those rows out, so the
 tokens do not change.
 
-q, k, v are [B, T, nh, hd] float32 (the layout ``_split_heads`` gives, so
-no transposes), key_mask [B, T] float32 (1 = real token) or None (every
-key real); the output is the context [B, T, nh, hd] before ``wo``.
+q, k, v are [B, T, nh, hd] (the layout ``_split_heads`` gives, so no
+transposes), all float32 or all bfloat16, key_mask [B, T] float32 (1 =
+real token) or None (every key real); the output is the context
+[B, T, nh, hd] before ``wo``, in the inputs' dtype.
+
+bfloat16 (the transformer under ``--compute_dtype=bfloat16``, whose JAX
+package hands bf16 q, k, v to the library kernel) rounds where the
+library rounds (flash_attention.py of the installed jax): S from bf16
+values with f32 sums (:396), P = exp(S - m) in f32 rounded to bf16
+before P V with f32 sums (:471), the output rounded once to bf16, lse in
+f32; in the backward D = rowsum(dO * O) in f32 (:273-275), P rounded to
+bf16 for dV = P^T dO (:900), dP = dO V^T with f32 sums, dS = P (dP - D)
+* sm_scale rounded to bf16 for dK and dQ (:918, :1258), each gradient
+rounded once to bf16.  The plain versions form those products from f32
+copies of the bf16 values (exact products, f32 sums), never from CPU
+bf16 GEMMs, whose internal rounding is the library's own; the kernels
+use bf16 ``mma.sync`` with f32 accumulators.  A bf16 row rounds P
+against the online softmax's running max in the kernel and against the
+row max in the plain version, so the two differ by about a bf16 ulp of
+P.
 
 Training differentiates through ``FlashAttention``, a
 ``torch.autograd.Function``: its forward also writes each row's
@@ -43,10 +60,13 @@ same way for the library kernel, models/transformer.py:262-272).  Head
 dims above 256 are refused (config.ROADMAP_HEAD_DIM).
 
 Dispatch: a CPU tensor goes to the plain versions; a CUDA tensor goes to
-the kernels (kernels/flash_attention.cu, kernels/flash_attention_bwd.cu),
-or the wrapper raises.  There is no fallback from one to the other.
-``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq`` count kernel
-launches.  ``flash_attention`` takes the Function only when a gradient is
+the kernels (kernels/flash_attention.cu, kernels/flash_attention_bwd.cu;
+f32 tensors to their f32 forms, bf16 tensors to their bf16 forms, a mix
+raises), or the wrapper raises.  There is no fallback from one to the
+other.  ``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq`` count
+kernel launches of either form, ``launches_bf16``,
+``launches_bwd_dkv_bf16`` and ``launches_bwd_dq_bf16`` those of the bf16
+forms.  ``flash_attention`` takes the Function only when a gradient is
 needed; under ``torch.no_grad`` (serving) it launches the forward alone,
 without ``lse``.
 """
@@ -69,11 +89,17 @@ NEG = -1e30  # masked-logit floor (transformer._mha), never -inf
 HEAD_DIMS = (32, 128, 256)
 
 #: kernel launches so far (one per forward on CUDA tensors, one per
-#: backward for each backward kernel); set them to 0 before a run whose
-#: launches are to be counted
+#: backward for each backward kernel), and of those the launches of the
+#: bf16 forms; set them to 0 before a run whose launches are to be counted
 launches = 0
 launches_bwd_dkv = 0
 launches_bwd_dq = 0
+launches_bf16 = 0
+launches_bwd_dkv_bf16 = 0
+launches_bwd_dq_bf16 = 0
+
+#: the dtypes the kernels take (all of q, k, v, out and dO in one of them)
+DTYPES = (torch.float32, torch.bfloat16)
 
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
@@ -91,11 +117,17 @@ def _allowed(key_mask: Optional[torch.Tensor], causal: bool, B: int, T: int,
     return ok.expand(B, 1, T, T)
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x widened to f32 if it is bf16 (exact), else x itself."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def _masked_logits(q, k, key_mask, causal, sm_scale):
     """([B, nh, T, T] scores at NEG where a row may not attend, the
-    [B, 1, T, T] attend mask)."""
+    [B, 1, T, T] attend mask).  bf16 q and k are widened first: exact
+    products, f32 sums."""
     B, T = q.shape[:2]
-    logits = torch.einsum("bqnd,bknd->bnqk", q, k) * sm_scale
+    logits = torch.einsum("bqnd,bknd->bnqk", _wide(q), _wide(k)) * sm_scale
     ok = _allowed(key_mask, causal, B, T, q.device)
     return torch.where(ok, logits, NEG), ok
 
@@ -104,19 +136,30 @@ def _flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  key_mask: Optional[torch.Tensor], causal: bool,
                  sm_scale: float) -> torch.Tensor:
     """The einsum formula in plain PyTorch (the [B, nh, T, T] scores are
-    materialised).  Returns [B, T, nh, hd] float32."""
+    materialised).  Returns [B, T, nh, hd] in q's dtype."""
     logits, ok = _masked_logits(q, k, key_mask, causal, sm_scale)
+    row_ok = ok.any(dim=-1, keepdim=True)
+    if q.dtype == torch.bfloat16:
+        # the library's rounding: P = exp(s - m) rounded to bf16 for P V
+        # (f32 sums), divided by the f32 sum of the unrounded P
+        m = torch.amax(logits, dim=-1, keepdim=True)
+        p = torch.where(ok, torch.exp(logits - m), 0.0)
+        l = torch.sum(p, dim=-1, keepdim=True)
+        ctx = torch.einsum("bnqk,bknd->bnqd", p.to(torch.bfloat16).float(),
+                           v.float())
+        ctx = torch.where(row_ok, ctx / torch.where(row_ok, l, 1.0), 0.0)
+        return ctx.transpose(1, 2).to(torch.bfloat16)
     probs = torch.softmax(logits, dim=-1)
     # a row with no key to attend: uniform over -1e30 logits -> zeros
-    probs = torch.where(ok.any(dim=-1, keepdim=True), probs, 0.0)
+    probs = torch.where(row_ok, probs, 0.0)
     return torch.einsum("bnqk,bknd->bqnd", probs, v)
 
 
 def _flash_lse_plain(q: torch.Tensor, k: torch.Tensor,
                      key_mask: Optional[torch.Tensor], causal: bool,
                      sm_scale: float) -> torch.Tensor:
-    """Each row's log-sum-exp of its attended scores, [B, T, nh]; +inf
-    for a row with no key to attend (the forward kernel's lse)."""
+    """Each row's log-sum-exp of its attended scores, [B, T, nh] float32;
+    +inf for a row with no key to attend (the forward kernel's lse)."""
     logits, ok = _masked_logits(q, k, key_mask, causal, sm_scale)
     lse = torch.logsumexp(logits, dim=-1)  # [B, nh, T]
     lse = torch.where(ok.any(dim=-1), lse, float("inf"))
@@ -129,17 +172,29 @@ def _flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      sm_scale: float,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward formula in plain PyTorch, the plain version of both
-    backward kernels: (dq, dk, dv), each [B, T, nh, hd].
+    backward kernels: (dq, dk, dv), each [B, T, nh, hd] in q's dtype.
 
     P = exp(s - lse) on the pairs a row may attend (0 elsewhere, and on
     a whole row whose lse is +inf), D = rowsum(dO * O),
     dS = P * (dO . v - D); dv = P^T dO, dk = scale * dS^T q,
-    dq = scale * dS k."""
+    dq = scale * dS k.  In bf16 (module docstring) D and dS are f32, P
+    and scale * dS are rounded to bf16 before their products, and each
+    gradient is rounded once."""
     logits, ok = _masked_logits(q, k, key_mask, causal, sm_scale)
     lse_r = lse.transpose(1, 2)[..., None]  # [B, nh, T, 1]
     row_ok = torch.isfinite(lse_r)
     p = torch.where(ok & row_ok, torch.exp(logits - torch.where(
         row_ok, lse_r, 0.0)), 0.0)
+    if q.dtype == torch.bfloat16:
+        qf, kf, vf, dof = (_wide(x) for x in (q, k, v, do))
+        d = torch.sum(dof * _wide(out), dim=-1).transpose(1, 2)[..., None]
+        dp = torch.einsum("bqnd,bknd->bnqk", dof, vf)
+        ds = (p * (dp - d) * sm_scale).to(torch.bfloat16).float()
+        pb = p.to(torch.bfloat16).float()
+        dv = torch.einsum("bnqk,bqnd->bknd", pb, dof)
+        dk = torch.einsum("bnqk,bqnd->bknd", ds, qf)
+        dq = torch.einsum("bnqk,bknd->bqnd", ds, kf)
+        return tuple(x.to(torch.bfloat16) for x in (dq, dk, dv))
     d = torch.sum(do * out, dim=-1).transpose(1, 2)[..., None]
     dp = torch.einsum("bqnd,bknd->bnqk", do, v)
     ds = p * (dp - d)
@@ -170,10 +225,10 @@ def _load_library() -> ctypes.CDLL:
         from textsummarization_on_flink_tpu_torch.kernels import build
 
         lib = ctypes.CDLL(build.build("flash_attention"))
-        fn = lib.ts_flash_attention
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
-            + [ctypes.c_float, ctypes.c_void_p]
+        for fn in (lib.ts_flash_attention, lib.ts_flash_attention_bf16):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+                + [ctypes.c_float, ctypes.c_void_p]
         lib.ts_flash_error_string.restype = ctypes.c_char_p
         lib.ts_flash_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -187,10 +242,12 @@ def _load_bwd_library() -> ctypes.CDLL:
 
         lib = ctypes.CDLL(build.build("flash_attention_bwd"))
         tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        lib.ts_flash_bwd_dkv.restype = ctypes.c_int
-        lib.ts_flash_bwd_dkv.argtypes = [ctypes.c_void_p] * 9 + tail
-        lib.ts_flash_bwd_dq.restype = ctypes.c_int
-        lib.ts_flash_bwd_dq.argtypes = [ctypes.c_void_p] * 8 + tail
+        for fn in (lib.ts_flash_bwd_dkv, lib.ts_flash_bwd_dkv_bf16):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 9 + tail
+        for fn in (lib.ts_flash_bwd_dq, lib.ts_flash_bwd_dq_bf16):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 8 + tail
         lib.ts_flash_bwd_error_string.restype = ctypes.c_char_p
         lib.ts_flash_bwd_error_string.argtypes = [ctypes.c_int]
         _bwd_lib = lib
@@ -199,18 +256,26 @@ def _load_bwd_library() -> ctypes.CDLL:
 
 def _check_inputs(what: str, tensors, key_mask) -> None:
     """Device, type, shape, contiguity and alignment of [B, T, nh, hd]
-    float32 inputs (the first one sets the shape) and the key mask."""
+    inputs, all float32 or all bfloat16 (the first one sets the shape and
+    the dtype), and the float32 key mask."""
     q = tensors[0][1]
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the {what} kernel needs CUDA tensors, got {dev}")
     if q.dim() != 4:
         raise ValueError(f"q must be [B, T, nh, hd], got {tuple(q.shape)}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"q must have dtype float32 or bfloat16, got "
+                         f"{q.dtype}")
     B, T, nh, hd = q.shape
     for name, x in tensors:
-        _check(name, x, (B, T, nh, hd), (torch.float32,), dev)
+        if x.dtype != q.dtype and x.dtype in DTYPES:
+            raise ValueError(f"{name} has dtype {x.dtype} but q has "
+                             f"{q.dtype}: the kernels take one dtype")
+        _check(name, x, (B, T, nh, hd), (q.dtype,), dev)
         if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
+            raise ValueError(f"{name} must be 16-byte aligned (16-byte "
+                             f"loads)")
     if key_mask is not None:
         _check("key_mask", key_mask, (B, T), (torch.float32,), dev)
     _padded_head_dim(hd)
@@ -219,9 +284,10 @@ def _check_inputs(what: str, tensors, key_mask) -> None:
 
 
 def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False):
-    """Launch the forward kernel; same contract as _flash_plain.  With
-    ``with_lse`` returns (out, lse [B, T, nh])."""
-    global launches
+    """Launch the forward kernel (its bf16 form for bf16 inputs); same
+    contract as _flash_plain.  With ``with_lse`` returns (out, lse
+    [B, T, nh] float32)."""
+    global launches, launches_bf16
     _check_inputs("flash attention", (("q", q), ("k", k), ("v", v)),
                   key_mask)
     dev = q.device
@@ -232,9 +298,11 @@ def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False):
     out = torch.empty_like(q)
     lse = torch.empty((B, T, nh), device=dev) if with_lse else None
     lib = _load_library()
+    bf16 = q.dtype == torch.bfloat16
+    fn = lib.ts_flash_attention_bf16 if bf16 else lib.ts_flash_attention
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.ts_flash_attention(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if key_mask is None else key_mask.data_ptr(), out.data_ptr(),
             0 if lse is None else lse.data_ptr(),
@@ -243,20 +311,23 @@ def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False):
         raise RuntimeError("flash attention kernel launch failed: "
                            + lib.ts_flash_error_string(err).decode())
     launches += 1
+    launches_bf16 += bf16
     if width != hd:
         out = out[..., :hd].contiguous()
     return (out, lse) if with_lse else out
 
 
 def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
-    """Launch the dK/dV kernel: (dk, dv).  dsum = rowsum(dO * O)
-    [B, T, nh]."""
-    global launches_bwd_dkv
+    """Launch the dK/dV kernel (its bf16 form for bf16 inputs): (dk, dv).
+    dsum = rowsum(dO * O) [B, T, nh] float32."""
+    global launches_bwd_dkv, launches_bwd_dkv_bf16
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     lib = _load_bwd_library()
+    bf16 = q.dtype == torch.bfloat16
+    fn = lib.ts_flash_bwd_dkv_bf16 if bf16 else lib.ts_flash_bwd_dkv
     B, T, nh, hd = q.shape
     with torch.cuda.device(q.device):
-        err = lib.ts_flash_bwd_dkv(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(),
             0 if key_mask is None else key_mask.data_ptr(), dk.data_ptr(),
@@ -266,17 +337,20 @@ def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
         raise RuntimeError("flash attention dK/dV kernel launch failed: "
                            + lib.ts_flash_bwd_error_string(err).decode())
     launches_bwd_dkv += 1
+    launches_bwd_dkv_bf16 += bf16
     return dk, dv
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
-    """Launch the dQ kernel: dq."""
-    global launches_bwd_dq
+    """Launch the dQ kernel (its bf16 form for bf16 inputs): dq."""
+    global launches_bwd_dq, launches_bwd_dq_bf16
     dq = torch.empty_like(q)
     lib = _load_bwd_library()
+    bf16 = q.dtype == torch.bfloat16
+    fn = lib.ts_flash_bwd_dq_bf16 if bf16 else lib.ts_flash_bwd_dq
     B, T, nh, hd = q.shape
     with torch.cuda.device(q.device):
-        err = lib.ts_flash_bwd_dq(
+        err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(),
             0 if key_mask is None else key_mask.data_ptr(), dq.data_ptr(),
@@ -286,6 +360,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
         raise RuntimeError("flash attention dQ kernel launch failed: "
                            + lib.ts_flash_bwd_error_string(err).decode())
     launches_bwd_dq += 1
+    launches_bwd_dq_bf16 += bf16
     return dq
 
 
@@ -300,7 +375,8 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, key_mask, causal, sm_scale):
     _check("lse", lse, (B, T, nh), (torch.float32,), q.device)
     width = _padded_head_dim(hd)
     q, k, v, out, do = _pad_head_dim(width, q, k, v, out, do)
-    dsum = torch.sum(do * out, dim=-1)  # [B, T, nh], contiguous
+    # [B, T, nh] f32, contiguous; bf16 dO and O widened first
+    dsum = torch.sum(_wide(do) * _wide(out), dim=-1)
     dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal,
                            sm_scale)
     dq = _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale)
