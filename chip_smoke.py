@@ -47,7 +47,10 @@ device or without the port's sources beside it.  Phases, each fatal:
         bf16 versions within FLASH_BF16_ULPS bf16 ulps at 16 x 400 x 8 x
         32 (key mask), 16 x 100 x 8 x 32 (causal), 4 x 2048 x 8 x 128
         (both) and 16 x 400 x 2 x 256, timed beside
-        scaled_dot_product_attention in bf16 (phase_flash_bf16);
+        scaled_dot_product_attention in bf16 (phase_flash_bf16); the
+        bf16 backward kernels' SASS (bf16_bwd_sass): wgmma (HGMMA) and
+        TMA copies (UTMALDG) in every instantiation, no bf16 mma.sync
+        (HMMA.16816), no spill;
   4. for each model family, check the beam search on the card against the
      plain CPU path on a small input (same tokens), and three train steps
      of a small model on the card against the CPU (same losses within
@@ -758,6 +761,50 @@ def flash_bf16_err(got, want):
     err = float((got.float() - want.float()).abs().max())
     top = bf16_ulp(want.float().abs().max().reshape(1))
     return err, err / float(top[0])
+
+
+def bf16_bwd_sass():
+    """What ts_flash_bwd_dkv_bf16 and ts_flash_bwd_dq_bf16 launch, from
+    the built library (scripts/torch_kernel_sass.py's cuobjdump counts and
+    ptxas log): per kernel, over its head-dim instantiations, the HGMMA
+    (warpgroup products) and UTMALDG (tensor copies) counts, their HGMMA
+    opcodes, the bf16 mma.sync (HMMA.16816) count and the spill bytes.
+    Fails unless every instantiation has HGMMA and UTMALDG and none has
+    HMMA.16816 or a spill."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_kernel_sass as sass
+
+    from textsummarization_on_flink_tpu_torch.kernels import build
+
+    lib = build.build("flash_attention_bwd")
+    ptxas = sass.ptxas_functions(build.build_log("flash_attention_bwd"))
+    out = {}
+    for func, ops in sass.sass_counts(lib).items():
+        for key in ("dkv", "dq"):
+            if f"flash_bwd_{key}_bf16_kernel" not in func:
+                continue
+            got = sass.summary(ops)
+            spills = ptxas.get(func, {})
+            row = out.setdefault(key, dict(instantiations=0, hgmma=0,
+                                           utmaldg=0, hmma_bf16=0,
+                                           spill_bytes=0, hgmma_opcodes=[]))
+            row["instantiations"] += 1
+            for name in ("hgmma", "utmaldg", "hmma_bf16"):
+                row[name] += got[name]
+            row["spill_bytes"] += spills.get("spill_stores", 0) + spills.get(
+                "spill_loads", 0)
+            row["hgmma_opcodes"] = sorted(set(row["hgmma_opcodes"])
+                                          | set(got["hgmma_opcodes"]))
+            check(got["hgmma"] > 0 and got["utmaldg"] > 0
+                  and got["hmma_bf16"] == 0 and "spill_stores" in spills
+                  and spills["spill_stores"] + spills["spill_loads"] == 0,
+                  f"bf16 {key} kernel {func}: SASS {got}, ptxas {spills} "
+                  f"(want HGMMA and UTMALDG, no HMMA.16816, no spill)")
+    check(all(out.get(k, {}).get("instantiations") == 3
+              for k in ("dkv", "dq")),
+          f"bf16 backward kernels not found in the SASS: {out}")
+    print("flash_bf16_bwd_sass " + json.dumps(out))
+    return out
 
 
 def phase_flash_bf16(seed):
@@ -2373,6 +2420,7 @@ def main(argv=None) -> int:
     flash_row, flash_hd256, flash_worst = phase_flash(args.seed)
     bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
     fb_rows, fb_worst = phase_flash_bf16(args.seed)
+    fb_sass = bf16_bwd_sass()
     errors = {name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
               for name, now in (("forward", flash_worst),
                                 ("dq", bwd_worst["dq"]),
@@ -2597,7 +2645,7 @@ def main(argv=None) -> int:
             bound_ms=fb_main[f"{key}_bound_ms"],
             bound_by=fb_main[f"{key}_bound_by"],
             library_ms=fb_main["bwd_library_ms"],
-            f32_form_ms=bwd_main[f"{key}_ms"],
+            f32_form_ms=bwd_main[f"{key}_ms"], sass=fb_sass[key],
             shapes=[dict(shape=r["shape"], causal=r["causal"],
                          ms=r[f"{key}_ms"], plain_ms=r["bwd_plain_ms"],
                          library_ms=r["bwd_library_ms"],

@@ -3,6 +3,7 @@
 phase-3 shapes, for comparing two checkouts on one card.
 
     python3 scripts/torch_flash_bench.py [--seed N] [--iters N] [--tag T]
+        [--dtype float32|bfloat16]
 
 Needs one CUDA card.  It times whichever package comes first on the
 import path: put another checkout on PYTHONPATH to time its kernels with
@@ -11,7 +12,13 @@ checkout wins).  Shapes (as in chip_smoke.py phase 3): the forward
 without lse at 16x400x8x32 (key mask; causal) and 4x2048x8x128 (key
 mask; causal); the forward with lse at 16x400x8x32 (key mask) and
 16x100x8x32 (causal); the dK/dV and dQ kernels at those two and at
-4x2048x8x128 (key mask; causal).  Each time is the median of --iters
+4x2048x8x128 (key mask; causal).  With --dtype bfloat16 the kernels'
+bf16 forms at chip_smoke.py's phase_flash_bf16 shapes (16x400x8x32 key
+mask, 16x100x8x32 causal, 4x2048x8x128 key mask and causal, 16x400x2x256
+key mask): the forward without lse and the dK/dV and dQ kernels, each
+also with its host microseconds per call (the wrapper's enqueue, the
+tensor maps' encoding included, averaged over --iters calls without a
+synchronize).  Each time is the median of --iters
 launches, each after a write of 96 MB (more than the L2 cache), timed
 with CUDA events by this checkout's chip_smoke.time_cuda (also when the
 kernels come from another checkout).  Prints the card's name and power
@@ -44,6 +51,9 @@ FWD = [(16, 400, 8, 32, False), (16, 400, 8, 32, True),
        (4, 2048, 8, 128, False), (4, 2048, 8, 128, True)]
 LSE = [(16, 400, 8, 32, False), (16, 100, 8, 32, True)]
 BWD = LSE + [(4, 2048, 8, 128, False), (4, 2048, 8, 128, True)]
+BF16 = [(16, 400, 8, 32, False), (16, 100, 8, 32, True),
+        (4, 2048, 8, 128, False), (4, 2048, 8, 128, True),
+        (16, 400, 2, 256, False)]
 
 
 def main(argv=None) -> int:
@@ -51,6 +61,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"),
+                    default="float32")
     args = ap.parse_args(argv)
 
     import torch
@@ -67,12 +79,15 @@ def main(argv=None) -> int:
     print(os.path.dirname(os.path.dirname(os.path.abspath(fl.__file__))))
     flush = torch.empty(96 * 2**20 // 4, device="cuda")
 
-    def emit(kernel, shape, ms):
+    def emit(kernel, shape, ms, **extra):
         B, T, nh, hd, causal = shape
-        print(json.dumps(dict(tag=args.tag, kernel=kernel,
+        print(json.dumps(dict(tag=args.tag, dtype=args.dtype, kernel=kernel,
                               shape=f"{B}x{T}x{nh}x{hd}", causal=causal,
-                              key_mask=not causal, ms=ms)))
+                              key_mask=not causal, ms=ms, **extra)))
 
+    if args.dtype == "bfloat16":
+        bench_bf16(args, chip_smoke, fl, flush, emit)
+        return 0
     for shape in FWD:
         B, T, nh, hd, causal = shape
         q, k, v, mask = chip_smoke.flash_inputs(B, T, nh, hd, args.seed,
@@ -100,6 +115,47 @@ def main(argv=None) -> int:
             lambda: fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, causal,
                                     scale), args.iters, flush))
     return 0
+
+
+def host_us(fn, iters):
+    """Host microseconds per call of fn, enqueued back to back."""
+    import time
+
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def bench_bf16(args, chip_smoke, fl, flush, emit):
+    """The bf16 forms at phase_flash_bf16's shapes."""
+    import torch
+
+    for shape in BF16:
+        B, T, nh, hd, causal = shape
+        q, k, v, mask = chip_smoke.flash_inputs(B, T, nh, hd, args.seed,
+                                                not causal)
+        q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+        scale = hd ** -0.5
+        emit("forward", shape, chip_smoke.time_cuda(
+            lambda: fl._flash_cuda(q, k, v, mask, causal, scale),
+            args.iters, flush))
+        out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
+                                  with_lse=True)
+        do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+        dsum = torch.sum(do.float() * out.float(), dim=-1)
+        for kernel, fn in (
+                ("bwd_dkv", lambda: fl._bwd_dkv_cuda(
+                    q, k, v, do, lse, dsum, mask, causal, scale)),
+                ("bwd_dq", lambda: fl._bwd_dq_cuda(
+                    q, k, v, do, lse, dsum, mask, causal, scale))):
+            emit(kernel, shape, chip_smoke.time_cuda(fn, args.iters, flush),
+                 host_us=host_us(fn, args.iters))
 
 
 if __name__ == "__main__":

@@ -7,8 +7,11 @@ the fused attention's tanh.
 Needs nvcc and cuobjdump (the CUDA toolkit) and one CUDA card (for its
 SM clock).  It builds the port's kernels (kernels/build.py) and prints,
 per kernel function of each library, the SASS instruction count, the
-number of 3xTF32 tensor-core instructions (HMMA.1688.F32.TF32), of MUFU
-instructions and ptxas's spill lines.  Then it compiles two probe
+number of 3xTF32 tensor-core instructions (HMMA.1688.F32.TF32), of bf16
+mma.sync ones (HMMA.16816 on BF16), of warpgroup products (HGMMA, with
+their opcodes: shape, F32 accumulate, BF16 operands) and tensor copies
+(UTMALDG), of MUFU instructions, ptxas's registers and spill bytes for
+that function, and ptxas's spill lines.  Then it compiles two probe
 kernels into the git-ignored build directory, y[i] = x[i] and
 y[i] = tanhf(x[i]), and counts the SASS instructions (and MUFU among
 them) that one accurate tanhf adds: with the fused attention's B*K*T*D
@@ -45,7 +48,14 @@ extern "C" __global__ void probe_tanh(const float* x, float* y) {
 }
 """
 
-_INSTR = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+_INSTR = re.compile(
+    r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)")
+# ptxas -v: the function a block of lines is about, its spills, registers
+_PTXAS_FUNC = re.compile(r"(?:Compiling entry function|Function properties "
+                         r"for) '?(\w+)'?")
+_PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads")
+_PTXAS_REGS = re.compile(r"Used (\d+) registers")
 
 
 def tool(name: str) -> str:
@@ -74,7 +84,37 @@ def sass_counts(path: str):
 def summary(ops: collections.Counter):
     return dict(instructions=sum(ops.values()),
                 hmma_tf32=ops.get("HMMA.1688.F32.TF32", 0),
+                hmma_bf16=sum(n for op, n in ops.items()
+                              if op.startswith("HMMA.16816") and "BF16" in op),
+                hgmma=sum(n for op, n in ops.items()
+                          if op.startswith("HGMMA")),
+                hgmma_opcodes=sorted({op for op in ops
+                                      if op.startswith("HGMMA")}),
+                utmaldg=sum(n for op, n in ops.items()
+                            if op.startswith("UTMALDG")),
                 mufu=sum(n for op, n in ops.items() if op.startswith("MUFU")))
+
+
+def ptxas_functions(log: str):
+    """{mangled function: {registers, spill_stores, spill_loads}} from a
+    build log of nvcc -Xptxas -v."""
+    funcs = collections.defaultdict(dict)
+    cur = None
+    for line in log.splitlines():
+        m = _PTXAS_FUNC.search(line)
+        if m:
+            cur = m.group(1)
+            continue
+        if cur is None:
+            continue
+        m = _PTXAS_SPILL.search(line)
+        if m:
+            funcs[cur].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = _PTXAS_REGS.search(line)
+        if m:
+            funcs[cur]["registers"] = int(m.group(1))
+    return funcs
 
 
 def max_sm_clock_hz() -> float:
@@ -93,9 +133,10 @@ def main() -> int:
         spills = [ln.strip() for ln in build.build_log(name).splitlines()
                   if "spill" in ln]
         print(json.dumps(dict(library=name, spill_lines=sorted(set(spills)))))
+        ptxas = ptxas_functions(build.build_log(name))
         for func, ops in sass_counts(lib).items():
             print(json.dumps(dict(library=name, function=func,
-                                  **summary(ops))))
+                                  **summary(ops), **ptxas.get(func, {}))))
 
     os.makedirs(build.BUILD_DIR, exist_ok=True)
     src = os.path.join(build.BUILD_DIR, "tanh_probe.cu")

@@ -1054,14 +1054,66 @@ def test_mma_bf16_fragments_on_card():
     assert torch.equal(c2, want)
 
 
+#: the product checks of the bf16 backward's building blocks
+#: (ts_flash_wgmma_check): (hd, ny, x0, col0) at the kernels' (hd, tile
+#: rows), each warpgroup's row offset, and both column halves at hd 256
+WGMMA_CHECKS = [(32, 64, 0, 0), (32, 64, 64, 0), (128, 32, 0, 0),
+                (128, 32, 64, 0), (128, 64, 0, 0), (128, 64, 64, 0),
+                (256, 32, 0, 0), (256, 32, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,ny,x0,col0", WGMMA_CHECKS)
+def test_wgmma_bf16_products_on_card(hd, ny, x0, col0):
+    """One warpgroup's wgmma products from TMA-copied tiles
+    (kernels/wgmma_bf16.cuh), the bf16 backward kernels' building blocks:
+    d1 = X[x0:x0+64] Y^T with both operands K-major in the copy's 64- or
+    128-byte swizzle (S^T = K Q^T, S = Q K^T), then d2 = bf16(d1)
+    Z[:, col0:col0+128] with A from the accumulator's registers and Z
+    M|N-major (dV += P^T dO, dQ += dS K).  Small integers (|d1| <= hd <=
+    256 is exact in bf16), so every product and sum is exact and both
+    must equal torch.matmul in f32."""
+    import ctypes
+
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    g = torch.Generator(device="cuda").manual_seed(hd + ny + x0 + col0)
+    x = torch.randint(-1, 2, (128, hd), generator=g, device="cuda")
+    y = torch.randint(-1, 2, (ny, hd), generator=g, device="cuda")
+    z = torch.randint(-4, 5, (ny, hd), generator=g, device="cuda")
+    x, y, z = (a.to(torch.bfloat16) for a in (x, y, z))
+    od = min(hd, 128)
+    d1 = torch.empty(64, ny, device="cuda")
+    d2 = torch.empty(64, od, device="cuda")
+    lib = fl._load_bwd_library()
+    fn = lib.ts_flash_wgmma_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    err = fn(x.data_ptr(), y.data_ptr(), z.data_ptr(), d1.data_ptr(),
+             d2.data_ptr(), hd, ny, x0, col0,
+             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    want1 = x[x0:x0 + 64].float() @ y.float().T
+    assert torch.equal(d1, want1)
+    assert torch.equal(d2, want1 @ z[:, col0:col0 + od].float())
+
+
+#: T at the bf16 backward's TMA and tile edges (128-row blocks of two
+#: warpgroups, 32- and 64-row ring tiles), beside EDGE_T
+BF16_EDGE_T = (127, 2049)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,nh,hd,causal,masked", [
     (16, 400, 8, 32, False, True), (16, 100, 8, 32, True, False),
     (4, 2048, 8, 128, False, True), (4, 2048, 8, 128, True, False),
     (16, 400, 2, 256, False, True), (16, 100, 2, 256, True, False),
     (3, 77, 4, 128, True, True), (1, 1, 1, 32, False, False)]
-    + [(2, T, 2, hd, causal, True) for T in EDGE_T for hd in (32, 128, 256)
-       for causal in (False, True)])
+    + [(2, T, 2, hd, causal, True) for T in EDGE_T + BF16_EDGE_T
+       for hd in (32, 128, 256) for causal in (False, True)])
 def test_flash_bf16_kernels_match_plain_on_card(B, T, nh, hd, causal,
                                                 masked):
     """The bf16 forms of the forward, dK/dV and dQ kernels at the
@@ -1103,6 +1155,66 @@ def test_flash_bf16_kernels_match_plain_on_card(B, T, nh, hd, causal,
         _within_bf16_ulps(g, w)
     if masked and B > 1:
         assert not out[1].any() and all(not g[1].any() for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 128, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_bf16_single_key_rows_on_card(hd, causal):
+    """T = 1, each copy of a tile one real row and the rest zero-filled:
+    out and dv within FLASH_BF16_ULPS of the plain versions.  Every row
+    attends its one key with P = 1, so dS = P (dP - D), and with it dq and
+    dk, are 0 in exact arithmetic; kernel and plain version both return
+    the f32 rounding of dP - D (two sums of hd products in other orders)
+    times sm_scale and one row of k or q, held to that rounding's bound.
+    An empty article (key mask) gives exact zeros."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_bf16_inputs(2, 1, 2, hd, seed=hd)
+    key_mask = None if causal else mask
+    scale = hd ** -0.5
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    out = fl.flash_attention(qg, kg, vg, key_mask, causal, scale)
+    do = torch.randn(out.shape, device="cuda").to(torch.bfloat16)
+    dq, dk, dv = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    _within_bf16_ulps(out.detach(), fl._flash_plain(q, k, v, key_mask,
+                                                    causal, scale))
+    lse_p = fl._flash_lse_plain(q, k, key_mask, causal, scale)
+    want = fl._flash_bwd_plain(q, k, v, out.detach(), lse_p, do, key_mask,
+                               causal, scale)
+    _within_bf16_ulps(dv, want[2])
+    terms = float((do.float() * v.float()).abs().sum(-1).max())
+    for g, w, other in ((dq, want[0], k), (dk, want[1], q)):
+        noise = 2 * hd * 2.0 ** -24 * terms * scale * float(
+            other.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= noise
+    if key_mask is not None:
+        assert not out[1].any() and not any(x[1].any() for x in (dq, dk, dv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,nh,hd,causal", [
+    (16, 400, 8, 32, False), (16, 100, 8, 32, True),
+    (4, 2048, 8, 128, True), (2, 129, 2, 256, False)])
+def test_flash_bf16_backward_repeats_its_bits_on_card(B, T, nh, hd, causal):
+    """Two runs of the bf16 backward on the same inputs give bitwise-equal
+    dq, dk and dv: each block owns its outputs and sums in a fixed order,
+    with no atomics."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_bf16_inputs(B, T, nh, hd, seed=T)
+    key_mask = None if causal else mask
+    scale = hd ** -0.5
+    out, lse = fl._flash_cuda(q, k, v, key_mask, causal, scale,
+                              with_lse=True)
+    do = torch.randn(out.shape, device="cuda").to(torch.bfloat16)
+    first, second = (fl._flash_bwd_cuda(q, k, v, out, lse, do, key_mask,
+                                        causal, scale) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda

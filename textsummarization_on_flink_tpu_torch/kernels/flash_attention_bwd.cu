@@ -1,7 +1,7 @@
 // Flash self-attention backward for Hopper: the dK/dV kernel and the dQ
-// kernel, each in an f32 form (3xTF32) and a bf16 form (bf16 mma.sync with
-// f32 sums, after the f32 forms below) for the transformer under
-// compute_dtype=bfloat16.
+// kernel, each in an f32 form (3xTF32) and a bf16 form (wgmma with f32
+// sums on tiles copied by TMA, after the f32 forms below) for the
+// transformer under compute_dtype=bfloat16.
 //
 // Replaces the two backward Pallas kernels of the library flash attention
 // the JAX package's transformer differentiates through in training
@@ -98,20 +98,20 @@
 //     query rows attend none of its keys); the dQ kernel stops at the key
 //     tile past its last query row, as the forward does.
 //
-// Softmax terms use expf (no fast math), so the result differs from the
-// plain version by the order of sums and about one f32 rounding per
-// product.  wgmma and TMA are later work.
+// The f32 forms' softmax terms use expf (no fast math), so the result
+// differs from the plain version by the order of sums and about one f32
+// rounding per product.  wgmma and TMA for them are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see kernels/build.py).  C entry points (two per
-// dtype) bound with
+// dtype, and the bf16 forms' product check) bound with
 // ctypes from ops/flash_attention.py.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -605,410 +605,629 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
 // before dV += P^T dO, dS rounded to bf16 before dK += dS^T Q and dQ +=
 // dS K, the sums in f32 registers across the whole loop and each gradient
 // rounded once to bf16 at the end (sm_scale is in dS, as the library
-// applies it before the rounding).  The products are m16n8k16 bf16
-// mma.sync (mma_bf16.cuh), fragments from ldmatrix (ldmatrix.trans for
-// the B operand taken down the rows: dO in P^T dO, Q in dS^T Q, K in
-// dS K), P and dS from their accumulator registers to the next A operand
-// (a_from_acc).  The tilings are the f32 forms' with bf16 tiles (rows
-// padded by 8 bf16): the dK/dV kernel owns 64 keys (16 per warp), their
-// K and V staged once, and loops over query tiles (32 rows at hd 32, 16
-// at 128 and 256); the dQ kernel owns 64 query rows, its q and dO staged
-// once, and loops over key tiles (64 keys at hd 32, 32 at 128 and 256) in
-// passes of 16 keys per warp.  At hd 256 each splits its output's
-// columns over two blocks.  Masks, empty rows and blocks, and the causal
-// skips are the f32 forms'.
+// applies it before the rounding).
 //
-// What bounds them on an H100: at the dense bf16 rate (989 TFLOP/s) the
-// encoder's 6.6 GFLOP take 6.7 us, against 26 MB of bf16 tensors and f32
-// rows (7.9 us at 3.35 TB/s): the bytes, narrowly.
+// What bounds them on an H100: operations at the dense bf16 rate (989
+// TFLOP/s): 8 * hd per attended pair for dK/dV and 6 * hd for dQ (14 *
+// hd together, since both form S and dP), 0.136 ms at 4 x 2048 x 8 x 128
+// with a key mask; at the encoder's 16 x 400 x 8 x 32 the 26 MB of bf16
+// tensors and f32 rows (7.9 us at 3.35 TB/s) bound them, narrowly.
+//
+// The design (Hopper's; wgmma_bf16.cuh): a block is kWGs = 2 consumer
+// warpgroups and a producer warpgroup whose first warp works (setmaxnreg
+// moves the others' registers to the consumers).  Its lane 0 copies the
+// block's fixed tiles once and keeps the loop's tiles in flight through a
+// ring of kStages = 2 stages in shared memory (a third and a fourth gained
+// nothing on the card), each behind a "full" mbarrier
+// (the copy's bytes and the 32 lanes' arrivals) and an "empty" one (every
+// consumer thread's arrival once its products have read the stage).  Each
+// warpgroup owns 64 rows of the block's output and runs its products as
+// wgmma on the ring's tiles, accumulating its gradients in registers over
+// the whole loop (at hd 128, dK and dV alone are 128 registers a thread).
+// Within a warpgroup the steps run in order (products, wait, elementwise
+// terms, products, wait); the two warpgroups of a block overlap one's
+// elementwise terms with the other's products.  Keeping a tile's dK and dV
+// products in flight across the next tile's S^T was slower on the card.
+//
+//   * dK/dV: a block owns 128 keys (K and V copied once); the ring brings
+//     tiles of kQ query rows of q and dO (64, or 32 at hd 256, where K and
+//     V take 128 KB of shared memory) and their lse and D, which the
+//     producer's lanes load (lse and D are [B, T, nh]: a head's rows are
+//     nh * 4 bytes apart, below the copy engine's 16-byte box; lse is
+//     stored times log2 e, +inf for a row with no key to attend or past
+//     T).  Per tile: S^T = K Q^T and dP^T = V dO^T (A
+//     and B from shared memory, both K-major), P^T and dS^T in their
+//     accumulator registers, then dV += P^T dO and dK += dS^T Q with A
+//     from registers (a_frag) and B = dO or Q M|N-major;
+//   * dQ: a block owns 128 query rows (q and dO copied once, lse and D in
+//     registers); the ring brings tiles of kKeys keys of K and V (64, or
+//     32 at hd 256) and a 64-bit word of their flags (real and unmasked),
+//     which the producer's lanes form with a ballot.  Per tile: S = Q K^T,
+//     dP = dO V^T, dS in registers, dQ += dS K (B = K M|N-major);
+//   * head dim 256: each kernel keeps its output's columns split over two
+//     blocks (the grid's y axis holds head x half), forming S and dP over
+//     the full 256 and keeping 128 columns of dK and dV, or of dQ.
+//
+// Masks: a pair the row may not attend gets p = 0 explicitly (key flag,
+// lse of +inf, causal), never exp(s - lse) with a sentinel; so an empty
+// article gives exact zeros, and a block none of whose keys (dK/dV) or
+// rows (dQ) attends anything writes zeros and stops before the ring
+// starts.  Causal: the dK/dV kernel starts at its first key's row and a
+// warpgroup skips a tile all of whose rows precede its first key; the dQ
+// kernel stops at the key tile past its last row, a warpgroup skips a
+// tile all of whose keys follow its last row, and the blocks with the
+// most tiles start first.  Only a tile that crosses the diagonal tests
+// it.  No atomics: each block owns its outputs, so two runs give the same
+// bits.  exp is ex2 (one MUFU instruction) of a fused multiply-add on
+// log2 e-scaled terms.
 
-template <int HD>
-struct DkvBf16 : Split<HD> {
-  static constexpr int kKeys = 64;  // keys per block
-  static constexpr int kQ = HD <= 64 ? 32 : 16;  // query rows per tile
-  static constexpr int kStride = HD + 8;  // bf16 per shared row
-  static constexpr int kNT = kQ / 8;      // 8-query column tiles of S^T
-  static constexpr int kDT = Split<HD>::kOD / 8;  // 8-wide tiles of dK, dV
-  static constexpr int kKV = 2 * kKeys * kStride;  // bf16 of K and V
-  static constexpr int kTile = kQ * kStride;       // bf16 of a q/dO tile
-  // per stage: q, dO, then lse, D and a row flag (f32)
-  static constexpr size_t kStageBytes = 2 * kTile * 2 + 3 * kQ * 4;
-  static constexpr size_t kSmem = kKV * 2 + 2 * kStageBytes;
-  static_assert(kStageBytes % 16 == 0, "16-byte aligned stages");
-};
+constexpr int kWGs = 2;                  // consumer warpgroups per block
+constexpr int kStages = 2;               // tiles in the ring
+constexpr int kBlockRows = 64 * kWGs;    // keys (dK/dV) or rows (dQ)
+constexpr int kWgThreads = 128 * kWGs;   // consumer threads
+// and the producer warpgroup: its first warp copies, the others exit.  A
+// block's warps are spread over the SM's four register files (16,384
+// registers each), so a ninth warp would cap every thread at 168; with a
+// third warpgroup (one block per SM, 168 registers a thread at launch)
+// the producer gives back all but kProducerRegs and the consumers take
+// kConsumerRegs (setmaxnreg): 128 * (168 - 24) = 256 * (240 - 168), so
+// the consumers take exactly what the producer gave back (setmaxnreg.inc
+// waits for registers its own block released)
+constexpr int kBf16Threads = kWgThreads + 128;
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr float kLog2e = 1.4426950408889634f;
 
-// grid (ceil(T / 64), nh * kSplit, B); DkvBf16<HD>::kSmem bytes of dynamic
-// shared memory
-template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_bf16_kernel(const bf16mma::bf16* __restrict__ q,
-                          const bf16mma::bf16* __restrict__ k,
-                          const bf16mma::bf16* __restrict__ v,
-                          const bf16mma::bf16* __restrict__ dout,
-                          const float* __restrict__ lse,
-                          const float* __restrict__ dsum,
-                          const float* __restrict__ key_mask,
-                          bf16mma::bf16* __restrict__ dk,
-                          bf16mma::bf16* __restrict__ dv, int T, int nh,
-                          int causal, float sm_scale) {
-  using D = DkvBf16<HD>;
-  using bf16mma::bf16;
-  constexpr int kQ = D::kQ, kStride = D::kStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [64][kStride]
-  bf16* vs = ks + D::kKeys * kStride;              // [64][kStride]
-  unsigned char* stages = smem_raw + D::kKV * 2;   // two query tiles
+// 2^x in one MUFU instruction (relative error below 2^-22, far under
+// the bf16 rounding of P and dS; subnormal results flushed to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int kb = blockIdx.x, h = blockIdx.y / D::kSplit, b = blockIdx.z;
-  const int col0 = (blockIdx.y % D::kSplit) * D::kOD;
-  const size_t pos_stride = (size_t)nh * HD;
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
-  const size_t row_base = (size_t)b * T * nh + h;
-  const int key0 = kb * D::kKeys + warp * 16;     // the warp's first key
-  const int keys[2] = {key0 + g, key0 + g + 8};  // this lane's two keys
-  bool kok[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-    kok[r] = keys[r] < T && (key_mask == nullptr ||
-                             key_mask[(size_t)b * T + keys[r]] > 0.f);
+// the dynamic shared memory, aligned for the 128-byte swizzle
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
 
-  float dka[D::kDT][4], dva[D::kDT][4];
-#pragma unroll
-  for (int n = 0; n < D::kDT; ++n) {
-    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
-    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
-  }
-
-  const bool any = __syncthreads_or(kok[0] || kok[1]);
-  const int q_begin = causal ? kb * D::kKeys : 0;  // block-uniform
-  const int n_tiles = any ? (T - q_begin + kQ - 1) / kQ : 0;
-
-  auto stage = [&](int tile, int buf) {
-    bf16* qs = reinterpret_cast<bf16*>(stages + buf * D::kStageBytes);
-    bf16* dos = qs + D::kTile;
-    float* lse_s = reinterpret_cast<float*>(dos + D::kTile);
-    float* d_s = lse_s + kQ;
-    float* rok_s = d_s + kQ;
-    const int q0 = q_begin + tile * kQ;
-    bf16mma::stage_rows<HD, kThreads>(qs, kStride, q + base, pos_stride, q0,
-                                      kQ, T, tid);
-    bf16mma::stage_rows<HD, kThreads>(dos, kStride, dout + base, pos_stride,
-                                      q0, kQ, T, tid);
-    for (int i = tid; i < kQ; i += kThreads) {
-      const int row = q0 + i;
-      float l = 0.f, d = 0.f;
-      bool ok = false;
-      if (row < T) {
-        l = lse[row_base + (size_t)row * nh];
-        d = dsum[row_base + (size_t)row * nh];
-        ok = isfinite(l);
-      }
-      lse_s[i] = ok ? l : 0.f;
-      d_s[i] = d;
-      rok_s[i] = ok ? 1.f : 0.f;
-    }
-    tf32x3::cp_async_commit();
-  };
-
-  if (n_tiles > 0) {
-    bf16mma::stage_rows<HD, kThreads>(ks, kStride, k + base, pos_stride,
-                                      kb * D::kKeys, D::kKeys, T, tid);
-    bf16mma::stage_rows<HD, kThreads>(vs, kStride, v + base, pos_stride,
-                                      kb * D::kKeys, D::kKeys, T, tid);
-    stage(0, 0);  // one group: K, V and the first query tile
-  }
-  const bf16* kw = ks + warp * 16 * kStride;
-  const bf16* vw = vs + warp * 16 * kStride;
-  auto k_frag = [&](int kk, uint32_t (&a)[4]) {
-    bf16mma::load_a(a, kw + 16 * kk, kStride, lane);
-  };
-  auto v_frag = [&](int kk, uint32_t (&a)[4]) {
-    bf16mma::load_a(a, vw + 16 * kk, kStride, lane);
-  };
-  for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      stage(it + 1, (it + 1) & 1);
-      tf32x3::cp_async_wait<1>();
-    } else {
-      tf32x3::cp_async_wait<0>();
-    }
-    const bf16* qs =
-        reinterpret_cast<const bf16*>(stages + (it & 1) * D::kStageBytes);
-    const bf16* dos = qs + D::kTile;
-    __syncthreads();  // the tile (K and V with the first) has landed
-
-    const int q0 = q_begin + it * kQ;
-    if (!causal || q0 + kQ - 1 >= key0) {
-      const float* lse_s = reinterpret_cast<const float*>(dos + D::kTile);
-      const float* d_s = lse_s + kQ;
-      const float* rok_s = d_s + kQ;
-      // S^T = K Q^T: this warp's 16 keys x the tile's kQ queries
-      float p[D::kNT][4];
-      bf16mma::head_dim_product<D::kNT, HD>(p, k_frag, qs, kStride, lane);
-      // P^T = exp(S^T * scale - lse); exactly 0 where the pair is masked
-      // or the row has no key to attend
-#pragma unroll
-      for (int j = 0; j < D::kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * t + (e & 1);
-          const int r = e >> 1;
-          const bool ok = kok[r] && rok_s[col] > 0.f &&
-                          (!causal || keys[r] <= q0 + col);
-          p[j][e] = ok ? expf(p[j][e] * sm_scale - lse_s[col]) : 0.f;
-        }
-      }
-      // dV += P^T dO (P^T rounded to bf16; dO's columns of this block)
-      bf16mma::tile_product<D::kNT, D::kDT>(dva, p, dos + col0, kStride,
-                                            lane);
-      // dP^T = V dO^T
-      float ds[D::kNT][4];
-      bf16mma::head_dim_product<D::kNT, HD>(ds, v_frag, dos, kStride, lane);
-      // dS^T = P^T (dP^T - D) * scale
-#pragma unroll
-      for (int j = 0; j < D::kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          ds[j][e] = p[j][e] * (ds[j][e] - d_s[8 * j + 2 * t + (e & 1)]) *
-                     sm_scale;
-      }
-      // dK += dS^T Q (dS^T rounded to bf16)
-      bf16mma::tile_product<D::kNT, D::kDT>(dka, ds, qs + col0, kStride,
-                                            lane);
-    }
-    __syncthreads();  // every warp is done with buffer it & 1
-  }
-
+// rows[r] < T of an m64nN accumulator (N = kOD) rounded to bf16 at dst
+// (this block's first column of row 0)
+template <int kOD>
+__device__ __forceinline__ void store_rows(wg::bf16* dst, size_t pos_stride,
+                                           const int (&rows)[2], int T,
+                                           const float (&acc)[kOD / 2],
+                                           int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (keys[r] >= T) continue;
-    bf16* dk_row = dk + base + (size_t)keys[r] * pos_stride + col0;
-    bf16* dv_row = dv + base + (size_t)keys[r] * pos_stride + col0;
+    if (rows[r] >= T) continue;
+    wg::bf16* row = dst + (size_t)rows[r] * pos_stride;
 #pragma unroll
-    for (int n = 0; n < D::kDT; ++n) {
-      *reinterpret_cast<uint32_t*>(dk_row + 8 * n + 2 * t) =
-          bf16mma::pack(dka[n][2 * r], dka[n][2 * r + 1]);
-      *reinterpret_cast<uint32_t*>(dv_row + 8 * n + 2 * t) =
-          bf16mma::pack(dva[n][2 * r], dva[n][2 * r + 1]);
-    }
+    for (int i = 0; i < kOD / 8; ++i)
+      *reinterpret_cast<uint32_t*>(row + 8 * i + 2 * t) =
+          wg::pack(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
   }
 }
 
 template <int HD>
-cudaError_t launch_dkv_bf16(const bf16mma::bf16* q, const bf16mma::bf16* k,
-                            const bf16mma::bf16* v, const bf16mma::bf16* dout,
-                            const float* lse, const float* dsum,
-                            const float* key_mask, bf16mma::bf16* dk,
-                            bf16mma::bf16* dv, int B, int T, int nh,
+struct DkvBf16 : Split<HD> {
+  using L = wg::Tile<HD>;
+  static constexpr int kQ = HD <= 128 ? 64 : 32;  // query rows per tile
+  static constexpr int kKV = L::bytes(kBlockRows);  // K or V
+  static constexpr int kTile = L::bytes(kQ);        // a q or dO tile
+  // K, V, the stages' q and dO tiles, their lse and D rows, the barriers
+  static constexpr int kRowsOff = 2 * kKV + 2 * kStages * kTile;
+  static constexpr int kBarOff = kRowsOff + 2 * kStages * kQ * 4;
+  static constexpr size_t kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;
+};
+
+// the producer warpgroup gives back its registers (its other three warps
+// then exit), the consumers take theirs
+__device__ __forceinline__ void set_regs(bool producer) {
+  if (producer)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
+  else
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
+}
+
+// grid (ceil(T / 128), nh * kSplit, B), kBf16Threads threads,
+// DkvBf16<HD>::kSmem bytes of dynamic shared memory; the maps' boxes are
+// kQ rows (q, dO) and kBlockRows rows (k, v)
+template <int HD>
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ dsum,
+                          const float* __restrict__ key_mask,
+                          wg::bf16* __restrict__ dk, wg::bf16* __restrict__ dv,
+                          int T, int nh, int causal, float sm_scale) {
+  using D = DkvBf16<HD>;
+  constexpr int kQ = D::kQ, kOD = D::kOD;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + D::kKV;
+  unsigned char* tiles = smem + 2 * D::kKV;  // stage s: q, then dO
+  float* rows_s = reinterpret_cast<float*>(smem + D::kRowsOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + D::kBarOff);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_bar = empty + kStages;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const bool producer = warp >= 4 * kWGs;
+  const int kb = blockIdx.x, h = blockIdx.y / D::kSplit, b = blockIdx.z;
+  const int col0 = (blockIdx.y % D::kSplit) * kOD;
+  const size_t pos_stride = (size_t)nh * HD;
+  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD + col0;
+  const size_t row_base = (size_t)b * T * nh + h;
+  const int k_blk = kb * kBlockRows;     // the block's first key
+  const int kw = k_blk + 64 * (warp >> 2);  // the warpgroup's first key
+  const int key0 = kw + 16 * (warp & 3) + g;
+  const int keys[2] = {key0, key0 + 8};  // this thread's rows of dK, dV
+  bool kok[2] = {false, false};
+  if (!producer) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      kok[r] = keys[r] < T && (key_mask == nullptr ||
+                               key_mask[(size_t)b * T + keys[r]] > 0.f);
+  }
+  float dka[kOD / 2], dva[kOD / 2];
+#pragma unroll
+  for (int i = 0; i < kOD / 2; ++i) dka[i] = dva[i] = 0.f;
+  // no key of the block is attended: zeros, without reading anything
+  if (!__syncthreads_or(kok[0] || kok[1])) {
+    if (!producer) {
+      store_rows<kOD>(dk + base, pos_stride, keys, T, dka, t);
+      store_rows<kOD>(dv + base, pos_stride, keys, T, dva, t);
+    }
+    return;
+  }
+  // causal: a row before the block's first key attends none of its keys
+  const int q_begin = causal ? k_blk : 0;
+  const int n_tiles = (T - q_begin + kQ - 1) / kQ;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tma::mbar_init(&full[s], 32);
+      tma::mbar_init(&empty[s], kWgThreads);
+    }
+    tma::mbar_init(kv_bar, 1);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();
+
+  set_regs(producer);
+  if (producer) {
+    if (warp != 4 * kWGs) return;
+    if (lane == 0) {
+      tma::mbar_arrive_tx(kv_bar, 2 * D::kKV);
+      wg::load_tile<HD>(ks, &k_map, kBlockRows, k_blk, h, b, kv_bar);
+      wg::load_tile<HD>(vs, &v_map, kBlockRows, k_blk, h, b, kv_bar);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      tma::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      const int q0 = q_begin + it * kQ;
+      float* lse_s = rows_s + s * 2 * kQ;  // then D
+      for (int i = lane; i < kQ; i += 32) {
+        const int row = q0 + i;
+        float l = INFINITY, d = 0.f;
+        if (row < T) {
+          const float x = lse[row_base + (size_t)row * nh];
+          if (isfinite(x)) l = x * kLog2e;
+          d = dsum[row_base + (size_t)row * nh];
+        }
+        lse_s[i] = l;
+        lse_s[kQ + i] = d;
+      }
+      unsigned char* qs = tiles + s * 2 * D::kTile;
+      if (lane == 0) {
+        tma::mbar_arrive_tx(&full[s], 2 * D::kTile);
+        wg::load_tile<HD>(qs, &q_map, kQ, q0, h, b, &full[s]);
+        wg::load_tile<HD>(qs + D::kTile, &do_map, kQ, q0, h, b, &full[s]);
+      } else {
+        tma::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int row0 = 64 * (warp >> 2);  // the warpgroup's rows of K and V
+  const float scale_l2 = sm_scale * kLog2e;
+  tma::mbar_wait(kv_bar, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    tma::mbar_wait(&full[s], (it / kStages) & 1);
+    const int q0 = q_begin + it * kQ;
+    // causal: every row of the tile precedes the warpgroup's first key
+    if (kw < T && !(causal && q0 + kQ - 1 < kw)) {
+      const unsigned char* qs = tiles + s * 2 * D::kTile;
+      const unsigned char* dos = qs + D::kTile;
+      const float* lse_s = rows_s + s * 2 * kQ;
+      float sa[kQ / 2], pa[kQ / 2];  // S^T then P^T; dP^T then dS^T
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wg::Mma<kQ>::ss(sa, wg::desc_k<HD>(ks, kBlockRows, row0, kk),
+                        wg::desc_k<HD>(qs, kQ, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wg::Mma<kQ>::ss(pa, wg::desc_k<HD>(vs, kBlockRows, row0, kk),
+                        wg::desc_k<HD>(dos, kQ, 0, kk), kk > 0);
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(sa);
+      wg::keep(pa);
+      // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - D) * scale
+      const bool diag = causal && q0 < kw + 63;
+#pragma unroll
+      for (int i = 0; i < kQ / 8; ++i) {
+        const float2 l2 =
+            *reinterpret_cast<const float2*>(lse_s + 8 * i + 2 * t);
+        const float2 d2 =
+            *reinterpret_cast<const float2*>(lse_s + kQ + 8 * i + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, c = 8 * i + 2 * t + (e & 1);
+          const float l = (e & 1) ? l2.y : l2.x;
+          const float d = (e & 1) ? d2.y : d2.x;
+          const bool ok = kok[r] && l != INFINITY &&
+                          (!diag || keys[r] <= q0 + c);
+          const float p = ok ? ex2(fmaf(sa[4 * i + e], scale_l2, -l)) : 0.f;
+          sa[4 * i + e] = p;
+          pa[4 * i + e] = p * (pa[4 * i + e] - d) * sm_scale;
+        }
+      }
+      uint32_t pf[kQ / 16][4], df[kQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        wg::a_frag(pf[kk], sa, kk);  // P^T rounded to bf16
+        wg::a_frag(df[kk], pa, kk);  // dS^T rounded to bf16
+      }
+      wg::wgmma_fence();
+      // dV += P^T dO, dK += dS^T Q over the tile's queries (this block's
+      // columns)
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk)
+        wg::Mma<kOD>::rs(dva, pf[kk], wg::desc_mn<HD>(dos, kQ, kk, col0), 1);
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk)
+        wg::Mma<kOD>::rs(dka, df[kk], wg::desc_mn<HD>(qs, kQ, kk, col0), 1);
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(dva);
+      wg::keep(dka);
+      wg::keep(pf);
+      wg::keep(df);
+    }
+    tma::mbar_arrive(&empty[s]);
+  }
+  store_rows<kOD>(dk + base, pos_stride, keys, T, dka, t);
+  store_rows<kOD>(dv + base, pos_stride, keys, T, dva, t);
+}
+
+template <int HD>
+cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* dsum, const float* key_mask,
+                            void* dk, void* dv, int B, int T, int nh,
                             int causal, float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = DkvBf16<HD>::kSmem;
+  using D = DkvBf16<HD>;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  const int rows[4] = {D::kQ, kBlockRows, kBlockRows, D::kQ};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err =
+        wg::make_map(&maps[i], ptrs[i], B, T, nh, HD, rows[i]);
+    if (err != cudaSuccess) return err;
+  }
   static unsigned smem_set = 0;  // per instantiation: one per kernel
   const cudaError_t err =
-      tf32x3::allow_smem(flash_bwd_dkv_bf16_kernel<HD>, smem, smem_set);
+      tf32x3::allow_smem(flash_bwd_dkv_bf16_kernel<HD>, D::kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + DkvBf16<HD>::kKeys - 1) / DkvBf16<HD>::kKeys,
-                  nh * DkvBf16<HD>::kSplit, B);
-  flash_bwd_dkv_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, dsum, key_mask, dk, dv, T, nh, causal, sm_scale);
+  const dim3 grid((T + kBlockRows - 1) / kBlockRows, nh * D::kSplit, B);
+  flash_bwd_dkv_bf16_kernel<HD><<<grid, kBf16Threads, D::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dsum, key_mask,
+      static_cast<wg::bf16*>(dk), static_cast<wg::bf16*>(dv), T, nh, causal,
+      sm_scale);
   return cudaGetLastError();
 }
 
 template <int HD>
 struct DqBf16 : Split<HD> {
-  static constexpr int kRows = 64;  // query rows per block
-  static constexpr int kKeys = HD <= 64 ? 64 : 32;  // keys per tile
-  static constexpr int kChunk = 16;  // keys per warp pass
-  static constexpr int kStride = HD + 8;  // bf16 per shared row
-  static constexpr int kNT = kChunk / 8;  // 8-key column tiles of a chunk
-  static constexpr int kDT = Split<HD>::kOD / 8;  // 8-wide tiles of dQ
-  static constexpr int kTile = kKeys * kStride;   // bf16 of a K or V tile
-  static constexpr int kQD = 2 * kRows * kStride;  // bf16 of q and dO
-  // per stage: K, V, then kKeys f32 key flags
-  static constexpr size_t kStageBytes = 2 * kTile * 2 + kKeys * 4;
-  static constexpr size_t kSmem = kQD * 2 + 2 * kStageBytes;
-  static_assert(kKeys % kChunk == 0 && kKeys <= kThreads, "whole chunks");
-  static_assert(kStageBytes % 16 == 0, "16-byte aligned stages");
+  using L = wg::Tile<HD>;
+  static constexpr int kKeys = HD <= 128 ? 64 : 32;  // keys per tile
+  static constexpr int kQD = L::bytes(kBlockRows);  // q or dO
+  static constexpr int kTile = L::bytes(kKeys);     // a K or V tile
+  // q, dO, the stages' K and V tiles, their key-flag words, the barriers
+  static constexpr int kMaskOff = 2 * kQD + 2 * kStages * kTile;
+  static constexpr int kBarOff = kMaskOff + kStages * 8;
+  static constexpr size_t kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kKeys <= 64, "one 64-bit word of key flags per tile");
 };
 
-// grid (ceil(T / 64), nh * kSplit, B); DqBf16<HD>::kSmem bytes of dynamic
-// shared memory
+// grid (ceil(T / 128), nh * kSplit, B), kBf16Threads threads,
+// DqBf16<HD>::kSmem bytes of dynamic shared memory; the maps' boxes are
+// kBlockRows rows (q, dO) and kKeys rows (k, v)
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_bf16_kernel(const bf16mma::bf16* __restrict__ q,
-                         const bf16mma::bf16* __restrict__ k,
-                         const bf16mma::bf16* __restrict__ v,
-                         const bf16mma::bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
                          const float* __restrict__ lse,
                          const float* __restrict__ dsum,
                          const float* __restrict__ key_mask,
-                         bf16mma::bf16* __restrict__ dq, int T, int nh,
-                         int causal, float sm_scale) {
+                         wg::bf16* __restrict__ dq, int T, int nh, int causal,
+                         float sm_scale) {
   using S = DqBf16<HD>;
-  using bf16mma::bf16;
-  constexpr int kKeys = S::kKeys, kStride = S::kStride, kChunk = S::kChunk;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  bf16* do_s = q_s + S::kRows * kStride;
-  unsigned char* stages = smem_raw + S::kQD * 2;
+  constexpr int kKeys = S::kKeys, kOD = S::kOD;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;
+  unsigned char* dos = smem + S::kQD;
+  unsigned char* tiles = smem + 2 * S::kQD;  // stage s: K, then V
+  uint64_t* flags = reinterpret_cast<uint64_t*>(smem + S::kMaskOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* empty = full + kStages;
+  uint64_t* qd_bar = empty + kStages;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const bool producer = warp >= 4 * kWGs;
+  // causal: the last query blocks have the most key tiles; start them first
   const int qb = causal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
   const int h = blockIdx.y / S::kSplit, b = blockIdx.z;
-  const int col0 = (blockIdx.y % S::kSplit) * S::kOD;  // dQ's first column
+  const int col0 = (blockIdx.y % S::kSplit) * kOD;
   const size_t pos_stride = (size_t)nh * HD;
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
+  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD + col0;
   const size_t row_base = (size_t)b * T * nh + h;
-  const int row0 = qb * S::kRows + warp * 16;    // the warp's first row
-  const int rows[2] = {row0 + g, row0 + g + 8};  // this lane's two rows
-
-  float l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  const int r_blk = qb * kBlockRows;        // the block's first row
+  const int rw = r_blk + 64 * (warp >> 2);  // the warpgroup's first row
+  const int q_row = rw + 16 * (warp & 3) + g;
+  const int rows[2] = {q_row, q_row + 8};  // this thread's rows of dQ
+  float l[2] = {INFINITY, INFINITY}, dd[2] = {0.f, 0.f};  // lse * log2 e, D
   bool rok[2] = {false, false};  // a real row with a key to attend
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] < T) {
-      l[r] = lse[row_base + (size_t)rows[r] * nh];
-      dd[r] = dsum[row_base + (size_t)rows[r] * nh];
-      rok[r] = isfinite(l[r]);
-      if (!rok[r]) l[r] = 0.f;
-    }
-  }
-  // no row of the block attends a key: zeros, without reading anything
-  if (!__syncthreads_or(rok[0] || rok[1])) {
+  if (!producer) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       if (rows[r] >= T) continue;
-      bf16* dq_row = dq + base + (size_t)rows[r] * pos_stride + col0;
+      const float x = lse[row_base + (size_t)rows[r] * nh];
+      rok[r] = isfinite(x);
+      if (rok[r]) l[r] = x * kLog2e;
+      dd[r] = dsum[row_base + (size_t)rows[r] * nh];
+    }
+  }
+  float dqa[kOD / 2];
 #pragma unroll
-      for (int n = 0; n < S::kDT; ++n)
-        *reinterpret_cast<uint32_t*>(dq_row + 8 * n + 2 * t) = 0u;
+  for (int i = 0; i < kOD / 2; ++i) dqa[i] = 0.f;
+  // no row of the block attends a key: zeros, without reading anything
+  if (!__syncthreads_or(rok[0] || rok[1])) {
+    if (!producer) store_rows<kOD>(dq + base, pos_stride, rows, T, dqa, t);
+    return;
+  }
+  // causal: keys past the block's last row are never attended
+  const int t_end = causal ? min(T, r_blk + kBlockRows) : T;
+  const int n_tiles = (t_end + kKeys - 1) / kKeys;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tma::mbar_init(&full[s], 32);
+      tma::mbar_init(&empty[s], kWgThreads);
+    }
+    tma::mbar_init(qd_bar, 1);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();
+
+  set_regs(producer);
+  if (producer) {
+    if (warp != 4 * kWGs) return;
+    if (lane == 0) {
+      tma::mbar_arrive_tx(qd_bar, 2 * S::kQD);
+      wg::load_tile<HD>(qs, &q_map, kBlockRows, r_blk, h, b, qd_bar);
+      wg::load_tile<HD>(dos, &do_map, kBlockRows, r_blk, h, b, qd_bar);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      tma::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      const int k0 = it * kKeys;
+      // bit j: key k0 + j is real and unmasked
+      uint64_t bits = 0;
+#pragma unroll
+      for (int j = 0; j < kKeys; j += 32) {
+        const int key = k0 + j + lane;
+        const bool ok = key < T && (key_mask == nullptr ||
+                                    key_mask[(size_t)b * T + key] > 0.f);
+        bits |= (uint64_t)__ballot_sync(0xffffffffu, ok) << j;
+      }
+      unsigned char* ks = tiles + s * 2 * S::kTile;
+      if (lane == 0) {
+        flags[s] = bits;
+        tma::mbar_arrive_tx(&full[s], 2 * S::kTile);
+        wg::load_tile<HD>(ks, &k_map, kKeys, k0, h, b, &full[s]);
+        wg::load_tile<HD>(ks + S::kTile, &v_map, kKeys, k0, h, b, &full[s]);
+      } else {
+        tma::mbar_arrive(&full[s]);
+      }
     }
     return;
   }
 
-  const bf16* q_warp = q_s + warp * 16 * kStride;
-  const bf16* do_warp = do_s + warp * 16 * kStride;
-  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
-    bf16mma::load_a(a, q_warp + 16 * kk, kStride, lane);
-  };
-  auto do_frag = [&](int kk, uint32_t (&a)[4]) {
-    bf16mma::load_a(a, do_warp + 16 * kk, kStride, lane);
-  };
-  float dqa[S::kDT][4];
-#pragma unroll
-  for (int n = 0; n < S::kDT; ++n)
-    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
-
-  const int t_end = causal ? min(T, (qb + 1) * S::kRows) : T;  // block-uniform
-  const int n_tiles = (t_end + kKeys - 1) / kKeys;
-
-  auto stage = [&](int tile, int buf) {
-    bf16* ks = reinterpret_cast<bf16*>(stages + buf * S::kStageBytes);
-    bf16* vs = ks + S::kTile;
-    float* oks = reinterpret_cast<float*>(vs + S::kTile);
-    const int k0 = tile * kKeys;
-    bf16mma::stage_rows<HD, kThreads>(ks, kStride, k + base, pos_stride, k0,
-                                      kKeys, T, tid);
-    bf16mma::stage_rows<HD, kThreads>(vs, kStride, v + base, pos_stride, k0,
-                                      kKeys, T, tid);
-    for (int j = tid; j < kKeys; j += kThreads) {
-      const int key = k0 + j;
-      oks[j] = (key < T && (key_mask == nullptr ||
-                            key_mask[(size_t)b * T + key] > 0.f))
-                   ? 1.f
-                   : 0.f;
-    }
-    tf32x3::cp_async_commit();
-  };
-
-  // q and dO in the first group, with the first tile
-  bf16mma::stage_rows<HD, kThreads>(q_s, kStride, q + base, pos_stride,
-                                    qb * S::kRows, S::kRows, T, tid);
-  bf16mma::stage_rows<HD, kThreads>(do_s, kStride, dout + base, pos_stride,
-                                    qb * S::kRows, S::kRows, T, tid);
-  stage(0, 0);
+  const int row0 = 64 * (warp >> 2);  // the warpgroup's rows of q and dO
+  const float scale_l2 = sm_scale * kLog2e;
+  tma::mbar_wait(qd_bar, 0);
   for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      stage(it + 1, (it + 1) & 1);
-      tf32x3::cp_async_wait<1>();
-    } else {
-      tf32x3::cp_async_wait<0>();
-    }
-    const bf16* ks =
-        reinterpret_cast<const bf16*>(stages + (it & 1) * S::kStageBytes);
-    const bf16* vs = ks + S::kTile;
-    const float* oks = reinterpret_cast<const float*>(vs + S::kTile);
-    const bool any_key = __syncthreads_or(tid < kKeys && oks[tid] > 0.f);
-
-    if (any_key) {
-      for (int c = 0; c < kKeys / kChunk; ++c) {
-        const int c0 = it * kKeys + c * kChunk;  // the chunk's first key
-        if (causal && c0 > row0 + 15) break;
-        const bf16* kc = ks + c * kChunk * kStride;
-        const bf16* vc = vs + c * kChunk * kStride;
-        const float* okc = oks + c * kChunk;
-        // S = Q K^T
-        float p[S::kNT][4];
-        bf16mma::head_dim_product<S::kNT, HD>(p, q_frag, kc, kStride, lane);
-        const bool diag = causal && c0 + kChunk - 1 > row0;
+    const int s = it % kStages;
+    tma::mbar_wait(&full[s], (it / kStages) & 1);
+    const int k0 = it * kKeys;
+    const uint64_t bits = flags[s];
+    // causal: every key of the tile follows the warpgroup's last row
+    if (bits != 0 && rw < T && !(causal && k0 > rw + 63)) {
+      const unsigned char* ks = tiles + s * 2 * S::kTile;
+      const unsigned char* vs = ks + S::kTile;
+      float sa[kKeys / 2], pa[kKeys / 2];  // S then P; dP then dS
+      wg::wgmma_fence();
 #pragma unroll
-        for (int j = 0; j < S::kNT; ++j) {
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wg::Mma<kKeys>::ss(sa, wg::desc_k<HD>(qs, kBlockRows, row0, kk),
+                           wg::desc_k<HD>(ks, kKeys, 0, kk), kk > 0);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int col = 8 * j + 2 * t + (e & 1);
-            const int r = e >> 1;
-            const bool ok = rok[r] && okc[col] > 0.f &&
-                            (!diag || c0 + col <= rows[r]);
-            p[j][e] = ok ? expf(p[j][e] * sm_scale - l[r]) : 0.f;
-          }
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wg::Mma<kKeys>::ss(pa, wg::desc_k<HD>(dos, kBlockRows, row0, kk),
+                           wg::desc_k<HD>(vs, kKeys, 0, kk), kk > 0);
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(sa);
+      wg::keep(pa);
+      // P = exp(S * scale - lse), dS = P (dP - D) * scale
+      const bool diag = causal && k0 + kKeys - 1 > rw;
+      const uint64_t bits_t = bits >> (2 * t);  // bit 8 i + e: key c below
+#pragma unroll
+      for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, c = 8 * i + 2 * t + (e & 1);
+          const bool ok = rok[r] && ((bits_t >> (8 * i + (e & 1))) & 1) &&
+                          (!diag || k0 + c <= rows[r]);
+          const float p =
+              ok ? ex2(fmaf(sa[4 * i + e], scale_l2, -l[r])) : 0.f;
+          pa[4 * i + e] = p * (pa[4 * i + e] - dd[r]) * sm_scale;
         }
-        // dP = dO V^T, then dS = P (dP - D) * scale in its registers
-        float ds[S::kNT][4];
-        bf16mma::head_dim_product<S::kNT, HD>(ds, do_frag, vc, kStride,
-                                              lane);
-#pragma unroll
-        for (int j = 0; j < S::kNT; ++j) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            ds[j][e] = p[j][e] * (ds[j][e] - dd[e >> 1]) * sm_scale;
-        }
-        // dQ += dS K (dS rounded to bf16; K's columns of this block)
-        bf16mma::tile_product<S::kNT, S::kDT>(dqa, ds, kc + col0, kStride,
-                                              lane);
       }
+      uint32_t df[kKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wg::a_frag(df[kk], pa, kk);  // dS rounded to bf16
+      wg::wgmma_fence();
+      // dQ += dS K over the tile's keys (this block's columns)
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wg::Mma<kOD>::rs(dqa, df[kk], wg::desc_mn<HD>(ks, kKeys, kk, col0),
+                         1);
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(dqa);
+      wg::keep(df);
     }
-    __syncthreads();  // every warp is done with buffer it & 1
+    tma::mbar_arrive(&empty[s]);
   }
-
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= T) continue;
-    bf16* dq_row = dq + base + (size_t)rows[r] * pos_stride + col0;
-#pragma unroll
-    for (int n = 0; n < S::kDT; ++n)
-      *reinterpret_cast<uint32_t*>(dq_row + 8 * n + 2 * t) =
-          bf16mma::pack(dqa[n][2 * r], dqa[n][2 * r + 1]);
-  }
+  store_rows<kOD>(dq + base, pos_stride, rows, T, dqa, t);
 }
 
 template <int HD>
-cudaError_t launch_dq_bf16(const bf16mma::bf16* q, const bf16mma::bf16* k,
-                           const bf16mma::bf16* v, const bf16mma::bf16* dout,
-                           const float* lse, const float* dsum,
-                           const float* key_mask, bf16mma::bf16* dq, int B,
-                           int T, int nh, int causal, float sm_scale,
+cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* dsum, const float* key_mask, void* dq,
+                           int B, int T, int nh, int causal, float sm_scale,
                            cudaStream_t stream) {
-  constexpr size_t smem = DqBf16<HD>::kSmem;
+  using S = DqBf16<HD>;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  const int rows[4] = {kBlockRows, S::kKeys, S::kKeys, kBlockRows};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t err =
+        wg::make_map(&maps[i], ptrs[i], B, T, nh, HD, rows[i]);
+    if (err != cudaSuccess) return err;
+  }
   static unsigned smem_set = 0;  // per instantiation: one per kernel
   const cudaError_t err =
-      tf32x3::allow_smem(flash_bwd_dq_bf16_kernel<HD>, smem, smem_set);
+      tf32x3::allow_smem(flash_bwd_dq_bf16_kernel<HD>, S::kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + DqBf16<HD>::kRows - 1) / DqBf16<HD>::kRows,
-                  nh * DqBf16<HD>::kSplit, B);
-  flash_bwd_dq_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, dsum, key_mask, dq, T, nh, causal, sm_scale);
+  const dim3 grid((T + kBlockRows - 1) / kBlockRows, nh * S::kSplit, B);
+  flash_bwd_dq_bf16_kernel<HD><<<grid, kBf16Threads, S::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, dsum, key_mask,
+      static_cast<wg::bf16*>(dq), T, nh, causal, sm_scale);
+  return cudaGetLastError();
+}
+
+// One warpgroup's products from copied tiles, the two kernels' building
+// blocks on small integers for the card tests: d1 = X[x0 .. x0 + 63] Y^T
+// (ss, both K-major: S^T = K Q^T, S = Q K^T) and d2 = bf16(d1) Z[:, col0
+// .. col0 + kOD) (rs from a_frag, Z M|N-major: dV += P^T dO, dQ += dS K).
+// x is [128, HD], y and z [NY, HD], all bf16; d1 [64, NY], d2 [64, kOD]
+// f32.
+template <int HD, int NY>
+__global__ void __launch_bounds__(128)
+wgmma_check_kernel(const __grid_constant__ CUtensorMap x_map,
+                   const __grid_constant__ CUtensorMap y_map,
+                   const __grid_constant__ CUtensorMap z_map, int x0,
+                   int col0, float* d1, float* d2) {
+  using L = wg::Tile<HD>;
+  constexpr int kOD = Split<HD>::kOD;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* xs = align1024(smem_raw);
+  unsigned char* ys = xs + L::bytes(128);
+  unsigned char* zs = ys + L::bytes(NY);
+  uint64_t* bar = reinterpret_cast<uint64_t*>(zs + L::bytes(NY));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  if (tid == 0) {
+    tma::mbar_init(bar, 1);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma::mbar_arrive_tx(bar, L::bytes(128) + 2 * L::bytes(NY));
+    wg::load_tile<HD>(xs, &x_map, 128, 0, 0, 0, bar);
+    wg::load_tile<HD>(ys, &y_map, NY, 0, 0, 0, bar);
+    wg::load_tile<HD>(zs, &z_map, NY, 0, 0, 0, bar);
+  }
+  tma::mbar_wait(bar, 0);
+  float s[NY / 2], o[kOD / 2];
+#pragma unroll
+  for (int i = 0; i < kOD / 2; ++i) o[i] = 0.f;
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    wg::Mma<NY>::ss(s, wg::desc_k<HD>(xs, 128, x0, kk),
+                    wg::desc_k<HD>(ys, NY, 0, kk), kk > 0);
+  wg::commit();
+  wg::wait<0>();
+  wg::keep(s);
+  uint32_t a[NY / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < NY / 16; ++kk) wg::a_frag(a[kk], s, kk);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NY / 16; ++kk)
+    wg::Mma<kOD>::rs(o, a[kk], wg::desc_mn<HD>(zs, NY, kk, col0), 1);
+  wg::commit();
+  wg::wait<0>();
+  wg::keep(o);
+  wg::keep(a);
+  const int row = 16 * warp + g;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int r = row + 8 * (e >> 1);
+#pragma unroll
+    for (int i = 0; i < NY / 8; ++i)
+      d1[r * NY + 8 * i + 2 * t + (e & 1)] = s[4 * i + e];
+#pragma unroll
+    for (int i = 0; i < kOD / 8; ++i)
+      d2[r * kOD + 8 * i + 2 * t + (e & 1)] = o[4 * i + e];
+  }
+}
+
+template <int HD, int NY>
+cudaError_t launch_wgmma_check(const void* x, const void* y, const void* z,
+                               int x0, int col0, float* d1, float* d2,
+                               cudaStream_t stream) {
+  using L = wg::Tile<HD>;
+  CUtensorMap maps[3];
+  cudaError_t err = wg::make_map(&maps[0], x, 1, 128, 1, HD, 128);
+  if (err == cudaSuccess) err = wg::make_map(&maps[1], y, 1, NY, 1, HD, NY);
+  if (err == cudaSuccess) err = wg::make_map(&maps[2], z, 1, NY, 1, HD, NY);
+  if (err != cudaSuccess) return err;
+  constexpr size_t smem = L::bytes(128) + 2 * L::bytes(NY) + 8 + 1024;
+  static unsigned smem_set = 0;
+  err = tf32x3::allow_smem(wgmma_check_kernel<HD, NY>, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  wgmma_check_kernel<HD, NY><<<1, 128, smem, stream>>>(
+      maps[0], maps[1], maps[2], x0, col0, d1, d2);
   return cudaGetLastError();
 }
 
@@ -1080,26 +1299,19 @@ extern "C" int ts_flash_bwd_dkv_bf16(const void* q, const void* k,
                                      void* dv, int B, int T, int nh, int hd,
                                      int causal, float sm_scale,
                                      void* stream) {
-  using bf16mma::bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, T, nh)) return (int)cudaErrorInvalidValue;
-  const bf16 *qb = static_cast<const bf16*>(q),
-             *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v),
-             *db = static_cast<const bf16*>(dout);
-  bf16 *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
   switch (hd) {
     case 32:
-      return (int)launch_dkv_bf16<32>(qb, kb, vb, db, lse, dsum, key_mask,
-                                      dkb, dvb, B, T, nh, causal, sm_scale,
-                                      st);
+      return (int)launch_dkv_bf16<32>(q, k, v, dout, lse, dsum, key_mask, dk,
+                                      dv, B, T, nh, causal, sm_scale, st);
     case 128:
-      return (int)launch_dkv_bf16<128>(qb, kb, vb, db, lse, dsum, key_mask,
-                                       dkb, dvb, B, T, nh, causal, sm_scale,
+      return (int)launch_dkv_bf16<128>(q, k, v, dout, lse, dsum, key_mask,
+                                       dk, dv, B, T, nh, causal, sm_scale,
                                        st);
     case 256:
-      return (int)launch_dkv_bf16<256>(qb, kb, vb, db, lse, dsum, key_mask,
-                                       dkb, dvb, B, T, nh, causal, sm_scale,
+      return (int)launch_dkv_bf16<256>(q, k, v, dout, lse, dsum, key_mask,
+                                       dk, dv, B, T, nh, causal, sm_scale,
                                        st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -1112,27 +1324,44 @@ extern "C" int ts_flash_bwd_dq_bf16(const void* q, const void* k,
                                     const float* key_mask, void* dq, int B,
                                     int T, int nh, int hd, int causal,
                                     float sm_scale, void* stream) {
-  using bf16mma::bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad_shape(B, T, nh)) return (int)cudaErrorInvalidValue;
-  const bf16 *qb = static_cast<const bf16*>(q),
-             *kb = static_cast<const bf16*>(k),
-             *vb = static_cast<const bf16*>(v),
-             *db = static_cast<const bf16*>(dout);
-  bf16* dqb = static_cast<bf16*>(dq);
   switch (hd) {
     case 32:
-      return (int)launch_dq_bf16<32>(qb, kb, vb, db, lse, dsum, key_mask,
-                                     dqb, B, T, nh, causal, sm_scale, st);
+      return (int)launch_dq_bf16<32>(q, k, v, dout, lse, dsum, key_mask, dq,
+                                     B, T, nh, causal, sm_scale, st);
     case 128:
-      return (int)launch_dq_bf16<128>(qb, kb, vb, db, lse, dsum, key_mask,
-                                      dqb, B, T, nh, causal, sm_scale, st);
+      return (int)launch_dq_bf16<128>(q, k, v, dout, lse, dsum, key_mask, dq,
+                                      B, T, nh, causal, sm_scale, st);
     case 256:
-      return (int)launch_dq_bf16<256>(qb, kb, vb, db, lse, dsum, key_mask,
-                                      dqb, B, T, nh, causal, sm_scale, st);
+      return (int)launch_dq_bf16<256>(q, k, v, dout, lse, dsum, key_mask, dq,
+                                      B, T, nh, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// x [128, hd], y and z [ny, hd] bfloat16, d1 [64, ny] and d2 [64, min(hd,
+// 128)] float32 on the device: one warpgroup's product check
+// (wgmma_check_kernel) at the kernels' (hd, ny): (32, 64), (128, 32),
+// (128, 64), (256, 32); x0 is 0 or 64, col0 0 (or 128 at hd 256)
+extern "C" int ts_flash_wgmma_check(const void* x, const void* y,
+                                    const void* z, float* d1, float* d2,
+                                    int hd, int ny, int x0, int col0,
+                                    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if ((x0 != 0 && x0 != 64) || col0 < 0 || col0 + (hd < 128 ? hd : 128) > hd ||
+      col0 % 128 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (hd == 32 && ny == 64)
+    return (int)launch_wgmma_check<32, 64>(x, y, z, x0, col0, d1, d2, st);
+  if (hd == 128 && ny == 32)
+    return (int)launch_wgmma_check<128, 32>(x, y, z, x0, col0, d1, d2, st);
+  if (hd == 128 && ny == 64)
+    return (int)launch_wgmma_check<128, 64>(x, y, z, x0, col0, d1, d2, st);
+  if (hd == 256 && ny == 32)
+    return (int)launch_wgmma_check<256, 32>(x, y, z, x0, col0, d1, d2, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 extern "C" const char* ts_flash_bwd_error_string(int err) {

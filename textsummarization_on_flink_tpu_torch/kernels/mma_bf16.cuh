@@ -1,4 +1,5 @@
-// bf16 tensor-core products on Hopper for the flash kernels' bf16 forms:
+// bf16 tensor-core products for the flash forward's bf16 form (the
+// backward's run on wgmma_bf16.cuh):
 // `mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32` with f32
 // accumulators, fragments loaded with `ldmatrix`, tiles staged with
 // cp.async.
@@ -21,8 +22,8 @@
 //
 // Two C fragments side by side (columns 0-7 and 8-15) are, rounded to
 // bf16 and packed in pairs, exactly the A fragment of a 16 x 16 block
-// (`a_from_acc`): P and dS go from their accumulators to the next
-// product in registers, with no shuffle and no shared-memory trip.
+// (`a_from_acc`): P goes from its accumulators to the next product in
+// registers, with no shuffle and no shared-memory trip.
 //
 // ldmatrix.x4 loads four 8 x 8 bf16 matrices from shared memory, lane l
 // giving the address of one 16-byte row (lanes 8m .. 8m+7: the rows of
@@ -30,14 +31,13 @@
 // with .trans the transpose: rows 2t and 2t+1 of column g.  So, for a
 // row-major tile M in shared memory:
 //
-//   * load_a: the A fragment of the 16 x 16 block of M (Q, K, V or dO
-//     rows as the left operand);
+//   * load_a: the A fragment of the 16 x 16 block of M (Q rows as the
+//     left operand);
 //   * load_b_t: the B fragments of M^T for two 8-column tiles, M's rows
-//     being B's columns (K in Q K^T, V in dO V^T, Q and dO in the dK/dV
-//     kernel's K Q^T and V dO^T);
+//     being B's columns (K in Q K^T);
 //   * load_b_trans: the B fragments of M itself for two 8-column tiles
-//     (V in P V, dO in P^T dO, Q in dS^T Q, K in dS K): .trans gives
-//     the pairs down a column from M's row-major rows.
+//     (V in P V): .trans gives the pairs down a column from M's
+//     row-major rows.
 //
 // Shared rows are HD + 8 bf16 long (a 16-byte pad): at HD 32 a row is 80
 // bytes, at 128 and 256 it is 4 words past a multiple of 32 words, so
@@ -162,7 +162,7 @@ __device__ __forceinline__ void head_dim_product(float (&out)[kNT][4],
 }
 
 // acc[n] += X . M over the 8 kNT rows of the tile `m` (n < kDT, 8 columns
-// each, kDT even), X an accumulator (16 rows x 8 kNT columns: P or dS, in
+// each, kDT even), X an accumulator (16 rows x 8 kNT columns: P, in
 // f32) rounded to bf16 on its way to the A operand
 template <int kNT, int kDT>
 __device__ __forceinline__ void tile_product(float (&acc)[kDT][4],
