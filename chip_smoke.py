@@ -48,9 +48,9 @@ device or without the port's sources beside it.  Phases, each fatal:
         32 (key mask), 16 x 100 x 8 x 32 (causal), 4 x 2048 x 8 x 128
         (both) and 16 x 400 x 2 x 256, timed beside
         scaled_dot_product_attention in bf16 (phase_flash_bf16); the
-        bf16 backward kernels' SASS (bf16_bwd_sass): wgmma (HGMMA) and
+        three bf16 kernels' SASS (bf16_flash_sass): wgmma (HGMMA) and
         TMA copies (UTMALDG) in every instantiation, no bf16 mma.sync
-        (HMMA.16816), no spill;
+        (HMMA.16816), no spill, no wgmma serialized by ptxas;
   4. for each model family, check the beam search on the card against the
      plain CPU path on a small input (same tokens), and three train steps
      of a small model on the card against the CPU (same losses within
@@ -151,7 +151,7 @@ PEAK_F32_OPS_PER_S = 67e12
 # over 3.  The f32 rate above would let a 3xTF32 kernel beat its bound.
 PEAK_TF32X3_OPS_PER_S = 495e12 / 3
 # The flash kernels' bf16 forms multiply bf16 operands on the tensor cores
-# (kernels/mma_bf16.cuh): dense bf16, 989 TFLOP/s
+# (kernels/wgmma_bf16.cuh): dense bf16, 989 TFLOP/s
 PEAK_BF16_OPS_PER_S = 989e12
 
 # each flash kernel's largest error against its plain version over phase
@@ -763,47 +763,62 @@ def flash_bf16_err(got, want):
     return err, err / float(top[0])
 
 
-def bf16_bwd_sass():
-    """What ts_flash_bwd_dkv_bf16 and ts_flash_bwd_dq_bf16 launch, from
-    the built library (scripts/torch_kernel_sass.py's cuobjdump counts and
-    ptxas log): per kernel, over its head-dim instantiations, the HGMMA
-    (warpgroup products) and UTMALDG (tensor copies) counts, their HGMMA
-    opcodes, the bf16 mma.sync (HMMA.16816) count and the spill bytes.
-    Fails unless every instantiation has HGMMA and UTMALDG and none has
-    HMMA.16816 or a spill."""
+#: the bf16 flash kernels the SASS gate reads: {key: (library, function)}
+BF16_FLASH_KERNELS = dict(fwd=("flash_attention", "flash_fwd_bf16_kernel"),
+                          dkv=("flash_attention_bwd",
+                               "flash_bwd_dkv_bf16_kernel"),
+                          dq=("flash_attention_bwd",
+                              "flash_bwd_dq_bf16_kernel"))
+
+
+def bf16_flash_sass():
+    """What ts_flash_attention_bf16, ts_flash_bwd_dkv_bf16 and
+    ts_flash_bwd_dq_bf16 launch, from the built libraries
+    (scripts/torch_kernel_sass.py's cuobjdump counts and ptxas log): per
+    kernel, over its head-dim instantiations, the HGMMA (warpgroup
+    products) and UTMALDG (tensor copies) counts, their HGMMA opcodes, the
+    bf16 mma.sync (HMMA.16816) count, the spill bytes and ptxas's
+    warnings that it serialized the wgmma instructions (C7510-C7520: a
+    wait after every product).  Fails unless each kernel has its three
+    instantiations, every one with HGMMA and UTMALDG and none with
+    HMMA.16816, a spill or a serialization warning."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import torch_kernel_sass as sass
 
     from textsummarization_on_flink_tpu_torch.kernels import build
 
-    lib = build.build("flash_attention_bwd")
-    ptxas = sass.ptxas_functions(build.build_log("flash_attention_bwd"))
     out = {}
-    for func, ops in sass.sass_counts(lib).items():
-        for key in ("dkv", "dq"):
-            if f"flash_bwd_{key}_bf16_kernel" not in func:
-                continue
-            got = sass.summary(ops)
-            spills = ptxas.get(func, {})
-            row = out.setdefault(key, dict(instantiations=0, hgmma=0,
-                                           utmaldg=0, hmma_bf16=0,
-                                           spill_bytes=0, hgmma_opcodes=[]))
-            row["instantiations"] += 1
-            for name in ("hgmma", "utmaldg", "hmma_bf16"):
-                row[name] += got[name]
-            row["spill_bytes"] += spills.get("spill_stores", 0) + spills.get(
-                "spill_loads", 0)
-            row["hgmma_opcodes"] = sorted(set(row["hgmma_opcodes"])
-                                          | set(got["hgmma_opcodes"]))
-            check(got["hgmma"] > 0 and got["utmaldg"] > 0
-                  and got["hmma_bf16"] == 0 and "spill_stores" in spills
-                  and spills["spill_stores"] + spills["spill_loads"] == 0,
-                  f"bf16 {key} kernel {func}: SASS {got}, ptxas {spills} "
-                  f"(want HGMMA and UTMALDG, no HMMA.16816, no spill)")
+    for library in sorted({lib for lib, _ in BF16_FLASH_KERNELS.values()}):
+        ptxas = sass.ptxas_functions(build.build_log(library))
+        for func, ops in sass.sass_counts(build.build(library)).items():
+            for key, (lib, kernel) in BF16_FLASH_KERNELS.items():
+                if lib != library or kernel not in func:
+                    continue
+                got = sass.summary(ops)
+                spills = ptxas.get(func, {})
+                row = out.setdefault(key, dict(
+                    instantiations=0, hgmma=0, utmaldg=0, hmma_bf16=0,
+                    spill_bytes=0, serialized=0, hgmma_opcodes=[]))
+                warned = spills.get("wgmma_serialized", 0)
+                row["instantiations"] += 1
+                row["serialized"] += warned
+                for name in ("hgmma", "utmaldg", "hmma_bf16"):
+                    row[name] += got[name]
+                row["spill_bytes"] += spills.get("spill_stores", 0) \
+                    + spills.get("spill_loads", 0)
+                row["hgmma_opcodes"] = sorted(set(row["hgmma_opcodes"])
+                                              | set(got["hgmma_opcodes"]))
+                check(got["hgmma"] > 0 and got["utmaldg"] > 0
+                      and got["hmma_bf16"] == 0 and "spill_stores" in spills
+                      and spills["spill_stores"] + spills["spill_loads"] == 0
+                      and warned == 0,
+                      f"bf16 {key} kernel {func}: SASS {got}, ptxas {spills}, "
+                      f"{warned} serialization warnings (want HGMMA and "
+                      f"UTMALDG, no HMMA.16816, no spill, no serialization)")
     check(all(out.get(k, {}).get("instantiations") == 3
-              for k in ("dkv", "dq")),
-          f"bf16 backward kernels not found in the SASS: {out}")
-    print("flash_bf16_bwd_sass " + json.dumps(out))
+              for k in BF16_FLASH_KERNELS),
+          f"bf16 flash kernels not found in the SASS: {out}")
+    print("flash_bf16_sass " + json.dumps(out))
     return out
 
 
@@ -2420,7 +2435,7 @@ def main(argv=None) -> int:
     flash_row, flash_hd256, flash_worst = phase_flash(args.seed)
     bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
     fb_rows, fb_worst = phase_flash_bf16(args.seed)
-    fb_sass = bf16_bwd_sass()
+    fb_sass = bf16_flash_sass()
     errors = {name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
               for name, now in (("forward", flash_worst),
                                 ("dq", bwd_worst["dq"]),
@@ -2627,11 +2642,19 @@ def main(argv=None) -> int:
         ms=fb_main["ms"], plain_ms=fb_main["plain_ms"],
         bound_ms=fb_main["bound_ms"], bound_by=fb_main["bound_by"],
         library_ms=fb_main["library_ms"], f32_form_ms=flash_row["ms"],
+        sass=fb_sass["fwd"],
         shapes=[dict(shape=r["shape"], causal=r["causal"], ms=r["ms"],
                      plain_ms=r["plain_ms"], library_ms=r["library_ms"],
                      bound_ms=r["bound_ms"], bound_by=r["bound_by"])
                 for r in fb_rows.values()],
-        added="PR 13"))
+        design=("wgmma on TMA-copied tiles: 128 query rows a block in two "
+                "consumer warpgroups and a producer warpgroup (setmaxnreg "
+                "24/240), q copied once, K and V tiles (128 keys, 64 at hd "
+                "256) with their key-flag words through a 2-stage mbarrier "
+                "ring, S = Q K^T from shared memory with the warpgroups "
+                "taking turns, the online softmax in S's registers, O += "
+                "P V with P in registers"),
+        added="PR 13", redesigned="PR 15"))
     for name, key in (("flash_attention_bwd_dkv_bf16", "dkv"),
                       ("flash_attention_bwd_dq_bf16", "dq")):
         # plain and library times are of the whole bf16 backward
@@ -2652,7 +2675,7 @@ def main(argv=None) -> int:
                          bound_ms=r[f"{key}_bound_ms"],
                          bound_by=r[f"{key}_bound_by"])
                     for r in fb_rows.values()],
-            added="PR 13"))
+            added="PR 13", redesigned="PR 14"))
     print(json.dumps(dict(total_seconds=time.perf_counter() - t_start)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

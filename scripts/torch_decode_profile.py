@@ -3,11 +3,13 @@
 
     python3 scripts/torch_decode_profile.py [--seed N] [--batches N]
         [--family pointer_generator|transformer]
+        [--compute_dtype float32|bfloat16]
 
 Needs one CUDA card.  Builds full-width params of the family from --seed
 (V=50,000, 400 encoder steps, 100 decoder steps, beam 4, batch 16;
 pointer-generator H=256, E=128, coverage on; transformer H=256, 8 heads,
-6 + 6 layers, FFN 1024), decodes one warm-up batch, then decodes
+6 + 6 layers, FFN 1024; --compute_dtype as the decoder's flag, f32 by
+default), decodes one warm-up batch, then decodes
 --batches batches under torch.profiler and prints one JSON line:
 
   * batch_ms: host wall time per batch (ends in a device sync);
@@ -42,6 +44,8 @@ def main(argv=None) -> int:
     ap.add_argument("--batches", type=int, default=2)
     ap.add_argument("--family", default="pointer_generator",
                     choices=("pointer_generator", "transformer"))
+    ap.add_argument("--compute_dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     args = ap.parse_args(argv)
 
     import torch
@@ -64,7 +68,8 @@ def main(argv=None) -> int:
         timeout=60, check=True).stdout.strip()
     hps = HParams(hidden_dim=256, emb_dim=128, vocab_size=50000,
                   max_enc_steps=400, max_dec_steps=100, min_dec_steps=35,
-                  beam_size=4, batch_size=16, coverage=True, mode="decode")
+                  beam_size=4, batch_size=16, coverage=True, mode="decode",
+                  compute_dtype=args.compute_dtype)
     if args.family == "transformer":
         hps = hps.replace(model_family="transformer", coverage=False,
                           num_heads=8, enc_layers=6, dec_layers=6,
@@ -116,7 +121,7 @@ def main(argv=None) -> int:
     top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:15]
     out = dict(
         card=card, torch=torch.__version__, family=args.family,
-        batches=args.batches,
+        compute_dtype=args.compute_dtype, batches=args.batches,
         batch_size=B, decode_steps_per_batch=steps / args.batches,
         batch_ms=wall_ms / args.batches, phase_ms=phase_ms,
         device_busy_ms=busy_ms / args.batches,

@@ -15,9 +15,10 @@ mask; causal); the forward with lse at 16x400x8x32 (key mask) and
 4x2048x8x128 (key mask; causal).  With --dtype bfloat16 the kernels'
 bf16 forms at chip_smoke.py's phase_flash_bf16 shapes (16x400x8x32 key
 mask, 16x100x8x32 causal, 4x2048x8x128 key mask and causal, 16x400x2x256
-key mask): the forward without lse and the dK/dV and dQ kernels, each
-also with its host microseconds per call (the wrapper's enqueue, the
-tensor maps' encoding included, averaged over --iters calls without a
+key mask): the forward without lse (the serving form) and with it (the
+training form, forward_lse), and the dK/dV and dQ kernels, each also
+with its host microseconds per call (the wrapper's enqueue, the tensor
+maps' encoding included, averaged over --iters calls without a
 synchronize).  Each time is the median of --iters
 launches, each after a write of 96 MB (more than the L2 cache), timed
 with CUDA events by this checkout's chip_smoke.time_cuda (also when the
@@ -142,14 +143,15 @@ def bench_bf16(args, chip_smoke, fl, flush, emit):
                                                 not causal)
         q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
         scale = hd ** -0.5
-        emit("forward", shape, chip_smoke.time_cuda(
-            lambda: fl._flash_cuda(q, k, v, mask, causal, scale),
-            args.iters, flush))
         out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
                                   with_lse=True)
         do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
         dsum = torch.sum(do.float() * out.float(), dim=-1)
         for kernel, fn in (
+                ("forward", lambda: fl._flash_cuda(q, k, v, mask, causal,
+                                                   scale)),
+                ("forward_lse", lambda: fl._flash_cuda(
+                    q, k, v, mask, causal, scale, with_lse=True)),
                 ("bwd_dkv", lambda: fl._bwd_dkv_cuda(
                     q, k, v, do, lse, dsum, mask, causal, scale)),
                 ("bwd_dq", lambda: fl._bwd_dq_cuda(

@@ -11,7 +11,8 @@ number of 3xTF32 tensor-core instructions (HMMA.1688.F32.TF32), of bf16
 mma.sync ones (HMMA.16816 on BF16), of warpgroup products (HGMMA, with
 their opcodes: shape, F32 accumulate, BF16 operands) and tensor copies
 (UTMALDG), of MUFU instructions, ptxas's registers and spill bytes for
-that function, and ptxas's spill lines.  Then it compiles two probe
+that function, whether ptxas serialized its wgmma instructions (a wait
+after every product, warnings C7510-C7520), and ptxas's spill lines.  Then it compiles two probe
 kernels into the git-ignored build directory, y[i] = x[i] and
 y[i] = tanhf(x[i]), and counts the SASS instructions (and MUFU among
 them) that one accurate tanhf adds: with the fused attention's B*K*T*D
@@ -56,6 +57,8 @@ _PTXAS_FUNC = re.compile(r"(?:Compiling entry function|Function properties "
 _PTXAS_SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads")
 _PTXAS_REGS = re.compile(r"Used (\d+) registers")
+_PTXAS_SERIALIZED = re.compile(r"wgmma\.mma_async instructions are "
+                               r"serialized .*function '(\w+)'")
 
 
 def tool(name: str) -> str:
@@ -96,11 +99,17 @@ def summary(ops: collections.Counter):
 
 
 def ptxas_functions(log: str):
-    """{mangled function: {registers, spill_stores, spill_loads}} from a
-    build log of nvcc -Xptxas -v."""
-    funcs = collections.defaultdict(dict)
+    """{mangled function: {registers, spill_stores, spill_loads,
+    wgmma_serialized}} from a build log of nvcc -Xptxas -v
+    (wgmma_serialized: ptxas's warnings that it serialized the function's
+    wgmma instructions, 0 when none)."""
+    funcs = collections.defaultdict(lambda: dict(wgmma_serialized=0))
     cur = None
     for line in log.splitlines():
+        m = _PTXAS_SERIALIZED.search(line)
+        if m:
+            funcs[m.group(1)]["wgmma_serialized"] += 1
+            continue
         m = _PTXAS_FUNC.search(line)
         if m:
             cur = m.group(1)

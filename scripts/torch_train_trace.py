@@ -4,12 +4,13 @@ the reference width.
 
     python3 scripts/torch_train_trace.py [--family F] [--seed N]
         [--steps N] [--lr X [X ...]] [--profile_steps N]
+        [--compute_dtype float32|bfloat16]
 
 Needs one CUDA card.  For each --lr it trains --family (transformer, the
 default: hidden 256, 8 heads of 32, 6 + 6 layers, FFN 1024, tied
 V=50,000; pointer_generator: hidden 256, embedding 128, V=50,000; both
 with 400 encoder and 100 decoder steps, batch 16, pointer_gen and
-coverage on, f32) from fresh params of --seed on the synthetic chunk
+coverage on, in --compute_dtype, f32 by default) from fresh params of --seed on the synthetic chunk
 files chip_smoke.py writes, for --steps train steps, and prints one JSON
 line per lr:
 
@@ -52,6 +53,8 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--lr", type=float, nargs="+", default=[0.15, 0.015])
     ap.add_argument("--profile_steps", type=int, default=3)
+    ap.add_argument("--compute_dtype", default="float32",
+                    choices=("float32", "bfloat16"))
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.WARNING)
 
@@ -74,7 +77,8 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     base = chip_smoke.main_path_hps(args.family).replace(
-        mode="train", coverage=True, seed=args.seed)
+        mode="train", coverage=True, seed=args.seed,
+        compute_dtype=args.compute_dtype)
     work = tempfile.mkdtemp(prefix="train_trace_", dir=ROOT)
     try:
         vocab_path, data_path = chip_smoke.write_train_chunks(
@@ -109,7 +113,9 @@ def main(argv=None) -> int:
                     top_grads=[[names[i], norms[i]] for i in top]))
                 state = state._replace(step=state.step + 1)
             print(json.dumps(dict(card=card, torch=torch.__version__,
-                                  family=args.family, lr=lr, steps=steps)))
+                                  family=args.family,
+                                  compute_dtype=args.compute_dtype, lr=lr,
+                                  steps=steps)))
         if args.profile_steps > 0:
             hps = base.replace(lr=args.lr[0])
             batcher = Batcher(data_path, vocab, hps, single_pass=False)
@@ -138,7 +144,8 @@ def main(argv=None) -> int:
             top = sorted(kernel_us.items(), key=lambda kv: -kv[1])[:15]
             print(json.dumps(dict(
                 card=card, torch=torch.__version__, family=args.family,
-                lr=hps.lr, profiled_steps=n, step_ms=wall_ms / n,
+                compute_dtype=args.compute_dtype, lr=hps.lr,
+                profiled_steps=n, step_ms=wall_ms / n,
                 device_busy_ms=busy_ms / n,
                 device_busy_share=busy_ms / wall_ms,
                 kernels_per_step=n_kernels / n,

@@ -58,11 +58,19 @@ def test_package_sources_hash_their_headers():
         assert lib.startswith(build.BUILD_DIR) and log.endswith(".log")
 
 
+@pytest.mark.parametrize("header, names", [
+    ("tma_ring.cuh", ("fused_attention", "fused_attention_bwd")),
+    ("flash_bf16.cuh", ("flash_attention", "flash_attention_bwd")),
+], ids=["tma_ring", "flash_bf16"])
 def test_tma_header_renames_both_fused_attention_libraries(tmp_path,
-                                                           monkeypatch):
-    """The fused attention's forward and backward include the TMA ring's
-    helpers from kernels/tma_ring.cuh: an edit there renames both
-    libraries, so neither loads a build of the old helpers."""
+                                                           monkeypatch,
+                                                           header, names):
+    """A header two sources share renames both libraries when it is
+    edited, so neither loads a build of the old code: the fused
+    attention's forward and backward include the TMA ring's helpers from
+    kernels/tma_ring.cuh, the flash forward and backward their bf16
+    forms' block geometry, register split and store from
+    kernels/flash_bf16.cuh."""
     import shutil
 
     for path in os.listdir(build.KERNEL_DIR):
@@ -70,13 +78,12 @@ def test_tma_header_renames_both_fused_attention_libraries(tmp_path,
             shutil.copy(os.path.join(build.KERNEL_DIR, path), tmp_path)
     monkeypatch.setattr(build, "KERNEL_DIR", str(tmp_path))
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
-    names = ("fused_attention", "fused_attention_bwd")
     for name in names:
         with open(tmp_path / f"{name}.cu", encoding="utf-8") as f:
-            assert '#include "tma_ring.cuh"' in f.read()
+            assert f'#include "{header}"' in f.read()
     before = {name: _lib_name(name) for name in names}
-    header = tmp_path / "tma_ring.cuh"
-    header.write_text(header.read_text() + "// edited\n")
+    path = tmp_path / header
+    path.write_text(path.read_text() + "// edited\n")
     assert all(_lib_name(name) != before[name] for name in names)
 
 

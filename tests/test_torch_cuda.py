@@ -313,38 +313,54 @@ def test_flash_backward_takes_a_strided_cotangent_on_card():
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", [32, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
-def test_flash_kernels_at_trained_magnitudes_on_card(hd, causal):
-    """q and k of std 2, so |s| reaches about 20 as in a trained model:
-    the 3xTF32 products keep the forward and the lse within TOL and the
-    three gradients within 1e-5 * max(1, max|g|), the gradient tolerance
-    of the CPU tests (tests/test_torch_flash_backward.py).  An elementwise
-    rtol is not a property of f32 at this scale: the plain version itself
-    is up to ~2e-5 from float64 on gradient entries of size ~1
-    (scripts/torch_flash_precision.py)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_at_trained_magnitudes_on_card(hd, causal, dtype):
+    """q and k of std 2, so |s| reaches about 20 as in a trained model.
+    f32: the 3xTF32 products keep the forward and the lse within TOL and
+    the three gradients within 1e-5 * max(1, max|g|), the gradient
+    tolerance of the CPU tests (tests/test_torch_flash_backward.py).  An
+    elementwise rtol is not a property of f32 at this scale: the plain
+    version itself is up to ~2e-5 from float64 on gradient entries of size
+    ~1 (scripts/torch_flash_precision.py).  bf16 (the forms that keep the
+    running max and lse in log2 units): out and the gradients within
+    FLASH_BF16_ULPS of the plain bf16 versions, lse within 1e-5 * max(1,
+    |lse|) with the same +inf rows."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     _need_cuda()
     q, k, v, mask = _flash_inputs(3, 200, 2, hd, seed=7, qk_std=2.0)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
     scale = hd ** -0.5
-    s_max = float((torch.einsum("bqnd,bknd->bnqk", q, k) * scale).abs().max())
+    s_max = float((torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+                   * scale).abs().max())
     assert s_max > 15.0
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     out = fl.flash_attention(qg, kg, vg, mask, causal, scale)
-    do = torch.randn_like(out)
+    do = torch.randn(out.shape, device="cuda").to(dtype)
     got = torch.autograd.grad(out, (qg, kg, vg), do)
     _, lse = fl._flash_cuda(q, k, v, mask, causal, scale, with_lse=True)
     torch.cuda.synchronize()
     want_out = fl._flash_plain(q, k, v, mask, causal, scale)
     lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
-    np.testing.assert_allclose(out.detach().cpu().numpy(),
-                               want_out.cpu().numpy(), **TOL)
-    np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(), **TOL)
     want = fl._flash_bwd_plain(q, k, v, out.detach(), lse_p, do, mask,
                                causal, scale)
-    for g, w in zip(got, want):
-        tol = 1e-5 * max(1.0, float(w.abs().max()))
-        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), rtol=0,
-                                   atol=tol)
+    if dtype == torch.bfloat16:
+        _within_bf16_ulps(out.detach(), want_out)
+        assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+        fin = torch.isfinite(lse_p)
+        assert float((lse - lse_p)[fin].abs().max()) <= 1e-5 * max(
+            1.0, float(lse_p[fin].abs().max()))
+        for g, w in zip(got, want):
+            _within_bf16_ulps(g, w)
+    else:
+        np.testing.assert_allclose(out.detach().cpu().numpy(),
+                                   want_out.cpu().numpy(), **TOL)
+        np.testing.assert_allclose(lse.cpu().numpy(), lse_p.cpu().numpy(),
+                                   **TOL)
+        for g, w in zip(got, want):
+            tol = 1e-5 * max(1.0, float(w.abs().max()))
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=0, atol=tol)
     assert all(not g[1].any() for g in got)
 
 
@@ -1024,55 +1040,29 @@ def _flash_bf16_inputs(B, T, nh, hd, seed=0):
     return (*(x.to(torch.bfloat16) for x in (q, k, v)), mask)
 
 
-@pytest.mark.cuda
-def test_mma_bf16_fragments_on_card():
-    """One warp's m16n8k16 product (kernels/mma_bf16.cuh): A by ldmatrix,
-    B by ldmatrix.trans from row-major B and by ldmatrix from row-major
-    B^T, against torch.matmul in f32.  Small integers, so every product
-    and sum is exact and the two must be equal."""
-    import ctypes
-
-    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
-
-    _need_cuda()
-    g = torch.Generator(device="cuda").manual_seed(3)
-    a = torch.randint(-8, 9, (16, 16), generator=g, device="cuda")
-    b = torch.randint(-8, 9, (16, 16), generator=g, device="cuda")
-    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
-    c1 = torch.empty(16, 16, device="cuda")
-    c2 = torch.empty(16, 16, device="cuda")
-    lib = fl._load_library()
-    fn = lib.ts_flash_mma_bf16_check
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5
-    err = fn(a.data_ptr(), b.data_ptr(), c1.data_ptr(), c2.data_ptr(),
-             torch.cuda.current_stream().cuda_stream)
-    torch.cuda.synchronize()
-    assert err == 0
-    want = a.float() @ b.float()
-    assert torch.equal(c1, want)
-    assert torch.equal(c2, want)
-
-
-#: the product checks of the bf16 backward's building blocks
+#: the product checks of the bf16 kernels' building blocks
 #: (ts_flash_wgmma_check): (hd, ny, x0, col0) at the kernels' (hd, tile
-#: rows), each warpgroup's row offset, and both column halves at hd 256
+#: rows), each warpgroup's row offset, and both column halves at hd 256:
+#: the backward's (32, 64), (128, 32), (128, 64), (256, 32) and the
+#: forward's (hd, keys per tile), (32, 128), (128, 128), (256, 64)
 WGMMA_CHECKS = [(32, 64, 0, 0), (32, 64, 64, 0), (128, 32, 0, 0),
                 (128, 32, 64, 0), (128, 64, 0, 0), (128, 64, 64, 0),
-                (256, 32, 0, 0), (256, 32, 64, 128)]
+                (256, 32, 0, 0), (256, 32, 64, 128), (32, 128, 0, 0),
+                (32, 128, 64, 0), (128, 128, 0, 0), (128, 128, 64, 0),
+                (256, 64, 0, 0), (256, 64, 64, 128)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd,ny,x0,col0", WGMMA_CHECKS)
 def test_wgmma_bf16_products_on_card(hd, ny, x0, col0):
     """One warpgroup's wgmma products from TMA-copied tiles
-    (kernels/wgmma_bf16.cuh), the bf16 backward kernels' building blocks:
-    d1 = X[x0:x0+64] Y^T with both operands K-major in the copy's 64- or
+    (kernels/wgmma_bf16.cuh), the bf16 kernels' building blocks: d1 =
+    X[x0:x0+64] Y^T with both operands K-major in the copy's 64- or
     128-byte swizzle (S^T = K Q^T, S = Q K^T), then d2 = bf16(d1)
     Z[:, col0:col0+128] with A from the accumulator's registers and Z
-    M|N-major (dV += P^T dO, dQ += dS K).  Small integers (|d1| <= hd <=
-    256 is exact in bf16), so every product and sum is exact and both
-    must equal torch.matmul in f32."""
+    M|N-major (O += P V, dV += P^T dO, dQ += dS K).  Small integers
+    (|d1| <= hd <= 256 is exact in bf16), so every product and sum is
+    exact and both must equal torch.matmul in f32."""
     import ctypes
 
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
@@ -1194,10 +1184,36 @@ def test_flash_bf16_single_key_rows_on_card(hd, causal):
         assert not out[1].any() and not any(x[1].any() for x in (dq, dk, dv))
 
 
+#: the bit-repeat shapes of the bf16 forms: the encoder's, the training
+#: decoder's, the long causal form and head dim 256 at a tile edge
+BF16_REPEAT_SHAPES = [(16, 400, 8, 32, False), (16, 100, 8, 32, True),
+                      (4, 2048, 8, 128, True), (2, 129, 2, 256, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,T,nh,hd,causal", [
-    (16, 400, 8, 32, False), (16, 100, 8, 32, True),
-    (4, 2048, 8, 128, True), (2, 129, 2, 256, False)])
+@pytest.mark.parametrize("B,T,nh,hd,causal", BF16_REPEAT_SHAPES)
+def test_flash_bf16_forward_repeats_its_bits_on_card(B, T, nh, hd, causal):
+    """Two runs of the bf16 forward on the same inputs give bitwise-equal
+    out and lse (the training form) and out (the serving form, equal to
+    the training form's): each block owns its rows and sums in a fixed
+    order, with no atomics."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_bf16_inputs(B, T, nh, hd, seed=T)
+    key_mask = None if causal else mask
+    scale = hd ** -0.5
+    first, second = (fl._flash_cuda(q, k, v, key_mask, causal, scale,
+                                    with_lse=True) for _ in range(2))
+    serve = fl._flash_cuda(q, k, v, key_mask, causal, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+    assert torch.equal(serve, first[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,nh,hd,causal", BF16_REPEAT_SHAPES)
 def test_flash_bf16_backward_repeats_its_bits_on_card(B, T, nh, hd, causal):
     """Two runs of the bf16 backward on the same inputs give bitwise-equal
     dq, dk and dv: each block owns its outputs and sums in a fixed order,

@@ -3,14 +3,14 @@
 Each ``kernels/<name>.cu`` has a plain C interface and compiles alone
 into ``kernels/_build/lib<name>_<hash>.so`` (the directory is git-
 ignored).  The hash covers the source, every header ``kernels/*.cuh``
-(the 3xTF32 tensor-core helpers of ``mma_tf32x3.cuh``, the bf16 ones of
-``mma_bf16.cuh``, the TMA ring of ``tma_ring.cuh``, the warpgroup
-products and tensor copies of ``wgmma_bf16.cuh``) and the nvcc
-flags, extra defines included, so an edited source or header never loads
-a stale build.  ``build_all`` starts one nvcc per source at
-once and waits for all of them.  Kernels are built at first use, never at
-import: a machine without nvcc imports the package and runs the plain
-PyTorch versions on the CPU.
+(the 3xTF32 tensor-core helpers of ``mma_tf32x3.cuh``, the TMA ring of
+``tma_ring.cuh``, the warpgroup products and tensor copies of
+``wgmma_bf16.cuh``, the block geometry the flash kernels' bf16 forms
+share, ``flash_bf16.cuh``) and the nvcc flags, extra defines included,
+so an edited source or header never loads a stale build.  ``build_all``
+starts one nvcc per source at once and waits for all of them.  Kernels
+are built at first use, never at import: a machine without nvcc imports
+the package and runs the plain PyTorch versions on the CPU.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 // Flash self-attention forward for Hopper: an f32 form, f32-accurate on
-// the tensor cores (3xTF32 mma.sync), and a bf16 form (bf16 mma.sync with
-// f32 sums, below flash_fwd_bf16_kernel) for the transformer under
-// compute_dtype=bfloat16, whose JAX package hands the library kernel bf16
-// q, k and v.
+// the tensor cores (3xTF32 mma.sync), and a bf16 form (wgmma on tiles the
+// TMA unit copies, with f32 sums; below flash_fwd_bf16_kernel) for the
+// transformer under compute_dtype=bfloat16, whose JAX package hands the
+// library kernel bf16 q, k and v.
 //
 // Replaces the library Pallas kernel the JAX package's transformer calls
 // for self-attention: `flash_attention` of jax.experimental.pallas.ops.tpu
@@ -67,16 +67,17 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see kernels/build.py).  C entry points (one per
-// dtype, and the bf16 fragment check of the card tests) bound with ctypes
-// from ops/flash_attention.py.
+// dtype) bound with ctypes from ops/flash_attention.py.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "mma_bf16.cuh"
+#include "flash_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace {
+
+using namespace flash_bf16;
 
 using tf32x3::FragA;
 
@@ -320,149 +321,248 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 //
 // The library kernel's arithmetic for bf16 operands
 // (_flash_attention_kernel, flash_attention.py:396 and :471): S from bf16
-// q and k with f32 sums, the online softmax in f32, P = exp(S - m) rounded
-// to bf16 before P V, whose sums are f32, l summed from the unrounded P,
-// the output divided by l and rounded once to bf16.  The products are
-// m16n8k16 bf16 mma.sync (mma_bf16.cuh): a product of bf16 values is
-// exact and the tensor core sums in f32, so no f32 accuracy trick is
-// needed.  The design is the f32 form's with bf16 tiles:
+// q and k with f32 sums, the mask, scale and online softmax in f32, P =
+// exp(S - m) rounded to bf16 only on its way into P V, whose sums are f32,
+// l summed from the unrounded P, the output divided by l and rounded once
+// to bf16.  A product of bf16 values is exact and the tensor core sums in
+// f32, so no accuracy trick is needed.
 //
-//   * one block per (64 query rows, head, article), 4 warps of 16 rows;
-//     the block's q rows are staged in shared memory with the first tile
-//     and each warp loads its A fragments with ldmatrix at use;
-//   * K and V tiles of 64 keys (32 at hd 256) are staged by cp.async at
-//     16 bytes, double-buffered, rows padded by 8 bf16 so that ldmatrix
-//     is free of bank conflicts; K's B fragments come from ldmatrix, V's
-//     from ldmatrix.trans (V row-major is P V's B operand transposed);
-//   * P goes from S's accumulator registers to P V's A fragment, rounded
-//     to bf16, without a shuffle (a_from_acc);
-//   * the mask, the -1e30 running-max floor, +inf lse for a row with no
-//     key, zeros out for such a row, the skipped empty tiles and the
-//     causal skips are the f32 form's;
-//   * at hd 256 the output's columns are split over two blocks, as in
-//     the f32 form: a block keeps 128 columns of O (64 registers).
+// What bounds it on an H100: operations at the dense bf16 rate (989
+// TFLOP/s), 4 * hd per attended pair: 0.0348 ms at 4 x 2048 x 8 x 128
+// causal, 0.0398 ms with a key mask.  At the encoder's 16 x 400 x 8 x 32
+// the 13 MB of bf16 q, k, v and out (3.9 us at 3.35 TB/s) bound it.
 //
-// What bounds it on an H100: operations, as the f32 form, but at the
-// dense bf16 rate (989 TFLOP/s): 2.6 GFLOP at the encoder's shape is
-// 2.7 us, against 13 MB of bf16 q, k, v and out (3.9 us at 3.35 TB/s), so
-// at that shape the bytes bound it.  wgmma and TMA are later work.
+// The design (Hopper's, the bf16 dQ kernel's geometry; flash_bf16.cuh,
+// wgmma_bf16.cuh): a block is two consumer warpgroups and a producer
+// warpgroup (setmaxnreg 24/240, one block per SM) and owns 128 query rows,
+// 64 per consumer warpgroup:
+//
+//   * the block's q tile is copied once by TMA into the 64- or 128-byte
+//     swizzle of wg::Tile<HD>; the producer's lane 0 keeps K and V tiles
+//     of kKeys keys in flight through a 2-stage ring behind full/empty
+//     mbarriers, and its 32 lanes form each tile's words of key flags
+//     (real and unmasked) with ballots, their key-mask loads issued before
+//     the wait for the stage; a tile with no key to attend is not copied;
+//   * S = Q K^T is wgmma from shared memory, both operands K-major; the
+//     mask, the scale (times log2 e) and the online softmax run on S's
+//     accumulator registers, where a thread holds rows g and g + 8 of its
+//     warp's 16, as in mma.sync, so the row max and sum reduce over a
+//     quad with two shuffles; O is rescaled by alpha in registers between
+//     products; P goes to the A fragments in registers, rounded to bf16
+//     (wg::a_frag), and O += P V is wgmma with V the M|N-major B operand;
+//     exp is ex2 (one MUFU instruction) of log2 e-scaled scores against
+//     the running max, which never drops below -1e30; lse goes back to
+//     natural units with an accurate logf;
+//   * a tile is 128 keys at hd 32 and 128 (64 at hd 256, whose q tile and
+//     ring take 192 KB): at the tensor cores' peak an S product over 64
+//     keys needs its A and B operands from shared memory at 128 bytes a
+//     clock, the SM's whole rate, one over 128 keys at three quarters of
+//     it, and a wider tile halves the ring's round trips;
+//   * within a warpgroup the steps run in order (S, wait, softmax, P V,
+//     wait); the two warpgroups take turns to issue S (named barriers 1
+//     and 2), so one's softmax overlaps the other's products.  Each
+//     product group (fence, products, commit, wait) lies inside one
+//     branch: a group split over branches makes ptxas serialize every
+//     wgmma (C7520);
+//   * a key the row may not attend (a key flag, or past the diagonal) gets
+//     p = exactly 0, so a ragged tail or an empty article adds nothing and
+//     a row whose sum stays 0 writes zeros and lse +inf; padding query
+//     rows attend the real keys; rows at or past T are zero-filled by the
+//     copy and never stored.  At hd 128 and 256 a tile whose keys are all
+//     real and that does not cross the diagonal skips the per-key test (at
+//     hd 32 that second path made the decoder's shape slower);
+//   * causal: tiles of keys past the block's last row are never loaded, a
+//     warpgroup skips a tile all of whose keys follow its last row, only a
+//     tile that crosses the diagonal tests it, and the query blocks are
+//     the grid's slowest axis, last first, so that every head's blocks
+//     with the most tiles start before any lighter one.  Without causal
+//     they are its fastest, so that the blocks of one head run together
+//     and read its K and V tiles from the L2 cache;
+//   * head dim 256: the output's columns are split over two blocks (the
+//     grid's head axis holds head x half), each forming S over the full 256
+//     and keeping 128 columns of O, so the O accumulator is 64 registers
+//     a thread at hd 128 and at hd 256; lse is written by the block of
+//     the first half.  No atomics: two runs give the same bits.
 
 template <int HD>
-struct FwdBf16 {
-  static_assert(HD == 32 || HD == 128 || HD == 256, "built head dims");
-  static constexpr int kKeys = HD > 128 ? 32 : 64;  // keys per tile
-  static constexpr int kStride = HD + 8;  // bf16 per shared row
-  static constexpr int kNT = kKeys / 8;   // 8-key column tiles of S
-  static constexpr int kSplit = HD > 128 ? 2 : 1;  // blocks per (rows, head)
-  static constexpr int kOD = HD / kSplit;  // O's columns a block keeps
-  static constexpr int kOT = kOD / 8;      // 8-wide column tiles of them
-  static constexpr int kTile = kKeys * kStride;  // bf16 of a K or V tile
-  static constexpr int kQ = kRows * kStride;     // bf16 of the q tile
-  // per stage: K, V, then kKeys f32 key flags
-  static constexpr size_t kStageBytes = 2 * kTile * 2 + kKeys * 4;
-  static constexpr size_t kSmem = kQ * 2 + 2 * kStageBytes;
-  static_assert(kTile % 8 == 0 && kQ % 8 == 0, "16-byte aligned tiles");
+struct FwdBf16 : Split<HD> {
+  using L = wg::Tile<HD>;
+  static constexpr int kKeys = HD <= 128 ? 128 : 64;  // keys per tile
+  static constexpr int kWords = kKeys / 64;  // key-flag words per tile
+  static constexpr bool kWholeTiles = HD >= 128;  // the untested path
+  static constexpr int kQ = L::bytes(kBlockRows);    // the q tile
+  static constexpr int kTile = L::bytes(kKeys);      // a K or V tile
+  // q, the stages' K and V tiles, their key-flag words, the barriers
+  static constexpr int kMaskOff = kQ + 2 * kStages * kTile;
+  static constexpr int kBarOff = kMaskOff + kStages * kWords * 8;
+  static constexpr size_t kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
 };
 
-// grid (ceil(T / kRows), nh * kSplit, B); kThreads threads;
-// FwdBf16<HD>::kSmem bytes of dynamic shared memory
+// named barriers 1 and 2 between the two consumer warpgroups: warpgroup
+// w waits on 1 + w for its turn to issue S, then hands the turn over
+__device__ __forceinline__ void turn_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "n"(kWgThreads) : "memory");
+}
+__device__ __forceinline__ void turn_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kWgThreads) : "memory");
+}
+
+// grid (nh * kSplit, B, ceil(T / 128)) when causal, else (ceil(T / 128),
+// nh * kSplit, B); kBf16Threads threads, FwdBf16<HD>::kSmem bytes of
+// dynamic shared memory; the maps' boxes are kBlockRows rows (q) and
+// kKeys rows (k, v)
 template <int HD>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_bf16_kernel(const bf16mma::bf16* __restrict__ q,
-                      const bf16mma::bf16* __restrict__ k,
-                      const bf16mma::bf16* __restrict__ v,
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map,
                       const float* __restrict__ key_mask,
-                      bf16mma::bf16* __restrict__ out,
-                      float* __restrict__ lse, int T, int nh, int causal,
-                      float sm_scale) {
+                      wg::bf16* __restrict__ out, float* __restrict__ lse,
+                      int T, int nh, int causal, float sm_scale) {
   using S = FwdBf16<HD>;
-  using bf16mma::bf16;
-  constexpr int kKeys = S::kKeys, kStride = S::kStride;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
-  unsigned char* stages = smem_raw + S::kQ * 2;
+  constexpr int kKeys = S::kKeys, kOD = S::kOD, kWords = S::kWords;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;
+  unsigned char* tiles = smem + S::kQ;  // stage s: K, then V
+  uint64_t* flags = reinterpret_cast<uint64_t*>(smem + S::kMaskOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_bar = empty + kStages;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
+  const bool producer = warp >= 4 * kWGs;
   // causal: the last query blocks have the most key tiles; start them first
-  const int qb = causal ? (int)(gridDim.x - 1 - blockIdx.x) : (int)blockIdx.x;
-  const int h = blockIdx.y / S::kSplit, b = blockIdx.z;
-  const int col0 = (blockIdx.y % S::kSplit) * S::kOD;  // O's first column
-  const size_t pos_stride = (size_t)nh * HD;  // elements between positions
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
-  const int row0 = qb * kRows + warp * 16;  // the warp's first row
-  const int rows[2] = {row0 + g, row0 + g + 8};  // this lane's two rows
-  const bf16* q_warp = q_s + warp * 16 * kStride;
-  auto q_frag = [&](int kk, uint32_t (&a)[4]) {
-    bf16mma::load_a(a, q_warp + 16 * kk, kStride, lane);
-  };
-
-  float o[S::kOT][4];
-#pragma unroll
-  for (int n = 0; n < S::kOT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // l: this lane's columns
-
+  const int qb = causal ? (int)(gridDim.z - 1 - blockIdx.z) : (int)blockIdx.x;
+  const int hx = causal ? blockIdx.x : blockIdx.y;  // head x half
+  const int h = hx / S::kSplit, b = causal ? blockIdx.y : blockIdx.z;
+  const int col0 = (hx % S::kSplit) * kOD;
+  const int r_blk = qb * kBlockRows;        // the block's first row
+  const int rw = r_blk + 64 * (warp >> 2);  // the warpgroup's first row
   // causal: keys past the block's last row are never attended
-  const int t_end = causal ? min(T, (qb + 1) * kRows) : T;  // block-uniform
+  const int t_end = causal ? min(T, r_blk + kBlockRows) : T;
   const int n_tiles = (t_end + kKeys - 1) / kKeys;
-
-  auto stage = [&](int tile, int buf) {
-    bf16* ks = reinterpret_cast<bf16*>(stages + buf * S::kStageBytes);
-    bf16* vs = ks + S::kTile;
-    float* oks = reinterpret_cast<float*>(vs + S::kTile);
-    const int k0 = tile * kKeys;
-    bf16mma::stage_rows<HD, kThreads>(ks, kStride, k + base, pos_stride, k0,
-                                      kKeys, T, tid);
-    bf16mma::stage_rows<HD, kThreads>(vs, kStride, v + base, pos_stride, k0,
-                                      kKeys, T, tid);
-    for (int j = tid; j < kKeys; j += kThreads) {
-      const int key = k0 + j;
-      oks[j] = (key < T && (key_mask == nullptr ||
-                            key_mask[(size_t)b * T + key] > 0.f))
-                   ? 1.f
-                   : 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      tma::mbar_init(&full[s], 32);
+      tma::mbar_init(&empty[s], kWgThreads);
     }
-    tf32x3::cp_async_commit();
-  };
+    tma::mbar_init(q_bar, 1);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();
 
-  // q in the first group, with the first tile
-  bf16mma::stage_rows<HD, kThreads>(q_s, kStride, q + base, pos_stride,
-                                    qb * kRows, kRows, T, tid);
-  stage(0, 0);
+  set_regs(producer);
+  if (producer) {
+    if (warp != 4 * kWGs) return;
+    if (lane == 0) {
+      tma::mbar_arrive_tx(q_bar, S::kQ);
+      wg::load_tile<HD>(qs, &q_map, kBlockRows, r_blk, h, b, q_bar);
+    }
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kStages;
+      const int k0 = it * kKeys;
+      // key k0 + 32 j + lane is real and unmasked; loaded before the wait
+      bool ok[kKeys / 32];
+#pragma unroll
+      for (int j = 0; j < kKeys / 32; ++j) {
+        const int key = k0 + 32 * j + lane;
+        ok[j] = key < T && (key_mask == nullptr ||
+                            key_mask[(size_t)b * T + key] > 0.f);
+      }
+      tma::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+      uint64_t bits[kWords] = {};  // bit j of word w: key k0 + 64 w + j
+#pragma unroll
+      for (int j = 0; j < kKeys / 32; ++j)
+        bits[j / 2] |= (uint64_t)__ballot_sync(0xffffffffu, ok[j])
+                       << (32 * (j % 2));
+      uint64_t any = 0;
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) any |= bits[w];
+      unsigned char* ks = tiles + s * 2 * S::kTile;
+      if (lane == 0) {
+#pragma unroll
+        for (int w = 0; w < kWords; ++w) flags[s * kWords + w] = bits[w];
+        if (any != 0) {  // a tile with no key to attend is not copied
+          tma::mbar_arrive_tx(&full[s], 2 * S::kTile);
+          wg::load_tile<HD>(ks, &k_map, kKeys, k0, h, b, &full[s]);
+          wg::load_tile<HD>(ks + S::kTile, &v_map, kKeys, k0, h, b,
+                            &full[s]);
+        } else {
+          tma::mbar_arrive(&full[s]);
+        }
+      } else {
+        tma::mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  const int wgi = warp >> 2;  // the consumer warpgroup
+  const int row0 = 64 * wgi;  // its rows of the q tile
+  const int q_row = rw + 16 * (warp & 3) + g;
+  const int rows[2] = {q_row, q_row + 8};  // this thread's rows of O
+  const float scale_l2 = sm_scale * kLog2e;
+  float oa[kOD / 2];
+#pragma unroll
+  for (int i = 0; i < kOD / 2; ++i) oa[i] = 0.f;
+  // running max (log2 units) and this thread's columns' sum, per row
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  if (wgi == 1) turn_arrive(1);  // warpgroup 0 issues first
+  tma::mbar_wait(q_bar, 0);
   for (int it = 0; it < n_tiles; ++it) {
-    if (it + 1 < n_tiles) {
-      stage(it + 1, (it + 1) & 1);  // its buffer was freed at it - 1's end
-      tf32x3::cp_async_wait<1>();
-    } else {
-      tf32x3::cp_async_wait<0>();
-    }
-    const bf16* ks =
-        reinterpret_cast<const bf16*>(stages + (it & 1) * S::kStageBytes);
-    const bf16* vs = ks + S::kTile;
-    const float* oks = reinterpret_cast<const float*>(vs + S::kTile);
-    // the tile (and q) has landed for every warp; the barrier also tells
-    // the block whether any key of the tile is real and unmasked
-    const bool any_key = __syncthreads_or(tid < kKeys && oks[tid] > 0.f);
-
+    const int s = it % kStages;
+    tma::mbar_wait(&full[s], (it / kStages) & 1);
     const int k0 = it * kKeys;
-    // causal: a warp whose last row precedes the tile attends none of it
-    if (any_key && (!causal || k0 <= row0 + 15)) {
-      // S = Q K^T
-      float s[S::kNT][4];
-      bf16mma::head_dim_product<S::kNT, HD>(s, q_frag, ks, kStride, lane);
-
-      // mask, scale and the tile's row max over this lane's columns
-      const bool diag = causal && k0 + kKeys - 1 > qb * kRows;
+    uint64_t bits_t[kWords];  // bit 8 i + e of word i / 8: key c below
+    uint64_t any = 0, all = ~0ull;
+#pragma unroll
+    for (int w = 0; w < kWords; ++w) {
+      const uint64_t word = flags[s * kWords + w];
+      any |= word;
+      all &= word;
+      bits_t[w] = word >> (2 * t);
+    }
+    turn_sync(1 + wgi);
+    // causal: every key of the tile follows the warpgroup's last row
+    if (any != 0 && rw < T && !(causal && k0 > rw + 63)) {
+      const unsigned char* ks = tiles + s * 2 * S::kTile;
+      const unsigned char* vs = ks + S::kTile;
+      float sa[kKeys / 2];  // S, then P
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wg::Mma<kKeys>::ss(sa, wg::desc_k<HD>(qs, kBlockRows, row0, kk),
+                           wg::desc_k<HD>(ks, kKeys, 0, kk), kk > 0);
+      wg::commit();
+      turn_arrive(2 - wgi);
+      wg::wait<0>();
+      wg::keep(sa);
+      // mask and scale (log2 units), the tile's max over this thread's
+      // columns
+      const bool diag = causal && k0 + kKeys - 1 > rw;
       float cmax[2] = {kNeg, kNeg};
+      if (S::kWholeTiles && !diag && all == ~0ull) {
 #pragma unroll
-      for (int j = 0; j < S::kNT; ++j) {
+        for (int i = 0; i < kKeys / 2; ++i) {
+          sa[i] *= scale_l2;
+          cmax[(i >> 1) & 1] = fmaxf(cmax[(i >> 1) & 1], sa[i]);
+        }
+      } else {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = 8 * j + 2 * t + (e & 1);
-          const int r = e >> 1;
-          const bool ok = oks[col] > 0.f && (!diag || k0 + col <= rows[r]);
-          s[j][e] = ok ? s[j][e] * sm_scale : -INFINITY;
-          cmax[r] = fmaxf(cmax[r], s[j][e]);
+        for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, c = 8 * i + 2 * t + (e & 1);
+            const bool ok =
+                ((bits_t[i / 8] >> (8 * (i % 8) + (e & 1))) & 1) &&
+                (!diag || k0 + c <= rows[r]);
+            const float x = ok ? sa[4 * i + e] * scale_l2 : -INFINITY;
+            sa[4 * i + e] = x;
+            cmax[r] = fmaxf(cmax[r], x);
+          }
         }
       }
       float alpha[2];
@@ -471,32 +571,36 @@ flash_fwd_bf16_kernel(const bf16mma::bf16* __restrict__ q,
         cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 1));
         cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 2));
         const float m_new = fmaxf(m[r], cmax[r]);
-        alpha[r] = expf(m[r] - m_new);  // 0 on the row's first real key
+        alpha[r] = ex2(m[r] - m_new);  // 0 on the row's first real key
         m[r] = m_new;
         l[r] *= alpha[r];
       }
 #pragma unroll
-      for (int n = 0; n < S::kOT; ++n) {
-        o[n][0] *= alpha[0];
-        o[n][1] *= alpha[0];
-        o[n][2] *= alpha[1];
-        o[n][3] *= alpha[1];
-      }
+      for (int i = 0; i < kOD / 2; ++i) oa[i] *= alpha[(i >> 1) & 1];
 #pragma unroll
-      for (int j = 0; j < S::kNT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = expf(s[j][e] - m[e >> 1]);  // masked: exactly 0
-          s[j][e] = p;
-          l[e >> 1] += p;  // the unrounded P, as the library sums it
-        }
+      for (int i = 0; i < kKeys / 2; ++i) {
+        const float p = ex2(sa[i] - m[(i >> 1) & 1]);  // masked: exactly 0
+        sa[i] = p;
+        l[(i >> 1) & 1] += p;  // the unrounded P, as the library sums it
       }
-
-      // O += P V, P rounded to bf16 on its way to the A operand; V's
-      // columns of this block's part of O
-      bf16mma::tile_product<S::kNT, S::kOT>(o, s, vs + col0, kStride, lane);
+      uint32_t pf[kKeys / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wg::a_frag(pf[kk], sa, kk);  // P rounded to bf16
+      wg::wgmma_fence();
+      // O += P V over the tile's keys (this block's columns)
+#pragma unroll
+      for (int kk = 0; kk < kKeys / 16; ++kk)
+        wg::Mma<kOD>::rs(oa, pf[kk], wg::desc_mn<HD>(vs, kKeys, kk, col0),
+                         1);
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(oa);
+      wg::keep(pf);
+    } else {
+      turn_arrive(2 - wgi);
     }
-    __syncthreads();  // every warp is done with buffer it & 1
+    tma::mbar_arrive(&empty[s]);
   }
 
 #pragma unroll
@@ -505,77 +609,47 @@ flash_fwd_bf16_kernel(const bf16mma::bf16* __restrict__ q,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= T) continue;
-    bf16* o_row = out + base + (size_t)rows[r] * pos_stride + col0;
+  for (int i = 0; i < kOD / 2; ++i) {
+    const float li = l[(i >> 1) & 1];
+    oa[i] = li > 0.f ? oa[i] / li : 0.f;  // no key to attend: zeros
+  }
+  const size_t pos_stride = (size_t)nh * HD;
+  store_rows<kOD>(out + (size_t)b * T * pos_stride + (size_t)h * HD + col0,
+                  pos_stride, rows, T, oa, t);
+  if (lse != nullptr && t == 0 && col0 == 0) {  // one block of a split
 #pragma unroll
-    for (int n = 0; n < S::kOT; ++n) {
-      const uint32_t val = l[r] > 0.f
-          ? bf16mma::pack(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r])
-          : 0u;
-      *reinterpret_cast<uint32_t*>(o_row + 8 * n + 2 * t) = val;
-    }
-    if (lse != nullptr && t == 0 && col0 == 0)  // one block of a split
-      lse[((size_t)b * T + rows[r]) * nh + h] =
-          l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
+    for (int r = 0; r < 2; ++r)
+      if (rows[r] < T)
+        lse[((size_t)b * T + rows[r]) * nh + h] =
+            l[r] > 0.f ? m[r] / kLog2e + logf(l[r]) : INFINITY;
   }
 }
 
 template <int HD>
-cudaError_t launch_bf16(const bf16mma::bf16* q, const bf16mma::bf16* k,
-                        const bf16mma::bf16* v, const float* key_mask,
-                        bf16mma::bf16* out, float* lse, int B, int T, int nh,
-                        int causal, float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = FwdBf16<HD>::kSmem;
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        const float* key_mask, void* out, float* lse, int B,
+                        int T, int nh, int causal, float sm_scale,
+                        cudaStream_t stream) {
+  using S = FwdBf16<HD>;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {kBlockRows, S::kKeys, S::kKeys};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err =
+        wg::make_map(&maps[i], ptrs[i], B, T, nh, HD, rows[i]);
+    if (err != cudaSuccess) return err;
+  }
   static unsigned smem_set = 0;  // per instantiation: one per kernel
   const cudaError_t err =
-      tf32x3::allow_smem(flash_fwd_bf16_kernel<HD>, smem, smem_set);
+      tf32x3::allow_smem(flash_fwd_bf16_kernel<HD>, S::kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kRows - 1) / kRows, nh * FwdBf16<HD>::kSplit, B);
-  flash_fwd_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, key_mask, out, lse, T, nh, causal, sm_scale);
+  const int n_qb = (T + kBlockRows - 1) / kBlockRows;
+  const dim3 grid = causal ? dim3(nh * S::kSplit, B, n_qb)
+                           : dim3(n_qb, nh * S::kSplit, B);
+  flash_fwd_bf16_kernel<HD><<<grid, kBf16Threads, S::kSmem, stream>>>(
+      maps[0], maps[1], maps[2], key_mask, static_cast<wg::bf16*>(out), lse,
+      T, nh, causal, sm_scale);
   return cudaGetLastError();
-}
-
-// One warp: C1 = A B from B stored row-major [k][n] (ldmatrix.trans) and
-// C2 = A B from B^T stored row-major [n][k] (ldmatrix), A [16][16], B
-// [16][16] bf16, C [16][16] f32 row-major: the m16n8k16 fragment layouts
-// of mma_bf16.cuh held against a plain product by a card test.
-__global__ void mma_bf16_check_kernel(const bf16mma::bf16* __restrict__ a,
-                                      const bf16mma::bf16* __restrict__ b,
-                                      float* __restrict__ c1,
-                                      float* __restrict__ c2) {
-  using bf16mma::bf16;
-  constexpr int kStride = 16 + 8;
-  __shared__ __align__(16) unsigned short raw[3][16 * kStride];
-  const unsigned short* a16 = reinterpret_cast<const unsigned short*>(a);
-  const unsigned short* b16 = reinterpret_cast<const unsigned short*>(b);
-  const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
-  for (int i = lane; i < 256; i += 32) {
-    const int r = i / 16, c = i % 16;
-    raw[0][r * kStride + c] = a16[i];
-    raw[1][r * kStride + c] = b16[i];
-    raw[2][c * kStride + r] = b16[i];  // B^T
-  }
-  __syncwarp();
-  const bf16* as = reinterpret_cast<const bf16*>(raw[0]);
-  const bf16* bs = reinterpret_cast<const bf16*>(raw[1]);
-  const bf16* bts = reinterpret_cast<const bf16*>(raw[2]);
-  uint32_t af[4], bt[2][2], bn[2][2];
-  bf16mma::load_a(af, as, kStride, lane);
-  bf16mma::load_b_trans(bt, bs, kStride, lane);
-  bf16mma::load_b_t(bn, bts, kStride, lane);
-  float d1[2][4] = {}, d2[2][4] = {};
-  for (int j = 0; j < 2; ++j) {
-    bf16mma::mma(d1[j], af, bt[j][0], bt[j][1]);
-    bf16mma::mma(d2[j], af, bn[j][0], bn[j][1]);
-  }
-  for (int j = 0; j < 2; ++j)
-    for (int e = 0; e < 4; ++e) {
-      const int r = g + 8 * (e >> 1), c = 8 * j + 2 * t + (e & 1);
-      c1[r * 16 + c] = d1[j][e];
-      c2[r * 16 + c] = d2[j][e];
-    }
 }
 }  // namespace
 
@@ -614,37 +688,23 @@ extern "C" int ts_flash_attention_bf16(const void* q, const void* k,
                                        void* out, float* lse, int B, int T,
                                        int nh, int hd, int causal,
                                        float sm_scale, void* stream) {
-  using bf16mma::bf16;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 32767)
+  if (B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 32767 ||
+      (T - 1) / kBlockRows >= 65535)  // the grid's z axis: query blocks
     return (int)cudaErrorInvalidValue;
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  bf16* ob = static_cast<bf16*>(out);
   switch (hd) {
     case 32:
-      return (int)launch_bf16<32>(qb, kb, vb, key_mask, ob, lse, B, T, nh,
+      return (int)launch_bf16<32>(q, k, v, key_mask, out, lse, B, T, nh,
                                   causal, sm_scale, st);
     case 128:
-      return (int)launch_bf16<128>(qb, kb, vb, key_mask, ob, lse, B, T, nh,
+      return (int)launch_bf16<128>(q, k, v, key_mask, out, lse, B, T, nh,
                                    causal, sm_scale, st);
     case 256:
-      return (int)launch_bf16<256>(qb, kb, vb, key_mask, ob, lse, B, T, nh,
+      return (int)launch_bf16<256>(q, k, v, key_mask, out, lse, B, T, nh,
                                    causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
-}
-
-// a, b [16][16] bfloat16 and c1, c2 [16][16] float32 on the device: one
-// warp's fragment check (mma_bf16_check_kernel)
-extern "C" int ts_flash_mma_bf16_check(const void* a, const void* b,
-                                       float* c1, float* c2, void* stream) {
-  mma_bf16_check_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16mma::bf16*>(a),
-      static_cast<const bf16mma::bf16*>(b), c1, c2);
-  return (int)cudaGetLastError();
 }
 
 extern "C" const char* ts_flash_error_string(int err) {

@@ -110,23 +110,16 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_bf16.cuh"
 #include "mma_tf32x3.cuh"
-#include "wgmma_bf16.cuh"
 
 namespace {
+
+using namespace flash_bf16;
 
 using tf32x3::FragA;
 
 constexpr int kThreads = 128;
-
-// The head dims the kernels are built for; above 128 a block keeps half
-// of its output's columns (kSplit blocks per tile and head)
-template <int HD>
-struct Split {
-  static_assert(HD == 32 || HD == 128 || HD == 256, "built head dims");
-  static constexpr int kSplit = HD > 128 ? 2 : 1;
-  static constexpr int kOD = HD / kSplit;  // output columns a block keeps
-};
 
 // The dK/dV kernel's tiling: a block owns 64 keys, 16 per warp, and loops
 // over tiles of kQ query rows staged in shared memory.
@@ -613,7 +606,8 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
 // with a key mask; at the encoder's 16 x 400 x 8 x 32 the 26 MB of bf16
 // tensors and f32 rows (7.9 us at 3.35 TB/s) bound them, narrowly.
 //
-// The design (Hopper's; wgmma_bf16.cuh): a block is kWGs = 2 consumer
+// The design (Hopper's; wgmma_bf16.cuh, and the block geometry the
+// forward's bf16 form shares, flash_bf16.cuh): a block is kWGs = 2 consumer
 // warpgroups and a producer warpgroup whose first warp works (setmaxnreg
 // moves the others' registers to the consumers).  Its lane 0 copies the
 // block's fixed tiles once and keeps the loop's tiles in flight through a
@@ -661,55 +655,6 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v,
 // bits.  exp is ex2 (one MUFU instruction) of a fused multiply-add on
 // log2 e-scaled terms.
 
-constexpr int kWGs = 2;                  // consumer warpgroups per block
-constexpr int kStages = 2;               // tiles in the ring
-constexpr int kBlockRows = 64 * kWGs;    // keys (dK/dV) or rows (dQ)
-constexpr int kWgThreads = 128 * kWGs;   // consumer threads
-// and the producer warpgroup: its first warp copies, the others exit.  A
-// block's warps are spread over the SM's four register files (16,384
-// registers each), so a ninth warp would cap every thread at 168; with a
-// third warpgroup (one block per SM, 168 registers a thread at launch)
-// the producer gives back all but kProducerRegs and the consumers take
-// kConsumerRegs (setmaxnreg): 128 * (168 - 24) = 256 * (240 - 168), so
-// the consumers take exactly what the producer gave back (setmaxnreg.inc
-// waits for registers its own block released)
-constexpr int kBf16Threads = kWgThreads + 128;
-constexpr int kProducerRegs = 24;
-constexpr int kConsumerRegs = 240;
-constexpr float kLog2e = 1.4426950408889634f;
-
-// 2^x in one MUFU instruction (relative error below 2^-22, far under
-// the bf16 rounding of P and dS; subnormal results flushed to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// the dynamic shared memory, aligned for the 128-byte swizzle
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// rows[r] < T of an m64nN accumulator (N = kOD) rounded to bf16 at dst
-// (this block's first column of row 0)
-template <int kOD>
-__device__ __forceinline__ void store_rows(wg::bf16* dst, size_t pos_stride,
-                                           const int (&rows)[2], int T,
-                                           const float (&acc)[kOD / 2],
-                                           int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= T) continue;
-    wg::bf16* row = dst + (size_t)rows[r] * pos_stride;
-#pragma unroll
-    for (int i = 0; i < kOD / 8; ++i)
-      *reinterpret_cast<uint32_t*>(row + 8 * i + 2 * t) =
-          wg::pack(acc[4 * i + 2 * r], acc[4 * i + 2 * r + 1]);
-  }
-}
-
 template <int HD>
 struct DkvBf16 : Split<HD> {
   using L = wg::Tile<HD>;
@@ -721,15 +666,6 @@ struct DkvBf16 : Split<HD> {
   static constexpr int kBarOff = kRowsOff + 2 * kStages * kQ * 4;
   static constexpr size_t kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;
 };
-
-// the producer warpgroup gives back its registers (its other three warps
-// then exit), the consumers take theirs
-__device__ __forceinline__ void set_regs(bool producer) {
-  if (producer)
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
-  else
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
-}
 
 // grid (ceil(T / 128), nh * kSplit, B), kBf16Threads threads,
 // DkvBf16<HD>::kSmem bytes of dynamic shared memory; the maps' boxes are
@@ -1343,8 +1279,9 @@ extern "C" int ts_flash_bwd_dq_bf16(const void* q, const void* k,
 
 // x [128, hd], y and z [ny, hd] bfloat16, d1 [64, ny] and d2 [64, min(hd,
 // 128)] float32 on the device: one warpgroup's product check
-// (wgmma_check_kernel) at the kernels' (hd, ny): (32, 64), (128, 32),
-// (128, 64), (256, 32); x0 is 0 or 64, col0 0 (or 128 at hd 256)
+// (wgmma_check_kernel) at the kernels' (hd, ny): the backward's (32, 64),
+// (128, 32), (128, 64), (256, 32) and the forward's (32, 128), (128,
+// 128), (256, 64); x0 is 0 or 64, col0 0 (or 128 at hd 256)
 extern "C" int ts_flash_wgmma_check(const void* x, const void* y,
                                     const void* z, float* d1, float* d2,
                                     int hd, int ny, int x0, int col0,
@@ -1361,6 +1298,12 @@ extern "C" int ts_flash_wgmma_check(const void* x, const void* y,
     return (int)launch_wgmma_check<128, 64>(x, y, z, x0, col0, d1, d2, st);
   if (hd == 256 && ny == 32)
     return (int)launch_wgmma_check<256, 32>(x, y, z, x0, col0, d1, d2, st);
+  if (hd == 32 && ny == 128)
+    return (int)launch_wgmma_check<32, 128>(x, y, z, x0, col0, d1, d2, st);
+  if (hd == 128 && ny == 128)
+    return (int)launch_wgmma_check<128, 128>(x, y, z, x0, col0, d1, d2, st);
+  if (hd == 256 && ny == 64)
+    return (int)launch_wgmma_check<256, 64>(x, y, z, x0, col0, d1, d2, st);
   return (int)cudaErrorInvalidValue;
 }
 

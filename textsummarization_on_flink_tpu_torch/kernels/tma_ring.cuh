@@ -1,6 +1,6 @@
 // A ring of row chunks in shared memory filled by the TMA unit: the
 // mbarrier and bulk-copy helpers the fused attention's forward and
-// backward share (the flash backward's bf16 forms use its mbarriers too,
+// backward share (the flash kernels' bf16 forms use its mbarriers too,
 // through wgmma_bf16.cuh).
 //
 // One thread arms a stage's mbarrier with the chunk's byte count and

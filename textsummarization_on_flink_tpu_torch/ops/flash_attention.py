@@ -33,9 +33,9 @@ bf16 for dV = P^T dO (:900), dP = dO V^T with f32 sums, dS = P (dP - D)
 rounded once to bf16.  The plain versions form those products from f32
 copies of the bf16 values (exact products, f32 sums), never from CPU
 bf16 GEMMs, whose internal rounding is the library's own; the kernels
-multiply bf16 on the tensor cores with f32 accumulators (the forward
-with ``mma.sync``, the dK/dV and dQ kernels with Hopper's ``wgmma`` on
-tiles copied by TMA, behind the same entry points).  A bf16 row rounds P
+multiply bf16 on the tensor cores with f32 accumulators (the forward,
+dK/dV and dQ kernels all with Hopper's ``wgmma`` on tiles copied by
+TMA, behind the same entry points).  A bf16 row rounds P
 against the online softmax's running max in the kernel and against the
 row max in the plain version, so the two differ by about a bf16 ulp of
 P.
