@@ -20,7 +20,10 @@ device or without the port's sources beside it.  Phases, each fatal:
      kernels beside those of the kernels they replaced (the flash
      kernels' f32 SIMT designs, the fused attention's two-launch design):
      a. the fused additive attention, both dtypes, coverage on and off,
-        with a fully masked row, at the beam-decode shape, the long form,
+        with a fully masked row, at the beam-decode shape (and there
+        with the slot engine's length bound, t_active 64, 128, 256 and
+        400, f32 and bf16: attn exactly 0 past it; timed beside the
+        bound at t_active, phase_attention_bounded), the long form,
         the training shape (K = 1; in bf16 the byte-diet run's), the
         App's decode shape (4 articles x 4 beams, f32) and the wide
         pointer-generators (D 800 at 16 x 4, D 860 at 16 x 1, f32); then
@@ -122,7 +125,18 @@ device or without the port's sources beside it.  Phases, each fatal:
      over 16 rows; 2 fused launches per beam step throughout; prints
      e2e latency p50/p99, time in queue p50, the mean fill and
      requests/s;
- 11. print the kernels' JSON line, then, last, the device JSON line.
+ 11. continuous serving (phase_continuous_serve): the ServingServer with
+     serve_mode=continuous (the slot engine: 16 slots, serve buckets
+     100/200/400, decode_enc_block 64) at the reference width over the
+     ROUGE phase's checkpoint, 32 requests from 8 threads, 16 articles of
+     50-120 words and 16 of 300-400: each resolved once, summaries equal
+     to a micro-batch server's, exactly 2 fused launches per decode step
+     in every chunk; again over a page arena of 56 pages (backpressure,
+     the same summaries); the transformer over its train phase's
+     checkpoint, 8 requests equal to its micro-batch server's; prints
+     e2e p50/p99, queue p50, requests/s, mean occupancy and resident
+     bytes per slot beside the micro-batch numbers;
+ 12. print the kernels' JSON line, then, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -246,18 +260,21 @@ def attention_inputs(B, K, T, D, dtype, seed):
     return es, ef, mask, df, cov, v, w_c
 
 
-def attention_bound_ms(B, K, T, D, elt_bytes, use_cov):
+def attention_bound_ms(B, K, T, D, elt_bytes, use_cov, t_active=None):
     """Least time for the function on an H100: the larger of bytes moved
     (each input read once, each output written once) over the memory
     rate and f32 operations over the f32 peak.  Per (article, query,
     position, column): add the query, fused-multiply-add the coverage
     term when on (2), tanh (counted as 1), multiply-add with v (2), and
-    the context's multiply-add (2)."""
-    bytes_in = 2 * B * T * D * elt_bytes + 4 * (B * T + B * K * D + 2 * D)
+    the context's multiply-add (2).  With a length bound t_active the
+    inputs' prefix of t_active positions is read and worked on; attn is
+    written whole (its zeros past the bound too)."""
+    t = T if t_active is None else t_active
+    bytes_in = 2 * B * t * D * elt_bytes + 4 * (B * t + B * K * D + 2 * D)
     if use_cov:
-        bytes_in += 4 * B * K * T
+        bytes_in += 4 * B * K * t
     bytes_out = 4 * (B * K * D + B * K * T)
-    ops = B * K * T * D * (1 + (2 if use_cov else 0) + 1 + 2 + 2)
+    ops = B * K * t * D * (1 + (2 if use_cov else 0) + 1 + 2 + 2)
     t_bytes = (bytes_in + bytes_out) / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
@@ -335,6 +352,56 @@ def phase_attention(seed):
                 if D > 512 and use_cov:
                     rows_wide[D] = row
     return main, main_bf16, rows_k1, rows_app, rows_wide, worst
+
+
+#: the length bounds phase_attention_bounded holds the kernel at: the
+#: slot engine's bound (ceil(longest active / 64) * 64, clamped to T) for
+#: one to four blocks, and T itself
+BOUNDED_T_ACTIVE = (64, 128, 256, 400)
+
+
+def phase_attention_bounded(seed):
+    """The fused attention with a length bound (the slot engine's step) at
+    the beam-decode shape, 16 x 4 x 400 x 512, coverage on, f32 and bf16
+    streams, t_active in BOUNDED_T_ACTIVE: kernel against the plain
+    version with the same bound (ATTN_TOL), attn exactly 0 past the
+    bound; the kernel's and the plain version's times beside the bound
+    at t_active (each input's prefix read once)."""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")
+    B, K, T, D = 16, 4, 400, 512
+    rows, worst = [], 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        args = attention_inputs(B, K, T, D, dtype, seed)
+        for t_act in BOUNDED_T_ACTIVE:
+            ctx, attn = fa._attention_cuda(*args, True, t_act)
+            ctx_p, attn_p = fa._attention_plain(*args, True, t_act)
+            torch.cuda.synchronize()
+            err = max(float((ctx - ctx_p).abs().max()),
+                      float((attn - attn_p).abs().max()))
+            ms = time_cuda(lambda: fa._attention_cuda(*args, True, t_act),
+                           20, flush)
+            plain_ms = time_cuda(
+                lambda: fa._attention_plain(*args, True, t_act), 10, flush)
+            elt = 2 if dtype == torch.bfloat16 else 4
+            bound, by, nbytes, ops = attention_bound_ms(B, K, T, D, elt, True,
+                                                        t_act)
+            row = dict(shape=f"{B}x{K}x{T}x{D}", t_active=t_act,
+                       dtype=str(dtype).replace("torch.", ""), coverage=True,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops)
+            print("attention_bounded " + json.dumps(row))
+            check(bool(torch.isfinite(ctx).all()), f"non-finite ctx {row}")
+            check(not bool(attn[:, :, t_act:].any()),
+                  f"attn not exactly 0 past the bound at {row}")
+            check(err <= ATTN_TOL, f"bounded kernel disagrees with plain "
+                                   f"(err {err} > {ATTN_TOL}) at {row}")
+            worst = max(worst, err)
+            rows.append(row)
+    return rows, worst
 
 
 def phase_attention_long(seed):
@@ -2395,6 +2462,217 @@ def phase_serve(seed, work, params, device="cuda"):
     return summary
 
 
+def bimodal_rows(seed, words, n_short, n_long):
+    """(uuid, article, summary, reference) rows: n_short articles of
+    50-120 zipf-ranked words and n_long of 300-400 (~5% OOVs), shuffled
+    together; the reference is the first 12 words."""
+    rng = np.random.default_rng(seed)
+    lens = [int(rng.integers(50, 121)) for _ in range(n_short)] + \
+        [int(rng.integers(300, 401)) for _ in range(n_long)]
+    rng.shuffle(lens)
+    rows = []
+    for i, n in enumerate(lens):
+        ranks = np.minimum(rng.zipf(1.2, n), len(words)) - 1
+        art = [words[r] if rng.random() > 0.05 else f"oov{rng.integers(50)}"
+               for r in ranks]
+        rows.append((f"bimodal-{i}", " ".join(art) + " .", "",
+                     " ".join(art[:12]) + " ."))
+    return rows
+
+
+#: the continuous phase's slot engine: 16 slots, the serve buckets, the
+#: length bound's block
+CONTINUOUS_FLAGS = dict(serve_mode="continuous", serve_slots=16,
+                        serve_buckets="100,200,400", decode_enc_block=64)
+
+
+def phase_continuous_serve(seed, work, params, tf_params, device="cuda"):
+    """The continuous ``ServingServer`` (serve_mode=continuous: the slot
+    engine of decode/decoder.py) at the reference width, pointer-generator
+    (main_path_hps, f32, coverage on) over ``params`` (the ROUGE phase's
+    trained checkpoint), CONTINUOUS_FLAGS; 32 requests from 8 threads, a
+    bimodal mix of 16 articles of 50-120 words and 16 of 300-400.  Each
+    run with the launch counts set to 0 just before and read just after:
+
+      a. every request resolves exactly once, with its own uuid;
+      b. the summaries equal, token for token, a micro-batch server's
+         (same buckets) on the same 32 articles;
+      c. every chunk launches the fused attention exactly twice per
+         decode step (counted chunk by chunk) and nothing else launches;
+      d. again with serve_arena_pages=56 (half of 16 slots x 7 pages):
+         serve/arena_alloc_failures_total rises (backpressure), the
+         summaries are the same;
+      e. the transformer at its reference width over ``tf_params`` (the
+         train phase's checkpoint): 8 requests, summaries equal to its
+         micro-batch server's.
+
+    Prints e2e p50/p99, time in queue p50, requests/s, mean slot
+    occupancy and resident bytes per slot (the mean over chunks) of the
+    dense and the paged runs, beside the micro-batch run's numbers, and
+    each run's dispatch-thread seconds by phase (the phase ledger)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from textsummarization_on_flink_tpu_torch import obs
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.obs import profile as profile_lib
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+    from textsummarization_on_flink_tpu_torch.serve.server import (
+        ServingServer,
+    )
+
+    words = synthetic_words(main_path_hps("pointer_generator").vocab_size)
+    vocab = Vocab(words=words)
+    rows = bimodal_rows(seed + 5, words, 16, 16)
+    summary = {}
+
+    def serve(hps, prm, rows_in, name):
+        """rows_in from 8 threads through one server; returns the words
+        by uuid and the run's numbers."""
+        reg = obs.Registry()
+        server = ServingServer(hps, vocab, params=prm,
+                               decode_root=os.path.join(work, name),
+                               registry=reg)
+        engine = server._cont._engine if server._cont is not None else None
+        chunks, resident = [], []
+        if engine is not None:
+            step = engine.step
+
+            def counted_step():
+                f0, s0 = fa.launches, beam_search.steps_run
+                out = step()
+                chunks.append((fa.launches - f0, beam_search.steps_run - s0))
+                resident.append(engine.resident_bytes_per_slot())
+                return out
+
+            engine.step = counted_step
+        resolved, waits, lock = {}, [], threading.Lock()
+
+        def submit(row):
+            t0 = time.perf_counter()
+            fut = server.submit(row[1], uuid=row[0], reference=row[3])
+
+            def note(f):
+                with lock:
+                    resolved[f.uuid] = resolved.get(f.uuid, 0) + 1
+                    waits.append(time.perf_counter() - t0)
+
+            fut.add_done_callback(note)
+            return fut
+
+        reset_launch_counts()
+        beam_search.steps_run = 0
+        t0 = time.perf_counter()
+        with server:
+            with ThreadPoolExecutor(max_workers=8) as ex:
+                futs = list(ex.map(submit, rows_in))
+            results = [(f.uuid, f.result(timeout=900)) for f in futs]
+        secs = time.perf_counter() - t0
+        launched = launch_counts()
+        check(all(u == r.uuid for u, r in results),
+              f"{name}: a future resolved with another request's result")
+        check(resolved == {r[0]: 1 for r in rows_in},
+              f"{name}: not every future resolved exactly once")
+        e2e = reg.histogram("serve/e2e_latency_seconds")
+        occ = reg.histogram("serve/slot_occupancy")
+        out = dict(
+            requests=len(rows_in), seconds=secs,
+            requests_per_s=len(rows_in) / secs,
+            caller_e2e_p50_s=float(np.percentile(waits, 50)),
+            caller_e2e_p99_s=float(np.percentile(waits, 99)),
+            e2e_p50_s=e2e.percentile(50), e2e_p99_s=e2e.percentile(99),
+            queue_p50_s=reg.histogram("serve/time_in_queue_seconds")
+            .percentile(50), launches=launched["fused"],
+            beam_steps=beam_search.steps_run)
+        if engine is None:
+            out["mean_fill"] = reg.histogram("serve/batch_fill").mean
+        else:
+            out.update(
+                chunks=len(chunks), chunk_steps=engine.chunk,
+                mean_occupancy=occ.mean,
+                resident_bytes_per_slot=float(np.mean(resident)),
+                paged=engine.paged,
+                arena_alloc_failures=reg.counter(
+                    "serve/arena_alloc_failures_total").value,
+                arena_pages=engine._arena_pages if engine.paged else None)
+            if device == "cuda" and hps.model_family == "pointer_generator":
+                bad = [c for c in chunks if c[0] != 2 * c[1] or c[1] == 0]
+                check(not bad, f"{name}: chunks with other than 2 fused "
+                               f"launches per step: {bad[:5]}")
+                check(out["launches"] == 2 * out["beam_steps"],
+                      f"{name}: {out['launches']} fused launches in "
+                      f"{out['beam_steps']} steps")
+        out["flash_launches"] = launched["flash_forward"]
+        # the dispatch thread's seconds by phase (prefill, pack,
+        # dispatch, harvest, ...: the serve layer's phase ledger)
+        out["phase_s"] = {p["phase"]: p["total_s"] for p in
+                          profile_lib.profile_payload(reg)["phases"]}
+        if device == "cuda":
+            # the pointer-generator's decode runs the fused attention, the
+            # transformer's prefill the flash forward
+            mine = ("fused" if hps.model_family == "pointer_generator"
+                    else "flash_forward")
+            others = {k: v for k, v in launched.items() if v and k != mine}
+            check(not others, f"{name}: other kernels launched: {others}")
+        words_by_uuid = {u: r.decoded_words for u, r in results}
+        check(all(words_by_uuid.values()), f"{name}: an empty summary")
+        return words_by_uuid, out
+
+    pg = main_path_hps("pointer_generator").replace(
+        mode="decode", device=device, serve_buckets="100,200,400")
+    mb, summary["micro_batch"] = serve(pg, params, rows, "mb")
+    cont, summary["dense"] = serve(pg.replace(**CONTINUOUS_FLAGS), params,
+                                   rows, "dense")
+    differ = sorted(u for u in mb if mb[u] != cont[u])
+    check(not differ, f"continuous summaries differ from the micro-batch "
+                      f"server's for {differ}")
+    paged, summary["paged"] = serve(
+        pg.replace(serve_arena_pages=56, **CONTINUOUS_FLAGS), params, rows,
+        "paged")
+    check(summary["paged"]["arena_alloc_failures"] > 0,
+          "the paged run never hit arena backpressure")
+    differ = sorted(u for u in mb if mb[u] != paged[u])
+    check(not differ, f"paged summaries differ from the micro-batch "
+                      f"server's for {differ}")
+    tf = main_path_hps("transformer").replace(
+        mode="decode", device=device, serve_buckets="100,200,400")
+    tf_rows = rows[:8]
+    tf_mb, summary["transformer_micro_batch"] = serve(tf, tf_params,
+                                                      tf_rows, "tf_mb")
+    tf_cont, summary["transformer"] = serve(
+        tf.replace(**CONTINUOUS_FLAGS), tf_params, tf_rows, "tf_dense")
+    differ = sorted(u for u in tf_mb if tf_mb[u] != tf_cont[u])
+    check(not differ, f"transformer continuous summaries differ from the "
+                      f"micro-batch server's for {differ}")
+    summary["lengths"] = sorted(len(r[1].split()) for r in rows)
+    summary["launches"] = sum(summary[k]["launches"] for k in (
+        "micro_batch", "dense", "paged"))
+    summary["slot_launches"] = sum(summary[k]["launches"] for k in (
+        "dense", "paged"))
+    summary["flash_launches"] = sum(summary[k]["flash_launches"] for k in (
+        "transformer_micro_batch", "transformer"))
+    summary["card"] = card_line() if device == "cuda" else None
+    print("continuous_serve " + json.dumps(summary))
+    return summary
+
+
+def _trained(family, fn):
+    """fn(work) -> summary of a train phase, and the numpy params of its
+    last checkpoint (model.ckpt-<steps>.npz of work/exp/train)."""
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+
+    def run(work):
+        out = fn(work)
+        flat = ckpt_lib.load_arrays(os.path.join(
+            work, "exp", "train", f"model.ckpt-{out['steps']}.npz"))
+        return out, ckpt_lib._unflatten_dicts(flat)["params"]
+
+    return _in_work("train_" + family, run)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2430,6 +2708,8 @@ def main(argv=None) -> int:
 
     main_row, bf16_row, k1_rows, app_rows, wide_rows, worst = \
         phase_attention(args.seed)
+    bounded_rows, bounded_worst = phase_attention_bounded(args.seed)
+    worst = max(worst, bounded_worst)
     worst = max(worst, phase_attention_long(args.seed))
     bwd_att_rows, bwd_att_worst = phase_attention_bwd(args.seed)
     flash_row, flash_hd256, flash_worst = phase_flash(args.seed)
@@ -2449,13 +2729,13 @@ def main(argv=None) -> int:
         phase_small_training(args.seed, family)
     phase_small_training(args.seed, "transformer", remat=True)
 
-    summaries, train = {}, {}
+    summaries, train, trained = {}, {}, {}
     for family in ("pointer_generator", "transformer"):  # own log_roots
         summaries[family] = _in_work(family, lambda w: phase_main_path(
             args.seed, args.articles, w, family=family))
-        train[family] = _in_work("train_" + family, lambda w:
-                                 phase_train_main_path(args.seed, w,
-                                                       family=family))
+        train[family], trained[family] = _trained(
+            family, lambda w: phase_train_main_path(args.seed, w,
+                                                    family=family))
     tf_bf16 = phase_transformer_bf16(args.seed, train["transformer"])
     pipe = _in_work("pipeline", lambda w: phase_pipeline(args.seed, w))
     diet = phase_byte_diet(args.seed, train["pointer_generator"])
@@ -2465,6 +2745,8 @@ def main(argv=None) -> int:
     wide = phase_wide_widths(args.seed)
     served = _in_work("serve", lambda w: phase_serve(
         args.seed, w, scored["trained_params"]))
+    cont = _in_work("continuous_serve", lambda w: phase_continuous_serve(
+        args.seed, w, scored["trained_params"], trained["transformer"]))
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     bwd_main = bwd_rows[0]  # the training encoder's shape
@@ -2502,7 +2784,8 @@ def main(argv=None) -> int:
         + sum(r["fused"] for r in diet_runs)
         + diet["decode"]["kernel_launches"] + scored["launches"]["fused"]
         + scored["train_launches"]["fused"] + streamed["launches"]["fused"]
-        + wide_pg_decode + wide_pg_train["fused"] + served["launches"],
+        + wide_pg_decode + wide_pg_train["fused"] + served["launches"]
+        + cont["launches"],
         max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         # the bf16 stream at the decode shape and at the training shape
@@ -2552,6 +2835,16 @@ def main(argv=None) -> int:
                  launches=served["deadline"]["launches"]),
             dict(shape=app_rows[True]["shape"], timed_in="app_decode_shape",
                  launches=served["app"]["launches"])]),
+        # the length bound (the slot engine's step): the continuous
+        # phase's dense and paged runs at 16 slots x 4 beams x 400 x 512
+        bounded=dict(
+            launches=cont["slot_launches"],
+            rows=[dict(t_active=r["t_active"], dtype=r["dtype"],
+                       ms=r["ms"], plain_ms=r["plain_ms"],
+                       bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                       max_abs_err=r["max_abs_err"])
+                  for r in bounded_rows],
+            shape=bounded_rows[0]["shape"]),
         library_ms=None, redesigned="PR 5"), dict(
         name="fused_attention_bwd", route="cuda", source=fused_src + "_bwd.cu",
         # the custom_vjp's backward (jax.vjp of the XLA formula)
@@ -2583,7 +2876,7 @@ def main(argv=None) -> int:
         replaces="textsummarization_on_flink_tpu/models/transformer.py:285",
         # both main paths that run it: decode and training
         launches=summaries["transformer"]["kernel_launches"]
-        + tf_train["flash_forward"] + hd256_flash,
+        + tf_train["flash_forward"] + hd256_flash + cont["flash_launches"],
         max_abs_err=flash_worst, ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
         bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],

@@ -22,12 +22,16 @@ attention_bwd_args and attention_bwd_bound_ms.  Each time is the
 median of --iters launches, each after a write of 96 MB (more than the L2
 cache), timed with CUDA events by this checkout's chip_smoke.time_cuda.
 Prints the card's name and power limit, the package's path, and one JSON
-line per (kernel, shape, dtype, coverage) with the time and the bound.
+line per (kernel, shape, dtype, coverage) with the time and the bound;
+a forward line also carries ``digest``, a hash of the outputs' bytes
+(ctx, attn), so two checkouts' lines show whether their kernels give
+the same bits.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -87,6 +91,10 @@ def _bench_forward(chip_smoke, fa, flush, args):
             for use_cov in (True, False):
                 inputs = chip_smoke.attention_inputs(B, K, T, D, dtype,
                                                      args.seed)
+                ctx, attn = fa._attention_cuda(*inputs, use_cov)
+                digest = hashlib.sha256(
+                    ctx.cpu().numpy().tobytes()
+                    + attn.cpu().numpy().tobytes()).hexdigest()[:16]
                 ms = chip_smoke.time_cuda(
                     lambda: fa._attention_cuda(*inputs, use_cov), args.iters,
                     flush)
@@ -97,7 +105,8 @@ def _bench_forward(chip_smoke, fa, flush, args):
                     tag=args.tag, kernel="fused_attention",
                     shape=f"{B}x{K}x{T}x{D}",
                     dtype=str(dtype).replace("torch.", ""),
-                    coverage=use_cov, ms=ms, bound_ms=bound, bound_by=by)))
+                    coverage=use_cov, ms=ms, bound_ms=bound, bound_by=by,
+                    digest=digest)))
 
 
 def _bench_backward(chip_smoke, fa, flush, args):

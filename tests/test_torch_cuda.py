@@ -1334,3 +1334,101 @@ def test_bf16_transformer_train_step_on_card_matches_the_cpu(remat):
         bound = 4 * float(np.max(np.abs(c - f))) + 1e-5 * max(
             1.0, float(np.max(np.abs(c))))
         assert float(np.max(np.abs(g - c))) <= bound
+
+
+# -- the fused attention's length bound (the slot engine's step) -----------
+
+#: t_active at one position, the 8-position chunk's edges, a cluster of 8
+#: one-chunk blocks' edges, and one short of T
+BOUND_T_ACTIVE = (1, 7, 8, 9, 63, 64, 65, -1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [400, 4096])
+@pytest.mark.parametrize("t_act", BOUND_T_ACTIVE)
+@pytest.mark.parametrize("K", [1, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_cov", [False, True])
+def test_bounded_fused_attention_on_card(T, t_act, K, dtype, use_cov):
+    """The kernel with t_active against the plain version with t_active
+    (1e-5), attn exactly 0 past the bound, the same bits on a rerun.
+    Article 1 is empty; the others are valid past the bound."""
+    _need_cuda()
+    t_act = T - 1 if t_act < 0 else t_act
+    args = _inputs(4, K, T, 64, dtype, seed=t_act)
+    before = fa.launches
+    ctx, attn = fa.fused_attention_shared(*args, use_cov, t_active=t_act)
+    again = fa.fused_attention_shared(*args, use_cov, t_active=t_act)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2
+    ctx_p, attn_p = fa._attention_plain(*args, use_cov, t_active=t_act)
+    np.testing.assert_allclose(ctx.cpu().numpy(), ctx_p.cpu().numpy(), **TOL)
+    np.testing.assert_allclose(attn.cpu().numpy(), attn_p.cpu().numpy(),
+                               **TOL)
+    assert not attn[:, :, t_act:].any()
+    assert not attn[1].any() and not ctx[1].any()
+    assert torch.equal(ctx, again[0]) and torch.equal(attn, again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unbounded_call_is_the_dense_launch_on_card(dtype):
+    """t_active=None and t_active=T launch the same kernel on the same
+    geometry: the same bits (the dense path's numbers are unchanged by
+    the argument)."""
+    _need_cuda()
+    args = _inputs(16, 4, 400, 512, dtype)
+    dense = fa.fused_attention_shared(*args, True)
+    at_t = fa.fused_attention_shared(*args, True, t_active=400)
+    assert all(torch.equal(a, b) for a, b in zip(dense, at_t))
+
+
+@pytest.mark.cuda
+def test_bounded_fused_attention_refuses_a_bad_bound_on_card():
+    _need_cuda()
+    args = _inputs(2, 4, 40, 64, torch.float32)
+    before = fa.launches
+    for bad in (0, 41):
+        with pytest.raises(ValueError, match="t_active"):
+            fa.fused_attention_shared(*args, True, t_active=bad)
+    assert fa.launches == before
+
+
+@pytest.mark.cuda
+def test_debug_nans_raises_in_the_card_backward():
+    """--debug's op-level check reaches the autograd backward on the card:
+    a tiny pointer-generator step whose loss is finite and whose
+    gradient goes NaN (one inf in W_h, no padding; see
+    tests/test_torch_debug_nans.py) raises FloatingPointError naming the
+    op; without the mode the step runs to NaN params."""
+    _need_cuda()
+    from textsummarization_on_flink_tpu_torch.config import HParams
+    from textsummarization_on_flink_tpu_torch.data import batching
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.params import (
+        init_numpy_params,
+        tree_leaves,
+    )
+    from textsummarization_on_flink_tpu_torch.train import trainer
+
+    words = "the a cat dog sat ran mat home big small quick fox".split()
+    vocab = Vocab(words=words)
+    hps = HParams(batch_size=2, hidden_dim=16, emb_dim=8,
+                  vocab_size=vocab.size(), max_enc_steps=8, max_dec_steps=6,
+                  min_dec_steps=1, max_oov_buckets=4, mode="train",
+                  device="cuda")
+    p = init_numpy_params(hps, vocab.size(), 5)
+    p["decoder"]["attention"]["W_h"][0, 3] = np.inf
+    exs = [batching.SummaryExample.build(" ".join(words[i:] + words[:i]),
+                                         ["the cat sat ."], vocab, hps)
+           for i in range(2)]
+    dev = trainer.batch_to_device(
+        batching.Batch(exs, hps, vocab).as_arrays(), torch.device("cuda"))
+    assert bool(dev["enc_padding_mask"].all())
+    state = trainer.init_train_state(hps, vocab.size(), params=p)
+    new, m = trainer.train_step(hps, state, dev, inplace=False)
+    assert np.isfinite(float(m.loss))
+    assert any(torch.isnan(x).any() for x in tree_leaves(new.params))
+    with pytest.raises(FloatingPointError, match="aten"):
+        with trainer.DebugNans():
+            trainer.train_step(hps, state, dev, inplace=False)

@@ -393,16 +393,20 @@ def test_a_trickled_row_is_summarized_before_the_stream_goes_on(port_run):
 
 
 def test_what_is_not_ported_yet_raises(port_run):
-    """Hierarchical transforms (item 7); serving runs, but not with the
-    continuous engine (item 4) or a spec tier (item 5)."""
+    """Hierarchical transforms (item 7) and a spec tier (item 5) raise;
+    serving with the continuous engine (item 4, landed) transforms the
+    rows as the micro-batch engine does."""
     model = make_estimator("port", port_run["root"])._model()
     src = io.CollectionSource(rows(1))
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
         model.transform(src, hierarchical=True)
     argv = model.get_inference_hyper_params()
+    want = io.CollectionSink()
+    model.transform(io.CollectionSource(rows(2)), want, serving=True)
     model.set_inference_hyper_params(argv + ["--serve_mode=continuous"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        model.transform(src, serving=True)
+    got = io.CollectionSink()
+    model.transform(io.CollectionSource(rows(2)), got, serving=True)
+    assert len(got.rows) == 2 and sorted(got.rows) == sorted(want.rows)
     model.set_inference_hyper_params(argv + ["--serve_default_tier=spec"])
     with pytest.raises(NotImplementedError, match="queue 1, item 5"):
         model.transform(src, serving=True)

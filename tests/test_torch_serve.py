@@ -1131,11 +1131,24 @@ class TestServeParity:
 
     def test_continuous_without_an_engine_names_item_4(self, pinned,
                                                        tmp_path):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 4"):
-            ServingServer(pinned["thps"].replace(serve_mode="continuous"),
-                          Vocab(words=PARITY_WORDS), params=pinned["params"],
-                          decode_root=str(tmp_path), registry=Registry())
+        """Item 4 landed: with no engine injected, a continuous server
+        builds the decoder's slot engine (serve_slots, or batch_size
+        when 0; the resolved refill chunk) and serves the pinned group's
+        summaries."""
+        from textsummarization_on_flink_tpu_torch.decode.decoder import (
+            SlotDecodeEngine,
+        )
+
+        hps = pinned["thps"].replace(serve_mode="continuous",
+                                     serve_refill_chunk=3)
+        server = ServingServer(hps, Vocab(words=PARITY_WORDS),
+                               params=pinned["params"],
+                               decode_root=str(tmp_path), registry=Registry())
+        engine = server._cont._engine
+        assert isinstance(engine, SlotDecodeEngine)
+        assert (engine.slots, engine.chunk) == (hps.batch_size, 3)
+        assert not engine.paged
+        assert _pinned_summaries(server, "beam") == pinned["beam"]["port"]
 
     def test_32_concurrent_requests_coalesce_and_resolve_once(
             self, pinned, tmp_path):

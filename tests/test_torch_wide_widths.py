@@ -215,11 +215,13 @@ def test_jax_flags_that_parsed_silently_now_raise():
             "--dp=2 --decode_deadline_secs=2 --spec_draft=map "
             "--serve_default_tier=greedy --grad_allreduce_dtype=bfloat16 "
             "--mode=decode --device=cpu".split())
-    for flags, item in (("--serve_slots 4", "item 4"),
+    for flags, item in (("--hier_chunk_words 64", "item 7"),
                         ("--serve_replicas=2", "item 7"),
                         ("--spec_k_adaptive", "item 5")):
         with pytest.raises(NotImplementedError, match=item):
             HParams.from_argv(flags.split())
+    # the slot engine's flags came with the slot engine (item 4)
+    assert HParams.from_argv("--serve_slots 4".split()).serve_slots == 4
     # the obs fields came with the obs package: taken as JAX takes them
     assert HParams.from_argv("--obs False".split()).obs is False
     # a name neither package knows is ignored, as the reference does
@@ -235,7 +237,10 @@ PORTED_FLAGS = [
     ("decode_deadline_secs", "2.5", None), ("serve_max_batch", "4", None),
     ("serve_max_wait_ms", "5.0", None), ("serve_max_queue", "32", None),
     ("serve_buckets", "100,200", None),
-    ("serve_mode", "continuous", "item 4"),
+    ("serve_mode", "continuous", None),
+    ("serve_slots", "4", None), ("serve_refill_chunk", "5", None),
+    ("decode_enc_block", "32", None), ("serve_prefill_depth", "3", None),
+    ("serve_arena_pages", "8", None), ("serve_arena_mb", "64.0", None),
     ("serve_cache_entries", "16", None), ("serve_cache_bytes", "4096", None),
     ("serve_coalesce", "True", None), ("serve_tenant_rate", "2.5", None),
     ("serve_tenant_burst", "3", None),

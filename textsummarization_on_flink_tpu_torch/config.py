@@ -19,13 +19,16 @@ and tier fields), with the JAX types, defaults and checks, and the
 serving helpers ``SERVE_TIERS``, ``parse_bucket_spec``,
 ``parse_fair_weights``, ``resolve_tenant_burst`` and ``bucket_for``.
 A tier takes ``beam`` or ``greedy``: ``spec`` and ``draft`` raise
-naming ROADMAP.md queue 1, item 5, and ``serve_mode=continuous`` given
-as a flag raises naming item 4 (the slot engine; a ``ServingServer``
-takes a continuous engine only when one is injected).
+naming ROADMAP.md queue 1, item 5.  The continuous engine's fields
+(``serve_mode=continuous``, ``serve_slots``, ``serve_refill_chunk``,
+``serve_prefill_depth``, ``serve_arena_pages``, ``serve_arena_mb``,
+``decode_enc_block``) are the JAX package's, with its defaults, checks
+and resolvers (``resolve_serve_slots``, ``resolve_enc_block``,
+``resolve_refill_chunk``, ``resolve_arena_pages``).
 
 Fields of the JAX package that steer paths this package does not have
-yet (mesh axes, slot engines, speculative tiers, the profiler's
-analytic pricing) are not fields here:
+yet (mesh axes, speculative tiers, the fleet, the profiler's analytic
+pricing) are not fields here:
 ``JAX_ONLY_FIELDS`` lists them with their JAX types and defaults, and
 ``from_argv`` (so ``from_string`` and the pipeline's hyperparameter
 strings too) accepts one at its default and raises
@@ -57,8 +60,6 @@ ROADMAP_MULTI_GPU = ("ROADMAP.md queue 1, item 6 (multi-GPU: data, tensor "
                      "and sequence parallelism)")
 ROADMAP_FLEET = ("ROADMAP.md queue 1, item 7 (the fleet layer: replicas, "
                  "hedging, the process fleet, hierarchical summarization)")
-ROADMAP_SLOTS = ("ROADMAP.md queue 1, item 4 (the slot and paged decode "
-                 "engine)")
 ROADMAP_PROFILE = ("ROADMAP.md queue 1, item 2h (the profiler's analytic "
                    "pricing and divergence sentinel, the trainer's flight "
                    "frames and profiler phases)")
@@ -82,12 +83,6 @@ JAX_ONLY_FIELDS: Dict[str, Tuple[type, Any, Optional[str]]] = {
     "sp_attention": (str, "", ROADMAP_MULTI_GPU),
     "grad_allreduce_dtype": (str, "float32", ROADMAP_MULTI_GPU),
     "scan_unroll": (int, 8, None),
-    "serve_slots": (int, 0, ROADMAP_SLOTS),
-    "serve_refill_chunk": (int, 0, ROADMAP_SLOTS),
-    "serve_prefill_depth": (int, 2, ROADMAP_SLOTS),
-    "serve_arena_pages": (int, 0, ROADMAP_SLOTS),
-    "serve_arena_mb": (float, 0.0, ROADMAP_SLOTS),
-    "decode_enc_block": (int, 64, ROADMAP_SLOTS),
     "spec_k": (int, 4, ROADMAP_AAN),
     "spec_draft": (str, "", ROADMAP_AAN),
     "draft_dec_layers": (int, 0, ROADMAP_AAN),
@@ -135,12 +130,10 @@ def _refuse_jax_only(name: str, val: str) -> None:
 
 
 #: values of ported fields that still need an unported item: a serving
-#: tier below greedy needs the draft model, and the continuous engine
-#: the slot engine, which no flag can inject
+#: tier below greedy needs the draft model
 _UNPORTED_VALUES: Dict[str, Dict[str, str]] = {
     "serve_default_tier": {"spec": ROADMAP_AAN, "draft": ROADMAP_AAN},
     "serve_degrade_tier": {"spec": ROADMAP_AAN, "draft": ROADMAP_AAN},
-    "serve_mode": {"continuous": ROADMAP_SLOTS},
 }
 
 
@@ -254,12 +247,25 @@ class HParams:
     # micro-batch serving (serve/, JAX config.py:208-239): requests per
     # dispatch (0 = batch_size), the coalescing window, the admission
     # queue's depth, the encoder-length buckets ("" = auto), the engine
-    # ("continuous" needs an injected engine: ROADMAP_SLOTS)
+    # ("microbatch" or "continuous": the slot engine of decode/decoder.py)
     serve_max_batch: int = 0
     serve_max_wait_ms: float = 20.0
     serve_max_queue: int = 256
     serve_buckets: str = ""
     serve_mode: str = "microbatch"
+    # continuous serving (JAX config.py:241-296): resident decode slots
+    # (0 = batch_size); decode steps per chunk, the refill granularity
+    # (0 = the TS_BEAM_CHUNK default, clamped to max_dec_steps); the
+    # encoder-key block of the length-bounded slot step (clamped to
+    # max_enc_steps); requests prefilled beyond the free slots per tick;
+    # the page arena in pages (0 = dense slots unless serve_arena_mb
+    # sets a byte budget in MiB)
+    serve_slots: int = 0
+    serve_refill_chunk: int = 0
+    decode_enc_block: int = 64
+    serve_prefill_depth: int = 2
+    serve_arena_pages: int = 0
+    serve_arena_mb: float = 0.0
     # the tier a request gets when it names none, and the tier a beam
     # request falls to under deadline pressure (JAX config.py:351-360;
     # beam or greedy here: spec and draft are ROADMAP_AAN)
@@ -479,6 +485,28 @@ class HParams:
             raise ValueError(
                 f"serve_mode must be 'microbatch' or 'continuous', got "
                 f"{self.serve_mode!r}")
+        if self.serve_slots < 0:
+            raise ValueError(f"serve_slots must be >= 0 (0 = batch_size), "
+                             f"got {self.serve_slots}")
+        if self.serve_refill_chunk < 0:
+            raise ValueError(
+                f"serve_refill_chunk must be >= 0 (0 = TS_BEAM_CHUNK "
+                f"default), got {self.serve_refill_chunk}")
+        if self.decode_enc_block < 1:
+            raise ValueError(
+                f"decode_enc_block must be >= 1, got {self.decode_enc_block}")
+        if self.serve_prefill_depth < 0:
+            raise ValueError(
+                f"serve_prefill_depth must be >= 0, got "
+                f"{self.serve_prefill_depth}")
+        if self.serve_arena_pages < 0:
+            raise ValueError(
+                f"serve_arena_pages must be >= 0 (0 = paging off), got "
+                f"{self.serve_arena_pages}")
+        if self.serve_arena_mb < 0:
+            raise ValueError(
+                f"serve_arena_mb must be >= 0 (0 = no byte budget), got "
+                f"{self.serve_arena_mb}")
         if self.serve_cache_entries < 0:
             raise ValueError(
                 f"serve_cache_entries must be >= 0 (0 = cache off), got "
@@ -615,6 +643,56 @@ def resolve_tenant_burst(hps: "HParams") -> int:
     if hps.serve_tenant_burst:
         return hps.serve_tenant_burst
     return max(1, int(hps.serve_tenant_rate + 0.999999))
+
+
+def resolve_serve_slots(hps: "HParams") -> int:
+    """Effective continuous-mode slot count: serve_slots, or batch_size
+    when 0 (JAX config.py:958)."""
+    return hps.serve_slots or hps.batch_size
+
+
+def resolve_enc_block(hps: "HParams") -> int:
+    """Effective encoder-key block of the length-bounded slot step and
+    the page arena: decode_enc_block clamped to [1, max_enc_steps] (JAX
+    config.py:965)."""
+    return max(1, min(int(hps.decode_enc_block), hps.max_enc_steps))
+
+
+def resolve_refill_chunk(hps: "HParams") -> int:
+    """Effective continuous-mode chunk length: serve_refill_chunk, or the
+    TS_BEAM_CHUNK default, clamped to [1, max_dec_steps] (JAX
+    config.py:987)."""
+    chunk = hps.serve_refill_chunk or beam_chunk_from_env()
+    return max(1, min(int(chunk), hps.max_dec_steps))
+
+
+def resolve_arena_pages(hps: "HParams",
+                        page_bytes: Optional[int] = None) -> int:
+    """Effective page count of the slot engine's page arena (JAX
+    config.py:995): serve_arena_pages when set, else what a
+    serve_arena_mb byte budget buys at ``page_bytes`` per page
+    (decode.beam_search.paged_page_bytes, required then), else 0 (dense
+    slots).  A non-zero count must hold one full-length article,
+    ceil(max_enc_steps / decode_enc_block) pages: a smaller arena would
+    never admit it."""
+    b_max = -(-hps.max_enc_steps // resolve_enc_block(hps))
+    if hps.serve_arena_pages > 0:
+        pages = int(hps.serve_arena_pages)
+    elif hps.serve_arena_mb > 0:
+        if not page_bytes or page_bytes <= 0:
+            raise ValueError(
+                "serve_arena_mb sizing needs page_bytes "
+                "(beam_search.paged_page_bytes(params, hps))")
+        pages = int(hps.serve_arena_mb * (1 << 20) // page_bytes)
+    else:
+        return 0
+    if pages < b_max:
+        raise ValueError(
+            f"arena of {pages} page(s) cannot hold one full-length "
+            f"article ({b_max} pages of {resolve_enc_block(hps)} rows "
+            f"at max_enc_steps={hps.max_enc_steps}); raise "
+            f"serve_arena_pages/serve_arena_mb or decode_enc_block")
+    return pages
 
 
 def bucket_for(buckets: List[int], enc_len: int) -> int:

@@ -27,20 +27,33 @@ columns the backtrack never reads), and the early-exit test once every
 C steps (TS_BEAM_CHUNK, default 25), one host sync per chunk.
 ``_finalize_beam`` then backtracks the winning trajectory on the host in
 numpy.  Tokens equal the JAX package's on the same params.
+
+The slot functions below (the JAX package's beam_search.py:505-1080)
+split that search over a persistent state of ``slots`` resident
+articles, for continuous serving: an article is prefilled at its serve
+bucket, packed into a free slot, stepped a chunk at a time beside the
+others, and unpacked when its search ends, while the other slots keep
+going.  The dense state keeps every resident at max_enc_steps; the
+paged one pools the encoder-axis tensors in pages of decode_enc_block
+rows, addressed through a per-slot page table.  Both run the same beam
+body as the batch search.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+import torch.utils._pytree as pytree
 from torch.profiler import record_function
 
 from textsummarization_on_flink_tpu_torch.config import (
     HParams,
     beam_chunk_from_env,
+    resolve_enc_block,
 )
 from textsummarization_on_flink_tpu_torch.data.vocab import (
     START_ID,
@@ -99,8 +112,11 @@ _SELECT_FIELDS = ("t", "latest", "sum_lp", "n_res",
 
 def _init_beam_state(hps: HParams, B: int, T_enc: int,
                      dec_state: Dict[str, torch.Tensor],
-                     device: torch.device) -> _BeamState:
-    """The step-0 search state of B articles."""
+                     device: torch.device,
+                     attn_cols: Optional[int] = None) -> _BeamState:
+    """The step-0 search state of B articles.  ``attn_cols`` narrows the
+    attention history to that many columns (the paged slots keep one
+    scratch column and write each step's rows into the page pool)."""
     K, T = hps.beam_size, hps.max_dec_steps
     ilong = dict(device=device, dtype=torch.long)
     f32 = dict(device=device, dtype=torch.float32)
@@ -112,7 +128,8 @@ def _init_beam_state(hps: HParams, B: int, T_enc: int,
         n_res=torch.zeros((B,), **ilong),
         parent_hist=torch.zeros((B, K, T + 1), **ilong),
         tok_hist=torch.zeros((B, K, T + 1), **ilong),
-        attn_steps=torch.zeros((B, K, T + 1, T_enc), **f32),
+        attn_steps=torch.zeros(
+            (B, K, T + 1 if attn_cols is None else attn_cols, T_enc), **f32),
         pgen_steps=torch.zeros((B, K, T + 1), **f32),
         res_lp=torch.full((B, K + 1), NEG, **f32),
         res_len=torch.ones((B, K + 1), **ilong),
@@ -131,8 +148,12 @@ def _beam_cond(hps: HParams):
     return cond
 
 
-def _make_beam_body(params, hps: HParams, step_fn, enc, enc_mask, ext_ids):
-    """One decode step for B articles, closed over their encoder view."""
+def _make_beam_body(params, hps: HParams, step_fn, enc, enc_mask, ext_ids,
+                    attn_col_fn=None):
+    """One decode step for B articles, closed over their encoder view,
+    shared by the batch search and the slot steps.  ``attn_col_fn(col)``
+    overrides the attention history's write column (the paged slots
+    write every step into their one scratch column, 0)."""
     K = hps.beam_size
     V = hps.vocab_size
     S = K * 2 * K  # candidate count per step
@@ -185,7 +206,8 @@ def _make_beam_body(params, hps: HParams, step_fn, enc, enc_mask, ext_ids):
         col = s.t[:, None]
         s.parent_hist[bi, ki, col] = par
         s.tok_hist[bi, ki, col] = new_latest
-        s.attn_steps[bi, ki, col] = step.attn_dist
+        acol = col if attn_col_fn is None else attn_col_fn(col)
+        s.attn_steps[bi, ki, acol] = step.attn_dist
         s.pgen_steps[bi, ki, col] = step.p_gen
 
         # --- record finished hypotheses as scalar backpointers; the
@@ -319,6 +341,10 @@ def _search_batch(params, hps: HParams, arrays: Dict[str, torch.Tensor],
         return _finalize_beam(hps, s)
 
 
+_ENC_KEYS = ("enc_batch", "enc_lens", "enc_padding_mask",
+             "enc_batch_extend_vocab")
+
+
 def _to_device(arrays: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     out = {}
     for k, v in arrays.items():
@@ -335,7 +361,473 @@ def run_beam_search(params, hps: HParams, arrays: Dict[str, np.ndarray],
     holds ``params``.  Returns host numpy arrays; callers strip
     START/[STOP] and map ids back to words (decode/decoder.py)."""
     device = params["embedding"].device
-    enc_keys = ("enc_batch", "enc_lens", "enc_padding_mask",
-                "enc_batch_extend_vocab")
-    dev_arrays = _to_device({k: arrays[k] for k in enc_keys}, device)
+    dev_arrays = _to_device({k: arrays[k] for k in _ENC_KEYS}, device)
     return _search_batch(params, hps, dev_arrays, chunk)
+
+
+# --------------------------------------------------------------------------
+# Slot state: the continuous-batching search (JAX beam_search.py:472-774)
+# --------------------------------------------------------------------------
+#
+#   pre   = prefill(params, hps, bucket_arrays)          # per admission
+#   state = init_slots(params, hps, slots, pre)          # once
+#   pack_slot(params, hps, state, i, pre)                # admit into slot i
+#   fin   = step_slots(params, hps, state, active, chunk)
+#   out   = unpack_slot(hps, state, i)                   # retire slot i
+#
+# The contract is the JAX package's (:505-532):
+#   * the resident state keeps one shape, max_enc_steps wide; prefill
+#     encodes an article at its serve bucket and pads its view out to it,
+#     stamped with the article's true length (kept on the host: the step
+#     bounds its attention by the longest active resident's length, a
+#     host int, so the bound costs no device sync);
+#   * an inactive slot's order-sensitive fields (_SELECT_FIELDS) are
+#     carried through a step unchanged, as the batch search's masked
+#     update carries a finished article's; its histories and dec_state
+#     take the step's writes into regions unpack never reads, so a slot's
+#     tensors are meaningful only between its pack and the step that
+#     finishes it (pack overwrites them on reuse);
+#   * pack and unpack happen between chunks only; the one host sync of a
+#     chunk is the read of its finished mask.
+
+
+@dataclasses.dataclass
+class PrefillState:
+    """One article through the prefill stage: its encoder view at the
+    resident width (leaves [1, T_enc, ...]), mask and extended-vocab ids
+    [1, T_enc], and its true length."""
+
+    enc_view: Any
+    enc_mask: torch.Tensor
+    ext_ids: torch.Tensor
+    enc_valid_len: int
+
+
+@dataclasses.dataclass
+class SlotState:
+    """The dense resident state of ``slots`` articles: the search state
+    (_BeamState, leaves [slots, ...]), the family's encoder view, masks
+    and extended-vocab ids [slots, T_enc], and each slot's true article
+    length on the host."""
+
+    beam: _BeamState
+    enc_view: Any
+    enc_mask: torch.Tensor
+    ext_ids: torch.Tensor
+    enc_valid_len: np.ndarray
+
+
+def _pad_time(x: torch.Tensor, T: int) -> torch.Tensor:
+    """[1, t] -> [1, T], zeros past t."""
+    return x if x.shape[1] >= T else F.pad(x, (0, T - x.shape[1]))
+
+
+@torch.no_grad()
+def prefill(params, hps: HParams, arrays: Dict[str, Any]) -> PrefillState:
+    """Encode ONE article at its bucket shape (``arrays``: the enc_*
+    arrays of a Batch of one at the bucket, [1, bucket]) and pad its view
+    to the resident width (JAX prefill_jit): both families' encoders are
+    pad-invariant, so this is the full-width encode's view."""
+    family = get_family(hps.model_family)
+    dev = _to_device({k: arrays[k] for k in _ENC_KEYS},
+                     params["embedding"].device)
+    T = hps.max_enc_steps
+    view = family.pad_enc_view(family.beam_encode(params, hps, dev), T)
+    return PrefillState(
+        enc_view=view, enc_mask=_pad_time(dev["enc_padding_mask"], T),
+        ext_ids=_pad_time(dev["enc_batch_extend_vocab"], T),
+        enc_valid_len=int(np.asarray(arrays["enc_lens"]).reshape(-1)[0]))
+
+
+def _zeros_like_slots(view, slots: int):
+    return pytree.tree_map(
+        lambda x: x.new_zeros((slots,) + tuple(x.shape[1:])), view)
+
+
+def _slot_beams(params, hps: HParams, slots: int, view1,
+                attn_cols: Optional[int] = None) -> _BeamState:
+    """The step-0 search state of ``slots`` empty slots, from a zero
+    encoder view of one article."""
+    init_state_fn, _ = get_family(hps.model_family).beam_adapter(hps)
+    dec1 = init_state_fn(params, view1)
+    dec = {k: v.expand((slots,) + tuple(v.shape[1:])).contiguous()
+           for k, v in dec1.items()}
+    return _init_beam_state(hps, slots, hps.max_enc_steps, dec,
+                            params["embedding"].device, attn_cols)
+
+
+@torch.no_grad()
+def init_slots(params, hps: HParams, slots: int,
+               template: PrefillState) -> SlotState:
+    """The empty dense state of ``slots`` slots, shaped like the prefilled
+    ``template`` (JAX init_slots_jit; zeros: an inactive slot is never
+    stepped unmasked and pack overwrites it before use)."""
+    view = _zeros_like_slots(template.enc_view, slots)
+    return SlotState(
+        beam=_slot_beams(params, hps, slots,
+                         _zeros_like_slots(template.enc_view, 1)),
+        enc_view=view,
+        enc_mask=template.enc_mask.new_zeros((slots, hps.max_enc_steps)),
+        ext_ids=template.ext_ids.new_zeros((slots, hps.max_enc_steps)),
+        enc_valid_len=np.zeros((slots,), np.int64))
+
+
+def _write_slot(dst: _BeamState, src: _BeamState, idx: int) -> None:
+    """Slot ``idx`` of dst := article 0 of src, in place."""
+    for f in dataclasses.fields(_BeamState):
+        if f.name == "dec_state":
+            for k, v in src.dec_state.items():
+                dst.dec_state[k][idx] = v[0]
+        else:
+            getattr(dst, f.name)[idx] = getattr(src, f.name)[0]
+
+
+def _packed_beam(params, hps: HParams, pre: PrefillState,
+                 attn_cols: Optional[int] = None) -> _BeamState:
+    init_state_fn, _ = get_family(hps.model_family).beam_adapter(hps)
+    return _init_beam_state(hps, 1, hps.max_enc_steps,
+                            init_state_fn(params, pre.enc_view),
+                            pre.enc_mask.device, attn_cols)
+
+
+@torch.no_grad()
+def pack_slot(params, hps: HParams, state: SlotState, idx: int,
+              pre: PrefillState) -> None:
+    """Admit one prefilled article into slot ``idx`` (JAX pack_slot_jit):
+    its encoder view, mask, ids and length, and a fresh search."""
+    _write_slot(state.beam, _packed_beam(params, hps, pre), idx)
+    for dst, src in zip(pytree.tree_leaves(state.enc_view),
+                        pytree.tree_leaves(pre.enc_view)):
+        dst[idx] = src[0]
+    state.enc_mask[idx] = pre.enc_mask[0]
+    state.ext_ids[idx] = pre.ext_ids[0]
+    state.enc_valid_len[idx] = pre.enc_valid_len
+
+
+def active_blocks(hps: HParams, valid_len: np.ndarray,
+                  active: np.ndarray) -> int:
+    """ceil(longest active resident's length / decode_enc_block): the
+    step's bound in blocks (JAX step_slots_jit's nb), on the host."""
+    block = resolve_enc_block(hps)
+    longest = int(np.max(np.where(active, valid_len, 0), initial=0))
+    return -(-longest // block)
+
+
+def _slot_chunk(params, hps: HParams, beam: _BeamState, active: np.ndarray,
+                enc_view, enc_mask, ext_ids, nb: int, chunk: int,
+                attn_col_fn=None, after_step=None) -> _BeamState:
+    """``chunk`` masked steps of every slot, an inactive slot's search
+    frozen as a finished article's is."""
+    global steps_run
+    _, step_fn = get_family(hps.model_family).beam_adapter_masked(hps)
+    cond = _beam_cond(hps)
+    act = torch.as_tensor(active, device=enc_mask.device)
+
+    def masked_cond(s: _BeamState) -> torch.Tensor:
+        return act & cond(s)
+
+    def step_nb(p, e, m, x, t, latest, st):
+        return step_fn(p, e, m, x, nb, t, latest, st)
+
+    body = _make_beam_body(params, hps, step_nb, enc_view, enc_mask, ext_ids,
+                           attn_col_fn)
+    for _ in range(chunk):
+        t_old = beam.t
+        beam = _masked_step(masked_cond, body, beam)
+        if after_step is not None:
+            after_step(beam, t_old)
+    steps_run += chunk
+    return beam
+
+
+def _finished(hps: HParams, beam: _BeamState, active: np.ndarray):
+    """Host bool [slots]: active slots whose search has ended (the chunk's
+    one sync)."""
+    done = ~_beam_cond(hps)(beam)
+    return active & done.cpu().numpy()
+
+
+@torch.no_grad()
+def step_slots(params, hps: HParams, state: SlotState, active,
+               chunk: int) -> np.ndarray:
+    """Advance every active slot by ``chunk`` masked decode steps (JAX
+    step_slots_jit).  active: host bool [slots].  Each step's attention
+    reads only the first nb * decode_enc_block encoder positions, nb from
+    the longest active resident.  Returns the host mask of active slots
+    whose search finished."""
+    active = np.asarray(active, dtype=bool)
+    nb = active_blocks(hps, state.enc_valid_len, active)
+    state.beam = _slot_chunk(params, hps, state.beam, active, state.enc_view,
+                             state.enc_mask, state.ext_ids, nb, chunk)
+    return _finished(hps, state.beam, active)
+
+
+def _one_slot(beam: _BeamState, idx: int, **override) -> _BeamState:
+    fields = {f.name: getattr(beam, f.name)[idx:idx + 1]
+              for f in dataclasses.fields(_BeamState)
+              if f.name != "dec_state"}
+    fields.update(override)
+    return _BeamState(dec_state={}, **fields)
+
+
+def _unbatched(out: BeamSearchOutput) -> BeamSearchOutput:
+    return BeamSearchOutput(*(x[0] for x in out))
+
+
+@torch.no_grad()
+def unpack_slot(hps: HParams, state: SlotState,
+                idx: int) -> BeamSearchOutput:
+    """The finished hypothesis of slot ``idx`` (host numpy, no batch
+    axis), ranked as the batch search ranks (JAX unpack_slot_jit).  The
+    slot is not cleared: the caller's active mask retires it."""
+    return _unbatched(_finalize_beam(hps, _one_slot(state.beam, idx)))
+
+
+# --------------------------------------------------------------------------
+# Paged resident state (JAX beam_search.py:723-1080)
+# --------------------------------------------------------------------------
+#
+# The encoder-axis tensors of the resident state (the family's encoder
+# view, the extended-vocab ids, the attention history) become pools of
+# decode_enc_block-row pages shared by all slots, sized by the arena
+# (decode/arena.PageArena); a slot's pages are named by its page-table
+# row.  Page index P (the arena's capacity) is the scratch page: unused
+# table entries and inactive slots point at it, and it holds garbage.
+# dec_state stays dense.  Each chunk gathers the active slots' dense
+# views through the table once, runs the dense step, and writes each
+# step's attention rows into the slots' pages at the step's column.
+#
+#   pages = resolve_arena_pages(hps, paged_page_bytes(params, hps))
+#   state = init_slots_paged(params, hps, slots, pre, pages)
+#   row   = arena.alloc(ceil(len / block)), padded with the scratch id
+#   pack_slot_paged(params, hps, state, i, pre, row)
+#   fin   = step_slots_paged(params, hps, state, active, table, chunk)
+#   out   = unpack_slot_paged(hps, state, i, row); arena.free(...)
+
+
+@dataclasses.dataclass
+class PagedSlotState:
+    """The paged resident state: the search state (attention history one
+    scratch column wide), the encoder view with its pooled leaves cut to
+    time width 0 (the tree and the leaves without a time axis stay), the
+    pools [pages + 1, block, ...] (row pages is the scratch page), the
+    extended-vocab ids' pool [pages + 1, block], the attention history's
+    [pages + 1, K, T_dec + 1, block], the masks [slots, T_enc] and the
+    true lengths (host)."""
+
+    beam: _BeamState
+    enc_rest: Any
+    enc_pages: List[torch.Tensor]
+    ext_pool: torch.Tensor
+    attn_pool: torch.Tensor
+    enc_mask: torch.Tensor
+    enc_valid_len: np.ndarray
+
+
+def _pool_spec(hps: HParams) -> Tuple[int, int, int]:
+    """(block, pages per slot at most, padded width): pages are the
+    length bound's blocks."""
+    block = resolve_enc_block(hps)
+    b_max = -(-hps.max_enc_steps // block)
+    return block, b_max, block * b_max
+
+
+_time_axes_cache: Dict[Any, Tuple[Optional[int], ...]] = {}
+
+
+def _enc_time_axes(hps: HParams, enc_view) -> Tuple[Optional[int], ...]:
+    """Each leaf's encoder-time axis (None: no time axis), found by
+    padding meta copies of the leaves through the family's own
+    pad_enc_view past any real width and seeing which axis grew (the JAX
+    package probes with jax.eval_shape)."""
+    leaves = pytree.tree_leaves(enc_view)
+    key = (hps.model_family, hps.max_enc_steps,
+           tuple(tuple(x.shape) for x in leaves))
+    axes = _time_axes_cache.get(key)
+    if axes is not None:
+        return axes
+    meta = pytree.tree_map(
+        lambda x: torch.empty(x.shape, dtype=x.dtype, device="meta"),
+        enc_view)
+    padded = get_family(hps.model_family).pad_enc_view(
+        meta, hps.max_enc_steps + 17)
+    found = []
+    for a, b in zip(leaves, pytree.tree_leaves(padded)):
+        diff = [i for i, (x, y) in enumerate(zip(a.shape, b.shape))
+                if x != y]
+        if len(diff) > 1:
+            raise ValueError(f"pad_enc_view changed more than one axis "
+                             f"({tuple(a.shape)} -> {tuple(b.shape)})")
+        found.append(diff[0] if diff else None)
+    axes = _time_axes_cache[key] = tuple(found)
+    return axes
+
+
+def _leaf_to_pages(leaf: torch.Tensor, ta: int, block: int,
+                   b_max: int) -> torch.Tensor:
+    """One prefilled [1, ...] leaf -> its [b_max, block, *tail] pages (time
+    axis first, zero-padded to the page grid)."""
+    x = leaf.movedim(ta, 1)[0]  # [T_enc, *tail]
+    pad = b_max * block - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+    return x.reshape((b_max, block) + tuple(x.shape[1:]))
+
+
+def _pages_to_leaf(pool: torch.Tensor, pages: torch.Tensor, ta: int,
+                   T_enc: int) -> torch.Tensor:
+    """The dense [slots, ...] leaf gathered through the page table
+    (pages: [slots, b_max]; scratch rows bring garbage that sits behind
+    the masks)."""
+    g = pool[pages]  # [slots, b_max, block, *tail]
+    g = g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + tuple(g.shape[3:]))
+    return g[:, :T_enc].movedim(1, ta).contiguous()
+
+
+@torch.no_grad()
+def paged_page_bytes(params, hps: HParams) -> int:
+    """Bytes one page spans over all pools (the encoder view's pooled
+    leaves, the ids, the attention history): what resolve_arena_pages
+    divides serve_arena_mb by.  The leaves' widths and dtypes come from
+    encoding a one-token article."""
+    block, _, _ = _pool_spec(hps)
+    probe = dict(enc_batch=np.zeros((1, 1), np.int64),
+                 enc_lens=np.ones((1,), np.int64),
+                 enc_padding_mask=np.ones((1, 1), np.float32),
+                 enc_batch_extend_vocab=np.zeros((1, 1), np.int64))
+    view = get_family(hps.model_family).beam_encode(
+        params, hps, _to_device(probe, params["embedding"].device))
+    total = 0
+    for leaf, ta in zip(pytree.tree_leaves(view), _enc_time_axes(hps, view)):
+        if ta is None:
+            continue
+        tail = int(np.prod([d for i, d in enumerate(leaf.shape)
+                            if i not in (0, ta)], dtype=np.int64))
+        total += block * tail * leaf.element_size()
+    total += block * 8  # the ids' page (int64)
+    total += hps.beam_size * (hps.max_dec_steps + 1) * block * 4  # f32
+    return int(total)
+
+
+@torch.no_grad()
+def init_slots_paged(params, hps: HParams, slots: int,
+                     template: PrefillState, pages: int) -> PagedSlotState:
+    """The empty paged state: pools of ``pages`` pages and the scratch
+    page, shaped like the prefilled ``template`` (JAX
+    init_slots_paged_jit)."""
+    block, b_max, _ = _pool_spec(hps)
+    axes = _enc_time_axes(hps, template.enc_view)
+    leaves, spec = pytree.tree_flatten(template.enc_view)
+    rest, pools = [], []
+    for leaf, ta in zip(leaves, axes):
+        shape = [slots] + list(leaf.shape[1:])
+        if ta is not None:
+            tail = [d for i, d in enumerate(leaf.shape) if i not in (0, ta)]
+            pools.append(leaf.new_zeros([pages + 1, block] + tail))
+            shape[ta] = 0
+        rest.append(leaf.new_zeros(shape))
+    K, T = hps.beam_size, hps.max_dec_steps
+    return PagedSlotState(
+        beam=_slot_beams(params, hps, slots,
+                         _zeros_like_slots(template.enc_view, 1),
+                         attn_cols=1),
+        enc_rest=pytree.tree_unflatten(rest, spec),
+        enc_pages=pools,
+        ext_pool=template.ext_ids.new_zeros((pages + 1, block)),
+        attn_pool=template.enc_mask.new_zeros((pages + 1, K, T + 1, block)),
+        enc_mask=template.enc_mask.new_zeros((slots, hps.max_enc_steps)),
+        enc_valid_len=np.zeros((slots,), np.int64))
+
+
+@torch.no_grad()
+def pack_slot_paged(params, hps: HParams, state: PagedSlotState, idx: int,
+                    pre: PrefillState, row) -> None:
+    """Admit one prefilled article into slot ``idx`` whose pages are
+    ``row`` ([b_max] ids: its allocation, then the scratch id) (JAX
+    pack_slot_paged_jit).  The unused entries all write the scratch page;
+    a recycled page's old attention rows need no clearing: unpack zeroes
+    the columns past the new tenant's length, and the backtrack reads no
+    step past its end."""
+    block, b_max, _ = _pool_spec(hps)
+    _write_slot(state.beam, _packed_beam(params, hps, pre, attn_cols=1), idx)
+    row_t = torch.as_tensor(np.asarray(row), dtype=torch.long,
+                            device=state.enc_mask.device)
+    axes = _enc_time_axes(hps, pre.enc_view)
+    pools = iter(state.enc_pages)
+    for leaf, rest_leaf, ta in zip(pytree.tree_leaves(pre.enc_view),
+                                   pytree.tree_leaves(state.enc_rest), axes):
+        if ta is None:
+            rest_leaf[idx] = leaf[0]
+        else:
+            next(pools)[row_t] = _leaf_to_pages(leaf, ta, block, b_max)
+    ext = _pad_time(pre.ext_ids, b_max * block)[0]
+    state.ext_pool[row_t] = ext.reshape(b_max, block)
+    state.enc_mask[idx] = pre.enc_mask[0]
+    state.enc_valid_len[idx] = pre.enc_valid_len
+
+
+@torch.no_grad()
+def step_slots_paged(params, hps: HParams, state: PagedSlotState, active,
+                     table, chunk: int) -> np.ndarray:
+    """Advance every active slot by ``chunk`` masked steps through the
+    page table (``table``: host int [slots, b_max]) (JAX
+    step_slots_paged_jit).  The active slots' dense encoder views are
+    gathered once per chunk; an inactive slot's row is routed to the
+    scratch page before the gather and before the writes, so a retired
+    slot's stale row can neither read nor dirty pages the arena has
+    handed to another resident.  Returns the host finished mask."""
+    active = np.asarray(active, dtype=bool)
+    block, b_max, t_pad = _pool_spec(hps)
+    T_enc = state.enc_mask.shape[1]
+    slots = active.shape[0]
+    K = hps.beam_size
+    scratch = state.attn_pool.shape[0] - 1
+    pages = torch.as_tensor(
+        np.where(active[:, None], np.asarray(table), scratch),
+        dtype=torch.long, device=state.enc_mask.device)
+    nb = active_blocks(hps, state.enc_valid_len, active)
+    rest, spec = pytree.tree_flatten(state.enc_rest)
+    pools = iter(state.enc_pages)
+    dense = [leaf if ta is None else
+             _pages_to_leaf(next(pools), pages, ta, T_enc)
+             for leaf, ta in zip(rest, _enc_time_axes(hps, state.enc_rest))]
+    enc_view = pytree.tree_unflatten(dense, spec)
+    ext = state.ext_pool[pages].reshape(slots, t_pad)[:, :T_enc]
+    flat_pages = pages.reshape(-1)
+
+    def write_attn(beam: _BeamState, t_old: torch.Tensor) -> None:
+        # the step's attention rows into the slots' pages at the
+        # pre-step column (t <= max_dec_steps always)
+        attn = beam.attn_steps[:, :, 0, :]  # [slots, K, T_enc]
+        if t_pad > T_enc:
+            attn = F.pad(attn, (0, t_pad - T_enc))
+        vals = attn.reshape(slots, K, b_max, block).transpose(1, 2)
+        state.attn_pool[flat_pages, :, t_old.repeat_interleave(b_max)] = \
+            vals.reshape(slots * b_max, K, block)
+
+    state.beam = _slot_chunk(params, hps, state.beam, active, enc_view,
+                             state.enc_mask, ext.contiguous(), nb, chunk,
+                             attn_col_fn=torch.zeros_like,
+                             after_step=write_attn)
+    return _finished(hps, state.beam, active)
+
+
+@torch.no_grad()
+def unpack_slot_paged(hps: HParams, state: PagedSlotState, idx: int,
+                      row) -> BeamSearchOutput:
+    """The finished hypothesis of slot ``idx`` (JAX unpack_slot_paged_jit):
+    its attention pages (``row``, its current table row: free them after
+    this call) gathered back into the dense history, the columns past its
+    length zeroed (where the dense search's masked softmax wrote 0 and a
+    recycled page holds its last tenant's rows), then the batch search's
+    finalize."""
+    _, b_max, t_pad = _pool_spec(hps)
+    K, T = hps.beam_size, hps.max_dec_steps
+    T_enc = state.enc_mask.shape[1]
+    ap = state.attn_pool[torch.as_tensor(np.asarray(row), dtype=torch.long,
+                                         device=state.attn_pool.device)]
+    attn = ap.permute(1, 2, 0, 3).reshape(K, T + 1, t_pad)[:, :, :T_enc]
+    attn = attn.clone()
+    attn[:, :, int(state.enc_valid_len[idx]):] = 0.0
+    return _unbatched(_finalize_beam(
+        hps, _one_slot(state.beam, idx, attn_steps=attn[None])))

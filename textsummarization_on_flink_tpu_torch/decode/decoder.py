@@ -21,20 +21,28 @@ explicit tier, a budget short of the full-beam latency estimate degrades
 the batch to greedy (``should_degrade``, the serve layer's per-request
 predicate), and the results say ``degraded``.
 
-Not yet ported (ROADMAP.md queue 1): the spec/draft tiers (item 5), the
-slot engine (item 4) and the mesh (item 6).
+``SlotDecodeEngine`` (``BeamSearchDecoder.slot_engine``) is the JAX
+package's continuous-batching engine over the slot functions of
+decode/beam_search.py: a prefill stage at the serve buckets, resident
+articles stepped a chunk at a time, each retired the moment its search
+ends; dense, or over a page arena (decode/arena.py).
+
+Not yet ported (ROADMAP.md queue 1): the spec/draft tiers (item 5) and
+the mesh (item 6).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import os
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch.utils._pytree as pytree
 
 from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch.checkpoint import (
@@ -44,11 +52,16 @@ from textsummarization_on_flink_tpu_torch.config import (
     ROADMAP_AAN,
     SERVE_TIERS,
     HParams,
+    bucket_for,
+    parse_bucket_spec,
+    resolve_arena_pages,
+    resolve_enc_block,
 )
 from textsummarization_on_flink_tpu_torch.data import oov as oov_lib
 from textsummarization_on_flink_tpu_torch.data.batching import Batch
 from textsummarization_on_flink_tpu_torch.data.vocab import STOP_DECODING, Vocab
 from textsummarization_on_flink_tpu_torch.decode import beam_search
+from textsummarization_on_flink_tpu_torch.decode.arena import PageArena
 from textsummarization_on_flink_tpu_torch.device import resolve_device
 from textsummarization_on_flink_tpu_torch.evaluate import rouge
 from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
@@ -357,6 +370,12 @@ class BeamSearchDecoder:
             p_gens=p_gens[: max(len(decoded_words), 1)],
             tier=tier, params_fingerprint=self.params_fingerprint)
 
+    def slot_engine(self, slots: int, chunk: int) -> "SlotDecodeEngine":
+        """The continuous-batching engine over this decoder's params:
+        ``slots`` resident articles decoded ``chunk`` steps at a time,
+        with refill between chunks (JAX decoder.py:553)."""
+        return SlotDecodeEngine(self, slots, chunk)
+
     def decode(self, with_rouge: bool = True,
                result_sink: Optional[Callable[[DecodedResult], None]] = None,
                max_batches: int = 0, log_results: bool = True,
@@ -440,3 +459,255 @@ class BeamSearchDecoder:
         with open(output_fname, "w", encoding="utf-8") as f:
             json.dump(to_write, f)
         log.info("Wrote visualization data to %s", output_fname)
+
+
+class PrefilledArticle(NamedTuple):
+    """One article through the prefill stage: the request's example
+    (uuid, reference and OOVs travel with it), its beam_search.PrefillState
+    on the device, and the serve bucket it was encoded at."""
+
+    example: Any
+    state: Any
+    bucket: int
+
+
+class SlotDecodeEngine:
+    """The host side of the slot functions of decode/beam_search.py (JAX
+    decoder.py:651-1050), for serve/batcher.ContinuousBatcher, which owns
+    the requests.  One thread (the server's dispatch thread) calls
+    prefill, pack, step and unpack; a chunk's one host sync is the read
+    of its finished mask.
+
+    The resident state keeps one shape, max_enc_steps wide; the prefill
+    encodes each article at its serve bucket (the micro-batcher's list),
+    and each chunk's attention reads only the prefix that the longest
+    active resident needs.  With ``serve_arena_pages`` or
+    ``serve_arena_mb`` the state is paged: a resident holds
+    ceil(length / decode_enc_block) pages of a shared arena, and an
+    admission the arena cannot hold raises ``ArenaExhaustedError``
+    before any device state changes (the batcher requeues it).
+
+    Each call reads the decoder's params snapshot, so a checkpoint
+    reloaded between chunks takes effect at the next chunk.  Runs on the
+    decoder's device (hps.device).
+
+    Not here, each for want of its counterpart in the port: the JAX
+    engine's compile-ledger budgets (the port has no jit cache; ROADMAP
+    queue 1, item 2h), the analytic pricing of a chunk
+    (``profile_analytic``; item 2h) and the dp mesh of resident slots
+    (item 6)."""
+
+    def __init__(self, decoder: BeamSearchDecoder, slots: int, chunk: int):
+        if slots < 1:
+            raise ValueError(f"slots must be >= 1, got {slots}")
+        if chunk < 1:
+            raise ValueError(f"refill chunk must be >= 1, got {chunk}")
+        self._dec = decoder
+        self._hps = decoder._hps
+        self.slots = slots
+        self.chunk = min(chunk, self._hps.max_dec_steps)
+        self._hps1 = self._hps.replace(batch_size=1)
+        # the micro-batcher's bucket list: both serving modes encode an
+        # article at the same shape
+        self._buckets = parse_bucket_spec(self._hps.serve_buckets,
+                                          self._hps.max_enc_steps)
+        self._state = None  # built at the first pack
+        self._active = np.zeros(slots, dtype=bool)
+        self._obs = obs.registry_for(self._hps)
+        self._block = resolve_enc_block(self._hps)
+        self._b_max = -(-self._hps.max_enc_steps // self._block)
+        self._page_bytes = 0
+        if self._hps.serve_arena_pages > 0 or self._hps.serve_arena_mb > 0:
+            self._page_bytes = beam_search.paged_page_bytes(
+                decoder._params_snapshot()[0], self._hps)
+        self._arena_pages = resolve_arena_pages(self._hps,
+                                                self._page_bytes or None)
+        self.paged = self._arena_pages > 0
+        self._arena: Optional[PageArena] = (
+            PageArena(self._arena_pages) if self.paged else None)
+        # row i is slot i's page-table row; unused entries name the
+        # scratch page (id = the arena's capacity)
+        self._table = np.full((slots, self._b_max), self._arena_pages,
+                              np.int64)
+        self._page_rows: Dict[int, np.ndarray] = {}
+
+    def _params(self):
+        return self._dec._params_snapshot()[0]
+
+    def _ensure_state(self, params, pre) -> None:
+        if self._state is not None:
+            return
+        if self.paged:
+            self._state = beam_search.init_slots_paged(
+                params, self._hps, self.slots, pre, self._arena_pages)
+        else:
+            self._state = beam_search.init_slots(params, self._hps,
+                                                 self.slots, pre)
+
+    def prefill(self, example) -> PrefilledArticle:
+        """The prefill stage for one SummaryExample: the encoder (and the
+        transformer's cross-attention K/V) at the article's serve bucket,
+        padded to the resident width.  May run while other articles are
+        resident."""
+        bucket = bucket_for(self._buckets, example.enc_len)
+        batch = Batch([example], self._hps1, self._dec._vocab,
+                      enc_steps=bucket)
+        arrays = {k: v for k, v in batch.as_arrays().items()
+                  if k.startswith("enc_")}
+        pre = beam_search.prefill(self._params(), self._hps, arrays)
+        return PrefilledArticle(example=example, state=pre, bucket=bucket)
+
+    def pages_needed(self, item) -> int:
+        """Arena pages one admission takes: ceil(length / block), from the
+        host-side example (0 when the state is dense)."""
+        if not self.paged:
+            return 0
+        ex = item.example if isinstance(item, PrefilledArticle) else item
+        enc_len = min(int(ex.enc_len), self._hps.max_enc_steps)
+        return max(1, -(-enc_len // self._block))
+
+    def free_pages(self) -> int:
+        """Free arena pages (bottomless when the state is dense)."""
+        if not self.paged:
+            return 1 << 30
+        return self._arena.free_pages
+
+    def arena_stats(self) -> Optional[Dict[str, float]]:
+        """The arena's capacity, free and in-use pages and fill; None when
+        the state is dense.  Host counters only."""
+        if not self.paged:
+            return None
+        a = self._arena
+        return {"capacity": a.capacity, "free": a.free_pages,
+                "in_use": a.pages_in_use, "fill": a.fill}
+
+    def _named_tensors(self) -> Dict[str, Any]:
+        """The resident state's device tensors by name (the host lengths
+        left out)."""
+        out: Dict[str, Any] = {}
+        st = self._state
+        for f in dataclasses.fields(st):
+            v = getattr(st, f.name)
+            if f.name == "beam":
+                v = {g.name: getattr(v, g.name)
+                     for g in dataclasses.fields(v)}
+            if isinstance(v, np.ndarray):
+                continue
+            leaves, _ = pytree.tree_flatten(v)
+            for i, x in enumerate(leaves):
+                out[f"{f.name}.{i}"] = x
+        return out
+
+    def resident_bytes_per_slot(self) -> float:
+        """Mean device bytes one resident holds.  Dense: the state's bytes
+        over the slots (each slot holds the widest article's).  Paged: the
+        dense part's share per slot plus the in-use pages' bytes over the
+        residents.  Tensor metadata and host counters only."""
+        if self._state is None:
+            return 0.0
+        total = float(sum(x.nbytes for x in self._named_tensors().values()))
+        if not self.paged:
+            return total / self.slots
+        st = self._state
+        pools = list(st.enc_pages) + [st.ext_pool, st.attn_pool]
+        dense = total - float(sum(x.nbytes for x in pools))
+        n_active = max(1, int(self._active.sum()))
+        return (dense / self.slots
+                + self._arena.pages_in_use * self._page_bytes / n_active)
+
+    def pack(self, idx: int, item) -> None:
+        """Admit one prefilled article (or a SummaryExample, prefilled
+        here) into free slot ``idx``.  Paged: its pages are allocated
+        first, so ArenaExhaustedError leaves the device state untouched,
+        and a pack that fails after the allocation frees them."""
+        if self._active[idx]:
+            raise AssertionError(f"slot {idx} is already resident")
+        if not isinstance(item, PrefilledArticle):
+            item = self.prefill(item)
+        params = self._params()
+        self._ensure_state(params, item.state)
+        if self.paged:
+            need = self.pages_needed(item)
+            ids = self._arena.alloc(need)  # may raise ArenaExhaustedError
+            row = np.full(self._b_max, self._arena_pages, np.int64)
+            row[:need] = ids
+            try:
+                beam_search.pack_slot_paged(params, self._hps, self._state,
+                                            idx, item.state, row)
+            except BaseException:
+                self._arena.free(ids)
+                raise
+            self._table[idx] = row
+            self._page_rows[idx] = ids
+        else:
+            beam_search.pack_slot(params, self._hps, self._state, idx,
+                                  item.state)
+        self._active[idx] = True
+
+    def step(self) -> List[int]:
+        """One chunk for every resident slot; the slots whose search
+        finished (ready to unpack)."""
+        if not self._active.any():
+            return []
+        params = self._params()
+        with obs.spans.span(self._obs, "decode/slot_chunk",
+                            active=int(self._active.sum())):
+            if self.paged:
+                finished = beam_search.step_slots_paged(
+                    params, self._hps, self._state, self._active,
+                    self._table, self.chunk)
+            else:
+                finished = beam_search.step_slots(
+                    params, self._hps, self._state, self._active, self.chunk)
+            return [int(i) for i in np.nonzero(finished)[0]]
+
+    def unpack(self, idx: int, example) -> DecodedResult:
+        """Retire slot ``idx``: its hypothesis as a DecodedResult, and the
+        slot (and its pages) freed.  ``example`` is the SummaryExample
+        packed into it."""
+        if not self._active[idx]:
+            raise AssertionError(f"slot {idx} is not resident")
+        if self.paged:
+            out = beam_search.unpack_slot_paged(self._hps, self._state, idx,
+                                                self._table[idx])
+            self._free_slot_pages(idx)
+        else:
+            out = beam_search.unpack_slot(self._hps, self._state, idx)
+        self._active[idx] = False
+        res = self._dec._make_result(
+            out.tokens, int(out.length), out.attn_dists, out.p_gens,
+            uuid=example.uuid, article=example.original_article,
+            reference=example.reference,
+            abstract_sents=example.original_abstract_sents,
+            art_oovs=example.article_oovs)
+        self._dec._c_requests.inc()
+        self._dec._c_beams.inc()
+        self._dec._c_tokens.inc(len(res.decoded_words))
+        return res
+
+    def _free_slot_pages(self, idx: int) -> None:
+        """Slot ``idx``'s pages back to the arena, its row to scratch."""
+        ids = self._page_rows.pop(idx, None)
+        if ids is not None:
+            self._arena.free(ids)
+            self._table[idx] = self._arena_pages
+
+    def release(self, idx: int) -> None:
+        """Free slot ``idx`` without unpacking (a deadline eviction): the
+        stale state is masked until the next pack overwrites it."""
+        if self.paged:
+            self._free_slot_pages(idx)
+        self._active[idx] = False
+
+    def active_count(self) -> int:
+        return int(self._active.sum())
+
+    def cache_sizes(self) -> Dict[str, Tuple[int, ...]]:
+        """The resident state's tensor shapes by name.  The JAX engine
+        reports its kernels' jit-cache sizes here; eager PyTorch has no
+        jit cache, and what stays fixed across requests is the resident
+        state's shape, which this returns (empty before the first
+        pack)."""
+        if self._state is None:
+            return {}
+        return {k: tuple(x.shape) for k, x in self._named_tensors().items()}

@@ -6,10 +6,19 @@
 // One kernel serves both: it always streams T.  Per article b and query k
 // (K beam hypotheses share one article's encoder):
 //
-//   e[t]   = v . tanh(ef[t] + df[k] (+ cov[k, t] * w_c))      t < T
+//   e[t]   = v . tanh(ef[t] + df[k] (+ cov[k, t] * w_c))      t < T_act
 //   e[t]   = NEG (-1e30) where mask[t] == 0
-//   attn   = exp(e - max e) * (mask > 0) / max(sum, 1e-30)
+//   attn   = exp(e - max e) * (mask > 0) / max(sum, 1e-30)   t < T_act
+//   attn   = 0                                          T_act <= t < T
 //   ctx    = attn^T es                                         (true f32)
+//
+// T is the article axis's length (the stride of es, ef, mask, cov and
+// attn); T_act <= T is the length bound: only the first T_act positions
+// are read, and the cluster's blocks split those.  The slot engine's
+// decode step passes the longest active resident's length, rounded up to
+// its encoder block (the JAX package's `nb * block`,
+// decode/beam_search.py:684-686 there), so a step over short articles
+// streams their prefix only.  T_act = T is the dense form.
 //
 // What bounds it on an H100: memory, with the tanh close behind.  At the
 // beam-decode shape (16 articles x 4 beams, T=400, D=512, f32) es + ef
@@ -190,7 +199,8 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
                  const float* __restrict__ mask, const float* __restrict__ df,
                  const float* __restrict__ cov, const float* __restrict__ v,
                  const float* __restrict__ wc, float* __restrict__ ctx,
-                 float* __restrict__ attn, int T, int D, int K, int P) {
+                 float* __restrict__ attn, int T, int T_act, int D, int K,
+                 int P) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -217,7 +227,7 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int t_begin = rank * P;
-  const int n_pos = max(0, min(T, t_begin + P) - t_begin);
+  const int n_pos = max(0, min(T_act, t_begin + P) - t_begin);
   const int n_chunks = (n_pos + kChunk - 1) / kChunk;
   const TIn* ef_b = ef + (size_t)b * T * D;
   const TIn* es_b = es + (size_t)b * T * D;
@@ -437,6 +447,18 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
     for (int tl = tid; tl < n_pos; tl += kThreads)
       out[tl] = pe(tl, k) * sc / den;
   }
+  // the positions past the bound get weight 0, exactly as a masked one
+  // does: each block writes its share of [T_act, T) for every query
+  const int tail = T - T_act;
+  if (tail > 0) {
+    const int per_tail = (tail + C - 1) / C;
+    const int z_lo = T_act + rank * per_tail;
+    const int z_hi = min(T, z_lo + per_tail);
+    float* attn_a = attn + (size_t)b * K * T;
+    for (int k = 0; k < K; ++k)
+      for (int t = z_lo + tid; t < z_hi; t += kThreads)
+        attn_a[(size_t)k * T + t] = 0.f;
+  }
   // no block leaves while another may still read its shared memory
   cluster.sync();
 }
@@ -445,8 +467,9 @@ template <typename TIn, bool kCov, int kStages, bool kSmemState>
 cudaError_t launch_one(const void* es, const void* ef, const float* mask,
                        const float* df, const float* cov, const float* v,
                        const float* wc, float* ctx, float* attn, int B,
-                       int T, int D, int K, const Geometry& geo, bool wide,
-                       size_t smem_bytes, int dev, cudaStream_t stream) {
+                       int T, int T_act, int D, int K, const Geometry& geo,
+                       bool wide, size_t smem_bytes, int dev,
+                       cudaStream_t stream) {
   auto kernel = attention_kernel<TIn, kCov, kStages, kSmemState>;
   static unsigned smem_set = 0, wide_set = 0;  // per instantiation
   // the attribute is the most any call may ask; each launch asks its own
@@ -472,7 +495,7 @@ cudaError_t launch_one(const void* es, const void* ef, const float* mask,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TIn*>(es),
                            static_cast<const TIn*>(ef), mask, df, cov, v, wc,
-                           ctx, attn, T, D, K, geo.P);
+                           ctx, attn, T, T_act, D, K, geo.P);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -481,7 +504,7 @@ template <typename TIn, bool kCov>
 cudaError_t launch(const void* es, const void* ef, const float* mask,
                    const float* df, const float* cov, const float* v,
                    const float* wc, float* ctx, float* attn, int B, int T,
-                   int D, int K, cudaStream_t stream) {
+                   int T_act, int D, int K, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -490,7 +513,9 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
   // few articles: 16 blocks each, with a deeper ring, while their clusters
   // take at most half the SMs, so the long form still spreads over the card
   const bool wide = B * kWideCluster * 2 <= sms;
-  const Geometry geo(T, wide ? kWideCluster : kCluster);
+  // the blocks split the bound, so a short one still spreads over the
+  // whole cluster
+  const Geometry geo(T_act, wide ? kWideCluster : kCluster);
   // the form's ring, halved while the block's constants do not fit
   // beside it (a wide D); refused when even kMinRing chunks do not
   int stages = wide ? kWideRing : kRing;
@@ -505,7 +530,8 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
   const size_t bytes = in_smem ? with_state : without;
 #define TS_LAUNCH(STAGES, STATE)                                             \
   launch_one<TIn, kCov, STAGES, STATE>(es, ef, mask, df, cov, v, wc, ctx,   \
-                                       attn, B, T, D, K, geo, wide, bytes,  \
+                                       attn, B, T, T_act, D, K, geo, wide,  \
+                                       bytes,                               \
                                        dev, stream)
   static_assert(kWideRing == 8 && kRing == 4 && kMinRing == 2,
                 "the instantiations below");
@@ -525,7 +551,9 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
 // es, ef [B, T, D] (f32, or bf16 when is_bf16; 16-byte aligned, D a
 // multiple of 4, of 8 in bf16); mask [B, T]; df [B, K, D]; cov [B, K, T]
 // (read only when use_cov); v, wc [D]; outputs ctx [B, K, D], attn
-// [B, K, T].  All float32 unless noted, contiguous, on one device.
+// [B, K, T].  All float32 unless noted, contiguous, on one device.  Only
+// the first T_act positions (1 <= T_act <= T) are read; attn is 0 past
+// them.
 // Launches on `stream`; returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for a shape the kernel does not take: more
 // articles than the grid's y extent, or K and D whose per-block
@@ -535,26 +563,27 @@ extern "C" int ts_fused_attention_shared(const void* es, const void* ef,
                                          const float* mask, const float* df,
                                          const float* cov, const float* v,
                                          const float* wc, float* ctx,
-                                         float* attn, int B, int T, int D,
-                                         int K, int use_cov, int is_bf16,
-                                         void* stream) {
+                                         float* attn, int B, int T,
+                                         int T_act, int D, int K, int use_cov,
+                                         int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int elt = is_bf16 ? 2 : 4;
   if (B <= 0 || T <= 0 || D <= 0 || K <= 0 || B > 65535 ||
-      D % (16 / elt) != 0)
+      D % (16 / elt) != 0 || T_act < 1 || T_act > T)
     return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return (int)(use_cov ? launch<__nv_bfloat16, true>(es, ef, mask, df, cov,
                                                        v, wc, ctx, attn, B,
-                                                       T, D, K, st)
+                                                       T, T_act, D, K, st)
                          : launch<__nv_bfloat16, false>(es, ef, mask, df,
                                                         cov, v, wc, ctx,
-                                                        attn, B, T, D, K,
-                                                        st));
+                                                        attn, B, T, T_act, D,
+                                                        K, st));
   return (int)(use_cov ? launch<float, true>(es, ef, mask, df, cov, v, wc,
-                                             ctx, attn, B, T, D, K, st)
+                                             ctx, attn, B, T, T_act, D, K, st)
                        : launch<float, false>(es, ef, mask, df, cov, v, wc,
-                                              ctx, attn, B, T, D, K, st));
+                                              ctx, attn, B, T, T_act, D, K,
+                                              st));
 }
 
 extern "C" const char* ts_cuda_error_string(int err) {

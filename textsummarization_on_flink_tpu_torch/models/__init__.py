@@ -2,7 +2,9 @@
 
 Every family is a module with the JAX package's functional surface
 (models/__init__.py there): ``beam_encode(params, hps, arrays)`` and
-``beam_adapter(hps) -> (init_state, step)`` for beam search, and
+``beam_adapter(hps) -> (init_state, step)`` for beam search, its
+length-bounded form ``beam_adapter_masked`` and ``pad_enc_view`` for
+the slot engine, and
 ``forward_train(params, hps, arrays) -> TrainOutput`` for training and
 eval.  Both families decode and train.  The AAN draft is not ported
 yet.
@@ -17,6 +19,26 @@ from textsummarization_on_flink_tpu_torch.config import ROADMAP_AAN
 FAMILIES = ("pointer_generator", "transformer", "avg_attention")
 
 _ROADMAP = {"avg_attention": ROADMAP_AAN}
+
+
+def masked_adapter(beam_adapter_fn):
+    """A family's ``beam_adapter_masked`` from its ``beam_adapter`` (JAX
+    models/__init__.py:31-50): the same step with a leading ``nb``
+    argument, the number of encoder blocks that hold every active
+    resident (a host int here), which the slot engine's step binds from
+    its residents' lengths."""
+
+    def beam_adapter_masked(hps):
+        init_state, step = beam_adapter_fn(hps)
+
+        def step_masked(params, enc, enc_mask, ext_ids, nb, t, latest,
+                        state):
+            return step(params, enc, enc_mask, ext_ids, t, latest, state,
+                        nb=nb)
+
+        return init_state, step_masked
+
+    return beam_adapter_masked
 
 
 def get_family(name: str) -> ModuleType:

@@ -34,12 +34,17 @@ operands with f32 sums.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from textsummarization_on_flink_tpu_torch.config import HParams
+from textsummarization_on_flink_tpu_torch.config import (
+    HParams,
+    resolve_enc_block,
+)
+from textsummarization_on_flink_tpu_torch.models import masked_adapter
 from textsummarization_on_flink_tpu_torch.ops import attention as attn_ops
 from textsummarization_on_flink_tpu_torch.ops import losses as loss_ops
 from textsummarization_on_flink_tpu_torch.ops import lstm as lstm_ops
@@ -270,7 +275,8 @@ def decode_onestep_shared(params: Params, hps: HParams, enc: EncoderOutput,
                           enc_mask: torch.Tensor, ext_ids: torch.Tensor,
                           latest_tokens: torch.Tensor,
                           state: Tuple[torch.Tensor, torch.Tensor],
-                          prev_coverage: torch.Tensor) -> DecodeStepOutput:
+                          prev_coverage: torch.Tensor,
+                          nb: Optional[int] = None) -> DecodeStepOutput:
     """One beam-search decoder step for B articles x K hypotheses, with
     the reference's decode-mode semantics (attention_decoder.py:138-160):
 
@@ -283,12 +289,16 @@ def decode_onestep_shared(params: Params, hps: HParams, enc: EncoderOutput,
     enc leaves are [B, T_enc, ...] with no hypothesis axis and are
     shared by the K hypotheses; enc_mask/ext_ids [B, T_enc];
     latest_tokens [B, K] fixed-vocab ids (the caller maps OOV -> UNK);
-    state (c, h) [B, K, H]; prev_coverage [B, K, T_enc]."""
+    state (c, h) [B, K, H]; prev_coverage [B, K, T_enc].  ``nb`` (the
+    slot engine, JAX pointer_generator.py:393-423): both attends read the
+    first nb encoder blocks only (ops/attention.attend_shared)."""
     dp = params["decoder"]
     use_cov = hps.coverage
+    block = resolve_enc_block(hps) if nb is not None else 0
     ctx_prev, _, cov = attn_ops.attend_shared(
         dp["attention"], enc.enc_states, enc.enc_features, enc_mask,
-        state, prev_coverage if use_cov else None, use_cov)
+        state, prev_coverage if use_cov else None, use_cov,
+        nb=nb, block=block)
     if cov is None:
         cov = prev_coverage
     inp_emb = params["embedding"][latest_tokens]  # [B, K, E]
@@ -296,7 +306,7 @@ def decode_onestep_shared(params: Params, hps: HParams, enc: EncoderOutput,
     cell_out, new_state = lstm_ops.lstm_cell(dp["cell"], x, state)
     context, attn_dist, _ = attn_ops.attend_shared(
         dp["attention"], enc.enc_states, enc.enc_features, enc_mask,
-        new_state, cov if use_cov else None, use_cov)
+        new_state, cov if use_cov else None, use_cov, nb=nb, block=block)
     p_gen = torch.sigmoid(
         _linear(dp["pgen_linear"], context, new_state[0], new_state[1], x)
     )[..., 0]  # [B, K]
@@ -345,12 +355,12 @@ def beam_adapter(hps: HParams):
 
     def step(params: Params, enc: EncoderOutput, enc_mask: torch.Tensor,
              ext_ids: torch.Tensor, t: torch.Tensor, latest: torch.Tensor,
-             state) -> BeamStepOut:
+             state, nb: Optional[int] = None) -> BeamStepOut:
         del t  # the LSTM state carries all positional context
         out = decode_onestep_shared(params, hps, enc, enc_mask, ext_ids,
                                     latest,
                                     (state["cell_c"], state["cell_h"]),
-                                    state["coverage"])
+                                    state["coverage"], nb=nb)
         return BeamStepOut(
             topk_ids=out.topk_ids, topk_log_probs=out.topk_log_probs,
             attn_dist=out.attn_dist, p_gen=out.p_gen,
@@ -358,3 +368,23 @@ def beam_adapter(hps: HParams):
                    "coverage": out.coverage})
 
     return init_state, step
+
+
+#: the slot engine's length-bounded adapter: the step with a leading nb
+beam_adapter_masked = masked_adapter(beam_adapter)
+
+
+def pad_enc_view(enc: EncoderOutput, t_target: int) -> EncoderOutput:
+    """Zero-pad a bucket-width encoder view's time axis (axis 1) to
+    ``t_target`` (the prefill -> pack hand-off; JAX
+    pointer_generator.py:509).  The biLSTM encoder writes zeros past an
+    article's length, so a bucket-width encode padded is the full-width
+    one; dec_in_state has no time axis."""
+    def pad(x):
+        if x.shape[1] >= t_target:
+            return x
+        return F.pad(x, (0, 0, 0, t_target - x.shape[1]))
+
+    return EncoderOutput(enc_states=pad(enc.enc_states),
+                         enc_features=pad(enc.enc_features),
+                         dec_in_state=enc.dec_in_state)

@@ -36,20 +36,27 @@ the final LN and the cross-attention context are f32 for p_gen and the
 vocab projection (bf16 operands, f32 sums).  Decoding keeps the KV cache
 in float32 (it holds the bf16 projections widened) and forms both
 attentions' logits and contexts in f32, rounding each context to bf16
-before ``wo``.  In f32 every cast is a no-op.  The speculative verifier
-(``spec_*``), the length-masked ``nb`` cross-attention of the slot
-engine, a factored ``vocab_head`` and ``decode_cache_dtype=bfloat16``
-wait for later slices (ROADMAP.md).
+before ``wo``.  In f32 every cast is a no-op.  The slot engine's step
+bounds the cross-attention by its residents' longest article
+(``cross_attend_layer(nb=...)``, plain torch over the K/V prefix, as the
+JAX package computes it in XLA).  The speculative verifier (``spec_*``),
+a factored ``vocab_head`` and ``decode_cache_dtype=bfloat16`` wait for
+later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from textsummarization_on_flink_tpu_torch.config import ROADMAP_AAN, HParams
+from textsummarization_on_flink_tpu_torch.config import (
+    ROADMAP_AAN,
+    HParams,
+    resolve_enc_block,
+)
+from textsummarization_on_flink_tpu_torch.models import masked_adapter
 from textsummarization_on_flink_tpu_torch.models import pointer_generator as pg
 from textsummarization_on_flink_tpu_torch.ops import flash_attention as fa
 from textsummarization_on_flink_tpu_torch.ops import losses as loss_ops
@@ -315,29 +322,42 @@ def beam_encode(params: Params, hps: HParams,
 
 def cross_attend_layer(hps: HParams, layer: Dict[str, Any], y: torch.Tensor,
                        ck: torch.Tensor, cv: torch.Tensor,
-                       enc_mask: torch.Tensor,
+                       enc_mask: torch.Tensor, nb: Optional[int] = None,
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer's cross-attention against its precomputed K/V
-    (transformer.py:514-579, the dense form; the slot engine's ``nb``
-    block chain is ROADMAP.md queue 1, item 4).
+    (transformer.py:514-579).
 
     y: [B, K, H]; ck/cv: [B, T_enc, nh, hd]; enc_mask: [B, T_enc].
     Returns (cross_out [B, K, H] in y's dtype — not yet residual-added —
     and the head-averaged probabilities [B, K, T_enc], f32).  The logits
-    and the context are f32 products of the widened q and K/V."""
+    and the context are f32 products of the widened q and K/V.
+
+    ``nb`` (the slot engine's length-bounded step): the logits and the
+    context run over the first min(nb * decode_enc_block, T_enc) keys
+    only, and the probabilities are 0 past them, where the JAX package's
+    block chain leaves uncovered blocks at the masked floor.  None is
+    the dense form."""
     hd = _head_dim(hps)
     dt = y.dtype
     cp = layer["cross_attn"]
     qc = _split_heads(hps, _ln(layer["ln_cross"], y) @ cp["wq"].to(dt))
+    T = enc_mask.shape[-1]
+    t_act = T
+    if nb is not None:
+        t_act = max(1, min(int(nb) * resolve_enc_block(hps), T))
+    mask = enc_mask[:, :t_act]
     clogits = torch.einsum("bknd,btnd->bknt", qc.float(),
-                           ck.float()) * (hd ** -0.5)
-    clogits = torch.where(enc_mask[:, None, None, :] > 0, clogits, NEG)
+                           ck[:, :t_act].float()) * (hd ** -0.5)
+    clogits = torch.where(mask[:, None, None, :] > 0, clogits, NEG)
     cprobs = torch.softmax(clogits, dim=-1)
     any_key = torch.sum(enc_mask, dim=-1) > 0  # [B]
     cprobs = torch.where(any_key[:, None, None, None], cprobs, 0.0)
-    cctx = torch.einsum("bknt,btnd->bknd", cprobs, cv.float())
+    cctx = torch.einsum("bknt,btnd->bknd", cprobs, cv[:, :t_act].float())
     cross_out = _merge_heads(cctx).to(dt) @ cp["wo"].to(dt)
-    return cross_out, torch.mean(cprobs, dim=2)
+    probs = torch.mean(cprobs, dim=2)
+    if t_act < T:
+        probs = F.pad(probs, (0, T - t_act))
+    return cross_out, probs
 
 
 def vocab_scores_of(params: Params, hps: HParams,
@@ -396,10 +416,11 @@ def beam_adapter(hps: HParams):
 
     def step(params: Params, enc: TransformerEncView, enc_mask: torch.Tensor,
              ext_ids: torch.Tensor, t: torch.Tensor, latest: torch.Tensor,
-             state) -> BeamStepOut:
+             state, nb: Optional[int] = None) -> BeamStepOut:
         """t [B]: each article's step (an article whose search ended
         keeps stepping masked, up to t = max_dec_steps, which pos_dec and
-        the cache's last column hold); latest [B, K]."""
+        the cache's last column hold); latest [B, K]; nb: the slot
+        engine's block count of the cross-attention (None: dense)."""
         B = latest.shape[0]
         y = _embed_dec(params, hps, latest, t)  # [B, K, H]
         pos_ok = torch.arange(T, device=t.device)[None, :] <= t[:, None]
@@ -429,7 +450,7 @@ def beam_adapter(hps: HParams):
             y = y + _merge_heads(ctx).to(dt) @ p["wo"].to(dt)
             cross_out, attn_dist = cross_attend_layer(
                 hps, layer, y, enc.cross_k[:, li], enc.cross_v[:, li],
-                enc_mask)
+                enc_mask, nb=nb)
             y = y + cross_out
             y = y + _ffn_block(layer["ffn"], _ln(layer["ln2"], y))
             cross_ctx = cross_out
@@ -442,3 +463,22 @@ def beam_adapter(hps: HParams):
                            state={"cache_k": cache_k, "cache_v": cache_v})
 
     return init_state, step
+
+
+#: the slot engine's length-bounded adapter: the step with a leading nb
+beam_adapter_masked = masked_adapter(beam_adapter)
+
+
+def pad_enc_view(enc: TransformerEncView, t_target: int,
+                 ) -> TransformerEncView:
+    """Zero-pad a bucket-width encoder view's key axis (axis 2) to
+    ``t_target`` (the prefill -> pack hand-off; JAX transformer.py:687):
+    the padded keys sit behind the valid-length mask and are never
+    attended."""
+    def pad(x):
+        if x.shape[2] >= t_target:
+            return x
+        return F.pad(x, (0, 0, 0, 0, 0, t_target - x.shape[2]))
+
+    return TransformerEncView(cross_k=pad(enc.cross_k),
+                              cross_v=pad(enc.cross_v))

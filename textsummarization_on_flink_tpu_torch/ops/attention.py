@@ -64,19 +64,31 @@ def attend_shared(attn_params: Dict[str, torch.Tensor],
                   enc_mask: torch.Tensor,
                   dec_state: Tuple[torch.Tensor, torch.Tensor],
                   coverage: Optional[torch.Tensor], use_coverage: bool,
+                  nb: Optional[int] = None, block: int = 0,
                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """attend() with K queries per article sharing the article's encoder
     (the beam's K hypotheses): enc_states/enc_feats [B, T, D] and
     enc_mask [B, T] carry no query axis; dec_state leaves are [B, K, H]
     and coverage [B, K, T].  The JAX package's attend_shared works on one
-    article under vmap; here the batch axis is written out."""
+    article under vmap; here the batch axis is written out.
+
+    ``nb`` (the slot engine's length-bounded step, JAX ops/attention.py:
+    88-129): the number of ``block``-position encoder blocks that hold
+    every active resident's article, a host int.  The attention then
+    reads the first min(nb * block, T) positions only, and attn_dist is
+    0 past them, where the JAX package's blocked formula leaves those
+    blocks at the masked floor.  None is the dense form."""
     dec_feats = _dec_feats(attn_params, dec_state)  # [B, K, D]
     apply_cov = bool(use_coverage and coverage is not None)
     cov_in = (coverage if apply_cov else enc_mask.new_zeros(
         dec_feats.shape[:2] + enc_mask.shape[1:]))
+    t_active = None
+    if nb is not None:
+        T = enc_mask.shape[-1]
+        t_active = max(1, min(int(nb) * max(int(block), 1), T))
     context, attn_dist = fa.fused_attention_shared(
         enc_states, enc_feats, enc_mask, dec_feats, cov_in,
-        attn_params["v"], attn_params["w_c"], apply_cov)
+        attn_params["v"], attn_params["w_c"], apply_cov, t_active)
     new_coverage = None
     if use_coverage:
         new_coverage = (coverage if coverage is not None else 0.0) + attn_dist

@@ -28,6 +28,12 @@ columns, so the result is exact.  What still does not fit one block's
 shared memory is refused by ``width_refusal``, which ``HParams.validate``
 asks before a model is built (config.ROADMAP_PG_WIDTH).
 
+Length bound: ``t_active`` (the slot engine's decode step) limits the
+work to the first ``t_active`` positions of the article axis; ``attn`` is
+exactly 0 past them, as at a masked position, and ``None`` (every
+position) is the dense form, whose launch and numbers are unchanged.
+The bound is a host int: the engine knows its residents' lengths.
+
 Dispatch: a CPU tensor goes to ``_attention_plain`` (the formula of
 ``_attention_xla_shared`` / ``_attention_xla``, pallas_attention.py:96-132);
 a CUDA tensor goes to the kernel, or the wrapper raises.  There is no
@@ -72,12 +78,22 @@ _bwd_lib: Optional[ctypes.CDLL] = None
 def _attention_plain(es: torch.Tensor, ef: torch.Tensor, mask: torch.Tensor,
                      df: torch.Tensor, cov: torch.Tensor, v: torch.Tensor,
                      w_c: torch.Tensor, use_coverage: bool,
+                     t_active: Optional[int] = None,
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference formula in plain PyTorch.
 
     es, ef [B, T, D] (f32 or bf16, upcast here); mask [B, T]; df [B, K, D];
     cov [B, K, T] (read only when use_coverage); v, w_c [D].
-    Returns (ctx [B, K, D], attn [B, K, T]), both f32."""
+    Returns (ctx [B, K, D], attn [B, K, T]), both f32.  With ``t_active``
+    the formula runs over the first t_active positions and attn is 0 past
+    them (the JAX package's _attend_shared_blocked, where blocks past the
+    bound sit at the masked floor)."""
+    T = es.shape[1]
+    if t_active is not None and t_active < T:
+        ctx, attn = _attention_plain(
+            es[:, :t_active], ef[:, :t_active], mask[:, :t_active], df,
+            cov[:, :, :t_active], v, w_c, use_coverage)
+        return ctx, F.pad(attn, (0, T - t_active))
     feats = ef.float()[:, None, :, :] + df[:, :, None, :]  # [B, K, T, D]
     if use_coverage:
         feats = feats + cov[:, :, :, None] * w_c
@@ -148,7 +164,7 @@ def _load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build.build("fused_attention"))
         fn = lib.ts_fused_attention_shared
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         lib.ts_cuda_error_string.restype = ctypes.c_char_p
         lib.ts_cuda_error_string.argtypes = [ctypes.c_int]
@@ -224,9 +240,10 @@ def _smem_bytes(T: int, D: int, K: int, elt: int, wide: bool = True,
 
 def _launch_form(B: int, T: int, D: int, K: int, elt: int,
                  sms: int) -> Optional[Tuple[bool, int, bool]]:
-    """The form launch() in the source takes on a card with ``sms`` SMs:
-    (wide clusters, ring chunks, state in shared memory), or None when
-    even the smallest ring does not fit beside the block's constants."""
+    """The form launch() in the source takes on a card with ``sms`` SMs
+    for T positions processed (the length bound): (wide clusters, ring
+    chunks, state in shared memory), or None when even the smallest ring
+    does not fit beside the block's constants."""
     wide = B * _WIDE_CLUSTER * 2 <= sms
     stages = _WIDE_RING if wide else _RING
     while (stages > _MIN_RING
@@ -255,10 +272,11 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _shape_refusal(es: torch.Tensor, df: torch.Tensor,
-                   sms: int = _H100_SMS) -> Optional[str]:
-    """Why the kernel does not take these shapes on a card with ``sms``
-    SMs (None when it does).  Checked before the device, so it holds for
-    tensors anywhere."""
+                   sms: int = _H100_SMS,
+                   t_active: Optional[int] = None) -> Optional[str]:
+    """Why the kernel does not take these shapes (and this length bound)
+    on a card with ``sms`` SMs (None when it does).  Checked before the
+    device, so it holds for tensors anywhere."""
     if es.dim() != 3 or df.dim() != 3:
         return (f"es must be [B, T, D] and df [B, K, D], got "
                 f"{tuple(es.shape)} and {tuple(df.shape)}")
@@ -266,6 +284,10 @@ def _shape_refusal(es: torch.Tensor, df: torch.Tensor,
     K = df.shape[1]
     if B == 0 or T == 0 or K == 0 or D == 0:
         return f"empty attention input (B={B}, T={T}, K={K}, D={D})"
+    if t_active is not None:
+        if not 1 <= t_active <= T:
+            return f"t_active={t_active} is outside [1, T={T}]"
+        T = t_active  # the blocks split the bound
     elt = 2 if es.dtype == torch.bfloat16 else 4
     if D % (16 // elt):
         return (f"D={D} is not a multiple of {16 // elt}: the kernel stages "
@@ -281,11 +303,12 @@ def _shape_refusal(es: torch.Tensor, df: torch.Tensor,
     return None
 
 
-def _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage):
+def _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage,
+                    t_active=None):
     """Launch the kernel; same contract as _attention_plain, for a D the
     kernel takes (``_padded_forward`` pads the others)."""
     global launches, launches_bf16
-    refusal = _shape_refusal(es, df, _sm_count(es.device))
+    refusal = _shape_refusal(es, df, _sm_count(es.device), t_active)
     if refusal is not None:
         raise ValueError(refusal)
     dev = es.device
@@ -313,7 +336,8 @@ def _attention_cuda(es, ef, mask, df, cov, v, w_c, use_coverage):
         err = lib.ts_fused_attention_shared(
             es.data_ptr(), ef.data_ptr(), mask.data_ptr(), df.data_ptr(),
             cov.data_ptr(), v.data_ptr(), w_c.data_ptr(), ctx.data_ptr(),
-            attn.data_ptr(), B, T, D, K, int(bool(use_coverage)),
+            attn.data_ptr(), B, T, T if t_active is None else int(t_active),
+            D, K, int(bool(use_coverage)),
             int(es.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError("fused attention kernel launch failed: "
@@ -465,7 +489,8 @@ def _pad_columns(width: int, *xs: torch.Tensor):
     return tuple(F.pad(x, (0, width - x.shape[-1])) for x in xs)
 
 
-def _padded_forward(kernel, es, ef, mask, df, cov, v, w_c, use_coverage):
+def _padded_forward(kernel, es, ef, mask, df, cov, v, w_c, use_coverage,
+                    t_active=None):
     """``kernel`` (the CUDA launch, or the plain version in a test) at D
     padded to the 16-byte multiple, ctx sliced back to D: exact, since a
     zero column adds v . tanh(0) = 0 to every energy and gives a zero
@@ -473,9 +498,10 @@ def _padded_forward(kernel, es, ef, mask, df, cov, v, w_c, use_coverage):
     D = es.shape[-1]
     width = _padded_width(D, es.dtype)
     if width == D:
-        return kernel(es, ef, mask, df, cov, v, w_c, use_coverage)
+        return kernel(es, ef, mask, df, cov, v, w_c, use_coverage, t_active)
     es, ef, df, v, w_c = _pad_columns(width, es, ef, df, v, w_c)
-    ctx, attn = kernel(es, ef, mask, df, cov, v, w_c, use_coverage)
+    ctx, attn = kernel(es, ef, mask, df, cov, v, w_c, use_coverage,
+                       t_active)
     return ctx[..., :D].contiguous(), attn
 
 
@@ -522,16 +548,19 @@ def fused_attention_shared(es: torch.Tensor, ef: torch.Tensor,
                            mask: torch.Tensor, df: torch.Tensor,
                            cov: torch.Tensor, v: torch.Tensor,
                            w_c: torch.Tensor, use_coverage: bool,
+                           t_active: Optional[int] = None,
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(ctx [B, K, D], attn [B, K, T]) for K queries per article against
     the article's one encoder copy (es/ef [B, T, D], mask [B, T],
     df [B, K, D], cov [B, K, T]).  cov is read only when use_coverage
-    (pass zeros otherwise).  CPU tensors take the plain version, CUDA
-    tensors the kernel."""
+    (pass zeros otherwise).  ``t_active`` bounds the work to the first
+    t_active positions (attn 0 past them); None is every position.  CPU
+    tensors take the plain version, CUDA tensors the kernel."""
     if es.device.type == "cpu":
-        return _attention_plain(es, ef, mask, df, cov, v, w_c, use_coverage)
+        return _attention_plain(es, ef, mask, df, cov, v, w_c, use_coverage,
+                                t_active)
     return _padded_forward(_attention_cuda, es, ef, mask, df, cov, v, w_c,
-                           use_coverage)
+                           use_coverage, t_active)
 
 
 def _attention_rows(es, ef, mask, df, cov, v, w_c, use_coverage):

@@ -4,9 +4,9 @@ admission control (SERVING.md).
 A copy of the JAX package's serve/ (the port imports nothing of that
 package) without the fleet layer: ``router``, ``fleet``, ``procfleet``
 and ``hiersum`` are ROADMAP.md queue 1, item 7.  The server builds the
-port's ``BeamSearchDecoder`` on the hyperparameters' device; the
-continuous mode's real slot engine is item 4 (a stub engine may be
-injected), the spec and draft tiers item 5.
+port's ``BeamSearchDecoder`` on the hyperparameters' device, and in
+continuous mode its ``SlotDecodeEngine`` (a stub engine may be
+injected); the spec and draft tiers are item 5.
 
 The decode path dispatches one compiled program per batch; this package
 turns that into a *service*: a thread-safe admission-controlled request

@@ -196,10 +196,7 @@ class ContinuousBatcher:
         # baseline) keep the legacy direct-pack refill.
         self._supports_prefill = hasattr(engine, "prefill")
         self._prefilled: Deque[Tuple[ServeRequest, Any]] = deque()
-        # serve_prefill_depth is a field of the slot engine (ROADMAP.md
-        # queue 1, item 4): its JAX default, 2, until the field is ported
-        self._prefill_depth = max(
-            0, int(getattr(hps, "serve_prefill_depth", 2)))
+        self._prefill_depth = max(0, int(hps.serve_prefill_depth))
         self._tick = 0  # scheduler rounds (the T of "refill at tick T")
         # per-tick activity, reset each tick for the flight-recorder
         # frame (obs/flightrec.py): post-mortems need the rounds BEFORE

@@ -3,11 +3,12 @@
 A copy of the JAX package's serve/server.py.  The server builds the
 port's ``BeamSearchDecoder`` on ``hps.device``, so a dispatch runs the
 beam search (and on the card the fused attention kernel) in eager
-PyTorch.  Not ported yet, and refused with the item's name: the
-continuous mode's real slot engine (``serve_mode="continuous"`` without
-an injected ``engine=``, ROADMAP.md queue 1, item 4) and the spec and
-draft tiers (item 5).  The fleet (router, hedging, replicas) is item 7,
-and the copy leaves out the hooks only a router calls (``kill``,
+PyTorch; ``serve_mode="continuous"`` builds the decoder's slot engine
+(decode/decoder.SlotDecodeEngine) unless a stub ``engine=`` is
+injected.  Not ported yet, and refused with the item's name: the spec
+and draft tiers (ROADMAP.md queue 1, item 5).  The fleet (router,
+hedging, replicas) is item 7, and the copy leaves out the hooks only a
+router calls (``kill``,
 ``hot_swap``, ``disable_front_door``, ``disable_ingress_tracking``,
 ``tick_once``, ``idle``, ``stats``, ``load``, ``registry``).
 
@@ -99,10 +100,11 @@ from textsummarization_on_flink_tpu_torch.obs import profile as profile_lib
 from textsummarization_on_flink_tpu_torch.obs import slo as slo_lib
 from textsummarization_on_flink_tpu_torch.config import (
     ROADMAP_AAN,
-    ROADMAP_SLOTS,
     SERVE_TIERS,
     HParams,
     parse_fair_weights,
+    resolve_refill_chunk,
+    resolve_serve_slots,
 )
 from textsummarization_on_flink_tpu_torch.data.batching import SummaryExample
 from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
@@ -168,13 +170,7 @@ class ServingServer:
         # clock (virtual in the deterministic gates); first install on
         # the registry wins, like the SLO engine below
         profile_lib.install_profiler(self._reg, clock=clock)
-        self._mode = getattr(hps, "serve_mode", "microbatch")
-        if self._mode == "continuous" and engine is None:
-            # before the decoder is built: no device work for a server
-            # that cannot run
-            raise NotImplementedError(
-                "serve_mode='continuous' needs a slot engine: the port's "
-                f"decoder has none yet (inject engine=); {ROADMAP_SLOTS}")
+        self._mode = hps.serve_mode
         if decoder is None:
             # deferred: the decoder pulls in torch and the model; a server
             # built around an injected stub must not pay that import.  It
@@ -204,8 +200,12 @@ class ServingServer:
         self._batcher: Optional[MicroBatcher] = None
         self._cont: Optional[ContinuousBatcher] = None
         if self._mode == "continuous":
-            # engine= injects a stub (tests); the real slot engine is
-            # ROADMAP_SLOTS, refused above
+            # engine= injects a stub (tests); the real one drives the
+            # decoder's slot functions on hps.device
+            if engine is None:
+                engine = self._decoder.slot_engine(
+                    slots=resolve_serve_slots(hps),
+                    chunk=resolve_refill_chunk(hps))
             self._cont = ContinuousBatcher(hps, self._queue, engine,
                                            registry=self._reg,
                                            faults=self._faults)

@@ -32,7 +32,12 @@ the JAX package works in, so that one set of flags acts on the same
 steps in both packages: the ``train.step_nan`` fault point fires once
 per dispatch, a recovery skip discards a whole dispatch (armed recovery
 reads the metrics once per dispatch), and the checkpoint and profiler
-cadences fall on dispatch boundaries.  The trainer reports through the
+cadences fall on dispatch boundaries.  Under ``--debug`` each dispatch
+runs in ``DebugNans``, the counterpart of the JAX package's
+``jax_debug_nans``: the first op whose output holds a NaN, in the
+forward or the backward, raises, and the trainer dumps the batch and
+raises ``NonFiniteLossError`` (``NanLossError`` once recovery is spent)
+as the JAX trainer does.  The trainer reports through the
 obs registry (obs/); it records no flight-recorder frames or profiler
 phases of its own yet (ROADMAP.md queue 1, item 2h).  Not ported yet:
 the mesh (item 6).
@@ -40,6 +45,7 @@ the mesh (item 6).
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -50,6 +56,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.utils._pytree as pytree
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch.config import HParams
@@ -216,6 +224,28 @@ class SummaryWriter:
 
     def close(self) -> None:
         self._f.close()
+
+
+class DebugNans(TorchDispatchMode):
+    """--debug's op-level NaN check (the JAX package's jax_debug_nans,
+    set by its utils.apply_debug_mode): every floating output of every
+    aten op run under this mode, the autograd backward's included, is
+    tested, and the first NaN raises FloatingPointError naming the op.
+    Uninitialised factories (``empty*``, ``new_empty*``) are not tested:
+    the kernels' wrappers allocate their outputs with them.  A CUDA
+    kernel writes outside aten, so its output is tested by the next op
+    that reads it.  Each test syncs the device: a debug cost only."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if "empty" in func.overloadpacket.__name__:
+            return out
+        for x in pytree.tree_leaves(out):
+            if (isinstance(x, torch.Tensor) and x.is_floating_point()
+                    and bool(torch.isnan(x).any())):
+                raise FloatingPointError(
+                    f"NaN in the output of {func} (--debug)")
+        return out
 
 
 class NonFiniteLossError(RuntimeError):
@@ -691,7 +721,28 @@ class Trainer:
                 float(b.as_arrays()["dec_padding_mask"].sum())
                 for b, _ in items))
             arrays = items[0][0].as_arrays() if self.hps.debug else None
-            new_state, metrics = self._dispatch(items)
+            try:
+                with (DebugNans() if self.hps.debug
+                      else contextlib.nullcontext()):
+                    new_state, metrics = self._dispatch(items)
+            except FloatingPointError as e:
+                # --debug (one step per dispatch): an op made a NaN; the
+                # JAX trainer's handling of jax_debug_nans
+                # (train/trainer.py:963-984 there)
+                self._c_nan.inc()
+                self._dump_nan_batch(step, arrays)
+                if self._recovery is not None:
+                    # the dispatch did not complete: self.state is the
+                    # pre-dispatch state (out-of-place updates)
+                    if self._recover(step):
+                        step = self.state.step
+                        continue
+                    raise NanLossError(
+                        f"Loss is not finite and divergence recovery is "
+                        f"exhausted. Stopping. (step {step}; {e})") from e
+                raise NonFiniteLossError(
+                    f"Loss is not finite. Stopping. (step {step}; {e})"
+                ) from e
             injected = self._faults.fire("train.step_nan")
             if self._recovery is not None:
                 # armed: one metrics read per dispatch, so a bad state never
