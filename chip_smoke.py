@@ -136,7 +136,26 @@ device or without the port's sources beside it.  Phases, each fatal:
      checkpoint, 8 requests equal to its micro-batch server's; prints
      e2e p50/p99, queue p50, requests/s, mean occupancy and resident
      bytes per slot beside the micro-batch numbers;
- 12. print the kernels' JSON line, then, last, the device JSON line.
+ 12. the speculative tier (phase_spec): through decode_batch(tier=...)
+     on 16 articles, the transformer over its train phase's checkpoint
+     (greedy; spec with the mapped AAN draft, spec_k 4; spec with
+     spec_k_adaptive; the draft tier) and the pointer-generator over the
+     ROUGE phase's with a fresh AAN draft (greedy, spec); every spec
+     row's summary equal to greedy's; 6 flash forward launches per
+     greedy and draft batch and 12 per spec batch (both encoders), the
+     pointer-generator's fused attention twice per verify step; a
+     micro-batch ServingServer with 8 spec and 8 greedy requests, equal
+     summaries; prints seconds, cycles, accept rate, tokens per cycle
+     and tokens/s per tier;
+ 13. distillation (phase_distill): DistillTrainer takes 5 steps of the
+     narrow draft (hidden 128, a rank-64 factored head, 1 layer) against
+     the frozen transformer on the 64 synthetic pairs, exactly 6 + 6 + 6
+     flash launches per draft step and 6 forward per teacher decode; the
+     losses and the acceptance before and after; a small width's step
+     on the card against the CPU (loss within 1e-4 relative); the
+     distilled draft loaded with its teacher check into the spec tier,
+     equal to greedy;
+ 14. print the kernels' JSON line, then, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -2657,6 +2676,370 @@ def phase_continuous_serve(seed, work, params, tf_params, device="cuda"):
     return summary
 
 
+SPEC_K = 4
+#: the narrow draft distilled by phase_distill (BYTE_BUDGET.json
+#: spec.ref_overrides: H/2 wide, a rank-64 factored head, one layer)
+DISTILL_FLAGS = dict(draft_hidden=128, draft_vocab_rank=64,
+                     draft_dec_layers=1)
+
+
+def _batch_of(hps, vocab, articles):
+    from textsummarization_on_flink_tpu_torch.data.batching import (
+        Batch,
+        SummaryExample,
+    )
+
+    exs = [SummaryExample.build(a, [], vocab, hps, uuid=f"s{i}")
+           for i, a in enumerate(articles)]
+    return Batch(exs, hps, vocab)
+
+
+def phase_spec(seed, work, tf_params, pg_params, device="cuda"):
+    """The speculative tier (decode/speculative.py) at the reference width
+    through ``BeamSearchDecoder.decode_batch(tier=...)``, one batch of 16
+    synthetic articles, the launch counts set to 0 just before each tier
+    and read just after:
+
+      a. the transformer (its train phase's checkpoint, 10 steps; H 256,
+         8 heads, 6 + 6 layers, V 50,000, 400/100 steps, min 35, f32):
+         greedy, spec with the mapped equal-width AAN draft
+         (spec_draft=map, spec_k 4), spec with spec_k_adaptive, and the
+         draft tier; every spec row's summary equal to greedy's; exactly
+         6 flash forward launches per greedy and per draft batch and 12
+         per spec batch (6 in each encoder), and no other kernel;
+      b. the pointer-generator (the ROUGE phase's checkpoint) with a
+         fresh AAN draft (spec_draft=fresh): spec equal to greedy; the
+         greedy batch launches the fused attention twice per beam step,
+         the spec batch twice per verify step, (spec_k + 1) verify steps
+         per lockstep cycle, and the flash forward 6 times (the draft's
+         encoder);
+      c. one micro-batch ServingServer over the transformer: 8 greedy
+         and 8 spec requests pinned before start(); the spec summaries
+         equal the greedy ones.
+
+    Prints each tier's batch seconds, cycles, accept rate, mean tokens
+    emitted per cycle and tokens/s.  (device="cpu" rehearses the control
+    flow without a card; the launch checks run on the card only.)"""
+    from textsummarization_on_flink_tpu_torch import obs
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.decode import speculative
+    from textsummarization_on_flink_tpu_torch.decode.decoder import (
+        BeamSearchDecoder,
+    )
+    from textsummarization_on_flink_tpu_torch.serve.server import (
+        ServingServer,
+    )
+
+    words = synthetic_words(main_path_hps("transformer").vocab_size)
+    vocab = Vocab(words=words)
+    articles = [art for art, _ in synthetic_pairs(
+        np.random.default_rng(seed + 5), words, 16)]
+    summary = {}
+
+    def run_tiers(hps, params, tiers, family):
+        """{tier: result} of decode_batch on one decoder per tier
+        group (the adaptive controller is a decoder's own)."""
+        out, greedy_words = {}, None
+        decoders = {}
+        spec_counters = ("decode/spec_cycles_total",
+                         "decode/spec_draft_tokens_total",
+                         "decode/spec_accepted_tokens_total")
+        for name, tier, kw in tiers:
+            key = tuple(sorted(kw.items()))
+            if key not in decoders:  # each decoder in a registry of its own
+                reg = obs.Registry()
+                with obs.use_registry(reg):
+                    decoders[key] = (BeamSearchDecoder(
+                        hps.replace(**kw), vocab, None, params=params,
+                        decode_root=os.path.join(work, name)), reg)
+            dec, reg = decoders[key]
+            before = [reg.counter(c).value for c in spec_counters]
+            with obs.use_registry(reg):
+                batch = _batch_of(hps, vocab, articles)
+                reset_launch_counts()
+                beam_search.steps_run = 0
+                speculative.cycles_run = 0
+                if device == "cuda":
+                    torch_sync()
+                t0 = time.perf_counter()
+                res = dec.decode_batch(batch, tier=tier)
+                if device == "cuda":
+                    torch_sync()
+                dt = time.perf_counter() - t0
+                launched = launch_counts()
+            tokens = sum(len(r.decoded_words) for r in res)
+            row = dict(tier=tier, seconds=dt, tokens=tokens,
+                       tokens_per_s=tokens / dt, launches=launched,
+                       beam_steps=beam_search.steps_run,
+                       lockstep_cycles=speculative.cycles_run)
+            if tier == "spec":
+                cycles, drafted, accepted = (
+                    reg.counter(c).value - b
+                    for c, b in zip(spec_counters, before))
+                row.update(cycles=cycles, drafted=drafted, accepted=accepted,
+                           accept_rate=accepted / drafted if drafted else 0.0,
+                           tokens_per_cycle=tokens / cycles if cycles else 0.0,
+                           spec_k_final=reg.gauge(
+                               "decode/spec_k_current").value)
+            words_of = [r.decoded_words for r in res]
+            check(len(res) == 16 and all(words_of),
+                  f"{family} {name}: an empty summary")
+            if tier == "greedy":
+                greedy_words = words_of
+            elif tier == "spec":
+                differ = [i for i, (a, b) in enumerate(zip(words_of,
+                                                           greedy_words))
+                          if a != b]
+                check(not differ, f"{family} {name}: spec rows {differ} "
+                                  f"differ from greedy")
+            out[name] = row
+            print("spec_tier " + json.dumps(dict(family=family, name=name,
+                                                 **row)))
+        return out
+
+    tf = main_path_hps("transformer").replace(
+        mode="decode", device=device, spec_draft="map", spec_k=SPEC_K)
+    tf_rows = run_tiers(tf, tf_params, [
+        ("greedy", "greedy", {}), ("spec", "spec", {}),
+        ("spec_adaptive", "spec", dict(spec_k_adaptive=True)),
+        ("draft", "draft", {})], "transformer")
+    if device == "cuda":
+        for name, want in (("greedy", 6), ("spec", 12), ("spec_adaptive", 12),
+                           ("draft", 6)):
+            got = tf_rows[name]["launches"]
+            others = {k: v for k, v in got.items()
+                      if v and k != "flash_forward"}
+            check(got["flash_forward"] == want and not others,
+                  f"transformer {name}: launches {got}, expected "
+                  f"{want} flash forward and nothing else")
+    summary["transformer"] = tf_rows
+
+    pg = main_path_hps("pointer_generator").replace(
+        mode="decode", device=device, spec_draft="fresh", spec_k=SPEC_K)
+    pg_rows = run_tiers(pg, pg_params, [
+        ("greedy", "greedy", {}), ("spec", "spec", {})], "pointer_generator")
+    if device == "cuda":
+        g, sp = pg_rows["greedy"], pg_rows["spec"]
+        check(g["launches"]["fused"] == 2 * g["beam_steps"] > 0,
+              f"pointer_generator greedy: {g['launches']['fused']} fused "
+              f"launches in {g['beam_steps']} steps")
+        want = 2 * (SPEC_K + 1) * sp["lockstep_cycles"]
+        check(sp["launches"]["fused"] == want > 0
+              and sp["launches"]["flash_forward"] == 6,
+              f"pointer_generator spec: launches {sp['launches']}, "
+              f"expected {want} fused (2 x {SPEC_K + 1} x "
+              f"{sp['lockstep_cycles']} lockstep cycles) and 6 flash")
+    summary["pointer_generator"] = pg_rows
+
+    # c. the serve layer: greedy and spec requests pinned into one group
+    reg = obs.Registry()
+    srv_hps = tf.replace(serve_buckets=str(tf.max_enc_steps))
+    server = ServingServer(srv_hps, vocab, params=tf_params, registry=reg,
+                           decode_root=os.path.join(work, "serve"))
+    futs = {(tier, i): server.submit(a, uuid=f"{tier}{i}", tier=tier)
+            for tier in ("greedy", "spec") for i, a in
+            enumerate(articles[:8])}
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with server:
+        got = {k: f.result(timeout=900).decoded_words
+               for k, f in futs.items()}
+    serve_s = time.perf_counter() - t0
+    differ = [i for i in range(8) if got[("spec", i)] != got[("greedy", i)]]
+    check(not differ, f"served spec summaries {differ} differ from greedy")
+    check(reg.counter("serve/tier_spec_total").value == 8,
+          "the server did not count 8 spec requests")
+    summary["serve"] = dict(requests=16, seconds=serve_s,
+                            launches=launch_counts())
+    summary["launches"] = {
+        k: sum(r["launches"][k] for rows in (tf_rows, pg_rows)
+               for r in rows.values()) + summary["serve"]["launches"][k]
+        for k in ("fused", "flash_forward")}
+    summary["card"] = card_line() if device == "cuda" else None
+    print("spec " + json.dumps(summary))
+    return summary
+
+
+def torch_sync():
+    import torch
+
+    torch.cuda.synchronize()
+
+
+def phase_distill(seed, work, tf_params, device="cuda", steps=5):
+    """Sequence-level distillation (train/distill.py): ``DistillTrainer``
+    takes ``steps`` steps of the narrow AAN draft (DISTILL_FLAGS: hidden
+    128, a rank-64 factored head, one decoder layer) against the frozen
+    full transformer (its train phase's checkpoint) at the reference
+    width, on the 64 synthetic pairs of the train phases (4 batches of
+    16, each teacher-decoded once), the launch counts set to 0 just
+    before and read just after: exactly 6 flash forward, 6 dK/dV and 6
+    dQ launches per draft step (its encoder) plus 6 forward per teacher
+    decode.  Prints the losses and the acceptance of a spec decode of one
+    batch before and after.  Then a small width's step on the card
+    against the CPU (the teacher's arrays equal, the loss within 1e-4
+    relative), and ``load_distilled_draft`` with the teacher check
+    feeding the spec tier, whose summaries equal greedy's.  (device="cpu"
+    rehearses the control flow without a card.)"""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch import obs
+    from textsummarization_on_flink_tpu_torch.checkpoint.checkpointer import (
+        Checkpointer,
+    )
+    from textsummarization_on_flink_tpu_torch.data.batcher import Batcher
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.decode.decoder import (
+        BeamSearchDecoder,
+    )
+    from textsummarization_on_flink_tpu_torch.params import (
+        from_numpy_tree,
+        init_numpy_params,
+    )
+    from textsummarization_on_flink_tpu_torch.train import distill
+
+    hps = train_main_path_hps("transformer").replace(
+        device=device, seed=seed, metrics_every=1, **DISTILL_FLAGS)
+    vocab_path, data_path = write_train_chunks(work, hps, seed, 64)
+    vocab = Vocab(vocab_path, hps.vocab_size)
+    batcher = Batcher(data_path, vocab, hps, single_pass=True)
+    batches = []
+    while True:
+        b = batcher.next_batch()
+        if b is None:
+            break
+        batches.append(b)
+    check(len(batches) == 4, f"{len(batches)} batches of the 64 pairs")
+
+    class Cycle:
+        def __init__(self):
+            self.i = 0
+
+        def next_batch(self):
+            self.i += 1
+            return batches[(self.i - 1) % len(batches)]
+
+    dev = torch.device(device)
+    teacher = from_numpy_tree(tf_params, dev)
+    held = batches[0].as_arrays()
+    reg = obs.Registry()
+    log_ = logging.getLogger("textsummarization_on_flink_tpu_torch.train."
+                             "distill")
+    losses = []
+
+    class _Losses(logging.Handler):
+        def emit(self, record):
+            if record.msg.startswith("distill step"):
+                losses.append(float(record.args[1]))
+
+    handler = _Losses()
+    log_.setLevel(logging.INFO)
+    log_.addHandler(handler)
+    ckpt_dir = os.path.join(work, "draft")
+    try:
+        with obs.use_registry(reg):
+            dt = distill.DistillTrainer(
+                hps, hps.vocab_size, Cycle(), teacher,
+                checkpointer=Checkpointer(ckpt_dir), cache_teacher=True,
+                seed=seed)
+            spec_hps = hps.replace(mode="decode", spec_k=SPEC_K)
+            before = distill.acceptance_rate(teacher, dt.draft_params(),
+                                             spec_hps, held)
+            reset_launch_counts()
+            if device == "cuda":
+                torch_sync()
+            t0 = time.perf_counter()
+            dt.distill(steps)
+            if device == "cuda":
+                torch_sync()
+            distill_s = time.perf_counter() - t0
+            launched = launch_counts()
+            after = distill.acceptance_rate(teacher, dt.draft_params(),
+                                            spec_hps, held)
+    finally:
+        log_.removeHandler(handler)
+    decodes = reg.histogram("train/distill_teacher_seconds").count
+    want = dict.fromkeys(launched, 0)
+    want.update(flash_forward=6 * steps + 6 * decodes,
+                flash_bwd_dkv=6 * steps, flash_bwd_dq=6 * steps)
+    if device == "cuda":
+        check(launched == want, f"distillation launched {launched}, "
+                                f"expected {want}")
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"distillation losses {losses}")
+    summary = dict(steps=steps, teacher_decodes=decodes, seconds=distill_s,
+                   losses=losses, accept_before=before, accept_after=after,
+                   launches=launched)
+
+    # the small width: one step on the card against the CPU
+    if device == "cuda":
+        small = small_hps("transformer").replace(
+            mode="train", draft_hidden=32, draft_vocab_rank=16,
+            draft_dec_layers=1)
+        p = init_numpy_params(small, small.vocab_size, seed)
+        p["embedding"] *= 30.0
+        p["out_bias"][3] = 3.0  # STOP
+        arrays = small_train_batches(small, seed, 1)[0]
+
+        class One:
+            def next_batch(self):
+                return _Arrays(arrays)
+
+        runs = {}
+        for d in ("cpu", "cuda"):
+            sd = small.replace(device=d)
+            t_arr = distill.teacher_arrays(from_numpy_tree(p, d), sd, arrays)
+            with obs.use_registry(obs.Registry()) as r:
+                init = distill.DistillTrainer(sd, small.vocab_size, One(), p,
+                                              seed=seed)
+                reset_launch_counts()
+                init.distill(1)
+                runs[d] = (t_arr, r.gauge("train/distill_loss").value,
+                           launch_counts())
+        same = all(np.array_equal(runs["cpu"][0][k], runs["cuda"][0][k])
+                   for k in runs["cpu"][0])
+        rel = abs(runs["cuda"][1] - runs["cpu"][1]) / abs(runs["cpu"][1])
+        summary["small"] = dict(teacher_arrays_equal=same,
+                                cpu_loss=runs["cpu"][1],
+                                card_loss=runs["cuda"][1], loss_rel_diff=rel,
+                                card_launches=runs["cuda"][2])
+        check(not any(runs["cpu"][2].values()), "the CPU step launched a "
+                                                "kernel")
+        check(runs["cuda"][2]["flash_bwd_dq"] == small.enc_layers,
+              f"the card step launched {runs['cuda'][2]}")
+        check(same, "the teacher's arrays on the card differ from the CPU's")
+        check(rel <= 1e-4, f"card distillation loss differs from the CPU's "
+                           f"by {rel}")
+
+    # the distilled draft, loaded with the teacher check, in the spec tier
+    draft = distill.load_distilled_draft(ckpt_dir, full_params=teacher,
+                                         device=dev)
+    dec = BeamSearchDecoder(spec_hps.replace(batch_size=16), vocab, None,
+                            params=teacher, draft_params=draft,
+                            decode_root=os.path.join(work, "decode"))
+    greedy = dec.decode_batch(batches[1], tier="greedy")
+    spec = dec.decode_batch(batches[1], tier="spec")
+    differ = [i for i, (a, b) in enumerate(zip(spec, greedy))
+              if a.decoded_words != b.decoded_words]
+    check(not differ, f"the distilled draft's spec rows {differ} differ "
+                      f"from greedy")
+    summary["card"] = card_line() if device == "cuda" else None
+    print("distill " + json.dumps(summary))
+    return summary
+
+
+class _Arrays:
+    """A next_batch payload of ready arrays (distillation reads
+    as_arrays() only)."""
+
+    def __init__(self, arrays):
+        self._arrays = arrays
+
+    def as_arrays(self):
+        return self._arrays
+
+
 def _trained(family, fn):
     """fn(work) -> summary of a train phase, and the numpy params of its
     last checkpoint (model.ckpt-<steps>.npz of work/exp/train)."""
@@ -2747,6 +3130,10 @@ def main(argv=None) -> int:
         args.seed, w, scored["trained_params"]))
     cont = _in_work("continuous_serve", lambda w: phase_continuous_serve(
         args.seed, w, scored["trained_params"], trained["transformer"]))
+    spec = _in_work("spec", lambda w: phase_spec(
+        args.seed, w, trained["transformer"], scored["trained_params"]))
+    dist = _in_work("distill", lambda w: phase_distill(
+        args.seed, w, trained["transformer"]))
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     bwd_main = bwd_rows[0]  # the training encoder's shape
@@ -2785,7 +3172,7 @@ def main(argv=None) -> int:
         + diet["decode"]["kernel_launches"] + scored["launches"]["fused"]
         + scored["train_launches"]["fused"] + streamed["launches"]["fused"]
         + wide_pg_decode + wide_pg_train["fused"] + served["launches"]
-        + cont["launches"],
+        + cont["launches"] + spec["launches"]["fused"],
         max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         # the bf16 stream at the decode shape and at the training shape
@@ -2845,6 +3232,10 @@ def main(argv=None) -> int:
                        max_abs_err=r["max_abs_err"])
                   for r in bounded_rows],
             shape=bounded_rows[0]["shape"]),
+        # the speculative tier (phase_spec): the pointer-generator's greedy
+        # batch and its K = 1 verify steps, at the training shape's row
+        spec=dict(launches=spec["launches"]["fused"],
+                  timed_in="training_shape"),
         library_ms=None, redesigned="PR 5"), dict(
         name="fused_attention_bwd", route="cuda", source=fused_src + "_bwd.cu",
         # the custom_vjp's backward (jax.vjp of the XLA formula)
@@ -2876,7 +3267,13 @@ def main(argv=None) -> int:
         replaces="textsummarization_on_flink_tpu/models/transformer.py:285",
         # both main paths that run it: decode and training
         launches=summaries["transformer"]["kernel_launches"]
-        + tf_train["flash_forward"] + hd256_flash + cont["flash_launches"],
+        + tf_train["flash_forward"] + hd256_flash + cont["flash_launches"]
+        + spec["launches"]["flash_forward"]
+        + dist["launches"]["flash_forward"],
+        # the speculative tier's encoders (both models') and the
+        # distillation's teacher decodes and draft steps
+        spec=dict(launches=spec["launches"]["flash_forward"]),
+        distill=dict(launches=dist["launches"]["flash_forward"]),
         max_abs_err=flash_worst, ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
         bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],
@@ -2899,7 +3296,9 @@ def main(argv=None) -> int:
             replaces=("textsummarization_on_flink_tpu/models/transformer.py"
                       f":285 (library _flash_attention_bwd_{key})"),
             launches=tf_train[f"flash_bwd_{key}"]
-            + hd256_train[f"flash_bwd_{key}"],
+            + hd256_train[f"flash_bwd_{key}"]
+            + dist["launches"][f"flash_bwd_{key}"],
+            distill=dict(launches=dist["launches"][f"flash_bwd_{key}"]),
             max_abs_err=(max(bwd_worst["dk"], bwd_worst["dv"])
                          if key == "dkv" else bwd_worst["dq"]),
             ms=bwd_main[f"{key}_ms"], plain_ms=bwd_main["plain_ms"],

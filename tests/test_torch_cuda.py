@@ -1432,3 +1432,99 @@ def test_debug_nans_raises_in_the_card_backward():
     with pytest.raises(FloatingPointError, match="aten"):
         with trainer.DebugNans():
             trainer.train_step(hps, state, dev, inplace=False)
+
+
+def _spec_case(family):
+    """A small model of ``family`` and a batch for the speculative tier:
+    peaked scores (embedding x30, a STOP bias), articles of ragged
+    lengths with OOVs, the AAN draft mapped (transformer) or fresh."""
+    from textsummarization_on_flink_tpu_torch.config import HParams
+    from textsummarization_on_flink_tpu_torch.params import init_numpy_params
+
+    common = dict(batch_size=4, vocab_size=200, max_enc_steps=40,
+                  max_dec_steps=12, beam_size=1, min_dec_steps=3,
+                  max_oov_buckets=8, mode="decode", spec_k=3,
+                  draft_dec_layers=1)
+    if family == "transformer":
+        hps = HParams(model_family=family, hidden_dim=64, num_heads=2,
+                      enc_layers=2, dec_layers=2, spec_draft="map", **common)
+    elif family == "avg_attention":
+        hps = HParams(model_family=family, hidden_dim=64, num_heads=2,
+                      enc_layers=2, dec_layers=2, spec_draft="fresh",
+                      **dict(common, draft_dec_layers=0))
+    else:
+        hps = HParams(hidden_dim=32, emb_dim=16, coverage=True,
+                      spec_draft="fresh", **common)
+    p = init_numpy_params(hps, hps.vocab_size, 5)
+    if family == "pointer_generator":
+        p["output_projection"]["w"] *= 4.0
+        p["output_projection"]["v"][3] = 3.5  # STOP: some rows end early
+    else:
+        p["embedding"] *= 30.0
+        p["out_bias"][3] = 12.0  # STOP
+    rng = np.random.RandomState(1)
+    B, T = hps.batch_size, hps.max_enc_steps
+    lens = rng.randint(T // 2, T + 1, B)
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    ids = np.where(mask > 0, rng.randint(4, hps.vocab_size, (B, T)), 1)
+    ext = np.where((rng.rand(B, T) < 0.2) & (mask > 0),
+                   hps.vocab_size + rng.randint(0, 4, (B, T)), ids)
+    arrays = dict(enc_batch=ids.astype(np.int32),
+                  enc_lens=lens.astype(np.int32), enc_padding_mask=mask,
+                  enc_batch_extend_vocab=ext.astype(np.int32))
+    return hps, p, arrays
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["transformer", "pointer_generator"])
+def test_spec_tier_equals_greedy_on_card(family):
+    """The speculative tier through the kernels (both models' encoders on
+    the flash forward; the pointer-generator's verify steps on the fused
+    attention) gives the greedy tier's tokens, on the card, and the CPU's
+    spec tokens and counts."""
+    _need_cuda()
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.decode import speculative
+    from textsummarization_on_flink_tpu_torch.models import avg_attention
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+    from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
+
+    hps, p, arrays = _spec_case(family)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = from_numpy_tree(p, torch.device(dev))
+        draft = avg_attention.make_draft_params(hps, params, seed=3)
+        before = fl.launches
+        spec = speculative.run_spec_decode(params, draft, hps, arrays)
+        if dev == "cuda":
+            assert fl.launches - before == (
+                2 * hps.enc_layers if family == "transformer"
+                else hps.enc_layers)
+        greedy = beam_search.run_beam_search(params, hps, arrays)
+        for b in range(hps.batch_size):
+            n = int(greedy.length[b])
+            assert int(spec.length[b]) == n
+            assert list(spec.tokens[b][:n]) == list(greedy.tokens[b][:n])
+        out[dev] = spec
+    for f in ("tokens", "length", "cycles", "accepted", "accept_hist"):
+        np.testing.assert_array_equal(getattr(out["cuda"], f),
+                                      getattr(out["cpu"], f), err_msg=f)
+
+
+@pytest.mark.cuda
+def test_aan_tokens_on_card_equal_the_cpu():
+    """The AAN family's beam search (beam 4) with its encoder on the flash
+    kernel: the CPU's tokens and lengths, average log-probs within
+    1e-4."""
+    _need_cuda()
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
+
+    hps, p, arrays = _spec_case("avg_attention")
+    hps = hps.replace(beam_size=4)
+    cpu = beam_search.run_beam_search(from_numpy_tree(p, "cpu"), hps, arrays)
+    gpu = beam_search.run_beam_search(
+        from_numpy_tree(p, torch.device("cuda")), hps, arrays)
+    np.testing.assert_array_equal(gpu.tokens, cpu.tokens)
+    np.testing.assert_array_equal(gpu.length, cpu.length)
+    np.testing.assert_allclose(gpu.avg_log_prob, cpu.avg_log_prob, atol=1e-4)

@@ -90,15 +90,15 @@ def test_from_argv_matches_jax_on_shared_fields():
 
 
 def test_validate_refuses_unported_options():
-    """bf16 compute is taken for both families (the transformer's flash
-    kernels have their bf16 forms); the families and options still to
-    port raise naming their ROADMAP item (the bf16 KV cache queue 2 item
-    6, in bf16 compute too)."""
+    """bf16 compute is taken for every family (the transformer's flash
+    kernels have their bf16 forms), the AAN family too since queue 1 item
+    5; the options still to port raise naming their ROADMAP item (the
+    bf16 KV cache queue 2 item 6, in bf16 compute too)."""
     torch_config.HParams(compute_dtype="bfloat16").validate()
     torch_config.HParams(compute_dtype="bfloat16",
                          model_family="transformer").validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        torch_config.HParams(model_family="avg_attention").validate()
+    torch_config.HParams(compute_dtype="bfloat16",
+                         model_family="avg_attention").validate()
     for dt in ("float32", "bfloat16"):
         with pytest.raises(NotImplementedError, match="queue 2, item 6"):
             torch_config.HParams(model_family="transformer",

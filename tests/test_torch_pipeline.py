@@ -393,9 +393,11 @@ def test_a_trickled_row_is_summarized_before_the_stream_goes_on(port_run):
 
 
 def test_what_is_not_ported_yet_raises(port_run):
-    """Hierarchical transforms (item 7) and a spec tier (item 5) raise;
-    serving with the continuous engine (item 4, landed) transforms the
-    rows as the micro-batch engine does."""
+    """Hierarchical transforms (item 7) raise; serving with the continuous
+    engine (item 4, landed) transforms the rows as the micro-batch engine
+    does, and so (item 5, landed) do the spec tier, with a fresh AAN
+    draft, and an App whose degrade tier is draft; a spec tier without a
+    draft model is refused at its first submit."""
     model = make_estimator("port", port_run["root"])._model()
     src = io.CollectionSource(rows(1))
     with pytest.raises(NotImplementedError, match="queue 1, item 7"):
@@ -407,15 +409,24 @@ def test_what_is_not_ported_yet_raises(port_run):
     got = io.CollectionSink()
     model.transform(io.CollectionSource(rows(2)), got, serving=True)
     assert len(got.rows) == 2 and sorted(got.rows) == sorted(want.rows)
+    model.set_inference_hyper_params(argv + ["--serve_default_tier=greedy"])
+    greedy = io.CollectionSink()
+    model.transform(io.CollectionSource(rows(2)), greedy, serving=True)
+    model.set_inference_hyper_params(argv + ["--serve_default_tier=spec",
+                                             "--spec_draft=fresh"])
+    spec = io.CollectionSink()
+    model.transform(io.CollectionSource(rows(2)), spec, serving=True)
+    assert sorted(spec.rows) == sorted(greedy.rows)
     model.set_inference_hyper_params(argv + ["--serve_default_tier=spec"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
+    with pytest.raises(ValueError, match="draft model"):
         model.transform(src, serving=True)
     a = app.App(hps("port", port_run["root"], "train"),
                 hps("port", port_run["root"], "decode").replace(
                     serve_degrade_tier="draft"),
                 vocab=Vocab(words=WORDS))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        a.start_inference(source=src, sink=io.CollectionSink(), serving=True)
+    out = a.start_inference(source=io.CollectionSource(rows(2)),
+                            sink=io.CollectionSink(), serving=True)
+    assert sorted(out.rows) == sorted(want.rows)
     assert not _feeder_threads()
 
 

@@ -1119,15 +1119,26 @@ class TestServeParity:
         assert pinned["beam"]["port"] != pinned["greedy"]["port"]
 
     def test_a_spec_tier_names_item_5(self, pinned, tmp_path):
+        """Item 5 landed: without a draft model the spec and draft tiers
+        are refused at submit, as the JAX server refuses them; with
+        ``spec_draft=fresh`` the pinned group's spec summaries are the
+        greedy tier's."""
         server = ServingServer(pinned["thps"], Vocab(words=PARITY_WORDS),
                                params=pinned["params"],
                                decode_root=str(tmp_path), registry=Registry())
         for tier in ("spec", "draft"):
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP.md queue 1, item 5"):
+            with pytest.raises(ValueError, match="draft model"):
                 server.submit("the cat .", tier=tier)
         with pytest.raises(ValueError, match="tier must be one of"):
             server.submit("the cat .", tier="nope")
+        treg = Registry()
+        spec = ServingServer(pinned["thps"].replace(spec_draft="fresh"),
+                             Vocab(words=PARITY_WORDS),
+                             params=pinned["params"],
+                             decode_root=str(tmp_path / "spec"),
+                             registry=treg)
+        assert _pinned_summaries(spec, "spec") == pinned["greedy"]["port"]
+        assert treg.counter("serve/tier_spec_total").value == N_PIN
 
     def test_continuous_without_an_engine_names_item_4(self, pinned,
                                                        tmp_path):

@@ -10,6 +10,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_parity import WORDS, abstract, article, make_hps, n, t
 from textsummarization_on_flink_tpu.checkpoint import checkpointer as jax_ckpt
@@ -228,10 +229,17 @@ def test_unported_transformer_options_raise_with_their_roadmap_item():
         hps.replace(decode_cache_dtype="bfloat16").validate()
     with pytest.raises(ValueError, match="num_heads"):
         hps.replace(num_heads=7).validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
-        hps.replace(model_family="avg_attention").validate()
+    # queue 1 item 5 landed: the AAN family validates, and a factored
+    # vocab_head scores through (h @ w1) @ w2 + out_bias
+    hps.replace(model_family="avg_attention").validate()
+    assert get_family("avg_attention").__name__.endswith("avg_attention")
     _, thps = tf_hps()
     p = from_numpy_tree(tf_params(thps))
-    p["vocab_head"] = {"w1": p["out_bias"], "w2": p["out_bias"]}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 5"):
-        tfm.vocab_scores_of(p, thps, p["pos_dec"])
+    H, V = p["pos_dec"].shape[1], p["out_bias"].shape[0]
+    g = torch.Generator().manual_seed(0)
+    p["vocab_head"] = {"w1": torch.randn(H, 3, generator=g),
+                       "w2": torch.randn(3, V, generator=g)}
+    got = tfm.vocab_scores_of(p, thps, p["pos_dec"])
+    torch.testing.assert_close(
+        got, (p["pos_dec"] @ p["vocab_head"]["w1"]) @ p["vocab_head"]["w2"]
+        + p["out_bias"])

@@ -217,20 +217,22 @@ def test_jax_flags_that_parsed_silently_now_raise():
             "--mode=decode --device=cpu".split())
     for flags, item in (("--hier_chunk_words 64", "item 7"),
                         ("--serve_replicas=2", "item 7"),
-                        ("--spec_k_adaptive", "item 5")):
+                        ("--profile_analytic", "item 2h")):
         with pytest.raises(NotImplementedError, match=item):
             HParams.from_argv(flags.split())
-    # the slot engine's flags came with the slot engine (item 4)
+    # the slot engine's flags came with the slot engine (item 4), the
+    # speculative tier's with the AAN draft (item 5)
     assert HParams.from_argv("--serve_slots 4".split()).serve_slots == 4
+    assert HParams.from_argv("--spec_k_adaptive".split()).spec_k_adaptive
     # the obs fields came with the obs package: taken as JAX takes them
     assert HParams.from_argv("--obs False".split()).obs is False
     # a name neither package knows is ignored, as the reference does
     assert HParams.from_argv(["--no_such_flag=3"]) == HParams()
 
 
-#: the fields the obs package and the serve layer brought, each at a
-#: value other than its JAX default; None where the value still needs an
-#: unported item, else the item's label
+#: the fields the obs package, the serve layer and the speculative tier
+#: brought, each at a value other than its JAX default; the item's label
+#: where the value still needs an unported item, else None
 PORTED_FLAGS = [
     ("obs", "False", None), ("obs_http_port", "9000", None),
     ("flight_frames", "8", None), ("summary_flush_every", "4", None),
@@ -246,7 +248,11 @@ PORTED_FLAGS = [
     ("serve_tenant_burst", "3", None),
     ("serve_fair_weights", "free:1,paid:4", None),
     ("serve_default_tier", "greedy", None),
-    ("serve_degrade_tier", "spec", "item 5"),
+    ("serve_degrade_tier", "spec", None),
+    ("spec_k", "3", None), ("spec_draft", "map", None),
+    ("draft_dec_layers", "2", None), ("draft_hidden", "256", None),
+    ("draft_vocab_rank", "64", None), ("spec_k_adaptive", "True", None),
+    ("spec_k_min", "2", None), ("spec_k_max", "6", None),
 ]
 
 

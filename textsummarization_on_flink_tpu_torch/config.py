@@ -18,17 +18,22 @@ fields (``obs``, ``obs_http_port``, ``flight_frames``,
 and tier fields), with the JAX types, defaults and checks, and the
 serving helpers ``SERVE_TIERS``, ``parse_bucket_spec``,
 ``parse_fair_weights``, ``resolve_tenant_burst`` and ``bucket_for``.
-A tier takes ``beam`` or ``greedy``: ``spec`` and ``draft`` raise
-naming ROADMAP.md queue 1, item 5.  The continuous engine's fields
+The continuous engine's fields
 (``serve_mode=continuous``, ``serve_slots``, ``serve_refill_chunk``,
 ``serve_prefill_depth``, ``serve_arena_pages``, ``serve_arena_mb``,
 ``decode_enc_block``) are the JAX package's, with its defaults, checks
 and resolvers (``resolve_serve_slots``, ``resolve_enc_block``,
-``resolve_refill_chunk``, ``resolve_arena_pages``).
+``resolve_refill_chunk``, ``resolve_arena_pages``).  The speculative
+tier's and the AAN draft's fields (``spec_k``, ``spec_draft``,
+``draft_dec_layers``, ``draft_hidden``, ``draft_vocab_rank``,
+``spec_k_adaptive``, ``spec_k_min``, ``spec_k_max``) are the JAX
+package's too, with its checks and its resolvers ``derive_draft_hps``,
+``resolve_draft_hidden`` and ``resolve_spec_bounds``; every tier of
+``SERVE_TIERS`` is served.
 
 Fields of the JAX package that steer paths this package does not have
-yet (mesh axes, speculative tiers, the fleet, the profiler's analytic
-pricing) are not fields here:
+yet (mesh axes, the fleet, the profiler's analytic pricing) are not
+fields here:
 ``JAX_ONLY_FIELDS`` lists them with their JAX types and defaults, and
 ``from_argv`` (so ``from_string`` and the pipeline's hyperparameter
 strings too) accepts one at its default and raises
@@ -49,8 +54,6 @@ from typing import Any, Dict, List, Optional, Tuple
 #: ROADMAP.md names the queue item that brings each missing mode, option
 #: or family; error messages point there
 ROADMAP_BF16_CACHE = "ROADMAP.md queue 2, item 6 (bf16 decode KV cache)"
-ROADMAP_AAN = ("ROADMAP.md queue 1, item 5 (AAN draft, speculative decode, "
-               "distillation)")
 ROADMAP_HEAD_DIM = ("ROADMAP.md queue 3, item 1 (transformer head dims above "
                     "256 on the card)")
 ROADMAP_PG_WIDTH = ("ROADMAP.md queue 3, item 4 (pointer-generator widths "
@@ -83,14 +86,6 @@ JAX_ONLY_FIELDS: Dict[str, Tuple[type, Any, Optional[str]]] = {
     "sp_attention": (str, "", ROADMAP_MULTI_GPU),
     "grad_allreduce_dtype": (str, "float32", ROADMAP_MULTI_GPU),
     "scan_unroll": (int, 8, None),
-    "spec_k": (int, 4, ROADMAP_AAN),
-    "spec_draft": (str, "", ROADMAP_AAN),
-    "draft_dec_layers": (int, 0, ROADMAP_AAN),
-    "draft_hidden": (int, 0, ROADMAP_AAN),
-    "draft_vocab_rank": (int, 0, ROADMAP_AAN),
-    "spec_k_adaptive": (bool, False, ROADMAP_AAN),
-    "spec_k_min": (int, 1, ROADMAP_AAN),
-    "spec_k_max": (int, 8, ROADMAP_AAN),
     "serve_replicas": (int, 1, ROADMAP_FLEET),
     "serve_hedge_ms": (float, 0.0, ROADMAP_FLEET),
     "serve_hedge_max_ratio": (float, 0.1, ROADMAP_FLEET),
@@ -127,22 +122,6 @@ def _refuse_jax_only(name: str, val: str) -> None:
         raise NotImplementedError(
             f"--{name}={val}: the PyTorch port has no {name!r} yet (only the "
             f"JAX default {default!r} is accepted); {item}")
-
-
-#: values of ported fields that still need an unported item: a serving
-#: tier below greedy needs the draft model
-_UNPORTED_VALUES: Dict[str, Dict[str, str]] = {
-    "serve_default_tier": {"spec": ROADMAP_AAN, "draft": ROADMAP_AAN},
-    "serve_degrade_tier": {"spec": ROADMAP_AAN, "draft": ROADMAP_AAN},
-}
-
-
-def _refuse_unported_value(name: str, val: str) -> None:
-    item = _UNPORTED_VALUES[name].get(val)
-    if item is not None:
-        raise NotImplementedError(
-            f"--{name}={val}: the PyTorch port has no {val!r} {name} yet; "
-            f"{item}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -267,8 +246,7 @@ class HParams:
     serve_arena_pages: int = 0
     serve_arena_mb: float = 0.0
     # the tier a request gets when it names none, and the tier a beam
-    # request falls to under deadline pressure (JAX config.py:351-360;
-    # beam or greedy here: spec and draft are ROADMAP_AAN)
+    # request falls to under deadline pressure (JAX config.py:351-360)
     serve_default_tier: str = "beam"
     serve_degrade_tier: str = "greedy"
     # the front door (serve/frontdoor.py, JAX config.py:381-421): summary
@@ -291,6 +269,21 @@ class HParams:
     # storage type of the transformer's decode KV cache (JAX :260);
     # float32 only in the port
     decode_cache_dtype: str = "float32"
+
+    # the speculative tier (JAX config.py:298-350): draft tokens proposed
+    # per cycle; the draft ("" = none, "map" = mapped from the full
+    # transformer's checkpoint, "fresh" = random init); the draft's
+    # decoder layers (0 = dec_layers), width (0 = hidden_dim) and vocab
+    # head rank (0 = the tied projection); the acceptance-adaptive draft
+    # length and its bounds
+    spec_k: int = 4
+    spec_draft: str = ""
+    draft_dec_layers: int = 0
+    draft_hidden: int = 0
+    draft_vocab_rank: int = 0
+    spec_k_adaptive: bool = False
+    spec_k_min: int = 1
+    spec_k_max: int = 8
 
     # ---- the port's own ----
     device: str = "cuda"  # "cuda" or "cpu"; no silent fallback
@@ -344,8 +337,6 @@ class HParams:
                 continue
             if name in JAX_ONLY_FIELDS:
                 _refuse_jax_only(name, val)
-            elif name in _UNPORTED_VALUES:
-                _refuse_unported_value(name, val)
             if name in fields:
                 out[name] = _parse_flag(fields[name], val)
         return cls(**out)
@@ -409,7 +400,7 @@ class HParams:
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"device must be 'cuda' or 'cpu', got "
                              f"{self.device!r}")
-        if self.model_family == "transformer":
+        if self.model_family in ("transformer", "avg_attention"):
             if self.hidden_dim % self.num_heads != 0:
                 raise ValueError(
                     f"num_heads={self.num_heads} must divide "
@@ -424,6 +415,7 @@ class HParams:
                     f"{ROADMAP_HEAD_DIM}")
         if self.device == "cuda" and self.model_family == "pointer_generator":
             self._refuse_pg_width()
+        self._validate_spec()
         if self.decode_cache_dtype == "bfloat16":
             raise NotImplementedError(
                 f"decode_cache_dtype='bfloat16': the port stores the KV "
@@ -439,23 +431,57 @@ class HParams:
             )
 
             faultinject.parse(self.faults)
-        # families not ported yet raise from models.get_family, which
-        # names their roadmap item
+        # an unknown family raises from models.get_family
         from textsummarization_on_flink_tpu_torch.models import get_family
 
         get_family(self.model_family)
 
+    def _validate_spec(self) -> None:
+        """The JAX package's checks of the speculative tier's and the
+        draft's fields (JAX config.py:591-627)."""
+        if self.spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {self.spec_k}")
+        if self.spec_draft not in ("", "map", "fresh"):
+            raise ValueError(
+                f"spec_draft must be ''|'map'|'fresh', got "
+                f"{self.spec_draft!r}")
+        if not 0 <= self.draft_dec_layers <= self.dec_layers:
+            raise ValueError(
+                f"draft_dec_layers must be in [0, dec_layers="
+                f"{self.dec_layers}], got {self.draft_dec_layers}")
+        if not 0 <= self.draft_hidden <= self.hidden_dim:
+            raise ValueError(
+                f"draft_hidden must be in [0, hidden_dim="
+                f"{self.hidden_dim}] (0 = equal width), got "
+                f"{self.draft_hidden}")
+        if self.draft_hidden and self.draft_hidden % self.num_heads != 0:
+            raise ValueError(
+                f"num_heads={self.num_heads} must divide "
+                f"draft_hidden={self.draft_hidden}")
+        if self.draft_vocab_rank < 0:
+            raise ValueError(
+                f"draft_vocab_rank must be >= 0 (0 = tied projection), "
+                f"got {self.draft_vocab_rank}")
+        if (0 < self.draft_hidden < self.hidden_dim
+                and self.draft_vocab_rank == 0):
+            raise ValueError(
+                "a narrow draft (draft_hidden < hidden_dim) requires a "
+                "factored vocab head (draft_vocab_rank > 0): the tied "
+                "[V, H] projection cannot consume H_d-wide states")
+        if self.spec_k_min < 1 or self.spec_k_max < self.spec_k_min:
+            raise ValueError(
+                f"need 1 <= spec_k_min <= spec_k_max, got "
+                f"[{self.spec_k_min}, {self.spec_k_max}]")
+        if self.spec_k_adaptive and not (
+                self.spec_k_min <= self.spec_k <= self.spec_k_max):
+            raise ValueError(
+                f"spec_k_adaptive needs the starting spec_k={self.spec_k} "
+                f"inside [spec_k_min={self.spec_k_min}, "
+                f"spec_k_max={self.spec_k_max}]")
 
     def _validate_serving(self) -> None:
         """The JAX package's checks of the serving fields (JAX
-        config.py:628-636, :694-757); a spec or draft tier raises naming
-        ROADMAP_AAN."""
-        for name in ("serve_default_tier", "serve_degrade_tier"):
-            tier = getattr(self, name)
-            if tier in ("spec", "draft"):
-                raise NotImplementedError(
-                    f"{name}={tier!r}: the spec and draft tiers need the "
-                    f"draft model; {ROADMAP_AAN}")
+        config.py:628-636, :694-757)."""
         if self.serve_default_tier not in SERVE_TIERS:
             raise ValueError(
                 f"serve_default_tier must be one of {SERVE_TIERS}, got "
@@ -559,9 +585,36 @@ def beam_chunk_from_env() -> int:
 
 
 #: per-request serving quality tiers, costliest first (JAX config.py:
-#: 772-775); the port serves beam and greedy, spec and draft are
-#: ROADMAP_AAN
+#: 772-775)
 SERVE_TIERS = ("beam", "greedy", "spec", "draft")
+
+
+def derive_draft_hps(hps: "HParams") -> "HParams":
+    """The draft model's HParams from the full model's (JAX
+    config.py:816): the avg_attention family at the same hidden width
+    with ``draft_dec_layers`` decoder layers (0 = the full model's
+    count).  The one resolver: the decoder, the spec engine and the
+    distillation trainer all derive the draft's shape through it."""
+    return hps.replace(
+        model_family="avg_attention",
+        dec_layers=hps.draft_dec_layers or hps.dec_layers)
+
+
+def resolve_draft_hidden(hps: "HParams") -> int:
+    """The draft's decoder width: draft_hidden, or hidden_dim when 0 (JAX
+    config.py:828)."""
+    return hps.draft_hidden or hps.hidden_dim
+
+
+def resolve_spec_bounds(hps: "HParams") -> Tuple[int, int, int]:
+    """(k_min, k_start, k_max) of the speculative tier (JAX config.py:
+    837): all three spec_k unless spec_k_adaptive, else [spec_k_min,
+    spec_k_max] around the starting spec_k.  The decoder's accept-length
+    buckets, the SpecKController and the adaptive engine's verify-cache
+    width all derive through it."""
+    if not hps.spec_k_adaptive:
+        return (hps.spec_k, hps.spec_k, hps.spec_k)
+    return (hps.spec_k_min, hps.spec_k, hps.spec_k_max)
 
 
 def parse_bucket_spec(spec: str, max_enc_steps: int) -> List[int]:

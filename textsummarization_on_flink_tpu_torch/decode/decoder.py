@@ -21,14 +21,25 @@ explicit tier, a budget short of the full-beam latency estimate degrades
 the batch to greedy (``should_degrade``, the serve layer's per-request
 predicate), and the results say ``degraded``.
 
+The quality tiers: ``beam``, ``greedy`` (beam_size=1), ``spec`` (the
+draft-then-verify engine of decode/speculative.py, token for token the
+greedy tier) and ``draft`` (greedy on the draft alone).  The draft is
+``draft_params=``, or built from ``spec_draft`` ("map": from the full
+transformer's params, re-derived under the params lock at each
+checkpoint reload; "fresh": random from ``seed``); spec dispatches count
+``decode/spec_cycles_total``, ``decode/spec_draft_tokens_total``,
+``decode/spec_accepted_tokens_total`` and the ``decode/spec_accept_len``
+histogram over real rows, and the gauge ``decode/spec_k_current`` reads
+the adaptive controller's k.
+
 ``SlotDecodeEngine`` (``BeamSearchDecoder.slot_engine``) is the JAX
 package's continuous-batching engine over the slot functions of
 decode/beam_search.py: a prefill stage at the serve buckets, resident
 articles stepped a chunk at a time, each retired the moment its search
-ends; dense, or over a page arena (decode/arena.py).
+ends; dense, or over a page arena (decode/arena.py).  It decodes at the
+beam tier only, as the JAX engine does.
 
-Not yet ported (ROADMAP.md queue 1): the spec/draft tiers (item 5) and
-the mesh (item 6).
+Not yet ported (ROADMAP.md queue 1): the mesh (item 6).
 """
 
 from __future__ import annotations
@@ -49,31 +60,30 @@ from textsummarization_on_flink_tpu_torch.checkpoint import (
     checkpointer as ckpt_lib,
 )
 from textsummarization_on_flink_tpu_torch.config import (
-    ROADMAP_AAN,
     SERVE_TIERS,
     HParams,
     bucket_for,
+    derive_draft_hps,
     parse_bucket_spec,
     resolve_arena_pages,
     resolve_enc_block,
+    resolve_spec_bounds,
 )
 from textsummarization_on_flink_tpu_torch.data import oov as oov_lib
 from textsummarization_on_flink_tpu_torch.data.batching import Batch
 from textsummarization_on_flink_tpu_torch.data.vocab import STOP_DECODING, Vocab
 from textsummarization_on_flink_tpu_torch.decode import beam_search
+from textsummarization_on_flink_tpu_torch.decode import speculative
 from textsummarization_on_flink_tpu_torch.decode.arena import PageArena
 from textsummarization_on_flink_tpu_torch.device import resolve_device
 from textsummarization_on_flink_tpu_torch.evaluate import rouge
+from textsummarization_on_flink_tpu_torch.models import avg_attention
 from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
 from textsummarization_on_flink_tpu_torch.resilience.policy import Deadline
 
 log = logging.getLogger(__name__)
 
 SECS_UNTIL_NEW_CKPT = 60  # decode.py:36
-
-#: the tiers the port's decoder dispatches (spec and draft need the
-#: draft model: ROADMAP_AAN)
-TIERS = ("beam", "greedy")
 
 
 def make_html_safe(s: str) -> str:
@@ -150,13 +160,17 @@ class BeamSearchDecoder:
     Params come either as a tree (``params=``: the port's tensors, or the
     JAX package's numpy tree, moved to ``hps.device``) or from the newest
     checkpoint in ``train_dir`` (reloaded in continuous mode).  After a
-    single pass with ROUGE, ``rouge_results`` holds the scores."""
+    single pass with ROUGE, ``rouge_results`` holds the scores.  The
+    spec and draft tiers need a draft: ``draft_params=`` (a tree of
+    either package, e.g. train/distill.load_distilled_draft's), or one
+    built from ``hps.spec_draft``."""
 
     def __init__(self, hps: HParams, vocab: Vocab, batcher: Any,
                  params: Optional[Any] = None,
                  train_dir: Optional[str] = None,
                  decode_root: Optional[str] = None,
-                 max_ckpt_retries: Optional[int] = None):
+                 max_ckpt_retries: Optional[int] = None,
+                 draft_params: Optional[Any] = None):
         if params is None and train_dir is None:
             raise ValueError("need params or train_dir")
         self._hps = hps
@@ -190,10 +204,37 @@ class BeamSearchDecoder:
         self._beam_secs: Optional[float] = None
         self._beam_warm = False
         self.rouge_results: Optional[Dict[str, Dict[str, float]]] = None
+        # the speculative tier (JAX decoder.py:194-236): the draft rides
+        # the params lock, so a spec dispatch never pairs a new full
+        # model with an old mapped draft; the accept-length buckets span
+        # 0..spec_k_max, every k the adaptive controller may pick
+        self._draft_params = (None if draft_params is None else
+                              from_numpy_tree(draft_params, self._device))
+        _, _, spec_k_max = resolve_spec_bounds(hps)
+        self._h_accept = self._obs.histogram(
+            "decode/spec_accept_len",
+            buckets=[float(i) for i in range(0, spec_k_max + 1)])
+        self._c_spec_cycles = self._obs.counter("decode/spec_cycles_total")
+        self._c_spec_drafted = self._obs.counter(
+            "decode/spec_draft_tokens_total")
+        self._c_spec_accepted = self._obs.counter(
+            "decode/spec_accepted_tokens_total")
+        # one controller per decoder: it adapts k inside a dispatch and
+        # carries its acceptance estimate across requests (mutated on the
+        # dispatch path only); the gauge reads spec_k when not adaptive
+        self._spec_ctl: Optional[speculative.SpecKController] = None
+        self._g_spec_k = self._obs.gauge("decode/spec_k_current")
+        self._g_spec_k.set(float(hps.spec_k))
+        if hps.spec_k_adaptive:
+            self._spec_ctl = speculative.SpecKController.from_hps(hps)
+            self._g_spec_k.set(float(self._spec_ctl.k))
         if params is None:
             self._load_params()
         else:
             self._params = from_numpy_tree(params, self._device)
+        if self._draft_params is None and hps.spec_draft:
+            self._draft_params = avg_attention.make_draft_params(
+                hps, self._params, seed=hps.seed)
 
         root = decode_root or os.path.join(hps.log_root or ".",
                                            hps.exp_name or "exp")
@@ -236,8 +277,16 @@ class BeamSearchDecoder:
                                         max_retries=self._max_ckpt_retries)
         tree = ckpt_lib._unflatten_dicts(flat)
         params = from_numpy_tree(tree["params"], self._device)
-        with self._params_lock:  # the load stays outside the lock
+        draft = None
+        if self._hps.spec_draft == "map":
+            # the mapped draft is a view of the full params: derived from
+            # the ones the swap installs, outside the lock like the load
+            draft = avg_attention.make_draft_params(self._hps, params,
+                                                    seed=self._hps.seed)
+        with self._params_lock:
             self._params, self._ckpt_path = params, path
+            if draft is not None:
+                self._draft_params = draft
         log.info("decoder loaded checkpoint %s", path)
 
     def maybe_reload_checkpoint(self, last_load: float) -> float:
@@ -271,13 +320,24 @@ class BeamSearchDecoder:
                 and self._beam_secs is not None
                 and deadline.remaining() < self._beam_secs)
 
+    @property
+    def has_draft(self) -> bool:
+        """Whether the spec and draft tiers are servable (a draft model
+        is configured: mapped, fresh or given)."""
+        return self._draft_params is not None
+
+    def _spec_snapshot(self) -> Tuple[Any, Any]:
+        """The (full params, draft params) pair, read atomically."""
+        with self._params_lock:
+            return self._params, self._draft_params
+
     def decode_batch(self, batch: Batch,
                      deadline: Optional[Deadline] = None,
                      tier: Optional[str] = None) -> List[DecodedResult]:
         """One dispatch for the whole batch; one result per REAL input
         row (``batch.real_mask``: padding rows are dropped).
 
-        An explicit ``tier`` ("beam", or "greedy": beam_size=1) is
+        An explicit ``tier`` (beam, greedy: beam_size=1, spec, draft) is
         dispatched as given: the serve layer already decided each
         request's degradation.  With ``tier=None`` the batch runs at the
         beam tier unless its deadline (the caller's, or one of
@@ -329,13 +389,40 @@ class BeamSearchDecoder:
 
     def _decode_batch_inner(self, batch: Batch,
                             tier: str) -> List[DecodedResult]:
-        if tier not in TIERS:
-            raise NotImplementedError(
-                f"tier {tier!r} is not ported to PyTorch yet (ported: "
-                f"{TIERS}); {ROADMAP_AAN}")
-        hps = self._hps.replace(beam_size=1) if tier == "greedy" else self._hps
-        params, _ = self._params_snapshot()
-        out = beam_search.run_beam_search(params, hps, batch.as_arrays())
+        # one atomic params read per dispatch (JAX decoder.py:452-502)
+        if tier == "spec":
+            full, draft = self._spec_snapshot()
+            if draft is None:
+                raise ValueError(
+                    "spec tier needs a draft model: set hps.spec_draft "
+                    "('map'/'fresh') or pass draft_params=")
+            real = np.asarray(batch.real_mask, dtype=bool)
+            out = speculative.run_spec_decode(full, draft, self._hps,
+                                              batch.as_arrays(),
+                                              controller=self._spec_ctl,
+                                              real_mask=real)
+            if self._spec_ctl is not None:
+                self._g_spec_k.set(float(self._spec_ctl.k))
+            self._c_spec_cycles.inc(int(out.cycles[real].sum()))
+            self._c_spec_drafted.inc(int(out.drafted[real].sum()))
+            self._c_spec_accepted.inc(int(out.accepted[real].sum()))
+            # the histogram already counts cycles per accept length
+            for a, count in enumerate(out.accept_hist[real].sum(axis=0)):
+                self._h_accept.observe(float(a), n=int(count))
+        elif tier == "draft":
+            _, draft = self._spec_snapshot()
+            if draft is None:
+                raise ValueError(
+                    "draft tier needs a draft model: set hps.spec_draft "
+                    "('map'/'fresh') or pass draft_params=")
+            dhps = derive_draft_hps(self._hps).replace(beam_size=1,
+                                                       mode="decode")
+            out = beam_search.run_beam_search(draft, dhps, batch.as_arrays())
+        else:
+            hps = (self._hps.replace(beam_size=1) if tier == "greedy"
+                   else self._hps)
+            params, _ = self._params_snapshot()
+            out = beam_search.run_beam_search(params, hps, batch.as_arrays())
         results: List[DecodedResult] = []
         for b in range(len(batch.original_articles)):
             if not batch.real_mask[b]:

@@ -6,19 +6,16 @@ Every family is a module with the JAX package's functional surface
 length-bounded form ``beam_adapter_masked`` and ``pad_enc_view`` for
 the slot engine, and
 ``forward_train(params, hps, arrays) -> TrainOutput`` for training and
-eval.  Both families decode and train.  The AAN draft is not ported
-yet.
+eval.  All three families decode and train: the pointer-generator, the
+transformer and the average-attention (AAN) family, the speculative
+tier's draft, which also runs as a model of its own.
 """
 
 from __future__ import annotations
 
 from types import ModuleType
 
-from textsummarization_on_flink_tpu_torch.config import ROADMAP_AAN
-
 FAMILIES = ("pointer_generator", "transformer", "avg_attention")
-
-_ROADMAP = {"avg_attention": ROADMAP_AAN}
 
 
 def masked_adapter(beam_adapter_fn):
@@ -49,9 +46,8 @@ def get_family(name: str) -> ModuleType:
     if name == "transformer":
         from textsummarization_on_flink_tpu_torch.models import transformer
         return transformer
-    if name in _ROADMAP:
-        raise NotImplementedError(
-            f"model_family {name!r} is not ported to PyTorch yet: "
-            f"{_ROADMAP[name]}")
+    if name == "avg_attention":
+        from textsummarization_on_flink_tpu_torch.models import avg_attention
+        return avg_attention
     raise ValueError(
         f"unknown model_family {name!r}; expected one of {FAMILIES}")

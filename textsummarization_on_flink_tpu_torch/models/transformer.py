@@ -39,9 +39,17 @@ attentions' logits and contexts in f32, rounding each context to bf16
 before ``wo``.  In f32 every cast is a no-op.  The slot engine's step
 bounds the cross-attention by its residents' longest article
 (``cross_attend_layer(nb=...)``, plain torch over the K/V prefix, as the
-JAX package computes it in XLA).  The speculative verifier (``spec_*``),
-a factored ``vocab_head`` and ``decode_cache_dtype=bfloat16`` wait for
-later slices (ROADMAP.md).
+JAX package computes it in XLA).
+
+The speculative tier's verifier (``spec_init_state``, ``spec_verify``)
+scores the S = spec_k + 1 positions of a cycle in one parallel pass over
+a per-row KV cache of [B, L, W, nh, hd], W = max_dec_steps + spec_k + 1
+(f32, as the beam step's), each row at its own step ``t0``.  The AAN
+draft family (models/avg_attention.py) shares this module's encoder
+stack, cross-attention, output tail and loss head; its factored
+``vocab_head`` (the narrow draft) goes through ``vocab_scores_of`` and
+``vocab_proj_weight``.  ``decode_cache_dtype=bfloat16`` waits for a later
+slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -52,7 +60,6 @@ import torch
 import torch.nn.functional as F
 
 from textsummarization_on_flink_tpu_torch.config import (
-    ROADMAP_AAN,
     HParams,
     resolve_enc_block,
 )
@@ -183,11 +190,19 @@ def _embed_enc(params: Params, hps: HParams,
                     + params["pos_enc"][:T])
 
 
+def _pos_dec(params: Params, positions: torch.Tensor) -> torch.Tensor:
+    """pos_dec rows at ``positions``, an index past the last row reading
+    the last, as a JAX gather clamps (the spec engine's draft and
+    verifier score positions past the horizon, whose outputs it drops)."""
+    return params["pos_dec"][positions.clamp(
+        max=params["pos_dec"].shape[0] - 1)]
+
+
 def _embed_dec(params: Params, hps: HParams, tokens: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     """tokens [B, K] at positions [B] (each article's own step)."""
     return pg._cast(hps, params["embedding"][tokens]
-                    + params["pos_dec"][positions][:, None])
+                    + _pos_dec(params, positions)[:, None])
 
 
 def _embed_dec_train(params: Params, hps: HParams,
@@ -257,7 +272,7 @@ def train_output_tail(params: Params, hps: HParams,
         # step-major views for the streaming losses; the [B, T_dec, V]
         # logits never exist
         h_t = h.transpose(0, 1)  # [T_dec, B, H]
-        w = params["embedding"].T
+        w = vocab_proj_weight(params)
         if hps.pointer_gen:
             gold = loss_ops.streaming_gold_probs(
                 h_t, attn_dist.transpose(0, 1), p_gens.transpose(0, 1),
@@ -304,9 +319,14 @@ def _with_coverage(hps: HParams, loss: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def beam_encode(params: Params, hps: HParams,
-                arrays: Dict[str, torch.Tensor]) -> TransformerEncView:
+                arrays: Dict[str, torch.Tensor],
+                head_hps: Optional[HParams] = None) -> TransformerEncView:
     """Encode a batch once and precompute per-layer cross-attention K/V
-    (transformer.py:487-508), in the compute dtype."""
+    (transformer.py:487-508), in the compute dtype.  ``head_hps`` carries
+    the decoder's width for the head split (the narrow AAN draft's H_d:
+    its [H, H_d] K/V kernels project the H-wide encoder output); None is
+    ``hps``."""
+    head_hps = head_hps if head_hps is not None else hps
     x = _embed_enc(params, hps, arrays["enc_batch"])
     enc_out = pg._cast(hps, _encoder_stack(params, hps, x,
                                            arrays["enc_padding_mask"]))
@@ -314,8 +334,8 @@ def beam_encode(params: Params, hps: HParams,
     ks, vs = [], []
     for layer in params["decoder"]["layers"]:
         p = layer["cross_attn"]
-        ks.append(_split_heads(hps, enc_out @ p["wk"].to(dt)))
-        vs.append(_split_heads(hps, enc_out @ p["wv"].to(dt)))
+        ks.append(_split_heads(head_hps, enc_out @ p["wk"].to(dt)))
+        vs.append(_split_heads(head_hps, enc_out @ p["wv"].to(dt)))
     return TransformerEncView(cross_k=torch.stack(ks, dim=1),
                               cross_v=torch.stack(vs, dim=1))
 
@@ -362,13 +382,30 @@ def cross_attend_layer(hps: HParams, layer: Dict[str, Any], y: torch.Tensor,
 
 def vocab_scores_of(params: Params, hps: HParams,
                     h: torch.Tensor) -> torch.Tensor:
-    """Raw vocabulary scores of final-LN decoder states h [..., H]: the
-    tied-embedding projection (transformer.py:381-397)."""
-    if "vocab_head" in params:
-        raise NotImplementedError(
-            f"a factored vocab_head is not ported yet: {ROADMAP_AAN}")
+    """Raw vocabulary scores of final-LN decoder states h [..., H_dec]
+    (transformer.py:381-397): the tied-embedding projection, or, when the
+    params carry a factored ``vocab_head`` (the narrow AAN draft),
+    (h @ w1) @ w2 with w1 [H_d, r] and w2 [r, V], the [H_d, V] product
+    never formed.  Both products take the compute dtype's operands."""
+    vh = params.get("vocab_head")
+    if vh is not None:
+        hr = loss_ops.project_scores(h, vh["w1"], hps.compute_dtype)
+        return loss_ops.project_scores(hr, vh["w2"], hps.compute_dtype) \
+            + params["out_bias"]
     return loss_ops.project_scores(h, params["embedding"].T,
                                    hps.compute_dtype) + params["out_bias"]
+
+
+def vocab_proj_weight(params: Params) -> torch.Tensor:
+    """The [H_dec, V] projection matrix of the streaming losses
+    (transformer.py:400-414): the tied embedding's transpose, or the
+    factored head's w1 @ w2 (so with --loss_chunk a factored head agrees
+    with the materialised loss to the matmul's association, not
+    bitwise)."""
+    vh = params.get("vocab_head")
+    if vh is not None:
+        return vh["w1"] @ vh["w2"]
+    return params["embedding"].T
 
 
 def decode_output_tail(params: Params, hps: HParams, y: torch.Tensor,
@@ -482,3 +519,73 @@ def pad_enc_view(enc: TransformerEncView, t_target: int,
 
     return TransformerEncView(cross_k=pad(enc.cross_k),
                               cross_v=pad(enc.cross_v))
+
+
+# --------------------------------------------------------------------------
+# Speculative verify: the cycle's positions scored in one parallel pass
+# --------------------------------------------------------------------------
+
+def spec_init_state(hps: HParams, spec_k: int, batch: int,
+                    device: Any) -> Dict[str, torch.Tensor]:
+    """The verifier's KV cache of ``batch`` articles (transformer.py:708):
+    [B, L, W, nh, hd] with W = max_dec_steps + spec_k + 1, wide enough
+    that a block starting at any step up to the horizon writes its
+    spec_k + 1 entries in bounds.  f32, as the beam step's cache; a
+    position is valid up to each row's committed step, so rejected
+    entries are never read and the next block overwrites them."""
+    L, nh, hd = hps.dec_layers, hps.num_heads, _head_dim(hps)
+    W = hps.max_dec_steps + spec_k + 1
+    shape = (batch, L, W, nh, hd)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"cache_k": torch.zeros(shape, **f32),
+            "cache_v": torch.zeros(shape, **f32)}
+
+
+def spec_verify(params: Params, hps: HParams, enc: TransformerEncView,
+                enc_mask: torch.Tensor, ext_ids: torch.Tensor,
+                t0: torch.Tensor, tokens: torch.Tensor,
+                state: Dict[str, torch.Tensor]):
+    """Score S teacher-forced positions of B articles in one decoder pass
+    (transformer.py:727-794).  ``tokens`` [B, S] are the inputs consumed
+    at steps t0 .. t0+S-1 (OOV already mapped to UNK), t0 [B] each row's
+    committed step.  Each position attends the cache entries at steps
+    <= its own: the beam step's masked softmax over S query rows (the
+    masked columns add exact zeros; only the order of the sums can
+    differ).  The cache is written in place, append-only.  Returns
+    (topk_ids [B, S, 2], topk_log_probs [B, S, 2], attn_dist [B, S,
+    T_enc], p_gen [B, S], state)."""
+    B, S = tokens.shape
+    hd = _head_dim(hps)
+    cache_k, cache_v = state["cache_k"], state["cache_v"]
+    W = cache_k.shape[2]
+    pos = t0[:, None] + torch.arange(S, device=t0.device)  # [B, S]
+    y = pg._cast(hps, params["embedding"][tokens] + _pos_dec(params, pos))
+    dt = y.dtype
+    pos_ok = torch.arange(W, device=t0.device)[None, None, :] \
+        <= pos[:, :, None]  # [B, S, W]
+    bi = torch.arange(B, device=t0.device)[:, None]
+    attn_dist = cross_ctx = None
+    for li, layer in enumerate(params["decoder"]["layers"]):
+        p = layer["self_attn"]
+        h_norm = _ln(layer["ln1"], y)
+        q = _split_heads(hps, h_norm @ p["wq"].to(dt))  # [B, S, nh, hd]
+        cache_k[bi, li, pos] = _split_heads(hps,
+                                            h_norm @ p["wk"].to(dt)).float()
+        cache_v[bi, li, pos] = _split_heads(hps,
+                                            h_norm @ p["wv"].to(dt)).float()
+        logits = torch.einsum("bsnd,btnd->bsnt", q.float(),
+                              cache_k[:, li]) * (hd ** -0.5)
+        logits = torch.where(pos_ok[:, :, None, :], logits, NEG)
+        probs = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bsnt,btnd->bsnd", probs, cache_v[:, li])
+        y = y + _merge_heads(ctx).to(dt) @ p["wo"].to(dt)
+        cross_out, attn_dist = cross_attend_layer(
+            hps, layer, y, enc.cross_k[:, li], enc.cross_v[:, li], enc_mask)
+        y = y + cross_out
+        y = y + _ffn_block(layer["ffn"], _ln(layer["ln2"], y))
+        cross_ctx = cross_out
+    final_dist, p_gen, _ = decode_output_tail(params, hps, y, cross_ctx,
+                                              attn_dist, ext_ids)
+    topk_probs, topk_ids = pg.top_k(final_dist, 2)
+    return (topk_ids, torch.log(topk_probs + 1e-10), attn_dist, p_gen,
+            {"cache_k": cache_k, "cache_v": cache_v})

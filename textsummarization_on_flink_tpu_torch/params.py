@@ -10,8 +10,9 @@ leaves (the global gradient norm) add in the JAX package's order and
 two trees of one structure pair leaf by leaf.  ``init_params`` builds a
 fresh tree of the same names and shapes as the family's ``init_params``
 (``models/pointer_generator.py`` :88-133, ``models/transformer.py``
-:73-125; ``hps.model_family`` picks) with the same initializer
-families, drawn with numpy from a seed.  The values differ from the JAX package's for the same seed (jax.random and
+:73-125, ``models/avg_attention.py`` :107-157; ``hps.model_family``
+picks) with the same initializer families, drawn with numpy from a
+seed.  The values differ from the JAX package's for the same seed (jax.random and
 numpy are different generators); tests that compare the two packages
 hand both the same numpy tree.
 """
@@ -98,6 +99,8 @@ def init_numpy_params(hps: HParams, vsize: int, seed: int) -> Params:
     """The params of ``hps.model_family`` as numpy."""
     if hps.model_family == "transformer":
         return _transformer_numpy_params(hps, vsize, seed)
+    if hps.model_family == "avg_attention":
+        return aan_numpy_params(hps, vsize, np.random.default_rng(seed))
     return _pointer_generator_numpy_params(hps, vsize, seed)
 
 
@@ -149,6 +152,41 @@ def _pointer_generator_numpy_params(hps: HParams, vsize: int,
     }
 
 
+def ln_params(H: int) -> Params:
+    """A LayerNorm's unit scale and zero bias."""
+    return {"scale": np.ones((H,), np.float32),
+            "bias": np.zeros((H,), np.float32)}
+
+
+def ffn_params(rng: np.random.Generator, H: int, F: int) -> Params:
+    return {"w1": _glorot(rng, (H, F)), "b1": np.zeros((F,), np.float32),
+            "w2": _glorot(rng, (F, H)), "b2": np.zeros((H,), np.float32)}
+
+
+def attn_params(rng: np.random.Generator, H_in: int, H: int) -> Params:
+    """Attention projections; wk and wv read an H_in-wide input (the
+    narrow AAN draft's cross-attention over the H-wide encoder)."""
+    return {"wq": _glorot(rng, (H, H)), "wk": _glorot(rng, (H_in, H)),
+            "wv": _glorot(rng, (H_in, H)), "wo": _glorot(rng, (H, H))}
+
+
+def _encoder_numpy_params(rng: np.random.Generator, hps: HParams) -> Params:
+    H, F = hps.hidden_dim, hps.ffn_width
+    layers = [{"ln1": ln_params(H), "self_attn": attn_params(rng, H, H),
+               "ln2": ln_params(H), "ffn": ffn_params(rng, H, F)}
+              for _ in range(hps.enc_layers)]
+    return {"layers": layers, "ln_out": ln_params(H)}
+
+
+def _embeddings(rng: np.random.Generator, hps: HParams, vsize: int) -> Params:
+    H = hps.hidden_dim
+    return {
+        "embedding": _trunc_normal(rng, (vsize, H), 0.02),
+        "pos_enc": _trunc_normal(rng, (hps.max_enc_steps, H), 0.02),
+        "pos_dec": _trunc_normal(rng, (hps.max_dec_steps + 1, H), 0.02),
+    }
+
+
 def _transformer_numpy_params(hps: HParams, vsize: int,
                               seed: int) -> Params:
     """Names, shapes and initializer families of transformer.py:73-125:
@@ -156,33 +194,66 @@ def _transformer_numpy_params(hps: HParams, vsize: int,
     unit LayerNorm scales, zero biases.  Layers are plain lists."""
     rng = np.random.default_rng(seed)
     H, F = hps.hidden_dim, hps.ffn_width
-
-    def attn():
-        return {k: _glorot(rng, (H, H)) for k in ("wq", "wk", "wv", "wo")}
-
-    def ln():
-        return {"scale": np.ones((H,), np.float32),
-                "bias": np.zeros((H,), np.float32)}
-
-    def ffn():
-        return {"w1": _glorot(rng, (H, F)), "b1": np.zeros((F,), np.float32),
-                "w2": _glorot(rng, (F, H)), "b2": np.zeros((H,), np.float32)}
-
-    enc_layers = [{"ln1": ln(), "self_attn": attn(), "ln2": ln(),
-                   "ffn": ffn()} for _ in range(hps.enc_layers)]
-    dec_layers = [{"ln1": ln(), "self_attn": attn(), "ln_cross": ln(),
-                   "cross_attn": attn(), "ln2": ln(), "ffn": ffn()}
+    encoder = _encoder_numpy_params(rng, hps)
+    dec_layers = [{"ln1": ln_params(H), "self_attn": attn_params(rng, H, H),
+                   "ln_cross": ln_params(H),
+                   "cross_attn": attn_params(rng, H, H),
+                   "ln2": ln_params(H), "ffn": ffn_params(rng, H, F)}
                   for _ in range(hps.dec_layers)]
     return {
-        "embedding": _trunc_normal(rng, (vsize, H), 0.02),
-        "pos_enc": _trunc_normal(rng, (hps.max_enc_steps, H), 0.02),
-        "pos_dec": _trunc_normal(rng, (hps.max_dec_steps + 1, H), 0.02),
-        "encoder": {"layers": enc_layers, "ln_out": ln()},
-        "decoder": {"layers": dec_layers, "ln_out": ln()},
+        **_embeddings(rng, hps, vsize),
+        "encoder": encoder,
+        "decoder": {"layers": dec_layers, "ln_out": ln_params(H)},
         "pgen_linear": {"kernel": _glorot(rng, (2 * H, 1)),
                         "bias": np.zeros((1,), np.float32)},
         "out_bias": np.zeros((vsize,), np.float32),
     }
+
+
+def aan_layer_params(rng: np.random.Generator, H_in: int, H: int,
+                     F: int) -> Params:
+    """One AAN decoder layer at width H (avg_attention.py:85-99): the
+    average branch's FFN and its 2H -> 2H input/forget gate, then the
+    cross-attention (K/V from the H_in-wide encoder) and the FFN."""
+    return {
+        "ln1": ln_params(H),
+        "aan_ffn": ffn_params(rng, H, F),
+        "aan_gate": {"kernel": _glorot(rng, (2 * H, 2 * H)),
+                     "bias": np.zeros((2 * H,), np.float32)},
+        "ln_cross": ln_params(H),
+        "cross_attn": attn_params(rng, H_in, H),
+        "ln2": ln_params(H),
+        "ffn": ffn_params(rng, H, F),
+    }
+
+
+def aan_numpy_params(hps: HParams, vsize: int,
+                     rng: np.random.Generator) -> Params:
+    """Names and shapes of avg_attention.py:107-157: the transformer's
+    H-wide embeddings, positions and encoder, a decoder of AAN layers at
+    the draft width H_d (``draft_hidden``, or H), and for a narrow draft
+    the [H, H_d] ``emb_proj``; with ``draft_vocab_rank`` r the factored
+    ``vocab_head`` (w1 [H_d, r], w2 [r, V])."""
+    H = hps.hidden_dim
+    Hd = hps.draft_hidden or H
+    Fd = hps.ffn_dim or 4 * Hd
+    params = {
+        **_embeddings(rng, hps, vsize),
+        "encoder": _encoder_numpy_params(rng, hps),
+        "decoder": {"layers": [aan_layer_params(rng, H, Hd, Fd)
+                               for _ in range(hps.dec_layers)],
+                    "ln_out": ln_params(Hd)},
+        "pgen_linear": {"kernel": _glorot(rng, (2 * Hd, 1)),
+                        "bias": np.zeros((1,), np.float32)},
+        "out_bias": np.zeros((vsize,), np.float32),
+    }
+    if Hd != H:
+        params["emb_proj"] = {"kernel": _glorot(rng, (H, Hd))}
+    if hps.draft_vocab_rank:
+        params["vocab_head"] = {
+            "w1": _glorot(rng, (Hd, hps.draft_vocab_rank)),
+            "w2": _glorot(rng, (hps.draft_vocab_rank, vsize))}
+    return params
 
 
 def add_coverage_params(params: Params, seed: int) -> Params:

@@ -6,7 +6,8 @@ package) without the fleet layer: ``router``, ``fleet``, ``procfleet``
 and ``hiersum`` are ROADMAP.md queue 1, item 7.  The server builds the
 port's ``BeamSearchDecoder`` on the hyperparameters' device, and in
 continuous mode its ``SlotDecodeEngine`` (a stub engine may be
-injected); the spec and draft tiers are item 5.
+injected), and serves every quality tier: beam, greedy, and the spec
+and draft tiers over the decoder's draft model.
 
 The decode path dispatches one compiled program per batch; this package
 turns that into a *service*: a thread-safe admission-controlled request

@@ -5,10 +5,8 @@ port's ``BeamSearchDecoder`` on ``hps.device``, so a dispatch runs the
 beam search (and on the card the fused attention kernel) in eager
 PyTorch; ``serve_mode="continuous"`` builds the decoder's slot engine
 (decode/decoder.SlotDecodeEngine) unless a stub ``engine=`` is
-injected.  Not ported yet, and refused with the item's name: the spec
-and draft tiers (ROADMAP.md queue 1, item 5).  The fleet (router,
-hedging, replicas) is item 7, and the copy leaves out the hooks only a
-router calls (``kill``,
+injected.  The fleet (router, hedging, replicas) is ROADMAP.md queue 1,
+item 7, and the copy leaves out the hooks only a router calls (``kill``,
 ``hot_swap``, ``disable_front_door``, ``disable_ingress_tracking``,
 ``tick_once``, ``idle``, ``stats``, ``load``, ``registry``).
 
@@ -99,7 +97,6 @@ from textsummarization_on_flink_tpu_torch.obs import http as obs_http
 from textsummarization_on_flink_tpu_torch.obs import profile as profile_lib
 from textsummarization_on_flink_tpu_torch.obs import slo as slo_lib
 from textsummarization_on_flink_tpu_torch.config import (
-    ROADMAP_AAN,
     SERVE_TIERS,
     HParams,
     parse_fair_weights,
@@ -414,9 +411,10 @@ class ServingServer:
                 f"— use serve_mode=microbatch for tiered requests")
         if tier in ("spec", "draft") and not getattr(
                 self._decoder, "has_draft", False):
-            raise NotImplementedError(
-                f"tier={tier!r} needs a draft model, which the port's "
-                f"decoder does not have yet; {ROADMAP_AAN}")
+            raise ValueError(
+                f"tier={tier!r} needs a draft model: set hps.spec_draft "
+                f"('map'/'fresh') or construct the decoder with "
+                f"draft_params=")
         flight = None
         try:
             if self._door.armed:
