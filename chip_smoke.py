@@ -155,7 +155,23 @@ device or without the port's sources beside it.  Phases, each fatal:
      on the card against the CPU (loss within 1e-4 relative); the
      distilled draft loaded with its teacher check into the spec tier,
      equal to greedy;
- 14. print the kernels' JSON line, then, last, the device JSON line.
+ 14. the fleet layer at the continuous phase's decode width over the
+     ROUGE phase's checkpoint: phase_fleet (3 continuous replicas behind a
+     FleetRouter, 48 requests from 8 threads, r1 killed mid-decode: its
+     residents requeue, every future resolves once, summaries equal a
+     single server's; a rolling swap to a second checkpoint with 16 in
+     flight, at most one replica out at any tick; hedging capped at a
+     quarter of admissions; 2 transformer replicas equal to a single
+     server), phase_hiersum (a 2,000-word document as framed rows through
+     transform(hierarchical=True), then a 400-word append that decodes
+     only its 2 tail chunks and one reduce; the summary equal to its
+     chunks decoded one at a time and reduced, and to a fleet's) and
+     phase_procfleet (two serve-replica children on the card, listed by
+     nvidia-smi, one SIGKILLed mid-decode: requeue, restart, readmission,
+     summaries equal to the single server's, no child left behind);
+     fused attention twice per decode step and the flash forward six
+     times per transformer prefill, summed over the replicas;
+ 15. print the kernels' JSON line, then, last, the device JSON line.
 """
 
 from __future__ import annotations
@@ -164,6 +180,7 @@ import argparse
 import json
 import logging
 import os
+import shlex
 import shutil
 import statistics
 import subprocess
@@ -2673,6 +2690,8 @@ def phase_continuous_serve(seed, work, params, tf_params, device="cuda"):
         "transformer_micro_batch", "transformer"))
     summary["card"] = card_line() if device == "cuda" else None
     print("continuous_serve " + json.dumps(summary))
+    # the single server's transformer summaries, for phase_fleet
+    summary["transformer_words"] = tf_cont
     return summary
 
 
@@ -3040,6 +3059,621 @@ class _Arrays:
         return self._arrays
 
 
+def fleet_rows(seed, words):
+    """The fleet phases' 48 requests: the bimodal 32 of
+    phase_continuous_serve and 16 more (8 short, 8 long)."""
+    extra = [(f"extra-{i}",) + r[1:]
+             for i, r in enumerate(bimodal_rows(seed + 6, words, 8, 8))]
+    return bimodal_rows(seed + 5, words, 16, 16) + extra
+
+
+def _counted_engine(server):
+    """Count the decode steps and prefills of one continuous server's slot
+    engine (its own dispatch thread is the only caller)."""
+    eng = server._cont._engine
+    n = dict(steps=0, prefills=0)
+    step, prefill = eng.step, eng.prefill
+
+    def counted_step():
+        if eng._active.any():
+            n["steps"] += eng.chunk  # step_slots runs `chunk` steps
+        return step()
+
+    def counted_prefill(example):
+        n["prefills"] += 1
+        return prefill(example)
+
+    eng.step, eng.prefill = counted_step, counted_prefill
+    return n
+
+
+def _drive(surface, rows_in, threads=8, on_resolve=None):
+    """rows_in from `threads` threads through a started server or fleet;
+    returns ({uuid: result}, done-callback counts, numbers)."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    calls, waits, lock = {}, [], threading.Lock()
+
+    def submit(row):
+        t0 = time.perf_counter()
+        fut = surface.submit(row[1], uuid=row[0], reference=row[3])
+
+        def note(f):
+            with lock:
+                calls[f.uuid] = calls.get(f.uuid, 0) + 1
+                waits.append(time.perf_counter() - t0)
+                n = len(waits)
+            if on_resolve is not None:
+                on_resolve(n)
+
+        fut.add_done_callback(note)
+        return fut
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=threads) as ex:
+        futs = list(ex.map(submit, rows_in))
+    results = {f.uuid: f.result(timeout=900) for f in futs}
+    secs = time.perf_counter() - t0
+    check(all(u == r.uuid for u, r in results.items()),
+          "a future resolved with another request's result")
+    return results, calls, dict(
+        requests=len(rows_in), seconds=secs,
+        requests_per_s=len(rows_in) / secs,
+        caller_e2e_p50_s=float(np.percentile(waits, 50)),
+        caller_e2e_p99_s=float(np.percentile(waits, 99)))
+
+
+def phase_fleet(seed, work, params, tf_params, tf_words, device="cuda"):
+    """The in-process fleet (serve/fleet.py FleetRouter over continuous
+    ServingServers) at phase_continuous_serve's decode width (H 256, E
+    128, V 50,000, 400/100 steps, min 35, beam 4, coverage on, f32,
+    CONTINUOUS_FLAGS), the pointer-generator over ``params`` (the ROUGE
+    phase's checkpoint, read from a train directory), every replica on
+    this one card; each part with the launch counts set to 0 just before
+    and read just after:
+
+      a. failover: 3 replicas, the 48 fleet_rows from 8 threads; once r1
+         has run one chunk of its residents' decode, kill_replica("r1")
+         while it holds residents:
+         serve/replica_kills_total is 1, serve/requeued_total at least 1,
+         every router future resolves exactly once (done callbacks), and
+         every summary equals a single continuous server's on the same
+         48 (run in this call, its requests/s and e2e p50/p99 printed
+         beside the fleet's);
+      b. rolling swap: 3 fresh replicas, a second checkpoint written into
+         the train directory, rolling_swap() with 16 requests in flight:
+         serve/replicas_in_rotation is at least 2 at every router tick,
+         every replica ends on the new checkpoint's fingerprint, every
+         result carries the old or the new one, every request resolves
+         once;
+      c. hedging: 3 fresh replicas, serve_hedge_ms half of (a)'s single
+         server's median e2e, serve_hedge_max_ratio 0.25, 16 requests:
+         hedges at most a quarter of admissions, no future resolves
+         twice, the summaries (a)'s; prints the hedges, wins and
+         suppressed hedges;
+      d. the transformer: 2 replicas over ``tf_params`` on 8 requests,
+         summaries equal to ``tf_words`` (phase_continuous_serve's single
+         continuous server, same rows and flags).
+
+    The replicas' dispatch threads launch on the card's one stream, so
+    the launch counts are checked as totals: the fused attention exactly
+    twice per decode step summed over the replicas' engines (the killed
+    one included), the flash forward six times per transformer prefill.
+    (device="cpu" rehearses the control flow without a card.)"""
+    import threading
+
+    from textsummarization_on_flink_tpu_torch import obs
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.serve.fleet import FleetRouter
+    from textsummarization_on_flink_tpu_torch.serve.server import (
+        ServingServer,
+    )
+
+    words = synthetic_words(main_path_hps("pointer_generator").vocab_size)
+    vocab = Vocab(words=words)
+    rows = fleet_rows(seed, words)
+    train_dir = os.path.join(work, "exp", "train")
+    _save_params(train_dir, params, 4)
+    pg = main_path_hps("pointer_generator").replace(
+        mode="decode", device=device, log_root=work, exp_name="exp",
+        **CONTINUOUS_FLAGS)
+    summary = {}
+
+    def replicas(hps, n, prm=None, name="r"):
+        servers = [ServingServer(
+            hps, vocab, params=prm,
+            train_dir=train_dir if prm is None else None,
+            decode_root=os.path.join(work, f"{name}{i}"),
+            registry=obs.Registry()) for i in range(n)]
+        return servers, [_counted_engine(s) for s in servers]
+
+    def kernel_check(name, launched, counts, family="pointer_generator"):
+        steps = sum(c["steps"] for c in counts)
+        prefills = sum(c["prefills"] for c in counts)
+        if device == "cuda":
+            mine, want = (("fused", 2 * steps)
+                          if family == "pointer_generator"
+                          else ("flash_forward", 6 * prefills))
+            check(launched[mine] == want,
+                  f"{name}: {launched[mine]} {mine} launches, expected "
+                  f"{want} ({steps} steps, {prefills} prefills)")
+            others = {k: v for k, v in launched.items() if v and k != mine}
+            check(not others, f"{name}: other kernels launched: {others}")
+        return dict(steps=steps, prefills=prefills,
+                    fused=launched["fused"],
+                    flash_forward=launched["flash_forward"])
+
+    def words_of(results):
+        out = {u: r.decoded_words for u, r in results.items()}
+        check(all(out.values()), "an empty summary")
+        return out
+
+    # (a) the single server's baseline, then the fleet with a kill
+    single, counts = replicas(pg, 1, name="single")
+    reset_launch_counts()
+    with single[0]:
+        res, calls, summary["single"] = _drive(single[0], rows)
+    summary["single"]["kernels"] = kernel_check("single", launch_counts(),
+                                                counts)
+    want = words_of(res)
+    servers, counts = replicas(pg, 3)
+    reg = obs.Registry()
+    router = FleetRouter(servers, pg, registry=reg)
+    killed = {}
+
+    def maybe_kill(n_resolved):
+        # r1 one chunk into its residents' decode: below min_dec_steps,
+        # so none of them can finish before the kill (kill() lets the
+        # chunk in flight end first; each replica's 16 slots fill in one
+        # wave and its residents finish together)
+        eng = servers[1]._cont._engine
+        if counts[1]["steps"] >= eng.chunk \
+                and not killed and servers[1]._cont.active() > 0:
+            killed.update(resolved=n_resolved, steps=counts[1]["steps"],
+                          resident=servers[1]._cont.active())
+            killed["rejected"] = router.kill_replica("r1")
+
+    done = threading.Event()
+
+    def killer():
+        # the kill runs off the dispatch threads' callbacks: one resolved
+        # request's callback must not join a replica's dispatch thread
+        while not done.is_set() and not killed:
+            maybe_kill(len(seen))
+            time.sleep(0.002)
+
+    seen = []
+    reset_launch_counts()
+    t = threading.Thread(target=killer, daemon=True)
+    with router:
+        t.start()
+        res, calls, summary["fleet"] = _drive(
+            router, rows, on_resolve=lambda n: seen.append(n))
+        done.set()
+        t.join()
+    summary["fleet"]["kernels"] = kernel_check("fleet", launch_counts(),
+                                               counts)
+    check(bool(killed), "r1 was never killed mid-decode")
+    got = words_of(res)
+    summary["fleet"].update(
+        killed=killed,
+        replica_kills=reg.counter("serve/replica_kills_total").value,
+        requeued=reg.counter("serve/requeued_total").value)
+    check(summary["fleet"]["replica_kills"] == 1, "not exactly one kill")
+    check(summary["fleet"]["requeued"] >= 1, "the kill requeued nothing")
+    check(calls == {r[0]: 1 for r in rows},
+          "not every router future resolved exactly once")
+    differ = sorted(u for u in want if want[u] != got[u])
+    check(not differ, f"fleet summaries differ from the single server's "
+                      f"for {differ}")
+
+    # (b) a rolling swap to a second checkpoint with requests in flight
+    servers, counts = replicas(pg, 3, name="swap")
+    fp_old = [s.params_fingerprint for s in servers]
+    from textsummarization_on_flink_tpu_torch.params import tree_map
+
+    _save_params(train_dir, tree_map(lambda a: np.asarray(a) * np.float32(
+        1.01) if np.asarray(a).dtype.kind == "f" else a, params), 5)
+    reg = obs.Registry()
+    router = FleetRouter(servers, pg, registry=reg)
+    ticks = []
+    tick = router.tick
+
+    def watched_tick():
+        tick()
+        ticks.append((reg.gauge("serve/replicas_in_rotation").value,
+                      sum(h.draining for h in router.replicas())))
+
+    router.tick = watched_tick
+    reset_launch_counts()
+    out = {}
+    with router:
+        runner = threading.Thread(target=lambda: out.update(zip(
+            ("res", "calls", "numbers"), _drive(router, rows[:16]))))
+        runner.start()
+        while not any(s.load() for s in servers):
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        router.rolling_swap(timeout=600.0)
+        swap_s = time.perf_counter() - t0
+        runner.join()
+    fp_new = [s.params_fingerprint for s in servers]
+    summary["swap"] = dict(
+        out["numbers"], swap_seconds=swap_s, ticks=len(ticks),
+        min_in_rotation=min(g for g, _ in ticks),
+        max_draining=max(d for _, d in ticks),
+        swaps=reg.counter("serve/fleet_swaps_total").value,
+        result_fingerprints=sorted({r.params_fingerprint
+                                    for r in out["res"].values()}),
+        kernels=kernel_check("swap", launch_counts(), counts))
+    check(len(set(fp_old)) == 1 and len(set(fp_new)) == 1
+          and fp_new[0] != fp_old[0],
+          f"replicas did not all move to the new checkpoint: {fp_old} -> "
+          f"{fp_new}")
+    check(summary["swap"]["swaps"] == 3, "the swap did not visit 3 replicas")
+    check(summary["swap"]["min_in_rotation"] >= 2
+          and summary["swap"]["max_draining"] <= 1,
+          "more than one replica was out for the swap at a tick")
+    check(set(summary["swap"]["result_fingerprints"])
+          <= {fp_old[0], fp_new[0]}, "a result of neither checkpoint")
+    check(out["calls"] == {r[0]: 1 for r in rows[:16]},
+          "swap: not every router future resolved exactly once")
+
+    # (c) hedging at half of (a)'s single-server median e2e (the fleet's
+    # own, stretched by the kill's requeues, is above (c)'s whole run),
+    # capped at a quarter
+    hedge_ms = 500.0 * summary["single"]["caller_e2e_p50_s"]
+    hps = pg.replace(serve_hedge_ms=hedge_ms, serve_hedge_max_ratio=0.25)
+    servers, counts = replicas(hps, 3, prm=params, name="hedge")
+    reg = obs.Registry()
+    router = FleetRouter(servers, hps, registry=reg)
+    reset_launch_counts()
+    with router:
+        res, calls, summary["hedge"] = _drive(router, rows[16:32])
+    hedges = reg.counter("serve/hedges_total").value
+    admitted = reg.counter("serve/fleet_submitted_total").value
+    summary["hedge"].update(
+        hedge_ms=hedge_ms, hedges=hedges,
+        wins=reg.counter("serve/hedge_wins_total").value,
+        suppressed=reg.counter("serve/hedge_suppressed_total").value,
+        admissions=admitted,
+        kernels=kernel_check("hedge", launch_counts(), counts))
+    check(hedges <= 0.25 * admitted, f"{hedges} hedges over {admitted} "
+                                     f"admissions")
+    check(calls == {r[0]: 1 for r in rows[16:32]},
+          "hedge: a router future resolved other than once")
+    differ = sorted(u for u, r in res.items()
+                    if r.decoded_words != want[u])
+    check(not differ, f"hedged summaries differ for {differ}")
+
+    # (d) the transformer's replicas
+    tf = main_path_hps("transformer").replace(
+        mode="decode", device=device, **CONTINUOUS_FLAGS)
+    servers, counts = replicas(tf, 2, prm=tf_params, name="tf")
+    reg = obs.Registry()
+    router = FleetRouter(servers, tf, registry=reg)
+    reset_launch_counts()
+    with router:
+        res, calls, summary["transformer"] = _drive(
+            router, bimodal_rows(seed + 5, words, 16, 16)[:8])
+    summary["transformer"]["kernels"] = kernel_check(
+        "transformer", launch_counts(), counts, family="transformer")
+    got = words_of(res)
+    differ = sorted(u for u in got if got[u] != tf_words[u])
+    check(not differ, f"transformer fleet summaries differ from the single "
+                      f"server's for {differ}")
+    check(set(calls.values()) == {1}, "transformer: a future resolved "
+                                      "other than once")
+    summary["launches"] = sum(summary[k]["kernels"]["fused"] for k in (
+        "single", "fleet", "swap", "hedge"))
+    summary["flash_launches"] = summary["transformer"]["kernels"][
+        "flash_forward"]
+    summary["card"] = card_line() if device == "cuda" else None
+    print("fleet " + json.dumps(summary))
+    summary["rows"], summary["single_words"] = rows, want
+    return summary
+
+
+def _hier_document(seed, words, n):
+    rng = np.random.default_rng(seed)
+    ranks = np.minimum(rng.zipf(1.2, n), len(words)) - 1
+    return " ".join(words[r] if rng.random() > 0.05
+                    else f"oov{rng.integers(50)}" for r in ranks)
+
+
+def phase_hiersum(seed, work, params, device="cuda"):
+    """Hierarchical summarization (serve/hiersum.py) through
+    ``SummarizationModel.transform(hierarchical=True)`` at the fleet
+    phase's decode width over ``params`` (the ROUGE phase's checkpoint),
+    a micro-batch server (so the greedy map tier and the beam reduce tier
+    both run), serve buckets 100/200/400, the front door's cache on,
+    chunks of max_enc_steps (400) words overlapping by 50: a document of
+    2,000 synthetic words framed 300 words a frame
+    (frame_document_rows), then a revision that appends 400 words.  With
+    the launch counts set to 0 just before the transform and read just
+    after:
+
+      a. the first revision decodes its 6 chunks and one reduce; the
+         second hits the cache for the 5 chunks it kept whole
+         (serve/hier_chunk_cache_hits_total is 5) and decodes only its 2
+         tail chunks and one reduce (decode/requests_total is 10 in all);
+      b. the fused attention launches exactly twice per beam step (2 x
+         100 steps for each of the 4 dispatches when every search runs to
+         max_dec_steps: 800);
+      c. the first revision's summary equals its chunks decoded one at a
+         time (greedy) through a single server, assembled by
+         assemble_reduce_input and decoded once on beam;
+      d. the same document through HierarchicalSummarizer over a
+         2-replica micro-batch FleetRouter gives the same summary.
+    (device="cpu" rehearses the control flow without a card.)"""
+    from textsummarization_on_flink_tpu_torch import obs
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.decode.reduce import (
+        assemble_reduce_input,
+    )
+    from textsummarization_on_flink_tpu_torch.obs.export import MemorySink
+    from textsummarization_on_flink_tpu_torch.pipeline import codec, io
+    from textsummarization_on_flink_tpu_torch.pipeline.estimator import (
+        SummarizationModel,
+    )
+    from textsummarization_on_flink_tpu_torch.serve.fleet import FleetRouter
+    from textsummarization_on_flink_tpu_torch.serve.hiersum import (
+        HierarchicalSummarizer,
+        chunk_document,
+    )
+    from textsummarization_on_flink_tpu_torch.serve.server import (
+        ServingServer,
+    )
+
+    hps = main_path_hps("pointer_generator").replace(
+        mode="decode", device=device, log_root=work, exp_name="exp",
+        serve_buckets="100,200,400", serve_coalesce=True,
+        serve_cache_entries=64, hier_overlap_words=50)
+    words = synthetic_words(hps.vocab_size)
+    vocab = Vocab(words=words)
+    _save_params(os.path.join(work, "exp", "train"), params, 4)
+    doc = _hier_document(seed + 7, words, 2000)
+    tail = _hier_document(seed + 8, words, 400)
+    rows = [(u, a, "", r) for u, a, r in
+            codec.frame_document_rows("doc", doc, "the ref .", 300)
+            + codec.frame_document_rows("doc", tail, "", 300)]
+    model = SummarizationModel()
+    (model.set_inference_selected_cols(["uuid", "article", "reference"])
+     .set_inference_output_cols(["uuid", "article", "summary",
+                                 "reference"]))
+    model.set_inference_hyper_params(shlex.split(hps.to_argv()))
+    reg = obs.Registry()
+    events = MemorySink()
+    reg.event_sink = events
+    reset_launch_counts()
+    beam_search.steps_run = 0
+    t0 = time.perf_counter()
+    with obs.use_registry(reg):
+        sink = model.with_vocab(vocab).transform(io.CollectionSource(rows),
+                                                 hierarchical=True)
+    secs = time.perf_counter() - t0
+    launched, steps = launch_counts(), beam_search.steps_run
+    by_uuid = {r[0]: r for r in sink.rows}
+    check(sorted(by_uuid) == ["doc@r1", "doc@r2"],
+          f"rows {sorted(by_uuid)}")
+    chunk_events = [e for e in events.records()
+                    if e.get("event") == "hier_chunk"]
+    rev = {p: [e["attrs"]["cache_hit"] for e in chunk_events
+               if e["attrs"]["parent_uuid"] == p]
+           for p in ("doc@r1", "doc@r2")}
+    summary = dict(
+        words=[len(doc.split()), len(doc.split()) + len(tail.split())],
+        chunks=[len(rev["doc@r1"]), len(rev["doc@r2"])],
+        cache_hits=[sum(rev["doc@r1"]), sum(rev["doc@r2"])],
+        hier_chunk_cache_hits=reg.counter(
+            "serve/hier_chunk_cache_hits_total").value,
+        decoded=reg.counter("decode/requests_total").value,
+        reduces=reg.counter("serve/hier_reduce_total").value,
+        dispatches=reg.histogram("serve/batch_fill").count,
+        beam_steps=steps, launches=launched, seconds=secs,
+        copy_fidelity_mean=reg.histogram("serve/hier_copy_fidelity").mean)
+    check(summary["chunks"] == [6, 7], f"chunks {summary['chunks']}")
+    check(summary["cache_hits"] == [0, 5]
+          and summary["hier_chunk_cache_hits"] == 5,
+          f"cache hits {summary['cache_hits']}")
+    check(summary["decoded"] == 6 + 1 + 2 + 1,
+          f"{summary['decoded']} decodes, expected 10")
+    if device == "cuda":
+        check(steps > 0 and launched == dict(
+            dict.fromkeys(launched, 0), fused=2 * steps),
+            f"{launched} launches in {steps} beam steps, expected 2 fused "
+            f"per step")
+    # (c) the same chunks one at a time through a single server, then one
+    # beam decode of their assembled summaries
+    server = ServingServer(hps.replace(serve_coalesce=False,
+                                       serve_cache_entries=0), vocab,
+                           params=params,
+                           decode_root=os.path.join(work, "one"),
+                           registry=obs.Registry())
+    chunks = chunk_document(doc, hps.max_enc_steps, hps.hier_overlap_words)
+    with server:
+        maps = [server.submit(c, uuid=f"c{i}", tier="greedy").result(
+            timeout=900).decoded_words for i, c in enumerate(chunks)]
+        red = server.submit(assemble_reduce_input(maps, hps.max_enc_steps),
+                            uuid="reduce", tier="beam").result(timeout=900)
+    check(red.summary == by_uuid["doc@r1"][2],
+          "the document's summary is not its chunks' reduce")
+    # (d) the same document over a fleet
+    servers = [ServingServer(hps, vocab, params=params,
+                             decode_root=os.path.join(work, f"f{i}"),
+                             registry=obs.Registry()) for i in range(2)]
+    router = FleetRouter(servers, hps, registry=obs.Registry())
+    with router:
+        res = HierarchicalSummarizer(router, hps).summarize(
+            doc, uuid="doc").result(timeout=900)
+    check(res.summary == by_uuid["doc@r1"][2],
+          "the fleet's document summary differs from the transform's")
+    summary["card"] = card_line() if device == "cuda" else None
+    print("hiersum " + json.dumps(summary))
+    return summary
+
+
+def _compute_pids():
+    """The pids holding a context on the card, one per context, as
+    nvidia-smi lists them (None when it cannot be asked).  In a container
+    whose pid namespace is not the GPU driver's, nvidia-smi lists a context
+    under a pid that is not ours."""
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=30)
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return sorted(int(x) for x in out.stdout.split() if x.strip().isdigit())
+
+
+def phase_procfleet(seed, work, params, rows, single_words, device="cuda"):
+    """The process fleet (serve/procfleet.py ProcFleet,
+    serve_fleet_transport=proc): two children started as ``python -m
+    textsummarization_on_flink_tpu_torch.cli serve-replica`` on this card,
+    each reading the ROUGE phase's checkpoint (``params``, saved into
+    its train directory) and the synthetic vocabulary, continuous
+    (CONTINUOUS_FLAGS) at the fleet phase's width:
+
+      a. both pass the readiness handshake (portfile, then /healthz with
+         the child's pid); prints each child's seconds to ready;
+      b. nvidia-smi lists both children's contexts on the card: their
+         pids, or, where nvidia-smi's pids are not this pid namespace's
+         (a container), two contexts more than before the start;
+      c. 16 of the fleet rows; once one has resolved, the most-loaded
+         child is SIGKILLed (ReplicaProcess.kill_now): its requests
+         requeue (serve/requeued_total at least 1), every router future
+         resolves exactly once, the victim restarts as incarnation 2 and
+         is readmitted through the half-open probe (prints its seconds to
+         ready again), and every summary equals ``single_words`` (the
+         fleet phase's single continuous server) for the same article;
+      d. the fleet stops cleanly: every child has exited and nvidia-smi
+         lists neither child's context (the count is back to what it was
+         before the start).
+    The children's kernel launches happen in their own processes and are
+    not in this process's counts.  (device="cpu" rehearses the control
+    flow without a card.)"""
+    from textsummarization_on_flink_tpu_torch import obs
+    from textsummarization_on_flink_tpu_torch.serve import procfleet
+
+    words = synthetic_words(main_path_hps("pointer_generator").vocab_size)
+    vocab_path = os.path.join(work, "vocab")
+    with open(vocab_path, "w", encoding="utf-8") as f:
+        f.writelines(f"{w} {len(words) - i}\n" for i, w in enumerate(words))
+    _save_params(os.path.join(work, "exp", "train"), params, 4)
+    hps = main_path_hps("pointer_generator").replace(
+        mode="decode", device=device, log_root=work, exp_name="exp",
+        vocab_path=vocab_path, serve_fleet_transport="proc",
+        serve_replicas=2, **CONTINUOUS_FLAGS)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    state = os.path.join(work, "state")
+    os.makedirs(state)
+    reg = obs.Registry()
+    fleet = procfleet.ProcFleet(hps, registry=reg, state_dir=state,
+                                child_env=env, ready_timeout=600.0,
+                                replica_reset_secs=0.5)
+    summary = {}
+
+    def wait_ready(procs, t0, incarnation):
+        ready = {}
+        deadline = time.monotonic() + 600.0
+        while len(ready) < len(procs) and time.monotonic() < deadline:
+            for p in procs:
+                if (p.rid not in ready and p.incarnation == incarnation
+                        and p.ready()):
+                    ready[p.rid] = time.perf_counter() - t0
+            time.sleep(0.01)
+        return ready
+
+    def contexts_held(pids, listed):
+        """Whether nvidia-smi's list holds the children's contexts: their
+        pids, or two contexts beyond `before` when no listed pid is one
+        of this namespace's processes."""
+        if set(pids) <= set(listed):
+            return True
+        if set(listed) & set(pids + [os.getpid()]):
+            return False  # our pid namespace, and a child is missing
+        return len(listed) == len(before) + len(pids)
+
+    before = _compute_pids()
+    t0 = time.perf_counter()
+    fleet.start()
+    try:
+        summary["ready_s"] = wait_ready(fleet.procs, t0, 1)
+        check(len(summary["ready_s"]) == 2, "a child never became ready")
+        check(fleet.wait_ready(timeout=60.0), "the rotation never warmed")
+        pids = [p.pid() for p in fleet.procs]
+        listed = _compute_pids()
+        summary.update(pids=pids, compute_pids_before=before,
+                       compute_pids=listed)
+        if device == "cuda":
+            check(before is not None and listed is not None
+                  and contexts_held(pids, listed),
+                  f"nvidia-smi lists {listed} (before the start: "
+                  f"{before}), not both children {pids}")
+        import threading
+
+        calls, lock = {}, threading.Lock()
+        first = threading.Event()
+
+        def note(f):
+            with lock:
+                calls[f.uuid] = calls.get(f.uuid, 0) + 1
+            first.set()
+
+        futs = []
+        t1 = time.perf_counter()
+        for row in rows[:16]:
+            f = fleet.router.submit(row[1], uuid=row[0], reference=row[3])
+            f.add_done_callback(note)
+            futs.append(f)
+        first.wait(timeout=600)
+        victim = max(fleet.remotes, key=lambda r: r.load())
+        proc = fleet.procs[fleet.remotes.index(victim)]
+        summary["victim"] = dict(rid=proc.rid, load=victim.load(),
+                                 pid=proc.pid())
+        check(victim.load() > 0 and proc.kill_now(),
+              "no child was mid-decode to kill")
+        t_kill = time.perf_counter()
+        res = {f.uuid: f.result(timeout=900) for f in futs}
+        summary["serve_seconds"] = time.perf_counter() - t1
+        summary["requeued"] = reg.counter("serve/requeued_total").value
+        check(summary["requeued"] >= 1, "the SIGKILL requeued nothing")
+        check(calls == {r[0]: 1 for r in rows[:16]},
+              "not every router future resolved exactly once")
+        differ = sorted(u for u, r in res.items()
+                        if r.summary != " ".join(single_words[u]))
+        check(not differ, f"child summaries differ from the single "
+                          f"server's for {differ}")
+        restart = wait_ready([proc], t_kill, 2)
+        summary["restart_ready_s"] = restart.get(proc.rid)
+        check(proc.rid in restart, "the victim never restarted")
+        check(fleet.wait_ready(timeout=60.0),
+              "the restarted child was not readmitted")
+        summary["victim"]["new_pid"] = proc.pid()
+        pids.append(proc.pid())
+    finally:
+        fleet.stop(timeout=60.0)
+    check(all(p.proc is None or p.proc.poll() is not None
+              for p in fleet.procs), "a child outlived the fleet")
+    listed = _compute_pids()
+    summary["compute_pids_after"] = listed
+    if device == "cuda":
+        check(listed is not None and not set(pids) & set(listed)
+              and len(listed) == len(before),
+              f"nvidia-smi lists {listed} after the stop (before the "
+              f"start: {before})")
+    summary["card"] = card_line() if device == "cuda" else None
+    print("procfleet " + json.dumps(summary))
+    return summary
+
+
 def _trained(family, fn):
     """fn(work) -> summary of a train phase, and the numpy params of its
     last checkpoint (model.ckpt-<steps>.npz of work/exp/train)."""
@@ -3134,6 +3768,14 @@ def main(argv=None) -> int:
         args.seed, w, trained["transformer"], scored["trained_params"]))
     dist = _in_work("distill", lambda w: phase_distill(
         args.seed, w, trained["transformer"]))
+    fleet = _in_work("fleet", lambda w: phase_fleet(
+        args.seed, w, scored["trained_params"], trained["transformer"],
+        cont["transformer_words"]))
+    hier = _in_work("hiersum", lambda w: phase_hiersum(
+        args.seed, w, scored["trained_params"]))
+    procs = _in_work("procfleet", lambda w: phase_procfleet(
+        args.seed, w, scored["trained_params"], fleet["rows"],
+        fleet["single_words"]))
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     bwd_main = bwd_rows[0]  # the training encoder's shape
@@ -3172,7 +3814,8 @@ def main(argv=None) -> int:
         + diet["decode"]["kernel_launches"] + scored["launches"]["fused"]
         + scored["train_launches"]["fused"] + streamed["launches"]["fused"]
         + wide_pg_decode + wide_pg_train["fused"] + served["launches"]
-        + cont["launches"] + spec["launches"]["fused"],
+        + cont["launches"] + spec["launches"]["fused"] + fleet["launches"]
+        + hier["launches"]["fused"],
         max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         # the bf16 stream at the decode shape and at the training shape
@@ -3236,6 +3879,17 @@ def main(argv=None) -> int:
         # batch and its K = 1 verify steps, at the training shape's row
         spec=dict(launches=spec["launches"]["fused"],
                   timed_in="training_shape"),
+        # the fleet layer: phase_fleet's continuous replicas (the bounded
+        # form, timed in "bounded"), phase_hiersum's micro-batch map
+        # (greedy, K = 1: "training_shape") and reduce (beam: "ms")
+        # dispatches; phase_procfleet's children launch in their own
+        # processes and are not counted here
+        fleet=dict(launches=fleet["launches"], timed_in="bounded"),
+        hiersum=dict(launches=hier["launches"]["fused"],
+                     timed_in=["training_shape", "ms"]),
+        procfleet=dict(children=len(procs["ready_s"]),
+                       ready_s=procs["ready_s"],
+                       restart_ready_s=procs["restart_ready_s"]),
         library_ms=None, redesigned="PR 5"), dict(
         name="fused_attention_bwd", route="cuda", source=fused_src + "_bwd.cu",
         # the custom_vjp's backward (jax.vjp of the XLA formula)
@@ -3269,11 +3923,13 @@ def main(argv=None) -> int:
         launches=summaries["transformer"]["kernel_launches"]
         + tf_train["flash_forward"] + hd256_flash + cont["flash_launches"]
         + spec["launches"]["flash_forward"]
-        + dist["launches"]["flash_forward"],
+        + dist["launches"]["flash_forward"] + fleet["flash_launches"],
         # the speculative tier's encoders (both models') and the
-        # distillation's teacher decodes and draft steps
+        # distillation's teacher decodes and draft steps; the fleet's
+        # transformer replicas' prefills
         spec=dict(launches=spec["launches"]["flash_forward"]),
         distill=dict(launches=dist["launches"]["flash_forward"]),
+        fleet=dict(launches=fleet["flash_launches"]),
         max_abs_err=flash_worst, ms=flash_row["ms"],
         plain_ms=flash_row["plain_ms"], bound_ms=flash_row["bound_ms"],
         bound_by=flash_row["bound_by"], library_ms=flash_row["library_ms"],

@@ -326,9 +326,12 @@ def _feeder_threads():
             and "_BridgeFeeder" in str(getattr(t, "_target", ""))]
 
 
-def test_a_consumer_that_stops_early_cancels_the_feeder(port_run, tmp_path):
+def test_a_consumer_that_stops_early_cancels_the_feeder(port_run, tmp_path,
+                                                      monkeypatch):
     """fit stops at num_steps and transform at max_batches while the
-    source would go on forever: each returns, the feeder stops reading."""
+    source would go on forever: each returns, the feeder stops reading.
+    The transform half waits for a whole batch: a trickle wait no loaded
+    run reaches keeps a slow feeder from shipping a partial one."""
     def endless():
         i = 0
         while True:
@@ -348,6 +351,7 @@ def test_a_consumer_that_stops_early_cancels_the_feeder(port_run, tmp_path):
         cap = batcher.Batcher.BATCH_QUEUE_MAX * 4
         assert 8 <= fed <= 8 + 3 * 4 + 2 * cap + 4 + 1 + 1024 + 1
         model = make_estimator("port", port_run["root"])._model()
+        monkeypatch.setattr(batcher, "TRICKLE_WAIT_S", 30.0)
         sink = model.transform(io.IteratorSource(endless), max_batches=1)
     assert len(sink.rows) == 4
     assert not _feeder_threads()
@@ -393,15 +397,18 @@ def test_a_trickled_row_is_summarized_before_the_stream_goes_on(port_run):
 
 
 def test_what_is_not_ported_yet_raises(port_run):
-    """Hierarchical transforms (item 7) raise; serving with the continuous
+    """Hierarchical transforms (item 7, landed) write one row per
+    document revision; serving with the continuous
     engine (item 4, landed) transforms the rows as the micro-batch engine
     does, and so (item 5, landed) do the spec tier, with a fresh AAN
     draft, and an App whose degrade tier is draft; a spec tier without a
     draft model is refused at its first submit."""
     model = make_estimator("port", port_run["root"])._model()
     src = io.CollectionSource(rows(1))
-    with pytest.raises(NotImplementedError, match="queue 1, item 7"):
-        model.transform(src, hierarchical=True)
+    hier = model.transform(src, hierarchical=True)
+    (uuid, article, _, reference), = hier.rows
+    assert (uuid, article, reference) == (
+        rows(1)[0][0] + "@r1", rows(1)[0][1], rows(1)[0][3])
     argv = model.get_inference_hyper_params()
     want = io.CollectionSink()
     model.transform(io.CollectionSource(rows(2)), want, serving=True)

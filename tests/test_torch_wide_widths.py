@@ -215,13 +215,17 @@ def test_jax_flags_that_parsed_silently_now_raise():
             "--dp=2 --decode_deadline_secs=2 --spec_draft=map "
             "--serve_default_tier=greedy --grad_allreduce_dtype=bfloat16 "
             "--mode=decode --device=cpu".split())
-    for flags, item in (("--hier_chunk_words 64", "item 7"),
-                        ("--serve_replicas=2", "item 7"),
+    for flags, item in (("--sp 2", "item 6"),
+                        ("--tp=2", "item 6"),
                         ("--profile_analytic", "item 2h")):
         with pytest.raises(NotImplementedError, match=item):
             HParams.from_argv(flags.split())
     # the slot engine's flags came with the slot engine (item 4), the
-    # speculative tier's with the AAN draft (item 5)
+    # speculative tier's with the AAN draft (item 5), the fleet's and the
+    # hierarchical summarizer's with the fleet layer (item 7)
+    assert HParams.from_argv(
+        "--hier_chunk_words 64".split()).hier_chunk_words == 64
+    assert HParams.from_argv("--serve_replicas=2".split()).serve_replicas == 2
     assert HParams.from_argv("--serve_slots 4".split()).serve_slots == 4
     assert HParams.from_argv("--spec_k_adaptive".split()).spec_k_adaptive
     # the obs fields came with the obs package: taken as JAX takes them
@@ -230,8 +234,8 @@ def test_jax_flags_that_parsed_silently_now_raise():
     assert HParams.from_argv(["--no_such_flag=3"]) == HParams()
 
 
-#: the fields the obs package, the serve layer and the speculative tier
-#: brought, each at a value other than its JAX default; the item's label
+#: the fields the obs package, the serve layer, the speculative tier and
+#: the fleet layer brought, each at a value other than its JAX default; the item's label
 #: where the value still needs an unported item, else None
 PORTED_FLAGS = [
     ("obs", "False", None), ("obs_http_port", "9000", None),
@@ -253,6 +257,13 @@ PORTED_FLAGS = [
     ("draft_dec_layers", "2", None), ("draft_hidden", "256", None),
     ("draft_vocab_rank", "64", None), ("spec_k_adaptive", "True", None),
     ("spec_k_min", "2", None), ("spec_k_max", "6", None),
+    ("serve_replicas", "2", None), ("serve_hedge_ms", "40.0", None),
+    ("serve_hedge_max_ratio", "0.25", None),
+    ("serve_fleet_transport", "proc", None),
+    ("serve_scrape_timeout_ms", "100.0", None),
+    ("serve_scrape_interval_ms", "10.0", None),
+    ("hier_chunk_words", "64", None), ("hier_overlap_words", "8", None),
+    ("hier_chunk_tier", "beam", None), ("hier_reduce_tier", "greedy", None),
 ]
 
 

@@ -28,6 +28,10 @@ run and exit, as the reference's do: ``--convert_to_coverage_model``
 (run_summarization.py:157-178) and ``--restore_best_model`` (:132-154).
 Runs on CUDA unless ``--device=cpu``; with no CUDA device and no
 ``--device=cpu`` it raises.
+
+``python -m textsummarization_on_flink_tpu_torch.cli serve-replica`` is
+a process-fleet child (serve/procfleet.py): it reads its HParams from
+``TS_HPS_JSON`` and serves until SIGTERM.
 """
 
 from __future__ import annotations
@@ -138,6 +142,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         level=logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     argv = argv if argv is not None else sys.argv[1:]
+    if argv and argv[0] == "serve-replica":
+        # the process-fleet child (SERVING.md "Process fleet"): its
+        # configuration arrives as TS_HPS_JSON and its ports leave
+        # through the portfile handshake, so it dispatches before the
+        # flag parse; the child builds its server on hps.device
+        from textsummarization_on_flink_tpu_torch.serve import procfleet
+
+        return procfleet.replica_child_main(argv[1:])
     hps = HParams.from_argv(argv)
     hps.validate()
     resolve_device(hps.device)  # no card and no --device=cpu: raise here

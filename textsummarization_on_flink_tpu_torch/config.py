@@ -29,11 +29,16 @@ tier's and the AAN draft's fields (``spec_k``, ``spec_draft``,
 ``spec_k_adaptive``, ``spec_k_min``, ``spec_k_max``) are the JAX
 package's too, with its checks and its resolvers ``derive_draft_hps``,
 ``resolve_draft_hidden`` and ``resolve_spec_bounds``; every tier of
-``SERVE_TIERS`` is served.
+``SERVE_TIERS`` is served.  The fleet's fields (``serve_replicas``,
+``serve_hedge_ms``, ``serve_hedge_max_ratio``, ``serve_fleet_transport``,
+``serve_scrape_timeout_ms``, ``serve_scrape_interval_ms``) and the
+hierarchical summarizer's (``hier_chunk_words``, ``hier_overlap_words``,
+``hier_chunk_tier``, ``hier_reduce_tier``) are the JAX package's too,
+with its checks and ``resolve_hier_chunk_words``; ``from_json`` reads
+``to_json`` back (a process-fleet child takes its configuration so).
 
 Fields of the JAX package that steer paths this package does not have
-yet (mesh axes, the fleet, the profiler's analytic pricing) are not
-fields here:
+yet (mesh axes, the profiler's analytic pricing) are not fields here:
 ``JAX_ONLY_FIELDS`` lists them with their JAX types and defaults, and
 ``from_argv`` (so ``from_string`` and the pipeline's hyperparameter
 strings too) accepts one at its default and raises
@@ -61,14 +66,9 @@ ROADMAP_PG_WIDTH = ("ROADMAP.md queue 3, item 4 (pointer-generator widths "
                     "card)")
 ROADMAP_MULTI_GPU = ("ROADMAP.md queue 1, item 6 (multi-GPU: data, tensor "
                      "and sequence parallelism)")
-ROADMAP_FLEET = ("ROADMAP.md queue 1, item 7 (the fleet layer: replicas, "
-                 "hedging, the process fleet, hierarchical summarization)")
 ROADMAP_PROFILE = ("ROADMAP.md queue 1, item 2h (the profiler's analytic "
                    "pricing and divergence sentinel, the trainer's flight "
                    "frames and profiler phases)")
-ROADMAP_HIERSUM = ("ROADMAP.md queue 1, item 7 (hierarchical summarization "
-                   "and the document framing behind "
-                   "transform(hierarchical=True))")
 
 
 #: the JAX package's HParams fields that the port does not have, as
@@ -86,16 +86,6 @@ JAX_ONLY_FIELDS: Dict[str, Tuple[type, Any, Optional[str]]] = {
     "sp_attention": (str, "", ROADMAP_MULTI_GPU),
     "grad_allreduce_dtype": (str, "float32", ROADMAP_MULTI_GPU),
     "scan_unroll": (int, 8, None),
-    "serve_replicas": (int, 1, ROADMAP_FLEET),
-    "serve_hedge_ms": (float, 0.0, ROADMAP_FLEET),
-    "serve_hedge_max_ratio": (float, 0.1, ROADMAP_FLEET),
-    "serve_fleet_transport": (str, "inproc", ROADMAP_FLEET),
-    "serve_scrape_timeout_ms": (float, 250.0, ROADMAP_FLEET),
-    "serve_scrape_interval_ms": (float, 50.0, ROADMAP_FLEET),
-    "hier_chunk_words": (int, 0, ROADMAP_FLEET),
-    "hier_overlap_words": (int, 0, ROADMAP_FLEET),
-    "hier_chunk_tier": (str, "greedy", ROADMAP_FLEET),
-    "hier_reduce_tier": (str, "beam", ROADMAP_FLEET),
     "profile_analytic": (bool, False, ROADMAP_PROFILE),
     "profile_divergence_factor": (float, 5.0, ROADMAP_PROFILE),
 }
@@ -259,6 +249,26 @@ class HParams:
     serve_tenant_rate: float = 0.0
     serve_tenant_burst: int = 0
     serve_fair_weights: str = ""
+    # the fleet (serve/fleet.py, serve/procfleet.py; JAX config.py:
+    # 362-441): replicas behind the FleetRouter (1 = a single server);
+    # the hedge latency budget in ms (0 = off) and the hedge ceiling as a
+    # share of admissions; "inproc" replicas (threads) or "proc" (one
+    # supervised child process each); the hard deadline of every
+    # supervisor-to-child scrape and connect, and the scrape cache window
+    serve_replicas: int = 1
+    serve_hedge_ms: float = 0.0
+    serve_hedge_max_ratio: float = 0.1
+    serve_fleet_transport: str = "inproc"
+    serve_scrape_timeout_ms: float = 250.0
+    serve_scrape_interval_ms: float = 50.0
+    # hierarchical summarization (serve/hiersum.py; JAX config.py:
+    # 443-461): words per map-pass chunk (0 = max_enc_steps), words of
+    # overlap between adjacent chunks, and the map and reduce tiers ("" =
+    # greedy and beam; both beam on a continuous server)
+    hier_chunk_words: int = 0
+    hier_overlap_words: int = 0
+    hier_chunk_tier: str = "greedy"
+    hier_reduce_tier: str = "beam"
 
     # transformer family (JAX config.py:77-83): hidden_dim is d_model,
     # embeddings are tied, ffn_dim=0 means 4*hidden_dim
@@ -293,6 +303,14 @@ class HParams:
 
     def to_json(self) -> str:
         return json.dumps(dataclasses.asdict(self), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "HParams":
+        """The inverse of ``to_json`` (JAX config.py:497): keys this
+        package does not know are dropped."""
+        d = json.loads(s)
+        known = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in known})
 
     @property
     def ffn_width(self) -> int:
@@ -746,6 +764,14 @@ def resolve_arena_pages(hps: "HParams",
             f"at max_enc_steps={hps.max_enc_steps}); raise "
             f"serve_arena_pages/serve_arena_mb or decode_enc_block")
     return pages
+
+
+def resolve_hier_chunk_words(hps: "HParams") -> int:
+    """Effective map-pass chunk width of hierarchical summarization:
+    ``hier_chunk_words``, or the full encoder horizon when 0 (JAX
+    config.py:1027).  The one resolver, so no two components disagree
+    about where a chunk boundary falls."""
+    return hps.hier_chunk_words or hps.max_enc_steps
 
 
 def bucket_for(buckets: List[int], enc_len: int) -> int:

@@ -30,9 +30,10 @@ applied by the trainer, as for ``cli.py --mode=train``: the batch of a
 non-finite loss is dumped.  ``transform(serving=True)`` runs the rows
 through the concurrent serve layer (serve/server.py: an admission
 queue, micro-batches, deadlines) instead of the synchronous decode
-loop, with the same output rows.  ``transform(hierarchical=True)``
-(long documents) is not ported yet and raises, naming its ROADMAP.md
-item.
+loop, with the same output rows.  ``transform(hierarchical=True)`` takes long
+documents as framed rows (pipeline/codec.py), reassembles them, and
+map-reduces each over a ServingServer (serve/hiersum.py): one summary
+row per document revision.
 """
 
 from __future__ import annotations
@@ -47,10 +48,7 @@ from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch.checkpoint import (
     checkpointer as ckpt_lib,
 )
-from textsummarization_on_flink_tpu_torch.config import (
-    ROADMAP_HIERSUM,
-    HParams,
-)
+from textsummarization_on_flink_tpu_torch.config import HParams
 from textsummarization_on_flink_tpu_torch.data.batcher import IDLE, Batcher
 from textsummarization_on_flink_tpu_torch.data.vocab import (
     SENTENCE_END,
@@ -295,9 +293,8 @@ class SummarizationModel(Model,
         soon as its batch is done.  ``max_batches`` > 0 stops after that
         many batches and cancels the rest of the stream."""
         if hierarchical:
-            raise NotImplementedError(
-                f"transform(hierarchical=True) is not ported yet; "
-                f"{ROADMAP_HIERSUM}")
+            return self._transform_hierarchical(source, sink,
+                                                max_batches=max_batches)
         if serving:
             return self._transform_serving(source, sink,
                                            max_batches=max_batches)
@@ -369,6 +366,119 @@ class SummarizationModel(Model,
                 server.serve(source, _CountedSink(),
                              cols=self.get_inference_selected_cols(),
                              max_count=max_batches * hps.batch_size)
+        return out_sink
+
+
+    def _transform_hierarchical(self, source: Source,
+                                sink: Optional[Sink] = None,
+                                max_batches: int = 0) -> Sink:
+        """Long-document transform: frames -> documents -> map-reduce.
+
+        The stage owns the driver-side streaming state the server must
+        not know about: the ``DocumentAssembler`` (frame reassembly) and
+        one ``DocumentSession`` per doc id, so a doc id whose frame-set
+        completes AGAIN is an append + re-summarize — the session's
+        prior chunk keys make the front door dedup pinnable.  Chunk
+        submits use block=True (pipeline backpressure, same stance as
+        ``server.serve``); completed documents write to the sink from
+        the parent future's done-callback, so sink order follows
+        completion.  ``max_batches`` bounds completed DOCUMENT
+        revisions (``max_batches * batch_size``), mirroring the other
+        transform paths' row bound."""
+        from textsummarization_on_flink_tpu_torch.pipeline.codec import (
+            DocumentAssembler,
+        )
+        from textsummarization_on_flink_tpu_torch.serve.hiersum import (
+            DocumentSession,
+            HierarchicalSummarizer,
+        )
+        from textsummarization_on_flink_tpu_torch.serve.server import (
+            ServingServer,
+        )
+
+        hps = self._hps()
+        hps.validate()
+        vocab = self._vocab(hps)
+        out_sink = sink if sink is not None else CollectionSink()
+        reg = obs.registry_for(hps)
+        c_out = reg.counter("pipeline/rows_out_total")
+        sel = self.get_inference_selected_cols()  # uuid, article, reference
+        max_docs = max_batches * hps.batch_size
+        assembler = DocumentAssembler(registry=reg)
+        sessions = {}  # doc id -> DocumentSession
+        last = {}  # doc id -> most recent revision's parent future
+        futures: List = []
+        errors: List[BaseException] = []
+        lock = threading.Lock()
+
+        def _emit(fut) -> None:
+            # runs on the server's resolve thread — cheap append only
+            if fut.error is not None:
+                with lock:
+                    errors.append(fut.error)
+                return
+            row = fut.result(timeout=0).as_row()
+            with lock:
+                out_sink.write(row)
+                c_out.inc()
+
+        # raises with no card and no --device=cpu
+        server = ServingServer(
+            hps.replace(single_pass=False), vocab,
+            train_dir=train_dir_for(hps),
+            decode_root=os.path.join(hps.log_root or ".",
+                                     hps.exp_name or "exp"),
+            registry=reg)
+        truncated = False
+        with obs.spans.span(reg, "pipeline/transform_hierarchical"):
+            with server:
+                hs = HierarchicalSummarizer(server, hps, registry=reg)
+                for row in source.rows():
+                    doc = assembler.feed(
+                        source.schema.project_row(row, sel))
+                    if doc is None:
+                        continue
+                    doc_id, article, reference = doc
+                    sess = sessions.get(doc_id)
+                    if sess is None:
+                        sess = sessions[doc_id] = DocumentSession(
+                            doc_id, article)
+                    else:
+                        # a revision: the new frame-set is APPENDED text.
+                        # Serialize revisions per stream first — revision
+                        # N+1's dedup rides the front-door CACHE, which
+                        # only holds a chunk's entry once revision N's
+                        # copy retired; overlapping in-flight revisions
+                        # would coalesce instead of cache-hit.  One open
+                        # document is one in-order stream.
+                        prev = last.get(doc_id)
+                        if prev is not None:
+                            try:
+                                prev.result()
+                            except Exception:  # tslint: disable=TS005 — barrier only: the typed cause already landed in `errors` via _emit's done-callback and re-raises after the drain
+                                pass
+                        sess.append(article)
+                    fut = hs.summarize("", reference=reference,
+                                       session=sess, block=True)
+                    last[doc_id] = fut
+                    fut.add_done_callback(_emit)
+                    futures.append(fut)
+                    if max_docs and len(futures) >= max_docs:
+                        truncated = True
+                        break
+                for fut in futures:
+                    try:
+                        fut.result()  # errors re-raise below, in order
+                    except Exception:  # tslint: disable=TS005 — drain barrier: every rejection was captured typed in `errors` by _emit and the first re-raises after the loop
+                        pass
+        pending = assembler.pending()
+        if pending and not truncated:
+            raise RuntimeError(
+                f"source stream ended with incomplete document "
+                f"frame-sets: {pending}; partial documents would "
+                f"corrupt the result")
+        if errors:
+            raise errors[0]
         return out_sink
 
 

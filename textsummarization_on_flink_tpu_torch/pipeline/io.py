@@ -159,16 +159,25 @@ ARTICLE_OUTPUT_SCHEMA = RowSchema(
 
 class Message:
     """Kafka JSON payload <-> Row(uuid, article, summary, reference).
-    ``from_json`` ignores keys it does not know (the JAX package's
-    serving transport adds ``tier`` and ``error``), and a missing field
-    reads as empty."""
+
+    ``tier``/``error`` extend the frame for the
+    multi-process serving transport: a request frame carries its
+    quality tier, a reply frame carries a typed submit failure as
+    ``"ExcType: message"``.  Both serialize ONLY when non-empty, so the
+    classic 4-field wire format (and its committed byte accounting) is
+    unchanged for every pre-existing producer; ``from_json`` ignores
+    unknown keys as before, so mixed-version peers interoperate.
+    ``to_row``/``from_row`` stay 4 columns — the extras are transport
+    envelope, not schema columns."""
 
     def __init__(self, uuid: str = "", article: str = "", summary: str = "",
-                 reference: str = ""):
+                 reference: str = "", tier: str = "", error: str = ""):
         self.uuid = uuid
         self.article = article
         self.summary = summary
         self.reference = reference
+        self.tier = tier
+        self.error = error
 
     def to_row(self) -> Row:
         return (self.uuid, self.article, self.summary, self.reference)
@@ -178,16 +187,21 @@ class Message:
         return cls(*[str(v) for v in row])
 
     def to_json(self) -> str:
-        return json.dumps({"uuid": self.uuid, "article": self.article,
-                           "summary": self.summary,
-                           "reference": self.reference}, sort_keys=True)
+        d = {"uuid": self.uuid, "article": self.article,
+             "summary": self.summary, "reference": self.reference}
+        if self.tier:
+            d["tier"] = self.tier
+        if self.error:
+            d["error"] = self.error
+        return json.dumps(d, sort_keys=True)
 
     @classmethod
     def from_json(cls, s: str) -> "Message":
         d = json.loads(s)
         return cls(uuid=d.get("uuid", ""), article=d.get("article", ""),
                    summary=d.get("summary", ""),
-                   reference=d.get("reference", ""))
+                   reference=d.get("reference", ""),
+                   tier=d.get("tier", ""), error=d.get("error", ""))
 
 
 # --------------------------------------------------------------------------

@@ -2,8 +2,7 @@
 admission control (SERVING.md).
 
 A copy of the JAX package's serve/ (the port imports nothing of that
-package) without the fleet layer: ``router``, ``fleet``, ``procfleet``
-and ``hiersum`` are ROADMAP.md queue 1, item 7.  The server builds the
+package), the fleet layer included.  The server builds the
 port's ``BeamSearchDecoder`` on the hyperparameters' device, and in
 continuous mode its ``SlotDecodeEngine`` (a stub engine may be
 injected), and serves every quality tier: beam, greedy, and the spec
@@ -39,6 +38,16 @@ Layer map:
     ``SummaryCache``, and per-tenant token-bucket admission —
     ``FrontDoor`` sits between submit and the queue in BOTH the
     single-server and fleet paths (jax-free).
+  * ``router``/``fleet`` — the elastic fleet (SERVING.md "Elastic
+    fleet"): ``ReplicaHandle`` rotation state + least-loaded
+    ``pick_replica`` (``router``), and the ``FleetRouter`` fronting N
+    replicas — health-aware routing, request hedging, rolling hot-swap,
+    replica failover with typed requeue (``fleet``).
+  * ``procfleet`` — the same router over supervised child processes
+    (``python -m textsummarization_on_flink_tpu_torch.cli
+    serve-replica``) reached over loopback sockets.
+  * ``hiersum`` — hierarchical (map over chunks, then reduce) document
+    summarization over a server or a fleet.
 
 ``serve.queue``/``serve.batcher`` never import torch; ``serve.server``
 defers the decoder import until it actually builds one, so admission
@@ -71,7 +80,7 @@ from textsummarization_on_flink_tpu_torch.serve.frontdoor import (
 )
 
 __all__ = [
-    "ContinuousBatcher", "FrontDoor", "MicroBatcher",
+    "ContinuousBatcher", "FleetRouter", "FrontDoor", "MicroBatcher",
     "ReplicaKilledError", "RequestQueue", "ServeClosedError", "ServeError",
     "ServeFuture", "ServeOverloadError", "ServeRequest", "ServingServer",
     "SummaryCache", "TenantThrottledError", "article_key",
@@ -80,13 +89,18 @@ __all__ = [
 
 
 def __getattr__(name: str):
-    # ServingServer lazily: serve.server imports pipeline.io (sockets,
-    # breakers) and, when it builds one, the decoder (torch), which light
-    # importers of this package don't need
+    # ServingServer/FleetRouter lazily: serve.server imports pipeline.io
+    # (sockets, breakers) and, when it builds one, the decoder (torch),
+    # which light importers of this package don't need, and serve.fleet
+    # imports serve.server's error surface
     if name == "ServingServer":
         from textsummarization_on_flink_tpu_torch.serve.server import (
             ServingServer,
         )
 
         return ServingServer
+    if name == "FleetRouter":
+        from textsummarization_on_flink_tpu_torch.serve.fleet import FleetRouter
+
+        return FleetRouter
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -75,6 +75,14 @@ class MicroBatcher:
                              hps.batch_size)
         self._window = max(hps.serve_max_wait_ms, 0.0) / 1000.0
         self.buckets = resolve_buckets(hps)
+        #: requests popped off the queue into the group currently being
+        #: coalesced or dispatched: from the moment next_group takes its
+        #: first request until the server's dispatch loop calls
+        #: end_group, these are ADMITTED work that the queue no longer
+        #: shows — the fleet's idle()/load() surfaces must see them or a
+        #: rolling swap could fire mid-coalesce.  Single writer (the
+        #: dispatch thread); readers only need zero/non-zero.
+        self.in_flight = 0
         reg = registry if registry is not None else obs.registry_for(hps)
         # fill is the headline batching metric: mean fill ~1 means the
         # window is too short (or traffic too thin) and every dispatch
@@ -105,6 +113,7 @@ class MicroBatcher:
         if first is None:
             return None
         group = [first]
+        self.in_flight = 1
         window_ends = time.monotonic() + self._window
         while len(group) < self.max_batch:
             remaining = window_ends - time.monotonic()
@@ -116,12 +125,19 @@ class MicroBatcher:
                     if req is None:
                         break
                     group.append(req)
+                    self.in_flight = len(group)
                 break
             req = self._q.get(timeout=remaining)
             if req is None:
                 break
             group.append(req)
+            self.in_flight = len(group)
         return group
+
+    def end_group(self) -> None:
+        """The dispatch loop finished the current group (every member's
+        future resolved or rejected): the in-flight window closes."""
+        self.in_flight = 0
 
     def build(self, group: List[ServeRequest]) -> Batch:
         """Pack a group into one static-shape Batch: encoder axis padded
@@ -262,6 +278,17 @@ class ContinuousBatcher:
         self._h_arena_fill = reg.histogram(
             "serve/arena_fill",
             buckets=[0.1, 0.25, 0.5, 0.75, 0.9, 0.95, 1.0])
+
+    def active(self) -> int:
+        """Resident (occupied) slot count right now — the FleetRouter's
+        load input alongside the queue depth."""
+        return sum(r is not None for r in self._resident)
+
+    def prefilled(self) -> int:
+        """Prefilled-but-unslotted request count (admitted work that is
+        neither queued nor resident — the router's load math must not
+        lose it)."""
+        return len(self._prefilled)
 
     def busy(self) -> bool:
         return any(r is not None for r in self._resident)

@@ -431,6 +431,7 @@ class FrontDoor:
                         tenant=tenant or "default").inc(
                         len(getattr(cached, "decoded_words", ()) or ()))
                     fut = self._make_future(uuid, trace)
+                    fut.cache_hit = True
                     obs.spans.request_event(
                         self._reg, "cache_hit", fut.trace, uuid,
                         key=key, tier=tier)

@@ -113,8 +113,8 @@ class ServeFuture:
     and for sinks that must see one row per request.
     """
 
-    __slots__ = ("uuid", "trace", "scope", "_event", "_result", "_error",
-                 "_lock", "_callbacks", "_registry")
+    __slots__ = ("uuid", "trace", "scope", "cache_hit", "_event",
+                 "_result", "_error", "_lock", "_callbacks", "_registry")
 
     def __init__(self, uuid: str = "",
                  registry: Optional[obs.Registry] = None):
@@ -131,6 +131,10 @@ class ServeFuture:
         # on any thread — the dispatcher, an evictor, drain_reject —
         # so the ids ride the future itself
         self.trace: Optional[obs.TraceContext] = None
+        #: True when the front door answered it from the summary cache at
+        #: submit (set before it resolves): a decode that merely finished
+        #: fast is not a hit
+        self.cache_hit = False
         self._event = threading.Event()
         self._result: Any = None
         self._error: Optional[BaseException] = None

@@ -5,10 +5,11 @@ port's ``BeamSearchDecoder`` on ``hps.device``, so a dispatch runs the
 beam search (and on the card the fused attention kernel) in eager
 PyTorch; ``serve_mode="continuous"`` builds the decoder's slot engine
 (decode/decoder.SlotDecodeEngine) unless a stub ``engine=`` is
-injected.  The fleet (router, hedging, replicas) is ROADMAP.md queue 1,
-item 7, and the copy leaves out the hooks only a router calls (``kill``,
-``hot_swap``, ``disable_front_door``, ``disable_ingress_tracking``,
-``tick_once``, ``idle``, ``stats``, ``load``, ``registry``).
+injected.  It keeps the hooks a ``FleetRouter`` (serve/fleet.py) calls:
+``kill``, ``hot_swap``, ``disable_front_door``,
+``disable_ingress_tracking``, ``tick_once``, ``idle``, ``stats``,
+``load`` and ``registry``.  Several replicas on one card each launch on
+the device's current stream, so the card runs their decodes in turn.
 
 The reference's whole point is *streaming* summarization (Kafka rows
 through Flink into TF and back out, App.java inference job), but the
@@ -121,6 +122,7 @@ from textsummarization_on_flink_tpu_torch.serve.batcher import (
     MicroBatcher,
 )
 from textsummarization_on_flink_tpu_torch.serve.errors import (
+    ReplicaKilledError,
     ServeClosedError,
     ServeOverloadError,
 )
@@ -211,6 +213,14 @@ class ServingServer:
                                          registry=self._reg)
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        self._killed = False  # abrupt death (kill()): no drain, no refill
+        # micro-batch groups currently inside decode_batch (0 or 1 —
+        # single dispatch thread): the router's drain detection must
+        # not call a server idle while a group is mid-dispatch
+        self._dispatching = 0
+        # deterministic-driver clock for tick_once (the fleet SLO gate
+        # drives rounds without a dispatch thread)
+        self._tick_last = time.monotonic()
         # failure flight recorder (OBSERVABILITY.md "Flight recorder"):
         # per-tick/per-dispatch frames ring in memory; the serve-side
         # triggers (dispatch failure, breaker open, eviction storm) dump
@@ -273,7 +283,11 @@ class ServingServer:
         # repo root): first install on this registry wins, the clock is
         # THIS server's (virtual in the committed gate) — request
         # resolutions feed it via queue.track_request, dispatch rounds
-        # evaluate it
+        # evaluate it.  _ingress_track gates the whole feed: a replica
+        # BEHIND a FleetRouter must not double-count what the router
+        # already tracks (the router-level future is the caller-visible
+        # request; replica attempts are implementation detail)
+        self._ingress_track = True
         self._c_requests = self._reg.counter("serve/requests_total")
         slo_lib.install_slo_engine(self._reg, clock=clock)
 
@@ -281,6 +295,8 @@ class ServingServer:
     def start(self) -> "ServingServer":
         if self._thread is not None:
             return self
+        if self._killed:
+            raise ServeClosedError("cannot start a killed replica")
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="serve-dispatch")
         self._thread.start()
@@ -316,6 +332,85 @@ class ServingServer:
         # so /healthz reflects the components still running
         obs_http.retire_heartbeat(self._reg, "serve/dispatch")
 
+    def kill(self, error: Optional[BaseException] = None) -> int:
+        """Simulate (or surface) abrupt replica death: refuse new
+        submits, abandon the dispatch thread WITHOUT draining, and
+        reject every admitted request — residents and prefill-queue
+        entries through the typed ``fail_resident``/``fail_pending``
+        path, queued requests via ``drain_reject`` — with
+        ``ReplicaKilledError`` (or `error`).  Returns the number of
+        requests rejected.
+
+        The exactly-once contract survives death: every rejected future
+        resolves exactly once with the typed cause, which is what lets
+        the FleetRouter requeue them on surviving replicas (SERVING.md
+        "Elastic fleet").  Idempotent; a clean ``stop()`` is the
+        graceful sibling."""
+        if self._killed:
+            return 0
+        err = error if error is not None else ReplicaKilledError(
+            "serving replica killed mid-decode")
+        self._killed = True
+        self._queue.close()
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            # the dispatch thread exits at its next loop-top _killed
+            # check; join BEFORE failing residents so the kill path
+            # never races a live tick over the engine state
+            t.join(timeout=30.0)
+            if t.is_alive():  # pragma: no cover - defensive
+                log.warning("killed serve dispatch thread still inside a "
+                            "dispatch; residents will fail under it")
+            self._thread = None
+        n = 0
+        if self._cont is not None:
+            n += self._cont.fail_resident(err)
+            n += self._cont.fail_pending(err)
+        drained = self._queue.drain_reject(err)
+        if drained:
+            self._c_errors.inc(drained)
+        n += drained
+        obs_http.retire_heartbeat(self._reg, "serve/dispatch")
+        if n:
+            log.warning("replica killed: %d admitted request(s) rejected "
+                        "%s for requeue", n, type(err).__name__)
+        return n
+
+    @property
+    def killed(self) -> bool:
+        return self._killed
+
+    def hot_swap(self) -> bool:
+        """Router-orchestrated FORCED checkpoint swap (SERVING.md
+        "Elastic fleet"): reload the newest checkpoint NOW — no 60s
+        self-gate — between dispatches, while the router holds this
+        replica drained.  Same failure tolerance as the between-batch
+        path: a failed reload keeps the replica serving its CURRENT
+        snapshot (counted in ``serve/ckpt_reload_errors_total``) and
+        returns False; the router keeps it in rotation either way."""
+        try:
+            # -inf forces the cadence check; the decoder's params lock
+            # still makes the (params, ckpt, draft) swap atomic
+            self._decoder.maybe_reload_checkpoint(float("-inf"))
+            self._publish_fingerprint()
+            return True
+        except Exception:
+            self._reg.counter("serve/ckpt_reload_errors_total").inc()
+            log.exception("router-orchestrated hot-swap failed; serving "
+                          "on the current snapshot")
+            return False
+
+    def disable_front_door(self) -> None:
+        """Disarm THIS server's front door (FleetRouter construction):
+        behind a router, coalescing/caching must dedup ACROSS replicas
+        and tenant tokens must be charged exactly once — so the router
+        runs the one front door and replicas serve what they are
+        routed.  (A hedged twin or a requeue would otherwise coalesce
+        against its own primary, or double-spend a tenant's bucket.)
+        Also releases this replica's now-dead cache."""
+        self._door.disarm()
+
     @property
     def params_fingerprint(self) -> str:
         """The ACTIVE params fingerprint (the decoder's cached sha over
@@ -337,8 +432,64 @@ class ServingServer:
             return
         fp = self.params_fingerprint
         if fp != self._published_fp:
-            self._published_fp = fp  # tslint: disable=TS009 — written only by the one dispatch thread
+            self._published_fp = fp  # tslint: disable=TS009 — written only by whichever single loop (dispatch or tick_once) owns this server; roots never coexist
             obs_http.set_health_info(self._reg, params_fingerprint=fp)
+
+    @property
+    def serve_mode(self) -> str:
+        return self._mode
+
+    def idle(self) -> bool:
+        """True when the server holds NO admitted work: queue empty, no
+        group coalescing or mid-dispatch (the micro-batcher pops
+        requests off the queue up to ``serve_max_wait_ms`` before the
+        dispatch starts — those are admitted work the queue no longer
+        shows), no residents, no prefilled entries — the router's
+        drained predicate for rolling hot-swap."""
+        if not self._queue.empty() or self._dispatching:
+            return False
+        if self._batcher is not None and self._batcher.in_flight:
+            return False
+        if self._cont is not None and (self._cont.busy()
+                                       or self._cont.pending()):
+            return False
+        return True
+
+    def stats(self) -> dict:
+        """Live routing inputs (the in-process mirror of the /healthz
+        body's ``serve`` section): queue depth, resident/free slots
+        (continuous), prefilled count, effective serve_mode, and the
+        LIVE admission-breaker state (the ``breaker_state`` gauge only
+        refreshes on allow(), so a scraped OPEN may already be past its
+        reset window — the state property re-evaluates)."""
+        out = {
+            "queue_depth": self._queue.qsize(),
+            "serve_mode": self._mode,
+            "admission": self._queue.breaker.state,
+        }
+        if self._cont is not None:
+            active = self._cont.active()
+            out["slots_active"] = active
+            out["slots_free"] = self._cont.slots - active
+            out["prefilled"] = self._cont.prefilled()
+        return out
+
+    def load(self) -> int:
+        """Admitted-but-unresolved work count — the FleetRouter's
+        least-loaded routing key (queued + coalescing/dispatching +
+        resident + prefilled)."""
+        n = self._queue.qsize()
+        if self._batcher is not None:
+            n += self._batcher.in_flight
+        if self._cont is not None:
+            n += self._cont.active() + self._cont.prefilled()
+        return n
+
+    @property
+    def registry(self) -> obs.Registry:
+        """This replica's obs registry — the router reads its /healthz
+        payload (heartbeat staleness, breaker states) through it."""
+        return self._reg
 
     @property
     def serve_mode(self) -> str:
@@ -354,10 +505,20 @@ class ServingServer:
                        tier: str) -> "ServeFuture":
         """Ingress accounting for one admitted future — the shared
         ``queue.track_request`` helper (labeled requests_total + SLO
-        feed)."""
-        track_request(self._reg, self._clock, fut, tenant, tier,
-                      counter=self._c_requests)
+        feed), gated off entirely behind a FleetRouter."""
+        if self._ingress_track:
+            track_request(self._reg, self._clock, fut, tenant, tier,
+                          counter=self._c_requests)
         return fut
+
+    def disable_ingress_tracking(self) -> None:
+        """Stop counting this server's submits as caller-visible
+        requests (FleetRouter construction, alongside
+        ``disable_front_door``): the router tracks the one
+        caller-visible future per request — a replica also counting
+        each routed/hedged/requeued attempt would double-count
+        ``serve/requests_total`` and the SLO burn windows."""
+        self._ingress_track = False
 
     # -- request API --
     def submit(self, article: str, uuid: str = "", reference: str = "",
@@ -418,7 +579,7 @@ class ServingServer:
         flight = None
         try:
             if self._door.armed:
-                # a stopped server refuses new submits — checked
+                # a stopped/killed server refuses new submits — checked
                 # BEFORE the door, or a cached article would keep
                 # "succeeding" against a dead server while uncached ones
                 # raise typed (the shutdown contract must not depend on
@@ -462,7 +623,8 @@ class ServingServer:
             # without this, total admission failure — the exact outage
             # the engine pages on — reads as a healthy SLO because only
             # admitted futures reach track_request's done-callback
-            track_rejection(self._reg, tenant, tier)
+            if self._ingress_track:
+                track_rejection(self._reg, tenant, tier)
             raise
         if flight is not None:
             self._door.commit(flight, req.future)
@@ -554,13 +716,23 @@ class ServingServer:
             return
         t_last = time.monotonic()
         while True:
+            if self._killed:
+                return  # abrupt death: no drain (kill() rejects leftovers)
             self._beat()
             group = self._batcher.next_group()
             if group is None:
                 if self._stop.is_set() and self._queue.empty():
                     return
                 continue
-            self._dispatch(group)
+            self._dispatching += 1
+            try:
+                self._dispatch(group)
+            finally:
+                self._dispatching -= 1
+                # the group's futures are all settled: the coalesce/
+                # dispatch in-flight window (opened inside next_group)
+                # closes — idle()/load() stop counting it
+                self._batcher.end_group()
             # burn-rate refresh once per dispatch round: the group's
             # resolutions just landed in the SLO windows, so alert
             # transitions (and the slo_burn flight dump) fire on the
@@ -586,7 +758,9 @@ class ServingServer:
 
     def _continuous_round(self, t_last: float, poll: float = 0.05) -> float:
         """ONE continuous-mode scheduler round (beat -> tick -> between-
-        chunk hot-swap).  A failed tick — injected serve.dispatch fault, engine error —
+        chunk hot-swap), shared by the dispatch thread's loop and the
+        deterministic ``tick_once`` driver so the two can never drift.
+        A failed tick — injected serve.dispatch fault, engine error —
         fails the RESIDENT requests only (each resolves exactly once
         with the typed cause) and the round returns normally, mirroring
         the micro-batch 'a failed dispatch fails its batch only'
@@ -618,9 +792,12 @@ class ServingServer:
 
     def _run_continuous(self) -> None:
         """The continuous-mode dispatch loop: drive scheduler rounds
-        until stopped AND drained."""
+        until stopped AND drained (or killed — abrupt death skips the
+        drain; kill() resolves the leftovers typed)."""
         t_last = time.monotonic()
         while True:
+            if self._killed:
+                return
             t_last = self._continuous_round(t_last)
             # drain condition: queue empty AND no residents AND no
             # prefilled-but-unslotted requests (a tick can harvest every
@@ -631,6 +808,22 @@ class ServingServer:
                     and not self._cont.busy()
                     and not self._cont.pending()):
                 return
+
+    def tick_once(self, poll: float = 0.0) -> None:
+        """One continuous-mode scheduler round on the CALLER's thread.
+
+        The deterministic-driver hook (SERVING.md "Elastic fleet"): the
+        fleet virtual-time SLO gate and single-threaded harnesses drive
+        the REAL dispatch path — the exact code the dispatch thread
+        runs, including the tick-failure blast radius and the
+        between-chunk hot-swap — one round at a time, with no threads
+        and no sleeps.  Never call concurrently with a started
+        dispatch thread (single consumer, like the thread itself)."""
+        if self._cont is None:
+            raise ValueError(
+                "tick_once drives the continuous engine; this server is "
+                f"serve_mode={self._mode!r} — start() it instead")
+        self._tick_last = self._continuous_round(self._tick_last, poll)
 
     #: deadline-pressure re-tiering per REQUESTED tier: beam falls to
     #: the configured target, spec falls to its verify-free draft;
