@@ -170,13 +170,26 @@ device or without the port's sources beside it.  Phases, each fatal:
      nvidia-smi, one SIGKILLed mid-decode: requeue, restart, readmission,
      summaries equal to the single server's, no child left behind);
      fused attention twice per decode step and the flash forward six
-     times per transformer prefill, summed over the replicas;
- 15. print the kernels' JSON line, then, last, the device JSON line.
+     times per transformer prefill, summed over the replicas (the process
+     fleet's children write their counts beside their logs);
+ 15. the mesh (phase_mesh; parallel/ on ranks that share this card over
+     gloo, started as chip_smoke_mesh.py processes): one train step of a
+     fixed batch of 16 at dp=2 (f32, then the bf16 gradient wire), at
+     dp=2 x tp=2, and of the transformer at sp=2 (ring, Ulysses) and
+     tp=2, each against the single-rank step on the card at the JAX
+     package's tolerances, the dp all-reduce moving exactly
+     analytic_comms' bytes (86.0 MB f32, 43.0 bf16); a dp=2 decode of 16
+     articles equal to the single-rank decode_batch and a tp=2 search;
+     then ``torchrun`` on the entry point (3 train steps at dp=2, a
+     resume to 5) and a world-1 NCCL all-reduce; every rank's kernel
+     launches checked, and summed into the kernels line;
+ 16. print the kernels' JSON line, then, last, the device JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import logging
 import os
@@ -1141,21 +1154,12 @@ def small_train_batches(hps, seed, n):
 
 
 def launch_counts():
-    """Every kernel wrapper's launch count: the fused attention's forward
-    and backward (and of those, the launches on a bf16 encoder stream),
-    the flash forward, dK/dV and dQ (and of those, the launches of their
-    bf16 forms)."""
-    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
-    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+    """Every kernel wrapper's launch count in this process (ops.launch_counts:
+    the fused attention's forward and backward and their bf16-stream
+    shares, the flash forward, dK/dV and dQ and their bf16 forms')."""
+    from textsummarization_on_flink_tpu_torch import ops
 
-    return dict(fused=fa.launches, fused_bwd=fa.launches_bwd,
-                fused_bf16=fa.launches_bf16,
-                fused_bwd_bf16=fa.launches_bwd_bf16,
-                flash_forward=fl.launches, flash_bwd_dkv=fl.launches_bwd_dkv,
-                flash_bwd_dq=fl.launches_bwd_dq,
-                flash_forward_bf16=fl.launches_bf16,
-                flash_bwd_dkv_bf16=fl.launches_bwd_dkv_bf16,
-                flash_bwd_dq_bf16=fl.launches_bwd_dq_bf16)
+    return ops.launch_counts()
 
 
 def reset_launch_counts():
@@ -3553,9 +3557,11 @@ def phase_procfleet(seed, work, params, rows, single_words, device="cuda"):
       d. the fleet stops cleanly: every child has exited and nvidia-smi
          lists neither child's context (the count is back to what it was
          before the start).
-    The children's kernel launches happen in their own processes and are
-    not in this process's counts.  (device="cpu" rehearses the control
-    flow without a card.)"""
+    The children's kernel launches happen in their own processes: each
+    child writes its counts to kernel_launches.<pid>.json in its replica
+    directory (the killed incarnation's as of its last poll, 0.2 s at
+    most before the kill), and their sum is the summary's "launches".
+    (device="cpu" rehearses the control flow without a card.)"""
     from textsummarization_on_flink_tpu_torch import obs
     from textsummarization_on_flink_tpu_torch.serve import procfleet
 
@@ -3669,9 +3675,469 @@ def phase_procfleet(seed, work, params, rows, single_words, device="cuda"):
               and len(listed) == len(before),
               f"nvidia-smi lists {listed} after the stop (before the "
               f"start: {before})")
+    launched = dict.fromkeys(launch_counts(), 0)
+    for path in glob.glob(os.path.join(work, "exp", "replica-*",
+                                       "kernel_launches.*.json")):
+        with open(path, encoding="utf-8") as f:
+            for k, v in json.load(f).items():
+                launched[k] += v
+    summary["launches"] = launched
+    if device == "cuda":
+        check(launched["fused"] > 0, "the children reported no launches")
     summary["card"] = card_line() if device == "cuda" else None
     print("procfleet " + json.dumps(summary))
     return summary
+
+
+def mesh_inputs(family, seed, widths=None):
+    """The mesh phase's fixed train batch: the family's training width
+    (train_main_path_hps; batch 16 over the synthetic 50k vocabulary;
+    ``widths`` replaces fields, for a rehearsal on the CPU), params drawn
+    from ``seed``, and one batch of synthetic pairs.  Returns (hps, numpy
+    params, batch arrays); every rank and the single-rank reference
+    build the same ones."""
+    from textsummarization_on_flink_tpu_torch.data import batching
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.params import init_numpy_params
+
+    hps = train_main_path_hps(family).replace(**(widths or {}))
+    words = synthetic_words(hps.vocab_size)
+    vocab = Vocab(words=words)
+    pairs = synthetic_pairs(np.random.default_rng(seed + 19), words,
+                            hps.batch_size)
+    exs = [batching.SummaryExample.build(art, sents, vocab, hps)
+           for art, sents in pairs]
+    params = init_numpy_params(hps, hps.vocab_size, seed)
+    return hps, params, batching.Batch(exs, hps, vocab).as_arrays()
+
+
+def mesh_decode_inputs(seed, widths=None):
+    """The mesh phase's decode batch: 16 synthetic articles at the
+    pointer-generator's reference width (main_path_hps, beam 4; ``widths``
+    as in mesh_inputs).  Returns (hps, vocab, Batch)."""
+    from textsummarization_on_flink_tpu_torch.data import batching
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+
+    hps = main_path_hps("pointer_generator").replace(
+        mode="decode", **(widths or {}))
+    words = synthetic_words(hps.vocab_size)
+    vocab = Vocab(words=words)
+    pairs = synthetic_pairs(np.random.default_rng(seed + 23), words,
+                            hps.batch_size)
+    exs = [batching.SummaryExample.build(art, sents, vocab, hps,
+                                         uuid=f"m{i}")
+           for i, (art, sents) in enumerate(pairs)]
+    return hps, vocab, batching.Batch(exs, hps, vocab)
+
+
+#: the mesh phase's fixed-batch cases: name -> (world, kind, family, mesh
+#: and option fields)
+MESH_CASES = {
+    "pg_dp2": (2, "train", "pointer_generator", dict(dp=2)),
+    "pg_dp2_bf16_wire": (2, "train", "pointer_generator",
+                         dict(dp=2, grad_allreduce_dtype="bfloat16")),
+    "tf_sp2_ring": (2, "train", "transformer",
+                    dict(sp=2, sp_attention="ring")),
+    "tf_sp2_ulysses": (2, "train", "transformer",
+                       dict(sp=2, sp_attention="ulysses")),
+    "tf_tp2": (2, "train", "transformer", dict(tp=2)),
+    "decode_dp2": (2, "decode", "pointer_generator", dict(dp=2)),
+    "search_tp2": (2, "search", "pointer_generator", dict(tp=2)),
+    "pg_dp2_tp2": (4, "train", "pointer_generator", dict(dp=2, tp=2)),
+}
+
+
+def _visible_devices(n):
+    """CUDA_VISIBLE_DEVICES for children that use the first ``n`` of the
+    cards this process was given (its own CUDA_VISIBLE_DEVICES, or every
+    card when it has none; none when it was given none)."""
+    given = os.environ.get("CUDA_VISIBLE_DEVICES")
+    names = ([d.strip() for d in given.split(",") if d.strip()]
+             if given is not None else [str(i) for i in range(n)])
+    if not names:
+        return given
+    check(len(names) >= n, f"{n} card(s) wanted, CUDA_VISIBLE_DEVICES="
+                           f"{given!r} gives {len(names)}")
+    return ",".join(names[:n])
+
+
+def _spawn_ranks(work, world, job, devices=1, timeout=600):
+    """Start ``world`` ranks of chip_smoke_mesh.py on ``devices`` cards
+    (LOCAL_WORLD_SIZE = world: the ranks pick gloo when they share a card,
+    NCCL when each has its own) and wait for all; a rank that fails, or a
+    world that does not finish in ``timeout`` seconds, fails the phase.
+    Every process started is waited for or killed."""
+    import socket
+
+    cases = job["cases"]
+    with open(os.path.join(work, "job.json"), "w", encoding="utf-8") as f:
+        json.dump(job, f)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(world),
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                   CUDA_VISIBLE_DEVICES=_visible_devices(devices))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke_mesh.py"),
+             "case", work], env=env, cwd=HERE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0,
+              f"mesh rank {r} exited {p.returncode}:\n{out[-6000:]}")
+    return {c["name"]: [json.load(open(os.path.join(
+        work, f"{c['name']}.rank{r}.json"))) for r in range(world)]
+        for c in cases}
+
+
+def _params_close(got_npz, want_params, rtol, atol):
+    """The largest |got - want| - atol - rtol * |want| over the leaves (<= 0
+    when every leaf is within the tolerances)."""
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+
+    with np.load(got_npz) as z:
+        got = {k: z[k] for k in z.files}
+    want = ckpt_lib._flatten({"params": want_params})
+    check(set(got) == set(want), "gathered params have other leaves")
+    return max(float(np.max(np.abs(got[k] - want[k]) - atol
+                            - rtol * np.abs(want[k]))) for k in want)
+
+
+def _wire_envelope(got_npz, p0, ref_params):
+    """The JAX package's bf16-wire single-step envelope
+    (tests/test_parallel.py:147-162): each leaf's update within 5% of the
+    f32 update's L2 norm + 1e-4.  Returns the worst ratio of error to
+    bound."""
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+
+    with np.load(got_npz) as z:
+        got = {k: z[k] for k in z.files}
+    a = ckpt_lib._flatten({"params": p0})
+    r = ckpt_lib._flatten({"params": ref_params})
+    worst = 0.0
+    for k in r:
+        ur, ul = r[k] - a[k], got[k] - a[k]
+        worst = max(worst, float(np.linalg.norm(ur - ul))
+                    / (0.05 * float(np.linalg.norm(ur)) + 1e-4))
+    return worst
+
+
+def _single_step(family, seed, device, widths):
+    """The single-rank step of the fixed batch: (metrics, the updated
+    params as numpy, the initial params)."""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+    from textsummarization_on_flink_tpu_torch.train import trainer
+
+    hps, params, batch = mesh_inputs(family, seed, widths.get(family))
+    hps = hps.replace(device=device)
+    device = torch.device(device)
+    state = trainer.init_train_state(hps, hps.vocab_size, params=params,
+                                     device=device)
+    state, m = trainer.train_step(hps, state,
+                                  trainer.batch_to_device(batch, device))
+    flat = ckpt_lib._flatten({"params": state.params})
+    return ([float(x) for x in m],
+            ckpt_lib._unflatten_dicts(flat)["params"], params)
+
+
+def phase_mesh(seed, work, decode_params, device="cuda", widths=None):
+    """Multi-GPU (parallel/): the port's sharded steps on ranks that share
+    this card over gloo, at the reference widths, each case against the
+    single-rank result on the card:
+
+      1. dp=2 (2 ranks), the pointer-generator: one train step of a fixed
+         batch of 16 (mesh_inputs); loss and global norm within rtol 2e-5
+         of the single-rank step, params within rtol 1e-4 / atol 1e-6 (the
+         JAX package's tolerances, tests/test_parallel.py:66-76); the dp
+         all-reduce moves analytic_comms' dp_wire_bytes (86.0 MB);
+      2. the same with --grad_allreduce_dtype=bfloat16: the JAX package's
+         envelope (loss rtol 1e-5, norm rtol 1e-2, each leaf's update
+         within 5% + 1e-4 of the f32 update's L2), 43.0 MB of wire;
+      3. dp=2 x tp=2 (4 ranks): case 1's tolerances, each rank holding
+         V/2 rows of the embedding and V/2 columns of w;
+      4. the transformer at its reference width (6+6 layers, 8 heads): one
+         step each under sp=2 --sp_attention=ring, sp=2 ulysses and tp=2,
+         case 1's tolerances;
+      5. decode of 16 articles with the ROUGE phase's trained params: the
+         sharded BeamSearchDecoder at dp=2 (summaries equal to the
+         single-rank decode_batch) and the sharded search at tp=2 (tokens
+         equal, or, where a row differs, average log-probabilities within
+         1e-3 of each other: a tie the vocab projection's column split
+         decided the other way);
+      6. the entry point: ``python -m torch.distributed.run
+         --nproc_per_node=2 chip_smoke_mesh.py cli ... --mode=train
+         --dp=2`` (chip_smoke_mesh.py runs cli.main, the module's own
+         entry) for 3 steps, then a resume to 5: one events.jsonl record
+         per step, each checkpoint written once (one "saved checkpoint"
+         log), the same restored params (fingerprint) on both ranks;
+    then a world-1 NCCL initialize and all-reduce on this card (with two
+    or more cards, the world-2 cases again one rank per card over NCCL;
+    with four, case 3 too; the torchrun case then takes NCCL by itself).  Every case checks each rank's kernel launches (the
+    pointer-generator: 100 fused forward and backward per step; the
+    transformer: 12 flash forward, dK/dV and dQ under tp, 6 under sp,
+    whose encoder attention is ring or Ulysses; decode: 2 fused per beam
+    step) and prints the backend, ranks per card, per-rank seconds
+    (ranks sharing one card over gloo: not a speed), collective and
+    host-staged bytes.  Returns the launches summed over every rank.
+    (device="cpu" with small ``widths``, {family: fields}, rehearses the
+    control flow without a card; the launch checks need the card.)"""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.decode.decoder import (
+        BeamSearchDecoder,
+    )
+    from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
+    from textsummarization_on_flink_tpu_torch.parallel import (
+        distributed,
+        sharding,
+    )
+
+    widths = widths or {}
+    on_card = device == "cuda"
+    card = card_line() if on_card else None
+    t_phase = time.perf_counter()
+    ref = {f: _single_step(f, seed, device, widths)
+           for f in ("pointer_generator", "transformer")}
+    np.savez(os.path.join(work, "decode_params.npz"),
+             **ckpt_lib._flatten({"params": decode_params}))
+    dhps, dvocab, dbatch = mesh_decode_inputs(
+        seed, widths.get("pointer_generator"))
+    dhps = dhps.replace(device=device)
+    single_words = [r.decoded_words for r in BeamSearchDecoder(
+        dhps, dvocab, batcher=None, params=decode_params,
+        decode_root=os.path.join(work, "dec_single")).decode_batch(dbatch)]
+    single = beam_search.run_beam_search(
+        from_numpy_tree(decode_params, torch.device(device)), dhps,
+        dbatch.as_arrays())
+    totals = dict.fromkeys(launch_counts(), 0)
+    summary = dict(card=card, cases={})
+
+    def job(world, suffix=""):
+        return dict(seed=seed, device=device, widths=widths, cases=[
+            dict(name=n + suffix, kind=k, family=f, hps=kw)
+            for n, (w, k, f, kw) in MESH_CASES.items() if w == world])
+
+    results = {}
+    for world in (2, 4):
+        results.update(_spawn_ranks(work, world, job(world)))
+    # with a card per rank the same cases run over NCCL
+    n_cards = torch.cuda.device_count() if on_card else 0
+    for world in (2, 4):
+        if n_cards >= world:
+            results.update(_spawn_ranks(work, world, job(world, "_nccl"),
+                                        devices=world))
+    for name, ranks in results.items():
+        base = name[:-5] if name.endswith("_nccl") else name
+        world, kind, family, kw = MESH_CASES[base]
+        backends = {r["backend"] for r in ranks}
+        want_backend = "nccl" if name.endswith("_nccl") else "gloo"
+        check(backends == {want_backend}, f"{name}: backends {backends}")
+        for r in ranks:
+            for k, v in r["launches"].items():
+                totals[k] += v
+        row = dict(world=world, backend=want_backend,
+                   ranks_per_device=ranks[0]["ranks_per_device"],
+                   launches_per_rank=[{k: v for k, v in r["launches"].items()
+                                       if v} for r in ranks],
+                   bytes_per_rank=[r["bytes"] for r in ranks])
+        if kind == "train":
+            hps = train_main_path_hps(family).replace(
+                **widths.get(family, {}), **kw)
+            want = expected_train_launches(hps, 1)
+            if sharding.shards_t(hps):  # the encoder: ring or Ulysses
+                for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
+                    want[k] = hps.dec_layers
+            for r in ranks:
+                check(r["launches"] == want or not on_card,
+                      f"{name}: rank {r['rank']} launched {r['launches']}, "
+                      f"expected {want} (one step)")
+            metrics, ref_params, p0 = ref[family]
+            loss, _, _, gnorm = ranks[0]["metrics"]
+            npz = os.path.join(work, name + ".npz")
+            row.update(step_s_per_rank=[r["step_s"] for r in ranks],
+                       loss=loss, single_loss=metrics[0],
+                       global_norm=gnorm, single_global_norm=metrics[3])
+            if kw.get("grad_allreduce_dtype") == "bfloat16":
+                check(abs(loss - metrics[0]) <= 1e-5 * abs(metrics[0]),
+                      f"{name}: loss {loss} vs {metrics[0]}")
+                check(abs(gnorm - metrics[3]) <= 1e-2 * abs(metrics[3]),
+                      f"{name}: global norm {gnorm} vs {metrics[3]}")
+                row["envelope_worst"] = _wire_envelope(npz, p0, ref_params)
+                check(row["envelope_worst"] <= 1.0,
+                      f"{name}: an update outside the bf16-wire envelope")
+            else:
+                check(abs(loss - metrics[0]) <= 2e-5 * abs(metrics[0]),
+                      f"{name}: loss {loss} vs {metrics[0]}")
+                check(abs(gnorm - metrics[3]) <= 2e-5 * abs(metrics[3]),
+                      f"{name}: global norm {gnorm} vs {metrics[3]}")
+                row["params_excess"] = _params_close(npz, ref_params, 1e-4,
+                                                     1e-6)
+                check(row["params_excess"] <= 0.0,
+                      f"{name}: params beyond rtol 1e-4 / atol 1e-6")
+            comms = sharding.analytic_comms(hps, params=p0)
+            if hps.dp > 1:
+                row["analytic_dp_wire_bytes"] = comms["dp_wire_bytes"]
+                for r in ranks:
+                    check(r["bytes"]["all_reduce/dp"]
+                          == comms["dp_wire_bytes"],
+                          f"{name}: the dp all-reduce moved "
+                          f"{r['bytes']['all_reduce/dp']} bytes, analytic "
+                          f"{comms['dp_wire_bytes']}")
+            if hps.tp > 1:
+                for r in ranks:
+                    check(r["local_embedding_rows"]
+                          == hps.vocab_size // hps.tp,
+                          f"{name}: {r['local_embedding_rows']} embedding "
+                          f"rows on rank {r['rank']}")
+                    if "local_w_cols" in r:
+                        check(r["local_w_cols"] == hps.vocab_size // hps.tp,
+                              f"{name}: {r['local_w_cols']} columns of w")
+        else:
+            for r in ranks:
+                check(r["launches"]["fused"] == 2 * r["beam_steps"] > 0
+                      or not on_card,
+                      f"{name}: rank {r['rank']} launched "
+                      f"{r['launches']['fused']} fused attentions in "
+                      f"{r['beam_steps']} beam steps")
+            row["decode_s_per_rank"] = [r["decode_s"] for r in ranks]
+            if kind == "decode":
+                check(ranks[0]["sharded"], f"{name}: decoder not sharded")
+                check(ranks[0]["summaries"] == single_words,
+                      f"{name}: the chief's summaries differ from the "
+                      f"single-rank decode_batch")
+                check(all(r["summaries"] == [] for r in ranks[1:]),
+                      f"{name}: a rank other than the chief made results")
+                row["summaries_equal"] = True
+            else:
+                tokens = np.asarray(ranks[0]["tokens"])
+                diff = [b for b in range(len(tokens))
+                        if not np.array_equal(tokens[b], single.tokens[b])]
+                lp = np.asarray(ranks[0]["avg_log_prob"])
+                row["rows_differing"] = diff
+                row["max_avg_log_prob_diff"] = float(np.max(np.abs(
+                    lp - single.avg_log_prob)))
+                for b in diff:
+                    check(abs(lp[b] - single.avg_log_prob[b]) <= 1e-3,
+                          f"{name}: row {b} differs and its average "
+                          f"log-prob {lp[b]} does not tie with "
+                          f"{single.avg_log_prob[b]}")
+        summary["cases"][name] = row
+        print("mesh_case " + json.dumps(dict(
+            row, case=name, note="ranks share one card over gloo: times "
+            "are not a speed" if want_backend == "gloo" else "one rank "
+            "per card over NCCL"), default=float))
+    cli_summary = _mesh_cli(work, seed, device, widths)
+    for k, v in cli_summary.pop("launches").items():
+        totals[k] += v
+    summary["cli"] = cli_summary
+    if on_card:  # the NCCL path on one card: a world of one
+        with __import__("socket").socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        distributed.initialize(coordinator_address=f"localhost:{port}",
+                               num_processes=1, process_id=0,
+                               backend="nccl")
+        t = torch.arange(4, dtype=torch.float32, device="cuda")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+        check(distributed.backend() == "nccl"
+              and t.tolist() == [0, 1, 2, 3], "the world-1 NCCL all-reduce")
+        distributed.destroy()
+        summary["nccl_world1"] = "ok"
+    summary["seconds"] = time.perf_counter() - t_phase
+    summary["launches"] = totals
+    print("mesh " + json.dumps({k: v for k, v in summary.items()
+                                if k != "cases"}, default=float))
+    return summary
+
+
+def _mesh_cli(work, seed, device, widths):
+    """Case 6: 3 steps, then a resume to 5, through torchrun."""
+    hps = train_main_path_hps("pointer_generator").replace(
+        **widths.get("pointer_generator", {}))
+    vocab_path, data_path = write_train_chunks(work, hps, seed, 64)
+    log_root = os.path.join(work, "cli")
+    # checkpoint_steps past the run: the final save only, each run
+    flags = dict(mode="train", dp=2, coverage=1, lr=hps.lr, seed=seed,
+                 device=device, data_path=data_path, vocab_path=vocab_path,
+                 log_root=log_root, exp_name="exp", metrics_every=1,
+                 checkpoint_steps=100,
+                 **{k: getattr(hps, k) for k in (
+                     "hidden_dim", "emb_dim", "vocab_size", "max_enc_steps",
+                     "max_dec_steps", "min_dec_steps", "batch_size")})
+    out = dict(launches=None, runs=[])
+    totals = dict.fromkeys(launch_counts(), 0)
+    for steps in (3, 5):
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node=2", os.path.join(HERE, "chip_smoke_mesh.py"),
+               "cli"] + [f"--{k}={v}" for k, v in dict(
+                   flags, num_steps=steps).items()]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                             timeout=600)
+        wall = time.perf_counter() - t0
+        check(run.returncode == 0, f"torchrun train to {steps} exited "
+                                   f"{run.returncode}:\n"
+                                   f"{(run.stdout + run.stderr)[-6000:]}")
+        logs = run.stdout + run.stderr
+        ranks = [json.load(open(os.path.join(
+            log_root, f"cli.rank{r}.steps{steps}.json"))) for r in (0, 1)]
+        new = steps - (0 if steps == 3 else 3)
+        want = expected_train_launches(hps, new)
+        for r in ranks:
+            check(r["launches"] == want or device != "cuda",
+                  f"cli rank {r['rank']} launched {r['launches']}, "
+                  f"expected {want}")
+            for k, v in r["launches"].items():
+                totals[k] += v
+        saves = logs.count("saved checkpoint")
+        check(saves == 1, f"{saves} 'saved checkpoint' logs in the run to "
+                          f"{steps}: only the chief writes, once")
+        restores = [r["restores"] for r in ranks]
+        if steps == 5:
+            fps = {line.split("params ")[-1] for rs in restores for line in rs}
+            check(all(len(rs) == 1 for rs in restores) and len(fps) == 1,
+                  f"the ranks' restores: {restores}")
+        out["runs"].append(dict(steps=steps, wall_s=wall,
+                                rank_wall_s=[r["wall_s"] for r in ranks],
+                                restores=restores, saves=saves))
+    train_dir = os.path.join(log_root, "exp", "train")
+    with open(os.path.join(train_dir, "events.jsonl"), encoding="utf-8") as f:
+        steps_logged = [json.loads(line)["step"] for line in f
+                        if line.strip()]
+    check(sorted(steps_logged) == [1, 2, 3, 4, 5],
+          f"events.jsonl steps {steps_logged}: one record per step")
+    ckpts = sorted(p for p in os.listdir(train_dir) if p.endswith(".npz"))
+    check(ckpts == ["model.ckpt-3.npz", "model.ckpt-5.npz"],
+          f"checkpoints {ckpts}")
+    out["launches"] = totals
+    out["checkpoints"] = ckpts
+    print("mesh_cli " + json.dumps(out))
+    return out
 
 
 def _trained(family, fn):
@@ -3776,6 +4242,9 @@ def main(argv=None) -> int:
     procs = _in_work("procfleet", lambda w: phase_procfleet(
         args.seed, w, scored["trained_params"], fleet["rows"],
         fleet["single_words"]))
+    meshed = _in_work("mesh", lambda w: phase_mesh(
+        args.seed, w, scored["trained_params"]))
+    mesh_l = meshed["launches"]  # summed over every rank of every case
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     bwd_main = bwd_rows[0]  # the training encoder's shape
@@ -3815,7 +4284,8 @@ def main(argv=None) -> int:
         + scored["train_launches"]["fused"] + streamed["launches"]["fused"]
         + wide_pg_decode + wide_pg_train["fused"] + served["launches"]
         + cont["launches"] + spec["launches"]["fused"] + fleet["launches"]
-        + hier["launches"]["fused"],
+        + hier["launches"]["fused"] + procs["launches"]["fused"]
+        + mesh_l["fused"],
         max_abs_err=worst, ms=main_row["ms"], plain_ms=main_row["plain_ms"],
         bound_ms=main_row["bound_ms"], bound_by=main_row["bound_by"],
         # the bf16 stream at the decode shape and at the training shape
@@ -3883,20 +4353,25 @@ def main(argv=None) -> int:
         # form, timed in "bounded"), phase_hiersum's micro-batch map
         # (greedy, K = 1: "training_shape") and reduce (beam: "ms")
         # dispatches; phase_procfleet's children launch in their own
-        # processes and are not counted here
+        # processes and report their counts (in "procfleet")
         fleet=dict(launches=fleet["launches"], timed_in="bounded"),
         hiersum=dict(launches=hier["launches"]["fused"],
                      timed_in=["training_shape", "ms"]),
         procfleet=dict(children=len(procs["ready_s"]),
                        ready_s=procs["ready_s"],
-                       restart_ready_s=procs["restart_ready_s"]),
+                       restart_ready_s=procs["restart_ready_s"],
+                       launches=procs["launches"]["fused"]),
+        # the mesh phase's ranks (their own processes), summed
+        mesh=dict(launches=mesh_l["fused"]),
         library_ms=None, redesigned="PR 5"), dict(
         name="fused_attention_bwd", route="cuda", source=fused_src + "_bwd.cu",
         # the custom_vjp's backward (jax.vjp of the XLA formula)
         replaces="textsummarization_on_flink_tpu/ops/pallas_attention.py:360",
         launches=pg_train["fused_bwd"] + pipe["fit_launches"]["fused_bwd"]
         + sum(r["fused_bwd"] - r["fused_bwd_bf16"] for r in diet_runs)
-        + scored["train_launches"]["fused_bwd"] + wide_pg_train["fused_bwd"],
+        + scored["train_launches"]["fused_bwd"] + wide_pg_train["fused_bwd"]
+        + mesh_l["fused_bwd"],
+        mesh=dict(launches=mesh_l["fused_bwd"]),
         max_abs_err=bwd_att_worst["float32"],
         ms=bwd_f32["ms"], plain_ms=bwd_f32["plain_ms"],
         bound_ms=bwd_f32["bound_ms"], bound_by=bwd_f32["bound_by"],
@@ -3923,7 +4398,9 @@ def main(argv=None) -> int:
         launches=summaries["transformer"]["kernel_launches"]
         + tf_train["flash_forward"] + hd256_flash + cont["flash_launches"]
         + spec["launches"]["flash_forward"]
-        + dist["launches"]["flash_forward"] + fleet["flash_launches"],
+        + dist["launches"]["flash_forward"] + fleet["flash_launches"]
+        + mesh_l["flash_forward"],
+        mesh=dict(launches=mesh_l["flash_forward"]),
         # the speculative tier's encoders (both models') and the
         # distillation's teacher decodes and draft steps; the fleet's
         # transformer replicas' prefills
@@ -3953,8 +4430,10 @@ def main(argv=None) -> int:
                       f":285 (library _flash_attention_bwd_{key})"),
             launches=tf_train[f"flash_bwd_{key}"]
             + hd256_train[f"flash_bwd_{key}"]
-            + dist["launches"][f"flash_bwd_{key}"],
+            + dist["launches"][f"flash_bwd_{key}"]
+            + mesh_l[f"flash_bwd_{key}"],
             distill=dict(launches=dist["launches"][f"flash_bwd_{key}"]),
+            mesh=dict(launches=mesh_l[f"flash_bwd_{key}"]),
             max_abs_err=(max(bwd_worst["dk"], bwd_worst["dv"])
                          if key == "dkv" else bwd_worst["dq"]),
             ms=bwd_main[f"{key}_ms"], plain_ms=bwd_main["plain_ms"],

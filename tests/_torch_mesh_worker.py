@@ -1,0 +1,317 @@
+"""One rank of the port's mesh tests (NOT a pytest file).
+
+tests/_torch_mesh.py spawns N of these with torchrun's environment
+(RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR,
+MASTER_PORT); each joins a gloo world on the CPU through
+``parallel.distributed.initialize()`` and runs the cases of
+``<workdir>/job.json`` in order, reading its inputs from npz files in
+``workdir`` and writing its results there.  Imports only the port.
+
+Usage (spawned by the tests, not by hand):
+    python _torch_mesh_worker.py <workdir>
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+from textsummarization_on_flink_tpu_torch.checkpoint import checkpointer
+from textsummarization_on_flink_tpu_torch.config import HParams
+from textsummarization_on_flink_tpu_torch.parallel import (
+    collectives,
+    distributed,
+    mesh,
+    ring_attention,
+)
+from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
+from textsummarization_on_flink_tpu_torch.train import trainer
+
+
+def _load(workdir, name):
+    with np.load(os.path.join(workdir, name + ".npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _tree(flat):
+    return checkpointer._unflatten_dicts(flat)
+
+
+def _save(workdir, name, arrays=None, info=None):
+    if arrays is not None:
+        np.savez(os.path.join(workdir, name + ".npz"), **arrays)
+    if info is not None:
+        with open(os.path.join(workdir, name + ".json"), "w") as f:
+            json.dump(info, f)
+
+
+def run_train(case, hps, workdir, rank):
+    """``steps`` sharded train steps on the global batch; the chief
+    writes the per-step metrics, the gathered state and the bytes each
+    collective moved per step."""
+    params = _tree(_load(workdir, case["params"]))["params"]
+    batch = _load(workdir, case["batch"])
+    plan = mesh.make_mesh(hps)
+    mesh.validate_divisibility(hps, params)
+    state = trainer.init_train_state(hps, 0, params=params,
+                                     device=torch.device("cpu"))
+    state = mesh.shard_train_state(plan, state)
+    local_vocab = int(state.params["embedding"].shape[0])
+    step = mesh.make_sharded_train_step(plan)
+    arrays = {k: torch.as_tensor(v) for k, v in
+              mesh.shard_batch(plan, batch).items()}
+    arrays = {k: (v.float() if v.is_floating_point() else v.long())
+              for k, v in arrays.items()}
+    before = collectives.counted_bytes(hps)
+    rows = []
+    for _ in range(case.get("steps", 1)):
+        state, m = step(state, arrays)
+        rows.append([float(x) for x in m])
+    after = collectives.counted_bytes(hps)
+    flat = checkpointer.state_to_arrays(state, plan)
+    n = case.get("steps", 1)
+    per_step = {k: (after[k] - before.get(k, 0.0)) / n for k in after}
+    acc_dtypes = sorted({str(a.dtype) for a in
+                         trainer.tree_leaves(state.opt_state.accumulators)})
+    if plan.is_chief:
+        _save(workdir, case["name"], flat,
+              {"metrics": rows, "bytes_per_step": per_step,
+               "local_vocab": local_vocab, "acc_dtypes": acc_dtypes})
+
+
+def run_eval(case, hps, workdir, rank):
+    params = _tree(_load(workdir, case["params"]))["params"]
+    batch = _load(workdir, case["batch"])
+    plan = mesh.make_mesh(hps)
+    shards = plan.registry.shard_params(from_numpy_tree(params, "cpu"))
+    eval_step = mesh.make_sharded_eval_step(plan)
+    arrays = {k: torch.as_tensor(v) for k, v in
+              mesh.shard_batch(plan, batch).items()}
+    arrays = {k: (v.float() if v.is_floating_point() else v.long())
+              for k, v in arrays.items()}
+    m = eval_step(shards, arrays)
+    if plan.is_chief:
+        _save(workdir, case["name"], info={"metrics": [float(x) for x in m]})
+
+
+def run_search(case, hps, workdir, rank):
+    """The sharded beam search of the whole batch on every rank."""
+    params = _tree(_load(workdir, case["params"]))["params"]
+    batch = _load(workdir, case["batch"])
+    plan = mesh.make_mesh(hps)
+    shards = plan.registry.shard_params(from_numpy_tree(params, "cpu"))
+    out = mesh.make_sharded_beam_search(plan)(shards, batch)
+    _save(workdir, f"{case['name']}.rank{rank}",
+          {"tokens": out.tokens, "length": out.length,
+           "avg_log_prob": out.avg_log_prob})
+
+
+def run_attention(case, hps, workdir, rank):
+    """Ring or Ulysses attention of this rank's sp block: forward, and the
+    backward of the given cotangent; the blocks all-gathered over sp."""
+    x = _load(workdir, case["inputs"])
+    plan = mesh.make_mesh(hps)
+    reg = plan.registry
+    s, sp = plan.coord("sp"), plan.sp
+
+    def block(a):
+        a = torch.from_numpy(reg.dp_rows({"a": a})["a"])
+        return a.chunk(sp, dim=1)[s].contiguous()
+
+    q, k, v = (block(x[n]).requires_grad_(True) for n in ("q", "k", "v"))
+    mask, g = block(x["mask"]), block(x["g"])
+    with collectives.bound(plan):
+        out = ring_attention.sp_attention(case["mode"], q, k, v, mask,
+                                          float(x["scale"]))
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+    res = {n: collectives.all_gather(plan, collectives.all_gather(
+        plan, t.detach(), "sp", 1), "dp", 0).numpy()
+        for n, t in (("out", out), ("dq", dq), ("dk", dk), ("dv", dv))}
+    if plan.is_chief:
+        _save(workdir, case["name"], res)
+
+
+def run_decoder(case, hps, workdir, rank):
+    """BeamSearchDecoder on a mesh: the chief's results of one batch; the
+    tiers and the slot engine a sharded decoder refuses."""
+    from textsummarization_on_flink_tpu_torch.data.batching import (
+        Batch,
+        SummaryExample,
+    )
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.decode.decoder import (
+        BeamSearchDecoder,
+    )
+
+    params = _tree(_load(workdir, case["params"]))["params"]
+    vocab = Vocab(words=case["words"])
+    exs = [SummaryExample.build(a, [r], vocab, hps)
+           for a, r in zip(case["articles"], case["abstracts"])]
+    dec = BeamSearchDecoder(hps, vocab, batcher=None, params=params,
+                            decode_root=os.path.join(workdir, "dec"))
+    results = dec.decode_batch(Batch(exs, hps, vocab))
+    refused = []
+    for call in (lambda: dec.decode_batch(Batch(exs, hps, vocab),
+                                          tier="greedy"),
+                 lambda: dec.slot_engine(4, 2)):
+        try:
+            call()
+        except (ValueError, NotImplementedError) as e:
+            refused.append(f"{type(e).__name__}: {e}")
+    _save(workdir, f"{case['name']}.rank{rank}", info={
+        "sharded": dec.sharded, "refused": refused,
+        "words": [r.decoded_words for r in results]})
+
+
+class FixedBatcher:
+    def __init__(self, batch, n):
+        self.batch, self.n = batch, n
+
+    def next_batch(self):
+        if self.n <= 0:
+            return None
+        self.n -= 1
+        return self.batch
+
+
+def run_continuous(case, hps, workdir, rank):
+    """Continuous decode (``single_pass=0``) from a train dir on a mesh,
+    with the reload cadence straddling the ranks: on the ranks named by
+    ``due_on`` a reload is due at every batch by their own clock, on the
+    others never; a newer checkpoint lands after the first load.  Every
+    rank reports the checkpoint it starts and ends on."""
+    from textsummarization_on_flink_tpu_torch.data.batching import (
+        Batch,
+        SummaryExample,
+    )
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.decode import decoder as dec_lib
+
+    vocab = Vocab(words=case["words"])
+    batch = Batch([SummaryExample.build(a, [r], vocab, hps)
+                   for a, r in zip(case["articles"], case["abstracts"])],
+                  hps, vocab)
+    train_dir = os.path.join(workdir, case["name"])
+    dec = dec_lib.BeamSearchDecoder(
+        hps, vocab, FixedBatcher(batch, case["batches"]),
+        train_dir=train_dir, decode_root=os.path.join(train_dir, "dec"),
+        max_ckpt_retries=0)
+    first = dec._params_snapshot()[1]
+    distributed.barrier("first-load")
+    if rank == 0:
+        newer = os.path.join(train_dir, "model.ckpt-6.npz")
+        checkpointer.save_arrays(newer, _load(workdir, case["newer"]))
+        checkpointer.write_index(train_dir, newer)
+    distributed.barrier("newer-written")
+    due = rank == 0 if case["due_on"] == "chief" else rank != 0
+    dec_lib.SECS_UNTIL_NEW_CKPT = 0.0 if due else 1e9
+    reloads = dec._c_reloads._value
+    results = []
+    dec.decode(result_sink=results.append, max_batches=case["batches"],
+               log_results=False)
+    _save(workdir, f"{case['name']}.rank{rank}", info={
+        "first": os.path.basename(first),
+        "last": os.path.basename(dec._params_snapshot()[1]),
+        "reloads": dec._c_reloads._value - reloads,
+        "fingerprint": dec.params_fingerprint, "results": len(results)})
+
+
+def run_trainer(case, hps, workdir, rank):
+    """The Trainer and the Checkpointer on a mesh (the counterpart of the
+    JAX package's tests/_multiproc_worker.py): 5 steps with a save every
+    3, a restore on every rank, a resume to step 7."""
+    from textsummarization_on_flink_tpu_torch.data.batching import (
+        Batch,
+        SummaryExample,
+    )
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.utils import local_batch_hps
+
+    vocab = Vocab(words=["a", "b", "c", "d", "e", "f", "g", "."])
+    local_hps = local_batch_hps(hps)
+    plan = mesh.make_mesh(hps)
+    d = plan.coord("dp")
+    # the rows of one dp index; the tp ranks of it read them too (and the
+    # trainer broadcasts the first one's batch in any case)
+    texts = [["a b c d", "b c d e", "c d e f", "d e f a"],
+             ["f e d c", "e d c b", "d c b a", "c b a f"],
+             ["a c e g", "b d f a", "g f e d", "e c a b"],
+             ["d d c c", "b b a a", "f f g g", "a b a b"]][d]
+    texts = texts[:local_hps.batch_size]
+    exs = [SummaryExample.build(t, [t.split()[0] + " ."], vocab, local_hps)
+           for t in texts]
+    batch = Batch(exs, local_hps, vocab)
+    train_dir = os.path.join(workdir, case["name"], "train")
+    ckpt = checkpointer.Checkpointer(train_dir, hps=hps)
+    tr = trainer.Trainer(hps, vocab.size(), FixedBatcher(batch, 50),
+                         checkpointer=ckpt, train_dir=train_dir,
+                         metrics_every=2)
+    state = tr.train(num_steps=5)
+    info = {"final_step": state.step, "is_chief": distributed.is_chief(),
+            "local_vocab": int(state.params["embedding"].shape[0])}
+    distributed.barrier("post-train")
+    restored = ckpt.restore()
+    info["restored_step"] = restored.step
+    info["param_checksum"] = float(sum(
+        np.abs(p.detach().numpy()).astype(np.float64).sum()
+        for p in trainer.tree_leaves(restored.params)))
+    info["ckpt_files"] = sorted(p for p in os.listdir(train_dir)
+                                if p.endswith(".npz"))
+    # the full checkpoint placed on this mesh and gathered back: the same
+    # bits; bf16 accumulators narrowed before placement
+    on_disk = checkpointer.load_arrays(os.path.join(train_dir,
+                                                    "model.ckpt-5.npz"))
+    sharded = ckpt.restore_sharded(plan)
+    info["local_vocab_restored"] = int(sharded.params["embedding"].shape[0])
+    back = checkpointer.state_to_arrays(sharded, plan)
+    info["restore_sharded_bitwise"] = sorted(back) == sorted(on_disk) and all(
+        np.array_equal(back[k], on_disk[k]) for k in on_disk)
+    narrow = ckpt.restore_sharded(mesh.make_mesh(
+        hps.replace(opt_state_dtype="bfloat16")))
+    info["narrowed_acc_dtypes"] = sorted({str(a.dtype) for a in
+                                          trainer.tree_leaves(
+                                              narrow.opt_state.accumulators)})
+    # the Evaluator on the mesh: the chief-written checkpoint's full
+    # params, sharded per rank; only the chief writes
+    eval_dir = os.path.join(workdir, case["name"], "eval")
+    ev = trainer.Evaluator(hps.replace(mode="eval"), FixedBatcher(batch, 1),
+                           eval_dir=eval_dir,
+                           best_saver=checkpointer.BestModelSaver(eval_dir))
+    info["eval_loss"] = ev.run(restored.params, restored.step)
+    tr2 = trainer.Trainer(hps.replace(steps_per_dispatch=2), vocab.size(),
+                          FixedBatcher(batch, 50), state=restored,
+                          checkpointer=ckpt, train_dir=train_dir)
+    info["resumed_step"] = tr2.train(num_steps=7).step
+    distributed.barrier("post-resume")
+    _save(workdir, f"{case['name']}.rank{rank}", info=info)
+
+
+KINDS = {"train": run_train, "eval": run_eval, "search": run_search,
+         "attention": run_attention, "trainer": run_trainer,
+         "decoder": run_decoder, "continuous": run_continuous}
+
+
+def main() -> int:
+    workdir = sys.argv[1]
+    torch.set_num_threads(1)
+    layout = distributed.initialize(device="cpu")
+    rank = layout.rank
+    with open(os.path.join(workdir, "job.json")) as f:
+        job = json.load(f)
+    for case in job["cases"]:
+        hps = HParams(device="cpu", **case["hps"])
+        hps.validate()
+        KINDS[case["kind"]](case, hps, workdir, rank)
+        distributed.barrier(case["name"])
+    with open(os.path.join(workdir, f"done.rank{rank}"), "w") as f:
+        f.write(json.dumps({"backend": distributed.backend(),
+                            "ranks_per_device":
+                                layout.ranks_per_device}))
+    distributed.destroy()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

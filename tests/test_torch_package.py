@@ -37,9 +37,11 @@ def _imported_modules(path):
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
-    """The port's modules, chip_smoke.py and the port's scripts."""
+    """The port's modules, chip_smoke.py (and its mesh ranks'
+    chip_smoke_mesh.py) and the port's scripts."""
     repo = PKG.parent
-    files = sorted(PKG.rglob("*.py")) + [repo / "chip_smoke.py"] + \
+    files = sorted(PKG.rglob("*.py")) + [repo / "chip_smoke.py",
+                                         repo / "chip_smoke_mesh.py"] + \
         sorted((repo / "scripts").glob("torch_*.py"))
     assert len(files) > 10
     scanned = {f.relative_to(PKG).as_posix() for f in files if PKG in f.parents}
@@ -52,6 +54,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert {f"serve/{m}.py" for m in (
         "__init__", "errors", "queue", "batcher", "frontdoor",
         "server")} <= scanned
+    assert {f"parallel/{m}.py" for m in (
+        "__init__", "distributed", "sharding", "mesh", "collectives",
+        "ring_attention")} | {"utils.py"} <= scanned
     bad = []
     for f in files:
         for mod in _imported_modules(f):

@@ -209,17 +209,22 @@ def test_a_jax_only_field_off_its_default_names_its_item(name, other, item):
 
 
 def test_jax_flags_that_parsed_silently_now_raise():
-    """The flags that parsed silently before the repair."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        HParams.from_argv(
-            "--dp=2 --decode_deadline_secs=2 --spec_draft=map "
+    """The flags that parsed silently before the repair: the ones of an
+    unported item raise naming it; the mesh's (item 6) parse as the JAX
+    package parses them."""
+    argv = ("--dp=2 --decode_deadline_secs=2 --spec_draft=map "
             "--serve_default_tier=greedy --grad_allreduce_dtype=bfloat16 "
-            "--mode=decode --device=cpu".split())
-    for flags, item in (("--sp 2", "item 6"),
-                        ("--tp=2", "item 6"),
-                        ("--profile_analytic", "item 2h")):
-        with pytest.raises(NotImplementedError, match=item):
-            HParams.from_argv(flags.split())
+            "--mode=decode").split()
+    got, want = HParams.from_argv(argv), JaxHParams.from_argv(argv)
+    assert (got.dp, got.grad_allreduce_dtype) == (want.dp,
+                                                  want.grad_allreduce_dtype)
+    assert (got.dp, got.grad_allreduce_dtype) == (2, "bfloat16")
+    for flags in ("--sp 2", "--tp=2"):
+        got, want = (HParams.from_argv(flags.split()),
+                     JaxHParams.from_argv(flags.split()))
+        assert (got.sp, got.tp) == (want.sp, want.tp) != (1, 1)
+    with pytest.raises(NotImplementedError, match="item 2h"):
+        HParams.from_argv(["--profile_analytic"])
     # the slot engine's flags came with the slot engine (item 4), the
     # speculative tier's with the AAN draft (item 5), the fleet's and the
     # hierarchical summarizer's with the fleet layer (item 7)
@@ -234,8 +239,9 @@ def test_jax_flags_that_parsed_silently_now_raise():
     assert HParams.from_argv(["--no_such_flag=3"]) == HParams()
 
 
-#: the fields the obs package, the serve layer, the speculative tier and
-#: the fleet layer brought, each at a value other than its JAX default; the item's label
+#: the fields the obs package, the serve layer, the speculative tier, the
+#: fleet layer and the mesh brought, each at a value other than its JAX
+#: default; the item's label
 #: where the value still needs an unported item, else None
 PORTED_FLAGS = [
     ("obs", "False", None), ("obs_http_port", "9000", None),
@@ -264,6 +270,8 @@ PORTED_FLAGS = [
     ("serve_scrape_interval_ms", "10.0", None),
     ("hier_chunk_words", "64", None), ("hier_overlap_words", "8", None),
     ("hier_chunk_tier", "beam", None), ("hier_reduce_tier", "greedy", None),
+    ("dp", "2", None), ("tp", "2", None), ("sp", "2", None),
+    ("sp_attention", "ring", None), ("grad_allreduce_dtype", "bfloat16", None),
 ]
 
 

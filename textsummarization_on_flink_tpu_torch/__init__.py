@@ -10,7 +10,9 @@ and of the transformer family (``cli.py --mode=train|eval|decode``) with
 the trainer's byte-diet and long-run options, checkpoints both packages
 read, the pipeline layer (``pipeline/``), the offline ETL
 (``data/etl.py``), the obs plane (``obs/``), the resilience policy
-(``resilience/``) and the micro-batch serve layer (``serve/``), over
+(``resilience/``), the micro-batch serve layer (``serve/``) and the
+(dp, tp, sp) mesh on ``torch.distributed`` for training, eval and batch
+decode (``parallel/``), over
 five hand-written
 CUDA kernels for Hopper (``kernels/``): the fused additive attention and
 its backward (``ops/fused_attention.py``), and the flash self-attention

@@ -286,8 +286,13 @@ def load_ckpt(directory: str, index_file: str = INDEX_FILE,
 # Training state
 # --------------------------------------------------------------------------
 
-def state_to_arrays(state: "trainer_lib.TrainState") -> Dict[str, np.ndarray]:
-    """The flat npz dict of a TrainState (checkpointer.py:120-128)."""
+def state_to_arrays(state: "trainer_lib.TrainState",
+                    plan: Any = None) -> Dict[str, np.ndarray]:
+    """The flat npz dict of a TrainState (checkpointer.py:120-128).  With
+    the ``plan`` of a mesh the state holds this rank's tp shards: they
+    are all-gathered first (every rank of the mesh calls this)."""
+    if plan is not None:
+        state = plan.registry.gather_state(state)
     return _flatten({"params": state.params,
                      "opt_state": {"accumulators":
                                    state.opt_state.accumulators},
@@ -341,16 +346,27 @@ class Checkpointer:
         os.replace(tmp, os.path.join(self.directory, "hparams.json"))
         self._sidecar_pending = False
 
-    def save(self, state: "trainer_lib.TrainState") -> str:
-        flat = state_to_arrays(state)
+    def save(self, state: "trainer_lib.TrainState", plan: Any = None) -> str:
+        """Write ``state``.  On a mesh (``plan``) every rank calls this:
+        the tp shards are gathered collectively, then only the chief
+        writes the arrays, the sidecar, the index and the retention
+        (JAX checkpointer.py:394-420), and every rank leaves after the
+        write."""
+        from textsummarization_on_flink_tpu_torch.parallel import (
+            distributed,
+        )
+
+        flat = state_to_arrays(state, plan)
         path = os.path.join(self.directory,
                             f"{CKPT_PREFIX}-{int(flat['step'])}.npz")
-        if self._sidecar_pending:
-            self._write_sidecar()
-        save_arrays(path, flat)
-        write_index(self.directory, path)
-        self._retain()
-        log.info("saved checkpoint %s", path)
+        if distributed.is_chief():
+            if self._sidecar_pending:
+                self._write_sidecar()
+            save_arrays(path, flat)
+            write_index(self.directory, path)
+            self._retain()
+            log.info("saved checkpoint %s", path)
+        distributed.barrier("checkpoint-save")
         return path
 
     def _retain(self) -> None:
@@ -376,6 +392,20 @@ class Checkpointer:
         except FileNotFoundError:  # no loadable checkpoint
             return None
         return arrays_to_state(flat, device)
+
+    def restore_sharded(self, plan: Any, path: Optional[str] = None,
+                        device: Any = "cpu",
+                        ) -> Optional["trainer_lib.TrainState"]:
+        """``restore`` placed onto ``plan``'s mesh: this rank's shards
+        (JAX checkpointer.py:483-507).  A checkpoint holds full arrays,
+        so one saved on any mesh restores on any other, bit for bit after
+        a gather.  bf16 accumulators (``--opt_state_dtype``) are narrowed
+        before placement, as the Trainer does on resume."""
+        state = self.restore(path, device=device)
+        if state is None:
+            return None
+        state = trainer_lib.cast_opt_state(plan.hps, state)
+        return plan.registry.shard_state(state)
 
 
 class BestModelSaver:

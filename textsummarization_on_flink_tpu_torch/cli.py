@@ -29,6 +29,18 @@ run and exit, as the reference's do: ``--convert_to_coverage_model``
 Runs on CUDA unless ``--device=cpu``; with no CUDA device and no
 ``--device=cpu`` it raises.
 
+On a mesh (``--dp``, ``--tp``, ``--sp`` with a product above 1) every
+mode but serving runs one process per rank under torchrun:
+
+    python -m torch.distributed.run --standalone --nproc_per_node=4 \
+        -m textsummarization_on_flink_tpu_torch --mode=train --dp=2 --tp=2 ...
+
+``main`` joins the world (parallel/distributed.py: NCCL when each rank
+has a card of its own, gloo when ranks share one or run on the CPU) and
+raises when torchrun's world is missing or of another size.  Each rank
+reads ``batch_size / dp`` rows (utils.local_batch_hps); only the chief
+writes checkpoints, summaries, ``vocab_metadata.tsv`` and decode files.
+
 ``python -m textsummarization_on_flink_tpu_torch.cli serve-replica`` is
 a process-fleet child (serve/procfleet.py): it reads its HParams from
 ``TS_HPS_JSON`` and serves until SIGTERM.
@@ -54,7 +66,9 @@ from textsummarization_on_flink_tpu_torch.decode.decoder import (
     BeamSearchDecoder,
 )
 from textsummarization_on_flink_tpu_torch.device import resolve_device
+from textsummarization_on_flink_tpu_torch.parallel import distributed
 from textsummarization_on_flink_tpu_torch.train import trainer as trainer_lib
+from textsummarization_on_flink_tpu_torch.utils import local_batch_hps
 
 log = logging.getLogger(__name__)
 
@@ -71,14 +85,20 @@ def setup_training(hps: HParams, vocab: Vocab,
     periodic checkpoints (JAX cli.py:47-73).  Returns the final state."""
     _, train_dir, _ = _dirs(hps)
     device = resolve_device(hps.device)
-    batcher = batcher or Batcher(hps.data_path, vocab, hps,
+    # on a mesh the batcher feeds this rank's dp rows
+    batcher = batcher or Batcher(hps.data_path, vocab, local_batch_hps(hps),
                                  single_pass=hps.single_pass)
+    # every rank holds a Checkpointer: its save is collective, then the
+    # chief writes (JAX cli.py:51-66); every rank restores
     checkpointer = ckpt_lib.Checkpointer(train_dir, hps=hps)
-    # embedding-projector metadata (model.py:185-197, data.py:93-105)
-    vocab.write_metadata(os.path.join(train_dir, "vocab_metadata.tsv"))
+    if distributed.is_chief():
+        # embedding-projector metadata (model.py:185-197, data.py:93-105)
+        vocab.write_metadata(os.path.join(train_dir, "vocab_metadata.tsv"))
     state = checkpointer.restore(device=device)
     if state is not None:
-        log.info("restored training from step %d", state.step)
+        log.info("rank %d restored training from step %d (params %s)",
+                 distributed.rank(), state.step,
+                 ckpt_lib.content_fingerprint(state.params))
     trainer = trainer_lib.Trainer(hps, vocab.size(), batcher, state=state,
                                   checkpointer=checkpointer,
                                   train_dir=train_dir)
@@ -95,7 +115,8 @@ def run_eval(hps: HParams, vocab: Vocab, max_iters: int = 0,
     eval_hps = hps.replace(mode="eval")
     _, train_dir, eval_dir = _dirs(hps)
     device = resolve_device(hps.device)
-    batcher = batcher or Batcher(hps.data_path, vocab, eval_hps,
+    batcher = batcher or Batcher(hps.data_path, vocab,
+                                 local_batch_hps(eval_hps),
                                  single_pass=False)
     evaluator = trainer_lib.Evaluator(
         eval_hps, batcher, eval_dir=eval_dir,
@@ -121,7 +142,9 @@ def run_decode(hps: HParams, vocab: Vocab,
     Returns the decoder after its loop; ``rouge_results`` holds the
     ROUGE scores of a single pass."""
     decode_hps = hps.replace(mode="decode")
-    if batcher is None:
+    # on a mesh the chief alone reads the articles (the decoder
+    # broadcasts them)
+    if batcher is None and distributed.is_chief():
         if hps.inference:
             batcher = Batcher("", vocab, decode_hps, single_pass=True,
                               example_source=raw_text_example_source(
@@ -135,6 +158,19 @@ def run_decode(hps: HParams, vocab: Vocab,
     decoder.decode(with_rouge=hps.single_pass and not hps.inference,
                    max_batches=max_batches)
     return decoder
+
+
+def _join_mesh(hps: HParams, ranks: int) -> None:
+    """Join the world of ``ranks`` processes torchrun started (the JAX
+    package's multi-host bring-up, cli.py:147-150 there)."""
+    world = int(os.environ.get("WORLD_SIZE", "0") or 0)
+    if world != ranks:
+        raise ValueError(
+            f"--dp={hps.dp} --tp={hps.tp} --sp={hps.sp} needs {ranks} ranks; "
+            f"torchrun's world has {world or 'none'} (launch with python -m "
+            f"torch.distributed.run --standalone --nproc_per_node={ranks} "
+            f"-m textsummarization_on_flink_tpu_torch ...)")
+    distributed.initialize(device=hps.device)
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -153,16 +189,31 @@ def main(argv: Optional[List[str]] = None) -> int:
     hps = HParams.from_argv(argv)
     hps.validate()
     resolve_device(hps.device)  # no card and no --device=cpu: raise here
+    ranks = hps.dp * hps.tp * hps.sp
+    if ranks > 1:
+        _join_mesh(hps, ranks)
+    try:
+        _run(hps)
+    finally:
+        if ranks > 1:
+            distributed.destroy()
+    return 0
+
+
+def _run(hps: HParams) -> None:
     log.info("Starting summarization in %s mode on %s...", hps.mode,
              hps.device)
-    # the surgery flags run and exit (run_summarization.py:341-349)
+    # the surgery flags run and exit (run_summarization.py:341-349); on a
+    # mesh the chief runs them
     _, train_dir, eval_dir = _dirs(hps)
-    if hps.convert_to_coverage_model:
-        ckpt_lib.convert_to_coverage_model(train_dir, hps, seed=hps.seed)
-        return 0
-    if hps.restore_best_model:
-        ckpt_lib.restore_best_model(eval_dir, train_dir, hps)
-        return 0
+    if hps.convert_to_coverage_model or hps.restore_best_model:
+        if not distributed.is_chief():
+            return
+        if hps.convert_to_coverage_model:
+            ckpt_lib.convert_to_coverage_model(train_dir, hps, seed=hps.seed)
+        else:
+            ckpt_lib.restore_best_model(eval_dir, train_dir, hps)
+        return
     training = hps.mode in ("train", "eval") and not hps.inference
     vocab = Vocab(hps.vocab_path, hps.vocab_size)
     if not training:
@@ -171,7 +222,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         setup_training(hps, vocab)
     else:
         run_eval(hps, vocab)
-    return 0
 
 
 if __name__ == "__main__":

@@ -37,8 +37,13 @@ hierarchical summarizer's (``hier_chunk_words``, ``hier_overlap_words``,
 with its checks and ``resolve_hier_chunk_words``; ``from_json`` reads
 ``to_json`` back (a process-fleet child takes its configuration so).
 
+The mesh fields (``dp``, ``tp``, ``sp``, ``sp_attention``,
+``grad_allreduce_dtype``) are the JAX package's, with its checks: a
+world of ``dp * tp * sp`` ranks runs the sharded train, eval and batch
+decode paths (parallel/; serving on a mesh is ``ROADMAP_MESH_SERVING``).
+
 Fields of the JAX package that steer paths this package does not have
-yet (mesh axes, the profiler's analytic pricing) are not fields here:
+yet (the profiler's analytic pricing) are not fields here:
 ``JAX_ONLY_FIELDS`` lists them with their JAX types and defaults, and
 ``from_argv`` (so ``from_string`` and the pipeline's hyperparameter
 strings too) accepts one at its default and raises
@@ -64,8 +69,9 @@ ROADMAP_HEAD_DIM = ("ROADMAP.md queue 3, item 1 (transformer head dims above "
 ROADMAP_PG_WIDTH = ("ROADMAP.md queue 3, item 4 (pointer-generator widths "
                     "past the fused attention kernels' shared memory on the "
                     "card)")
-ROADMAP_MULTI_GPU = ("ROADMAP.md queue 1, item 6 (multi-GPU: data, tensor "
-                     "and sequence parallelism)")
+ROADMAP_MESH_SERVING = ("ROADMAP.md queue 1, item 6b (serving on a mesh: "
+                        "the slot engine, the ServingServer, the spec and "
+                        "draft tiers, the AAN family, the pipeline)")
 ROADMAP_PROFILE = ("ROADMAP.md queue 1, item 2h (the profiler's analytic "
                    "pricing and divergence sentinel, the trainer's flight "
                    "frames and profiler phases)")
@@ -80,11 +86,6 @@ ROADMAP_PROFILE = ("ROADMAP.md queue 1, item 2h (the profiler's analytic "
 #: result, and eager PyTorch has no scan to unroll, so any value is taken
 #: and ignored.
 JAX_ONLY_FIELDS: Dict[str, Tuple[type, Any, Optional[str]]] = {
-    "dp": (int, 1, ROADMAP_MULTI_GPU),
-    "tp": (int, 1, ROADMAP_MULTI_GPU),
-    "sp": (int, 1, ROADMAP_MULTI_GPU),
-    "sp_attention": (str, "", ROADMAP_MULTI_GPU),
-    "grad_allreduce_dtype": (str, "float32", ROADMAP_MULTI_GPU),
     "scan_unroll": (int, 8, None),
     "profile_analytic": (bool, False, ROADMAP_PROFILE),
     "profile_divergence_factor": (float, 5.0, ROADMAP_PROFILE),
@@ -295,6 +296,16 @@ class HParams:
     spec_k_min: int = 1
     spec_k_max: int = 8
 
+    # the (dp, tp, sp) mesh (JAX config.py:74-76, :106-114, :462-471):
+    # axis sizes; the dp gradient all-reduce's wire dtype ("bfloat16":
+    # dp x tp meshes with pointer losses); the transformer encoder's
+    # sequence-parallel attention ("", "ring", "ulysses")
+    dp: int = 1
+    tp: int = 1
+    sp: int = 1
+    grad_allreduce_dtype: str = "float32"
+    sp_attention: str = ""
+
     # ---- the port's own ----
     device: str = "cuda"  # "cuda" or "cpu"; no silent fallback
 
@@ -407,6 +418,7 @@ class HParams:
             raise ValueError(f"summary_flush_every must be >= 1, got "
                              f"{self.summary_flush_every}")
         self._validate_serving()
+        self._validate_mesh()
         if self.max_dec_steps < 1 or self.max_enc_steps < 1:
             raise ValueError("max_enc_steps/max_dec_steps must be >= 1")
         if self.min_dec_steps >= self.max_dec_steps:
@@ -453,6 +465,33 @@ class HParams:
         from textsummarization_on_flink_tpu_torch.models import get_family
 
         get_family(self.model_family)
+
+    def _validate_mesh(self) -> None:
+        """The JAX package's checks of the mesh fields (JAX config.py:
+        637-640, :656-670)."""
+        if min(self.dp, self.tp, self.sp) < 1:
+            raise ValueError(f"mesh axes must be >= 1, got dp={self.dp} "
+                             f"tp={self.tp} sp={self.sp}")
+        if self.sp_attention not in ("", "ring", "ulysses"):
+            raise ValueError(
+                f"sp_attention must be '', 'ring', or 'ulysses', got "
+                f"{self.sp_attention!r}")
+        if self.grad_allreduce_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"bad grad_allreduce_dtype {self.grad_allreduce_dtype!r} "
+                f"(float32/bfloat16)")
+        if self.grad_allreduce_dtype == "bfloat16":
+            if self.sp > 1:
+                raise ValueError(
+                    "grad_allreduce_dtype=bfloat16 supports dp x tp "
+                    "meshes (sp=1): the per-group gradient vmap does not "
+                    "compose with sequence-parallel attention's shard_map")
+            if not self.pointer_gen:
+                raise ValueError(
+                    "grad_allreduce_dtype=bfloat16 requires pointer_gen "
+                    "losses: the baseline CE normalizes by the GLOBAL "
+                    "token count, which the per-shard objective cannot "
+                    "express (shard-mean != global mean)")
 
     def _validate_spec(self) -> None:
         """The JAX package's checks of the speculative tier's and the

@@ -61,6 +61,7 @@ from textsummarization_on_flink_tpu_torch.data.vocab import (
     UNK_ID,
 )
 from textsummarization_on_flink_tpu_torch.models import get_family
+from textsummarization_on_flink_tpu_torch.parallel import collectives
 
 NEG = -1e30  # effectively -inf, without inf-inf NaN hazards
 
@@ -333,7 +334,9 @@ def _search_batch(params, hps: HParams, arrays: Dict[str, torch.Tensor],
     # a step of an article whose search ended is masked, so overshooting
     # by up to C-1 steps changes nothing; the test costs one host sync
     with record_function("decode/search"):
-        while bool(cond(s).any()):
+        # on a tp mesh the ranks of a search exchange scores every step,
+        # so they leave the loop together
+        while bool(collectives.agree_any(cond(s).any())):
             for _ in range(C):
                 s = _masked_step(cond, body, s)
             steps_run += C

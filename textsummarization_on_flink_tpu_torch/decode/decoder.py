@@ -39,7 +39,16 @@ articles stepped a chunk at a time, each retired the moment its search
 ends; dense, or over a page arena (decode/arena.py).  It decodes at the
 beam tier only, as the JAX engine does.
 
-Not yet ported (ROADMAP.md queue 1): the mesh (item 6).
+On a mesh (``dp * tp * sp > 1``; JAX decoder.py:238-247) the decoder is
+``sharded``: the batch search runs through
+``parallel.mesh.make_sharded_beam_search``.  Every rank holds the whole
+batch (the chief reads the batcher and broadcasts each batch's arrays),
+each dp group searches its rows with its tp shards of the params, and
+the chief, which holds the gathered outputs, makes the results and
+writes the decode dir.  Only the beam tier decodes there, as in the JAX
+package; the slot engine and serving on a mesh are ROADMAP.md queue 1
+item 6b.  The sp ranks search the same rows with the whole encoder,
+where the JAX package shards the encoder's T (port fault 7).
 """
 
 from __future__ import annotations
@@ -60,6 +69,7 @@ from textsummarization_on_flink_tpu_torch.checkpoint import (
     checkpointer as ckpt_lib,
 )
 from textsummarization_on_flink_tpu_torch.config import (
+    ROADMAP_MESH_SERVING,
     SERVE_TIERS,
     HParams,
     bucket_for,
@@ -78,6 +88,9 @@ from textsummarization_on_flink_tpu_torch.decode.arena import PageArena
 from textsummarization_on_flink_tpu_torch.device import resolve_device
 from textsummarization_on_flink_tpu_torch.evaluate import rouge
 from textsummarization_on_flink_tpu_torch.models import avg_attention
+from textsummarization_on_flink_tpu_torch.parallel import collectives
+from textsummarization_on_flink_tpu_torch.parallel import distributed
+from textsummarization_on_flink_tpu_torch.parallel import mesh as mesh_lib
 from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
 from textsummarization_on_flink_tpu_torch.resilience.policy import Deadline
 
@@ -228,31 +241,57 @@ class BeamSearchDecoder:
         if hps.spec_k_adaptive:
             self._spec_ctl = speculative.SpecKController.from_hps(hps)
             self._g_spec_k.set(float(self._spec_ctl.k))
+        # the mesh (JAX decoder.py:238-247): set before the params load,
+        # which shards them
+        self._plan = None
+        self._sharded_search: Optional[Callable] = None
+        if hps.dp * hps.tp * hps.sp > 1:
+            self._plan = mesh_lib.make_mesh(hps)
+            self._sharded_search = mesh_lib.make_sharded_beam_search(
+                self._plan)
         if params is None:
             self._load_params()
         else:
-            self._params = from_numpy_tree(params, self._device)
+            self._set_params(from_numpy_tree(params, self._device), None)
         if self._draft_params is None and hps.spec_draft:
             self._draft_params = avg_attention.make_draft_params(
                 hps, self._params, seed=hps.seed)
 
         root = decode_root or os.path.join(hps.log_root or ".",
                                            hps.exp_name or "exp")
+        # on a mesh the chief alone writes the decode dir
+        self._writes = distributed.is_chief()
         if hps.single_pass:
             self._decode_dir = os.path.join(
                 root, get_decode_dir_name(hps, self._ckpt_path))
-            if os.path.exists(self._decode_dir):
+            if self._writes and os.path.exists(self._decode_dir):
                 raise FileExistsError(
                     f"single_pass decode directory {self._decode_dir} should "
                     "not already exist")  # decode.py:70-71
         else:
             self._decode_dir = os.path.join(root, "decode")
-        os.makedirs(self._decode_dir, exist_ok=True)
         self._rouge_ref_dir = os.path.join(self._decode_dir, "reference")
         self._rouge_dec_dir = os.path.join(self._decode_dir, "decoded")
-        if hps.single_pass:
-            os.makedirs(self._rouge_ref_dir, exist_ok=True)
-            os.makedirs(self._rouge_dec_dir, exist_ok=True)
+        if self._writes:
+            os.makedirs(self._decode_dir, exist_ok=True)
+            if hps.single_pass:
+                os.makedirs(self._rouge_ref_dir, exist_ok=True)
+                os.makedirs(self._rouge_dec_dir, exist_ok=True)
+
+    def _set_params(self, params: Any, path: Optional[str]) -> None:
+        """Install (params, ckpt_path) under the lock; on a mesh also this
+        rank's shards of the params for the sharded search."""
+        shards = (None if self._plan is None
+                  else self._plan.registry.shard_params(params))
+        with self._params_lock:
+            self._params, self._ckpt_path = params, path
+            self._mesh_params = shards
+
+    @property
+    def sharded(self) -> bool:
+        """True on a mesh: only the beam tier decodes (the serve layer and
+        the slot engine refuse a sharded decoder)."""
+        return self._sharded_search is not None
 
     def _params_snapshot(self) -> Tuple[Any, Optional[str]]:
         """The (params, ckpt_path) pair, read atomically."""
@@ -273,8 +312,16 @@ class BeamSearchDecoder:
         return fp
 
     def _load_params(self) -> None:
+        """Load the newest loadable checkpoint of the train dir; on a mesh
+        every rank takes the one the chief found (a checkpoint that lands
+        between two ranks' scans would otherwise split the mesh)."""
         path, flat = ckpt_lib.load_ckpt(self._train_dir,
                                         max_retries=self._max_ckpt_retries)
+        if self._plan is not None:
+            chief_path = collectives.broadcast_object(self._plan, path)
+            if chief_path != path:
+                path, flat = chief_path, ckpt_lib.load_arrays_verified(
+                    chief_path)
         tree = ckpt_lib._unflatten_dicts(flat)
         params = from_numpy_tree(tree["params"], self._device)
         draft = None
@@ -283,9 +330,9 @@ class BeamSearchDecoder:
             # the ones the swap installs, outside the lock like the load
             draft = avg_attention.make_draft_params(self._hps, params,
                                                     seed=self._hps.seed)
-        with self._params_lock:
-            self._params, self._ckpt_path = params, path
-            if draft is not None:
+        self._set_params(params, path)
+        if draft is not None:
+            with self._params_lock:
                 self._draft_params = draft
         log.info("decoder loaded checkpoint %s", path)
 
@@ -296,12 +343,19 @@ class BeamSearchDecoder:
         storms nor starves reloads), load the newest checkpoint of the
         train dir if it is not the one in use; the (params, ckpt_path)
         pair swaps under the lock and ``decode/ckpt_reloads_total``
-        counts it.  Returns the new reference time."""
+        counts it.  On a mesh the chief's clock and newest checkpoint
+        decide for every rank (each call is one collective).  Returns the
+        new reference time."""
         if self._train_dir is None:
             return last_load
-        if time.monotonic() - last_load < SECS_UNTIL_NEW_CKPT:
+        due = time.monotonic() - last_load >= SECS_UNTIL_NEW_CKPT
+        latest = ckpt_lib.latest_checkpoint(self._train_dir) if due else None
+        if self._plan is not None:
+            # the ranks of a mesh reload together, at the chief's call
+            due, latest = collectives.broadcast_object(self._plan,
+                                                       (due, latest))
+        if not due:
             return last_load
-        latest = ckpt_lib.latest_checkpoint(self._train_dir)
         _, current = self._params_snapshot()
         if latest is not None and latest != current:
             log.info("Decoder has been decoding for %.0f seconds; loading "
@@ -316,6 +370,7 @@ class BeamSearchDecoder:
         a completed full-beam dispatch after the first one, so early
         requests never degrade."""
         return (deadline.bounded
+                and self._sharded_search is None
                 and self._hps.beam_size > 1
                 and self._beam_secs is not None
                 and deadline.remaining() < self._beam_secs)
@@ -347,6 +402,10 @@ class BeamSearchDecoder:
         (JAX decode/decoder.py:382-450)."""
         if deadline is None:
             deadline = Deadline.after(self._hps.decode_deadline_secs)
+        if self.sharded and tier not in (None, "beam"):
+            raise ValueError(
+                f"sharded (mesh) decoding supports the beam tier only; got "
+                f"tier={tier!r}")
         if tier is not None:
             if tier not in SERVE_TIERS:
                 raise ValueError(
@@ -387,10 +446,20 @@ class BeamSearchDecoder:
         self._c_beams.inc(len(results))
         return results
 
-    def _decode_batch_inner(self, batch: Batch,
+    def _decode_batch_inner(self, batch: Optional[Batch],
                             tier: str) -> List[DecodedResult]:
         # one atomic params read per dispatch (JAX decoder.py:452-502)
-        if tier == "spec":
+        if self._sharded_search is not None:
+            # every rank searches the chief's batch; the others return
+            # no results (batch may be None there)
+            arrays = collectives.broadcast_object(
+                self._plan, batch.as_arrays() if self._writes else None)
+            with self._params_lock:
+                shards = self._mesh_params
+            out = self._sharded_search(shards, arrays)
+            if not self._writes:
+                return []
+        elif tier == "spec":
             full, draft = self._spec_snapshot()
             if draft is None:
                 raise ValueError(
@@ -460,7 +529,12 @@ class BeamSearchDecoder:
     def slot_engine(self, slots: int, chunk: int) -> "SlotDecodeEngine":
         """The continuous-batching engine over this decoder's params:
         ``slots`` resident articles decoded ``chunk`` steps at a time,
-        with refill between chunks (JAX decoder.py:553)."""
+        with refill between chunks (JAX decoder.py:553).  Not on a mesh
+        yet."""
+        if self.sharded:
+            raise NotImplementedError(
+                f"the slot engine over a sharded decoder: "
+                f"{ROADMAP_MESH_SERVING}")
         return SlotDecodeEngine(self, slots, chunk)
 
     def decode(self, with_rouge: bool = True,
@@ -482,8 +556,15 @@ class BeamSearchDecoder:
         counter = 0
         n_batches = 0
         while True:
-            batch = self._batcher.next_batch()
-            if batch is None:
+            # on a mesh the chief alone reads the batcher, and every rank
+            # stops when it ends
+            batch = self._batcher.next_batch() if self._writes else None
+            if self._plan is not None:
+                more = collectives.broadcast_object(self._plan,
+                                                    batch is not None)
+            else:
+                more = batch is not None
+            if not more:
                 log.info("batcher exhausted; stopping decode loop")
                 break
             t0 = time.monotonic()
@@ -505,7 +586,8 @@ class BeamSearchDecoder:
                 break
             if not self._hps.single_pass:
                 t_last = self.maybe_reload_checkpoint(t_last)
-        if self._hps.single_pass and with_rouge and counter > 0:
+        if self._hps.single_pass and with_rouge and counter > 0 \
+                and self._writes:
             log.info("Output has been saved in %s and %s. Now starting "
                      "ROUGE eval...", self._rouge_ref_dir,
                      self._rouge_dec_dir)
@@ -582,7 +664,7 @@ class SlotDecodeEngine:
     engine's compile-ledger budgets (the port has no jit cache; ROADMAP
     queue 1, item 2h), the analytic pricing of a chunk
     (``profile_analytic``; item 2h) and the dp mesh of resident slots
-    (item 6)."""
+    (item 6b)."""
 
     def __init__(self, decoder: BeamSearchDecoder, slots: int, chunk: int):
         if slots < 1:

@@ -24,6 +24,12 @@ chunks of decoder steps (ops/losses.py).  The ``TrainOutput`` contract
 the Trainer and Evaluator read is defined here for both families, as in
 the JAX package.
 
+On a tp mesh (parallel/) the embedding [V/tp, E] and the projection's
+w [H, V/tp] and v [V/tp] are this rank's vocabulary shards: lookups go
+through collectives.embed and the scores through losses.vocab_scores
+(an all-gather over tp along the vocab axis), as the JAX package's
+GSPMD lays them out; everything else is replicated.
+
 Under ``compute_dtype=bfloat16`` (JAX pointer_generator.py:154-200) the
 encoder runs in bf16 (embeddings, the biLSTM's weights and state), its
 states and features stay bf16 (the fused attention reads that stream,
@@ -48,6 +54,7 @@ from textsummarization_on_flink_tpu_torch.models import masked_adapter
 from textsummarization_on_flink_tpu_torch.ops import attention as attn_ops
 from textsummarization_on_flink_tpu_torch.ops import losses as loss_ops
 from textsummarization_on_flink_tpu_torch.ops import lstm as lstm_ops
+from textsummarization_on_flink_tpu_torch.parallel import collectives
 
 Params = Dict[str, Any]
 
@@ -105,10 +112,17 @@ def maybe_remat(hps: HParams, fn: Callable) -> Callable:
     """fn recomputed in the backward under --remat (jax.checkpoint in the
     JAX package) while a gradient is being taken, fn itself otherwise.
     Non-reentrant: the recompute runs when the backward needs fn's saved
-    tensors."""
+    tensors, on autograd's thread, so the mesh plan bound now is bound
+    again around it."""
     if not (hps.remat and torch.is_grad_enabled()):
         return fn
-    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+    plan = collectives.current()
+
+    def bound_fn(*args):
+        with collectives.bound(plan):
+            return fn(*args)
+
+    return lambda *args: checkpoint(bound_fn, *args, use_reentrant=False)
 
 
 def encode(params: Params, hps: HParams, enc_batch: torch.Tensor,
@@ -117,7 +131,7 @@ def encode(params: Params, hps: HParams, enc_batch: torch.Tensor,
     """Embed + biLSTM + state reduction (model.py:210-221).  Under bf16
     the encoder states and features stay bf16: the attention re-reads
     both every decoder step, so they are its bytes."""
-    emb = _cast(hps, params["embedding"][enc_batch])  # [B, T, E]
+    emb = _cast(hps, collectives.embed(params["embedding"], enc_batch))
     enc_states, fw_st, bw_st = lstm_ops.bidirectional_encoder(
         params["encoder"]["fw"], params["encoder"]["bw"], emb, enc_lens,
         enc_padding_mask)
@@ -165,7 +179,8 @@ def forward_train(params: Params, hps: HParams,
     B, T_enc = arrays["enc_batch"].shape
     enc = encode(params, hps, arrays["enc_batch"], arrays["enc_lens"],
                  arrays["enc_padding_mask"])
-    emb_dec = params["embedding"][arrays["dec_batch"]]  # [B, T_dec, E]
+    # [B, T_dec, E]
+    emb_dec = collectives.embed(params["embedding"], arrays["dec_batch"])
     ip = params["decoder"]["input_linear"]
     E = emb_dec.shape[-1]
     emb_proj = emb_dec @ ip["kernel"][:E] + ip["bias"]  # [B, T_dec, E]
@@ -210,8 +225,8 @@ def forward_train(params: Params, hps: HParams,
                 chunk=hps.loss_chunk, compute_dtype=hps.compute_dtype)
     else:
         def scores_loss(outputs_t, attn_t, p_gens_t):
-            scores = loss_ops.project_scores(outputs_t, w,
-                                             hps.compute_dtype) + v
+            scores = loss_ops.vocab_scores(outputs_t, w, v,
+                                           hps.compute_dtype)
             if hps.pointer_gen:
                 gold = loss_ops.gold_mixture_prob_from_scores(
                     scores, attn_t, p_gens_t, targets_t,
@@ -301,7 +316,8 @@ def decode_onestep_shared(params: Params, hps: HParams, enc: EncoderOutput,
         nb=nb, block=block)
     if cov is None:
         cov = prev_coverage
-    inp_emb = params["embedding"][latest_tokens]  # [B, K, E]
+    inp_emb = collectives.embed(params["embedding"],
+                                latest_tokens)  # [B, K, E]
     x = _linear(dp["input_linear"], inp_emb, ctx_prev)
     cell_out, new_state = lstm_ops.lstm_cell(dp["cell"], x, state)
     context, attn_dist, _ = attn_ops.attend_shared(
@@ -311,9 +327,9 @@ def decode_onestep_shared(params: Params, hps: HParams, enc: EncoderOutput,
         _linear(dp["pgen_linear"], context, new_state[0], new_state[1], x)
     )[..., 0]  # [B, K]
     output = _linear(dp["output_linear"], cell_out, context)
-    vocab_scores = loss_ops.project_scores(
-        output, params["output_projection"]["w"], hps.compute_dtype) + \
-        params["output_projection"]["v"]
+    vocab_scores = loss_ops.vocab_scores(
+        output, params["output_projection"]["w"],
+        params["output_projection"]["v"], hps.compute_dtype)
     vocab_dist = torch.softmax(vocab_scores, dim=-1)  # [B, K, V]
     B, K = latest_tokens.shape
     if hps.pointer_gen:

@@ -15,7 +15,18 @@ CUDA kernels on the card (forward, and in training the dK/dV and dQ
 backward kernels), their plain versions on the CPU.  The JAX package's
 gate for its TPU flash kernel (``_use_flash``: TS_FLASH, 128-aligned
 shapes, T >= 1024) follows from the Mosaic kernel's 128-lane tiling and
-is not read here; neither is its sequence-parallel branch.
+is not read here.
+
+On a mesh (parallel/; the plan bound by the sharded steps) the family
+runs the JAX package's layout: on tp the tied embedding and out_bias
+over the vocabulary (collectives.embed, losses.vocab_scores) and the
+Megatron heads and FFN (wq/wk/wv/w1/b1 column-, wo/w2 row-sharded, one
+all-reduce per block), so the flash kernels run this rank's
+num_heads/tp heads and the copy distribution's head mean is summed over
+tp; under --sp_attention with sp > 1 the encoder holds its sp block of T,
+its self-attention is ring or Ulysses (parallel/ring_attention.py, JAX
+transformer.py:226-255) and its output, mask and extended ids are
+all-gathered over sp before the decoder.
 
 ``forward_train`` computes the materialised loss or, with
 ``--loss_chunk``, the streaming one (ops/losses.py), and under
@@ -67,6 +78,8 @@ from textsummarization_on_flink_tpu_torch.models import masked_adapter
 from textsummarization_on_flink_tpu_torch.models import pointer_generator as pg
 from textsummarization_on_flink_tpu_torch.ops import flash_attention as fa
 from textsummarization_on_flink_tpu_torch.ops import losses as loss_ops
+from textsummarization_on_flink_tpu_torch.parallel import collectives
+from textsummarization_on_flink_tpu_torch.parallel import ring_attention
 
 Params = Dict[str, Any]
 
@@ -94,9 +107,15 @@ def _ln(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
             + p["bias"]).to(x.dtype)
 
 
+def _local_heads(hps: HParams) -> int:
+    """This rank's heads: num_heads / tp on a tp mesh (the Megatron
+    column split of wq/wk/wv), num_heads otherwise."""
+    return hps.num_heads // collectives.tp_size()
+
+
 def _split_heads(hps: HParams, x: torch.Tensor) -> torch.Tensor:
-    """[..., H] -> [..., nh, hd]"""
-    return x.reshape(x.shape[:-1] + (hps.num_heads, _head_dim(hps)))
+    """[..., nh*hd] -> [..., nh, hd] (nh: the heads x holds)"""
+    return x.reshape(x.shape[:-1] + (-1, _head_dim(hps)))
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:
@@ -115,6 +134,7 @@ def _mha(hps: HParams, p: Dict[str, torch.Tensor], q_in: torch.Tensor,
     exact products (preferred_element_type=f32), P is rounded to that
     dtype before P V, whose f32 sums are rounded once."""
     dt = q_in.dtype
+    q_in, kv_in = collectives.copy_to_tp(q_in), collectives.copy_to_tp(kv_in)
     q = _split_heads(hps, q_in @ p["wq"].to(dt))  # [..., Tq, nh, hd]
     k = _split_heads(hps, kv_in @ p["wk"].to(dt))
     v = _split_heads(hps, kv_in @ p["wv"].to(dt))
@@ -130,15 +150,18 @@ def _mha(hps: HParams, p: Dict[str, torch.Tensor], q_in: torch.Tensor,
     probs = torch.where(any_key, probs, 0.0)
     ctx = torch.einsum("...nqk,...knd->...qnd", probs.to(dt).float(),
                        v.float()).to(dt)
-    return _merge_heads(ctx) @ p["wo"].to(dt), torch.mean(probs, dim=-3)
+    out = collectives.reduce_from_tp(_merge_heads(ctx) @ p["wo"].to(dt))
+    return out, collectives.head_mean(probs, -3, hps.num_heads)
 
 
 def _ffn_block(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    """The FFN in x's dtype, weights and biases cast at their use."""
+    """The FFN in x's dtype, weights and biases cast at their use (on a
+    tp mesh w1/b1 column- and w2 row-sharded, one all-reduce)."""
     dt = x.dtype
+    x = collectives.copy_to_tp(x)
     # jax.nn.gelu defaults to the tanh approximation
     h = F.gelu(x @ p["w1"].to(dt) + p["b1"].to(dt), approximate="tanh")
-    return h @ p["w2"].to(dt) + p["b2"].to(dt)
+    return collectives.reduce_from_tp(h @ p["w2"].to(dt)) + p["b2"].to(dt)
 
 
 def _self_attention(hps: HParams, p: Dict[str, torch.Tensor],
@@ -146,15 +169,31 @@ def _self_attention(hps: HParams, p: Dict[str, torch.Tensor],
                     ) -> torch.Tensor:
     """Self-attention block (transformer.py:220-296) through the flash
     wrapper on every shape, in x_norm's dtype (the flash kernels' bf16
-    forms under bf16).  x_norm [B, T, H]; pad_mask [B, T] or None."""
+    forms under bf16), on this rank's heads.  x_norm [B, T, H]; pad_mask
+    [B, T] or None.  Where the encoder's T is sharded over sp
+    (``_t_sharded``: --sp_attention, a pad mask, not causal), ring or
+    Ulysses attention over the sp ranks instead, on f32 q/k/v (JAX
+    transformer.py:226-255)."""
     dt = x_norm.dtype
+    x_norm = collectives.copy_to_tp(x_norm)
     # [B, T, nh, hd], contiguous
     q = _split_heads(hps, x_norm @ p["wq"].to(dt))
     k = _split_heads(hps, x_norm @ p["wk"].to(dt))
     v = _split_heads(hps, x_norm @ p["wv"].to(dt))
-    ctx = fa.flash_attention(q, k, v, pad_mask, causal,
-                             _head_dim(hps) ** -0.5)
-    return _merge_heads(ctx) @ p["wo"].to(dt)
+    sm_scale = _head_dim(hps) ** -0.5
+    if _t_sharded(hps) and not causal and pad_mask is not None:
+        ctx = ring_attention.sp_attention(hps.sp_attention, q.float(),
+                                          k.float(), v.float(), pad_mask,
+                                          sm_scale).to(dt)
+    else:
+        ctx = fa.flash_attention(q, k, v, pad_mask, causal, sm_scale)
+    return collectives.reduce_from_tp(_merge_heads(ctx) @ p["wo"].to(dt))
+
+
+def _t_sharded(hps: HParams) -> bool:
+    """Whether this forward holds the encoder's sp block of T (the
+    transformer under --sp_attention on a mesh with sp > 1)."""
+    return bool(hps.sp_attention) and collectives.axis_size("sp") > 1
 
 
 def _encoder_stack(params: Params, hps: HParams, x: torch.Tensor,
@@ -184,10 +223,11 @@ class TransformerEncView(NamedTuple):
 def _embed_enc(params: Params, hps: HParams,
                enc_batch: torch.Tensor) -> torch.Tensor:
     """Summed in f32, then rounded once to the compute dtype
-    (transformer.py:329-332)."""
+    (transformer.py:329-332); an sp block of T takes its positions."""
     T = enc_batch.shape[-1]
-    return pg._cast(hps, params["embedding"][enc_batch]
-                    + params["pos_enc"][:T])
+    t0 = collectives.current().coord("sp") * T if _t_sharded(hps) else 0
+    return pg._cast(hps, collectives.embed(params["embedding"], enc_batch)
+                    + params["pos_enc"][t0:t0 + T])
 
 
 def _pos_dec(params: Params, positions: torch.Tensor) -> torch.Tensor:
@@ -201,7 +241,7 @@ def _pos_dec(params: Params, positions: torch.Tensor) -> torch.Tensor:
 def _embed_dec(params: Params, hps: HParams, tokens: torch.Tensor,
                positions: torch.Tensor) -> torch.Tensor:
     """tokens [B, K] at positions [B] (each article's own step)."""
-    return pg._cast(hps, params["embedding"][tokens]
+    return pg._cast(hps, collectives.embed(params["embedding"], tokens)
                     + _pos_dec(params, positions)[:, None])
 
 
@@ -210,7 +250,7 @@ def _embed_dec_train(params: Params, hps: HParams,
     """Teacher-forced decoder inputs dec_batch [B, T_dec] at positions
     0 .. T_dec-1 for every article (transformer.py:357)."""
     T = dec_batch.shape[-1]
-    return pg._cast(hps, params["embedding"][dec_batch]
+    return pg._cast(hps, collectives.embed(params["embedding"], dec_batch)
                     + params["pos_dec"][:T])
 
 
@@ -225,11 +265,21 @@ def forward_train(params: Params, hps: HParams,
     the optional coverage penalty on the final layer's copy attention.
 
     arrays: a Batch's arrays as tensors (data/batching.py) on the params'
-    device."""
+    device.  Where the encoder's T is sharded over sp the arrays hold
+    this rank's block of the encoder arrays: the encoder runs on it and
+    its output, mask and extended ids are all-gathered over sp before
+    the decoder, which runs the same on every sp rank."""
     enc_mask = arrays["enc_padding_mask"]  # [B, T_enc]
     x = _embed_enc(params, hps, arrays["enc_batch"])
+    enc_f32 = _encoder_stack(params, hps, x, enc_mask)
+    if _t_sharded(hps):
+        enc_f32 = collectives.gather_sp(enc_f32, 1)
+        enc_mask = collectives.gather_sp_data(enc_mask, 1)
+        arrays = dict(arrays, enc_padding_mask=enc_mask,
+                      enc_batch_extend_vocab=collectives.gather_sp_data(
+                          arrays["enc_batch_extend_vocab"], 1))
     # f32 out of the encoder, cast again for the cross-attention (:355)
-    enc_out = pg._cast(hps, _encoder_stack(params, hps, x, enc_mask))
+    enc_out = pg._cast(hps, enc_f32)
     y = _embed_dec_train(params, hps, arrays["dec_batch"])
     cross_mask = enc_mask[:, None, :]  # [B, 1, T_enc]
 
@@ -360,7 +410,8 @@ def cross_attend_layer(hps: HParams, layer: Dict[str, Any], y: torch.Tensor,
     hd = _head_dim(hps)
     dt = y.dtype
     cp = layer["cross_attn"]
-    qc = _split_heads(hps, _ln(layer["ln_cross"], y) @ cp["wq"].to(dt))
+    qc = _split_heads(hps, collectives.copy_to_tp(_ln(layer["ln_cross"], y))
+                      @ cp["wq"].to(dt))
     T = enc_mask.shape[-1]
     t_act = T
     if nb is not None:
@@ -373,8 +424,9 @@ def cross_attend_layer(hps: HParams, layer: Dict[str, Any], y: torch.Tensor,
     any_key = torch.sum(enc_mask, dim=-1) > 0  # [B]
     cprobs = torch.where(any_key[:, None, None, None], cprobs, 0.0)
     cctx = torch.einsum("bknt,btnd->bknd", cprobs, cv[:, :t_act].float())
-    cross_out = _merge_heads(cctx).to(dt) @ cp["wo"].to(dt)
-    probs = torch.mean(cprobs, dim=2)
+    cross_out = collectives.reduce_from_tp(_merge_heads(cctx).to(dt)
+                                           @ cp["wo"].to(dt))
+    probs = collectives.head_mean(cprobs, 2, hps.num_heads)
     if t_act < T:
         probs = F.pad(probs, (0, T - t_act))
     return cross_out, probs
@@ -392,8 +444,8 @@ def vocab_scores_of(params: Params, hps: HParams,
         hr = loss_ops.project_scores(h, vh["w1"], hps.compute_dtype)
         return loss_ops.project_scores(hr, vh["w2"], hps.compute_dtype) \
             + params["out_bias"]
-    return loss_ops.project_scores(h, params["embedding"].T,
-                                   hps.compute_dtype) + params["out_bias"]
+    return loss_ops.vocab_scores(h, params["embedding"].T,
+                                 params["out_bias"], hps.compute_dtype)
 
 
 def vocab_proj_weight(params: Params) -> torch.Tensor:
@@ -440,13 +492,13 @@ def beam_adapter(hps: HParams):
     up to each article's own step t."""
     K = hps.beam_size
     L = hps.dec_layers
-    nh, hd = hps.num_heads, _head_dim(hps)
+    hd = _head_dim(hps)
     T = hps.max_dec_steps + 1
 
     def init_state(params: Params, enc: TransformerEncView):
         del params
         B = enc.cross_k.shape[0]
-        shape = (B, K, L, T, nh, hd)
+        shape = (B, K, L, T, _local_heads(hps), hd)
         f32 = dict(dtype=torch.float32, device=enc.cross_k.device)
         return {"cache_k": torch.zeros(shape, **f32),
                 "cache_v": torch.zeros(shape, **f32)}
@@ -472,7 +524,7 @@ def beam_adapter(hps: HParams):
         # logits and softmax f32
         for li, layer in enumerate(params["decoder"]["layers"]):
             p = layer["self_attn"]
-            h_norm = _ln(layer["ln1"], y)
+            h_norm = collectives.copy_to_tp(_ln(layer["ln1"], y))
             # [B, K, nh, hd]
             q = _split_heads(hps, h_norm @ p["wq"].to(dt))
             cache_k[bi, ki, li, ti] = _split_heads(
@@ -484,7 +536,8 @@ def beam_adapter(hps: HParams):
             logits = torch.where(pos_ok[:, None, None, :], logits, NEG)
             probs = torch.softmax(logits, dim=-1)
             ctx = torch.einsum("bknt,bktnd->bknd", probs, cache_v[:, :, li])
-            y = y + _merge_heads(ctx).to(dt) @ p["wo"].to(dt)
+            y = y + collectives.reduce_from_tp(_merge_heads(ctx).to(dt)
+                                               @ p["wo"].to(dt))
             cross_out, attn_dist = cross_attend_layer(
                 hps, layer, y, enc.cross_k[:, li], enc.cross_v[:, li],
                 enc_mask, nb=nb)

@@ -1,1 +1,19 @@
 """Tensor ops of the port: LSTM, attention, and the fused attention kernel."""
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count in this process: the fused
+    attention's forward and backward (and of those, the launches on a
+    bf16 encoder stream), the flash forward, dK/dV and dQ (and of those,
+    the launches of their bf16 forms)."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+
+    return dict(fused=fa.launches, fused_bwd=fa.launches_bwd,
+                fused_bf16=fa.launches_bf16,
+                fused_bwd_bf16=fa.launches_bwd_bf16,
+                flash_forward=fl.launches, flash_bwd_dkv=fl.launches_bwd_dkv,
+                flash_bwd_dq=fl.launches_bwd_dq,
+                flash_forward_bf16=fl.launches_bf16,
+                flash_bwd_dkv_bf16=fl.launches_bwd_dkv_bf16,
+                flash_bwd_dq_bf16=fl.launches_bwd_dq_bf16)

@@ -24,7 +24,11 @@ a time; each is a ``torch.autograd.Function`` that saves only its inputs
 and whose backward rebuilds one chunk's scores at a time, so no
 [T, B, V] tensor exists in either pass.  ``project_scores`` is the one
 vocab projection of the losses and the decode heads: bf16 operands with
-f32 sums and an f32 result under ``compute_dtype=bfloat16``.
+f32 sums and an f32 result under ``compute_dtype=bfloat16``;
+``vocab_scores`` adds the bias and, on a tp mesh, gathers the vocab
+shards.  On a dp mesh the baseline cross-entropy divides by its rank's
+share of the global token count (``collectives.dp_share``), so the dp
+ranks' mean is the global batch's loss.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from textsummarization_on_flink_tpu_torch.parallel import collectives
 
 
 def mask_and_avg(values: torch.Tensor,
@@ -93,7 +99,8 @@ def softmax_cross_entropy_baseline(vocab_scores: torch.Tensor,
     sum(nll * mask) / sum(mask)."""
     log_probs = torch.log_softmax(vocab_scores, dim=-1)
     nll = -torch.gather(log_probs, -1, targets.long()[..., None])[..., 0]
-    return torch.sum(nll * dec_padding_mask) / torch.sum(dec_padding_mask)
+    return torch.sum(nll * dec_padding_mask) / collectives.dp_share(
+        torch.sum(dec_padding_mask))
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -146,6 +153,20 @@ def project_scores(x: torch.Tensor, w: torch.Tensor,
     return x @ w
 
 
+def vocab_scores(x: torch.Tensor, w: torch.Tensor, v: torch.Tensor,
+                 compute_dtype: str = "float32") -> torch.Tensor:
+    """``project_scores(x, w) + v``, the vocab scores of every loss and
+    decode head.  On a tp mesh (parallel/collectives.py) ``w`` [H, V/tp]
+    and ``v`` [V/tp] are this rank's vocab shards: its [..., V/tp] scores
+    are all-gathered over tp along the vocab axis (the per-step
+    scores-shaped all-gather the JAX package's ``tp_scores_bytes``
+    prices), and ``x``'s gradient is summed over tp."""
+    if collectives.tp_size() == 1:
+        return project_scores(x, w, compute_dtype) + v
+    return collectives.gather_vocab(project_scores(
+        collectives.copy_to_tp(x), w, compute_dtype) + v)
+
+
 def _chunks(chunk: int, T: int) -> Tuple[int, int]:
     """(chunks, padded length) for T steps in chunks of ``chunk``."""
     n = -(-T // chunk)
@@ -167,24 +188,25 @@ def _clamp_chunk(chunk: int, T: int) -> int:
 
 
 def _chunk_gold(o, a, p, t, ext, w, v, compute_dtype):
-    scores = project_scores(o, w, compute_dtype) + v  # [chunk, B, V]
+    scores = vocab_scores(o, w, v, compute_dtype)  # [chunk, B, V]
     return gold_mixture_prob_from_scores(scores, a, p, t, ext)
 
 
 def _chunk_nll(o, t, w, v, compute_dtype):
-    scores = project_scores(o, w, compute_dtype) + v
+    scores = vocab_scores(o, w, v, compute_dtype)
     log_probs = torch.log_softmax(scores, dim=-1)
     return -torch.gather(log_probs, -1, t.long()[..., None])[..., 0]
 
 
-def _recompute_grads(fn, diff, g_c):
+def _recompute_grads(fn, diff, g_c, plan=None):
     """The vjp of one chunk: ``fn(*diff)`` rebuilt with ``diff`` as fresh
     leaves (its scores recomputed), differentiated against the cotangent
-    ``g_c``."""
+    ``g_c``.  ``plan``: the mesh the forward ran on (a backward runs on
+    autograd's thread, where the forward's binding is not seen)."""
     leaves = [x.detach().requires_grad_(True) for x in diff]
-    with torch.enable_grad():
+    with torch.enable_grad(), collectives.bound(plan):
         out = fn(*leaves)
-    return torch.autograd.grad(out, leaves, g_c)
+        return torch.autograd.grad(out, leaves, g_c)
 
 
 class _StreamingGold(torch.autograd.Function):
@@ -209,6 +231,7 @@ class _StreamingGold(torch.autograd.Function):
         ctx.save_for_backward(outputs, attn_dists, p_gens, targets, ext, w,
                               v)
         ctx.chunk, ctx.compute_dtype = chunk, compute_dtype
+        ctx.plan = collectives.current()
         return gold[:T]
 
     @staticmethod
@@ -227,7 +250,7 @@ class _StreamingGold(torch.autograd.Function):
             do_c, da_c, dp_c, dw_c, dv_c = _recompute_grads(
                 lambda o_, a_, p_, w_, v_: _chunk_gold(o_, a_, p_, t_c, ext,
                                                        w_, v_, cd),
-                (o[s], a[s], p[s], w, v), gp[s])
+                (o[s], a[s], p[s], w, v), gp[s], ctx.plan)
             dw, dv = dw + dw_c, dv + dv_c
             do.append(do_c)
             da.append(da_c)
@@ -270,6 +293,7 @@ class _StreamingNll(torch.autograd.Function):
             for i in range(n)])
         ctx.save_for_backward(outputs, targets, w, v)
         ctx.chunk, ctx.compute_dtype = chunk, compute_dtype
+        ctx.plan = collectives.current()
         return nll[:T]
 
     @staticmethod
@@ -286,7 +310,7 @@ class _StreamingNll(torch.autograd.Function):
             t_c = t[s]
             do_c, dw_c, dv_c = _recompute_grads(
                 lambda o_, w_, v_: _chunk_nll(o_, t_c, w_, v_, cd),
-                (o[s], w, v), gp[s])
+                (o[s], w, v), gp[s], ctx.plan)
             dw, dv = dw + dw_c, dv + dv_c
             do.append(do_c)
         return None, None, torch.cat(do)[:T], None, dw, dv
@@ -306,4 +330,5 @@ def streaming_softmax_cross_entropy(outputs: torch.Tensor,
     T = outputs.shape[0]
     nll = _StreamingNll.apply(_clamp_chunk(chunk, T), compute_dtype,
                               outputs, targets, w, v)
-    return torch.sum(nll * dec_padding_mask) / torch.sum(dec_padding_mask)
+    return torch.sum(nll * dec_padding_mask) / collectives.dp_share(
+        torch.sum(dec_padding_mask))

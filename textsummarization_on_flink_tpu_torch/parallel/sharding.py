@@ -1,0 +1,381 @@
+"""The sharding registry: ONE mesh story for train, eval, decode and
+checkpoint (JAX package parallel/sharding.py).
+
+Every tensor role maps HERE, and only here, to a spec over the named
+``(dp, tp, sp)`` mesh, plus a wire dtype where a role is reduced over
+the mesh.  The roles, the per-leaf rule and the table are the JAX
+package's; the specs are the port's own small ``Spec`` type (one mesh
+axis name or None per tensor axis), not ``PartitionSpec``, and they are
+carried out by hand: ``shard_params`` slices each tp leaf along its
+spec's axis, ``gather_params`` rebuilds it with an all-gather,
+``shard_batch`` takes the rank's dp rows and, where a path shards the
+encoder's time axis, its sp block of T.
+
+Which paths shard T: the transformer's encoder under
+``--sp_attention=ring|ulysses`` with sp > 1 (``shards_t``).  Under
+sp > 1 the pointer-generator, and the transformer without
+``--sp_attention``, run the same on every sp rank with the whole T,
+where the JAX package shards their attention tensors over T: the same
+results, and the memory is not split (ROADMAP.md, port fault 7).
+
+``analytic_comms`` computes the JAX package's per-step collective-byte
+prediction from a copy of the same rule; the sharded trainer's dp
+gradient all-reduce moves exactly its ``dp_wire_bytes``
+(``parallel/collective_bytes_total{op=all_reduce,axis=dp}``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from textsummarization_on_flink_tpu_torch.config import (
+    ROADMAP_MESH_SERVING,
+    HParams,
+)
+
+PyTree = Any
+
+#: canonical mesh axis order (rank = (d * tp + t) * sp + s)
+MESH_AXES = ("dp", "tp", "sp")
+
+#: the train/eval batch array names (the model-family input contract)
+BATCH_NAMES = ("enc_batch", "enc_lens", "enc_padding_mask",
+               "enc_batch_extend_vocab", "dec_batch", "target_batch",
+               "dec_padding_mask")
+
+#: encoder-side names only (the beam-search input contract)
+ENC_BATCH_NAMES = ("enc_batch", "enc_lens", "enc_padding_mask",
+                   "enc_batch_extend_vocab")
+
+#: every role the registry answers for (``ShardingRegistry.table()``)
+ROLES = ("params", "opt_state", "step", "train_batch", "eval_batch",
+         "metrics", "grads", "beam_output", "slot_state",
+         "prefill_batch", "prefill_state", "arena_pool", "page_table")
+
+
+class Spec(tuple):
+    """One mesh axis name (or None) per tensor axis; ``Spec()`` is
+    replicated.  ``Spec("tp", None)`` shards axis 0 over tp."""
+
+    def __new__(cls, *axes: Optional[str]) -> "Spec":
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"Spec{tuple(self)!r}"
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        """The tensor axis sharded over mesh ``axis``, or None."""
+        return self.index(axis) if axis in self else None
+
+
+# --------------------------------------------------------------------------
+# Spec rules (pure: a role -> Spec)
+# --------------------------------------------------------------------------
+
+def param_spec(path: Tuple[Any, ...], leaf: Any = None) -> Spec:
+    """The spec of one parameter leaf by its key path (JAX sharding.py:
+    91-119).
+
+    Pointer-generator: the vocabulary tensors shard over tp; everything
+    else (the LSTMs, the attention, the reduction) is replicated.
+
+    Transformer: the tied [V, H] embedding and the [V] out_bias shard
+    over the vocabulary; attention wq/wk/wv and ffn w1/b1 column-shard
+    (heads and ffn over tp), wo and ffn w2 row-shard: the Megatron
+    layout, one all-reduce on each attention and FFN block's output."""
+    keys = tuple(path)
+    if "embedding" in keys:
+        return Spec("tp", None)
+    if "output_projection" in keys:
+        if keys[-1] == "w":
+            return Spec(None, "tp")
+        return Spec("tp")
+    if keys[-1] == "out_bias":
+        return Spec("tp")
+    if keys[-1] in ("wq", "wk", "wv", "w1"):
+        return Spec(None, "tp")
+    if keys[-1] in ("wo", "w2"):
+        return Spec("tp", None)
+    if keys[-1] == "b1":
+        return Spec("tp")
+    return Spec()
+
+
+def tree_paths(tree: PyTree, prefix: Tuple[Any, ...] = (),
+               ) -> Iterator[Tuple[Tuple[Any, ...], Any]]:
+    """(key path, leaf) pairs in ``params.tree_leaves`` order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_paths(tree[k], prefix + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_paths(v, prefix + (i,))
+    else:
+        yield prefix, tree
+
+
+def param_specs(params: PyTree) -> PyTree:
+    """The spec tree of a params tree (grads and the Adagrad accumulators
+    share it: same structure, same layout)."""
+    return _map_paths(param_spec, params)
+
+
+def batch_spec(name: str) -> Spec:
+    """Batch arrays shard over dp on axis 0; the encoder's
+    sequence-major arrays also shard T_enc over sp, on the paths that
+    shard T (``shards_t``)."""
+    if name in ("enc_batch", "enc_padding_mask", "enc_batch_extend_vocab"):
+        return Spec("dp", "sp")
+    return Spec("dp")
+
+
+def state_specs(state: Any) -> Any:
+    """Specs of a TrainState: params and accumulators share the params
+    rule; the step is replicated."""
+    from textsummarization_on_flink_tpu_torch.train import optim, trainer
+
+    return trainer.TrainState(
+        params=param_specs(state.params),
+        opt_state=optim.AdagradState(
+            accumulators=param_specs(state.opt_state.accumulators)),
+        step=Spec())
+
+
+def wire_dtype(hps: HParams, role: str = "grads") -> Optional[torch.dtype]:
+    """The dtype a reduced role rides the wire in, or None when the
+    reduction stays in the tensor's own dtype."""
+    if role == "grads" and hps.grad_allreduce_dtype == "bfloat16":
+        return torch.bfloat16
+    return None
+
+
+def shards_t(hps: HParams) -> bool:
+    """Whether the path shards the encoder's time axis over sp: the
+    transformer's encoder under --sp_attention with sp > 1."""
+    return (hps.sp > 1 and bool(hps.sp_attention)
+            and hps.model_family == "transformer")
+
+
+# --------------------------------------------------------------------------
+# Registry (mesh-bound: the specs carried out on this rank)
+# --------------------------------------------------------------------------
+
+def _slice_dim(x: Any, dim: int, index: int, parts: int) -> Any:
+    n = x.shape[dim] // parts
+    if isinstance(x, torch.Tensor):
+        return x.narrow(dim, index * n, n).contiguous()
+    return np.ascontiguousarray(np.take(np.asarray(x),
+                                        range(index * n, (index + 1) * n),
+                                        axis=dim))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ShardingRegistry:
+    """The mesh-bound registry: every consumer asks THIS object for
+    specs, shards and gathers; nothing else decides a layout."""
+
+    plan: Any
+
+    @property
+    def hps(self) -> HParams:
+        return self.plan.hps
+
+    @property
+    def dp(self) -> int:
+        return self.plan.dp
+
+    @property
+    def tp(self) -> int:
+        return self.plan.tp
+
+    @property
+    def sp(self) -> int:
+        return self.plan.sp
+
+    @property
+    def shards_t(self) -> bool:
+        return shards_t(self.hps)
+
+    def param_specs(self, params: PyTree) -> PyTree:
+        return param_specs(params)
+
+    def state_specs(self, state: Any) -> Any:
+        return state_specs(state)
+
+    def batch_spec(self, name: str) -> Spec:
+        return batch_spec(name)
+
+    def wire_dtype(self, role: str = "grads") -> Optional[torch.dtype]:
+        return wire_dtype(self.hps, role)
+
+    # -- params and state --
+    def shard_params(self, params: PyTree) -> PyTree:
+        """This rank's slice of every tp leaf of a full params tree
+        (tensors or numpy); replicated leaves as they are."""
+        def shard(path, x):
+            dim = param_spec(path).dim_of("tp")
+            if dim is None or self.tp == 1:
+                return x
+            return _slice_dim(x, dim, self.plan.coord("tp"), self.tp)
+
+        return _map_paths(shard, params)
+
+    def gather_params(self, params: PyTree) -> PyTree:
+        """The full tree from every tp rank's slices: an all-gather over
+        tp of each tp leaf (every rank takes part)."""
+        from textsummarization_on_flink_tpu_torch.parallel import (
+            collectives,
+        )
+
+        def gather(path, x):
+            dim = param_spec(path).dim_of("tp")
+            if dim is None or self.tp == 1:
+                return x
+            return collectives.all_gather(self.plan, x.detach(), "tp", dim)
+
+        return _map_paths(gather, params)
+
+    def shard_state(self, state: Any) -> Any:
+        """This rank's TrainState from a full one: params and
+        accumulators sliced, params requiring grad."""
+        from textsummarization_on_flink_tpu_torch.train import optim
+
+        params = self.shard_params(state.params)
+        for p in _leaves(params):
+            if isinstance(p, torch.Tensor) and not p.requires_grad:
+                p.requires_grad_(True)
+        return state._replace(params=params, opt_state=optim.AdagradState(
+            accumulators=self.shard_params(state.opt_state.accumulators)))
+
+    def gather_state(self, state: Any) -> Any:
+        """The full TrainState (collective over tp)."""
+        from textsummarization_on_flink_tpu_torch.train import optim
+
+        return state._replace(
+            params=self.gather_params(state.params),
+            opt_state=optim.AdagradState(accumulators=self.gather_params(
+                state.opt_state.accumulators)))
+
+    # -- batches --
+    def dp_rows(self, arrays: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's dp rows of a global batch."""
+        if self.dp == 1:
+            return dict(arrays)
+        d = self.plan.coord("dp")
+        return {k: _slice_dim(v, 0, d, self.dp) for k, v in arrays.items()}
+
+    def sp_block(self, arrays: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's sp block of T of the sequence-major encoder arrays,
+        on a path that shards T; the arrays as they are otherwise."""
+        if not self.shards_t:
+            return dict(arrays)
+        s = self.plan.coord("sp")
+        return {k: (_slice_dim(v, 1, s, self.sp)
+                    if batch_spec(k).dim_of("sp") is not None else v)
+                for k, v in arrays.items()}
+
+    def shard_batch(self, arrays: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's part of a global batch: its dp rows, and its sp
+        block of T where the path shards T."""
+        return self.sp_block(self.dp_rows(arrays))
+
+    # -- documentation --
+    def table(self) -> List[Dict[str, str]]:
+        """The role -> spec -> wire-dtype table (tests assert it covers
+        ROLES)."""
+        w = self.hps.grad_allreduce_dtype
+        serve = f"not on a mesh yet: {ROADMAP_MESH_SERVING}"
+        return [
+            {"role": "params", "spec": "per-leaf rule (vocab/heads over "
+                                       "tp, else replicated)", "wire": "-"},
+            {"role": "opt_state", "spec": "same tree rule as params",
+             "wire": "-"},
+            {"role": "step", "spec": "Spec()", "wire": "-"},
+            {"role": "train_batch",
+             "spec": "Spec('dp'[, 'sp' where the path shards T])",
+             "wire": "-"},
+            {"role": "eval_batch", "spec": "same as train_batch",
+             "wire": "-"},
+            {"role": "metrics", "spec": "Spec(): all-gathered over dp, "
+                                        "averaged", "wire": "-"},
+            {"role": "grads", "spec": "same tree rule as params; summed "
+                                      "over sp where T is sharded, "
+                                      "averaged over dp", "wire": w},
+            {"role": "beam_output", "spec": "Spec('dp'): each dp group "
+                                            "searches its rows, "
+                                            "all-gathered", "wire": "-"},
+            {"role": "slot_state", "spec": serve, "wire": "-"},
+            {"role": "prefill_batch", "spec": serve, "wire": "-"},
+            {"role": "prefill_state", "spec": serve, "wire": "-"},
+            {"role": "arena_pool", "spec": serve, "wire": "-"},
+            {"role": "page_table", "spec": serve, "wire": "-"},
+        ]
+
+
+def _leaves(tree: PyTree) -> List[Any]:
+    return [x for _, x in tree_paths(tree)]
+
+
+def _map_paths(fn, tree: PyTree, prefix: Tuple[Any, ...] = ()) -> PyTree:
+    if isinstance(tree, dict):
+        return {k: _map_paths(fn, v, prefix + (k,)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map_paths(fn, v, prefix + (i,)) for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
+# --------------------------------------------------------------------------
+# Analytic comms accounting (the CPU-verifiable wire-byte claims)
+# --------------------------------------------------------------------------
+
+def analytic_comms(hps: HParams, params: Optional[PyTree] = None) -> dict:
+    """Per-step collective-byte prediction from the specs alone (JAX
+    sharding.py:391-443, the same numbers).
+
+    Returns::
+
+      param_elements     total parameter scalars
+      dp_grad_elements   per-rank elements the dp gradient all-reduce
+                         moves each step: tp-sharded leaves count their
+                         shard, replicated leaves their full size
+      dp_wire_bytes      dp_grad_elements x the wire dtype's size: 43.0
+                         MB at reference scale under the bf16 wire, 86.0
+                         in f32
+      wire_dtype         the grad wire dtype's name
+      tp_scores_bytes    the per-step [T_dec, B, V_ext] scores-shaped
+                         all-gather at the compute dtype (0 when tp == 1)
+
+    ``params`` (numpy or tensors) gives the shapes; None builds a fresh
+    tree at ``hps.vocab_size``."""
+    if params is None:
+        from textsummarization_on_flink_tpu_torch.params import (
+            init_numpy_params,
+        )
+
+        params = init_numpy_params(hps, hps.vocab_size, 0)
+    tp = max(int(hps.tp), 1)
+    total = 0
+    dp_elems = 0
+    for path, leaf in tree_paths(params):
+        elems = int(np.prod(leaf.shape)) if leaf.shape else 1
+        total += elems
+        spec = param_spec(path, leaf)
+        dp_elems += elems // tp if "tp" in spec else elems
+    wire = hps.grad_allreduce_dtype
+    wire_size = 2 if wire == "bfloat16" else 4
+    compute_size = 2 if hps.compute_dtype == "bfloat16" else 4
+    scores = (hps.max_dec_steps * hps.batch_size
+              * (hps.vocab_size + hps.max_oov_buckets) * compute_size
+              if tp > 1 else 0)
+    return {
+        "param_elements": total,
+        "dp_grad_elements": dp_elems,
+        "dp_wire_bytes": dp_elems * wire_size,
+        "wire_dtype": wire,
+        "tp_scores_bytes": scores,
+    }
+

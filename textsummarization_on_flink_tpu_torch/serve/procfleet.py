@@ -1386,6 +1386,28 @@ def _accept_loop(listener: socket.socket, stop_evt: threading.Event,
         t.start()
 
 
+def _publish_launches(child_dir: Optional[str],
+                      last: Optional[Dict[str, int]],
+                      ) -> Optional[Dict[str, int]]:
+    """Write this child's kernel launch counts (ops.launch_counts) to
+    ``<child_dir>/kernel_launches.<pid>.json`` when they changed since
+    ``last`` (atomically: a SIGKILL leaves the last whole write, at most
+    one poll old), so the supervisor's caller can add the launches made
+    in the children to its own.  Returns the counts written."""
+    if child_dir is None:
+        return last
+    from textsummarization_on_flink_tpu_torch import ops
+
+    counts = ops.launch_counts()
+    if counts == last:
+        return last
+    path = os.path.join(child_dir, f"kernel_launches.{os.getpid()}.json")
+    with open(path + ".tmp", "w", encoding="utf-8") as f:
+        json.dump(counts, f)
+    os.replace(path + ".tmp", path)
+    return counts
+
+
 def replica_child_main(argv: Optional[List[str]] = None) -> int:
     """The ``cli.py serve-replica`` entry point: build the ServingServer
     from TS_HPS_JSON, bind obs-HTTP + ingress + reply sockets on
@@ -1402,6 +1424,7 @@ def replica_child_main(argv: Optional[List[str]] = None) -> int:
     hps.validate()
     reg = obs.Registry()
     flightrec.set_replica_id(reg, rid)  # before any frame is recorded
+    child_dir = None
     if hps.log_root:
         child_dir = os.path.join(hps.log_root, hps.exp_name or "exp",
                                  f"replica-{rid}")
@@ -1455,11 +1478,13 @@ def replica_child_main(argv: Optional[List[str]] = None) -> int:
              rid, ports["pid"], ports["obs_port"], ports["ingress_port"],
              ports["reply_port"])
 
+    published = None
     while not stop_evt.wait(0.2):
-        pass
+        published = _publish_launches(child_dir, published)
     log.info("replica %s: SIGTERM — draining and stopping", rid)
     try:
         server.stop(timeout=10.0)
+        _publish_launches(child_dir, published)
     finally:
         sink = reg.event_sink
         if sink is not None:

@@ -170,6 +170,15 @@ class ServingServer:
         # the registry wins, like the SLO engine below
         profile_lib.install_profiler(self._reg, clock=clock)
         self._mode = hps.serve_mode
+        if hps.dp * hps.tp * hps.sp > 1 or getattr(decoder, "sharded",
+                                                     False):
+            from textsummarization_on_flink_tpu_torch.config import (
+                ROADMAP_MESH_SERVING,
+            )
+
+            raise NotImplementedError(
+                f"a ServingServer on a mesh (dp*tp*sp > 1, or a sharded "
+                f"decoder): {ROADMAP_MESH_SERVING}")
         if decoder is None:
             # deferred: the decoder pulls in torch and the model; a server
             # built around an injected stub must not pay that import.  It

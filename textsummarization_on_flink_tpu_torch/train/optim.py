@@ -47,10 +47,13 @@ def global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
 
 @torch.no_grad()
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None,
                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """tf.clip_by_global_norm: scales ``grads`` in place; returns
-    (grads, the pre-clip norm)."""
-    norm = global_norm(grads)
+    (grads, the pre-clip norm).  ``norm``: the norm when the caller has
+    it (on a mesh, the full gradient's; ``global_norm(grads)`` if None)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-30), max=1.0)
     torch._foreach_mul_(grads, scale)
     return grads, norm

@@ -1,8 +1,8 @@
 """Training and eval loops: the train step, NaN watchdog, summaries.
 
-Port of the single-device path of the JAX package's train/trainer.py
-(after the reference's run_training / run_eval, run_summarization.py:
-105-129, 212-292, and train.py:89-125):
+Port of the JAX package's train/trainer.py (after the reference's
+run_training / run_eval, run_summarization.py:105-129, 212-292, and
+train.py:89-125):
 
   * ``train_step``: gradients of the objective (``total_loss`` with
     coverage, else ``loss``; model.py:291) -> global-norm clip -> TF1
@@ -39,8 +39,18 @@ forward or the backward, raises, and the trainer dumps the batch and
 raises ``NonFiniteLossError`` (``NanLossError`` once recovery is spent)
 as the JAX trainer does.  The trainer reports through the
 obs registry (obs/); it records no flight-recorder frames or profiler
-phases of its own yet (ROADMAP.md queue 1, item 2h).  Not ported yet:
-the mesh (item 6).
+phases of its own yet (ROADMAP.md queue 1, item 2h).
+
+On a mesh (``dp * tp * sp > 1``, one process per rank, see
+parallel/mesh.py; JAX trainer.py:606-631) the Trainer runs the sharded
+step on its rank's shards of the state: its batcher yields the rank's
+``batch_size / dp`` rows (utils.local_batch_hps), and where tp or sp
+ranks share a dp index the first of them broadcasts its batch to the
+others, so they compute on the same rows.  Checkpoints gather the tp
+shards and only the chief writes them; only the chief writes the
+summaries; the time-based checkpoint cadence follows the chief's clock.
+Divergence recovery refuses a mesh, as the JAX trainer does.  The
+Evaluator runs the sharded eval step on the same rules.
 """
 
 from __future__ import annotations
@@ -66,6 +76,9 @@ from textsummarization_on_flink_tpu_torch.decode.beam_search import (
 )
 from textsummarization_on_flink_tpu_torch.device import resolve_device
 from textsummarization_on_flink_tpu_torch.models import get_family
+from textsummarization_on_flink_tpu_torch.parallel import collectives
+from textsummarization_on_flink_tpu_torch.parallel import distributed
+from textsummarization_on_flink_tpu_torch.parallel import mesh as mesh_lib
 from textsummarization_on_flink_tpu_torch.params import (
     from_numpy_tree,
     init_numpy_params,
@@ -161,20 +174,37 @@ def make_loss_fn(hps: HParams) -> Callable:
 def train_step(hps: HParams, state: TrainState,
                arrays: Dict[str, torch.Tensor],
                loss_fn: Optional[Callable] = None, inplace: bool = True,
+               plan: Optional[Any] = None,
                ) -> Tuple[TrainState, StepMetrics]:
     """grads -> clip -> Adagrad -> step + 1 (trainer.py:139-148).  With
     ``inplace`` the params and accumulators of ``state`` are updated in
     place and the returned state holds them with the new step; without
     it ``state`` is left as it was and the returned state holds new
-    tensors (the same arithmetic)."""
+    tensors (the same arithmetic).
+
+    With the ``plan`` of a mesh (parallel/mesh.py) ``state`` holds this
+    rank's shards and ``arrays`` its part of the batch: where T is
+    sharded each sp rank takes 1/sp of the objective, the gradients
+    become the global batch's (``mesh.reduce_grads``), the clip uses the
+    full gradient's norm, and every rank gets the global batch's
+    metrics."""
     loss_fn = loss_fn if loss_fn is not None else make_loss_fn(hps)
     leaves = tree_leaves(state.params)
-    objective, out = loss_fn(state.params, arrays)
-    # materialize_grads: a param the objective does not reach (pgen_linear
-    # with pointer_gen off) gets zeros, as jax.grad gives it
-    grads = list(torch.autograd.grad(objective, leaves,
-                                     materialize_grads=True))
-    grads, gnorm = optim.clip_by_global_norm(grads, hps.max_grad_norm)
+    with collectives.bound(plan):
+        objective, out = loss_fn(state.params, arrays)
+        if plan is not None and plan.registry.shards_t:
+            objective = objective / plan.sp
+        # materialize_grads: a param the objective does not reach
+        # (pgen_linear with pointer_gen off) gets zeros, as jax.grad
+        # gives it
+        grads = list(torch.autograd.grad(objective, leaves,
+                                         materialize_grads=True))
+    norm = None
+    if plan is not None:
+        with torch.no_grad():
+            grads = mesh_lib.reduce_grads(plan, grads)
+            norm = mesh_lib.sharded_global_norm(plan, grads, state.params)
+    grads, gnorm = optim.clip_by_global_norm(grads, hps.max_grad_norm, norm)
     if inplace:
         params = state.params
         opt_state = optim.adagrad_update(grads, state.opt_state, params,
@@ -182,9 +212,12 @@ def train_step(hps: HParams, state: TrainState,
     else:
         params, opt_state = optim.adagrad_step(grads, state.opt_state,
                                                state.params, hps.lr)
-    metrics = StepMetrics(loss=out.loss.detach(),
-                          coverage_loss=out.coverage_loss.detach(),
-                          total_loss=out.total_loss.detach(),
+    loss, cov, total = (out.loss.detach(), out.coverage_loss.detach(),
+                        out.total_loss.detach())
+    if plan is not None:
+        loss, cov, total = mesh_lib.mean_over_dp(
+            plan, torch.stack([loss, cov, total]).float())
+    metrics = StepMetrics(loss=loss, coverage_loss=cov, total_loss=total,
                           global_norm=gnorm)
     return TrainState(params, opt_state, state.step + 1), metrics
 
@@ -204,16 +237,23 @@ class SummaryWriter:
     ``{"step": N, name: value, ...}`` record per call (the JAX package's
     records; a TensorBoard-writer stand-in).  ``flush_every=k`` buffers
     k records per flush (``hps.summary_flush_every``; the default
-    flushes every record, as the JAX writer does)."""
+    flushes every record, as the JAX writer does).  On a mesh only the
+    chief writes (JAX trainer.py:174-200), so a shared log_root sees one
+    record per step."""
 
     def __init__(self, directory: str, flush_every: int = 1):
-        os.makedirs(directory, exist_ok=True)
         self.path = os.path.join(directory, "events.jsonl")
-        self._f = open(self.path, "a", encoding="utf-8")
+        self._chief = distributed.is_chief()
+        self._f = None
+        if self._chief:
+            os.makedirs(directory, exist_ok=True)
+            self._f = open(self.path, "a", encoding="utf-8")
         self._flush_every = max(int(flush_every), 1)
         self._unflushed = 0
 
     def scalars(self, step: int, **values: float) -> None:
+        if self._f is None:
+            return
         rec = {"step": int(step)}
         rec.update({k: float(v) for k, v in values.items()})
         self._f.write(json.dumps(rec) + "\n")
@@ -223,7 +263,8 @@ class SummaryWriter:
             self._unflushed = 0
 
     def close(self) -> None:
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class DebugNans(TorchDispatchMode):
@@ -499,14 +540,14 @@ class _Profiler:
 
 
 class Trainer:
-    """Single-device training driver (trainer.py:478-1078, the
-    single-device path).
+    """Training driver (trainer.py:478-1078), on one device or on a mesh.
 
-    batcher: anything with next_batch() -> Batch | None.  checkpointer:
-    optional; saves every ``checkpoint_secs`` (or every
-    ``hps.checkpoint_steps`` when > 0) and at the end.  A window's logged
-    seconds per step are host wall time over the window, ending in the
-    metrics read, a device sync."""
+    batcher: anything with next_batch() -> Batch | None (on a mesh: the
+    rank's rows, ``utils.local_batch_hps``).  state: a full state (the
+    Trainer shards it on a mesh).  checkpointer: optional; saves every
+    ``checkpoint_secs`` (or every ``hps.checkpoint_steps`` when > 0) and
+    at the end.  A window's logged seconds per step are host wall time
+    over the window, ending in the metrics read, a device sync."""
 
     def __init__(self, hps: HParams, vsize: int, batcher: Any,
                  state: Optional[TrainState] = None,
@@ -546,9 +587,21 @@ class Trainer:
         # on across the whole run
         self._faults = faultinject.plan_for(hps)
         self._recovery: Optional[_DivergenceRecovery] = None
+        self._plan = None
         if hps.nan_skip_steps > 0 or hps.nan_max_rollbacks > 0:
+            if hps.dp * hps.tp * hps.sp > 1 \
+                    or distributed.world_size() > 1:
+                raise ValueError(
+                    "divergence recovery (nan_skip_steps/nan_max_rollbacks) "
+                    "is single-host, default-mesh only: a skip must revert "
+                    "to the pre-step state, which the sharded/multi-host "
+                    "collective step donates away")
             self._recovery = _DivergenceRecovery(
                 hps, checkpointer, self._obs, self.state, self.device)
+        if hps.dp * hps.tp * hps.sp > 1:
+            mesh_lib.validate_divisibility(hps, self.state.params)
+            self._plan = mesh_lib.make_mesh(hps)
+            self.state = mesh_lib.shard_train_state(self._plan, self.state)
         self._loss_fn = make_loss_fn(hps)
         self._step_hps = hps
         self._profiler: Optional[_Profiler] = None
@@ -582,9 +635,12 @@ class Trainer:
         stays the pre-dispatch state."""
         state, metrics = self.state, []
         for _, arrays in items:
+            if self._plan is not None:
+                arrays = mesh_batch(self._plan, arrays)
             state, m = train_step(self._step_hps, state, arrays,
                                   self._loss_fn,
-                                  inplace=self._recovery is None)
+                                  inplace=self._recovery is None,
+                                  plan=self._plan)
             metrics.append(m)
         return state, metrics
 
@@ -676,7 +732,12 @@ class Trainer:
             # crossed a cadence boundary in this dispatch
             cs = self.hps.checkpoint_steps
             return step // cs != prev_step // cs
-        return time.monotonic() - last_ckpt >= self.checkpoint_secs
+        due = time.monotonic() - last_ckpt >= self.checkpoint_secs
+        if self._plan is None:
+            return due
+        # the save is collective: every rank follows the chief's clock
+        return bool(collectives.broadcast(
+            self._plan, torch.tensor([int(due)]), "world")[0])
 
     def _train_steps(self, limit: int, prefetcher: DevicePrefetcher,
                      profile_dir: str) -> TrainState:
@@ -709,7 +770,7 @@ class Trainer:
                          step)
                 break
             if profile_dir and self._profiler is None and not profile_done \
-                    and step >= profile_start:
+                    and step >= profile_start and distributed.is_chief():
                 self._flush_metrics(pending, time.monotonic() - window_t0)
                 pending, pending_steps = [], 0
                 self._profiler = _Profiler(profile_dir, self.device, step)
@@ -790,7 +851,7 @@ class Trainer:
                 # the save reads the state anyway: flush with it
                 self._flush_metrics(pending, time.monotonic() - window_t0)
                 pending, pending_steps = [], 0
-                self.checkpointer.save(self.state)
+                self.checkpointer.save(self.state, plan=self._plan)
                 last_ckpt = window_t0 = time.monotonic()
         self._flush_metrics(pending, time.monotonic() - window_t0)
         if self._profiler is not None:
@@ -798,13 +859,27 @@ class Trainer:
             self._profiler = None
             log.info("profiler trace written to %s", path)
         if self.checkpointer is not None:
-            self.checkpointer.save(self.state)
+            self.checkpointer.save(self.state, plan=self._plan)
         return self.state
+
+
+def mesh_batch(plan: Any, arrays: Dict[str, torch.Tensor],
+               ) -> Dict[str, torch.Tensor]:
+    """A rank's batch (its dp rows) as the sharded step takes it: where
+    tp or sp ranks share the dp index, the first of them broadcasts its
+    rows to the others (utils.local_batch_hps states the rule), then
+    the rank's sp block of T where the path shards T."""
+    arrays = collectives.broadcast_arrays(plan, arrays, "batch")
+    return plan.registry.sp_block(arrays)
 
 
 class Evaluator:
     """Eval loop with the running-average loss and the best-model hook
-    (trainer.py:1081-1162, run_summarization.py:247-292)."""
+    (trainer.py:1081-1162, run_summarization.py:247-292).  On a mesh
+    (JAX trainer.py:1104-1136) each rank evaluates its rows with its
+    shards of the full params given to ``run`` and every rank holds the
+    global batch's loss; only the chief writes summaries and best
+    models."""
 
     def __init__(self, hps: HParams, batcher: Any,
                  eval_dir: Optional[str] = None,
@@ -820,19 +895,30 @@ class Evaluator:
         self.running_avg_loss = 0.0
         self.best_loss: Optional[float] = None
         self._family = get_family(hps.model_family)
+        self._plan = None
+        if hps.dp * hps.tp * hps.sp > 1:  # the Trainer's mesh rule
+            self._plan = mesh_lib.make_mesh(hps)
+            self._eval_step = mesh_lib.make_sharded_eval_step(self._plan)
 
     @torch.no_grad()
     def run(self, params: Any, step: int, max_batches: int = 0) -> float:
         """Evaluate batches (all, or max_batches); returns the running
         average loss."""
         n = 0
+        full_params = params
+        if self._plan is not None:
+            mesh_lib.validate_divisibility(self.hps, params)
+            params = self._plan.registry.shard_params(params)
         while True:
             batch = self.batcher.next_batch()
             if batch is None:
                 break
             t0 = time.monotonic()
             arrays = batch_to_device(batch.as_arrays(), self.device)
-            out = self._family.forward_train(params, self.hps, arrays)
+            if self._plan is not None:
+                out = self._eval_step(params, mesh_batch(self._plan, arrays))
+            else:
+                out = self._family.forward_train(params, self.hps, arrays)
             loss = float(out.total_loss if self.hps.coverage else out.loss)
             log.info("seconds for eval batch: %.3f  loss: %f",
                      time.monotonic() - t0, loss)
@@ -848,8 +934,9 @@ class Evaluator:
                     self.running_avg_loss < self.best_loss:
                 log.info("Found new best model with %.3f running_avg_loss. "
                          "Saving...", self.running_avg_loss)
-                if self.best_saver is not None:
-                    self.best_saver(params, self.running_avg_loss, step)
+                if self.best_saver is not None and distributed.is_chief():
+                    self.best_saver(full_params, self.running_avg_loss,
+                                    step)
                 self.best_loss = self.running_avg_loss
             n += 1
             if max_batches and n >= max_batches:
