@@ -1184,9 +1184,12 @@ def expected_train_launches(hps, steps):
                   flash_forward=0, flash_bwd_dkv=0, flash_bwd_dq=0,
                   flash_forward_bf16=0, flash_bwd_dkv_bf16=0,
                   flash_bwd_dq_bf16=0)
-    if hps.model_family == "transformer":
+    if hps.model_family in ("transformer", "avg_attention"):
+        # the AAN's decoder has no self-attention: its encoder's layers only
+        layers = hps.enc_layers + (hps.dec_layers if hps.model_family
+                                   == "transformer" else 0)
         for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
-            counts[k] = (hps.enc_layers + hps.dec_layers) * steps
+            counts[k] = layers * steps
         if hps.remat:
             counts["flash_forward"] *= 2
         if hps.compute_dtype == "bfloat16":
@@ -2694,8 +2697,10 @@ def phase_continuous_serve(seed, work, params, tf_params, device="cuda"):
         "transformer_micro_batch", "transformer"))
     summary["card"] = card_line() if device == "cuda" else None
     print("continuous_serve " + json.dumps(summary))
-    # the single server's transformer summaries, for phase_fleet
+    # the single server's transformer summaries, for phase_fleet, and its
+    # pointer-generator summaries, for phase_mesh's servers
     summary["transformer_words"] = tf_cont
+    summary["pg_words"] = cont
     return summary
 
 
@@ -3689,6 +3694,63 @@ def phase_procfleet(seed, work, params, rows, single_words, device="cuda"):
     return summary
 
 
+def mesh_family_hps(family):
+    """The training hps of a mesh case's family: train_main_path_hps, the
+    AAN (``avg_attention``) at the transformer's reference width, and its
+    narrow variant (``aan_narrow``: DISTILL_FLAGS' H/2 decoder and
+    rank-64 factored head)."""
+    if family in ("avg_attention", "aan_narrow"):
+        hps = train_main_path_hps("transformer").replace(
+            model_family="avg_attention")
+        if family == "aan_narrow":
+            hps = hps.replace(draft_hidden=DISTILL_FLAGS["draft_hidden"],
+                              draft_vocab_rank=DISTILL_FLAGS[
+                                  "draft_vocab_rank"])
+        return hps
+    return train_main_path_hps(family)
+
+
+def aan_decode_inputs(seed, widths=None):
+    """The AAN's mesh decode: 16 of the mesh phase's articles at the
+    transformer's reference width (beam 4, 400/100 steps), params drawn
+    from ``seed``.  Returns (hps, numpy params, batch arrays)."""
+    from textsummarization_on_flink_tpu_torch.params import init_numpy_params
+
+    _, vocab, batch = mesh_decode_inputs(seed, widths)
+    aan = main_path_hps("transformer").replace(
+        model_family="avg_attention", mode="decode", **(widths or {}))
+    batch = _batch_of(aan, vocab, batch.original_articles[:aan.batch_size])
+    return aan, init_numpy_params(aan, aan.vocab_size, seed + 29), \
+        batch.as_arrays()
+
+
+def mesh_serve_inputs(seed, widths=None):
+    """The mesh servers' inputs: the pointer-generator at the reference
+    width as phase_continuous_serve serves it (decode, serve buckets
+    100, 200, 400), the vocabulary and its 32 bimodal rows."""
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+
+    hps = main_path_hps("pointer_generator").replace(
+        mode="decode", serve_buckets="100,200,400", **(widths or {}))
+    words = synthetic_words(hps.vocab_size)
+    return hps, Vocab(words=words), bimodal_rows(seed + 5, words, 16, 16)
+
+
+def mesh_app_inputs(root, seed, device, widths=None, dp=1):
+    """App.main at dp (pipeline_hps: 2 fit steps, then the App's decode
+    defaults) on 32 training rows and 4 to transform.  Returns (train hps,
+    inference hps, words, train rows, inference rows)."""
+    train, infer = pipeline_hps(root, seed, device)
+    train = train.replace(num_steps=2, dp=dp,
+                          **(widths or {}).get("pointer_generator", {}))
+    infer = infer.replace(dp=dp, **{
+        k: v for k, v in (widths or {}).get("pointer_generator", {}).items()
+        if k != "batch_size"})
+    words = synthetic_words(train.vocab_size)
+    return (train, infer, words, pipeline_rows(seed, words, 32),
+            pipeline_rows(seed + 1, words, 4, start=32))
+
+
 def mesh_inputs(family, seed, widths=None):
     """The mesh phase's fixed train batch: the family's training width
     (train_main_path_hps; batch 16 over the synthetic 50k vocabulary;
@@ -3700,7 +3762,7 @@ def mesh_inputs(family, seed, widths=None):
     from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
     from textsummarization_on_flink_tpu_torch.params import init_numpy_params
 
-    hps = train_main_path_hps(family).replace(**(widths or {}))
+    hps = mesh_family_hps(family).replace(**(widths or {}))
     words = synthetic_words(hps.vocab_size)
     vocab = Vocab(words=words)
     pairs = synthetic_pairs(np.random.default_rng(seed + 19), words,
@@ -3744,6 +3806,19 @@ MESH_CASES = {
     "decode_dp2": (2, "decode", "pointer_generator", dict(dp=2)),
     "search_tp2": (2, "search", "pointer_generator", dict(tp=2)),
     "pg_dp2_tp2": (4, "train", "pointer_generator", dict(dp=2, tp=2)),
+    # serving on a mesh: the AAN's train steps and decode, the continuous
+    # server at dp=2 (dense, then over the continuous phase's 56-page
+    # arena) and the micro-batch server at tp=2
+    "aan_dp2_tp2": (4, "train", "avg_attention", dict(dp=2, tp=2)),
+    "aan_narrow_tp2": (2, "train", "aan_narrow", dict(tp=2)),
+    "aan_decode_dp2": (2, "aan_search", "avg_attention", dict(dp=2)),
+    "serve_dp2_dense": (2, "serve", "pointer_generator",
+                        dict(dp=2, requests=32, **CONTINUOUS_FLAGS)),
+    "serve_dp2_paged": (2, "serve", "pointer_generator",
+                        dict(dp=2, serve_arena_pages=56, requests=32,
+                             **CONTINUOUS_FLAGS)),
+    "serve_tp2_microbatch": (2, "serve", "pointer_generator",
+                             dict(tp=2, requests=16)),
 }
 
 
@@ -3860,7 +3935,124 @@ def _single_step(family, seed, device, widths):
             ckpt_lib._unflatten_dicts(flat)["params"], params)
 
 
-def phase_mesh(seed, work, decode_params, device="cuda", widths=None):
+def _single_serve_words(seed, params, device, widths):
+    """The single continuous server's summaries of the mesh servers'
+    articles (phase_continuous_serve's dense run gives the same on the
+    card; a CPU rehearsal makes them here)."""
+    from textsummarization_on_flink_tpu_torch.serve.server import (
+        ServingServer,
+    )
+
+    hps, vocab, rows = mesh_serve_inputs(seed, widths.get(
+        "pointer_generator"))
+    server = ServingServer(hps.replace(device=device, **CONTINUOUS_FLAGS),
+                           vocab, params=params)
+    with server:
+        futs = [server.submit(r[1], uuid=r[0], reference=r[3], block=True)
+                for r in rows]
+        return {f.uuid: f.result(timeout=900).decoded_words for f in futs}
+
+
+def _check_mesh_serve(name, ranks, kw, serve_words, on_card):
+    """A mesh server's case: the chief's summaries equal the single
+    continuous server's, a greedy submit refused, every rank's engine or
+    search launching the fused attention twice per decode step it ran
+    (and each rank stepping: both dp indices hold residents)."""
+    chief = ranks[0]
+    want = {u: serve_words[u] for u in chief["words"]}
+    check(len(chief["words"]) == kw["requests"],
+          f"{name}: {len(chief['words'])} results for {kw['requests']}")
+    differ = sorted(u for u in want if chief["words"][u] != want[u])
+    check(not differ, f"{name}: summaries differ from the single "
+                      f"continuous server's for {differ}")
+    check("beam tier only" in chief["greedy"],
+          f"{name}: a greedy submit was not refused: {chief['greedy']}")
+    for r in ranks:
+        check(r["beam_steps"] > 0, f"{name}: rank {r['rank']} never stepped")
+        check(r["launches"]["fused"] == 2 * r["beam_steps"] or not on_card,
+              f"{name}: rank {r['rank']} launched {r['launches']['fused']} "
+              f"fused attentions in {r['beam_steps']} decode steps")
+        others = {k: v for k, v in r["launches"].items()
+                  if v and k != "fused"}
+        check(not others or not on_card,
+              f"{name}: rank {r['rank']} launched other kernels {others}")
+    for r in ranks[1:]:
+        check(r["ops"] > 0, f"{name}: rank {r['rank']} ran no op")
+    out = dict(summaries_equal=True, requests=kw["requests"],
+               seconds_per_rank=[r["seconds"] for r in ranks],
+               beam_steps_per_rank=[r["beam_steps"] for r in ranks],
+               greedy_refused=chief["greedy"])
+    if kw.get("serve_arena_pages"):
+        check(chief["arena_alloc_failures"] > 0,
+              f"{name}: the arena never pushed back")
+        out["arena_alloc_failures"] = chief["arena_alloc_failures"]
+    if "local_slots" in chief:
+        out["local_slots"] = [r["local_slots"] for r in ranks]
+    return out
+
+
+def _mesh_app(work, seed, device, widths):
+    """Case (d): ``App.main`` at dp=2 under torchrun (2 fit steps, a
+    4-row transform; chip_smoke_mesh.py app), the rows equal to a
+    single-rank App's on the same rows, each rank's launches those of 2
+    steps at 8 rows plus 2 fused per beam step."""
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.pipeline import app as app_lib
+    from textsummarization_on_flink_tpu_torch.pipeline import io
+
+    single_root = os.path.join(work, "app_single")
+    train, infer, words, train_rows, infer_rows = mesh_app_inputs(
+        single_root, seed, device, widths)
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    want = sorted(app_lib.App(train, infer, vocab=Vocab(words=words)).main(
+        train_source=io.CollectionSource(train_rows),
+        infer_source=io.CollectionSource(infer_rows),
+        sink=io.CollectionSink()).rows)
+    single_s = time.perf_counter() - t0
+    single_launches = launch_counts()
+    mesh_root = os.path.join(work, "app_mesh")
+    with open(os.path.join(work, "app.json"), "w", encoding="utf-8") as f:
+        json.dump(dict(root=mesh_root, seed=seed, device=device,
+                       widths=widths, mesh=dict(dp=2)), f)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node=2", os.path.join(HERE, "chip_smoke_mesh.py"),
+           "app", work]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.perf_counter() - t0
+    check(run.returncode == 0, f"torchrun App.main exited {run.returncode}:"
+                               f"\n{(run.stdout + run.stderr)[-6000:]}")
+    ranks = [json.load(open(os.path.join(work, f"app.rank{r}.json")))
+             for r in (0, 1)]
+    got = [tuple(r) for r in ranks[0]["rows"]]
+    check(len(got) == len(infer_rows) and got == [tuple(r) for r in want],
+          "the mesh App's rows differ from the single-rank App's")
+    check(ranks[1]["rows"] == [], "a follower wrote rows")
+    for r in ranks:
+        check(r["launches"]["fused"] > 0 and r["launches"]["fused_bwd"] > 0
+              or device != "cuda",
+              f"App rank {r['rank']} launched {r['launches']}")
+    totals = dict.fromkeys(launch_counts(), 0)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            totals[k] += v
+    out = dict(rows_equal=True, rows=len(got), torchrun_wall_s=wall,
+               rank_wall_s=[r["wall_s"] for r in ranks],
+               single_wall_s=single_s,
+               launches_per_rank=[{k: v for k, v in r["launches"].items()
+                                   if v} for r in ranks],
+               single_launches={k: v for k, v in single_launches.items()
+                                if v},
+               launches=totals)
+    print("mesh_app " + json.dumps({k: v for k, v in out.items()
+                                    if k != "launches"}))
+    return out
+
+
+def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
+               serve_words=None):
     """Multi-GPU (parallel/): the port's sharded steps on ranks that share
     this card over gloo, at the reference widths, each case against the
     single-rank result on the card:
@@ -3890,6 +4082,21 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None):
          entry) for 3 steps, then a resume to 5: one events.jsonl record
          per step, each checkpoint written once (one "saved checkpoint"
          log), the same restored params (fingerprint) on both ranks;
+      7. serving on the mesh, each against the single rank on the card:
+         (a) a continuous ServingServer at dp=2 (CONTINUOUS_FLAGS, 8 of
+         its 16 slots per rank) on the continuous phase's bimodal 32,
+         dense, then over its 56-page arena: every summary equal to the
+         single continuous server's (``serve_words``), the arena pushing
+         back, each rank 2 fused launches per decode step it ran;
+         (b) the micro-batch server at tp=2 on 16 of them: summaries
+         equal, a greedy submit refused ("beam tier only"); (c) the AAN
+         at the transformer's reference width: a train step at dp2 x tp2
+         and the narrow variant (DISTILL_FLAGS' H_d and rank) at tp=2
+         within case 1's tolerances, 6 flash forward, dK/dV and dQ per
+         rank (its encoder), and a dp=2 decode of 16 articles whose
+         tokens equal the single-rank search's; (d) ``App.main`` at dp=2
+         under torchrun (chip_smoke_mesh.py app; 2 fit steps, 4 rows
+         transformed): the rows equal a single-rank App's;
     then a world-1 NCCL initialize and all-reduce on this card (with two
     or more cards, the world-2 cases again one rank per card over NCCL;
     with four, case 3 too; the torchrun case then takes NCCL by itself).  Every case checks each rank's kernel launches (the
@@ -3921,7 +4128,8 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None):
     card = card_line() if on_card else None
     t_phase = time.perf_counter()
     ref = {f: _single_step(f, seed, device, widths)
-           for f in ("pointer_generator", "transformer")}
+           for f in sorted({c[2] for c in MESH_CASES.values()
+                            if c[1] == "train"})}
     np.savez(os.path.join(work, "decode_params.npz"),
              **ckpt_lib._flatten({"params": decode_params}))
     dhps, dvocab, dbatch = mesh_decode_inputs(
@@ -3933,12 +4141,22 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None):
     single = beam_search.run_beam_search(
         from_numpy_tree(decode_params, torch.device(device)), dhps,
         dbatch.as_arrays())
+    ahps, aparams, abatch = aan_decode_inputs(seed,
+                                              widths.get("avg_attention"))
+    aan_single = beam_search.run_beam_search(
+        from_numpy_tree(aparams, torch.device(device)),
+        ahps.replace(device=device), abatch)
+    if serve_words is None:
+        serve_words = _single_serve_words(seed, decode_params, device,
+                                          widths)
     totals = dict.fromkeys(launch_counts(), 0)
     summary = dict(card=card, cases={})
 
     def job(world, suffix=""):
         return dict(seed=seed, device=device, widths=widths, cases=[
-            dict(name=n + suffix, kind=k, family=f, hps=kw)
+            dict(name=n + suffix, kind=k, family=f,
+                 requests=kw.get("requests"),
+                 hps={a: b for a, b in kw.items() if a != "requests"})
             for n, (w, k, f, kw) in MESH_CASES.items() if w == world])
 
     results = {}
@@ -3964,8 +4182,26 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None):
                    launches_per_rank=[{k: v for k, v in r["launches"].items()
                                        if v} for r in ranks],
                    bytes_per_rank=[r["bytes"] for r in ranks])
-        if kind == "train":
-            hps = train_main_path_hps(family).replace(
+        if kind == "serve":
+            row.update(_check_mesh_serve(name, ranks, kw, serve_words,
+                                         on_card))
+        elif kind == "aan_search":
+            for r in ranks:
+                # the encoder's flash forward, once per layer; the AAN's
+                # decoder runs no kernel
+                others = {k: v for k, v in r["launches"].items()
+                          if v and k != "flash_forward"}
+                check(r["launches"]["flash_forward"] == ahps.enc_layers
+                      and not others or not on_card,
+                      f"{name}: rank {r['rank']} launched {r['launches']}")
+                check(r["tokens"] == aan_single.tokens.tolist(),
+                      f"{name}: rank {r['rank']}'s tokens differ from the "
+                      f"single-rank search's")
+            row.update(decode_s_per_rank=[r["decode_s"] for r in ranks],
+                       beam_steps=[r["beam_steps"] for r in ranks],
+                       tokens_equal=True)
+        elif kind == "train":
+            hps = mesh_family_hps(family).replace(
                 **widths.get(family, {}), **kw)
             want = expected_train_launches(hps, 1)
             if sharding.shards_t(hps):  # the encoder: ring or Ulysses
@@ -4054,6 +4290,10 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None):
     for k, v in cli_summary.pop("launches").items():
         totals[k] += v
     summary["cli"] = cli_summary
+    app_summary = _mesh_app(work, seed, device, widths)
+    for k, v in app_summary.pop("launches").items():
+        totals[k] += v
+    summary["app"] = app_summary
     if on_card:  # the NCCL path on one card: a world of one
         with __import__("socket").socket() as sock:
             sock.bind(("localhost", 0))
@@ -4243,7 +4483,8 @@ def main(argv=None) -> int:
         args.seed, w, scored["trained_params"], fleet["rows"],
         fleet["single_words"]))
     meshed = _in_work("mesh", lambda w: phase_mesh(
-        args.seed, w, scored["trained_params"]))
+        args.seed, w, scored["trained_params"],
+        serve_words=cont["pg_words"]))
     mesh_l = meshed["launches"]  # summed over every rank of every case
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 

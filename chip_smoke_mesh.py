@@ -4,15 +4,21 @@
     python3 chip_smoke_mesh.py case <workdir>
     python -m torch.distributed.run --standalone --nproc_per_node=N \\
         chip_smoke_mesh.py cli <the port's command-line flags>
+    python -m torch.distributed.run --standalone --nproc_per_node=2 \\
+        chip_smoke_mesh.py app <workdir>
 
 ``case``: the rank joins the world from torchrun's environment (RANK,
 WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT; the
 parent sets them), runs every case of ``<workdir>/job.json`` on the card
 and writes ``<workdir>/<case>.rank<r>.json`` (and the chief the case's
 gathered params, ``<case>.npz``): a sharded train step of
-chip_smoke.mesh_inputs' fixed batch, or the sharded decode of the mesh
-phase's articles, with this rank's kernel launches, step seconds,
-collective and host-staged bytes.
+chip_smoke.mesh_inputs' fixed batch, the sharded decode of the mesh
+phase's articles (the AAN's too), or a ServingServer on the mesh (the
+chief serves, the other ranks follow), with this rank's kernel launches,
+seconds, collective and host-staged bytes.
+
+``app``: ``App.main`` (the pipeline joins torchrun's world itself) on
+chip_smoke.mesh_app_inputs, writing ``<workdir>/app.rank<r>.json``.
 
 ``cli``: ``cli.main`` with the given flags (the port's own entry point,
 which joins the mesh itself), then this rank's kernel launches and the
@@ -185,6 +191,102 @@ def run_search(case, work, job):
     return out
 
 
+def run_aan_search(case, work, job):
+    """The sharded beam search of the AAN family (random params from the
+    seed, chip_smoke.aan_decode_inputs): every rank's tokens."""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch import obs, ops
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.parallel import (
+        collectives,
+        mesh,
+    )
+    from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
+
+    hps, params, batch = cs.aan_decode_inputs(
+        job["seed"], job["widths"].get("avg_attention"))
+    hps = hps.replace(device=job["device"], **case["hps"])
+    plan = mesh.make_mesh(hps)
+    shards = plan.registry.shard_params(
+        from_numpy_tree(params, torch.device(job["device"])))
+    search = mesh.make_sharded_beam_search(plan)
+    reg = obs.Registry()
+    with obs.use_registry(reg):
+        cs.reset_launch_counts()
+        steps0 = beam_search.steps_run
+        _sync(job)
+        t0 = time.perf_counter()
+        got = search(shards, batch)
+        out = dict(_rank_facts(), case=case["name"],
+                   decode_s=time.perf_counter() - t0,
+                   launches=ops.launch_counts(),
+                   beam_steps=beam_search.steps_run - steps0,
+                   bytes=collectives.counted_bytes(hps))
+    out["tokens"] = got.tokens.tolist()
+    out["avg_log_prob"] = got.avg_log_prob.tolist()
+    return out
+
+
+def run_serve(case, work, job):
+    """A ServingServer on the mesh over the ROUGE phase's trained
+    pointer-generator (every rank builds it; the chief serves the
+    continuous phase's bimodal articles, the other rank follows): the
+    chief's summaries, and each rank's launches, engine steps, seconds
+    and bytes."""
+    from textsummarization_on_flink_tpu_torch import obs, ops
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.parallel import collectives
+    from textsummarization_on_flink_tpu_torch.serve.server import (
+        ServingServer,
+    )
+
+    hps, vocab, rows = cs.mesh_serve_inputs(
+        job["seed"], job["widths"].get("pointer_generator"))
+    hps = hps.replace(device=job["device"], **case["hps"])
+    rows = rows[:case["requests"]]
+    params = ckpt_lib._unflatten_dicts(ckpt_lib.load_arrays(
+        os.path.join(work, "decode_params.npz")))["params"]
+    reg = obs.Registry()
+    with obs.use_registry(reg):
+        server = ServingServer(hps, vocab, params=params, registry=reg,
+                               decode_root=os.path.join(work, "serve_" + case[
+                                   "name"]))
+        engine = server._cont._engine if server._cont is not None else None
+        cs.reset_launch_counts()
+        steps0 = beam_search.steps_run
+        _sync(job)
+        t0 = time.perf_counter()
+        out = dict(_rank_facts(), case=case["name"])
+        if server._decoder.plan.is_chief:
+            server.start()
+            try:
+                server.submit(rows[0][1], uuid="greedy", tier="greedy")
+                out["greedy"] = "accepted"
+            except ValueError as e:
+                out["greedy"] = str(e)
+            futs = [server.submit(r[1], uuid=r[0], reference=r[3],
+                                  block=True) for r in rows]
+            out["words"] = {f.uuid: f.result(timeout=900).decoded_words
+                            for f in futs}
+            server.stop()
+            out["arena_alloc_failures"] = reg.counter(
+                "serve/arena_alloc_failures_total").value
+        else:
+            out["ops"] = server.follow()
+        _sync(job)
+        out.update(seconds=time.perf_counter() - t0,
+                   launches=ops.launch_counts(),
+                   beam_steps=beam_search.steps_run - steps0,
+                   bytes=collectives.counted_bytes(hps))
+        if engine is not None:
+            out["local_slots"] = engine._local
+    return out
+
+
 def main_cases(work):
     from textsummarization_on_flink_tpu_torch.device import resolve_device
     from textsummarization_on_flink_tpu_torch.parallel import distributed
@@ -195,8 +297,8 @@ def main_cases(work):
     distributed.initialize(device=job["device"])
     me = distributed.rank()
     for case in job["cases"]:
-        fn = dict(train=run_train, decode=run_decode,
-                  search=run_search)[case["kind"]]
+        fn = dict(train=run_train, decode=run_decode, search=run_search,
+                  aan_search=run_aan_search, serve=run_serve)[case["kind"]]
         res = fn(case, work, job)
         _dump(os.path.join(work, f"{case['name']}.rank{me}.json"), res)
         distributed.barrier(case["name"])
@@ -236,7 +338,36 @@ def main_cli(argv):
     return rc
 
 
+def main_app(work):
+    """App.main on the mesh (torchrun sets the world; the pipeline joins
+    it): chip_smoke.mesh_app_inputs' 2 fit steps and 4-row transform;
+    this rank's rows, launches and seconds."""
+    from textsummarization_on_flink_tpu_torch import ops
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.pipeline import app as app_lib
+    from textsummarization_on_flink_tpu_torch.pipeline import io
+
+    with open(os.path.join(work, "app.json"), encoding="utf-8") as f:
+        job = json.load(f)
+    train_hps, infer_hps, words, train_rows, infer_rows = cs.mesh_app_inputs(
+        job["root"], job["seed"], job["device"], job["widths"],
+        **job["mesh"])
+    rank = int(os.environ["RANK"])
+    app = app_lib.App(train_hps, infer_hps, vocab=Vocab(words=words))
+    cs.reset_launch_counts()
+    t0 = time.perf_counter()
+    sink = app.main(train_source=io.CollectionSource(train_rows),
+                    infer_source=io.CollectionSource(infer_rows),
+                    sink=io.CollectionSink())
+    _dump(os.path.join(work, f"app.rank{rank}.json"), dict(
+        rank=rank, wall_s=time.perf_counter() - t0,
+        launches=ops.launch_counts(), rows=sorted(sink.rows)))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "case":
         sys.exit(main_cases(sys.argv[2]))
+    if sys.argv[1] == "app":
+        sys.exit(main_app(sys.argv[2]))
     sys.exit(main_cli(sys.argv[2:]))

@@ -135,7 +135,8 @@ def run_attention(case, hps, workdir, rank):
 
 def run_decoder(case, hps, workdir, rank):
     """BeamSearchDecoder on a mesh: the chief's results of one batch; the
-    tiers and the slot engine a sharded decoder refuses."""
+    tier a sharded decoder refuses; the slot engine it builds (no
+    collective at construction)."""
     from textsummarization_on_flink_tpu_torch.data.batching import (
         Batch,
         SummaryExample,
@@ -153,15 +154,14 @@ def run_decoder(case, hps, workdir, rank):
                             decode_root=os.path.join(workdir, "dec"))
     results = dec.decode_batch(Batch(exs, hps, vocab))
     refused = []
-    for call in (lambda: dec.decode_batch(Batch(exs, hps, vocab),
-                                          tier="greedy"),
-                 lambda: dec.slot_engine(4, 2)):
-        try:
-            call()
-        except (ValueError, NotImplementedError) as e:
-            refused.append(f"{type(e).__name__}: {e}")
+    try:
+        dec.decode_batch(Batch(exs, hps, vocab), tier="greedy")
+    except ValueError as e:
+        refused.append(f"{type(e).__name__}: {e}")
+    engine = dec.slot_engine(4, 2)
     _save(workdir, f"{case['name']}.rank{rank}", info={
         "sharded": dec.sharded, "refused": refused,
+        "engine_local_slots": engine._local,
         "words": [r.decoded_words for r in results]})
 
 
@@ -288,9 +288,181 @@ def run_trainer(case, hps, workdir, rank):
     _save(workdir, f"{case['name']}.rank{rank}", info=info)
 
 
+def _serve_inputs(case, hps):
+    from textsummarization_on_flink_tpu_torch.data.batching import (
+        SummaryExample,
+    )
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+
+    vocab = Vocab(words=case["words"])
+    exs = [SummaryExample.build(a, [r], vocab, hps, uuid=f"u{i}")
+           for i, (a, r) in enumerate(zip(case["articles"],
+                                          case["abstracts"]))]
+    return vocab, exs
+
+
+def run_slot_engine(case, hps, workdir, rank):
+    """The JAX package's test_serve_slot_engine_runs_sharded on the mesh:
+    the chief packs the articles into slots 0, 1, .. and steps until every
+    one finished, unpacking each; the other ranks follow
+    (serve.mesh.follow).  Every rank writes its share of the state."""
+    from textsummarization_on_flink_tpu_torch.decode.decoder import (
+        BeamSearchDecoder,
+    )
+    from textsummarization_on_flink_tpu_torch.serve import mesh as serve_mesh
+
+    params = _tree(_load(workdir, case["params"]))["params"]
+    vocab, exs = _serve_inputs(case, hps)
+    dec = BeamSearchDecoder(hps, vocab, batcher=None, params=params,
+                            decode_root=os.path.join(workdir, case["name"]))
+    eng = dec.slot_engine(slots=case["slots"], chunk=case["chunk"])
+    before = collectives.counted_bytes(hps)
+    info = {}
+    if rank == 0:
+        for i, ex in enumerate(exs):
+            eng.pack(i, ex)
+        results = {}
+        for _ in range(hps.max_dec_steps + 2):
+            for idx in eng.step():
+                results[idx] = eng.unpack(idx, exs[idx])
+            if len(results) == len(exs):
+                break
+        dec.release_followers()
+        info["words"] = [results[i].decoded_words for i in range(len(exs))]
+        info["free_pages"] = eng.free_pages() if eng.paged else None
+    else:
+        info["ops"] = serve_mesh.follow(dec, eng)
+    after = collectives.counted_bytes(hps)
+    info["bytes"] = {k: v - before.get(k, 0.0) for k, v in after.items()}
+    info["cache_sizes"] = {k: list(v) for k, v in eng.cache_sizes().items()}
+    info["resident_bytes_per_slot"] = eng.resident_bytes_per_slot()
+    _save(workdir, f"{case['name']}.rank{rank}", info=info)
+
+
+def _drain(futs, timeout=120.0):
+    words, errors = {}, {}
+    for uuid, f in futs.items():
+        try:
+            words[uuid] = f.result(timeout=timeout).decoded_words
+        except Exception as e:  # noqa: BLE001 - reported to the test
+            errors[uuid] = f"{type(e).__name__}: {e}"
+    return words, errors
+
+
+def run_serve(case, hps, workdir, rank):
+    """A ServingServer on the mesh (every rank builds it; the chief serves
+    and the others follow).  ``how``: "serve" (submit every article, wait
+    for them, stop), "ticks" (the articles queued, then driven by
+    tick_once to the end: deterministic), "kill" (kill after the first
+    result, residents in flight), "fail" (the chief's second engine step
+    raises), "swap" (a hot swap to a newer checkpoint between two
+    requests)."""
+    from textsummarization_on_flink_tpu_torch import obs
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+    from textsummarization_on_flink_tpu_torch.serve.server import (
+        ServingServer,
+    )
+
+    how = case["how"]
+    vocab, _ = _serve_inputs(case, hps)
+    reg = obs.Registry()
+    kw = {}
+    if how == "swap":
+        train_dir = os.path.join(workdir, case["name"], "train")
+        if rank == 0:
+            ckpt_lib.save_arrays(os.path.join(train_dir, "model.ckpt-1.npz"),
+                                 _load(workdir, case["params"]))
+            ckpt_lib.write_index(train_dir, os.path.join(
+                train_dir, "model.ckpt-1.npz"))
+        distributed.barrier("swap-ckpt")
+        kw["train_dir"] = train_dir
+    else:
+        kw["params"] = _tree(_load(workdir, case["params"]))["params"]
+    server = ServingServer(hps, vocab, decode_root=os.path.join(
+        workdir, case["name"]), registry=reg, **kw)
+    info = {}
+    if rank != 0:
+        info["ops"] = server.follow()
+    else:
+        arts = list(zip(case["articles"], case["abstracts"]))
+        if how == "fail":
+            orig, calls = beam_search.step_slots, [0]
+
+            def flaky(*a, **k):
+                calls[0] += 1
+                if calls[0] == 2:
+                    raise RuntimeError("injected step failure")
+                return orig(*a, **k)
+
+            beam_search.step_slots = flaky
+        if how == "ticks":
+            futs = {f"u{i}": server.submit(a, uuid=f"u{i}", reference=r)
+                    for i, (a, r) in enumerate(arts)}
+            for _ in range(500):
+                if all(f.done() for f in futs.values()):
+                    break
+                server.tick_once()
+            server.stop()
+        elif how == "swap":
+            server.start()
+            first = server.submit(arts[0][0], uuid="u0").result(timeout=120)
+            newer = os.path.join(kw["train_dir"], "model.ckpt-2.npz")
+            ckpt_lib.save_arrays(newer, _load(workdir, case["newer"]))
+            ckpt_lib.write_index(kw["train_dir"], newer)
+            info["swapped"] = server.hot_swap()
+            second = server.submit(arts[1][0], uuid="u1").result(timeout=120)
+            server.stop()
+            info["fingerprints"] = [first.params_fingerprint,
+                                    second.params_fingerprint]
+            futs = {}
+        else:
+            server.start()
+            futs = {f"u{i}": server.submit(a, uuid=f"u{i}", reference=r,
+                                           block=True)
+                    for i, (a, r) in enumerate(arts)}
+            if how == "kill":
+                next(iter(futs.values())).result(timeout=120)
+                info["active_at_kill"] = server.stats().get("slots_active")
+                info["rejected"] = server.kill()
+            else:
+                server.stop()
+        info["words"], info["errors"] = _drain(futs)
+        info["counters"] = {k: reg.counter(f"serve/{k}").value for k in (
+            "arena_alloc_failures_total", "slot_refills_total",
+            "completed_total", "errors_total", "prefill_total")}
+    info["fingerprint"] = server._decoder.params_fingerprint
+    _save(workdir, f"{case['name']}.rank{rank}", info=info)
+
+
+def run_pipeline(case, hps, workdir, rank):
+    """App.main on the mesh (every rank; the chief reads the sources and
+    writes the sink), then the inference job again through the serve
+    layer (transform(serving=True)).  The chief writes both sinks' rows."""
+    from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+    from textsummarization_on_flink_tpu_torch.pipeline import app as app_lib
+    from textsummarization_on_flink_tpu_torch.pipeline import io
+
+    rows = [tuple(r) for r in case["rows"]]
+    infer = [tuple(r) for r in case["infer_rows"]]
+    a = app_lib.App(train_hps=hps,
+                    inference_hps=HParams(device="cpu", **case["decode"]),
+                    vocab=Vocab(words=case["words"]))
+    sink, served = io.CollectionSink(), io.CollectionSink()
+    a.main(train_source=io.CollectionSource(rows),
+           infer_source=io.CollectionSource(infer), sink=sink)
+    a.start_inference(None, io.CollectionSource(infer), served, serving=True)
+    _save(workdir, f"{case['name']}.rank{rank}", info={
+        "rows": sorted(sink.rows), "served": sorted(served.rows)})
+
+
 KINDS = {"train": run_train, "eval": run_eval, "search": run_search,
          "attention": run_attention, "trainer": run_trainer,
-         "decoder": run_decoder, "continuous": run_continuous}
+         "decoder": run_decoder, "continuous": run_continuous,
+         "slot_engine": run_slot_engine, "serve": run_serve,
+         "pipeline": run_pipeline}
 
 
 def main() -> int:

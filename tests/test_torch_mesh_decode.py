@@ -7,8 +7,8 @@ vocab-sharded embedding and projection, one scores all-gather per step)
 for the pointer-generator, dp2 x tp2 (its heads sharded too) and dp2 x
 sp2 under --sp_attention=ring (the sp ranks search the same rows) for
 the transformer; the BeamSearchDecoder on a mesh (the chief's results
-equal the single-rank decoder's words, other tiers and the slot engine
-refused, naming ROADMAP item 6b); continuous decode (``single_pass=0``)
+equal the single-rank decoder's words, other tiers refused, the slot
+engine built over dp); continuous decode (``single_pass=0``)
 reloading a newer checkpoint at the chief's call when the ranks' clocks
 disagree on whether a reload is due; and ``python -m textsummarization_on_flink_tpu_torch
 --mode=decode --single_pass=1 --dp=2`` on two ranks writing the same
@@ -130,8 +130,9 @@ def test_sharded_beam_search_tokens_equal_jax(ranks, family, name):
 def test_decoder_on_a_mesh(ranks, tmp_path):
     """The chief's results are the single-rank decoder's words (held
     against the JAX decoder in tests/test_torch_beam_search.py); the
-    other ranks return none; a tier other than beam and the slot engine
-    are refused on every rank."""
+    other ranks return none; a tier other than beam is refused on every
+    rank, and the slot engine builds with its slots sharded over dp
+    (served in tests/test_torch_mesh_serve.py)."""
     _, thps, _, params = _setup("pointer_generator")
     tv = Vocab(words=WORDS)
     exs = [batching.SummaryExample.build(article(i), [abstract(i)], tv,
@@ -147,11 +148,12 @@ def test_decoder_on_a_mesh(ranks, tmp_path):
     for r in range(1, 4):
         assert load_json(ranks, f"decoder.rank{r}")["words"] == []
     for r in range(4):
-        refused = load_json(ranks, f"decoder.rank{r}")["refused"]
+        info = load_json(ranks, f"decoder.rank{r}")
+        refused = info["refused"]
+        assert len(refused) == 1
         assert refused[0].startswith("ValueError") and "beam tier" in \
             refused[0]
-        assert refused[1].startswith("NotImplementedError") and \
-            "item 6b" in refused[1]
+        assert info["engine_local_slots"] == 2  # 4 slots over dp=2
 
 
 @pytest.mark.parametrize("due_on", CONTINUOUS)

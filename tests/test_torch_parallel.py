@@ -19,10 +19,7 @@ import torch
 from textsummarization_on_flink_tpu.config import HParams as JHParams
 from textsummarization_on_flink_tpu.parallel import mesh as jmesh
 from textsummarization_on_flink_tpu.parallel import sharding as jsharding
-from textsummarization_on_flink_tpu_torch.config import (
-    ROADMAP_MESH_SERVING,
-    HParams,
-)
+from textsummarization_on_flink_tpu_torch.config import HParams
 from textsummarization_on_flink_tpu_torch.parallel import (
     distributed,
     mesh,
@@ -257,7 +254,8 @@ def test_recovery_and_serving_refuse_a_mesh():
         trainer.Trainer(hps, 64, batcher=None,
                         state=trainer.init_train_state(
                             hps, 64, params=init_numpy_params(hps, 64, 0)))
-    with pytest.raises(NotImplementedError, match="item 6b"):
+    # serving takes a mesh (tests/test_torch_mesh_serve.py); like every
+    # mesh path it needs the world of dp*tp*sp ranks
+    with pytest.raises(ValueError, match="mesh needs dp\\*tp\\*sp=2 ranks"):
         ServingServer(hps.replace(nan_skip_steps=0), vocab=None,
                       params={})
-    assert "item 6b" in ROADMAP_MESH_SERVING

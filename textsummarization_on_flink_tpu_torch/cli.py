@@ -67,6 +67,7 @@ from textsummarization_on_flink_tpu_torch.decode.decoder import (
 )
 from textsummarization_on_flink_tpu_torch.device import resolve_device
 from textsummarization_on_flink_tpu_torch.parallel import distributed
+from textsummarization_on_flink_tpu_torch.parallel import mesh as mesh_lib
 from textsummarization_on_flink_tpu_torch.train import trainer as trainer_lib
 from textsummarization_on_flink_tpu_torch.utils import local_batch_hps
 
@@ -163,14 +164,8 @@ def run_decode(hps: HParams, vocab: Vocab,
 def _join_mesh(hps: HParams, ranks: int) -> None:
     """Join the world of ``ranks`` processes torchrun started (the JAX
     package's multi-host bring-up, cli.py:147-150 there)."""
-    world = int(os.environ.get("WORLD_SIZE", "0") or 0)
-    if world != ranks:
-        raise ValueError(
-            f"--dp={hps.dp} --tp={hps.tp} --sp={hps.sp} needs {ranks} ranks; "
-            f"torchrun's world has {world or 'none'} (launch with python -m "
-            f"torch.distributed.run --standalone --nproc_per_node={ranks} "
-            f"-m textsummarization_on_flink_tpu_torch ...)")
-    distributed.initialize(device=hps.device)
+    del ranks
+    mesh_lib.join_world(hps)
 
 
 def main(argv: Optional[List[str]] = None) -> int:

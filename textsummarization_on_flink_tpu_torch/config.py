@@ -40,7 +40,8 @@ with its checks and ``resolve_hier_chunk_words``; ``from_json`` reads
 The mesh fields (``dp``, ``tp``, ``sp``, ``sp_attention``,
 ``grad_allreduce_dtype``) are the JAX package's, with its checks: a
 world of ``dp * tp * sp`` ranks runs the sharded train, eval and batch
-decode paths (parallel/; serving on a mesh is ``ROADMAP_MESH_SERVING``).
+decode paths, the slot engine and the serve layer (parallel/), every
+model family.
 
 Fields of the JAX package that steer paths this package does not have
 yet (the profiler's analytic pricing) are not fields here:
@@ -69,9 +70,9 @@ ROADMAP_HEAD_DIM = ("ROADMAP.md queue 3, item 1 (transformer head dims above "
 ROADMAP_PG_WIDTH = ("ROADMAP.md queue 3, item 4 (pointer-generator widths "
                     "past the fused attention kernels' shared memory on the "
                     "card)")
-ROADMAP_MESH_SERVING = ("ROADMAP.md queue 1, item 6b (serving on a mesh: "
-                        "the slot engine, the ServingServer, the spec and "
-                        "draft tiers, the AAN family, the pipeline)")
+ROADMAP_AAN_TP = ("ROADMAP.md section 3, port fault 8 (the AAN family on a "
+                  "tp mesh: the port's Megatron layout needs tp to divide "
+                  "each sharded width)")
 ROADMAP_PROFILE = ("ROADMAP.md queue 1, item 2h (the profiler's analytic "
                    "pricing and divergence sentinel, the trainer's flight "
                    "frames and profiler phases)")

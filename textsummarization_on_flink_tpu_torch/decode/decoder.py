@@ -46,9 +46,17 @@ batch (the chief reads the batcher and broadcasts each batch's arrays),
 each dp group searches its rows with its tp shards of the params, and
 the chief, which holds the gathered outputs, makes the results and
 writes the decode dir.  Only the beam tier decodes there, as in the JAX
-package; the slot engine and serving on a mesh are ROADMAP.md queue 1
-item 6b.  The sp ranks search the same rows with the whole encoder,
-where the JAX package shards the encoder's T (port fault 7).
+package (decoder.py:455-459 there).  The sp ranks search the same rows
+with the whole encoder, where the JAX package shards the encoder's T
+(port fault 7).
+
+A sharded decoder runs in one of two ways.  In lockstep (cli.py's decode,
+the pipeline's transform) every rank calls ``decode``/``decode_batch``
+and the chief alone holds the batcher.  Led (``led = True``: the serve
+layer, serve/mesh.py) the chief alone calls, and each call sends its op
+down the chief's command stream (``lead``) to the followers, which run
+``serve.mesh.follow``; the slot engine on a mesh is always led.
+``release_followers`` ends the stream.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ import time
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
+import torch
 import torch.utils._pytree as pytree
 
 from textsummarization_on_flink_tpu_torch import obs
@@ -69,7 +78,6 @@ from textsummarization_on_flink_tpu_torch.checkpoint import (
     checkpointer as ckpt_lib,
 )
 from textsummarization_on_flink_tpu_torch.config import (
-    ROADMAP_MESH_SERVING,
     SERVE_TIERS,
     HParams,
     bucket_for,
@@ -245,6 +253,9 @@ class BeamSearchDecoder:
         # which shards them
         self._plan = None
         self._sharded_search: Optional[Callable] = None
+        # the chief's command stream (led mode; see the module docstring)
+        self.led = False
+        self._released = False
         if hps.dp * hps.tp * hps.sp > 1:
             self._plan = mesh_lib.make_mesh(hps)
             self._sharded_search = mesh_lib.make_sharded_beam_search(
@@ -289,9 +300,43 @@ class BeamSearchDecoder:
 
     @property
     def sharded(self) -> bool:
-        """True on a mesh: only the beam tier decodes (the serve layer and
-        the slot engine refuse a sharded decoder)."""
+        """True on a mesh: only the beam tier decodes (the serve layer
+        refuses other tiers at submit)."""
         return self._sharded_search is not None
+
+    @property
+    def plan(self) -> Any:
+        """The mesh plan, or None off a mesh."""
+        return self._plan
+
+    def lead(self, cmd: Tuple[Any, ...]) -> None:
+        """On the chief of a mesh: send one op (``("decode",)``,
+        ``("reload", path)``, ``("engine", op, ...)``) down the command
+        stream; a no-op off a mesh and on a follower.  After
+        ``release_followers`` only a release (host bookkeeping, no
+        collective) may still be led, and is not sent."""
+        if self._plan is None or not self._writes:
+            return
+        if self._released:
+            if cmd[:2] == ("engine", "release"):
+                return
+            raise RuntimeError(
+                f"the mesh's followers were released; op {cmd[:2]!r} "
+                f"needs them")
+        collectives.command(self._plan, cmd)
+
+    def release_followers(self) -> None:
+        """On the chief of a mesh: send the followers' stop, once."""
+        if self._plan is None or not self._writes or self._released:
+            return
+        collectives.command(self._plan, ("stop",))
+        self._released = True
+
+    def _engine_params(self) -> Any:
+        """The params the slot engine runs on: this rank's shards on a
+        mesh, the full tree otherwise."""
+        with self._params_lock:
+            return self._params if self._plan is None else self._mesh_params
 
     def _params_snapshot(self) -> Tuple[Any, Optional[str]]:
         """The (params, ckpt_path) pair, read atomically."""
@@ -311,17 +356,21 @@ class BeamSearchDecoder:
         self._fp_cache = (params, fp)
         return fp
 
-    def _load_params(self) -> None:
-        """Load the newest loadable checkpoint of the train dir; on a mesh
-        every rank takes the one the chief found (a checkpoint that lands
-        between two ranks' scans would otherwise split the mesh)."""
-        path, flat = ckpt_lib.load_ckpt(self._train_dir,
-                                        max_retries=self._max_ckpt_retries)
-        if self._plan is not None:
-            chief_path = collectives.broadcast_object(self._plan, path)
-            if chief_path != path:
-                path, flat = chief_path, ckpt_lib.load_arrays_verified(
-                    chief_path)
+    def _load_params(self, path: Optional[str] = None) -> None:
+        """Load the newest loadable checkpoint of the train dir, or the
+        checkpoint at ``path``; on a mesh with no ``path`` every rank takes
+        the one the chief found (a checkpoint that lands between two
+        ranks' scans would otherwise split the mesh)."""
+        if path is not None:
+            flat = ckpt_lib.load_arrays_verified(path)
+        else:
+            path, flat = ckpt_lib.load_ckpt(
+                self._train_dir, max_retries=self._max_ckpt_retries)
+            if self._plan is not None:
+                chief_path = collectives.broadcast_object(self._plan, path)
+                if chief_path != path:
+                    path, flat = chief_path, ckpt_lib.load_arrays_verified(
+                        chief_path)
         tree = ckpt_lib._unflatten_dicts(flat)
         params = from_numpy_tree(tree["params"], self._device)
         draft = None
@@ -336,6 +385,12 @@ class BeamSearchDecoder:
                 self._draft_params = draft
         log.info("decoder loaded checkpoint %s", path)
 
+    def reload(self, path: str) -> None:
+        """Load the checkpoint at ``path`` (a mesh follower's part of the
+        chief's reload)."""
+        self._load_params(path)
+        self._c_reloads.inc()
+
     def maybe_reload_checkpoint(self, last_load: float) -> float:
         """Continuous-mode checkpoint refresh (decode.py:149-157): once
         ``SECS_UNTIL_NEW_CKPT`` seconds have passed since ``last_load`` (a
@@ -344,12 +399,24 @@ class BeamSearchDecoder:
         train dir if it is not the one in use; the (params, ckpt_path)
         pair swaps under the lock and ``decode/ckpt_reloads_total``
         counts it.  On a mesh the chief's clock and newest checkpoint
-        decide for every rank (each call is one collective).  Returns the
-        new reference time."""
+        decide for every rank: in lockstep each call is one collective;
+        led, only the chief calls, and a reload it decides on is sent to
+        the followers with its path.  Returns the new reference time."""
         if self._train_dir is None:
             return last_load
         due = time.monotonic() - last_load >= SECS_UNTIL_NEW_CKPT
         latest = ckpt_lib.latest_checkpoint(self._train_dir) if due else None
+        if self.led:
+            if not due:
+                return last_load
+            _, current = self._params_snapshot()
+            if latest is not None and latest != current:
+                log.info("Decoder has been decoding for %.0f seconds; "
+                         "loading new checkpoint %s",
+                         time.monotonic() - last_load, latest)
+                self.lead(("reload", latest))
+                self.reload(latest)
+            return time.monotonic()
         if self._plan is not None:
             # the ranks of a mesh reload together, at the chief's call
             due, latest = collectives.broadcast_object(self._plan,
@@ -452,6 +519,8 @@ class BeamSearchDecoder:
         if self._sharded_search is not None:
             # every rank searches the chief's batch; the others return
             # no results (batch may be None there)
+            if self.led:
+                self.lead(("decode",))
             arrays = collectives.broadcast_object(
                 self._plan, batch.as_arrays() if self._writes else None)
             with self._params_lock:
@@ -529,12 +598,8 @@ class BeamSearchDecoder:
     def slot_engine(self, slots: int, chunk: int) -> "SlotDecodeEngine":
         """The continuous-batching engine over this decoder's params:
         ``slots`` resident articles decoded ``chunk`` steps at a time,
-        with refill between chunks (JAX decoder.py:553).  Not on a mesh
-        yet."""
-        if self.sharded:
-            raise NotImplementedError(
-                f"the slot engine over a sharded decoder: "
-                f"{ROADMAP_MESH_SERVING}")
+        with refill between chunks (JAX decoder.py:553); on a mesh its
+        resident slots shard over dp (JAX decoder.py:690-810)."""
         return SlotDecodeEngine(self, slots, chunk)
 
     def decode(self, with_rouge: bool = True,
@@ -633,11 +698,27 @@ class BeamSearchDecoder:
 class PrefilledArticle(NamedTuple):
     """One article through the prefill stage: the request's example
     (uuid, reference and OOVs travel with it), its beam_search.PrefillState
-    on the device, and the serve bucket it was encoded at."""
+    on the device, the serve bucket it was encoded at, and on a mesh its
+    prefill id (the followers of dp index 0 keep their state under it)."""
 
     example: Any
     state: Any
     bucket: int
+    pid: int = -1
+
+
+#: the probe article a rank encodes once for the shapes and structure of
+#: a PrefillState it must receive before it has prefilled one itself
+_PROBE = dict(enc_batch=np.zeros((1, 1), np.int64),
+              enc_lens=np.ones((1,), np.int64),
+              enc_padding_mask=np.ones((1, 1), np.float32),
+              enc_batch_extend_vocab=np.zeros((1, 1), np.int64))
+
+
+def _pre_leaves(pre) -> List[Any]:
+    """A PrefillState's tensors in order: the view's leaves, the mask,
+    the extended-vocab ids."""
+    return pytree.tree_leaves(pre.enc_view) + [pre.enc_mask, pre.ext_ids]
 
 
 class SlotDecodeEngine:
@@ -660,11 +741,38 @@ class SlotDecodeEngine:
     reloaded between chunks takes effect at the next chunk.  Runs on the
     decoder's device (hps.device).
 
+    On a mesh (a sharded decoder; JAX decoder.py:690-810, 875-885) the
+    resident slots shard over dp (parallel/sharding.py's slot_state
+    rule): slot i lives on dp index i // (slots / dp), and the tp and sp
+    ranks of that index hold the same residents with their shards of the
+    params.  The chief's calls are led (each sends its op down the
+    command stream; the followers run serve.mesh.follow), and every rank
+    keeps the host mirrors (which slots are resident, the page table):
+
+      * ``prefill`` runs on dp index 0's ranks (the chief's), which keep
+        the state;
+      * ``pack`` runs on the owner's ranks: dp index 0's ranks send the
+        prefilled state to the owner's over dp as tensors
+        (collectives.send_between) when the owner is another index;
+      * the batcher fills free slots in ``slot_order``, the dp indices
+        in turn;
+      * ``step`` runs on every rank over its own residents, the fused
+        attention bounded by that rank's longest one, and returns the
+        dp-gathered finished list, the same on every rank;
+      * ``unpack`` finalizes on the owner's ranks and the result reaches
+        the chief; ``release`` and the page frees are mirrored.
+
+    The chief's ``PageArena`` is the one allocator: admission,
+    backpressure and the allocation failures equal the single rank's.
+    Every rank holds pools of the whole arena (the arena_pool rule) and
+    writes and reads only its own residents' pages.  An op that raises on
+    one rank raises on every rank (collectives.all_ok) before a rank
+    waits on it.
+
     Not here, each for want of its counterpart in the port: the JAX
     engine's compile-ledger budgets (the port has no jit cache; ROADMAP
-    queue 1, item 2h), the analytic pricing of a chunk
-    (``profile_analytic``; item 2h) and the dp mesh of resident slots
-    (item 6b)."""
+    queue 1, item 2h) and the analytic pricing of a chunk
+    (``profile_analytic``; item 2h)."""
 
     def __init__(self, decoder: BeamSearchDecoder, slots: int, chunk: int):
         if slots < 1:
@@ -673,24 +781,37 @@ class SlotDecodeEngine:
             raise ValueError(f"refill chunk must be >= 1, got {chunk}")
         self._dec = decoder
         self._hps = decoder._hps
+        self._plan = decoder.plan
+        if self._plan is not None and slots % self._hps.dp != 0:
+            raise ValueError(
+                f"continuous serving shards resident slots over dp: "
+                f"dp={self._hps.dp} must divide serve slots={slots}")
         self.slots = slots
         self.chunk = min(chunk, self._hps.max_dec_steps)
+        # decode does not shard T (parallel/mesh.make_sharded_beam_search)
+        self._run_hps = self._hps.replace(sp_attention="")
         self._hps1 = self._hps.replace(batch_size=1)
+        # this rank's slots [lo, lo + local) (all of them off a mesh)
+        dp = self._hps.dp if self._plan is not None else 1
+        self._local = slots // dp
+        self._d = self._plan.coord("dp") if self._plan is not None else 0
+        self._lo = self._d * self._local
         # the micro-batcher's bucket list: both serving modes encode an
         # article at the same shape
         self._buckets = parse_bucket_spec(self._hps.serve_buckets,
                                           self._hps.max_enc_steps)
-        self._state = None  # built at the first pack
+        self._state = None  # built at this rank's first pack
         self._active = np.zeros(slots, dtype=bool)
         self._obs = obs.registry_for(self._hps)
         self._block = resolve_enc_block(self._hps)
         self._b_max = -(-self._hps.max_enc_steps // self._block)
-        self._page_bytes = 0
+        page_bytes = None
         if self._hps.serve_arena_pages > 0 or self._hps.serve_arena_mb > 0:
-            self._page_bytes = beam_search.paged_page_bytes(
-                decoder._params_snapshot()[0], self._hps)
-        self._arena_pages = resolve_arena_pages(self._hps,
-                                                self._page_bytes or None)
+            # the whole model's page: the arena's page count is the
+            # single rank's
+            page_bytes = beam_search.paged_page_bytes(
+                decoder._params_snapshot()[0], self._run_hps)
+        self._arena_pages = resolve_arena_pages(self._hps, page_bytes)
         self.paged = self._arena_pages > 0
         self._arena: Optional[PageArena] = (
             PageArena(self._arena_pages) if self.paged else None)
@@ -699,19 +820,66 @@ class SlotDecodeEngine:
         self._table = np.full((slots, self._b_max), self._arena_pages,
                               np.int64)
         self._page_rows: Dict[int, np.ndarray] = {}
+        # on a mesh: dp index 0's prefilled states by prefill id, the
+        # chief's next id, and a probe PrefillState (shapes, structure)
+        self._pre: Dict[int, Any] = {}
+        self._next_pid = 0
+        self._template = None
+
+    @property
+    def slot_order(self) -> List[int]:
+        """The order the batcher fills free slots in: the dp indices in
+        turn on a mesh (slot 0 of each index, then slot 1, ..), so that
+        every dp index takes residents under light load; 0, 1, .. off a
+        mesh."""
+        dp = self.slots // self._local
+        return [d * self._local + i for i in range(self._local)
+                for d in range(dp)]
 
     def _params(self):
-        return self._dec._params_snapshot()[0]
+        return self._dec._engine_params()
+
+    def _lead(self, *cmd) -> Any:
+        """Run one op: on the chief of a mesh send it first, then every
+        rank runs its part (``apply``)."""
+        if self._plan is not None:
+            self._dec.lead(("engine",) + cmd)
+        return self.apply(cmd)
+
+    def apply(self, cmd: Tuple[Any, ...]) -> Any:
+        """This rank's part of one op of the chief's (the followers' entry,
+        serve.mesh.follow)."""
+        op, args = cmd[0], cmd[1:]
+        fn = dict(prefill=self._do_prefill, pack=self._do_pack,
+                  step=self._do_step, unpack=self._do_unpack,
+                  release=self._retire)[op]
+        return fn(*args)
+
+    def _agreed(self, err: Optional[BaseException], what: str) -> None:
+        """Raise on every rank when the op failed on any (no-op off a
+        mesh, where ``err`` is raised where it happens)."""
+        if self._plan is None:
+            if err is not None:
+                raise err
+            return
+        if not collectives.all_ok(self._plan, err is None):
+            raise err if err is not None else RuntimeError(
+                f"slot engine {what} failed on another rank")
+
+    def _owner(self, idx: int) -> int:
+        return idx // self._local
 
     def _ensure_state(self, params, pre) -> None:
         if self._state is not None:
             return
-        if self.paged:
-            self._state = beam_search.init_slots_paged(
-                params, self._hps, self.slots, pre, self._arena_pages)
-        else:
-            self._state = beam_search.init_slots(params, self._hps,
-                                                 self.slots, pre)
+        with collectives.bound(self._plan):
+            if self.paged:
+                self._state = beam_search.init_slots_paged(
+                    params, self._run_hps, self._local, pre,
+                    self._arena_pages)
+            else:
+                self._state = beam_search.init_slots(
+                    params, self._run_hps, self._local, pre)
 
     def prefill(self, example) -> PrefilledArticle:
         """The prefill stage for one SummaryExample: the encoder (and the
@@ -723,8 +891,27 @@ class SlotDecodeEngine:
                       enc_steps=bucket)
         arrays = {k: v for k, v in batch.as_arrays().items()
                   if k.startswith("enc_")}
-        pre = beam_search.prefill(self._params(), self._hps, arrays)
-        return PrefilledArticle(example=example, state=pre, bucket=bucket)
+        pid = self._next_pid
+        self._next_pid += 1
+        pre = self._lead("prefill", pid, arrays)
+        return PrefilledArticle(example=example, state=pre, bucket=bucket,
+                                pid=pid)
+
+    def _encode(self, arrays) -> Any:
+        with collectives.bound(self._plan):
+            return beam_search.prefill(self._params(), self._run_hps, arrays)
+
+    def _do_prefill(self, pid: int, arrays) -> Any:
+        err, pre = None, None
+        if self._d == 0:
+            try:
+                pre = self._encode(arrays)
+            except Exception as e:  # noqa: BLE001 - raised by _agreed
+                err = e
+        self._agreed(err, "prefill")
+        if self._plan is not None and pre is not None:
+            self._pre[pid] = pre
+        return pre
 
     def pages_needed(self, item) -> int:
         """Arena pages one admission takes: ceil(length / block), from the
@@ -768,21 +955,26 @@ class SlotDecodeEngine:
         return out
 
     def resident_bytes_per_slot(self) -> float:
-        """Mean device bytes one resident holds.  Dense: the state's bytes
-        over the slots (each slot holds the widest article's).  Paged: the
-        dense part's share per slot plus the in-use pages' bytes over the
-        residents.  Tensor metadata and host counters only."""
+        """Mean device bytes one resident holds, of this rank's share on a
+        mesh.  Dense: the state's bytes over the rank's slots (each slot
+        holds the widest article's).  Paged: the dense part's share per
+        slot plus the in-use pages' bytes over the residents.  Tensor
+        metadata and host counters only."""
         if self._state is None:
             return 0.0
         total = float(sum(x.nbytes for x in self._named_tensors().values()))
         if not self.paged:
-            return total / self.slots
+            return total / self._local
         st = self._state
         pools = list(st.enc_pages) + [st.ext_pool, st.attn_pool]
-        dense = total - float(sum(x.nbytes for x in pools))
-        n_active = max(1, int(self._active.sum()))
-        return (dense / self.slots
-                + self._arena.pages_in_use * self._page_bytes / n_active)
+        pool_bytes = float(sum(x.nbytes for x in pools))
+        dense = total - pool_bytes
+        local = self._active[self._lo:self._lo + self._local]
+        n_active = max(1, int(local.sum()))
+        page = pool_bytes / st.attn_pool.shape[0]
+        used = int(np.sum(self._table[self._lo:self._lo + self._local][
+            local] != self._arena_pages))
+        return dense / self._local + used * page / n_active
 
     def pack(self, idx: int, item) -> None:
         """Admit one prefilled article (or a SummaryExample, prefilled
@@ -793,42 +985,124 @@ class SlotDecodeEngine:
             raise AssertionError(f"slot {idx} is already resident")
         if not isinstance(item, PrefilledArticle):
             item = self.prefill(item)
-        params = self._params()
-        self._ensure_state(params, item.state)
+        row = None
+        ids = None
         if self.paged:
             need = self.pages_needed(item)
             ids = self._arena.alloc(need)  # may raise ArenaExhaustedError
             row = np.full(self._b_max, self._arena_pages, np.int64)
             row[:need] = ids
-            try:
-                beam_search.pack_slot_paged(params, self._hps, self._state,
-                                            idx, item.state, row)
-            except BaseException:
+        try:
+            if self._plan is None:
+                self._pack_local(idx, item.state, row)
+            else:
+                self._lead("pack", idx, item.pid, row)
+        except BaseException:
+            if ids is not None:
                 self._arena.free(ids)
-                raise
-            self._table[idx] = row
+            raise
+        if ids is not None:
             self._page_rows[idx] = ids
-        else:
-            beam_search.pack_slot(params, self._hps, self._state, idx,
-                                  item.state)
+
+    def _pack_local(self, idx: int, pre, row) -> None:
+        """Slot ``idx`` (this rank's) := the prefilled state ``pre``."""
+        params = self._params()
+        self._ensure_state(params, pre)
+        local = idx - self._lo
+        with collectives.bound(self._plan):
+            if self.paged:
+                beam_search.pack_slot_paged(params, self._run_hps,
+                                            self._state, local, pre, row)
+            else:
+                beam_search.pack_slot(params, self._run_hps, self._state,
+                                      local, pre)
+        if row is not None:
+            self._table[idx] = row
         self._active[idx] = True
+
+    def _probe(self) -> Any:
+        """A PrefillState of the probe article: the structure, shapes and
+        dtypes of one this rank must receive (encoded once; collective
+        over tp like any prefill)."""
+        if self._template is None:
+            self._template = self._encode(_PROBE)
+        return self._template
+
+    def _do_pack(self, idx: int, pid: int, row) -> None:
+        owner = self._owner(idx)
+        err = None
+        try:
+            pre = None
+            if self._d == 0:
+                pre = self._pre.pop(pid)
+                # the prefill queue packs in order: older ids were dropped
+                for old in [p for p in self._pre if p < pid]:
+                    del self._pre[old]
+            if owner != 0 and self._d in (0, owner):
+                like = None
+                if self._d == owner:
+                    like = _pre_leaves(self._probe())
+                sent = collectives.send_between(
+                    self._plan, None if pre is None else _pre_leaves(pre),
+                    "dp", 0, owner, like=like)
+                if self._d == owner:
+                    pre = self._unflatten_pre(sent)
+            if self._d == owner:
+                self._pack_local(idx, pre, row)
+        except Exception as e:  # noqa: BLE001 - raised by _agreed
+            err = e
+        self._agreed(err, "pack")
+        # every rank mirrors the residency and the page row
+        self._active[idx] = True
+        if row is not None:
+            self._table[idx] = row
+
+    def _unflatten_pre(self, leaves) -> Any:
+        """A received PrefillState: the probe's structure over ``leaves``;
+        the true length rides the mask."""
+        probe = self._probe()
+        view_n = len(pytree.tree_leaves(probe.enc_view))
+        _, spec = pytree.tree_flatten(probe.enc_view)
+        mask = leaves[view_n]
+        return beam_search.PrefillState(
+            enc_view=pytree.tree_unflatten(list(leaves[:view_n]), spec),
+            enc_mask=mask, ext_ids=leaves[view_n + 1],
+            enc_valid_len=int(mask[0].sum().item()))
 
     def step(self) -> List[int]:
         """One chunk for every resident slot; the slots whose search
         finished (ready to unpack)."""
         if not self._active.any():
             return []
-        params = self._params()
         with obs.spans.span(self._obs, "decode/slot_chunk",
                             active=int(self._active.sum())):
-            if self.paged:
-                finished = beam_search.step_slots_paged(
-                    params, self._hps, self._state, self._active,
-                    self._table, self.chunk)
-            else:
-                finished = beam_search.step_slots(
-                    params, self._hps, self._state, self._active, self.chunk)
-            return [int(i) for i in np.nonzero(finished)[0]]
+            return self._lead("step")
+
+    def _do_step(self) -> List[int]:
+        local = self._active[self._lo:self._lo + self._local]
+        finished = np.zeros(self._local, dtype=bool)
+        err = None
+        if local.any():
+            try:
+                params = self._params()
+                with collectives.bound(self._plan):
+                    if self.paged:
+                        finished = beam_search.step_slots_paged(
+                            params, self._run_hps, self._state, local,
+                            self._table[self._lo:self._lo + self._local],
+                            self.chunk)
+                    else:
+                        finished = beam_search.step_slots(
+                            params, self._run_hps, self._state, local,
+                            self.chunk)
+            except Exception as e:  # noqa: BLE001 - raised by _agreed
+                err = e
+        self._agreed(err, "step")
+        if self._plan is not None:
+            finished = collectives.all_gather(
+                self._plan, torch.from_numpy(np.asarray(finished, np.uint8)),
+                "dp", 0).numpy().astype(bool)
+        return [int(i) for i in np.nonzero(finished)[0]]
 
     def unpack(self, idx: int, example) -> DecodedResult:
         """Retire slot ``idx``: its hypothesis as a DecodedResult, and the
@@ -836,13 +1110,7 @@ class SlotDecodeEngine:
         packed into it."""
         if not self._active[idx]:
             raise AssertionError(f"slot {idx} is not resident")
-        if self.paged:
-            out = beam_search.unpack_slot_paged(self._hps, self._state, idx,
-                                                self._table[idx])
-            self._free_slot_pages(idx)
-        else:
-            out = beam_search.unpack_slot(self._hps, self._state, idx)
-        self._active[idx] = False
+        out = self._lead("unpack", idx)
         res = self._dec._make_result(
             out.tokens, int(out.length), out.attn_dists, out.p_gens,
             uuid=example.uuid, article=example.original_article,
@@ -854,29 +1122,71 @@ class SlotDecodeEngine:
         self._dec._c_tokens.inc(len(res.decoded_words))
         return res
 
-    def _free_slot_pages(self, idx: int) -> None:
-        """Slot ``idx``'s pages back to the arena, its row to scratch."""
+    def _do_unpack(self, idx: int) -> Optional[beam_search.BeamSearchOutput]:
+        owner = self._owner(idx)
+        out, err = None, None
+        try:
+            if self._d == owner:
+                local = idx - self._lo
+                if self.paged:
+                    out = beam_search.unpack_slot_paged(
+                        self._run_hps, self._state, local, self._table[idx])
+                else:
+                    out = beam_search.unpack_slot(self._run_hps, self._state,
+                                                  local)
+        except Exception as e:  # noqa: BLE001 - raised by _agreed
+            err = e
+        self._agreed(err, "unpack")
+        if self._plan is not None and owner != 0:
+            out = self._result_to_chief(out, owner)
+        self._retire(idx)
+        return out
+
+    def _result_to_chief(self, out, owner: int):
+        """The owner's result at the chief: sent over dp by the owner's
+        rank that shares the chief's tp and sp coordinates."""
+        plan = self._plan
+        if plan.coord("tp") != 0 or plan.coord("sp") != 0:
+            return None
+        T = self._hps.max_dec_steps
+        T_enc = self._hps.max_enc_steps
+        like = [torch.zeros(T + 1, dtype=torch.int32),
+                torch.zeros((), dtype=torch.int32),
+                torch.zeros((), dtype=torch.float32),
+                torch.zeros((T, T_enc), dtype=torch.float32),
+                torch.zeros(T, dtype=torch.float32)]
+        sent = collectives.send_between(
+            plan, None if out is None else [torch.from_numpy(np.array(x))
+                                            for x in out],
+            "dp", owner, 0, like=like if self._d == 0 else None)
+        if self._d != 0:
+            return None
+        return beam_search.BeamSearchOutput(*[x.numpy() for x in sent])
+
+    def _retire(self, idx: int) -> None:
+        """Slot ``idx`` off every rank's mirrors; the chief's pages back
+        to its arena, the row to scratch."""
         ids = self._page_rows.pop(idx, None)
         if ids is not None:
             self._arena.free(ids)
+        if self.paged:
             self._table[idx] = self._arena_pages
+        self._active[idx] = False
 
     def release(self, idx: int) -> None:
         """Free slot ``idx`` without unpacking (a deadline eviction): the
         stale state is masked until the next pack overwrites it."""
-        if self.paged:
-            self._free_slot_pages(idx)
-        self._active[idx] = False
+        self._lead("release", idx)
 
     def active_count(self) -> int:
         return int(self._active.sum())
 
     def cache_sizes(self) -> Dict[str, Tuple[int, ...]]:
-        """The resident state's tensor shapes by name.  The JAX engine
-        reports its kernels' jit-cache sizes here; eager PyTorch has no
-        jit cache, and what stays fixed across requests is the resident
-        state's shape, which this returns (empty before the first
-        pack)."""
+        """The resident state's tensor shapes by name (this rank's share on
+        a mesh).  The JAX engine reports its kernels' jit-cache sizes
+        here; eager PyTorch has no jit cache, and what stays fixed across
+        requests is the resident state's shape, which this returns (empty
+        before the first pack)."""
         if self._state is None:
             return {}
         return {k: tuple(x.shape) for k, x in self._named_tensors().items()}

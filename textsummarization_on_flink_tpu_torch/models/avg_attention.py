@@ -22,6 +22,14 @@ and scores the vocabulary through the factored ``vocab_head``
 (``draft_vocab_rank`` r: (h @ [H_d, r]) @ [r, V]).  It is trained by
 sequence-level distillation (train/distill.py).
 
+On a mesh the family runs the transformer's layout (parallel/sharding.py's
+per-leaf rule, JAX sharding.py:91-119): the tied embedding and out_bias
+over the vocabulary, the cross_attn heads and both FFNs (aan_ffn, ffn)
+Megatron-style, the encoder's ring or Ulysses attention under
+--sp_attention.  The narrow variant's factored head shards its rank r
+over tp (w1 column-, w2 row-parallel), so its scores are a sum over tp
+of rank-partial products (transformer.vocab_scores_of).
+
 Two inits: ``init_params`` (fresh, from a numpy seed) and
 ``init_from_transformer`` (the mapped draft: the full transformer's
 shared leaves copied, the AAN branch fresh, every key accounted for).
@@ -218,10 +226,9 @@ def forward_train(params: Params, hps: HParams,
     (avg_attention.py:354-389): the encoder stack, then each AAN layer's
     average branch, cross-attention (the narrow draft's rectangular K/V
     over the H-wide encoder output) and FFN at the decoder width."""
-    enc_mask = arrays["enc_padding_mask"]
     dhps = _decoder_hps(hps)
-    x = tf._embed_enc(params, hps, arrays["enc_batch"])
-    enc_out = pg._cast(hps, tf._encoder_stack(params, hps, x, enc_mask))
+    enc_out, arrays = tf.encode_train(params, hps, arrays)
+    enc_mask = arrays["enc_padding_mask"]
     y = _emb_proj(params, tf._embed_dec_train(params, hps,
                                               arrays["dec_batch"]))
     cross_mask = enc_mask[:, None, :]

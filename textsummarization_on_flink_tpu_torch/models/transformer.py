@@ -258,6 +258,26 @@ def _embed_dec_train(params: Params, hps: HParams,
 # Training forward (fully parallel over decode steps)
 # --------------------------------------------------------------------------
 
+def encode_train(params: Params, hps: HParams,
+                 arrays: Dict[str, torch.Tensor],
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training encoder: (its output in the compute dtype [B, T_enc,
+    H], the arrays).  Where T is sharded over sp the encoder runs on this
+    rank's block and its output, mask and extended ids are all-gathered
+    over sp (the returned arrays hold the whole mask and ids)."""
+    enc_mask = arrays["enc_padding_mask"]  # [B, T_enc]
+    x = _embed_enc(params, hps, arrays["enc_batch"])
+    enc_f32 = _encoder_stack(params, hps, x, enc_mask)
+    if _t_sharded(hps):
+        enc_f32 = collectives.gather_sp(enc_f32, 1)
+        enc_mask = collectives.gather_sp_data(enc_mask, 1)
+        arrays = dict(arrays, enc_padding_mask=enc_mask,
+                      enc_batch_extend_vocab=collectives.gather_sp_data(
+                          arrays["enc_batch_extend_vocab"], 1))
+    # f32 out of the encoder, cast again for the cross-attention (:355)
+    return pg._cast(hps, enc_f32), arrays
+
+
 def forward_train(params: Params, hps: HParams,
                   arrays: Dict[str, torch.Tensor]) -> TrainOutput:
     """Teacher-forced training/eval forward pass (transformer.py:341-378):
@@ -269,17 +289,8 @@ def forward_train(params: Params, hps: HParams,
     this rank's block of the encoder arrays: the encoder runs on it and
     its output, mask and extended ids are all-gathered over sp before
     the decoder, which runs the same on every sp rank."""
-    enc_mask = arrays["enc_padding_mask"]  # [B, T_enc]
-    x = _embed_enc(params, hps, arrays["enc_batch"])
-    enc_f32 = _encoder_stack(params, hps, x, enc_mask)
-    if _t_sharded(hps):
-        enc_f32 = collectives.gather_sp(enc_f32, 1)
-        enc_mask = collectives.gather_sp_data(enc_mask, 1)
-        arrays = dict(arrays, enc_padding_mask=enc_mask,
-                      enc_batch_extend_vocab=collectives.gather_sp_data(
-                          arrays["enc_batch_extend_vocab"], 1))
-    # f32 out of the encoder, cast again for the cross-attention (:355)
-    enc_out = pg._cast(hps, enc_f32)
+    enc_out, arrays = encode_train(params, hps, arrays)
+    enc_mask = arrays["enc_padding_mask"]
     y = _embed_dec_train(params, hps, arrays["dec_batch"])
     cross_mask = enc_mask[:, None, :]  # [B, 1, T_enc]
 
@@ -441,9 +452,14 @@ def vocab_scores_of(params: Params, hps: HParams,
     never formed.  Both products take the compute dtype's operands."""
     vh = params.get("vocab_head")
     if vh is not None:
-        hr = loss_ops.project_scores(h, vh["w1"], hps.compute_dtype)
-        return loss_ops.project_scores(hr, vh["w2"], hps.compute_dtype) \
-            + params["out_bias"]
+        # on tp the rank r is sharded (w1 column-, w2 row-parallel): each
+        # rank's product is a part of the scores, summed over tp, and the
+        # vocab-sharded out_bias is gathered
+        hr = loss_ops.project_scores(collectives.copy_to_tp(h), vh["w1"],
+                                     hps.compute_dtype)
+        return collectives.reduce_from_tp(loss_ops.project_scores(
+            hr, vh["w2"], hps.compute_dtype)) \
+            + collectives.gather_vocab(params["out_bias"])
     return loss_ops.vocab_scores(h, params["embedding"].T,
                                  params["out_bias"], hps.compute_dtype)
 
@@ -456,7 +472,9 @@ def vocab_proj_weight(params: Params) -> torch.Tensor:
     bitwise)."""
     vh = params.get("vocab_head")
     if vh is not None:
-        return vh["w1"] @ vh["w2"]
+        # on tp: the rank-partial products summed over tp and cut to this
+        # rank's vocabulary columns, as vocab_scores takes them
+        return collectives.reduce_scatter_tp(vh["w1"] @ vh["w2"], 1)
     return params["embedding"].T
 
 

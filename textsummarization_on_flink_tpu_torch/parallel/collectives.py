@@ -19,7 +19,12 @@ groups of a ``parallel.mesh.MeshPlan``:
     leaf's gradient is a part over sp and all of them are summed;
   * ``all_to_all_sp`` (Ulysses) and ``ring_pass`` (ring attention's
     neighbour exchange), and the plain all-reduce, all-gather and
-    broadcast of the trainer's gradients, metrics and batches.
+    broadcast of the trainer's gradients, metrics and batches;
+  * serving on a mesh (decode/decoder.py, serve/mesh.py): ``command``,
+    the chief's stream of ops to every rank; ``all_ok``, the ranks'
+    agreement that an op succeeded everywhere; ``send_between``, a
+    prefilled article's state to the dp index that packs it and an
+    unpacked result to the chief, as tensors.
 
 Model code reaches the mesh through ``bound(plan)``, a context the
 sharded steps enter around the model's forward (the counterpart of the
@@ -43,6 +48,8 @@ from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
+import pickle
 from typing import Any, Iterator, List, Optional, Sequence
 
 import torch
@@ -210,6 +217,89 @@ def broadcast_object(plan: Any, obj: Any, axis: str = "world") -> Any:
     return box[0]
 
 
+def command(plan: Any, cmd: Any = None) -> Any:
+    """The chief's command stream: the chief passes ``cmd`` (a small
+    picklable tuple naming one op and its host arguments) and every rank
+    returns it, in the order the chief sent them.  Pickled into a byte
+    tensor and broadcast over the world (its length first), counted as
+    ``command/world``; tensors go through ``send_between`` or the
+    gathers, never through here."""
+    if not _active(plan, "world"):
+        return cmd
+    src = plan.members("world")[0]
+    chief = plan.rank == src
+    if chief:
+        data = torch.frombuffer(bytearray(pickle.dumps(cmd)),
+                                dtype=torch.uint8)
+        n = torch.tensor([data.numel()], dtype=torch.int64)
+    else:
+        n = torch.zeros(1, dtype=torch.int64)
+    w = _to_wire(plan, n)
+    dist.broadcast(w, src=src, group=plan.group("world"))
+    if not chief:
+        data = torch.empty(int(w.cpu()[0]), dtype=torch.uint8)
+    w = _to_wire(plan, data)
+    dist.broadcast(w, src=src, group=plan.group("world"))
+    _count(plan, "command", "world", 8 + data.numel())
+    # only ranks of this program pickle what is unpickled here
+    return cmd if chief else pickle.loads(w.cpu().numpy().tobytes())
+
+
+def all_ok(plan: Any, ok: bool) -> bool:
+    """True when ``ok`` holds on every rank of the world: the lockstep
+    ops' failure agreement, so that one rank's error reaches the others
+    before they wait on it in a collective."""
+    if not _active(plan, "world"):
+        return ok
+    w = _to_wire(plan, torch.tensor([0 if ok else 1], dtype=torch.int32))
+    dist.all_reduce(w, op=dist.ReduceOp.MAX, group=plan.group("world"))
+    _count(plan, "all_reduce", "world", 4)
+    return int(w.cpu()[0]) == 0
+
+
+def send_between(plan: Any, tensors: Optional[Sequence[torch.Tensor]],
+                 axis: str, src: int, dst: int,
+                 like: Optional[Sequence[torch.Tensor]] = None,
+                 ) -> Optional[List[torch.Tensor]]:
+    """Tensors from the rank at ``src`` along ``axis`` to the rank at
+    ``dst`` of the same group (point to point, the staged path under
+    gloo): the sender passes ``tensors`` and gets them back, the receiver
+    passes ``like`` (tensors of the shapes, dtypes and device to receive
+    into) and gets what was sent; every other rank of the group takes no
+    part and gets None.  Counted as ``send_recv/<axis>`` on both ends."""
+    if src == dst or not _active(plan, axis):
+        return list(tensors) if tensors is not None else None
+    me = plan.coord(axis)
+    members = plan.members(axis)
+    if me == src:
+        for t in tensors:
+            dist.send(_to_wire(plan, t), dst=members[dst],
+                      group=plan.group(axis))
+            _count(plan, "send_recv", axis, _nbytes(t))
+        return list(tensors)
+    if me != dst:
+        return None
+    out = []
+    for t in like:
+        w = _wire_empty(plan, tuple(t.shape), t.dtype, t)
+        dist.recv(w, src=members[src], group=plan.group(axis))
+        _count(plan, "send_recv", axis, _nbytes(t))
+        out.append(_from_wire(plan, w, t))
+    return out
+
+
+def with_own_world(plan: Any) -> Any:
+    """``plan`` with a world group of its own (collective: every rank
+    calls it, in the same order), for a stream of collectives another
+    thread issues while the plan's own groups are in use."""
+    if not _active(plan, "world"):
+        return plan
+    members = plan.members("world")
+    groups = dict(plan.groups, world=(dist.new_group(list(members)),
+                                      members))
+    return dataclasses.replace(plan, groups=groups)
+
+
 def agree_any(flag: torch.Tensor, axis: str = "tp") -> torch.Tensor:
     """``flag`` (a bool tensor) true on any rank of the bound plan's
     ``axis``: the beam search's loop test, so the ranks of one tp group,
@@ -292,6 +382,21 @@ class _Gather(torch.autograd.Function):
         return d, None, None, None, None
 
 
+class _ReduceScatter(torch.autograd.Function):
+    """reduce-scatter along ``dim``; the backward all-gathers (the summed
+    parts' gradient is the whole one on every rank)."""
+
+    @staticmethod
+    def forward(ctx, x, plan, axis, dim):
+        ctx.plan, ctx.axis, ctx.dim = plan, axis, dim
+        return reduce_scatter(plan, x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(ctx.plan, g.contiguous(), ctx.axis, ctx.dim), \
+            None, None, None
+
+
 class _AllToAll(torch.autograd.Function):
     """all_to_all_single with equal blocks: its own adjoint."""
 
@@ -321,6 +426,15 @@ def gather_vocab(x: torch.Tensor) -> torch.Tensor:
     if not _active(plan, "tp"):
         return x
     return _Gather.apply(x, plan, "tp", x.dim() - 1, False)
+
+
+def reduce_scatter_tp(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The tp ranks' parts of ``x`` summed, this rank's block along
+    ``dim``; the backward all-gathers."""
+    plan = current()
+    if not _active(plan, "tp"):
+        return x
+    return _ReduceScatter.apply(x, plan, "tp", dim)
 
 
 def gather_sp(x: torch.Tensor, dim: int) -> torch.Tensor:

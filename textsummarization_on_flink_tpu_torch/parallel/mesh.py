@@ -10,12 +10,12 @@ collectives out (parallel/collectives.py):
   * **dp**: each dp index computes on its own rows; the gradients are
     summed over dp in one flat all-reduce, in the registry's wire dtype
     (``--grad_allreduce_dtype``), and divided by dp;
-  * **tp**: the vocabulary tensors (and the transformer's heads and FFN)
-    are sharded over tp (parallel/sharding.py's per-leaf rule); the
+  * **tp**: the vocabulary tensors (and the transformer's and the AAN's
+    heads and FFNs) are sharded over tp (parallel/sharding.py's per-leaf rule); the
     models call the Megatron collectives where the JAX package's GSPMD
     puts its own;
-  * **sp**: on the path that shards T (the transformer's encoder under
-    ``--sp_attention``) each sp rank runs the encoder on its block of T
+  * **sp**: on the path that shards T (the transformer's and the AAN's
+    encoder under ``--sp_attention``) each sp rank runs the encoder on its block of T
     through ring or Ulysses attention and all-gathers the encoder output
     before the decoder; its objective is 1/sp of the loss and every
     gradient is summed over sp (collectives.gather_sp).  Elsewhere sp
@@ -31,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
+import os
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -154,16 +155,32 @@ def make_mesh(hps: HParams) -> MeshPlan:
             f"(launch with python -m torch.distributed.run "
             f"--nproc_per_node={want} and call "
             f"parallel.distributed.initialize())")
-    if hps.model_family not in ("pointer_generator", "transformer") \
-            and want > 1:
-        raise NotImplementedError(
-            f"model_family={hps.model_family!r} on a mesh: "
-            f"{sharding_lib.ROADMAP_MESH_SERVING}")
     me = distributed.rank()
     groups = _build_groups(hps.dp, hps.tp, hps.sp, me) if want > 1 else {
         axis: (None, (0,)) for axis in MESH_AXES + ("batch", "world")}
     return MeshPlan(hps=hps, rank=me, groups=groups,
                     backend=distributed.backend() or "")
+
+
+def join_world(hps: HParams) -> bool:
+    """Join the world of ``dp * tp * sp`` processes torchrun started (the
+    JAX package's multi-host bring-up; cli.py and the pipeline's
+    entry points call it).  Returns False, joining nothing, off a mesh;
+    raises when torchrun's world is missing or of another size.
+    Idempotent."""
+    ranks = hps.dp * hps.tp * hps.sp
+    if ranks == 1:
+        return False
+    world = distributed.world_size() if dist.is_initialized() else int(
+        os.environ.get("WORLD_SIZE", "0") or 0)
+    if world != ranks:
+        raise ValueError(
+            f"--dp={hps.dp} --tp={hps.tp} --sp={hps.sp} needs {ranks} ranks; "
+            f"torchrun's world has {world or 'none'} (launch with python -m "
+            f"torch.distributed.run --standalone --nproc_per_node={ranks} "
+            f"-m textsummarization_on_flink_tpu_torch ...)")
+    distributed.initialize(device=hps.device)
+    return True
 
 
 def validate_divisibility(hps: HParams, params: Optional[Any] = None,
@@ -190,7 +207,7 @@ def validate_divisibility(hps: HParams, params: Optional[Any] = None,
         raise ValueError(
             f"sp_attention=ulysses re-shards heads over sp: sp={hps.sp} "
             f"must divide num_heads={hps.num_heads}")
-    if hps.tp > 1 and hps.model_family == "transformer":
+    if hps.tp > 1 and hps.model_family in ("transformer", "avg_attention"):
         if hps.num_heads % hps.tp != 0:
             raise ValueError(
                 f"tensor-parallel axis tp={hps.tp} must divide "
@@ -204,6 +221,29 @@ def validate_divisibility(hps: HParams, params: Optional[Any] = None,
                 "shard_map replicates the head axis, which would silently "
                 "all-gather the Megatron-sharded q/k/v every layer — use "
                 "sp-only attention (tp=1) or tp without sp_attention")
+    if hps.tp > 1 and hps.model_family == "avg_attention":
+        _validate_aan_tp(hps)
+
+
+def _validate_aan_tp(hps: HParams) -> None:
+    """The AAN's decoder side on tp: its FFNs (aan_ffn, ffn) at the
+    decoder width and the narrow draft's factored vocab_head rank are
+    Megatron-sharded, so tp must divide each; the JAX package's GSPMD
+    takes uneven shards (ROADMAP_AAN_TP)."""
+    from textsummarization_on_flink_tpu_torch.config import (
+        ROADMAP_AAN_TP,
+        resolve_draft_hidden,
+    )
+
+    hd = resolve_draft_hidden(hps)
+    dec_ffn = hps.ffn_width if hd == hps.hidden_dim else (
+        hps.ffn_dim or 4 * hd)
+    for what, width in (("the AAN decoder's ffn width", dec_ffn),
+                        ("draft_vocab_rank", hps.draft_vocab_rank)):
+        if width % hps.tp != 0:
+            raise ValueError(
+                f"tensor-parallel axis tp={hps.tp} must divide {what} "
+                f"{width}: {ROADMAP_AAN_TP}")
 
 
 def shard_batch(plan: MeshPlan, arrays: Dict[str, Any]) -> Dict[str, Any]:
@@ -345,7 +385,8 @@ def make_sharded_beam_search(plan: MeshPlan, params: Optional[Any] = None):
     tp's (the scores' all-gather, the embedding's and the transformer
     blocks' all-reduces, and the loop test).  The sp ranks search the same
     rows with the whole encoder: decode does not shard T, --sp_attention
-    or not (ROADMAP.md fault 7)."""
+    or not (ROADMAP.md fault 7).  A search that raises on one rank raises
+    on every rank (``collectives.all_ok``) before the gather."""
     from textsummarization_on_flink_tpu_torch.decode import beam_search
 
     del params
@@ -355,8 +396,17 @@ def make_sharded_beam_search(plan: MeshPlan, params: Optional[Any] = None):
     def search(p, arrays):
         rows = reg.dp_rows({k: arrays[k]
                             for k in sharding_lib.ENC_BATCH_NAMES})
-        with collectives.bound(plan):
-            out = beam_search.run_beam_search(p, hps, rows)
+        err: Optional[BaseException] = None
+        try:
+            with collectives.bound(plan):
+                out = beam_search.run_beam_search(p, hps, rows)
+        except Exception as e:  # noqa: BLE001 - re-raised after the agreement
+            err = e
+        # a rank that failed tells the others before they wait on it in
+        # the gather
+        if not collectives.all_ok(plan, err is None):
+            raise err if err is not None else RuntimeError(
+                "the sharded beam search failed on another rank")
         if plan.dp == 1:
             return out
         return beam_search.BeamSearchOutput(*[

@@ -11,12 +11,20 @@ spec's axis, ``gather_params`` rebuilds it with an all-gather,
 ``shard_batch`` takes the rank's dp rows and, where a path shards the
 encoder's time axis, its sp block of T.
 
-Which paths shard T: the transformer's encoder under
+Which paths shard T: the transformer's and the AAN's encoder under
 ``--sp_attention=ring|ulysses`` with sp > 1 (``shards_t``).  Under
-sp > 1 the pointer-generator, and the transformer without
+sp > 1 the pointer-generator, and the other two without
 ``--sp_attention``, run the same on every sp rank with the whole T,
 where the JAX package shards their attention tensors over T: the same
 results, and the memory is not split (ROADMAP.md, port fault 7).
+
+Serving (the JAX package's sharding.py:235-307): the slot engine's
+resident ``[slots, ...]`` state shards over dp (slot i lives on dp index
+i // (slots / dp), and the tp and sp ranks of that index hold the same
+residents); a paged state's pools and the page table are replicated
+(each rank holds the whole arena and reads only its residents' pages);
+a prefill batch shards over dp when its rows divide dp, and the
+one-article prefill replicates.
 
 ``analytic_comms`` computes the JAX package's per-step collective-byte
 prediction from a copy of the same rule; the sharded trainer's dp
@@ -32,10 +40,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from textsummarization_on_flink_tpu_torch.config import (
-    ROADMAP_MESH_SERVING,
-    HParams,
-)
+from textsummarization_on_flink_tpu_torch.config import HParams
 
 PyTree = Any
 
@@ -155,9 +160,55 @@ def wire_dtype(hps: HParams, role: str = "grads") -> Optional[torch.dtype]:
 
 def shards_t(hps: HParams) -> bool:
     """Whether the path shards the encoder's time axis over sp: the
-    transformer's encoder under --sp_attention with sp > 1."""
+    transformer's and the AAN's encoder under --sp_attention with
+    sp > 1."""
     return (hps.sp > 1 and bool(hps.sp_attention)
-            and hps.model_family == "transformer")
+            and hps.model_family in ("transformer", "avg_attention"))
+
+
+def slot_state_specs(state: Any) -> Any:
+    """Specs of a slot engine's resident state (beam_search.SlotState or
+    PagedSlotState): every slot-leading leaf Spec('dp'); a paged state's
+    pools (enc_pages, ext_pool, attn_pool) ``arena_pool_spec()``.  The
+    host lengths are slot-leading too."""
+    import torch.utils._pytree as pytree
+
+    from textsummarization_on_flink_tpu_torch.decode import beam_search
+
+    def dp(tree):
+        return pytree.tree_map(lambda _: Spec("dp"), tree)
+
+    if isinstance(state, beam_search.PagedSlotState):
+        return beam_search.PagedSlotState(
+            beam=dp(state.beam), enc_rest=dp(state.enc_rest),
+            enc_pages=[arena_pool_spec() for _ in state.enc_pages],
+            ext_pool=arena_pool_spec(), attn_pool=arena_pool_spec(),
+            enc_mask=Spec("dp"), enc_valid_len=Spec("dp"))
+    return beam_search.SlotState(
+        beam=dp(state.beam), enc_view=dp(state.enc_view),
+        enc_mask=Spec("dp"), ext_ids=Spec("dp"), enc_valid_len=Spec("dp"))
+
+
+def slot_batch_specs() -> Dict[str, Spec]:
+    """Encoder arrays stacked over slots: the slots axis over dp; T_enc
+    is not sharded (the resident state keeps one width)."""
+    return {k: Spec("dp") for k in ENC_BATCH_NAMES}
+
+
+def prefill_batch_spec(dp: int, rows: int = 1) -> Spec:
+    """A prefill batch of ``rows`` articles: over dp when the rows divide
+    dp, else replicated (the one-article prefill)."""
+    return Spec("dp") if rows >= dp and rows % dp == 0 else Spec()
+
+
+def arena_pool_spec() -> Spec:
+    """The page pools ([pages + 1, block, ...]): replicated."""
+    return Spec()
+
+
+def page_table_spec() -> Spec:
+    """The page table ([slots, b_max] ids): replicated."""
+    return Spec()
 
 
 # --------------------------------------------------------------------------
@@ -211,6 +262,38 @@ class ShardingRegistry:
 
     def wire_dtype(self, role: str = "grads") -> Optional[torch.dtype]:
         return wire_dtype(self.hps, role)
+
+    # -- serving --
+    def slot_state_specs(self, state: Any) -> Any:
+        return slot_state_specs(state)
+
+    def slot_batch_specs(self) -> Dict[str, Spec]:
+        return slot_batch_specs()
+
+    def prefill_batch_spec(self, rows: int = 1) -> Spec:
+        return prefill_batch_spec(self.dp, rows)
+
+    def prefill_batch_specs(self, rows: int = 1) -> Dict[str, Spec]:
+        spec = self.prefill_batch_spec(rows)
+        return {k: spec for k in ENC_BATCH_NAMES}
+
+    def prefill_state_specs(self, pre: Any) -> Any:
+        """A beam_search.PrefillState's specs: its leaves' leading axis
+        takes the prefill batch's rule (the true length is a host int)."""
+        import torch.utils._pytree as pytree
+
+        from textsummarization_on_flink_tpu_torch.decode import beam_search
+
+        spec = self.prefill_batch_spec(int(pre.enc_mask.shape[0]))
+        return beam_search.PrefillState(
+            enc_view=pytree.tree_map(lambda _: spec, pre.enc_view),
+            enc_mask=spec, ext_ids=spec, enc_valid_len=Spec())
+
+    def arena_pool_spec(self) -> Spec:
+        return arena_pool_spec()
+
+    def page_table_spec(self) -> Spec:
+        return page_table_spec()
 
     # -- params and state --
     def shard_params(self, params: PyTree) -> PyTree:
@@ -288,7 +371,6 @@ class ShardingRegistry:
         """The role -> spec -> wire-dtype table (tests assert it covers
         ROLES)."""
         w = self.hps.grad_allreduce_dtype
-        serve = f"not on a mesh yet: {ROADMAP_MESH_SERVING}"
         return [
             {"role": "params", "spec": "per-leaf rule (vocab/heads over "
                                        "tp, else replicated)", "wire": "-"},
@@ -308,11 +390,21 @@ class ShardingRegistry:
             {"role": "beam_output", "spec": "Spec('dp'): each dp group "
                                             "searches its rows, "
                                             "all-gathered", "wire": "-"},
-            {"role": "slot_state", "spec": serve, "wire": "-"},
-            {"role": "prefill_batch", "spec": serve, "wire": "-"},
-            {"role": "prefill_state", "spec": serve, "wire": "-"},
-            {"role": "arena_pool", "spec": serve, "wire": "-"},
-            {"role": "page_table", "spec": serve, "wire": "-"},
+            {"role": "slot_state",
+             "spec": "Spec('dp'): slot i on dp index i // (slots/dp); a "
+                     "paged state's pools arena_pool", "wire": "-"},
+            {"role": "prefill_batch",
+             "spec": "Spec('dp') when the prefill batch divides dp, else "
+                     "Spec()", "wire": "-"},
+            {"role": "prefill_state", "spec": "same leading-axis rule as "
+                                              "prefill_batch", "wire": "-"},
+            {"role": "arena_pool",
+             "spec": "Spec(): the [pages+1, block, ...] pools replicate; "
+                     "each rank reads its own residents' pages",
+             "wire": "-"},
+            {"role": "page_table",
+             "spec": "Spec(): the [slots, b_max] ids replicate",
+             "wire": "-"},
         ]
 
 

@@ -24,7 +24,16 @@ TFModel.java), without the Flink runtime:
     (TensorFlowTest.testJsonExportImport, :142-168).
 
 fit() and transform() run in one process, so ``Pipeline(estimator ->
-model)`` composes.  Both run on ``cuda`` unless the hyperparameters say
+model)`` composes.  On a mesh (``--dp``, ``--tp``, ``--sp`` with a
+product above 1, one process per rank under torchrun, as cli.py runs)
+fit and transform join the world themselves and every rank calls them
+with the same stages; the chief alone reads the Source and writes the
+Sink.  fit splits each global batch of the chief's over dp as the JAX
+package's ``shard_batch`` does (rank d of dp takes rows d*B/dp ..), so
+the sharded fit is the single-rank fit on the same rows; transform
+decodes through the sharded decoder (every rank in its decode loop) or,
+with ``serving=True``, a mesh ServingServer (serve/mesh.py: the chief
+serves, the others follow).  Both run on ``cuda`` unless the hyperparameters say
 ``--device=cpu``, and raise with no card otherwise.  ``--debug`` is
 applied by the trainer, as for ``cli.py --mode=train``: the batch of a
 non-finite loss is dumped.  ``transform(serving=True)`` runs the rows
@@ -59,6 +68,9 @@ from textsummarization_on_flink_tpu_torch.decode.decoder import (
     BeamSearchDecoder,
 )
 from textsummarization_on_flink_tpu_torch.device import resolve_device
+from textsummarization_on_flink_tpu_torch.parallel import collectives
+from textsummarization_on_flink_tpu_torch.parallel import distributed
+from textsummarization_on_flink_tpu_torch.parallel import mesh as mesh_lib
 from textsummarization_on_flink_tpu_torch.pipeline import bridge as bridge_lib
 from textsummarization_on_flink_tpu_torch.pipeline import params as P
 from textsummarization_on_flink_tpu_torch.pipeline.codec import ExampleCoding
@@ -113,6 +125,33 @@ def rows_to_examples(rows: Iterator[Row]) -> Iterator[Tuple[str, str, str, str]]
             continue
         uuid, article, reference = str(row[0]), str(row[1]), str(row[2])
         yield uuid, article, reference_to_abstract(reference), reference
+
+
+class _MeshBatches:
+    """The chief's global batches split over dp, for a Trainer on a mesh:
+    every rank's ``next_batch`` takes the chief's next batch (or its end)
+    over a process group of its own (the trainer's prefetch thread calls
+    it while the step's collectives run on the others) and returns this
+    rank's dp rows.  ``batcher`` is the chief's (None on the others)."""
+
+    class _Rows:
+        def __init__(self, arrays):
+            self._arrays = arrays
+
+        def as_arrays(self):
+            return self._arrays
+
+    def __init__(self, hps: HParams, batcher: Optional[Batcher]):
+        self._plan = collectives.with_own_world(mesh_lib.make_mesh(hps))
+        self._batcher = batcher
+
+    def next_batch(self):
+        batch = self._batcher.next_batch() if self._batcher else None
+        arrays = collectives.broadcast_object(
+            self._plan, None if batch is None else batch.as_arrays())
+        if arrays is None:
+            return None
+        return self._Rows(self._plan.registry.dp_rows(arrays))
 
 
 def train_dir_for(hps: HParams) -> str:
@@ -302,10 +341,16 @@ class SummarizationModel(Model,
         hps.validate()
         vocab = self._vocab(hps)
         out_sink = sink if sink is not None else CollectionSink()
-        feeder, example_source = _bridge(
-            source, self.get_inference_selected_cols(), hps)
-        batcher = Batcher("", vocab, hps, single_pass=True,
-                          example_source=example_source)
+        mesh_lib.join_world(hps)
+        # on a mesh the chief alone reads the source (the decoder
+        # broadcasts its batches)
+        chief = distributed.is_chief()
+        feeder, batcher = None, None
+        if chief:
+            feeder, example_source = _bridge(
+                source, self.get_inference_selected_cols(), hps)
+            batcher = Batcher("", vocab, hps, single_pass=True,
+                              example_source=example_source)
         # raises with no card and no --device=cpu, before the feeder starts
         decoder = BeamSearchDecoder(
             hps.replace(single_pass=False), vocab, batcher,
@@ -319,13 +364,15 @@ class SummarizationModel(Model,
             out_sink.write(res.as_row())
             c_out.inc()
 
-        feeder.start()
+        if feeder is not None:
+            feeder.start()
         try:
             with obs.spans.span(reg, "pipeline/transform"):
                 decoder.decode(result_sink=emit, max_batches=max_batches,
                                log_results=False)
         finally:
-            feeder.finish()
+            if feeder is not None:
+                feeder.finish()
         return out_sink
 
     def _transform_serving(self, source: Source,
@@ -346,6 +393,7 @@ class SummarizationModel(Model,
         out_sink = sink if sink is not None else CollectionSink()
         reg = obs.registry_for(hps)
         c_out = reg.counter("pipeline/rows_out_total")
+        mesh_lib.join_world(hps)
 
         class _CountedSink(Sink):
             # the synchronous path's row accounting, into the caller's
@@ -361,6 +409,9 @@ class SummarizationModel(Model,
             decode_root=os.path.join(hps.log_root or ".",
                                      hps.exp_name or "exp"),
             registry=reg)
+        if not distributed.is_chief():
+            server.follow()  # a mesh follower: the chief serves the rows
+            return out_sink
         with obs.spans.span(reg, "pipeline/transform_serving"):
             with server:
                 server.serve(source, _CountedSink(),
@@ -402,6 +453,7 @@ class SummarizationModel(Model,
         out_sink = sink if sink is not None else CollectionSink()
         reg = obs.registry_for(hps)
         c_out = reg.counter("pipeline/rows_out_total")
+        mesh_lib.join_world(hps)
         sel = self.get_inference_selected_cols()  # uuid, article, reference
         max_docs = max_batches * hps.batch_size
         assembler = DocumentAssembler(registry=reg)
@@ -429,6 +481,9 @@ class SummarizationModel(Model,
             decode_root=os.path.join(hps.log_root or ".",
                                      hps.exp_name or "exp"),
             registry=reg)
+        if not distributed.is_chief():
+            server.follow()  # a mesh follower: the chief serves the rows
+            return out_sink
         truncated = False
         with obs.spans.span(reg, "pipeline/transform_hierarchical"):
             with server:
@@ -520,10 +575,16 @@ class SummarizationEstimator(Estimator,
         hps.validate()
         device = resolve_device(hps.device)  # no card, no cpu: raise
         vocab = self._vocab(hps)
-        feeder, example_source = _bridge(
-            source, self.get_train_selected_cols(), hps)
-        batcher = Batcher("", vocab, hps, single_pass=True,
-                          example_source=example_source)
+        on_mesh = mesh_lib.join_world(hps)
+        feeder, batcher = None, None
+        if distributed.is_chief():
+            # the global batch: on a mesh split over dp by _MeshBatches
+            feeder, example_source = _bridge(
+                source, self.get_train_selected_cols(), hps)
+            batcher = Batcher("", vocab, hps, single_pass=True,
+                              example_source=example_source)
+        if on_mesh:
+            batcher = _MeshBatches(hps, batcher)
         train_dir = train_dir_for(hps)
         checkpointer = ckpt_lib.Checkpointer(train_dir, hps=hps)
         state = checkpointer.restore(device=device)
@@ -532,12 +593,14 @@ class SummarizationEstimator(Estimator,
         trainer = trainer_lib.Trainer(hps, vocab.size(), batcher,
                                       state=state, checkpointer=checkpointer,
                                       train_dir=train_dir)
-        feeder.start()
+        if feeder is not None:
+            feeder.start()
         try:
             with obs.spans.span(obs.registry_for(hps), "pipeline/fit"):
                 trainer.train(num_steps=hps.num_steps)
         finally:
-            feeder.finish()
+            if feeder is not None:
+                feeder.finish()
         return self._model()
 
     def _model(self) -> SummarizationModel:

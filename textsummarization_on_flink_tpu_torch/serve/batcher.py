@@ -204,6 +204,10 @@ class ContinuousBatcher:
         self._engine = engine
         self._faults = faults
         self.slots = int(engine.slots)
+        # the order free slots are filled in: the engine's (a mesh
+        # engine interleaves its dp indices), else 0, 1, ..
+        self._slot_order = list(getattr(engine, "slot_order",
+                                        range(self.slots)))
         self._resident: List[Optional[ServeRequest]] = [None] * self.slots
         self._chunks = [0] * self.slots  # chunks each resident has seen
         # the prefill queue: requests whose bucketed encoder
@@ -427,7 +431,7 @@ class ContinuousBatcher:
         Requests whose Deadline expired while awaiting a slot are
         resolved typed here instead of wasting one."""
         may_block = not self.busy()
-        for idx in range(self.slots):
+        for idx in self._slot_order:
             if self._resident[idx] is not None:
                 continue
             while True:

@@ -77,6 +77,17 @@ single-threaded, which is what makes the controller's unlocked
 mutation safe (decode/speculative.py; the current pick is on the
 ``decode/spec_k_current`` gauge).
 
+On a mesh (``dp * tp * sp > 1``: the decoder is sharded) every rank
+builds the server; the chief ``start``s it and serves the requests, each
+other rank calls ``follow`` (serve/mesh.py).  Both modes run there: a
+micro-batch through the sharded beam search, or the slot engine with its
+residents sharded over dp.  Only the beam tier is served: ``submit``
+raises ``ValueError`` for another tier (JAX serve/server.py:566-570).
+Only the dispatch thread issues collectives; a front-door hit, a shed,
+an expired deadline or a refused tier issues none, a ``hot_swap`` runs
+on the dispatch thread, and the dispatch thread's exit (``stop``,
+``kill``) ends the followers' loop.
+
 Observability (SERVING.md): serve/queue_depth, serve/time_in_queue_
 seconds, serve/batch_fill, serve/e2e_latency_seconds, serve/shed_total,
 serve/degraded_total, serve/errors_total, and the per-tier family
@@ -88,6 +99,7 @@ from __future__ import annotations
 
 import logging
 import os
+import queue as queue_lib
 import threading
 import time
 from typing import Any, List, Optional, Sequence
@@ -137,6 +149,10 @@ from textsummarization_on_flink_tpu_torch.serve.queue import (
 
 log = logging.getLogger(__name__)
 
+#: seconds a hot swap on a mesh waits for the dispatch thread to run it
+#: (a dispatch in flight finishes first)
+HOT_SWAP_WAIT_S = 600.0
+
 #: columns the serving path consumes from a pipeline row (the
 #: inference_selected_cols default, App.java:100)
 SERVE_COLS = ("uuid", "article", "reference")
@@ -170,15 +186,6 @@ class ServingServer:
         # the registry wins, like the SLO engine below
         profile_lib.install_profiler(self._reg, clock=clock)
         self._mode = hps.serve_mode
-        if hps.dp * hps.tp * hps.sp > 1 or getattr(decoder, "sharded",
-                                                     False):
-            from textsummarization_on_flink_tpu_torch.config import (
-                ROADMAP_MESH_SERVING,
-            )
-
-            raise NotImplementedError(
-                f"a ServingServer on a mesh (dp*tp*sp > 1, or a sharded "
-                f"decoder): {ROADMAP_MESH_SERVING}")
         if decoder is None:
             # deferred: the decoder pulls in torch and the model; a server
             # built around an injected stub must not pay that import.  It
@@ -191,6 +198,14 @@ class ServingServer:
                 hps.replace(single_pass=False), vocab, batcher=None,
                 params=params, train_dir=train_dir, decode_root=decode_root)
         self._decoder = decoder
+        # on a mesh (a sharded decoder, serve/mesh.py) the chief leads:
+        # each dispatch sends its op to the followers, which run follow()
+        self._mesh = bool(getattr(decoder, "sharded", False))
+        if self._mesh:
+            decoder.led = True
+        # calls another thread hands to the dispatch thread (a mesh's
+        # collectives are the dispatch thread's alone)
+        self._calls: "queue_lib.Queue" = queue_lib.Queue()
         self._queue = RequestQueue(
             hps.serve_max_queue, registry=self._reg,
             fair_weights=parse_fair_weights(
@@ -325,6 +340,8 @@ class ServingServer:
             if self._thread.is_alive():  # pragma: no cover - defensive
                 log.warning("serve dispatch thread still draining after "
                             "%.0fs; rejecting leftovers", timeout or 0)
+        else:
+            self._release_followers()  # no dispatch thread ever ran
         n = self._queue.drain_reject(
             ServeClosedError("server stopped before this request ran"))
         if n:
@@ -372,6 +389,8 @@ class ServingServer:
                 log.warning("killed serve dispatch thread still inside a "
                             "dispatch; residents will fail under it")
             self._thread = None
+        else:
+            self._release_followers()  # no dispatch thread ever ran
         n = 0
         if self._cont is not None:
             n += self._cont.fail_resident(err)
@@ -397,7 +416,51 @@ class ServingServer:
         replica drained.  Same failure tolerance as the between-batch
         path: a failed reload keeps the replica serving its CURRENT
         snapshot (counted in ``serve/ckpt_reload_errors_total``) and
-        returns False; the router keeps it in rotation either way."""
+        returns False; the router keeps it in rotation either way.  On a
+        mesh whose dispatch thread runs, the swap runs on that thread
+        between its rounds (the chief's path goes to every rank), and a
+        swap not run within ``HOT_SWAP_WAIT_S`` returns False."""
+        t = self._thread
+        if (not self._mesh or t is None or not t.is_alive()
+                or threading.current_thread() is t):
+            return self._hot_swap_now()
+        done = threading.Event()
+        box: list = []
+        self._calls.put((self._hot_swap_now, box, done))
+        if not done.wait(HOT_SWAP_WAIT_S):
+            log.warning("the dispatch thread did not run the hot swap "
+                        "within %.0f s", HOT_SWAP_WAIT_S)
+            return False
+        return box[0]
+
+    def _run_calls(self) -> None:
+        """Run what other threads handed to the dispatch thread."""
+        while True:
+            try:
+                fn, box, done = self._calls.get_nowait()
+            except queue_lib.Empty:
+                return
+            try:
+                box.append(fn())
+            finally:
+                done.set()
+
+    def _release_followers(self) -> None:
+        """A mesh chief's stop to its followers (once; serve/mesh.py)."""
+        if self._mesh and hasattr(self._decoder, "release_followers"):
+            self._decoder.release_followers()
+
+    def follow(self) -> int:
+        """A mesh follower's loop (serve/mesh.py): run the chief's ops
+        until its stop; returns the number run.  Every rank builds the
+        server; the chief starts it and takes the requests, each other
+        rank calls this instead of ``start``."""
+        from textsummarization_on_flink_tpu_torch.serve import mesh
+
+        engine = self._cont._engine if self._cont is not None else None
+        return mesh.follow(self._decoder, engine)
+
+    def _hot_swap_now(self) -> bool:
         try:
             # -inf forces the cadence check; the decoder's params lock
             # still makes the (params, ckpt, draft) swap atomic
@@ -579,6 +642,11 @@ class ServingServer:
                 f"continuous serving decodes at the beam tier only (the "
                 f"resident slot state is fixed-beam); got tier={tier!r} "
                 f"— use serve_mode=microbatch for tiered requests")
+        if tier != "beam" and getattr(self._decoder, "sharded", False):
+            raise ValueError(
+                f"sharded (mesh) serving decodes at the beam tier only "
+                f"(the sharded search runs the beam tier); got "
+                f"tier={tier!r}")
         if tier in ("spec", "draft") and not getattr(
                 self._decoder, "has_draft", False):
             raise ValueError(
@@ -720,13 +788,22 @@ class ServingServer:
                            period=obs_http.LOOP_HEARTBEAT_PERIOD)
 
     def _run(self) -> None:
-        if self._mode == "continuous":
-            self._run_continuous()
-            return
+        try:
+            if self._mode == "continuous":
+                self._run_continuous()
+            else:
+                self._run_microbatch()
+        finally:
+            # a mesh's followers leave their loop with the dispatch thread
+            self._release_followers()
+            self._run_calls()
+
+    def _run_microbatch(self) -> None:
         t_last = time.monotonic()
         while True:
             if self._killed:
                 return  # abrupt death: no drain (kill() rejects leftovers)
+            self._run_calls()
             self._beat()
             group = self._batcher.next_group()
             if group is None:
@@ -807,6 +884,7 @@ class ServingServer:
         while True:
             if self._killed:
                 return
+            self._run_calls()
             t_last = self._continuous_round(t_last)
             # drain condition: queue empty AND no residents AND no
             # prefilled-but-unslotted requests (a tick can harvest every
