@@ -102,7 +102,10 @@ device or without the port's sources beside it.  Phases, each fatal:
      2 steps per dispatch, metrics every 2; every fused launch on a bf16
      stream, the peak memory beside the materialised run's), 3 steps of
      the f32 streaming loss against the materialised run's losses, the
-     recovery run (RECOVERY_FLAGS: 2 skips, 1 rollback, lr_scale 0.5)
+     recovery run (RECOVERY_FLAGS: 2 skips, 1 rollback, lr_scale 0.5;
+     its flight dumps' headers equal to a small CPU run's, the trainer's
+     four phases and train/round walls, train/step_dispatch priced by
+     obs/cost.py, the sentinel's achieved rates printed beside the card)
      and a bf16 beam decode of 16 articles (2 bf16 fused launches per
      step);
   8. the decoder's scoring and continuous mode (phase_rouge_decode,
@@ -133,7 +136,12 @@ device or without the port's sources beside it.  Phases, each fatal:
      to a micro-batch server's, exactly 2 fused launches per decode step
      in every chunk; again over a page arena of 56 pages (backpressure,
      the same summaries); the transformer over its train phase's
-     checkpoint, 8 requests equal to its micro-batch server's; prints
+     checkpoint, 8 requests equal to its micro-batch server's, then with
+     the bf16 decode KV cache (--decode_cache_dtype=bfloat16, priced by
+     the sentinel): resident bytes per slot 2 * K * L * (T + 1) * H * 2
+     below the f32 cache's, the average log-probs of the summaries it
+     left equal within 2e-2 of the f32 cache's, serve/dispatch and
+     serve/prefill priced, the achieved rates printed; prints
      e2e p50/p99, queue p50, requests/s, mean occupancy and resident
      bytes per slot beside the micro-batch numbers;
  12. the speculative tier (phase_spec): through decode_batch(tier=...)
@@ -1594,6 +1602,10 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
         "train/target_tokens_total").value / n_batches
     warm = seconds[2:] or seconds  # steps 3 .. 10
     warm_s = statistics.median(warm)
+    # the trainer's flight dumps and its /profile body (phases, walls, the
+    # sentinel's priced dispatches)
+    flight = flight_headers(train_dir)
+    prof = profile_summary(reg)
     summary = dict(family=family, lr=hps.lr, steps=steps,
                    flags={k: v for k, v in extra.items()},
                    launches=launched,
@@ -1615,6 +1627,7 @@ def phase_train_main_path(seed, work, steps=10, device="cuda",
                        # None when the run never set it
                        lr_scale=getattr(reg.get(
                            "resilience/train/lr_scale"), "value", None)),
+                   flight_dumps=flight, profile=prof,
                    card=card_line() if device == "cuda" else None)
     print("train_main_path " + json.dumps(summary))
     return summary
@@ -1930,7 +1943,86 @@ BYTE_DIET_FLAGS = dict(loss_chunk=10, compute_dtype="bfloat16",
 #: the recovery run: train.step_nan injected on the first 3 dispatches
 #: (seed 7), 2 skips, then 1 rollback with the LR halved
 RECOVERY_FLAGS = dict(faults="train.step_nan:1.0:7:3", nan_skip_steps=2,
-                      nan_max_rollbacks=1)
+                      nan_max_rollbacks=1, flight_frames=8,
+                      profile_analytic=1, checkpoint_steps=2)
+#: the trainer's phases (obs/profile.py) in a run with a checkpoint cadence
+TRAIN_PHASES = {"train/host_wait", "train/step_dispatch",
+                "train/metrics_flush", "train/checkpoint"}
+
+
+def flight_headers(directory):
+    """{file: header without its write time} of the flight dumps in
+    ``directory``."""
+    out = {}
+    for path in sorted(glob.glob(os.path.join(directory, "flight_*.jsonl"))):
+        with open(path, encoding="utf-8") as f:
+            header = json.loads(f.readline())
+        header.pop("ts_us", None)
+        out[os.path.basename(path)] = header
+    return out
+
+
+def profile_summary(reg):
+    """The registry's /profile body, short: phase and wall counts and the
+    divergence sentinel's rows."""
+    from textsummarization_on_flink_tpu_torch.obs import profile as profile_lib
+
+    body = profile_lib.profile_payload(reg)
+    return dict(phases={p["phase"]: p["count"] for p in body["phases"]},
+                walls={w["wall"]: w["count"] for w in body["walls"]},
+                divergence=body["divergence"])
+
+
+def print_sentinel(what, rows):
+    """The sentinel's achieved rates of each priced shape, on a line of
+    their own beside the card (a reading, no claim)."""
+    print("profile_sentinel " + json.dumps(dict(
+        run=what, card=card_line(),
+        rows=[{k: r[k] for k in ("site", "key", "flops", "bytes", "samples",
+                                 "achieved_bytes_per_s",
+                                 "achieved_flops_per_s")} for r in rows])))
+
+
+def recovery_dumps_cpu(seed):
+    """The recovery run's flight-dump headers from a small
+    pointer-generator on the CPU (the same flags, 4 steps): which dumps
+    fire and their contexts follow the fault plan, not the width."""
+    from textsummarization_on_flink_tpu_torch import obs
+    from textsummarization_on_flink_tpu_torch.checkpoint import (
+        checkpointer as ckpt_lib,
+    )
+    from textsummarization_on_flink_tpu_torch.train import trainer
+
+    class Arrays:
+        def __init__(self, arrays):
+            self.arrays = arrays
+
+        def as_arrays(self):
+            return self.arrays
+
+    class Batches:
+        def __init__(self, batches):
+            self.batches = list(batches)
+
+        def next_batch(self):
+            return Arrays(self.batches.pop(0)) if self.batches else None
+
+    hps = small_hps("pointer_generator").replace(
+        mode="train", device="cpu", metrics_every=1, **RECOVERY_FLAGS)
+
+    def run(work):
+        with obs.use_registry(obs.Registry()):
+            tr = trainer.Trainer(
+                hps.replace(log_root=work), hps.vocab_size,
+                Batches(small_train_batches(hps, seed, 8)),
+                checkpointer=ckpt_lib.Checkpointer(
+                    os.path.join(work, "ck"), hps=hps),
+                checkpoint_secs=1e9, train_dir=os.path.join(work, "train"))
+            check(tr.train(num_steps=4).step == 4, "the CPU recovery run "
+                                                   "did not reach step 4")
+        return flight_headers(os.path.join(work, "train"))
+
+    return _in_work("recovery_cpu", run)
 
 
 def _in_work(name, fn):
@@ -1987,6 +2079,27 @@ def phase_byte_diet(seed, materialised, device="cuda"):
            rec["lr_scale"]) == (2.0, 1.0, 3.0, 0.5),
           f"recovery took {rec}, expected 2 skips, 1 rollback, 3 watchdog "
           f"fires, lr_scale 0.5")
+    # the flight dumps: the three injected NaNs and the rollback, with the
+    # CPU run's headers
+    dumps, want = recovery["flight_dumps"], recovery_dumps_cpu(seed)
+    check(sorted(dumps) == ["flight_nan_rollback.jsonl",
+                            "flight_train_nan-2.jsonl",
+                            "flight_train_nan-3.jsonl",
+                            "flight_train_nan.jsonl"],
+          f"the recovery run dumped {sorted(dumps)}")
+    check(dumps == want, f"the recovery run's dump headers {dumps} differ "
+                         f"from the CPU run's {want}")
+    prof = recovery["profile"]
+    check(set(prof["phases"]) == TRAIN_PHASES
+          and prof["walls"].get("train/round", 0) > 0,
+          f"the recovery run booked {prof['phases']} and {prof['walls']}")
+    priced = [r for r in prof["divergence"]
+              if (r["site"], r["key"]) == ("train/step_dispatch", "step")]
+    check(len(priced) == 1 and priced[0]["samples"] > 0
+          and priced[0]["flops"] > 0 and priced[0]["bytes"] > 0,
+          f"train/step_dispatch was not priced: {prof['divergence']}")
+    if device == "cuda":
+        print_sentinel("recovery", priced)
     decode = _in_work("decode_bf16", lambda w: phase_main_path(
         seed, 16, w, device=device, family=pg, compute_dtype="bfloat16"))
     # the byte-diet run's host reads one metrics window of 2 steps at a
@@ -2010,6 +2123,8 @@ def phase_byte_diet(seed, materialised, device="cuda"):
         materialised_f32_losses=reference["losses"],
         chunk_f32_rel_diff=rel, recovery=rec,
         recovery_launches=recovery["launches"],
+        recovery_dumps=sorted(dumps), recovery_phases=prof["phases"],
+        recovery_walls=prof["walls"],
         decode_bf16_launches_per_step=decode["kernel_launches"]
         / max(decode["decode_steps"], 1),
         decode_bf16_batch_seconds=decode["batch_seconds"])
@@ -2578,9 +2693,9 @@ def phase_continuous_serve(seed, work, params, tf_params, device="cuda"):
                                decode_root=os.path.join(work, name),
                                registry=reg)
         engine = server._cont._engine if server._cont is not None else None
-        chunks, resident = [], []
+        chunks, resident, avg_lp = [], [], {}
         if engine is not None:
-            step = engine.step
+            step, unpack, lead = engine.step, engine.unpack, engine._lead
 
             def counted_step():
                 f0, s0 = fa.launches, beam_search.steps_run
@@ -2589,7 +2704,24 @@ def phase_continuous_serve(seed, work, params, tf_params, device="cuda"):
                 resident.append(engine.resident_bytes_per_slot())
                 return out
 
+            def scored_unpack(idx, example):
+                """unpack, keeping the hypothesis' average log-prob."""
+                got = []
+
+                def kept(*cmd):
+                    got.append(lead(*cmd))
+                    return got[-1]
+
+                engine._lead = kept
+                try:
+                    res = unpack(idx, example)
+                finally:
+                    engine._lead = lead
+                avg_lp[example.uuid] = float(got[-1].avg_log_prob)
+                return res
+
             engine.step = counted_step
+            engine.unpack = scored_unpack
         resolved, waits, lock = {}, [], threading.Lock()
 
         def submit(row):
@@ -2638,7 +2770,9 @@ def phase_continuous_serve(seed, work, params, tf_params, device="cuda"):
                 paged=engine.paged,
                 arena_alloc_failures=reg.counter(
                     "serve/arena_alloc_failures_total").value,
-                arena_pages=engine._arena_pages if engine.paged else None)
+                arena_pages=engine._arena_pages if engine.paged else None,
+                avg_log_prob=avg_lp,
+                priced=profile_lib.profile_payload(reg)["divergence"])
             if device == "cuda" and hps.model_family == "pointer_generator":
                 bad = [c for c in chunks if c[0] != 2 * c[1] or c[1] == 0]
                 check(not bad, f"{name}: chunks with other than 2 fused "
@@ -2688,13 +2822,51 @@ def phase_continuous_serve(seed, work, params, tf_params, device="cuda"):
     differ = sorted(u for u in tf_mb if tf_mb[u] != tf_cont[u])
     check(not differ, f"transformer continuous summaries differ from the "
                       f"micro-batch server's for {differ}")
+    # the bf16 decode KV cache (--decode_cache_dtype=bfloat16), priced by
+    # the sentinel: JAX's drift envelope against the f32 cache's summaries
+    # and the cache's half of the resident bytes
+    tf_bf16, summary["transformer_bf16_cache"] = serve(
+        tf.replace(decode_cache_dtype="bfloat16", profile_analytic=True,
+                   **CONTINUOUS_FLAGS), tf_params, tf_rows, "tf_bf16_cache")
+    f32_run, bf16_run = summary["transformer"], summary["transformer_bf16_cache"]
+    drift = {u: abs(bf16_run["avg_log_prob"][u] - f32_run["avg_log_prob"][u])
+             for u in f32_run["avg_log_prob"]}
+    # JAX's envelope (2e-2) on every article whose summary the narrowed
+    # cache left as it was; where a near-tie split the beams (a barely
+    # trained model's are close), the two runs score different
+    # hypotheses, and that drift is reported, not held
+    same = [u for u in tf_cont if tf_bf16[u] == tf_cont[u]]
+    check(sorted(drift) == sorted(bf16_run["avg_log_prob"])
+          and 2 * len(same) >= len(tf_cont)
+          and max(drift[u] for u in same) <= 2e-2,
+          f"bf16-cache average log-probs drift from the f32 cache's by "
+          f"{drift}; equal summaries {same}")
+    saved = 2 * tf.beam_size * tf.dec_layers * (tf.max_dec_steps + 1) \
+        * tf.hidden_dim * 2
+    held = (f32_run["resident_bytes_per_slot"]
+            - bf16_run["resident_bytes_per_slot"])
+    check(held == saved, f"the bf16 cache holds {held} B less per slot, "
+                         f"expected {saved}")
+    priced = {(r["site"], r["key"]) for r in bf16_run["priced"]
+              if r["samples"] > 0}
+    want = {("serve/dispatch", f"slot_chunk{bf16_run['chunk_steps']}")}
+    check(want <= priced and any(site == "serve/prefill"
+                                 for site, _ in priced),
+          f"the bf16-cache server priced {sorted(priced)}")
+    summary["bf16_cache"] = dict(
+        max_avg_log_prob_drift=max(drift.values()),
+        max_drift_equal_summaries=max(drift[u] for u in same),
+        equal_summaries=len(same), of=len(tf_cont),
+        resident_bytes_saved_per_slot=held)
+    if device == "cuda":
+        print_sentinel("continuous_bf16_cache", bf16_run["priced"])
     summary["lengths"] = sorted(len(r[1].split()) for r in rows)
     summary["launches"] = sum(summary[k]["launches"] for k in (
         "micro_batch", "dense", "paged"))
     summary["slot_launches"] = sum(summary[k]["launches"] for k in (
         "dense", "paged"))
     summary["flash_launches"] = sum(summary[k]["flash_launches"] for k in (
-        "transformer_micro_batch", "transformer"))
+        "transformer_micro_batch", "transformer", "transformer_bf16_cache"))
     summary["card"] = card_line() if device == "cuda" else None
     print("continuous_serve " + json.dumps(summary))
     # the single server's transformer summaries, for phase_fleet, and its

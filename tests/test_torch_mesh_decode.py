@@ -4,9 +4,10 @@ EXACTLY equal, the average log-probabilities within 1e-5.
 
 dp=4 (each rank searches two of the eight articles) and dp2 x tp2 (the
 vocab-sharded embedding and projection, one scores all-gather per step)
-for the pointer-generator, dp2 x tp2 (its heads sharded too) and dp2 x
-sp2 under --sp_attention=ring (the sp ranks search the same rows) for
-the transformer; the BeamSearchDecoder on a mesh (the chief's results
+for the pointer-generator, dp2 x tp2 (its heads sharded too, with the
+f32 and with the bf16 KV cache, against the JAX search with the same
+cache) and dp2 x sp2 under --sp_attention=ring (the sp ranks search the
+same rows) for the transformer; the BeamSearchDecoder on a mesh (the chief's results
 equal the single-rank decoder's words, other tiers refused, the slot
 engine built over dp); continuous decode (``single_pass=0``)
 reloading a newer checkpoint at the chief's call when the ranks' clocks
@@ -54,6 +55,8 @@ FAMILIES = {"pointer_generator": {},
 MESHES = {"pointer_generator": {"dp4": dict(dp=4), "dp2_tp2": dict(dp=2,
                                                                   tp=2)},
           "transformer": {"dp2_tp2": dict(dp=2, tp=2),
+                          "dp2_tp2_bf16_cache": dict(
+                              dp=2, tp=2, decode_cache_dtype="bfloat16"),
                           "dp2_sp2_ring": dict(dp=2, sp=2,
                                                sp_attention="ring")}}
 #: which ranks' own clocks say a checkpoint reload is due
@@ -118,7 +121,9 @@ def ranks(tmp_path_factory):
     (f, n) for f, meshes in MESHES.items() for n in meshes])
 def test_sharded_beam_search_tokens_equal_jax(ranks, family, name):
     jhps, _, batch, params = _setup(family)
-    want = jax_bs.run_beam_search(params, jhps, batch.as_arrays())
+    cache = MESHES[family][name].get("decode_cache_dtype", "float32")
+    want = jax_bs.run_beam_search(
+        params, jhps.replace(decode_cache_dtype=cache), batch.as_arrays())
     for r in range(4):  # every rank holds the whole batch's outputs
         got = load_npz(ranks, f"{family}_{name}.rank{r}")
         np.testing.assert_array_equal(got["tokens"], want.tokens)

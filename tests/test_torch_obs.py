@@ -170,8 +170,9 @@ def test_the_flight_recorder_dumps_the_same_frames(tmp_path, monkeypatch):
 def test_the_phase_ledger_is_the_jax_one_under_one_clock():
     """The same phases and walls on an injected clock give the JAX
     profiler's phase table, walls, coverage and slowest dispatches, and
-    the same phase metrics (the port leaves the JAX compile ledger and
-    divergence sentinel out, and with them their metric families)."""
+    the same phase metrics (the sentinel's own parity is
+    tests/test_torch_profile_sentinel.py's; the port has no compile
+    ledger, and so none of its metric families)."""
     ledgers = []
     for pkg, obs_pkg in ((jax_profile, jax_obs), (profile, obs)):
         now = [0.0]

@@ -4,6 +4,7 @@ and the decode entry point end to end on the CPU."""
 import ast
 import os
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -96,19 +97,21 @@ def test_from_argv_matches_jax_on_shared_fields():
 
 def test_validate_refuses_unported_options():
     """bf16 compute is taken for every family (the transformer's flash
-    kernels have their bf16 forms), the AAN family too since queue 1 item
-    5; the options still to port raise naming their ROADMAP item (the
-    bf16 KV cache queue 2 item 6, in bf16 compute too)."""
+    kernels have their bf16 forms), the AAN family too; the bf16 KV cache
+    validates in either compute dtype, and a cache dtype JAX refuses is
+    refused with JAX's message."""
     torch_config.HParams(compute_dtype="bfloat16").validate()
     torch_config.HParams(compute_dtype="bfloat16",
                          model_family="transformer").validate()
     torch_config.HParams(compute_dtype="bfloat16",
                          model_family="avg_attention").validate()
     for dt in ("float32", "bfloat16"):
-        with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-            torch_config.HParams(model_family="transformer",
-                                 compute_dtype=dt,
-                                 decode_cache_dtype="bfloat16").validate()
+        torch_config.HParams(model_family="transformer", compute_dtype=dt,
+                             decode_cache_dtype="bfloat16").validate()
+    with pytest.raises(ValueError, match=re.escape(
+            "bad decode_cache_dtype 'float16' (float32/bfloat16)")):
+        torch_config.HParams(model_family="transformer",
+                             decode_cache_dtype="float16").validate()
     with pytest.raises(ValueError):
         get_family("nope")
     with pytest.raises(ValueError, match="device"):

@@ -225,8 +225,10 @@ def test_unported_transformer_options_raise_with_their_roadmap_item():
     hps = torch_config.HParams(model_family="transformer")
     hps.validate()
     assert get_family("transformer") is tfm
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2"):
-        hps.replace(decode_cache_dtype="bfloat16").validate()
+    # the bf16 KV cache is taken; another storage dtype is refused
+    hps.replace(decode_cache_dtype="bfloat16").validate()
+    with pytest.raises(ValueError, match="bad decode_cache_dtype"):
+        hps.replace(decode_cache_dtype="float16").validate()
     with pytest.raises(ValueError, match="num_heads"):
         hps.replace(num_heads=7).validate()
     # queue 1 item 5 landed: the AAN family validates, and a factored

@@ -406,7 +406,9 @@ def test_bf16_kv_cache_is_float32_holding_bf16_values():
     """Under bf16 compute the decode KV cache is float32 (the JAX
     package's cache_dtype without --decode_cache_dtype=bfloat16), before
     and after a step; the written positions hold the bf16 projections
-    widened exactly; the encoder view's cross K/V are bf16."""
+    widened exactly; the encoder view's cross K/V are bf16.  With
+    --decode_cache_dtype=bfloat16 the cache holds the same values in
+    bf16, so the step's outputs are the f32 cache's, bit for bit."""
     _, thps = _tf_decode_hps()
     p = from_numpy_tree(_tf_decode_params(thps))
     _, ta = _decode_batch(thps, thps, 3)
@@ -427,10 +429,17 @@ def test_bf16_kv_cache_is_float32_holding_bf16_values():
         assert first.abs().max() > 0
         assert torch.equal(first.to(BF16).float(), first)
     assert out.topk_log_probs.dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="queue 2, item 6"):
-        torch_config.HParams(model_family="transformer",
-                             compute_dtype="bfloat16",
-                             decode_cache_dtype="bfloat16").validate()
+    bhps = thps.replace(decode_cache_dtype="bfloat16")
+    bhps.validate()
+    binit, bstep = tfm.beam_adapter(bhps)
+    bout = bstep(p, enc, arrays["enc_padding_mask"],
+                 arrays["enc_batch_extend_vocab"],
+                 torch.zeros(B, dtype=torch.long), latest, binit(p, enc))
+    for name, x in bout.state.items():
+        assert x.dtype == BF16
+        assert torch.equal(x.float(), out.state[name])
+    assert torch.equal(bout.topk_log_probs, out.topk_log_probs)
+    assert torch.equal(bout.topk_ids, out.topk_ids)
 
 
 def test_bf16_beam_adapter_step_matches_jax():

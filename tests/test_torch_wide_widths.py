@@ -160,14 +160,14 @@ def test_width_refusal_names_what_does_not_fit(hidden, mode, refused,
 
 def _jax_only_nondefault():
     """A value other than the JAX default for every JAX-only field."""
-    for name, (ftype, default, item) in config.JAX_ONLY_FIELDS.items():
+    for name, (ftype, default) in config.JAX_ONLY_FIELDS.items():
         if ftype is bool:
             other = not default
         elif ftype is str:
             other = "other"
         else:
             other = ftype(default + 3)
-        yield name, other, item
+        yield name, other
 
 
 def test_jax_only_fields_mirror_the_jax_hparams():
@@ -177,7 +177,7 @@ def test_jax_only_fields_mirror_the_jax_hparams():
     port = {f.name for f in dataclasses.fields(HParams)}
     jax_fields = {f.name: f for f in dataclasses.fields(JaxHParams)}
     assert set(config.JAX_ONLY_FIELDS) == set(jax_fields) - port
-    for name, (ftype, default, _) in config.JAX_ONLY_FIELDS.items():
+    for name, (ftype, default) in config.JAX_ONLY_FIELDS.items():
         assert jax_fields[name].type == ftype.__name__
         assert jax_fields[name].default == default
 
@@ -188,30 +188,25 @@ def test_jax_only_fields_at_their_defaults_are_accepted():
     hps = HParams.from_string(JaxHParams(lr=0.25, hidden_dim=24).to_argv())
     assert (hps.lr, hps.hidden_dim) == (0.25, 24)
     argv = [f"--{n}={shlex.quote(str(d)) if str(d) else ''}"
-            for n, (_, d, _) in config.JAX_ONLY_FIELDS.items()]
+            for n, (_, d) in config.JAX_ONLY_FIELDS.items()]
     assert HParams.from_string(" ".join(argv)) == HParams()
 
 
-@pytest.mark.parametrize("name,other,item",
+@pytest.mark.parametrize("name,other",
                          list(_jax_only_nondefault()),
-                         ids=[n for n, _, _ in _jax_only_nondefault()])
-def test_a_jax_only_field_off_its_default_names_its_item(name, other, item):
-    """Any other value raises NotImplementedError naming the ROADMAP item
-    (scan_unroll, which changes no result, is taken and ignored)."""
+                         ids=[n for n, _ in _jax_only_nondefault()])
+def test_a_jax_only_field_off_its_default_names_its_item(name, other):
+    """The one JAX-only field left, scan_unroll, changes no result: any
+    value is taken and ignored.  No field is refused any more."""
+    assert list(config.JAX_ONLY_FIELDS) == ["scan_unroll"]
     argv = [f"--{name}={other}", "--mode=decode", "--device=cpu"]
-    if item is None:
-        assert HParams.from_argv(argv) == HParams(mode="decode",
-                                                  device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, "
-                       "item " + item.split("item ")[1].split(" ")[0]):
-        HParams.from_argv(argv)
+    assert HParams.from_argv(argv) == HParams(mode="decode", device="cpu")
 
 
 def test_jax_flags_that_parsed_silently_now_raise():
-    """The flags that parsed silently before the repair: the ones of an
-    unported item raise naming it; the mesh's (item 6) parse as the JAX
-    package parses them."""
+    """The flags that parsed silently before the repair parse as the JAX
+    package parses them: the mesh's and, since the profiler's sentinel
+    was ported, the profiler's."""
     argv = ("--dp=2 --decode_deadline_secs=2 --spec_draft=map "
             "--serve_default_tier=greedy --grad_allreduce_dtype=bfloat16 "
             "--mode=decode").split()
@@ -223,8 +218,12 @@ def test_jax_flags_that_parsed_silently_now_raise():
         got, want = (HParams.from_argv(flags.split()),
                      JaxHParams.from_argv(flags.split()))
         assert (got.sp, got.tp) == (want.sp, want.tp) != (1, 1)
-    with pytest.raises(NotImplementedError, match="item 2h"):
-        HParams.from_argv(["--profile_analytic"])
+    for argv in (["--profile_analytic"],
+                 ["--profile_divergence_factor", "2.5"]):
+        got, want = HParams.from_argv(argv), JaxHParams.from_argv(argv)
+        assert (got.profile_analytic, got.profile_divergence_factor) == (
+            want.profile_analytic, want.profile_divergence_factor) != (
+            False, 5.0)
     # the slot engine's flags came with the slot engine (item 4), the
     # speculative tier's with the AAN draft (item 5), the fleet's and the
     # hierarchical summarizer's with the fleet layer (item 7)
@@ -240,8 +239,9 @@ def test_jax_flags_that_parsed_silently_now_raise():
 
 
 #: the fields the obs package, the serve layer, the speculative tier, the
-#: fleet layer and the mesh brought, each at a value other than its JAX
-#: default; the item's label
+#: fleet layer, the mesh, the profiler's sentinel and the bf16 decode
+#: cache brought, each at a value other than its JAX default; the item's
+#: label
 #: where the value still needs an unported item, else None
 PORTED_FLAGS = [
     ("obs", "False", None), ("obs_http_port", "9000", None),
@@ -272,6 +272,9 @@ PORTED_FLAGS = [
     ("hier_chunk_tier", "beam", None), ("hier_reduce_tier", "greedy", None),
     ("dp", "2", None), ("tp", "2", None), ("sp", "2", None),
     ("sp_attention", "ring", None), ("grad_allreduce_dtype", "bfloat16", None),
+    ("profile_analytic", "True", None),
+    ("profile_divergence_factor", "2.5", None),
+    ("decode_cache_dtype", "bfloat16", None),
 ]
 
 

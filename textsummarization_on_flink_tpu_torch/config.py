@@ -43,15 +43,14 @@ world of ``dp * tp * sp`` ranks runs the sharded train, eval and batch
 decode paths, the slot engine and the serve layer (parallel/), every
 model family.
 
-Fields of the JAX package that steer paths this package does not have
-yet (the profiler's analytic pricing) are not fields here:
-``JAX_ONLY_FIELDS`` lists them with their JAX types and defaults, and
-``from_argv`` (so ``from_string`` and the pipeline's hyperparameter
-strings too) accepts one at its default and raises
-``NotImplementedError`` naming the ROADMAP item that brings it for any
-other value, so a JAX run's flags never silently become a different
-run.  Flags unknown to both packages are ignored, as the reference's
-``FLAGS(known_only=True)`` does.
+The profiler's fields (``profile_analytic``,
+``profile_divergence_factor``) and the transformer's decode-cache
+storage type (``decode_cache_dtype``) are the JAX package's, with its
+defaults and checks.  The one JAX field the port has no use for,
+``scan_unroll``, is in ``JAX_ONLY_FIELDS``: ``from_argv`` (so
+``from_string`` and the pipeline's hyperparameter strings too) takes it
+and ignores it.  Flags unknown to both packages are ignored, as the
+reference's ``FLAGS(known_only=True)`` does.
 """
 
 from __future__ import annotations
@@ -64,7 +63,6 @@ from typing import Any, Dict, List, Optional, Tuple
 
 #: ROADMAP.md names the queue item that brings each missing mode, option
 #: or family; error messages point there
-ROADMAP_BF16_CACHE = "ROADMAP.md queue 2, item 6 (bf16 decode KV cache)"
 ROADMAP_HEAD_DIM = ("ROADMAP.md queue 3, item 1 (transformer head dims above "
                     "256 on the card)")
 ROADMAP_PG_WIDTH = ("ROADMAP.md queue 3, item 4 (pointer-generator widths "
@@ -73,23 +71,16 @@ ROADMAP_PG_WIDTH = ("ROADMAP.md queue 3, item 4 (pointer-generator widths "
 ROADMAP_AAN_TP = ("ROADMAP.md section 3, port fault 8 (the AAN family on a "
                   "tp mesh: the port's Megatron layout needs tp to divide "
                   "each sharded width)")
-ROADMAP_PROFILE = ("ROADMAP.md queue 1, item 2h (the profiler's analytic "
-                   "pricing and divergence sentinel, the trainer's flight "
-                   "frames and profiler phases)")
 
 
 #: the JAX package's HParams fields that the port does not have, as
-#: name -> (type, JAX default, what brings it): a copy of the field list of
+#: name -> (type, JAX default): a copy of the field list of
 #: textsummarization_on_flink_tpu/config.py, kept literal under the import
-#: rule.  A value other than the default raises NotImplementedError naming
-#: the ROADMAP item.  ``scan_unroll`` (the lax.scan unroll factor of the
-#: LSTM recurrences) names no item: it changes XLA's compile, never a
-#: result, and eager PyTorch has no scan to unroll, so any value is taken
-#: and ignored.
-JAX_ONLY_FIELDS: Dict[str, Tuple[type, Any, Optional[str]]] = {
-    "scan_unroll": (int, 8, None),
-    "profile_analytic": (bool, False, ROADMAP_PROFILE),
-    "profile_divergence_factor": (float, 5.0, ROADMAP_PROFILE),
+#: rule.  ``scan_unroll`` (the lax.scan unroll factor of the LSTM
+#: recurrences) changes XLA's compile, never a result, and eager PyTorch
+#: has no scan to unroll, so any value is taken and ignored.
+JAX_ONLY_FIELDS: Dict[str, Tuple[type, Any]] = {
+    "scan_unroll": (int, 8),
 }
 
 
@@ -103,17 +94,6 @@ def _parse_flag(ftype: Any, val: str) -> Any:
     if ftype in ("float", float):
         return float(val)
     return val
-
-
-def _refuse_jax_only(name: str, val: str) -> None:
-    """Raise NotImplementedError when a JAX-only field gets a value other
-    than its JAX default (compared as the field's type: ``to_argv``
-    renders ``True``, ``0.15``, ``''``)."""
-    ftype, default, item = JAX_ONLY_FIELDS[name]
-    if item is not None and _parse_flag(ftype, val) != default:
-        raise NotImplementedError(
-            f"--{name}={val}: the PyTorch port has no {name!r} yet (only the "
-            f"JAX default {default!r} is accepted); {item}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -190,6 +170,14 @@ class HParams:
     # profiler trace directory for the steps 2-7 capture window; "" =
     # none (TS_PROFILE_DIR is the fallback) (JAX config.py:155-163)
     profile_dir: str = ""
+    # analytic pricing for the profiler's divergence sentinel: each
+    # dispatch shape priced once off the hot path by obs/cost.py, and
+    # achieved bytes/s and FLOPs/s gauges published against it; a
+    # dispatch whose achieved bytes/s falls more than
+    # profile_divergence_factor (> 1) below the shape's warm baseline
+    # dumps the flight ring (JAX config.py:165-177)
+    profile_analytic: bool = False
+    profile_divergence_factor: float = 5.0
     # fault-injection arming for this job, "point:prob:seed[:max]"
     # comma-separated (resilience/faultinject.py; JAX config.py:178-184)
     faults: str = ""
@@ -278,8 +266,8 @@ class HParams:
     dec_layers: int = 6
     num_heads: int = 8
     ffn_dim: int = 0
-    # storage type of the transformer's decode KV cache (JAX :260);
-    # float32 only in the port
+    # storage type of the transformer's decode self-attention KV cache,
+    # "float32" or "bfloat16" (widened to f32 at use) (JAX :260)
     decode_cache_dtype: str = "float32"
 
     # the speculative tier (JAX config.py:298-350): draft tokens proposed
@@ -334,11 +322,10 @@ class HParams:
         """Parse the reference's space-joined ``--flag value`` /
         ``--flag=value`` hyperparameter string (known flags only, like
         FLAGS(known_only=True) at run_summarization.py:420).  A JAX-only
-        field (``JAX_ONLY_FIELDS``) away from its default raises
-        NotImplementedError."""
+        field (``JAX_ONLY_FIELDS``) is parsed and dropped."""
         fields = {f.name: f.type for f in dataclasses.fields(cls)}
         types = dict(fields)
-        types.update((n, t) for n, (t, _, _) in JAX_ONLY_FIELDS.items())
+        types.update((n, t) for n, (t, _) in JAX_ONLY_FIELDS.items())
         bool_literals = ("1", "0", "true", "false", "yes", "no")
         out: Dict[str, Any] = {}
         i = 0
@@ -365,8 +352,6 @@ class HParams:
             else:  # non-bool flag with no value: skip it
                 i += 1
                 continue
-            if name in JAX_ONLY_FIELDS:
-                _refuse_jax_only(name, val)
             if name in fields:
                 out[name] = _parse_flag(fields[name], val)
         return cls(**out)
@@ -418,6 +403,11 @@ class HParams:
         if self.summary_flush_every < 1:
             raise ValueError(f"summary_flush_every must be >= 1, got "
                              f"{self.summary_flush_every}")
+        if self.profile_divergence_factor <= 1.0:
+            raise ValueError(
+                f"profile_divergence_factor must be > 1 (a dispatch "
+                f"cannot 'diverge' by running at or above baseline), "
+                f"got {self.profile_divergence_factor}")
         self._validate_serving()
         self._validate_mesh()
         if self.max_dec_steps < 1 or self.max_enc_steps < 1:
@@ -447,13 +437,10 @@ class HParams:
         if self.device == "cuda" and self.model_family == "pointer_generator":
             self._refuse_pg_width()
         self._validate_spec()
-        if self.decode_cache_dtype == "bfloat16":
-            raise NotImplementedError(
-                f"decode_cache_dtype='bfloat16': the port stores the KV "
-                f"cache in float32 only; {ROADMAP_BF16_CACHE}")
-        if self.decode_cache_dtype != "float32":
-            raise ValueError(f"bad decode_cache_dtype "
-                             f"{self.decode_cache_dtype!r}")
+        if self.decode_cache_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"bad decode_cache_dtype {self.decode_cache_dtype!r} "
+                f"(float32/bfloat16)")
         if self.faults:
             # parse for validation only: unknown points and bad
             # probabilities fail here, not at the injection site

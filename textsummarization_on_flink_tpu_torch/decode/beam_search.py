@@ -60,7 +60,9 @@ from textsummarization_on_flink_tpu_torch.data.vocab import (
     STOP_ID,
     UNK_ID,
 )
+from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch.models import get_family
+from textsummarization_on_flink_tpu_torch.obs import profile as profile_lib
 from textsummarization_on_flink_tpu_torch.parallel import collectives
 
 NEG = -1e30  # effectively -inf, without inf-inf NaN hazards
@@ -362,10 +364,16 @@ def run_beam_search(params, hps: HParams, arrays: Dict[str, np.ndarray],
                     chunk: Optional[int] = None) -> BeamSearchOutput:
     """Host entry: decode a batch (Batch.as_arrays()) on the device that
     holds ``params``.  Returns host numpy arrays; callers strip
-    START/[STOP] and map ids back to words (decode/decoder.py)."""
+    START/[STOP] and map ids back to words (decode/decoder.py).  The
+    batch's wall is booked as the profiler's ``decode/beam_search``
+    phase."""
     device = params["embedding"].device
+    prof = profile_lib.profiler_for(obs.registry_for(hps))
+    t0 = prof.start()
     dev_arrays = _to_device({k: arrays[k] for k in _ENC_KEYS}, device)
-    return _search_batch(params, hps, dev_arrays, chunk)
+    out = _search_batch(params, hps, dev_arrays, chunk)
+    prof.end("decode/beam_search", t0)
+    return out
 
 
 # --------------------------------------------------------------------------

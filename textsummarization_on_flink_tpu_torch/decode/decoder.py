@@ -96,6 +96,8 @@ from textsummarization_on_flink_tpu_torch.decode.arena import PageArena
 from textsummarization_on_flink_tpu_torch.device import resolve_device
 from textsummarization_on_flink_tpu_torch.evaluate import rouge
 from textsummarization_on_flink_tpu_torch.models import avg_attention
+from textsummarization_on_flink_tpu_torch.obs import cost as cost_lib
+from textsummarization_on_flink_tpu_torch.obs import profile as profile_lib
 from textsummarization_on_flink_tpu_torch.parallel import collectives
 from textsummarization_on_flink_tpu_torch.parallel import distributed
 from textsummarization_on_flink_tpu_torch.parallel import mesh as mesh_lib
@@ -595,12 +597,16 @@ class BeamSearchDecoder:
             p_gens=p_gens[: max(len(decoded_words), 1)],
             tier=tier, params_fingerprint=self.params_fingerprint)
 
-    def slot_engine(self, slots: int, chunk: int) -> "SlotDecodeEngine":
+    def slot_engine(self, slots: int, chunk: int,
+                    registry: Optional[obs.Registry] = None,
+                    ) -> "SlotDecodeEngine":
         """The continuous-batching engine over this decoder's params:
         ``slots`` resident articles decoded ``chunk`` steps at a time,
         with refill between chunks (JAX decoder.py:553); on a mesh its
-        resident slots shard over dp (JAX decoder.py:690-810)."""
-        return SlotDecodeEngine(self, slots, chunk)
+        resident slots shard over dp (JAX decoder.py:690-810).  Its
+        spans and analytic prices go to ``registry`` (the serving
+        server's; ``obs.registry_for(hps)`` when None)."""
+        return SlotDecodeEngine(self, slots, chunk, registry=registry)
 
     def decode(self, with_rouge: bool = True,
                result_sink: Optional[Callable[[DecodedResult], None]] = None,
@@ -769,12 +775,15 @@ class SlotDecodeEngine:
     one rank raises on every rank (collectives.all_ok) before a rank
     waits on it.
 
-    Not here, each for want of its counterpart in the port: the JAX
-    engine's compile-ledger budgets (the port has no jit cache; ROADMAP
-    queue 1, item 2h) and the analytic pricing of a chunk
-    (``profile_analytic``; item 2h)."""
+    With ``profile_analytic`` the engine prices its dispatch shapes for
+    the profiler's divergence sentinel (obs/cost.py, off the hot path):
+    the chunk once, as ``serve/dispatch`` / ``slot_chunk<chunk>``, and
+    each prefill bucket at its first use, as ``serve/prefill`` /
+    bucket.  Not here, for want of its counterpart in the port: the JAX
+    engine's compile-ledger budgets (eager PyTorch has no jit cache)."""
 
-    def __init__(self, decoder: BeamSearchDecoder, slots: int, chunk: int):
+    def __init__(self, decoder: BeamSearchDecoder, slots: int, chunk: int,
+                 registry: Optional[obs.Registry] = None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if chunk < 1:
@@ -802,7 +811,17 @@ class SlotDecodeEngine:
                                           self._hps.max_enc_steps)
         self._state = None  # built at this rank's first pack
         self._active = np.zeros(slots, dtype=bool)
-        self._obs = obs.registry_for(self._hps)
+        self._obs = (registry if registry is not None
+                     else obs.registry_for(self._hps))
+        self._prof = profile_lib.profiler_for(self._obs)
+        self._priced_buckets: set = set()
+        if self._hps.profile_analytic:
+            # the engine's whole chunk (a rank is priced at its share)
+            chunk_hps, n = self._run_hps.replace(batch_size=slots), self.chunk
+            self._prof.register_cost(
+                "serve/dispatch", f"slot_chunk{n}",
+                lambda: cost_lib.decode_step_cost(chunk_hps, path="slot",
+                                                  chunk=n))
         self._block = resolve_enc_block(self._hps)
         self._b_max = -(-self._hps.max_enc_steps // self._block)
         page_bytes = None
@@ -891,6 +910,7 @@ class SlotDecodeEngine:
                       enc_steps=bucket)
         arrays = {k: v for k, v in batch.as_arrays().items()
                   if k.startswith("enc_")}
+        self._register_prefill_cost(bucket)
         pid = self._next_pid
         self._next_pid += 1
         pre = self._lead("prefill", pid, arrays)
@@ -900,6 +920,17 @@ class SlotDecodeEngine:
     def _encode(self, arrays) -> Any:
         with collectives.bound(self._plan):
             return beam_search.prefill(self._params(), self._run_hps, arrays)
+
+    def _register_prefill_cost(self, bucket: int) -> None:
+        """Queue the analytic price of one prefill bucket, at its first
+        use (``profile_analytic``)."""
+        if not self._hps.profile_analytic or bucket in self._priced_buckets:
+            return
+        self._priced_buckets.add(bucket)
+        hps = self._run_hps
+        self._prof.register_cost(
+            "serve/prefill", bucket,
+            lambda: cost_lib.prefill_cost(hps, bucket))
 
     def _do_prefill(self, pid: int, arrays) -> Any:
         err, pre = None, None

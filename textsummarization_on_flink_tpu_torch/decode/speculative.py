@@ -57,9 +57,11 @@ from textsummarization_on_flink_tpu_torch.data.vocab import (
     STOP_ID,
     UNK_ID,
 )
+from textsummarization_on_flink_tpu_torch import obs
 from textsummarization_on_flink_tpu_torch.decode import beam_search
 from textsummarization_on_flink_tpu_torch.decode.beam_search import NEG
 from textsummarization_on_flink_tpu_torch.models import get_family
+from textsummarization_on_flink_tpu_torch.obs import profile as profile_lib
 
 #: draft-verify cycles run so far, over all batches (a lockstep cycle
 #: counts once whatever its rows); a run sets it to 0 before the cycles
@@ -349,18 +351,23 @@ def run_spec_decode(full_params, draft_params, hps: HParams,
     ``controller`` (or ``hps.spec_k_adaptive``) routes through the
     adaptive engine; a persistent controller carries its acceptance
     estimate across batches, and ``real_mask`` keeps padding rows out of
-    its observations."""
+    its observations.  A fixed-k batch's wall is booked as the
+    profiler's ``decode/spec_cycle`` phase (the adaptive engine books
+    each cycle)."""
     if controller is None and hps.spec_k_adaptive:
         controller = SpecKController.from_hps(hps)
     if controller is not None:
         return run_spec_decode_adaptive(full_params, draft_params, hps,
                                         arrays, controller,
                                         real_mask=real_mask)
+    prof = profile_lib.profiler_for(obs.registry_for(hps))
+    t0 = prof.start()
     fhps, engine = _prepare(full_params, draft_params, hps, arrays)
     spec_k = int(hps.spec_k)
     c = engine.init(spec_k)
     while not bool(c.done.all()):
         c = engine.cycle(c, spec_k)
+    prof.end("decode/spec_cycle", t0)
     return _output(c, fhps.max_dec_steps)
 
 
@@ -485,9 +492,12 @@ def run_spec_decode_adaptive(full_params, draft_params, hps: HParams,
     real = (np.asarray(real_mask, dtype=bool) if real_mask is not None
             else np.ones(c.t.shape[0], dtype=bool))
     prev_hist = 0  # broadcasts against the first histogram read
+    prof = profile_lib.profiler_for(obs.registry_for(hps))
     for _ in range(fhps.max_dec_steps):
         k = controller.k
+        t0 = prof.start()
         c = engine.cycle(c, k)
+        prof.end("decode/spec_cycle", t0)
         # the cycle's one host read: the histogram and the done flags
         hist_done = torch.cat([c.hist, c.done[:, None].long()],
                               dim=1).cpu().numpy()

@@ -45,9 +45,13 @@ P V (the self-attention's flash kernels take bf16 q, k, v); the
 encoder's output is f32 and cast to bf16 again for the cross-attention;
 the final LN and the cross-attention context are f32 for p_gen and the
 vocab projection (bf16 operands, f32 sums).  Decoding keeps the KV cache
-in float32 (it holds the bf16 projections widened) and forms both
+in float32 (it holds the bf16 projections widened) unless
+``decode_cache_dtype`` says otherwise, and forms both
 attentions' logits and contexts in f32, rounding each context to bf16
-before ``wo``.  In f32 every cast is a no-op.  The slot engine's step
+before ``wo``.  ``decode_cache_dtype=bfloat16`` stores that cache in
+bf16 (half its bytes, resident and per step) and widens it to f32 where
+it is read, so the logits, softmax and contexts stay f32.  In f32 every
+cast is a no-op.  The slot engine's step
 bounds the cross-attention by its residents' longest article
 (``cross_attend_layer(nb=...)``, plain torch over the K/V prefix, as the
 JAX package computes it in XLA).
@@ -55,12 +59,12 @@ JAX package computes it in XLA).
 The speculative tier's verifier (``spec_init_state``, ``spec_verify``)
 scores the S = spec_k + 1 positions of a cycle in one parallel pass over
 a per-row KV cache of [B, L, W, nh, hd], W = max_dec_steps + spec_k + 1
-(f32, as the beam step's), each row at its own step ``t0``.  The AAN
+(in the beam step's cache dtype), each row at its own step ``t0``.  The AAN
 draft family (models/avg_attention.py) shares this module's encoder
 stack, cross-attention, output tail and loss head; its factored
 ``vocab_head`` (the narrow draft) goes through ``vocab_scores_of`` and
-``vocab_proj_weight``.  ``decode_cache_dtype=bfloat16`` waits for a later
-slice (ROADMAP.md).
+``vocab_proj_weight``.  Neither the pointer-generator nor the AAN has a
+KV cache, so ``decode_cache_dtype`` changes nothing there.
 """
 
 from __future__ import annotations
@@ -501,25 +505,31 @@ def decode_output_tail(params: Params, hps: HParams, y: torch.Tensor,
     return final_dist, p_gen, h
 
 
+def cache_dtype(hps: HParams) -> torch.dtype:
+    """The decode KV cache's storage dtype (``--decode_cache_dtype``)."""
+    return (torch.bfloat16 if hps.decode_cache_dtype == "bfloat16"
+            else torch.float32)
+
+
 def beam_adapter(hps: HParams):
     """(init_state, step) closures implementing the beam protocol for the
     transformer (transformer.py:607-678).  State: the KV cache
-    ``cache_k`` / ``cache_v`` of [B, K, L, T_dec+1, nh, hd], float32
-    whatever the compute dtype (the JAX package's cache_dtype; a bf16
-    cache is decode_cache_dtype=bfloat16, refused); a position is valid
-    up to each article's own step t."""
+    ``cache_k`` / ``cache_v`` of [B, K, L, T_dec+1, nh, hd] (nh the
+    rank's heads under tp) in ``cache_dtype(hps)`` whatever the compute
+    dtype; a position is valid up to each article's own step t."""
     K = hps.beam_size
     L = hps.dec_layers
     hd = _head_dim(hps)
     T = hps.max_dec_steps + 1
+    store = cache_dtype(hps)
 
     def init_state(params: Params, enc: TransformerEncView):
         del params
         B = enc.cross_k.shape[0]
         shape = (B, K, L, T, _local_heads(hps), hd)
-        f32 = dict(dtype=torch.float32, device=enc.cross_k.device)
-        return {"cache_k": torch.zeros(shape, **f32),
-                "cache_v": torch.zeros(shape, **f32)}
+        kw = dict(dtype=store, device=enc.cross_k.device)
+        return {"cache_k": torch.zeros(shape, **kw),
+                "cache_v": torch.zeros(shape, **kw)}
 
     def step(params: Params, enc: TransformerEncView, enc_mask: torch.Tensor,
              ext_ids: torch.Tensor, t: torch.Tensor, latest: torch.Tensor,
@@ -538,22 +548,23 @@ def beam_adapter(hps: HParams):
         ki = torch.arange(K, device=t.device)[None, :]
         ti = t[:, None]
         attn_dist = cross_ctx = None
-        dt = y.dtype  # projections in the activation dtype; the cache,
-        # logits and softmax f32
+        dt = y.dtype  # projections in the activation dtype; the logits
+        # and softmax f32, the cache stored in `store` and widened at use
         for li, layer in enumerate(params["decoder"]["layers"]):
             p = layer["self_attn"]
             h_norm = collectives.copy_to_tp(_ln(layer["ln1"], y))
             # [B, K, nh, hd]
             q = _split_heads(hps, h_norm @ p["wq"].to(dt))
             cache_k[bi, ki, li, ti] = _split_heads(
-                hps, h_norm @ p["wk"].to(dt)).float()
+                hps, h_norm @ p["wk"].to(dt)).to(store)
             cache_v[bi, ki, li, ti] = _split_heads(
-                hps, h_norm @ p["wv"].to(dt)).float()
+                hps, h_norm @ p["wv"].to(dt)).to(store)
             logits = torch.einsum("bknd,bktnd->bknt", q.float(),
-                                  cache_k[:, :, li]) * (hd ** -0.5)
+                                  cache_k[:, :, li].float()) * (hd ** -0.5)
             logits = torch.where(pos_ok[:, None, None, :], logits, NEG)
             probs = torch.softmax(logits, dim=-1)
-            ctx = torch.einsum("bknt,bktnd->bknd", probs, cache_v[:, :, li])
+            ctx = torch.einsum("bknt,bktnd->bknd", probs,
+                               cache_v[:, :, li].float())
             y = y + collectives.reduce_from_tp(_merge_heads(ctx).to(dt)
                                                @ p["wo"].to(dt))
             cross_out, attn_dist = cross_attend_layer(
@@ -601,15 +612,16 @@ def spec_init_state(hps: HParams, spec_k: int, batch: int,
     """The verifier's KV cache of ``batch`` articles (transformer.py:708):
     [B, L, W, nh, hd] with W = max_dec_steps + spec_k + 1, wide enough
     that a block starting at any step up to the horizon writes its
-    spec_k + 1 entries in bounds.  f32, as the beam step's cache; a
-    position is valid up to each row's committed step, so rejected
-    entries are never read and the next block overwrites them."""
+    spec_k + 1 entries in bounds.  In ``cache_dtype(hps)``, as the beam
+    step's cache; a position is valid up to each row's committed step,
+    so rejected entries are never read and the next block overwrites
+    them."""
     L, nh, hd = hps.dec_layers, hps.num_heads, _head_dim(hps)
     W = hps.max_dec_steps + spec_k + 1
     shape = (batch, L, W, nh, hd)
-    f32 = dict(dtype=torch.float32, device=device)
-    return {"cache_k": torch.zeros(shape, **f32),
-            "cache_v": torch.zeros(shape, **f32)}
+    kw = dict(dtype=cache_dtype(hps), device=device)
+    return {"cache_k": torch.zeros(shape, **kw),
+            "cache_v": torch.zeros(shape, **kw)}
 
 
 def spec_verify(params: Params, hps: HParams, enc: TransformerEncView,
@@ -628,7 +640,7 @@ def spec_verify(params: Params, hps: HParams, enc: TransformerEncView,
     B, S = tokens.shape
     hd = _head_dim(hps)
     cache_k, cache_v = state["cache_k"], state["cache_v"]
-    W = cache_k.shape[2]
+    W, store = cache_k.shape[2], cache_k.dtype
     pos = t0[:, None] + torch.arange(S, device=t0.device)  # [B, S]
     y = pg._cast(hps, params["embedding"][tokens] + _pos_dec(params, pos))
     dt = y.dtype
@@ -640,15 +652,15 @@ def spec_verify(params: Params, hps: HParams, enc: TransformerEncView,
         p = layer["self_attn"]
         h_norm = _ln(layer["ln1"], y)
         q = _split_heads(hps, h_norm @ p["wq"].to(dt))  # [B, S, nh, hd]
-        cache_k[bi, li, pos] = _split_heads(hps,
-                                            h_norm @ p["wk"].to(dt)).float()
-        cache_v[bi, li, pos] = _split_heads(hps,
-                                            h_norm @ p["wv"].to(dt)).float()
+        cache_k[bi, li, pos] = _split_heads(
+            hps, h_norm @ p["wk"].to(dt)).to(store)
+        cache_v[bi, li, pos] = _split_heads(
+            hps, h_norm @ p["wv"].to(dt)).to(store)
         logits = torch.einsum("bsnd,btnd->bsnt", q.float(),
-                              cache_k[:, li]) * (hd ** -0.5)
+                              cache_k[:, li].float()) * (hd ** -0.5)
         logits = torch.where(pos_ok[:, :, None, :], logits, NEG)
         probs = torch.softmax(logits, dim=-1)
-        ctx = torch.einsum("bsnt,btnd->bsnd", probs, cache_v[:, li])
+        ctx = torch.einsum("bsnt,btnd->bsnd", probs, cache_v[:, li].float())
         y = y + _merge_heads(ctx).to(dt) @ p["wo"].to(dt)
         cross_out, attn_dist = cross_attend_layer(
             hps, layer, y, enc.cross_k[:, li], enc.cross_v[:, li], enc_mask)

@@ -190,9 +190,9 @@ def install_flight_recorder(directory: str, capacity: Optional[int] = None,
 
 def install_profiler(reg: Optional[Registry] = None, **kw: Any):
     """Attach the performance attribution plane (obs/profile.py) to
-    `reg` (default registry when None): the phase ledger, exposed on
-    /profile.  First install wins; kwargs (clock) thread to the
-    Profiler."""
+    `reg` (default registry when None): the phase ledger and the
+    divergence sentinel, exposed on /profile.  First install wins;
+    kwargs (clock, divergence_factor) thread to the Profiler."""
     from textsummarization_on_flink_tpu_torch.obs import profile as profile_mod
 
     return profile_mod.install_profiler(

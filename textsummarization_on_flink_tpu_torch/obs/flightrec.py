@@ -20,11 +20,13 @@ Wiring (first install wins per registry, like the EventSink):
     flightrec.record(registry, "train_step", step=i, loss=..., ...)
     flightrec.trigger(registry, "train_nan")   # -> flight_train_nan.jsonl
 
-Frame producers in the port: serve/batcher.py + serve/server.py
-(per-tick occupancy, queue depth, evictions, refills / per-dispatch
-fill); the port's trainer records no frames yet.  Trigger sites: both
-serve dispatch failure paths, CircuitBreaker open transitions
-(resilience/policy.py), and continuous-mode eviction storms.  All CPU-verifiable: the chaos
+Frame producers: train/trainer.py (per-step loss, grad-norm, step time,
+prefetch depth), serve/batcher.py + serve/server.py (per-tick occupancy,
+queue depth, evictions, refills / per-dispatch fill), the profiler's
+notes.  Trigger sites: the trainer NaN watchdog + divergence recovery,
+the profiler's divergence sentinel, both serve dispatch failure paths,
+CircuitBreaker open transitions (resilience/policy.py), and
+continuous-mode eviction storms.  All CPU-verifiable: the chaos
 tests drive each trigger through the existing TS_FAULTS points.
 
 Storm-proof by design: at most ``max_dumps_per_reason`` files per

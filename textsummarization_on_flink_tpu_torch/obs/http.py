@@ -353,13 +353,17 @@ class _Handler(http.server.BaseHTTPRequestHandler):
                 self._send_json(200, [r.as_event() for r in recs[-n:]])
             elif route == "/alerts":
                 payload = slo_lib.alerts_payload(reg)
+                # the profiler's cached divergence state rides the same
+                # scrape — read-only, like the SLO rows
+                payload["profile"] = profile_lib.profile_alerts(reg)
                 # filed incidents: non-SLO page-worthy
                 # states — a crash-looping replica held out of rotation
                 payload["incidents"] = incidents(reg)
                 self._send_json(200, payload)
             elif route == "/profile":
                 # performance attribution plane (obs/profile.py):
-                # phase table, walls, top-k slowest dispatches.  Served from state cached on
+                # phase table, walls, divergence table, top-k slowest
+                # dispatches, notes.  Served from state cached on
                 # the record side — a scrape never mutates the ledgers.
                 self._send_json(200, profile_lib.profile_payload(reg))
             elif route == "/exemplars":

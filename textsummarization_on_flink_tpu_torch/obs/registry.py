@@ -540,7 +540,7 @@ class Registry:
         # the SLO burn-rate engine (obs/slo.py), when installed
         self.slo = None
         # the performance attribution plane (obs/profile.py):
-        # phase ledger + compile ledger + divergence sentinel, attached
+        # phase ledger + divergence sentinel, attached
         # first-install-wins by profile.install_profiler
         self.profile = None
 

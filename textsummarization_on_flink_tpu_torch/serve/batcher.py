@@ -231,6 +231,9 @@ class ContinuousBatcher:
         # phases-sum-to-wall accounting check holds (dark registries
         # get the allocation-free null profiler)
         self._prof = profile_lib.profiler_for(reg)
+        # the divergence sentinel's dispatch-shape key: the slot chunk is
+        # the one decode program this batcher drives
+        self._dispatch_key = f"slot_chunk{getattr(engine, 'chunk', 0)}"
         self._g_active = reg.gauge("serve/slots_active")
         # the /healthz-scrapeable routing input: the
         # FleetRouter's least-loaded pick wants free capacity, and
@@ -413,8 +416,10 @@ class ContinuousBatcher:
                 req.future._reject(e)
                 raise
             trace_id = req.trace.trace_id if req.trace is not None else None
-            self._prof.end("serve/prefill", t0, trace_id=trace_id)
+            dt = self._prof.end("serve/prefill", t0, trace_id=trace_id)
             bucket = int(getattr(pre, "bucket", req.example.enc_len))
+            self._prof.observe_dispatch("serve/prefill", bucket, dt,
+                                        trace_id=trace_id)
             self._c_prefills.inc()
             self._h_prefill_bucket.observe(bucket)
             obs.spans.request_event(
@@ -619,7 +624,10 @@ class ContinuousBatcher:
                     "serve.dispatch"):
                 raise RuntimeError("injected serve.dispatch fault")
             finished = self._engine.step()
-        self._prof.end("serve/dispatch", t0)
+        dt = self._prof.end("serve/dispatch", t0)
+        # the sentinel: each chunk's achieved rate against the chunk's
+        # price and its warm baseline
+        self._prof.observe_dispatch("serve/dispatch", self._dispatch_key, dt)
         self._h_occupancy.observe(n_active / self.slots)
         for idx, req in enumerate(self._resident):
             if req is not None:

@@ -184,7 +184,9 @@ class ServingServer:
         # batcher wiring so every phase timer shares THIS server's
         # clock (virtual in the deterministic gates); first install on
         # the registry wins, like the SLO engine below
-        profile_lib.install_profiler(self._reg, clock=clock)
+        profile_lib.install_profiler(
+            self._reg, clock=clock,
+            divergence_factor=hps.profile_divergence_factor)
         self._mode = hps.serve_mode
         if decoder is None:
             # deferred: the decoder pulls in torch and the model; a server
@@ -228,7 +230,7 @@ class ServingServer:
             if engine is None:
                 engine = self._decoder.slot_engine(
                     slots=resolve_serve_slots(hps),
-                    chunk=resolve_refill_chunk(hps))
+                    chunk=resolve_refill_chunk(hps), registry=self._reg)
             self._cont = ContinuousBatcher(hps, self._queue, engine,
                                            registry=self._reg,
                                            faults=self._faults)
@@ -1009,7 +1011,10 @@ class ServingServer:
                 else:
                     results = self._decoder.decode_batch(
                         batch, deadline=deadline, tier=tier)
-            prof.end("serve/dispatch", t0)
+            dt = prof.end("serve/dispatch", t0)
+            # a tier's shape has no price: the call returns at once
+            prof.observe_dispatch(
+                "serve/dispatch", f"tier_{tier or 'legacy'}", dt)
             if len(results) != len(group):
                 raise RuntimeError(
                     f"decoder returned {len(results)} results for "

@@ -38,8 +38,14 @@ runs in ``DebugNans``, the counterpart of the JAX package's
 forward or the backward, raises, and the trainer dumps the batch and
 raises ``NonFiniteLossError`` (``NanLossError`` once recovery is spent)
 as the JAX trainer does.  The trainer reports through the
-obs registry (obs/); it records no flight-recorder frames or profiler
-phases of its own yet (ROADMAP.md queue 1, item 2h).
+obs registry (obs/), as the JAX trainer does: a ``train_step`` flight
+frame per flushed step into a ring of ``flight_frames`` (dumped to
+``<train_dir>/flight_train_nan.jsonl`` and ``flight_nan_rollback.jsonl``
+by the watchdog and divergence recovery), the ``train/host_wait_seconds``
+histogram, and per round the profiler's ``train/host_wait``,
+``train/step_dispatch``, ``train/metrics_flush`` and ``train/checkpoint``
+phases inside a ``train/round`` wall; with ``profile_analytic`` the
+dispatch is priced by ``obs/cost.py`` for the divergence sentinel.
 
 On a mesh (``dp * tp * sp > 1``, one process per rank, see
 parallel/mesh.py; JAX trainer.py:606-631) the Trainer runs the sharded
@@ -76,6 +82,9 @@ from textsummarization_on_flink_tpu_torch.decode.beam_search import (
 )
 from textsummarization_on_flink_tpu_torch.device import resolve_device
 from textsummarization_on_flink_tpu_torch.models import get_family
+from textsummarization_on_flink_tpu_torch.obs import cost as cost_lib
+from textsummarization_on_flink_tpu_torch.obs import flightrec
+from textsummarization_on_flink_tpu_torch.obs import profile as profile_lib
 from textsummarization_on_flink_tpu_torch.parallel import collectives
 from textsummarization_on_flink_tpu_torch.parallel import distributed
 from textsummarization_on_flink_tpu_torch.parallel import mesh as mesh_lib
@@ -583,6 +592,28 @@ class Trainer:
         # tokens: a run's tokens per second divides them by its time
         self._c_batches = self._obs.counter("train/batches_total")
         self._c_tokens = self._obs.counter("train/target_tokens_total")
+        # time the loop sat blocked on the input side
+        self._m_host_wait = self._obs.histogram("train/host_wait_seconds")
+        # the gauge the DevicePrefetcher writes: read per flushed step
+        # into the flight frames
+        self._g_prefetch = self._obs.gauge("train/prefetch_queue_depth")
+        # the phase ledger (obs/profile.py): the loop's sub-phases inside
+        # a per-round wall; a dark job gets the null profiler
+        self._prof = profile_lib.install_profiler(
+            self._obs, divergence_factor=hps.profile_divergence_factor)
+        if hps.profile_analytic:
+            # the dispatch's analytic price, computed off the hot path
+            k = self.steps_per_dispatch
+            self._prof.register_cost(
+                "train/step_dispatch", "step",
+                lambda: cost_lib.train_step_cost(hps, steps=k))
+        # the failure flight recorder: per-step frames dumped to
+        # <train_dir>/flight_<reason>.jsonl by the watchdog and recovery.
+        # On a mesh the ranks share train_dir: the chief alone records
+        if self._obs.enabled and hps.flight_frames > 0 \
+                and distributed.is_chief():
+            flightrec.install_flight_recorder(
+                self._obs, self.train_dir, capacity=hps.flight_frames)
         # the fault plan is resolved once, so each point's RNG stream runs
         # on across the whole run
         self._faults = faultinject.plan_for(hps)
@@ -659,6 +690,7 @@ class Trainer:
         StepMetrics or an [n, 4] host array, host arrays or None)]."""
         if not pending:
             return
+        p0 = self._prof.start()
         on_device = [m for _, m, _ in pending if isinstance(m, list)]
         fetched = iter(np.split(self._fetch(sum(on_device, [])),
                                 np.cumsum([len(m) for m in on_device])[:-1])
@@ -667,6 +699,7 @@ class Trainer:
         step_time = window_dt / max(total, 1)
         log.info("seconds for training step: %.3f (avg over %d)", step_time,
                  total)
+        prefetch_depth = self._g_prefetch.value
         for step0, m, arrays in pending:
             host = next(fetched) if isinstance(m, list) else m
             for i, (loss, cov, total_loss, gnorm) in enumerate(host):
@@ -678,9 +711,16 @@ class Trainer:
                 if self.hps.coverage:
                     scalars["coverage_loss"] = float(cov)
                     log.info("coverage_loss: %f", scalars["coverage_loss"])
+                # the frame a NaN post-mortem reads; a non-finite loss
+                # is framed too (the last frames before a blowup)
+                flightrec.record(
+                    self._obs, "train_step", step=step, loss=loss,
+                    global_norm=float(gnorm), step_time=round(step_time, 6),
+                    prefetch_depth=prefetch_depth)
                 if not np.isfinite(loss):
                     self._c_nan.inc()
                     self._dump_nan_batch(step, arrays)
+                    flightrec.trigger(self._obs, "train_nan", step=step)
                     # the bad step opens a window read at >= metrics_every
                     # steps, in whole dispatches
                     lag = max(self.metrics_every + self.steps_per_dispatch
@@ -692,6 +732,7 @@ class Trainer:
                         f"one; --debug pins the window to 1 for step-exact "
                         f"detection)")
                 self.writer.scalars(step + 1, **scalars)
+        self._prof.end("train/metrics_flush", p0)
 
     def _dump_nan_batch(self, step: int, arrays) -> None:
         """--debug: keep the batch of a non-finite loss (the reference
@@ -718,7 +759,11 @@ class Trainer:
                         rec.skips_left)
             return True
         if action == "rollback":
-            self.state = rec.take_rollback()
+            restored = rec.take_rollback()
+            # the frames before this rollback are the post-mortem's
+            flightrec.trigger(self._obs, "nan_rollback", step=step,
+                              rollbacks_left=rec.rollbacks_left)
+            self.state = restored
             # the LR cut applies to the steps from here on
             self._step_hps = self.hps.replace(lr=self.hps.lr * rec.lr_scale)
             log.warning("non-finite loss at step %d: rolled back to step %d "
@@ -754,17 +799,24 @@ class Trainer:
         while not exhausted:
             if limit and step >= limit:
                 break
+            # the round's wall: the phases below sum toward it, the gap is
+            # the loop's own bookkeeping
+            w0 = self._prof.start()
             # k batches per dispatch, clipped to the steps left
             k = self.steps_per_dispatch
             if limit:
                 k = min(k, limit - step)
             items = []
+            t_wait = time.perf_counter()
+            p0 = self._prof.start()
             while len(items) < k:
                 item = prefetcher.next_batch()
                 if item is None:
                     exhausted = True
                     break
                 items.append(item)
+            self._m_host_wait.observe(time.perf_counter() - t_wait)
+            self._prof.end("train/host_wait", p0)
             if not items:
                 log.info("batcher exhausted; stopping training at step %d",
                          step)
@@ -775,6 +827,11 @@ class Trainer:
                 pending, pending_steps = [], 0
                 self._profiler = _Profiler(profile_dir, self.device, step)
                 window_t0 = time.monotonic()
+                # the capture's opening edge in the profiler's notes:
+                # /profile names the steps a trace covers
+                self._prof.note("profiler_capture", dir=str(profile_dir),
+                                start_step=profile_start,
+                                stop_step=profile_stop)
                 log.info("profiler trace started -> %s", profile_dir)
             n = len(items)
             self._c_batches.inc(n)
@@ -782,6 +839,7 @@ class Trainer:
                 float(b.as_arrays()["dec_padding_mask"].sum())
                 for b, _ in items))
             arrays = items[0][0].as_arrays() if self.hps.debug else None
+            p0 = self._prof.start()
             try:
                 with (DebugNans() if self.hps.debug
                       else contextlib.nullcontext()):
@@ -792,6 +850,7 @@ class Trainer:
                 # (train/trainer.py:963-984 there)
                 self._c_nan.inc()
                 self._dump_nan_batch(step, arrays)
+                flightrec.trigger(self._obs, "train_nan", step=step)
                 if self._recovery is not None:
                     # the dispatch did not complete: self.state is the
                     # pre-dispatch state (out-of-place updates)
@@ -804,6 +863,10 @@ class Trainer:
                 raise NonFiniteLossError(
                     f"Loss is not finite. Stopping. (step {step}; {e})"
                 ) from e
+            # the dispatch's host time (launches are asynchronous: the
+            # device's work is waited for in the metrics flush)
+            dt = self._prof.end("train/step_dispatch", p0)
+            self._prof.observe_dispatch("train/step_dispatch", "step", dt)
             injected = self._faults.fire("train.step_nan")
             if self._recovery is not None:
                 # armed: one metrics read per dispatch, so a bad state never
@@ -812,6 +875,8 @@ class Trainer:
                 if injected or not np.all(np.isfinite(fetched[:, 0])):
                     self._c_nan.inc()
                     self._dump_nan_batch(step, arrays)
+                    flightrec.trigger(self._obs, "train_nan", step=step,
+                                      injected=bool(injected))
                     # new_state is dropped; self.state is the pre-dispatch
                     # state, untouched (out-of-place updates)
                     if self._recover(step):
@@ -828,6 +893,8 @@ class Trainer:
                 self.state = new_state
                 if injected:
                     self._c_nan.inc()
+                    flightrec.trigger(self._obs, "train_nan", step=step,
+                                      injected=True)
                     raise NonFiniteLossError(
                         f"injected train.step_nan fault at step {step} "
                         f"(divergence recovery unarmed: nan_skip_steps and "
@@ -851,8 +918,11 @@ class Trainer:
                 # the save reads the state anyway: flush with it
                 self._flush_metrics(pending, time.monotonic() - window_t0)
                 pending, pending_steps = [], 0
+                p0 = self._prof.start()
                 self.checkpointer.save(self.state, plan=self._plan)
+                self._prof.end("train/checkpoint", p0)
                 last_ckpt = window_t0 = time.monotonic()
+            self._prof.end_wall("train/round", w0)
         self._flush_metrics(pending, time.monotonic() - window_t0)
         if self._profiler is not None:
             path = self._profiler.stop(step - 1)
