@@ -54,6 +54,12 @@ device or without the port's sources beside it.  Phases, each fatal:
         three bf16 kernels' SASS (bf16_flash_sass): wgmma (HGMMA) and
         TMA copies (UTMALDG) in every instantiation, no bf16 mma.sync
         (HMMA.16816), no spill, no wgmma serialized by ptxas;
+     f. the wide flash kernels (head dims above 256, f32 and bf16:
+        forward, dK/dV, dQ) against their plain versions at 16 x 400 x
+        1 x 384, 512 and 1024 (key mask) and 16 x 100 x 1 x 512 (causal),
+        a rerun the same bits, timed beside scaled_dot_product_attention
+        with the backend it took (phase_flash_wide); their ptxas report,
+        0 bytes of spill in all six instantiations (wide_flash_sass);
   4. for each model family, check the beam search on the card against the
      plain CPU path on a small input (same tokens), and three train steps
      of a small model on the card against the CPU (same losses within
@@ -117,7 +123,12 @@ device or without the port's sources beside it.  Phases, each fatal:
   9. the widths the card refused before (phase_wide_widths): the
      pointer-generator at hidden_dim 400 (decode) and 430 (a train
      step), the transformer at head dim 256 (a small beam search and a
-     train step against the CPU, a decode through cli.main);
+     train step against the CPU, a decode through cli.main); head dims
+     above 256 on the wide kernels (phase_wide_heads): head dim 512 at
+     full width (a decode of 16 articles, 3 train steps on the card and
+     one with --device=cpu, in f32 and in bf16, 12 + 12 + 12 wide
+     launches per step, 6 per decode batch) and head dim 320 (a small
+     beam search and a train step against the CPU);
  10. online serving (phase_serve): the micro-batch ServingServer at the
      reference width over the ROUGE phase's trained checkpoint: a pinned
      group of 16 equal to a CPU ServingServer's summaries token for
@@ -188,6 +199,8 @@ device or without the port's sources beside it.  Phases, each fatal:
      package's tolerances, the dp all-reduce moving exactly
      analytic_comms' bytes (86.0 MB f32, 43.0 bf16); a dp=2 decode of 16
      articles equal to the single-rank decode_batch and a tp=2 search;
+     the AAN, among its cases at one head on tp=2 (rank 1 holding a
+     zero pad head: a step and a search against the single rank);
      then ``torchrun`` on the entry point (3 train steps at dp=2, a
      resume to 5) and a world-1 NCCL all-reduce; every rank's kernel
      launches checked, and summed into the kernels line;
@@ -1059,6 +1072,189 @@ def phase_flash_bf16(seed):
     return rows, worst
 
 
+#: the wide kernels' shapes (head dims above 256, kernels/
+#: flash_attention_wide.cu): the encoder of the transformer at
+#: --hidden_dim=hd --num_heads=1 (16 x 400, key mask, article 1 empty) at
+#: head dims 384, 512 and 1024, and the training decoder's causal
+#: self-attention at head dim 512 (16 x 100): (B, T, nh, hd, causal)
+WIDE_FLASH_CASES = [(16, 400, 1, 384, False), (16, 400, 1, 512, False),
+                    (16, 400, 1, 1024, False), (16, 100, 1, 512, True)]
+
+
+def sdpa_backend(q, k, v, mask, causal, scale):
+    """The backend scaled_dot_product_attention picks for these inputs
+    ([B, nh, T, hd] q, k, v and a boolean mask): its flash backend takes
+    head dims up to 256 only, so above that it falls to another
+    (PyTorch's own choice, torch._fused_sdp_choice)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(
+            q, k, v, mask, 0.0, causal, scale=scale)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
+def phase_flash_wide(seed):
+    """The wide kernels (head dims above 256; kernels/
+    flash_attention_wide.cu, SIMT FMA, one block per 64 rows and 128
+    output columns) against their plain versions at WIDE_FLASH_CASES, in
+    f32 and bf16: out (the serving form), lse (the training form), dq, dk
+    and dv; f32 within ATTN_TOL * max(1, |value|) of the plain version,
+    bf16 within FLASH_BF16_ULPS bf16 ulps of the tensor's largest
+    |value|, lse within ATTN_TOL * max(1, |lse|) with +inf on the same
+    rows; the empty article's outputs zeros; a rerun the same bits.
+    Times: the forward (serving form), the dK/dV and dQ kernels, the plain
+    forward and whole backward, and scaled_dot_product_attention's
+    forward and backward (the library column, for time only) with the
+    backend it took.  Bounds as the other flash rows' (flash_bound_ms,
+    flash_bwd_bounds).  Returns ({(dtype, shape): row}, {kernel key:
+    largest error})."""
+    import torch
+    import torch.nn.functional as F
+
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
+    rows, worst = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        tag = "bf16" if bf16 else "f32"
+        for (B, T, nh, hd, causal) in WIDE_FLASH_CASES:
+            q, k, v, mask = flash_inputs(B, T, nh, hd, seed, not causal)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+            scale = hd ** -0.5
+            out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
+                                      with_lse=True)
+            serve_out = fl._flash_cuda(q, k, v, mask, causal, scale)
+            do = torch.randn(q.shape, device="cuda").to(dtype)
+            grads = fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, causal,
+                                       scale)
+            again = (fl._flash_cuda(q, k, v, mask, causal, scale),
+                     *fl._flash_bwd_cuda(q, k, v, out, lse, do, mask,
+                                         causal, scale))
+            ref = fl._flash_plain(q, k, v, mask, causal, scale)
+            lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
+            want = fl._flash_bwd_plain(q, k, v, out, lse_p, do, mask, causal,
+                                       scale)
+            torch.cuda.synchronize()
+            outs = dict(out=(out, ref), serve_out=(serve_out, ref),
+                        dq=(grads[0], want[0]), dk=(grads[1], want[1]),
+                        dv=(grads[2], want[2]))
+            errs, ulps, ok = {}, {}, True
+            for name, (g, w) in outs.items():
+                if bf16:
+                    errs[name], ulps[name] = flash_bf16_err(g, w)
+                    ok &= ulps[name] <= FLASH_BF16_ULPS
+                else:
+                    errs[name] = float((g - w).abs().max())
+                    ok &= errs[name] <= ATTN_TOL * max(
+                        1.0, float(w.abs().max()))
+            finite_lse = torch.isfinite(lse_p)
+            lse_err = float(torch.where(finite_lse, lse - lse_p, 0.0)
+                            .abs().max())
+            lse_tol = ATTN_TOL * max(1.0, float(torch.where(
+                finite_lse, lse_p, 0.0).abs().max()))
+            got = (serve_out, *grads)
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
+            empty_zero = mask is None or all(
+                float(x[1].float().abs().max()) == 0.0 for x in got)
+            dsum = torch.sum(do.float() * out.float(), dim=-1)
+            ms = time_cuda(lambda: fl._flash_cuda(q, k, v, mask, causal,
+                                                  scale), 10, flush)
+            plain_ms = time_cuda(lambda: fl._flash_plain(
+                q, k, v, mask, causal, scale), 5, flush)
+            dkv_ms = time_cuda(lambda: fl._bwd_dkv_cuda(
+                q, k, v, do, lse, dsum, mask, causal, scale), 10, flush)
+            dq_ms = time_cuda(lambda: fl._bwd_dq_cuda(
+                q, k, v, do, lse, dsum, mask, causal, scale), 10, flush)
+            bwd_plain_ms = time_cuda(lambda: fl._flash_bwd_plain(
+                q, k, v, out, lse_p, do, mask, causal, scale), 5, flush)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            bool_mask = None if mask is None else (mask > 0)[:, None, None, :]
+            backend = sdpa_backend(qt, kt, vt, bool_mask, causal, scale)
+            with torch.no_grad():
+                library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bool_mask, is_causal=causal,
+                    scale=scale), 10, flush)
+            qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+            lib_out = F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=bool_mask, is_causal=causal,
+                scale=scale)
+            bwd_library_ms = time_cuda(lambda: torch.autograd.grad(
+                lib_out, (qg, kg, vg), do.transpose(1, 2),
+                retain_graph=True), 10, flush)
+            bound, by, nbytes, ops = flash_bound_ms(q, mask, causal)
+            bounds = flash_bwd_bounds(q, mask, causal)
+            row = dict(dtype=tag, shape=f"{B}x{T}x{nh}x{hd}", causal=causal,
+                       key_mask=mask is not None, max_abs_err=errs,
+                       bf16_ulps=ulps or None, lse_max_abs_err=lse_err,
+                       repeat_bits_equal=repeat, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, library_backend=backend,
+                       bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops,
+                       dkv_ms=dkv_ms, dq_ms=dq_ms, bwd_plain_ms=bwd_plain_ms,
+                       bwd_library_ms=bwd_library_ms,
+                       dkv_bound_ms=bounds["dkv"][0],
+                       dkv_bound_by=bounds["dkv"][1],
+                       dq_bound_ms=bounds["dq"][0],
+                       dq_bound_by=bounds["dq"][1])
+            print("flash_wide " + json.dumps(row))
+            check(finite, f"non-finite wide flash output at {row}")
+            check(empty_zero, f"empty article's wide outputs not zero at "
+                              f"{row}")
+            check(bool((torch.isinf(lse) == ~finite_lse).all()),
+                  f"wide lse sentinel rows differ at {row}")
+            check(lse_err <= lse_tol, f"wide lse disagrees at {row}")
+            check(ok, f"a wide flash kernel disagrees with its plain "
+                      f"version at {row}")
+            check(repeat, f"a wide flash kernel's rerun changed bits at "
+                          f"{row}")
+            for kernel, names in (("forward", ("out", "serve_out")),
+                                  ("dkv", ("dk", "dv")), ("dq", ("dq",))):
+                key = (tag, kernel)
+                worst[key] = max(worst.get(key, 0.0),
+                                 *(errs[n] for n in names))
+            rows[(tag, row["shape"])] = row
+    return rows, worst
+
+
+#: the wide kernels' functions in the SASS and ptxas log: {key: function}
+WIDE_FLASH_KERNELS = dict(fwd="flash_fwd_wide_kernel",
+                          dkv="flash_bwd_dkv_wide_kernel",
+                          dq="flash_bwd_dq_wide_kernel")
+
+
+def wide_flash_sass():
+    """The wide kernels' ptxas report (flash_attention_wide's build log,
+    scripts/torch_kernel_sass.py): registers and spill bytes of each
+    kernel's f32 and bf16 instantiation.  Fails unless all six are there,
+    each with 0 bytes of spill."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_kernel_sass as sass
+
+    from textsummarization_on_flink_tpu_torch.kernels import build
+
+    build.build("flash_attention_wide")
+    ptxas = sass.ptxas_functions(build.build_log("flash_attention_wide"))
+    out = {}
+    for func, info in ptxas.items():
+        for key, kernel in WIDE_FLASH_KERNELS.items():
+            if kernel not in func:
+                continue
+            dtype = "bf16" if "bfloat16" in func else "f32"
+            spill = info.get("spill_stores", -1) + info.get("spill_loads", -1)
+            out[f"{key}_{dtype}"] = dict(registers=info.get("registers"),
+                                         spill_bytes=spill)
+            check(spill == 0, f"wide kernel {func}: ptxas {info} (want 0 "
+                              f"bytes of spill)")
+    check(len(out) == 2 * len(WIDE_FLASH_KERNELS),
+          f"wide flash kernels not all in the build log: {out}")
+    print("flash_wide_sass " + json.dumps(out))
+    return out
+
+
 def kernel_module(family):
     """The ops module whose kernel the family's decode path launches."""
     if family == "transformer":
@@ -1178,6 +1374,7 @@ def reset_launch_counts():
     fa.launches_bf16 = fa.launches_bwd_bf16 = 0
     fl.launches = fl.launches_bwd_dkv = fl.launches_bwd_dq = 0
     fl.launches_bf16 = fl.launches_bwd_dkv_bf16 = fl.launches_bwd_dq_bf16 = 0
+    fl.launches_wide = fl.launches_bwd_dkv_wide = fl.launches_bwd_dq_wide = 0
 
 
 def expected_train_launches(hps, steps):
@@ -1187,11 +1384,15 @@ def expected_train_launches(hps, steps):
     in the backward, tests/test_torch_byte_diet.py counts it); the
     pointer-generator the fused attention forward and backward once per
     decoder step (its --remat recomputes only the loss head).  Under
-    --compute_dtype=bfloat16 every launch takes the bf16 form."""
+    --compute_dtype=bfloat16 every launch takes the bf16 form, and at a
+    head dim above 256 the wide kernels'."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
     counts = dict(fused=0, fused_bwd=0, fused_bf16=0, fused_bwd_bf16=0,
                   flash_forward=0, flash_bwd_dkv=0, flash_bwd_dq=0,
                   flash_forward_bf16=0, flash_bwd_dkv_bf16=0,
-                  flash_bwd_dq_bf16=0)
+                  flash_bwd_dq_bf16=0, flash_forward_wide=0,
+                  flash_bwd_dkv_wide=0, flash_bwd_dq_wide=0)
     if hps.model_family in ("transformer", "avg_attention"):
         # the AAN's decoder has no self-attention: its encoder's layers only
         layers = hps.enc_layers + (hps.dec_layers if hps.model_family
@@ -1203,6 +1404,9 @@ def expected_train_launches(hps, steps):
         if hps.compute_dtype == "bfloat16":
             for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
                 counts[k + "_bf16"] = counts[k]
+        if fl._is_wide(fl._padded_head_dim(hps.hidden_dim // hps.num_heads)):
+            for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
+                counts[k + "_wide"] = counts[k]
     else:
         counts["fused"] = counts["fused_bwd"] = hps.max_dec_steps * steps
         if hps.compute_dtype == "bfloat16":  # every launch on a bf16 stream
@@ -1384,7 +1588,17 @@ def phase_main_path(seed, n_articles, work, device="cuda",
     n_batches = len(batch_s)
     bf16 = compute_dtype == "bfloat16"
     if family == "transformer":
+        from textsummarization_on_flink_tpu_torch.ops import (
+            flash_attention as fl,
+        )
+
         launches, bf16_launches = flash, launched["flash_forward_bf16"]
+        wide = fl._is_wide(fl._padded_head_dim(hps.hidden_dim
+                                               // hps.num_heads))
+        check(launched["flash_forward_wide"] == (flash if wide else 0),
+              f"{launched['flash_forward_wide']} of {flash} flash launches "
+              f"took the wide kernel at head dim "
+              f"{hps.hidden_dim // hps.num_heads}")
         check(flash > 0, "the flash attention kernel never launched")
         check(flash == hps.enc_layers * n_batches,
               f"{flash} flash launches for {n_batches} batches (expected "
@@ -1410,6 +1624,7 @@ def phase_main_path(seed, n_articles, work, device="cuda",
                    widths=widths, articles=n_articles, batches=n_batches,
                    batch_seconds=batch_s, decode_steps=steps,
                    kernel_launches=launches, bf16_launches=bf16_launches,
+                   wide_launches=launched["flash_forward_wide"],
                    launches_per_batch=launches / max(n_batches, 1),
                    decoded_tokens=n_tokens,
                    tokens_per_s=n_tokens / sum(batch_s),
@@ -2343,6 +2558,14 @@ def phase_continuous_decode(seed, work, device="cuda", batches=3):
 #: reference runs stay short
 HD256_WIDTHS = dict(hidden_dim=512, num_heads=2, enc_layers=2, dec_layers=2,
                     ffn_dim=2048)
+#: head dim 512 at the transformer's full depth (6 + 6 layers; the wide
+#: kernels): --hidden_dim=512 --num_heads=1, FFN 4 x 512
+HD512_WIDTHS = dict(hidden_dim=512, num_heads=1, ffn_dim=2048)
+#: head dim 320 (padded to 384 on the card) at 2 + 2 layers
+HD320_WIDTHS = dict(hidden_dim=640, num_heads=2, enc_layers=2, dec_layers=2,
+                    ffn_dim=2560)
+#: the bf16 flags of the head-dim-512 runs (phase_transformer_bf16's)
+HD512_BF16_FLAGS = dict(compute_dtype="bfloat16", loss_chunk=10)
 
 
 def phase_wide_widths(seed, device="cuda"):
@@ -2388,6 +2611,73 @@ def phase_wide_widths(seed, device="cuda"):
         card_loss=card_loss, cpu_loss=cpu_loss, loss_rel_diff=rel)))
     check(rel <= 1e-4, f"head dim 256: the card's loss differs from the "
                        f"CPU's by {rel} (relative)")
+    out.update(phase_wide_heads(seed, device))
+    return out
+
+
+def phase_wide_heads(seed, device="cuda"):
+    """Head dims above 256, which the card refused before the wide
+    kernels (kernels/flash_attention_wide.cu), each run with its launch
+    counts set to 0 just before and read just after:
+
+      * head dim 512 at full width (HD512_WIDTHS: 6 + 6 layers, V 50k,
+        400/100 steps, batch 16, beam 4, coverage): a decode of 16
+        articles through cli.main (6 wide forward launches per batch),
+        3 train steps (--single_pass=1) through cli.main on the card
+        (12 wide forward, dK/dV and dQ launches per step, none of the
+        32/128/256 forms) and one with --device=cpu, the first losses
+        within 1e-4 relative; the same under HD512_BF16_FLAGS (every
+        launch the wide kernels' bf16 form), the card's first loss within
+        4 times the CPU's own bf16-to-f32 distance of the CPU's bf16 loss
+        (the rule of the CPU tests against the JAX package) plus 1e-5
+        relative;
+      * head dim 320 (HD320_WIDTHS, padded to 384): the small beam search
+        on the card against the CPU (phase_small_reference, the same
+        tokens) and one train step on the card and with --device=cpu,
+        the losses within 1e-4 relative.
+
+    (device="cpu" rehearses the control flow without a card.)"""
+    tf = "transformer"
+    out = dict(hd512_decode=_in_work("hd512", lambda w: phase_main_path(
+        seed, 16, w, device=device, family=tf, widths=HD512_WIDTHS)))
+    for tag, flags in (("f32", {}), ("bf16", HD512_BF16_FLAGS)):
+        for name, dev, steps in (("card", device, 3), ("cpu", "cpu", 1)):
+            out[f"hd512_train_{tag}_{name}"] = _in_work(
+                f"hd512_train_{tag}_{name}",
+                lambda w: phase_train_main_path(
+                    seed, w, steps=steps, device=dev, family=tf,
+                    extra=dict(HD512_WIDTHS, single_pass=1, **flags),
+                    expect_kernels=name == "card"))
+    if device == "cuda":
+        phase_small_reference(seed, tf, widths=dict(hidden_dim=640,
+                                                    num_heads=2))
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        out[f"hd320_train_{name}"] = _in_work(
+            f"hd320_train_{name}", lambda w: phase_train_main_path(
+                seed, w, steps=1, device=dev, family=tf,
+                extra=dict(HD320_WIDTHS, single_pass=1),
+                expect_kernels=name == "card"))
+    first = {k: v["losses"][0] for k, v in out.items() if "_train_" in k}
+    rel = {k: abs(first[f"{k}_card"] - first[f"{k}_cpu"])
+           / abs(first[f"{k}_cpu"])
+           for k in ("hd512_train_f32", "hd512_train_bf16", "hd320_train")}
+    bf16_gap = abs(first["hd512_train_bf16_cpu"]
+                   - first["hd512_train_f32_cpu"])
+    bf16_bound = (4 * bf16_gap + 1e-5 * abs(first["hd512_train_bf16_cpu"])) \
+        / abs(first["hd512_train_bf16_cpu"])
+    print("wide_heads " + json.dumps(dict(
+        first_losses=first, loss_rel_diff=rel, bf16_rel_bound=bf16_bound,
+        decode_wide_launches_per_batch=out["hd512_decode"][
+            "launches_per_batch"],
+        train_launches_per_step={k: v["launches_per_step"]
+                                 for k, v in out.items()
+                                 if k.endswith("_card")})))
+    check(rel["hd512_train_f32"] <= 1e-4 and rel["hd320_train"] <= 1e-4,
+          f"wide heads: the card's f32 losses differ from the CPU's by "
+          f"{rel} (relative)")
+    check(rel["hd512_train_bf16"] <= bf16_bound,
+          f"head dim 512 in bf16: the card's loss differs from the CPU's "
+          f"by {rel['hd512_train_bf16']} (relative), above {bf16_bound}")
     return out
 
 
@@ -3870,10 +4160,13 @@ def mesh_family_hps(family):
     """The training hps of a mesh case's family: train_main_path_hps, the
     AAN (``avg_attention``) at the transformer's reference width, and its
     narrow variant (``aan_narrow``: DISTILL_FLAGS' H/2 decoder and
-    rank-64 factored head)."""
-    if family in ("avg_attention", "aan_narrow"):
+    rank-64 factored head) and its one-head model (``aan_h1``: head dim
+    256, which a tp=2 mesh pads with a zero head)."""
+    if family in ("avg_attention", "aan_narrow", "aan_h1"):
         hps = train_main_path_hps("transformer").replace(
             model_family="avg_attention")
+        if family == "aan_h1":
+            hps = hps.replace(num_heads=1)
         if family == "aan_narrow":
             hps = hps.replace(draft_hidden=DISTILL_FLAGS["draft_hidden"],
                               draft_vocab_rank=DISTILL_FLAGS[
@@ -3984,6 +4277,11 @@ MESH_CASES = {
     "aan_dp2_tp2": (4, "train", "avg_attention", dict(dp=2, tp=2)),
     "aan_narrow_tp2": (2, "train", "aan_narrow", dict(tp=2)),
     "aan_decode_dp2": (2, "aan_search", "avg_attention", dict(dp=2)),
+    # a head count tp does not divide: one head at tp=2, rank 1 holding
+    # only a zero pad head (parallel/sharding.py::pad_heads)
+    "aan_h1_tp2": (2, "train", "aan_h1", dict(tp=2)),
+    "aan_h1_decode_tp2": (2, "aan_search", "avg_attention",
+                          dict(tp=2, num_heads=1)),
     "serve_dp2_dense": (2, "serve", "pointer_generator",
                         dict(dp=2, requests=32, **CONTINUOUS_FLAGS)),
     "serve_dp2_paged": (2, "serve", "pointer_generator",
@@ -4266,7 +4564,12 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
          and the narrow variant (DISTILL_FLAGS' H_d and rank) at tp=2
          within case 1's tolerances, 6 flash forward, dK/dV and dQ per
          rank (its encoder), and a dp=2 decode of 16 articles whose
-         tokens equal the single-rank search's; (d) ``App.main`` at dp=2
+         tokens equal the single-rank search's; and at one head
+         (``aan_h1``, head dim 256) on tp=2, where rank 1 holds only a
+         zero pad head: a train step within case 1's tolerances and a
+         tp=2 search of the 16 articles whose tokens equal the one-head
+         single-rank search's, 6 flash launches per rank in each;
+         (d) ``App.main`` at dp=2
          under torchrun (chip_smoke_mesh.py app; 2 fit steps, 4 rows
          transformed): the rows equal a single-rank App's;
     then a world-1 NCCL initialize and all-reduce on this card (with two
@@ -4315,9 +4618,12 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
         dbatch.as_arrays())
     ahps, aparams, abatch = aan_decode_inputs(seed,
                                               widths.get("avg_attention"))
-    aan_single = beam_search.run_beam_search(
+    # the single-rank AAN search at each head count a case searches with
+    aan_single = {nh: beam_search.run_beam_search(
         from_numpy_tree(aparams, torch.device(device)),
-        ahps.replace(device=device), abatch)
+        ahps.replace(device=device, num_heads=nh), abatch)
+        for nh in {c[3].get("num_heads", ahps.num_heads)
+                   for c in MESH_CASES.values() if c[1] == "aan_search"}}
     if serve_words is None:
         serve_words = _single_serve_words(seed, decode_params, device,
                                           widths)
@@ -4358,6 +4664,7 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
             row.update(_check_mesh_serve(name, ranks, kw, serve_words,
                                          on_card))
         elif kind == "aan_search":
+            ref_search = aan_single[kw.get("num_heads", ahps.num_heads)]
             for r in ranks:
                 # the encoder's flash forward, once per layer; the AAN's
                 # decoder runs no kernel
@@ -4366,7 +4673,7 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
                 check(r["launches"]["flash_forward"] == ahps.enc_layers
                       and not others or not on_card,
                       f"{name}: rank {r['rank']} launched {r['launches']}")
-                check(r["tokens"] == aan_single.tokens.tolist(),
+                check(r["tokens"] == ref_search.tokens.tolist(),
                       f"{name}: rank {r['rank']}'s tokens differ from the "
                       f"single-rank search's")
             row.update(decode_s_per_rank=[r["decode_s"] for r in ranks],
@@ -4611,6 +4918,8 @@ def main(argv=None) -> int:
     bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
     fb_rows, fb_worst = phase_flash_bf16(args.seed)
     fb_sass = bf16_flash_sass()
+    fw_rows, fw_worst = phase_flash_wide(args.seed)
+    fw_sass = wide_flash_sass()
     errors = {name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
               for name, now in (("forward", flash_worst),
                                 ("dq", bwd_worst["dq"]),
@@ -4916,6 +5225,47 @@ def main(argv=None) -> int:
                          bound_by=r[f"{key}_bound_by"])
                     for r in fb_rows.values()],
             added="PR 13", redesigned="PR 14"))
+    # the wide kernels (head dims above 256): the encoder's shape at head
+    # dim 512 as the headline, every shape of phase_flash_wide beside it;
+    # launches from phase_wide_heads' main paths (head dims 512 and 320)
+    wide_src = flash_src + "_wide.cu"
+    wide_runs = dict(f32=[wide["hd512_train_f32_card"],
+                          wide["hd320_train_card"]],
+                     bf16=[wide["hd512_train_bf16_card"]])
+    for key, counter, library in (
+            ("forward", "flash_forward", "_flash_attention_kernel"),
+            ("dkv", "flash_bwd_dkv", "_flash_attention_bwd_dkv"),
+            ("dq", "flash_bwd_dq", "_flash_attention_bwd_dq")):
+        for tag in ("f32", "bf16"):
+            head = fw_rows[(tag, "16x400x1x512")]
+            ms, bound, by, plain, lib = (
+                ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
+                if key == "forward" else
+                (f"{key}_ms", f"{key}_bound_ms", f"{key}_bound_by",
+                 "bwd_plain_ms", "bwd_library_ms"))
+            launched = sum(r["launches"][counter + "_wide"]
+                           for r in wide_runs[tag])
+            if key == "forward" and tag == "f32":
+                launched += wide["hd512_decode"]["wide_launches"]
+            suffix = "" if key == "forward" else f"_bwd_{key}"
+            kernels.append(dict(
+                name="flash_attention_wide" + suffix
+                + ("_bf16" if tag == "bf16" else ""),
+                route="cuda", source=wide_src,
+                replaces=("textsummarization_on_flink_tpu/models/"
+                          f"transformer.py:285 (library {library} at head "
+                          "dims above 256, padded to a multiple of 128)"),
+                launches=launched, max_abs_err=fw_worst[(tag, key)],
+                ms=head[ms], plain_ms=head[plain], bound_ms=head[bound],
+                bound_by=head[by], library_ms=head[lib],
+                library_backend=head["library_backend"],
+                shape=head["shape"], sass=fw_sass[
+                    ("fwd" if key == "forward" else key) + "_" + tag],
+                shapes=[dict(shape=r["shape"], causal=r["causal"],
+                             ms=r[ms], plain_ms=r[plain],
+                             library_ms=r[lib], bound_ms=r[bound],
+                             bound_by=r[by])
+                        for (t, _), r in fw_rows.items() if t == tag]))
     print(json.dumps(dict(total_seconds=time.perf_counter() - t_start)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

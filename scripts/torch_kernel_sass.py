@@ -21,6 +21,17 @@ over the card's FP32 issue rate (132 SMs x 128 lanes per clock at the
 maximum SM clock nvidia-smi reports) is the tanh's instruction floor,
 and the MUFU count over the MUFU rate (16 per clock per SM) its MUFU
 floor.  One JSON line each.
+
+    python3 scripts/torch_kernel_sass.py --compare <other checkout> \
+        [--libraries flash_attention flash_attention_bwd]
+
+builds the named libraries (default: every source) in this checkout and
+in the other one (its own kernels/build.py, its own build directory),
+dumps both with cuobjdump -sass and compares them function by function,
+after dropping the per-file hash of the anonymous namespace from the
+function names and collapsing whitespace (the column padding varies
+between dumps): one JSON line per library, with the functions whose code
+differs.
 """
 
 from __future__ import annotations
@@ -134,9 +145,65 @@ def max_sm_clock_hz() -> float:
     return float(out[0]) * 1e6
 
 
-def main() -> int:
+# the anonymous namespace's name in a mangled function name: its length
+# prefix and a hash of the file (_ZN56_GLOBAL__N__<hash>_<len>_<file>_cu_
+# <hash>), which are not code
+_ANON = re.compile(r"\d+_GLOBAL__N__[0-9a-f]+_\d+_\w+?_cu_[0-9a-f]{8}")
+
+
+def normalized_sass(path: str):
+    """{function: its SASS with whitespace collapsed}, the anonymous
+    namespace's hash dropped from every name."""
+    out = subprocess.run([tool("cuobjdump"), "-sass", path],
+                         capture_output=True, text=True, check=True).stdout
+    funcs = collections.OrderedDict()
+    cur = None
+    for line in out.splitlines():
+        line = " ".join(_ANON.sub("_GLOBAL__N_", line).split())
+        if "Function :" in line:
+            cur = line.split("Function :")[1].strip()
+            funcs[cur] = []
+        elif cur is not None and line:
+            funcs[cur].append(line)
+    return {k: "\n".join(v) for k, v in funcs.items()}
+
+
+def compare(other: str, names) -> int:
+    """Print, per library, whether this checkout's SASS equals the other
+    checkout's, function by function; 1 when any differs."""
     from textsummarization_on_flink_tpu_torch.kernels import build
 
+    here = build.build_all(names)
+    code = ("import json; from textsummarization_on_flink_tpu_torch.kernels "
+            "import build; print(json.dumps(build.build_all("
+            f"{list(names)!r})))")
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(other))
+    there = json.loads(subprocess.run(
+        [sys.executable, "-c", code], env=env, cwd=os.path.abspath(other),
+        capture_output=True, text=True, check=True).stdout.splitlines()[-1])
+    rc = 0
+    for name in names:
+        a, b = normalized_sass(here[name]), normalized_sass(there[name])
+        differing = sorted(f for f in set(a) | set(b) if a.get(f) != b.get(f))
+        rc |= bool(differing)
+        print(json.dumps(dict(library=name, functions=len(a),
+                              other_functions=len(b), equal=not differing,
+                              differing=differing, here=here[name],
+                              other=there[name])))
+    return rc
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    from textsummarization_on_flink_tpu_torch.kernels import build
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--compare", metavar="CHECKOUT")
+    ap.add_argument("--libraries", nargs="+", default=list(build.SOURCES))
+    args = ap.parse_args(argv)
+    if args.compare:
+        return compare(args.compare, args.libraries)
     libs = build.build_all()
     for name, lib in libs.items():
         spills = [ln.strip() for ln in build.build_log(name).splitlines()

@@ -75,10 +75,30 @@ def run_train(case, hps, workdir, rank):
     per_step = {k: (after[k] - before.get(k, 0.0)) / n for k in after}
     acc_dtypes = sorted({str(a.dtype) for a in
                          trainer.tree_leaves(state.opt_state.accumulators)})
+    if case.get("local"):
+        # this rank's shards as they are (pad heads included)
+        _save(workdir, f"{case['name']}.local.rank{rank}",
+              checkpointer._flatten({
+                  "params": state.params,
+                  "accumulators": state.opt_state.accumulators}, ""))
+    restored_equal = None
+    if case.get("checkpoint"):
+        # a checkpoint of the sharded state, restored onto the mesh
+        ckpt = checkpointer.Checkpointer(
+            os.path.join(workdir, case["name"] + "_ckpt"))
+        ckpt.save(state, plan)
+        back = ckpt.restore_sharded(plan)
+        restored_equal = all(
+            torch.equal(a.detach(), b.detach()) for a, b in zip(
+                trainer.tree_leaves(state.params)
+                + trainer.tree_leaves(state.opt_state.accumulators),
+                trainer.tree_leaves(back.params)
+                + trainer.tree_leaves(back.opt_state.accumulators)))
     if plan.is_chief:
         _save(workdir, case["name"], flat,
               {"metrics": rows, "bytes_per_step": per_step,
-               "local_vocab": local_vocab, "acc_dtypes": acc_dtypes})
+               "local_vocab": local_vocab, "acc_dtypes": acc_dtypes,
+               "restored_equal": restored_equal})
 
 
 def run_eval(case, hps, workdir, rank):
@@ -106,6 +126,20 @@ def run_search(case, hps, workdir, rank):
     _save(workdir, f"{case['name']}.rank{rank}",
           {"tokens": out.tokens, "length": out.length,
            "avg_log_prob": out.avg_log_prob})
+
+
+def run_head_mean(case, hps, workdir, rank):
+    """collectives.head_mean of this rank's heads of a [B, heads, T]
+    array whose heads are padded to a multiple of tp (the pad heads are
+    the array's trailing ones); the chief writes the mean."""
+    x = torch.from_numpy(_load(workdir, case["inputs"])["probs"])
+    plan = mesh.make_mesh(hps)
+    held = x.shape[1] // plan.tp
+    local = x[:, plan.coord("tp") * held:(plan.coord("tp") + 1) * held]
+    with collectives.bound(plan):
+        mean = collectives.head_mean(local, 1, hps.num_heads)
+    if plan.is_chief:
+        _save(workdir, case["name"], {"mean": mean.numpy()})
 
 
 def run_attention(case, hps, workdir, rank):
@@ -459,6 +493,7 @@ def run_pipeline(case, hps, workdir, rank):
 
 
 KINDS = {"train": run_train, "eval": run_eval, "search": run_search,
+         "head_mean": run_head_mean,
          "attention": run_attention, "trainer": run_trainer,
          "decoder": run_decoder, "continuous": run_continuous,
          "slot_engine": run_slot_engine, "serve": run_serve,

@@ -242,15 +242,23 @@ def test_flash_kernel_rejects_bad_inputs_on_card():
         ((q, k, v, mask.cpu()), "key_mask"),
         ((q, k.double(), v, mask), "dtype"),
         ((q, k[:, :20].contiguous(), v, mask), "shape"),
-        # head dims up to 256 are padded to the kernels' widths; above
-        # that they are refused
-        tuple([(*_flash_inputs(2, 40, 2, 320)[:3], mask), "head dim"]),
     ]
     before = fl.launches
     for args, match in cases:
         with pytest.raises(ValueError, match=match):
             fl.flash_attention(*args, False, 0.1)
     assert fl.launches == before
+    # head dim 320, refused before the wide kernels: padded to 384 and
+    # taken, one launch of the wide forward
+    wide = fl.launches_wide
+    q3, k3, v3, _ = _flash_inputs(2, 40, 2, 320)
+    got = fl.flash_attention(q3, k3, v3, mask, False, 0.1)
+    torch.cuda.synchronize()
+    assert (fl.launches, fl.launches_wide) == (before + 1, wide + 1)
+    assert got.shape == q3.shape
+    np.testing.assert_allclose(
+        got.cpu().numpy(),
+        fl._flash_plain(q3, k3, v3, mask, False, 0.1).cpu().numpy(), **TOL)
 
 
 @pytest.mark.cuda
@@ -1255,6 +1263,117 @@ def test_flash_bf16_head_dims_padded_on_card(hd):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         _within_bf16_ulps(g, w)
+
+
+#: head dims above 256 (the wide kernels: a multiple of 128, padded to
+#: it), and T ragged and at the 64-row tile edges
+WIDE_HEAD_DIMS = (384, 512, 1024)
+WIDE_T = (1, 63, 65, 130)
+
+
+def _wide_grads(fl, q, k, v, key_mask, causal, scale):
+    """(out, lse, dq, dk, dv) through flash_attention's Function and the
+    forward's lse form on the card; checks one launch of each wide
+    kernel."""
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+    counts = (fl.launches_wide, fl.launches_bwd_dkv_wide,
+              fl.launches_bwd_dq_wide)
+    out = fl.flash_attention(qg, kg, vg, key_mask, causal, scale)
+    do = torch.randn(out.shape, device="cuda").to(q.dtype)
+    grads = torch.autograd.grad(out, (qg, kg, vg), do)
+    torch.cuda.synchronize()
+    assert (fl.launches_wide, fl.launches_bwd_dkv_wide,
+            fl.launches_bwd_dq_wide) == tuple(c + 1 for c in counts)
+    _, lse = fl._flash_cuda(q, k, v, key_mask, causal, scale, with_lse=True)
+    return out.detach(), lse, do, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("T", WIDE_T)
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_kernels_match_plain_on_card(hd, T, causal, dtype):
+    """The wide forward, dK/dV and dQ kernels (head dims above 256) with a
+    ragged key mask, article 1 fully masked, causal on and off: f32
+    within 1e-5 (relative to the gradient's size, as the other kernels'),
+    bf16 within FLASH_BF16_ULPS of the plain bf16 versions; lse within
+    1e-5 * max(1, |lse|), +inf on the same rows; the empty article's
+    outputs exact zeros.  At T = 1 dq and dk are 0 in exact arithmetic (a
+    softmax over one key) and both sides give the rounding noise of
+    dP - D, which no bound in ulps of that noise holds: there they are
+    held to the f32 tolerance."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(3, T, 2, hd, seed=T + hd)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    scale = hd ** -0.5
+    out, lse, do, got = _wide_grads(fl, q, k, v, mask, causal, scale)
+    want_out = fl._flash_plain(q, k, v, mask, causal, scale)
+    lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
+    want = fl._flash_bwd_plain(q, k, v, out, lse_p, do, mask, causal, scale)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+    fin = torch.isfinite(lse_p)
+    assert float((lse - lse_p)[fin].abs().max()) <= 1e-5 * max(
+        1.0, float(lse_p[fin].abs().max()))
+    for name, g, w in zip(("out", "dq", "dk", "dv"), (out, *got),
+                          (want_out, *want)):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert torch.isfinite(g.float()).all()
+        if dtype == torch.bfloat16 and not (T == 1 and name in ("dq", "dk")):
+            _within_bf16_ulps(g, w)
+        else:
+            tol = 1e-5 * max(1.0, float(w.abs().max()))
+            np.testing.assert_allclose(g.float().cpu().numpy(),
+                                       w.float().cpu().numpy(), rtol=0,
+                                       atol=tol)
+        assert not g[1].any()  # the empty article
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", WIDE_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_kernels_repeat_their_bits_on_card(hd, dtype):
+    """The wide kernels use no atomics: two runs of the forward and of
+    the backward on the same inputs give the same bits."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(2, 130, 2, hd, seed=hd)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    scale = hd ** -0.5
+    runs = [fl._flash_cuda(q, k, v, mask, False, scale, with_lse=True)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out, lse = runs[0]
+    do = torch.randn(out.shape, device="cuda").to(dtype)
+    first, second = (fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, False,
+                                        scale) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [320, 640, 1000])
+def test_flash_wide_head_dims_padded_on_card(hd):
+    """Head dims above 256 that are not a multiple of 128 pad to the next
+    one (320 -> 384, 640 -> 640, 1000 -> 1024) and match the plain
+    versions at the true head dim, forward and backward."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(3, 77, 1, hd, seed=hd)
+    scale = hd ** -0.5
+    out, _, do, got = _wide_grads(fl, q, k, v, mask, True, scale)
+    lse_p = fl._flash_lse_plain(q, k, mask, True, scale)
+    want = fl._flash_bwd_plain(q, k, v, out, lse_p, do, mask, True, scale)
+    np.testing.assert_allclose(
+        out.cpu().numpy(),
+        fl._flash_plain(q, k, v, mask, True, scale).cpu().numpy(), **TOL)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
 
 
 @pytest.mark.cuda

@@ -256,7 +256,7 @@ def test_cli_training_writes_the_jax_vocab_metadata(tmp_path):
 
 @pytest.mark.parametrize("hd,width", [(16, 32), (32, 32), (64, 128),
                                       (100, 128), (128, 128), (160, 256),
-                                      (256, 256)])
+                                      (256, 256), (320, 384)])
 def test_flash_head_dim_padding_is_exact(hd, width):
     """The card pads a head dim up to the kernels' width: the plain
     versions at the padded width, with the true head dim's scale, give
@@ -284,14 +284,14 @@ def test_flash_head_dim_padding_is_exact(hd, width):
 
 
 def test_head_dims_above_128_are_refused_on_the_card():
-    """Head dims 129-256 pad to the kernels' 256 (queue 3 item 1's
-    repair); above 256 the card refuses them, naming the item."""
+    """Head dims 129-256 pad to the kernels' 256; above 256 the card no
+    longer refuses them: they pad to the next multiple of 128 for the
+    wide kernels, as the JAX package pads them for the library kernel."""
     assert fl._padded_head_dim(160) == 256
-    with pytest.raises(ValueError, match="queue 3, item 1"):
-        fl._padded_head_dim(320)
+    assert fl._padded_head_dim(320) == 384
+    assert fl._is_wide(384) and not fl._is_wide(256)
     tfm = dict(model_family="transformer", hidden_dim=640, num_heads=2)
-    with pytest.raises(ValueError, match="queue 3, item 1"):
-        HParams(**tfm).validate()
+    HParams(**tfm).validate()  # head dim 320 on the card
     HParams(device="cpu", **tfm).validate()  # the CPU runs any head dim
     HParams(hidden_dim=512, num_heads=8, model_family="transformer"
             ).validate()  # head dim 64: padded on the card

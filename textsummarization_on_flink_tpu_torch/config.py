@@ -63,14 +63,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 #: ROADMAP.md names the queue item that brings each missing mode, option
 #: or family; error messages point there
-ROADMAP_HEAD_DIM = ("ROADMAP.md queue 3, item 1 (transformer head dims above "
-                    "256 on the card)")
 ROADMAP_PG_WIDTH = ("ROADMAP.md queue 3, item 4 (pointer-generator widths "
                     "past the fused attention kernels' shared memory on the "
                     "card)")
-ROADMAP_AAN_TP = ("ROADMAP.md section 3, port fault 8 (the AAN family on a "
-                  "tp mesh: the port's Megatron layout needs tp to divide "
-                  "each sharded width)")
 
 
 #: the JAX package's HParams fields that the port does not have, as
@@ -428,12 +423,6 @@ class HParams:
                     f"hidden_dim={self.hidden_dim}")
             if self.enc_layers < 1 or self.dec_layers < 1:
                 raise ValueError("enc_layers/dec_layers must be >= 1")
-            head_dim = self.hidden_dim // self.num_heads
-            if self.device == "cuda" and head_dim > 256:
-                raise ValueError(
-                    f"head dim {head_dim} (hidden_dim / num_heads): the "
-                    f"flash kernels take head dims up to 256 on the card; "
-                    f"{ROADMAP_HEAD_DIM}")
         if self.device == "cuda" and self.model_family == "pointer_generator":
             self._refuse_pg_width()
         self._validate_spec()

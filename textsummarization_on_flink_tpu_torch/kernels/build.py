@@ -25,7 +25,7 @@ from typing import Dict, List, Sequence
 KERNEL_DIR = os.path.dirname(os.path.abspath(__file__))
 BUILD_DIR = os.path.join(KERNEL_DIR, "_build")
 SOURCES = ("fused_attention", "fused_attention_bwd", "flash_attention",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "flash_attention_wide")
 
 #: -Xptxas -v prints registers, shared memory and spills per kernel into
 #: the build log beside the library

@@ -28,7 +28,13 @@ over the vocabulary, the cross_attn heads and both FFNs (aan_ffn, ffn)
 Megatron-style, the encoder's ring or Ulysses attention under
 --sp_attention.  The narrow variant's factored head shards its rank r
 over tp (w1 column-, w2 row-parallel), so its scores are a sum over tp
-of rank-partial products (transformer.vocab_scores_of).
+of rank-partial products (transformer.vocab_scores_of).  Where tp does
+not divide num_heads (the JAX package lets a head straddle ranks) the
+heads are padded with zero ones to a multiple of tp
+(sharding.pad_heads): each rank runs ceil(num_heads / tp) whole heads,
+a zero head adds exactly 0 and gets zero gradients, and the head mean
+of the copy distribution counts the real heads only
+(collectives.head_mean).
 
 Two inits: ``init_params`` (fresh, from a numpy seed) and
 ``init_from_transformer`` (the mapped draft: the full transformer's

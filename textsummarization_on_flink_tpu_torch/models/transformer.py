@@ -22,11 +22,13 @@ runs the JAX package's layout: on tp the tied embedding and out_bias
 over the vocabulary (collectives.embed, losses.vocab_scores) and the
 Megatron heads and FFN (wq/wk/wv/w1/b1 column-, wo/w2 row-sharded, one
 all-reduce per block), so the flash kernels run this rank's
-num_heads/tp heads and the copy distribution's head mean is summed over
-tp; under --sp_attention with sp > 1 the encoder holds its sp block of T,
-its self-attention is ring or Ulysses (parallel/ring_attention.py, JAX
-transformer.py:226-255) and its output, mask and extended ids are
-all-gathered over sp before the decoder.
+num_heads/tp heads (ceil(num_heads/tp) for the AAN, padded with zero
+heads: parallel/sharding.py::pad_heads) and the copy distribution's
+head mean is summed over tp; under --sp_attention with sp > 1 the
+encoder holds its sp block of T, its self-attention is ring or Ulysses
+(parallel/ring_attention.py, JAX transformer.py:226-255) and its
+output, mask and extended ids are all-gathered over sp before the
+decoder.
 
 ``forward_train`` computes the materialised loss or, with
 ``--loss_chunk``, the streaming one (ops/losses.py), and under
@@ -112,9 +114,11 @@ def _ln(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
 
 
 def _local_heads(hps: HParams) -> int:
-    """This rank's heads: num_heads / tp on a tp mesh (the Megatron
-    column split of wq/wk/wv), num_heads otherwise."""
-    return hps.num_heads // collectives.tp_size()
+    """This rank's heads: ceil(num_heads / tp) on a tp mesh (the
+    Megatron column split of wq/wk/wv; the AAN pads num_heads to a
+    multiple of tp with zero heads, parallel/sharding.py::pad_heads),
+    num_heads otherwise."""
+    return -(-hps.num_heads // collectives.tp_size())
 
 
 def _split_heads(hps: HParams, x: torch.Tensor) -> torch.Tensor:

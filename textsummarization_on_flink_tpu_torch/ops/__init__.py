@@ -5,7 +5,8 @@ def launch_counts() -> dict:
     """Every kernel wrapper's launch count in this process: the fused
     attention's forward and backward (and of those, the launches on a
     bf16 encoder stream), the flash forward, dK/dV and dQ (and of those,
-    the launches of their bf16 forms)."""
+    the launches of their bf16 forms, and of the wide kernels that run
+    head dims above 256)."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
@@ -16,4 +17,7 @@ def launch_counts() -> dict:
                 flash_bwd_dq=fl.launches_bwd_dq,
                 flash_forward_bf16=fl.launches_bf16,
                 flash_bwd_dkv_bf16=fl.launches_bwd_dkv_bf16,
-                flash_bwd_dq_bf16=fl.launches_bwd_dq_bf16)
+                flash_bwd_dq_bf16=fl.launches_bwd_dq_bf16,
+                flash_forward_wide=fl.launches_wide,
+                flash_bwd_dkv_wide=fl.launches_bwd_dkv_wide,
+                flash_bwd_dq_wide=fl.launches_bwd_dq_wide)

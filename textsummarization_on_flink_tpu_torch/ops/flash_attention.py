@@ -51,26 +51,32 @@ installed jax), then launches the dK/dV kernel and the dQ kernel
 ``_flash_bwd_plain`` is the explicit backward formula in plain PyTorch,
 the plain version of both backward kernels.
 
-Head dims: the kernels are built for 32, 128 and 256 (at 256 each kernel
-splits its output's columns over two blocks; see the sources).  On the
-card any other head dim up to 256 is zero-padded to the next of them on
-the way in (q, k, v, and for the backward out and dO) and the outputs
-and gradients are sliced back: zero columns add nothing to q . k, give
-zero output columns and zero gradient columns, and ``sm_scale`` is
-passed by the caller from the true head dim (the JAX package pads the
-same way for the library kernel, models/transformer.py:262-272).  Head
-dims above 256 are refused (config.ROADMAP_HEAD_DIM).
+Head dims: the kernels of flash_attention.cu and flash_attention_bwd.cu
+are built for 32, 128 and 256 (at 256 each kernel splits its output's
+columns over two blocks; see the sources); those of
+flash_attention_wide.cu take any multiple of 128 (each block keeps one
+128-column slab of its output and forms S over the whole head dim in
+32-column chunks), and run every head dim above 256.  On the card any
+other head dim is zero-padded to the next of 32, 128, 256 or, above 256,
+to the next multiple of 128 on the way in (q, k, v, and for the
+backward out and dO) and the outputs and gradients are sliced back:
+zero columns add nothing to q . k, give zero output columns and zero
+gradient columns, and ``sm_scale`` is passed by the caller from the
+true head dim (the JAX package pads the same way for the library
+kernel, models/transformer.py:262-272).  No head dim is refused.
 
 Dispatch: a CPU tensor goes to the plain versions; a CUDA tensor goes to
-the kernels (kernels/flash_attention.cu, kernels/flash_attention_bwd.cu;
-f32 tensors to their f32 forms, bf16 tensors to their bf16 forms, a mix
-raises), or the wrapper raises.  There is no fallback from one to the
-other.  ``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq`` count
-kernel launches of either form, ``launches_bf16``,
-``launches_bwd_dkv_bf16`` and ``launches_bwd_dq_bf16`` those of the bf16
-forms.  ``flash_attention`` takes the Function only when a gradient is
-needed; under ``torch.no_grad`` (serving) it launches the forward alone,
-without ``lse``.
+the kernels (kernels/flash_attention.cu, kernels/flash_attention_bwd.cu,
+above head dim 256 kernels/flash_attention_wide.cu; f32 tensors to their
+f32 forms, bf16 tensors to their bf16 forms, a mix raises), or the
+wrapper raises.  There is no fallback from one to the other.
+``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq`` count kernel
+launches of every form, ``launches_bf16``, ``launches_bwd_dkv_bf16`` and
+``launches_bwd_dq_bf16`` those of the bf16 forms, ``launches_wide``,
+``launches_bwd_dkv_wide`` and ``launches_bwd_dq_wide`` those of the wide
+kernels (either dtype).  ``flash_attention`` takes the Function only
+when a gradient is needed; under ``torch.no_grad`` (serving) it
+launches the forward alone, without ``lse``.
 """
 
 from __future__ import annotations
@@ -81,14 +87,15 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from textsummarization_on_flink_tpu_torch.config import ROADMAP_HEAD_DIM
 from textsummarization_on_flink_tpu_torch.ops.fused_attention import _check
 
 NEG = -1e30  # masked-logit floor (transformer._mha), never -inf
 
 #: head dims the kernel is built for (the switch in ts_flash_attention);
-#: the others up to the largest are zero-padded to the next one
+#: the others up to the largest are zero-padded to the next one, those
+#: above it to the next multiple of WIDE_STEP for the wide kernels
 HEAD_DIMS = (32, 128, 256)
+WIDE_STEP = 128
 
 #: kernel launches so far (one per forward on CUDA tensors, one per
 #: backward for each backward kernel), and of those the launches of the
@@ -99,12 +106,16 @@ launches_bwd_dq = 0
 launches_bf16 = 0
 launches_bwd_dkv_bf16 = 0
 launches_bwd_dq_bf16 = 0
+launches_wide = 0
+launches_bwd_dkv_wide = 0
+launches_bwd_dq_wide = 0
 
 #: the dtypes the kernels take (all of q, k, v, out and dO in one of them)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _lib: Optional[ctypes.CDLL] = None
 _bwd_lib: Optional[ctypes.CDLL] = None
+_wide_lib: Optional[ctypes.CDLL] = None
 
 
 def _allowed(key_mask: Optional[torch.Tensor], causal: bool, B: int, T: int,
@@ -207,12 +218,18 @@ def _flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _padded_head_dim(hd: int) -> int:
-    """The head dim the kernels run at for a head dim of ``hd``."""
+    """The head dim the kernels run at for a head dim of ``hd``: the next
+    of HEAD_DIMS, or above them the next multiple of WIDE_STEP (the wide
+    kernels')."""
     for width in HEAD_DIMS:
         if hd <= width:
             return width
-    raise ValueError(f"head dim {hd} is above the largest the kernels are "
-                     f"built for ({HEAD_DIMS[-1]}); {ROADMAP_HEAD_DIM}")
+    return -(-hd // WIDE_STEP) * WIDE_STEP
+
+
+def _is_wide(width: int) -> bool:
+    """Does a padded head dim run on the wide kernels."""
+    return width > HEAD_DIMS[-1]
 
 
 def _pad_head_dim(width: int, *xs: torch.Tensor):
@@ -256,6 +273,46 @@ def _load_bwd_library() -> ctypes.CDLL:
     return _bwd_lib
 
 
+def _load_wide_library() -> ctypes.CDLL:
+    global _wide_lib
+    if _wide_lib is None:
+        from textsummarization_on_flink_tpu_torch.kernels import build
+
+        lib = ctypes.CDLL(build.build("flash_attention_wide"))
+        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        for fn in (lib.ts_flash_wide, lib.ts_flash_wide_bf16):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 6 + tail
+        for fn in (lib.ts_flash_wide_bwd_dkv, lib.ts_flash_wide_bwd_dkv_bf16):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 9 + tail
+        for fn in (lib.ts_flash_wide_bwd_dq, lib.ts_flash_wide_bwd_dq_bf16):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 8 + tail
+        lib.ts_flash_wide_error_string.restype = ctypes.c_char_p
+        lib.ts_flash_wide_error_string.argtypes = [ctypes.c_int]
+        _wide_lib = lib
+    return _wide_lib
+
+
+def _entry(kind: str, bf16: bool, wide: bool):
+    """(the C entry point, its library's error string) of the forward
+    (``kind`` "fwd"), dK/dV ("dkv") or dQ ("dq") kernel: the wide
+    library's above head dim 256, else flash_attention's (the forward)
+    or flash_attention_bwd's; the _bf16 entry for bf16 operands."""
+    if wide:
+        lib = _load_wide_library()
+        name = "ts_flash_wide" + ("" if kind == "fwd" else f"_bwd_{kind}")
+        error_string = lib.ts_flash_wide_error_string
+    elif kind == "fwd":
+        lib, name = _load_library(), "ts_flash_attention"
+        error_string = lib.ts_flash_error_string
+    else:
+        lib, name = _load_bwd_library(), f"ts_flash_bwd_{kind}"
+        error_string = lib.ts_flash_bwd_error_string
+    return getattr(lib, name + ("_bf16" if bf16 else "")), error_string
+
+
 def _check_inputs(what: str, tensors, key_mask) -> None:
     """Device, type, shape, contiguity and alignment of [B, T, nh, hd]
     inputs, all float32 or all bfloat16 (the first one sets the shape and
@@ -280,16 +337,15 @@ def _check_inputs(what: str, tensors, key_mask) -> None:
                              f"loads)")
     if key_mask is not None:
         _check("key_mask", key_mask, (B, T), (torch.float32,), dev)
-    _padded_head_dim(hd)
     if B == 0 or T == 0 or nh == 0:
         raise ValueError(f"empty attention input (B={B}, T={T}, nh={nh})")
 
 
 def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False):
-    """Launch the forward kernel (its bf16 form for bf16 inputs); same
-    contract as _flash_plain.  With ``with_lse`` returns (out, lse
-    [B, T, nh] float32)."""
-    global launches, launches_bf16
+    """Launch the forward kernel (its bf16 form for bf16 inputs; the wide
+    kernel's above head dim 256); same contract as _flash_plain.  With
+    ``with_lse`` returns (out, lse [B, T, nh] float32)."""
+    global launches, launches_bf16, launches_wide
     _check_inputs("flash attention", (("q", q), ("k", k), ("v", v)),
                   key_mask)
     dev = q.device
@@ -299,9 +355,9 @@ def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False):
     B, T, nh, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B, T, nh), device=dev) if with_lse else None
-    lib = _load_library()
     bf16 = q.dtype == torch.bfloat16
-    fn = lib.ts_flash_attention_bf16 if bf16 else lib.ts_flash_attention
+    wide = _is_wide(width)
+    fn, error_string = _entry("fwd", bf16, wide)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
@@ -311,23 +367,25 @@ def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False):
             B, T, nh, width, int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         raise RuntimeError("flash attention kernel launch failed: "
-                           + lib.ts_flash_error_string(err).decode())
+                           + error_string(err).decode())
     launches += 1
     launches_bf16 += bf16
+    launches_wide += wide
     if width != hd:
         out = out[..., :hd].contiguous()
     return (out, lse) if with_lse else out
 
 
 def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
-    """Launch the dK/dV kernel (its bf16 form for bf16 inputs): (dk, dv).
-    dsum = rowsum(dO * O) [B, T, nh] float32."""
-    global launches_bwd_dkv, launches_bwd_dkv_bf16
+    """Launch the dK/dV kernel (its bf16 form for bf16 inputs; the wide
+    kernel's above head dim 256): (dk, dv).  dsum = rowsum(dO * O)
+    [B, T, nh] float32."""
+    global launches_bwd_dkv, launches_bwd_dkv_bf16, launches_bwd_dkv_wide
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    lib = _load_bwd_library()
     bf16 = q.dtype == torch.bfloat16
-    fn = lib.ts_flash_bwd_dkv_bf16 if bf16 else lib.ts_flash_bwd_dkv
     B, T, nh, hd = q.shape
+    wide = _is_wide(hd)
+    fn, error_string = _entry("dkv", bf16, wide)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -337,20 +395,22 @@ def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash attention dK/dV kernel launch failed: "
-                           + lib.ts_flash_bwd_error_string(err).decode())
+                           + error_string(err).decode())
     launches_bwd_dkv += 1
     launches_bwd_dkv_bf16 += bf16
+    launches_bwd_dkv_wide += wide
     return dk, dv
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
-    """Launch the dQ kernel (its bf16 form for bf16 inputs): dq."""
-    global launches_bwd_dq, launches_bwd_dq_bf16
+    """Launch the dQ kernel (its bf16 form for bf16 inputs; the wide
+    kernel's above head dim 256): dq."""
+    global launches_bwd_dq, launches_bwd_dq_bf16, launches_bwd_dq_wide
     dq = torch.empty_like(q)
-    lib = _load_bwd_library()
     bf16 = q.dtype == torch.bfloat16
-    fn = lib.ts_flash_bwd_dq_bf16 if bf16 else lib.ts_flash_bwd_dq
     B, T, nh, hd = q.shape
+    wide = _is_wide(hd)
+    fn, error_string = _entry("dq", bf16, wide)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
@@ -360,9 +420,10 @@ def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash attention dQ kernel launch failed: "
-                           + lib.ts_flash_bwd_error_string(err).decode())
+                           + error_string(err).decode())
     launches_bwd_dq += 1
     launches_bwd_dq_bf16 += bf16
+    launches_bwd_dq_wide += wide
     return dq
 
 

@@ -479,10 +479,17 @@ def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
 
 def head_mean(probs: torch.Tensor, dim: int, num_heads: int) -> torch.Tensor:
     """The mean over all ``num_heads`` heads of head-sharded ``probs``
-    (this rank's num_heads/tp heads on ``dim``)."""
-    if not _active(current(), "tp"):
+    (this rank's ceil(num_heads / tp) heads on ``dim``).  Where tp does
+    not divide num_heads the last ranks' trailing heads are zero pad
+    heads (sharding.pad_heads), whose softmax is uniform over the keys,
+    not zero: only this rank's real heads enter the sum."""
+    plan = current()
+    if not _active(plan, "tp"):
         return torch.mean(probs, dim=dim)
-    return reduce_from_tp(torch.sum(probs, dim=dim)) / num_heads
+    held = probs.shape[dim]
+    real = min(max(num_heads - plan.coord("tp") * held, 0), held)
+    return reduce_from_tp(torch.sum(probs.narrow(dim, 0, real),
+                                    dim=dim)) / num_heads
 
 
 def dp_share(count: torch.Tensor) -> torch.Tensor:

@@ -208,7 +208,10 @@ def validate_divisibility(hps: HParams, params: Optional[Any] = None,
             f"sp_attention=ulysses re-shards heads over sp: sp={hps.sp} "
             f"must divide num_heads={hps.num_heads}")
     if hps.tp > 1 and hps.model_family in ("transformer", "avg_attention"):
-        if hps.num_heads % hps.tp != 0:
+        # the AAN pads its heads to a multiple of tp (sharding.pad_heads),
+        # where the JAX package lets a head straddle ranks
+        if hps.model_family == "transformer" \
+                and hps.num_heads % hps.tp != 0:
             raise ValueError(
                 f"tensor-parallel axis tp={hps.tp} must divide "
                 f"num_heads={hps.num_heads} (Megatron head sharding)")
@@ -226,24 +229,30 @@ def validate_divisibility(hps: HParams, params: Optional[Any] = None,
 
 
 def _validate_aan_tp(hps: HParams) -> None:
-    """The AAN's decoder side on tp: its FFNs (aan_ffn, ffn) at the
-    decoder width and the narrow draft's factored vocab_head rank are
-    Megatron-sharded, so tp must divide each; the JAX package's GSPMD
-    takes uneven shards (ROADMAP_AAN_TP)."""
+    """The AAN's sharded widths on tp: the attention blocks' columns
+    (hidden_dim in the encoder, the decoder's width in its
+    cross-attention), the decoder's FFNs (aan_ffn, ffn) and the narrow
+    draft's factored vocab_head rank.  The JAX package's placement
+    (mesh.shard_train_state's device_put) raises for each of these
+    widths that tp does not divide, so the port refuses the same,
+    before a model is built.  num_heads is not among them: the port
+    pads the heads to a multiple of tp (sharding.pad_heads)."""
     from textsummarization_on_flink_tpu_torch.config import (
-        ROADMAP_AAN_TP,
         resolve_draft_hidden,
     )
 
     hd = resolve_draft_hidden(hps)
     dec_ffn = hps.ffn_width if hd == hps.hidden_dim else (
         hps.ffn_dim or 4 * hd)
-    for what, width in (("the AAN decoder's ffn width", dec_ffn),
+    for what, width in (("hidden_dim", hps.hidden_dim),
+                        ("the AAN decoder's width", hd),
+                        ("the AAN decoder's ffn width", dec_ffn),
                         ("draft_vocab_rank", hps.draft_vocab_rank)):
         if width % hps.tp != 0:
             raise ValueError(
                 f"tensor-parallel axis tp={hps.tp} must divide {what} "
-                f"{width}: {ROADMAP_AAN_TP}")
+                f"{width}: the JAX package's placement refuses the same "
+                f"(its device_put of the sharded leaf raises)")
 
 
 def shard_batch(plan: MeshPlan, arrays: Dict[str, Any]) -> Dict[str, Any]:

@@ -110,6 +110,63 @@ def param_spec(path: Tuple[Any, ...], leaf: Any = None) -> Spec:
     return Spec()
 
 
+#: the attention blocks whose wq/wk/wv columns and wo rows hold heads
+ATTENTION_BLOCKS = ("self_attn", "cross_attn")
+
+
+def head_pad(hps: HParams) -> int:
+    """The zero heads each attention block is padded with on a tp mesh:
+    num_heads rounded up to a multiple of tp, less num_heads.  Only the
+    AAN pads (the transformer refuses a tp that does not divide
+    num_heads, as the JAX package does); the JAX package shards the
+    AAN's H columns and lets a head straddle ranks, the port keeps whole
+    heads on a rank and adds zero ones."""
+    if hps.model_family != "avg_attention":
+        return 0
+    return -hps.num_heads % max(int(hps.tp), 1)
+
+
+def head_axis(path: Tuple[Any, ...]) -> Optional[int]:
+    """The axis of an attention weight that holds heads x head dim (the
+    columns of wq/wk/wv, the rows of wo), or None for another leaf."""
+    if len(path) < 2 or path[-2] not in ATTENTION_BLOCKS:
+        return None
+    if path[-1] in ("wq", "wk", "wv"):
+        return 1
+    return 0 if path[-1] == "wo" else None
+
+
+def pad_heads(hps: HParams, path: Tuple[Any, ...], x: Any,
+              value: float = 0.0) -> Any:
+    """``x`` with head_pad(hps) heads of ``value`` appended on its head
+    axis (the Megatron layout's real heads first); other leaves, or no
+    pad, as they are.  Zero weights give a zero head: its output and
+    every gradient of it are exactly 0."""
+    pad, dim = head_pad(hps), head_axis(path)
+    if not pad or dim is None:
+        return x
+    width = x.shape[dim] // hps.num_heads * pad
+    if isinstance(x, torch.Tensor):
+        shape = list(x.shape)
+        shape[dim] = width
+        return torch.cat([x, x.new_full(shape, value)], dim=dim)
+    x = np.asarray(x)
+    widths = [(0, 0)] * x.ndim
+    widths[dim] = (0, width)
+    return np.pad(x, widths, constant_values=value)
+
+
+def unpad_heads(hps: HParams, path: Tuple[Any, ...], x: Any) -> Any:
+    """The inverse of pad_heads: the real heads of a padded leaf."""
+    pad, dim = head_pad(hps), head_axis(path)
+    if not pad or dim is None:
+        return x
+    real = x.shape[dim] // (hps.num_heads + pad) * hps.num_heads
+    if isinstance(x, torch.Tensor):
+        return x.narrow(dim, 0, real).contiguous()
+    return np.take(np.asarray(x), range(real), axis=dim)
+
+
 def tree_paths(tree: PyTree, prefix: Tuple[Any, ...] = (),
                ) -> Iterator[Tuple[Tuple[Any, ...], Any]]:
     """(key path, leaf) pairs in ``params.tree_leaves`` order."""
@@ -296,20 +353,25 @@ class ShardingRegistry:
         return page_table_spec()
 
     # -- params and state --
-    def shard_params(self, params: PyTree) -> PyTree:
+    def shard_params(self, params: PyTree, pad_value: float = 0.0,
+                     ) -> PyTree:
         """This rank's slice of every tp leaf of a full params tree
-        (tensors or numpy); replicated leaves as they are."""
+        (tensors or numpy), the attention weights first padded to whole
+        heads on every rank (pad_heads, with ``pad_value``); replicated
+        leaves as they are."""
         def shard(path, x):
             dim = param_spec(path).dim_of("tp")
             if dim is None or self.tp == 1:
                 return x
+            x = pad_heads(self.hps, path, x, pad_value)
             return _slice_dim(x, dim, self.plan.coord("tp"), self.tp)
 
         return _map_paths(shard, params)
 
     def gather_params(self, params: PyTree) -> PyTree:
         """The full tree from every tp rank's slices: an all-gather over
-        tp of each tp leaf (every rank takes part)."""
+        tp of each tp leaf (every rank takes part), the pad heads
+        dropped, so the tree has the JAX package's layout."""
         from textsummarization_on_flink_tpu_torch.parallel import (
             collectives,
         )
@@ -318,13 +380,17 @@ class ShardingRegistry:
             dim = param_spec(path).dim_of("tp")
             if dim is None or self.tp == 1:
                 return x
-            return collectives.all_gather(self.plan, x.detach(), "tp", dim)
+            return unpad_heads(self.hps, path, collectives.all_gather(
+                self.plan, x.detach(), "tp", dim))
 
         return _map_paths(gather, params)
 
     def shard_state(self, state: Any) -> Any:
         """This rank's TrainState from a full one: params and
-        accumulators sliced, params requiring grad."""
+        accumulators sliced, params requiring grad.  A pad head's
+        accumulators start at adagrad_init_acc: its gradients are 0, so
+        Adagrad leaves its weights at 0 (an accumulator of 0 would give
+        0 * rsqrt(0))."""
         from textsummarization_on_flink_tpu_torch.train import optim
 
         params = self.shard_params(state.params)
@@ -332,7 +398,8 @@ class ShardingRegistry:
             if isinstance(p, torch.Tensor) and not p.requires_grad:
                 p.requires_grad_(True)
         return state._replace(params=params, opt_state=optim.AdagradState(
-            accumulators=self.shard_params(state.opt_state.accumulators)))
+            accumulators=self.shard_params(state.opt_state.accumulators,
+                                           self.hps.adagrad_init_acc)))
 
     def gather_state(self, state: Any) -> Any:
         """The full TrainState (collective over tp)."""
@@ -441,22 +508,22 @@ def analytic_comms(hps: HParams, params: Optional[PyTree] = None) -> dict:
       tp_scores_bytes    the per-step [T_dec, B, V_ext] scores-shaped
                          all-gather at the compute dtype (0 when tp == 1)
 
+    The port's dp_grad_elements count the pad heads' zero gradients (the
+    AAN on a tp that does not divide num_heads, pad_heads), which its
+    wire carries and the JAX package's count has not: dp_wire_bytes is
+    then JAX's plus ``head_pad_elements(hps, params)`` x the wire size.
     ``params`` (numpy or tensors) gives the shapes; None builds a fresh
     tree at ``hps.vocab_size``."""
-    if params is None:
-        from textsummarization_on_flink_tpu_torch.params import (
-            init_numpy_params,
-        )
-
-        params = init_numpy_params(hps, hps.vocab_size, 0)
+    params = _shapes_tree(hps, params)
     tp = max(int(hps.tp), 1)
     total = 0
     dp_elems = 0
     for path, leaf in tree_paths(params):
-        elems = int(np.prod(leaf.shape)) if leaf.shape else 1
+        elems = _elements(leaf)
         total += elems
         spec = param_spec(path, leaf)
-        dp_elems += elems // tp if "tp" in spec else elems
+        dp_elems += _padded(hps, path, elems) // tp if "tp" in spec \
+            else elems
     wire = hps.grad_allreduce_dtype
     wire_size = 2 if wire == "bfloat16" else 4
     compute_size = 2 if hps.compute_dtype == "bfloat16" else 4
@@ -470,4 +537,36 @@ def analytic_comms(hps: HParams, params: Optional[PyTree] = None) -> dict:
         "wire_dtype": wire,
         "tp_scores_bytes": scores,
     }
+
+
+def head_pad_elements(hps: HParams, params: Optional[PyTree] = None,
+                      ) -> int:
+    """Of ``analytic_comms``' dp_grad_elements, the pad heads' (0 unless
+    head_pad(hps)): per rank, each padded attention weight's shard less
+    its unpadded share."""
+    params = _shapes_tree(hps, params)
+    tp = max(int(hps.tp), 1)
+    return sum(_padded(hps, path, _elements(leaf)) // tp
+               - _elements(leaf) // tp
+               for path, leaf in tree_paths(params)
+               if "tp" in param_spec(path, leaf))
+
+
+def _shapes_tree(hps: HParams, params: Optional[PyTree]) -> PyTree:
+    if params is not None:
+        return params
+    from textsummarization_on_flink_tpu_torch.params import init_numpy_params
+
+    return init_numpy_params(hps, hps.vocab_size, 0)
+
+
+def _elements(leaf: Any) -> int:
+    return int(np.prod(leaf.shape)) if leaf.shape else 1
+
+
+def _padded(hps: HParams, path: Tuple[Any, ...], elems: int) -> int:
+    """A leaf's elements after pad_heads."""
+    if head_axis(path) is None or not head_pad(hps):
+        return elems
+    return elems // hps.num_heads * (hps.num_heads + head_pad(hps))
 
