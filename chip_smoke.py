@@ -60,6 +60,16 @@ device or without the port's sources beside it.  Phases, each fatal:
         a rerun the same bits, timed beside scaled_dot_product_attention
         with the backend it took (phase_flash_wide); their ptxas report,
         0 bytes of spill in all six instantiations (wide_flash_sass);
+     g. the fused kernels' slab forms (D in slabs: 16 x 4 x 400 x 2400
+        and 4 x 1 x 400 x 4096 f32, 16 x 4 x 400 x 4096 bf16; the
+        backward at 16 x 1 x 400 x 2400, 4 x 1 x 400 x 4096 and bf16
+        16 x 1 x 400 x 4096) and sp-block forms (the reference block at
+        sp = 2, 16 x 4 x 200 x 512 and 16 x 1 x 200 x 512, with the row
+        max and sum; the backward with an outside correction) against
+        their plain versions, reruns bit-equal, timed beside their bounds
+        (phase_attention_forms); the parent's launch forms' output
+        digests equal to the parent's (PARENT_DIGESTS); every dense and
+        slab instantiation's ptxas report, 0 bytes of spill (fused_sass);
   4. for each model family, check the beam search on the card against the
      plain CPU path on a small input (same tokens), and three train steps
      of a small model on the card against the CPU (same losses within
@@ -128,7 +138,10 @@ device or without the port's sources beside it.  Phases, each fatal:
      full width (a decode of 16 articles, 3 train steps on the card and
      one with --device=cpu, in f32 and in bf16, 12 + 12 + 12 wide
      launches per step, 6 per decode batch) and head dim 320 (a small
-     beam search and a train step against the CPU);
+     beam search and a train step against the CPU); and past the fused
+     kernels' dense forms, the pointer-generator at hidden_dim 1200 (a
+     decode of 8 articles on the slab forward, a train step on the
+     slab backward, its loss within 1e-4 of --device=cpu's);
  10. online serving (phase_serve): the micro-batch ServingServer at the
      reference width over the ROUGE phase's trained checkpoint: a pinned
      group of 16 equal to a CPU ServingServer's summaries token for
@@ -200,7 +213,14 @@ device or without the port's sources beside it.  Phases, each fatal:
      analytic_comms' bytes (86.0 MB f32, 43.0 bf16); a dp=2 decode of 16
      articles equal to the single-rank decode_batch and a tp=2 search;
      the AAN, among its cases at one head on tp=2 (rank 1 holding a
-     zero pad head: a step and a search against the single rank);
+     zero pad head: a step and a search against the single rank); the
+     pointer-generator with T sharded over sp (a train step at sp=2 and
+     at dp=2 x sp=2, a search of 16 articles at sp=2 with tokens exact,
+     every fused launch the sp-block form), the transformer's search at
+     sp=2 under --sp_attention=ring (tokens exact) and, at the JAX
+     package's long-context width (hidden_dim 512, 800 encoder steps),
+     each sp=2 rank's peak memory and the es and ef its fused attention
+     saved (half the single rank's);
      then ``torchrun`` on the entry point (3 train steps at dp=2, a
      resume to 5) and a world-1 NCCL all-reduce; every rank's kernel
      launches checked, and summed into the kernels line;
@@ -646,6 +666,319 @@ def phase_attention_bwd(seed):
             if T == 400:
                 main[(dname, use_cov, D)] = row
     return main, worst
+
+
+#: the slab forms' shapes (B, K, T, D, dtype): the pointer-generator at
+#: hidden_dim 1200 at beam 4 (past the dense form's room in f32; in bf16
+#: the dense form still takes it), the long form at D 4096, and bf16 past
+#: its dense room; the backward's at K = 1
+SLAB_CASES = [(16, 4, 400, 2400, "float32"), (4, 1, 400, 4096, "float32"),
+              (16, 4, 400, 2400, "bfloat16"), (16, 4, 400, 4096, "bfloat16")]
+SLAB_BWD_CASES = [(16, 400, 2400, "float32"), (4, 400, 4096, "float32"),
+                  (16, 400, 4096, "bfloat16")]
+#: the sp-block forms at the reference shape's block at sp = 2 (200 of
+#: the 400 positions), beam 4 (decode) and K = 1 (training)
+SP_BLOCK_CASES = [(16, 4, 200, 512), (16, 1, 200, 512)]
+
+#: the launch forms the parent (the tree before the slab and sp-block
+#: forms) took, each (B, K, T, D, dtype, t_active) for the forward and
+#: (B, T, D, dtype) for the backward; their outputs' digests over
+#: digest_inputs must equal the parent's (PARENT_DIGESTS, from
+#: scripts/torch_attention_bench.py --which digests on the parent's
+#: checkout, NVIDIA H100 80GB HBM3)
+DIGEST_FORWARD = [(16, 4, 400, 512, "float32", None),
+                  (16, 4, 400, 512, "bfloat16", None),
+                  (16, 4, 400, 512, "float32", 128),
+                  (4, 1, 4096, 512, "float32", None),
+                  (4, 1, 4096, 512, "bfloat16", None),
+                  (16, 1, 400, 512, "float32", None),
+                  (4, 4, 400, 512, "float32", None),
+                  (16, 4, 400, 800, "float32", None),
+                  (16, 1, 400, 860, "float32", None),
+                  (2, 4, 400, 2048, "float32", None),
+                  (16, 4, 400, 2224, "float32", None),
+                  (16, 1, 400, 2400, "float32", None),
+                  (16, 4, 400, 2400, "bfloat16", None)]
+DIGEST_BACKWARD = [(16, 400, 512, "float32"), (16, 400, 512, "bfloat16"),
+                   (4, 4096, 512, "float32"), (16, 400, 860, "float32"),
+                   (2, 40, 2308, "float32"), (2, 40, 3072, "bfloat16")]
+PARENT_DIGESTS = {
+    "fwd 16x4x400x512 float32 t_active=None": "3b84344cc79fe661",
+    "fwd 16x4x400x512 bfloat16 t_active=None": "c64015ef87b938ef",
+    "fwd 16x4x400x512 float32 t_active=128": "4ade2dbb3b1ac109",
+    "fwd 4x1x4096x512 float32 t_active=None": "ca2ddc6ef220161e",
+    "fwd 4x1x4096x512 bfloat16 t_active=None": "8d7024ca7a06f922",
+    "fwd 16x1x400x512 float32 t_active=None": "dcc727f225cab1df",
+    "fwd 4x4x400x512 float32 t_active=None": "e6ae78f14d10bd27",
+    "fwd 16x4x400x800 float32 t_active=None": "709b8c5e2ddcabb6",
+    "fwd 16x1x400x860 float32 t_active=None": "b8ff83b01e91149c",
+    "fwd 2x4x400x2048 float32 t_active=None": "722a351aae7283a7",
+    "fwd 16x4x400x2224 float32 t_active=None": "32ac66e5363ee532",
+    "fwd 16x1x400x2400 float32 t_active=None": "49a6f5fad6cda785",
+    "fwd 16x4x400x2400 bfloat16 t_active=None": "8579e433ebed52f1",
+    "bwd 16x400x512 float32": "8e56f63593c9b4e6",
+    "bwd 16x400x512 bfloat16": "228125dca866177b",
+    "bwd 4x4096x512 float32": "cf44c0fda213170d",
+    "bwd 16x400x860 float32": "c15dae595067c900",
+    "bwd 2x40x2308 float32": "a206e545d6096d27",
+    "bwd 2x40x3072 bfloat16": "2dc73e9a5096851f",
+}
+
+
+def digest_inputs(B, K, T, D, dtype, seed):
+    """The fused attention's inputs from numpy (the same bits under any
+    torch build): ragged lengths, article 1 fully masked, at model
+    scale."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    lens = rng.randint(T // 2, T + 1, B)
+    lens[0] = T
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    if B > 1:
+        mask[1] = 0.0
+    lim = (6.0 / (2 * D)) ** 0.5
+    arrays = dict(
+        es=rng.randn(B, T, D).astype(np.float32),
+        ef=rng.randn(B, T, D).astype(np.float32), mask=mask,
+        df=rng.randn(B, K, D).astype(np.float32),
+        cov=(rng.rand(B, K, T) * mask[:, None] * 3.0).astype(np.float32),
+        v=(rng.uniform(-1, 1, D) * lim).astype(np.float32),
+        w_c=(rng.uniform(-1, 1, D) * lim).astype(np.float32))
+    out = {k: torch.from_numpy(v).cuda() for k, v in arrays.items()}
+    for k in ("es", "ef"):
+        out[k] = out[k].to(getattr(torch, dtype))
+    return [out[k] for k in ("es", "ef", "mask", "df", "cov", "v", "w_c")]
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for x in tensors:
+        h.update(x.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def fused_digests(fa):
+    """{case: digest} of the fused attention's forward (ctx, attn) and
+    backward (its six gradients) at the parent's launch forms
+    (DIGEST_FORWARD, DIGEST_BACKWARD), through ``fa`` (the port's
+    ops.fused_attention, or another checkout's)."""
+    import torch
+
+    out = {}
+    for (B, K, T, D, dtype, t_act) in DIGEST_FORWARD:
+        args = digest_inputs(B, K, T, D, dtype, 1)
+        out[f"fwd {B}x{K}x{T}x{D} {dtype} t_active={t_act}"] = _digest(
+            fa._attention_cuda(*args, True, t_act))
+    for (B, T, D, dtype) in DIGEST_BACKWARD:
+        es, ef, mask, df, cov, v, w_c = digest_inputs(B, 1, T, D, dtype, 2)
+        df, cov = df[:, 0].contiguous(), cov[:, 0].contiguous()
+        _, attn = fa._attention_cuda(es, ef, mask, df[:, None].contiguous(),
+                                     cov[:, None].contiguous(), v, w_c, True)
+        rng = np.random.RandomState(3)
+        g_ctx = torch.from_numpy(rng.randn(B, D).astype(np.float32)).cuda()
+        g_attn = torch.from_numpy(rng.randn(B, T).astype(np.float32)).cuda()
+        out[f"bwd {B}x{T}x{D} {dtype}"] = _digest(fa._attention_bwd_cuda(
+            es, ef, mask, df, cov, v, w_c, attn[:, 0].contiguous(), g_ctx,
+            g_attn, True))
+    torch.cuda.synchronize()
+    return out
+
+
+FUSED_KERNELS = ("attention_kernel", "attention_slab_kernel",
+                 "attention_bwd_kernel", "attention_bwd_slab_kernel")
+
+
+def fused_sass():
+    """The fused attention's ptxas report (scripts/torch_kernel_sass.py
+    over both libraries' build logs): registers and spill bytes of every
+    instantiation of the dense and slab kernels.  Fails unless every
+    one is there with 0 bytes of spill."""
+    sys.path.insert(0, os.path.join(HERE, "scripts"))
+    import torch_kernel_sass as sass
+
+    from textsummarization_on_flink_tpu_torch.kernels import build
+
+    out, seen = {}, set()
+    for lib in ("fused_attention", "fused_attention_bwd"):
+        build.build(lib)
+        for func, info in sass.ptxas_functions(build.build_log(lib)).items():
+            kernel = next((k for k in FUSED_KERNELS[::-1] if k in func),
+                          None)
+            if kernel is None:
+                continue
+            seen.add(kernel)
+            spill = info.get("spill_stores", -1) + info.get("spill_loads", -1)
+            out[func] = dict(registers=info.get("registers"),
+                             spill_bytes=spill)
+            check(spill == 0, f"fused kernel {func}: ptxas {info} (want 0 "
+                              f"bytes of spill)")
+    check(seen == set(FUSED_KERNELS),
+          f"fused kernels missing from the build logs: {seen}")
+    print("fused_sass " + json.dumps(dict(
+        instantiations=len(out),
+        max_registers=max(v["registers"] or 0 for v in out.values()),
+        spill_bytes=sum(v["spill_bytes"] for v in out.values()))))
+    return out
+
+
+def phase_attention_forms(seed):
+    """The slab and sp-block forms of both fused kernels against their
+    plain versions, timed beside their bounds, and the parent's launch
+    forms' digests:
+
+      * the slab forward at SLAB_CASES (coverage on), the slab backward
+        at SLAB_BWD_CASES: each launch counted as a slab launch, within
+        ATTN_TOL (f32; the backward scaled by its largest gradient, bf16
+        d_es and d_ef within one bf16 ulp beside that), a rerun the same
+        bits;
+      * the sp-block forward at SP_BLOCK_CASES: ctx, attn, the row max
+        and the row sum against _attention_block_plain; the sp-block
+        backward at the K = 1 block with an outside correction against
+        _attention_bwd_plain with the same correction;
+      * fused_digests at the parent's forms, equal to PARENT_DIGESTS.
+
+    No single PyTorch call computes these functions: no library time."""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = {}
+    for (B, K, T, D, dname) in SLAB_CASES:
+        dtype = getattr(torch, dname)
+        elt = 2 if dname == "bfloat16" else 4
+        slab = fa._launch_form(B, T, D, K, elt, sms)[3]
+        args = attention_inputs(B, K, T, D, dtype, seed)
+        before = fa.launches_slab
+        got = fa._attention_cuda(*args, True)
+        again = fa._attention_cuda(*args, True)
+        want = fa._attention_plain(*args, True)
+        torch.cuda.synchronize()
+        check(fa.launches_slab - before == (2 if slab else 0),
+              f"slab launches at {B}x{K}x{T}x{D} {dname}")
+        err = max(float((a - w).abs().max()) for a, w in zip(got, want))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ms = time_cuda(lambda: fa._attention_cuda(*args, True), 20, flush)
+        plain_ms = time_cuda(lambda: fa._attention_plain(*args, True), 5,
+                             flush)
+        bound, by, nbytes, ops = attention_bound_ms(B, K, T, D, elt, True)
+        row = dict(shape=f"{B}x{K}x{T}x{D}", dtype=dname, slab=slab,
+                   max_abs_err=err, bitwise_repeat=same, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   bytes=nbytes, ops=ops, library_ms=None)
+        print("attention_slab " + json.dumps(row))
+        check(err <= ATTN_TOL, f"slab forward disagrees with plain at {row}")
+        check(same, f"slab forward does not repeat its bits at {row}")
+        rows[("fwd", B, K, T, D, dname)] = row
+    for (B, T, D, dname) in SLAB_BWD_CASES:
+        dtype = getattr(torch, dname)
+        args = attention_bwd_args(fa, B, T, D, True, seed, dtype)
+        before = fa.launches_bwd_slab
+        got = fa._attention_bwd_cuda(*args)
+        again = fa._attention_bwd_cuda(*args)
+        want = fa._attention_bwd_plain(*args)
+        torch.cuda.synchronize()
+        check(fa.launches_bwd_slab - before == 2,
+              f"backward slab launches at {B}x{T}x{D} {dname}")
+        errs, ok = _bwd_errors(got, want, dname)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ms = time_cuda(lambda: fa._attention_bwd_cuda(*args), 20, flush)
+        plain_ms = time_cuda(lambda: fa._attention_bwd_plain(*args), 5,
+                             flush)
+        bound, by, nbytes, ops = attention_bwd_bound_ms(
+            B, T, D, True, 2 if dname == "bfloat16" else 4)
+        row = dict(shape=f"{B}x1x{T}x{D}", dtype=dname, slab=True,
+                   max_abs_err=max(errs.values()), errors=errs,
+                   bitwise_repeat=same, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops,
+                   library_ms=None)
+        print("attention_bwd_slab " + json.dumps(row))
+        check(ok, f"slab backward disagrees with plain at {row}")
+        check(same, f"slab backward does not repeat its bits at {row}")
+        rows[("bwd", B, T, D, dname)] = row
+    for (B, K, T, D) in SP_BLOCK_CASES:
+        args = attention_inputs(B, K, T, D, torch.float32, seed)
+        before = fa.launches_sp
+        got = fa._attention_cuda(*args, True, None, True)
+        want = fa._attention_block_plain(*args, True)
+        torch.cuda.synchronize()
+        check(fa.launches_sp - before == 1, "sp-block launches")
+        valid = want[3] > 0  # the row max of a masked row is NEG on both
+        err = max(float((got[0] - want[0]).abs().max()),
+                  float((got[1] - want[1]).abs().max()),
+                  float(((got[2] - want[2]).abs() * valid).max()),
+                  float(((got[3] - want[3]).abs()
+                         / want[3].clamp(min=1.0)).max()))
+        masked_ok = bool((got[3][~valid] == 0).all()) and bool(
+            (got[2][~valid] == fa.NEG).all())
+        ms = time_cuda(lambda: fa._attention_cuda(*args, True, None, True),
+                       20, flush)
+        plain_ms = time_cuda(lambda: fa._attention_block_plain(*args, True),
+                             5, flush)
+        bound, by, nbytes, ops = attention_bound_ms(B, K, T, D, 4, True)
+        nbytes += 8 * B * K  # the row max and sum written
+        bound = max(bound, nbytes / PEAK_BYTES_PER_S * 1e3)
+        row = dict(shape=f"{B}x{K}x{T}x{D}", dtype="float32",
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=by, bytes=nbytes, ops=ops, library_ms=None)
+        print("attention_sp_block " + json.dumps(row))
+        check(err <= ATTN_TOL and masked_ok,
+              f"sp-block forward disagrees with plain at {row}")
+        rows[("sp", B, K, T, D)] = row
+    B, K, T, D = SP_BLOCK_CASES[1]
+    args = list(attention_bwd_args(fa, B, T, D, True, seed))
+    g = torch.Generator(device="cuda").manual_seed(seed + 2)
+    correction = torch.randn(B, generator=g, device="cuda")
+    before = fa.launches_bwd_sp
+    got = fa._attention_bwd_cuda(*args, correction)
+    want = fa._attention_bwd_plain(*args, correction)
+    torch.cuda.synchronize()
+    check(fa.launches_bwd_sp - before == 1, "sp-block backward launches")
+    errs, ok = _bwd_errors(got, want, "float32")
+    ms = time_cuda(lambda: fa._attention_bwd_cuda(*args, correction), 20,
+                   flush)
+    plain_ms = time_cuda(lambda: fa._attention_bwd_plain(*args, correction),
+                         5, flush)
+    bound, by, nbytes, ops = attention_bwd_bound_ms(B, T, D, True)
+    row = dict(shape=f"{B}x1x{T}x{D}", dtype="float32",
+               max_abs_err=max(errs.values()), errors=errs, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by, bytes=nbytes,
+               ops=ops, library_ms=None)
+    print("attention_bwd_sp_block " + json.dumps(row))
+    check(ok, f"sp-block backward disagrees with plain at {row}")
+    rows[("bwd_sp", B, T, D)] = row
+    digests = fused_digests(fa)
+    same = {k: PARENT_DIGESTS.get(k) == d for k, d in digests.items()}
+    print("fused_digests " + json.dumps(dict(
+        digests=digests, compared=len(PARENT_DIGESTS),
+        equal_to_parent=sum(same.values()))))
+    check(len(PARENT_DIGESTS) == 0 or all(same.values()),
+          f"the parent's launch forms changed their bits: {same}")
+    return rows
+
+
+def _bwd_errors(got, want, dname):
+    """({gradient: largest abs error}, within tolerance): f32 within
+    ATTN_TOL scaled by the gradient's largest magnitude; bf16 d_es and
+    d_ef within one bf16 ulp beside that."""
+    import torch
+
+    names = ("d_es", "d_ef", "d_df", "d_cov", "d_v", "d_w_c")
+    errs, ok = {}, True
+    for k, a, w in zip(names, got, want):
+        diff = (a.float() - w.float()).abs()
+        errs[k] = float(diff.max())
+        tol = ATTN_TOL * max(1.0, float(w.float().abs().max()))
+        if dname == "bfloat16" and k in ("d_es", "d_ef"):
+            ok = ok and bool((diff <= bf16_ulp(w) + tol).all())
+        else:
+            ok = ok and errs[k] <= tol
+        ok = ok and bool(torch.isfinite(a.float()).all())
+    return errs, ok
 
 
 def flash_inputs(B, T, nh, hd, seed, masked):
@@ -1372,6 +1705,8 @@ def reset_launch_counts():
 
     fa.launches = fa.launches_bwd = 0
     fa.launches_bf16 = fa.launches_bwd_bf16 = 0
+    fa.launches_slab = fa.launches_bwd_slab = 0
+    fa.launches_sp = fa.launches_bwd_sp = 0
     fl.launches = fl.launches_bwd_dkv = fl.launches_bwd_dq = 0
     fl.launches_bf16 = fl.launches_bwd_dkv_bf16 = fl.launches_bwd_dq_bf16 = 0
     fl.launches_wide = fl.launches_bwd_dkv_wide = fl.launches_bwd_dq_wide = 0
@@ -1384,11 +1719,17 @@ def expected_train_launches(hps, steps):
     in the backward, tests/test_torch_byte_diet.py counts it); the
     pointer-generator the fused attention forward and backward once per
     decoder step (its --remat recomputes only the loss head).  Under
-    --compute_dtype=bfloat16 every launch takes the bf16 form, and at a
-    head dim above 256 the wide kernels'."""
+    --compute_dtype=bfloat16 every launch takes the bf16 form, at a
+    head dim above 256 the wide kernels', and at a pointer-generator
+    width past the fused kernels' dense forms their slab forms (the
+    forward at K = 1 and the backward each by its own room).  One rank,
+    no sp: no sp-block launch."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
     counts = dict(fused=0, fused_bwd=0, fused_bf16=0, fused_bwd_bf16=0,
+                  fused_slab=0, fused_bwd_slab=0, fused_sp=0,
+                  fused_bwd_sp=0,
                   flash_forward=0, flash_bwd_dkv=0, flash_bwd_dq=0,
                   flash_forward_bf16=0, flash_bwd_dkv_bf16=0,
                   flash_bwd_dq_bf16=0, flash_forward_wide=0,
@@ -1411,7 +1752,31 @@ def expected_train_launches(hps, steps):
         counts["fused"] = counts["fused_bwd"] = hps.max_dec_steps * steps
         if hps.compute_dtype == "bfloat16":  # every launch on a bf16 stream
             counts["fused_bf16"] = counts["fused_bwd_bf16"] = counts["fused"]
+        dtype = torch_dtype(hps.compute_dtype)
+        D = fa._padded_width(2 * hps.hidden_dim, dtype)
+        elt = 2 if hps.compute_dtype == "bfloat16" else 4
+        if fa._launch_form(hps.batch_size, hps.max_enc_steps, D, 1, elt,
+                           card_sms())[3]:
+            counts["fused_slab"] = counts["fused"]
+        if fa._bwd_form(D, elt) == "slab":
+            counts["fused_bwd_slab"] = counts["fused_bwd"]
     return counts
+
+
+def torch_dtype(name):
+    import torch
+
+    return getattr(torch, name)
+
+
+def card_sms():
+    """The card's SM count (the H100's where there is no card: a CPU
+    rehearsal)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        return 132
+    return torch.cuda.get_device_properties(0).multi_processor_count
 
 
 def phase_small_training(seed, family, remat=False):
@@ -1609,11 +1974,25 @@ def phase_main_path(seed, n_articles, work, device="cuda",
         check(fused == 0, f"{fused} fused-attention launches in the "
                           f"transformer path")
     else:
+        from textsummarization_on_flink_tpu_torch.ops import (
+            fused_attention as fa,
+        )
+
         launches = fused
         check(fused > 0, "the fused attention kernel never launched")
         check(fused == 2 * steps,
               f"{fused} kernel launches for {steps} decode steps "
               f"(expected 2 per step)")
+        elt = 2 if bf16 else 4
+        slab = fa._launch_form(
+            hps.batch_size, hps.max_enc_steps, fa._padded_width(
+                2 * hps.hidden_dim, torch_dtype(compute_dtype)),
+            hps.beam_size, elt, card_sms())[3]
+        if device == "cuda":
+            check(launched["fused_slab"] == (fused if slab else 0),
+                  f"{launched['fused_slab']} of {fused} fused launches took "
+                  f"the slab form at hidden_dim {hps.hidden_dim}")
+        check(launched["fused_sp"] == 0, "an sp-block launch on one rank")
         check(flash == 0, f"{flash} flash launches in the "
                           f"pointer-generator path")
         bf16_launches = launched["fused_bf16"]
@@ -1625,6 +2004,7 @@ def phase_main_path(seed, n_articles, work, device="cuda",
                    batch_seconds=batch_s, decode_steps=steps,
                    kernel_launches=launches, bf16_launches=bf16_launches,
                    wide_launches=launched["flash_forward_wide"],
+                   slab_launches=launched["fused_slab"],
                    launches_per_batch=launches / max(n_batches, 1),
                    decoded_tokens=n_tokens,
                    tokens_per_s=n_tokens / sum(batch_s),
@@ -2569,8 +2949,9 @@ HD512_BF16_FLAGS = dict(compute_dtype="bfloat16", loss_chunk=10)
 
 
 def phase_wide_widths(seed, device="cuda"):
-    """The widths the card refused before this slice, each on a main path
-    with its launch counts set to 0 just before and read just after:
+    """The widths the card refused before, each on a main path with its
+    launch counts set to 0 just before and read just after (and the
+    pointer-generator at hidden_dim 1200 on the slab forms):
 
       * the pointer-generator at hidden_dim 400 (D 800): a beam decode of
         16 articles through cli.main (2 fused launches per beam step) and
@@ -2593,6 +2974,33 @@ def phase_wide_widths(seed, device="cuda"):
         pg_train=_in_work("pg_h430", lambda w: phase_train_main_path(
             seed, w, steps=1, device=device, family=pg,
             extra=dict(hidden_dim=430))))
+    # past the fused kernels' dense forms: hidden_dim 1200, D
+    # 2400, which the card refused before (1,116 at beam 4, 1,154 in
+    # training): a beam decode of 8 articles on the slab forward, and one
+    # train step (--single_pass=1: the same batch on both) on the dense
+    # forward at K = 1 and the slab backward, its loss against
+    # --device=cpu within 1e-4 relative.  The step's depth is cut to 20
+    # decoder steps: at 100 the CPU's reference step took 102.6 s of the
+    # script's time limit on an H100 host (PERF.md)
+    out["pg_h1200_decode"] = _in_work("pg_h1200", lambda w: phase_main_path(
+        seed, 8, w, device=device, family=pg, widths=dict(hidden_dim=1200)))
+    for name, dev in (("card", device), ("cpu", "cpu")):
+        out[f"pg_h1200_train_{name}"] = _in_work(
+            f"pg_h1200_train_{name}", lambda w: phase_train_main_path(
+                seed, w, steps=1, device=dev, family=pg,
+                extra=dict(hidden_dim=1200, single_pass=1,
+                           max_dec_steps=20, min_dec_steps=5),
+                expect_kernels=name == "card"))
+    card_loss, cpu_loss = (out[f"pg_h1200_train_{n}"]["losses"][0]
+                           for n in ("card", "cpu"))
+    rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    print("pg_hidden_1200 " + json.dumps(dict(
+        card_loss=card_loss, cpu_loss=cpu_loss, loss_rel_diff=rel,
+        decode_launches=out["pg_h1200_decode"]["kernel_launches"],
+        decode_slab_launches=out["pg_h1200_decode"]["slab_launches"],
+        train_launches=out["pg_h1200_train_card"]["launches"])))
+    check(rel <= 1e-4, f"hidden_dim 1200: the card's loss differs from the "
+                       f"CPU's by {rel} (relative)")
     if device == "cuda":  # the same tokens as the CPU's at head dim 256
         phase_small_reference(seed, tf, widths=dict(hidden_dim=512,
                                                     num_heads=2))
@@ -4175,15 +4583,16 @@ def mesh_family_hps(family):
     return train_main_path_hps(family)
 
 
-def aan_decode_inputs(seed, widths=None):
-    """The AAN's mesh decode: 16 of the mesh phase's articles at the
-    transformer's reference width (beam 4, 400/100 steps), params drawn
-    from ``seed``.  Returns (hps, numpy params, batch arrays)."""
+def aan_decode_inputs(seed, widths=None, family="avg_attention"):
+    """The AAN's (or, with ``family``, the transformer's) mesh decode: 16
+    of the mesh phase's articles at the transformer's reference width
+    (beam 4, 400/100 steps), params drawn from ``seed``.  Returns (hps,
+    numpy params, batch arrays)."""
     from textsummarization_on_flink_tpu_torch.params import init_numpy_params
 
     _, vocab, batch = mesh_decode_inputs(seed, widths)
     aan = main_path_hps("transformer").replace(
-        model_family="avg_attention", mode="decode", **(widths or {}))
+        model_family=family, mode="decode", **(widths or {}))
     batch = _batch_of(aan, vocab, batch.original_articles[:aan.batch_size])
     return aan, init_numpy_params(aan, aan.vocab_size, seed + 29), \
         batch.as_arrays()
@@ -4257,6 +4666,80 @@ def mesh_decode_inputs(seed, widths=None):
     return hps, vocab, batching.Batch(exs, hps, vocab)
 
 
+#: the JAX package's long-context pointer-generator (BASELINE.json
+#: configs[3]: hidden_dim 512, 800 encoder steps), where phase_mesh reads
+#: each sp rank's memory
+MEM_WIDTHS = dict(hidden_dim=512, max_enc_steps=800)
+
+
+class saved_attention:
+    """Within the block, every fused attention autograd Function's saved
+    es and ef (FusedAttention, and FusedAttentionSP on an sp mesh):
+    ``bytes`` counts each tensor once, ``shapes`` the distinct (es, ef)
+    shapes, ``calls`` the Functions."""
+
+    def __enter__(self):
+        from textsummarization_on_flink_tpu_torch.ops import (
+            fused_attention as fa,
+        )
+
+        self.calls, self._seen, self._orig = 0, {}, {}
+        self.shapes = set()
+        for cls in (fa.FusedAttention, fa.FusedAttentionSP):
+            self._orig[cls] = cls.forward
+
+            def forward(ctx, *args, _orig=cls.forward):
+                out = _orig(ctx, *args)
+                es, ef = ctx.to_save[0], ctx.to_save[1]
+                self.calls += 1
+                self.shapes.add((tuple(es.shape), tuple(ef.shape)))
+                for x in (es, ef):
+                    self._seen[x.data_ptr()] = x.numel() * x.element_size()
+                return out
+
+            cls.forward = staticmethod(forward)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, fwd in self._orig.items():
+            cls.forward = staticmethod(fwd)
+        self.bytes = sum(self._seen.values())
+        self.shapes = sorted(self.shapes)
+        return False
+
+
+def memory_step(family, seed, device, widths, plan=None):
+    """One train step of mesh_inputs' fixed batch at MEM_WIDTHS (on
+    ``plan``'s mesh, this rank's part): (its loss, the peak device bytes
+    it allocated above what was allocated before it, what the fused
+    attention saved: saved_attention)."""
+    import torch
+
+    from textsummarization_on_flink_tpu_torch.parallel import mesh
+    from textsummarization_on_flink_tpu_torch.train import trainer
+
+    hps, params, batch = mesh_inputs(family, seed,
+                                     dict(widths.get(family, {}),
+                                          **MEM_WIDTHS))
+    hps = hps.replace(device=device) if plan is None else plan.hps
+    dev = torch.device(device)
+    state = trainer.init_train_state(hps, hps.vocab_size, params=params,
+                                     device=dev)
+    if plan is not None:
+        state = mesh.shard_train_state(plan, state)
+        batch = mesh.shard_batch(plan, batch)
+    arrays = trainer.batch_to_device(batch, dev)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    with saved_attention() as saved:
+        state, m = trainer.train_step(hps, state, arrays, plan=plan)
+    peak = (torch.cuda.max_memory_allocated() - base if device == "cuda"
+            else None)
+    return float(m.loss), peak, saved
+
+
 #: the mesh phase's fixed-batch cases: name -> (world, kind, family, mesh
 #: and option fields)
 MESH_CASES = {
@@ -4271,16 +4754,26 @@ MESH_CASES = {
     "decode_dp2": (2, "decode", "pointer_generator", dict(dp=2)),
     "search_tp2": (2, "search", "pointer_generator", dict(tp=2)),
     "pg_dp2_tp2": (4, "train", "pointer_generator", dict(dp=2, tp=2)),
+    # the encoder's T sharded over sp: the pointer-generator's
+    # attention on each rank's block, merged over sp every step; the
+    # transformer's search under --sp_attention=ring; each rank's memory
+    # at the JAX package's long-context width (MEM_WIDTHS)
+    "pg_sp2": (2, "train", "pointer_generator", dict(sp=2)),
+    "pg_dp2_sp2": (4, "train", "pointer_generator", dict(dp=2, sp=2)),
+    "search_sp2": (2, "search", "pointer_generator", dict(sp=2)),
+    "tf_search_sp2_ring": (2, "model_search", "transformer",
+                           dict(sp=2, sp_attention="ring")),
+    "pg_sp2_memory": (2, "memory", "pointer_generator", dict(sp=2)),
     # serving on a mesh: the AAN's train steps and decode, the continuous
     # server at dp=2 (dense, then over the continuous phase's 56-page
     # arena) and the micro-batch server at tp=2
     "aan_dp2_tp2": (4, "train", "avg_attention", dict(dp=2, tp=2)),
     "aan_narrow_tp2": (2, "train", "aan_narrow", dict(tp=2)),
-    "aan_decode_dp2": (2, "aan_search", "avg_attention", dict(dp=2)),
+    "aan_decode_dp2": (2, "model_search", "avg_attention", dict(dp=2)),
     # a head count tp does not divide: one head at tp=2, rank 1 holding
     # only a zero pad head (parallel/sharding.py::pad_heads)
     "aan_h1_tp2": (2, "train", "aan_h1", dict(tp=2)),
-    "aan_h1_decode_tp2": (2, "aan_search", "avg_attention",
+    "aan_h1_decode_tp2": (2, "model_search", "avg_attention",
                           dict(tp=2, num_heads=1)),
     "serve_dp2_dense": (2, "serve", "pointer_generator",
                         dict(dp=2, requests=32, **CONTINUOUS_FLAGS)),
@@ -4616,14 +5109,22 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
     single = beam_search.run_beam_search(
         from_numpy_tree(decode_params, torch.device(device)), dhps,
         dbatch.as_arrays())
-    ahps, aparams, abatch = aan_decode_inputs(seed,
-                                              widths.get("avg_attention"))
-    # the single-rank AAN search at each head count a case searches with
-    aan_single = {nh: beam_search.run_beam_search(
-        from_numpy_tree(aparams, torch.device(device)),
-        ahps.replace(device=device, num_heads=nh), abatch)
-        for nh in {c[3].get("num_heads", ahps.num_heads)
-                   for c in MESH_CASES.values() if c[1] == "aan_search"}}
+    # the single-rank search of each family and head count a model_search
+    # case searches with (the AAN's, the transformer's)
+    model_single = {}
+    for _, kind, family, kw in MESH_CASES.values():
+        if kind != "model_search":
+            continue
+        mhps, mparams, mbatch = aan_decode_inputs(
+            seed, widths.get(family), family=family)
+        nh = kw.get("num_heads", mhps.num_heads)
+        if (family, nh) not in model_single:
+            model_single[family, nh] = beam_search.run_beam_search(
+                from_numpy_tree(mparams, torch.device(device)),
+                mhps.replace(device=device, num_heads=nh), mbatch)
+    # the long-context width's single-rank step: what each sp rank's
+    # memory is held against
+    mem_single = memory_step("pointer_generator", seed, device, widths)
     if serve_words is None:
         serve_words = _single_serve_words(seed, decode_params, device,
                                           widths)
@@ -4663,14 +5164,18 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
         if kind == "serve":
             row.update(_check_mesh_serve(name, ranks, kw, serve_words,
                                          on_card))
-        elif kind == "aan_search":
-            ref_search = aan_single[kw.get("num_heads", ahps.num_heads)]
+        elif kind == "model_search":
+            mhps = main_path_hps("transformer").replace(
+                model_family=family, **widths.get(family, {}), **kw)
+            ref_search = model_single[family, mhps.num_heads]
+            # the encoder's flash forward, once per layer (none where the
+            # encoder's T is sharded: ring or Ulysses attention); the
+            # decoders run no kernel
+            enc_flash = 0 if sharding.shards_t(mhps) else mhps.enc_layers
             for r in ranks:
-                # the encoder's flash forward, once per layer; the AAN's
-                # decoder runs no kernel
                 others = {k: v for k, v in r["launches"].items()
                           if v and k != "flash_forward"}
-                check(r["launches"]["flash_forward"] == ahps.enc_layers
+                check(r["launches"]["flash_forward"] == enc_flash
                       and not others or not on_card,
                       f"{name}: rank {r['rank']} launched {r['launches']}")
                 check(r["tokens"] == ref_search.tokens.tolist(),
@@ -4683,7 +5188,11 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
             hps = mesh_family_hps(family).replace(
                 **widths.get(family, {}), **kw)
             want = expected_train_launches(hps, 1)
-            if sharding.shards_t(hps):  # the encoder: ring or Ulysses
+            if sharding.shards_t(hps) and family == "pointer_generator":
+                # every launch the sp-block form
+                want["fused_sp"], want["fused_bwd_sp"] = \
+                    want["fused"], want["fused_bwd"]
+            elif sharding.shards_t(hps):  # the encoder: ring or Ulysses
                 for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
                     want[k] = hps.dec_layers
             for r in ranks:
@@ -4731,6 +5240,26 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
                     if "local_w_cols" in r:
                         check(r["local_w_cols"] == hps.vocab_size // hps.tp,
                               f"{name}: {r['local_w_cols']} columns of w")
+        elif kind == "memory":
+            loss, peak, saved = mem_single
+            row.update(single_loss=loss, single_peak_bytes=peak,
+                       single_saved_bytes=saved.bytes,
+                       single_saved_shapes=saved.shapes,
+                       loss_per_rank=[r["loss"] for r in ranks],
+                       peak_bytes_per_rank=[r["peak_bytes"] for r in ranks],
+                       saved_bytes_per_rank=[r["saved_bytes"]
+                                             for r in ranks],
+                       saved_shapes_per_rank=[r["saved_shapes"]
+                                              for r in ranks])
+            for r in ranks:
+                check(abs(r["loss"] - loss) <= 2e-5 * abs(loss),
+                      f"{name}: loss {r['loss']} vs {loss}")
+                check(r["saved_bytes"] * kw["sp"] == saved.bytes,
+                      f"{name}: rank {r['rank']} saved {r['saved_bytes']} "
+                      f"bytes of es and ef, the single rank {saved.bytes}")
+                check(r["launches"]["fused_sp"] == r["launches"]["fused"]
+                      > 0 or not on_card,
+                      f"{name}: rank {r['rank']} launched {r['launches']}")
         else:
             for r in ranks:
                 check(r["launches"]["fused"] == 2 * r["beam_steps"] > 0
@@ -4738,6 +5267,11 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
                       f"{name}: rank {r['rank']} launched "
                       f"{r['launches']['fused']} fused attentions in "
                       f"{r['beam_steps']} beam steps")
+                check(r["launches"]["fused_sp"] == (
+                    r["launches"]["fused"] if kw.get("sp", 1) > 1 else 0)
+                    or not on_card,
+                    f"{name}: rank {r['rank']}'s sp-block launches "
+                    f"{r['launches']['fused_sp']}")
             row["decode_s_per_rank"] = [r["decode_s"] for r in ranks]
             if kind == "decode":
                 check(ranks[0]["sharded"], f"{name}: decoder not sharded")
@@ -4755,6 +5289,9 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
                 row["rows_differing"] = diff
                 row["max_avg_log_prob_diff"] = float(np.max(np.abs(
                     lp - single.avg_log_prob)))
+                # sp changes no product's split: the tokens are exact
+                check(not diff or kw.get("sp", 1) == 1,
+                      f"{name}: rows {diff} differ from the single rank's")
                 for b in diff:
                     check(abs(lp[b] - single.avg_log_prob[b]) <= 1e-3,
                           f"{name}: row {b} differs and its average "
@@ -4914,6 +5451,8 @@ def main(argv=None) -> int:
     worst = max(worst, bounded_worst)
     worst = max(worst, phase_attention_long(args.seed))
     bwd_att_rows, bwd_att_worst = phase_attention_bwd(args.seed)
+    forms = phase_attention_forms(args.seed)
+    fa_sass = fused_sass()
     flash_row, flash_hd256, flash_worst = phase_flash(args.seed)
     bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
     fb_rows, fb_worst = phase_flash_bf16(args.seed)
@@ -4990,6 +5529,10 @@ def main(argv=None) -> int:
     # card refused before (pointer-generator D 800 and 860, head dim 256)
     wide_pg_decode = wide["pg_decode"]["kernel_launches"]
     wide_pg_train = wide["pg_train"]["launches"]
+    # hidden_dim 1200: the decode's forward launches (the slab
+    # form) and the train step's (the dense forward, the slab backward)
+    h1200_decode = wide["pg_h1200_decode"]
+    h1200_train = wide["pg_h1200_train_card"]["launches"]
     hd256_train = wide["hd256_train_card"]["launches"]
     hd256_flash = (wide["hd256_decode"]["kernel_launches"]
                    + hd256_train["flash_forward"])
@@ -5004,7 +5547,9 @@ def main(argv=None) -> int:
         + sum(r["fused"] for r in diet_runs)
         + diet["decode"]["kernel_launches"] + scored["launches"]["fused"]
         + scored["train_launches"]["fused"] + streamed["launches"]["fused"]
-        + wide_pg_decode + wide_pg_train["fused"] + served["launches"]
+        + wide_pg_decode + wide_pg_train["fused"]
+        + h1200_decode["kernel_launches"] + h1200_train["fused"]
+        + served["launches"]
         + cont["launches"] + spec["launches"]["fused"] + fleet["launches"]
         + hier["launches"]["fused"] + procs["launches"]["fused"]
         + mesh_l["fused"],
@@ -5092,7 +5637,7 @@ def main(argv=None) -> int:
         launches=pg_train["fused_bwd"] + pipe["fit_launches"]["fused_bwd"]
         + sum(r["fused_bwd"] - r["fused_bwd_bf16"] for r in diet_runs)
         + scored["train_launches"]["fused_bwd"] + wide_pg_train["fused_bwd"]
-        + mesh_l["fused_bwd"],
+        + h1200_train["fused_bwd"] + mesh_l["fused_bwd"],
         mesh=dict(launches=mesh_l["fused_bwd"]),
         max_abs_err=bwd_att_worst["float32"],
         ms=bwd_f32["ms"], plain_ms=bwd_f32["plain_ms"],
@@ -5266,6 +5811,47 @@ def main(argv=None) -> int:
                              library_ms=r[lib], bound_ms=r[bound],
                              bound_by=r[by])
                         for (t, _), r in fw_rows.items() if t == tag]))
+    # the slab and sp-block forms of the two fused kernels: their
+    # own counters, each launch also counted in the kernel's total above
+    f_slab = forms[("fwd", 16, 4, 400, 2400, "float32")]
+    b_slab = forms[("bwd", 16, 400, 2400, "float32")]
+    f_sp = forms[("sp", 16, 4, 200, 512)]
+    b_sp = forms[("bwd_sp", 16, 200, 512)]
+    pallas = "textsummarization_on_flink_tpu/ops/pallas_attention.py"
+    for name, src, at, launched, row, counter, form in (
+            ("fused_attention_slab", ".cu", 58,
+             h1200_decode["slab_launches"] + h1200_train["fused_slab"], f_slab,
+             "fused_slab", "D in slabs of 512 columns (the dense form's "
+             "constants past one block's shared memory)"),
+            ("fused_attention_sp_block", ".cu", 58, mesh_l["fused_sp"], f_sp,
+             "fused_sp", "one sp rank's block of T, with the row max and sum "
+             "for the merge over sp"),
+            ("fused_attention_bwd_slab", "_bwd.cu", 360,
+             h1200_train["fused_bwd_slab"], b_slab, "fused_bwd_slab",
+             "D in slabs of 512 columns"),
+            ("fused_attention_bwd_sp_block", "_bwd.cu", 360,
+             mesh_l["fused_bwd_sp"], b_sp, "fused_bwd_sp",
+             "one sp rank's block of T, the softmax correction from "
+             "outside")):
+        kernels.append(dict(
+            name=name, route="cuda", source=fused_src + src,
+            replaces=f"{pallas}:{at}", launches=launched,
+            counter=counter, form=form, shape=row["shape"],
+            dtype=row["dtype"], max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"],
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=None,
+            shapes=[dict(shape=r["shape"], dtype=r["dtype"], ms=r["ms"],
+                         plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                         bound_by=r["bound_by"],
+                         max_abs_err=r["max_abs_err"])
+                    for k, r in forms.items()
+                    if k[0] == {"fused_slab": "fwd", "fused_bwd_slab": "bwd",
+                                "fused_sp": "sp",
+                                "fused_bwd_sp": "bwd_sp"}[counter]]))
+    kernels[0]["sass"] = dict(
+        instantiations=len(fa_sass),
+        spill_bytes=sum(v["spill_bytes"] for v in fa_sass.values()))
     print(json.dumps(dict(total_seconds=time.perf_counter() - t_start)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

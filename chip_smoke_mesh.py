@@ -13,9 +13,10 @@ parent sets them), runs every case of ``<workdir>/job.json`` on the card
 and writes ``<workdir>/<case>.rank<r>.json`` (and the chief the case's
 gathered params, ``<case>.npz``): a sharded train step of
 chip_smoke.mesh_inputs' fixed batch, the sharded decode of the mesh
-phase's articles (the AAN's too), or a ServingServer on the mesh (the
-chief serves, the other ranks follow), with this rank's kernel launches,
-seconds, collective and host-staged bytes.
+phase's articles (the AAN's and the transformer's too), a train step
+at the long-context width with this rank's memory, or a ServingServer
+on the mesh (the chief serves, the other ranks follow), with this rank's
+kernel launches, seconds, collective and host-staged bytes.
 
 ``app``: ``App.main`` (the pipeline joins torchrun's world itself) on
 chip_smoke.mesh_app_inputs, writing ``<workdir>/app.rank<r>.json``.
@@ -191,9 +192,10 @@ def run_search(case, work, job):
     return out
 
 
-def run_aan_search(case, work, job):
-    """The sharded beam search of the AAN family (random params from the
-    seed, chip_smoke.aan_decode_inputs): every rank's tokens."""
+def run_model_search(case, work, job):
+    """The sharded beam search of the AAN family or the transformer
+    (random params from the seed, chip_smoke.aan_decode_inputs): every
+    rank's tokens."""
     import torch
 
     from textsummarization_on_flink_tpu_torch import obs, ops
@@ -205,7 +207,7 @@ def run_aan_search(case, work, job):
     from textsummarization_on_flink_tpu_torch.params import from_numpy_tree
 
     hps, params, batch = cs.aan_decode_inputs(
-        job["seed"], job["widths"].get("avg_attention"))
+        job["seed"], job["widths"].get(case["family"]), family=case["family"])
     hps = hps.replace(device=job["device"], **case["hps"])
     plan = mesh.make_mesh(hps)
     shards = plan.registry.shard_params(
@@ -226,6 +228,37 @@ def run_aan_search(case, work, job):
     out["tokens"] = got.tokens.tolist()
     out["avg_log_prob"] = got.avg_log_prob.tolist()
     return out
+
+
+def run_memory(case, work, job):
+    """One sharded train step at chip_smoke.MEM_WIDTHS (the JAX package's
+    long-context width): the loss, this rank's peak device bytes above
+    what it held before the step, and the bytes and shapes of the es and
+    ef its fused attention saved (chip_smoke.memory_step)."""
+    from textsummarization_on_flink_tpu_torch import obs, ops
+    from textsummarization_on_flink_tpu_torch.parallel import (
+        collectives,
+        mesh,
+    )
+
+    widths = dict(job["widths"].get(case["family"], {}), **cs.MEM_WIDTHS)
+    hps, _, _ = cs.mesh_inputs(case["family"], job["seed"], widths)
+    hps = hps.replace(device=job["device"], **case["hps"])
+    hps.validate()
+    plan = mesh.make_mesh(hps)
+    reg = obs.Registry()
+    with obs.use_registry(reg):
+        cs.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, peak, saved = cs.memory_step(case["family"], job["seed"],
+                                           job["device"], job["widths"],
+                                           plan=plan)
+        _sync(job)
+        return dict(_rank_facts(), case=case["name"],
+                    step_s=time.perf_counter() - t0, loss=loss,
+                    peak_bytes=peak, saved_bytes=saved.bytes,
+                    saved_shapes=saved.shapes, launches=ops.launch_counts(),
+                    bytes=collectives.counted_bytes(hps))
 
 
 def run_serve(case, work, job):
@@ -298,7 +331,8 @@ def main_cases(work):
     me = distributed.rank()
     for case in job["cases"]:
         fn = dict(train=run_train, decode=run_decode, search=run_search,
-                  aan_search=run_aan_search, serve=run_serve)[case["kind"]]
+                  model_search=run_model_search, memory=run_memory,
+                  serve=run_serve)[case["kind"]]
         res = fn(case, work, job)
         _dump(os.path.join(work, f"{case['name']}.rank{me}.json"), res)
         distributed.barrier(case["name"])

@@ -4,7 +4,7 @@ its backward at chip_smoke.py's phase-3 shapes, for comparing two
 checkouts on one card.
 
     python3 scripts/torch_attention_bench.py [--seed N] [--iters N] [--tag T]
-        [--which forward|backward|both]
+        [--which forward|backward|both|digests]
 
 Needs one CUDA card.  It times whichever package comes first on the
 import path: put another checkout on PYTHONPATH to time its kernel with
@@ -25,7 +25,11 @@ Prints the card's name and power limit, the package's path, and one JSON
 line per (kernel, shape, dtype, coverage) with the time and the bound;
 a forward line also carries ``digest``, a hash of the outputs' bytes
 (ctx, attn), so two checkouts' lines show whether their kernels give
-the same bits.
+the same bits.  ``--which digests`` prints one JSON line of
+chip_smoke.fused_digests: the forward's and the backward's output
+digests at every launch form the tree before the slab and sp-block
+forms took, on inputs made with numpy (chip_smoke.digest_inputs), which
+chip_smoke.py holds against its PARENT_DIGESTS.
 """
 
 from __future__ import annotations
@@ -59,7 +63,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--tag", default="")
-    ap.add_argument("--which", choices=("forward", "backward", "both"),
+    ap.add_argument("--which",
+                    choices=("forward", "backward", "both", "digests"),
                     default="both")
     args = ap.parse_args(argv)
 
@@ -75,6 +80,10 @@ def main(argv=None) -> int:
     resolve_device("cuda")
     print(chip_smoke.card_line())
     print(os.path.dirname(os.path.dirname(os.path.abspath(fa.__file__))))
+    if args.which == "digests":
+        print(json.dumps(dict(tag=args.tag,
+                              digests=chip_smoke.fused_digests(fa))))
+        return 0
     flush = torch.empty(96 * 2**20 // 4, device="cuda")
     if args.which != "backward":
         _bench_forward(chip_smoke, fa, flush, args)

@@ -492,12 +492,45 @@ def run_pipeline(case, hps, workdir, rank):
         "rows": sorted(sink.rows), "served": sorted(served.rows)})
 
 
+def run_saved(case, hps, workdir, rank):
+    """One sharded train step on the global batch, recording what each
+    of the fused attention's autograd Functions saved for its backward:
+    the shapes of its es and ef, and their bytes (each tensor once)."""
+    from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
+
+    seen = []
+    originals = {}
+    for cls in (fa.FusedAttention, fa.FusedAttentionSP):
+        originals[cls] = cls.forward
+
+        def forward(ctx, *args, _orig=originals[cls], _name=cls.__name__):
+            out = _orig(ctx, *args)
+            seen.append((_name, ctx.to_save[0], ctx.to_save[1]))
+            return out
+
+        cls.forward = staticmethod(forward)
+    try:
+        run_train(dict(case, name=f"{case['name']}.train"), hps, workdir,
+                  rank)
+    finally:
+        for cls, fwd in originals.items():
+            cls.forward = staticmethod(fwd)
+    unique = {}
+    for _, es, ef in seen:
+        for x in (es, ef):
+            unique[x.data_ptr()] = x.numel() * x.element_size()
+    _save(workdir, f"{case['name']}.rank{rank}", info={
+        "saved": sorted({(name, tuple(es.shape), tuple(ef.shape))
+                         for name, es, ef in seen}),
+        "calls": len(seen), "bytes": sum(unique.values())})
+
+
 KINDS = {"train": run_train, "eval": run_eval, "search": run_search,
          "head_mean": run_head_mean,
          "attention": run_attention, "trainer": run_trainer,
          "decoder": run_decoder, "continuous": run_continuous,
          "slot_engine": run_slot_engine, "serve": run_serve,
-         "pipeline": run_pipeline}
+         "pipeline": run_pipeline, "saved": run_saved}
 
 
 def main() -> int:

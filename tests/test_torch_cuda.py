@@ -504,53 +504,153 @@ def test_fused_attention_backward_repeats_its_bits_on_card(B, T, use_cov):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("D", [2304, 2308, 2312, 3072, 3076])
-def test_fused_attention_backward_refusal_matches_the_kernel_on_card(D):
-    """_bwd_shape_refusal mirrors the kernel's sizes: the C entry point
-    launches exactly the widths the wrapper takes and returns
-    cudaErrorInvalidValue (1) for the others, before it touches memory."""
-    _need_cuda()
-    B, T = 2, 20
-    args = _bwd_inputs(B, T, D)
-    refused = fa._bwd_shape_refusal(args[0]) is not None
+def _bwd_entry(args, is_bf16):
+    """The backward's C entry point called directly with its part sized
+    by the wrapper's mirror (_bwd_part_floats): (its error code, the six
+    outputs)."""
+    B, T, D = args[0].shape
     outs = [torch.empty_like(x) for x in (args[0], args[1], args[3],
                                           args[7], args[5], args[6])]
     stream = torch.cuda.current_stream()
-    part = fa._bwd_scratch(args[0].device, stream.cuda_stream,
-                           fa._BWD_TICKET_FLOATS + 2 * B * D)
-    err = fa._load_bwd_library().ts_fused_attention_bwd(
-        *(x.data_ptr() for x in args), *(x.data_ptr() for x in outs),
-        part.data_ptr(), B, T, D, 1, 0, stream.cuda_stream)
+    lib = fa._load_bwd_library()
+    floats = fa._bwd_part_floats(B, T, D, 2 if is_bf16 else 4)
+    assert lib.ts_fused_attention_bwd_part(B, T, D, int(is_bf16)) == floats
+    part = fa._bwd_scratch(args[0].device, stream.cuda_stream, floats)
+    err = lib.ts_fused_attention_bwd(
+        *(x.data_ptr() for x in args), None, *(x.data_ptr() for x in outs),
+        part.data_ptr(), B, T, D, 1, int(is_bf16), stream.cuda_stream)
     torch.cuda.synchronize()
-    assert err == (1 if refused else 0)
-    if not refused:
-        _close_scaled(outs, fa._attention_bwd_plain(*args, True))
+    return err, outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [2304, 2308, 2312, 3072, 3076])
+def test_fused_attention_backward_refusal_matches_the_kernel_on_card(D):
+    """_bwd_form mirrors the kernel's choice: the C entry point launches
+    every width (the dense form up to 2,308 columns in f32, the slab form
+    past it) and asks for the scratch _bwd_part_floats gives; each width
+    agrees with the plain backward."""
+    _need_cuda()
+    args = _bwd_inputs(2, 20, D)
+    assert fa._bwd_shape_refusal(args[0]) is None
+    assert (fa._bwd_form(D) == "slab") == (D > 2308)
+    err, outs = _bwd_entry(args, False)
+    assert err == 0
+    _close_scaled(outs, fa._attention_bwd_plain(*args, True))
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [2312, 3068, 3072, 3076, 3080])
 def test_fused_attention_backward_bf16_refusal_matches_the_kernel_on_card(D):
     """The same for bf16 encoder streams: D a multiple of 8 (16-byte rows
-    for the TMA copies) up to 3,072 columns, where f32 stops at 2,308."""
+    for the TMA copies), the dense form up to 3,072 columns, the slab
+    form past it; other D refused (cudaErrorInvalidValue, 1) by both."""
     _need_cuda()
-    B, T = 2, 20
-    args = list(_bwd_inputs(B, T, D))
+    args = list(_bwd_inputs(2, 20, D))
     args[0], args[1] = args[0].to(torch.bfloat16), args[1].to(torch.bfloat16)
     refused = fa._bwd_shape_refusal(args[0]) is not None
-    assert refused == (D % 8 != 0 or D > 3072)
-    outs = [torch.empty_like(x) for x in (args[0], args[1], args[3],
-                                          args[7], args[5], args[6])]
-    stream = torch.cuda.current_stream()
-    part = fa._bwd_scratch(args[0].device, stream.cuda_stream,
-                           fa._BWD_TICKET_FLOATS + 2 * B * D)
-    err = fa._load_bwd_library().ts_fused_attention_bwd(
-        *(x.data_ptr() for x in args), *(x.data_ptr() for x in outs),
-        part.data_ptr(), B, T, D, 1, 1, stream.cuda_stream)
-    torch.cuda.synchronize()
+    assert refused == (D % 8 != 0)
+    assert (fa._bwd_form(D, 2) == "slab") == (D > 3072)
+    err, outs = _bwd_entry(args, True)
     assert err == (1 if refused else 0)
     if not refused:
         _close_bf16(outs, fa._attention_bwd_plain(*args, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,T,D", [(16, 4, 400, 2400), (4, 1, 400, 4096),
+                                     (3, 4, 37, 2236), (2, 64, 50, 512),
+                                     (5, 2, 130, 1028 * 4)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("use_cov", [False, True])
+def test_fused_attention_slab_form_matches_plain_on_card(B, K, T, D, dtype,
+                                                         use_cov):
+    """The slab forward (widths whose dense form does not fit one block;
+    many queries with narrower slabs; a last slab narrower than the
+    rest; state in shared or device memory) against the plain version,
+    every launch counted as a slab launch where _launch_form says so, a
+    rerun the same bits."""
+    _need_cuda()
+    args = _inputs(B, K, T, D, dtype, seed=D)
+    elt = 2 if dtype == torch.bfloat16 else 4
+    slab = fa._launch_form(B, T, fa._padded_width(D, dtype), K, elt,
+                           fa._sm_count(args[0].device))[3]
+    before = fa.launches_slab
+    _check_fused(args, use_cov)
+    assert fa.launches_slab - before == (1 if slab else 0)
+    first = fa.fused_attention_shared(*args, use_cov)
+    again = fa.fused_attention_shared(*args, use_cov)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(16, 400, 2400), (4, 400, 4096),
+                                   (3, 65, 2312), (2, 9, 5000)])
+@pytest.mark.parametrize("use_cov", [False, True])
+def test_fused_attention_backward_slab_form_matches_plain_on_card(B, T, D,
+                                                                  use_cov):
+    """The slab backward (past the dense form's 2,308 f32 columns; a last
+    slab narrower than 512) against the plain backward, one slab launch,
+    the empty article's gradients zero, a rerun the same bits."""
+    _need_cuda()
+    args = _bwd_inputs(B, T, D, seed=T)
+    before = fa.launches_bwd_slab
+    got = fa._attention_bwd_cuda(*args, use_cov)
+    again = fa._attention_bwd_cuda(*args, use_cov)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd_slab == before + 2
+    _close_scaled(got, fa._attention_bwd_plain(*args, use_cov))
+    assert all(not g[1].any() for g in got[:4])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,T,D", [(16, 4, 200, 512), (16, 1, 200, 512),
+                                     (3, 4, 40, 2400), (2, 1, 9, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_sp_block_form_matches_plain_on_card(B, K, T, D,
+                                                             dtype):
+    """The sp-block forward: ctx and attn normalised over the block, the
+    row max and the unfloored row sum against _attention_block_plain (a
+    fully masked row: m at NEG, l 0); one sp launch."""
+    _need_cuda()
+    args = _inputs(B, K, T, D, dtype, seed=T)
+    before = fa.launches_sp
+    got = fa.fused_attention_block(*args, True)
+    torch.cuda.synchronize()
+    assert fa.launches_sp == before + 1
+    want = fa._attention_block_plain(*args, True)
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
+    valid = (want[3] > 0).cpu().numpy()
+    np.testing.assert_allclose(got[2].cpu().numpy()[valid],
+                               want[2].cpu().numpy()[valid], **TOL)
+    np.testing.assert_allclose(got[3].cpu().numpy(), want[3].cpu().numpy(),
+                               **TOL)
+    assert (got[2].cpu().numpy()[~valid] == np.float32(fa.NEG)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,D", [(16, 200, 512), (3, 40, 2400)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_attention_backward_sp_block_form_on_card(B, T, D, dtype):
+    """The sp-block backward takes its softmax correction from outside:
+    against the plain backward with the same correction; one sp launch;
+    the dense and slab widths."""
+    _need_cuda()
+    args = list(_bwd_inputs(B, T, D, seed=T))
+    args[0], args[1] = args[0].to(dtype), args[1].to(dtype)
+    correction = torch.randn(B, device="cuda")
+    before = fa.launches_bwd_sp
+    got = fa._attention_bwd_cuda(*args, True, correction)
+    torch.cuda.synchronize()
+    assert fa.launches_bwd_sp == before + 1
+    want = fa._attention_bwd_plain(*args, True, correction)
+    if dtype == torch.bfloat16:
+        _close_bf16(got, want)
+    else:
+        _close_scaled(got, want)
 
 
 def _bf16_ulp(x):

@@ -2,12 +2,14 @@
 against the JAX package's single-device search: the tokens and lengths
 EXACTLY equal, the average log-probabilities within 1e-5.
 
-dp=4 (each rank searches two of the eight articles) and dp2 x tp2 (the
-vocab-sharded embedding and projection, one scores all-gather per step)
-for the pointer-generator, dp2 x tp2 (its heads sharded too, with the
-f32 and with the bf16 KV cache, against the JAX search with the same
-cache) and dp2 x sp2 under --sp_attention=ring (the sp ranks search the
-same rows) for the transformer; the BeamSearchDecoder on a mesh (the chief's results
+dp=4 (each rank searches two of the eight articles), dp2 x tp2 (the
+vocab-sharded embedding and projection, one scores all-gather per step),
+sp=4 and dp2 x sp2 with coverage (each sp rank's attention on its block
+of T, merged over sp every step) for the pointer-generator, dp2 x tp2
+(its heads sharded too, with the f32 and with the bf16 KV cache, against
+the JAX search with the same cache) and dp2 x sp2 under
+--sp_attention=ring (the encoder's T sharded, ring attention) for the
+transformer; the BeamSearchDecoder on a mesh (the chief's results
 equal the single-rank decoder's words, other tiers refused, the slot
 engine built over dp); continuous decode (``single_pass=0``)
 reloading a newer checkpoint at the chief's call when the ranks' clocks
@@ -50,10 +52,17 @@ FIELDS = ("batch_size", "hidden_dim", "emb_dim", "vocab_size",
           "model_family", "num_heads", "enc_layers", "dec_layers")
 FAMILIES = {"pointer_generator": {},
             "transformer": dict(num_heads=2, enc_layers=2, dec_layers=2)}
-#: the 4-rank meshes each family searches on (decode does not shard T:
-#: under --sp_attention the sp ranks search the same rows)
+#: the 4-rank meshes each family searches on (the sp ranks shard T: the
+#: pointer-generator's attention, the transformer's encoder under
+#: --sp_attention)
 MESHES = {"pointer_generator": {"dp4": dict(dp=4), "dp2_tp2": dict(dp=2,
-                                                                  tp=2)},
+                                                                  tp=2),
+                                "sp4": dict(sp=4),
+                                "dp2_sp2_cov": dict(dp=2, sp=2,
+                                                    coverage=True),
+                                # T = 22 is no multiple of sp = 4: the
+                                # search pads it with masked positions
+                                "sp4_t22": dict(sp=4, max_enc_steps=22)},
           "transformer": {"dp2_tp2": dict(dp=2, tp=2),
                           "dp2_tp2_bf16_cache": dict(
                               dp=2, tp=2, decode_cache_dtype="bfloat16"),
@@ -63,9 +72,12 @@ MESHES = {"pointer_generator": {"dp4": dict(dp=4), "dp2_tp2": dict(dp=2,
 CONTINUOUS = ("chief", "followers")
 
 
-def _setup(family):
+def _setup(family, max_enc_steps=None):
     jhps, thps = make_hps(batch_size=N_ART, model_family=family,
                           **FAMILIES[family])
+    if max_enc_steps is not None:
+        jhps = jhps.replace(max_enc_steps=max_enc_steps)
+        thps = thps.replace(max_enc_steps=max_enc_steps)
     jv = JaxVocab(words=WORDS)
     exs = [jax_batching.SummaryExample.build(article(i), [abstract(i)], jv,
                                              jhps) for i in range(N_ART)]
@@ -88,11 +100,12 @@ def ranks(tmp_path_factory):
     for family in FAMILIES:
         _, thps, batch, params = _setup(family)
         save_params(work, f"params_{family}", params)
-        save_npz(work, f"batch_{family}", batch.as_arrays())
         for name, kw in MESHES[family].items():
+            batch = _setup(family, kw.get("max_enc_steps"))[2]
+            save_npz(work, f"batch_{family}_{name}", batch.as_arrays())
             cases.append({"name": f"{family}_{name}", "kind": "search",
                           "params": f"params_{family}",
-                          "batch": f"batch_{family}",
+                          "batch": f"batch_{family}_{name}",
                           "hps": _hps_fields(thps, mode="decode", **kw)})
     _, thps, _, _ = _setup("pointer_generator")
     cases.append({"name": "decoder", "kind": "decoder",
@@ -120,10 +133,12 @@ def ranks(tmp_path_factory):
 @pytest.mark.parametrize("family,name", [
     (f, n) for f, meshes in MESHES.items() for n in meshes])
 def test_sharded_beam_search_tokens_equal_jax(ranks, family, name):
-    jhps, _, batch, params = _setup(family)
-    cache = MESHES[family][name].get("decode_cache_dtype", "float32")
+    kw = MESHES[family][name]
+    jhps, _, batch, params = _setup(family, kw.get("max_enc_steps"))
     want = jax_bs.run_beam_search(
-        params, jhps.replace(decode_cache_dtype=cache), batch.as_arrays())
+        params, jhps.replace(
+            decode_cache_dtype=kw.get("decode_cache_dtype", "float32"),
+            coverage=kw.get("coverage", False)), batch.as_arrays())
     for r in range(4):  # every rank holds the whole batch's outputs
         got = load_npz(ranks, f"{family}_{name}.rank{r}")
         np.testing.assert_array_equal(got["tokens"], want.tokens)

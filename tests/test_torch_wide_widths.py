@@ -8,8 +8,10 @@ items 1, 4 and 5), on the CPU:
     magnitude, since the padded sums add exact zeros and only the order
     of f32 sums may differ; bf16 outputs, rounded once from those f32
     values, within one bf16 ulp beside that);
-  * the launch form the wrappers mirror (a ring that steps down with D)
-    and ``width_refusal``, which ``HParams.validate`` asks on the card;
+  * the launch form the wrappers mirror (a ring that steps down with D,
+    then the slab form past the dense form's room), and
+    ``HParams.validate`` taking every pointer-generator width on the
+    card;
   * the JAX-only hyperparameters: every one accepted at its JAX default,
     any other value refused naming its ROADMAP item.
 
@@ -18,7 +20,6 @@ tests/test_torch_pg_checkpoint.py::test_flash_head_dim_padding_is_exact.
 """
 
 import dataclasses
-import re
 import shlex
 
 import numpy as np
@@ -112,50 +113,56 @@ def test_an_aligned_width_is_not_copied():
 
 
 @pytest.mark.parametrize("B,K,D,elt,form", [
-    (16, 4, 512, 4, (False, 4, True)),    # the beam-decode shape
-    (16, 1, 860, 4, (False, 4, True)),    # hidden 430 in training
-    (16, 4, 800, 4, (False, 4, True)),    # hidden 400 at beam 4
-    (4, 4, 512, 4, (True, 8, True)),      # the App's decode: wide clusters
-    (4, 4, 800, 4, (True, 4, True)),      # the wide ring steps down
-    (2, 4, 2048, 4, (True, 2, True)),     # ... to its last 2 chunks
-    (16, 4, 2236, 4, None),               # past even that
-    (16, 4, 1384, 2, (False, 4, True)),   # bf16 rows: half the ring bytes
+    (16, 4, 512, 4, (False, 4, True, 0)),    # the beam-decode shape
+    (16, 1, 860, 4, (False, 4, True, 0)),    # hidden 430 in training
+    (16, 4, 800, 4, (False, 4, True, 0)),    # hidden 400 at beam 4
+    (4, 4, 512, 4, (True, 8, True, 0)),      # the App's decode: wide clusters
+    (4, 4, 800, 4, (True, 4, True, 0)),      # the wide ring steps down
+    (2, 4, 2048, 4, (True, 2, True, 0)),     # ... to its last 2 chunks
+    (16, 4, 2236, 4, (False, 4, True, 512)),  # past even that: slabs
+    (16, 4, 1384, 2, (False, 4, True, 0)),   # bf16 rows: half the ring bytes
+    (16, 4, 2400, 4, (False, 4, True, 512)),  # hidden 1200 at beam 4
+    (16, 1, 2400, 4, (False, 2, True, 0)),   # ... at K = 1: dense still
+    (4, 1, 4096, 4, (True, 4, True, 512)),   # the long form, slabs
+    (16, 4, 4096, 2, (False, 4, True, 512)),  # bf16 past its dense room
+    (2, 64, 512, 4, (True, 4, True, 256)),   # many queries: narrower slabs
 ])
 def test_the_launch_form_steps_its_ring_down_with_d(B, K, D, elt, form):
     """The form launch() takes on a 132-SM card (wide clusters, ring
-    chunks, state in shared memory): the ring halves, down to 2 chunks,
-    while the block's constants do not fit beside it, and the refusal
-    follows that form, not the widest ring."""
+    chunks, state in shared memory, slab columns): the ring halves, down
+    to 2 chunks, while the block's constants do not fit beside it; past
+    that the slab form (a dense form never becomes one), its slab halved
+    while K queries' slabs do not fit.  No width is refused."""
     assert fa._launch_form(B, 400, D, K, elt, 132) == form
     es = torch.empty(B, 400, D, device="meta",
                      dtype=torch.bfloat16 if elt == 2 else torch.float32)
-    refusal = fa._shape_refusal(es, torch.empty(B, K, D, device="meta"))
-    assert (refusal is None) == (form is not None)
+    assert fa._shape_refusal(es, torch.empty(B, K, D, device="meta")) is None
 
 
-@pytest.mark.parametrize("hidden,mode,refused", [
-    (256, "decode", False), (400, "decode", False), (430, "train", False),
-    (691, "decode", False), (1117, "decode", True), (1155, "train", True),
-    (255, "train", False), (1155, "eval", False), (1117, "eval", False)])
-def test_width_refusal_names_what_does_not_fit(hidden, mode, refused,
-                                               monkeypatch):
-    """What ``HParams.validate`` refuses on a 132-SM card at batch 16,
-    T 400, before any model is built: beam 4 in decode, the backward too
-    in training, the forward alone in eval (which trains nothing, so a
-    width whose backward does not fit still evaluates)."""
+@pytest.mark.parametrize("hidden,mode,slab,bwd_slab", [
+    (256, "decode", False, False), (400, "decode", False, False),
+    (430, "train", False, False), (691, "decode", False, False),
+    (1117, "decode", True, False), (1155, "train", False, True),
+    (255, "train", False, False), (1155, "eval", False, False),
+    (1117, "eval", False, False), (1200, "decode", True, False),
+    (1200, "train", False, True), (1200, "eval", False, False),
+    (2048, "train", True, True), (2048, "decode", True, False)])
+def test_validate_takes_every_width_on_the_card(hidden, mode, slab,
+                                                bwd_slab, monkeypatch):
+    """``HParams.validate`` takes every pointer-generator width on a
+    132-SM card at batch 16, T 400 (the widths past 1,116 at beam 4 and
+    1,154 in training that it refused before included), and the kernels
+    take them: the dense forms where their constants fit one block, the
+    slab forms past that (beam 4 in decode, K = 1 and the backward in
+    training, the forward alone in eval)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(fa, "_sm_count", lambda dev: 132)
-    hps = HParams(mode=mode, hidden_dim=hidden, batch_size=16,
-                  max_enc_steps=400, beam_size=4)
-    if refused:
-        with pytest.raises(ValueError,
-                           match=re.escape(config.ROADMAP_PG_WIDTH)):
-            hps.validate()
-    else:
-        hps.validate()
-    why = fa.width_refusal(16, 400, 2 * hidden, 4 if mode == "decode" else 1,
-                           torch.float32, backward=mode == "train")
-    assert (why is not None) == refused
+    HParams(mode=mode, hidden_dim=hidden, batch_size=16, max_enc_steps=400,
+            beam_size=4, device="cuda").validate()
+    D = fa._padded_width(2 * hidden, torch.float32)
+    form = fa._launch_form(16, 400, D, 4 if mode == "decode" else 1, 4, 132)
+    assert form is not None and bool(form[3]) == slab
+    assert (mode == "train" and fa._bwd_form(D) == "slab") == bwd_slab
 
 
 def _jax_only_nondefault():

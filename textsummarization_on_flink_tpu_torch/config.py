@@ -61,13 +61,6 @@ import os
 import shlex
 from typing import Any, Dict, List, Optional, Tuple
 
-#: ROADMAP.md names the queue item that brings each missing mode, option
-#: or family; error messages point there
-ROADMAP_PG_WIDTH = ("ROADMAP.md queue 3, item 4 (pointer-generator widths "
-                    "past the fused attention kernels' shared memory on the "
-                    "card)")
-
-
 #: the JAX package's HParams fields that the port does not have, as
 #: name -> (type, JAX default): a copy of the field list of
 #: textsummarization_on_flink_tpu/config.py, kept literal under the import
@@ -423,8 +416,6 @@ class HParams:
                     f"hidden_dim={self.hidden_dim}")
             if self.enc_layers < 1 or self.dec_layers < 1:
                 raise ValueError("enc_layers/dec_layers must be >= 1")
-        if self.device == "cuda" and self.model_family == "pointer_generator":
-            self._refuse_pg_width()
         self._validate_spec()
         if self.decode_cache_dtype not in ("float32", "bfloat16"):
             raise ValueError(
@@ -584,31 +575,6 @@ class HParams:
                 f"serve_tenant_burst must be >= 0 (0 = auto), got "
                 f"{self.serve_tenant_burst}")
         parse_fair_weights(self.serve_fair_weights)
-
-    def _refuse_pg_width(self) -> None:
-        """On the card, refuse before a model is built an encoder width
-        the fused attention kernels do not take (at the batch, the beam in
-        decode, and with the backward only in training: eval runs the
-        forward alone); without a card the entry points raise on the
-        device instead."""
-        import torch
-
-        if not torch.cuda.is_available():
-            return
-        from textsummarization_on_flink_tpu_torch.ops import fused_attention
-
-        dtype = (torch.bfloat16 if self.compute_dtype == "bfloat16"
-                 else torch.float32)
-        decode = self.mode == "decode" or self.inference
-        refusal = fused_attention.width_refusal(
-            self.batch_size, self.max_enc_steps, 2 * self.hidden_dim,
-            self.beam_size if decode else 1, dtype,
-            backward=self.mode == "train" and not self.inference)
-        if refusal is not None:
-            raise ValueError(
-                f"hidden_dim={self.hidden_dim}: the fused attention kernels "
-                f"do not take this width on the card ({refusal}); "
-                f"{ROADMAP_PG_WIDTH}")
 
 
 def beam_chunk_from_env() -> int:

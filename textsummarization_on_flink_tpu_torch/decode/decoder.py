@@ -46,9 +46,11 @@ batch (the chief reads the batcher and broadcasts each batch's arrays),
 each dp group searches its rows with its tp shards of the params, and
 the chief, which holds the gathered outputs, makes the results and
 writes the decode dir.  Only the beam tier decodes there, as in the JAX
-package (decoder.py:455-459 there).  The sp ranks search the same rows
-with the whole encoder, where the JAX package shards the encoder's T
-(port fault 7).
+package (decoder.py:455-459 there).  The sp ranks of a dp index search
+the same rows and shard the encoder's T as the JAX package's search
+does: the pointer-generator's attention on each rank's block, the
+transformer's and the AAN's encoder under --sp_attention.  The slot
+engine keeps T whole on every rank (JAX parallel/sharding.py:277-292).
 
 A sharded decoder runs in one of two ways.  In lockstep (cli.py's decode,
 the pipeline's transform) every rank calls ``decode``/``decode_batch``
@@ -797,8 +799,11 @@ class SlotDecodeEngine:
                 f"dp={self._hps.dp} must divide serve slots={slots}")
         self.slots = slots
         self.chunk = min(chunk, self._hps.max_dec_steps)
-        # decode does not shard T (parallel/mesh.make_sharded_beam_search)
-        self._run_hps = self._hps.replace(sp_attention="")
+        # the slot loop does not shard T (JAX parallel/sharding.py:
+        # 277-292): its model functions run as at sp = 1; the prices stay
+        # a rank's share of the whole mesh's
+        self._run_hps = self._hps.replace(sp_attention="", sp=1)
+        self._price_hps = self._hps.replace(sp_attention="")
         self._hps1 = self._hps.replace(batch_size=1)
         # this rank's slots [lo, lo + local) (all of them off a mesh)
         dp = self._hps.dp if self._plan is not None else 1
@@ -817,7 +822,8 @@ class SlotDecodeEngine:
         self._priced_buckets: set = set()
         if self._hps.profile_analytic:
             # the engine's whole chunk (a rank is priced at its share)
-            chunk_hps, n = self._run_hps.replace(batch_size=slots), self.chunk
+            chunk_hps, n = self._price_hps.replace(batch_size=slots), \
+                self.chunk
             self._prof.register_cost(
                 "serve/dispatch", f"slot_chunk{n}",
                 lambda: cost_lib.decode_step_cost(chunk_hps, path="slot",
@@ -927,7 +933,7 @@ class SlotDecodeEngine:
         if not self._hps.profile_analytic or bucket in self._priced_buckets:
             return
         self._priced_buckets.add(bucket)
-        hps = self._run_hps
+        hps = self._price_hps
         self._prof.register_cost(
             "serve/prefill", bucket,
             lambda: cost_lib.prefill_cost(hps, bucket))

@@ -59,7 +59,34 @@
 //     coverage from device memory where they lie and keeps the energies
 //     in the `attn` output, which is [B, K, T] in device memory already,
 //     so every T is taken.  Only the per-block constants (the ring, the
-//     queries, the partial context) bound K and D.
+//     queries, the partial context) bound K and D in this, the dense
+//     form.
+//
+// The slab form (attention_slab_kernel) takes every D the dense form
+// does not fit in one block's shared memory, and only those: the launch
+// picks the dense form wherever it fits, so a shape the dense form took
+// gets the same bits as before.  The energies are a sum over D and the
+// context a sum over positions column by column, so both passes loop
+// over slabs of S columns (512, halved while K queries' slabs do not
+// fit, down to 64): the ef pass adds each slab's energies into the
+// per-position state (shared memory, or attn in device memory), the
+// softmax statistics follow once, and the es pass forms each slab's
+// partial context, which the cluster merges through distributed shared
+// memory before the next slab reuses the buffer.  Only a slab of the
+// queries, v, w_c and the partial context sits in shared memory.  A
+// slab's rows are not contiguous, so each ring chunk is one bulk copy
+// per row on the stage's mbarrier.  es and ef are still read once, and
+// the launch is still one, with no atomics: the same bits every run.
+// Splitting D across the cluster's blocks instead would have each block
+// read every position's rows and the softmax wait on a cluster sum of
+// every energy, which the loop over slabs avoids.
+//
+// The sp-block form (m_out, l_out not null, in both kernels): the
+// arguments hold one sequence-parallel rank's block of T.  The kernel
+// writes, beside ctx and attn normalised over the block, the cluster's
+// merged row max and (unfloored) row sum [B, K]; the caller merges the
+// sp ranks' blocks (ops/fused_attention.py: merge_sp_blocks), the
+// additive attention's form of ring attention's online softmax.
 //
 // Plain f32 FMA, expf, and tanh as 1 - 2 / (1 + 2^(2 f log2 e)) on the
 // MUFU (tanh_mufu: within ~5e-7 of tanh; no tensor cores, no fast-math
@@ -101,6 +128,8 @@ constexpr size_t kSmemMax = 232448;  // bytes a block may use on Hopper
 // the dynamic shared memory (a static array would count against the
 // dynamic maximum allow_smem asks for), the ring 16-byte aligned after
 constexpr int kBarFloats = 16;
+// the slab form: columns per slab, at most and at least, and its ring
+constexpr int kSlab = 512, kMinSlab = 64, kSlabRing = 4;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -199,7 +228,8 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
                  const float* __restrict__ mask, const float* __restrict__ df,
                  const float* __restrict__ cov, const float* __restrict__ v,
                  const float* __restrict__ wc, float* __restrict__ ctx,
-                 float* __restrict__ attn, int T, int T_act, int D, int K,
+                 float* __restrict__ attn, float* __restrict__ m_out,
+                 float* __restrict__ l_out, int T, int T_act, int D, int K,
                  int P) {
   cg::cluster_group cluster = cg::this_cluster();
   const int C = (int)cluster.num_blocks();
@@ -423,6 +453,10 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
       den = fmaf(ls_s[r * K + k], sc, den);
     }
     den_s[k] = fmaxf(den, kDenomFloor);
+    if (m_out != nullptr && rank == 0) {  // the sp-block form
+      m_out[(size_t)b * K + k] = M;
+      l_out[(size_t)b * K + k] = den;
+    }
   }
   __syncthreads();
 
@@ -463,14 +497,319 @@ attention_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
   cluster.sync();
 }
 
-template <typename TIn, bool kCov, int kStages, bool kSmemState>
-cudaError_t launch_one(const void* es, const void* ef, const float* mask,
-                       const float* df, const float* cov, const float* v,
-                       const float* wc, float* ctx, float* attn, int B,
-                       int T, int T_act, int D, int K, const Geometry& geo,
-                       bool wide, size_t smem_bytes, int dev,
-                       cudaStream_t stream) {
-  auto kernel = attention_kernel<TIn, kCov, kStages, kSmemState>;
+// Dynamic shared memory of the slab form, in floats: the mbarriers, a
+// ring of kSlabRing chunks of kChunk rows of S columns, a slab of df
+// [K, S], v and w_c [S], the state as in the dense form, the slab's
+// partial context [K, S] and the per-query scalars.
+inline size_t slab_smem_floats(const Geometry& geo, int S, int K, int elt,
+                               bool state_in_smem) {
+  return kBarFloats + (size_t)kSlabRing * kChunk * S * elt / 4 +
+         2 * (size_t)K * S + 2 * (size_t)S +
+         (state_in_smem ? (size_t)geo.P * (2 * K + 1) : 0) +
+         (size_t)(3 + 2 * geo.C) * K;
+}
+
+// The slab form: grid and clusters as the dense kernel's, D in slabs of
+// S columns (see the header).  The ring's sequence: ef chunks of slab 0,
+// of slab 1, ..., then es chunks slab by slab.
+template <typename TIn, bool kCov, bool kSmemState>
+__global__ void __launch_bounds__(kThreads, 1)
+attention_slab_kernel(const TIn* __restrict__ es, const TIn* __restrict__ ef,
+                      const float* __restrict__ mask,
+                      const float* __restrict__ df,
+                      const float* __restrict__ cov,
+                      const float* __restrict__ v,
+                      const float* __restrict__ wc, float* __restrict__ ctx,
+                      float* __restrict__ attn, float* __restrict__ m_out,
+                      float* __restrict__ l_out, int T, int T_act, int D,
+                      int K, int P, int S) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y;
+  const int row_floats = S * (int)sizeof(TIn) / 4;  // one staged row slab
+  const int chunk_floats = kChunk * row_floats;
+  const int nS = (D + S - 1) / S;
+
+  extern __shared__ __align__(16) float smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [kSlabRing]
+  float* ring = smem + kBarFloats;
+  float* df_s = ring + kSlabRing * chunk_floats;  // [K, S] a slab of df
+  float* v_s = df_s + K * S;                      // [S]
+  float* wc_s = v_s + S;                          // [S]
+  const int P_s = kSmemState ? P : 0;
+  float* mask_s = wc_s + S;       // [P]
+  float* cov_s = mask_s + P_s;    // [K, P]
+  float* pe_s = cov_s + K * P_s;  // [P, K]: energies, then exp(e - max)
+  float* ctx_s = pe_s + P_s * K;  // [K, S] the slab's partial context
+  float* m_s = ctx_s + K * S;     // [K] the block's max
+  float* l_s = m_s + K;           // [K] the block's sum
+  float* den_s = l_s + K;         // [K] the article's denominator
+  float* sc_s = den_s + K;        // [C, K] rank maxes, then exp(max_r - M)
+  float* ls_s = sc_s + C * K;     // [C, K] rank sums
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int t_begin = rank * P;
+  const int n_pos = max(0, min(T_act, t_begin + P) - t_begin);
+  const int n_chunks = (n_pos + kChunk - 1) / kChunk;
+  const TIn* ef_b = ef + (size_t)b * T * D;
+  const TIn* es_b = es + (size_t)b * T * D;
+  const float* mask_b = mask + (size_t)b * T + t_begin;
+  const float* cov_b = cov + (size_t)b * K * T + t_begin;
+  float* attn_b = attn + (size_t)b * K * T + t_begin;
+  auto mask_at = [&](int tl) -> float {
+    if constexpr (kSmemState) return mask_s[tl];
+    else return mask_b[tl];
+  };
+  auto cov_at = [&](int k, int tl) -> float {
+    if constexpr (kSmemState) return cov_s[k * P + tl];
+    else return cov_b[(size_t)k * T + tl];
+  };
+  auto pe = [&](int tl, int k) -> float& {
+    if constexpr (kSmemState) return pe_s[tl * K + k];
+    else return attn_b[(size_t)k * T + tl];
+  };
+  auto width = [&](int s) { return min(S, D - s * S); };
+
+  const int per_pass = nS * n_chunks;
+  const int n_total = 2 * per_pass;
+  // chunk i: its rows' slab, one bulk copy per row on the stage's
+  // mbarrier, armed once with the chunk's bytes
+  auto stage = [&](int i) {
+    if (tid == 0 && i < n_total) {
+      const bool is_ef = i < per_pass;
+      const int q = is_ef ? i : i - per_pass;
+      const int s = q / n_chunks, c0 = (q % n_chunks) * kChunk;
+      const int rows = min(kChunk, n_pos - c0);
+      const unsigned row_bytes = (unsigned)(width(s) * (int)sizeof(TIn));
+      float* dst = ring + (i % kSlabRing) * chunk_floats;
+      const TIn* src =
+          (is_ef ? ef_b : es_b) + (size_t)(t_begin + c0) * D + (size_t)s * S;
+      tma::mbar_arrive_tx(&bars[i % kSlabRing], rows * row_bytes);
+      for (int r = 0; r < rows; ++r)
+        tma::bulk_copy(dst + r * row_floats, src + (size_t)r * D, row_bytes,
+                       &bars[i % kSlabRing]);
+    }
+  };
+  static_assert(2 * kSlabRing <= kBarFloats, "room for the mbarriers");
+  if (tid == 0) {
+    for (int i = 0; i < kSlabRing; ++i) mbar_init(&bars[i]);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (kSmemState) {
+    for (int tl = tid; tl < n_pos; tl += kThreads)
+      cp_async4(mask_s + tl, mask_b + tl);
+    if (kCov) {
+      for (int k = 0; k < K; ++k)
+        for (int tl = tid; tl < n_pos; tl += kThreads)
+          cp_async4(cov_s + k * P + tl, cov_b + (size_t)k * T + tl);
+    }
+  }
+  tf32x3::cp_async_commit();
+  for (int i = 0; i < kSlabRing - 1; ++i) stage(i);
+  for (int k = tid; k < K; k += kThreads) {  // a block with no positions
+    m_s[k] = kNeg;
+    l_s[k] = 0.f;
+  }
+
+  // 1. energies, slab by slab, summed into the per-position state; the
+  //    mask applied with the last slab
+  int i = 0;  // the ring's chunk
+  for (int s = 0; s < nS; ++s) {
+    const int w4 = width(s) / 4;
+    __syncthreads();  // every warp is done with the last slab's queries
+    for (int idx = tid; idx < K * w4; idx += kThreads) {
+      const int k = idx / w4, c = idx - k * w4;
+      *reinterpret_cast<float4*>(df_s + k * S + 4 * c) = load4(
+          df + ((size_t)b * K + k) * D + (size_t)s * S + 4 * c);
+    }
+    for (int c = tid; c < w4; c += kThreads) {
+      *reinterpret_cast<float4*>(v_s + 4 * c) = load4(v + s * S + 4 * c);
+      *reinterpret_cast<float4*>(wc_s + 4 * c) = load4(wc + s * S + 4 * c);
+    }
+    for (int j = 0; j < n_chunks; ++j, ++i) {
+      mbar_wait(&bars[i % kSlabRing], (unsigned)(i / kSlabRing) & 1u);
+      if (i == 0) tf32x3::cp_async_wait<0>();
+      // chunk i, the slab's queries and the state have landed for every
+      // thread; every warp is done with chunk i - 1
+      __syncthreads();
+      stage(i + kSlabRing - 1);
+      const float* buf = ring + (i % kSlabRing) * chunk_floats;
+      const int tl = j * kChunk + warp;  // warp-uniform
+      if (tl >= n_pos) continue;
+      const bool valid = mask_at(tl) > 0.f;
+      const TIn* row = reinterpret_cast<const TIn*>(buf + warp * row_floats);
+      for (int k0 = 0; k0 < K; k0 += kQ) {
+        float acc[kQ], cv[kQ];
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          acc[q] = 0.f;
+          cv[q] = (kCov && k0 + q < K) ? cov_at(k0 + q, tl) : 0.f;
+        }
+#pragma unroll 4
+        for (int c = lane; c < w4; c += 32) {
+          const float4 x = load4(row + 4 * c);
+          const float4 vv = *reinterpret_cast<const float4*>(v_s + 4 * c);
+          const float4 w = *reinterpret_cast<const float4*>(wc_s + 4 * c);
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            if (k0 + q < K) {
+              const float4 d = *reinterpret_cast<const float4*>(
+                  df_s + (k0 + q) * S + 4 * c);
+              acc[q] = energy_term<kCov>(acc[q], x.x, d.x, cv[q], w.x, vv.x);
+              acc[q] = energy_term<kCov>(acc[q], x.y, d.y, cv[q], w.y, vv.y);
+              acc[q] = energy_term<kCov>(acc[q], x.z, d.z, cv[q], w.z, vv.z);
+              acc[q] = energy_term<kCov>(acc[q], x.w, d.w, cv[q], w.w, vv.w);
+            }
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kQ; ++q) {
+          const float e = warp_sum(acc[q]);
+          if (lane == 0 && k0 + q < K) {
+            float& p = pe(tl, k0 + q);
+            const float tot = s == 0 ? e : p + e;
+            p = (s == nS - 1 && !valid) ? kNeg : tot;
+          }
+        }
+      }
+    }
+  }
+  tf32x3::cp_async_wait<0>();  // no copy may outlive the block (T = 0)
+  __syncthreads();             // every energy is written
+
+  // 2. the block's softmax statistics: a warp per query
+  for (int k = warp; k < K; k += kWarps) {
+    float m = kNeg;
+    for (int tl = lane; tl < n_pos; tl += 32) m = fmaxf(m, pe(tl, k));
+    m = warp_max(m);
+    float l = 0.f;
+    for (int tl = lane; tl < n_pos; tl += 32) {
+      const float p = mask_at(tl) > 0.f ? expf(pe(tl, k) - m) : 0.f;
+      pe(tl, k) = p;
+      l += p;
+    }
+    l = warp_sum(l);
+    if (lane == 0) {
+      m_s[k] = m;
+      l_s[k] = l;
+    }
+  }
+  // 3. the article's max, the rank scales and the denominator per query,
+  //    from every rank's statistics (as the dense form's merge)
+  cluster.sync();
+  for (int idx = tid; idx < C * K; idx += kThreads) {
+    sc_s[idx] = cluster.map_shared_rank(m_s, idx / K)[idx % K];
+    ls_s[idx] = cluster.map_shared_rank(l_s, idx / K)[idx % K];
+  }
+  __syncthreads();
+  for (int k = tid; k < K; k += kThreads) {
+    float M = kNeg;
+    for (int r = 0; r < C; ++r) M = fmaxf(M, sc_s[r * K + k]);
+    float den = 0.f;
+    for (int r = 0; r < C; ++r) {  // rank order: the same bits every run
+      const float sc = expf(sc_s[r * K + k] - M);
+      sc_s[r * K + k] = sc;
+      den = fmaf(ls_s[r * K + k], sc, den);
+    }
+    den_s[k] = fmaxf(den, kDenomFloor);
+    if (m_out != nullptr && rank == 0) {  // the sp-block form
+      m_out[(size_t)b * K + k] = M;
+      l_out[(size_t)b * K + k] = den;
+    }
+  }
+  __syncthreads();
+
+  // 4. the context, slab by slab: each block's partial context of the
+  //    slab (a thread owns columns 2c, 2c + 1 of every query), merged
+  //    over the cluster's ranks in order into the slab's columns of ctx
+  for (int s = 0; s < nS; ++s) {
+    const int w = width(s);
+    for (int c = tid; c < w / 2; c += kThreads)
+      for (int k = 0; k < K; ++k)
+        *reinterpret_cast<float2*>(ctx_s + k * S + 2 * c) =
+            make_float2(0.f, 0.f);
+    for (int j = 0; j < n_chunks; ++j, ++i) {
+      mbar_wait(&bars[i % kSlabRing], (unsigned)(i / kSlabRing) & 1u);
+      __syncthreads();
+      stage(i + kSlabRing - 1);
+      const TIn* rows =
+          reinterpret_cast<const TIn*>(ring + (i % kSlabRing) * chunk_floats);
+      const int c0 = j * kChunk;
+      const int n_here = min(kChunk, n_pos - c0);
+      for (int c = tid; c < w / 2; c += kThreads) {
+        for (int k0 = 0; k0 < K; k0 += kQ) {
+          float a[kQ][2];
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) a[q][0] = a[q][1] = 0.f;
+          for (int r = 0; r < n_here; ++r) {
+            const float2 x = load2(rows + (size_t)r * S + 2 * c);
+#pragma unroll
+            for (int q = 0; q < kQ; ++q) {
+              if (k0 + q < K) {
+                const float pr = pe(c0 + r, k0 + q);
+                a[q][0] = fmaf(pr, x.x, a[q][0]);
+                a[q][1] = fmaf(pr, x.y, a[q][1]);
+              }
+            }
+          }
+#pragma unroll
+          for (int q = 0; q < kQ; ++q) {
+            if (k0 + q < K) {
+              float2* dst =
+                  reinterpret_cast<float2*>(ctx_s + (k0 + q) * S + 2 * c);
+              const float2 old = *dst;
+              *dst = make_float2(old.x + a[q][0], old.y + a[q][1]);
+            }
+          }
+        }
+      }
+    }
+    cluster.sync();  // every block's partial context of slab s is complete
+    const int KW = K * w;
+    const int per = (KW + C - 1) / C;
+    const int hi = min(KW, (rank + 1) * per);
+    for (int idx = rank * per + tid; idx < hi; idx += kThreads) {
+      const int k = idx / w, d = idx - k * w;
+      float acc = 0.f;
+#pragma unroll 8
+      for (int r = 0; r < C; ++r)
+        acc = fmaf(cluster.map_shared_rank(ctx_s, r)[k * S + d],
+                   sc_s[r * K + k], acc);
+      ctx[((size_t)b * K + k) * D + (size_t)s * S + d] = acc / den_s[k];
+    }
+    cluster.sync();  // no block refills its ctx_s while another reads it
+  }
+
+  // the normalised attention of this block's positions, and 0 past the
+  // bound, as the dense form writes them
+  for (int k = 0; k < K; ++k) {
+    const float sc = sc_s[rank * K + k], den = den_s[k];
+    float* out = attn_b + (size_t)k * T;
+    for (int tl = tid; tl < n_pos; tl += kThreads)
+      out[tl] = pe(tl, k) * sc / den;
+  }
+  const int tail = T - T_act;
+  if (tail > 0) {
+    const int per_tail = (tail + C - 1) / C;
+    const int z_lo = T_act + rank * per_tail;
+    const int z_hi = min(T, z_lo + per_tail);
+    float* attn_a = attn + (size_t)b * K * T;
+    for (int k = 0; k < K; ++k)
+      for (int t = z_lo + tid; t < z_hi; t += kThreads)
+        attn_a[(size_t)k * T + t] = 0.f;
+  }
+}
+
+// Launch the kernel instantiation kKernel over (C, B) blocks in clusters
+// of C, with `smem_bytes` of dynamic shared memory (wide: a non-portable
+// cluster of 16 blocks)
+template <auto kKernel, typename... Args>
+cudaError_t launch_clusters(const Geometry& geo, int B, bool wide,
+                            size_t smem_bytes, int dev, cudaStream_t stream,
+                            Args... args) {
+  auto kernel = kKernel;
   static unsigned smem_set = 0, wide_set = 0;  // per instantiation
   // the attribute is the most any call may ask; each launch asks its own
   cudaError_t err = tf32x3::allow_smem(kernel, kSmemMax, smem_set);
@@ -493,9 +832,7 @@ cudaError_t launch_one(const void* es, const void* ef, const float* mask,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const TIn*>(es),
-                           static_cast<const TIn*>(ef), mask, df, cov, v, wc,
-                           ctx, attn, T, T_act, D, K, geo.P);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -503,8 +840,9 @@ cudaError_t launch_one(const void* es, const void* ef, const float* mask,
 template <typename TIn, bool kCov>
 cudaError_t launch(const void* es, const void* ef, const float* mask,
                    const float* df, const float* cov, const float* v,
-                   const float* wc, float* ctx, float* attn, int B, int T,
-                   int T_act, int D, int K, cudaStream_t stream) {
+                   const float* wc, float* ctx, float* attn, float* m_out,
+                   float* l_out, int B, int T, int T_act, int D, int K,
+                   cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -516,23 +854,38 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
   // the blocks split the bound, so a short one still spreads over the
   // whole cluster
   const Geometry geo(T_act, wide ? kWideCluster : kCluster);
-  // the form's ring, halved while the block's constants do not fit
-  // beside it (a wide D); refused when even kMinRing chunks do not
+  const TIn* es_t = static_cast<const TIn*>(es);
+  const TIn* ef_t = static_cast<const TIn*>(ef);
+  // the dense form's ring, halved while the block's constants do not fit
+  // beside it (a wide D)
   int stages = wide ? kWideRing : kRing;
   auto bytes_at = [&](int n, bool state) {
     return smem_floats(geo, D, K, sizeof(TIn), n, state) * sizeof(float);
   };
   while (stages > kMinRing && bytes_at(stages, false) > kSmemMax) stages /= 2;
-  const size_t with_state = bytes_at(stages, true);
-  const size_t without = bytes_at(stages, false);
-  if (without > kSmemMax) return cudaErrorInvalidValue;
-  const bool in_smem = with_state <= kSmemMax;
-  const size_t bytes = in_smem ? with_state : without;
-#define TS_LAUNCH(STAGES, STATE)                                             \
-  launch_one<TIn, kCov, STAGES, STATE>(es, ef, mask, df, cov, v, wc, ctx,   \
-                                       attn, B, T, T_act, D, K, geo, wide,  \
-                                       bytes,                               \
-                                       dev, stream)
+  if (bytes_at(stages, false) > kSmemMax) {
+    // the slab form, where even kMinRing chunks of whole rows do not fit
+    // beside the queries: slabs of kSlab columns, halved while K
+    // queries' slabs do not fit
+    int S = kSlab;
+    auto slab_bytes = [&](int n, bool state) {
+      return slab_smem_floats(geo, n, K, sizeof(TIn), state) * sizeof(float);
+    };
+    while (S > kMinSlab && slab_bytes(S, false) > kSmemMax) S /= 2;
+    if (slab_bytes(S, false) > kSmemMax) return cudaErrorInvalidValue;
+    const bool state = slab_bytes(S, true) <= kSmemMax;
+#define TS_SLAB(STATE)                                                      \
+  launch_clusters<&attention_slab_kernel<TIn, kCov, STATE>>(                \
+      geo, B, wide, slab_bytes(S, STATE), dev, stream, es_t, ef_t, mask, df,\
+      cov, v, wc, ctx, attn, m_out, l_out, T, T_act, D, K, geo.P, S)
+    return state ? TS_SLAB(true) : TS_SLAB(false);
+#undef TS_SLAB
+  }
+  const bool in_smem = bytes_at(stages, true) <= kSmemMax;
+#define TS_LAUNCH(STAGES, STATE)                                            \
+  launch_clusters<&attention_kernel<TIn, kCov, STAGES, STATE>>(             \
+      geo, B, wide, bytes_at(STAGES, STATE), dev, stream, es_t, ef_t, mask, \
+      df, cov, v, wc, ctx, attn, m_out, l_out, T, T_act, D, K, geo.P)
   static_assert(kWideRing == 8 && kRing == 4 && kMinRing == 2,
                 "the instantiations below");
   switch (stages) {
@@ -551,39 +904,38 @@ cudaError_t launch(const void* es, const void* ef, const float* mask,
 // es, ef [B, T, D] (f32, or bf16 when is_bf16; 16-byte aligned, D a
 // multiple of 4, of 8 in bf16); mask [B, T]; df [B, K, D]; cov [B, K, T]
 // (read only when use_cov); v, wc [D]; outputs ctx [B, K, D], attn
-// [B, K, T].  All float32 unless noted, contiguous, on one device.  Only
-// the first T_act positions (1 <= T_act <= T) are read; attn is 0 past
-// them.
+// [B, K, T]; with m_out and l_out (both, or neither) the sp-block form
+// also writes the row max and the unfloored row sum [B, K].  All float32
+// unless noted, contiguous, on one device.  Only the first T_act
+// positions (1 <= T_act <= T) are read; attn is 0 past them.
 // Launches on `stream`; returns the cudaError_t of the launch
 // (cudaErrorInvalidValue for a shape the kernel does not take: more
-// articles than the grid's y extent, or K and D whose per-block
-// constants do not fit in shared memory beside a ring of kMinRing chunks
-// in the form launch() takes for B on this card).
+// articles than the grid's y extent, or so many queries K that even
+// their slabs of kMinSlab columns do not fit in shared memory).  Every
+// width D is taken: the dense form where its constants fit one block,
+// the slab form elsewhere.
 extern "C" int ts_fused_attention_shared(const void* es, const void* ef,
                                          const float* mask, const float* df,
                                          const float* cov, const float* v,
                                          const float* wc, float* ctx,
-                                         float* attn, int B, int T,
+                                         float* attn, float* m_out,
+                                         float* l_out, int B, int T,
                                          int T_act, int D, int K, int use_cov,
                                          int is_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int elt = is_bf16 ? 2 : 4;
   if (B <= 0 || T <= 0 || D <= 0 || K <= 0 || B > 65535 ||
-      D % (16 / elt) != 0 || T_act < 1 || T_act > T)
+      D % (16 / elt) != 0 || T_act < 1 || T_act > T ||
+      (m_out == nullptr) != (l_out == nullptr))
     return (int)cudaErrorInvalidValue;
+#define TS_DISPATCH(TIN, COV)                                                \
+  launch<TIN, COV>(es, ef, mask, df, cov, v, wc, ctx, attn, m_out, l_out, B, \
+                   T, T_act, D, K, st)
   if (is_bf16)
-    return (int)(use_cov ? launch<__nv_bfloat16, true>(es, ef, mask, df, cov,
-                                                       v, wc, ctx, attn, B,
-                                                       T, T_act, D, K, st)
-                         : launch<__nv_bfloat16, false>(es, ef, mask, df,
-                                                        cov, v, wc, ctx,
-                                                        attn, B, T, T_act, D,
-                                                        K, st));
-  return (int)(use_cov ? launch<float, true>(es, ef, mask, df, cov, v, wc,
-                                             ctx, attn, B, T, T_act, D, K, st)
-                       : launch<float, false>(es, ef, mask, df, cov, v, wc,
-                                              ctx, attn, B, T, T_act, D, K,
-                                              st));
+    return (int)(use_cov ? TS_DISPATCH(__nv_bfloat16, true)
+                         : TS_DISPATCH(__nv_bfloat16, false));
+  return (int)(use_cov ? TS_DISPATCH(float, true) : TS_DISPATCH(float, false));
+#undef TS_DISPATCH
 }
 
 extern "C" const char* ts_cuda_error_string(int err) {

@@ -84,7 +84,27 @@
 // float atomics: every sum has a fixed order, and two launches on the
 // same inputs give the same bits.  Accurate tanhf (the energies' tanh is
 // recomputed, not read back).  ops/fused_attention.py mirrors the sizes
-// below in its shape refusal (_bwd_shape_refusal).
+// below in its choice of form (_bwd_form).
+//
+// The slab form (attention_bwd_slab_kernel) takes every D whose rows do
+// not fit the dense form's ring of kMinStages chunks, or whose column
+// groups pass kMaxGroups a thread, and only those: a D the dense form
+// took runs it as before, with the same bits.  Both passes loop over
+// slabs of kSlab columns.  Pass one adds each slab's es . g_ctx into ga,
+// kept in d_cov; S follows the last slab.  Pass two recomputes u from
+// each ef slab: d_f, d_ef and d_es of the slab's columns, the slab's
+// column sums (d_df, d_v, d_w_c) in registers, merged over the cluster
+// into their columns after the slab, and d_cov's row sums added over the
+// slabs in `part` (past the partials) until the last slab writes d_cov.
+// The bytes are the dense form's: es and ef read once, d_es and d_ef
+// written once.
+//
+// The sp-block form (s_ext not null): the rows are one sequence-parallel
+// rank's block of T, attn is already normalised over every rank's
+// block, and the softmax correction S = sum_s attn[s] ga[s] over the
+// whole row comes from outside (s_ext [B]: the ranks' sums of attn .
+// g_attn, all-reduced, plus g_ctx . ctx; ops/fused_attention.py), so the
+// block's own share is not used.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see kernels/build.py).  C entry point bound with
@@ -119,6 +139,12 @@ constexpr int kBarFloats = 2 * kMaxStages;
 constexpr int kSmall = kWarps + 16;  // floats for the block's scalars
 // part: the ticket (an unsigned in the first 16 bytes), then [2, B, D]
 constexpr int kTicketFloats = 4;
+
+// the slab form: columns per slab, pass two's lanes of rows at that
+// width (kSlab / 4 groups for 128 threads each), and its ring's bytes
+// (80 KB: with the column sums beside it two blocks share an SM)
+constexpr int kSlab = 512, kSlabLanes = 2;
+constexpr size_t kSlabRingBytes = 80 * 1024;
 
 static_assert(kBarFloats % 4 == 0, "the ring is 16-byte aligned");
 static_assert(kChunk * 4 == 32 && kChunk <= kWarps,
@@ -239,6 +265,7 @@ attention_bwd_kernel(const TE* __restrict__ es,
                      const float* __restrict__ attn,
                      const float* __restrict__ g_ctx,
                      const float* __restrict__ g_attn,
+                     const float* __restrict__ s_ext,
                      TE* __restrict__ d_es, TE* __restrict__ d_ef,
                      float* __restrict__ d_df, float* d_cov, float* d_v,
                      float* d_wc, float* part, int B, int T, int D, int P,
@@ -412,7 +439,7 @@ attention_bwd_kernel(const TE* __restrict__ es,
   }
   tf32x3::cp_async_wait<0>();
   __syncthreads();
-  const float S = s_s[0];
+  const float S = s_ext != nullptr ? s_ext[b] : s_s[0];
   TS_MARK(3);
 
   // pass two: the rows of d_ef, d_cov's warp sums, the column sums.  A
@@ -591,15 +618,351 @@ attention_bwd_kernel(const TE* __restrict__ es,
   TS_MARK(7);
 }
 
-template <typename TE, bool kCov, int kG, int kL>
-cudaError_t launch_one(const TE* es, const TE* ef, const float* mask,
-                       const float* df, const float* cov, const float* v,
-                       const float* wc, const float* attn, const float* g_ctx,
-                       const float* g_attn, TE* d_es, TE* d_ef,
-                       float* d_df, float* d_cov, float* d_v, float* d_wc,
-                       float* part, int B, int T, int D, const Geometry& geo,
-                       bool wide, int stages, int dev, cudaStream_t stream) {
-  auto kernel = attention_bwd_kernel<TE, kCov, kG, kL>;
+// the slab form's ring: as many chunks of kChunk rows of kSlab columns
+// as fit in kSlabRingBytes, within the dense form's bounds
+inline int slab_stages(int elt) {
+  const int fit = (int)(kSlabRingBytes / ((size_t)kChunk * kSlab * elt));
+  return fit < kMinStages ? kMinStages : fit > kMaxStages ? kMaxStages : fit;
+}
+
+// Dynamic shared memory of the slab form, in floats: the mbarriers, the
+// ring, a slab of g_ctx [kSlab], the d_cov warp sums [2][kChunk][kWarps],
+// the slab's column sums [kSlabLanes][3][kSlab] and the block's scalars.
+inline size_t slab_smem_floats(int stages, int elt) {
+  return kBarFloats + ring_floats(kSlab, stages, elt) + kSlab +
+         2 * kChunk * kWarps + (size_t)kSlabLanes * 3 * kSlab + kSmall;
+}
+
+// The slab form: grid and clusters as the dense kernel's, D in slabs of
+// kSlab columns (see the header).  The ring's sequence: es chunks of
+// slab 0, of slab 1, ..., then ef chunks slab by slab.  part: the
+// ticket, the partials [2, B, D], then d_cov's running sums [B, T].
+template <typename TE, bool kCov>
+__global__ void __launch_bounds__(kThreads, 2)
+attention_bwd_slab_kernel(const TE* __restrict__ es,
+                          const TE* __restrict__ ef,
+                          const float* __restrict__ mask,
+                          const float* __restrict__ df,
+                          const float* __restrict__ cov,
+                          const float* __restrict__ v,
+                          const float* __restrict__ wc,
+                          const float* __restrict__ attn,
+                          const float* __restrict__ g_ctx,
+                          const float* __restrict__ g_attn,
+                          const float* __restrict__ s_ext,
+                          TE* __restrict__ d_es, TE* __restrict__ d_ef,
+                          float* __restrict__ d_df, float* d_cov,
+                          float* d_v, float* d_wc, float* part, int B, int T,
+                          int D, int P, int stages) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nS = (D + kSlab - 1) / kSlab;
+  const int chunk_elems = kChunk * kSlab;
+  constexpr int kL = kSlabLanes;
+  constexpr int W = kThreads / kL;     // threads of a lane of rows
+  constexpr int kRows = kChunk / kL;   // rows a thread takes per chunk
+
+  extern __shared__ __align__(16) float smem[];
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [stages]
+  TE* ring = reinterpret_cast<TE*>(smem + kBarFloats);  // [stages][8][kSlab]
+  float* g_s = smem + kBarFloats +
+               ring_floats(kSlab, stages, (int)sizeof(TE));  // [kSlab]
+  float* dc_s = g_s + kSlab;                  // [2][kChunk][kWarps]
+  float* col_s = dc_s + 2 * kChunk * kWarps;  // [kL][3][kSlab]
+  float* small = col_s + kL * 3 * kSlab;
+  float* wsum_s = small;           // [kWarps] each warp's sum of attn * ga
+  float* bsum_s = small + kWarps;  // [1] the block's
+  float* s_s = bsum_s + 1;         // [1] the article's: S
+  float* last_s = s_s + 1;         // [1] 1 in the cluster that ends last
+
+  const int t_begin = rank * P;
+  const int n_pos = max(0, min(T, t_begin + P) - t_begin);
+  const int n_chunks = (n_pos + kChunk - 1) / kChunk;
+  const int per_pass = nS * n_chunks;
+  const int n_total = 2 * per_pass;  // es chunks, then ef chunks
+  const size_t row0 = (size_t)b * T + t_begin;  // the block's first row
+  float* part_v = part + kTicketFloats;
+  float* part_wc = part_v + (size_t)B * D;
+  float* cov_acc = part_wc + (size_t)B * D;  // [B, T]
+  auto width = [&](int s) { return min(kSlab, D - s * kSlab); };
+
+  // chunk i: its rows' slab, one bulk copy per row, the stage's mbarrier
+  // armed once with the chunk's bytes
+  auto stage = [&](int i) {
+    if (tid == 0 && i < n_total) {
+      const bool one = i < per_pass;
+      const int q = one ? i : i - per_pass;
+      const int s = q / n_chunks, c0 = (q % n_chunks) * kChunk;
+      const int rows = min(kChunk, n_pos - c0);
+      const unsigned row_bytes = (unsigned)(width(s) * (int)sizeof(TE));
+      TE* dst = ring + (i % stages) * chunk_elems;
+      const TE* src = (one ? es : ef) + (row0 + c0) * D + (size_t)s * kSlab;
+      tma::mbar_arrive_tx(&bars[i % stages], rows * row_bytes);
+      for (int r = 0; r < rows; ++r)
+        tma::bulk_copy(dst + r * kSlab, src + (size_t)r * D, row_bytes,
+                       &bars[i % stages]);
+    }
+  };
+  if (tid == 0) {
+    for (int q = 0; q < stages; ++q) tma::mbar_init(&bars[q]);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();  // the mbarriers are initialised
+  for (int i = 0; i < stages - 1; ++i) stage(i);
+  // the top of chunk i: it has landed for every thread, and every thread
+  // is done with chunk i - 1, whose stage is refilled
+  auto next_chunk = [&](int i) {
+    tma::mbar_wait(&bars[i % stages], (unsigned)(i / stages) & 1u);
+    __syncthreads();
+    stage(i + stages - 1);
+  };
+
+  // pass one: ga = g_attn + es . g_ctx, summed over the slabs in d_cov by
+  // the lane that owns the row; the block's share of S after the last
+  float wpart = 0.f;
+  int i = 0;  // the ring's chunk
+  for (int s = 0; s < nS; ++s) {
+    const int w4 = width(s) / 4;
+    __syncthreads();  // every warp is done with the last slab's g_ctx
+    for (int c = tid; c < w4; c += kThreads)
+      *reinterpret_cast<float4*>(g_s + 4 * c) =
+          load4(g_ctx + (size_t)b * D + (size_t)s * kSlab + 4 * c);
+    for (int j = 0; j < n_chunks; ++j, ++i) {
+      next_chunk(i);
+      const int tl = j * kChunk + warp;  // warp-uniform
+      if (warp >= kChunk || tl >= n_pos) continue;
+      const size_t r = row0 + tl;
+      const float prev = lane == 0 ? (s == 0 ? g_attn[r] : d_cov[r]) : 0.f;
+      const TE* row = ring + (i % stages) * chunk_elems + warp * kSlab;
+      float dot = 0.f;
+#pragma unroll 4
+      for (int c = lane; c < w4; c += 32) {
+        const float4 x = load4(row + 4 * c);
+        const float4 g = load4(g_s + 4 * c);
+        dot = fmaf(x.x, g.x, dot);
+        dot = fmaf(x.y, g.y, dot);
+        dot = fmaf(x.z, g.z, dot);
+        dot = fmaf(x.w, g.w, dot);
+      }
+      dot = warp_sum(dot);
+      if (lane == 0) {
+        const float ga = prev + dot;
+        d_cov[r] = ga;
+        if (s == nS - 1) wpart = fmaf(attn[r], ga, wpart);
+      }
+    }
+  }
+
+  // S: the block's warps in order, then the cluster's blocks in rank
+  // order (as the dense form); the sp-block form's from outside
+  if (lane == 0) wsum_s[warp] = wpart;
+  __syncthreads();  // every ga of the block is in d_cov
+  if (tid == 0) {
+    float x = 0.f;
+    for (int w = 0; w < kWarps; ++w) x += wsum_s[w];
+    bsum_s[0] = x;
+  }
+  cluster.sync();
+  if (warp == 0) {
+    const float x = lane < C ? cluster.map_shared_rank(bsum_s, lane)[0] : 0.f;
+    float acc = 0.f;
+    for (int q = 0; q < C; ++q) acc += __shfl_sync(0xffffffffu, x, q);
+    if (lane == 0) s_s[0] = acc;
+  }
+  __syncthreads();
+  const float S = s_ext != nullptr ? s_ext[b] : s_s[0];
+
+  // d_cov of pass-two chunk j of slab s: its rows' warp sums in order,
+  // added to the earlier slabs' (d_cov itself holds ga until the last)
+  const int l = tid / W, k = tid % W, wl = k / 32;
+  auto finish_cov = [&](int s, int j) {
+    const int c0 = j * kChunk;
+    if (tid < min(kChunk, n_pos - c0)) {
+      float x = 0.f;
+      if (kCov) {
+        const float* dc = dc_s + ((j & 1) * kChunk + tid) * kWarps;
+        for (int q = 0; q < W / 32; ++q) x += dc[q];
+      }
+      const size_t r = row0 + c0 + tid;
+      const float before = s == 0 ? 0.f : cov_acc[r];
+      if (s == nS - 1) {
+        d_cov[r] = before + x;
+      } else {
+        cov_acc[r] = before + x;
+      }
+    }
+  };
+
+  // pass two, slab by slab: thread k of lane l owns column group k of
+  // the slab and takes rows l, l + kL, ... of each chunk
+  const float4 zero4 = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int s = 0; s < nS; ++s) {
+    const int n4 = width(s) / 4;
+    const size_t col0 = (size_t)s * kSlab;
+    const bool own = k < n4;
+    const float4 dfr = own ? load4(df + (size_t)b * D + col0 + 4 * k) : zero4;
+    const float4 vr = own ? load4(v + col0 + 4 * k) : zero4;
+    const float4 wr = own ? load4(wc + col0 + 4 * k) : zero4;
+    const float4 gr = own ? load4(g_ctx + (size_t)b * D + col0 + 4 * k)
+                          : zero4;
+    float4 s_df = zero4, s_v = zero4, s_wc = zero4;
+    for (int j = 0; j < n_chunks; ++j, ++i) {
+      next_chunk(i);
+      if (j > 0) finish_cov(s, j - 1);
+      const int c0 = j * kChunk;
+      const int n_here = min(kChunk, n_pos - c0);
+      const TE* buf = ring + (i % stages) * chunk_elems;
+      float* dc = dc_s + (j & 1) * kChunk * kWarps;
+      float dcv[kRows];
+#pragma unroll
+      for (int q = 0; q < kRows; ++q) {
+        const int r = l + q * kL;
+        const bool valid = r < n_here;
+        const size_t at = row0 + c0 + (valid ? r : 0);
+        const float a = valid ? attn[at] : 0.f;
+        const float ga = valid ? d_cov[at] : 0.f;
+        const float de = valid && mask[at] > 0.f ? a * (ga - S) : 0.f;
+        const float cv = kCov && valid ? cov[at] : 0.f;
+        const bool ok = valid && own;
+        const float4 x = ok ? load4(buf + r * kSlab + 4 * k) : zero4;
+        const float xs[4] = {x.x, x.y, x.z, x.w};
+        const float ds[4] = {dfr.x, dfr.y, dfr.z, dfr.w};
+        const float vs[4] = {vr.x, vr.y, vr.z, vr.w};
+        const float ws[4] = {wr.x, wr.y, wr.z, wr.w};
+        float f_[4], u_[4];
+        float dcov = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float f = xs[e] + ds[e];
+          if (kCov) f = fmaf(cv, ws[e], f);
+          const float u = tanhf(f);
+          u_[e] = u;
+          f_[e] = de * vs[e] * fmaf(-u, u, 1.f);
+          if (kCov) dcov = fmaf(f_[e], ws[e], dcov);
+        }
+        if (ok) {
+          const size_t out = (row0 + c0 + r) * D + col0 + 4 * k;
+          store4(d_ef + out, make_float4(f_[0], f_[1], f_[2], f_[3]));
+          store4(d_es + out,
+                 make_float4(a * gr.x, a * gr.y, a * gr.z, a * gr.w));
+        }
+        s_df = make_float4(s_df.x + f_[0], s_df.y + f_[1], s_df.z + f_[2],
+                           s_df.w + f_[3]);
+        s_v = make_float4(fmaf(de, u_[0], s_v.x), fmaf(de, u_[1], s_v.y),
+                          fmaf(de, u_[2], s_v.z), fmaf(de, u_[3], s_v.w));
+        if (kCov)
+          s_wc = make_float4(fmaf(f_[0], cv, s_wc.x), fmaf(f_[1], cv, s_wc.y),
+                             fmaf(f_[2], cv, s_wc.z), fmaf(f_[3], cv, s_wc.w));
+        dcv[q] = dcov;
+      }
+      if (kCov) {
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) dcv[q] = warp_sum(dcv[q]);
+#pragma unroll
+        for (int q = 0; q < kRows; ++q) {
+          const int r = l + q * kL;
+          if (lane == 0 && r < n_here) dc[r * kWarps + wl] = dcv[q];
+        }
+      }
+    }
+    __syncthreads();  // every thread is done with the slab's chunks
+    if (n_chunks > 0) finish_cov(s, n_chunks - 1);
+    // the slab's column sums: each lane of rows', the lanes added in
+    // order, then the cluster's blocks in rank order into d_df and the
+    // article's partials of d_v and d_w_c
+    if (own) {
+      float* dst = col_s + (size_t)l * 3 * kSlab + 4 * k;
+      *reinterpret_cast<float4*>(dst) = s_df;
+      *reinterpret_cast<float4*>(dst + kSlab) = s_v;
+      *reinterpret_cast<float4*>(dst + 2 * kSlab) = s_wc;
+    }
+    __syncthreads();
+    for (int idx = tid; idx < 3 * kSlab; idx += kThreads) {
+      float x = col_s[idx];
+      for (int q = 1; q < kL; ++q) x += col_s[q * 3 * kSlab + idx];
+      col_s[idx] = x;
+    }
+    cluster.sync();
+    const int w = width(s);
+    const int per = (w + C - 1) / C;
+    const int lo = rank * per, hi = min(w, lo + per);
+    for (int d = lo + tid; d < hi; d += kThreads) {
+      float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+      for (int q0 = 0; q0 < C; q0 += 8) {  // 8 ranks' loads at once
+        float x[3][8];
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float* src = cluster.map_shared_rank(col_s, min(q0 + e, C - 1));
+          x[0][e] = src[d];
+          x[1][e] = src[kSlab + d];
+          x[2][e] = src[2 * kSlab + d];
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          if (q0 + e < C) {
+            s0 += x[0][e];
+            s1 += x[1][e];
+            s2 += x[2][e];
+          }
+        }
+      }
+      const size_t at = (size_t)b * D + col0 + d;
+      d_df[at] = s0;
+      part_v[at] = s1;
+      part_wc[at] = s2;
+    }
+    cluster.sync();  // no block rewrites col_s while another reads it
+  }
+
+  // the last cluster to finish adds d_v and d_w_c over the articles, as
+  // the dense form (its blocks split all D columns)
+  if (rank == 0 && tid == 0) {
+    unsigned* ticket = reinterpret_cast<unsigned*>(part);
+    __threadfence();
+    const bool last = atomicAdd(ticket, 1u) == (unsigned)(B - 1);
+    __threadfence();
+    if (last) atomicExch(ticket, 0u);  // every cluster has taken its ticket
+    for (int q = 0; q < C; ++q)
+      cluster.map_shared_rank(last_s, q)[0] = last ? 1.f : 0.f;
+  }
+  cluster.sync();
+  if (last_s[0] == 0.f) return;
+  const int per = (D + C - 1) / C;
+  const int lo = rank * per, hi = min(D, lo + per);
+  for (int d = lo + tid; d < hi; d += kThreads) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int a0 = 0; a0 < B; a0 += 8) {
+      float x1[8], x2[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const size_t at = (size_t)min(a0 + e, B - 1) * D + d;
+        x1[e] = __ldcg(part_v + at);
+        x2[e] = __ldcg(part_wc + at);
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if (a0 + e < B) {
+          s1 += x1[e];
+          s2 += x2[e];
+        }
+      }
+    }
+    d_v[d] = s1;
+    d_wc[d] = kCov ? s2 : 0.f;
+  }
+}
+
+// Launch the kernel instantiation kKernel over (C, B) blocks in clusters
+// of C with `smem_bytes` of dynamic shared memory (wide: a non-portable
+// cluster of 16 blocks)
+template <auto kKernel, typename... Args>
+cudaError_t launch_clusters(const Geometry& geo, int B, bool wide,
+                            size_t smem_bytes, int dev, cudaStream_t stream,
+                            Args... args) {
+  auto kernel = kKernel;
   static unsigned smem_set = 0, wide_set = 0;  // per instantiation
   cudaError_t err = tf32x3::allow_smem(kernel, kSmemMax, smem_set);
   if (err != cudaSuccess) return err;
@@ -612,8 +975,7 @@ cudaError_t launch_one(const TE* es, const TE* ef, const float* mask,
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(geo.C, B, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes =
-      smem_floats(D, stages, (int)sizeof(TE)) * sizeof(float);
+  cfg.dynamicSmemBytes = smem_bytes;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -622,20 +984,28 @@ cudaError_t launch_one(const TE* es, const TE* ef, const float* mask,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, es, ef, mask, df, cov, v, wc, attn,
-                           g_ctx, g_attn, d_es, d_ef, d_df, d_cov, d_v, d_wc,
-                           part, B, T, D, geo.P, stages);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// whether the dense form takes width D (elt-byte stream elements): at
+// most kMaxGroups column groups a thread, and its ring of at least
+// kMinStages chunks of whole rows in one block's shared memory
+inline bool dense_form(int D, int elt) {
+  return D <= 4 * kThreads * kMaxGroups &&
+         smem_floats(D, ring_stages(D, elt), elt) * sizeof(float) <=
+             kSmemMax;
 }
 
 template <typename TE, bool kCov>
 cudaError_t launch(const TE* es, const TE* ef, const float* mask,
                    const float* df, const float* cov, const float* v,
                    const float* wc, const float* attn, const float* g_ctx,
-                   const float* g_attn, TE* d_es, TE* d_ef,
-                   float* d_df, float* d_cov, float* d_v, float* d_wc,
-                   float* part, int B, int T, int D, cudaStream_t stream) {
+                   const float* g_attn, const float* s_ext, TE* d_es,
+                   TE* d_ef, float* d_df, float* d_cov, float* d_v,
+                   float* d_wc, float* part, int B, int T, int D,
+                   cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
@@ -645,7 +1015,15 @@ cudaError_t launch(const TE* es, const TE* ef, const float* mask,
   // the SMs, as the forward
   const bool wide = B * kWideCluster * 2 <= sms;
   const Geometry geo(T, wide ? kWideCluster : kCluster);
-  const int stages = ring_stages(D, (int)sizeof(TE));
+  const int elt = (int)sizeof(TE);
+  if (!dense_form(D, elt)) {
+    const int stages = slab_stages(elt);
+    return launch_clusters<&attention_bwd_slab_kernel<TE, kCov>>(
+        geo, B, wide, slab_smem_floats(stages, elt) * sizeof(float), dev,
+        stream, es, ef, mask, df, cov, v, wc, attn, g_ctx, g_attn, s_ext,
+        d_es, d_ef, d_df, d_cov, d_v, d_wc, part, B, T, D, geo.P, stages);
+  }
+  const int stages = ring_stages(D, elt);
   // pass two's column groups per thread, and its lanes of rows: as many
   // as leave a lane's threads at least D / 4
   const int n4 = D / 4;
@@ -658,12 +1036,14 @@ cudaError_t launch(const TE* es, const TE* ef, const float* mask,
   // the column sums reuse the ring: [lanes][3][D] floats must fit (in
   // f32 3 stages of 8 rows hold 8 lanes; in bf16 the ring has 12 stages
   // wherever there is more than one lane)
-  if ((size_t)3 * lanes * D > ring_floats(D, stages, (int)sizeof(TE)))
+  if ((size_t)3 * lanes * D > ring_floats(D, stages, elt))
     return cudaErrorInvalidValue;
-#define TS_LAUNCH(G, L)                                                    \
-  launch_one<TE, kCov, G, L>(es, ef, mask, df, cov, v, wc, attn, g_ctx,    \
-                         g_attn, d_es, d_ef, d_df, d_cov, d_v, d_wc, part, \
-                         B, T, D, geo, wide, stages, dev, stream)
+  const size_t bytes = smem_floats(D, stages, elt) * sizeof(float);
+#define TS_LAUNCH(G, L)                                                      \
+  launch_clusters<&attention_bwd_kernel<TE, kCov, G, L>>(                    \
+      geo, B, wide, bytes, dev, stream, es, ef, mask, df, cov, v, wc, attn,  \
+      g_ctx, g_attn, s_ext, d_es, d_ef, d_df, d_cov, d_v, d_wc, part, B, T, \
+      D, geo.P, stages)
   if (groups == 3) return TS_LAUNCH(3, 1);
   if (groups == 2) return TS_LAUNCH(2, 1);
   if (lanes == 8) return TS_LAUNCH(1, 8);
@@ -678,37 +1058,49 @@ cudaError_t launch(const TE* es, const TE* ef, const float* mask,
 // Per-row form: es, ef [B, T, D] (16-byte aligned; float32 with D a
 // multiple of 4, or with is_bf16 bfloat16 with D a multiple of 8, as
 // d_es, d_ef); mask, cov (read only when use_cov), attn (the forward's output),
-// g_attn [B, T]; df, g_ctx [B, D]; v, wc [D].  Outputs d_es, d_ef
-// [B, T, D]; d_df [B, D]; d_cov [B, T] (0 when !use_cov); d_v, d_wc [D]
-// (d_wc 0 when !use_cov).  part: scratch of 4 + 2 * B * D floats whose
-// first 4 bytes, an unsigned ticket, are 0 before the launch and 0 again
-// after it (keep one per stream: launches on one stream run in turn).
-// The rest float32; all contiguous, on one device.  Launches one kernel on
-// `stream`; returns the cudaError_t of the launch (cudaErrorInvalidValue
-// for a shape the kernel does not take).
+// g_attn [B, T]; df, g_ctx [B, D]; v, wc [D]; s_ext [B] or null (the
+// sp-block form's softmax correction).  Outputs d_es, d_ef [B, T, D];
+// d_df [B, D]; d_cov [B, T] (0 when !use_cov); d_v, d_wc [D] (d_wc 0 when
+// !use_cov).  part: scratch of 4 + 2 * B * D floats (4 + 2 * B * D +
+// B * T where the width takes the slab form: ts_fused_attention_bwd_part
+// says how many) whose first 4 bytes, an unsigned ticket, are 0 before
+// the launch and 0 again after it (keep one per stream: launches on one
+// stream run in turn).  The rest float32; all contiguous, on one device.
+// Launches one kernel on `stream`; returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for a shape the kernel does not take: empty,
+// more articles than the grid's y extent, or rows that are not a
+// multiple of 16 bytes).  Every width D is taken.
 extern "C" int ts_fused_attention_bwd(
     const void* es, const void* ef, const float* mask, const float* df,
     const float* cov, const float* v, const float* wc, const float* attn,
-    const float* g_ctx, const float* g_attn, void* d_es, void* d_ef,
-    float* d_df, float* d_cov, float* d_v, float* d_wc, float* part, int B,
-    int T, int D, int use_cov, int is_bf16, void* stream) {
+    const float* g_ctx, const float* g_attn, const float* s_ext, void* d_es,
+    void* d_ef, float* d_df, float* d_cov, float* d_v, float* d_wc,
+    float* part, int B, int T, int D, int use_cov, int is_bf16,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int elt = is_bf16 ? 2 : 4;
-  if (B <= 0 || T <= 0 || D <= 0 || B > 65535 || (D * elt) % 16 != 0 ||
-      D > 4 * kThreads * kMaxGroups ||
-      smem_floats(D, ring_stages(D, elt), elt) * sizeof(float) > kSmemMax)
+  if (B <= 0 || T <= 0 || D <= 0 || B > 65535 || (D * elt) % 16 != 0)
     return (int)cudaErrorInvalidValue;
 #define TS_DISPATCH(TE)                                                     \
   (use_cov ? launch<TE, true>((const TE*)es, (const TE*)ef, mask, df, cov,  \
-                              v, wc, attn, g_ctx, g_attn, (TE*)d_es,        \
+                              v, wc, attn, g_ctx, g_attn, s_ext, (TE*)d_es, \
                               (TE*)d_ef, d_df, d_cov, d_v, d_wc, part, B, T, \
                               D, st)                                         \
            : launch<TE, false>((const TE*)es, (const TE*)ef, mask, df, cov, \
-                               v, wc, attn, g_ctx, g_attn, (TE*)d_es,       \
-                               (TE*)d_ef, d_df, d_cov, d_v, d_wc, part, B,  \
-                               T, D, st))
+                               v, wc, attn, g_ctx, g_attn, s_ext,           \
+                               (TE*)d_es, (TE*)d_ef, d_df, d_cov, d_v,      \
+                               d_wc, part, B, T, D, st))
   return (int)(is_bf16 ? TS_DISPATCH(__nv_bfloat16) : TS_DISPATCH(float));
 #undef TS_DISPATCH
+}
+
+// The floats of `part` a launch at (B, T, D) needs (is_bf16: a bf16
+// stream): the ticket and the partials, and d_cov's running sums where D
+// takes the slab form.
+extern "C" long long ts_fused_attention_bwd_part(int B, int T, int D,
+                                                 int is_bf16) {
+  const long long base = kTicketFloats + 2LL * B * D;
+  return dense_form(D, is_bf16 ? 2 : 4) ? base : base + (long long)B * T;
 }
 
 #ifdef TS_BWD_TRACE

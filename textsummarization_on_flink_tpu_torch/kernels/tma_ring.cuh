@@ -4,7 +4,8 @@
 // through wgmma_bf16.cuh).
 //
 // One thread arms a stage's mbarrier with the chunk's byte count and
-// issues one bulk copy (cp.async.bulk) of the chunk's contiguous rows;
+// issues one bulk copy (cp.async.bulk) of the chunk's contiguous rows
+// (or, for a slab of columns, one copy per row: bulk_copy);
 // the copy completes the barrier's phase, and every thread waits on that
 // phase's parity before it reads the stage.
 
@@ -53,6 +54,19 @@ __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           unsigned bytes, uint64_t* bar) {
   mbar_arrive_tx(bar, bytes);
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// bytes global -> shared by the TMA unit, completing on `bar`, whose
+// phase the caller has armed (mbar_arrive_tx) with the bytes of every
+// copy it issues: several copies of one phase, e.g. the rows of a chunk
+// that are not contiguous in memory
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),

@@ -30,6 +30,25 @@ through collectives.embed and the scores through losses.vocab_scores
 (an all-gather over tp along the vocab axis), as the JAX package's
 GSPMD lays them out; everything else is replicated.
 
+On an sp mesh (``_t_sharded``) the encoder's time axis is sharded, as
+the JAX package's mesh shards "encoder states, attention energies, and
+coverage" over T_enc (its parallel/mesh.py:17-22): the biLSTM runs over
+the whole article on every sp rank (a sequential scan), each rank keeps
+its block of the states (a copy, so the whole states are freed; d_es
+comes back on the block and reaches the whole-T LSTM through the slice,
+zero elsewhere, the ranks' LSTM gradients summed over sp) and computes
+the features of that block only, and every attention runs on the block
+and is merged over sp
+(ops/attention.py with the plan); coverage stays the block's.  The
+training forward takes the rank's sp block of the encoder arrays (the
+registry's batch spec) and all-gathers the ids and the mask for the
+encoder; the beam search takes the whole batch on every rank and the
+encoder takes the block.  The copy distribution needs the whole row's
+attention: decode gathers it with each step's merge, training
+all-gathers the stacked [T_dec, B, T_enc / sp] blocks once after the
+decoder loop (its backward a reduce-scatter), and the coverage loss and
+the copy scatter read the whole row.
+
 Under ``compute_dtype=bfloat16`` (JAX pointer_generator.py:154-200) the
 encoder runs in bf16 (embeddings, the biLSTM's weights and state), its
 states and features stay bf16 (the fused attention reads that stream,
@@ -55,6 +74,7 @@ from textsummarization_on_flink_tpu_torch.ops import attention as attn_ops
 from textsummarization_on_flink_tpu_torch.ops import losses as loss_ops
 from textsummarization_on_flink_tpu_torch.ops import lstm as lstm_ops
 from textsummarization_on_flink_tpu_torch.parallel import collectives
+from textsummarization_on_flink_tpu_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
@@ -125,12 +145,24 @@ def maybe_remat(hps: HParams, fn: Callable) -> Callable:
     return lambda *args: checkpoint(bound_fn, *args, use_reentrant=False)
 
 
+def _t_sharded(hps: HParams):
+    """The bound plan when this forward shards the encoder's T over sp
+    (the pointer-generator on a mesh with sp > 1), else None."""
+    plan = collectives.current()
+    if sharding.shards_t(hps) and collectives.axis_size("sp", plan) > 1:
+        return plan
+    return None
+
+
 def encode(params: Params, hps: HParams, enc_batch: torch.Tensor,
            enc_lens: torch.Tensor, enc_padding_mask: torch.Tensor,
            ) -> EncoderOutput:
     """Embed + biLSTM + state reduction (model.py:210-221).  Under bf16
     the encoder states and features stay bf16: the attention re-reads
-    both every decoder step, so they are its bytes."""
+    both every decoder step, so they are its bytes.  The arrays hold the
+    whole article; where T is sharded over sp the output keeps this
+    rank's block of the states and features (the features computed for
+    the block only)."""
     emb = _cast(hps, collectives.embed(params["embedding"], enc_batch))
     enc_states, fw_st, bw_st = lstm_ops.bidirectional_encoder(
         params["encoder"]["fw"], params["encoder"]["bw"], emb, enc_lens,
@@ -142,6 +174,8 @@ def encode(params: Params, hps: HParams, enc_batch: torch.Tensor,
     old_h = torch.cat([fw_st[1], bw_st[1]], dim=-1).float()
     new_c = torch.relu(old_c @ r["w_reduce_c"] + r["bias_reduce_c"])
     new_h = torch.relu(old_h @ r["w_reduce_h"] + r["bias_reduce_h"])
+    if _t_sharded(hps) is not None:  # a copy: the whole states are freed
+        enc_states = collectives.sp_block_of(enc_states, 1).contiguous()
     enc_feats = attn_ops.encoder_features(params["decoder"]["attention"],
                                           enc_states)
     return EncoderOutput(enc_states, enc_feats, (new_c, new_h))
@@ -150,18 +184,20 @@ def encode(params: Params, hps: HParams, enc_batch: torch.Tensor,
 def _decoder_core(params: Params, hps: HParams, enc: EncoderOutput,
                   enc_padding_mask: torch.Tensor,
                   state: Tuple[torch.Tensor, torch.Tensor],
-                  coverage: torch.Tensor, x: torch.Tensor,
+                  coverage: torch.Tensor, x: torch.Tensor, plan=None,
                   ) -> Dict[str, Any]:
     """One train-mode decoder step (attention_decoder.py:141-174): the
     merged input+context ``x`` -> cell -> attention (advances coverage)
     -> p_gen -> the output projection's input.  Coverage always flows;
     with coverage off the energies do not read it.  ``x`` is the
-    input_linear output (forward_train adds its context half per step)."""
+    input_linear output (forward_train adds its context half per step).
+    ``plan``: T sharded over sp (the mask, the coverage and the returned
+    attention are this rank's block)."""
     dp = params["decoder"]
     cell_out, new_state = lstm_ops.lstm_cell(dp["cell"], x, state)
     new_context, attn_dist, new_cov = attn_ops.attend(
         dp["attention"], enc.enc_states, enc.enc_features, enc_padding_mask,
-        new_state, coverage if hps.coverage else None, hps.coverage)
+        new_state, coverage if hps.coverage else None, hps.coverage, plan)
     if new_cov is None:
         new_cov = coverage
     p_gen = torch.sigmoid(
@@ -175,8 +211,16 @@ def _decoder_core(params: Params, hps: HParams, enc: EncoderOutput,
 def forward_train(params: Params, hps: HParams,
                   arrays: Dict[str, torch.Tensor]) -> TrainOutput:
     """The training and eval forward (model.py:199-277 semantics; JAX
-    pointer_generator.py:221-315)."""
-    B, T_enc = arrays["enc_batch"].shape
+    pointer_generator.py:221-315).  Where T is sharded over sp the
+    encoder arrays are this rank's block (see the module docstring)."""
+    plan = _t_sharded(hps)
+    mask_blk = arrays["enc_padding_mask"]
+    if plan is not None:
+        arrays = dict(arrays, **{
+            k: collectives.gather_sp_data(arrays[k], 1)
+            for k in ("enc_batch", "enc_padding_mask",
+                      "enc_batch_extend_vocab")})
+    B, T_enc = mask_blk.shape
     enc = encode(params, hps, arrays["enc_batch"], arrays["enc_lens"],
                  arrays["enc_padding_mask"])
     # [B, T_dec, E]
@@ -192,8 +236,8 @@ def forward_train(params: Params, hps: HParams,
     outputs, attn_dists, p_gens = [], [], []
     for t in range(emb_proj.shape[1]):
         x = emb_proj[:, t] + context @ k_ctx
-        res = _decoder_core(params, hps, enc, arrays["enc_padding_mask"],
-                            state, coverage, x)
+        res = _decoder_core(params, hps, enc, mask_blk, state, coverage, x,
+                            plan)
         state, context, coverage = res["state"], res["context"], \
             res["coverage"]
         outputs.append(res["output"])
@@ -201,6 +245,8 @@ def forward_train(params: Params, hps: HParams,
         p_gens.append(res["p_gen"])
     outputs_t = torch.stack(outputs)  # [T_dec, B, H]
     attn_t = torch.stack(attn_dists)  # [T_dec, B, T_enc]
+    if plan is not None:  # the whole rows, for the copy scatter
+        attn_t = collectives.gather_sp(attn_t, 2)
     p_gens_t = torch.stack(p_gens)  # [T_dec, B]
 
     # the projection and the loss over all steps at once: the [T_dec, B,
@@ -306,14 +352,21 @@ def decode_onestep_shared(params: Params, hps: HParams, enc: EncoderOutput,
     latest_tokens [B, K] fixed-vocab ids (the caller maps OOV -> UNK);
     state (c, h) [B, K, H]; prev_coverage [B, K, T_enc].  ``nb`` (the
     slot engine, JAX pointer_generator.py:393-423): both attends read the
-    first nb encoder blocks only (ops/attention.attend_shared)."""
+    first nb encoder blocks only (ops/attention.attend_shared).  Where T
+    is sharded over sp, enc and the coverage hold this rank's block and
+    enc_mask and ext_ids the whole article: the attends run on the block
+    and merge over sp, the second gathering the whole row's attention
+    for the copy distribution and the step's output."""
     dp = params["decoder"]
     use_cov = hps.coverage
     block = resolve_enc_block(hps) if nb is not None else 0
+    plan = _t_sharded(hps)
+    if plan is not None:
+        enc_mask = collectives.sp_block_of(enc_mask, 1).contiguous()
     ctx_prev, _, cov = attn_ops.attend_shared(
         dp["attention"], enc.enc_states, enc.enc_features, enc_mask,
         state, prev_coverage if use_cov else None, use_cov,
-        nb=nb, block=block)
+        nb=nb, block=block, plan=plan)
     if cov is None:
         cov = prev_coverage
     inp_emb = collectives.embed(params["embedding"],
@@ -322,7 +375,8 @@ def decode_onestep_shared(params: Params, hps: HParams, enc: EncoderOutput,
     cell_out, new_state = lstm_ops.lstm_cell(dp["cell"], x, state)
     context, attn_dist, _ = attn_ops.attend_shared(
         dp["attention"], enc.enc_states, enc.enc_features, enc_mask,
-        new_state, cov if use_cov else None, use_cov, nb=nb, block=block)
+        new_state, cov if use_cov else None, use_cov, nb=nb, block=block,
+        plan=plan, full_attn=True)
     p_gen = torch.sigmoid(
         _linear(dp["pgen_linear"], context, new_state[0], new_state[1], x)
     )[..., 0]  # [B, K]
@@ -362,7 +416,7 @@ def beam_adapter(hps: HParams):
         del params
         c, h = enc.dec_in_state  # [B, H]
         B, H = c.shape
-        T_enc = enc.enc_states.shape[1]
+        T_enc = enc.enc_states.shape[1]  # this rank's block where sharded
         return {
             "cell_c": c[:, None, :].expand(B, K, H).contiguous(),
             "cell_h": h[:, None, :].expand(B, K, H).contiguous(),

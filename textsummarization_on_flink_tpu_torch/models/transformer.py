@@ -394,11 +394,20 @@ def beam_encode(params: Params, hps: HParams,
     (transformer.py:487-508), in the compute dtype.  ``head_hps`` carries
     the decoder's width for the head split (the narrow AAN draft's H_d:
     its [H, H_d] K/V kernels project the H-wide encoder output); None is
-    ``hps``."""
+    ``hps``.  The search holds the whole batch on every rank: where the
+    encoder's T is sharded (--sp_attention on an sp mesh) it runs on this
+    rank's block through ring or Ulysses attention and its output is
+    all-gathered over sp, as in training."""
     head_hps = head_hps if head_hps is not None else hps
-    x = _embed_enc(params, hps, arrays["enc_batch"])
-    enc_out = pg._cast(hps, _encoder_stack(params, hps, x,
-                                           arrays["enc_padding_mask"]))
+    enc_batch, enc_mask = arrays["enc_batch"], arrays["enc_padding_mask"]
+    if _t_sharded(hps):
+        enc_batch, enc_mask = (collectives.sp_block_of(x, 1).contiguous()
+                               for x in (enc_batch, enc_mask))
+    x = _embed_enc(params, hps, enc_batch)
+    enc_f32 = _encoder_stack(params, hps, x, enc_mask)
+    if _t_sharded(hps):
+        enc_f32 = collectives.gather_sp(enc_f32, 1)
+    enc_out = pg._cast(hps, enc_f32)
     dt = enc_out.dtype
     ks, vs = [], []
     for layer in params["decoder"]["layers"]:

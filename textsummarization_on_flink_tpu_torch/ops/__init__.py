@@ -4,15 +4,19 @@
 def launch_counts() -> dict:
     """Every kernel wrapper's launch count in this process: the fused
     attention's forward and backward (and of those, the launches on a
-    bf16 encoder stream), the flash forward, dK/dV and dQ (and of those,
-    the launches of their bf16 forms, and of the wide kernels that run
-    head dims above 256)."""
+    bf16 encoder stream, of the slab form at widths the dense form does
+    not fit, and of the sp-block form), the flash forward, dK/dV and dQ
+    (and of those, the launches of their bf16 forms, and of the wide
+    kernels that run head dims above 256)."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
     return dict(fused=fa.launches, fused_bwd=fa.launches_bwd,
                 fused_bf16=fa.launches_bf16,
                 fused_bwd_bf16=fa.launches_bwd_bf16,
+                fused_slab=fa.launches_slab,
+                fused_bwd_slab=fa.launches_bwd_slab,
+                fused_sp=fa.launches_sp, fused_bwd_sp=fa.launches_bwd_sp,
                 flash_forward=fl.launches, flash_bwd_dkv=fl.launches_bwd_dkv,
                 flash_bwd_dq=fl.launches_bwd_dq,
                 flash_forward_bf16=fl.launches_bf16,

@@ -17,6 +17,13 @@ groups of a ``parallel.mesh.MeshPlan``:
     axis, whose backward is a reduce-scatter: the sharded trainer gives
     each sp rank 1/sp of the objective (parallel/mesh.py), so every
     leaf's gradient is a part over sp and all of them are summed;
+    ``sp_block_of`` takes this rank's block of a whole tensor (its
+    gradient zero elsewhere: each rank's block is its own);
+  * the pointer-generator's attention over sp blocks
+    (ops/fused_attention.py): ``merge_sp_blocks`` all-gathers each
+    rank's (row max, row sum, context) over sp, and
+    ``FusedAttentionSP``'s backward all-reduces (g_ctx, the block's
+    sum of attn . g_attn) over sp;
   * ``all_to_all_sp`` (Ulysses) and ``ring_pass`` (ring attention's
     neighbour exchange), and the plain all-reduce, all-gather and
     broadcast of the trainer's gradients, metrics and batches;
@@ -450,6 +457,17 @@ def gather_sp_data(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``gather_sp`` of a tensor that carries no gradient (ids, masks)."""
     plan = current()
     return all_gather(plan, x, "sp", dim) if _active(plan, "sp") else x
+
+
+def sp_block_of(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This sp rank's block of ``x`` along ``dim`` (equal blocks in rank
+    order; a view), or ``x`` off an sp mesh.  The gradient of the rest is
+    zero: each rank's block is its own."""
+    plan = current()
+    if not _active(plan, "sp"):
+        return x
+    n = x.shape[dim] // plan.size("sp")
+    return x.narrow(dim, plan.coord("sp") * n, n)
 
 
 def all_to_all_sp(x: torch.Tensor) -> torch.Tensor:

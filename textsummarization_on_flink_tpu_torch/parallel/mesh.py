@@ -14,12 +14,17 @@ collectives out (parallel/collectives.py):
     heads and FFNs) are sharded over tp (parallel/sharding.py's per-leaf rule); the
     models call the Megatron collectives where the JAX package's GSPMD
     puts its own;
-  * **sp**: on the path that shards T (the transformer's and the AAN's
-    encoder under ``--sp_attention``) each sp rank runs the encoder on its block of T
-    through ring or Ulysses attention and all-gathers the encoder output
-    before the decoder; its objective is 1/sp of the loss and every
-    gradient is summed over sp (collectives.gather_sp).  Elsewhere sp
-    ranks compute the same thing (port fault 7 in ROADMAP.md).
+  * **sp**: on the paths that shard T each sp rank keeps its block of
+    T; its objective is 1/sp of the loss and every gradient is summed
+    over sp.  The pointer-generator (JAX mesh.py:17-22): the biLSTM runs
+    over the whole article on every rank, the encoder states, features,
+    energies and coverage stay on the rank's block, and each decoder
+    step's attention merges the blocks over sp (its context reduction);
+    the transformer's and the AAN's encoder under ``--sp_attention``:
+    ring or Ulysses attention on the block, the encoder output
+    all-gathered before the decoder (collectives.gather_sp).  The
+    transformer and the AAN without ``--sp_attention`` compute the same
+    thing on every sp rank (port fault 7c in ROADMAP.md).
 
 A step's results equal the single-rank step's: the same loss, global
 norm and updated params, up to the order of the sums.  Layout decisions
@@ -35,6 +40,7 @@ import os
 import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -392,23 +398,37 @@ def make_sharded_beam_search(plan: MeshPlan, params: Optional[Any] = None):
     rank's sharded tree), and the outputs are all-gathered over dp.
     Beams stay rank-local: the only collectives inside the search are
     tp's (the scores' all-gather, the embedding's and the transformer
-    blocks' all-reduces, and the loop test).  The sp ranks search the same
-    rows with the whole encoder: decode does not shard T, --sp_attention
-    or not (ROADMAP.md fault 7).  A search that raises on one rank raises
-    on every rank (``collectives.all_ok``) before the gather."""
+    blocks' all-reduces, and the loop test).  The sp ranks of a dp index
+    search the same rows and shard the encoder's T as training does
+    (JAX mesh.py:377-381): the pointer-generator's attention runs on each
+    rank's block of T and merges over sp every step, and the
+    transformer's and the AAN's encoder runs its block through
+    --sp_attention's ring or Ulysses attention.  A batch whose T (a serve
+    bucket's) sp does not divide is padded with masked positions to the
+    next multiple and its attention cut back (GSPMD pads an uneven shard
+    so).  A search that raises on one rank raises on every rank
+    (``collectives.all_ok``) before the gather."""
     from textsummarization_on_flink_tpu_torch.decode import beam_search
 
     del params
-    hps = plan.hps.replace(sp_attention="")
+    hps = plan.hps
     reg = plan.registry
 
     def search(p, arrays):
         rows = reg.dp_rows({k: arrays[k]
                             for k in sharding_lib.ENC_BATCH_NAMES})
+        T = rows["enc_padding_mask"].shape[1]
+        pad = -T % plan.sp if reg.shards_t else 0
+        if pad:
+            rows = {k: (np.pad(np.asarray(x), ((0, 0), (0, pad)))
+                        if k != "enc_lens" else x) for k, x in rows.items()}
         err: Optional[BaseException] = None
         try:
             with collectives.bound(plan):
                 out = beam_search.run_beam_search(p, hps, rows)
+            if pad:
+                out = out._replace(attn_dists=np.ascontiguousarray(
+                    out.attn_dists[..., :T]))
         except Exception as e:  # noqa: BLE001 - re-raised after the agreement
             err = e
         # a rank that failed tells the others before they wait on it in

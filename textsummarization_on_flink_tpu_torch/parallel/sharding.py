@@ -11,12 +11,17 @@ spec's axis, ``gather_params`` rebuilds it with an all-gather,
 ``shard_batch`` takes the rank's dp rows and, where a path shards the
 encoder's time axis, its sp block of T.
 
-Which paths shard T: the transformer's and the AAN's encoder under
-``--sp_attention=ring|ulysses`` with sp > 1 (``shards_t``).  Under
-sp > 1 the pointer-generator, and the other two without
-``--sp_attention``, run the same on every sp rank with the whole T,
-where the JAX package shards their attention tensors over T: the same
-results, and the memory is not split (ROADMAP.md, port fault 7).
+Which paths shard T (``shards_t``): the pointer-generator's at sp > 1,
+and the transformer's and the AAN's encoder under
+``--sp_attention=ring|ulysses`` with sp > 1.  The pointer-generator's
+biLSTM runs over the whole article on every sp rank (its scan is
+sequential, as in the JAX package); each rank keeps its block of the
+encoder states and features, and the attention's energies, softmax and
+coverage stay on that block, merged over sp at every decoder step
+(ops/fused_attention.py: merge_sp_blocks).  The transformer and the AAN
+without ``--sp_attention`` still run the same on every sp rank with the
+whole T, where the JAX package's GSPMD splits their position-wise layers
+over T (ROADMAP.md, port fault 7c).
 
 Serving (the JAX package's sharding.py:235-307): the slot engine's
 resident ``[slots, ...]`` state shards over dp (slot i lives on dp index
@@ -217,9 +222,14 @@ def wire_dtype(hps: HParams, role: str = "grads") -> Optional[torch.dtype]:
 
 def shards_t(hps: HParams) -> bool:
     """Whether the path shards the encoder's time axis over sp: the
+    pointer-generator's at sp > 1 (JAX parallel/mesh.py:17-22), the
     transformer's and the AAN's encoder under --sp_attention with
     sp > 1."""
-    return (hps.sp > 1 and bool(hps.sp_attention)
+    if hps.sp <= 1:
+        return False
+    if hps.model_family == "pointer_generator":
+        return True
+    return (bool(hps.sp_attention)
             and hps.model_family in ("transformer", "avg_attention"))
 
 
