@@ -55,11 +55,24 @@ device or without the port's sources beside it.  Phases, each fatal:
         TMA copies (UTMALDG) in every instantiation, no bf16 mma.sync
         (HMMA.16816), no spill, no wgmma serialized by ptxas;
      f. the wide flash kernels (head dims above 256, f32 and bf16:
-        forward, dK/dV, dQ) against their plain versions at 16 x 400 x
-        1 x 384, 512 and 1024 (key mask) and 16 x 100 x 1 x 512 (causal),
-        a rerun the same bits, timed beside scaled_dot_product_attention
-        with the backend it took (phase_flash_wide); their ptxas report,
-        0 bytes of spill in all six instantiations (wide_flash_sass);
+        forward, dK/dV, dQ; the forward and dK/dV up to head dim 1024 the
+        cluster forms on the tensor cores) against their plain versions
+        at 16 x 400 x 1 x 384, 512 and 1024 (key mask) and 16 x 100 x 1
+        x 512 (causal), a rerun the same bits, timed beside the SIMT
+        forward and dK/dV they replaced (the cluster forms at least
+        WIDE_MIN_GAIN times faster at head dim 512) and
+        scaled_dot_product_attention with the backend it took
+        (phase_flash_wide); their SASS and ptxas report
+        (wide_flash_sass): 0 bytes of spill in all ten instantiations,
+        3xTF32 HMMA in the f32 cluster forms, HGMMA and UTMALDG and no
+        serialized wgmma in the bf16 ones; every flash kernel on a block
+        of query rows against all the keys (Tq = Tk / 2, the sp=2
+        encoder's form; QUERY_BLOCK_CASES, both dtypes) against its plain
+        version, timed beside scaled_dot_product_attention on the block
+        (phase_flash_query_block); every launch form of the parent (Tq =
+        Tk; the redesigned wide forward and dK/dV aside) giving the
+        parent's output digests (FLASH_PARENT_DIGESTS,
+        phase_flash_digests);
      g. the fused kernels' slab forms (D in slabs: 16 x 4 x 400 x 2400
         and 4 x 1 x 400 x 4096 f32, 16 x 4 x 400 x 4096 bf16; the
         backward at 16 x 1 x 400 x 2400, 4 x 1 x 400 x 4096 and bf16
@@ -220,7 +233,13 @@ device or without the port's sources beside it.  Phases, each fatal:
      sp=2 under --sp_attention=ring (tokens exact) and, at the JAX
      package's long-context width (hidden_dim 512, 800 encoder steps),
      each sp=2 rank's peak memory and the es and ef its fused attention
-     saved (half the single rank's);
+     saved (half the single rank's); the transformer and the AAN with T
+     sharded over sp=2 without --sp_attention (the flash kernels'
+     query-block form): a train step equal to the single rank's, a
+     search with tokens exact, and at the long-context width each
+     rank's peak memory and the bytes its encoder saved (at most half
+     the single rank's plus the keys, values and mask gathered over
+     sp);
      then ``torchrun`` on the entry point (3 train steps at dp=2, a
      resume to 5) and a world-1 NCCL all-reduce; every rank's kernel
      launches checked, and summed into the kernels line;
@@ -787,6 +806,167 @@ def fused_digests(fa):
     return out
 
 
+#: the flash kernels' launch forms with as many query rows as keys (the
+#: only forms the parent took): (B, T, nh, hd, causal, dtype, kernels),
+#: whose outputs on flash_digest_inputs must equal the parent's
+#: (FLASH_PARENT_DIGESTS, from scripts/torch_flash_bench.py --which
+#: digests on the parent's checkout, NVIDIA H100 80GB HBM3): the f32 and
+#: bf16 kernels at head dims 32, 128 and 256, masked and causal; the wide
+#: dQ (SIMT) at 512; the SIMT wide forward, dK/dV and dQ at 1152 (above
+#: the cluster forms' 1024).  The wide forward and dK/dV at 384-1024 are
+#: new designs (the cluster forms), held to their plain versions by
+#: phase_flash_wide instead
+FLASH_ALL = ("fwd", "fwd_lse", "dkv", "dq")
+FLASH_DIGEST_CASES = (
+    [(3, 200, 2, hd, False, dt, FLASH_ALL) for hd in (32, 128, 256)
+     for dt in ("float32", "bfloat16")]
+    + [(2, 130, 2, hd, True, dt, FLASH_ALL) for hd in (32, 128, 256)
+       for dt in ("float32", "bfloat16")]
+    + [(2, 130, 1, 512, c, dt, ("dq",)) for c in (False, True)
+       for dt in ("float32", "bfloat16")]
+    + [(2, 70, 1, 1152, False, dt, FLASH_ALL)
+       for dt in ("float32", "bfloat16")])
+FLASH_PARENT_DIGESTS = {
+    "fwd 3x200x2x32 mask float32": "ad16a6f9c7496633",
+    "fwd_lse 3x200x2x32 mask float32": "a2317474c00f1989",
+    "dkv 3x200x2x32 mask float32": "f6e7513d606dd570",
+    "dq 3x200x2x32 mask float32": "b02b32b64b0c72c2",
+    "fwd 3x200x2x32 mask bfloat16": "a23477691b9a9d61",
+    "fwd_lse 3x200x2x32 mask bfloat16": "ff61051ee3e4e7ee",
+    "dkv 3x200x2x32 mask bfloat16": "004a5e320edf13eb",
+    "dq 3x200x2x32 mask bfloat16": "8ac731d36e3883c8",
+    "fwd 3x200x2x128 mask float32": "3180a81cbaafa288",
+    "fwd_lse 3x200x2x128 mask float32": "0a96ddda16e1d2bf",
+    "dkv 3x200x2x128 mask float32": "2dd11932eb1d1423",
+    "dq 3x200x2x128 mask float32": "5f3989d91948284a",
+    "fwd 3x200x2x128 mask bfloat16": "35b737f30aa68351",
+    "fwd_lse 3x200x2x128 mask bfloat16": "2fb22cfdff78e337",
+    "dkv 3x200x2x128 mask bfloat16": "8e6484f1e7f81fc7",
+    "dq 3x200x2x128 mask bfloat16": "0d5b70b46e12d26f",
+    "fwd 3x200x2x256 mask float32": "6d4e992fb94d463a",
+    "fwd_lse 3x200x2x256 mask float32": "ee862068d89af913",
+    "dkv 3x200x2x256 mask float32": "6529575f4c8a055c",
+    "dq 3x200x2x256 mask float32": "3dde8b8770574c56",
+    "fwd 3x200x2x256 mask bfloat16": "2f4105d729eb3eb3",
+    "fwd_lse 3x200x2x256 mask bfloat16": "dcaa491411bf0bc6",
+    "dkv 3x200x2x256 mask bfloat16": "4df93a77dbc17797",
+    "dq 3x200x2x256 mask bfloat16": "077cdd55dc1afe40",
+    "fwd 2x130x2x32 causal float32": "74fdc1762eac115c",
+    "fwd_lse 2x130x2x32 causal float32": "86667b758060bad3",
+    "dkv 2x130x2x32 causal float32": "760d795008c379e2",
+    "dq 2x130x2x32 causal float32": "8f26f0b948c7e2ed",
+    "fwd 2x130x2x32 causal bfloat16": "7077523b6bdf4351",
+    "fwd_lse 2x130x2x32 causal bfloat16": "aaeb9be5968e8a52",
+    "dkv 2x130x2x32 causal bfloat16": "3d5288d063eac5d5",
+    "dq 2x130x2x32 causal bfloat16": "591821d2c6855bc3",
+    "fwd 2x130x2x128 causal float32": "ab177fac360749d0",
+    "fwd_lse 2x130x2x128 causal float32": "1b11643a384b434d",
+    "dkv 2x130x2x128 causal float32": "526ff3490e7c9441",
+    "dq 2x130x2x128 causal float32": "1e42a630e6823711",
+    "fwd 2x130x2x128 causal bfloat16": "d7c5ae6d0adee2fb",
+    "fwd_lse 2x130x2x128 causal bfloat16": "fcba9c9da8205e33",
+    "dkv 2x130x2x128 causal bfloat16": "567d136ac95680f0",
+    "dq 2x130x2x128 causal bfloat16": "f6d03e904af7c84d",
+    "fwd 2x130x2x256 causal float32": "05502ddea1e0ff01",
+    "fwd_lse 2x130x2x256 causal float32": "2bf9dcdd724b56df",
+    "dkv 2x130x2x256 causal float32": "059cb26323754777",
+    "dq 2x130x2x256 causal float32": "4e0347cabbed1ef3",
+    "fwd 2x130x2x256 causal bfloat16": "ece117c8689415cf",
+    "fwd_lse 2x130x2x256 causal bfloat16": "1a04ff3116f695bd",
+    "dkv 2x130x2x256 causal bfloat16": "3ca8b2480dde4976",
+    "dq 2x130x2x256 causal bfloat16": "8b3662707b09c5e9",
+    "dq 2x130x1x512 mask float32": "b7e4d4dfc6693b76",
+    "dq 2x130x1x512 mask bfloat16": "1dd8656956636ee2",
+    "dq 2x130x1x512 causal float32": "ddd24e7f7c945915",
+    "dq 2x130x1x512 causal bfloat16": "5d50d5bef3597bb7",
+    "fwd 2x70x1x1152 mask float32": "6b76179fca52ba29",
+    "fwd_lse 2x70x1x1152 mask float32": "7eb004f36ddbd277",
+    "dkv 2x70x1x1152 mask float32": "5c7151d14692bb59",
+    "dq 2x70x1x1152 mask float32": "90d08bdec7bfcaad",
+    "fwd 2x70x1x1152 mask bfloat16": "19f85751ea519d48",
+    "fwd_lse 2x70x1x1152 mask bfloat16": "1d6023ce745f6e39",
+    "dkv 2x70x1x1152 mask bfloat16": "b920ba590c6ff079",
+    "dq 2x70x1x1152 mask bfloat16": "23dd75e9f511d651",
+}
+
+
+def flash_digest_inputs(B, T, nh, hd, causal, dtype, seed):
+    """q, k, v, dO [B, T, nh, hd] and the key mask (None when causal, else
+    ragged with article 1 fully masked) from numpy: the same bits under
+    any torch build."""
+    import torch
+
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(
+        rng.randn(B, T, nh, hd).astype(np.float32)).cuda().to(
+            getattr(torch, dtype)) for _ in range(4))
+    if causal:
+        return q, k, v, do, None
+    lens = rng.randint(T // 3, T + 1, B)
+    lens[0] = T
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    mask[1] = 0.0
+    return q, k, v, do, torch.from_numpy(mask).cuda()
+
+
+def flash_rows_np(q, k, v, do, mask, causal, scale):
+    """lse [B, T, nh] (+inf for a row with no key to attend) and dsum =
+    rowsum(dO * O) of the attention, in float64 numpy (np.einsum's own
+    loops: the same bits on any machine) rounded to f32 on the card: the
+    backward kernels' row inputs, independent of any forward kernel."""
+    import torch
+
+    qn, kn, vn, don = (x.float().cpu().numpy().astype(np.float64)
+                       for x in (q, k, v, do))
+    B, T = qn.shape[:2]
+    s = np.einsum("bqnd,bknd->bnqk", qn, kn) * scale
+    ok = np.ones((B, 1, T, T), bool)
+    if mask is not None:
+        ok &= (mask.cpu().numpy() > 0)[:, None, None, :]
+    if causal:
+        ok &= np.tril(np.ones((T, T), bool))
+    s = np.where(ok, s, -np.inf)
+    m = s.max(-1, keepdims=True)
+    row_ok = np.isfinite(m)
+    p = np.where(ok, np.exp(s - np.where(row_ok, m, 0.0)), 0.0)
+    l = p.sum(-1, keepdims=True)
+    lse = np.where(row_ok, m + np.log(np.where(row_ok, l, 1.0)), np.inf)
+    out = np.einsum("bnqk,bknd->bqnd", p / np.where(row_ok, l, 1.0), vn)
+    dsum = (don * out).sum(-1)
+    return (torch.from_numpy(lse[..., 0].transpose(0, 2, 1).astype(
+                np.float32).copy()).cuda(),
+            torch.from_numpy(dsum.astype(np.float32)).cuda())
+
+
+def flash_digests(fl):
+    """{case: digest} of each flash kernel's outputs at FLASH_DIGEST_CASES
+    through ``fl`` (the port's ops.flash_attention, or another
+    checkout's): the serving forward (out), the training forward (out,
+    lse), and dK/dV and dQ from flash_rows_np's lse and dsum."""
+    import torch
+
+    out = {}
+    for i, (B, T, nh, hd, causal, dtype, kernels) in enumerate(
+            FLASH_DIGEST_CASES):
+        q, k, v, do, mask = flash_digest_inputs(B, T, nh, hd, causal, dtype,
+                                                i)
+        scale = hd ** -0.5
+        name = f"{B}x{T}x{nh}x{hd} {'causal' if causal else 'mask'} {dtype}"
+        lse, dsum = flash_rows_np(q, k, v, do, mask, causal, scale)
+        runs = dict(
+            fwd=lambda: (fl._flash_cuda(q, k, v, mask, causal, scale),),
+            fwd_lse=lambda: fl._flash_cuda(q, k, v, mask, causal, scale,
+                                           with_lse=True),
+            dkv=lambda: fl._bwd_dkv_cuda(q, k, v, do, lse, dsum, mask, causal,
+                                         scale),
+            dq=lambda: (fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, causal,
+                                        scale),))
+        for kernel in kernels:
+            out[f"{kernel} {name}"] = _digest(runs[kernel]())
+    torch.cuda.synchronize()
+    return out
+
+
 FUSED_KERNELS = ("attention_kernel", "attention_slab_kernel",
                  "attention_bwd_kernel", "attention_bwd_slab_kernel")
 
@@ -998,7 +1178,7 @@ def flash_inputs(B, T, nh, hd, seed, masked):
     return q, k, v, mask
 
 
-def flash_bound_ms(q, key_mask, causal):
+def flash_bound_ms(q, key_mask, causal, Tk=None):
     """Least time for the function on an H100: the larger of bytes moved
     (q, k, v and the mask read once, the output written once; q's element
     size for q, k, v and out, 4 bytes for the mask) over the memory rate
@@ -1006,19 +1186,21 @@ def flash_bound_ms(q, key_mask, causal):
     of q's dtype (PEAK_TF32X3_OPS_PER_S for f32, the 3xTF32 rate;
     PEAK_BF16_OPS_PER_S for bf16): 4 * hd operations (two multiply-adds)
     per (query row, head, key it may attend), counted from the mask and
-    the causal triangle."""
+    the causal triangle.  ``Tk``: the keys' length where q is a block of
+    fewer rows (q and out then hold Tq rows, k, v and the mask Tk)."""
     import torch
 
     B, T, nh, hd = q.shape
+    Tk = T if Tk is None else Tk
     keys = (key_mask > 0).float() if key_mask is not None \
-        else torch.ones((B, T), device=q.device)
+        else torch.ones((B, Tk), device=q.device)
     if causal:  # key j is attended by the rows j .. T-1
         pairs = float((keys * (T - torch.arange(T, device=q.device))).sum())
     else:
         pairs = float(keys.sum()) * T
     ops = 4 * hd * nh * pairs
-    nbytes = 4 * q.element_size() * B * T * nh * hd + (
-        4 * B * T if key_mask is not None else 0)
+    nbytes = 2 * q.element_size() * B * (T + Tk) * nh * hd + (
+        4 * B * Tk if key_mask is not None else 0)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / flash_peak_ops(q) * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
@@ -1090,7 +1272,7 @@ def phase_flash(seed):
     return main, hd256, worst
 
 
-def flash_bwd_bounds(q, key_mask, causal):
+def flash_bwd_bounds(q, key_mask, causal, Tk=None):
     """Least times on an H100 for the backward, counted as flash_bound_ms
     does (operations per (row, head, attended key) from the mask and the
     causal triangle; each input read once, each output written once):
@@ -1100,18 +1282,25 @@ def flash_bwd_bounds(q, key_mask, causal):
     dk, dv; the dQ kernel's, 6 * hd over q, k, v, dO, lse, D, the mask
     and dq.  Operations at the rate of q's dtype (flash_peak_ops), for
     all three; [B, T, nh, hd] tensors at q's element size, lse, D and the
-    mask at 4 bytes.  Returns {name: (ms, bound_by)}."""
+    mask at 4 bytes.  ``Tk`` as flash_bound_ms's: q, out, dO and dq then
+    hold Tq rows, k, v, dk, dv and the mask Tk.  Returns {name: (ms,
+    bound_by)}."""
     B, T, nh, hd = q.shape
-    _, _, _, fwd_ops = flash_bound_ms(q, key_mask, causal)
+    Tk = T if Tk is None else Tk
+    _, _, _, fwd_ops = flash_bound_ms(q, key_mask, causal, Tk)
     head_pairs = fwd_ops / (4 * hd)  # (row, head, attended key) triples
-    # bytes of one [B, T, nh, hd] tensor
-    big = q.element_size() * B * T * nh * hd
+    # bytes of one [B, T, nh, hd] tensor of the queries' and of the keys'
+    big_q = q.element_size() * B * T * nh * hd
+    big_k = q.element_size() * B * Tk * nh * hd
     row = 4 * B * T * nh  # one [B, T, nh] f32 tensor
-    mask = 4 * B * T if key_mask is not None else 0
+    mask = 4 * B * Tk if key_mask is not None else 0
     out = {}
-    for name, n_big, n_row, ops_per in (("backward", 8, 1, 10),
-                                        ("dkv", 6, 2, 8), ("dq", 5, 2, 6)):
-        t_bytes = (n_big * big + n_row * row + mask) / PEAK_BYTES_PER_S * 1e3
+    # (the queries' tensors: q, out, dO, dq; the keys': k, v, dk, dv)
+    for name, n_q, n_k, n_row, ops_per in (("backward", 4, 4, 1, 10),
+                                           ("dkv", 2, 4, 2, 8),
+                                           ("dq", 3, 2, 2, 6)):
+        t_bytes = (n_q * big_q + n_k * big_k + n_row * row + mask) \
+            / PEAK_BYTES_PER_S * 1e3
         t_ops = ops_per * hd * head_pairs / flash_peak_ops(q) * 1e3
         out[name] = (max(t_bytes, t_ops),
                      "bytes" if t_bytes >= t_ops else "operations")
@@ -1431,19 +1620,25 @@ def sdpa_backend(q, k, v, mask, causal, scale):
 
 def phase_flash_wide(seed):
     """The wide kernels (head dims above 256; kernels/
-    flash_attention_wide.cu, SIMT FMA, one block per 64 rows and 128
-    output columns) against their plain versions at WIDE_FLASH_CASES, in
-    f32 and bf16: out (the serving form), lse (the training form), dq, dk
-    and dv; f32 within ATTN_TOL * max(1, |value|) of the plain version,
-    bf16 within FLASH_BF16_ULPS bf16 ulps of the tensor's largest
-    |value|, lse within ATTN_TOL * max(1, |lse|) with +inf on the same
-    rows; the empty article's outputs zeros; a rerun the same bits.
-    Times: the forward (serving form), the dK/dV and dQ kernels, the plain
-    forward and whole backward, and scaled_dot_product_attention's
-    forward and backward (the library column, for time only) with the
-    backend it took.  Bounds as the other flash rows' (flash_bound_ms,
-    flash_bwd_bounds).  Returns ({(dtype, shape): row}, {kernel key:
-    largest error})."""
+    flash_attention_wide.cu: the forward and dK/dV up to head dim 1024 a
+    cluster of hd / 128 blocks on the tensor cores, 3xTF32 mma.sync in
+    f32 and wgmma in bf16, the dQ SIMT FMA) against their plain versions
+    at WIDE_FLASH_CASES, in f32 and bf16: out (the serving form), lse
+    (the training form), dq, dk and dv; f32 within ATTN_TOL * max(1,
+    |value|) of the plain version, bf16 within FLASH_BF16_ULPS bf16 ulps
+    of the tensor's largest |value|, lse within ATTN_TOL * max(1, |lse|)
+    with +inf on the same rows; the empty article's outputs zeros; a
+    rerun the same bits.  The SIMT forward and dK/dV the cluster forms
+    replaced (the parent's design, still built for head dims above 1024:
+    ``simt=True``) are held to the same plain versions and timed in this
+    call beside them: the cluster forms at least WIDE_MIN_GAIN times
+    faster at 16 x 400 x 1 x 512 in both dtypes.  Times: the forward
+    (serving form), the dK/dV and dQ kernels, the SIMT forward and dK/dV,
+    the plain forward and whole backward, and
+    scaled_dot_product_attention's forward and backward (the library
+    column, for time only) with the backend it took.  Bounds as the other
+    flash rows' (flash_bound_ms, flash_bwd_bounds).  Returns ({(dtype,
+    shape): row}, {kernel key: largest error})."""
     import torch
     import torch.nn.functional as F
 
@@ -1461,12 +1656,18 @@ def phase_flash_wide(seed):
             out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
                                       with_lse=True)
             serve_out = fl._flash_cuda(q, k, v, mask, causal, scale)
-            do = torch.randn(q.shape, device="cuda").to(dtype)
+            g = torch.Generator(device="cuda").manual_seed(seed + hd)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
             grads = fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, causal,
                                        scale)
             again = (fl._flash_cuda(q, k, v, mask, causal, scale),
                      *fl._flash_bwd_cuda(q, k, v, out, lse, do, mask,
                                          causal, scale))
+            dsum = torch.sum(do.float() * out.float(), dim=-1)
+            simt_out = fl._flash_cuda(q, k, v, mask, causal, scale,
+                                      simt=True)
+            simt_dk, simt_dv = fl._bwd_dkv_cuda(q, k, v, do, lse, dsum, mask,
+                                                causal, scale, simt=True)
             ref = fl._flash_plain(q, k, v, mask, causal, scale)
             lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
             want = fl._flash_bwd_plain(q, k, v, out, lse_p, do, mask, causal,
@@ -1474,7 +1675,8 @@ def phase_flash_wide(seed):
             torch.cuda.synchronize()
             outs = dict(out=(out, ref), serve_out=(serve_out, ref),
                         dq=(grads[0], want[0]), dk=(grads[1], want[1]),
-                        dv=(grads[2], want[2]))
+                        dv=(grads[2], want[2]), simt_out=(simt_out, ref),
+                        simt_dk=(simt_dk, want[1]), simt_dv=(simt_dv, want[2]))
             errs, ulps, ok = {}, {}, True
             for name, (g, w) in outs.items():
                 if bf16:
@@ -1494,7 +1696,6 @@ def phase_flash_wide(seed):
             finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
             empty_zero = mask is None or all(
                 float(x[1].float().abs().max()) == 0.0 for x in got)
-            dsum = torch.sum(do.float() * out.float(), dim=-1)
             ms = time_cuda(lambda: fl._flash_cuda(q, k, v, mask, causal,
                                                   scale), 10, flush)
             plain_ms = time_cuda(lambda: fl._flash_plain(
@@ -1503,6 +1704,11 @@ def phase_flash_wide(seed):
                 q, k, v, do, lse, dsum, mask, causal, scale), 10, flush)
             dq_ms = time_cuda(lambda: fl._bwd_dq_cuda(
                 q, k, v, do, lse, dsum, mask, causal, scale), 10, flush)
+            simt_ms = time_cuda(lambda: fl._flash_cuda(
+                q, k, v, mask, causal, scale, simt=True), 5, flush)
+            simt_dkv_ms = time_cuda(lambda: fl._bwd_dkv_cuda(
+                q, k, v, do, lse, dsum, mask, causal, scale, simt=True), 5,
+                flush)
             bwd_plain_ms = time_cuda(lambda: fl._flash_bwd_plain(
                 q, k, v, out, lse_p, do, mask, causal, scale), 5, flush)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1529,6 +1735,8 @@ def phase_flash_wide(seed):
                        bound_ms=bound, bound_by=by, bytes=nbytes, ops=ops,
                        dkv_ms=dkv_ms, dq_ms=dq_ms, bwd_plain_ms=bwd_plain_ms,
                        bwd_library_ms=bwd_library_ms,
+                       simt_ms=simt_ms, simt_dkv_ms=simt_dkv_ms,
+                       gain=simt_ms / ms, dkv_gain=simt_dkv_ms / dkv_ms,
                        dkv_bound_ms=bounds["dkv"][0],
                        dkv_bound_by=bounds["dkv"][1],
                        dq_bound_ms=bounds["dq"][0],
@@ -1544,6 +1752,11 @@ def phase_flash_wide(seed):
                       f"version at {row}")
             check(repeat, f"a wide flash kernel's rerun changed bits at "
                           f"{row}")
+            if (B, T, nh, hd) == (16, 400, 1, 512):
+                check(row["gain"] >= WIDE_MIN_GAIN
+                      and row["dkv_gain"] >= WIDE_MIN_GAIN,
+                      f"the cluster forms less than {WIDE_MIN_GAIN} times "
+                      f"faster than the SIMT ones at {row}")
             for kernel, names in (("forward", ("out", "serve_out")),
                                   ("dkv", ("dk", "dv")), ("dq", ("dq",))):
                 key = (tag, kernel)
@@ -1553,39 +1766,216 @@ def phase_flash_wide(seed):
     return rows, worst
 
 
-#: the wide kernels' functions in the SASS and ptxas log: {key: function}
-WIDE_FLASH_KERNELS = dict(fwd="flash_fwd_wide_kernel",
-                          dkv="flash_bwd_dkv_wide_kernel",
-                          dq="flash_bwd_dq_wide_kernel")
+#: the cluster forms' least gain over the SIMT forms they replaced at 16 x
+#: 400 x 1 x 512, forward and dK/dV, both dtypes
+WIDE_MIN_GAIN = 3.0
+
+#: the wide kernels' functions in the SASS and ptxas log: {key: function};
+#: the cluster forms (f32 and bf16 kernels of their own) and the SIMT
+#: forms (one template, both dtypes)
+WIDE_FLASH_KERNELS = dict(
+    fwd_f32="flash_fwd_cluster_f32_kernel",
+    fwd_bf16="flash_fwd_cluster_bf16_kernel",
+    dkv_f32="flash_bwd_dkv_cluster_f32_kernel",
+    dkv_bf16="flash_bwd_dkv_cluster_bf16_kernel",
+    fwd_simt="flash_fwd_wide_kernel", dkv_simt="flash_bwd_dkv_wide_kernel",
+    dq="flash_bwd_dq_wide_kernel")
 
 
 def wide_flash_sass():
-    """The wide kernels' ptxas report (flash_attention_wide's build log,
-    scripts/torch_kernel_sass.py): registers and spill bytes of each
-    kernel's f32 and bf16 instantiation.  Fails unless all six are there,
-    each with 0 bytes of spill."""
+    """The wide kernels' SASS and ptxas report (flash_attention_wide's
+    library and build log, scripts/torch_kernel_sass.py): per kernel
+    instantiation its registers, spill bytes, 3xTF32 tensor-core products
+    (HMMA.1688.F32.TF32), warpgroup products (HGMMA), tensor copies
+    (UTMALDG) and ptxas's wgmma serialization warnings.  Fails unless all
+    ten are there with 0 bytes of spill, the f32 cluster forms with
+    HMMA.1688.F32.TF32, the bf16 ones with HGMMA and UTMALDG and no
+    serialization."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import torch_kernel_sass as sass
 
     from textsummarization_on_flink_tpu_torch.kernels import build
 
-    build.build("flash_attention_wide")
+    lib = build.build("flash_attention_wide")
     ptxas = sass.ptxas_functions(build.build_log("flash_attention_wide"))
+    counts = sass.sass_counts(lib)
     out = {}
     for func, info in ptxas.items():
         for key, kernel in WIDE_FLASH_KERNELS.items():
             if kernel not in func:
                 continue
-            dtype = "bf16" if "bfloat16" in func else "f32"
+            cluster = "cluster" in kernel
+            name = key if cluster else key + (
+                "_bf16" if "bfloat16" in func else "_f32")
             spill = info.get("spill_stores", -1) + info.get("spill_loads", -1)
-            out[f"{key}_{dtype}"] = dict(registers=info.get("registers"),
-                                         spill_bytes=spill)
+            got = sass.summary(counts.get(func, {}))
+            out[name] = dict(registers=info.get("registers"),
+                             spill_bytes=spill, hmma_tf32=got["hmma_tf32"],
+                             hgmma=got["hgmma"], utmaldg=got["utmaldg"],
+                             serialized=info.get("wgmma_serialized", 0))
             check(spill == 0, f"wide kernel {func}: ptxas {info} (want 0 "
                               f"bytes of spill)")
-    check(len(out) == 2 * len(WIDE_FLASH_KERNELS),
+            if cluster and key.endswith("_f32"):
+                check(got["hmma_tf32"] > 0,
+                      f"wide kernel {func}: no 3xTF32 HMMA in {got}")
+            if cluster and key.endswith("_bf16"):
+                check(got["hgmma"] > 0 and got["utmaldg"] > 0
+                      and out[name]["serialized"] == 0,
+                      f"wide kernel {func}: SASS {got}, ptxas {info} (want "
+                      f"HGMMA and UTMALDG, no serialization)")
+    check(len(out) == 10,
           f"wide flash kernels not all in the build log: {out}")
     print("flash_wide_sass " + json.dumps(out))
     return out
+
+
+#: one sp rank's block of the encoder's queries against every key (sp =
+#: 2, half the rows): the transformer's reference encoder (16 x 400, 8
+#: heads of 32), the long-context shape (4 x 2048 x 8 x 128), head dim
+#: 256, the wide cluster forms at head dim 512 and the SIMT forms at
+#: 1152: (B, Tq, Tk, nh, hd)
+QUERY_BLOCK_CASES = [(16, 200, 400, 8, 32), (4, 1024, 2048, 8, 128),
+                     (16, 200, 400, 2, 256), (16, 200, 400, 1, 512),
+                     (16, 200, 400, 1, 1152)]
+
+
+def phase_flash_query_block(seed):
+    """Every flash kernel on a block of query rows against all the keys
+    (Tq = Tk / 2, rows [Tq, 2 Tq) of the article; the form the
+    transformer's and the AAN's encoder run on an sp mesh without
+    --sp_attention) at QUERY_BLOCK_CASES in f32 and bf16, with a ragged
+    key mask and article 1 empty: the forward (serving and training
+    forms), dK/dV and dQ against their plain versions (f32 within
+    ATTN_TOL * max(1, |value|), bf16 within FLASH_BF16_ULPS), lse +inf on
+    the same rows, the empty article zeros, each launch counted by the
+    block counters; times beside scaled_dot_product_attention's forward
+    and backward on the same block and bounds from this run's mask
+    (flash_bound_ms, flash_bwd_bounds with Tk).  Returns ({(dtype,
+    shape): row}, {(dtype, kernel): largest error})."""
+    import torch
+    import torch.nn.functional as F
+
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
+    rows, worst = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        tag = "bf16" if bf16 else "f32"
+        for (B, Tq, Tk, nh, hd) in QUERY_BLOCK_CASES:
+            q, k, v, mask = flash_inputs(B, Tk, nh, hd, seed, True)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+            q = q[:, Tq:2 * Tq].contiguous()
+            scale = hd ** -0.5
+            g = torch.Generator(device="cuda").manual_seed(seed + hd)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            before = launch_counts()
+            serve = fl._flash_cuda(q, k, v, mask, False, scale)
+            out, lse = fl._flash_cuda(q, k, v, mask, False, scale,
+                                      with_lse=True)
+            grads = fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, False,
+                                       scale)
+            torch.cuda.synchronize()
+            after = launch_counts()
+            step = {c: after[c] - before[c] for c in (
+                "flash_forward_block", "flash_bwd_dkv_block",
+                "flash_bwd_dq_block")}
+            check(step == dict(flash_forward_block=2, flash_bwd_dkv_block=1,
+                               flash_bwd_dq_block=1),
+                  f"query block launches {step}")
+            ref = fl._flash_plain(q, k, v, mask, False, scale)
+            lse_p = fl._flash_lse_plain(q, k, mask, False, scale)
+            want = fl._flash_bwd_plain(q, k, v, out, lse_p, do, mask, False,
+                                       scale)
+            outs = dict(out=(out, ref), serve_out=(serve, ref),
+                        dq=(grads[0], want[0]), dk=(grads[1], want[1]),
+                        dv=(grads[2], want[2]))
+            errs, ulps, ok = {}, {}, True
+            for name, (got, w) in outs.items():
+                if bf16:
+                    errs[name], ulps[name] = flash_bf16_err(got, w)
+                    ok &= ulps[name] <= FLASH_BF16_ULPS
+                else:
+                    errs[name] = float((got - w).abs().max())
+                    ok &= errs[name] <= ATTN_TOL * max(
+                        1.0, float(w.abs().max()))
+            finite_lse = torch.isfinite(lse_p)
+            lse_err = float(torch.where(finite_lse, lse - lse_p, 0.0)
+                            .abs().max())
+            empty_zero = all(float(x[1].float().abs().max()) == 0.0
+                             for x in (serve, *grads))
+            dsum = torch.sum(do.float() * out.float(), dim=-1)
+            ms = time_cuda(lambda: fl._flash_cuda(q, k, v, mask, False,
+                                                  scale), 10, flush)
+            dkv_ms = time_cuda(lambda: fl._bwd_dkv_cuda(
+                q, k, v, do, lse, dsum, mask, False, scale), 10, flush)
+            dq_ms = time_cuda(lambda: fl._bwd_dq_cuda(
+                q, k, v, do, lse, dsum, mask, False, scale), 10, flush)
+            plain_ms = time_cuda(lambda: fl._flash_plain(
+                q, k, v, mask, False, scale), 5, flush)
+            bwd_plain_ms = time_cuda(lambda: fl._flash_bwd_plain(
+                q, k, v, out, lse_p, do, mask, False, scale), 5, flush)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            bool_mask = (mask > 0)[:, None, None, :]
+            with torch.no_grad():
+                library_ms = time_cuda(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=bool_mask, scale=scale), 5, flush)
+            qg, kg, vg = (x.detach().requires_grad_() for x in (qt, kt, vt))
+            lib_out = F.scaled_dot_product_attention(
+                qg, kg, vg, attn_mask=bool_mask, scale=scale)
+            bwd_library_ms = time_cuda(lambda: torch.autograd.grad(
+                lib_out, (qg, kg, vg), do.transpose(1, 2),
+                retain_graph=True), 5, flush)
+            bound, by, nbytes, ops = flash_bound_ms(q, mask, False, Tk)
+            bounds = flash_bwd_bounds(q, mask, False, Tk)
+            row = dict(dtype=tag, shape=f"{B}x{Tq}/{Tk}x{nh}x{hd}",
+                       max_abs_err=errs, bf16_ulps=ulps or None,
+                       lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
+                       library_ms=library_ms, bound_ms=bound, bound_by=by,
+                       bytes=nbytes, ops=ops, dkv_ms=dkv_ms, dq_ms=dq_ms,
+                       bwd_plain_ms=bwd_plain_ms,
+                       bwd_library_ms=bwd_library_ms,
+                       dkv_bound_ms=bounds["dkv"][0],
+                       dkv_bound_by=bounds["dkv"][1],
+                       dq_bound_ms=bounds["dq"][0],
+                       dq_bound_by=bounds["dq"][1])
+            print("flash_query_block " + json.dumps(row))
+            check(empty_zero, f"query block: the empty article's outputs not "
+                              f"zero at {row}")
+            check(bool((torch.isinf(lse) == ~finite_lse).all()),
+                  f"query block lse sentinel rows differ at {row}")
+            check(lse_err <= ATTN_TOL * max(1.0, float(torch.where(
+                finite_lse, lse_p, 0.0).abs().max())),
+                  f"query block lse disagrees at {row}")
+            check(ok, f"a flash kernel disagrees with its plain version on "
+                      f"a query block at {row}")
+            for kernel, names in (("forward", ("out", "serve_out")),
+                                  ("dkv", ("dk", "dv")), ("dq", ("dq",))):
+                key = (tag, kernel)
+                worst[key] = max(worst.get(key, 0.0),
+                                 *(errs[n] for n in names))
+            rows[(tag, row["shape"])] = row
+    return rows, worst
+
+
+def phase_flash_digests():
+    """Every flash launch form the parent took (as many query rows as
+    keys) gives the parent's output bits: flash_digests at
+    FLASH_DIGEST_CASES equal to FLASH_PARENT_DIGESTS (the f32 and bf16
+    kernels, the wide dQ, the SIMT wide forward and dK/dV above head dim
+    1024).  Returns the number of digests compared."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    digests = flash_digests(fl)
+    differ = sorted(k for k, d in digests.items()
+                    if FLASH_PARENT_DIGESTS.get(k) != d)
+    print("flash_digests " + json.dumps(dict(
+        compared=len(digests), parent=len(FLASH_PARENT_DIGESTS),
+        differ=differ)))
+    check(set(digests) == set(FLASH_PARENT_DIGESTS) and not differ,
+          f"flash launch forms whose outputs differ from the parent's: "
+          f"{differ}")
+    return len(digests)
 
 
 def kernel_module(family):
@@ -1710,6 +2100,8 @@ def reset_launch_counts():
     fl.launches = fl.launches_bwd_dkv = fl.launches_bwd_dq = 0
     fl.launches_bf16 = fl.launches_bwd_dkv_bf16 = fl.launches_bwd_dq_bf16 = 0
     fl.launches_wide = fl.launches_bwd_dkv_wide = fl.launches_bwd_dq_wide = 0
+    fl.launches_block = fl.launches_bwd_dkv_block = 0
+    fl.launches_bwd_dq_block = 0
 
 
 def expected_train_launches(hps, steps):
@@ -1733,7 +2125,9 @@ def expected_train_launches(hps, steps):
                   flash_forward=0, flash_bwd_dkv=0, flash_bwd_dq=0,
                   flash_forward_bf16=0, flash_bwd_dkv_bf16=0,
                   flash_bwd_dq_bf16=0, flash_forward_wide=0,
-                  flash_bwd_dkv_wide=0, flash_bwd_dq_wide=0)
+                  flash_bwd_dkv_wide=0, flash_bwd_dq_wide=0,
+                  flash_forward_block=0, flash_bwd_dkv_block=0,
+                  flash_bwd_dq_block=0)
     if hps.model_family in ("transformer", "avg_attention"):
         # the AAN's decoder has no self-attention: its encoder's layers only
         layers = hps.enc_layers + (hps.dec_layers if hps.model_family
@@ -4708,11 +5102,51 @@ class saved_attention:
         return False
 
 
+class saved_encoder:
+    """Within the block, what autograd saves for the backward during the
+    transformer's (and the AAN's) encoder stack: ``bytes`` counts each
+    saved tensor's storage once, parameters (leaves) left out, ``shapes``
+    the distinct shapes of the saved [B, T, nh, hd] tensors (the flash
+    attention's q, k, v and output)."""
+
+    def __enter__(self):
+        import torch
+
+        from textsummarization_on_flink_tpu_torch.models import transformer
+
+        self._seen, self.shapes = {}, set()
+        self._orig = transformer._encoder_stack
+
+        def pack(t):
+            if not (t.is_leaf and t.requires_grad):
+                self._seen[t.untyped_storage().data_ptr()] = \
+                    t.untyped_storage().nbytes()
+                if t.dim() == 4:
+                    self.shapes.add(tuple(t.shape))
+            return t
+
+        def stack(*args, _orig=self._orig):
+            with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+                return _orig(*args)
+
+        transformer._encoder_stack = stack
+        return self
+
+    def __exit__(self, *exc):
+        from textsummarization_on_flink_tpu_torch.models import transformer
+
+        transformer._encoder_stack = self._orig
+        self.bytes = sum(self._seen.values())
+        self.shapes = sorted(self.shapes)
+        return False
+
+
 def memory_step(family, seed, device, widths, plan=None):
     """One train step of mesh_inputs' fixed batch at MEM_WIDTHS (on
     ``plan``'s mesh, this rank's part): (its loss, the peak device bytes
     it allocated above what was allocated before it, what the fused
-    attention saved: saved_attention)."""
+    attention saved (saved_attention; for the transformer and the AAN
+    what their encoder saved: saved_encoder))."""
     import torch
 
     from textsummarization_on_flink_tpu_torch.parallel import mesh
@@ -4733,7 +5167,9 @@ def memory_step(family, seed, device, widths, plan=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated() if device == "cuda" else 0
-    with saved_attention() as saved:
+    saver = saved_attention() if family == "pointer_generator" \
+        else saved_encoder()
+    with saver as saved:
         state, m = trainer.train_step(hps, state, arrays, plan=plan)
     peak = (torch.cuda.max_memory_allocated() - base if device == "cuda"
             else None)
@@ -4764,6 +5200,15 @@ MESH_CASES = {
     "tf_search_sp2_ring": (2, "model_search", "transformer",
                            dict(sp=2, sp_attention="ring")),
     "pg_sp2_memory": (2, "memory", "pointer_generator", dict(sp=2)),
+    # the transformer's and the AAN's encoder T sharded over sp without
+    # --sp_attention: each rank's block of queries against the keys
+    # gathered over sp (the flash kernels' query-block form)
+    "tf_sp2": (2, "train", "transformer", dict(sp=2)),
+    "aan_sp2": (2, "train", "avg_attention", dict(sp=2)),
+    "tf_search_sp2": (2, "model_search", "transformer", dict(sp=2)),
+    "aan_search_sp2": (2, "model_search", "avg_attention", dict(sp=2)),
+    "tf_sp2_memory": (2, "memory", "transformer", dict(sp=2)),
+    "aan_sp2_memory": (2, "memory", "avg_attention", dict(sp=2)),
     # serving on a mesh: the AAN's train steps and decode, the continuous
     # server at dp=2 (dense, then over the continuous phase's 56-page
     # arena) and the micro-batch server at tp=2
@@ -5032,7 +5477,14 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
          V/2 rows of the embedding and V/2 columns of w;
       4. the transformer at its reference width (6+6 layers, 8 heads): one
          step each under sp=2 --sp_attention=ring, sp=2 ulysses and tp=2,
-         case 1's tolerances;
+         case 1's tolerances; the transformer and the AAN at sp=2 without
+         --sp_attention (each rank's block of queries against the keys
+         gathered over sp: 6 query-block forward, dK/dV and dQ launches
+         per rank), a step within case 1's tolerances, a search of 16
+         articles with tokens equal to the single rank's (6 query-block
+         forward launches per rank) and, at MEM_WIDTHS, each rank's loss,
+         peak memory and saved encoder bytes (saved_encoder) beside the
+         single rank's;
       5. decode of 16 articles with the ROUGE phase's trained params: the
          sharded BeamSearchDecoder at dp=2 (summaries equal to the
          single-rank decode_batch) and the sharded search at tp=2 (tokens
@@ -5122,9 +5574,11 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
             model_single[family, nh] = beam_search.run_beam_search(
                 from_numpy_tree(mparams, torch.device(device)),
                 mhps.replace(device=device, num_heads=nh), mbatch)
-    # the long-context width's single-rank step: what each sp rank's
-    # memory is held against
-    mem_single = memory_step("pointer_generator", seed, device, widths)
+    # the long-context width's single-rank step of each family a memory
+    # case reads: what each sp rank's memory is held against
+    mem_single = {f: memory_step(f, seed, device, widths)
+                  for f in sorted({c[2] for c in MESH_CASES.values()
+                                   if c[1] == "memory"})}
     if serve_words is None:
         serve_words = _single_serve_words(seed, decode_params, device,
                                           widths)
@@ -5168,15 +5622,19 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
             mhps = main_path_hps("transformer").replace(
                 model_family=family, **widths.get(family, {}), **kw)
             ref_search = model_single[family, mhps.num_heads]
-            # the encoder's flash forward, once per layer (none where the
-            # encoder's T is sharded: ring or Ulysses attention); the
+            # the encoder's flash forward, once per layer (none under
+            # --sp_attention with T sharded: ring or Ulysses attention;
+            # the query-block form where T is sharded without it); the
             # decoders run no kernel
-            enc_flash = 0 if sharding.shards_t(mhps) else mhps.enc_layers
+            sharded = sharding.shards_t(mhps)
+            enc_flash = 0 if sharded and mhps.sp_attention \
+                else mhps.enc_layers
+            want = dict(flash_forward=enc_flash,
+                        flash_forward_block=enc_flash if sharded else 0)
             for r in ranks:
-                others = {k: v for k, v in r["launches"].items()
-                          if v and k != "flash_forward"}
-                check(r["launches"]["flash_forward"] == enc_flash
-                      and not others or not on_card,
+                got = {k: v for k, v in r["launches"].items() if v}
+                check(got == {k: v for k, v in want.items() if v}
+                      or not on_card,
                       f"{name}: rank {r['rank']} launched {r['launches']}")
                 check(r["tokens"] == ref_search.tokens.tolist(),
                       f"{name}: rank {r['rank']}'s tokens differ from the "
@@ -5192,9 +5650,14 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
                 # every launch the sp-block form
                 want["fused_sp"], want["fused_bwd_sp"] = \
                     want["fused"], want["fused_bwd"]
-            elif sharding.shards_t(hps):  # the encoder: ring or Ulysses
+            elif sharding.shards_t(hps) and hps.sp_attention:
+                # the encoder: ring or Ulysses
                 for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
                     want[k] = hps.dec_layers
+            elif sharding.shards_t(hps):
+                # the encoder: the query-block form, once per layer
+                for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
+                    want[k + "_block"] = hps.enc_layers
             for r in ranks:
                 check(r["launches"] == want or not on_card,
                       f"{name}: rank {r['rank']} launched {r['launches']}, "
@@ -5241,7 +5704,7 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
                         check(r["local_w_cols"] == hps.vocab_size // hps.tp,
                               f"{name}: {r['local_w_cols']} columns of w")
         elif kind == "memory":
-            loss, peak, saved = mem_single
+            loss, peak, saved = mem_single[family]
             row.update(single_loss=loss, single_peak_bytes=peak,
                        single_saved_bytes=saved.bytes,
                        single_saved_shapes=saved.shapes,
@@ -5251,14 +5714,34 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
                                              for r in ranks],
                        saved_shapes_per_rank=[r["saved_shapes"]
                                               for r in ranks])
+            mhps = mesh_family_hps(family).replace(
+                **dict(widths.get(family, {}), **MEM_WIDTHS))
             for r in ranks:
                 check(abs(r["loss"] - loss) <= 2e-5 * abs(loss),
                       f"{name}: loss {r['loss']} vs {loss}")
-                check(r["saved_bytes"] * kw["sp"] == saved.bytes,
+                if family == "pointer_generator":
+                    check(r["saved_bytes"] * kw["sp"] == saved.bytes,
+                          f"{name}: rank {r['rank']} saved "
+                          f"{r['saved_bytes']} bytes of es and ef, the "
+                          f"single rank {saved.bytes}")
+                    check(r["launches"]["fused_sp"] == r["launches"]["fused"]
+                          > 0 or not on_card,
+                          f"{name}: rank {r['rank']} launched "
+                          f"{r['launches']}")
+                    continue
+                # the encoder's activations scale with the rank's block of
+                # T; only each layer's k, v and mask gathered over sp hold
+                # the whole T (f32, this rank's batch rows)
+                B, T = mhps.batch_size, mhps.max_enc_steps
+                whole = mhps.enc_layers * (2 * B * T * mhps.hidden_dim
+                                           + B * T) * 4
+                row.setdefault("gathered_bytes_bound", whole)
+                check(r["saved_bytes"] <= saved.bytes / kw["sp"] + whole
+                      and r["saved_bytes"] < saved.bytes,
                       f"{name}: rank {r['rank']} saved {r['saved_bytes']} "
-                      f"bytes of es and ef, the single rank {saved.bytes}")
-                check(r["launches"]["fused_sp"] == r["launches"]["fused"]
-                      > 0 or not on_card,
+                      f"bytes of its encoder, the single rank {saved.bytes}")
+                check(r["launches"]["flash_forward_block"]
+                      == mhps.enc_layers or not on_card,
                       f"{name}: rank {r['rank']} launched {r['launches']}")
         else:
             for r in ranks:
@@ -5459,6 +5942,8 @@ def main(argv=None) -> int:
     fb_sass = bf16_flash_sass()
     fw_rows, fw_worst = phase_flash_wide(args.seed)
     fw_sass = wide_flash_sass()
+    qb_rows, qb_worst = phase_flash_query_block(args.seed)
+    flash_digest_count = phase_flash_digests()
     errors = {name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
               for name, now in (("forward", flash_worst),
                                 ("dq", bwd_worst["dq"]),
@@ -5793,7 +6278,11 @@ def main(argv=None) -> int:
             if key == "forward" and tag == "f32":
                 launched += wide["hd512_decode"]["wide_launches"]
             suffix = "" if key == "forward" else f"_bwd_{key}"
-            kernels.append(dict(
+            # the forward and dK/dV: the cluster forms (PR 24), timed
+            # beside the SIMT design they replaced (the parent's, in this
+            # run); the dQ stays SIMT
+            simt = {"forward": "simt_ms", "dkv": "simt_dkv_ms"}.get(key)
+            entry = dict(
                 name="flash_attention_wide" + suffix
                 + ("_bf16" if tag == "bf16" else ""),
                 route="cuda", source=wide_src,
@@ -5809,8 +6298,66 @@ def main(argv=None) -> int:
                 shapes=[dict(shape=r["shape"], causal=r["causal"],
                              ms=r[ms], plain_ms=r[plain],
                              library_ms=r[lib], bound_ms=r[bound],
-                             bound_by=r[by])
-                        for (t, _), r in fw_rows.items() if t == tag]))
+                             bound_by=r[by],
+                             **({} if simt is None else dict(
+                                 parent_ms=r[simt])))
+                        for (t, _), r in fw_rows.items() if t == tag])
+            if simt is not None:
+                entry.update(
+                    parent_ms=head[simt], gain=head[simt] / head[ms],
+                    redesigned="PR 24",
+                    design=("a cluster of hd / 128 blocks, each an "
+                            "hd-128 flash block on its 128-column slab "
+                            "(3xTF32 mma.sync in f32, wgmma on TMA tiles "
+                            "in bf16), the partial S (and dP) summed over "
+                            "the cluster through distributed shared "
+                            "memory once per tile"))
+            kernels.append(entry)
+    # the query-block forms (Tq < Tk: one sp rank's block of the
+    # encoder's queries against every key; their own counters, each
+    # launch also counted in its kernel's total above): the transformer's
+    # and the AAN's sp=2 mesh cases without --sp_attention
+    qb_main = qb_rows[("f32", "16x200/400x8x32")]
+    for key, counter, library, src in (
+            ("forward", "flash_forward_block", "_flash_attention_kernel",
+             ".cu"),
+            ("dkv", "flash_bwd_dkv_block", "_flash_attention_bwd_dkv",
+             "_bwd.cu"),
+            ("dq", "flash_bwd_dq_block", "_flash_attention_bwd_dq",
+             "_bwd.cu")):
+        ms, bound, by, plain, lib = (
+            ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
+            if key == "forward" else
+            (f"{key}_ms", f"{key}_bound_ms", f"{key}_bound_by",
+             "bwd_plain_ms", "bwd_library_ms"))
+        kernels.append(dict(
+            name="flash_attention_query_block"
+            + ("" if key == "forward" else f"_bwd_{key}"),
+            route="cuda", source=flash_src + src,
+            replaces=("textsummarization_on_flink_tpu/models/transformer.py"
+                      f":285 (library {library}; the encoder's einsum "
+                      "_mha :290-295 as GSPMD partitions it over sp)"),
+            launches=mesh_l[counter], counter=counter,
+            form="a block of query rows against every key (Tq != Tk)",
+            max_abs_err=max(v for (t, k), v in qb_worst.items()
+                            if k == key and t == "f32"),
+            ms=qb_main[ms], plain_ms=qb_main[plain],
+            bound_ms=qb_main[bound], bound_by=qb_main[by],
+            library_ms=qb_main[lib], shape=qb_main["shape"],
+            shapes=[dict(dtype=r["dtype"], shape=r["shape"], ms=r[ms],
+                         plain_ms=r[plain], library_ms=r[lib],
+                         bound_ms=r[bound], bound_by=r[by],
+                         max_abs_err=max(r["max_abs_err"][n] for n in (
+                             ("out", "serve_out") if key == "forward" else
+                             ("dk", "dv") if key == "dkv" else ("dq",))))
+                    for r in qb_rows.values()],
+            added="PR 24"))
+    # every flash launch form of the parent gave the parent's bits
+    # (phase_flash_digests), the two redesigned wide kernels aside
+    for entry in kernels:
+        if entry["name"].startswith("flash_attention") \
+                and entry.get("redesigned") != "PR 24":
+            entry["parent_digests_compared"] = flash_digest_count
     # the slab and sp-block forms of the two fused kernels: their
     # own counters, each launch also counted in the kernel's total above
     f_slab = forms[("fwd", 16, 4, 400, 2400, "float32")]

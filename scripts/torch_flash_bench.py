@@ -3,7 +3,7 @@
 phase-3 shapes, for comparing two checkouts on one card.
 
     python3 scripts/torch_flash_bench.py [--seed N] [--iters N] [--tag T]
-        [--dtype float32|bfloat16]
+        [--dtype float32|bfloat16] [--which times|wide|digests]
 
 Needs one CUDA card.  It times whichever package comes first on the
 import path: put another checkout on PYTHONPATH to time its kernels with
@@ -19,7 +19,16 @@ key mask): the forward without lse (the serving form) and with it (the
 training form, forward_lse), and the dK/dV and dQ kernels, each also
 with its host microseconds per call (the wrapper's enqueue, the tensor
 maps' encoding included, averaged over --iters calls without a
-synchronize).  Each time is the median of --iters
+synchronize).  ``--which wide``: the wide kernels (head dims above 256)
+at chip_smoke.py's WIDE_FLASH_CASES (16x400x1x384, x512, x1024 with a
+key mask, 16x100x1x512 causal) in f32 and bf16 (--dtype is not read):
+the forward without and with lse, the dK/dV and the dQ kernels.
+``--which digests`` prints one JSON line of chip_smoke.flash_digests:
+the digests of every flash kernel's outputs at the launch forms with as
+many query rows as keys (chip_smoke.FLASH_DIGEST_CASES, inputs made with
+numpy), which chip_smoke.py holds against its FLASH_PARENT_DIGESTS; run
+it with the parent checkout on PYTHONPATH to print those.  Each time is
+the median of --iters
 launches, each after a write of 96 MB (more than the L2 cache), timed
 with CUDA events by this checkout's chip_smoke.time_cuda (also when the
 kernels come from another checkout).  Prints the card's name and power
@@ -64,6 +73,8 @@ def main(argv=None) -> int:
     ap.add_argument("--tag", default="")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"),
                     default="float32")
+    ap.add_argument("--which", choices=("times", "wide", "digests"),
+                    default="times")
     args = ap.parse_args(argv)
 
     import torch
@@ -86,6 +97,13 @@ def main(argv=None) -> int:
                               shape=f"{B}x{T}x{nh}x{hd}", causal=causal,
                               key_mask=not causal, ms=ms, **extra)))
 
+    if args.which == "digests":
+        print(json.dumps(dict(tag=args.tag,
+                              digests=chip_smoke.flash_digests(fl))))
+        return 0
+    if args.which == "wide":
+        bench_wide(args, chip_smoke, fl, flush, emit)
+        return 0
     if args.dtype == "bfloat16":
         bench_bf16(args, chip_smoke, fl, flush, emit)
         return 0
@@ -131,6 +149,48 @@ def host_us(fn, iters):
     dt = time.perf_counter() - t0
     torch.cuda.synchronize()
     return dt / iters * 1e6
+
+
+def bench_wide(args, chip_smoke, fl, flush, emit):
+    """The wide kernels at chip_smoke.WIDE_FLASH_CASES in both dtypes; a
+    checkout whose wrappers take ``simt`` also times its SIMT forward and
+    dK/dV."""
+    import inspect
+
+    import torch
+
+    simt = "simt" in inspect.signature(fl._flash_cuda).parameters
+
+    for dtype in (torch.float32, torch.bfloat16):
+        args.dtype = str(dtype).replace("torch.", "")
+        for shape in chip_smoke.WIDE_FLASH_CASES:
+            B, T, nh, hd, causal = shape
+            q, k, v, mask = chip_smoke.flash_inputs(B, T, nh, hd, args.seed,
+                                                    not causal)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+            scale = hd ** -0.5
+            out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
+                                      with_lse=True)
+            g = torch.Generator(device="cuda").manual_seed(args.seed)
+            do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+            dsum = torch.sum(do.float() * out.float(), dim=-1)
+            runs = [("forward", lambda: fl._flash_cuda(q, k, v, mask, causal,
+                                                       scale)),
+                    ("forward_lse", lambda: fl._flash_cuda(
+                        q, k, v, mask, causal, scale, with_lse=True)),
+                    ("bwd_dkv", lambda: fl._bwd_dkv_cuda(
+                        q, k, v, do, lse, dsum, mask, causal, scale)),
+                    ("bwd_dq", lambda: fl._bwd_dq_cuda(
+                        q, k, v, do, lse, dsum, mask, causal, scale))]
+            if simt:  # the SIMT design the cluster forms replaced
+                runs += [("forward_simt", lambda: fl._flash_cuda(
+                    q, k, v, mask, causal, scale, simt=True)),
+                         ("bwd_dkv_simt", lambda: fl._bwd_dkv_cuda(
+                             q, k, v, do, lse, dsum, mask, causal, scale,
+                             simt=True))]
+            for kernel, fn in runs:
+                emit(kernel, shape, chip_smoke.time_cuda(fn, args.iters,
+                                                         flush))
 
 
 def bench_bf16(args, chip_smoke, fl, flush, emit):

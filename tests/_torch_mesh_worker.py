@@ -494,11 +494,14 @@ def run_pipeline(case, hps, workdir, rank):
 
 def run_saved(case, hps, workdir, rank):
     """One sharded train step on the global batch, recording what each
-    of the fused attention's autograd Functions saved for its backward:
-    the shapes of its es and ef, and their bytes (each tensor once)."""
+    attention autograd Function saved for its backward: the fused
+    attention's es and ef (shapes, and their bytes, each tensor once),
+    and the flash attention's q, k, v and out shapes with its causal
+    flag."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
-    seen = []
+    seen, flash = [], []
     originals = {}
     for cls in (fa.FusedAttention, fa.FusedAttentionSP):
         originals[cls] = cls.forward
@@ -509,6 +512,17 @@ def run_saved(case, hps, workdir, rank):
             return out
 
         cls.forward = staticmethod(forward)
+    originals[fl.FlashAttention] = fl.FlashAttention.forward
+
+    def flash_forward(ctx, *args, _orig=originals[fl.FlashAttention]):
+        out = _orig(ctx, *args)
+        q, k, v, o = ctx.to_save[:4]
+        flash.append(dict(causal=bool(ctx.causal), q=list(q.shape),
+                          k=list(k.shape), v=list(v.shape),
+                          out=list(o.shape)))
+        return out
+
+    fl.FlashAttention.forward = staticmethod(flash_forward)
     try:
         run_train(dict(case, name=f"{case['name']}.train"), hps, workdir,
                   rank)
@@ -522,7 +536,7 @@ def run_saved(case, hps, workdir, rank):
     _save(workdir, f"{case['name']}.rank{rank}", info={
         "saved": sorted({(name, tuple(es.shape), tuple(ef.shape))
                          for name, es, ef in seen}),
-        "calls": len(seen), "bytes": sum(unique.values())})
+        "calls": len(seen), "bytes": sum(unique.values()), "flash": flash})
 
 
 KINDS = {"train": run_train, "eval": run_eval, "search": run_search,

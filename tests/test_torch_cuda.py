@@ -1371,21 +1371,37 @@ WIDE_HEAD_DIMS = (384, 512, 1024)
 WIDE_T = (1, 63, 65, 130)
 
 
-def _wide_grads(fl, q, k, v, key_mask, causal, scale):
-    """(out, lse, dq, dk, dv) through flash_attention's Function and the
-    forward's lse form on the card; checks one launch of each wide
+def _wide_grads(fl, q, k, v, key_mask, causal, scale, seed=0):
+    """(out, lse, do, (dq, dk, dv)) through flash_attention's Function and
+    the forward's lse form on the card, the cotangent do drawn from a
+    generator seeded with ``seed``; checks one launch of each wide
     kernel."""
     qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
     counts = (fl.launches_wide, fl.launches_bwd_dkv_wide,
               fl.launches_bwd_dq_wide)
     out = fl.flash_attention(qg, kg, vg, key_mask, causal, scale)
-    do = torch.randn(out.shape, device="cuda").to(q.dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    do = torch.randn(out.shape, generator=g, device="cuda").to(q.dtype)
     grads = torch.autograd.grad(out, (qg, kg, vg), do)
     torch.cuda.synchronize()
     assert (fl.launches_wide, fl.launches_bwd_dkv_wide,
             fl.launches_bwd_dq_wide) == tuple(c + 1 for c in counts)
     _, lse = fl._flash_cuda(q, k, v, key_mask, causal, scale, with_lse=True)
     return out.detach(), lse, do, grads
+
+
+def _single_key_noise_bound(q, k, v, do, scale):
+    """The bound on |dq| and |dk| at T = 1, where both are 0 in exact
+    arithmetic: dS = P (dO . v - dO . out) with out = v is the rounding
+    noise of two f32 dot products over the head dim, at most hd * 2^-24
+    * sum_i |dO_i v_i| each (the f32 sums' accumulated error, which grows
+    with hd); dq = scale * dS * k and dk = scale * dS * q scale it by the
+    largest |k| or |q|, and the factor 4 covers both products and the
+    final rounding of dq and dk."""
+    hd = q.shape[-1]
+    dot = float((do.double().abs() * v.double().abs()).sum(-1).max())
+    big = max(float(q.double().abs().max()), float(k.double().abs().max()))
+    return 4 * hd * 2.0 ** -24 * scale * dot * big
 
 
 @pytest.mark.cuda
@@ -1409,7 +1425,8 @@ def test_flash_wide_kernels_match_plain_on_card(hd, T, causal, dtype):
     q, k, v, mask = _flash_inputs(3, T, 2, hd, seed=T + hd)
     q, k, v = (x.to(dtype) for x in (q, k, v))
     scale = hd ** -0.5
-    out, lse, do, got = _wide_grads(fl, q, k, v, mask, causal, scale)
+    out, lse, do, got = _wide_grads(fl, q, k, v, mask, causal, scale,
+                                    seed=T + hd)
     want_out = fl._flash_plain(q, k, v, mask, causal, scale)
     lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
     want = fl._flash_bwd_plain(q, k, v, out, lse_p, do, mask, causal, scale)
@@ -1417,11 +1434,26 @@ def test_flash_wide_kernels_match_plain_on_card(hd, T, causal, dtype):
     fin = torch.isfinite(lse_p)
     assert float((lse - lse_p)[fin].abs().max()) <= 1e-5 * max(
         1.0, float(lse_p[fin].abs().max()))
+    if T == 1:
+        # dq and dk are 0 in exact arithmetic: kernel and plain version
+        # are each held to the float64 reference within the noise bound
+        f64 = [x.double() for x in (q, k, v, out, do)]
+        ref = fl._flash_bwd_plain(f64[0], f64[1], f64[2], f64[3],
+                                  lse_p.double(), f64[4], mask.double(),
+                                  causal, scale)
+        bound = _single_key_noise_bound(q.float(), k.float(), v.float(),
+                                        do.float(), scale)
+        for i in (0, 1):
+            for side in (got[i], want[i]):
+                err = float((side.double() - ref[i]).abs().max())
+                assert err <= bound, (i, err, bound)
     for name, g, w in zip(("out", "dq", "dk", "dv"), (out, *got),
                           (want_out, *want)):
         assert g.shape == w.shape and g.dtype == dtype
         assert torch.isfinite(g.float()).all()
-        if dtype == torch.bfloat16 and not (T == 1 and name in ("dq", "dk")):
+        if T == 1 and name in ("dq", "dk"):
+            pass  # held to the float64 reference above
+        elif dtype == torch.bfloat16:
             _within_bf16_ulps(g, w)
         else:
             tol = 1e-5 * max(1.0, float(w.abs().max()))
@@ -1447,7 +1479,8 @@ def test_flash_wide_kernels_repeat_their_bits_on_card(hd, dtype):
             for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     out, lse = runs[0]
-    do = torch.randn(out.shape, device="cuda").to(dtype)
+    g = torch.Generator(device="cuda").manual_seed(hd)
+    do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
     first, second = (fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, False,
                                         scale) for _ in range(2))
     torch.cuda.synchronize()
@@ -1474,6 +1507,78 @@ def test_flash_wide_head_dims_padded_on_card(hd):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
+
+
+#: one sp rank's block of query rows against every key: (Tq, Tk) with Tq
+#: half and a third of Tk, ragged against the 64- and 128-row blocks
+QUERY_BLOCKS = ((50, 100), (33, 100), (65, 130), (200, 400))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 128, 256, 384, 512, 1024, 1152])
+@pytest.mark.parametrize("tq,tk", QUERY_BLOCKS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_query_block_matches_plain_on_card(hd, tq, tk, dtype):
+    """Every flash kernel (forward with and without lse, dK/dV, dQ; f32,
+    bf16 and wide, the cluster forms up to hd 1024 and the SIMT forms at
+    1152) on a block of Tq query rows (rows [Tq, 2 Tq) of the article's
+    queries) against all Tk keys, a ragged key mask and article 1 fully
+    masked: f32 within 1e-5 of the plain versions relative to each
+    output's size, bf16 within FLASH_BF16_ULPS; one launch of each, each
+    counted by the query-block counters too."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(3, tk, 2, hd, seed=tq + hd)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    q = q[:, tq:2 * tq].contiguous()
+    scale = hd ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(tk)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    counters = ("launches", "launches_bwd_dkv", "launches_bwd_dq",
+                "launches_block", "launches_bwd_dkv_block",
+                "launches_bwd_dq_block")
+    before = [getattr(fl, c) for c in counters]
+    serve = fl._flash_cuda(q, k, v, mask, False, scale)
+    out, lse = fl._flash_cuda(q, k, v, mask, False, scale, with_lse=True)
+    got = fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, False, scale)
+    torch.cuda.synchronize()
+    assert [getattr(fl, c) - b for c, b in zip(counters, before)] == [
+        2, 1, 1, 2, 1, 1]
+    assert torch.equal(serve, out)
+    want_out = fl._flash_plain(q, k, v, mask, False, scale)
+    lse_p = fl._flash_lse_plain(q, k, mask, False, scale)
+    want = fl._flash_bwd_plain(q, k, v, out, lse_p, do, mask, False, scale)
+    assert lse.shape == (3, tq, 2)
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+    fin = torch.isfinite(lse_p)
+    assert float((lse - lse_p)[fin].abs().max()) <= 1e-5 * max(
+        1.0, float(lse_p[fin].abs().max()))
+    for name, got_x, want_x in zip(("out", "dq", "dk", "dv"), (out, *got),
+                                   (want_out, *want)):
+        assert got_x.shape == want_x.shape and got_x.dtype == dtype, name
+        if dtype == torch.bfloat16:
+            _within_bf16_ulps(got_x, want_x)
+        else:
+            tol = 1e-5 * max(1.0, float(want_x.abs().max()))
+            np.testing.assert_allclose(got_x.cpu().numpy(),
+                                       want_x.cpu().numpy(), rtol=0,
+                                       atol=tol, err_msg=name)
+        assert not got_x[1].any()  # the empty article
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 512])
+def test_flash_causal_query_block_refused_on_card(hd):
+    """A causal call with fewer query rows than keys raises ValueError
+    before any launch (no path asks for one)."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(2, 64, 1, hd)
+    with pytest.raises(ValueError, match="causal"):
+        fl.flash_attention(q[:, :32].contiguous(), k, v, mask, True,
+                           hd ** -0.5)
 
 
 @pytest.mark.cuda

@@ -49,8 +49,10 @@ writes the decode dir.  Only the beam tier decodes there, as in the JAX
 package (decoder.py:455-459 there).  The sp ranks of a dp index search
 the same rows and shard the encoder's T as the JAX package's search
 does: the pointer-generator's attention on each rank's block, the
-transformer's and the AAN's encoder under --sp_attention.  The slot
-engine keeps T whole on every rank (JAX parallel/sharding.py:277-292).
+transformer's and the AAN's encoder on its block (ring or Ulysses
+under --sp_attention, else the block's queries against the gathered
+keys).  The slot engine keeps T whole on every rank (JAX
+parallel/sharding.py:277-292).
 
 A sharded decoder runs in one of two ways.  In lockstep (cli.py's decode,
 the pipeline's transform) every rank calls ``decode``/``decode_batch``

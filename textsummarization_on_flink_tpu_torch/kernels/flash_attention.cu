@@ -9,7 +9,9 @@
 // (called at textsummarization_on_flink_tpu/models/transformer.py:285),
 // whose forward is `_flash_attention_kernel` (flash_attention.py:331 of
 // the installed jax) through `pl.pallas_call` (:758).  Per article b,
-// head h and query row i (q, k, v, out are [B, T, nh, hd], contiguous):
+// head h and query row i (q and out are [B, Tq, nh, hd], k and v [B, Tk,
+// nh, hd], contiguous; Tq < Tk is one sp rank's block of query rows
+// against every key, and needs causal off):
 //
 //   s_j   = (q_i . k_j) * sm_scale   for every key j the row may attend:
 //           key_mask[b, j] > 0 (all keys when key_mask is null) and, when
@@ -20,7 +22,7 @@
 // row; padding query rows attend the real keys, as there.
 //
 // Training also asks for each row's log-sum-exp of its attended scores,
-// lse_i = m_i + log(l_i) ([B, T, nh]; +inf for a row with no key to
+// lse_i = m_i + log(l_i) ([B, Tq, nh]; +inf for a row with no key to
 // attend), which the backward kernels (flash_attention_bwd.cu) recompute
 // the probabilities from.  With a null `lse` the kernel is the serving
 // kernel and writes nothing else.
@@ -119,15 +121,15 @@ struct Fwd {
   static_assert(kTile % 4 == 0 && kStage % 4 == 0, "16-byte aligned tiles");
 };
 
-// grid (ceil(T / kRows), nh * kSplit, B); kThreads threads; Fwd<HD>::kSmem
+// grid (ceil(Tq / kRows), nh * kSplit, B); kThreads threads; Fwd<HD>::kSmem
 // bytes of dynamic shared memory
 template <int HD>
 __global__ void __launch_bounds__(kThreads, Fwd<HD>::kMinBlocks)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v,
                  const float* __restrict__ key_mask, float* __restrict__ out,
-                 float* __restrict__ lse, int T, int nh, int causal,
-                 float sm_scale) {
+                 float* __restrict__ lse, int Tq, int Tk, int nh,
+                 int causal, float sm_scale) {
   using S = Fwd<HD>;
   constexpr int kKeys = S::kKeys, kStride = S::kStride;
   extern __shared__ __align__(16) float smem[];
@@ -139,9 +141,10 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y / S::kSplit, b = blockIdx.z;
   const int col0 = (blockIdx.y % S::kSplit) * S::kOD;  // O's first column
   const size_t pos_stride = (size_t)nh * HD;  // floats between positions
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
-  const float* kb = k + base;
-  const float* vb = v + base;
+  // q and out hold Tq positions an article, k and v Tk
+  const size_t base = (size_t)b * Tq * pos_stride + (size_t)h * HD;
+  const float* kb = k + (size_t)b * Tk * pos_stride + (size_t)h * HD;
+  const float* vb = v + (size_t)b * Tk * pos_stride + (size_t)h * HD;
   const int row0 = qb * kRows + warp * 16;  // the warp's first row
   const int rows[2] = {row0 + g, row0 + g + 8};  // this lane's two rows
 
@@ -151,7 +154,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* q_warp = q_s + warp * 16 * kStride;
   FragA q_reg[S::kQInRegs ? S::kKS : 1];
   if constexpr (S::kQInRegs) {
-    const bool in0 = rows[0] < T, in1 = rows[1] < T;
+    const bool in0 = rows[0] < Tq, in1 = rows[1] < Tq;
     const float* q0 = q + base + (size_t)rows[0] * pos_stride;
     const float* q1 = q + base + (size_t)rows[1] * pos_stride;
 #pragma unroll
@@ -173,8 +176,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int n = 0; n < S::kOT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // l: this lane's columns
 
-  // causal: keys past the block's last row are never attended
-  const int t_end = causal ? min(T, (qb + 1) * kRows) : T;  // block-uniform
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, (qb + 1) * kRows) : Tk;  // block-uniform
   const int n_tiles = (t_end + kKeys - 1) / kKeys;
 
   auto stage = [&](int tile, int buf) {
@@ -183,13 +186,13 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* oks = vs + S::kTile;
     const int k0 = tile * kKeys;
     tf32x3::stage_rows<HD, kThreads>(ks, kStride, kb, pos_stride, k0, kKeys,
-                                     T, tid);
+                                     Tk, tid);
     tf32x3::stage_rows<HD, kThreads>(vs, kStride, vb, pos_stride, k0, kKeys,
-                                     T, tid);
+                                     Tk, tid);
     for (int j = tid; j < kKeys; j += kThreads) {
       const int key = k0 + j;
-      oks[j] = (key < T && (key_mask == nullptr ||
-                            key_mask[(size_t)b * T + key] > 0.f))
+      oks[j] = (key < Tk && (key_mask == nullptr ||
+                             key_mask[(size_t)b * Tk + key] > 0.f))
                    ? 1.f
                    : 0.f;
     }
@@ -200,7 +203,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* v_lo = k_lo + S::kTile;
   if (!S::kQInRegs)  // in the first group, with the first tile
     tf32x3::stage_rows<HD, kThreads>(q_s, kStride, q + base, pos_stride,
-                                     qb * kRows, kRows, T, tid);
+                                     qb * kRows, kRows, Tq, tid);
   stage(0, 0);
   for (int it = 0; it < n_tiles; ++it) {
     if (it + 1 < n_tiles) {
@@ -284,7 +287,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= T) continue;
+    if (rows[r] >= Tq) continue;
     float* o_row = out + base + (size_t)rows[r] * pos_stride;
 #pragma unroll
     for (int n = 0; n < S::kOT; ++n) {
@@ -294,7 +297,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float2*>(o_row + col0 + 8 * n + 2 * t) = val;
     }
     if (lse != nullptr && t == 0 && col0 == 0)  // one block of a split
-      lse[((size_t)b * T + rows[r]) * nh + h] =
+      lse[((size_t)b * Tq + rows[r]) * nh + h] =
           l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
   }
 }
@@ -302,16 +305,16 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* key_mask, float* out, float* lse, int B,
-                   int T, int nh, int causal, float sm_scale,
+                   int Tq, int Tk, int nh, int causal, float sm_scale,
                    cudaStream_t stream) {
   constexpr size_t smem = Fwd<HD>::kSmem;
   static unsigned smem_set = 0;  // per instantiation: one per kernel
   const cudaError_t err =
       tf32x3::allow_smem(flash_fwd_kernel<HD>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kRows - 1) / kRows, nh * Fwd<HD>::kSplit, B);
+  const dim3 grid((Tq + kRows - 1) / kRows, nh * Fwd<HD>::kSplit, B);
   flash_fwd_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, key_mask, out, lse, T, nh, causal, sm_scale);
+      q, k, v, key_mask, out, lse, Tq, Tk, nh, causal, sm_scale);
   return cudaGetLastError();
 }
 
@@ -367,7 +370,7 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 //   * a key the row may not attend (a key flag, or past the diagonal) gets
 //     p = exactly 0, so a ragged tail or an empty article adds nothing and
 //     a row whose sum stays 0 writes zeros and lse +inf; padding query
-//     rows attend the real keys; rows at or past T are zero-filled by the
+//     rows attend the real keys; rows at or past Tq are zero-filled by the
 //     copy and never stored.  At hd 128 and 256 a tile whose keys are all
 //     real and that does not cross the diagonal skips the per-key test (at
 //     hd 32 that second path made the decoder's shape slower);
@@ -408,7 +411,7 @@ __device__ __forceinline__ void turn_arrive(int id) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "n"(kWgThreads) : "memory");
 }
 
-// grid (nh * kSplit, B, ceil(T / 128)) when causal, else (ceil(T / 128),
+// grid (nh * kSplit, B, ceil(Tq / 128)) when causal, else (ceil(Tq / 128),
 // nh * kSplit, B); kBf16Threads threads, FwdBf16<HD>::kSmem bytes of
 // dynamic shared memory; the maps' boxes are kBlockRows rows (q) and
 // kKeys rows (k, v)
@@ -419,7 +422,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                       const __grid_constant__ CUtensorMap v_map,
                       const float* __restrict__ key_mask,
                       wg::bf16* __restrict__ out, float* __restrict__ lse,
-                      int T, int nh, int causal, float sm_scale) {
+                      int Tq, int Tk, int nh, int causal, float sm_scale) {
   using S = FwdBf16<HD>;
   constexpr int kKeys = S::kKeys, kOD = S::kOD, kWords = S::kWords;
   extern __shared__ unsigned char smem_raw[];
@@ -441,8 +444,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const int col0 = (hx % S::kSplit) * kOD;
   const int r_blk = qb * kBlockRows;        // the block's first row
   const int rw = r_blk + 64 * (warp >> 2);  // the warpgroup's first row
-  // causal: keys past the block's last row are never attended
-  const int t_end = causal ? min(T, r_blk + kBlockRows) : T;
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, r_blk + kBlockRows) : Tk;
   const int n_tiles = (t_end + kKeys - 1) / kKeys;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -469,8 +472,8 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int j = 0; j < kKeys / 32; ++j) {
         const int key = k0 + 32 * j + lane;
-        ok[j] = key < T && (key_mask == nullptr ||
-                            key_mask[(size_t)b * T + key] > 0.f);
+        ok[j] = key < Tk && (key_mask == nullptr ||
+                             key_mask[(size_t)b * Tk + key] > 0.f);
       }
       tma::mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
       uint64_t bits[kWords] = {};  // bit j of word w: key k0 + 64 w + j
@@ -527,7 +530,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     turn_sync(1 + wgi);
     // causal: every key of the tile follows the warpgroup's last row
-    if (any != 0 && rw < T && !(causal && k0 > rw + 63)) {
+    if (any != 0 && rw < Tq && !(causal && k0 > rw + 63)) {
       const unsigned char* ks = tiles + s * 2 * S::kTile;
       const unsigned char* vs = ks + S::kTile;
       float sa[kKeys / 2];  // S, then P
@@ -614,13 +617,13 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     oa[i] = li > 0.f ? oa[i] / li : 0.f;  // no key to attend: zeros
   }
   const size_t pos_stride = (size_t)nh * HD;
-  store_rows<kOD>(out + (size_t)b * T * pos_stride + (size_t)h * HD + col0,
-                  pos_stride, rows, T, oa, t);
+  store_rows<kOD>(out + (size_t)b * Tq * pos_stride + (size_t)h * HD + col0,
+                  pos_stride, rows, Tq, oa, t);
   if (lse != nullptr && t == 0 && col0 == 0) {  // one block of a split
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      if (rows[r] < T)
-        lse[((size_t)b * T + rows[r]) * nh + h] =
+      if (rows[r] < Tq)
+        lse[((size_t)b * Tq + rows[r]) * nh + h] =
             l[r] > 0.f ? m[r] / kLog2e + logf(l[r]) : INFINITY;
   }
 }
@@ -628,80 +631,84 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 template <int HD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         const float* key_mask, void* out, float* lse, int B,
-                        int T, int nh, int causal, float sm_scale,
+                        int Tq, int Tk, int nh, int causal, float sm_scale,
                         cudaStream_t stream) {
   using S = FwdBf16<HD>;
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   const int rows[3] = {kBlockRows, S::kKeys, S::kKeys};
+  const int lens[3] = {Tq, Tk, Tk};
   for (int i = 0; i < 3; ++i) {
     const cudaError_t err =
-        wg::make_map(&maps[i], ptrs[i], B, T, nh, HD, rows[i]);
+        wg::make_map(&maps[i], ptrs[i], B, lens[i], nh, HD, rows[i]);
     if (err != cudaSuccess) return err;
   }
   static unsigned smem_set = 0;  // per instantiation: one per kernel
   const cudaError_t err =
       tf32x3::allow_smem(flash_fwd_bf16_kernel<HD>, S::kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  const int n_qb = (T + kBlockRows - 1) / kBlockRows;
+  const int n_qb = (Tq + kBlockRows - 1) / kBlockRows;
   const dim3 grid = causal ? dim3(nh * S::kSplit, B, n_qb)
                            : dim3(n_qb, nh * S::kSplit, B);
   flash_fwd_bf16_kernel<HD><<<grid, kBf16Threads, S::kSmem, stream>>>(
       maps[0], maps[1], maps[2], key_mask, static_cast<wg::bf16*>(out), lse,
-      T, nh, causal, sm_scale);
+      Tq, Tk, nh, causal, sm_scale);
   return cudaGetLastError();
 }
 }  // namespace
 
-// q, k, v, out [B, T, nh, hd] float32, contiguous, 16-byte aligned, on one
-// device; key_mask [B, T] float32 (1 = real token) or null (every key
-// real); lse [B, T, nh] float32 or null (not written).  hd is 32, 128 or
-// 256.
+// q and out [B, Tq, nh, hd], k and v [B, Tk, nh, hd] float32, contiguous,
+// 16-byte aligned, on one device; key_mask [B, Tk] float32 (1 = real
+// token) or null (every key real); lse [B, Tq, nh] float32 or null (not
+// written).  hd is 32, 128 or 256; causal needs Tq == Tk.
 // Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int ts_flash_attention(const float* q, const float* k,
                                   const float* v, const float* key_mask,
-                                  float* out, float* lse, int B, int T,
-                                  int nh, int hd, int causal, float sm_scale,
-                                  void* stream) {
+                                  float* out, float* lse, int B, int Tq,
+                                  int Tk, int nh, int hd, int causal,
+                                  float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 32767)
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || nh <= 0 || B > 65535 || nh > 32767 ||
+      (causal && Tq != Tk))
     return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      return (int)launch<32>(q, k, v, key_mask, out, lse, B, T, nh, causal,
-                             sm_scale, st);
+      return (int)launch<32>(q, k, v, key_mask, out, lse, B, Tq, Tk, nh,
+                             causal, sm_scale, st);
     case 128:
-      return (int)launch<128>(q, k, v, key_mask, out, lse, B, T, nh,
+      return (int)launch<128>(q, k, v, key_mask, out, lse, B, Tq, Tk, nh,
                               causal, sm_scale, st);
     case 256:
-      return (int)launch<256>(q, k, v, key_mask, out, lse, B, T, nh,
+      return (int)launch<256>(q, k, v, key_mask, out, lse, B, Tq, Tk, nh,
                               causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The bf16 form: q, k, v, out [B, T, nh, hd] bfloat16, contiguous,
-// 16-byte aligned; key_mask and lse as ts_flash_attention's.
+// The bf16 form: q, out [B, Tq, nh, hd] and k, v [B, Tk, nh, hd]
+// bfloat16, contiguous, 16-byte aligned; key_mask and lse as
+// ts_flash_attention's.
 extern "C" int ts_flash_attention_bf16(const void* q, const void* k,
                                        const void* v, const float* key_mask,
-                                       void* out, float* lse, int B, int T,
-                                       int nh, int hd, int causal,
+                                       void* out, float* lse, int B, int Tq,
+                                       int Tk, int nh, int hd, int causal,
                                        float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 32767 ||
-      (T - 1) / kBlockRows >= 65535)  // the grid's z axis: query blocks
+  if (B <= 0 || Tq <= 0 || Tk <= 0 || nh <= 0 || B > 65535 || nh > 32767 ||
+      (causal && Tq != Tk) ||
+      (Tq - 1) / kBlockRows >= 65535)  // the grid's z axis: query blocks
     return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      return (int)launch_bf16<32>(q, k, v, key_mask, out, lse, B, T, nh,
+      return (int)launch_bf16<32>(q, k, v, key_mask, out, lse, B, Tq, Tk, nh,
                                   causal, sm_scale, st);
     case 128:
-      return (int)launch_bf16<128>(q, k, v, key_mask, out, lse, B, T, nh,
-                                   causal, sm_scale, st);
+      return (int)launch_bf16<128>(q, k, v, key_mask, out, lse, B, Tq, Tk,
+                                   nh, causal, sm_scale, st);
     case 256:
-      return (int)launch_bf16<256>(q, k, v, key_mask, out, lse, B, T, nh,
-                                   causal, sm_scale, st);
+      return (int)launch_bf16<256>(q, k, v, key_mask, out, lse, B, Tq, Tk,
+                                   nh, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -10,8 +10,9 @@
 // custom_vjp is flash_attention.py:254-318 of the installed jax):
 // `_flash_attention_bwd_dkv` (:941, `pl.pallas_call` :1121) and
 // `_flash_attention_bwd_dq` (:1287, `pl.pallas_call` :1456).  Per article
-// b and head h (q, k, v, dout, dq, dk, dv are [B, T, nh, hd], contiguous;
-// lse and dsum are [B, T, nh]), with
+// b and head h (q, dout, dq are [B, Tq, nh, hd], k, v, dk, dv [B, Tk, nh,
+// hd], contiguous; lse and dsum are [B, Tq, nh]; Tq < Tk is one sp rank's
+// block of query rows against every key, and needs causal off), with
 //
 //   P_ij  = exp(s_ij - lse_i),  s_ij = (q_i . k_j) * sm_scale,
 //           on the keys j row i may attend (key_mask[b, j] > 0, or every
@@ -144,7 +145,7 @@ struct Dkv : Split<HD> {
   static_assert(kKV % 4 == 0 && kStage % 4 == 0, "16-byte aligned tiles");
 };
 
-// grid (ceil(T / 64), nh * kSplit, B): one block per (64 keys, head and
+// grid (ceil(Tk / 64), nh * kSplit, B): one block per (64 keys, head and
 // column half, article); Dkv<HD>::kSmem bytes of dynamic shared memory
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
@@ -154,8 +155,8 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ lse,
                      const float* __restrict__ dsum,
                      const float* __restrict__ key_mask,
-                     float* __restrict__ dk, float* __restrict__ dv, int T,
-                     int nh, int causal, float sm_scale) {
+                     float* __restrict__ dk, float* __restrict__ dv, int Tq,
+                     int Tk, int nh, int causal, float sm_scale) {
   using D = Dkv<HD>;
   constexpr int kQ = D::kQ, kStride = D::kStride;
   extern __shared__ __align__(16) float smem[];
@@ -169,15 +170,17 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // the first column of dK and dV this block keeps
   const int col0 = (blockIdx.y % D::kSplit) * D::kOD;
   const size_t pos_stride = (size_t)nh * HD;  // floats between positions
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
-  const size_t row_base = (size_t)b * T * nh + h;  // lse/dsum of (b, 0, h)
-  const int key0 = kb * D::kKeys + warp * 16;      // the warp's first key
-  const int keys[2] = {key0 + g, key0 + g + 8};   // this lane's two keys
+  // q and dout hold Tq positions an article, k, v, dk and dv Tk
+  const size_t base = (size_t)b * Tk * pos_stride + (size_t)h * HD;
+  const size_t q_base = (size_t)b * Tq * pos_stride + (size_t)h * HD;
+  const size_t row_base = (size_t)b * Tq * nh + h;  // lse/dsum of (b, 0, h)
+  const int key0 = kb * D::kKeys + warp * 16;       // the warp's first key
+  const int keys[2] = {key0 + g, key0 + g + 8};    // this lane's two keys
   bool kok[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
-    kok[r] = keys[r] < T && (key_mask == nullptr ||
-                             key_mask[(size_t)b * T + keys[r]] > 0.f);
+    kok[r] = keys[r] < Tk && (key_mask == nullptr ||
+                              key_mask[(size_t)b * Tk + keys[r]] > 0.f);
 
   float dka[D::kDT][4], dva[D::kDT][4];
 #pragma unroll
@@ -188,9 +191,10 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // no key of the block is attended: zeros, without reading anything
   const bool any = __syncthreads_or(kok[0] || kok[1]);
-  // causal: a row before the block's first key attends none of its keys
+  // causal (Tq == Tk): a row before the block's first key attends none of
+  // its keys
   const int q_begin = causal ? kb * D::kKeys : 0;  // block-uniform
-  const int n_tiles = any ? (T - q_begin + kQ - 1) / kQ : 0;
+  const int n_tiles = any ? (Tq - q_begin + kQ - 1) / kQ : 0;
 
   auto stage = [&](int tile, int buf) {
     float* qs = stages + buf * D::kStage;
@@ -199,15 +203,15 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* d_s = lse_s + kQ;
     float* rok_s = d_s + kQ;
     const int q0 = q_begin + tile * kQ;
-    tf32x3::stage_rows<HD, kThreads>(qs, kStride, q + base, pos_stride, q0,
-                                     kQ, T, tid);
-    tf32x3::stage_rows<HD, kThreads>(dos, kStride, dout + base, pos_stride,
-                                     q0, kQ, T, tid);
+    tf32x3::stage_rows<HD, kThreads>(qs, kStride, q + q_base, pos_stride,
+                                     q0, kQ, Tq, tid);
+    tf32x3::stage_rows<HD, kThreads>(dos, kStride, dout + q_base, pos_stride,
+                                     q0, kQ, Tq, tid);
     for (int i = tid; i < kQ; i += kThreads) {
       const int row = q0 + i;
       float l = 0.f, d = 0.f;
       bool ok = false;
-      if (row < T) {
+      if (row < Tq) {
         l = lse[row_base + (size_t)row * nh];
         d = dsum[row_base + (size_t)row * nh];
         ok = isfinite(l);
@@ -221,9 +225,9 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (n_tiles > 0) {
     tf32x3::stage_rows<HD, kThreads>(ks, kStride, k + base, pos_stride,
-                                     kb * D::kKeys, D::kKeys, T, tid);
+                                     kb * D::kKeys, D::kKeys, Tk, tid);
     tf32x3::stage_rows<HD, kThreads>(vs, kStride, v + base, pos_stride,
-                                     kb * D::kKeys, D::kKeys, T, tid);
+                                     kb * D::kKeys, D::kKeys, Tk, tid);
     stage(0, 0);  // one group: K, V and the first query tile
   }
   // the warp's 16 keys of K and V as A fragments, split at use
@@ -304,7 +308,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (keys[r] >= T) continue;
+    if (keys[r] >= Tk) continue;
     float* dk_row = dk + base + (size_t)keys[r] * pos_stride + col0;
     float* dv_row = dv + base + (size_t)keys[r] * pos_stride + col0;
 #pragma unroll
@@ -321,17 +325,18 @@ template <int HD>
 cudaError_t launch_dkv(const float* q, const float* k, const float* v,
                        const float* dout, const float* lse,
                        const float* dsum, const float* key_mask, float* dk,
-                       float* dv, int B, int T, int nh, int causal,
+                       float* dv, int B, int Tq, int Tk, int nh, int causal,
                        float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = Dkv<HD>::kSmem;
   static unsigned smem_set = 0;  // per instantiation: one per kernel
   const cudaError_t err =
       tf32x3::allow_smem(flash_bwd_dkv_kernel<HD>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + Dkv<HD>::kKeys - 1) / Dkv<HD>::kKeys,
+  const dim3 grid((Tk + Dkv<HD>::kKeys - 1) / Dkv<HD>::kKeys,
                   nh * Dkv<HD>::kSplit, B);
   flash_bwd_dkv_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, dsum, key_mask, dk, dv, T, nh, causal, sm_scale);
+      q, k, v, dout, lse, dsum, key_mask, dk, dv, Tq, Tk, nh, causal,
+      sm_scale);
   return cudaGetLastError();
 }
 
@@ -371,7 +376,7 @@ struct Dq : Split<HD> {
   static_assert(kTile % 4 == 0 && kStage % 4 == 0, "16-byte aligned tiles");
 };
 
-// grid (ceil(T / 64), nh * kSplit, B): one block per (64 query rows, head
+// grid (ceil(Tq / 64), nh * kSplit, B): one block per (64 query rows, head
 // and column half, article); Dq<HD>::kSmem bytes of dynamic shared memory
 template <int HD>
 __global__ void __launch_bounds__(kThreads, Dq<HD>::kMinBlocks)
@@ -381,8 +386,8 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ lse,
                     const float* __restrict__ dsum,
                     const float* __restrict__ key_mask,
-                    float* __restrict__ dq, int T, int nh, int causal,
-                    float sm_scale) {
+                    float* __restrict__ dq, int Tq, int Tk, int nh,
+                    int causal, float sm_scale) {
   using S = Dq<HD>;
   constexpr int kKeys = S::kKeys, kStride = S::kStride, kChunk = S::kChunk;
   extern __shared__ __align__(16) float smem[];
@@ -394,16 +399,18 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int h = blockIdx.y / S::kSplit, b = blockIdx.z;
   const int col0 = (blockIdx.y % S::kSplit) * S::kOD;  // dQ's first column
   const size_t pos_stride = (size_t)nh * HD;  // floats between positions
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD;
-  const size_t row_base = (size_t)b * T * nh + h;  // lse/dsum of (b, 0, h)
-  const int row0 = qb * S::kRows + warp * 16;      // the warp's first row
+  // q, dout and dq hold Tq positions an article, k and v Tk
+  const size_t base = (size_t)b * Tq * pos_stride + (size_t)h * HD;
+  const size_t k_base = (size_t)b * Tk * pos_stride + (size_t)h * HD;
+  const size_t row_base = (size_t)b * Tq * nh + h;  // lse/dsum of (b, 0, h)
+  const int row0 = qb * S::kRows + warp * 16;       // the warp's first row
   const int rows[2] = {row0 + g, row0 + g + 8};    // this lane's two rows
 
   float l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
   bool rok[2] = {false, false};  // a real row with a key to attend
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (rows[r] < T) {
+    if (rows[r] < Tq) {
       l[r] = lse[row_base + (size_t)rows[r] * nh];
       dd[r] = dsum[row_base + (size_t)rows[r] * nh];
       rok[r] = isfinite(l[r]);
@@ -414,7 +421,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (!__syncthreads_or(rok[0] || rok[1])) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (rows[r] >= T) continue;
+      if (rows[r] >= Tq) continue;
       float* dq_row = dq + base + (size_t)rows[r] * pos_stride + col0;
 #pragma unroll
       for (int n = 0; n < S::kDT; ++n)
@@ -430,7 +437,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* do_s = q_s + S::kRows * kStride;
   FragA q_reg[S::kQInRegs ? S::kKS : 1], do_reg[S::kQInRegs ? S::kKS : 1];
   if constexpr (S::kQInRegs) {
-    const bool in0 = rows[0] < T, in1 = rows[1] < T;
+    const bool in0 = rows[0] < Tq, in1 = rows[1] < Tq;
     const size_t o0 = base + (size_t)(in0 ? rows[0] : 0) * pos_stride;
     const size_t o1 = base + (size_t)(in1 ? rows[1] : 0) * pos_stride;
 #pragma unroll
@@ -463,8 +470,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int n = 0; n < S::kDT; ++n)
     dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
 
-  // causal: keys past the block's last row are never attended
-  const int t_end = causal ? min(T, (qb + 1) * S::kRows) : T;  // block-uniform
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end =
+      causal ? min(Tk, (qb + 1) * S::kRows) : Tk;  // block-uniform
   const int n_tiles = (t_end + kKeys - 1) / kKeys;
 
   auto stage = [&](int tile, int buf) {
@@ -472,14 +480,14 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* vs = ks + S::kTile;
     float* oks = vs + S::kTile;
     const int k0 = tile * kKeys;
-    tf32x3::stage_rows<HD, kThreads>(ks, kStride, k + base, pos_stride, k0,
-                                     kKeys, T, tid);
-    tf32x3::stage_rows<HD, kThreads>(vs, kStride, v + base, pos_stride, k0,
-                                     kKeys, T, tid);
+    tf32x3::stage_rows<HD, kThreads>(ks, kStride, k + k_base, pos_stride, k0,
+                                     kKeys, Tk, tid);
+    tf32x3::stage_rows<HD, kThreads>(vs, kStride, v + k_base, pos_stride, k0,
+                                     kKeys, Tk, tid);
     for (int j = tid; j < kKeys; j += kThreads) {
       const int key = k0 + j;
-      oks[j] = (key < T && (key_mask == nullptr ||
-                            key_mask[(size_t)b * T + key] > 0.f))
+      oks[j] = (key < Tk && (key_mask == nullptr ||
+                             key_mask[(size_t)b * Tk + key] > 0.f))
                    ? 1.f
                    : 0.f;
     }
@@ -490,9 +498,9 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* v_lo = k_lo + S::kTile;
   if constexpr (!S::kQInRegs) {  // in the first group, with the first tile
     tf32x3::stage_rows<HD, kThreads>(q_s, kStride, q + base, pos_stride,
-                                     qb * S::kRows, S::kRows, T, tid);
+                                     qb * S::kRows, S::kRows, Tq, tid);
     tf32x3::stage_rows<HD, kThreads>(do_s, kStride, dout + base, pos_stride,
-                                     qb * S::kRows, S::kRows, T, tid);
+                                     qb * S::kRows, S::kRows, Tq, tid);
   }
   stage(0, 0);
   for (int it = 0; it < n_tiles; ++it) {
@@ -561,7 +569,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (rows[r] >= T) continue;
+    if (rows[r] >= Tq) continue;
     float* dq_row = dq + base + (size_t)rows[r] * pos_stride + col0;
 #pragma unroll
     for (int n = 0; n < S::kDT; ++n)
@@ -573,17 +581,18 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int HD>
 cudaError_t launch_dq(const float* q, const float* k, const float* v,
                       const float* dout, const float* lse, const float* dsum,
-                      const float* key_mask, float* dq, int B, int T, int nh,
-                      int causal, float sm_scale, cudaStream_t stream) {
+                      const float* key_mask, float* dq, int B, int Tq,
+                      int Tk, int nh, int causal, float sm_scale,
+                      cudaStream_t stream) {
   constexpr size_t smem = Dq<HD>::kSmem;
   static unsigned smem_set = 0;  // per instantiation: one per kernel
   const cudaError_t err =
       tf32x3::allow_smem(flash_bwd_dq_kernel<HD>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + Dq<HD>::kRows - 1) / Dq<HD>::kRows,
+  const dim3 grid((Tq + Dq<HD>::kRows - 1) / Dq<HD>::kRows,
                   nh * Dq<HD>::kSplit, B);
   flash_bwd_dq_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, dout, lse, dsum, key_mask, dq, T, nh, causal, sm_scale);
+      q, k, v, dout, lse, dsum, key_mask, dq, Tq, Tk, nh, causal, sm_scale);
   return cudaGetLastError();
 }
 
@@ -667,7 +676,7 @@ struct DkvBf16 : Split<HD> {
   static constexpr size_t kSmem = kBarOff + (2 * kStages + 1) * 8 + 1024;
 };
 
-// grid (ceil(T / 128), nh * kSplit, B), kBf16Threads threads,
+// grid (ceil(Tk / 128), nh * kSplit, B), kBf16Threads threads,
 // DkvBf16<HD>::kSmem bytes of dynamic shared memory; the maps' boxes are
 // kQ rows (q, dO) and kBlockRows rows (k, v)
 template <int HD>
@@ -680,7 +689,8 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                           const float* __restrict__ dsum,
                           const float* __restrict__ key_mask,
                           wg::bf16* __restrict__ dk, wg::bf16* __restrict__ dv,
-                          int T, int nh, int causal, float sm_scale) {
+                          int Tq, int Tk, int nh, int causal,
+                          float sm_scale) {
   using D = DkvBf16<HD>;
   constexpr int kQ = D::kQ, kOD = D::kOD;
   extern __shared__ unsigned char smem_raw[];
@@ -699,8 +709,9 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const int kb = blockIdx.x, h = blockIdx.y / D::kSplit, b = blockIdx.z;
   const int col0 = (blockIdx.y % D::kSplit) * kOD;
   const size_t pos_stride = (size_t)nh * HD;
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD + col0;
-  const size_t row_base = (size_t)b * T * nh + h;
+  // of dk and dv, Tk positions an article; lse and dsum hold Tq
+  const size_t base = (size_t)b * Tk * pos_stride + (size_t)h * HD + col0;
+  const size_t row_base = (size_t)b * Tq * nh + h;
   const int k_blk = kb * kBlockRows;     // the block's first key
   const int kw = k_blk + 64 * (warp >> 2);  // the warpgroup's first key
   const int key0 = kw + 16 * (warp & 3) + g;
@@ -709,8 +720,8 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   if (!producer) {
 #pragma unroll
     for (int r = 0; r < 2; ++r)
-      kok[r] = keys[r] < T && (key_mask == nullptr ||
-                               key_mask[(size_t)b * T + keys[r]] > 0.f);
+      kok[r] = keys[r] < Tk && (key_mask == nullptr ||
+                                key_mask[(size_t)b * Tk + keys[r]] > 0.f);
   }
   float dka[kOD / 2], dva[kOD / 2];
 #pragma unroll
@@ -718,14 +729,15 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   // no key of the block is attended: zeros, without reading anything
   if (!__syncthreads_or(kok[0] || kok[1])) {
     if (!producer) {
-      store_rows<kOD>(dk + base, pos_stride, keys, T, dka, t);
-      store_rows<kOD>(dv + base, pos_stride, keys, T, dva, t);
+      store_rows<kOD>(dk + base, pos_stride, keys, Tk, dka, t);
+      store_rows<kOD>(dv + base, pos_stride, keys, Tk, dva, t);
     }
     return;
   }
-  // causal: a row before the block's first key attends none of its keys
+  // causal (Tq == Tk): a row before the block's first key attends none of
+  // its keys
   const int q_begin = causal ? k_blk : 0;
-  const int n_tiles = (T - q_begin + kQ - 1) / kQ;
+  const int n_tiles = (Tq - q_begin + kQ - 1) / kQ;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
       tma::mbar_init(&full[s], 32);
@@ -752,7 +764,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int i = lane; i < kQ; i += 32) {
         const int row = q0 + i;
         float l = INFINITY, d = 0.f;
-        if (row < T) {
+        if (row < Tq) {
           const float x = lse[row_base + (size_t)row * nh];
           if (isfinite(x)) l = x * kLog2e;
           d = dsum[row_base + (size_t)row * nh];
@@ -780,7 +792,7 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     tma::mbar_wait(&full[s], (it / kStages) & 1);
     const int q0 = q_begin + it * kQ;
     // causal: every row of the tile precedes the warpgroup's first key
-    if (kw < T && !(causal && q0 + kQ - 1 < kw)) {
+    if (kw < Tk && !(causal && q0 + kQ - 1 < kw)) {
       const unsigned char* qs = tiles + s * 2 * D::kTile;
       const unsigned char* dos = qs + D::kTile;
       const float* lse_s = rows_s + s * 2 * kQ;
@@ -842,34 +854,35 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     tma::mbar_arrive(&empty[s]);
   }
-  store_rows<kOD>(dk + base, pos_stride, keys, T, dka, t);
-  store_rows<kOD>(dv + base, pos_stride, keys, T, dva, t);
+  store_rows<kOD>(dk + base, pos_stride, keys, Tk, dka, t);
+  store_rows<kOD>(dv + base, pos_stride, keys, Tk, dva, t);
 }
 
 template <int HD>
 cudaError_t launch_dkv_bf16(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* dsum, const float* key_mask,
-                            void* dk, void* dv, int B, int T, int nh,
+                            void* dk, void* dv, int B, int Tq, int Tk, int nh,
                             int causal, float sm_scale, cudaStream_t stream) {
   using D = DkvBf16<HD>;
   CUtensorMap maps[4];
   const void* ptrs[4] = {q, k, v, dout};
   const int rows[4] = {D::kQ, kBlockRows, kBlockRows, D::kQ};
+  const int lens[4] = {Tq, Tk, Tk, Tq};
   for (int i = 0; i < 4; ++i) {
     const cudaError_t err =
-        wg::make_map(&maps[i], ptrs[i], B, T, nh, HD, rows[i]);
+        wg::make_map(&maps[i], ptrs[i], B, lens[i], nh, HD, rows[i]);
     if (err != cudaSuccess) return err;
   }
   static unsigned smem_set = 0;  // per instantiation: one per kernel
   const cudaError_t err =
       tf32x3::allow_smem(flash_bwd_dkv_bf16_kernel<HD>, D::kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kBlockRows - 1) / kBlockRows, nh * D::kSplit, B);
+  const dim3 grid((Tk + kBlockRows - 1) / kBlockRows, nh * D::kSplit, B);
   flash_bwd_dkv_bf16_kernel<HD><<<grid, kBf16Threads, D::kSmem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, dsum, key_mask,
-      static_cast<wg::bf16*>(dk), static_cast<wg::bf16*>(dv), T, nh, causal,
-      sm_scale);
+      static_cast<wg::bf16*>(dk), static_cast<wg::bf16*>(dv), Tq, Tk, nh,
+      causal, sm_scale);
   return cudaGetLastError();
 }
 
@@ -886,7 +899,7 @@ struct DqBf16 : Split<HD> {
   static_assert(kKeys <= 64, "one 64-bit word of key flags per tile");
 };
 
-// grid (ceil(T / 128), nh * kSplit, B), kBf16Threads threads,
+// grid (ceil(Tq / 128), nh * kSplit, B), kBf16Threads threads,
 // DqBf16<HD>::kSmem bytes of dynamic shared memory; the maps' boxes are
 // kBlockRows rows (q, dO) and kKeys rows (k, v)
 template <int HD>
@@ -898,8 +911,8 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                          const float* __restrict__ lse,
                          const float* __restrict__ dsum,
                          const float* __restrict__ key_mask,
-                         wg::bf16* __restrict__ dq, int T, int nh, int causal,
-                         float sm_scale) {
+                         wg::bf16* __restrict__ dq, int Tq, int Tk, int nh,
+                         int causal, float sm_scale) {
   using S = DqBf16<HD>;
   constexpr int kKeys = S::kKeys, kOD = S::kOD;
   extern __shared__ unsigned char smem_raw[];
@@ -920,8 +933,9 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   const int h = blockIdx.y / S::kSplit, b = blockIdx.z;
   const int col0 = (blockIdx.y % S::kSplit) * kOD;
   const size_t pos_stride = (size_t)nh * HD;
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * HD + col0;
-  const size_t row_base = (size_t)b * T * nh + h;
+  // of dq, lse and dsum: Tq positions an article
+  const size_t base = (size_t)b * Tq * pos_stride + (size_t)h * HD + col0;
+  const size_t row_base = (size_t)b * Tq * nh + h;
   const int r_blk = qb * kBlockRows;        // the block's first row
   const int rw = r_blk + 64 * (warp >> 2);  // the warpgroup's first row
   const int q_row = rw + 16 * (warp & 3) + g;
@@ -931,7 +945,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   if (!producer) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      if (rows[r] >= T) continue;
+      if (rows[r] >= Tq) continue;
       const float x = lse[row_base + (size_t)rows[r] * nh];
       rok[r] = isfinite(x);
       if (rok[r]) l[r] = x * kLog2e;
@@ -943,11 +957,11 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < kOD / 2; ++i) dqa[i] = 0.f;
   // no row of the block attends a key: zeros, without reading anything
   if (!__syncthreads_or(rok[0] || rok[1])) {
-    if (!producer) store_rows<kOD>(dq + base, pos_stride, rows, T, dqa, t);
+    if (!producer) store_rows<kOD>(dq + base, pos_stride, rows, Tq, dqa, t);
     return;
   }
-  // causal: keys past the block's last row are never attended
-  const int t_end = causal ? min(T, r_blk + kBlockRows) : T;
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, r_blk + kBlockRows) : Tk;
   const int n_tiles = (t_end + kKeys - 1) / kKeys;
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -976,8 +990,8 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int j = 0; j < kKeys; j += 32) {
         const int key = k0 + j + lane;
-        const bool ok = key < T && (key_mask == nullptr ||
-                                    key_mask[(size_t)b * T + key] > 0.f);
+        const bool ok = key < Tk && (key_mask == nullptr ||
+                                     key_mask[(size_t)b * Tk + key] > 0.f);
         bits |= (uint64_t)__ballot_sync(0xffffffffu, ok) << j;
       }
       unsigned char* ks = tiles + s * 2 * S::kTile;
@@ -1002,7 +1016,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     const int k0 = it * kKeys;
     const uint64_t bits = flags[s];
     // causal: every key of the tile follows the warpgroup's last row
-    if (bits != 0 && rw < T && !(causal && k0 > rw + 63)) {
+    if (bits != 0 && rw < Tq && !(causal && k0 > rw + 63)) {
       const unsigned char* ks = tiles + s * 2 * S::kTile;
       const unsigned char* vs = ks + S::kTile;
       float sa[kKeys / 2], pa[kKeys / 2];  // S then P; dP then dS
@@ -1051,32 +1065,33 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     tma::mbar_arrive(&empty[s]);
   }
-  store_rows<kOD>(dq + base, pos_stride, rows, T, dqa, t);
+  store_rows<kOD>(dq + base, pos_stride, rows, Tq, dqa, t);
 }
 
 template <int HD>
 cudaError_t launch_dq_bf16(const void* q, const void* k, const void* v,
                            const void* dout, const float* lse,
                            const float* dsum, const float* key_mask, void* dq,
-                           int B, int T, int nh, int causal, float sm_scale,
-                           cudaStream_t stream) {
+                           int B, int Tq, int Tk, int nh, int causal,
+                           float sm_scale, cudaStream_t stream) {
   using S = DqBf16<HD>;
   CUtensorMap maps[4];
   const void* ptrs[4] = {q, k, v, dout};
   const int rows[4] = {kBlockRows, S::kKeys, S::kKeys, kBlockRows};
+  const int lens[4] = {Tq, Tk, Tk, Tq};
   for (int i = 0; i < 4; ++i) {
     const cudaError_t err =
-        wg::make_map(&maps[i], ptrs[i], B, T, nh, HD, rows[i]);
+        wg::make_map(&maps[i], ptrs[i], B, lens[i], nh, HD, rows[i]);
     if (err != cudaSuccess) return err;
   }
   static unsigned smem_set = 0;  // per instantiation: one per kernel
   const cudaError_t err =
       tf32x3::allow_smem(flash_bwd_dq_bf16_kernel<HD>, S::kSmem, smem_set);
   if (err != cudaSuccess) return err;
-  const dim3 grid((T + kBlockRows - 1) / kBlockRows, nh * S::kSplit, B);
+  const dim3 grid((Tq + kBlockRows - 1) / kBlockRows, nh * S::kSplit, B);
   flash_bwd_dq_bf16_kernel<HD><<<grid, kBf16Threads, S::kSmem, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, dsum, key_mask,
-      static_cast<wg::bf16*>(dq), T, nh, causal, sm_scale);
+      static_cast<wg::bf16*>(dq), Tq, Tk, nh, causal, sm_scale);
   return cudaGetLastError();
 }
 
@@ -1167,88 +1182,89 @@ cudaError_t launch_wgmma_check(const void* x, const void* y, const void* z,
   return cudaGetLastError();
 }
 
-bool bad_shape(int B, int T, int nh) {
-  return B <= 0 || T <= 0 || nh <= 0 || B > 65535 || nh > 32767;
+bool bad_shape(int B, int Tq, int Tk, int nh, int causal) {
+  return B <= 0 || Tq <= 0 || Tk <= 0 || nh <= 0 || B > 65535 ||
+         nh > 32767 || (causal && Tq != Tk);
 }
 
 }  // namespace
 
-// q, k, v, dout [B, T, nh, hd], lse and dsum [B, T, nh], dk and dv
-// [B, T, nh, hd]: float32, contiguous, on one device; key_mask [B, T]
-// float32 (1 = real token) or null (every key real).  hd is 32, 128 or
-// 256.
+// q, dout [B, Tq, nh, hd], k, v [B, Tk, nh, hd], lse and dsum [B, Tq, nh],
+// dk and dv [B, Tk, nh, hd]: float32, contiguous, on one device; key_mask
+// [B, Tk] float32 (1 = real token) or null (every key real).  hd is 32,
+// 128 or 256; causal needs Tq == Tk.
 // Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int ts_flash_bwd_dkv(const float* q, const float* k,
                                 const float* v, const float* dout,
                                 const float* lse, const float* dsum,
                                 const float* key_mask, float* dk, float* dv,
-                                int B, int T, int nh, int hd, int causal,
-                                float sm_scale, void* stream) {
+                                int B, int Tq, int Tk, int nh, int hd,
+                                int causal, float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, T, nh)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Tq, Tk, nh, causal)) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
       return (int)launch_dkv<32>(q, k, v, dout, lse, dsum, key_mask, dk, dv,
-                                 B, T, nh, causal, sm_scale, st);
+                                 B, Tq, Tk, nh, causal, sm_scale, st);
     case 128:
       return (int)launch_dkv<128>(q, k, v, dout, lse, dsum, key_mask, dk,
-                                  dv, B, T, nh, causal, sm_scale, st);
+                                  dv, B, Tq, Tk, nh, causal, sm_scale, st);
     case 256:
       return (int)launch_dkv<256>(q, k, v, dout, lse, dsum, key_mask, dk,
-                                  dv, B, T, nh, causal, sm_scale, st);
+                                  dv, B, Tq, Tk, nh, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// As ts_flash_bwd_dkv; writes dq [B, T, nh, hd].
+// As ts_flash_bwd_dkv; writes dq [B, Tq, nh, hd].
 extern "C" int ts_flash_bwd_dq(const float* q, const float* k,
                                const float* v, const float* dout,
                                const float* lse, const float* dsum,
-                               const float* key_mask, float* dq, int B, int T,
-                               int nh, int hd, int causal, float sm_scale,
-                               void* stream) {
+                               const float* key_mask, float* dq, int B,
+                               int Tq, int Tk, int nh, int hd, int causal,
+                               float sm_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, T, nh)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Tq, Tk, nh, causal)) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      return (int)launch_dq<32>(q, k, v, dout, lse, dsum, key_mask, dq, B, T,
-                                nh, causal, sm_scale, st);
+      return (int)launch_dq<32>(q, k, v, dout, lse, dsum, key_mask, dq, B,
+                                Tq, Tk, nh, causal, sm_scale, st);
     case 128:
       return (int)launch_dq<128>(q, k, v, dout, lse, dsum, key_mask, dq, B,
-                                 T, nh, causal, sm_scale, st);
+                                 Tq, Tk, nh, causal, sm_scale, st);
     case 256:
       return (int)launch_dq<256>(q, k, v, dout, lse, dsum, key_mask, dq, B,
-                                 T, nh, causal, sm_scale, st);
+                                 Tq, Tk, nh, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
-// The bf16 forms: q, k, v, dout and dk, dv (or dq) [B, T, nh, hd]
-// bfloat16, contiguous, 16-byte aligned; lse, dsum and key_mask as the
-// f32 forms'.
+// The bf16 forms: q, k, v, dout and dk, dv (or dq) as above in bfloat16,
+// contiguous, 16-byte aligned; lse, dsum and key_mask as the f32 forms'.
 extern "C" int ts_flash_bwd_dkv_bf16(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const float* lse, const float* dsum,
                                      const float* key_mask, void* dk,
-                                     void* dv, int B, int T, int nh, int hd,
-                                     int causal, float sm_scale,
+                                     void* dv, int B, int Tq, int Tk, int nh,
+                                     int hd, int causal, float sm_scale,
                                      void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, T, nh)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Tq, Tk, nh, causal)) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
       return (int)launch_dkv_bf16<32>(q, k, v, dout, lse, dsum, key_mask, dk,
-                                      dv, B, T, nh, causal, sm_scale, st);
+                                      dv, B, Tq, Tk, nh, causal, sm_scale,
+                                      st);
     case 128:
       return (int)launch_dkv_bf16<128>(q, k, v, dout, lse, dsum, key_mask,
-                                       dk, dv, B, T, nh, causal, sm_scale,
-                                       st);
+                                       dk, dv, B, Tq, Tk, nh, causal,
+                                       sm_scale, st);
     case 256:
       return (int)launch_dkv_bf16<256>(q, k, v, dout, lse, dsum, key_mask,
-                                       dk, dv, B, T, nh, causal, sm_scale,
-                                       st);
+                                       dk, dv, B, Tq, Tk, nh, causal,
+                                       sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -1258,20 +1274,21 @@ extern "C" int ts_flash_bwd_dq_bf16(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const float* lse, const float* dsum,
                                     const float* key_mask, void* dq, int B,
-                                    int T, int nh, int hd, int causal,
-                                    float sm_scale, void* stream) {
+                                    int Tq, int Tk, int nh, int hd,
+                                    int causal, float sm_scale,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bad_shape(B, T, nh)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Tq, Tk, nh, causal)) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
       return (int)launch_dq_bf16<32>(q, k, v, dout, lse, dsum, key_mask, dq,
-                                     B, T, nh, causal, sm_scale, st);
+                                     B, Tq, Tk, nh, causal, sm_scale, st);
     case 128:
       return (int)launch_dq_bf16<128>(q, k, v, dout, lse, dsum, key_mask, dq,
-                                      B, T, nh, causal, sm_scale, st);
+                                      B, Tq, Tk, nh, causal, sm_scale, st);
     case 256:
       return (int)launch_dq_bf16<256>(q, k, v, dout, lse, dsum, key_mask, dq,
-                                      B, T, nh, causal, sm_scale, st);
+                                      B, Tq, Tk, nh, causal, sm_scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

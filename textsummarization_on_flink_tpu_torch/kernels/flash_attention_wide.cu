@@ -11,7 +11,9 @@
 // zero-pads any head dim to a multiple of 128 for the library kernel
 // (models/transformer.py:262-272); ops/flash_attention.py pads the same way
 // and sends a padded head dim above 256 here.  Per article b, head h and
-// query row i (q, k, v, out [B, T, nh, hd], contiguous):
+// query row i (q, out, dout, dq [B, Tq, nh, hd], k, v, dk, dv [B, Tk, nh,
+// hd], contiguous; Tq < Tk is one sp rank's block of query rows against
+// every key, and needs causal off):
 //
 //   s_j   = (q_i . k_j) * sm_scale   for every key j the row may attend:
 //           key_mask[b, j] > 0 (all keys when key_mask is null) and, when
@@ -26,16 +28,57 @@
 // ops/flash_attention.py): products of bf16 values are exact in f32 and
 // summed in f32; P is rounded to bf16 before P V and before dV = P^T dO,
 // scale * dS before dK and dQ, each output once.  f32 operands stay at
-// f32 accuracy: every product is an f32 FMA.
+// f32 accuracy: 3xTF32 on the tensor cores (mma_tf32x3.cuh), or f32 FMA.
 //
-// What bounds it on an H100: operations.  At 16 x 400 x 1 x 512 with a
+// What bounds them on an H100: operations.  At 16 x 400 x 1 x 512 with a
 // key mask the forward does 4 * hd per attended pair, 5.24 GFLOP: 0.032
 // ms at the 3xTF32 rate of the f32 kernels (165 TFLOP/s), 0.0053 ms at
 // the bf16 tensor-core rate, where the 26.2 MB of bf16 q, k, v and out
-// (0.0078 ms at 3.35 TB/s) bound it instead.  These kernels are the
-// simple form, far from that: SIMT FMA at the 67 TFLOP/s f32 rate, and
-// each block forms S (and dP) over the whole head dim for one 128-wide
-// slab of its output.  The design:
+// (0.0078 ms at 3.35 TB/s) bound it instead; dK/dV does 8 * hd.
+//
+// The forward and dK/dV up to head dim 1024: a thread block cluster per
+// (block of rows, head, article) splits the head dim.
+//
+//   * the cluster holds hd / 128 blocks (at most 8, the portable size);
+//     block r owns the columns [128 r, 128 r + 128) of q, k, v (and dO)
+//     and of its output, so its registers and tiles are those of the
+//     head-dim-128 kernels of flash_attention.cu and
+//     flash_attention_bwd.cu, and the cluster fills the card where the
+//     heads are few (16 x 400 x 1 x 512: 448 blocks where 64-row blocks
+//     alone would be 112);
+//   * per tile of the loop each block forms its partial S = Q K^T (and in
+//     dK/dV the partial dP^T = V dO^T) over its 128 columns on the tensor
+//     cores, writes it to shared memory in its accumulator fragment
+//     layout, and after one cluster barrier every block adds the
+//     cluster's partials, read through distributed shared memory, in rank
+//     order: every block holds the same S, so the softmax (its running max
+//     and sum) is the same in each, and S and dP are formed once per tile
+//     for all the output's columns.  The partials alternate between two
+//     buffers, so one barrier a tile keeps a buffer from being rewritten
+//     while a peer reads it;
+//   * f32: the geometry of the f32 kernels at hd 128 (4 warps, 64 rows or
+//     keys a block; key tiles of 16 or query tiles of 8 rows staged by
+//     cp.async, double-buffered, split to hi/lo once); S, P V, dV and dK
+//     are m16n8k8 3xTF32 `mma.sync` products (mma_tf32x3.cuh); the
+//     forward exchanges the next tile's partial S behind this tile's
+//     P V, the cluster barrier split into its arrive and its wait;
+//   * bf16: two warpgroups of 64 rows or keys a block (128 in all) run
+//     their products as `wgmma` (wgmma_bf16.cuh) on tiles the TMA unit
+//     copies (128-column boxes of the head: the tensor maps span the whole
+//     head dim, each block's copies start at its slab), 2 stages, the
+//     next tile's copy issued before the current tile's products; P and
+//     dS^T pass to the next product in registers.  No producer warpgroup
+//     and no `setmaxnreg`: every thread takes part in the cluster
+//     barriers, and thread 0 issues the copies;
+//   * a key the row may not attend gets s = -inf (p exactly 0); a tile no
+//     key of which is real and unmasked is skipped by the whole cluster
+//     (every block reads the same key flags); causal tiles past the
+//     block's last row (forward) or before its first key (dK/dV) are never
+//     visited.  No atomics: two runs give the same bits.
+//
+// Above head dim 1024, and the dQ kernel at every wide head dim: the
+// simple form, SIMT FMA at the 67 TFLOP/s f32 rate, each block forming S
+// (and dP) over the whole head dim for one 128-wide slab of its output:
 //
 //   * 256 threads (16 x 16) a block; the block owns 64 rows (query rows
 //     in the forward and dQ, keys in dK/dV) and walks 64-wide tiles of
@@ -46,32 +89,36 @@
 //     padded row (33 floats: the 16 rows a half-warp reads lie in 16
 //     banks), so shared memory does not grow with the head dim;
 //   * the grid's y axis holds head x slab: each block keeps only its 128
-//     columns of O, dK and dV, or dQ, the hd-256 kernels' two-block split
-//     generalised to hd / 128 blocks;
+//     columns of O, dK and dV, or dQ;
 //   * the forward's online softmax runs on S's registers, the row max and
 //     sum reduced over the 16 threads of a half-warp with shuffles; P
 //     (and in the backward P and dS) goes through shared memory to the
 //     slab product, whose other operand (v, dO and q, or k) is staged 64
-//     x 128 in the space the chunks used;
-//   * a key the row may not attend gets s = -inf, so p is exactly 0 (the
-//     running max never drops below -1e30); causal tiles past the block's
-//     last row (forward, dQ) or before its first key (dK/dV) are never
-//     visited.  No atomics: two runs give the same bits.
+//     x 128 in the space the chunks used.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // -Xcompiler -fPIC (see kernels/build.py).  C entry points (one per
 // kernel and dtype) bound with ctypes from ops/flash_attention.py.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#include "mma_tf32x3.cuh"  // allow_smem
+#include "flash_bf16.cuh"  // ex2, align1024, store_rows, wgmma_bf16.cuh
+#include "mma_tf32x3.cuh"  // 3xTF32 products, cp.async, allow_smem
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 using bf16 = __nv_bfloat16;
+using flash_bf16::align1024;
+using flash_bf16::ex2;
+using flash_bf16::kLog2e;
+using flash_bf16::store_rows;
+using tf32x3::FragA;
 
 constexpr float kNeg = -1e30f;  // running-max floor, never -inf
 constexpr int kThreads = 256;   // 16 x 16
@@ -84,6 +131,7 @@ constexpr int kPS = kCols + 1;  // floats per row of P / dS in shared memory
 constexpr int kChunkTile = kRows * kCS;   // floats of one staged chunk
 constexpr int kSlabTile = kRows * kSlab;  // floats of one staged slab
 constexpr int kPTile = kRows * kPS;       // floats of P or dS
+constexpr int kMaxCluster = 8;  // blocks of a portable cluster
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) {
@@ -115,13 +163,16 @@ __device__ __forceinline__ void stage(float* dst, int stride, const E* src,
   }
 }
 
-// may key `key` be attended at all (real and unmasked)
+// may key `key` of article b (Tk keys) be attended at all (real and
+// unmasked)
+__device__ __forceinline__ bool key_ok(const float* key_mask, int b, int Tk,
+                                       int key) {
+  return key < Tk &&
+         (key_mask == nullptr || key_mask[(size_t)b * Tk + key] > 0.f);
+}
 __device__ __forceinline__ float key_flag(const float* key_mask, int b,
-                                          int T, int key) {
-  return (key < T && (key_mask == nullptr ||
-                      key_mask[(size_t)b * T + key] > 0.f))
-             ? 1.f
-             : 0.f;
+                                          int Tk, int key) {
+  return key_ok(key_mask, b, Tk, key) ? 1.f : 0.f;
 }
 
 // the 16 threads of a half-warp hold one row's columns
@@ -137,6 +188,918 @@ __device__ __forceinline__ float row_sum(float x) {
   return x;
 }
 
+// ---------------------------------------------------------------------------
+// The cluster forms (head dims up to 128 * kMaxCluster).
+
+// acc (kN groups of 4 floats of this thread's fragment, each the
+// float4 idx(i) of an exchange buffer) = the cluster's partials at `xb`
+// (this block's buffer; the same offset in every block), summed in rank
+// order, so every block gets the same bits
+template <int kN, class Idx>
+__device__ __forceinline__ void sum_partials(float (&acc)[kN][4],
+                                             cg::cluster_group& cluster,
+                                             float* xb, int C, Idx idx) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int r = 0; r < C; ++r) {
+    const float4* px =
+        reinterpret_cast<const float4*>(cluster.map_shared_rank(xb, r));
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const float4 p = px[idx(i)];
+      acc[i][0] += p.x;
+      acc[i][1] += p.y;
+      acc[i][2] += p.z;
+      acc[i][3] += p.w;
+    }
+  }
+}
+
+// an accumulator's 4 floats as the float4 of an exchange buffer
+__device__ __forceinline__ float4 f4(const float* x) {
+  return make_float4(x[0], x[1], x[2], x[3]);
+}
+
+// barrier.cluster split in two: a block's threads arrive once their
+// partials are written and wait before they read the peers', with other
+// work in between
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+// The f32 forward's block: 64 query rows, 4 warps of 16, key tiles of 16
+// keys (the head-dim-128 forward's geometry, flash_attention.cu).  q is
+// split once: each warp keeps the TF32 hi parts of its A fragments in
+// registers (64 a thread) and writes the lo parts back over the staged
+// q, so Q K^T splits nothing per tile (the split at use was a third of
+// the instructions).  K and V tiles have rings of their own (hi and lo
+// parts, K with the tile's key flags), so that tile it + 1's partial S is
+// formed and exchanged while tile it's P V runs; two exchange buffers of
+// the warps' S fragments.  109,696 bytes: two blocks an SM.
+struct ClusterFwdF32 {
+  static constexpr int kThreads = 128;
+  static constexpr int kRows = 64;
+  static constexpr int kKeys = 16;
+  static constexpr int kStride = kSlab + 4;  // floats per shared row
+  static constexpr int kKS = kSlab / 8;      // k-steps of Q K^T
+  static constexpr int kNT = kKeys / 8;      // 8-key column tiles of S
+  static constexpr int kOT = kSlab / 8;      // 8-wide column tiles of O
+  static constexpr int kTile = kKeys * kStride;
+  static constexpr int kKStage = 2 * kTile + kKeys;  // hi, lo, key flags
+  static constexpr int kVStage = 2 * kTile;          // hi, lo
+  static constexpr int kQ = kRows * kStride;
+  static constexpr int kX = 4 * kNT * 4 * 32;  // floats of a buffer
+  static constexpr size_t kSmem =
+      (2 * kKStage + 2 * kVStage + kQ + 2 * kX) * sizeof(float);
+};
+
+// grid (C * ceil(Tq / 64), nh, B) in clusters of (C, 1, 1), C = hd / 128;
+// ClusterFwdF32::kThreads threads, kSmem bytes of dynamic shared memory.
+// Iteration it, behind one block barrier: the copy of K(it + 2) and
+// V(it + 1) is issued; the warps form K(it + 1)'s partial S, write it and
+// arrive on the cluster barrier; run tile it's softmax and P V (its S
+// summed in the previous iteration); wait on the barrier and sum tile
+// it + 1's partials.  So the barrier's latency and the copies overlap the
+// products.
+__global__ void __launch_bounds__(ClusterFwdF32::kThreads, 2)
+flash_fwd_cluster_f32_kernel(const float* __restrict__ q,
+                             const float* __restrict__ k,
+                             const float* __restrict__ v,
+                             const float* __restrict__ key_mask,
+                             float* __restrict__ out,
+                             float* __restrict__ lse, int Tq, int Tk, int nh,
+                             int hd, int causal, float sm_scale) {
+  using S = ClusterFwdF32;
+  constexpr int kKeys = S::kKeys, kStride = S::kStride, kNT = S::kNT;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * kSlab;
+  float* k_ring = smem;                      // 2 x (hi, lo, flags)
+  float* v_ring = k_ring + 2 * S::kKStage;   // 2 x (hi, lo)
+  float* q_s = v_ring + 2 * S::kVStage;
+  float* x_s = q_s + S::kQ;                  // the two exchange buffers
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const size_t pos_stride = (size_t)nh * hd;
+  const size_t base = (size_t)b * Tq * pos_stride + (size_t)h * hd + col0;
+  const float* kb = k + (size_t)b * Tk * pos_stride + (size_t)h * hd + col0;
+  const float* vb = v + (size_t)b * Tk * pos_stride + (size_t)h * hd + col0;
+  const int row0 = qb * S::kRows + warp * 16;  // the warp's first row
+  const int rows[2] = {row0 + g, row0 + g + 8};
+
+  // the warp's A fragments of q: hi in registers, lo in q_s (in place)
+  float* q_warp = q_s + warp * 16 * kStride;
+  uint32_t q_hi[S::kKS][4];
+  auto q_at = [&](int kk, int i) {  // A fragment element i of k-step kk
+    return q_warp + 8 * kk + (g + 8 * (i & 1)) * kStride + t + 4 * (i >> 1);
+  };
+  auto q_frag = [&](int kk) -> FragA {
+    FragA f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      f.hi[i] = q_hi[kk][i];
+      f.lo[i] = __float_as_uint(*q_at(kk, i));
+    }
+    return f;
+  };
+  float o[S::kOT][4];
+#pragma unroll
+  for (int n = 0; n < S::kOT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, (qb + 1) * S::kRows) : Tk;
+  const int n_tiles = (t_end + kKeys - 1) / kKeys;
+
+  auto stage_k = [&](int tile) {
+    float* ks = k_ring + (tile & 1) * S::kKStage;
+    const int k0 = tile * kKeys;
+    tf32x3::stage_rows<kSlab, S::kThreads>(ks, kStride, kb, pos_stride, k0,
+                                           kKeys, Tk, tid);
+    for (int j = tid; j < kKeys; j += S::kThreads)
+      ks[2 * S::kTile + j] = key_flag(key_mask, b, Tk, k0 + j);
+  };
+  auto stage_v = [&](int tile) {
+    tf32x3::stage_rows<kSlab, S::kThreads>(v_ring + (tile & 1) * S::kVStage,
+                                           kStride, vb, pos_stride,
+                                           tile * kKeys, kKeys, Tk, tid);
+  };
+  // each thread splits the chunks it copied (stage_rows' split)
+  auto split_k = [&](int tile) {
+    float* ks = k_ring + (tile & 1) * S::kKStage;
+    tf32x3::split_tile<kSlab, S::kThreads>(ks, ks + S::kTile, kStride, kKeys,
+                                           tid);
+  };
+  auto split_v = [&](int tile) {
+    float* vs = v_ring + (tile & 1) * S::kVStage;
+    tf32x3::split_tile<kSlab, S::kThreads>(vs, vs + S::kTile, kStride, kKeys,
+                                           tid);
+  };
+  // does the warp run the tile: its rows are real (the last block of an
+  // article may hold fewer than 64) and, causal, the last of them does not
+  // precede the tile (the same warp of every block)
+  auto active = [&](int tile) {
+    return row0 < Tq && (!causal || tile * kKeys <= row0 + 15);
+  };
+  auto xi = [&](int j) { return (warp * kNT + j) * 32 + lane; };
+  // this block's partial S of a tile over its 128 columns into exchange
+  // buffer `xb`, and this thread's key flags of it (bit 2 j + e: column
+  // 8 j + 2 t + e)
+  auto partial = [&](int tile, float* xb, unsigned& ok_bits) {
+    const float* ks = k_ring + (tile & 1) * S::kKStage;
+    float s[kNT][4];
+    const tf32x3::SplitTile kt{ks, ks + S::kTile};
+    tf32x3::head_dim_product<kNT, S::kKS>(s, q_frag, kt, kStride, g, t);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+      reinterpret_cast<float4*>(xb)[xi(j)] = f4(s[j]);
+    ok_bits = 0;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        ok_bits |= (ks[2 * S::kTile + 8 * j + 2 * t + e] > 0.f ? 1u : 0u)
+                   << (2 * j + e);
+  };
+  // does any key of a staged tile be real and unmasked (every block of the
+  // cluster reads the same flags); also the block's barrier
+  auto any_key = [&](int tile) {
+    return __syncthreads_or(tile < n_tiles && tid < kKeys &&
+                            k_ring[(tile & 1) * S::kKStage + 2 * S::kTile +
+                                   tid] > 0.f);
+  };
+
+  // the first tile: q, K(0), V(0) and K(1) in one copy; tile 0's S
+  tf32x3::stage_rows<kSlab, S::kThreads>(q_s, kStride, q + base, pos_stride,
+                                         qb * S::kRows, S::kRows, Tq, tid);
+  stage_k(0);
+  stage_v(0);
+  if (n_tiles > 1) stage_k(1);
+  tf32x3::cp_async_commit();
+  tf32x3::cp_async_wait<0>();
+  split_k(0);
+  split_v(0);
+  if (n_tiles > 1) split_k(1);
+  __syncthreads();  // q has landed for every warp
+#pragma unroll
+  for (int kk = 0; kk < S::kKS; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float* x = q_at(kk, i);
+      uint32_t lo;
+      tf32x3::split(*x, q_hi[kk][i], lo);
+      *x = __uint_as_float(lo);  // only this lane reads it
+    }
+  bool any_cur = any_key(0);
+  int ex = 0;  // exchanges so far: their buffers alternate
+  float s_cur[kNT][4];
+  unsigned ok_cur = 0;
+  if (any_cur) {
+    float* xb = x_s + (ex & 1) * S::kX;
+    if (active(0)) partial(0, xb, ok_cur);
+    cluster.sync();
+    if (active(0)) sum_partials<kNT>(s_cur, cluster, xb, C, xi);
+    ++ex;
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it > 0) {  // K(it + 1) and V(it), copied during tile it - 1
+      tf32x3::cp_async_wait<0>();
+      if (it + 1 < n_tiles) split_k(it + 1);
+      split_v(it);
+    }
+    // the copies have landed and every warp is done with tile it - 1
+    const bool any_next = any_key(it + 1);
+    if (it + 2 < n_tiles) stage_k(it + 2);  // K(it)'s stage: S(it) formed
+    if (it + 1 < n_tiles) stage_v(it + 1);  // V(it - 1)'s stage
+    tf32x3::cp_async_commit();
+    // tile it + 1's partial S, exchanged behind tile it's products
+    float* xb = x_s + (ex & 1) * S::kX;
+    unsigned ok_next = 0;
+    if (any_next) {
+      if (active(it + 1)) partial(it + 1, xb, ok_next);
+      cluster_arrive();
+    }
+    if (any_cur && active(it)) {
+      const int k0 = it * kKeys;
+      const bool diag = causal && k0 + kKeys - 1 > qb * S::kRows;
+      float s[kNT][4];
+      float cmax[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const int r = e >> 1;
+          const bool ok = ((ok_cur >> (2 * j + (e & 1))) & 1) &&
+                          (!diag || k0 + col <= rows[r]);
+          s[j][e] = ok ? s_cur[j][e] * sm_scale : -INFINITY;
+          cmax[r] = fmaxf(cmax[r], s[j][e]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 1));
+        cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 2));
+        const float m_new = fmaxf(m[r], cmax[r]);
+        alpha[r] = expf(m[r] - m_new);  // 0 on the row's first real key
+        m[r] = m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int n = 0; n < S::kOT; ++n) {
+        o[n][0] *= alpha[0];
+        o[n][1] *= alpha[0];
+        o[n][2] *= alpha[1];
+        o[n][3] *= alpha[1];
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = expf(s[j][e] - m[e >> 1]);  // masked: exactly 0
+          s[j][e] = p;
+          l[e >> 1] += p;
+        }
+      }
+      // O += P V over this block's columns
+      const float* vs = v_ring + (it & 1) * S::kVStage;
+      const tf32x3::SplitTile vt{vs, vs + S::kTile};
+      tf32x3::tile_product<kNT, S::kOT, kNT>(o, s, vt, kStride, g, t);
+    }
+    if (any_next) {
+      cluster_wait();  // every block's partial of tile it + 1 is written
+      if (active(it + 1)) sum_partials<kNT>(s_cur, cluster, xb, C, xi);
+      ++ex;
+    }
+    any_cur = any_next;
+    ok_cur = ok_next;
+  }
+  cluster.sync();  // no block leaves while a peer reads its partials
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Tq) continue;
+    float* o_row = out + base + (size_t)rows[r] * pos_stride;
+#pragma unroll
+    for (int n = 0; n < S::kOT; ++n) {
+      float2 val = make_float2(0.f, 0.f);
+      if (l[r] > 0.f)
+        val = make_float2(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+      *reinterpret_cast<float2*>(o_row + 8 * n + 2 * t) = val;
+    }
+    if (lse != nullptr && t == 0 && col0 == 0)  // one block of the cluster
+      lse[((size_t)b * Tq + rows[r]) * nh + h] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
+  }
+}
+
+// The f32 dK/dV's block: 64 keys, 4 warps of 16 (the head-dim-128 dK/dV
+// kernel's geometry, flash_attention_bwd.cu): K and V staged once, tiles
+// of 8 query rows with their lse and D (8, not 16: dK and dV take 128
+// registers a thread, and a wider tile's S^T and dP^T beside them
+// spilled); two exchange buffers of the warps' S^T and dP^T fragments.
+// 101,376 bytes: two blocks an SM.
+struct ClusterDkvF32 {
+  static constexpr int kThreads = 128;
+  static constexpr int kKeys = 64;
+  static constexpr int kQ = 8;               // query rows per tile
+  static constexpr int kStride = kSlab + 4;  // floats per shared row
+  static constexpr int kKS = kSlab / 8;
+  static constexpr int kNT = kQ / 8;         // 8-query column tiles of S^T
+  static constexpr int kDT = kSlab / 8;      // 8-wide tiles of dK, dV
+  static constexpr int kKV = 2 * kKeys * kStride;
+  static constexpr int kTile = kQ * kStride;
+  // q, dO (hi after the split), then lse, D, a row flag (+ kQ of padding)
+  static constexpr int kStage = 2 * kTile + 4 * kQ;
+  static constexpr int kX = 2 * 4 * kNT * 4 * 32;  // floats of a buffer
+  static constexpr size_t kSmem =
+      (kKV + 2 * kStage + 2 * kTile + 2 * kX) * sizeof(float);
+};
+
+// grid (C * ceil(Tk / 64), nh, B) in clusters of (C, 1, 1), C = hd / 128;
+// ClusterDkvF32::kThreads threads, kSmem bytes of dynamic shared memory
+__global__ void __launch_bounds__(ClusterDkvF32::kThreads, 2)
+flash_bwd_dkv_cluster_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    const float* __restrict__ key_mask, float* __restrict__ dk,
+    float* __restrict__ dv, int Tq, int Tk, int nh, int hd, int causal,
+    float sm_scale) {
+  using D = ClusterDkvF32;
+  constexpr int kQ = D::kQ, kStride = D::kStride, kNT = D::kNT;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * kSlab;
+  float* ks = smem;
+  float* vs = smem + D::kKeys * kStride;
+  float* stages = smem + D::kKV;
+  float* x_s = stages + 2 * D::kStage + 2 * D::kTile;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const size_t pos_stride = (size_t)nh * hd;
+  const size_t base = (size_t)b * Tk * pos_stride + (size_t)h * hd + col0;
+  const size_t q_base = (size_t)b * Tq * pos_stride + (size_t)h * hd + col0;
+  const size_t row_base = (size_t)b * Tq * nh + h;  // lse/dsum of (b, 0, h)
+  const int key0 = kb * D::kKeys + warp * 16;       // the warp's first key
+  const int keys[2] = {key0 + g, key0 + g + 8};
+  bool kok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kok[r] = key_ok(key_mask, b, Tk, keys[r]);
+
+  float dka[D::kDT][4], dva[D::kDT][4];
+#pragma unroll
+  for (int n = 0; n < D::kDT; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+  // no key of the block is attended: zeros (the whole cluster agrees)
+  const bool any = __syncthreads_or(kok[0] || kok[1]);
+  // causal (Tq == Tk): a row before the block's first key attends none
+  const int q_begin = causal ? kb * D::kKeys : 0;
+  const int n_tiles = any ? (Tq - q_begin + kQ - 1) / kQ : 0;
+
+  auto stage_q = [&](int tile, int buf) {
+    float* qs = stages + buf * D::kStage;
+    float* dos = qs + D::kTile;
+    float* lse_s = dos + D::kTile;
+    float* d_s = lse_s + kQ;
+    float* rok_s = d_s + kQ;
+    const int q0 = q_begin + tile * kQ;
+    tf32x3::stage_rows<kSlab, D::kThreads>(qs, kStride, q + q_base,
+                                           pos_stride, q0, kQ, Tq, tid);
+    tf32x3::stage_rows<kSlab, D::kThreads>(dos, kStride, dout + q_base,
+                                           pos_stride, q0, kQ, Tq, tid);
+    for (int i = tid; i < kQ; i += D::kThreads) {
+      const int row = q0 + i;
+      float lv = 0.f, d = 0.f;
+      bool ok = false;
+      if (row < Tq) {
+        lv = lse[row_base + (size_t)row * nh];
+        d = dsum[row_base + (size_t)row * nh];
+        ok = isfinite(lv);
+      }
+      lse_s[i] = ok ? lv : 0.f;
+      d_s[i] = d;
+      rok_s[i] = ok ? 1.f : 0.f;  // a real row with a key to attend
+    }
+    tf32x3::cp_async_commit();
+  };
+
+  if (n_tiles > 0) {
+    tf32x3::stage_rows<kSlab, D::kThreads>(ks, kStride, k + base, pos_stride,
+                                           kb * D::kKeys, D::kKeys, Tk, tid);
+    tf32x3::stage_rows<kSlab, D::kThreads>(vs, kStride, v + base, pos_stride,
+                                           kb * D::kKeys, D::kKeys, Tk, tid);
+    stage_q(0, 0);  // one group: K, V and the first query tile
+  }
+  const float* kw = ks + warp * 16 * kStride;
+  const float* vw = vs + warp * 16 * kStride;
+  auto k_frag = [&](int kk) {
+    return tf32x3::load_a(kw + 8 * kk, kStride, g, t);
+  };
+  auto v_frag = [&](int kk) {
+    return tf32x3::load_a(vw + 8 * kk, kStride, g, t);
+  };
+  float* q_lo = stages + 2 * D::kStage;
+  float* do_lo = q_lo + D::kTile;
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage_q(it + 1, (it + 1) & 1);
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    float* qs = stages + (it & 1) * D::kStage;
+    float* dos = qs + D::kTile;
+    tf32x3::split_tile<kSlab, D::kThreads>(qs, q_lo, kStride, kQ, tid);
+    tf32x3::split_tile<kSlab, D::kThreads>(dos, do_lo, kStride, kQ, tid);
+    __syncthreads();
+
+    const int q0 = q_begin + it * kQ;
+    // the warp's keys are real (the last block may hold fewer than 64)
+    // and, causal, not every row of the tile precedes its first key (the
+    // same warp of every block)
+    const bool active = key0 < Tk && (!causal || q0 + kQ - 1 >= key0);
+    float* xb = x_s + (ex & 1) * D::kX;
+    auto xi = [&](int j) { return (warp * 2 * kNT + j) * 32 + lane; };
+    float p[kNT][4], ds[kNT][4];
+    if (active) {
+      // this block's partial S^T = K Q^T and dP^T = V dO^T
+      const tf32x3::SplitTile qt{qs, q_lo}, dot{dos, do_lo};
+      tf32x3::head_dim_product<kNT, D::kKS>(p, k_frag, qt, kStride, g, t);
+      tf32x3::head_dim_product<kNT, D::kKS>(ds, v_frag, dot, kStride, g, t);
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        reinterpret_cast<float4*>(xb)[xi(j)] = f4(p[j]);
+        reinterpret_cast<float4*>(xb)[xi(kNT + j)] = f4(ds[j]);
+      }
+    }
+    cluster.sync();
+    ++ex;
+    if (active) {
+      // S^T summed into the partial's registers, then P^T =
+      // exp(S^T * scale - lse); exactly 0 where the pair is masked or the
+      // row has no key to attend
+      sum_partials<kNT>(p, cluster, xb, C, xi);
+      const float* lse_s = dos + D::kTile;
+      const float* d_s = lse_s + kQ;
+      const float* rok_s = d_s + kQ;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * j + 2 * t + (e & 1);
+          const int r = e >> 1;
+          const bool ok = kok[r] && rok_s[col] > 0.f &&
+                          (!causal || keys[r] <= q0 + col);
+          p[j][e] = ok ? expf(p[j][e] * sm_scale - lse_s[col]) : 0.f;
+        }
+      }
+      const tf32x3::SplitTile qt{qs, q_lo}, dot{dos, do_lo};
+      // dV += P^T dO over this block's columns
+      tf32x3::tile_product<kNT, D::kDT, kNT>(dva, p, dot, kStride, g, t);
+      // dP^T summed (read after dV's product: fewer registers live), then
+      // dS^T = P^T (dP^T - D) and dK += dS^T Q
+      sum_partials<kNT>(ds, cluster, xb, C,
+                        [&](int j) { return xi(kNT + j); });
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          ds[j][e] = p[j][e] * (ds[j][e] - d_s[8 * j + 2 * t + (e & 1)]);
+      }
+      tf32x3::tile_product<kNT, D::kDT, kNT>(dka, ds, qt, kStride, g, t);
+    }
+    __syncthreads();  // every warp is done with buffer it & 1 and the lo
+  }
+  if (n_tiles > 0) cluster.sync();  // no block leaves while a peer reads
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= Tk) continue;
+    float* dk_row = dk + base + (size_t)keys[r] * pos_stride;
+    float* dv_row = dv + base + (size_t)keys[r] * pos_stride;
+#pragma unroll
+    for (int n = 0; n < D::kDT; ++n) {
+      *reinterpret_cast<float2*>(dk_row + 8 * n + 2 * t) = make_float2(
+          dka[n][2 * r] * sm_scale, dka[n][2 * r + 1] * sm_scale);
+      *reinterpret_cast<float2*>(dv_row + 8 * n + 2 * t) =
+          make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
+// The bf16 forms' blocks: two warpgroups of 64 rows (forward) or keys
+// (dK/dV), 128-column slabs as wgmma tiles of 64-column boxes (the
+// 128-byte swizzle; wgmma_bf16.cuh)
+using SlabTile = wg::Tile<kSlab>;
+constexpr int kBf16Threads = 256;
+constexpr int kBf16Rows = 128;
+
+struct ClusterFwdBf16 {
+  static constexpr int kKeys = 64;  // keys per tile
+  static constexpr int kQ = SlabTile::bytes(kBf16Rows);  // the q tile
+  static constexpr int kTile = SlabTile::bytes(kKeys);   // a K or V tile
+  // a buffer: each thread's S registers, as float4 [kKeys / 8][threads]
+  static constexpr int kXFloats = kBf16Threads * kKeys / 2;
+  static constexpr int kXOff = kQ + 2 * 2 * kTile;  // q, 2 stages of K, V
+  static constexpr int kBarOff = kXOff + 2 * kXFloats * 4;
+  static constexpr size_t kSmem = kBarOff + 3 * 8 + 1024;
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+// grid (C * ceil(Tq / 128), nh, B) in clusters of (C, 1, 1), C = hd / 128;
+// kBf16Threads threads, ClusterFwdBf16::kSmem bytes of dynamic shared
+// memory; the maps' boxes are 128 rows (q) and 64 rows (k, v)
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_fwd_cluster_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                              const __grid_constant__ CUtensorMap k_map,
+                              const __grid_constant__ CUtensorMap v_map,
+                              const float* __restrict__ key_mask,
+                              bf16* __restrict__ out, float* __restrict__ lse,
+                              int Tq, int Tk, int nh, int hd, int causal,
+                              float sm_scale) {
+  using S = ClusterFwdBf16;
+  constexpr int kKeys = S::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;
+  unsigned char* tiles = smem + S::kQ;  // stage s: K, then V
+  float* x_s = reinterpret_cast<float*>(smem + S::kXOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* q_bar = full + 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * kSlab;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const int wgi = warp >> 2;                // the warpgroup
+  const int r_blk = qb * kBf16Rows;         // the block's first row
+  const int rw = r_blk + 64 * wgi;          // the warpgroup's first row
+  const int q_row = rw + 16 * (warp & 3) + g;
+  const int rows[2] = {q_row, q_row + 8};   // this thread's rows of O
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, r_blk + kBf16Rows) : Tk;
+  const int n_tiles = (t_end + kKeys - 1) / kKeys;
+  auto issue = [&](int it) {  // thread 0: tile it's K and V into its stage
+    const int s = it & 1;
+    unsigned char* ks = tiles + s * 2 * S::kTile;
+    tma::mbar_arrive_tx(&full[s], 2 * S::kTile);
+    wg::load_tile<kSlab>(ks, &k_map, kKeys, it * kKeys, h, b, &full[s], col0);
+    wg::load_tile<kSlab>(ks + S::kTile, &v_map, kKeys, it * kKeys, h, b,
+                         &full[s], col0);
+  };
+  if (tid == 0) {
+    tma::mbar_init(&full[0], 1);
+    tma::mbar_init(&full[1], 1);
+    tma::mbar_init(q_bar, 1);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma::mbar_arrive_tx(q_bar, S::kQ);
+    wg::load_tile<kSlab>(qs, &q_map, kBf16Rows, r_blk, h, b, q_bar, col0);
+    if (n_tiles > 0) issue(0);
+  }
+
+  const float scale_l2 = sm_scale * kLog2e;
+  float oa[kSlab / 2];
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) oa[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // log2 units; this thread's
+  tma::mbar_wait(q_bar, 0);
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it & 1;
+    // the next tile's stage was freed by the barrier ending tile it - 1
+    if (tid == 0 && it + 1 < n_tiles) issue(it + 1);
+    const int k0 = it * kKeys;
+    // bit 2 i + e: key k0 + 8 i + 2 t + e (this thread's columns of S) is
+    // real and unmasked; the block's threads cover the tile's 64 keys
+    uint32_t okb = 0;
+#pragma unroll
+    for (int i = 0; i < kKeys / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        okb |= (uint32_t)key_ok(key_mask, b, Tk, k0 + 8 * i + 2 * t + e)
+               << (2 * i + e);
+    const bool any = __syncthreads_or(okb != 0);  // the cluster's too
+    tma::mbar_wait(&full[s], (it >> 1) & 1);
+    if (any) {
+      const unsigned char* ks = tiles + s * 2 * S::kTile;
+      const unsigned char* vs = ks + S::kTile;
+      // causal: every key of the tile follows the warpgroup's last row
+      const bool active = rw < Tq && !(causal && k0 > rw + 63);
+      float* xb = x_s + (ex & 1) * S::kXFloats;
+      auto xi = [&](int i) { return i * kBf16Threads + tid; };
+      float sa[kKeys / 2];  // S, then P
+      if (active) {
+        // this block's partial S = Q K^T over its 128 columns
+        wg::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSlab / 16; ++kk)
+          wg::Mma<kKeys>::ss(sa,
+                             wg::desc_k<kSlab>(qs, kBf16Rows, 64 * wgi, kk),
+                             wg::desc_k<kSlab>(ks, kKeys, 0, kk), kk > 0);
+        wg::commit();
+        wg::wait<0>();
+        wg::keep(sa);
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i)
+          reinterpret_cast<float4*>(xb)[xi(i)] = f4(sa + 4 * i);
+      }
+      cluster.sync();  // every block's partial is written
+      ++ex;
+      if (active) {
+        float sum[kKeys / 8][4];
+        sum_partials<kKeys / 8>(sum, cluster, xb, C, xi);
+        // mask and scale (log2 units), the tile's max over this thread's
+        // columns
+        const bool diag = causal && k0 + kKeys - 1 > rw;
+        float cmax[2] = {kNeg, kNeg};
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, c = 8 * i + 2 * t + (e & 1);
+            const bool ok = ((okb >> (2 * i + (e & 1))) & 1) &&
+                            (!diag || k0 + c <= rows[r]);
+            const float x = ok ? sum[i][e] * scale_l2 : -INFINITY;
+            sa[4 * i + e] = x;
+            cmax[r] = fmaxf(cmax[r], x);
+          }
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 1));
+          cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 2));
+          const float m_new = fmaxf(m[r], cmax[r]);
+          alpha[r] = ex2(m[r] - m_new);  // 0 on the row's first real key
+          m[r] = m_new;
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < kSlab / 2; ++i) oa[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+        for (int i = 0; i < kKeys / 2; ++i) {
+          const float p = ex2(sa[i] - m[(i >> 1) & 1]);  // masked: exactly 0
+          sa[i] = p;
+          l[(i >> 1) & 1] += p;  // the unrounded P, as the library sums it
+        }
+        uint32_t pf[kKeys / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wg::a_frag(pf[kk], sa, kk);  // P rounded to bf16
+        wg::wgmma_fence();
+        // O += P V over the tile's keys (this block's columns)
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wg::Mma<kSlab>::rs(oa, pf[kk], wg::desc_mn<kSlab>(vs, kKeys, kk, 0),
+                             1);
+        wg::commit();
+        wg::wait<0>();
+        wg::keep(oa);
+        wg::keep(pf);
+      }
+    }
+    __syncthreads();  // stage s is free for tile it + 2
+  }
+  cluster.sync();  // no block leaves while a peer reads its partials
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) {
+    const float li = l[(i >> 1) & 1];
+    oa[i] = li > 0.f ? oa[i] / li : 0.f;  // no key to attend: zeros
+  }
+  const size_t pos_stride = (size_t)nh * hd;
+  store_rows<kSlab>(out + (size_t)b * Tq * pos_stride + (size_t)h * hd + col0,
+                    pos_stride, rows, Tq, oa, t);
+  if (lse != nullptr && t == 0 && col0 == 0) {  // one block of the cluster
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (rows[r] < Tq)
+        lse[((size_t)b * Tq + rows[r]) * nh + h] =
+            l[r] > 0.f ? m[r] / kLog2e + logf(l[r]) : INFINITY;
+  }
+}
+
+struct ClusterDkvBf16 {
+  static constexpr int kQ = 32;  // query rows per tile
+  static constexpr int kKV = SlabTile::bytes(kBf16Rows);  // K or V
+  static constexpr int kTile = SlabTile::bytes(kQ);       // a q or dO tile
+  // a buffer: each thread's S^T and dP^T registers, float4 [kQ / 4][threads]
+  static constexpr int kXFloats = kBf16Threads * kQ;
+  // K, V, 2 stages of q and dO, the tile's lse and D, the buffers, barriers
+  static constexpr int kRowsOff = 2 * kKV + 2 * 2 * kTile;
+  static constexpr int kXOff = kRowsOff + 2 * kQ * 4;
+  static constexpr int kBarOff = kXOff + 2 * kXFloats * 4;
+  static constexpr size_t kSmem = kBarOff + 3 * 8 + 1024;
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+// grid (C * ceil(Tk / 128), nh, B) in clusters of (C, 1, 1), C = hd / 128;
+// kBf16Threads threads, ClusterDkvBf16::kSmem bytes of dynamic shared
+// memory; the maps' boxes are 32 rows (q, dO) and 128 rows (k, v)
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bwd_dkv_cluster_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    const float* __restrict__ key_mask, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int Tq, int Tk, int nh, int hd, int causal,
+    float sm_scale) {
+  using D = ClusterDkvBf16;
+  constexpr int kQ = D::kQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + D::kKV;
+  unsigned char* tiles = smem + 2 * D::kKV;  // stage s: q, then dO
+  float* rows_s = reinterpret_cast<float*>(smem + D::kRowsOff);  // lse, D
+  float* x_s = reinterpret_cast<float*>(smem + D::kXOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + D::kBarOff);
+  uint64_t* kv_bar = full + 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * kSlab;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const int wgi = warp >> 2;
+  const size_t pos_stride = (size_t)nh * hd;
+  const size_t base = (size_t)b * Tk * pos_stride + (size_t)h * hd + col0;
+  const size_t row_base = (size_t)b * Tq * nh + h;
+  const int k_blk = kb * kBf16Rows;       // the block's first key
+  const int kw = k_blk + 64 * wgi;        // the warpgroup's first key
+  const int key0 = kw + 16 * (warp & 3) + g;
+  const int keys[2] = {key0, key0 + 8};   // this thread's rows of dK, dV
+  bool kok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kok[r] = key_ok(key_mask, b, Tk, keys[r]);
+  float dka[kSlab / 2], dva[kSlab / 2];
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) dka[i] = dva[i] = 0.f;
+  // no key of the block is attended: zeros (the whole cluster agrees)
+  if (!__syncthreads_or(kok[0] || kok[1])) {
+    store_rows<kSlab>(dk + base, pos_stride, keys, Tk, dka, t);
+    store_rows<kSlab>(dv + base, pos_stride, keys, Tk, dva, t);
+    return;
+  }
+  // causal (Tq == Tk): a row before the block's first key attends none
+  const int q_begin = causal ? k_blk : 0;
+  const int n_tiles = (Tq - q_begin + kQ - 1) / kQ;
+  auto issue = [&](int it) {  // thread 0: tile it's q and dO into its stage
+    const int s = it & 1;
+    const int q0 = q_begin + it * kQ;
+    unsigned char* qs = tiles + s * 2 * D::kTile;
+    tma::mbar_arrive_tx(&full[s], 2 * D::kTile);
+    wg::load_tile<kSlab>(qs, &q_map, kQ, q0, h, b, &full[s], col0);
+    wg::load_tile<kSlab>(qs + D::kTile, &do_map, kQ, q0, h, b, &full[s],
+                         col0);
+  };
+  if (tid == 0) {
+    tma::mbar_init(&full[0], 1);
+    tma::mbar_init(&full[1], 1);
+    tma::mbar_init(kv_bar, 1);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma::mbar_arrive_tx(kv_bar, 2 * D::kKV);
+    wg::load_tile<kSlab>(ks, &k_map, kBf16Rows, k_blk, h, b, kv_bar, col0);
+    wg::load_tile<kSlab>(vs, &v_map, kBf16Rows, k_blk, h, b, kv_bar, col0);
+    if (n_tiles > 0) issue(0);
+  }
+
+  const float scale_l2 = sm_scale * kLog2e;
+  tma::mbar_wait(kv_bar, 0);
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it & 1;
+    if (tid == 0 && it + 1 < n_tiles) issue(it + 1);
+    const int q0 = q_begin + it * kQ;
+    if (tid < kQ) {  // the tile's lse (log2 units; +inf: no key) and D
+      const int row = q0 + tid;
+      float lv = INFINITY, d = 0.f;
+      if (row < Tq) {
+        const float x = lse[row_base + (size_t)row * nh];
+        if (isfinite(x)) lv = x * kLog2e;
+        d = dsum[row_base + (size_t)row * nh];
+      }
+      rows_s[tid] = lv;
+      rows_s[kQ + tid] = d;
+    }
+    tma::mbar_wait(&full[s], (it >> 1) & 1);
+    const unsigned char* qs = tiles + s * 2 * D::kTile;
+    const unsigned char* dos = qs + D::kTile;
+    // causal: every row of the tile precedes the warpgroup's first key
+    const bool active = kw < Tk && !(causal && q0 + kQ - 1 < kw);
+    float* xb = x_s + (ex & 1) * D::kXFloats;
+    auto xi = [&](int i) { return i * kBf16Threads + tid; };
+    float sa[kQ / 2], pa[kQ / 2];  // S^T then P^T; dP^T then dS^T
+    if (active) {
+      // this block's partial S^T = K Q^T and dP^T = V dO^T
+      wg::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kSlab / 16; ++kk)
+        wg::Mma<kQ>::ss(sa, wg::desc_k<kSlab>(ks, kBf16Rows, 64 * wgi, kk),
+                        wg::desc_k<kSlab>(qs, kQ, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < kSlab / 16; ++kk)
+        wg::Mma<kQ>::ss(pa, wg::desc_k<kSlab>(vs, kBf16Rows, 64 * wgi, kk),
+                        wg::desc_k<kSlab>(dos, kQ, 0, kk), kk > 0);
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(sa);
+      wg::keep(pa);
+#pragma unroll
+      for (int i = 0; i < kQ / 8; ++i) {
+        reinterpret_cast<float4*>(xb)[xi(i)] = f4(sa + 4 * i);
+        reinterpret_cast<float4*>(xb)[xi(kQ / 8 + i)] = f4(pa + 4 * i);
+      }
+    }
+    cluster.sync();  // every block's partials (and the tile's rows) are in
+    ++ex;
+    if (active) {
+      float sum[kQ / 4][4];
+      sum_partials<kQ / 4>(sum, cluster, xb, C, xi);
+      // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - D) * scale
+      const bool diag = causal && q0 < kw + 63;
+#pragma unroll
+      for (int i = 0; i < kQ / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, c = 8 * i + 2 * t + (e & 1);
+          const float lv = rows_s[c], d = rows_s[kQ + c];
+          const bool ok =
+              kok[r] && lv != INFINITY && (!diag || keys[r] <= q0 + c);
+          const float p = ok ? ex2(fmaf(sum[i][e], scale_l2, -lv)) : 0.f;
+          sa[4 * i + e] = p;
+          pa[4 * i + e] = p * (sum[kQ / 8 + i][e] - d) * sm_scale;
+        }
+      }
+      uint32_t pf[kQ / 16][4], df[kQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        wg::a_frag(pf[kk], sa, kk);  // P^T rounded to bf16
+        wg::a_frag(df[kk], pa, kk);  // dS^T rounded to bf16
+      }
+      wg::wgmma_fence();
+      // dV += P^T dO, dK += dS^T Q over the tile's queries (this block's
+      // columns)
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk)
+        wg::Mma<kSlab>::rs(dva, pf[kk], wg::desc_mn<kSlab>(dos, kQ, kk, 0), 1);
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk)
+        wg::Mma<kSlab>::rs(dka, df[kk], wg::desc_mn<kSlab>(qs, kQ, kk, 0), 1);
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(dva);
+      wg::keep(dka);
+      wg::keep(pf);
+      wg::keep(df);
+    }
+    __syncthreads();  // stage s and the rows are free for the next tiles
+  }
+  cluster.sync();  // no block leaves while a peer reads its partials
+  store_rows<kSlab>(dk + base, pos_stride, keys, Tk, dka, t);
+  store_rows<kSlab>(dv + base, pos_stride, keys, Tk, dva, t);
+}
+
+// ---------------------------------------------------------------------------
+// The SIMT forms (above head dim 128 * kMaxCluster; dQ at every wide head
+// dim).
+
 // shared memory of each kernel, in floats: the chunks share their space
 // with the slab the product reads after them
 constexpr int kFwdSmem =
@@ -149,14 +1112,14 @@ constexpr int kDqSmem =
     (4 * kChunkTile > kSlabTile ? 4 * kChunkTile : kSlabTile) + kPTile +
     kCols;
 
-// grid (ceil(T / 64), nh * hd / 128, B); kThreads threads; kFwdSmem floats
-// of dynamic shared memory
+// grid (ceil(Tq / 64), nh * hd / 128, B); kThreads threads; kFwdSmem
+// floats of dynamic shared memory
 template <typename E>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
                       const E* __restrict__ v,
                       const float* __restrict__ key_mask, E* __restrict__ out,
-                      float* __restrict__ lse, int T, int nh, int hd,
+                      float* __restrict__ lse, int Tq, int Tk, int nh, int hd,
                       int causal, float sm_scale) {
   constexpr bool kBf16 = sizeof(E) == 2;
   extern __shared__ __align__(16) float smem[];
@@ -173,7 +1136,8 @@ flash_fwd_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int col0 = (blockIdx.y % n_slab) * kSlab;
   const int row0 = blockIdx.x * kRows;
   const size_t pos_stride = (size_t)nh * hd;
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * hd;
+  const size_t base = (size_t)b * Tq * pos_stride + (size_t)h * hd;
+  const size_t k_base = (size_t)b * Tk * pos_stride + (size_t)h * hd;
 
   float o[4][8], m[4], l[4];
 #pragma unroll
@@ -183,10 +1147,10 @@ flash_fwd_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j) o[i][j] = 0.f;
   }
-  // causal: keys past the block's last row are never attended
-  const int t_end = causal ? min(T, row0 + kRows) : T;
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, row0 + kRows) : Tk;
   for (int k0 = 0; k0 < t_end; k0 += kCols) {
-    if (tid < kCols) flag_s[tid] = key_flag(key_mask, b, T, k0 + tid);
+    if (tid < kCols) flag_s[tid] = key_flag(key_mask, b, Tk, k0 + tid);
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -194,8 +1158,8 @@ flash_fwd_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
     for (int c0 = 0; c0 < hd; c0 += kChunk) {
       __syncthreads();  // the previous chunk (or slab) is read
-      stage<kChunk>(q_s, kCS, q + base, pos_stride, row0, T, c0, tid);
-      stage<kChunk>(k_s, kCS, k + base, pos_stride, k0, T, c0, tid);
+      stage<kChunk>(q_s, kCS, q + base, pos_stride, row0, Tq, c0, tid);
+      stage<kChunk>(k_s, kCS, k + k_base, pos_stride, k0, Tk, c0, tid);
       __syncthreads();
 #pragma unroll 8
       for (int c = 0; c < kChunk; ++c) {
@@ -236,7 +1200,7 @@ flash_fwd_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
       }
     }
     __syncthreads();  // every warp is done with the chunks
-    stage<kSlab>(v_s, kSlab, v + base, pos_stride, k0, T, col0, tid);
+    stage<kSlab>(v_s, kSlab, v + k_base, pos_stride, k0, Tk, col0, tid);
     __syncthreads();
     // O += P V over the slab
 #pragma unroll 4
@@ -257,20 +1221,20 @@ flash_fwd_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const float li = row_sum(l[i]);
     const int row = row0 + 4 * ty + i;
-    if (row >= T) continue;
+    if (row >= Tq) continue;
     E* o_row = out + base + (size_t)row * pos_stride + col0;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
       st(o_row + tx + 16 * j, li > 0.f ? o[i][j] / li : 0.f);
     if (lse != nullptr && tx == 0 && col0 == 0)  // one block of the slabs
-      lse[((size_t)b * T + row) * nh + h] =
+      lse[((size_t)b * Tq + row) * nh + h] =
           li > 0.f ? m[i] + logf(li) : INFINITY;
   }
 }
 
-// grid (ceil(T / 64), nh * hd / 128, B): a block owns 64 keys; kThreads
+// grid (ceil(Tk / 64), nh * hd / 128, B): a block owns 64 keys; kThreads
 // threads; kDkvSmem floats of dynamic shared memory.  lse and dsum are
-// [B, T, nh] f32.
+// [B, Tq, nh] f32.
 template <typename E>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
@@ -278,8 +1242,9 @@ flash_bwd_dkv_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
                           const float* __restrict__ lse,
                           const float* __restrict__ dsum,
                           const float* __restrict__ key_mask,
-                          E* __restrict__ dk, E* __restrict__ dv, int T,
-                          int nh, int hd, int causal, float sm_scale) {
+                          E* __restrict__ dk, E* __restrict__ dv, int Tq,
+                          int Tk, int nh, int hd, int causal,
+                          float sm_scale) {
   constexpr bool kBf16 = sizeof(E) == 2;
   constexpr int kUnion =
       4 * kChunkTile > 2 * kSlabTile ? 4 * kChunkTile : 2 * kSlabTile;
@@ -304,19 +1269,20 @@ flash_bwd_dkv_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int col0 = (blockIdx.y % n_slab) * kSlab;
   const int key0 = blockIdx.x * kRows;
   const size_t pos_stride = (size_t)nh * hd;
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * hd;
-  const size_t row_base = (size_t)b * T * nh + h;  // of lse and dsum
+  const size_t base = (size_t)b * Tk * pos_stride + (size_t)h * hd;
+  const size_t q_base = (size_t)b * Tq * pos_stride + (size_t)h * hd;
+  const size_t row_base = (size_t)b * Tq * nh + h;  // of lse and dsum
 
-  if (tid < kRows) kflag_s[tid] = key_flag(key_mask, b, T, key0 + tid);
+  if (tid < kRows) kflag_s[tid] = key_flag(key_mask, b, Tk, key0 + tid);
   float dk_acc[4][8], dv_acc[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 8; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  // causal: query rows before the block's first key attend none of it
+  // causal (Tq == Tk): query rows before the block's first key attend none
   const int q_begin = causal ? key0 : 0;  // a multiple of kCols
-  for (int q0 = q_begin; q0 < T; q0 += kCols) {
+  for (int q0 = q_begin; q0 < Tq; q0 += kCols) {
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -326,13 +1292,13 @@ flash_bwd_dkv_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
       __syncthreads();  // the previous chunks (or slabs) are read
       if (c0 == 0 && tid < kCols) {
         const int row = q0 + tid;
-        lse_s[tid] = row < T ? lse[row_base + (size_t)row * nh] : INFINITY;
-        d_s[tid] = row < T ? dsum[row_base + (size_t)row * nh] : 0.f;
+        lse_s[tid] = row < Tq ? lse[row_base + (size_t)row * nh] : INFINITY;
+        d_s[tid] = row < Tq ? dsum[row_base + (size_t)row * nh] : 0.f;
       }
-      stage<kChunk>(k_c, kCS, k + base, pos_stride, key0, T, c0, tid);
-      stage<kChunk>(q_c, kCS, q + base, pos_stride, q0, T, c0, tid);
-      stage<kChunk>(v_c, kCS, v + base, pos_stride, key0, T, c0, tid);
-      stage<kChunk>(do_c, kCS, dout + base, pos_stride, q0, T, c0, tid);
+      stage<kChunk>(k_c, kCS, k + base, pos_stride, key0, Tk, c0, tid);
+      stage<kChunk>(q_c, kCS, q + q_base, pos_stride, q0, Tq, c0, tid);
+      stage<kChunk>(v_c, kCS, v + base, pos_stride, key0, Tk, c0, tid);
+      stage<kChunk>(do_c, kCS, dout + q_base, pos_stride, q0, Tq, c0, tid);
       __syncthreads();
 #pragma unroll 4
       for (int c = 0; c < kChunk; ++c) {
@@ -364,7 +1330,7 @@ flash_bwd_dkv_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
       for (int j = 0; j < 4; ++j) {
         const int qc = tx + 16 * j, row = q0 + qc;
         const bool ok = kflag_s[kr] > 0.f && (!causal || key <= row);
-        // a row past T or with no key to attend has lse +inf: p = 0
+        // a row past Tq or with no key to attend has lse +inf: p = 0
         const float p = ok ? expf(s[i][j] * sm_scale - lse_s[qc]) : 0.f;
         const float ds = p * (dp[i][j] - d_s[qc]);
         pt_s[kr * kPS + qc] = kBf16 ? round_bf16(p) : p;
@@ -372,8 +1338,9 @@ flash_bwd_dkv_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
       }
     }
     __syncthreads();  // every warp is done with the chunks
-    stage<kSlab>(do_slab, kSlab, dout + base, pos_stride, q0, T, col0, tid);
-    stage<kSlab>(q_slab, kSlab, q + base, pos_stride, q0, T, col0, tid);
+    stage<kSlab>(do_slab, kSlab, dout + q_base, pos_stride, q0, Tq, col0,
+                 tid);
+    stage<kSlab>(q_slab, kSlab, q + q_base, pos_stride, q0, Tq, col0, tid);
     __syncthreads();
     // dV += P^T dO, dK += dS^T Q over the slab
 #pragma unroll 2
@@ -402,7 +1369,7 @@ flash_bwd_dkv_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int key = key0 + 4 * ty + i;
-    if (key >= T) continue;
+    if (key >= Tk) continue;
     const size_t off = base + (size_t)key * pos_stride + col0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -415,7 +1382,7 @@ flash_bwd_dkv_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
   }
 }
 
-// grid (ceil(T / 64), nh * hd / 128, B): a block owns 64 query rows;
+// grid (ceil(Tq / 64), nh * hd / 128, B): a block owns 64 query rows;
 // kThreads threads; kDqSmem floats of dynamic shared memory
 template <typename E>
 __global__ void __launch_bounds__(kThreads)
@@ -424,7 +1391,7 @@ flash_bwd_dq_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
                          const float* __restrict__ lse,
                          const float* __restrict__ dsum,
                          const float* __restrict__ key_mask,
-                         E* __restrict__ dq, int T, int nh, int hd,
+                         E* __restrict__ dq, int Tq, int Tk, int nh, int hd,
                          int causal, float sm_scale) {
   constexpr bool kBf16 = sizeof(E) == 2;
   constexpr int kUnion =
@@ -445,15 +1412,16 @@ flash_bwd_dq_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int col0 = (blockIdx.y % n_slab) * kSlab;
   const int row0 = blockIdx.x * kRows;
   const size_t pos_stride = (size_t)nh * hd;
-  const size_t base = (size_t)b * T * pos_stride + (size_t)h * hd;
-  const size_t row_base = (size_t)b * T * nh + h;
+  const size_t base = (size_t)b * Tq * pos_stride + (size_t)h * hd;
+  const size_t k_base = (size_t)b * Tk * pos_stride + (size_t)h * hd;
+  const size_t row_base = (size_t)b * Tq * nh + h;
 
   float lse_r[4], d_r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + 4 * ty + i;
-    lse_r[i] = row < T ? lse[row_base + (size_t)row * nh] : INFINITY;
-    d_r[i] = row < T ? dsum[row_base + (size_t)row * nh] : 0.f;
+    lse_r[i] = row < Tq ? lse[row_base + (size_t)row * nh] : INFINITY;
+    d_r[i] = row < Tq ? dsum[row_base + (size_t)row * nh] : 0.f;
   }
   float acc[4][8];
 #pragma unroll
@@ -461,9 +1429,9 @@ flash_bwd_dq_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  const int t_end = causal ? min(T, row0 + kRows) : T;
+  const int t_end = causal ? min(Tk, row0 + kRows) : Tk;
   for (int k0 = 0; k0 < t_end; k0 += kCols) {
-    if (tid < kCols) flag_s[tid] = key_flag(key_mask, b, T, k0 + tid);
+    if (tid < kCols) flag_s[tid] = key_flag(key_mask, b, Tk, k0 + tid);
     float s[4][4], dp[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -471,10 +1439,10 @@ flash_bwd_dq_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
     for (int c0 = 0; c0 < hd; c0 += kChunk) {
       __syncthreads();  // the previous chunks (or slab) are read
-      stage<kChunk>(q_c, kCS, q + base, pos_stride, row0, T, c0, tid);
-      stage<kChunk>(k_c, kCS, k + base, pos_stride, k0, T, c0, tid);
-      stage<kChunk>(do_c, kCS, dout + base, pos_stride, row0, T, c0, tid);
-      stage<kChunk>(v_c, kCS, v + base, pos_stride, k0, T, c0, tid);
+      stage<kChunk>(q_c, kCS, q + base, pos_stride, row0, Tq, c0, tid);
+      stage<kChunk>(k_c, kCS, k + k_base, pos_stride, k0, Tk, c0, tid);
+      stage<kChunk>(do_c, kCS, dout + base, pos_stride, row0, Tq, c0, tid);
+      stage<kChunk>(v_c, kCS, v + k_base, pos_stride, k0, Tk, c0, tid);
       __syncthreads();
 #pragma unroll 4
       for (int c = 0; c < kChunk; ++c) {
@@ -512,7 +1480,7 @@ flash_bwd_dq_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
       }
     }
     __syncthreads();  // every warp is done with the chunks
-    stage<kSlab>(k_slab, kSlab, k + base, pos_stride, k0, T, col0, tid);
+    stage<kSlab>(k_slab, kSlab, k + k_base, pos_stride, k0, Tk, col0, tid);
     __syncthreads();
     // dQ += dS K over the slab
 #pragma unroll 4
@@ -532,7 +1500,7 @@ flash_bwd_dq_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = row0 + 4 * ty + i;
-    if (row >= T) continue;
+    if (row >= Tq) continue;
     E* d_row = dq + base + (size_t)row * pos_stride + col0;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -540,140 +1508,308 @@ flash_bwd_dq_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Launches.
+
 // what every entry point checks: positive sizes within the grid's axes, a
-// head dim that is a multiple of the slab
-bool bad_shape(int B, int T, int nh, int hd) {
-  return B <= 0 || T <= 0 || nh <= 0 || hd <= 0 || hd % kSlab != 0 ||
-         B > 65535 || (long long)nh * (hd / kSlab) > 65535;
+// head dim that is a multiple of the slab, causal only on whole blocks
+bool bad_shape(int B, int Tq, int Tk, int nh, int hd, int causal) {
+  return B <= 0 || Tq <= 0 || Tk <= 0 || nh <= 0 || hd <= 0 ||
+         hd % kSlab != 0 || B > 65535 ||
+         (long long)nh * (hd / kSlab) > 65535 || (causal && Tq != Tk);
 }
 
+// do the cluster forms take this head dim
+bool clustered(int hd) { return hd / kSlab <= kMaxCluster; }
+
+// the SIMT grid: a block per 64 rows of T and per (head, slab)
 dim3 grid_of(int B, int T, int nh, int hd) {
   return dim3((T + kRows - 1) / kRows, nh * (hd / kSlab), B);
 }
 
+// Launch `kernel` over (C * n_blocks, nh, B) blocks of `threads` threads
+// in clusters of (C, 1, 1), C = hd / 128, with `smem` bytes of dynamic
+// shared memory
+template <typename... KArgs, typename... Args>
+cudaError_t launch_cluster(void (*kernel)(KArgs...), unsigned& smem_set,
+                           int threads, size_t smem, int n_blocks, int B,
+                           int nh, int hd, void* stream, Args... args) {
+  const cudaError_t err = tf32x3::allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  const int C = hd / kSlab;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C * n_blocks, nh, B);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+}
+
+// the tensor maps of a bf16 cluster launch: [B, T, nh, hd] tensors for
+// tiles of `rows` rows and 128 columns (boxes of 64)
+cudaError_t make_maps(CUtensorMap* maps, const void* const* ptrs,
+                      const int* lens, const int* rows, int n, int B, int nh,
+                      int hd) {
+  for (int i = 0; i < n; ++i) {
+    const cudaError_t err =
+        wg::make_map(&maps[i], ptrs[i], B, lens[i], nh, hd, rows[i]);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+int launch_fwd_f32(const void* q, const void* k, const void* v,
+                   const float* key_mask, void* out, float* lse, int B,
+                   int Tq, int Tk, int nh, int hd, int causal, float sm_scale,
+                   void* stream) {
+  using S = ClusterFwdF32;
+  static unsigned smem_set = 0;
+  return (int)launch_cluster(
+      flash_fwd_cluster_f32_kernel, smem_set, S::kThreads, S::kSmem,
+      (Tq + S::kRows - 1) / S::kRows, B, nh, hd, stream,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), key_mask, static_cast<float*>(out), lse,
+      Tq, Tk, nh, hd, causal, sm_scale);
+}
+
+int launch_fwd_bf16(const void* q, const void* k, const void* v,
+                    const float* key_mask, void* out, float* lse, int B,
+                    int Tq, int Tk, int nh, int hd, int causal,
+                    float sm_scale, void* stream) {
+  using S = ClusterFwdBf16;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int lens[3] = {Tq, Tk, Tk};
+  const int rows[3] = {kBf16Rows, S::kKeys, S::kKeys};
+  cudaError_t err = make_maps(maps, ptrs, lens, rows, 3, B, nh, hd);
+  if (err != cudaSuccess) return (int)err;
+  static unsigned smem_set = 0;
+  return (int)launch_cluster(
+      flash_fwd_cluster_bf16_kernel, smem_set, kBf16Threads, S::kSmem,
+      (Tq + kBf16Rows - 1) / kBf16Rows, B, nh, hd, stream, maps[0], maps[1],
+      maps[2], key_mask, static_cast<bf16*>(out), lse, Tq, Tk, nh, hd,
+      causal, sm_scale);
+}
+
+int launch_dkv_f32(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* dsum,
+                   const float* key_mask, void* dk, void* dv, int B, int Tq,
+                   int Tk, int nh, int hd, int causal, float sm_scale,
+                   void* stream) {
+  using D = ClusterDkvF32;
+  static unsigned smem_set = 0;
+  return (int)launch_cluster(
+      flash_bwd_dkv_cluster_f32_kernel, smem_set, D::kThreads, D::kSmem,
+      (Tk + D::kKeys - 1) / D::kKeys, B, nh, hd, stream,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      dsum, key_mask, static_cast<float*>(dk), static_cast<float*>(dv), Tq,
+      Tk, nh, hd, causal, sm_scale);
+}
+
+int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                    const void* dout, const float* lse, const float* dsum,
+                    const float* key_mask, void* dk, void* dv, int B, int Tq,
+                    int Tk, int nh, int hd, int causal, float sm_scale,
+                    void* stream) {
+  using D = ClusterDkvBf16;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  const int lens[4] = {Tq, Tk, Tk, Tq};
+  const int rows[4] = {D::kQ, kBf16Rows, kBf16Rows, D::kQ};
+  cudaError_t err = make_maps(maps, ptrs, lens, rows, 4, B, nh, hd);
+  if (err != cudaSuccess) return (int)err;
+  static unsigned smem_set = 0;
+  return (int)launch_cluster(
+      flash_bwd_dkv_cluster_bf16_kernel, smem_set, kBf16Threads, D::kSmem,
+      (Tk + kBf16Rows - 1) / kBf16Rows, B, nh, hd, stream, maps[0], maps[1],
+      maps[2], maps[3], lse, dsum, key_mask, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Tq, Tk, nh, hd, causal, sm_scale);
+}
+
+// `simt`: the SIMT form at any head dim (the parent design, for timing
+// the cluster form against it)
 template <typename E>
 int launch_fwd(const void* q, const void* k, const void* v,
-               const float* key_mask, void* out, float* lse, int B, int T,
-               int nh, int hd, int causal, float sm_scale, void* stream) {
-  if (bad_shape(B, T, nh, hd)) return (int)cudaErrorInvalidValue;
+               const float* key_mask, void* out, float* lse, int B, int Tq,
+               int Tk, int nh, int hd, int causal, float sm_scale,
+               void* stream, bool simt = false) {
+  if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
+  if (clustered(hd) && !simt)
+    return (sizeof(E) == 2 ? launch_fwd_bf16 : launch_fwd_f32)(
+        q, k, v, key_mask, out, lse, B, Tq, Tk, nh, hd, causal, sm_scale,
+        stream);
   static unsigned smem_set = 0;  // per instantiation and device
   cudaError_t err = tf32x3::allow_smem(flash_fwd_wide_kernel<E>,
                                        kFwdSmem * sizeof(float), smem_set);
   if (err != cudaSuccess) return (int)err;
-  flash_fwd_wide_kernel<E><<<grid_of(B, T, nh, hd), kThreads,
+  flash_fwd_wide_kernel<E><<<grid_of(B, Tq, nh, hd), kThreads,
                              kFwdSmem * sizeof(float),
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const E*>(q), static_cast<const E*>(k),
-      static_cast<const E*>(v), key_mask, static_cast<E*>(out), lse, T, nh,
-      hd, causal, sm_scale);
+      static_cast<const E*>(v), key_mask, static_cast<E*>(out), lse, Tq, Tk,
+      nh, hd, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <typename E>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* dsum, const float* key_mask,
-               void* dk, void* dv, int B, int T, int nh, int hd, int causal,
-               float sm_scale, void* stream) {
-  if (bad_shape(B, T, nh, hd)) return (int)cudaErrorInvalidValue;
+               void* dk, void* dv, int B, int Tq, int Tk, int nh, int hd,
+               int causal, float sm_scale, void* stream, bool simt = false) {
+  if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
+  if (clustered(hd) && !simt)
+    return (sizeof(E) == 2 ? launch_dkv_bf16 : launch_dkv_f32)(
+        q, k, v, dout, lse, dsum, key_mask, dk, dv, B, Tq, Tk, nh, hd,
+        causal, sm_scale, stream);
   static unsigned smem_set = 0;
   cudaError_t err = tf32x3::allow_smem(flash_bwd_dkv_wide_kernel<E>,
                                        kDkvSmem * sizeof(float), smem_set);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkv_wide_kernel<E><<<grid_of(B, T, nh, hd), kThreads,
+  flash_bwd_dkv_wide_kernel<E><<<grid_of(B, Tk, nh, hd), kThreads,
                                  kDkvSmem * sizeof(float),
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const E*>(q), static_cast<const E*>(k),
       static_cast<const E*>(v), static_cast<const E*>(dout), lse, dsum,
-      key_mask, static_cast<E*>(dk), static_cast<E*>(dv), T, nh, hd, causal,
-      sm_scale);
+      key_mask, static_cast<E*>(dk), static_cast<E*>(dv), Tq, Tk, nh, hd,
+      causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <typename E>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* dsum, const float* key_mask,
-              void* dq, int B, int T, int nh, int hd, int causal,
+              void* dq, int B, int Tq, int Tk, int nh, int hd, int causal,
               float sm_scale, void* stream) {
-  if (bad_shape(B, T, nh, hd)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
   static unsigned smem_set = 0;
   cudaError_t err = tf32x3::allow_smem(flash_bwd_dq_wide_kernel<E>,
                                        kDqSmem * sizeof(float), smem_set);
   if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_wide_kernel<E><<<grid_of(B, T, nh, hd), kThreads,
+  flash_bwd_dq_wide_kernel<E><<<grid_of(B, Tq, nh, hd), kThreads,
                                 kDqSmem * sizeof(float),
                                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const E*>(q), static_cast<const E*>(k),
       static_cast<const E*>(v), static_cast<const E*>(dout), lse, dsum,
-      key_mask, static_cast<E*>(dq), T, nh, hd, causal, sm_scale);
+      key_mask, static_cast<E*>(dq), Tq, Tk, nh, hd, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 }  // namespace
 
-// q, k, v, out [B, T, nh, hd] float32 (bfloat16 for the _bf16 forms),
-// contiguous, on one device, hd a multiple of 128; key_mask [B, T] float32
-// (1 = real token) or null (every key real); lse [B, T, nh] float32 or
-// null (not written).  Launches on `stream`; returns the cudaError_t of
-// the launch.
+// q, out [B, Tq, nh, hd] and k, v [B, Tk, nh, hd] float32 (bfloat16 for
+// the _bf16 forms), contiguous, on one device, hd a multiple of 128;
+// key_mask [B, Tk] float32 (1 = real token) or null (every key real); lse
+// [B, Tq, nh] float32 or null (not written); causal needs Tq == Tk.
+// Launches on `stream`; returns the cudaError_t of the launch.
 extern "C" int ts_flash_wide(const void* q, const void* k, const void* v,
                              const float* key_mask, void* out, float* lse,
-                             int B, int T, int nh, int hd, int causal,
-                             float sm_scale, void* stream) {
-  return launch_fwd<float>(q, k, v, key_mask, out, lse, B, T, nh, hd, causal,
-                           sm_scale, stream);
+                             int B, int Tq, int Tk, int nh, int hd,
+                             int causal, float sm_scale, void* stream) {
+  return launch_fwd<float>(q, k, v, key_mask, out, lse, B, Tq, Tk, nh, hd,
+                           causal, sm_scale, stream);
 }
 
 extern "C" int ts_flash_wide_bf16(const void* q, const void* k,
                                   const void* v, const float* key_mask,
-                                  void* out, float* lse, int B, int T, int nh,
-                                  int hd, int causal, float sm_scale,
-                                  void* stream) {
-  return launch_fwd<bf16>(q, k, v, key_mask, out, lse, B, T, nh, hd, causal,
-                          sm_scale, stream);
+                                  void* out, float* lse, int B, int Tq,
+                                  int Tk, int nh, int hd, int causal,
+                                  float sm_scale, void* stream) {
+  return launch_fwd<bf16>(q, k, v, key_mask, out, lse, B, Tq, Tk, nh, hd,
+                          causal, sm_scale, stream);
 }
 
-// q, k, v, dout, dk, dv [B, T, nh, hd] as above; lse (the forward's) and
-// dsum (rowsum(dO * O)) [B, T, nh] float32
+// q, dout [B, Tq, nh, hd], k, v, dk, dv [B, Tk, nh, hd] as above; lse (the
+// forward's) and dsum (rowsum(dO * O)) [B, Tq, nh] float32
 extern "C" int ts_flash_wide_bwd_dkv(const void* q, const void* k,
                                      const void* v, const void* dout,
                                      const float* lse, const float* dsum,
                                      const float* key_mask, void* dk,
-                                     void* dv, int B, int T, int nh, int hd,
-                                     int causal, float sm_scale,
+                                     void* dv, int B, int Tq, int Tk, int nh,
+                                     int hd, int causal, float sm_scale,
                                      void* stream) {
-  return launch_dkv<float>(q, k, v, dout, lse, dsum, key_mask, dk, dv, B, T,
-                           nh, hd, causal, sm_scale, stream);
+  return launch_dkv<float>(q, k, v, dout, lse, dsum, key_mask, dk, dv, B, Tq,
+                           Tk, nh, hd, causal, sm_scale, stream);
 }
 
 extern "C" int ts_flash_wide_bwd_dkv_bf16(const void* q, const void* k,
                                           const void* v, const void* dout,
                                           const float* lse, const float* dsum,
                                           const float* key_mask, void* dk,
-                                          void* dv, int B, int T, int nh,
-                                          int hd, int causal, float sm_scale,
-                                          void* stream) {
-  return launch_dkv<bf16>(q, k, v, dout, lse, dsum, key_mask, dk, dv, B, T,
-                          nh, hd, causal, sm_scale, stream);
+                                          void* dv, int B, int Tq, int Tk,
+                                          int nh, int hd, int causal,
+                                          float sm_scale, void* stream) {
+  return launch_dkv<bf16>(q, k, v, dout, lse, dsum, key_mask, dk, dv, B, Tq,
+                          Tk, nh, hd, causal, sm_scale, stream);
 }
 
+// as ts_flash_wide_bwd_dkv; writes dq [B, Tq, nh, hd]
 extern "C" int ts_flash_wide_bwd_dq(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const float* lse, const float* dsum,
                                     const float* key_mask, void* dq, int B,
-                                    int T, int nh, int hd, int causal,
-                                    float sm_scale, void* stream) {
-  return launch_dq<float>(q, k, v, dout, lse, dsum, key_mask, dq, B, T, nh,
-                          hd, causal, sm_scale, stream);
+                                    int Tq, int Tk, int nh, int hd,
+                                    int causal, float sm_scale,
+                                    void* stream) {
+  return launch_dq<float>(q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk,
+                          nh, hd, causal, sm_scale, stream);
 }
 
 extern "C" int ts_flash_wide_bwd_dq_bf16(const void* q, const void* k,
                                          const void* v, const void* dout,
                                          const float* lse, const float* dsum,
                                          const float* key_mask, void* dq,
-                                         int B, int T, int nh, int hd,
-                                         int causal, float sm_scale,
+                                         int B, int Tq, int Tk, int nh,
+                                         int hd, int causal, float sm_scale,
                                          void* stream) {
-  return launch_dq<bf16>(q, k, v, dout, lse, dsum, key_mask, dq, B, T, nh,
-                         hd, causal, sm_scale, stream);
+  return launch_dq<bf16>(q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk,
+                         nh, hd, causal, sm_scale, stream);
+}
+
+// The SIMT forward and dK/dV at every wide head dim, with the signatures
+// of ts_flash_wide(_bf16) and ts_flash_wide_bwd_dkv(_bf16): the design
+// the cluster forms replaced up to head dim 1024, timed beside them
+// (chip_smoke.py phase_flash_wide); no path of the port calls them
+extern "C" int ts_flash_wide_simt(const void* q, const void* k,
+                                  const void* v, const float* key_mask,
+                                  void* out, float* lse, int B, int Tq,
+                                  int Tk, int nh, int hd, int causal,
+                                  float sm_scale, void* stream) {
+  return launch_fwd<float>(q, k, v, key_mask, out, lse, B, Tq, Tk, nh, hd,
+                           causal, sm_scale, stream, true);
+}
+
+extern "C" int ts_flash_wide_simt_bf16(const void* q, const void* k,
+                                       const void* v, const float* key_mask,
+                                       void* out, float* lse, int B, int Tq,
+                                       int Tk, int nh, int hd, int causal,
+                                       float sm_scale, void* stream) {
+  return launch_fwd<bf16>(q, k, v, key_mask, out, lse, B, Tq, Tk, nh, hd,
+                          causal, sm_scale, stream, true);
+}
+
+extern "C" int ts_flash_wide_bwd_dkv_simt(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* dsum, const float* key_mask, void* dk,
+    void* dv, int B, int Tq, int Tk, int nh, int hd, int causal,
+    float sm_scale, void* stream) {
+  return launch_dkv<float>(q, k, v, dout, lse, dsum, key_mask, dk, dv, B, Tq,
+                           Tk, nh, hd, causal, sm_scale, stream, true);
+}
+
+extern "C" int ts_flash_wide_bwd_dkv_simt_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* dsum, const float* key_mask, void* dk,
+    void* dv, int B, int Tq, int Tk, int nh, int hd, int causal,
+    float sm_scale, void* stream) {
+  return launch_dkv<bf16>(q, k, v, dout, lse, dsum, key_mask, dk, dv, B, Tq,
+                          Tk, nh, hd, causal, sm_scale, stream, true);
 }
 
 extern "C" const char* ts_flash_wide_error_string(int err) {

@@ -131,12 +131,15 @@ struct Tile {
   }
 };
 
-// rows [r0, r0 + rows) of head h of article b, every column, into the
-// tile at dst (Tile<HD>'s layout), completing on bar; one thread issues it
+// rows [r0, r0 + rows) of head h of article b, columns [c0, c0 + HD) (c0
+// a multiple of the box; 0 and HD the whole head for the flash kernels,
+// one 128-column slab of a wider head for flash_attention_wide.cu), into
+// the tile at dst (Tile<HD>'s layout), completing on bar; one thread
+// issues it
 template <int HD>
 __device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map,
                                           int rows, int r0, int h, int b,
-                                          uint64_t* bar) {
+                                          uint64_t* bar, int c0 = 0) {
   using L = Tile<HD>;
   const unsigned d = tma::smem_addr(dst), m = tma::smem_addr(bar);
 #pragma unroll
@@ -145,7 +148,7 @@ __device__ __forceinline__ void load_tile(void* dst, const CUtensorMap* map,
         "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_"
         "tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(
             d + j * rows * L::kRowBytes),
-        "l"(map), "r"(j * L::kCols), "r"(h), "r"(r0), "r"(b), "r"(m)
+        "l"(map), "r"(c0 + j * L::kCols), "r"(h), "r"(r0), "r"(b), "r"(m)
         : "memory");
 }
 

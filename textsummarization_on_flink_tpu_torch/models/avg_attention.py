@@ -25,8 +25,9 @@ sequence-level distillation (train/distill.py).
 On a mesh the family runs the transformer's layout (parallel/sharding.py's
 per-leaf rule, JAX sharding.py:91-119): the tied embedding and out_bias
 over the vocabulary, the cross_attn heads and both FFNs (aan_ffn, ffn)
-Megatron-style, the encoder's ring or Ulysses attention under
---sp_attention.  The narrow variant's factored head shards its rank r
+Megatron-style, the encoder on its sp block of T (the transformer's
+encoder: ring or Ulysses attention under --sp_attention, else the
+block's queries against the keys gathered over sp).  The narrow variant's factored head shards its rank r
 over tp (w1 column-, w2 row-parallel), so its scores are a sum over tp
 of rank-partial products (transformer.vocab_scores_of).  Where tp does
 not divide num_heads (the JAX package lets a head straddle ranks) the

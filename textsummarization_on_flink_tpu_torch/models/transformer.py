@@ -24,11 +24,13 @@ Megatron heads and FFN (wq/wk/wv/w1/b1 column-, wo/w2 row-sharded, one
 all-reduce per block), so the flash kernels run this rank's
 num_heads/tp heads (ceil(num_heads/tp) for the AAN, padded with zero
 heads: parallel/sharding.py::pad_heads) and the copy distribution's
-head mean is summed over tp; under --sp_attention with sp > 1 the
-encoder holds its sp block of T, its self-attention is ring or Ulysses
-(parallel/ring_attention.py, JAX transformer.py:226-255) and its
-output, mask and extended ids are all-gathered over sp before the
-decoder.
+head mean is summed over tp; with sp > 1 the encoder holds its sp
+block of T (its embeddings, layer norms, projections and FFNs run on the
+block, as the JAX package's GSPMD partitions them), its self-attention
+is ring or Ulysses under --sp_attention (parallel/ring_attention.py,
+JAX transformer.py:226-255) and otherwise the block's queries against
+the keys and mask all-gathered over sp, and its output, mask and
+extended ids are all-gathered over sp before the decoder.
 
 ``forward_train`` computes the materialised loss or, with
 ``--loss_chunk``, the streaming one (ops/losses.py), and under
@@ -86,6 +88,7 @@ from textsummarization_on_flink_tpu_torch.ops import flash_attention as fa
 from textsummarization_on_flink_tpu_torch.ops import losses as loss_ops
 from textsummarization_on_flink_tpu_torch.parallel import collectives
 from textsummarization_on_flink_tpu_torch.parallel import ring_attention
+from textsummarization_on_flink_tpu_torch.parallel import sharding
 
 Params = Dict[str, Any]
 
@@ -179,9 +182,13 @@ def _self_attention(hps: HParams, p: Dict[str, torch.Tensor],
     wrapper on every shape, in x_norm's dtype (the flash kernels' bf16
     forms under bf16), on this rank's heads.  x_norm [B, T, H]; pad_mask
     [B, T] or None.  Where the encoder's T is sharded over sp
-    (``_t_sharded``: --sp_attention, a pad mask, not causal), ring or
-    Ulysses attention over the sp ranks instead, on f32 q/k/v (JAX
-    transformer.py:226-255)."""
+    (``_t_sharded``, a pad mask, not causal): under --sp_attention ring
+    or Ulysses attention over the sp ranks, on f32 q/k/v (JAX
+    transformer.py:226-255); otherwise this rank's block of queries
+    against every key, k, v and the mask all-gathered over sp (the
+    gather's backward reduce-scatters the ranks' partial dK and dV),
+    which is how GSPMD partitions the JAX package's einsum ``_mha``
+    (:290-295)."""
     dt = x_norm.dtype
     x_norm = collectives.copy_to_tp(x_norm)
     # [B, T, nh, hd], contiguous
@@ -190,18 +197,23 @@ def _self_attention(hps: HParams, p: Dict[str, torch.Tensor],
     v = _split_heads(hps, x_norm @ p["wv"].to(dt))
     sm_scale = _head_dim(hps) ** -0.5
     if _t_sharded(hps) and not causal and pad_mask is not None:
-        ctx = ring_attention.sp_attention(hps.sp_attention, q.float(),
-                                          k.float(), v.float(), pad_mask,
-                                          sm_scale).to(dt)
+        if hps.sp_attention:
+            ctx = ring_attention.sp_attention(hps.sp_attention, q.float(),
+                                              k.float(), v.float(), pad_mask,
+                                              sm_scale).to(dt)
+        else:
+            ctx = fa.flash_attention(
+                q, collectives.gather_sp(k, 1), collectives.gather_sp(v, 1),
+                collectives.gather_sp_data(pad_mask, 1), False, sm_scale)
     else:
         ctx = fa.flash_attention(q, k, v, pad_mask, causal, sm_scale)
     return collectives.reduce_from_tp(_merge_heads(ctx) @ p["wo"].to(dt))
 
 
 def _t_sharded(hps: HParams) -> bool:
-    """Whether this forward holds the encoder's sp block of T (the
-    transformer under --sp_attention on a mesh with sp > 1)."""
-    return bool(hps.sp_attention) and collectives.axis_size("sp") > 1
+    """Whether this forward holds the encoder's sp block of T (a mesh
+    with sp > 1: parallel/sharding.py, shards_t)."""
+    return sharding.shards_t(hps) and collectives.axis_size("sp") > 1
 
 
 def _encoder_stack(params: Params, hps: HParams, x: torch.Tensor,
@@ -395,9 +407,8 @@ def beam_encode(params: Params, hps: HParams,
     the decoder's width for the head split (the narrow AAN draft's H_d:
     its [H, H_d] K/V kernels project the H-wide encoder output); None is
     ``hps``.  The search holds the whole batch on every rank: where the
-    encoder's T is sharded (--sp_attention on an sp mesh) it runs on this
-    rank's block through ring or Ulysses attention and its output is
-    all-gathered over sp, as in training."""
+    encoder's T is sharded (an sp mesh) it runs on this rank's block and
+    its output is all-gathered over sp, as in training."""
     head_hps = head_hps if head_hps is not None else hps
     enc_batch, enc_mask = arrays["enc_batch"], arrays["enc_padding_mask"]
     if _t_sharded(hps):

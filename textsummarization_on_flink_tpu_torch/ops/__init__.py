@@ -6,8 +6,9 @@ def launch_counts() -> dict:
     attention's forward and backward (and of those, the launches on a
     bf16 encoder stream, of the slab form at widths the dense form does
     not fit, and of the sp-block form), the flash forward, dK/dV and dQ
-    (and of those, the launches of their bf16 forms, and of the wide
-    kernels that run head dims above 256)."""
+    (and of those, the launches of their bf16 forms, of the wide
+    kernels that run head dims above 256, and on a block of query rows
+    shorter than the keys)."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
@@ -24,4 +25,7 @@ def launch_counts() -> dict:
                 flash_bwd_dq_bf16=fl.launches_bwd_dq_bf16,
                 flash_forward_wide=fl.launches_wide,
                 flash_bwd_dkv_wide=fl.launches_bwd_dkv_wide,
-                flash_bwd_dq_wide=fl.launches_bwd_dq_wide)
+                flash_bwd_dq_wide=fl.launches_bwd_dq_wide,
+                flash_forward_block=fl.launches_block,
+                flash_bwd_dkv_block=fl.launches_bwd_dkv_block,
+                flash_bwd_dq_block=fl.launches_bwd_dq_block)

@@ -17,10 +17,15 @@ let a padding query attend the padding keys.  Only padding rows differ
 between the two, and the cross-attention masks those rows out, so the
 tokens do not change.
 
-q, k, v are [B, T, nh, hd] (the layout ``_split_heads`` gives, so no
-transposes), all float32 or all bfloat16, key_mask [B, T] float32 (1 =
-real token) or None (every key real); the output is the context
-[B, T, nh, hd] before ``wo``, in the inputs' dtype.
+q is [B, Tq, nh, hd], k and v [B, Tk, nh, hd] (the layout
+``_split_heads`` gives, so no transposes), all float32 or all bfloat16,
+key_mask [B, Tk] float32 (1 = real token) or None (every key real); the
+output is the context [B, Tq, nh, hd] before ``wo``, in the inputs'
+dtype.  Tq = Tk is self-attention; Tq < Tk is one sp rank's block of the
+encoder's queries against every key (the transformer's and the AAN's
+encoder on an sp mesh without --sp_attention, models/transformer.py),
+and takes no ``causal``: a causal call with Tq != Tk raises ValueError
+(no path of either package makes one).
 
 bfloat16 (the transformer under ``--compute_dtype=bfloat16``, whose JAX
 package hands bf16 q, k, v to the library kernel) rounds where the
@@ -42,7 +47,7 @@ P.
 
 Training differentiates through ``FlashAttention``, a
 ``torch.autograd.Function``: its forward also writes each row's
-log-sum-exp ``lse`` [B, T, nh] (+inf for a row with no key to attend),
+log-sum-exp ``lse`` [B, Tq, nh] (+inf for a row with no key to attend),
 and its backward computes ``D = rowsum(dO * O)`` in PyTorch, as the
 library does outside its kernels (flash_attention.py:273-275 of the
 installed jax), then launches the dK/dV kernel and the dQ kernel
@@ -54,16 +59,21 @@ the plain version of both backward kernels.
 Head dims: the kernels of flash_attention.cu and flash_attention_bwd.cu
 are built for 32, 128 and 256 (at 256 each kernel splits its output's
 columns over two blocks; see the sources); those of
-flash_attention_wide.cu take any multiple of 128 (each block keeps one
-128-column slab of its output and forms S over the whole head dim in
-32-column chunks), and run every head dim above 256.  On the card any
-other head dim is zero-padded to the next of 32, 128, 256 or, above 256,
-to the next multiple of 128 on the way in (q, k, v, and for the
-backward out and dO) and the outputs and gradients are sliced back:
+flash_attention_wide.cu take any multiple of 128 and run every head dim
+above 256: up to 1024 the forward and dK/dV are a thread block cluster
+of hd / 128 blocks on the tensor cores, each block a 128-column slab,
+their partial S (and dP) summed over the cluster once per tile; above
+1024, and the dQ at every wide head dim, SIMT kernels that keep one
+128-column slab of the output a block and form S over the whole head dim
+in 32-column chunks (``simt=True`` takes those for the forward and dK/dV
+at any wide head dim, to time the cluster forms against them). On the
+card any other head dim is zero-padded to the next of 32, 128, 256 or,
+above 256, to the next multiple of 128 on the way in (q, k, v, and for
+the backward out and dO) and the outputs and gradients are sliced back:
 zero columns add nothing to q . k, give zero output columns and zero
-gradient columns, and ``sm_scale`` is passed by the caller from the
-true head dim (the JAX package pads the same way for the library
-kernel, models/transformer.py:262-272).  No head dim is refused.
+gradient columns, and ``sm_scale`` is passed by the caller from the true
+head dim (the JAX package pads the same way for the library kernel,
+models/transformer.py:262-272). No head dim is refused.
 
 Dispatch: a CPU tensor goes to the plain versions; a CUDA tensor goes to
 the kernels (kernels/flash_attention.cu, kernels/flash_attention_bwd.cu,
@@ -74,7 +84,9 @@ wrapper raises.  There is no fallback from one to the other.
 launches of every form, ``launches_bf16``, ``launches_bwd_dkv_bf16`` and
 ``launches_bwd_dq_bf16`` those of the bf16 forms, ``launches_wide``,
 ``launches_bwd_dkv_wide`` and ``launches_bwd_dq_wide`` those of the wide
-kernels (either dtype).  ``flash_attention`` takes the Function only
+kernels (either dtype), ``launches_block``, ``launches_bwd_dkv_block``
+and ``launches_bwd_dq_block`` those on a block of query rows shorter
+than the keys (Tq != Tk).  ``flash_attention`` takes the Function only
 when a gradient is needed; under ``torch.no_grad`` (serving) it
 launches the forward alone, without ``lse``.
 """
@@ -109,6 +121,9 @@ launches_bwd_dq_bf16 = 0
 launches_wide = 0
 launches_bwd_dkv_wide = 0
 launches_bwd_dq_wide = 0
+launches_block = 0
+launches_bwd_dkv_block = 0
+launches_bwd_dq_block = 0
 
 #: the dtypes the kernels take (all of q, k, v, out and dO in one of them)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -118,16 +133,17 @@ _bwd_lib: Optional[ctypes.CDLL] = None
 _wide_lib: Optional[ctypes.CDLL] = None
 
 
-def _allowed(key_mask: Optional[torch.Tensor], causal: bool, B: int, T: int,
-             device) -> torch.Tensor:
-    """[B, 1, T, T] boolean: may query row i attend key j."""
+def _allowed(key_mask: Optional[torch.Tensor], causal: bool, B: int,
+             Tq: int, Tk: int, device) -> torch.Tensor:
+    """[B, 1, Tq, Tk] boolean: may query row i attend key j.  Causal
+    needs Tq == Tk (``_check_block`` refuses the rest)."""
     if key_mask is None:
-        ok = torch.ones((B, 1, 1, T), dtype=torch.bool, device=device)
+        ok = torch.ones((B, 1, 1, Tk), dtype=torch.bool, device=device)
     else:
         ok = (key_mask > 0)[:, None, None, :]
     if causal:
-        ok = ok & torch.ones((T, T), dtype=torch.bool, device=device).tril()
-    return ok.expand(B, 1, T, T)
+        ok = ok & torch.ones((Tq, Tk), dtype=torch.bool, device=device).tril()
+    return ok.expand(B, 1, Tq, Tk)
 
 
 def _wide(x: torch.Tensor) -> torch.Tensor:
@@ -135,13 +151,23 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
     return x.float() if x.dtype == torch.bfloat16 else x
 
 
+def _check_block(q: torch.Tensor, k: torch.Tensor, causal: bool) -> None:
+    """A query block shorter (or longer) than the keys is taken only
+    without ``causal``: no path of either package asks for a causal
+    block, and its diagonal would need the block's offset."""
+    if causal and q.shape[1] != k.shape[1]:
+        raise ValueError(f"causal flash attention needs as many query rows "
+                         f"as keys, got Tq={q.shape[1]}, Tk={k.shape[1]}")
+
+
 def _masked_logits(q, k, key_mask, causal, sm_scale):
-    """([B, nh, T, T] scores at NEG where a row may not attend, the
-    [B, 1, T, T] attend mask).  bf16 q and k are widened first: exact
+    """([B, nh, Tq, Tk] scores at NEG where a row may not attend, the
+    [B, 1, Tq, Tk] attend mask).  bf16 q and k are widened first: exact
     products, f32 sums."""
-    B, T = q.shape[:2]
+    _check_block(q, k, causal)
+    B, Tq = q.shape[:2]
     logits = torch.einsum("bqnd,bknd->bnqk", _wide(q), _wide(k)) * sm_scale
-    ok = _allowed(key_mask, causal, B, T, q.device)
+    ok = _allowed(key_mask, causal, B, Tq, k.shape[1], q.device)
     return torch.where(ok, logits, NEG), ok
 
 
@@ -246,7 +272,7 @@ def _load_library() -> ctypes.CDLL:
         lib = ctypes.CDLL(build.build("flash_attention"))
         for fn in (lib.ts_flash_attention, lib.ts_flash_attention_bf16):
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 \
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
                 + [ctypes.c_float, ctypes.c_void_p]
         lib.ts_flash_error_string.restype = ctypes.c_char_p
         lib.ts_flash_error_string.argtypes = [ctypes.c_int]
@@ -260,7 +286,7 @@ def _load_bwd_library() -> ctypes.CDLL:
         from textsummarization_on_flink_tpu_torch.kernels import build
 
         lib = ctypes.CDLL(build.build("flash_attention_bwd"))
-        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
         for fn in (lib.ts_flash_bwd_dkv, lib.ts_flash_bwd_dkv_bf16):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 9 + tail
@@ -279,11 +305,14 @@ def _load_wide_library() -> ctypes.CDLL:
         from textsummarization_on_flink_tpu_torch.kernels import build
 
         lib = ctypes.CDLL(build.build("flash_attention_wide"))
-        tail = [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-        for fn in (lib.ts_flash_wide, lib.ts_flash_wide_bf16):
+        tail = [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+        for fn in (lib.ts_flash_wide, lib.ts_flash_wide_bf16,
+                   lib.ts_flash_wide_simt, lib.ts_flash_wide_simt_bf16):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 6 + tail
-        for fn in (lib.ts_flash_wide_bwd_dkv, lib.ts_flash_wide_bwd_dkv_bf16):
+        for fn in (lib.ts_flash_wide_bwd_dkv, lib.ts_flash_wide_bwd_dkv_bf16,
+                   lib.ts_flash_wide_bwd_dkv_simt,
+                   lib.ts_flash_wide_bwd_dkv_simt_bf16):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 9 + tail
         for fn in (lib.ts_flash_wide_bwd_dq, lib.ts_flash_wide_bwd_dq_bf16):
@@ -295,14 +324,20 @@ def _load_wide_library() -> ctypes.CDLL:
     return _wide_lib
 
 
-def _entry(kind: str, bf16: bool, wide: bool):
+def _entry(kind: str, bf16: bool, wide: bool, simt: bool = False):
     """(the C entry point, its library's error string) of the forward
     (``kind`` "fwd"), dK/dV ("dkv") or dQ ("dq") kernel: the wide
     library's above head dim 256, else flash_attention's (the forward)
-    or flash_attention_bwd's; the _bf16 entry for bf16 operands."""
+    or flash_attention_bwd's; the _bf16 entry for bf16 operands.
+    ``simt`` (wide forward and dK/dV only) takes the SIMT design the
+    cluster forms replaced up to head dim 1024, for timing them against
+    it; no path of the port sets it."""
+    if simt and not (wide and kind != "dq"):
+        raise ValueError("only the wide forward and dK/dV have a SIMT form")
     if wide:
         lib = _load_wide_library()
-        name = "ts_flash_wide" + ("" if kind == "fwd" else f"_bwd_{kind}")
+        name = ("ts_flash_wide" + ("" if kind == "fwd" else f"_bwd_{kind}")
+                + ("_simt" if simt else ""))
         error_string = lib.ts_flash_wide_error_string
     elif kind == "fwd":
         lib, name = _load_library(), "ts_flash_attention"
@@ -313,102 +348,117 @@ def _entry(kind: str, bf16: bool, wide: bool):
     return getattr(lib, name + ("_bf16" if bf16 else "")), error_string
 
 
-def _check_inputs(what: str, tensors, key_mask) -> None:
-    """Device, type, shape, contiguity and alignment of [B, T, nh, hd]
-    inputs, all float32 or all bfloat16 (the first one sets the shape and
-    the dtype), and the float32 key mask."""
-    q = tensors[0][1]
+def _check_inputs(what: str, queries, keys, key_mask, causal) -> None:
+    """Device, type, shape, contiguity and alignment of the [B, Tq, nh,
+    hd] query-side inputs ``queries`` (q, and for the backward out and
+    dO) and the [B, Tk, nh, hd] key-side ones ``keys`` (k, v), all
+    float32 or all bfloat16 (q sets the dtype and B, nh, hd), and the
+    float32 key mask [B, Tk]."""
+    q = queries[0][1]
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"the {what} kernel needs CUDA tensors, got {dev}")
-    if q.dim() != 4:
-        raise ValueError(f"q must be [B, T, nh, hd], got {tuple(q.shape)}")
+    if q.dim() != 4 or keys[0][1].dim() != 4:
+        raise ValueError(f"q and k must be [B, T, nh, hd], got "
+                         f"{tuple(q.shape)} and {tuple(keys[0][1].shape)}")
     if q.dtype not in DTYPES:
         raise ValueError(f"q must have dtype float32 or bfloat16, got "
                          f"{q.dtype}")
-    B, T, nh, hd = q.shape
-    for name, x in tensors:
-        if x.dtype != q.dtype and x.dtype in DTYPES:
-            raise ValueError(f"{name} has dtype {x.dtype} but q has "
-                             f"{q.dtype}: the kernels take one dtype")
-        _check(name, x, (B, T, nh, hd), (q.dtype,), dev)
-        if x.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (16-byte "
-                             f"loads)")
+    _check_block(q, keys[0][1], causal)
+    B, Tq, nh, hd = q.shape
+    Tk = keys[0][1].shape[1]
+    for tensors, T in ((queries, Tq), (keys, Tk)):
+        for name, x in tensors:
+            if x.dtype != q.dtype and x.dtype in DTYPES:
+                raise ValueError(f"{name} has dtype {x.dtype} but q has "
+                                 f"{q.dtype}: the kernels take one dtype")
+            _check(name, x, (B, T, nh, hd), (q.dtype,), dev)
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned (16-byte "
+                                 f"loads)")
     if key_mask is not None:
-        _check("key_mask", key_mask, (B, T), (torch.float32,), dev)
-    if B == 0 or T == 0 or nh == 0:
-        raise ValueError(f"empty attention input (B={B}, T={T}, nh={nh})")
+        _check("key_mask", key_mask, (B, Tk), (torch.float32,), dev)
+    if B == 0 or Tq == 0 or Tk == 0 or nh == 0:
+        raise ValueError(f"empty attention input (B={B}, Tq={Tq}, Tk={Tk}, "
+                         f"nh={nh})")
 
 
-def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False):
+def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False,
+                simt=False):
     """Launch the forward kernel (its bf16 form for bf16 inputs; the wide
-    kernel's above head dim 256); same contract as _flash_plain.  With
-    ``with_lse`` returns (out, lse [B, T, nh] float32)."""
-    global launches, launches_bf16, launches_wide
-    _check_inputs("flash attention", (("q", q), ("k", k), ("v", v)),
-                  key_mask)
+    kernel's above head dim 256, its SIMT form with ``simt``: _entry);
+    same contract as _flash_plain.  With ``with_lse`` returns (out, lse
+    [B, Tq, nh] float32)."""
+    global launches, launches_bf16, launches_wide, launches_block
+    _check_inputs("flash attention", (("q", q),), (("k", k), ("v", v)),
+                  key_mask, causal)
     dev = q.device
     hd = q.shape[-1]
     width = _padded_head_dim(hd)
     q, k, v = _pad_head_dim(width, q, k, v)
-    B, T, nh, _ = q.shape
+    B, Tq, nh, _ = q.shape
+    Tk = k.shape[1]
     out = torch.empty_like(q)
-    lse = torch.empty((B, T, nh), device=dev) if with_lse else None
+    lse = torch.empty((B, Tq, nh), device=dev) if with_lse else None
     bf16 = q.dtype == torch.bfloat16
     wide = _is_wide(width)
-    fn, error_string = _entry("fwd", bf16, wide)
+    fn, error_string = _entry("fwd", bf16, wide, simt)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             0 if key_mask is None else key_mask.data_ptr(), out.data_ptr(),
             0 if lse is None else lse.data_ptr(),
-            B, T, nh, width, int(bool(causal)), float(sm_scale), stream)
+            B, Tq, Tk, nh, width, int(bool(causal)), float(sm_scale), stream)
     if err != 0:
         raise RuntimeError("flash attention kernel launch failed: "
                            + error_string(err).decode())
     launches += 1
     launches_bf16 += bf16
     launches_wide += wide
+    launches_block += Tq != Tk
     if width != hd:
         out = out[..., :hd].contiguous()
     return (out, lse) if with_lse else out
 
 
-def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
+def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale,
+                  simt=False):
     """Launch the dK/dV kernel (its bf16 form for bf16 inputs; the wide
-    kernel's above head dim 256): (dk, dv).  dsum = rowsum(dO * O)
-    [B, T, nh] float32."""
+    kernel's above head dim 256, its SIMT form with ``simt``): (dk, dv),
+    [B, Tk, nh, hd].  dsum = rowsum(dO * O) [B, Tq, nh] float32."""
     global launches_bwd_dkv, launches_bwd_dkv_bf16, launches_bwd_dkv_wide
+    global launches_bwd_dkv_block
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     bf16 = q.dtype == torch.bfloat16
-    B, T, nh, hd = q.shape
+    B, Tq, nh, hd = q.shape
     wide = _is_wide(hd)
-    fn, error_string = _entry("dkv", bf16, wide)
+    fn, error_string = _entry("dkv", bf16, wide, simt)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(),
             0 if key_mask is None else key_mask.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, T, nh, hd, int(bool(causal)), float(sm_scale),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            dv.data_ptr(), B, Tq, k.shape[1], nh, hd, int(bool(causal)),
+            float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash attention dK/dV kernel launch failed: "
                            + error_string(err).decode())
     launches_bwd_dkv += 1
     launches_bwd_dkv_bf16 += bf16
     launches_bwd_dkv_wide += wide
+    launches_bwd_dkv_block += Tq != k.shape[1]
     return dk, dv
 
 
 def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
     """Launch the dQ kernel (its bf16 form for bf16 inputs; the wide
-    kernel's above head dim 256): dq."""
+    kernel's above head dim 256): dq, [B, Tq, nh, hd]."""
     global launches_bwd_dq, launches_bwd_dq_bf16, launches_bwd_dq_wide
+    global launches_bwd_dq_block
     dq = torch.empty_like(q)
     bf16 = q.dtype == torch.bfloat16
-    B, T, nh, hd = q.shape
+    B, Tq, nh, hd = q.shape
     wide = _is_wide(hd)
     fn, error_string = _entry("dq", bf16, wide)
     with torch.cuda.device(q.device):
@@ -416,7 +466,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(),
             0 if key_mask is None else key_mask.data_ptr(), dq.data_ptr(),
-            B, T, nh, hd, int(bool(causal)), float(sm_scale),
+            B, Tq, k.shape[1], nh, hd, int(bool(causal)), float(sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError("flash attention dQ kernel launch failed: "
@@ -424,6 +474,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
     launches_bwd_dq += 1
     launches_bwd_dq_bf16 += bf16
     launches_bwd_dq_wide += wide
+    launches_bwd_dq_block += Tq != k.shape[1]
     return dq
 
 
@@ -432,13 +483,13 @@ def _flash_bwd_cuda(q, k, v, out, lse, do, key_mask, causal, sm_scale):
     installed jax), then the dK/dV kernel and the dQ kernel; same contract
     as _flash_bwd_plain."""
     _check_inputs("flash attention backward",
-                  (("q", q), ("k", k), ("v", v), ("out", out), ("do", do)),
-                  key_mask)
-    B, T, nh, hd = q.shape
-    _check("lse", lse, (B, T, nh), (torch.float32,), q.device)
+                  (("q", q), ("out", out), ("do", do)), (("k", k), ("v", v)),
+                  key_mask, causal)
+    B, Tq, nh, hd = q.shape
+    _check("lse", lse, (B, Tq, nh), (torch.float32,), q.device)
     width = _padded_head_dim(hd)
     q, k, v, out, do = _pad_head_dim(width, q, k, v, out, do)
-    # [B, T, nh] f32, contiguous; bf16 dO and O widened first
+    # [B, Tq, nh] f32, contiguous; bf16 dO and O widened first
     dsum = torch.sum(_wide(do) * _wide(out), dim=-1)
     dk, dv = _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal,
                            sm_scale)

@@ -20,11 +20,12 @@ collectives out (parallel/collectives.py):
     over the whole article on every rank, the encoder states, features,
     energies and coverage stay on the rank's block, and each decoder
     step's attention merges the blocks over sp (its context reduction);
-    the transformer's and the AAN's encoder under ``--sp_attention``:
-    ring or Ulysses attention on the block, the encoder output
-    all-gathered before the decoder (collectives.gather_sp).  The
-    transformer and the AAN without ``--sp_attention`` compute the same
-    thing on every sp rank (port fault 7c in ROADMAP.md).
+    the transformer's and the AAN's encoder: its position-wise layers on
+    the block, its self-attention ring or Ulysses attention under
+    ``--sp_attention`` and otherwise the block's queries against the
+    keys all-gathered over sp (with tp, on the rank's heads), the
+    encoder output all-gathered before the decoder
+    (collectives.gather_sp).
 
 A step's results equal the single-rank step's: the same loss, global
 norm and updated params, up to the order of the sums.  Layout decisions
@@ -402,8 +403,9 @@ def make_sharded_beam_search(plan: MeshPlan, params: Optional[Any] = None):
     search the same rows and shard the encoder's T as training does
     (JAX mesh.py:377-381): the pointer-generator's attention runs on each
     rank's block of T and merges over sp every step, and the
-    transformer's and the AAN's encoder runs its block through
-    --sp_attention's ring or Ulysses attention.  A batch whose T (a serve
+    transformer's and the AAN's encoder runs its block (its
+    self-attention through --sp_attention's ring or Ulysses attention,
+    or against the keys all-gathered over sp).  A batch whose T (a serve
     bucket's) sp does not divide is padded with masked positions to the
     next multiple and its attention cut back (GSPMD pads an uneven shard
     so).  A search that raises on one rank raises on every rank

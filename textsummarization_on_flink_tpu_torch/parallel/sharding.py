@@ -11,17 +11,19 @@ spec's axis, ``gather_params`` rebuilds it with an all-gather,
 ``shard_batch`` takes the rank's dp rows and, where a path shards the
 encoder's time axis, its sp block of T.
 
-Which paths shard T (``shards_t``): the pointer-generator's at sp > 1,
-and the transformer's and the AAN's encoder under
-``--sp_attention=ring|ulysses`` with sp > 1.  The pointer-generator's
-biLSTM runs over the whole article on every sp rank (its scan is
-sequential, as in the JAX package); each rank keeps its block of the
-encoder states and features, and the attention's energies, softmax and
-coverage stay on that block, merged over sp at every decoder step
-(ops/fused_attention.py: merge_sp_blocks).  The transformer and the AAN
-without ``--sp_attention`` still run the same on every sp rank with the
-whole T, where the JAX package's GSPMD splits their position-wise layers
-over T (ROADMAP.md, port fault 7c).
+Which paths shard T (``shards_t``): every family's at sp > 1, as the
+JAX package's ``batch_spec`` gives the encoder arrays ``P("dp", "sp")``
+(its sharding.py:128-133).  The pointer-generator's biLSTM runs over the
+whole article on every sp rank (its scan is sequential, as in the JAX
+package); each rank keeps its block of the encoder states and features,
+and the attention's energies, softmax and coverage stay on that block,
+merged over sp at every decoder step (ops/fused_attention.py:
+merge_sp_blocks).  The transformer's and the AAN's encoder runs its
+position-wise layers on the rank's block of T, as the JAX package's
+GSPMD partitions them; its self-attention is ring or Ulysses attention
+under ``--sp_attention``, and otherwise the rank's block of queries
+against every key (k, v and the mask all-gathered over sp, the JAX
+einsum's partitioning).
 
 Serving (the JAX package's sharding.py:235-307): the slot engine's
 resident ``[slots, ...]`` state shards over dp (slot i lives on dp index
@@ -221,16 +223,12 @@ def wire_dtype(hps: HParams, role: str = "grads") -> Optional[torch.dtype]:
 
 
 def shards_t(hps: HParams) -> bool:
-    """Whether the path shards the encoder's time axis over sp: the
-    pointer-generator's at sp > 1 (JAX parallel/mesh.py:17-22), the
-    transformer's and the AAN's encoder under --sp_attention with
-    sp > 1."""
-    if hps.sp <= 1:
-        return False
-    if hps.model_family == "pointer_generator":
-        return True
-    return (bool(hps.sp_attention)
-            and hps.model_family in ("transformer", "avg_attention"))
+    """Whether the path shards the encoder's time axis over sp: every
+    family's at sp > 1 (JAX parallel/sharding.py:128-133; the
+    pointer-generator's as JAX parallel/mesh.py:17-22 says, the
+    transformer's and the AAN's encoder with or without
+    --sp_attention)."""
+    return hps.sp > 1
 
 
 def slot_state_specs(state: Any) -> Any:
