@@ -55,24 +55,24 @@ device or without the port's sources beside it.  Phases, each fatal:
         TMA copies (UTMALDG) in every instantiation, no bf16 mma.sync
         (HMMA.16816), no spill, no wgmma serialized by ptxas;
      f. the wide flash kernels (head dims above 256, f32 and bf16:
-        forward, dK/dV, dQ; the forward and dK/dV up to head dim 1024 the
-        cluster forms on the tensor cores) against their plain versions
-        at 16 x 400 x 1 x 384, 512 and 1024 (key mask) and 16 x 100 x 1
-        x 512 (causal), a rerun the same bits, timed beside the SIMT
-        forward and dK/dV they replaced (the cluster forms at least
-        WIDE_MIN_GAIN times faster at head dim 512) and
-        scaled_dot_product_attention with the backend it took
-        (phase_flash_wide); their SASS and ptxas report
-        (wide_flash_sass): 0 bytes of spill in all ten instantiations,
+        forward, dK/dV, dQ; up to head dim 1024 the cluster forms on the
+        tensor cores) against their plain versions at 16 x 400 x 1 x
+        384, 512 and 1024 (key mask) and 16 x 100 x 1 x 512 (causal), a
+        rerun the same bits, timed beside the SIMT forward, dK/dV and dQ
+        they replaced (the cluster forms at least WIDE_MIN_GAIN times
+        faster at head dim 512) and scaled_dot_product_attention with
+        the backend it took (phase_flash_wide); their SASS and ptxas
+        report (wide_flash_sass): 0 bytes of spill in all twelve
+        instantiations,
         3xTF32 HMMA in the f32 cluster forms, HGMMA and UTMALDG and no
         serialized wgmma in the bf16 ones; every flash kernel on a block
         of query rows against all the keys (Tq = Tk / 2, the sp=2
         encoder's form; QUERY_BLOCK_CASES, both dtypes) against its plain
         version, timed beside scaled_dot_product_attention on the block
         (phase_flash_query_block); every launch form of the parent (Tq =
-        Tk; the redesigned wide forward and dK/dV aside) giving the
-        parent's output digests (FLASH_PARENT_DIGESTS,
-        phase_flash_digests);
+        Tk; the redesigned wide forward, dK/dV and dQ aside, the dQ's
+        digests taken from its SIMT form) giving the parent's output
+        digests (FLASH_PARENT_DIGESTS, phase_flash_digests);
      g. the fused kernels' slab forms (D in slabs: 16 x 4 x 400 x 2400
         and 4 x 1 x 400 x 4096 f32, 16 x 4 x 400 x 4096 bf16; the
         backward at 16 x 1 x 400 x 2400, 4 x 1 x 400 x 4096 and bf16
@@ -812,10 +812,11 @@ def fused_digests(fa):
 #: (FLASH_PARENT_DIGESTS, from scripts/torch_flash_bench.py --which
 #: digests on the parent's checkout, NVIDIA H100 80GB HBM3): the f32 and
 #: bf16 kernels at head dims 32, 128 and 256, masked and causal; the wide
-#: dQ (SIMT) at 512; the SIMT wide forward, dK/dV and dQ at 1152 (above
-#: the cluster forms' 1024).  The wide forward and dK/dV at 384-1024 are
-#: new designs (the cluster forms), held to their plain versions by
-#: phase_flash_wide instead
+#: dQ's SIMT form (``simt=True``, the parent's dQ) at 512; the SIMT wide
+#: forward, dK/dV and dQ at 1152 (above the cluster forms' 1024).  The
+#: wide forward, dK/dV and dQ at 384-1024 are new designs (the cluster
+#: forms), held to their plain versions by phase_flash_wide and
+#: phase_flash_query_block instead
 FLASH_ALL = ("fwd", "fwd_lse", "dkv", "dq")
 FLASH_DIGEST_CASES = (
     [(3, 200, 2, hd, False, dt, FLASH_ALL) for hd in (32, 128, 256)
@@ -942,9 +943,15 @@ def flash_digests(fl):
     """{case: digest} of each flash kernel's outputs at FLASH_DIGEST_CASES
     through ``fl`` (the port's ops.flash_attention, or another
     checkout's): the serving forward (out), the training forward (out,
-    lse), and dK/dV and dQ from flash_rows_np's lse and dsum."""
+    lse), and dK/dV and dQ from flash_rows_np's lse and dsum.  A wide dQ
+    up to head dim 1024 takes its SIMT form (``simt=True``) where ``fl``'s
+    dQ wrapper has the flag: the parent's design, whose bits the parent's
+    digests hold (a checkout without the flag has only that form)."""
+    import inspect
+
     import torch
 
+    simt_dq = "simt" in inspect.signature(fl._bwd_dq_cuda).parameters
     out = {}
     for i, (B, T, nh, hd, causal, dtype, kernels) in enumerate(
             FLASH_DIGEST_CASES):
@@ -953,6 +960,7 @@ def flash_digests(fl):
         scale = hd ** -0.5
         name = f"{B}x{T}x{nh}x{hd} {'causal' if causal else 'mask'} {dtype}"
         lse, dsum = flash_rows_np(q, k, v, do, mask, causal, scale)
+        dq_kw = dict(simt=True) if simt_dq and 256 < hd <= 1024 else {}
         runs = dict(
             fwd=lambda: (fl._flash_cuda(q, k, v, mask, causal, scale),),
             fwd_lse=lambda: fl._flash_cuda(q, k, v, mask, causal, scale,
@@ -960,7 +968,7 @@ def flash_digests(fl):
             dkv=lambda: fl._bwd_dkv_cuda(q, k, v, do, lse, dsum, mask, causal,
                                          scale),
             dq=lambda: (fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, causal,
-                                        scale),))
+                                        scale, **dq_kw),))
         for kernel in kernels:
             out[f"{kernel} {name}"] = _digest(runs[kernel]())
     torch.cuda.synchronize()
@@ -1620,20 +1628,21 @@ def sdpa_backend(q, k, v, mask, causal, scale):
 
 def phase_flash_wide(seed):
     """The wide kernels (head dims above 256; kernels/
-    flash_attention_wide.cu: the forward and dK/dV up to head dim 1024 a
-    cluster of hd / 128 blocks on the tensor cores, 3xTF32 mma.sync in
-    f32 and wgmma in bf16, the dQ SIMT FMA) against their plain versions
+    flash_attention_wide.cu: the forward, dK/dV and dQ up to head dim
+    1024 a cluster of hd / 128 blocks on the tensor cores, 3xTF32
+    mma.sync in f32 and wgmma in bf16) against their plain versions
     at WIDE_FLASH_CASES, in f32 and bf16: out (the serving form), lse
     (the training form), dq, dk and dv; f32 within ATTN_TOL * max(1,
     |value|) of the plain version, bf16 within FLASH_BF16_ULPS bf16 ulps
     of the tensor's largest |value|, lse within ATTN_TOL * max(1, |lse|)
     with +inf on the same rows; the empty article's outputs zeros; a
-    rerun the same bits.  The SIMT forward and dK/dV the cluster forms
-    replaced (the parent's design, still built for head dims above 1024:
-    ``simt=True``) are held to the same plain versions and timed in this
-    call beside them: the cluster forms at least WIDE_MIN_GAIN times
+    rerun the same bits.  The SIMT forward, dK/dV and dQ the cluster
+    forms replaced (the first design, still built for head dims above
+    1024: ``simt=True``) are held to the same plain versions and timed in
+    this call beside them: the cluster forms at least WIDE_MIN_GAIN times
     faster at 16 x 400 x 1 x 512 in both dtypes.  Times: the forward
-    (serving form), the dK/dV and dQ kernels, the SIMT forward and dK/dV,
+    (serving form), the dK/dV and dQ kernels, the SIMT forward, dK/dV and
+    dQ,
     the plain forward and whole backward, and
     scaled_dot_product_attention's forward and backward (the library
     column, for time only) with the backend it took.  Bounds as the other
@@ -1668,6 +1677,8 @@ def phase_flash_wide(seed):
                                       simt=True)
             simt_dk, simt_dv = fl._bwd_dkv_cuda(q, k, v, do, lse, dsum, mask,
                                                 causal, scale, simt=True)
+            simt_dq = fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, causal,
+                                      scale, simt=True)
             ref = fl._flash_plain(q, k, v, mask, causal, scale)
             lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
             want = fl._flash_bwd_plain(q, k, v, out, lse_p, do, mask, causal,
@@ -1676,7 +1687,8 @@ def phase_flash_wide(seed):
             outs = dict(out=(out, ref), serve_out=(serve_out, ref),
                         dq=(grads[0], want[0]), dk=(grads[1], want[1]),
                         dv=(grads[2], want[2]), simt_out=(simt_out, ref),
-                        simt_dk=(simt_dk, want[1]), simt_dv=(simt_dv, want[2]))
+                        simt_dk=(simt_dk, want[1]), simt_dv=(simt_dv, want[2]),
+                        simt_dq=(simt_dq, want[0]))
             errs, ulps, ok = {}, {}, True
             for name, (g, w) in outs.items():
                 if bf16:
@@ -1709,6 +1721,9 @@ def phase_flash_wide(seed):
             simt_dkv_ms = time_cuda(lambda: fl._bwd_dkv_cuda(
                 q, k, v, do, lse, dsum, mask, causal, scale, simt=True), 5,
                 flush)
+            dq_simt_ms = time_cuda(lambda: fl._bwd_dq_cuda(
+                q, k, v, do, lse, dsum, mask, causal, scale, simt=True), 5,
+                flush)
             bwd_plain_ms = time_cuda(lambda: fl._flash_bwd_plain(
                 q, k, v, out, lse_p, do, mask, causal, scale), 5, flush)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1736,7 +1751,9 @@ def phase_flash_wide(seed):
                        dkv_ms=dkv_ms, dq_ms=dq_ms, bwd_plain_ms=bwd_plain_ms,
                        bwd_library_ms=bwd_library_ms,
                        simt_ms=simt_ms, simt_dkv_ms=simt_dkv_ms,
+                       dq_simt_ms=dq_simt_ms,
                        gain=simt_ms / ms, dkv_gain=simt_dkv_ms / dkv_ms,
+                       dq_gain=dq_simt_ms / dq_ms,
                        dkv_bound_ms=bounds["dkv"][0],
                        dkv_bound_by=bounds["dkv"][1],
                        dq_bound_ms=bounds["dq"][0],
@@ -1754,7 +1771,8 @@ def phase_flash_wide(seed):
                           f"{row}")
             if (B, T, nh, hd) == (16, 400, 1, 512):
                 check(row["gain"] >= WIDE_MIN_GAIN
-                      and row["dkv_gain"] >= WIDE_MIN_GAIN,
+                      and row["dkv_gain"] >= WIDE_MIN_GAIN
+                      and row["dq_gain"] >= WIDE_MIN_GAIN,
                       f"the cluster forms less than {WIDE_MIN_GAIN} times "
                       f"faster than the SIMT ones at {row}")
             for kernel, names in (("forward", ("out", "serve_out")),
@@ -1767,7 +1785,7 @@ def phase_flash_wide(seed):
 
 
 #: the cluster forms' least gain over the SIMT forms they replaced at 16 x
-#: 400 x 1 x 512, forward and dK/dV, both dtypes
+#: 400 x 1 x 512, forward, dK/dV and dQ, both dtypes
 WIDE_MIN_GAIN = 3.0
 
 #: the wide kernels' functions in the SASS and ptxas log: {key: function};
@@ -1778,8 +1796,10 @@ WIDE_FLASH_KERNELS = dict(
     fwd_bf16="flash_fwd_cluster_bf16_kernel",
     dkv_f32="flash_bwd_dkv_cluster_f32_kernel",
     dkv_bf16="flash_bwd_dkv_cluster_bf16_kernel",
+    dq_f32="flash_bwd_dq_cluster_f32_kernel",
+    dq_bf16="flash_bwd_dq_cluster_bf16_kernel",
     fwd_simt="flash_fwd_wide_kernel", dkv_simt="flash_bwd_dkv_wide_kernel",
-    dq="flash_bwd_dq_wide_kernel")
+    dq_simt="flash_bwd_dq_wide_kernel")
 
 
 def wide_flash_sass():
@@ -1788,7 +1808,7 @@ def wide_flash_sass():
     instantiation its registers, spill bytes, 3xTF32 tensor-core products
     (HMMA.1688.F32.TF32), warpgroup products (HGMMA), tensor copies
     (UTMALDG) and ptxas's wgmma serialization warnings.  Fails unless all
-    ten are there with 0 bytes of spill, the f32 cluster forms with
+    twelve are there with 0 bytes of spill, the f32 cluster forms with
     HMMA.1688.F32.TF32, the bf16 ones with HGMMA and UTMALDG and no
     serialization."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
@@ -1823,7 +1843,7 @@ def wide_flash_sass():
                       and out[name]["serialized"] == 0,
                       f"wide kernel {func}: SASS {got}, ptxas {info} (want "
                       f"HGMMA and UTMALDG, no serialization)")
-    check(len(out) == 10,
+    check(len(out) == 12,
           f"wide flash kernels not all in the build log: {out}")
     print("flash_wide_sass " + json.dumps(out))
     return out
@@ -1962,8 +1982,8 @@ def phase_flash_digests():
     """Every flash launch form the parent took (as many query rows as
     keys) gives the parent's output bits: flash_digests at
     FLASH_DIGEST_CASES equal to FLASH_PARENT_DIGESTS (the f32 and bf16
-    kernels, the wide dQ, the SIMT wide forward and dK/dV above head dim
-    1024).  Returns the number of digests compared."""
+    kernels, the wide dQ's SIMT form, the SIMT wide forward and dK/dV
+    above head dim 1024).  Returns the number of digests compared."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     digests = flash_digests(fl)
@@ -6278,10 +6298,10 @@ def main(argv=None) -> int:
             if key == "forward" and tag == "f32":
                 launched += wide["hd512_decode"]["wide_launches"]
             suffix = "" if key == "forward" else f"_bwd_{key}"
-            # the forward and dK/dV: the cluster forms (PR 24), timed
-            # beside the SIMT design they replaced (the parent's, in this
-            # run); the dQ stays SIMT
-            simt = {"forward": "simt_ms", "dkv": "simt_dkv_ms"}.get(key)
+            # the cluster forms, timed beside the SIMT design they
+            # replaced in this run
+            simt = {"forward": "simt_ms", "dkv": "simt_dkv_ms",
+                    "dq": "dq_simt_ms"}[key]
             entry = dict(
                 name="flash_attention_wide" + suffix
                 + ("_bf16" if tag == "bf16" else ""),
@@ -6298,20 +6318,14 @@ def main(argv=None) -> int:
                 shapes=[dict(shape=r["shape"], causal=r["causal"],
                              ms=r[ms], plain_ms=r[plain],
                              library_ms=r[lib], bound_ms=r[bound],
-                             bound_by=r[by],
-                             **({} if simt is None else dict(
-                                 parent_ms=r[simt])))
-                        for (t, _), r in fw_rows.items() if t == tag])
-            if simt is not None:
-                entry.update(
-                    parent_ms=head[simt], gain=head[simt] / head[ms],
-                    redesigned="PR 24",
-                    design=("a cluster of hd / 128 blocks, each an "
-                            "hd-128 flash block on its 128-column slab "
-                            "(3xTF32 mma.sync in f32, wgmma on TMA tiles "
-                            "in bf16), the partial S (and dP) summed over "
-                            "the cluster through distributed shared "
-                            "memory once per tile"))
+                             bound_by=r[by], parent_ms=r[simt])
+                        for (t, _), r in fw_rows.items() if t == tag],
+                parent_ms=head[simt], gain=head[simt] / head[ms],
+                design=("a cluster of hd / 128 blocks, each an hd-128 "
+                        "flash block on its 128-column slab (3xTF32 "
+                        "mma.sync in f32, wgmma on TMA tiles in bf16), "
+                        "the partial S (and dP) summed over the cluster "
+                        "through distributed shared memory once per tile"))
             kernels.append(entry)
     # the query-block forms (Tq < Tk: one sp rank's block of the
     # encoder's queries against every key; their own counters, each

@@ -22,7 +22,10 @@ maps' encoding included, averaged over --iters calls without a
 synchronize).  ``--which wide``: the wide kernels (head dims above 256)
 at chip_smoke.py's WIDE_FLASH_CASES (16x400x1x384, x512, x1024 with a
 key mask, 16x100x1x512 causal) in f32 and bf16 (--dtype is not read):
-the forward without and with lse, the dK/dV and the dQ kernels.
+the forward without and with lse, the dK/dV and the dQ kernels, and
+the SIMT forms the cluster forms replaced where the checkout's wrappers
+take ``simt`` (the dQ's only where its wrapper has the flag), so one
+call times the SIMT design beside the cluster forms.
 ``--which digests`` prints one JSON line of chip_smoke.flash_digests:
 the digests of every flash kernel's outputs at the launch forms with as
 many query rows as keys (chip_smoke.FLASH_DIGEST_CASES, inputs made with
@@ -154,12 +157,13 @@ def host_us(fn, iters):
 def bench_wide(args, chip_smoke, fl, flush, emit):
     """The wide kernels at chip_smoke.WIDE_FLASH_CASES in both dtypes; a
     checkout whose wrappers take ``simt`` also times its SIMT forward and
-    dK/dV."""
+    dK/dV, and its SIMT dQ where the dQ's wrapper takes the flag."""
     import inspect
 
     import torch
 
     simt = "simt" in inspect.signature(fl._flash_cuda).parameters
+    simt_dq = "simt" in inspect.signature(fl._bwd_dq_cuda).parameters
 
     for dtype in (torch.float32, torch.bfloat16):
         args.dtype = str(dtype).replace("torch.", "")
@@ -188,6 +192,9 @@ def bench_wide(args, chip_smoke, fl, flush, emit):
                          ("bwd_dkv_simt", lambda: fl._bwd_dkv_cuda(
                              q, k, v, do, lse, dsum, mask, causal, scale,
                              simt=True))]
+            if simt_dq:
+                runs.append(("bwd_dq_simt", lambda: fl._bwd_dq_cuda(
+                    q, k, v, do, lse, dsum, mask, causal, scale, simt=True)))
             for kernel, fn in runs:
                 emit(kernel, shape, chip_smoke.time_cuda(fn, args.iters,
                                                          flush))

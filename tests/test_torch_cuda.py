@@ -1509,6 +1509,56 @@ def test_flash_wide_head_dims_padded_on_card(hd):
         np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(), **TOL)
 
 
+#: the wide dQ's cluster form against its SIMT form: (Tq, Tk, nh, causal)
+#: at T ragged against the f32 form's 64-row and the bf16 form's 128-row
+#: blocks, 2 and 3 heads (clusters of hd / 128 blocks beside nh in the
+#: grid), causal, and query blocks (Tq < Tk)
+WIDE_DQ_CASES = ([(T, T, nh, c) for T in (65, 130, 400) for nh in (2, 3)
+                  for c in (False, True)]
+                 + [(65, 130, 2, False), (200, 400, 3, False)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (384, 512))
+@pytest.mark.parametrize("tq,tk,nh,causal", WIDE_DQ_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_dq_cluster_matches_simt_and_plain_on_card(hd, tq, tk, nh,
+                                                              causal, dtype):
+    """The wide dQ's cluster form and the SIMT form it replaced
+    (``simt=True``) on the same lse and D (the plain versions'), each
+    held to the plain dQ: f32 within 1e-5 relative to the output's size,
+    bf16 within FLASH_BF16_ULPS; article 1, fully masked, exact zeros;
+    one wide dQ launch each."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(3, tk, nh, hd, seed=tq + nh + hd)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    q = q[:, tk - tq:].contiguous()
+    scale = hd ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(tq + hd)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    out = fl._flash_plain(q, k, v, mask, causal, scale)
+    lse = fl._flash_lse_plain(q, k, mask, causal, scale)
+    dsum = torch.sum(do.float() * out.float(), dim=-1)
+    want = fl._flash_bwd_plain(q, k, v, out, lse, do, mask, causal,
+                               scale)[0]
+    before = fl.launches_bwd_dq_wide
+    got = [fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, causal, scale,
+                           simt=simt) for simt in (False, True)]
+    torch.cuda.synchronize()
+    assert fl.launches_bwd_dq_wide == before + 2
+    for dq in got:
+        assert dq.shape == want.shape and dq.dtype == dtype
+        if dtype == torch.bfloat16:
+            _within_bf16_ulps(dq, want)
+        else:
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            np.testing.assert_allclose(dq.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=0, atol=tol)
+        assert not dq[1].any()  # the empty article
+
+
 #: one sp rank's block of query rows against every key: (Tq, Tk) with Tq
 #: half and a third of Tk, ragged against the 64- and 128-row blocks
 QUERY_BLOCKS = ((50, 100), (33, 100), (65, 130), (200, 400))

@@ -216,3 +216,36 @@ def test_pad_and_slice_equals_unpadded_plain_at_hd320(causal):
     for a, b in zip(gradsp, grads):
         torch.testing.assert_close(a[..., :hd], b, rtol=1e-6, atol=1e-6)
         assert not a[..., hd:].any()
+
+
+def _refuse_load():
+    raise AssertionError("a kernel library was loaded")
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", ["fwd", "dkv", "dq"])
+def test_simt_is_refused_off_the_wide_kernels(monkeypatch, kind, bf16):
+    """``simt=True`` names the SIMT design of the wide kernels only: off
+    them _entry raises ValueError before it loads any library."""
+    for loader in ("_load_library", "_load_bwd_library",
+                   "_load_wide_library"):
+        monkeypatch.setattr(fl, loader, _refuse_load)
+    with pytest.raises(ValueError, match="wide"):
+        fl._entry(kind, bf16, False, simt=True)
+
+
+@pytest.mark.parametrize("simt", [False, True])
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("kind", ["fwd", "dkv", "dq"])
+def test_wide_entry_names_take_simt_for_every_kernel(monkeypatch, kind, bf16,
+                                                     simt):
+    """On the wide library every kernel, the dQ included, has a SIMT entry
+    beside its cluster entry: ts_flash_wide[_bwd_<kind>][_simt][_bf16]."""
+    lib = type("Lib", (), {"ts_flash_wide_error_string": "err"})()
+    monkeypatch.setattr(fl, "_load_wide_library", lambda: lib)
+    monkeypatch.setattr(fl, "_load_library", _refuse_load)
+    monkeypatch.setattr(fl, "_load_bwd_library", _refuse_load)
+    name = ("ts_flash_wide" + ("" if kind == "fwd" else f"_bwd_{kind}")
+            + ("_simt" if simt else "") + ("_bf16" if bf16 else ""))
+    setattr(lib, name, name)
+    assert fl._entry(kind, bf16, True, simt=simt) == (name, "err")

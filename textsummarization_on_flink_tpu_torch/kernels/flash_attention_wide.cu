@@ -34,10 +34,11 @@
 // key mask the forward does 4 * hd per attended pair, 5.24 GFLOP: 0.032
 // ms at the 3xTF32 rate of the f32 kernels (165 TFLOP/s), 0.0053 ms at
 // the bf16 tensor-core rate, where the 26.2 MB of bf16 q, k, v and out
-// (0.0078 ms at 3.35 TB/s) bound it instead; dK/dV does 8 * hd.
+// (0.0078 ms at 3.35 TB/s) bound it instead; dK/dV does 8 * hd, dQ 6 *
+// hd.
 //
-// The forward and dK/dV up to head dim 1024: a thread block cluster per
-// (block of rows, head, article) splits the head dim.
+// Up to head dim 1024: a thread block cluster per (block of rows, head,
+// article) splits the head dim.
 //
 //   * the cluster holds hd / 128 blocks (at most 8, the portable size);
 //     block r owns the columns [128 r, 128 r + 128) of q, k, v (and dO)
@@ -47,38 +48,47 @@
 //     heads are few (16 x 400 x 1 x 512: 448 blocks where 64-row blocks
 //     alone would be 112);
 //   * per tile of the loop each block forms its partial S = Q K^T (and in
-//     dK/dV the partial dP^T = V dO^T) over its 128 columns on the tensor
-//     cores, writes it to shared memory in its accumulator fragment
-//     layout, and after one cluster barrier every block adds the
-//     cluster's partials, read through distributed shared memory, in rank
-//     order: every block holds the same S, so the softmax (its running max
-//     and sum) is the same in each, and S and dP are formed once per tile
-//     for all the output's columns.  The partials alternate between two
-//     buffers, so one barrier a tile keeps a buffer from being rewritten
-//     while a peer reads it;
+//     the backward the partial dP = dO V^T, transposed in dK/dV) over its
+//     128 columns on the tensor cores, writes it to shared memory in its
+//     accumulator fragment layout, and after one cluster barrier every
+//     block adds the cluster's partials, read through distributed shared
+//     memory, in rank order: every block holds the same S, so the softmax
+//     (its running max and sum) is the same in each, and S and dP are
+//     formed once per tile for all the output's columns.  The partials
+//     alternate between two buffers, so one barrier a tile keeps a buffer
+//     from being rewritten while a peer reads it.  The bf16 dQ splits
+//     the sum in two (sum_share, gather_sums): block r sums its 1/C of
+//     the buffer over the cluster in rank order, and after a second
+//     barrier every block reads each sum from its owner; the same bits,
+//     with 2 (C - 1) / C of a buffer read from the peers where the one
+//     sum reads C - 1 buffers (on an H100 the one sum's exchange was 68%
+//     of that kernel's time at 16 x 400 x 1 x 512 and 85% at x 1024; in
+//     the f32 dQ, whose partials are 8 keys wide, the second barrier cost
+//     more than the reads it saved);
 //   * f32: the geometry of the f32 kernels at hd 128 (4 warps, 64 rows or
-//     keys a block; key tiles of 16 or query tiles of 8 rows staged by
-//     cp.async, double-buffered, split to hi/lo once); S, P V, dV and dK
-//     are m16n8k8 3xTF32 `mma.sync` products (mma_tf32x3.cuh); the
-//     forward exchanges the next tile's partial S behind this tile's
-//     P V, the cluster barrier split into its arrive and its wait;
+//     keys a block; key tiles of 16 (forward) or 8 (dQ), or query tiles
+//     of 8 rows, staged by cp.async, double-buffered, split to hi/lo
+//     once); S, dP, P V, dV, dK and dQ are m16n8k8 3xTF32 `mma.sync`
+//     products (mma_tf32x3.cuh); the forward exchanges the next tile's
+//     partial S behind this tile's P V, the cluster barrier split into
+//     its arrive and its wait; the dQ's dS K reads the K tile S read;
 //   * bf16: two warpgroups of 64 rows or keys a block (128 in all) run
 //     their products as `wgmma` (wgmma_bf16.cuh) on tiles the TMA unit
 //     copies (128-column boxes of the head: the tensor maps span the whole
 //     head dim, each block's copies start at its slab), 2 stages, the
-//     next tile's copy issued before the current tile's products; P and
-//     dS^T pass to the next product in registers.  No producer warpgroup
-//     and no `setmaxnreg`: every thread takes part in the cluster
-//     barriers, and thread 0 issues the copies;
+//     next tile's copy issued before the current tile's products; P, dS^T
+//     and dS pass to the next product in registers.  No producer
+//     warpgroup and no `setmaxnreg`: every thread takes part in the
+//     cluster barriers, and thread 0 issues the copies;
 //   * a key the row may not attend gets s = -inf (p exactly 0); a tile no
 //     key of which is real and unmasked is skipped by the whole cluster
 //     (every block reads the same key flags); causal tiles past the
-//     block's last row (forward) or before its first key (dK/dV) are never
-//     visited.  No atomics: two runs give the same bits.
+//     block's last row (forward, dQ) or before its first key (dK/dV) are
+//     never visited.  No atomics: two runs give the same bits.
 //
-// Above head dim 1024, and the dQ kernel at every wide head dim: the
-// simple form, SIMT FMA at the 67 TFLOP/s f32 rate, each block forming S
-// (and dP) over the whole head dim for one 128-wide slab of its output:
+// Above head dim 1024: the simple form, SIMT FMA at the 67 TFLOP/s f32
+// rate, each block forming S (and dP) over the whole head dim for one
+// 128-wide slab of its output:
 //
 //   * 256 threads (16 x 16) a block; the block owns 64 rows (query rows
 //     in the forward and dQ, keys in dK/dV) and walks 64-wide tiles of
@@ -213,6 +223,58 @@ __device__ __forceinline__ void sum_partials(float (&acc)[kN][4],
       acc[i][2] += p.z;
       acc[i][3] += p.w;
     }
+  }
+}
+
+// The exchange in two halves, each behind a cluster barrier: the float4
+// [rank n / C, (rank + 1) n / C) of the cluster's partials at `xb` (n
+// float4 in every block, the same offset) summed in rank order over the
+// cluster (sum_partials' order: the same bits) and written over this
+// block's own partials there, which no peer reads in this half; every
+// thread of the block takes part, the loads of all ranks issued before
+// the adds
+__device__ __forceinline__ void sum_share(cg::cluster_group& cluster,
+                                          float* xb, int n, int C,
+                                          int threads, int tid) {
+  const int rank = (int)cluster.block_rank();
+  float4* own = reinterpret_cast<float4*>(xb);
+  for (int i = rank * n / C + tid; i < (rank + 1) * n / C; i += threads) {
+    float4 p[kMaxCluster];
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < C)
+        p[r] = reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(xb, r))[i];
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      if (r < C) {
+        s.x += p[r].x;
+        s.y += p[r].y;
+        s.z += p[r].z;
+        s.w += p[r].w;
+      }
+    }
+    own[i] = s;
+  }
+}
+
+// acc (kN float4 idx(i) of the buffers) = the sums sum_share left, each
+// read from the block that owns it (the last r with r n / C <= j)
+template <int kN, class Idx>
+__device__ __forceinline__ void gather_sums(float (&acc)[kN][4],
+                                            cg::cluster_group& cluster,
+                                            float* xb, int n, int C,
+                                            Idx idx) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int j = idx(i);
+    const float4 p = reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(xb, ((j + 1) * C - 1) / n))[j];
+    acc[i][0] = p.x;
+    acc[i][1] = p.y;
+    acc[i][2] = p.z;
+    acc[i][3] = p.w;
   }
 }
 
@@ -707,8 +769,199 @@ flash_bwd_dkv_cluster_f32_kernel(
   }
 }
 
-// The bf16 forms' blocks: two warpgroups of 64 rows (forward) or keys
-// (dK/dV), 128-column slabs as wgmma tiles of 64-column boxes (the
+// The f32 dQ's block: 64 query rows, 4 warps of 16 (the head-dim-128 dQ
+// kernel's geometry, flash_attention_bwd.cu): q and dO staged once and
+// split at use; key tiles of 8 keys (K, V and their key flags) staged by
+// cp.async, double-buffered and split to hi/lo once (the lo parts of the
+// current tile in arrays of their own), so S = Q K^T and dQ += dS K read
+// the same split K tile; two exchange buffers of the warps' S and dP
+// fragments, both summed in one pass over the ranks (their loads in
+// flight together: 1-6% faster on an H100 than S, then dP).  8 keys, as
+// the dK/dV's 8 rows: 16 keys take 134,784 bytes, one block an SM, and
+// ran 2-27% slower at hd 384-1024.  101,184 bytes: two blocks an SM.
+struct ClusterDqF32 {
+  static constexpr int kThreads = 128;
+  static constexpr int kRows = 64;
+  static constexpr int kKeys = 8;            // keys per tile
+  static constexpr int kStride = kSlab + 4;  // floats per shared row
+  static constexpr int kKS = kSlab / 8;
+  static constexpr int kNT = kKeys / 8;      // 8-key column tiles of S
+  static constexpr int kDT = kSlab / 8;      // 8-wide tiles of dQ
+  static constexpr int kQD = 2 * kRows * kStride;   // q, dO
+  static constexpr int kTile = kKeys * kStride;
+  static constexpr int kStage = 2 * kTile + kKeys;  // K, V (hi), key flags
+  static constexpr int kX = 2 * 4 * kNT * 4 * 32;  // floats of a buffer
+  static constexpr size_t kSmem =
+      (kQD + 2 * kStage + 2 * kTile + 2 * kX) * sizeof(float);
+  static_assert(kStage % 4 == 0, "16-byte aligned stages");
+};
+
+// grid (C * ceil(Tq / 64), nh, B) in clusters of (C, 1, 1), C = hd / 128;
+// ClusterDqF32::kThreads threads, kSmem bytes of dynamic shared memory.
+// Per key tile: each warp forms its partial S = Q K^T and dP = dO V^T
+// over the block's 128 columns and writes both; after one cluster
+// barrier it sums the cluster's S and dP, forms P = exp(S * scale - lse)
+// and dS = P (dP - D), and adds dS K over its columns to dQ
+__global__ void __launch_bounds__(ClusterDqF32::kThreads, 2)
+flash_bwd_dq_cluster_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    const float* __restrict__ key_mask, float* __restrict__ dq, int Tq,
+    int Tk, int nh, int hd, int causal, float sm_scale) {
+  using D = ClusterDqF32;
+  constexpr int kKeys = D::kKeys, kStride = D::kStride, kNT = D::kNT;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * kSlab;
+  float* q_s = smem;
+  float* do_s = q_s + D::kRows * kStride;
+  float* stages = smem + D::kQD;           // 2 x (K, V, key flags)
+  float* k_lo = stages + 2 * D::kStage;    // lo parts of the current tile
+  float* v_lo = k_lo + D::kTile;
+  float* x_s = v_lo + D::kTile;            // the two exchange buffers
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const size_t pos_stride = (size_t)nh * hd;
+  const size_t base = (size_t)b * Tq * pos_stride + (size_t)h * hd + col0;
+  const size_t k_base = (size_t)b * Tk * pos_stride + (size_t)h * hd + col0;
+  const size_t row_base = (size_t)b * Tq * nh + h;  // lse/dsum of (b, 0, h)
+  const int row0 = qb * D::kRows + warp * 16;       // the warp's first row
+  const int rows[2] = {row0 + g, row0 + g + 8};
+
+  float l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  bool rok[2] = {false, false};  // a real row with a key to attend
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] < Tq) {
+      l[r] = lse[row_base + (size_t)rows[r] * nh];
+      dd[r] = dsum[row_base + (size_t)rows[r] * nh];
+      rok[r] = isfinite(l[r]);
+      if (!rok[r]) l[r] = 0.f;
+    }
+  }
+  float dqa[D::kDT][4];
+#pragma unroll
+  for (int n = 0; n < D::kDT; ++n)
+    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  // no row of the block attends a key: zeros (the whole cluster agrees)
+  const bool any_row = __syncthreads_or(rok[0] || rok[1]);
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, (qb + 1) * D::kRows) : Tk;
+  const int n_tiles = any_row ? (t_end + kKeys - 1) / kKeys : 0;
+
+  auto stage = [&](int tile, int buf) {
+    float* ks = stages + buf * D::kStage;
+    float* vs = ks + D::kTile;
+    float* oks = vs + D::kTile;
+    const int k0 = tile * kKeys;
+    tf32x3::stage_rows<kSlab, D::kThreads>(ks, kStride, k + k_base,
+                                           pos_stride, k0, kKeys, Tk, tid);
+    tf32x3::stage_rows<kSlab, D::kThreads>(vs, kStride, v + k_base,
+                                           pos_stride, k0, kKeys, Tk, tid);
+    for (int j = tid; j < kKeys; j += D::kThreads)
+      oks[j] = key_flag(key_mask, b, Tk, k0 + j);
+    tf32x3::cp_async_commit();
+  };
+  if (n_tiles > 0) {  // one group: q, dO and the first key tile
+    tf32x3::stage_rows<kSlab, D::kThreads>(q_s, kStride, q + base, pos_stride,
+                                           qb * D::kRows, D::kRows, Tq, tid);
+    tf32x3::stage_rows<kSlab, D::kThreads>(do_s, kStride, dout + base,
+                                           pos_stride, qb * D::kRows,
+                                           D::kRows, Tq, tid);
+    stage(0, 0);
+  }
+  const float* qw = q_s + warp * 16 * kStride;
+  const float* dow = do_s + warp * 16 * kStride;
+  auto q_frag = [&](int kk) {
+    return tf32x3::load_a(qw + 8 * kk, kStride, g, t);
+  };
+  auto do_frag = [&](int kk) {
+    return tf32x3::load_a(dow + 8 * kk, kStride, g, t);
+  };
+  auto xi = [&](int j) { return (warp * 2 * kNT + j) * 32 + lane; };
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage(it + 1, (it + 1) & 1);  // its buffer was freed at it - 1's end
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    float* ks = stages + (it & 1) * D::kStage;
+    float* vs = ks + D::kTile;
+    const float* oks = vs + D::kTile;
+    // each thread splits the chunks it copied; after the barrier the tile
+    // is split and has landed for every warp, and the block knows whether
+    // any key of the tile is real and unmasked (the cluster's too)
+    tf32x3::split_tile<kSlab, D::kThreads>(ks, k_lo, kStride, kKeys, tid);
+    tf32x3::split_tile<kSlab, D::kThreads>(vs, v_lo, kStride, kKeys, tid);
+    const bool any = __syncthreads_or(tid < kKeys && oks[tid] > 0.f);
+    if (any) {
+      const int k0 = it * kKeys;
+      // the warp's rows are real (the last block may hold fewer than 64)
+      // and, causal, not every key of the tile follows its last row (the
+      // same warp of every block)
+      const bool active = row0 < Tq && !(causal && k0 > row0 + 15);
+      float* xb = x_s + (ex & 1) * D::kX;
+      const tf32x3::SplitTile kt{ks, k_lo}, vt{vs, v_lo};
+      float p[kNT][4], ds[kNT][4];
+      if (active) {
+        // this block's partial S = Q K^T and dP = dO V^T
+        tf32x3::head_dim_product<kNT, D::kKS>(p, q_frag, kt, kStride, g, t);
+        tf32x3::head_dim_product<kNT, D::kKS>(ds, do_frag, vt, kStride, g,
+                                              t);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          reinterpret_cast<float4*>(xb)[xi(j)] = f4(p[j]);
+          reinterpret_cast<float4*>(xb)[xi(kNT + j)] = f4(ds[j]);
+        }
+      }
+      cluster.sync();  // every block's partials are written
+      ++ex;
+      if (active) {
+        // S and dP summed, P = exp(S * scale - lse) (exactly 0 where the
+        // pair is masked or the row has no key to attend), dS = P (dP -
+        // D); dQ += dS K over this block's columns (the tile's keys in
+        // a_from_acc's order)
+        float sd[2 * kNT][4];
+        sum_partials<2 * kNT>(sd, cluster, xb, C, xi);
+        const bool diag = causal && k0 + kKeys - 1 > row0;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = 8 * j + 2 * t + (e & 1);
+            const int r = e >> 1;
+            const bool ok = rok[r] && oks[col] > 0.f &&
+                            (!diag || k0 + col <= rows[r]);
+            const float pv = ok ? expf(sd[j][e] * sm_scale - l[r]) : 0.f;
+            ds[j][e] = pv * (sd[kNT + j][e] - dd[r]);
+          }
+        }
+        tf32x3::tile_product<kNT, D::kDT, kNT>(dqa, ds, kt, kStride, g, t);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer it & 1 and the lo
+  }
+  if (n_tiles > 0) cluster.sync();  // no block leaves while a peer reads
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Tq) continue;
+    float* dq_row = dq + base + (size_t)rows[r] * pos_stride;
+#pragma unroll
+    for (int n = 0; n < D::kDT; ++n)
+      *reinterpret_cast<float2*>(dq_row + 8 * n + 2 * t) = make_float2(
+          dqa[n][2 * r] * sm_scale, dqa[n][2 * r + 1] * sm_scale);
+  }
+}
+
+// The bf16 forms' blocks: two warpgroups of 64 rows (forward, dQ) or
+// keys (dK/dV), 128-column slabs as wgmma tiles of 64-column boxes (the
 // 128-byte swizzle; wgmma_bf16.cuh)
 using SlabTile = wg::Tile<kSlab>;
 constexpr int kBf16Threads = 256;
@@ -1096,9 +1349,204 @@ flash_bwd_dkv_cluster_bf16_kernel(
   store_rows<kSlab>(dv + base, pos_stride, keys, Tk, dva, t);
 }
 
+// The bf16 dQ's block: 128 query rows, q and dO copied once, K and V
+// tiles of 32 keys through a 2-stage ring (the head-dim-256 dQ's tile:
+// two exchange buffers of S and dP beside q, dO and 64-key tiles would
+// take 256 KB); the exchange in two halves (sum_share, gather_sums)
+struct ClusterDqBf16 {
+  static constexpr int kKeys = 32;  // keys per tile
+  static constexpr int kQD = SlabTile::bytes(kBf16Rows);  // q or dO
+  static constexpr int kTile = SlabTile::bytes(kKeys);    // a K or V tile
+  // a buffer: each thread's S and dP registers, float4 [kKeys / 4][threads]
+  static constexpr int kXFloats = kBf16Threads * kKeys;
+  static constexpr int kXOff = 2 * kQD + 2 * 2 * kTile;  // q, dO, 2 stages
+  static constexpr int kBarOff = kXOff + 2 * kXFloats * 4;
+  static constexpr size_t kSmem = kBarOff + 3 * 8 + 1024;
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+// grid (C * ceil(Tq / 128), nh, B) in clusters of (C, 1, 1), C = hd / 128;
+// kBf16Threads threads, ClusterDqBf16::kSmem bytes of dynamic shared
+// memory; the maps' boxes are 128 rows (q, dO) and 32 rows (k, v).  Per
+// key tile: each warpgroup forms its partial S = Q K^T and dP = dO V^T
+// over the block's 128 columns and writes both; after a cluster barrier
+// the block sums its share of the cluster's partials, and after a second
+// one each warpgroup reads its sums, forms dS = P (dP - D) * scale in
+// registers, rounds it to bf16 and adds dS K over its columns to dQ, K
+// from the staged tile S read
+__global__ void __launch_bounds__(kBf16Threads, 1)
+flash_bwd_dq_cluster_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    const float* __restrict__ key_mask, bf16* __restrict__ dq, int Tq,
+    int Tk, int nh, int hd, int causal, float sm_scale) {
+  using D = ClusterDqBf16;
+  constexpr int kKeys = D::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;
+  unsigned char* dos = smem + D::kQD;
+  unsigned char* tiles = smem + 2 * D::kQD;  // stage s: K, then V
+  float* x_s = reinterpret_cast<float*>(smem + D::kXOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + D::kBarOff);
+  uint64_t* qd_bar = full + 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * kSlab;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const int wgi = warp >> 2;
+  const size_t pos_stride = (size_t)nh * hd;
+  const size_t base = (size_t)b * Tq * pos_stride + (size_t)h * hd + col0;
+  const size_t row_base = (size_t)b * Tq * nh + h;
+  const int r_blk = qb * kBf16Rows;          // the block's first row
+  const int rw = r_blk + 64 * wgi;           // the warpgroup's first row
+  const int q_row = rw + 16 * (warp & 3) + g;
+  const int rows[2] = {q_row, q_row + 8};    // this thread's rows of dQ
+  float l[2] = {INFINITY, INFINITY}, dd[2] = {0.f, 0.f};  // lse * log2 e, D
+  bool rok[2] = {false, false};  // a real row with a key to attend
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Tq) continue;
+    const float x = lse[row_base + (size_t)rows[r] * nh];
+    rok[r] = isfinite(x);
+    if (rok[r]) l[r] = x * kLog2e;
+    dd[r] = dsum[row_base + (size_t)rows[r] * nh];
+  }
+  float dqa[kSlab / 2];
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) dqa[i] = 0.f;
+  // no row of the block attends a key: zeros (the whole cluster agrees)
+  if (!__syncthreads_or(rok[0] || rok[1])) {
+    store_rows<kSlab>(dq + base, pos_stride, rows, Tq, dqa, t);
+    return;
+  }
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, r_blk + kBf16Rows) : Tk;
+  const int n_tiles = (t_end + kKeys - 1) / kKeys;
+  auto issue = [&](int it) {  // thread 0: tile it's K and V into its stage
+    const int s = it & 1;
+    unsigned char* ks = tiles + s * 2 * D::kTile;
+    tma::mbar_arrive_tx(&full[s], 2 * D::kTile);
+    wg::load_tile<kSlab>(ks, &k_map, kKeys, it * kKeys, h, b, &full[s], col0);
+    wg::load_tile<kSlab>(ks + D::kTile, &v_map, kKeys, it * kKeys, h, b,
+                         &full[s], col0);
+  };
+  if (tid == 0) {
+    tma::mbar_init(&full[0], 1);
+    tma::mbar_init(&full[1], 1);
+    tma::mbar_init(qd_bar, 1);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma::mbar_arrive_tx(qd_bar, 2 * D::kQD);
+    wg::load_tile<kSlab>(qs, &q_map, kBf16Rows, r_blk, h, b, qd_bar, col0);
+    wg::load_tile<kSlab>(dos, &do_map, kBf16Rows, r_blk, h, b, qd_bar, col0);
+    issue(0);
+  }
+
+  const float scale_l2 = sm_scale * kLog2e;
+  tma::mbar_wait(qd_bar, 0);
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it & 1;
+    // the next tile's stage was freed by the barrier ending tile it - 1
+    if (tid == 0 && it + 1 < n_tiles) issue(it + 1);
+    const int k0 = it * kKeys;
+    // bit 2 i + e: key k0 + 8 i + 2 t + e (this thread's columns of S) is
+    // real and unmasked; the block's threads cover the tile's 32 keys
+    uint32_t okb = 0;
+#pragma unroll
+    for (int i = 0; i < kKeys / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        okb |= (uint32_t)key_ok(key_mask, b, Tk, k0 + 8 * i + 2 * t + e)
+               << (2 * i + e);
+    const bool any = __syncthreads_or(okb != 0);  // the cluster's too
+    tma::mbar_wait(&full[s], (it >> 1) & 1);
+    if (any) {
+      const unsigned char* ks = tiles + s * 2 * D::kTile;
+      const unsigned char* vs = ks + D::kTile;
+      // causal: every key of the tile follows the warpgroup's last row
+      const bool active = rw < Tq && !(causal && k0 > rw + 63);
+      float* xb = x_s + (ex & 1) * D::kXFloats;
+      auto xi = [&](int i) { return i * kBf16Threads + tid; };
+      float sa[kKeys / 2], pa[kKeys / 2];  // S, dP; then dS in pa
+      if (active) {
+        // this block's partial S = Q K^T and dP = dO V^T over its columns
+        wg::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kSlab / 16; ++kk)
+          wg::Mma<kKeys>::ss(sa,
+                             wg::desc_k<kSlab>(qs, kBf16Rows, 64 * wgi, kk),
+                             wg::desc_k<kSlab>(ks, kKeys, 0, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < kSlab / 16; ++kk)
+          wg::Mma<kKeys>::ss(pa,
+                             wg::desc_k<kSlab>(dos, kBf16Rows, 64 * wgi, kk),
+                             wg::desc_k<kSlab>(vs, kKeys, 0, kk), kk > 0);
+        wg::commit();
+        wg::wait<0>();
+        wg::keep(sa);
+        wg::keep(pa);
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i) {
+          reinterpret_cast<float4*>(xb)[xi(i)] = f4(sa + 4 * i);
+          reinterpret_cast<float4*>(xb)[xi(kKeys / 8 + i)] = f4(pa + 4 * i);
+        }
+      }
+      cluster.sync();  // every block's partials are written
+      ++ex;
+      // this block's share summed (by every warpgroup, active or not: a
+      // share spans both warpgroups' fragments)
+      sum_share(cluster, xb, D::kXFloats / 4, C, kBf16Threads, tid);
+      cluster.sync();  // every share is summed
+      if (active) {
+        float sum[kKeys / 4][4];
+        gather_sums<kKeys / 4>(sum, cluster, xb, D::kXFloats / 4, C, xi);
+        // P = exp(S * scale - lse), dS = P (dP - D) * scale
+        const bool diag = causal && k0 + kKeys - 1 > rw;
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, c = 8 * i + 2 * t + (e & 1);
+            const bool ok = rok[r] && ((okb >> (2 * i + (e & 1))) & 1) &&
+                            (!diag || k0 + c <= rows[r]);
+            const float p = ok ? ex2(fmaf(sum[i][e], scale_l2, -l[r])) : 0.f;
+            pa[4 * i + e] = p * (sum[kKeys / 8 + i][e] - dd[r]) * sm_scale;
+          }
+        }
+        uint32_t df[kKeys / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wg::a_frag(df[kk], pa, kk);  // dS rounded to bf16
+        wg::wgmma_fence();
+        // dQ += dS K over the tile's keys (this block's columns)
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wg::Mma<kSlab>::rs(dqa, df[kk], wg::desc_mn<kSlab>(ks, kKeys, kk, 0),
+                             1);
+        wg::commit();
+        wg::wait<0>();
+        wg::keep(dqa);
+        wg::keep(df);
+      }
+    }
+    __syncthreads();  // stage s is free for tile it + 2
+  }
+  cluster.sync();  // no block leaves while a peer reads its partials
+  store_rows<kSlab>(dq + base, pos_stride, rows, Tq, dqa, t);
+}
+
 // ---------------------------------------------------------------------------
-// The SIMT forms (above head dim 128 * kMaxCluster; dQ at every wide head
-// dim).
+// The SIMT forms (above head dim 128 * kMaxCluster).
 
 // shared memory of each kernel, in floats: the chunks share their space
 // with the slab the product reads after them
@@ -1634,6 +2082,40 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
       static_cast<bf16*>(dv), Tq, Tk, nh, hd, causal, sm_scale);
 }
 
+int launch_dq_f32(const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* dsum,
+                  const float* key_mask, void* dq, int B, int Tq, int Tk,
+                  int nh, int hd, int causal, float sm_scale, void* stream) {
+  using D = ClusterDqF32;
+  static unsigned smem_set = 0;
+  return (int)launch_cluster(
+      flash_bwd_dq_cluster_f32_kernel, smem_set, D::kThreads, D::kSmem,
+      (Tq + D::kRows - 1) / D::kRows, B, nh, hd, stream,
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
+      dsum, key_mask, static_cast<float*>(dq), Tq, Tk, nh, hd, causal,
+      sm_scale);
+}
+
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* dsum,
+                   const float* key_mask, void* dq, int B, int Tq, int Tk,
+                   int nh, int hd, int causal, float sm_scale, void* stream) {
+  using D = ClusterDqBf16;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  const int lens[4] = {Tq, Tk, Tk, Tq};
+  const int rows[4] = {kBf16Rows, D::kKeys, D::kKeys, kBf16Rows};
+  cudaError_t err = make_maps(maps, ptrs, lens, rows, 4, B, nh, hd);
+  if (err != cudaSuccess) return (int)err;
+  static unsigned smem_set = 0;
+  return (int)launch_cluster(
+      flash_bwd_dq_cluster_bf16_kernel, smem_set, kBf16Threads, D::kSmem,
+      (Tq + kBf16Rows - 1) / kBf16Rows, B, nh, hd, stream, maps[0], maps[1],
+      maps[2], maps[3], lse, dsum, key_mask, static_cast<bf16*>(dq), Tq, Tk,
+      nh, hd, causal, sm_scale);
+}
+
 // `simt`: the SIMT form at any head dim (the parent design, for timing
 // the cluster form against it)
 template <typename E>
@@ -1687,8 +2169,12 @@ template <typename E>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const float* lse, const float* dsum, const float* key_mask,
               void* dq, int B, int Tq, int Tk, int nh, int hd, int causal,
-              float sm_scale, void* stream) {
+              float sm_scale, void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
+  if (clustered(hd) && !simt)
+    return (sizeof(E) == 2 ? launch_dq_bf16 : launch_dq_f32)(
+        q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk, nh, hd, causal,
+        sm_scale, stream);
   static unsigned smem_set = 0;
   cudaError_t err = tf32x3::allow_smem(flash_bwd_dq_wide_kernel<E>,
                                        kDqSmem * sizeof(float), smem_set);
@@ -1772,10 +2258,11 @@ extern "C" int ts_flash_wide_bwd_dq_bf16(const void* q, const void* k,
                          nh, hd, causal, sm_scale, stream);
 }
 
-// The SIMT forward and dK/dV at every wide head dim, with the signatures
-// of ts_flash_wide(_bf16) and ts_flash_wide_bwd_dkv(_bf16): the design
-// the cluster forms replaced up to head dim 1024, timed beside them
-// (chip_smoke.py phase_flash_wide); no path of the port calls them
+// The SIMT forward, dK/dV and dQ at every wide head dim, with the
+// signatures of ts_flash_wide(_bf16), ts_flash_wide_bwd_dkv(_bf16) and
+// ts_flash_wide_bwd_dq(_bf16): the design the cluster forms replaced up
+// to head dim 1024, timed beside them (chip_smoke.py phase_flash_wide);
+// no path of the port calls them
 extern "C" int ts_flash_wide_simt(const void* q, const void* k,
                                   const void* v, const float* key_mask,
                                   void* out, float* lse, int B, int Tq,
@@ -1810,6 +2297,24 @@ extern "C" int ts_flash_wide_bwd_dkv_simt_bf16(
     float sm_scale, void* stream) {
   return launch_dkv<bf16>(q, k, v, dout, lse, dsum, key_mask, dk, dv, B, Tq,
                           Tk, nh, hd, causal, sm_scale, stream, true);
+}
+
+extern "C" int ts_flash_wide_bwd_dq_simt(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* dsum, const float* key_mask, void* dq,
+    int B, int Tq, int Tk, int nh, int hd, int causal, float sm_scale,
+    void* stream) {
+  return launch_dq<float>(q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk,
+                          nh, hd, causal, sm_scale, stream, true);
+}
+
+extern "C" int ts_flash_wide_bwd_dq_simt_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* dsum, const float* key_mask, void* dq,
+    int B, int Tq, int Tk, int nh, int hd, int causal, float sm_scale,
+    void* stream) {
+  return launch_dq<bf16>(q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk,
+                         nh, hd, causal, sm_scale, stream, true);
 }
 
 extern "C" const char* ts_flash_wide_error_string(int err) {

@@ -60,13 +60,13 @@ Head dims: the kernels of flash_attention.cu and flash_attention_bwd.cu
 are built for 32, 128 and 256 (at 256 each kernel splits its output's
 columns over two blocks; see the sources); those of
 flash_attention_wide.cu take any multiple of 128 and run every head dim
-above 256: up to 1024 the forward and dK/dV are a thread block cluster
-of hd / 128 blocks on the tensor cores, each block a 128-column slab,
-their partial S (and dP) summed over the cluster once per tile; above
-1024, and the dQ at every wide head dim, SIMT kernels that keep one
-128-column slab of the output a block and form S over the whole head dim
-in 32-column chunks (``simt=True`` takes those for the forward and dK/dV
-at any wide head dim, to time the cluster forms against them). On the
+above 256: up to 1024 the forward, dK/dV and dQ are a thread block
+cluster of hd / 128 blocks on the tensor cores, each block a 128-column
+slab, their partial S (and dP) summed over the cluster once per tile;
+above 1024 SIMT kernels that keep one 128-column slab of the output a
+block and form S over the whole head dim in 32-column chunks
+(``simt=True`` takes those for the forward, dK/dV and dQ at any wide
+head dim, to time the cluster forms against them). On the
 card any other head dim is zero-padded to the next of 32, 128, 256 or,
 above 256, to the next multiple of 128 on the way in (q, k, v, and for
 the backward out and dO) and the outputs and gradients are sliced back:
@@ -315,7 +315,9 @@ def _load_wide_library() -> ctypes.CDLL:
                    lib.ts_flash_wide_bwd_dkv_simt_bf16):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 9 + tail
-        for fn in (lib.ts_flash_wide_bwd_dq, lib.ts_flash_wide_bwd_dq_bf16):
+        for fn in (lib.ts_flash_wide_bwd_dq, lib.ts_flash_wide_bwd_dq_bf16,
+                   lib.ts_flash_wide_bwd_dq_simt,
+                   lib.ts_flash_wide_bwd_dq_simt_bf16):
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_void_p] * 8 + tail
         lib.ts_flash_wide_error_string.restype = ctypes.c_char_p
@@ -329,11 +331,11 @@ def _entry(kind: str, bf16: bool, wide: bool, simt: bool = False):
     (``kind`` "fwd"), dK/dV ("dkv") or dQ ("dq") kernel: the wide
     library's above head dim 256, else flash_attention's (the forward)
     or flash_attention_bwd's; the _bf16 entry for bf16 operands.
-    ``simt`` (wide forward and dK/dV only) takes the SIMT design the
-    cluster forms replaced up to head dim 1024, for timing them against
-    it; no path of the port sets it."""
-    if simt and not (wide and kind != "dq"):
-        raise ValueError("only the wide forward and dK/dV have a SIMT form")
+    ``simt`` (the wide kernels only) takes the SIMT design the cluster
+    forms replaced up to head dim 1024, for timing them against it; no
+    path of the port sets it."""
+    if simt and not wide:
+        raise ValueError("only the wide kernels have a SIMT form")
     if wide:
         lib = _load_wide_library()
         name = ("ts_flash_wide" + ("" if kind == "fwd" else f"_bwd_{kind}")
@@ -451,16 +453,18 @@ def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale,
     return dk, dv
 
 
-def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale):
+def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale,
+                 simt=False):
     """Launch the dQ kernel (its bf16 form for bf16 inputs; the wide
-    kernel's above head dim 256): dq, [B, Tq, nh, hd]."""
+    kernel's above head dim 256, its SIMT form with ``simt``): dq, [B, Tq,
+    nh, hd]."""
     global launches_bwd_dq, launches_bwd_dq_bf16, launches_bwd_dq_wide
     global launches_bwd_dq_block
     dq = torch.empty_like(q)
     bf16 = q.dtype == torch.bfloat16
     B, Tq, nh, hd = q.shape
     wide = _is_wide(hd)
-    fn, error_string = _entry("dq", bf16, wide)
+    fn, error_string = _entry("dq", bf16, wide, simt)
     with torch.cuda.device(q.device):
         err = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
