@@ -55,15 +55,17 @@ device or without the port's sources beside it.  Phases, each fatal:
         TMA copies (UTMALDG) in every instantiation, no bf16 mma.sync
         (HMMA.16816), no spill, no wgmma serialized by ptxas;
      f. the wide flash kernels (head dims above 256, f32 and bf16:
-        forward, dK/dV, dQ; up to head dim 1024 the cluster forms on the
-        tensor cores) against their plain versions at 16 x 400 x 1 x
-        384, 512 and 1024 (key mask) and 16 x 100 x 1 x 512 (causal), a
-        rerun the same bits, timed beside the SIMT forward, dK/dV and dQ
-        they replaced (the cluster forms at least WIDE_MIN_GAIN times
-        faster at head dim 512) and scaled_dot_product_attention with
-        the backend it took (phase_flash_wide); their SASS and ptxas
-        report (wide_flash_sass): 0 bytes of spill in all twelve
-        instantiations,
+        forward, dK/dV, dQ; the cluster forms on the tensor cores up to
+        head dim 2048, the dQ's up to 1024) against their plain versions
+        at 16 x 400 x 1 x 384, 512, 1024, 1152, 1536 and 2048 (key mask)
+        and 16 x 100 x 1 x 512, 1152, 1536 and 2048 (causal), a rerun
+        the same bits, each launch's form counted, timed beside the SIMT
+        forward, dK/dV and dQ they replaced (the cluster forms at least
+        WIDE_MIN_GAIN times faster at head dim 512, WIDE16_MIN_GAIN at
+        1152) and scaled_dot_product_attention with the backend it took
+        (phase_flash_wide); their SASS and ptxas report
+        (wide_flash_sass): 0 bytes of spill in every one of
+        WIDE_FLASH_INSTANCES,
         3xTF32 HMMA in the f32 cluster forms, HGMMA and UTMALDG and no
         serialized wgmma in the bf16 ones; every flash kernel on a block
         of query rows against all the keys (Tq = Tk / 2, the sp=2
@@ -150,8 +152,15 @@ device or without the port's sources beside it.  Phases, each fatal:
      above 256 on the wide kernels (phase_wide_heads): head dim 512 at
      full width (a decode of 16 articles, 3 train steps on the card and
      one with --device=cpu, in f32 and in bf16, 12 + 12 + 12 wide
-     launches per step, 6 per decode batch) and head dim 320 (a small
-     beam search and a train step against the CPU); and past the fused
+     launches per step, 6 per decode batch), head dim 320 (a small
+     beam search and a train step against the CPU) and head dim 1152 at
+     full width (the forward's and dK/dV's 9-block clusters and the
+     SIMT dQ: a decode, 3 train steps in each dtype, the loss against
+     the CPU at 2 + 2 layers); the --device=cpu reference steps
+     (wide_cpu_steps) run in a child process (CpuSteps) beside the
+     kernel builds and phase 3, and are done before phase 4 starts
+     (no phase that prints a host time runs beside them); and past the
+     fused
      kernels' dense forms, the pointer-generator at hidden_dim 1200 (a
      decode of 8 articles on the slab forward, a train step on the
      slab backward, its loss within 1e-4 of --device=cpu's);
@@ -249,6 +258,7 @@ device or without the port's sources beside it.  Phases, each fatal:
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import glob
 import json
 import logging
@@ -812,10 +822,11 @@ def fused_digests(fa):
 #: (FLASH_PARENT_DIGESTS, from scripts/torch_flash_bench.py --which
 #: digests on the parent's checkout, NVIDIA H100 80GB HBM3): the f32 and
 #: bf16 kernels at head dims 32, 128 and 256, masked and causal; the wide
-#: dQ's SIMT form (``simt=True``, the parent's dQ) at 512; the SIMT wide
-#: forward, dK/dV and dQ at 1152 (above the cluster forms' 1024).  The
-#: wide forward, dK/dV and dQ at 384-1024 are new designs (the cluster
-#: forms), held to their plain versions by phase_flash_wide and
+#: dQ's SIMT form (``simt=True``, the design of its digests) at 512; the
+#: SIMT wide forward, dK/dV and dQ at 1152 (``simt=True`` for the forward
+#: and dK/dV, whose default there is now a 9-block cluster).  The wide
+#: forward, dK/dV and dQ at 384-1024 are new designs (the cluster forms),
+#: held to their plain versions by phase_flash_wide and
 #: phase_flash_query_block instead
 FLASH_ALL = ("fwd", "fwd_lse", "dkv", "dq")
 FLASH_DIGEST_CASES = (
@@ -891,6 +902,34 @@ FLASH_PARENT_DIGESTS = {
 }
 
 
+#: the forward's and dK/dV's clusters past 8 blocks (12 blocks with a key
+#: mask, 16 causal), through their default launch: no parent took these
+#: forms, so their digests (FLASH_C16_DIGESTS) are the bits they gave on
+#: an H100 (NVIDIA H100 80GB HBM3) when they were added, printed by
+#: scripts/torch_flash_bench.py --which digests ("c16"), held from then
+#: on; the f32 forward's split and one-sum exchanges gave the same bits
+FLASH_C16_KERNELS = ("fwd", "fwd_lse", "dkv")
+FLASH_C16_DIGEST_CASES = (
+    [(2, 100, 1, 1536, False, dt, FLASH_C16_KERNELS)
+     for dt in ("float32", "bfloat16")]
+    + [(2, 130, 1, 2048, True, dt, FLASH_C16_KERNELS)
+       for dt in ("float32", "bfloat16")])
+FLASH_C16_DIGESTS = {
+    "fwd 2x100x1x1536 mask float32": "593c4300842dc372",
+    "fwd_lse 2x100x1x1536 mask float32": "c2cdbeb184034fb9",
+    "dkv 2x100x1x1536 mask float32": "50159a009ce7555b",
+    "fwd 2x100x1x1536 mask bfloat16": "35c9425db3ffa5a4",
+    "fwd_lse 2x100x1x1536 mask bfloat16": "8e5246c4ad01dc4f",
+    "dkv 2x100x1x1536 mask bfloat16": "f2eb63c762a6758e",
+    "fwd 2x130x1x2048 causal float32": "c39694a226d5ac8d",
+    "fwd_lse 2x130x1x2048 causal float32": "1e07184a8709c4e6",
+    "dkv 2x130x1x2048 causal float32": "ec5009585ec7da6d",
+    "fwd 2x130x1x2048 causal bfloat16": "2ab073f1e95ce968",
+    "fwd_lse 2x130x1x2048 causal bfloat16": "1f3e10c768c61855",
+    "dkv 2x130x1x2048 causal bfloat16": "e2f831a83fc342da",
+}
+
+
 def flash_digest_inputs(B, T, nh, hd, causal, dtype, seed):
     """q, k, v, dO [B, T, nh, hd] and the key mask (None when causal, else
     ragged with article 1 fully masked) from numpy: the same bits under
@@ -939,34 +978,40 @@ def flash_rows_np(q, k, v, do, mask, causal, scale):
             torch.from_numpy(dsum.astype(np.float32)).cuda())
 
 
-def flash_digests(fl):
-    """{case: digest} of each flash kernel's outputs at FLASH_DIGEST_CASES
+def flash_digests(fl, cases=FLASH_DIGEST_CASES, simt=True):
+    """{case: digest} of each flash kernel's outputs at ``cases``
     through ``fl`` (the port's ops.flash_attention, or another
     checkout's): the serving forward (out), the training forward (out,
-    lse), and dK/dV and dQ from flash_rows_np's lse and dsum.  A wide dQ
-    up to head dim 1024 takes its SIMT form (``simt=True``) where ``fl``'s
-    dQ wrapper has the flag: the parent's design, whose bits the parent's
-    digests hold (a checkout without the flag has only that form)."""
+    lse), and dK/dV and dQ from flash_rows_np's lse and dsum.  With
+    ``simt`` every wide launch takes its SIMT form (``simt=True``) where
+    ``fl``'s wrapper has the flag: the design whose bits
+    FLASH_PARENT_DIGESTS hold at the wide head dims (a checkout without
+    the flag has only that form there); without it, the default launch
+    (FLASH_C16_DIGEST_CASES)."""
     import inspect
 
     import torch
 
-    simt_dq = "simt" in inspect.signature(fl._bwd_dq_cuda).parameters
+    def kw(fn, hd):
+        takes = "simt" in inspect.signature(fn).parameters
+        return dict(simt=True) if simt and takes and hd > 256 else {}
+
     out = {}
-    for i, (B, T, nh, hd, causal, dtype, kernels) in enumerate(
-            FLASH_DIGEST_CASES):
+    for i, (B, T, nh, hd, causal, dtype, kernels) in enumerate(cases):
         q, k, v, do, mask = flash_digest_inputs(B, T, nh, hd, causal, dtype,
                                                 i)
         scale = hd ** -0.5
         name = f"{B}x{T}x{nh}x{hd} {'causal' if causal else 'mask'} {dtype}"
         lse, dsum = flash_rows_np(q, k, v, do, mask, causal, scale)
-        dq_kw = dict(simt=True) if simt_dq and 256 < hd <= 1024 else {}
+        fwd_kw, dkv_kw, dq_kw = (kw(fn, hd) for fn in (
+            fl._flash_cuda, fl._bwd_dkv_cuda, fl._bwd_dq_cuda))
         runs = dict(
-            fwd=lambda: (fl._flash_cuda(q, k, v, mask, causal, scale),),
+            fwd=lambda: (fl._flash_cuda(q, k, v, mask, causal, scale,
+                                        **fwd_kw),),
             fwd_lse=lambda: fl._flash_cuda(q, k, v, mask, causal, scale,
-                                           with_lse=True),
+                                           with_lse=True, **fwd_kw),
             dkv=lambda: fl._bwd_dkv_cuda(q, k, v, do, lse, dsum, mask, causal,
-                                         scale),
+                                         scale, **dkv_kw),
             dq=lambda: (fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, causal,
                                         scale, **dq_kw),))
         for kernel in kernels:
@@ -1606,9 +1651,19 @@ def phase_flash_bf16(seed):
 #: flash_attention_wide.cu): the encoder of the transformer at
 #: --hidden_dim=hd --num_heads=1 (16 x 400, key mask, article 1 empty) at
 #: head dims 384, 512 and 1024, and the training decoder's causal
-#: self-attention at head dim 512 (16 x 100): (B, T, nh, hd, causal)
+#: self-attention at head dim 512 (16 x 100); then the forward's and
+#: dK/dV's clusters of 9, 12 and 16 blocks, the encoder's and the
+#: decoder's shapes at head dims 1152, 1536 and 2048: (B, T, nh, hd,
+#: causal)
+#: the largest head dim at which each wide kernel takes its cluster form
+#: (a cluster of hd / 128 blocks), as this script expects the library's
+#: dispatch to choose: 16 blocks for the forward and dK/dV, 8 for the dQ
+CLUSTER_UP_TO = dict(fwd=2048, dkv=2048, dq=1024)
 WIDE_FLASH_CASES = [(16, 400, 1, 384, False), (16, 400, 1, 512, False),
-                    (16, 400, 1, 1024, False), (16, 100, 1, 512, True)]
+                    (16, 400, 1, 1024, False), (16, 100, 1, 512, True),
+                    (16, 400, 1, 1152, False), (16, 400, 1, 1536, False),
+                    (16, 400, 1, 2048, False), (16, 100, 1, 1152, True),
+                    (16, 100, 1, 1536, True), (16, 100, 1, 2048, True)]
 
 
 def sdpa_backend(q, k, v, mask, causal, scale):
@@ -1628,19 +1683,22 @@ def sdpa_backend(q, k, v, mask, causal, scale):
 
 def phase_flash_wide(seed):
     """The wide kernels (head dims above 256; kernels/
-    flash_attention_wide.cu: the forward, dK/dV and dQ up to head dim
-    1024 a cluster of hd / 128 blocks on the tensor cores, 3xTF32
-    mma.sync in f32 and wgmma in bf16) against their plain versions
-    at WIDE_FLASH_CASES, in f32 and bf16: out (the serving form), lse
-    (the training form), dq, dk and dv; f32 within ATTN_TOL * max(1,
+    flash_attention_wide.cu: the forward and dK/dV up to head dim 2048,
+    the dQ up to 1024, a cluster of hd / 128 blocks on the tensor cores,
+    3xTF32 mma.sync in f32 and wgmma in bf16) against their plain
+    versions at WIDE_FLASH_CASES, in f32 and bf16: out (the serving
+    form), lse (the training form), dq, dk and dv; f32 within ATTN_TOL *
+    max(1,
     |value|) of the plain version, bf16 within FLASH_BF16_ULPS bf16 ulps
     of the tensor's largest |value|, lse within ATTN_TOL * max(1, |lse|)
     with +inf on the same rows; the empty article's outputs zeros; a
     rerun the same bits.  The SIMT forward, dK/dV and dQ the cluster
     forms replaced (the first design, still built for head dims above
-    1024: ``simt=True``) are held to the same plain versions and timed in
-    this call beside them: the cluster forms at least WIDE_MIN_GAIN times
-    faster at 16 x 400 x 1 x 512 in both dtypes.  Times: the forward
+    2048, the dQ's above 1024: ``simt=True``) are held to the same plain
+    versions and timed in this call beside them: the cluster forms at
+    least WIDE_MIN_GAIN times faster at 16 x 400 x 1 x 512 in both
+    dtypes, the forward's and dK/dV's 9-block clusters at least
+    WIDE16_MIN_GAIN times at 16 x 400 x 1 x 1152.  Times: the forward
     (serving form), the dK/dV and dQ kernels, the SIMT forward, dK/dV and
     dQ,
     the plain forward and whole backward, and
@@ -1654,6 +1712,27 @@ def phase_flash_wide(seed):
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
+    lib = fl._load_wide_library()
+    # the clusters of each form resident at once on this card, per head
+    # dim (the check each cluster launch makes at first use)
+    active = {f"{kind}_{tag} {hd}": lib.ts_flash_wide_active_clusters(
+                  i, tag == "bf16", hd // fl.WIDE_STEP)
+              for i, kind in enumerate(fl.WIDE_KINDS)
+              for tag in ("f32", "bf16")
+              for hd in sorted({c[3] for c in WIDE_FLASH_CASES})
+              if hd <= CLUSTER_UP_TO[kind]}
+    print("flash_wide_active_clusters " + json.dumps(active))
+    check(all(n >= 1 for n in active.values()),
+          f"a wide cluster form fits no cluster on this card: {active}")
+    # the library's dispatch rule (ts_flash_wide_form, which the cluster
+    # counters read) at every wide head dim up to 4096
+    rule = {f"{kind} {hd}": lib.ts_flash_wide_form(i, hd)
+            for i, kind in enumerate(fl.WIDE_KINDS)
+            for hd in range(384, 4097, fl.WIDE_STEP)}
+    check(rule == {f"{kind} {hd}": int(hd <= CLUSTER_UP_TO[kind])
+                   for kind in fl.WIDE_KINDS
+                   for hd in range(384, 4097, fl.WIDE_STEP)},
+          f"the library's wide forms differ from CLUSTER_UP_TO: {rule}")
     rows, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -1708,6 +1787,7 @@ def phase_flash_wide(seed):
             finite = all(bool(torch.isfinite(x.float()).all()) for x in got)
             empty_zero = mask is None or all(
                 float(x[1].float().abs().max()) == 0.0 for x in got)
+            before = launch_counts()
             ms = time_cuda(lambda: fl._flash_cuda(q, k, v, mask, causal,
                                                   scale), 10, flush)
             plain_ms = time_cuda(lambda: fl._flash_plain(
@@ -1724,6 +1804,19 @@ def phase_flash_wide(seed):
             dq_simt_ms = time_cuda(lambda: fl._bwd_dq_cuda(
                 q, k, v, do, lse, dsum, mask, causal, scale, simt=True), 5,
                 flush)
+            after = launch_counts()
+            # the form each timed launch took (the cluster counters count
+            # the launches the library's dispatch sent to a cluster form)
+            # against the forms this script expects: the forward and dK/dV
+            # clusters up to hd 2048, the dQ's up to 1024
+            forms = {kind: ("cluster" if after[f"{c}_wide_cluster"]
+                            > before[f"{c}_wide_cluster"] else "simt")
+                     for kind, c in (("fwd", "flash_forward"),
+                                     ("dkv", "flash_bwd_dkv"),
+                                     ("dq", "flash_bwd_dq"))}
+            check(forms == {kind: "cluster" if hd <= CLUSTER_UP_TO[kind]
+                            else "simt" for kind in fl.WIDE_KINDS},
+                  f"wide launch forms {forms} at head dim {hd}")
             bwd_plain_ms = time_cuda(lambda: fl._flash_bwd_plain(
                 q, k, v, out, lse_p, do, mask, causal, scale), 5, flush)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1743,7 +1836,8 @@ def phase_flash_wide(seed):
             bound, by, nbytes, ops = flash_bound_ms(q, mask, causal)
             bounds = flash_bwd_bounds(q, mask, causal)
             row = dict(dtype=tag, shape=f"{B}x{T}x{nh}x{hd}", causal=causal,
-                       key_mask=mask is not None, max_abs_err=errs,
+                       key_mask=mask is not None, forms=forms,
+                       max_abs_err=errs,
                        bf16_ulps=ulps or None, lse_max_abs_err=lse_err,
                        repeat_bits_equal=repeat, ms=ms, plain_ms=plain_ms,
                        library_ms=library_ms, library_backend=backend,
@@ -1775,18 +1869,33 @@ def phase_flash_wide(seed):
                       and row["dq_gain"] >= WIDE_MIN_GAIN,
                       f"the cluster forms less than {WIDE_MIN_GAIN} times "
                       f"faster than the SIMT ones at {row}")
+            if (B, T, nh, hd) == (16, 400, 1, 1152):
+                check(row["gain"] >= WIDE16_MIN_GAIN
+                      and row["dkv_gain"] >= WIDE16_MIN_GAIN,
+                      f"the 9-block cluster forward or dK/dV less than "
+                      f"{WIDE16_MIN_GAIN} times faster than the SIMT one at "
+                      f"{row}")
             for kernel, names in (("forward", ("out", "serve_out")),
                                   ("dkv", ("dk", "dv")), ("dq", ("dq",))):
-                key = (tag, kernel)
+                # past hd 1024: the 16-block forms' (and the SIMT dQ's)
+                key = (tag, kernel) + (("past1024",) if hd > 1024 else ())
                 worst[key] = max(worst.get(key, 0.0),
                                  *(errs[n] for n in names))
             rows[(tag, row["shape"])] = row
     return rows, worst
 
 
+def _row_hd(row):
+    """The head dim of a flash_wide row's shape (B x T x nh x hd)."""
+    return int(row["shape"].split("x")[-1])
+
+
 #: the cluster forms' least gain over the SIMT forms they replaced at 16 x
 #: 400 x 1 x 512, forward, dK/dV and dQ, both dtypes
 WIDE_MIN_GAIN = 3.0
+#: the forward's and dK/dV's least gain past 8 blocks, at 16 x 400 x 1 x
+#: 1152 and its query block (16 x 200/400), both dtypes
+WIDE16_MIN_GAIN = 4.0
 
 #: the wide kernels' functions in the SASS and ptxas log: {key: function};
 #: the cluster forms (f32 and bf16 kernels of their own) and the SIMT
@@ -1802,15 +1911,36 @@ WIDE_FLASH_KERNELS = dict(
     dq_simt="flash_bwd_dq_wide_kernel")
 
 
+#: the wide kernels' instantiations wide_flash_sass names: the cluster
+#: forms (the forward's one-sum instances, up to 8 blocks and the f32
+#: one to 12, and their split instances past them, "_split"; the f32
+#: dK/dV's one kernel, the dQ's one each) and the SIMT forms' f32 and
+#: bf16 instances
+WIDE_FLASH_INSTANCES = {
+    "fwd_f32", "fwd_bf16", "dkv_f32", "dkv_bf16", "dq_f32", "dq_bf16",
+    "fwd_f32_split", "fwd_bf16_split", "dkv_bf16_split",
+    "fwd_simt_f32", "fwd_simt_bf16", "dkv_simt_f32", "dkv_simt_bf16",
+    "dq_simt_f32", "dq_simt_bf16"}
+#: the instances the forms past 8 blocks run, per (kernel, dtype): the f32
+#: forward one-sum to 12 blocks and split past them, the f32 dK/dV one-sum
+#: (its split instance spilled), the bf16 forms split; the SIMT dQ
+WIDE16_INSTANCES = {
+    ("forward", "f32"): ("fwd_f32", "fwd_f32_split"),
+    ("dkv", "f32"): ("dkv_f32",),
+    ("forward", "bf16"): ("fwd_bf16_split",),
+    ("dkv", "bf16"): ("dkv_bf16_split",),
+    ("dq", "f32"): ("dq_simt_f32",), ("dq", "bf16"): ("dq_simt_bf16",)}
+
+
 def wide_flash_sass():
     """The wide kernels' SASS and ptxas report (flash_attention_wide's
     library and build log, scripts/torch_kernel_sass.py): per kernel
     instantiation its registers, spill bytes, 3xTF32 tensor-core products
     (HMMA.1688.F32.TF32), warpgroup products (HGMMA), tensor copies
-    (UTMALDG) and ptxas's wgmma serialization warnings.  Fails unless all
-    twelve are there with 0 bytes of spill, the f32 cluster forms with
-    HMMA.1688.F32.TF32, the bf16 ones with HGMMA and UTMALDG and no
-    serialization."""
+    (UTMALDG) and ptxas's wgmma serialization warnings.  Fails unless
+    every one of WIDE_FLASH_INSTANCES is there with 0 bytes of spill, the
+    f32 cluster forms with HMMA.1688.F32.TF32, the bf16 ones with HGMMA
+    and UTMALDG and no serialization."""
     sys.path.insert(0, os.path.join(HERE, "scripts"))
     import torch_kernel_sass as sass
 
@@ -1825,8 +1955,10 @@ def wide_flash_sass():
             if kernel not in func:
                 continue
             cluster = "cluster" in kernel
-            name = key if cluster else key + (
-                "_bf16" if "bfloat16" in func else "_f32")
+            # the split instance of a templated cluster form (kSplit true)
+            name = (key + ("_split" if "ILb1E" in func else "")
+                    if cluster else
+                    key + ("_bf16" if "bfloat16" in func else "_f32"))
             spill = info.get("spill_stores", -1) + info.get("spill_loads", -1)
             got = sass.summary(counts.get(func, {}))
             out[name] = dict(registers=info.get("registers"),
@@ -1835,16 +1967,17 @@ def wide_flash_sass():
                              serialized=info.get("wgmma_serialized", 0))
             check(spill == 0, f"wide kernel {func}: ptxas {info} (want 0 "
                               f"bytes of spill)")
-            if cluster and key.endswith("_f32"):
+            if cluster and "_f32" in name:
                 check(got["hmma_tf32"] > 0,
                       f"wide kernel {func}: no 3xTF32 HMMA in {got}")
-            if cluster and key.endswith("_bf16"):
+            if cluster and "_bf16" in name:
                 check(got["hgmma"] > 0 and got["utmaldg"] > 0
                       and out[name]["serialized"] == 0,
                       f"wide kernel {func}: SASS {got}, ptxas {info} (want "
                       f"HGMMA and UTMALDG, no serialization)")
-    check(len(out) == 12,
-          f"wide flash kernels not all in the build log: {out}")
+    check(set(out) == WIDE_FLASH_INSTANCES,
+          f"wide flash kernels in the build log {sorted(out)}, expected "
+          f"{sorted(WIDE_FLASH_INSTANCES)}")
     print("flash_wide_sass " + json.dumps(out))
     return out
 
@@ -1852,8 +1985,9 @@ def wide_flash_sass():
 #: one sp rank's block of the encoder's queries against every key (sp =
 #: 2, half the rows): the transformer's reference encoder (16 x 400, 8
 #: heads of 32), the long-context shape (4 x 2048 x 8 x 128), head dim
-#: 256, the wide cluster forms at head dim 512 and the SIMT forms at
-#: 1152: (B, Tq, Tk, nh, hd)
+#: 256, the wide cluster forms at head dim 512 and at 1152 the 9-block
+#: cluster forward and dK/dV (timed beside their SIMT forms) and the
+#: SIMT dQ: (B, Tq, Tk, nh, hd)
 QUERY_BLOCK_CASES = [(16, 200, 400, 8, 32), (4, 1024, 2048, 8, 128),
                      (16, 200, 400, 2, 256), (16, 200, 400, 1, 512),
                      (16, 200, 400, 1, 1152)]
@@ -1870,8 +2004,10 @@ def phase_flash_query_block(seed):
     the same rows, the empty article zeros, each launch counted by the
     block counters; times beside scaled_dot_product_attention's forward
     and backward on the same block and bounds from this run's mask
-    (flash_bound_ms, flash_bwd_bounds with Tk).  Returns ({(dtype,
-    shape): row}, {(dtype, kernel): largest error})."""
+    (flash_bound_ms, flash_bwd_bounds with Tk); past head dim 1024 the
+    forward's and dK/dV's SIMT forms timed too, the cluster forms at
+    least WIDE16_MIN_GAIN times faster.  Returns ({(dtype, shape): row},
+    {(dtype, kernel): largest error})."""
     import torch
     import torch.nn.functional as F
 
@@ -1935,6 +2071,16 @@ def phase_flash_query_block(seed):
                 q, k, v, mask, False, scale), 5, flush)
             bwd_plain_ms = time_cuda(lambda: fl._flash_bwd_plain(
                 q, k, v, out, lse_p, do, mask, False, scale), 5, flush)
+            simt = {}
+            if hd > 1024:  # the 16-block clusters beside the SIMT forms
+                simt = dict(
+                    simt_ms=time_cuda(lambda: fl._flash_cuda(
+                        q, k, v, mask, False, scale, simt=True), 5, flush),
+                    simt_dkv_ms=time_cuda(lambda: fl._bwd_dkv_cuda(
+                        q, k, v, do, lse, dsum, mask, False, scale,
+                        simt=True), 5, flush))
+                simt.update(gain=simt["simt_ms"] / ms,
+                            dkv_gain=simt["simt_dkv_ms"] / dkv_ms)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             bool_mask = (mask > 0)[:, None, None, :]
             with torch.no_grad():
@@ -1958,8 +2104,13 @@ def phase_flash_query_block(seed):
                        dkv_bound_ms=bounds["dkv"][0],
                        dkv_bound_by=bounds["dkv"][1],
                        dq_bound_ms=bounds["dq"][0],
-                       dq_bound_by=bounds["dq"][1])
+                       dq_bound_by=bounds["dq"][1], **simt)
             print("flash_query_block " + json.dumps(row))
+            check(not simt or (simt["gain"] >= WIDE16_MIN_GAIN
+                               and simt["dkv_gain"] >= WIDE16_MIN_GAIN),
+                  f"query block: the 16-block cluster forward or dK/dV "
+                  f"less than {WIDE16_MIN_GAIN} times faster than the SIMT "
+                  f"one at {row}")
             check(empty_zero, f"query block: the empty article's outputs not "
                               f"zero at {row}")
             check(bool((torch.isinf(lse) == ~finite_lse).all()),
@@ -1982,19 +2133,28 @@ def phase_flash_digests():
     """Every flash launch form the parent took (as many query rows as
     keys) gives the parent's output bits: flash_digests at
     FLASH_DIGEST_CASES equal to FLASH_PARENT_DIGESTS (the f32 and bf16
-    kernels, the wide dQ's SIMT form, the SIMT wide forward and dK/dV
-    above head dim 1024).  Returns the number of digests compared."""
+    kernels, the wide SIMT forms at head dims 512 and 1152); and the
+    forward's and dK/dV's clusters past 8 blocks give the bits recorded
+    when they were added (FLASH_C16_DIGESTS at FLASH_C16_DIGEST_CASES).
+    Returns the number of parent digests compared."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     digests = flash_digests(fl)
+    c16 = flash_digests(fl, FLASH_C16_DIGEST_CASES, simt=False)
     differ = sorted(k for k, d in digests.items()
                     if FLASH_PARENT_DIGESTS.get(k) != d)
+    c16_differ = sorted(k for k, d in c16.items()
+                        if FLASH_C16_DIGESTS.get(k) != d)
     print("flash_digests " + json.dumps(dict(
         compared=len(digests), parent=len(FLASH_PARENT_DIGESTS),
-        differ=differ)))
+        differ=differ, c16_compared=len(c16), c16_differ=c16_differ,
+        c16=c16)))
     check(set(digests) == set(FLASH_PARENT_DIGESTS) and not differ,
           f"flash launch forms whose outputs differ from the parent's: "
           f"{differ}")
+    check(set(c16) == set(FLASH_C16_DIGESTS) and not c16_differ,
+          f"16-block cluster forms whose outputs differ from their "
+          f"recorded bits: {c16_differ}")
     return len(digests)
 
 
@@ -2120,6 +2280,8 @@ def reset_launch_counts():
     fl.launches = fl.launches_bwd_dkv = fl.launches_bwd_dq = 0
     fl.launches_bf16 = fl.launches_bwd_dkv_bf16 = fl.launches_bwd_dq_bf16 = 0
     fl.launches_wide = fl.launches_bwd_dkv_wide = fl.launches_bwd_dq_wide = 0
+    fl.launches_wide_cluster = fl.launches_bwd_dkv_wide_cluster = 0
+    fl.launches_bwd_dq_wide_cluster = 0
     fl.launches_block = fl.launches_bwd_dkv_block = 0
     fl.launches_bwd_dq_block = 0
 
@@ -2132,7 +2294,8 @@ def expected_train_launches(hps, steps):
     pointer-generator the fused attention forward and backward once per
     decoder step (its --remat recomputes only the loss head).  Under
     --compute_dtype=bfloat16 every launch takes the bf16 form, at a
-    head dim above 256 the wide kernels', and at a pointer-generator
+    head dim above 256 the wide kernels' (their cluster forms up to
+    CLUSTER_UP_TO), and at a pointer-generator
     width past the fused kernels' dense forms their slab forms (the
     forward at K = 1 and the backward each by its own room).  One rank,
     no sp: no sp-block launch."""
@@ -2146,6 +2309,9 @@ def expected_train_launches(hps, steps):
                   flash_forward_bf16=0, flash_bwd_dkv_bf16=0,
                   flash_bwd_dq_bf16=0, flash_forward_wide=0,
                   flash_bwd_dkv_wide=0, flash_bwd_dq_wide=0,
+                  flash_forward_wide_cluster=0,
+                  flash_bwd_dkv_wide_cluster=0,
+                  flash_bwd_dq_wide_cluster=0,
                   flash_forward_block=0, flash_bwd_dkv_block=0,
                   flash_bwd_dq_block=0)
     if hps.model_family in ("transformer", "avg_attention"):
@@ -2159,9 +2325,13 @@ def expected_train_launches(hps, steps):
         if hps.compute_dtype == "bfloat16":
             for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
                 counts[k + "_bf16"] = counts[k]
-        if fl._is_wide(fl._padded_head_dim(hps.hidden_dim // hps.num_heads)):
-            for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
+        width = fl._padded_head_dim(hps.hidden_dim // hps.num_heads)
+        if fl._is_wide(width):
+            for k, kind in (("flash_forward", "fwd"),
+                            ("flash_bwd_dkv", "dkv"), ("flash_bwd_dq", "dq")):
                 counts[k + "_wide"] = counts[k]
+                if width <= CLUSTER_UP_TO[kind]:
+                    counts[k + "_wide_cluster"] = counts[k]
     else:
         counts["fused"] = counts["fused_bwd"] = hps.max_dec_steps * steps
         if hps.compute_dtype == "bfloat16":  # every launch on a bf16 stream
@@ -2372,11 +2542,17 @@ def phase_main_path(seed, n_articles, work, device="cuda",
         )
 
         launches, bf16_launches = flash, launched["flash_forward_bf16"]
-        wide = fl._is_wide(fl._padded_head_dim(hps.hidden_dim
-                                               // hps.num_heads))
+        width = fl._padded_head_dim(hps.hidden_dim // hps.num_heads)
+        wide = fl._is_wide(width)
         check(launched["flash_forward_wide"] == (flash if wide else 0),
               f"{launched['flash_forward_wide']} of {flash} flash launches "
               f"took the wide kernel at head dim "
+              f"{hps.hidden_dim // hps.num_heads}")
+        cluster = wide and width <= CLUSTER_UP_TO["fwd"]
+        check(launched["flash_forward_wide_cluster"]
+              == (flash if cluster else 0),
+              f"{launched['flash_forward_wide_cluster']} of {flash} flash "
+              f"launches took the wide cluster form at head dim "
               f"{hps.hidden_dim // hps.num_heads}")
         check(flash > 0, "the flash attention kernel never launched")
         check(flash == hps.enc_layers * n_batches,
@@ -2418,6 +2594,8 @@ def phase_main_path(seed, n_articles, work, device="cuda",
                    batch_seconds=batch_s, decode_steps=steps,
                    kernel_launches=launches, bf16_launches=bf16_launches,
                    wide_launches=launched["flash_forward_wide"],
+                   wide_cluster_launches=launched[
+                       "flash_forward_wide_cluster"],
                    slab_launches=launched["fused_slab"],
                    launches_per_batch=launches / max(n_batches, 1),
                    decoded_tokens=n_tokens,
@@ -3360,9 +3538,114 @@ HD320_WIDTHS = dict(hidden_dim=640, num_heads=2, enc_layers=2, dec_layers=2,
                     ffn_dim=2560)
 #: the bf16 flags of the head-dim-512 runs (phase_transformer_bf16's)
 HD512_BF16_FLAGS = dict(compute_dtype="bfloat16", loss_chunk=10)
+#: head dim 1152 at the transformer's full depth: the forward's and
+#: dK/dV's 9-block clusters, the dQ's SIMT form; --hidden_dim=1152
+#: --num_heads=1, FFN 4 x 1152
+HD1152_WIDTHS = dict(hidden_dim=1152, num_heads=1, ffn_dim=4608)
+#: the depth of the head-dim-1152 card-against-CPU loss check: a CPU step
+#: at full depth and this width does not fit the script's time (the
+#: hidden-1200 pointer-generator's full-depth CPU step took 102.6 s)
+HD1152_CUT = dict(enc_layers=2, dec_layers=2, max_dec_steps=20,
+                  min_dec_steps=5)
 
 
-def phase_wide_widths(seed, device="cuda"):
+def wide_cpu_steps():
+    """phase_wide_widths' --device=cpu reference train steps: {name:
+    (family, flags)}, one step each at --single_pass=1, so that each
+    takes the first batch its card run of the same name (``_card`` for
+    ``_cpu``) takes.  The hidden-1200 pointer-generator's depth is cut to
+    100 encoder and 10 decoder steps: at 400 and 100 the CPU's step took
+    102.6 s of the script's time limit on an H100 host, at 400 and 20
+    45-59 s (PERF.md); the backward's form depends on D alone, so the
+    card twin still takes the slab backward.  The head-dim-1152
+    transformer's depth is cut to HD1152_CUT."""
+    pg, tf = "pointer_generator", "transformer"
+    return {
+        "pg_h1200_train_cpu": (pg, dict(hidden_dim=1200, single_pass=1,
+                                        max_enc_steps=100, max_dec_steps=10,
+                                        min_dec_steps=5)),
+        "hd256_train_cpu": (tf, dict(HD256_WIDTHS, single_pass=1)),
+        "hd512_train_f32_cpu": (tf, dict(HD512_WIDTHS, single_pass=1)),
+        "hd512_train_bf16_cpu": (tf, dict(HD512_WIDTHS, single_pass=1,
+                                          **HD512_BF16_FLAGS)),
+        "hd320_train_cpu": (tf, dict(HD320_WIDTHS, single_pass=1)),
+        "hd1152_train_f32_cpu": (tf, dict(HD1152_WIDTHS, single_pass=1,
+                                          **HD1152_CUT)),
+        "hd1152_train_bf16_cpu": (tf, dict(HD1152_WIDTHS, single_pass=1,
+                                           **HD1152_CUT,
+                                           **HD512_BF16_FLAGS))}
+
+
+def _cpu_step(seed, name, family, extra, cores=None):
+    """One step of wide_cpu_steps (phase_train_main_path with
+    --device=cpu in .smoke_work/<name>), this process held to ``cores``
+    (a thread each), its printed lines captured: (summary, the lines)."""
+    import contextlib
+    import io
+
+    import torch
+
+    if cores:
+        os.sched_setaffinity(0, cores)
+        torch.set_num_threads(len(cores))
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        out = _in_work(name, lambda w: phase_train_main_path(
+            seed, w, steps=1, device="cpu", family=family, extra=extra,
+            expect_kernels=False))
+    return out, text.getvalue()
+
+
+class CpuSteps:
+    """wide_cpu_steps run one after another in a child process (spawned:
+    no CUDA state) held to all but one of this machine's cores, beside the
+    kernel builds and the kernel phases (their numbers CUDA-event times);
+    wait() blocks until every step is done, so that no phase that prints
+    a host time runs beside the child.  With ``background=False`` each
+    step runs here when it is read.  result(name) is a step's
+    phase_train_main_path summary, its printed lines printed then;
+    close() cancels the steps not started and waits for the child."""
+
+    def __init__(self, seed, background=True):
+        import multiprocessing
+
+        self.seed, self.steps = seed, wide_cpu_steps()
+        self._pool, self._futures, self._cores = None, {}, None
+        if background:
+            cores = sorted(os.sched_getaffinity(0))
+            self._cores = cores[1:] or cores
+            self._pool = concurrent.futures.ProcessPoolExecutor(
+                1, mp_context=multiprocessing.get_context("spawn"))
+            self._futures = {
+                name: self._pool.submit(_cpu_step, seed, name, family,
+                                        extra, self._cores)
+                for name, (family, extra) in self.steps.items()}
+
+    def wait(self, beside):
+        """Block until every step is done; print which phases ran beside
+        the child (``beside``), on how many cores, and the wait."""
+        t0 = time.perf_counter()
+        concurrent.futures.wait(list(self._futures.values()))
+        print("cpu_reference_steps " + json.dumps(dict(
+            steps=list(self._futures), ran_beside=beside,
+            child_cores=len(self._cores or ()),
+            wait_s=time.perf_counter() - t0)))
+
+    def result(self, name):
+        if self._pool is None:
+            family, extra = self.steps[name]
+            out, text = _cpu_step(self.seed, name, family, extra)
+        else:
+            out, text = self._futures[name].result()
+        sys.stdout.write(text)
+        return out
+
+    def close(self):
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+
+
+def phase_wide_widths(seed, device="cuda", cpu_steps=None):
     """The widths the card refused before, each on a main path with its
     launch counts set to 0 just before and read just after (and the
     pointer-generator at hidden_dim 1200 on the slab forms):
@@ -3379,8 +3662,15 @@ def phase_wide_widths(seed, device="cuda"):
         cli.main on the card and with --device=cpu, the losses within
         1e-4 relative (one forward, dK/dV and dQ per layer).
 
+    The --device=cpu reference steps of this phase and of
+    phase_wide_heads are ``cpu_steps`` (CpuSteps: run in a child process
+    beside the kernel builds and phases, done before the main paths), or
+    run here when it is None.
     (device="cpu" rehearses the control flow without a card.)"""
     pg, tf = "pointer_generator", "transformer"
+    if cpu_steps is None:
+        cpu_steps = CpuSteps(seed, background=False)
+    steps = cpu_steps.steps
     out = dict(
         pg_decode=_in_work("pg_h400", lambda w: phase_main_path(
             seed, 16, w, device=device, family=pg,
@@ -3393,18 +3683,15 @@ def phase_wide_widths(seed, device="cuda"):
     # training): a beam decode of 8 articles on the slab forward, and one
     # train step (--single_pass=1: the same batch on both) on the dense
     # forward at K = 1 and the slab backward, its loss against
-    # --device=cpu within 1e-4 relative.  The step's depth is cut to 20
-    # decoder steps: at 100 the CPU's reference step took 102.6 s of the
-    # script's time limit on an H100 host (PERF.md)
+    # --device=cpu within 1e-4 relative (wide_cpu_steps: 100 encoder and
+    # 10 decoder steps)
     out["pg_h1200_decode"] = _in_work("pg_h1200", lambda w: phase_main_path(
         seed, 8, w, device=device, family=pg, widths=dict(hidden_dim=1200)))
-    for name, dev in (("card", device), ("cpu", "cpu")):
-        out[f"pg_h1200_train_{name}"] = _in_work(
-            f"pg_h1200_train_{name}", lambda w: phase_train_main_path(
-                seed, w, steps=1, device=dev, family=pg,
-                extra=dict(hidden_dim=1200, single_pass=1,
-                           max_dec_steps=20, min_dec_steps=5),
-                expect_kernels=name == "card"))
+    out["pg_h1200_train_card"] = _in_work(
+        "pg_h1200_train_card", lambda w: phase_train_main_path(
+            seed, w, steps=1, device=device, family=pg,
+            extra=steps["pg_h1200_train_cpu"][1]))
+    out["pg_h1200_train_cpu"] = cpu_steps.result("pg_h1200_train_cpu")
     card_loss, cpu_loss = (out[f"pg_h1200_train_{n}"]["losses"][0]
                            for n in ("card", "cpu"))
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
@@ -3420,12 +3707,11 @@ def phase_wide_widths(seed, device="cuda"):
                                                     num_heads=2))
     out["hd256_decode"] = _in_work("hd256", lambda w: phase_main_path(
         seed, 8, w, device=device, family=tf, widths=HD256_WIDTHS))
-    for name, dev in (("card", device), ("cpu", "cpu")):
-        out[f"hd256_train_{name}"] = _in_work(
-            f"hd256_train_{name}", lambda w: phase_train_main_path(
-                seed, w, steps=1, device=dev, family=tf,
-                extra=dict(HD256_WIDTHS, single_pass=1),
-                expect_kernels=name == "card"))
+    out["hd256_train_card"] = _in_work(
+        "hd256_train_card", lambda w: phase_train_main_path(
+            seed, w, steps=1, device=device, family=tf,
+            extra=steps["hd256_train_cpu"][1]))
+    out["hd256_train_cpu"] = cpu_steps.result("hd256_train_cpu")
     card_loss, cpu_loss = (out[f"hd256_train_{n}"]["losses"][0]
                            for n in ("card", "cpu"))
     rel = abs(card_loss - cpu_loss) / abs(cpu_loss)
@@ -3433,11 +3719,11 @@ def phase_wide_widths(seed, device="cuda"):
         card_loss=card_loss, cpu_loss=cpu_loss, loss_rel_diff=rel)))
     check(rel <= 1e-4, f"head dim 256: the card's loss differs from the "
                        f"CPU's by {rel} (relative)")
-    out.update(phase_wide_heads(seed, device))
+    out.update(phase_wide_heads(seed, device, cpu_steps))
     return out
 
 
-def phase_wide_heads(seed, device="cuda"):
+def phase_wide_heads(seed, device="cuda", cpu_steps=None):
     """Head dims above 256, which the card refused before the wide
     kernels (kernels/flash_attention_wide.cu), each run with its launch
     counts set to 0 just before and read just after:
@@ -3456,50 +3742,85 @@ def phase_wide_heads(seed, device="cuda"):
       * head dim 320 (HD320_WIDTHS, padded to 384): the small beam search
         on the card against the CPU (phase_small_reference, the same
         tokens) and one train step on the card and with --device=cpu,
-        the losses within 1e-4 relative.
+        the losses within 1e-4 relative;
+      * head dim 1152 at full width (HD1152_WIDTHS, 6 + 6 layers): a
+        decode of 16 articles through cli.main (6 wide forward launches
+        per batch, every one the 9-block cluster form), 3 train steps on
+        the card in f32 and 3 under HD512_BF16_FLAGS (12 forward and 12
+        dK/dV launches per step of the cluster forms, 12 dQ of the SIMT
+        form), and the card-against-CPU loss check in both dtypes at
+        HD1152_CUT's depth, with head dim 512's bounds.
 
-    (device="cpu" rehearses the control flow without a card.)"""
+    The --device=cpu reference steps are ``cpu_steps``' (CpuSteps; run
+    here when it is None).  (device="cpu" rehearses the control flow
+    without a card.)"""
     tf = "transformer"
+    if cpu_steps is None:
+        cpu_steps = CpuSteps(seed, background=False)
+    steps = cpu_steps.steps
     out = dict(hd512_decode=_in_work("hd512", lambda w: phase_main_path(
         seed, 16, w, device=device, family=tf, widths=HD512_WIDTHS)))
-    for tag, flags in (("f32", {}), ("bf16", HD512_BF16_FLAGS)):
-        for name, dev, steps in (("card", device, 3), ("cpu", "cpu", 1)):
-            out[f"hd512_train_{tag}_{name}"] = _in_work(
-                f"hd512_train_{tag}_{name}",
-                lambda w: phase_train_main_path(
-                    seed, w, steps=steps, device=dev, family=tf,
-                    extra=dict(HD512_WIDTHS, single_pass=1, **flags),
-                    expect_kernels=name == "card"))
+    for tag in ("f32", "bf16"):
+        # 3 steps on the card, the first against the CPU's one
+        out[f"hd512_train_{tag}_card"] = _in_work(
+            f"hd512_train_{tag}_card", lambda w: phase_train_main_path(
+                seed, w, steps=3, device=device, family=tf,
+                extra=steps[f"hd512_train_{tag}_cpu"][1]))
     if device == "cuda":
         phase_small_reference(seed, tf, widths=dict(hidden_dim=640,
                                                     num_heads=2))
-    for name, dev in (("card", device), ("cpu", "cpu")):
-        out[f"hd320_train_{name}"] = _in_work(
-            f"hd320_train_{name}", lambda w: phase_train_main_path(
-                seed, w, steps=1, device=dev, family=tf,
-                extra=dict(HD320_WIDTHS, single_pass=1),
-                expect_kernels=name == "card"))
+    out["hd320_train_card"] = _in_work(
+        "hd320_train_card", lambda w: phase_train_main_path(
+            seed, w, steps=1, device=device, family=tf,
+            extra=steps["hd320_train_cpu"][1]))
+    out["hd1152_decode"] = _in_work("hd1152", lambda w: phase_main_path(
+        seed, 16, w, device=device, family=tf, widths=HD1152_WIDTHS))
+    for tag, flags in (("f32", {}), ("bf16", HD512_BF16_FLAGS)):
+        out[f"hd1152_steps_{tag}_card"] = _in_work(
+            f"hd1152_steps_{tag}", lambda w: phase_train_main_path(
+                seed, w, steps=3, device=device, family=tf,
+                extra=dict(HD1152_WIDTHS, single_pass=1, **flags)))
+        out[f"hd1152_train_{tag}_card"] = _in_work(
+            f"hd1152_train_{tag}_card", lambda w: phase_train_main_path(
+                seed, w, steps=1, device=device, family=tf,
+                extra=steps[f"hd1152_train_{tag}_cpu"][1]))
+    for name in ("hd512_train_f32_cpu", "hd512_train_bf16_cpu",
+                 "hd320_train_cpu", "hd1152_train_f32_cpu",
+                 "hd1152_train_bf16_cpu"):
+        out[name] = cpu_steps.result(name)
     first = {k: v["losses"][0] for k, v in out.items() if "_train_" in k}
     rel = {k: abs(first[f"{k}_card"] - first[f"{k}_cpu"])
            / abs(first[f"{k}_cpu"])
-           for k in ("hd512_train_f32", "hd512_train_bf16", "hd320_train")}
-    bf16_gap = abs(first["hd512_train_bf16_cpu"]
-                   - first["hd512_train_f32_cpu"])
-    bf16_bound = (4 * bf16_gap + 1e-5 * abs(first["hd512_train_bf16_cpu"])) \
-        / abs(first["hd512_train_bf16_cpu"])
+           for k in ("hd512_train_f32", "hd512_train_bf16", "hd320_train",
+                     "hd1152_train_f32", "hd1152_train_bf16")}
+    bf16_bound = {}
+    for hd in ("hd512", "hd1152"):
+        bf16_loss = first[f"{hd}_train_bf16_cpu"]
+        bf16_gap = abs(bf16_loss - first[f"{hd}_train_f32_cpu"])
+        bf16_bound[hd] = (4 * bf16_gap + 1e-5 * abs(bf16_loss)) \
+            / abs(bf16_loss)
     print("wide_heads " + json.dumps(dict(
         first_losses=first, loss_rel_diff=rel, bf16_rel_bound=bf16_bound,
-        decode_wide_launches_per_batch=out["hd512_decode"][
-            "launches_per_batch"],
+        decode_wide_launches_per_batch={
+            hd: out[f"{hd}_decode"]["launches_per_batch"]
+            for hd in ("hd512", "hd1152")},
+        decode_cluster_launches={
+            hd: out[f"{hd}_decode"]["wide_cluster_launches"]
+            for hd in ("hd512", "hd1152")},
         train_launches_per_step={k: v["launches_per_step"]
                                  for k, v in out.items()
-                                 if k.endswith("_card")})))
-    check(rel["hd512_train_f32"] <= 1e-4 and rel["hd320_train"] <= 1e-4,
+                                 if k.endswith("_card")},
+        step_seconds={k: v["step_seconds"] for k, v in out.items()
+                      if k.endswith("_card")})))
+    check(all(rel[k] <= 1e-4 for k in ("hd512_train_f32", "hd320_train",
+                                       "hd1152_train_f32")),
           f"wide heads: the card's f32 losses differ from the CPU's by "
           f"{rel} (relative)")
-    check(rel["hd512_train_bf16"] <= bf16_bound,
-          f"head dim 512 in bf16: the card's loss differs from the CPU's "
-          f"by {rel['hd512_train_bf16']} (relative), above {bf16_bound}")
+    for hd in ("hd512", "hd1152"):
+        check(rel[f"{hd}_train_bf16"] <= bf16_bound[hd],
+              f"{hd} in bf16: the card's loss differs from the CPU's by "
+              f"{rel[f'{hd}_train_bf16']} (relative), above "
+              f"{bf16_bound[hd]}")
     return out
 
 
@@ -5264,16 +5585,18 @@ def _visible_devices(n):
     return ",".join(names[:n])
 
 
-def _spawn_ranks(work, world, job, devices=1, timeout=600):
+def _spawn_ranks(work, world, job, devices=1, timeout=600,
+                 job_name="job.json"):
     """Start ``world`` ranks of chip_smoke_mesh.py on ``devices`` cards
     (LOCAL_WORLD_SIZE = world: the ranks pick gloo when they share a card,
-    NCCL when each has its own) and wait for all; a rank that fails, or a
-    world that does not finish in ``timeout`` seconds, fails the phase.
-    Every process started is waited for or killed."""
+    NCCL when each has its own) on ``job`` (written to
+    <work>/<job_name>) and wait for all; a rank that fails, or a world
+    that does not finish in ``timeout`` seconds, fails the phase.  Every
+    process started is waited for or killed."""
     import socket
 
     cases = job["cases"]
-    with open(os.path.join(work, "job.json"), "w", encoding="utf-8") as f:
+    with open(os.path.join(work, job_name), "w", encoding="utf-8") as f:
         json.dump(job, f)
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -5286,7 +5609,8 @@ def _spawn_ranks(work, world, job, devices=1, timeout=600):
                    CUDA_VISIBLE_DEVICES=_visible_devices(devices))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.join(HERE, "chip_smoke_mesh.py"),
-             "case", work], env=env, cwd=HERE, stdout=subprocess.PIPE,
+             "case", work, job_name], env=env, cwd=HERE,
+            stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
     outs = []
     try:
@@ -5419,6 +5743,13 @@ def _check_mesh_serve(name, ranks, kw, serve_words, on_card):
     return out
 
 
+#: what phase_mesh's gloo cases, its torchrun entry point and its App
+#: print beside their wall seconds: they ran at once on one card
+MESH_AT_ONCE_NOTE = ("ranks share one card over gloo, beside the other "
+                     "gloo world, the torchrun entry point and the App, "
+                     "all at once: times are not a speed")
+
+
 def _mesh_app(work, seed, device, widths):
     """Case (d): ``App.main`` at dp=2 under torchrun (2 fit steps, a
     4-row transform; chip_smoke_mesh.py app), the rows equal to a
@@ -5474,8 +5805,9 @@ def _mesh_app(work, seed, device, widths):
                single_launches={k: v for k, v in single_launches.items()
                                 if v},
                launches=totals)
-    print("mesh_app " + json.dumps({k: v for k, v in out.items()
-                                    if k != "launches"}))
+    print("mesh_app " + json.dumps(dict(
+        {k: v for k, v in out.items() if k != "launches"},
+        note=MESH_AT_ONCE_NOTE)))
     return out
 
 
@@ -5537,9 +5869,12 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
          (d) ``App.main`` at dp=2
          under torchrun (chip_smoke_mesh.py app; 2 fit steps, 4 rows
          transformed): the rows equal a single-rank App's;
-    then a world-1 NCCL initialize and all-reduce on this card (with two
-    or more cards, the world-2 cases again one rank per card over NCCL;
-    with four, case 3 too; the torchrun case then takes NCCL by itself).  Every case checks each rank's kernel launches (the
+    the gloo worlds of 2 and 4 ranks, case 6 and case 7 (d) run at once
+    (independent processes on the card); then a world-1 NCCL initialize
+    and all-reduce on this card (with two or more cards, the world-2
+    cases again one rank per card over NCCL; with four, case 3 too; the
+    torchrun case then takes NCCL by itself).  Every case checks each
+    rank's kernel launches (the
     pointer-generator: 100 fused forward and backward per step; the
     transformer: 12 flash forward, dK/dV and dQ under tp, 6 under sp,
     whose encoder attention is ring or Ulysses; decode: 2 fused per beam
@@ -5612,9 +5947,20 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
                  hps={a: b for a, b in kw.items() if a != "requests"})
             for n, (w, k, f, kw) in MESH_CASES.items() if w == world])
 
+    # the gloo worlds of 2 and 4 ranks sharing the card and the torchrun
+    # runs of the entry point are independent processes: they run at once,
+    # the App's torchrun case from this thread beside them (the only
+    # thread here that runs on the card and reads the launch counters)
     results = {}
-    for world in (2, 4):
-        results.update(_spawn_ranks(work, world, job(world)))
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        worlds = [pool.submit(_spawn_ranks, work, world, job(world),
+                              job_name=f"job{world}.json")
+                  for world in (2, 4)]
+        cli_run = pool.submit(_mesh_cli, work, seed, device, widths)
+        app_summary = _mesh_app(work, seed, device, widths)
+        for world in worlds:
+            results.update(world.result())
+        cli_summary = cli_run.result()
     # with a card per rank the same cases run over NCCL
     n_cards = torch.cuda.device_count() if on_card else 0
     for world in (2, 4):
@@ -5802,14 +6148,11 @@ def phase_mesh(seed, work, decode_params, device="cuda", widths=None,
                           f"{single.avg_log_prob[b]}")
         summary["cases"][name] = row
         print("mesh_case " + json.dumps(dict(
-            row, case=name, note="ranks share one card over gloo: times "
-            "are not a speed" if want_backend == "gloo" else "one rank "
-            "per card over NCCL"), default=float))
-    cli_summary = _mesh_cli(work, seed, device, widths)
+            row, case=name, note=MESH_AT_ONCE_NOTE if want_backend
+            == "gloo" else "one rank per card over NCCL"), default=float))
     for k, v in cli_summary.pop("launches").items():
         totals[k] += v
     summary["cli"] = cli_summary
-    app_summary = _mesh_app(work, seed, device, widths)
     for k, v in app_summary.pop("launches").items():
         totals[k] += v
     summary["app"] = app_summary
@@ -5895,7 +6238,7 @@ def _mesh_cli(work, seed, device, widths):
           f"checkpoints {ckpts}")
     out["launches"] = totals
     out["checkpoints"] = ckpts
-    print("mesh_cli " + json.dumps(out))
+    print("mesh_cli " + json.dumps(dict(out, note=MESH_AT_ONCE_NOTE)))
     return out
 
 
@@ -5941,64 +6284,99 @@ def main(argv=None) -> int:
     print(json.dumps(dict(torch=torch.__version__, cuda=torch.version.cuda,
                           python=sys.version.split()[0])))
 
-    t0 = time.perf_counter()
-    libs = build.build_all()
-    print(json.dumps(dict(build_seconds=time.perf_counter() - t0,
-                          kernels=sorted(libs))))
-    for name in libs:
-        sys.stdout.write(build.build_log(name))
+    # wall seconds of each phase, in order (printed before the kernels
+    # line): what the script's time limit is spent on
+    laps, t_lap = {}, [time.perf_counter()]
 
-    main_row, bf16_row, k1_rows, app_rows, wide_rows, worst = \
-        phase_attention(args.seed)
-    bounded_rows, bounded_worst = phase_attention_bounded(args.seed)
-    worst = max(worst, bounded_worst)
-    worst = max(worst, phase_attention_long(args.seed))
-    bwd_att_rows, bwd_att_worst = phase_attention_bwd(args.seed)
-    forms = phase_attention_forms(args.seed)
-    fa_sass = fused_sass()
-    flash_row, flash_hd256, flash_worst = phase_flash(args.seed)
-    bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
-    fb_rows, fb_worst = phase_flash_bf16(args.seed)
-    fb_sass = bf16_flash_sass()
-    fw_rows, fw_worst = phase_flash_wide(args.seed)
-    fw_sass = wide_flash_sass()
-    qb_rows, qb_worst = phase_flash_query_block(args.seed)
-    flash_digest_count = phase_flash_digests()
-    errors = {name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
-              for name, now in (("forward", flash_worst),
-                                ("dq", bwd_worst["dq"]),
-                                ("dk", bwd_worst["dk"]),
-                                ("dv", bwd_worst["dv"]))}
-    errors["fused_attention"] = dict(max_abs_err=worst,
-                                     pr4=PR4_FUSED_MAX_ABS_ERR)
-    print("errors_vs_simt " + json.dumps(errors))
-    for family in ("pointer_generator", "transformer"):
-        phase_small_reference(args.seed, family)
-        phase_small_training(args.seed, family)
-    phase_small_training(args.seed, "transformer", remat=True)
+    def lap(name):
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
 
-    summaries, train, trained = {}, {}, {}
-    for family in ("pointer_generator", "transformer"):  # own log_roots
-        summaries[family] = _in_work(family, lambda w: phase_main_path(
-            args.seed, args.articles, w, family=family))
-        train[family], trained[family] = _trained(
-            family, lambda w: phase_train_main_path(args.seed, w,
-                                                    family=family))
-    tf_bf16 = phase_transformer_bf16(args.seed, train["transformer"])
-    pipe = _in_work("pipeline", lambda w: phase_pipeline(args.seed, w))
-    diet = phase_byte_diet(args.seed, train["pointer_generator"])
-    scored = _in_work("rouge", lambda w: phase_rouge_decode(args.seed, w))
-    streamed = _in_work("continuous", lambda w: phase_continuous_decode(
-        args.seed, w))
-    wide = phase_wide_widths(args.seed)
+    # phase_wide_widths' CPU reference steps, in a child process beside
+    # the kernel builds and the kernel phases (which print CUDA-event
+    # times, no host time); waited for before the first phase that prints
+    # a host time
+    cpu_steps = CpuSteps(args.seed)
+    try:
+        t0 = time.perf_counter()
+        libs = build.build_all()
+        print(json.dumps(dict(build_seconds=time.perf_counter() - t0,
+                              kernels=sorted(libs))))
+        for name in libs:
+            sys.stdout.write(build.build_log(name))
+        lap("build")
+
+        main_row, bf16_row, k1_rows, app_rows, wide_rows, worst = \
+            phase_attention(args.seed)
+        bounded_rows, bounded_worst = phase_attention_bounded(args.seed)
+        worst = max(worst, bounded_worst)
+        worst = max(worst, phase_attention_long(args.seed))
+        bwd_att_rows, bwd_att_worst = phase_attention_bwd(args.seed)
+        forms = phase_attention_forms(args.seed)
+        fa_sass = fused_sass()
+        lap("fused_attention")
+        flash_row, flash_hd256, flash_worst = phase_flash(args.seed)
+        bwd_rows, bwd_worst = phase_flash_bwd(args.seed)
+        fb_rows, fb_worst = phase_flash_bf16(args.seed)
+        fb_sass = bf16_flash_sass()
+        lap("flash")
+        fw_rows, fw_worst = phase_flash_wide(args.seed)
+        fw_sass = wide_flash_sass()
+        lap("flash_wide")
+        qb_rows, qb_worst = phase_flash_query_block(args.seed)
+        lap("flash_query_block")
+        flash_digest_count = phase_flash_digests()
+        lap("flash_digests")
+        cpu_steps.wait(list(laps))
+        lap("cpu_steps_wait")
+        errors = {name: dict(max_abs_err=now, simt=SIMT_MAX_ABS_ERR[name])
+                  for name, now in (("forward", flash_worst),
+                                    ("dq", bwd_worst["dq"]),
+                                    ("dk", bwd_worst["dk"]),
+                                    ("dv", bwd_worst["dv"]))}
+        errors["fused_attention"] = dict(max_abs_err=worst,
+                                         pr4=PR4_FUSED_MAX_ABS_ERR)
+        print("errors_vs_simt " + json.dumps(errors))
+        for family in ("pointer_generator", "transformer"):
+            phase_small_reference(args.seed, family)
+            phase_small_training(args.seed, family)
+        phase_small_training(args.seed, "transformer", remat=True)
+        lap("small")
+
+        summaries, train, trained = {}, {}, {}
+        for family in ("pointer_generator", "transformer"):  # own roots
+            summaries[family] = _in_work(family, lambda w: phase_main_path(
+                args.seed, args.articles, w, family=family))
+            train[family], trained[family] = _trained(
+                family, lambda w: phase_train_main_path(args.seed, w,
+                                                        family=family))
+        lap("main_paths")
+        tf_bf16 = phase_transformer_bf16(args.seed, train["transformer"])
+        lap("transformer_bf16")
+        pipe = _in_work("pipeline", lambda w: phase_pipeline(args.seed, w))
+        lap("pipeline")
+        diet = phase_byte_diet(args.seed, train["pointer_generator"])
+        lap("byte_diet")
+        scored = _in_work("rouge", lambda w: phase_rouge_decode(args.seed,
+                                                                w))
+        streamed = _in_work("continuous", lambda w: phase_continuous_decode(
+            args.seed, w))
+        lap("rouge_continuous")
+        wide = phase_wide_widths(args.seed, cpu_steps=cpu_steps)
+        lap("wide_widths")
+    finally:
+        cpu_steps.close()
     served = _in_work("serve", lambda w: phase_serve(
         args.seed, w, scored["trained_params"]))
     cont = _in_work("continuous_serve", lambda w: phase_continuous_serve(
         args.seed, w, scored["trained_params"], trained["transformer"]))
+    lap("serve")
     spec = _in_work("spec", lambda w: phase_spec(
         args.seed, w, trained["transformer"], scored["trained_params"]))
     dist = _in_work("distill", lambda w: phase_distill(
         args.seed, w, trained["transformer"]))
+    lap("spec_distill")
     fleet = _in_work("fleet", lambda w: phase_fleet(
         args.seed, w, scored["trained_params"], trained["transformer"],
         cont["transformer_words"]))
@@ -6007,10 +6385,12 @@ def main(argv=None) -> int:
     procs = _in_work("procfleet", lambda w: phase_procfleet(
         args.seed, w, scored["trained_params"], fleet["rows"],
         fleet["single_words"]))
+    lap("fleet")
     meshed = _in_work("mesh", lambda w: phase_mesh(
         args.seed, w, scored["trained_params"],
         serve_words=cont["pg_words"]))
     mesh_l = meshed["launches"]  # summed over every rank of every case
+    lap("mesh")
     shutil.rmtree(os.path.join(HERE, ".smoke_work"), ignore_errors=True)
 
     bwd_main = bwd_rows[0]  # the training encoder's shape
@@ -6319,13 +6699,81 @@ def main(argv=None) -> int:
                              ms=r[ms], plain_ms=r[plain],
                              library_ms=r[lib], bound_ms=r[bound],
                              bound_by=r[by], parent_ms=r[simt])
-                        for (t, _), r in fw_rows.items() if t == tag],
+                        for (t, _), r in fw_rows.items()
+                        if t == tag and _row_hd(r) <= 1024],
                 parent_ms=head[simt], gain=head[simt] / head[ms],
                 design=("a cluster of hd / 128 blocks, each an hd-128 "
                         "flash block on its 128-column slab (3xTF32 "
                         "mma.sync in f32, wgmma on TMA tiles in bf16), "
                         "the partial S (and dP) summed over the cluster "
                         "through distributed shared memory once per tile"))
+            kernels.append(entry)
+    # past head dim 1024: the forward's and dK/dV's clusters of 9 to 16
+    # blocks (their split-exchange instances) and the SIMT dQ, on the
+    # head-dim-1152 main paths (phase_wide_heads: the decode, the 3-step
+    # runs and the cut-depth card steps)
+    hd1152_runs = dict(
+        f32=[wide["hd1152_steps_f32_card"], wide["hd1152_train_f32_card"]],
+        bf16=[wide["hd1152_steps_bf16_card"],
+              wide["hd1152_train_bf16_card"]])
+    for key, counter, library, form in (
+            ("forward", "flash_forward", "_flash_attention_kernel", "c16"),
+            ("dkv", "flash_bwd_dkv", "_flash_attention_bwd_dkv", "c16"),
+            ("dq", "flash_bwd_dq", "_flash_attention_bwd_dq", "simt")):
+        for tag in ("f32", "bf16"):
+            head = fw_rows[(tag, "16x400x1x1152")]
+            ms, bound, by, plain, lib = (
+                ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
+                if key == "forward" else
+                (f"{key}_ms", f"{key}_bound_ms", f"{key}_bound_by",
+                 "bwd_plain_ms", "bwd_library_ms"))
+            # the form's launches: the cluster counter (every launch at
+            # hd 1152 of the forward and dK/dV), or the wide count less it
+            launched = sum(r["launches"][counter + "_wide_cluster"]
+                           if form == "c16" else
+                           r["launches"][counter + "_wide"]
+                           - r["launches"][counter + "_wide_cluster"]
+                           for r in hd1152_runs[tag])
+            if key == "forward" and tag == "f32":
+                launched += wide["hd1152_decode"]["wide_cluster_launches"]
+            suffix = "" if key == "forward" else f"_bwd_{key}"
+            simt = {"forward": "simt_ms", "dkv": "simt_dkv_ms",
+                    "dq": "dq_simt_ms"}[key]
+            entry = dict(
+                name=f"flash_attention_wide_{form}" + suffix
+                + ("_bf16" if tag == "bf16" else ""),
+                route="cuda", source=wide_src,
+                replaces=("textsummarization_on_flink_tpu/models/"
+                          f"transformer.py:285 (library {library} at head "
+                          "dims above 1024, padded to a multiple of 128)"),
+                launches=launched,
+                max_abs_err=fw_worst[(tag, key, "past1024")],
+                ms=head[ms], plain_ms=head[plain], bound_ms=head[bound],
+                bound_by=head[by], library_ms=head[lib],
+                library_backend=head["library_backend"],
+                shape=head["shape"], sass={
+                    n: fw_sass[n] for n in WIDE16_INSTANCES[(key, tag)]},
+                shapes=[dict(shape=r["shape"], causal=r["causal"],
+                             ms=r[ms], plain_ms=r[plain],
+                             library_ms=r[lib], bound_ms=r[bound],
+                             bound_by=r[by], simt_ms=r[simt])
+                        for (t, _), r in fw_rows.items()
+                        if t == tag and _row_hd(r) > 1024],
+                design=(
+                    "a cluster of hd / 128 blocks (9 to 16, the H100's "
+                    "non-portable sizes), each the hd-128 flash block of "
+                    "the 8-block form on its slab; the exchange "
+                    + {("forward", "f32"): "every block's one sum to 12 "
+                       "blocks, split over the cluster past them",
+                       ("dkv", "f32"): "every block's one sum",
+                       }.get((key, tag), "split over the cluster "
+                             "(sum_share, then gather_sums behind a second "
+                             "barrier)") if form == "c16" else
+                    "SIMT FMA, one 64-row block per 128-column slab of dQ, "
+                    "S and dP over the whole head dim in 32-column chunks"))
+            if form == "c16":
+                entry.update(parent_ms=head[simt],
+                             gain=head[simt] / head[ms])
             kernels.append(entry)
     # the query-block forms (Tq < Tk: one sp rank's block of the
     # encoder's queries against every key; their own counters, each
@@ -6413,6 +6861,10 @@ def main(argv=None) -> int:
     kernels[0]["sass"] = dict(
         instantiations=len(fa_sass),
         spill_bytes=sum(v["spill_bytes"] for v in fa_sass.values()))
+    print(json.dumps(dict(phase_seconds=laps)))
+    check(all(e["launches"] > 0 for e in kernels),
+          f"kernels no main path launched: "
+          f"{[e['name'] for e in kernels if not e['launches'] > 0]}")
     print(json.dumps(dict(total_seconds=time.perf_counter() - t_start)))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

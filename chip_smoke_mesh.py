@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """One rank of chip_smoke.py's mesh phase (``phase_mesh``); not run by hand.
 
-    python3 chip_smoke_mesh.py case <workdir>
+    python3 chip_smoke_mesh.py case <workdir> [<job file>]
     python -m torch.distributed.run --standalone --nproc_per_node=N \\
         chip_smoke_mesh.py cli <the port's command-line flags>
     python -m torch.distributed.run --standalone --nproc_per_node=2 \\
@@ -9,7 +9,8 @@
 
 ``case``: the rank joins the world from torchrun's environment (RANK,
 WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE, MASTER_ADDR, MASTER_PORT; the
-parent sets them), runs every case of ``<workdir>/job.json`` on the card
+parent sets them), runs every case of ``<workdir>/<job file>`` (default
+``job.json``) on the card
 and writes ``<workdir>/<case>.rank<r>.json`` (and the chief the case's
 gathered params, ``<case>.npz``): a sharded train step of
 chip_smoke.mesh_inputs' fixed batch, the sharded decode of the mesh
@@ -320,11 +321,11 @@ def run_serve(case, work, job):
     return out
 
 
-def main_cases(work):
+def main_cases(work, job_name="job.json"):
     from textsummarization_on_flink_tpu_torch.device import resolve_device
     from textsummarization_on_flink_tpu_torch.parallel import distributed
 
-    with open(os.path.join(work, "job.json"), encoding="utf-8") as f:
+    with open(os.path.join(work, job_name), encoding="utf-8") as f:
         job = json.load(f)
     resolve_device(job["device"])  # TF32 off, as every entry point does
     distributed.initialize(device=job["device"])
@@ -401,7 +402,7 @@ def main_app(work):
 
 if __name__ == "__main__":
     if sys.argv[1] == "case":
-        sys.exit(main_cases(sys.argv[2]))
+        sys.exit(main_cases(*sys.argv[2:4]))
     if sys.argv[1] == "app":
         sys.exit(main_app(sys.argv[2]))
     sys.exit(main_cli(sys.argv[2:]))

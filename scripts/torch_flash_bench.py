@@ -25,12 +25,17 @@ key mask, 16x100x1x512 causal) in f32 and bf16 (--dtype is not read):
 the forward without and with lse, the dK/dV and the dQ kernels, and
 the SIMT forms the cluster forms replaced where the checkout's wrappers
 take ``simt`` (the dQ's only where its wrapper has the flag), so one
-call times the SIMT design beside the cluster forms.
+call times the SIMT design beside the cluster forms; ``--head-dims HD
+...`` times those head dims only: WIDE_FLASH_CASES' cases at them, and
+16x400x1xHD with a key mask where the cases have none.
 ``--which digests`` prints one JSON line of chip_smoke.flash_digests:
 the digests of every flash kernel's outputs at the launch forms with as
 many query rows as keys (chip_smoke.FLASH_DIGEST_CASES, inputs made with
 numpy), which chip_smoke.py holds against its FLASH_PARENT_DIGESTS; run
-it with the parent checkout on PYTHONPATH to print those.  Each time is
+it with the parent checkout on PYTHONPATH to print those; and ("c16")
+those of the forward's and dK/dV's clusters past 8 blocks at
+FLASH_C16_DIGEST_CASES through their default launch, which
+FLASH_C16_DIGESTS holds.  Each time is
 the median of --iters
 launches, each after a write of 96 MB (more than the L2 cache), timed
 with CUDA events by this checkout's chip_smoke.time_cuda (also when the
@@ -78,6 +83,7 @@ def main(argv=None) -> int:
                     default="float32")
     ap.add_argument("--which", choices=("times", "wide", "digests"),
                     default="times")
+    ap.add_argument("--head-dims", type=int, nargs="*", default=None)
     args = ap.parse_args(argv)
 
     import torch
@@ -101,8 +107,10 @@ def main(argv=None) -> int:
                               key_mask=not causal, ms=ms, **extra)))
 
     if args.which == "digests":
-        print(json.dumps(dict(tag=args.tag,
-                              digests=chip_smoke.flash_digests(fl))))
+        print(json.dumps(dict(
+            tag=args.tag, digests=chip_smoke.flash_digests(fl),
+            c16=chip_smoke.flash_digests(
+                fl, chip_smoke.FLASH_C16_DIGEST_CASES, simt=False))))
         return 0
     if args.which == "wide":
         bench_wide(args, chip_smoke, fl, flush, emit)
@@ -155,7 +163,8 @@ def host_us(fn, iters):
 
 
 def bench_wide(args, chip_smoke, fl, flush, emit):
-    """The wide kernels at chip_smoke.WIDE_FLASH_CASES in both dtypes; a
+    """The wide kernels at chip_smoke.WIDE_FLASH_CASES (or --head-dims)
+    in both dtypes; a
     checkout whose wrappers take ``simt`` also times its SIMT forward and
     dK/dV, and its SIMT dQ where the dQ's wrapper takes the flag."""
     import inspect
@@ -164,10 +173,14 @@ def bench_wide(args, chip_smoke, fl, flush, emit):
 
     simt = "simt" in inspect.signature(fl._flash_cuda).parameters
     simt_dq = "simt" in inspect.signature(fl._bwd_dq_cuda).parameters
-
+    cases = chip_smoke.WIDE_FLASH_CASES
+    if args.head_dims:
+        cases = [c for c in cases if c[3] in args.head_dims] + [
+            (16, 400, 1, hd, False) for hd in args.head_dims
+            if (16, 400, 1, hd, False) not in cases]
     for dtype in (torch.float32, torch.bfloat16):
         args.dtype = str(dtype).replace("torch.", "")
-        for shape in chip_smoke.WIDE_FLASH_CASES:
+        for shape in cases:
             B, T, nh, hd, causal = shape
             q, k, v, mask = chip_smoke.flash_inputs(B, T, nh, hd, args.seed,
                                                     not causal)

@@ -2,10 +2,11 @@
 """What the port's CUDA kernels compiled to, and the instruction floor of
 the fused attention's tanh.
 
-    python3 scripts/torch_kernel_sass.py
+    python3 scripts/torch_kernel_sass.py [--libraries flash_attention_wide]
 
 Needs nvcc and cuobjdump (the CUDA toolkit) and one CUDA card (for its
-SM clock).  It builds the port's kernels (kernels/build.py) and prints,
+SM clock).  It builds the port's kernels (kernels/build.py; those named by
+--libraries, default every source) and prints,
 per kernel function of each library, the SASS instruction count, the
 number of 3xTF32 tensor-core instructions (HMMA.1688.F32.TF32), of bf16
 mma.sync ones (HMMA.16816 on BF16), of warpgroup products (HGMMA, with
@@ -204,7 +205,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.compare:
         return compare(args.compare, args.libraries)
-    libs = build.build_all()
+    libs = build.build_all(args.libraries)
     for name, lib in libs.items():
         spills = [ln.strip() for ln in build.build_log(name).splitlines()
                   if "spill" in ln]

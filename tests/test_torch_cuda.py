@@ -1559,6 +1559,146 @@ def test_flash_wide_dq_cluster_matches_simt_and_plain_on_card(hd, tq, tk, nh,
         assert not dq[1].any()  # the empty article
 
 
+#: the forward's and dK/dV's clusters past the portable 8 blocks: 9, 12
+#: and 16 blocks
+WIDE_CLUSTER_HEAD_DIMS = (1152, 1536, 2048)
+#: (Tq, Tk, causal): a ragged key mask, causal, and query blocks (Tq < Tk)
+WIDE_CLUSTER_CASES = [(130, 130, False), (130, 130, True), (65, 130, False),
+                      (200, 400, False)]
+
+
+def _held_to(got, want, dtype):
+    """f32 within 1e-5 of the plain version relative to its size, bf16
+    within FLASH_BF16_ULPS; article 1 (fully masked) exact zeros."""
+    assert got.shape == want.shape and got.dtype == dtype
+    if dtype == torch.bfloat16:
+        _within_bf16_ulps(got, want)
+    else:
+        tol = 1e-5 * max(1.0, float(want.abs().max()))
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=tol)
+    assert not got[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", WIDE_CLUSTER_HEAD_DIMS)
+@pytest.mark.parametrize("tq,tk,causal", WIDE_CLUSTER_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_16_block_clusters_match_simt_and_plain_on_card(
+        hd, tq, tk, causal, dtype):
+    """The forward and dK/dV cluster forms of 9 to 16 blocks, and the SIMT
+    forms they replaced (``simt=True``), each held to the plain versions
+    (``_held_to``; the backward on the plain lse and D); lse within 1e-5 *
+    max(1, |lse|), +inf on the same rows; each launch counted, the
+    cluster forms' by the cluster counters and the SIMT forms' not."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(3, tk, 2, hd, seed=tq + hd)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    q = q[:, tk - tq:].contiguous()
+    scale = hd ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(tq + hd)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    want_out = fl._flash_plain(q, k, v, mask, causal, scale)
+    lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
+    want = fl._flash_bwd_plain(q, k, v, want_out, lse_p, do, mask, causal,
+                               scale)
+    dsum = torch.sum(do.float() * want_out.float(), dim=-1)
+    counters = ("launches_wide", "launches_wide_cluster",
+                "launches_bwd_dkv_wide", "launches_bwd_dkv_wide_cluster")
+    before = [getattr(fl, c) for c in counters]
+    for simt in (False, True):
+        out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
+                                  with_lse=True, simt=simt)
+        dk, dv = fl._bwd_dkv_cuda(q, k, v, do, lse_p, dsum, mask, causal,
+                                  scale, simt=simt)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+        fin = torch.isfinite(lse_p)
+        assert float((lse - lse_p)[fin].abs().max()) <= 1e-5 * max(
+            1.0, float(lse_p[fin].abs().max()))
+        for got_x, want_x in ((out, want_out), (dk, want[1]),
+                              (dv, want[2])):
+            _held_to(got_x, want_x, dtype)
+    assert [getattr(fl, c) - b for c, b in zip(counters, before)] == [
+        2, 1, 2, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", WIDE_CLUSTER_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_16_block_clusters_repeat_their_bits_on_card(hd, dtype):
+    """The exchange sums in rank order, no atomics: two runs of the
+    forward (with lse) and of the backward on the same inputs give the
+    same bits."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(2, 200, 2, hd, seed=hd)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    scale = hd ** -0.5
+    runs = [fl._flash_cuda(q, k, v, mask, False, scale, with_lse=True)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out, lse = runs[0]
+    g = torch.Generator(device="cuda").manual_seed(hd)
+    do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    first, second = (fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, False,
+                                        scale) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+#: the largest head dim at which each wide kernel takes its cluster form:
+#: the forward and dK/dV clusters of up to 16 blocks, the dQ's of up to 8
+CLUSTER_UP_TO = dict(fwd=2048, dkv=2048, dq=1024)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "dkv", "dq"])
+def test_flash_wide_forms_follow_the_rule_on_card(kind):
+    """For every padded head dim from 384 to 4096 the library's own form
+    (ts_flash_wide_form, which the launch counters read) is the cluster
+    form up to CLUSTER_UP_TO and the SIMT form above; where it is a
+    cluster, at least one cluster of it is resident on this card in both
+    dtypes (ts_flash_wide_active_clusters, the check each launch makes at
+    first use)."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    lib = fl._load_wide_library()
+    i = fl.WIDE_KINDS.index(kind)
+    for hd in range(384, 4097, fl.WIDE_STEP):
+        cluster = hd <= CLUSTER_UP_TO[kind]
+        assert lib.ts_flash_wide_form(i, hd) == int(cluster), hd
+        assert fl._cluster_form(kind, hd) == cluster
+        assert not fl._cluster_form(kind, hd, simt=True)
+        if cluster:
+            for bf16 in (0, 1):
+                n = lib.ts_flash_wide_active_clusters(i, bf16, hd // 128)
+                assert n >= 1, (hd, bf16, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "dkv", "dq"])
+@pytest.mark.parametrize("bf16", [0, 1])
+def test_flash_wide_occupancy_refuses_32_blocks_on_card(kind, bf16):
+    """The occupancy check a cluster launch makes at first use
+    (cudaOccupancyMaxActiveClusters, through ts_flash_wide_active_clusters)
+    finds no cluster of 32 blocks, more than one of the H100's GPCs
+    holds (it finds none from 20 blocks on; at 17 and 18 it still counts
+    some, so the launches' own limit, 16, is not its): where it finds none
+    a launch returns an error, which the wrappers raise."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    lib = fl._load_wide_library()
+    n = lib.ts_flash_wide_active_clusters(fl.WIDE_KINDS.index(kind), bf16,
+                                          32)
+    assert n < 1, n
+
+
 #: one sp rank's block of query rows against every key: (Tq, Tk) with Tq
 #: half and a third of Tk, ragged against the 64- and 128-row blocks
 QUERY_BLOCKS = ((50, 100), (33, 100), (65, 130), (200, 400))
@@ -1570,12 +1710,13 @@ QUERY_BLOCKS = ((50, 100), (33, 100), (65, 130), (200, 400))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_query_block_matches_plain_on_card(hd, tq, tk, dtype):
     """Every flash kernel (forward with and without lse, dK/dV, dQ; f32,
-    bf16 and wide, the cluster forms up to hd 1024 and the SIMT forms at
-    1152) on a block of Tq query rows (rows [Tq, 2 Tq) of the article's
-    queries) against all Tk keys, a ragged key mask and article 1 fully
-    masked: f32 within 1e-5 of the plain versions relative to each
-    output's size, bf16 within FLASH_BF16_ULPS; one launch of each, each
-    counted by the query-block counters too."""
+    bf16 and wide, the cluster forms up to hd 1024; at 1152 the 9-block
+    cluster forward and dK/dV and the SIMT dQ) on a block of Tq query
+    rows (rows [Tq, 2 Tq) of the article's queries) against all Tk keys,
+    a ragged key mask and article 1 fully masked: f32 within 1e-5 of the
+    plain versions relative to each output's size, bf16 within
+    FLASH_BF16_ULPS; one launch of each, each counted by the query-block
+    counters too."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     _need_cuda()

@@ -70,10 +70,10 @@ def _port_trainer(thps, p, arrays, root):
         state=trainer_lib.init_train_state(thps, VSIZE, params=p))
 
 
-def test_the_case_has_a_finite_loss_and_a_nan_gradient():
+def test_the_case_has_a_finite_loss_and_a_nan_gradient(tmp_path):
     """Without --debug the port's step runs: finite loss, NaN params."""
     _, thps, p, arrays = _case(debug=False)
-    tr = _port_trainer(thps, p, arrays, "unused")
+    tr = _port_trainer(thps, p, arrays, tmp_path)
     state, metrics = trainer_lib.train_step(
         thps, tr.state, trainer_lib.batch_to_device(arrays, "cpu"),
         trainer_lib.make_loss_fn(thps), inplace=False)
@@ -124,13 +124,13 @@ def test_jax_debug_raises_on_the_same_case(tmp_path):
     assert glob.glob(os.path.join(jtr.train_dir, "nan_batch_step*.npz"))
 
 
-def test_debug_off_costs_no_mode():
+def test_debug_off_costs_no_mode(tmp_path):
     """--debug off: the step runs in no dispatch mode."""
     from torch.utils._python_dispatch import _get_current_dispatch_mode
 
     seen = []
     _, thps, p, arrays = _case(debug=False)
-    tr = _port_trainer(thps, p, arrays, "unused")
+    tr = _port_trainer(thps, p, arrays, tmp_path)
     orig = tr._dispatch
     tr._dispatch = lambda items: (seen.append(_get_current_dispatch_mode()),
                                   orig(items))[1]

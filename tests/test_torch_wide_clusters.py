@@ -1,0 +1,113 @@
+"""Head dims past the 8-block clusters (1152 and 2048: the wide forward's
+and dK/dV's clusters of 9 and 16 blocks on the card) in the port's
+transformer against the JAX package's, on the CPU.  Which form each
+wide kernel takes is the library's rule (``ts_flash_wide_form``), so the
+card tests (tests/test_torch_cuda.py) hold it.
+
+At hidden 1152 and 2048 with one head, 1 + 1 layers, T_enc 40 and a
+narrow FFN (the head dim is what is under test), the same numpy params
+and batches go through both packages: the JAX package pads the head dim
+to a multiple of 128 for the library flash kernel (models/
+transformer.py:262-272; both are multiples already), the port runs the
+plain versions of its wide kernels here (ops/flash_attention.py).
+
+Tolerances are tests/test_torch_wide_heads.py's: the loss within rtol
+1e-5, every gradient within rtol 1e-4 / atol 1e-5 (f32 on both sides); under
+--compute_dtype=bfloat16 the loss within BF16_GAP_FACTOR (4) times the
+JAX package's own bf16-to-f32 distance and the gradient as a whole
+within that factor of JAX's in the L2 norm; beam tokens and lengths
+exactly equal, from a sharpened checkpoint."""
+
+import functools
+
+import numpy as np
+import pytest
+
+from _torch_parity import WORDS, abstract, article, make_hps
+from test_torch_byte_diet import BF16_GAP_FACTOR, _gap_bound, batch_arrays
+from test_torch_wide_heads import _jax_loss_and_grads, _port_loss_and_grads
+from textsummarization_on_flink_tpu.data import batching as jax_batching
+from textsummarization_on_flink_tpu.data.vocab import Vocab as JaxVocab
+from textsummarization_on_flink_tpu.decode import beam_search as jax_bs
+from textsummarization_on_flink_tpu_torch.data import batching
+from textsummarization_on_flink_tpu_torch.data.vocab import Vocab
+from textsummarization_on_flink_tpu_torch.decode import beam_search
+from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+from textsummarization_on_flink_tpu_torch.params import (
+    from_numpy_tree,
+    init_numpy_params,
+)
+
+VSIZE = len(WORDS) + 4
+#: hidden_dim at one head: head dims 1152 (9 blocks) and 2048 (16)
+HIDDEN = [pytest.param(1152, id="hd1152"), pytest.param(2048, id="hd2048")]
+COMMON = dict(model_family="transformer", num_heads=1, enc_layers=1,
+              dec_layers=1, ffn_dim=256, max_enc_steps=40, batch_size=3)
+
+
+def _hps(hidden, **kw):
+    return make_hps(hidden_dim=hidden, **dict(COMMON, **kw))
+
+
+@functools.lru_cache(maxsize=None)
+def _train_case(hidden, dtype):
+    jhps, thps = _hps(hidden, mode="train", coverage=True,
+                      max_oov_buckets=8, compute_dtype=dtype)
+    p = init_numpy_params(thps, VSIZE, 3)
+    arrays = batch_arrays(thps, 0)
+    return (_jax_loss_and_grads("transformer", jhps, p, arrays),
+            _port_loss_and_grads("transformer", thps, p, arrays))
+
+
+@pytest.mark.parametrize("hidden", HIDDEN)
+def test_cluster_head_dim_loss_and_grads_match_jax(hidden):
+    (want, want_grads), (got, grads) = _train_case(hidden, "float32")
+    assert fl._padded_head_dim(hidden) == hidden
+    assert fl._is_wide(hidden)
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert len(grads) == len(want_grads)
+    for g, w in zip(grads, want_grads):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("hidden", HIDDEN)
+def test_cluster_head_dim_bf16_loss_and_grads_within_jax_gap(hidden):
+    """compute_dtype=bfloat16: the port's bf16 loss within
+    BF16_GAP_FACTOR times JAX's own bf16-to-f32 distance, its gradient
+    (all leaves in one vector) within that factor of JAX's in the L2
+    norm (tests/test_torch_wide_heads.py's rule)."""
+    (j32, jg32), _ = _train_case(hidden, "float32")
+    (j16, jg16), (t16, tg16) = _train_case(hidden, "bfloat16")
+    assert j16 != j32  # bf16 really changed the result
+    assert abs(t16 - j16) <= _gap_bound([j16], [j32])
+    assert len(tg16) == len(jg16)
+
+    def flat(leaves):
+        return np.concatenate([np.ravel(x).astype(np.float64)
+                               for x in leaves])
+
+    gap = np.linalg.norm(flat(jg16) - flat(jg32))
+    assert gap > 0
+    assert np.linalg.norm(flat(tg16) - flat(jg16)) <= BF16_GAP_FACTOR * gap
+
+
+@pytest.mark.parametrize("hidden", HIDDEN)
+def test_cluster_head_dim_beam_tokens_equal_jax(hidden):
+    jhps, thps = _hps(hidden, beam_size=3, pointer_gen=True)
+    p = init_numpy_params(thps, VSIZE, 11)
+    p["embedding"] *= 30.0  # tied: sharpens the vocab scores
+    p["out_bias"][3] = 3.0  # STOP: some beams finish early
+    jv, tv = JaxVocab(words=WORDS), Vocab(words=WORDS)
+    jex = [jax_batching.SummaryExample.build(article(i), [abstract(i)], jv,
+                                             jhps) for i in range(3)]
+    tex = [batching.SummaryExample.build(article(i), [abstract(i)], tv, thps)
+           for i in range(3)]
+    want = jax_bs.run_beam_search(
+        p, jhps, jax_batching.Batch(jex, jhps, jv).as_arrays())
+    got = beam_search.run_beam_search(
+        from_numpy_tree(p), thps, batching.Batch(tex, thps, tv).as_arrays())
+    np.testing.assert_array_equal(got.tokens, np.asarray(want.tokens))
+    np.testing.assert_array_equal(got.length, np.asarray(want.length))
+    np.testing.assert_allclose(got.avg_log_prob,
+                               np.asarray(want.avg_log_prob), rtol=1e-5,
+                               atol=1e-5)

@@ -37,10 +37,15 @@
 // (0.0078 ms at 3.35 TB/s) bound it instead; dK/dV does 8 * hd, dQ 6 *
 // hd.
 //
-// Up to head dim 1024: a thread block cluster per (block of rows, head,
-// article) splits the head dim.
+// Up to head dim 2048 (the forward and dK/dV; 1024 for the dQ): a thread
+// block cluster per (block of rows, head, article) splits the head dim.
 //
-//   * the cluster holds hd / 128 blocks (at most 8, the portable size);
+//   * the cluster holds hd / 128 blocks: at most 8 (the portable size)
+//     for the dQ, 16 (the H100's limit, `NonPortableClusterSizeAllowed`
+//     set on the kernel at first use) for the forward and dK/dV; at
+//     first use per kernel and cluster size the launch asks
+//     cudaOccupancyMaxActiveClusters whether one cluster fits, and
+//     returns an error if none does (no fallback to another form);
 //     block r owns the columns [128 r, 128 r + 128) of q, k, v (and dO)
 //     and of its output, so its registers and tiles are those of the
 //     head-dim-128 kernels of flash_attention.cu and
@@ -56,15 +61,19 @@
 //     (its running max and sum) is the same in each, and S and dP are
 //     formed once per tile for all the output's columns.  The partials
 //     alternate between two buffers, so one barrier a tile keeps a buffer
-//     from being rewritten while a peer reads it.  The bf16 dQ splits
-//     the sum in two (sum_share, gather_sums): block r sums its 1/C of
-//     the buffer over the cluster in rank order, and after a second
-//     barrier every block reads each sum from its owner; the same bits,
-//     with 2 (C - 1) / C of a buffer read from the peers where the one
-//     sum reads C - 1 buffers (on an H100 the one sum's exchange was 68%
-//     of that kernel's time at 16 x 400 x 1 x 512 and 85% at x 1024; in
-//     the f32 dQ, whose partials are 8 keys wide, the second barrier cost
-//     more than the reads it saved);
+//     from being rewritten while a peer reads it.  The bf16 dQ, the bf16
+//     forward and dK/dV past 8 blocks and the f32 forward past 12 (the
+//     f32 dK/dV spilled with it) split the sum in two (sum_share,
+//     gather_sums): block r sums its 1/C of the buffer over
+//     the cluster in rank order, and after a second barrier every block
+//     reads each sum from its owner; the same bits, with 2 (C - 1) / C
+//     of a buffer read from the peers where the one sum reads C - 1
+//     buffers (on an H100 the one sum's exchange was 68% of the bf16
+//     dQ's time at 16 x 400 x 1 x 512 and 85% at x 1024; in the f32 dQ,
+//     whose partials are 8 keys wide, the second barrier cost more than
+//     the reads it saved).  The forms up to 8 blocks are the templates'
+//     one-sum instances (kSplit false), built as before the 16-block
+//     forms were added;
 //   * f32: the geometry of the f32 kernels at hd 128 (4 warps, 64 rows or
 //     keys a block; key tiles of 16 (forward) or 8 (dQ), or query tiles
 //     of 8 rows, staged by cp.async, double-buffered, split to hi/lo
@@ -86,7 +95,7 @@
 //     block's last row (forward, dQ) or before its first key (dK/dV) are
 //     never visited.  No atomics: two runs give the same bits.
 //
-// Above head dim 1024: the simple form, SIMT FMA at the 67 TFLOP/s f32
+// Above those head dims: the simple form, SIMT FMA at the 67 TFLOP/s f32
 // rate, each block forming S (and dP) over the whole head dim for one
 // 128-wide slab of its output:
 //
@@ -141,7 +150,8 @@ constexpr int kPS = kCols + 1;  // floats per row of P / dS in shared memory
 constexpr int kChunkTile = kRows * kCS;   // floats of one staged chunk
 constexpr int kSlabTile = kRows * kSlab;  // floats of one staged slab
 constexpr int kPTile = kRows * kPS;       // floats of P or dS
-constexpr int kMaxCluster = 8;  // blocks of a portable cluster
+constexpr int kMaxCluster = 8;     // blocks of a portable cluster (the dQ)
+constexpr int kMaxClusterNP = 16;  // the H100's largest (forward, dK/dV)
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) {
@@ -199,7 +209,8 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// The cluster forms (head dims up to 128 * kMaxCluster).
+// The cluster forms (head dims up to 128 * kMaxClusterNP; the dQ's up to
+// 128 * kMaxCluster).
 
 // acc (kN groups of 4 floats of this thread's fragment, each the
 // float4 idx(i) of an exchange buffer) = the cluster's partials at `xb`
@@ -231,28 +242,33 @@ __device__ __forceinline__ void sum_partials(float (&acc)[kN][4],
 // float4 in every block, the same offset) summed in rank order over the
 // cluster (sum_partials' order: the same bits) and written over this
 // block's own partials there, which no peer reads in this half; every
-// thread of the block takes part, the loads of all ranks issued before
-// the adds
+// thread of the block takes part.  C <= kMaxC; the loads of 8 ranks are
+// issued before their adds (all of them up to 8 blocks: 32 registers for
+// the loads at any cluster size)
+template <int kMaxC>
 __device__ __forceinline__ void sum_share(cg::cluster_group& cluster,
                                           float* xb, int n, int C,
                                           int threads, int tid) {
   const int rank = (int)cluster.block_rank();
   float4* own = reinterpret_cast<float4*>(xb);
   for (int i = rank * n / C + tid; i < (rank + 1) * n / C; i += threads) {
-    float4 p[kMaxCluster];
-#pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r)
-      if (r < C)
-        p[r] = reinterpret_cast<const float4*>(
-            cluster.map_shared_rank(xb, r))[i];
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-    for (int r = 0; r < kMaxCluster; ++r) {
-      if (r < C) {
-        s.x += p[r].x;
-        s.y += p[r].y;
-        s.z += p[r].z;
-        s.w += p[r].w;
+    for (int r0 = 0; r0 < kMaxC; r0 += kMaxCluster) {
+      float4 p[kMaxCluster];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r)
+        if (r0 + r < C)
+          p[r] = reinterpret_cast<const float4*>(
+              cluster.map_shared_rank(xb, r0 + r))[i];
+#pragma unroll
+      for (int r = 0; r < kMaxCluster; ++r) {
+        if (r0 + r < C) {
+          s.x += p[r].x;
+          s.y += p[r].y;
+          s.z += p[r].z;
+          s.w += p[r].w;
+        }
       }
     }
     own[i] = s;
@@ -276,6 +292,34 @@ __device__ __forceinline__ void gather_sums(float (&acc)[kN][4],
     acc[i][2] = p.z;
     acc[i][3] = p.w;
   }
+}
+
+// The exchange of a forward or dK/dV cluster form, called where its
+// partials at `xb` (n float4 in every block) are written and the cluster
+// barrier that follows is passed.  kSplit (the bf16 forms past 8 blocks,
+// the f32 forward past 12): every thread of the block sums its share
+// (sum_share) and waits on a second barrier, then sum_or_gather reads the
+// sums (gather_sums); else share_if does nothing and sum_or_gather sums
+// all C partials (sum_partials).  The same bits either way
+template <bool kSplit>
+__device__ __forceinline__ void share_if(cg::cluster_group& cluster,
+                                         float* xb, int n, int C,
+                                         int threads, int tid) {
+  if constexpr (kSplit) {
+    sum_share<kMaxClusterNP>(cluster, xb, n, C, threads, tid);
+    cluster.sync();
+  }
+}
+
+template <bool kSplit, int kN, class Idx>
+__device__ __forceinline__ void sum_or_gather(float (&acc)[kN][4],
+                                              cg::cluster_group& cluster,
+                                              float* xb, int n, int C,
+                                              Idx idx) {
+  if constexpr (kSplit)
+    gather_sums<kN>(acc, cluster, xb, n, C, idx);
+  else
+    sum_partials<kN>(acc, cluster, xb, C, idx);
 }
 
 // an accumulator's 4 floats as the float4 of an exchange buffer
@@ -325,8 +369,9 @@ struct ClusterFwdF32 {
 // V(it + 1) is issued; the warps form K(it + 1)'s partial S, write it and
 // arrive on the cluster barrier; run tile it's softmax and P V (its S
 // summed in the previous iteration); wait on the barrier and sum tile
-// it + 1's partials.  So the barrier's latency and the copies overlap the
-// products.
+// it + 1's partials (kSplit: its share, a second barrier, the sums).  So
+// the barrier's latency and the copies overlap the products.
+template <bool kSplit>
 __global__ void __launch_bounds__(ClusterFwdF32::kThreads, 2)
 flash_fwd_cluster_f32_kernel(const float* __restrict__ q,
                              const float* __restrict__ k,
@@ -467,7 +512,9 @@ flash_fwd_cluster_f32_kernel(const float* __restrict__ q,
     float* xb = x_s + (ex & 1) * S::kX;
     if (active(0)) partial(0, xb, ok_cur);
     cluster.sync();
-    if (active(0)) sum_partials<kNT>(s_cur, cluster, xb, C, xi);
+    share_if<kSplit>(cluster, xb, S::kX / 4, C, S::kThreads, tid);
+    if (active(0))
+      sum_or_gather<kSplit>(s_cur, cluster, xb, S::kX / 4, C, xi);
     ++ex;
   }
   for (int it = 0; it < n_tiles; ++it) {
@@ -538,7 +585,9 @@ flash_fwd_cluster_f32_kernel(const float* __restrict__ q,
     }
     if (any_next) {
       cluster_wait();  // every block's partial of tile it + 1 is written
-      if (active(it + 1)) sum_partials<kNT>(s_cur, cluster, xb, C, xi);
+      share_if<kSplit>(cluster, xb, S::kX / 4, C, S::kThreads, tid);
+      if (active(it + 1))
+        sum_or_gather<kSplit>(s_cur, cluster, xb, S::kX / 4, C, xi);
       ++ex;
     }
     any_cur = any_next;
@@ -592,7 +641,10 @@ struct ClusterDkvF32 {
 };
 
 // grid (C * ceil(Tk / 64), nh, B) in clusters of (C, 1, 1), C = hd / 128;
-// ClusterDkvF32::kThreads threads, kSmem bytes of dynamic shared memory
+// ClusterDkvF32::kThreads threads, kSmem bytes of dynamic shared memory.
+// Every block sums the C partials at every cluster size: with the split
+// exchange (share_if) ptxas spilled this kernel (dK and dV hold 128
+// registers a thread)
 __global__ void __launch_bounds__(ClusterDkvF32::kThreads, 2)
 flash_bwd_dkv_cluster_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -981,7 +1033,9 @@ struct ClusterFwdBf16 {
 
 // grid (C * ceil(Tq / 128), nh, B) in clusters of (C, 1, 1), C = hd / 128;
 // kBf16Threads threads, ClusterFwdBf16::kSmem bytes of dynamic shared
-// memory; the maps' boxes are 128 rows (q) and 64 rows (k, v)
+// memory; the maps' boxes are 128 rows (q) and 64 rows (k, v); kSplit:
+// share_if's exchange
+template <bool kSplit>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_fwd_cluster_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
                               const __grid_constant__ CUtensorMap k_map,
@@ -1083,9 +1137,10 @@ flash_fwd_cluster_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
       }
       cluster.sync();  // every block's partial is written
       ++ex;
+      share_if<kSplit>(cluster, xb, S::kXFloats / 4, C, kBf16Threads, tid);
       if (active) {
         float sum[kKeys / 8][4];
-        sum_partials<kKeys / 8>(sum, cluster, xb, C, xi);
+        sum_or_gather<kSplit>(sum, cluster, xb, S::kXFloats / 4, C, xi);
         // mask and scale (log2 units), the tile's max over this thread's
         // columns
         const bool diag = causal && k0 + kKeys - 1 > rw;
@@ -1178,7 +1233,9 @@ struct ClusterDkvBf16 {
 
 // grid (C * ceil(Tk / 128), nh, B) in clusters of (C, 1, 1), C = hd / 128;
 // kBf16Threads threads, ClusterDkvBf16::kSmem bytes of dynamic shared
-// memory; the maps' boxes are 32 rows (q, dO) and 128 rows (k, v)
+// memory; the maps' boxes are 32 rows (q, dO) and 128 rows (k, v);
+// kSplit: share_if's exchange
+template <bool kSplit>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_bwd_dkv_cluster_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map,
@@ -1302,9 +1359,10 @@ flash_bwd_dkv_cluster_bf16_kernel(
     }
     cluster.sync();  // every block's partials (and the tile's rows) are in
     ++ex;
+    share_if<kSplit>(cluster, xb, D::kXFloats / 4, C, kBf16Threads, tid);
     if (active) {
       float sum[kQ / 4][4];
-      sum_partials<kQ / 4>(sum, cluster, xb, C, xi);
+      sum_or_gather<kSplit>(sum, cluster, xb, D::kXFloats / 4, C, xi);
       // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - D) * scale
       const bool diag = causal && q0 < kw + 63;
 #pragma unroll
@@ -1505,7 +1563,8 @@ flash_bwd_dq_cluster_bf16_kernel(
       ++ex;
       // this block's share summed (by every warpgroup, active or not: a
       // share spans both warpgroups' fragments)
-      sum_share(cluster, xb, D::kXFloats / 4, C, kBf16Threads, tid);
+      sum_share<kMaxCluster>(cluster, xb, D::kXFloats / 4, C, kBf16Threads,
+                             tid);
       cluster.sync();  // every share is summed
       if (active) {
         float sum[kKeys / 4][4];
@@ -1546,7 +1605,7 @@ flash_bwd_dq_cluster_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The SIMT forms (above head dim 128 * kMaxCluster).
+// The SIMT forms (above the cluster forms' head dims: 2048, the dQ's 1024).
 
 // shared memory of each kernel, in floats: the chunks share their space
 // with the slab the product reads after them
@@ -1959,6 +2018,10 @@ flash_bwd_dq_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
 // ---------------------------------------------------------------------------
 // Launches.
 
+// the three kernels, as ts_flash_wide_form and
+// ts_flash_wide_active_clusters name them
+enum Kind { kFwd = 0, kDkv = 1, kDq = 2 };
+
 // what every entry point checks: positive sizes within the grid's axes, a
 // head dim that is a multiple of the slab, causal only on whole blocks
 bool bad_shape(int B, int Tq, int Tk, int nh, int hd, int causal) {
@@ -1967,24 +2030,92 @@ bool bad_shape(int B, int Tq, int Tk, int nh, int hd, int causal) {
          (long long)nh * (hd / kSlab) > 65535 || (causal && Tq != Tk);
 }
 
-// do the cluster forms take this head dim
-bool clustered(int hd) { return hd / kSlab <= kMaxCluster; }
+// does the cluster form of `kind` take this head dim: up to 16 blocks for
+// the forward and dK/dV, 8 for the dQ
+bool clustered(Kind kind, int hd) {
+  return hd / kSlab <= (kind == kDq ? kMaxCluster : kMaxClusterNP);
+}
+
+// the smallest cluster at which the f32 forward splits its exchange over
+// the cluster (share_if); below it every block sums all C partials.  On
+// an H100 at 16x400x1xhd the split was 7-14% slower at 9 and 12 blocks,
+// within 1.2% either way at 13 and 14, and 5-9% faster at 15 and 16
+// (PERF.md)
+constexpr int kF32SplitFrom = 15;
 
 // the SIMT grid: a block per 64 rows of T and per (head, slab)
 dim3 grid_of(int B, int T, int nh, int hd) {
   return dim3((T + kRows - 1) / kRows, nh * (hd / kSlab), B);
 }
 
+// What a cluster kernel has checked on each device (bit d: device d), at
+// first use: its dynamic shared memory allowed, cluster sizes past the
+// portable 8 allowed, and per cluster size that one cluster fits
+struct ClusterCheck {
+  unsigned smem_set = 0;
+  unsigned non_portable_set = 0;
+  unsigned fits[kMaxClusterNP + 1] = {};
+};
+
+unsigned device_bit(cudaError_t* err) {
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  return dev < 32 ? 1u << dev : 0u;
+}
+
+// *n = how many clusters of C blocks of `kernel` (`threads` threads and
+// `smem` bytes of dynamic shared memory a block) can be resident at once
+// on the current device (cudaOccupancyMaxActiveClusters), once the
+// kernel's shared memory and, past 8 blocks, non-portable cluster sizes
+// are allowed (on an H100, 0 from 20 blocks on)
+template <typename Kernel>
+cudaError_t active_clusters(Kernel kernel, ClusterCheck& chk, int threads,
+                            size_t smem, int C, int* n) {
+  *n = 0;
+  if (C < 1) return cudaErrorInvalidClusterSize;
+  cudaError_t err = tf32x3::allow_smem(kernel, smem, chk.smem_set);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = device_bit(&err);
+  if (err != cudaSuccess) return err;
+  if (C > kMaxCluster && !(chk.non_portable_set & bit)) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    chk.non_portable_set |= bit;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(n, kernel, &cfg);
+}
+
 // Launch `kernel` over (C * n_blocks, nh, B) blocks of `threads` threads
 // in clusters of (C, 1, 1), C = hd / 128, with `smem` bytes of dynamic
-// shared memory
+// shared memory.  At first use per device and C: active_clusters, and an
+// error (no launch) where not one cluster fits
 template <typename... KArgs, typename... Args>
-cudaError_t launch_cluster(void (*kernel)(KArgs...), unsigned& smem_set,
+cudaError_t launch_cluster(void (*kernel)(KArgs...), ClusterCheck& chk,
                            int threads, size_t smem, int n_blocks, int B,
                            int nh, int hd, void* stream, Args... args) {
-  const cudaError_t err = tf32x3::allow_smem(kernel, smem, smem_set);
-  if (err != cudaSuccess) return err;
   const int C = hd / kSlab;
+  cudaError_t err;
+  const unsigned bit = device_bit(&err);
+  if (err != cudaSuccess) return err;
+  if (!(chk.fits[C] & bit)) {
+    int n = 0;
+    err = active_clusters(kernel, chk, threads, smem, C, &n);
+    if (err != cudaSuccess) return err;
+    if (n < 1) return cudaErrorLaunchOutOfResources;
+    chk.fits[C] |= bit;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(C * n_blocks, nh, B);
   cfg.blockDim = dim3(threads, 1, 1);
@@ -1998,6 +2129,43 @@ cudaError_t launch_cluster(void (*kernel)(KArgs...), unsigned& smem_set,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+}
+
+// Each cluster form's kernel for a cluster of C blocks and the checks its
+// launches keep: the one-sum instance up to 8 blocks, past them the split
+// one (the f32 forward from kF32SplitFrom blocks; the f32 dK/dV never)
+auto fwd_f32_kernel(int C, ClusterCheck*& chk) {
+  static ClusterCheck one, split;
+  chk = C >= kF32SplitFrom ? &split : &one;
+  return C >= kF32SplitFrom ? &flash_fwd_cluster_f32_kernel<true>
+                            : &flash_fwd_cluster_f32_kernel<false>;
+}
+auto fwd_bf16_kernel(int C, ClusterCheck*& chk) {
+  static ClusterCheck one, wide;
+  chk = C > kMaxCluster ? &wide : &one;
+  return C > kMaxCluster ? &flash_fwd_cluster_bf16_kernel<true>
+                         : &flash_fwd_cluster_bf16_kernel<false>;
+}
+auto dkv_f32_kernel(int, ClusterCheck*& chk) {
+  static ClusterCheck one;
+  chk = &one;
+  return &flash_bwd_dkv_cluster_f32_kernel;
+}
+auto dkv_bf16_kernel(int C, ClusterCheck*& chk) {
+  static ClusterCheck one, wide;
+  chk = C > kMaxCluster ? &wide : &one;
+  return C > kMaxCluster ? &flash_bwd_dkv_cluster_bf16_kernel<true>
+                         : &flash_bwd_dkv_cluster_bf16_kernel<false>;
+}
+auto dq_f32_kernel(int, ClusterCheck*& chk) {
+  static ClusterCheck one;
+  chk = &one;
+  return &flash_bwd_dq_cluster_f32_kernel;
+}
+auto dq_bf16_kernel(int, ClusterCheck*& chk) {
+  static ClusterCheck one;
+  chk = &one;
+  return &flash_bwd_dq_cluster_bf16_kernel;
 }
 
 // the tensor maps of a bf16 cluster launch: [B, T, nh, hd] tensors for
@@ -2018,13 +2186,13 @@ int launch_fwd_f32(const void* q, const void* k, const void* v,
                    int Tq, int Tk, int nh, int hd, int causal, float sm_scale,
                    void* stream) {
   using S = ClusterFwdF32;
-  static unsigned smem_set = 0;
+  ClusterCheck* chk;
+  const auto kernel = fwd_f32_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
-      flash_fwd_cluster_f32_kernel, smem_set, S::kThreads, S::kSmem,
-      (Tq + S::kRows - 1) / S::kRows, B, nh, hd, stream,
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), key_mask, static_cast<float*>(out), lse,
-      Tq, Tk, nh, hd, causal, sm_scale);
+      kernel, *chk, S::kThreads, S::kSmem, (Tq + S::kRows - 1) / S::kRows, B,
+      nh, hd, stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v), key_mask,
+      static_cast<float*>(out), lse, Tq, Tk, nh, hd, causal, sm_scale);
 }
 
 int launch_fwd_bf16(const void* q, const void* k, const void* v,
@@ -2038,12 +2206,12 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v,
   const int rows[3] = {kBf16Rows, S::kKeys, S::kKeys};
   cudaError_t err = make_maps(maps, ptrs, lens, rows, 3, B, nh, hd);
   if (err != cudaSuccess) return (int)err;
-  static unsigned smem_set = 0;
+  ClusterCheck* chk;
+  const auto kernel = fwd_bf16_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
-      flash_fwd_cluster_bf16_kernel, smem_set, kBf16Threads, S::kSmem,
-      (Tq + kBf16Rows - 1) / kBf16Rows, B, nh, hd, stream, maps[0], maps[1],
-      maps[2], key_mask, static_cast<bf16*>(out), lse, Tq, Tk, nh, hd,
-      causal, sm_scale);
+      kernel, *chk, kBf16Threads, S::kSmem, (Tq + kBf16Rows - 1) / kBf16Rows,
+      B, nh, hd, stream, maps[0], maps[1], maps[2], key_mask,
+      static_cast<bf16*>(out), lse, Tq, Tk, nh, hd, causal, sm_scale);
 }
 
 int launch_dkv_f32(const void* q, const void* k, const void* v,
@@ -2052,14 +2220,15 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
                    int Tk, int nh, int hd, int causal, float sm_scale,
                    void* stream) {
   using D = ClusterDkvF32;
-  static unsigned smem_set = 0;
+  ClusterCheck* chk;
+  const auto kernel = dkv_f32_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
-      flash_bwd_dkv_cluster_f32_kernel, smem_set, D::kThreads, D::kSmem,
-      (Tk + D::kKeys - 1) / D::kKeys, B, nh, hd, stream,
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      dsum, key_mask, static_cast<float*>(dk), static_cast<float*>(dv), Tq,
-      Tk, nh, hd, causal, sm_scale);
+      kernel, *chk, D::kThreads, D::kSmem, (Tk + D::kKeys - 1) / D::kKeys, B,
+      nh, hd, stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, dsum, key_mask,
+      static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk, nh, hd,
+      causal, sm_scale);
 }
 
 int launch_dkv_bf16(const void* q, const void* k, const void* v,
@@ -2074,12 +2243,13 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   const int rows[4] = {D::kQ, kBf16Rows, kBf16Rows, D::kQ};
   cudaError_t err = make_maps(maps, ptrs, lens, rows, 4, B, nh, hd);
   if (err != cudaSuccess) return (int)err;
-  static unsigned smem_set = 0;
+  ClusterCheck* chk;
+  const auto kernel = dkv_bf16_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
-      flash_bwd_dkv_cluster_bf16_kernel, smem_set, kBf16Threads, D::kSmem,
-      (Tk + kBf16Rows - 1) / kBf16Rows, B, nh, hd, stream, maps[0], maps[1],
-      maps[2], maps[3], lse, dsum, key_mask, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), Tq, Tk, nh, hd, causal, sm_scale);
+      kernel, *chk, kBf16Threads, D::kSmem, (Tk + kBf16Rows - 1) / kBf16Rows,
+      B, nh, hd, stream, maps[0], maps[1], maps[2], maps[3], lse, dsum,
+      key_mask, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk, nh,
+      hd, causal, sm_scale);
 }
 
 int launch_dq_f32(const void* q, const void* k, const void* v,
@@ -2087,14 +2257,14 @@ int launch_dq_f32(const void* q, const void* k, const void* v,
                   const float* key_mask, void* dq, int B, int Tq, int Tk,
                   int nh, int hd, int causal, float sm_scale, void* stream) {
   using D = ClusterDqF32;
-  static unsigned smem_set = 0;
+  ClusterCheck* chk;
+  const auto kernel = dq_f32_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
-      flash_bwd_dq_cluster_f32_kernel, smem_set, D::kThreads, D::kSmem,
-      (Tq + D::kRows - 1) / D::kRows, B, nh, hd, stream,
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-      dsum, key_mask, static_cast<float*>(dq), Tq, Tk, nh, hd, causal,
-      sm_scale);
+      kernel, *chk, D::kThreads, D::kSmem, (Tq + D::kRows - 1) / D::kRows, B,
+      nh, hd, stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, dsum, key_mask,
+      static_cast<float*>(dq), Tq, Tk, nh, hd, causal, sm_scale);
 }
 
 int launch_dq_bf16(const void* q, const void* k, const void* v,
@@ -2108,12 +2278,23 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
   const int rows[4] = {kBf16Rows, D::kKeys, D::kKeys, kBf16Rows};
   cudaError_t err = make_maps(maps, ptrs, lens, rows, 4, B, nh, hd);
   if (err != cudaSuccess) return (int)err;
-  static unsigned smem_set = 0;
+  ClusterCheck* chk;
+  const auto kernel = dq_bf16_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
-      flash_bwd_dq_cluster_bf16_kernel, smem_set, kBf16Threads, D::kSmem,
-      (Tq + kBf16Rows - 1) / kBf16Rows, B, nh, hd, stream, maps[0], maps[1],
-      maps[2], maps[3], lse, dsum, key_mask, static_cast<bf16*>(dq), Tq, Tk,
-      nh, hd, causal, sm_scale);
+      kernel, *chk, kBf16Threads, D::kSmem, (Tq + kBf16Rows - 1) / kBf16Rows,
+      B, nh, hd, stream, maps[0], maps[1], maps[2], maps[3], lse, dsum,
+      key_mask, static_cast<bf16*>(dq), Tq, Tk, nh, hd, causal, sm_scale);
+}
+
+// the clusters of C blocks of `pick`'s kernel resident at once, or a
+// negative cudaError_t
+template <typename Pick>
+int active_of(Pick pick, int threads, size_t smem, int C) {
+  ClusterCheck* chk;
+  const auto kernel = pick(C, chk);
+  int n = 0;
+  const cudaError_t err = active_clusters(kernel, *chk, threads, smem, C, &n);
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 // `simt`: the SIMT form at any head dim (the parent design, for timing
@@ -2124,7 +2305,7 @@ int launch_fwd(const void* q, const void* k, const void* v,
                int Tk, int nh, int hd, int causal, float sm_scale,
                void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(hd) && !simt)
+  if (clustered(kFwd, hd) && !simt)
     return (sizeof(E) == 2 ? launch_fwd_bf16 : launch_fwd_f32)(
         q, k, v, key_mask, out, lse, B, Tq, Tk, nh, hd, causal, sm_scale,
         stream);
@@ -2147,7 +2328,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                void* dk, void* dv, int B, int Tq, int Tk, int nh, int hd,
                int causal, float sm_scale, void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(hd) && !simt)
+  if (clustered(kDkv, hd) && !simt)
     return (sizeof(E) == 2 ? launch_dkv_bf16 : launch_dkv_f32)(
         q, k, v, dout, lse, dsum, key_mask, dk, dv, B, Tq, Tk, nh, hd,
         causal, sm_scale, stream);
@@ -2171,7 +2352,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               void* dq, int B, int Tq, int Tk, int nh, int hd, int causal,
               float sm_scale, void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(hd) && !simt)
+  if (clustered(kDq, hd) && !simt)
     return (sizeof(E) == 2 ? launch_dq_bf16 : launch_dq_f32)(
         q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk, nh, hd, causal,
         sm_scale, stream);
@@ -2260,9 +2441,9 @@ extern "C" int ts_flash_wide_bwd_dq_bf16(const void* q, const void* k,
 
 // The SIMT forward, dK/dV and dQ at every wide head dim, with the
 // signatures of ts_flash_wide(_bf16), ts_flash_wide_bwd_dkv(_bf16) and
-// ts_flash_wide_bwd_dq(_bf16): the design the cluster forms replaced up
-// to head dim 1024, timed beside them (chip_smoke.py phase_flash_wide);
-// no path of the port calls them
+// ts_flash_wide_bwd_dq(_bf16): the design the cluster forms replaced (up
+// to head dim 2048, the dQ's to 1024), timed beside them (chip_smoke.py
+// phase_flash_wide); no path of the port calls them
 extern "C" int ts_flash_wide_simt(const void* q, const void* k,
                                   const void* v, const float* key_mask,
                                   void* out, float* lse, int B, int Tq,
@@ -2315,6 +2496,43 @@ extern "C" int ts_flash_wide_bwd_dq_simt_bf16(
     void* stream) {
   return launch_dq<bf16>(q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk,
                          nh, hd, causal, sm_scale, stream, true);
+}
+
+// The form the entry point of `kind` (0 the forward, 1 dK/dV, 2 dQ) takes
+// at head dim hd without simt: 1 the cluster form, 0 the SIMT form; -1
+// where no wide kernel takes hd
+extern "C" int ts_flash_wide_form(int kind, int hd) {
+  if (kind < kFwd || kind > kDq || hd <= 0 || hd % kSlab != 0) return -1;
+  return clustered(static_cast<Kind>(kind), hd) ? 1 : 0;
+}
+
+// How many clusters of C blocks of the cluster form of `kind` (as
+// ts_flash_wide_form; its _bf16 entry where bf16 is nonzero) can be
+// resident at once on the current device: cudaOccupancyMaxActiveClusters
+// at the form's threads and shared memory, the check its launches make at
+// first use (a launch where this is below 1 returns an error); a negative
+// cudaError_t where the query fails.  C need not be one a launch takes
+extern "C" int ts_flash_wide_active_clusters(int kind, int bf16, int C) {
+  if (kind < kFwd || kind > kDq) return -(int)cudaErrorInvalidValue;
+  switch (kind * 2 + (bf16 != 0)) {
+    case 0:
+      return active_of(fwd_f32_kernel, ClusterFwdF32::kThreads,
+                       ClusterFwdF32::kSmem, C);
+    case 1:
+      return active_of(fwd_bf16_kernel, kBf16Threads, ClusterFwdBf16::kSmem,
+                       C);
+    case 2:
+      return active_of(dkv_f32_kernel, ClusterDkvF32::kThreads,
+                       ClusterDkvF32::kSmem, C);
+    case 3:
+      return active_of(dkv_bf16_kernel, kBf16Threads, ClusterDkvBf16::kSmem,
+                       C);
+    case 4:
+      return active_of(dq_f32_kernel, ClusterDqF32::kThreads,
+                       ClusterDqF32::kSmem, C);
+    default:
+      return active_of(dq_bf16_kernel, kBf16Threads, ClusterDqBf16::kSmem, C);
+  }
 }
 
 extern "C" const char* ts_flash_wide_error_string(int err) {

@@ -7,8 +7,9 @@ def launch_counts() -> dict:
     bf16 encoder stream, of the slab form at widths the dense form does
     not fit, and of the sp-block form), the flash forward, dK/dV and dQ
     (and of those, the launches of their bf16 forms, of the wide
-    kernels that run head dims above 256, and on a block of query rows
-    shorter than the keys)."""
+    kernels that run head dims above 256 and of the wide kernels'
+    cluster forms, and on a block of query rows shorter than the
+    keys)."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
     from textsummarization_on_flink_tpu_torch.ops import fused_attention as fa
 
@@ -26,6 +27,9 @@ def launch_counts() -> dict:
                 flash_forward_wide=fl.launches_wide,
                 flash_bwd_dkv_wide=fl.launches_bwd_dkv_wide,
                 flash_bwd_dq_wide=fl.launches_bwd_dq_wide,
+                flash_forward_wide_cluster=fl.launches_wide_cluster,
+                flash_bwd_dkv_wide_cluster=fl.launches_bwd_dkv_wide_cluster,
+                flash_bwd_dq_wide_cluster=fl.launches_bwd_dq_wide_cluster,
                 flash_forward_block=fl.launches_block,
                 flash_bwd_dkv_block=fl.launches_bwd_dkv_block,
                 flash_bwd_dq_block=fl.launches_bwd_dq_block)

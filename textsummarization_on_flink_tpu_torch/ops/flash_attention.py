@@ -60,13 +60,14 @@ Head dims: the kernels of flash_attention.cu and flash_attention_bwd.cu
 are built for 32, 128 and 256 (at 256 each kernel splits its output's
 columns over two blocks; see the sources); those of
 flash_attention_wide.cu take any multiple of 128 and run every head dim
-above 256: up to 1024 the forward, dK/dV and dQ are a thread block
-cluster of hd / 128 blocks on the tensor cores, each block a 128-column
-slab, their partial S (and dP) summed over the cluster once per tile;
-above 1024 SIMT kernels that keep one 128-column slab of the output a
-block and form S over the whole head dim in 32-column chunks
-(``simt=True`` takes those for the forward, dK/dV and dQ at any wide
-head dim, to time the cluster forms against them). On the
+above 256: up to 2048 the forward and dK/dV, up to 1024 the dQ
+(the library's rule, ``ts_flash_wide_form``), are a thread block cluster of
+hd / 128 blocks on the tensor cores, each block a 128-column slab,
+their partial S (and dP) summed over the cluster once per tile; above
+those SIMT kernels that keep one 128-column slab of the output a block
+and form S over the whole head dim in 32-column chunks (``simt=True``
+takes those for the forward, dK/dV and dQ at any wide head dim, to time
+the cluster forms against them). On the
 card any other head dim is zero-padded to the next of 32, 128, 256 or,
 above 256, to the next multiple of 128 on the way in (q, k, v, and for
 the backward out and dO) and the outputs and gradients are sliced back:
@@ -84,7 +85,11 @@ wrapper raises.  There is no fallback from one to the other.
 launches of every form, ``launches_bf16``, ``launches_bwd_dkv_bf16`` and
 ``launches_bwd_dq_bf16`` those of the bf16 forms, ``launches_wide``,
 ``launches_bwd_dkv_wide`` and ``launches_bwd_dq_wide`` those of the wide
-kernels (either dtype), ``launches_block``, ``launches_bwd_dkv_block``
+kernels (either dtype), ``launches_wide_cluster``,
+``launches_bwd_dkv_wide_cluster`` and ``launches_bwd_dq_wide_cluster``
+those of the wide kernels' cluster forms (the form each launch took, as
+the library reports it: ``_cluster_form``), ``launches_block``,
+``launches_bwd_dkv_block``
 and ``launches_bwd_dq_block`` those on a block of query rows shorter
 than the keys (Tq != Tk).  ``flash_attention`` takes the Function only
 when a gradient is needed; under ``torch.no_grad`` (serving) it
@@ -121,9 +126,15 @@ launches_bwd_dq_bf16 = 0
 launches_wide = 0
 launches_bwd_dkv_wide = 0
 launches_bwd_dq_wide = 0
+launches_wide_cluster = 0
+launches_bwd_dkv_wide_cluster = 0
+launches_bwd_dq_wide_cluster = 0
 launches_block = 0
 launches_bwd_dkv_block = 0
 launches_bwd_dq_block = 0
+
+#: the wide kernels' kinds as the C entries number them
+WIDE_KINDS = ("fwd", "dkv", "dq")
 
 #: the dtypes the kernels take (all of q, k, v, out and dO in one of them)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -258,6 +269,16 @@ def _is_wide(width: int) -> bool:
     return width > HEAD_DIMS[-1]
 
 
+def _cluster_form(kind: str, width: int, simt: bool = False) -> bool:
+    """Does the wide kernel ``kind`` ("fwd", "dkv" or "dq") launch its
+    cluster form at a padded head dim ``width`` above 256: never with
+    ``simt``, else as the library's own dispatch decides
+    (``ts_flash_wide_form``: the forward and dK/dV up to 2048, the dQ up
+    to 1024)."""
+    return not simt and _load_wide_library().ts_flash_wide_form(
+        WIDE_KINDS.index(kind), width) == 1
+
+
 def _pad_head_dim(width: int, *xs: torch.Tensor):
     """Each [..., hd] tensor with zero columns up to ``width``."""
     return tuple(x if x.shape[-1] == width else
@@ -322,6 +343,10 @@ def _load_wide_library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 8 + tail
         lib.ts_flash_wide_error_string.restype = ctypes.c_char_p
         lib.ts_flash_wide_error_string.argtypes = [ctypes.c_int]
+        lib.ts_flash_wide_form.restype = ctypes.c_int
+        lib.ts_flash_wide_form.argtypes = [ctypes.c_int] * 2
+        lib.ts_flash_wide_active_clusters.restype = ctypes.c_int
+        lib.ts_flash_wide_active_clusters.argtypes = [ctypes.c_int] * 3
         _wide_lib = lib
     return _wide_lib
 
@@ -332,8 +357,8 @@ def _entry(kind: str, bf16: bool, wide: bool, simt: bool = False):
     library's above head dim 256, else flash_attention's (the forward)
     or flash_attention_bwd's; the _bf16 entry for bf16 operands.
     ``simt`` (the wide kernels only) takes the SIMT design the cluster
-    forms replaced up to head dim 1024, for timing them against it; no
-    path of the port sets it."""
+    forms replaced (``_cluster_form``), for timing them against it; no path
+    of the port sets it."""
     if simt and not wide:
         raise ValueError("only the wide kernels have a SIMT form")
     if wide:
@@ -392,6 +417,7 @@ def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False,
     same contract as _flash_plain.  With ``with_lse`` returns (out, lse
     [B, Tq, nh] float32)."""
     global launches, launches_bf16, launches_wide, launches_block
+    global launches_wide_cluster
     _check_inputs("flash attention", (("q", q),), (("k", k), ("v", v)),
                   key_mask, causal)
     dev = q.device
@@ -418,6 +444,7 @@ def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False,
     launches += 1
     launches_bf16 += bf16
     launches_wide += wide
+    launches_wide_cluster += wide and _cluster_form("fwd", width, simt)
     launches_block += Tq != Tk
     if width != hd:
         out = out[..., :hd].contiguous()
@@ -430,7 +457,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale,
     kernel's above head dim 256, its SIMT form with ``simt``): (dk, dv),
     [B, Tk, nh, hd].  dsum = rowsum(dO * O) [B, Tq, nh] float32."""
     global launches_bwd_dkv, launches_bwd_dkv_bf16, launches_bwd_dkv_wide
-    global launches_bwd_dkv_block
+    global launches_bwd_dkv_block, launches_bwd_dkv_wide_cluster
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     bf16 = q.dtype == torch.bfloat16
     B, Tq, nh, hd = q.shape
@@ -449,6 +476,7 @@ def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale,
     launches_bwd_dkv += 1
     launches_bwd_dkv_bf16 += bf16
     launches_bwd_dkv_wide += wide
+    launches_bwd_dkv_wide_cluster += wide and _cluster_form("dkv", hd, simt)
     launches_bwd_dkv_block += Tq != k.shape[1]
     return dk, dv
 
@@ -459,7 +487,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale,
     kernel's above head dim 256, its SIMT form with ``simt``): dq, [B, Tq,
     nh, hd]."""
     global launches_bwd_dq, launches_bwd_dq_bf16, launches_bwd_dq_wide
-    global launches_bwd_dq_block
+    global launches_bwd_dq_block, launches_bwd_dq_wide_cluster
     dq = torch.empty_like(q)
     bf16 = q.dtype == torch.bfloat16
     B, Tq, nh, hd = q.shape
@@ -478,6 +506,7 @@ def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale,
     launches_bwd_dq += 1
     launches_bwd_dq_bf16 += bf16
     launches_bwd_dq_wide += wide
+    launches_bwd_dq_wide_cluster += wide and _cluster_form("dq", hd, simt)
     launches_bwd_dq_block += Tq != k.shape[1]
     return dq
 
