@@ -56,7 +56,7 @@ device or without the port's sources beside it.  Phases, each fatal:
         (HMMA.16816), no spill, no wgmma serialized by ptxas;
      f. the wide flash kernels (head dims above 256, f32 and bf16:
         forward, dK/dV, dQ; the cluster forms on the tensor cores up to
-        head dim 2048, the dQ's up to 1024) against their plain versions
+        head dim 2048) against their plain versions
         at 16 x 400 x 1 x 384, 512, 1024, 1152, 1536 and 2048 (key mask)
         and 16 x 100 x 1 x 512, 1152, 1536 and 2048 (causal), a rerun
         the same bits, each launch's form counted, timed beside the SIMT
@@ -154,8 +154,8 @@ device or without the port's sources beside it.  Phases, each fatal:
      one with --device=cpu, in f32 and in bf16, 12 + 12 + 12 wide
      launches per step, 6 per decode batch), head dim 320 (a small
      beam search and a train step against the CPU) and head dim 1152 at
-     full width (the forward's and dK/dV's 9-block clusters and the
-     SIMT dQ: a decode, 3 train steps in each dtype, the loss against
+     full width (the forward's, dK/dV's and dQ's 9-block clusters: a
+     decode, 3 train steps in each dtype, the loss against
      the CPU at 2 + 2 layers); the --device=cpu reference steps
      (wide_cpu_steps) run in a child process (CpuSteps) beside the
      kernel builds and phase 3, and are done before phase 4 starts
@@ -823,9 +823,9 @@ def fused_digests(fa):
 #: digests on the parent's checkout, NVIDIA H100 80GB HBM3): the f32 and
 #: bf16 kernels at head dims 32, 128 and 256, masked and causal; the wide
 #: dQ's SIMT form (``simt=True``, the design of its digests) at 512; the
-#: SIMT wide forward, dK/dV and dQ at 1152 (``simt=True`` for the forward
-#: and dK/dV, whose default there is now a 9-block cluster).  The wide
-#: forward, dK/dV and dQ at 384-1024 are new designs (the cluster forms),
+#: SIMT wide forward, dK/dV and dQ at 1152 (``simt=True``: the default of
+#: all three there is now a 9-block cluster).  The wide forward, dK/dV
+#: and dQ at 384-2048 are new designs (the cluster forms),
 #: held to their plain versions by phase_flash_wide and
 #: phase_flash_query_block instead
 FLASH_ALL = ("fwd", "fwd_lse", "dkv", "dq")
@@ -902,13 +902,14 @@ FLASH_PARENT_DIGESTS = {
 }
 
 
-#: the forward's and dK/dV's clusters past 8 blocks (12 blocks with a key
-#: mask, 16 causal), through their default launch: no parent took these
-#: forms, so their digests (FLASH_C16_DIGESTS) are the bits they gave on
-#: an H100 (NVIDIA H100 80GB HBM3) when they were added, printed by
-#: scripts/torch_flash_bench.py --which digests ("c16"), held from then
-#: on; the f32 forward's split and one-sum exchanges gave the same bits
-FLASH_C16_KERNELS = ("fwd", "fwd_lse", "dkv")
+#: the clusters past 8 blocks (12 blocks with a key mask, 16 causal),
+#: through their default launch: no parent took these forms, so their
+#: digests (FLASH_C16_DIGESTS) are the bits they gave on an H100 (NVIDIA
+#: H100 80GB HBM3) when they were added (the forward's and dK/dV's, then
+#: the dQ's), printed by scripts/torch_flash_bench.py --which digests
+#: ("c16"), held from then on; the f32 forward's split and one-sum
+#: exchanges gave the same bits
+FLASH_C16_KERNELS = ("fwd", "fwd_lse", "dkv", "dq")
 FLASH_C16_DIGEST_CASES = (
     [(2, 100, 1, 1536, False, dt, FLASH_C16_KERNELS)
      for dt in ("float32", "bfloat16")]
@@ -927,6 +928,10 @@ FLASH_C16_DIGESTS = {
     "fwd 2x130x1x2048 causal bfloat16": "2ab073f1e95ce968",
     "fwd_lse 2x130x1x2048 causal bfloat16": "1f3e10c768c61855",
     "dkv 2x130x1x2048 causal bfloat16": "e2f831a83fc342da",
+    "dq 2x100x1x1536 mask float32": "36749b92679d1b57",
+    "dq 2x100x1x1536 mask bfloat16": "0f10a0bf4c1d87a8",
+    "dq 2x130x1x2048 causal float32": "b436eb30e1088877",
+    "dq 2x130x1x2048 causal bfloat16": "b624c02514c1c01b",
 }
 
 
@@ -1651,14 +1656,13 @@ def phase_flash_bf16(seed):
 #: flash_attention_wide.cu): the encoder of the transformer at
 #: --hidden_dim=hd --num_heads=1 (16 x 400, key mask, article 1 empty) at
 #: head dims 384, 512 and 1024, and the training decoder's causal
-#: self-attention at head dim 512 (16 x 100); then the forward's and
-#: dK/dV's clusters of 9, 12 and 16 blocks, the encoder's and the
-#: decoder's shapes at head dims 1152, 1536 and 2048: (B, T, nh, hd,
-#: causal)
+#: self-attention at head dim 512 (16 x 100); then the clusters of 9, 12
+#: and 16 blocks, the encoder's and the decoder's shapes at head dims
+#: 1152, 1536 and 2048: (B, T, nh, hd, causal)
 #: the largest head dim at which each wide kernel takes its cluster form
 #: (a cluster of hd / 128 blocks), as this script expects the library's
-#: dispatch to choose: 16 blocks for the forward and dK/dV, 8 for the dQ
-CLUSTER_UP_TO = dict(fwd=2048, dkv=2048, dq=1024)
+#: dispatch to choose: 16 blocks for every kind
+CLUSTER_UP_TO = dict(fwd=2048, dkv=2048, dq=2048)
 WIDE_FLASH_CASES = [(16, 400, 1, 384, False), (16, 400, 1, 512, False),
                     (16, 400, 1, 1024, False), (16, 100, 1, 512, True),
                     (16, 400, 1, 1152, False), (16, 400, 1, 1536, False),
@@ -1683,8 +1687,8 @@ def sdpa_backend(q, k, v, mask, causal, scale):
 
 def phase_flash_wide(seed):
     """The wide kernels (head dims above 256; kernels/
-    flash_attention_wide.cu: the forward and dK/dV up to head dim 2048,
-    the dQ up to 1024, a cluster of hd / 128 blocks on the tensor cores,
+    flash_attention_wide.cu: the forward, dK/dV and dQ up to head dim
+    2048, a cluster of hd / 128 blocks on the tensor cores,
     3xTF32 mma.sync in f32 and wgmma in bf16) against their plain
     versions at WIDE_FLASH_CASES, in f32 and bf16: out (the serving
     form), lse (the training form), dq, dk and dv; f32 within ATTN_TOL *
@@ -1694,11 +1698,11 @@ def phase_flash_wide(seed):
     with +inf on the same rows; the empty article's outputs zeros; a
     rerun the same bits.  The SIMT forward, dK/dV and dQ the cluster
     forms replaced (the first design, still built for head dims above
-    2048, the dQ's above 1024: ``simt=True``) are held to the same plain
-    versions and timed in this call beside them: the cluster forms at
-    least WIDE_MIN_GAIN times faster at 16 x 400 x 1 x 512 in both
-    dtypes, the forward's and dK/dV's 9-block clusters at least
-    WIDE16_MIN_GAIN times at 16 x 400 x 1 x 1152.  Times: the forward
+    2048: ``simt=True``) are held to the same plain versions and timed
+    in this call beside them: the cluster forms at least WIDE_MIN_GAIN
+    times faster at 16 x 400 x 1 x 512 in both dtypes, the forward's,
+    dK/dV's and dQ's 9-block clusters at least WIDE16_MIN_GAIN times at
+    16 x 400 x 1 x 1152.  Times: the forward
     (serving form), the dK/dV and dQ kernels, the SIMT forward, dK/dV and
     dQ,
     the plain forward and whole backward, and
@@ -1807,8 +1811,8 @@ def phase_flash_wide(seed):
             after = launch_counts()
             # the form each timed launch took (the cluster counters count
             # the launches the library's dispatch sent to a cluster form)
-            # against the forms this script expects: the forward and dK/dV
-            # clusters up to hd 2048, the dQ's up to 1024
+            # against the forms this script expects: clusters up to hd
+            # 2048
             forms = {kind: ("cluster" if after[f"{c}_wide_cluster"]
                             > before[f"{c}_wide_cluster"] else "simt")
                      for kind, c in (("fwd", "flash_forward"),
@@ -1871,13 +1875,13 @@ def phase_flash_wide(seed):
                       f"faster than the SIMT ones at {row}")
             if (B, T, nh, hd) == (16, 400, 1, 1152):
                 check(row["gain"] >= WIDE16_MIN_GAIN
-                      and row["dkv_gain"] >= WIDE16_MIN_GAIN,
-                      f"the 9-block cluster forward or dK/dV less than "
-                      f"{WIDE16_MIN_GAIN} times faster than the SIMT one at "
-                      f"{row}")
+                      and row["dkv_gain"] >= WIDE16_MIN_GAIN
+                      and row["dq_gain"] >= WIDE16_MIN_GAIN,
+                      f"a 9-block cluster form less than {WIDE16_MIN_GAIN} "
+                      f"times faster than the SIMT one at {row}")
             for kernel, names in (("forward", ("out", "serve_out")),
                                   ("dkv", ("dk", "dv")), ("dq", ("dq",))):
-                # past hd 1024: the 16-block forms' (and the SIMT dQ's)
+                # past hd 1024: the 16-block forms'
                 key = (tag, kernel) + (("past1024",) if hd > 1024 else ())
                 worst[key] = max(worst.get(key, 0.0),
                                  *(errs[n] for n in names))
@@ -1893,8 +1897,8 @@ def _row_hd(row):
 #: the cluster forms' least gain over the SIMT forms they replaced at 16 x
 #: 400 x 1 x 512, forward, dK/dV and dQ, both dtypes
 WIDE_MIN_GAIN = 3.0
-#: the forward's and dK/dV's least gain past 8 blocks, at 16 x 400 x 1 x
-#: 1152 and its query block (16 x 200/400), both dtypes
+#: the cluster forms' least gain past 8 blocks, at 16 x 400 x 1 x 1152
+#: and its query block (16 x 200/400): forward, dK/dV and dQ, both dtypes
 WIDE16_MIN_GAIN = 4.0
 
 #: the wide kernels' functions in the SASS and ptxas log: {key: function};
@@ -1912,24 +1916,28 @@ WIDE_FLASH_KERNELS = dict(
 
 
 #: the wide kernels' instantiations wide_flash_sass names: the cluster
-#: forms (the forward's one-sum instances, up to 8 blocks and the f32
-#: one to 12, and their split instances past them, "_split"; the f32
-#: dK/dV's one kernel, the dQ's one each) and the SIMT forms' f32 and
-#: bf16 instances
+#: forms (the one-sum instances, up to 8 blocks, the f32 forward's to 14
+#: and the f32 dQ's to 9, and their split instances past them, "_split";
+#: the f32 dK/dV's one kernel; the bf16 dQ, split at every size, its
+#: instance up to 8 blocks and past them, "_c16") and the SIMT forms' f32
+#: and bf16 instances
 WIDE_FLASH_INSTANCES = {
     "fwd_f32", "fwd_bf16", "dkv_f32", "dkv_bf16", "dq_f32", "dq_bf16",
-    "fwd_f32_split", "fwd_bf16_split", "dkv_bf16_split",
+    "fwd_f32_split", "fwd_bf16_split", "dkv_bf16_split", "dq_f32_split",
+    "dq_bf16_c16",
     "fwd_simt_f32", "fwd_simt_bf16", "dkv_simt_f32", "dkv_simt_bf16",
     "dq_simt_f32", "dq_simt_bf16"}
 #: the instances the forms past 8 blocks run, per (kernel, dtype): the f32
-#: forward one-sum to 12 blocks and split past them, the f32 dK/dV one-sum
-#: (its split instance spilled), the bf16 forms split; the SIMT dQ
+#: forward one-sum to 14 blocks and split past them, the f32 dK/dV one-sum
+#: (its split instance spilled), the f32 dQ one-sum at 9 blocks and split
+#: past them, the bf16 forms split
 WIDE16_INSTANCES = {
     ("forward", "f32"): ("fwd_f32", "fwd_f32_split"),
     ("dkv", "f32"): ("dkv_f32",),
+    ("dq", "f32"): ("dq_f32", "dq_f32_split"),
     ("forward", "bf16"): ("fwd_bf16_split",),
     ("dkv", "bf16"): ("dkv_bf16_split",),
-    ("dq", "f32"): ("dq_simt_f32",), ("dq", "bf16"): ("dq_simt_bf16",)}
+    ("dq", "bf16"): ("dq_bf16_c16",)}
 
 
 def wide_flash_sass():
@@ -1955,8 +1963,10 @@ def wide_flash_sass():
             if kernel not in func:
                 continue
             cluster = "cluster" in kernel
-            # the split instance of a templated cluster form (kSplit true)
-            name = (key + ("_split" if "ILb1E" in func else "")
+            # a templated cluster form's instance past 8 blocks: the split
+            # exchange (kSplit true) or the bf16 dQ's (kMaxC 16)
+            name = (key + ("_split" if "ILb1E" in func else
+                           "_c16" if "ILi16E" in func else "")
                     if cluster else
                     key + ("_bf16" if "bfloat16" in func else "_f32"))
             spill = info.get("spill_stores", -1) + info.get("spill_loads", -1)
@@ -1986,8 +1996,7 @@ def wide_flash_sass():
 #: 2, half the rows): the transformer's reference encoder (16 x 400, 8
 #: heads of 32), the long-context shape (4 x 2048 x 8 x 128), head dim
 #: 256, the wide cluster forms at head dim 512 and at 1152 the 9-block
-#: cluster forward and dK/dV (timed beside their SIMT forms) and the
-#: SIMT dQ: (B, Tq, Tk, nh, hd)
+#: clusters (timed beside their SIMT forms): (B, Tq, Tk, nh, hd)
 QUERY_BLOCK_CASES = [(16, 200, 400, 8, 32), (4, 1024, 2048, 8, 128),
                      (16, 200, 400, 2, 256), (16, 200, 400, 1, 512),
                      (16, 200, 400, 1, 1152)]
@@ -2005,8 +2014,8 @@ def phase_flash_query_block(seed):
     block counters; times beside scaled_dot_product_attention's forward
     and backward on the same block and bounds from this run's mask
     (flash_bound_ms, flash_bwd_bounds with Tk); past head dim 1024 the
-    forward's and dK/dV's SIMT forms timed too, the cluster forms at
-    least WIDE16_MIN_GAIN times faster.  Returns ({(dtype, shape): row},
+    SIMT forward, dK/dV and dQ timed too, the cluster forms at least
+    WIDE16_MIN_GAIN times faster.  Returns ({(dtype, shape): row},
     {(dtype, kernel): largest error})."""
     import torch
     import torch.nn.functional as F
@@ -2078,9 +2087,13 @@ def phase_flash_query_block(seed):
                         q, k, v, mask, False, scale, simt=True), 5, flush),
                     simt_dkv_ms=time_cuda(lambda: fl._bwd_dkv_cuda(
                         q, k, v, do, lse, dsum, mask, False, scale,
+                        simt=True), 5, flush),
+                    dq_simt_ms=time_cuda(lambda: fl._bwd_dq_cuda(
+                        q, k, v, do, lse, dsum, mask, False, scale,
                         simt=True), 5, flush))
                 simt.update(gain=simt["simt_ms"] / ms,
-                            dkv_gain=simt["simt_dkv_ms"] / dkv_ms)
+                            dkv_gain=simt["simt_dkv_ms"] / dkv_ms,
+                            dq_gain=simt["dq_simt_ms"] / dq_ms)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
             bool_mask = (mask > 0)[:, None, None, :]
             with torch.no_grad():
@@ -2106,11 +2119,11 @@ def phase_flash_query_block(seed):
                        dq_bound_ms=bounds["dq"][0],
                        dq_bound_by=bounds["dq"][1], **simt)
             print("flash_query_block " + json.dumps(row))
-            check(not simt or (simt["gain"] >= WIDE16_MIN_GAIN
-                               and simt["dkv_gain"] >= WIDE16_MIN_GAIN),
-                  f"query block: the 16-block cluster forward or dK/dV "
-                  f"less than {WIDE16_MIN_GAIN} times faster than the SIMT "
-                  f"one at {row}")
+            check(not simt or min(simt["gain"], simt["dkv_gain"],
+                                  simt["dq_gain"]) >= WIDE16_MIN_GAIN,
+                  f"query block: a 16-block cluster form less than "
+                  f"{WIDE16_MIN_GAIN} times faster than the SIMT one at "
+                  f"{row}")
             check(empty_zero, f"query block: the empty article's outputs not "
                               f"zero at {row}")
             check(bool((torch.isinf(lse) == ~finite_lse).all()),
@@ -2134,8 +2147,8 @@ def phase_flash_digests():
     keys) gives the parent's output bits: flash_digests at
     FLASH_DIGEST_CASES equal to FLASH_PARENT_DIGESTS (the f32 and bf16
     kernels, the wide SIMT forms at head dims 512 and 1152); and the
-    forward's and dK/dV's clusters past 8 blocks give the bits recorded
-    when they were added (FLASH_C16_DIGESTS at FLASH_C16_DIGEST_CASES).
+    clusters past 8 blocks give the bits recorded when they were added
+    (FLASH_C16_DIGESTS at FLASH_C16_DIGEST_CASES).
     Returns the number of parent digests compared."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
@@ -3538,9 +3551,9 @@ HD320_WIDTHS = dict(hidden_dim=640, num_heads=2, enc_layers=2, dec_layers=2,
                     ffn_dim=2560)
 #: the bf16 flags of the head-dim-512 runs (phase_transformer_bf16's)
 HD512_BF16_FLAGS = dict(compute_dtype="bfloat16", loss_chunk=10)
-#: head dim 1152 at the transformer's full depth: the forward's and
-#: dK/dV's 9-block clusters, the dQ's SIMT form; --hidden_dim=1152
-#: --num_heads=1, FFN 4 x 1152
+#: head dim 1152 at the transformer's full depth: the forward's, dK/dV's
+#: and dQ's 9-block clusters; --hidden_dim=1152 --num_heads=1, FFN 4 x
+#: 1152
 HD1152_WIDTHS = dict(hidden_dim=1152, num_heads=1, ffn_dim=4608)
 #: the depth of the head-dim-1152 card-against-CPU loss check: a CPU step
 #: at full depth and this width does not fit the script's time (the
@@ -3746,9 +3759,9 @@ def phase_wide_heads(seed, device="cuda", cpu_steps=None):
       * head dim 1152 at full width (HD1152_WIDTHS, 6 + 6 layers): a
         decode of 16 articles through cli.main (6 wide forward launches
         per batch, every one the 9-block cluster form), 3 train steps on
-        the card in f32 and 3 under HD512_BF16_FLAGS (12 forward and 12
-        dK/dV launches per step of the cluster forms, 12 dQ of the SIMT
-        form), and the card-against-CPU loss check in both dtypes at
+        the card in f32 and 3 under HD512_BF16_FLAGS (12 forward, 12
+        dK/dV and 12 dQ launches per step, all of the cluster forms), and
+        the card-against-CPU loss check in both dtypes at
         HD1152_CUT's depth, with head dim 512's bounds.
 
     The --device=cpu reference steps are ``cpu_steps``' (CpuSteps; run
@@ -6708,18 +6721,18 @@ def main(argv=None) -> int:
                         "the partial S (and dP) summed over the cluster "
                         "through distributed shared memory once per tile"))
             kernels.append(entry)
-    # past head dim 1024: the forward's and dK/dV's clusters of 9 to 16
-    # blocks (their split-exchange instances) and the SIMT dQ, on the
-    # head-dim-1152 main paths (phase_wide_heads: the decode, the 3-step
-    # runs and the cut-depth card steps)
+    # past head dim 1024: the clusters of 9 to 16 blocks (their
+    # split-exchange instances), on the head-dim-1152 main paths
+    # (phase_wide_heads: the decode, the 3-step runs and the cut-depth
+    # card steps)
     hd1152_runs = dict(
         f32=[wide["hd1152_steps_f32_card"], wide["hd1152_train_f32_card"]],
         bf16=[wide["hd1152_steps_bf16_card"],
               wide["hd1152_train_bf16_card"]])
-    for key, counter, library, form in (
-            ("forward", "flash_forward", "_flash_attention_kernel", "c16"),
-            ("dkv", "flash_bwd_dkv", "_flash_attention_bwd_dkv", "c16"),
-            ("dq", "flash_bwd_dq", "_flash_attention_bwd_dq", "simt")):
+    for key, counter, library in (
+            ("forward", "flash_forward", "_flash_attention_kernel"),
+            ("dkv", "flash_bwd_dkv", "_flash_attention_bwd_dkv"),
+            ("dq", "flash_bwd_dq", "_flash_attention_bwd_dq")):
         for tag in ("f32", "bf16"):
             head = fw_rows[(tag, "16x400x1x1152")]
             ms, bound, by, plain, lib = (
@@ -6727,12 +6740,8 @@ def main(argv=None) -> int:
                 if key == "forward" else
                 (f"{key}_ms", f"{key}_bound_ms", f"{key}_bound_by",
                  "bwd_plain_ms", "bwd_library_ms"))
-            # the form's launches: the cluster counter (every launch at
-            # hd 1152 of the forward and dK/dV), or the wide count less it
+            # the cluster counter: every wide launch at hd 1152
             launched = sum(r["launches"][counter + "_wide_cluster"]
-                           if form == "c16" else
-                           r["launches"][counter + "_wide"]
-                           - r["launches"][counter + "_wide_cluster"]
                            for r in hd1152_runs[tag])
             if key == "forward" and tag == "f32":
                 launched += wide["hd1152_decode"]["wide_cluster_launches"]
@@ -6740,7 +6749,7 @@ def main(argv=None) -> int:
             simt = {"forward": "simt_ms", "dkv": "simt_dkv_ms",
                     "dq": "dq_simt_ms"}[key]
             entry = dict(
-                name=f"flash_attention_wide_{form}" + suffix
+                name="flash_attention_wide_c16" + suffix
                 + ("_bf16" if tag == "bf16" else ""),
                 route="cuda", source=wide_src,
                 replaces=("textsummarization_on_flink_tpu/models/"
@@ -6759,21 +6768,19 @@ def main(argv=None) -> int:
                              bound_by=r[by], simt_ms=r[simt])
                         for (t, _), r in fw_rows.items()
                         if t == tag and _row_hd(r) > 1024],
+                parent_ms=head[simt], gain=head[simt] / head[ms],
                 design=(
                     "a cluster of hd / 128 blocks (9 to 16, the H100's "
                     "non-portable sizes), each the hd-128 flash block of "
                     "the 8-block form on its slab; the exchange "
-                    + {("forward", "f32"): "every block's one sum to 12 "
+                    + {("forward", "f32"): "every block's one sum to 14 "
                        "blocks, split over the cluster past them",
                        ("dkv", "f32"): "every block's one sum",
+                       ("dq", "f32"): "every block's one sum at 9 blocks, "
+                       "split over the cluster past them",
                        }.get((key, tag), "split over the cluster "
                              "(sum_share, then gather_sums behind a second "
-                             "barrier)") if form == "c16" else
-                    "SIMT FMA, one 64-row block per 128-column slab of dQ, "
-                    "S and dP over the whole head dim in 32-column chunks"))
-            if form == "c16":
-                entry.update(parent_ms=head[simt],
-                             gain=head[simt] / head[ms])
+                             "barrier)")))
             kernels.append(entry)
     # the query-block forms (Tq < Tk: one sp rank's block of the
     # encoder's queries against every key; their own counters, each

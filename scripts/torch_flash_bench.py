@@ -4,6 +4,7 @@ phase-3 shapes, for comparing two checkouts on one card.
 
     python3 scripts/torch_flash_bench.py [--seed N] [--iters N] [--tag T]
         [--dtype float32|bfloat16] [--which times|wide|digests]
+        [--head-dims HD ...] [--kernels K ...]
 
 Needs one CUDA card.  It times whichever package comes first on the
 import path: put another checkout on PYTHONPATH to time its kernels with
@@ -27,13 +28,15 @@ the SIMT forms the cluster forms replaced where the checkout's wrappers
 take ``simt`` (the dQ's only where its wrapper has the flag), so one
 call times the SIMT design beside the cluster forms; ``--head-dims HD
 ...`` times those head dims only: WIDE_FLASH_CASES' cases at them, and
-16x400x1xHD with a key mask where the cases have none.
+16x400x1xHD with a key mask where the cases have none; ``--kernels K
+...`` times those of forward, forward_lse, bwd_dkv, bwd_dq and their
+``_simt`` forms only.
 ``--which digests`` prints one JSON line of chip_smoke.flash_digests:
 the digests of every flash kernel's outputs at the launch forms with as
 many query rows as keys (chip_smoke.FLASH_DIGEST_CASES, inputs made with
 numpy), which chip_smoke.py holds against its FLASH_PARENT_DIGESTS; run
 it with the parent checkout on PYTHONPATH to print those; and ("c16")
-those of the forward's and dK/dV's clusters past 8 blocks at
+those of the clusters past 8 blocks at
 FLASH_C16_DIGEST_CASES through their default launch, which
 FLASH_C16_DIGESTS holds.  Each time is
 the median of --iters
@@ -84,6 +87,7 @@ def main(argv=None) -> int:
     ap.add_argument("--which", choices=("times", "wide", "digests"),
                     default="times")
     ap.add_argument("--head-dims", type=int, nargs="*", default=None)
+    ap.add_argument("--kernels", nargs="*", default=None)
     args = ap.parse_args(argv)
 
     import torch
@@ -209,6 +213,8 @@ def bench_wide(args, chip_smoke, fl, flush, emit):
                 runs.append(("bwd_dq_simt", lambda: fl._bwd_dq_cuda(
                     q, k, v, do, lse, dsum, mask, causal, scale, simt=True)))
             for kernel, fn in runs:
+                if args.kernels and kernel not in args.kernels:
+                    continue
                 emit(kernel, shape, chip_smoke.time_cuda(fn, args.iters,
                                                          flush))
 

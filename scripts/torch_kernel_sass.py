@@ -32,7 +32,11 @@ dumps both with cuobjdump -sass and compares them function by function,
 after dropping the per-file hash of the anonymous namespace from the
 function names and collapsing whitespace (the column padding varies
 between dumps): one JSON line per library, with the functions whose code
-differs.
+differs under the same name; a function found on one side only whose
+code equals that of a function found on the other side only (a kernel
+made a template keeps its code under a new name) is listed as renamed,
+the others as added (this checkout) or removed (the other).  Exit code
+1 when a function differs or is removed.
 """
 
 from __future__ import annotations
@@ -171,7 +175,7 @@ def normalized_sass(path: str):
 
 def compare(other: str, names) -> int:
     """Print, per library, whether this checkout's SASS equals the other
-    checkout's, function by function; 1 when any differs."""
+    checkout's, function by function; 1 when any differs or is gone."""
     from textsummarization_on_flink_tpu_torch.kernels import build
 
     here = build.build_all(names)
@@ -185,12 +189,19 @@ def compare(other: str, names) -> int:
     rc = 0
     for name in names:
         a, b = normalized_sass(here[name]), normalized_sass(there[name])
-        differing = sorted(f for f in set(a) | set(b) if a.get(f) != b.get(f))
-        rc |= bool(differing)
+        differing = sorted(f for f in set(a) & set(b) if a[f] != b[f])
+        only_there = {b[f]: f for f in set(b) - set(a)}
+        renamed = {f: only_there[a[f]] for f in set(a) - set(b)
+                   if a[f] in only_there}
+        added = sorted(set(a) - set(b) - set(renamed))
+        removed = sorted(set(b) - set(a) - set(renamed.values()))
+        rc |= bool(differing or removed)
         print(json.dumps(dict(library=name, functions=len(a),
-                              other_functions=len(b), equal=not differing,
-                              differing=differing, here=here[name],
-                              other=there[name])))
+                              other_functions=len(b),
+                              equal=not (differing or added or removed),
+                              differing=differing, renamed=renamed,
+                              added=added, removed=removed,
+                              here=here[name], other=there[name])))
     return rc
 
 

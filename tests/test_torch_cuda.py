@@ -1559,8 +1559,7 @@ def test_flash_wide_dq_cluster_matches_simt_and_plain_on_card(hd, tq, tk, nh,
         assert not dq[1].any()  # the empty article
 
 
-#: the forward's and dK/dV's clusters past the portable 8 blocks: 9, 12
-#: and 16 blocks
+#: the clusters past the portable 8 blocks: 9, 12 and 16 blocks
 WIDE_CLUSTER_HEAD_DIMS = (1152, 1536, 2048)
 #: (Tq, Tk, causal): a ragged key mask, causal, and query blocks (Tq < Tk)
 WIDE_CLUSTER_CASES = [(130, 130, False), (130, 130, True), (65, 130, False),
@@ -1586,11 +1585,12 @@ def _held_to(got, want, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_wide_16_block_clusters_match_simt_and_plain_on_card(
         hd, tq, tk, causal, dtype):
-    """The forward and dK/dV cluster forms of 9 to 16 blocks, and the SIMT
-    forms they replaced (``simt=True``), each held to the plain versions
-    (``_held_to``; the backward on the plain lse and D); lse within 1e-5 *
-    max(1, |lse|), +inf on the same rows; each launch counted, the
-    cluster forms' by the cluster counters and the SIMT forms' not."""
+    """The forward, dK/dV and dQ cluster forms of 9 to 16 blocks, and the
+    SIMT forms they replaced (``simt=True``), each held to the plain
+    versions (``_held_to``; the backward on the plain lse and D); lse
+    within 1e-5 * max(1, |lse|), +inf on the same rows; each launch
+    counted, the cluster forms' by the cluster counters and the SIMT
+    forms' not."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     _need_cuda()
@@ -1606,53 +1606,62 @@ def test_flash_wide_16_block_clusters_match_simt_and_plain_on_card(
                                scale)
     dsum = torch.sum(do.float() * want_out.float(), dim=-1)
     counters = ("launches_wide", "launches_wide_cluster",
-                "launches_bwd_dkv_wide", "launches_bwd_dkv_wide_cluster")
+                "launches_bwd_dkv_wide", "launches_bwd_dkv_wide_cluster",
+                "launches_bwd_dq_wide", "launches_bwd_dq_wide_cluster")
     before = [getattr(fl, c) for c in counters]
     for simt in (False, True):
         out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
                                   with_lse=True, simt=simt)
         dk, dv = fl._bwd_dkv_cuda(q, k, v, do, lse_p, dsum, mask, causal,
                                   scale, simt=simt)
+        dq = fl._bwd_dq_cuda(q, k, v, do, lse_p, dsum, mask, causal, scale,
+                             simt=simt)
         torch.cuda.synchronize()
         assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
         fin = torch.isfinite(lse_p)
         assert float((lse - lse_p)[fin].abs().max()) <= 1e-5 * max(
             1.0, float(lse_p[fin].abs().max()))
-        for got_x, want_x in ((out, want_out), (dk, want[1]),
-                              (dv, want[2])):
+        for got_x, want_x in ((out, want_out), (dq, want[0]),
+                              (dk, want[1]), (dv, want[2])):
             _held_to(got_x, want_x, dtype)
     assert [getattr(fl, c) - b for c, b in zip(counters, before)] == [
-        2, 1, 2, 1]
+        2, 1, 2, 1, 2, 1]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hd", WIDE_CLUSTER_HEAD_DIMS)
+@pytest.mark.parametrize("tq,tk,causal", [(200, 200, False),
+                                          (130, 130, True),
+                                          (100, 200, False)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_wide_16_block_clusters_repeat_their_bits_on_card(hd, dtype):
+def test_flash_wide_16_block_clusters_repeat_their_bits_on_card(
+        hd, tq, tk, causal, dtype):
     """The exchange sums in rank order, no atomics: two runs of the
-    forward (with lse) and of the backward on the same inputs give the
-    same bits."""
+    forward (with lse) and of the backward (dQ, dK and dV) on the same
+    inputs give the same bits, with a key mask, causal, and on a query
+    block (Tq < Tk)."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     _need_cuda()
-    q, k, v, mask = _flash_inputs(2, 200, 2, hd, seed=hd)
+    q, k, v, mask = _flash_inputs(2, tk, 2, hd, seed=hd)
     q, k, v = (x.to(dtype) for x in (q, k, v))
+    q = q[:, tk - tq:].contiguous()
     scale = hd ** -0.5
-    runs = [fl._flash_cuda(q, k, v, mask, False, scale, with_lse=True)
+    runs = [fl._flash_cuda(q, k, v, mask, causal, scale, with_lse=True)
             for _ in range(2)]
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     out, lse = runs[0]
     g = torch.Generator(device="cuda").manual_seed(hd)
     do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
-    first, second = (fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, False,
+    first, second = (fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, causal,
                                         scale) for _ in range(2))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 #: the largest head dim at which each wide kernel takes its cluster form:
-#: the forward and dK/dV clusters of up to 16 blocks, the dQ's of up to 8
-CLUSTER_UP_TO = dict(fwd=2048, dkv=2048, dq=1024)
+#: clusters of up to 16 blocks
+CLUSTER_UP_TO = dict(fwd=2048, dkv=2048, dq=2048)
 
 
 @pytest.mark.cuda
@@ -1678,6 +1687,23 @@ def test_flash_wide_forms_follow_the_rule_on_card(kind):
             for bf16 in (0, 1):
                 n = lib.ts_flash_wide_active_clusters(i, bf16, hd // 128)
                 assert n >= 1, (hd, bf16, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [0, 1])
+def test_flash_wide_dq_clusters_fit_at_9_to_16_blocks_on_card(bf16):
+    """At least one cluster of each dQ form is resident at once on this
+    card at every size past the portable 8 blocks, 9 to 16
+    (ts_flash_wide_active_clusters: the f32 form at two blocks an SM, the
+    bf16 form at one; the check each launch makes at first use)."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    lib = fl._load_wide_library()
+    fits = {C: lib.ts_flash_wide_active_clusters(fl.WIDE_KINDS.index("dq"),
+                                                 bf16, C)
+            for C in range(9, 17)}
+    assert all(n >= 1 for n in fits.values()), fits
 
 
 @pytest.mark.cuda
@@ -1711,7 +1737,7 @@ QUERY_BLOCKS = ((50, 100), (33, 100), (65, 130), (200, 400))
 def test_flash_query_block_matches_plain_on_card(hd, tq, tk, dtype):
     """Every flash kernel (forward with and without lse, dK/dV, dQ; f32,
     bf16 and wide, the cluster forms up to hd 1024; at 1152 the 9-block
-    cluster forward and dK/dV and the SIMT dQ) on a block of Tq query
+    clusters) on a block of Tq query
     rows (rows [Tq, 2 Tq) of the article's queries) against all Tk keys,
     a ragged key mask and article 1 fully masked: f32 within 1e-5 of the
     plain versions relative to each output's size, bf16 within

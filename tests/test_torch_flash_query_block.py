@@ -7,7 +7,9 @@ different lengths, and against ``jax.vjp`` of it.
 
 Inputs from a numpy seed: B = 3 articles, Tk = 24 keys, a block of Tq =
 Tk / 2 or Tk / 3 query rows (rows [Tq, 2 Tq) of the article's
-queries), 2 heads at head dims 32, 128, 256 and 384, a ragged key mask
+queries), 2 heads at head dims 32, 128, 256 and 384 (the backward also
+at 1280 and 1920, the head dims of the card's 10- and 15-block
+clusters, which no other test reaches), a ragged key mask
 (given to the reference as segment ids: query rows 1, real keys 1,
 masked keys 0) and article 1 fully masked.  The reference gives a row
 with no key to attend the mean of v (a uniform softmax over masked
@@ -42,6 +44,8 @@ from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
 B, TK, NH = 3, 24, 2
 HEAD_DIMS = (32, 128, 256, 384)
+#: clusters of 10 and 15 blocks on the card (hd / 128), the dQ's too
+CLUSTER_HEAD_DIMS = (1280, 1920)
 RATIOS = (2, 3)  # Tq = TK / ratio
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -162,7 +166,7 @@ def test_query_block_forward_matches_jax_reference(hd, ratio, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 @pytest.mark.parametrize("ratio", RATIOS)
-@pytest.mark.parametrize("hd", HEAD_DIMS)
+@pytest.mark.parametrize("hd", HEAD_DIMS + CLUSTER_HEAD_DIMS)
 def test_query_block_backward_matches_jax_vjp(hd, ratio, dtype):
     """dq [B, Tq, ...], dk and dv [B, Tk, ...] of a block of query rows:
     the plain backward formula against jax.vjp of the reference."""

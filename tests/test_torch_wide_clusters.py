@@ -1,5 +1,5 @@
-"""Head dims past the 8-block clusters (1152 and 2048: the wide forward's
-and dK/dV's clusters of 9 and 16 blocks on the card) in the port's
+"""Head dims past the 8-block clusters (1152 and 2048: the wide forward's,
+dK/dV's and dQ's clusters of 9 and 16 blocks on the card) in the port's
 transformer against the JAX package's, on the CPU.  Which form each
 wide kernel takes is the library's rule (``ts_flash_wide_form``), so the
 card tests (tests/test_torch_cuda.py) hold it.

@@ -37,13 +37,13 @@
 // (0.0078 ms at 3.35 TB/s) bound it instead; dK/dV does 8 * hd, dQ 6 *
 // hd.
 //
-// Up to head dim 2048 (the forward and dK/dV; 1024 for the dQ): a thread
-// block cluster per (block of rows, head, article) splits the head dim.
+// Up to head dim 2048: a thread block cluster per (block of rows, head,
+// article) splits the head dim.
 //
-//   * the cluster holds hd / 128 blocks: at most 8 (the portable size)
-//     for the dQ, 16 (the H100's limit, `NonPortableClusterSizeAllowed`
-//     set on the kernel at first use) for the forward and dK/dV; at
-//     first use per kernel and cluster size the launch asks
+//   * the cluster holds hd / 128 blocks, at most 16 (the H100's limit;
+//     past the portable 8 `NonPortableClusterSizeAllowed` is set on the
+//     kernel at first use); at first use per kernel and cluster size the
+//     launch asks
 //     cudaOccupancyMaxActiveClusters whether one cluster fits, and
 //     returns an error if none does (no fallback to another form);
 //     block r owns the columns [128 r, 128 r + 128) of q, k, v (and dO)
@@ -62,18 +62,18 @@
 //     formed once per tile for all the output's columns.  The partials
 //     alternate between two buffers, so one barrier a tile keeps a buffer
 //     from being rewritten while a peer reads it.  The bf16 dQ, the bf16
-//     forward and dK/dV past 8 blocks and the f32 forward past 12 (the
-//     f32 dK/dV spilled with it) split the sum in two (sum_share,
-//     gather_sums): block r sums its 1/C of the buffer over
+//     forward and dK/dV past 8 blocks, the f32 forward past 14 and the
+//     f32 dQ past 9 (the f32 dK/dV spilled with it) split the sum in two
+//     (sum_share, gather_sums): block r sums its 1/C of the buffer over
 //     the cluster in rank order, and after a second barrier every block
 //     reads each sum from its owner; the same bits, with 2 (C - 1) / C
 //     of a buffer read from the peers where the one sum reads C - 1
 //     buffers (on an H100 the one sum's exchange was 68% of the bf16
 //     dQ's time at 16 x 400 x 1 x 512 and 85% at x 1024; in the f32 dQ,
 //     whose partials are 8 keys wide, the second barrier cost more than
-//     the reads it saved).  The forms up to 8 blocks are the templates'
-//     one-sum instances (kSplit false), built as before the 16-block
-//     forms were added;
+//     the reads it saved up to 9 blocks).  The forms up to 8 blocks are
+//     the templates' one-sum instances (kSplit false; the bf16 dQ's
+//     kMaxC 8), built as before the 16-block forms were added;
 //   * f32: the geometry of the f32 kernels at hd 128 (4 warps, 64 rows or
 //     keys a block; key tiles of 16 (forward) or 8 (dQ), or query tiles
 //     of 8 rows, staged by cp.async, double-buffered, split to hi/lo
@@ -150,8 +150,8 @@ constexpr int kPS = kCols + 1;  // floats per row of P / dS in shared memory
 constexpr int kChunkTile = kRows * kCS;   // floats of one staged chunk
 constexpr int kSlabTile = kRows * kSlab;  // floats of one staged slab
 constexpr int kPTile = kRows * kPS;       // floats of P or dS
-constexpr int kMaxCluster = 8;     // blocks of a portable cluster (the dQ)
-constexpr int kMaxClusterNP = 16;  // the H100's largest (forward, dK/dV)
+constexpr int kMaxCluster = 8;     // blocks of a portable cluster
+constexpr int kMaxClusterNP = 16;  // the H100's largest
 
 __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) {
@@ -209,8 +209,7 @@ __device__ __forceinline__ float row_sum(float x) {
 }
 
 // ---------------------------------------------------------------------------
-// The cluster forms (head dims up to 128 * kMaxClusterNP; the dQ's up to
-// 128 * kMaxCluster).
+// The cluster forms (head dims up to 128 * kMaxClusterNP).
 
 // acc (kN groups of 4 floats of this thread's fragment, each the
 // float4 idx(i) of an exchange buffer) = the cluster's partials at `xb`
@@ -853,7 +852,9 @@ struct ClusterDqF32 {
 // Per key tile: each warp forms its partial S = Q K^T and dP = dO V^T
 // over the block's 128 columns and writes both; after one cluster
 // barrier it sums the cluster's S and dP, forms P = exp(S * scale - lse)
-// and dS = P (dP - D), and adds dS K over its columns to dQ
+// and dS = P (dP - D), and adds dS K over its columns to dQ.  kSplit:
+// share_if's exchange
+template <bool kSplit>
 __global__ void __launch_bounds__(ClusterDqF32::kThreads, 2)
 flash_bwd_dq_cluster_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -974,13 +975,14 @@ flash_bwd_dq_cluster_f32_kernel(
       }
       cluster.sync();  // every block's partials are written
       ++ex;
+      share_if<kSplit>(cluster, xb, D::kX / 4, C, D::kThreads, tid);
       if (active) {
         // S and dP summed, P = exp(S * scale - lse) (exactly 0 where the
         // pair is masked or the row has no key to attend), dS = P (dP -
         // D); dQ += dS K over this block's columns (the tile's keys in
         // a_from_acc's order)
         float sd[2 * kNT][4];
-        sum_partials<2 * kNT>(sd, cluster, xb, C, xi);
+        sum_or_gather<kSplit>(sd, cluster, xb, D::kX / 4, C, xi);
         const bool diag = causal && k0 + kKeys - 1 > row0;
 #pragma unroll
         for (int j = 0; j < kNT; ++j) {
@@ -1431,7 +1433,9 @@ struct ClusterDqBf16 {
 // the block sums its share of the cluster's partials, and after a second
 // one each warpgroup reads its sums, forms dS = P (dP - D) * scale in
 // registers, rounds it to bf16 and adds dS K over its columns to dQ, K
-// from the staged tile S read
+// from the staged tile S read.  kMaxC: the largest cluster the instance
+// takes (kMaxCluster, or kMaxClusterNP past 8 blocks), sum_share's bound
+template <int kMaxC>
 __global__ void __launch_bounds__(kBf16Threads, 1)
 flash_bwd_dq_cluster_bf16_kernel(
     const __grid_constant__ CUtensorMap q_map,
@@ -1563,8 +1567,7 @@ flash_bwd_dq_cluster_bf16_kernel(
       ++ex;
       // this block's share summed (by every warpgroup, active or not: a
       // share spans both warpgroups' fragments)
-      sum_share<kMaxCluster>(cluster, xb, D::kXFloats / 4, C, kBf16Threads,
-                             tid);
+      sum_share<kMaxC>(cluster, xb, D::kXFloats / 4, C, kBf16Threads, tid);
       cluster.sync();  // every share is summed
       if (active) {
         float sum[kKeys / 4][4];
@@ -1605,7 +1608,7 @@ flash_bwd_dq_cluster_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The SIMT forms (above the cluster forms' head dims: 2048, the dQ's 1024).
+// The SIMT forms (above the cluster forms' head dims: 2048).
 
 // shared memory of each kernel, in floats: the chunks share their space
 // with the slab the product reads after them
@@ -2030,11 +2033,8 @@ bool bad_shape(int B, int Tq, int Tk, int nh, int hd, int causal) {
          (long long)nh * (hd / kSlab) > 65535 || (causal && Tq != Tk);
 }
 
-// does the cluster form of `kind` take this head dim: up to 16 blocks for
-// the forward and dK/dV, 8 for the dQ
-bool clustered(Kind kind, int hd) {
-  return hd / kSlab <= (kind == kDq ? kMaxCluster : kMaxClusterNP);
-}
+// do the cluster forms take this head dim: up to 16 blocks, every kind
+bool clustered(int hd) { return hd / kSlab <= kMaxClusterNP; }
 
 // the smallest cluster at which the f32 forward splits its exchange over
 // the cluster (share_if); below it every block sums all C partials.  On
@@ -2042,6 +2042,10 @@ bool clustered(Kind kind, int hd) {
 // within 1.2% either way at 13 and 14, and 5-9% faster at 15 and 16
 // (PERF.md)
 constexpr int kF32SplitFrom = 15;
+// the same for the f32 dQ: at 16x400x1xhd the split was 0.6% slower at 9
+// blocks (3.8% causal at 16x100), 3.7% faster at 10 and 6-19% faster at
+// 11-16 (PERF.md)
+constexpr int kF32DqSplitFrom = 10;
 
 // the SIMT grid: a block per 64 rows of T and per (head, slab)
 dim3 grid_of(int B, int T, int nh, int hd) {
@@ -2133,7 +2137,9 @@ cudaError_t launch_cluster(void (*kernel)(KArgs...), ClusterCheck& chk,
 
 // Each cluster form's kernel for a cluster of C blocks and the checks its
 // launches keep: the one-sum instance up to 8 blocks, past them the split
-// one (the f32 forward from kF32SplitFrom blocks; the f32 dK/dV never)
+// one (the f32 forward from kF32SplitFrom blocks, the f32 dQ from
+// kF32DqSplitFrom; the f32 dK/dV never); the bf16 dQ, split at every
+// size, its instance for up to 16 ranks past 8 blocks
 auto fwd_f32_kernel(int C, ClusterCheck*& chk) {
   static ClusterCheck one, split;
   chk = C >= kF32SplitFrom ? &split : &one;
@@ -2157,15 +2163,18 @@ auto dkv_bf16_kernel(int C, ClusterCheck*& chk) {
   return C > kMaxCluster ? &flash_bwd_dkv_cluster_bf16_kernel<true>
                          : &flash_bwd_dkv_cluster_bf16_kernel<false>;
 }
-auto dq_f32_kernel(int, ClusterCheck*& chk) {
-  static ClusterCheck one;
-  chk = &one;
-  return &flash_bwd_dq_cluster_f32_kernel;
+auto dq_f32_kernel(int C, ClusterCheck*& chk) {
+  static ClusterCheck one, split;
+  chk = C >= kF32DqSplitFrom ? &split : &one;
+  return C >= kF32DqSplitFrom ? &flash_bwd_dq_cluster_f32_kernel<true>
+                              : &flash_bwd_dq_cluster_f32_kernel<false>;
 }
-auto dq_bf16_kernel(int, ClusterCheck*& chk) {
-  static ClusterCheck one;
-  chk = &one;
-  return &flash_bwd_dq_cluster_bf16_kernel;
+auto dq_bf16_kernel(int C, ClusterCheck*& chk) {
+  static ClusterCheck one, wide;
+  chk = C > kMaxCluster ? &wide : &one;
+  return C > kMaxCluster
+             ? &flash_bwd_dq_cluster_bf16_kernel<kMaxClusterNP>
+             : &flash_bwd_dq_cluster_bf16_kernel<kMaxCluster>;
 }
 
 // the tensor maps of a bf16 cluster launch: [B, T, nh, hd] tensors for
@@ -2305,7 +2314,7 @@ int launch_fwd(const void* q, const void* k, const void* v,
                int Tk, int nh, int hd, int causal, float sm_scale,
                void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(kFwd, hd) && !simt)
+  if (clustered(hd) && !simt)
     return (sizeof(E) == 2 ? launch_fwd_bf16 : launch_fwd_f32)(
         q, k, v, key_mask, out, lse, B, Tq, Tk, nh, hd, causal, sm_scale,
         stream);
@@ -2328,7 +2337,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                void* dk, void* dv, int B, int Tq, int Tk, int nh, int hd,
                int causal, float sm_scale, void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(kDkv, hd) && !simt)
+  if (clustered(hd) && !simt)
     return (sizeof(E) == 2 ? launch_dkv_bf16 : launch_dkv_f32)(
         q, k, v, dout, lse, dsum, key_mask, dk, dv, B, Tq, Tk, nh, hd,
         causal, sm_scale, stream);
@@ -2352,7 +2361,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               void* dq, int B, int Tq, int Tk, int nh, int hd, int causal,
               float sm_scale, void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(kDq, hd) && !simt)
+  if (clustered(hd) && !simt)
     return (sizeof(E) == 2 ? launch_dq_bf16 : launch_dq_f32)(
         q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk, nh, hd, causal,
         sm_scale, stream);
@@ -2441,9 +2450,9 @@ extern "C" int ts_flash_wide_bwd_dq_bf16(const void* q, const void* k,
 
 // The SIMT forward, dK/dV and dQ at every wide head dim, with the
 // signatures of ts_flash_wide(_bf16), ts_flash_wide_bwd_dkv(_bf16) and
-// ts_flash_wide_bwd_dq(_bf16): the design the cluster forms replaced (up
-// to head dim 2048, the dQ's to 1024), timed beside them (chip_smoke.py
-// phase_flash_wide); no path of the port calls them
+// ts_flash_wide_bwd_dq(_bf16): the design the cluster forms replaced up
+// to head dim 2048, timed beside them (chip_smoke.py phase_flash_wide);
+// no path of the port calls them
 extern "C" int ts_flash_wide_simt(const void* q, const void* k,
                                   const void* v, const float* key_mask,
                                   void* out, float* lse, int B, int Tq,
@@ -2503,7 +2512,7 @@ extern "C" int ts_flash_wide_bwd_dq_simt_bf16(
 // where no wide kernel takes hd
 extern "C" int ts_flash_wide_form(int kind, int hd) {
   if (kind < kFwd || kind > kDq || hd <= 0 || hd % kSlab != 0) return -1;
-  return clustered(static_cast<Kind>(kind), hd) ? 1 : 0;
+  return clustered(hd) ? 1 : 0;
 }
 
 // How many clusters of C blocks of the cluster form of `kind` (as

@@ -60,11 +60,11 @@ Head dims: the kernels of flash_attention.cu and flash_attention_bwd.cu
 are built for 32, 128 and 256 (at 256 each kernel splits its output's
 columns over two blocks; see the sources); those of
 flash_attention_wide.cu take any multiple of 128 and run every head dim
-above 256: up to 2048 the forward and dK/dV, up to 1024 the dQ
-(the library's rule, ``ts_flash_wide_form``), are a thread block cluster of
-hd / 128 blocks on the tensor cores, each block a 128-column slab,
-their partial S (and dP) summed over the cluster once per tile; above
-those SIMT kernels that keep one 128-column slab of the output a block
+above 256: up to 2048 the forward, dK/dV and dQ (the library's rule,
+``ts_flash_wide_form``) are a thread block cluster of hd / 128 blocks
+on the tensor cores, each block a 128-column slab, their partial S (and
+dP) summed over the cluster once per tile; above 2048 SIMT kernels that
+keep one 128-column slab of the output a block
 and form S over the whole head dim in 32-column chunks (``simt=True``
 takes those for the forward, dK/dV and dQ at any wide head dim, to time
 the cluster forms against them). On the
@@ -273,8 +273,7 @@ def _cluster_form(kind: str, width: int, simt: bool = False) -> bool:
     """Does the wide kernel ``kind`` ("fwd", "dkv" or "dq") launch its
     cluster form at a padded head dim ``width`` above 256: never with
     ``simt``, else as the library's own dispatch decides
-    (``ts_flash_wide_form``: the forward and dK/dV up to 2048, the dQ up
-    to 1024)."""
+    (``ts_flash_wide_form``: every kind up to 2048)."""
     return not simt and _load_wide_library().ts_flash_wide_form(
         WIDE_KINDS.index(kind), width) == 1
 
