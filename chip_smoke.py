@@ -56,13 +56,16 @@ device or without the port's sources beside it.  Phases, each fatal:
         (HMMA.16816), no spill, no wgmma serialized by ptxas;
      f. the wide flash kernels (head dims above 256, f32 and bf16:
         forward, dK/dV, dQ; the cluster forms on the tensor cores up to
-        head dim 2048) against their plain versions
-        at 16 x 400 x 1 x 384, 512, 1024, 1152, 1536 and 2048 (key mask)
-        and 16 x 100 x 1 x 512, 1152, 1536 and 2048 (causal), a rerun
+        head dim 2048, the forward's and dK/dV's multi-slab cluster forms
+        above it) against their plain versions
+        at 16 x 400 x 1 x 384, 512, 1024, 1152, 1536, 2048, 2304 and
+        4096 (key mask) and 16 x 100 x 1 x 512, 1152, 1536, 2048 and
+        2304 (causal), a rerun
         the same bits, each launch's form counted, timed beside the SIMT
         forward, dK/dV and dQ they replaced (the cluster forms at least
         WIDE_MIN_GAIN times faster at head dim 512, WIDE16_MIN_GAIN at
-        1152) and scaled_dot_product_attention with the backend it took
+        1152, the multi-slab forward and dK/dV WIDE16_MIN_GAIN at 2304
+        and 4096) and scaled_dot_product_attention with the backend it took
         (phase_flash_wide); their SASS and ptxas report
         (wide_flash_sass): 0 bytes of spill in every one of
         WIDE_FLASH_INSTANCES,
@@ -152,11 +155,16 @@ device or without the port's sources beside it.  Phases, each fatal:
      above 256 on the wide kernels (phase_wide_heads): head dim 512 at
      full width (a decode of 16 articles, 3 train steps on the card and
      one with --device=cpu, in f32 and in bf16, 12 + 12 + 12 wide
-     launches per step, 6 per decode batch), head dim 320 (a small
-     beam search and a train step against the CPU) and head dim 1152 at
-     full width (the forward's, dK/dV's and dQ's 9-block clusters: a
-     decode, 3 train steps in each dtype, the loss against
-     the CPU at 2 + 2 layers); the --device=cpu reference steps
+     launches per step, 6 per decode batch), head dim 320 (a small beam
+     search and a train step against the CPU), head dim 1152 at 2 + 2
+     layers (the forward's, dK/dV's and dQ's 9-block clusters: a
+     decode, 3 train steps in each dtype, the first loss against the
+     CPU's) and head dim 2304 at full width (the forward's and dK/dV's 9
+     blocks of 2 slabs each, one launch per slab, the SIMT dQ: a decode
+     at 6 + 6 layers, about 1.0 B parameters, and 3 train steps in each
+     dtype at 2 + 2 layers and 100 encoder steps, the first loss against
+     the CPU's); the
+     --device=cpu reference steps
      (wide_cpu_steps) run in a child process (CpuSteps) beside the
      kernel builds and phase 3, and are done before phase 4 starts
      (no phase that prints a host time runs beside them); and past the
@@ -263,6 +271,7 @@ import glob
 import json
 import logging
 import os
+import re
 import shlex
 import shutil
 import statistics
@@ -932,6 +941,35 @@ FLASH_C16_DIGESTS = {
     "dq 2x100x1x1536 mask bfloat16": "0f10a0bf4c1d87a8",
     "dq 2x130x1x2048 causal float32": "b436eb30e1088877",
     "dq 2x130x1x2048 causal bfloat16": "b624c02514c1c01b",
+}
+
+
+#: the multi-slab cluster forms of the forward and dK/dV above head dim
+#: 2048 (2176 with a key mask: 9 blocks of 2 slabs, the last block one;
+#: 4224 causal: 11 blocks of 3), through their default launch: their
+#: digests (FLASH_SLAB_DIGESTS) are the bits they gave on an H100 (NVIDIA
+#: H100 80GB HBM3) when they were added, printed by
+#: scripts/torch_flash_bench.py --which digests ("slabs"), held from then
+#: on
+FLASH_SLAB_KERNELS = ("fwd", "fwd_lse", "dkv")
+FLASH_SLAB_DIGEST_CASES = (
+    [(2, 100, 1, 2176, False, dt, FLASH_SLAB_KERNELS)
+     for dt in ("float32", "bfloat16")]
+    + [(2, 130, 1, 4224, True, dt, FLASH_SLAB_KERNELS)
+       for dt in ("float32", "bfloat16")])
+FLASH_SLAB_DIGESTS = {
+    "fwd 2x100x1x2176 mask float32": "96e2e61ca747f8d7",
+    "fwd_lse 2x100x1x2176 mask float32": "7b7b96a8bceb15ee",
+    "dkv 2x100x1x2176 mask float32": "e380f8da0a60e5c9",
+    "fwd 2x100x1x2176 mask bfloat16": "570ffe5fefa6e601",
+    "fwd_lse 2x100x1x2176 mask bfloat16": "5ff7ff0a28629c37",
+    "dkv 2x100x1x2176 mask bfloat16": "aacf9f6a5fd64d82",
+    "fwd 2x130x1x4224 causal float32": "e414e0190b983011",
+    "fwd_lse 2x130x1x4224 causal float32": "16c2e9d33d7cb367",
+    "dkv 2x130x1x4224 causal float32": "3bd9ea29449f56f7",
+    "fwd 2x130x1x4224 causal bfloat16": "8c77e704522e1d44",
+    "fwd_lse 2x130x1x4224 causal bfloat16": "6a31c6677de23fbd",
+    "dkv 2x130x1x4224 causal bfloat16": "304d495098b7aad9",
 }
 
 
@@ -1659,15 +1697,36 @@ def phase_flash_bf16(seed):
 #: self-attention at head dim 512 (16 x 100); then the clusters of 9, 12
 #: and 16 blocks, the encoder's and the decoder's shapes at head dims
 #: 1152, 1536 and 2048: (B, T, nh, hd, causal)
-#: the largest head dim at which each wide kernel takes its cluster form
-#: (a cluster of hd / 128 blocks), as this script expects the library's
-#: dispatch to choose: 16 blocks for every kind
-CLUSTER_UP_TO = dict(fwd=2048, dkv=2048, dq=2048)
+#: the largest head dim at which each wide kernel takes its cluster form,
+#: as this script expects the library's dispatch to choose: the forward
+#: and dK/dV at every head dim the wide kernels take (a cluster of hd /
+#: 128 blocks up to 2048, above it at most 16 blocks owning up to 4
+#: slabs each), the dQ up to 2048 (16 blocks)
+CLUSTER_UP_TO = dict(fwd=8192, dkv=8192, dq=2048)
+
+
+def expected_geometry(kind, hd):
+    """(slabs a block owns, blocks of the cluster) of the cluster form
+    this script expects the wide kernel ``kind`` to take at a padded head
+    dim ``hd`` (CLUSTER_UP_TO; ceil(C / 16) slabs above 2048, C = hd /
+    128), (0, 0) for the SIMT form; a call launches its kernel once per
+    slab (max(slabs, 1) launches)"""
+    if hd > CLUSTER_UP_TO[kind]:
+        return 0, 0
+    slabs = -(-hd // 128 // 16)
+    return slabs, -(-hd // 128 // slabs)
+#: and the multi-slab forms at 2304 (9 blocks of 2 slabs) and 4096 (16 of
+#: 2), the encoder's shape, and 2304 causal, the decoder's
 WIDE_FLASH_CASES = [(16, 400, 1, 384, False), (16, 400, 1, 512, False),
                     (16, 400, 1, 1024, False), (16, 100, 1, 512, True),
                     (16, 400, 1, 1152, False), (16, 400, 1, 1536, False),
                     (16, 400, 1, 2048, False), (16, 100, 1, 1152, True),
-                    (16, 100, 1, 1536, True), (16, 100, 1, 2048, True)]
+                    (16, 100, 1, 1536, True), (16, 100, 1, 2048, True),
+                    (16, 400, 1, 2304, False), (16, 400, 1, 4096, False),
+                    (16, 100, 1, 2304, True)]
+#: the multi-slab forms' gate: at least WIDE16_MIN_GAIN times faster than
+#: the SIMT forward and dK/dV at these shapes (B, T, nh, hd), both dtypes
+WIDE_SLAB_GATED = ((16, 400, 1, 2304), (16, 400, 1, 4096))
 
 
 def sdpa_backend(q, k, v, mask, causal, scale):
@@ -1689,7 +1748,9 @@ def phase_flash_wide(seed):
     """The wide kernels (head dims above 256; kernels/
     flash_attention_wide.cu: the forward, dK/dV and dQ up to head dim
     2048, a cluster of hd / 128 blocks on the tensor cores,
-    3xTF32 mma.sync in f32 and wgmma in bf16) against their plain
+    3xTF32 mma.sync in f32 and wgmma in bf16; above 2048 the forward's
+    and dK/dV's clusters of blocks owning several slabs, the dQ's SIMT
+    form) against their plain
     versions at WIDE_FLASH_CASES, in f32 and bf16: out (the serving
     form), lse (the training form), dq, dk and dv; f32 within ATTN_TOL *
     max(1,
@@ -1702,7 +1763,9 @@ def phase_flash_wide(seed):
     in this call beside them: the cluster forms at least WIDE_MIN_GAIN
     times faster at 16 x 400 x 1 x 512 in both dtypes, the forward's,
     dK/dV's and dQ's 9-block clusters at least WIDE16_MIN_GAIN times at
-    16 x 400 x 1 x 1152.  Times: the forward
+    16 x 400 x 1 x 1152, the multi-slab forward and dK/dV at
+    WIDE_SLAB_GATED (the dQ's SIMT form is its default there and is timed
+    once).  Times: the forward
     (serving form), the dK/dV and dQ kernels, the SIMT forward, dK/dV and
     dQ,
     the plain forward and whole backward, and
@@ -1718,9 +1781,10 @@ def phase_flash_wide(seed):
     flush = torch.empty(96 * 2**20 // 4, device="cuda")  # 96 MB > 50 MB L2
     lib = fl._load_wide_library()
     # the clusters of each form resident at once on this card, per head
-    # dim (the check each cluster launch makes at first use)
-    active = {f"{kind}_{tag} {hd}": lib.ts_flash_wide_active_clusters(
-                  i, tag == "bf16", hd // fl.WIDE_STEP)
+    # dim (the check each cluster launch makes at first use, at the
+    # instance and cluster size a launch at that head dim takes)
+    active = {f"{kind}_{tag} {hd}": lib.ts_flash_wide_active_clusters_at(
+                  i, tag == "bf16", hd)
               for i, kind in enumerate(fl.WIDE_KINDS)
               for tag in ("f32", "bf16")
               for hd in sorted({c[3] for c in WIDE_FLASH_CASES})
@@ -1729,14 +1793,18 @@ def phase_flash_wide(seed):
     check(all(n >= 1 for n in active.values()),
           f"a wide cluster form fits no cluster on this card: {active}")
     # the library's dispatch rule (ts_flash_wide_form, which the cluster
-    # counters read) at every wide head dim up to 4096
-    rule = {f"{kind} {hd}": lib.ts_flash_wide_form(i, hd)
-            for i, kind in enumerate(fl.WIDE_KINDS)
-            for hd in range(384, 4097, fl.WIDE_STEP)}
-    check(rule == {f"{kind} {hd}": int(hd <= CLUSTER_UP_TO[kind])
-                   for kind in fl.WIDE_KINDS
-                   for hd in range(384, 4097, fl.WIDE_STEP)},
-          f"the library's wide forms differ from CLUSTER_UP_TO: {rule}")
+    # counters read) and geometry (slabs a block, blocks a cluster) at
+    # every wide head dim up to 8448 (the SIMT forms above 8192)
+    hds = range(384, 8449, fl.WIDE_STEP)
+    rule = {f"{kind} {hd}": (lib.ts_flash_wide_form(i, hd, None, None),
+                             fl._wide_geometry(kind, hd))
+            for i, kind in enumerate(fl.WIDE_KINDS) for hd in hds}
+    want = {f"{kind} {hd}": (int(hd <= CLUSTER_UP_TO[kind]),
+                             expected_geometry(kind, hd))
+            for kind in fl.WIDE_KINDS for hd in hds}
+    check(rule == want,
+          f"the library's wide forms differ from CLUSTER_UP_TO: "
+          f"{ {k: v for k, v in rule.items() if want[k] != v} }")
     rows, worst = {}, {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
@@ -1805,14 +1873,14 @@ def phase_flash_wide(seed):
             simt_dkv_ms = time_cuda(lambda: fl._bwd_dkv_cuda(
                 q, k, v, do, lse, dsum, mask, causal, scale, simt=True), 5,
                 flush)
-            dq_simt_ms = time_cuda(lambda: fl._bwd_dq_cuda(
-                q, k, v, do, lse, dsum, mask, causal, scale, simt=True), 5,
-                flush)
+            # the dQ's SIMT form is its default above CLUSTER_UP_TO
+            dq_simt_ms = dq_ms if hd > CLUSTER_UP_TO["dq"] else time_cuda(
+                lambda: fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, causal,
+                                        scale, simt=True), 5, flush)
             after = launch_counts()
             # the form each timed launch took (the cluster counters count
             # the launches the library's dispatch sent to a cluster form)
-            # against the forms this script expects: clusters up to hd
-            # 2048
+            # against the forms this script expects: CLUSTER_UP_TO
             forms = {kind: ("cluster" if after[f"{c}_wide_cluster"]
                             > before[f"{c}_wide_cluster"] else "simt")
                      for kind, c in (("fwd", "flash_forward"),
@@ -1841,6 +1909,7 @@ def phase_flash_wide(seed):
             bounds = flash_bwd_bounds(q, mask, causal)
             row = dict(dtype=tag, shape=f"{B}x{T}x{nh}x{hd}", causal=causal,
                        key_mask=mask is not None, forms=forms,
+                       geometry=fl._wide_geometry("fwd", hd),
                        max_abs_err=errs,
                        bf16_ulps=ulps or None, lse_max_abs_err=lse_err,
                        repeat_bits_equal=repeat, ms=ms, plain_ms=plain_ms,
@@ -1879,10 +1948,19 @@ def phase_flash_wide(seed):
                       and row["dq_gain"] >= WIDE16_MIN_GAIN,
                       f"a 9-block cluster form less than {WIDE16_MIN_GAIN} "
                       f"times faster than the SIMT one at {row}")
+            if (B, T, nh, hd) in WIDE_SLAB_GATED:
+                check(row["gain"] >= WIDE16_MIN_GAIN
+                      and row["dkv_gain"] >= WIDE16_MIN_GAIN,
+                      f"a multi-slab cluster form less than "
+                      f"{WIDE16_MIN_GAIN} times faster than the SIMT one at "
+                      f"{row}")
             for kernel, names in (("forward", ("out", "serve_out")),
                                   ("dkv", ("dk", "dv")), ("dq", ("dq",))):
-                # past hd 1024: the 16-block forms'
-                key = (tag, kernel) + (("past1024",) if hd > 1024 else ())
+                # past hd 1024: the 16-block forms'; past 2048 the
+                # multi-slab forms' (and the SIMT dQ's)
+                key = (tag, kernel) + (
+                    ("past2048",) if hd > 2048 else
+                    ("past1024",) if hd > 1024 else ())
                 worst[key] = max(worst.get(key, 0.0),
                                  *(errs[n] for n in names))
             rows[(tag, row["shape"])] = row
@@ -1912,7 +1990,11 @@ WIDE_FLASH_KERNELS = dict(
     dq_f32="flash_bwd_dq_cluster_f32_kernel",
     dq_bf16="flash_bwd_dq_cluster_bf16_kernel",
     fwd_simt="flash_fwd_wide_kernel", dkv_simt="flash_bwd_dkv_wide_kernel",
-    dq_simt="flash_bwd_dq_wide_kernel")
+    dq_simt="flash_bwd_dq_wide_kernel",
+    fwd_slabs_f32="flash_fwd_slabs_f32_kernel",
+    fwd_slabs_bf16="flash_fwd_slabs_bf16_kernel",
+    dkv_slabs_f32="flash_bwd_dkv_slabs_f32_kernel",
+    dkv_slabs_bf16="flash_bwd_dkv_slabs_bf16_kernel")
 
 
 #: the wide kernels' instantiations wide_flash_sass names: the cluster
@@ -1926,7 +2008,19 @@ WIDE_FLASH_INSTANCES = {
     "fwd_f32_split", "fwd_bf16_split", "dkv_bf16_split", "dq_f32_split",
     "dq_bf16_c16",
     "fwd_simt_f32", "fwd_simt_bf16", "dkv_simt_f32", "dkv_simt_bf16",
-    "dq_simt_f32", "dq_simt_bf16"}
+    "dq_simt_f32", "dq_simt_bf16"} | {
+    # the multi-slab forms, per slabs a block ("_s2" .. "_s4"); the f32
+    # forward's split exchange from kF32SplitFrom blocks ("_split")
+    f"{k}_s{n}{x}" for n in (2, 3, 4) for k, x in (
+        ("fwd_slabs_f32", ""), ("fwd_slabs_f32", "_split"),
+        ("fwd_slabs_bf16", ""), ("dkv_slabs_f32", ""),
+        ("dkv_slabs_bf16", ""))}
+#: the multi-slab instances per (kernel, dtype)
+WIDE_SLAB_INSTANCES = {
+    (key, tag): tuple(sorted(n for n in WIDE_FLASH_INSTANCES
+                             if n.startswith(f"{k}_slabs_{tag}_")))
+    for key, k in (("forward", "fwd"), ("dkv", "dkv"))
+    for tag in ("f32", "bf16")}
 #: the instances the forms past 8 blocks run, per (kernel, dtype): the f32
 #: forward one-sum to 14 blocks and split past them, the f32 dK/dV one-sum
 #: (its split instance spilled), the f32 dQ one-sum at 9 blocks and split
@@ -1962,11 +2056,14 @@ def wide_flash_sass():
         for key, kernel in WIDE_FLASH_KERNELS.items():
             if kernel not in func:
                 continue
-            cluster = "cluster" in kernel
+            cluster = "cluster" in kernel or "slabs" in kernel
             # a templated cluster form's instance past 8 blocks: the split
-            # exchange (kSplit true) or the bf16 dQ's (kMaxC 16)
-            name = (key + ("_split" if "ILb1E" in func else
-                           "_c16" if "ILi16E" in func else "")
+            # exchange (kSplit true) or the bf16 dQ's (kMaxC 16); a
+            # multi-slab form's, its slabs a block (its first argument)
+            slabs = re.search(r"slabs_\w+_kernelILi(\d)E", func)
+            name = (key + (f"_s{slabs.group(1)}" if slabs else "")
+                    + ("_split" if "Lb1E" in func else
+                       "_c16" if "ILi16E" in func else "")
                     if cluster else
                     key + ("_bf16" if "bfloat16" in func else "_f32"))
             spill = info.get("spill_stores", -1) + info.get("spill_loads", -1)
@@ -1996,10 +2093,11 @@ def wide_flash_sass():
 #: 2, half the rows): the transformer's reference encoder (16 x 400, 8
 #: heads of 32), the long-context shape (4 x 2048 x 8 x 128), head dim
 #: 256, the wide cluster forms at head dim 512 and at 1152 the 9-block
-#: clusters (timed beside their SIMT forms): (B, Tq, Tk, nh, hd)
+#: clusters and at 2304 the forward's and dK/dV's multi-slab clusters
+#: (timed beside their SIMT forms): (B, Tq, Tk, nh, hd)
 QUERY_BLOCK_CASES = [(16, 200, 400, 8, 32), (4, 1024, 2048, 8, 128),
                      (16, 200, 400, 2, 256), (16, 200, 400, 1, 512),
-                     (16, 200, 400, 1, 1152)]
+                     (16, 200, 400, 1, 1152), (16, 200, 400, 1, 2304)]
 
 
 def phase_flash_query_block(seed):
@@ -2015,7 +2113,9 @@ def phase_flash_query_block(seed):
     and backward on the same block and bounds from this run's mask
     (flash_bound_ms, flash_bwd_bounds with Tk); past head dim 1024 the
     SIMT forward, dK/dV and dQ timed too, the cluster forms at least
-    WIDE16_MIN_GAIN times faster.  Returns ({(dtype, shape): row},
+    WIDE16_MIN_GAIN times faster (past 2048 the forward and dK/dV: the
+    dQ's default there is its SIMT form, timed once).  Returns ({(dtype,
+    shape): row},
     {(dtype, kernel): largest error})."""
     import torch
     import torch.nn.functional as F
@@ -2045,8 +2145,12 @@ def phase_flash_query_block(seed):
             step = {c: after[c] - before[c] for c in (
                 "flash_forward_block", "flash_bwd_dkv_block",
                 "flash_bwd_dq_block")}
-            check(step == dict(flash_forward_block=2, flash_bwd_dkv_block=1,
-                               flash_bwd_dq_block=1),
+            # a multi-slab call launches its kernel once per slab
+            n = {kind: max(expected_geometry(kind, hd)[0], 1) if hd > 256
+                 else 1 for kind in ("fwd", "dkv", "dq")}
+            check(step == dict(flash_forward_block=2 * n["fwd"],
+                               flash_bwd_dkv_block=n["dkv"],
+                               flash_bwd_dq_block=n["dq"]),
                   f"query block launches {step}")
             ref = fl._flash_plain(q, k, v, mask, False, scale)
             lse_p = fl._flash_lse_plain(q, k, mask, False, scale)
@@ -2088,7 +2192,8 @@ def phase_flash_query_block(seed):
                     simt_dkv_ms=time_cuda(lambda: fl._bwd_dkv_cuda(
                         q, k, v, do, lse, dsum, mask, False, scale,
                         simt=True), 5, flush),
-                    dq_simt_ms=time_cuda(lambda: fl._bwd_dq_cuda(
+                    dq_simt_ms=dq_ms if hd > CLUSTER_UP_TO["dq"] else
+                    time_cuda(lambda: fl._bwd_dq_cuda(
                         q, k, v, do, lse, dsum, mask, False, scale,
                         simt=True), 5, flush))
                 simt.update(gain=simt["simt_ms"] / ms,
@@ -2119,8 +2224,10 @@ def phase_flash_query_block(seed):
                        dq_bound_ms=bounds["dq"][0],
                        dq_bound_by=bounds["dq"][1], **simt)
             print("flash_query_block " + json.dumps(row))
-            check(not simt or min(simt["gain"], simt["dkv_gain"],
-                                  simt["dq_gain"]) >= WIDE16_MIN_GAIN,
+            check(not simt or min(
+                simt["gain"], simt["dkv_gain"],
+                simt["dq_gain"] if hd <= CLUSTER_UP_TO["dq"] else np.inf)
+                >= WIDE16_MIN_GAIN,
                   f"query block: a 16-block cluster form less than "
                   f"{WIDE16_MIN_GAIN} times faster than the SIMT one at "
                   f"{row}")
@@ -2148,12 +2255,17 @@ def phase_flash_digests():
     FLASH_DIGEST_CASES equal to FLASH_PARENT_DIGESTS (the f32 and bf16
     kernels, the wide SIMT forms at head dims 512 and 1152); and the
     clusters past 8 blocks give the bits recorded when they were added
-    (FLASH_C16_DIGESTS at FLASH_C16_DIGEST_CASES).
+    (FLASH_C16_DIGESTS at FLASH_C16_DIGEST_CASES), and so do the
+    multi-slab forms above head dim 2048 (FLASH_SLAB_DIGESTS at
+    FLASH_SLAB_DIGEST_CASES).
     Returns the number of parent digests compared."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     digests = flash_digests(fl)
     c16 = flash_digests(fl, FLASH_C16_DIGEST_CASES, simt=False)
+    slabs = flash_digests(fl, FLASH_SLAB_DIGEST_CASES, simt=False)
+    slab_differ = sorted(k for k, d in slabs.items()
+                         if FLASH_SLAB_DIGESTS.get(k) != d)
     differ = sorted(k for k, d in digests.items()
                     if FLASH_PARENT_DIGESTS.get(k) != d)
     c16_differ = sorted(k for k, d in c16.items()
@@ -2161,13 +2273,17 @@ def phase_flash_digests():
     print("flash_digests " + json.dumps(dict(
         compared=len(digests), parent=len(FLASH_PARENT_DIGESTS),
         differ=differ, c16_compared=len(c16), c16_differ=c16_differ,
-        c16=c16)))
+        c16=c16, slab_compared=len(slabs), slab_differ=slab_differ,
+        slabs=slabs)))
     check(set(digests) == set(FLASH_PARENT_DIGESTS) and not differ,
           f"flash launch forms whose outputs differ from the parent's: "
           f"{differ}")
     check(set(c16) == set(FLASH_C16_DIGESTS) and not c16_differ,
           f"16-block cluster forms whose outputs differ from their "
           f"recorded bits: {c16_differ}")
+    check(set(slabs) == set(FLASH_SLAB_DIGESTS) and not slab_differ,
+          f"multi-slab cluster forms whose outputs differ from their "
+          f"recorded bits: {slab_differ}")
     return len(digests)
 
 
@@ -2308,7 +2424,8 @@ def expected_train_launches(hps, steps):
     decoder step (its --remat recomputes only the loss head).  Under
     --compute_dtype=bfloat16 every launch takes the bf16 form, at a
     head dim above 256 the wide kernels' (their cluster forms up to
-    CLUSTER_UP_TO), and at a pointer-generator
+    CLUSTER_UP_TO, a call of a multi-slab form launching its kernel once
+    per slab: expected_geometry), and at a pointer-generator
     width past the fused kernels' dense forms their slab forms (the
     forward at K = 1 and the backward each by its own room).  One rank,
     no sp: no sp-block launch."""
@@ -2331,19 +2448,20 @@ def expected_train_launches(hps, steps):
         # the AAN's decoder has no self-attention: its encoder's layers only
         layers = hps.enc_layers + (hps.dec_layers if hps.model_family
                                    == "transformer" else 0)
-        for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
-            counts[k] = layers * steps
-        if hps.remat:
-            counts["flash_forward"] *= 2
-        if hps.compute_dtype == "bfloat16":
-            for k in ("flash_forward", "flash_bwd_dkv", "flash_bwd_dq"):
-                counts[k + "_bf16"] = counts[k]
         width = fl._padded_head_dim(hps.hidden_dim // hps.num_heads)
-        if fl._is_wide(width):
-            for k, kind in (("flash_forward", "fwd"),
-                            ("flash_bwd_dkv", "dkv"), ("flash_bwd_dq", "dq")):
+        wide = fl._is_wide(width)
+        for k, kind in (("flash_forward", "fwd"), ("flash_bwd_dkv", "dkv"),
+                        ("flash_bwd_dq", "dq")):
+            # a wide call launches its cluster form once per slab
+            slabs = expected_geometry(kind, width)[0] if wide else 0
+            counts[k] = layers * steps * max(slabs, 1)
+            if hps.remat and kind == "fwd":
+                counts[k] *= 2
+            if hps.compute_dtype == "bfloat16":
+                counts[k + "_bf16"] = counts[k]
+            if wide:
                 counts[k + "_wide"] = counts[k]
-                if width <= CLUSTER_UP_TO[kind]:
+                if slabs:
                     counts[k + "_wide_cluster"] = counts[k]
     else:
         counts["fused"] = counts["fused_bwd"] = hps.max_dec_steps * steps
@@ -2561,16 +2679,18 @@ def phase_main_path(seed, n_articles, work, device="cuda",
               f"{launched['flash_forward_wide']} of {flash} flash launches "
               f"took the wide kernel at head dim "
               f"{hps.hidden_dim // hps.num_heads}")
-        cluster = wide and width <= CLUSTER_UP_TO["fwd"]
+        # a multi-slab cluster form launches once per slab a block owns
+        slabs = expected_geometry("fwd", width)[0] if wide else 0
         check(launched["flash_forward_wide_cluster"]
-              == (flash if cluster else 0),
+              == (flash if slabs else 0),
               f"{launched['flash_forward_wide_cluster']} of {flash} flash "
               f"launches took the wide cluster form at head dim "
               f"{hps.hidden_dim // hps.num_heads}")
         check(flash > 0, "the flash attention kernel never launched")
-        check(flash == hps.enc_layers * n_batches,
+        check(flash == hps.enc_layers * n_batches * max(slabs, 1),
               f"{flash} flash launches for {n_batches} batches (expected "
-              f"{hps.enc_layers} per batch, one per encoder layer)")
+              f"{hps.enc_layers * max(slabs, 1)} per batch: one call per "
+              f"encoder layer, {max(slabs, 1)} launches a call)")
         check(bf16_launches == (flash if bf16 else 0),
               f"{bf16_launches} of {flash} flash launches took the bf16 "
               f"form in a {compute_dtype} decode")
@@ -3551,15 +3671,27 @@ HD320_WIDTHS = dict(hidden_dim=640, num_heads=2, enc_layers=2, dec_layers=2,
                     ffn_dim=2560)
 #: the bf16 flags of the head-dim-512 runs (phase_transformer_bf16's)
 HD512_BF16_FLAGS = dict(compute_dtype="bfloat16", loss_chunk=10)
-#: head dim 1152 at the transformer's full depth: the forward's, dK/dV's
-#: and dQ's 9-block clusters; --hidden_dim=1152 --num_heads=1, FFN 4 x
-#: 1152
+#: head dim 1152: the forward's, dK/dV's and dQ's 9-block clusters;
+#: --hidden_dim=1152 --num_heads=1, FFN 4 x 1152 (on the card at
+#: HD1152_CUT's depth)
 HD1152_WIDTHS = dict(hidden_dim=1152, num_heads=1, ffn_dim=4608)
-#: the depth of the head-dim-1152 card-against-CPU loss check: a CPU step
-#: at full depth and this width does not fit the script's time (the
-#: hidden-1200 pointer-generator's full-depth CPU step took 102.6 s)
+#: head dim 2304 at the transformer's full depth (6 + 6 layers, about 1.0
+#: B parameters): the forward's and dK/dV's multi-slab clusters (9 blocks
+#: of 2 slabs) beside the SIMT dQ; --hidden_dim=2304 --num_heads=1, FFN 4
+#: x 2304
+HD2304_WIDTHS = dict(hidden_dim=2304, num_heads=1, ffn_dim=9216)
+#: the depth of the head-dim-1152 path on the card (its decode and its 3
+#: train steps a dtype, the first of which is held to the CPU's step) and
+#: of the head-dim-2304 train steps held to the CPU's: CPU steps at full
+#: depth and these widths do not fit the script's time (the hidden-1200
+#: pointer-generator's full-depth CPU step took 102.6 s)
 HD1152_CUT = dict(enc_layers=2, dec_layers=2, max_dec_steps=20,
                   min_dec_steps=5)
+#: the head-dim-2304 card-against-CPU step's depth: HD1152_CUT and 100
+#: encoder steps (at 400 the CPU's bf16 step took 52.3 s and the f32 one
+#: 17.2 s on an H100 host, PERF.md); the kernels' forms depend on the
+#: head dim alone, so the card twin still takes the multi-slab forms
+HD2304_CPU_CUT = dict(HD1152_CUT, max_enc_steps=100)
 
 
 def wide_cpu_steps():
@@ -3571,7 +3703,8 @@ def wide_cpu_steps():
     102.6 s of the script's time limit on an H100 host, at 400 and 20
     45-59 s (PERF.md); the backward's form depends on D alone, so the
     card twin still takes the slab backward.  The head-dim-1152
-    transformer's depth is cut to HD1152_CUT."""
+    transformer's depth is cut to HD1152_CUT, the head-dim-2304 one's to
+    HD2304_CPU_CUT."""
     pg, tf = "pointer_generator", "transformer"
     return {
         "pg_h1200_train_cpu": (pg, dict(hidden_dim=1200, single_pass=1,
@@ -3586,6 +3719,11 @@ def wide_cpu_steps():
                                           **HD1152_CUT)),
         "hd1152_train_bf16_cpu": (tf, dict(HD1152_WIDTHS, single_pass=1,
                                            **HD1152_CUT,
+                                           **HD512_BF16_FLAGS)),
+        "hd2304_train_f32_cpu": (tf, dict(HD2304_WIDTHS, single_pass=1,
+                                          **HD2304_CPU_CUT)),
+        "hd2304_train_bf16_cpu": (tf, dict(HD2304_WIDTHS, single_pass=1,
+                                           **HD2304_CPU_CUT,
                                            **HD512_BF16_FLAGS))}
 
 
@@ -3756,13 +3894,21 @@ def phase_wide_heads(seed, device="cuda", cpu_steps=None):
         on the card against the CPU (phase_small_reference, the same
         tokens) and one train step on the card and with --device=cpu,
         the losses within 1e-4 relative;
-      * head dim 1152 at full width (HD1152_WIDTHS, 6 + 6 layers): a
-        decode of 16 articles through cli.main (6 wide forward launches
-        per batch, every one the 9-block cluster form), 3 train steps on
-        the card in f32 and 3 under HD512_BF16_FLAGS (12 forward, 12
-        dK/dV and 12 dQ launches per step, all of the cluster forms), and
-        the card-against-CPU loss check in both dtypes at
-        HD1152_CUT's depth, with head dim 512's bounds.
+      * head dim 1152 at HD1152_WIDTHS' widths and HD1152_CUT's depth
+        (2 + 2 layers): a decode of 16 articles through cli.main (2 wide
+        forward launches per batch, every one the 9-block cluster form),
+        3 train steps on the card in f32 and 3 under HD512_BF16_FLAGS (4
+        forward, 4 dK/dV and 4 dQ launches per step, all of the cluster
+        forms), the first step's loss held to the CPU's in both dtypes,
+        with head dim 512's bounds;
+      * head dim 2304 (HD2304_WIDTHS): a decode of 16 articles at full
+        depth (6 + 6 layers, about 1.0 B parameters; 6 wide forward
+        calls per batch, every one the multi-slab cluster form of 2
+        slabs a block, so 12 launches), and 3 train steps in f32 and 3
+        under HD512_BF16_FLAGS at HD2304_CPU_CUT's depth (4 forward and 4
+        dK/dV calls per step of the multi-slab forms, 8 launches each,
+        and 4 dQ launches of the SIMT form), the first step's loss held
+        to the CPU's in both dtypes.
 
     The --device=cpu reference steps are ``cpu_steps``' (CpuSteps; run
     here when it is None).  (device="cpu" rehearses the control flow
@@ -3786,28 +3932,39 @@ def phase_wide_heads(seed, device="cuda", cpu_steps=None):
         "hd320_train_card", lambda w: phase_train_main_path(
             seed, w, steps=1, device=device, family=tf,
             extra=steps["hd320_train_cpu"][1]))
+    # head dim 1152 at HD1152_CUT's depth: the 3-step runs are the CPU
+    # steps' card twins (the same flags), their first loss held to the
+    # CPU's
     out["hd1152_decode"] = _in_work("hd1152", lambda w: phase_main_path(
-        seed, 16, w, device=device, family=tf, widths=HD1152_WIDTHS))
-    for tag, flags in (("f32", {}), ("bf16", HD512_BF16_FLAGS)):
-        out[f"hd1152_steps_{tag}_card"] = _in_work(
-            f"hd1152_steps_{tag}", lambda w: phase_train_main_path(
-                seed, w, steps=3, device=device, family=tf,
-                extra=dict(HD1152_WIDTHS, single_pass=1, **flags)))
+        seed, 16, w, device=device, family=tf,
+        widths=dict(HD1152_WIDTHS, **HD1152_CUT)))
+    for tag in ("f32", "bf16"):
         out[f"hd1152_train_{tag}_card"] = _in_work(
             f"hd1152_train_{tag}_card", lambda w: phase_train_main_path(
-                seed, w, steps=1, device=device, family=tf,
+                seed, w, steps=3, device=device, family=tf,
                 extra=steps[f"hd1152_train_{tag}_cpu"][1]))
+    # head dim 2304: the decode at full depth; the 3-step runs at
+    # HD2304_CPU_CUT's depth are the CPU steps' card twins, as at 1152
+    out["hd2304_decode"] = _in_work("hd2304", lambda w: phase_main_path(
+        seed, 16, w, device=device, family=tf, widths=HD2304_WIDTHS))
+    for tag in ("f32", "bf16"):
+        out[f"hd2304_train_{tag}_card"] = _in_work(
+            f"hd2304_train_{tag}_card", lambda w: phase_train_main_path(
+                seed, w, steps=3, device=device, family=tf,
+                extra=steps[f"hd2304_train_{tag}_cpu"][1]))
     for name in ("hd512_train_f32_cpu", "hd512_train_bf16_cpu",
                  "hd320_train_cpu", "hd1152_train_f32_cpu",
-                 "hd1152_train_bf16_cpu"):
+                 "hd1152_train_bf16_cpu", "hd2304_train_f32_cpu",
+                 "hd2304_train_bf16_cpu"):
         out[name] = cpu_steps.result(name)
     first = {k: v["losses"][0] for k, v in out.items() if "_train_" in k}
     rel = {k: abs(first[f"{k}_card"] - first[f"{k}_cpu"])
            / abs(first[f"{k}_cpu"])
            for k in ("hd512_train_f32", "hd512_train_bf16", "hd320_train",
-                     "hd1152_train_f32", "hd1152_train_bf16")}
+                     "hd1152_train_f32", "hd1152_train_bf16",
+                     "hd2304_train_f32", "hd2304_train_bf16")}
     bf16_bound = {}
-    for hd in ("hd512", "hd1152"):
+    for hd in ("hd512", "hd1152", "hd2304"):
         bf16_loss = first[f"{hd}_train_bf16_cpu"]
         bf16_gap = abs(bf16_loss - first[f"{hd}_train_f32_cpu"])
         bf16_bound[hd] = (4 * bf16_gap + 1e-5 * abs(bf16_loss)) \
@@ -3816,20 +3973,21 @@ def phase_wide_heads(seed, device="cuda", cpu_steps=None):
         first_losses=first, loss_rel_diff=rel, bf16_rel_bound=bf16_bound,
         decode_wide_launches_per_batch={
             hd: out[f"{hd}_decode"]["launches_per_batch"]
-            for hd in ("hd512", "hd1152")},
+            for hd in ("hd512", "hd1152", "hd2304")},
         decode_cluster_launches={
             hd: out[f"{hd}_decode"]["wide_cluster_launches"]
-            for hd in ("hd512", "hd1152")},
+            for hd in ("hd512", "hd1152", "hd2304")},
         train_launches_per_step={k: v["launches_per_step"]
                                  for k, v in out.items()
                                  if k.endswith("_card")},
         step_seconds={k: v["step_seconds"] for k, v in out.items()
                       if k.endswith("_card")})))
     check(all(rel[k] <= 1e-4 for k in ("hd512_train_f32", "hd320_train",
-                                       "hd1152_train_f32")),
+                                       "hd1152_train_f32",
+                                       "hd2304_train_f32")),
           f"wide heads: the card's f32 losses differ from the CPU's by "
           f"{rel} (relative)")
-    for hd in ("hd512", "hd1152"):
+    for hd in ("hd512", "hd1152", "hd2304"):
         check(rel[f"{hd}_train_bf16"] <= bf16_bound[hd],
               f"{hd} in bf16: the card's loss differs from the CPU's by "
               f"{rel[f'{hd}_train_bf16']} (relative), above "
@@ -6723,12 +6881,10 @@ def main(argv=None) -> int:
             kernels.append(entry)
     # past head dim 1024: the clusters of 9 to 16 blocks (their
     # split-exchange instances), on the head-dim-1152 main paths
-    # (phase_wide_heads: the decode, the 3-step runs and the cut-depth
-    # card steps)
-    hd1152_runs = dict(
-        f32=[wide["hd1152_steps_f32_card"], wide["hd1152_train_f32_card"]],
-        bf16=[wide["hd1152_steps_bf16_card"],
-              wide["hd1152_train_bf16_card"]])
+    # (phase_wide_heads, at HD1152_CUT's depth: the decode and the 3-step
+    # runs)
+    hd1152_runs = dict(f32=[wide["hd1152_train_f32_card"]],
+                       bf16=[wide["hd1152_train_bf16_card"]])
     for key, counter, library in (
             ("forward", "flash_forward", "_flash_attention_kernel"),
             ("dkv", "flash_bwd_dkv", "_flash_attention_bwd_dkv"),
@@ -6767,7 +6923,7 @@ def main(argv=None) -> int:
                              library_ms=r[lib], bound_ms=r[bound],
                              bound_by=r[by], simt_ms=r[simt])
                         for (t, _), r in fw_rows.items()
-                        if t == tag and _row_hd(r) > 1024],
+                        if t == tag and 1024 < _row_hd(r) <= 2048],
                 parent_ms=head[simt], gain=head[simt] / head[ms],
                 design=(
                     "a cluster of hd / 128 blocks (9 to 16, the H100's "
@@ -6782,6 +6938,87 @@ def main(argv=None) -> int:
                              "(sum_share, then gather_sums behind a second "
                              "barrier)")))
             kernels.append(entry)
+    # past head dim 2048: the forward's and dK/dV's clusters whose blocks
+    # own several slabs, on the head-dim-2304 main paths (phase_wide_heads:
+    # the decode at full depth, the 3-step runs at HD2304_CPU_CUT's), each
+    # call launching its kernel once per slab (``launches``; ``calls``
+    # the wrapper's calls); the dQ there is its SIMT form
+    hd2304_runs = dict(f32=[wide["hd2304_train_f32_card"]],
+                       bf16=[wide["hd2304_train_bf16_card"]])
+    for key, counter, library in (
+            ("forward", "flash_forward", "_flash_attention_kernel"),
+            ("dkv", "flash_bwd_dkv", "_flash_attention_bwd_dkv")):
+        for tag in ("f32", "bf16"):
+            head = fw_rows[(tag, "16x400x1x2304")]
+            ms, bound, by, plain, lib = (
+                ("ms", "bound_ms", "bound_by", "plain_ms", "library_ms")
+                if key == "forward" else
+                (f"{key}_ms", f"{key}_bound_ms", f"{key}_bound_by",
+                 "bwd_plain_ms", "bwd_library_ms"))
+            launched = sum(r["launches"][counter + "_wide_cluster"]
+                           for r in hd2304_runs[tag])
+            if key == "forward" and tag == "f32":
+                launched += wide["hd2304_decode"]["wide_cluster_launches"]
+            suffix = "" if key == "forward" else f"_bwd_{key}"
+            simt = "simt_ms" if key == "forward" else "simt_dkv_ms"
+            entry = dict(
+                name="flash_attention_wide_slabs" + suffix
+                + ("_bf16" if tag == "bf16" else ""),
+                route="cuda", source=wide_src,
+                replaces=("textsummarization_on_flink_tpu/models/"
+                          f"transformer.py:285 (library {library} at head "
+                          "dims above 2048, padded to a multiple of 128)"),
+                launches=launched, calls=launched // head["geometry"][0],
+                max_abs_err=fw_worst[(tag, key, "past2048")],
+                ms=head[ms], plain_ms=head[plain], bound_ms=head[bound],
+                bound_by=head[by], library_ms=head[lib],
+                library_backend=head["library_backend"],
+                shape=head["shape"], geometry=head["geometry"], sass={
+                    n: fw_sass[n] for n in WIDE_SLAB_INSTANCES[(key, tag)]},
+                shapes=[dict(shape=r["shape"], causal=r["causal"],
+                             geometry=r["geometry"], ms=r[ms],
+                             plain_ms=r[plain], library_ms=r[lib],
+                             bound_ms=r[bound], bound_by=r[by],
+                             simt_ms=r[simt])
+                        for (t, _), r in fw_rows.items()
+                        if t == tag and _row_hd(r) > 2048],
+                parent_ms=head[simt], gain=head[simt] / head[ms],
+                design=("a cluster of at most 16 blocks, each owning "
+                        "ceil(hd / 2048) 128-column slabs: the partial S "
+                        "(and dP) summed over the block's slabs in order "
+                        "on the tensor cores, then over the cluster as the "
+                        "one-slab forms exchange it; one pass (launch) per "
+                        "output slab a block owns, each forming S again"),
+                added="PR 28")
+            kernels.append(entry)
+    # and the dQ's SIMT form, which the head-dim-2304 train steps take
+    for tag in ("f32", "bf16"):
+        head = fw_rows[(tag, "16x400x1x2304")]
+        kernels.append(dict(
+            name="flash_attention_wide_simt_bwd_dq"
+            + ("_bf16" if tag == "bf16" else ""),
+            route="cuda", source=wide_src,
+            replaces=("textsummarization_on_flink_tpu/models/transformer.py"
+                      ":285 (library _flash_attention_bwd_dq at head dims "
+                      "above 2048, padded to a multiple of 128)"),
+            launches=sum(r["launches"]["flash_bwd_dq_wide"]
+                         for r in hd2304_runs[tag]),
+            max_abs_err=fw_worst[(tag, "dq", "past2048")],
+            ms=head["dq_ms"], plain_ms=head["bwd_plain_ms"],
+            bound_ms=head["dq_bound_ms"], bound_by=head["dq_bound_by"],
+            library_ms=head["bwd_library_ms"],
+            library_backend=head["library_backend"], shape=head["shape"],
+            sass=fw_sass[f"dq_simt_{tag}"],
+            shapes=[dict(shape=r["shape"], causal=r["causal"],
+                         ms=r["dq_ms"], plain_ms=r["bwd_plain_ms"],
+                         library_ms=r["bwd_library_ms"],
+                         bound_ms=r["dq_bound_ms"],
+                         bound_by=r["dq_bound_by"])
+                    for (t, _), r in fw_rows.items()
+                    if t == tag and _row_hd(r) > 2048],
+            design=("SIMT FMA: a block per 64 rows and (head, 128-column "
+                    "slab), S and dP over the whole head dim in 32-column "
+                    "chunks (the redesign above 2048 is the next slice)")))
     # the query-block forms (Tq < Tk: one sp rank's block of the
     # encoder's queries against every key; their own counters, each
     # launch also counted in its kernel's total above): the transformer's

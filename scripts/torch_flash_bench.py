@@ -38,7 +38,9 @@ numpy), which chip_smoke.py holds against its FLASH_PARENT_DIGESTS; run
 it with the parent checkout on PYTHONPATH to print those; and ("c16")
 those of the clusters past 8 blocks at
 FLASH_C16_DIGEST_CASES through their default launch, which
-FLASH_C16_DIGESTS holds.  Each time is
+FLASH_C16_DIGESTS holds, and ("slabs") those of the multi-slab forms
+above head dim 2048 at FLASH_SLAB_DIGEST_CASES, which FLASH_SLAB_DIGESTS
+holds.  Each time is
 the median of --iters
 launches, each after a write of 96 MB (more than the L2 cache), timed
 with CUDA events by this checkout's chip_smoke.time_cuda (also when the
@@ -114,7 +116,9 @@ def main(argv=None) -> int:
         print(json.dumps(dict(
             tag=args.tag, digests=chip_smoke.flash_digests(fl),
             c16=chip_smoke.flash_digests(
-                fl, chip_smoke.FLASH_C16_DIGEST_CASES, simt=False))))
+                fl, chip_smoke.FLASH_C16_DIGEST_CASES, simt=False),
+            slabs=chip_smoke.flash_digests(
+                fl, chip_smoke.FLASH_SLAB_DIGEST_CASES, simt=False))))
         return 0
     if args.which == "wide":
         bench_wide(args, chip_smoke, fl, flush, emit)

@@ -1659,34 +1659,147 @@ def test_flash_wide_16_block_clusters_repeat_their_bits_on_card(
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
+#: the multi-slab cluster forms of the forward and dK/dV: (slabs a block,
+#: blocks) (2, 9) with the last block owning one slab, (2, 9), (2, 12),
+#: (2, 16), (3, 11) and (3, 16)
+MULTI_SLAB_HEAD_DIMS = (2176, 2304, 3072, 4096, 4224, 6144)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", MULTI_SLAB_HEAD_DIMS)
+@pytest.mark.parametrize("tq,tk,causal", WIDE_CLUSTER_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_multi_slab_clusters_match_simt_and_plain_on_card(
+        hd, tq, tk, causal, dtype):
+    """The forward (with and without lse) and dK/dV above head dim 2048,
+    clusters whose blocks own 2 or 3 slabs, each held to the plain
+    versions and to the SIMT forms (``simt=True``) they replace
+    (``_held_to``; dK/dV on the plain lse and D); lse within 1e-5 *
+    max(1, |lse|), +inf on the same rows; the serving forward (no lse)
+    bit-equal to the training one; the new forms' kernel launches (one
+    per slab a block owns) counted by the cluster counters, the SIMT
+    forms' not."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(3, tk, 2, hd, seed=tq + hd)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    q = q[:, tk - tq:].contiguous()
+    scale = hd ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(tq + hd)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    want_out = fl._flash_plain(q, k, v, mask, causal, scale)
+    lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
+    want = fl._flash_bwd_plain(q, k, v, want_out, lse_p, do, mask, causal,
+                               scale)
+    dsum = torch.sum(do.float() * want_out.float(), dim=-1)
+    counters = ("launches_wide", "launches_wide_cluster",
+                "launches_bwd_dkv_wide", "launches_bwd_dkv_wide_cluster")
+    before = [getattr(fl, c) for c in counters]
+    got = {}
+    for simt in (False, True):
+        out, lse = fl._flash_cuda(q, k, v, mask, causal, scale,
+                                  with_lse=True, simt=simt)
+        dk, dv = fl._bwd_dkv_cuda(q, k, v, do, lse_p, dsum, mask, causal,
+                                  scale, simt=simt)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+        fin = torch.isfinite(lse_p)
+        assert float((lse - lse_p)[fin].abs().max()) <= 1e-5 * max(
+            1.0, float(lse_p[fin].abs().max()))
+        for got_x, want_x in ((out, want_out), (dk, want[1]),
+                              (dv, want[2])):
+            _held_to(got_x, want_x, dtype)
+        got[simt] = (out, dk, dv)
+    for new_x, simt_x in zip(got[False], got[True]):
+        _held_to(new_x, simt_x, dtype)
+    serve = fl._flash_cuda(q, k, v, mask, causal, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(serve, got[False][0])
+    # a multi-slab call launches its kernel once per slab a block owns
+    s = -(-hd // 128 // 16)
+    assert [getattr(fl, c) - b for c, b in zip(counters, before)] == [
+        2 * s + 1, 2 * s, s + 1, s]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (2176, 4224))
+@pytest.mark.parametrize("tq,tk,causal", [(200, 200, False),
+                                          (130, 130, True),
+                                          (100, 200, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_multi_slab_clusters_repeat_their_bits_on_card(
+        hd, tq, tk, causal, dtype):
+    """Sums over the slabs in order, then over the ranks, no atomics: two
+    runs of the multi-slab forward (with lse) and dK/dV on the same inputs
+    give the same bits, with a key mask, causal, and on a query block."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(2, tk, 2, hd, seed=hd)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    q = q[:, tk - tq:].contiguous()
+    scale = hd ** -0.5
+    runs = [fl._flash_cuda(q, k, v, mask, causal, scale, with_lse=True)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    out, lse = runs[0]
+    g = torch.Generator(device="cuda").manual_seed(hd)
+    do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
+    dsum = torch.sum(do.float() * out.float(), dim=-1)
+    first, second = (fl._bwd_dkv_cuda(q, k, v, do, lse, dsum, mask, causal,
+                                      scale) for _ in range(2))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 #: the largest head dim at which each wide kernel takes its cluster form:
-#: clusters of up to 16 blocks
-CLUSTER_UP_TO = dict(fwd=2048, dkv=2048, dq=2048)
+#: the forward and dK/dV in clusters of up to 16 blocks owning up to 4
+#: slabs each, the dQ in clusters of up to 16 one-slab blocks
+CLUSTER_UP_TO = dict(fwd=8192, dkv=8192, dq=2048)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["fwd", "dkv", "dq"])
 def test_flash_wide_forms_follow_the_rule_on_card(kind):
-    """For every padded head dim from 384 to 4096 the library's own form
+    """For every padded head dim from 384 to 8448 the library's own form
     (ts_flash_wide_form, which the launch counters read) is the cluster
-    form up to CLUSTER_UP_TO and the SIMT form above; where it is a
-    cluster, at least one cluster of it is resident on this card in both
-    dtypes (ts_flash_wide_active_clusters, the check each launch makes at
-    first use)."""
+    form up to CLUSTER_UP_TO and the SIMT form above, and a head dim
+    that is not a multiple of 128 has none; the geometry it reports is
+    one slab a block and hd / 128 blocks up to 2048, above it ceil(C /
+    16) slabs and ceil(C / slabs) blocks, and a call launches the kernel
+    once per slab (once for the SIMT form); where it is a cluster, at
+    least one cluster of the instance a launch takes is resident on this
+    card at that many blocks in both dtypes
+    (ts_flash_wide_active_clusters_at, the check each launch makes at
+    first use; up to 2048 the same as ts_flash_wide_active_clusters at
+    those blocks)."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     _need_cuda()
     lib = fl._load_wide_library()
     i = fl.WIDE_KINDS.index(kind)
-    for hd in range(384, 4097, fl.WIDE_STEP):
+    for hd in range(384, 8449, fl.WIDE_STEP):
         cluster = hd <= CLUSTER_UP_TO[kind]
-        assert lib.ts_flash_wide_form(i, hd) == int(cluster), hd
-        assert fl._cluster_form(kind, hd) == cluster
-        assert not fl._cluster_form(kind, hd, simt=True)
+        assert lib.ts_flash_wide_form(i, hd, None, None) == int(cluster), hd
+        C = hd // 128
+        slabs = -(-C // 16)
+        want = (slabs, -(-C // slabs)) if cluster else (0, 0)
+        assert fl._wide_geometry(kind, hd) == want, hd
+        assert fl._wide_launches(kind, hd) == (want[0] or 1, cluster)
+        assert fl._wide_launches(kind, hd, simt=True) == (1, False)
         if cluster:
             for bf16 in (0, 1):
-                n = lib.ts_flash_wide_active_clusters(i, bf16, hd // 128)
+                n = lib.ts_flash_wide_active_clusters_at(i, bf16, hd)
                 assert n >= 1, (hd, bf16, n)
+                if slabs == 1:
+                    assert lib.ts_flash_wide_active_clusters(
+                        i, bf16, want[1]) == n
+        else:
+            assert lib.ts_flash_wide_active_clusters_at(i, 0, hd) < 0
+    assert lib.ts_flash_wide_form(i, 8200, None, None) == -1
+    with pytest.raises(ValueError, match="8200"):
+        fl._wide_geometry(kind, 8200)
 
 
 @pytest.mark.cuda
@@ -1731,13 +1844,14 @@ QUERY_BLOCKS = ((50, 100), (33, 100), (65, 130), (200, 400))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 128, 256, 384, 512, 1024, 1152])
+@pytest.mark.parametrize("hd", [32, 128, 256, 384, 512, 1024, 1152, 2304])
 @pytest.mark.parametrize("tq,tk", QUERY_BLOCKS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_query_block_matches_plain_on_card(hd, tq, tk, dtype):
     """Every flash kernel (forward with and without lse, dK/dV, dQ; f32,
     bf16 and wide, the cluster forms up to hd 1024; at 1152 the 9-block
-    clusters) on a block of Tq query
+    clusters; at 2304 the forward's and dK/dV's 9-block clusters of two
+    slabs a block beside the SIMT dQ) on a block of Tq query
     rows (rows [Tq, 2 Tq) of the article's queries) against all Tk keys,
     a ragged key mask and article 1 fully masked: f32 within 1e-5 of the
     plain versions relative to each output's size, bf16 within
@@ -1760,8 +1874,10 @@ def test_flash_query_block_matches_plain_on_card(hd, tq, tk, dtype):
     out, lse = fl._flash_cuda(q, k, v, mask, False, scale, with_lse=True)
     got = fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, False, scale)
     torch.cuda.synchronize()
+    # above 2048 the forward's and dK/dV's calls launch once per slab
+    s = -(-hd // 128 // 16) if hd > 256 else 1
     assert [getattr(fl, c) - b for c, b in zip(counters, before)] == [
-        2, 1, 1, 2, 1, 1]
+        2 * s, s, 1, 2 * s, s, 1]
     assert torch.equal(serve, out)
     want_out = fl._flash_plain(q, k, v, mask, False, scale)
     lse_p = fl._flash_lse_plain(q, k, mask, False, scale)

@@ -1,10 +1,11 @@
 """Head dims past the 8-block clusters (1152 and 2048: the wide forward's,
-dK/dV's and dQ's clusters of 9 and 16 blocks on the card) in the port's
-transformer against the JAX package's, on the CPU.  Which form each
+dK/dV's and dQ's clusters of 9 and 16 blocks on the card; 2304: the
+forward's and dK/dV's 9 blocks of 2 slabs each, beside the SIMT dQ) in
+the port's transformer against the JAX package's, on the CPU.  Which form each
 wide kernel takes is the library's rule (``ts_flash_wide_form``), so the
 card tests (tests/test_torch_cuda.py) hold it.
 
-At hidden 1152 and 2048 with one head, 1 + 1 layers, T_enc 40 and a
+At hidden 1152, 2048 and 2304 with one head, 1 + 1 layers, T_enc 40 and a
 narrow FFN (the head dim is what is under test), the same numpy params
 and batches go through both packages: the JAX package pads the head dim
 to a multiple of 128 for the library flash kernel (models/
@@ -39,8 +40,10 @@ from textsummarization_on_flink_tpu_torch.params import (
 )
 
 VSIZE = len(WORDS) + 4
-#: hidden_dim at one head: head dims 1152 (9 blocks) and 2048 (16)
-HIDDEN = [pytest.param(1152, id="hd1152"), pytest.param(2048, id="hd2048")]
+#: hidden_dim at one head: head dims 1152 (9 blocks), 2048 (16) and 2304
+#: (9 blocks of 2 slabs)
+HIDDEN = [pytest.param(1152, id="hd1152"), pytest.param(2048, id="hd2048"),
+          pytest.param(2304, id="hd2304")]
 COMMON = dict(model_family="transformer", num_heads=1, enc_layers=1,
               dec_layers=1, ffn_dim=256, max_enc_steps=40, batch_size=3)
 

@@ -95,9 +95,13 @@
 //     block's last row (forward, dQ) or before its first key (dK/dV) are
 //     never visited.  No atomics: two runs give the same bits.
 //
-// Above those head dims: the simple form, SIMT FMA at the 67 TFLOP/s f32
-// rate, each block forming S (and dP) over the whole head dim for one
-// 128-wide slab of its output:
+// Above head dim 2048 the forward and dK/dV take the multi-slab cluster
+// forms (their section below: a block owns up to 4 slabs, up to hd
+// 8192), and the dQ, and above 8192 every kind, the simple form, SIMT FMA
+// at the 67 TFLOP/s f32 rate, each block forming S (and dP) over the
+// whole head dim for one 128-wide slab of its output (the SIMT forms
+// also stay behind the _simt entry points at any head dim, the design
+// the cluster forms replaced, for timing them against it):
 //
 //   * 256 threads (16 x 16) a block; the block owns 64 rows (query rows
 //     in the forward and dQ, keys in dK/dV) and walks 64-wide tiles of
@@ -1608,7 +1612,937 @@ flash_bwd_dq_cluster_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The SIMT forms (above the cluster forms' head dims: 2048).
+// The multi-slab cluster forms of the forward and dK/dV (head dims above
+// 128 * kMaxClusterNP = 2048).
+//
+// Sixteen blocks is the largest cluster, so past 2048 a block owns kS =
+// ceil(C / 16) slabs (C = hd / 128) and the cluster holds C' = ceil(C /
+// kS) <= 16 blocks; block r owns the columns [128 kS r, 128 kS (r + 1))
+// (the last block fewer where kS does not divide C: its missing slabs are
+// staged as zeros, which add exact zeros to every product).  The
+// exchange is the one of the forms above (sum_share, gather_sums; every
+// multi-slab cluster has 9 to 16 blocks); only the product each block
+// forms before it grows: its partial S (and dP) is the sum over its kS
+// slabs, one product chain over the slabs in order, so the exchange
+// moves what it moves at C' blocks, whatever kS is.
+//
+// The outputs take passes (one launch each, `pass` = 0 .. kS - 1): pass p
+// keeps slab p of the block's output in registers (the accumulators of
+// the one-slab forms: 128 registers of dK and dV in the f32 dK/dV leave
+// no room for two) and forms every tile's S (and dP) partial over all kS
+// slabs again, the identical sums in every pass (the forward's pass p
+// sees pass 0's S bits; pass 0 writes the lse).  So the products on the
+// S side cost kS times over: at kS = 2 each block does 3 slab-products a
+// tile and pass where the one-slab forms do 2.
+//
+// Shared memory: the operand a block keeps for the whole loop (q in the
+// forward, K and V in dK/dV) and the tiles of the other one are staged
+// over all kS slabs in rows of 128 kS columns, so they grow with kS; the
+// geometry shrinks with kS to keep 4 slabs (hd 8192, the largest the
+// forms take: clustered sends larger head dims to the SIMT forms) within
+// 227 KB a block:
+//
+//   * f32 forward: 64 query rows, 4 warps, key tiles of 8 keys (the f32
+//     dQ's tile), q staged once over kS slabs and split at use (as the
+//     f32 dQ does), K over kS slabs and V over the output slab
+//     double-buffered and split once; 108,352 / 153,408 / 198,464 bytes
+//     at kS 2 / 3 / 4 (two blocks an SM at kS 2);
+//   * f32 dK/dV: query tiles of 8 rows; 64 keys (4 warps) at kS 2, 32
+//     keys (2 warps) from kS 3, the query tiles double-buffered up to kS
+//     3 and single at kS 4: 191,488 / 178,176 / 202,368 bytes;
+//   * bf16 forward: one warpgroup of 64 query rows, key tiles of 32 keys,
+//     q copied once (kS boxes of 128 columns), K (kS boxes) and V (the
+//     output slab) through a 2-stage ring: 99,352 / 132,120 / 164,888
+//     bytes (two blocks an SM at kS 2);
+//   * bf16 dK/dV: one warpgroup of 64 keys, query tiles of 32 rows, K and
+//     V copied once over kS slabs, q and dO (kS slabs each) through a
+//     2-stage ring, single at kS 4: 165,144 / 230,680 / 230,680 bytes.
+
+// rows [r0, r0 + n_rows) of a [T, nh, hd] head view (row r at src + r *
+// row_stride; src at the block's first column), columns [0, W) into a
+// shared tile of `stride` floats per row; rows at or past T and columns
+// at or past n_cols (the block's real columns, a multiple of 4) are
+// zero-filled.  stage_rows' chunks per thread, so split_tile<W> splits
+// what a thread copied
+template <int W, int kThreads>
+__device__ __forceinline__ void stage_cols(float* dst, int stride,
+                                           const float* src,
+                                           size_t row_stride, int r0,
+                                           int n_rows, int T, int n_cols,
+                                           int tid) {
+  constexpr int kC4 = W / 4;
+  for (int idx = tid; idx < n_rows * kC4; idx += kThreads) {
+    const int r = idx / kC4, c = idx % kC4;
+    const bool in = r0 + r < T && 4 * c < n_cols;
+    tf32x3::cp_async16(dst + r * stride + 4 * c,
+                       in ? src + (size_t)(r0 + r) * row_stride + 4 * c : src,
+                       in ? 16 : 0);
+  }
+}
+
+// out[0] = A . M^T over the block's kS slabs for 16 rows of A and the 8
+// rows of the split tile `bt`: head_dim_product<1, 16 kS>'s sums in its
+// order (a fresh accumulator per 16-wide slice of the head dim, added to
+// out slice by slice), unrolled within a slab and not across the slabs:
+// unrolled over all of them, the f32 dK/dV at 4 slabs and the split
+// forward spilled
+template <int kS, class AFrag>
+__device__ __forceinline__ void slab_product(float (&out)[1][4], AFrag a,
+                                             tf32x3::SplitTile bt, int stride,
+                                             int g, int t) {
+  out[0][0] = out[0][1] = out[0][2] = out[0][3] = 0.f;
+#pragma unroll 1
+  for (int j = 0; j < kS; ++j) {
+#pragma unroll
+    for (int k2 = 0; k2 < kSlab / 8; k2 += 2) {
+      const int kk = j * (kSlab / 8) + k2;
+      const tf32x3::FragA a0 = a(kk), a1 = a(kk + 1);
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      tf32x3::mma3(c, a0, tf32x3::load_b_t(bt, 8 * kk, stride, g, t));
+      tf32x3::mma3(c, a1, tf32x3::load_b_t(bt, 8 * kk + 8, stride, g, t));
+      tf32x3::add4(out[0], c);
+    }
+  }
+}
+
+template <int kS>
+struct SlabsFwdF32 {
+  static constexpr int kThreads = 128;
+  static constexpr int kRows = 64;
+  static constexpr int kKeys = 8;
+  static constexpr int kW = kS * kSlab;       // the block's columns
+  static constexpr int kStride = kW + 4;     // floats per shared row of q, K
+  static constexpr int kVStride = kSlab + 4;  // of V (the output slab)
+  static constexpr int kOT = kSlab / 8;      // 8-wide column tiles of O
+  static constexpr int kQ = kRows * kStride;
+  static constexpr int kKTile = kKeys * kStride;
+  static constexpr int kVTile = kKeys * kVStride;
+  static constexpr int kStage = kKTile + kVTile + kKeys;  // K, V, key flags
+  static constexpr int kX = 4 * 4 * 32;  // floats of a buffer
+  static constexpr size_t kSmem =
+      (kQ + 2 * kStage + kKTile + kVTile + 2 * kX) * sizeof(float);
+  static_assert(kStage % 4 == 0, "16-byte aligned stages");
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+// grid (C' * ceil(Tq / 64), nh, B) in clusters of (C', 1, 1);
+// SlabsFwdF32<kS>::kThreads threads, kSmem bytes of dynamic shared memory;
+// output slab `pass` of the block.  Per key tile: each warp forms its
+// partial S over the block's kS slabs and writes it; after a cluster
+// barrier (kSplit: share_if's exchange) it sums the cluster's, runs the
+// online softmax on it and adds P V over its output slab to O
+template <int kS, bool kSplit>
+__global__ void __launch_bounds__(SlabsFwdF32<kS>::kThreads, 1)
+flash_fwd_slabs_f32_kernel(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v,
+                           const float* __restrict__ key_mask,
+                           float* __restrict__ out, float* __restrict__ lse,
+                           int Tq, int Tk, int nh, int hd, int causal,
+                           float sm_scale, int pass) {
+  using S = SlabsFwdF32<kS>;
+  constexpr int kKeys = S::kKeys, kStride = S::kStride;
+  constexpr int kVStride = S::kVStride;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * S::kW;  // the block's first
+  const int ocol = col0 + pass * kSlab;                // its output slab's
+  const int n_cols = min(S::kW, hd - col0);            // its real columns
+  float* q_s = smem;
+  float* stages = q_s + S::kQ;               // 2 x (K, V, key flags)
+  float* k_lo = stages + 2 * S::kStage;      // lo parts of the current tile
+  float* v_lo = k_lo + S::kKTile;
+  float* x_s = v_lo + S::kVTile;             // the two exchange buffers
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const size_t pos_stride = (size_t)nh * hd;
+  const size_t head = (size_t)h * hd;
+  const float* kb = k + (size_t)b * Tk * pos_stride + head;
+  const float* vb = v + (size_t)b * Tk * pos_stride + head;
+  // V's output slab, or (a slab past hd) zeros read from the block's first
+  const float* v_src = vb + (ocol < hd ? ocol : col0);
+  const int v_cols = ocol < hd ? kSlab : 0;
+  const int row0 = qb * S::kRows + warp * 16;  // the warp's first row
+  const int rows[2] = {row0 + g, row0 + g + 8};
+
+  float o[S::kOT][4];
+#pragma unroll
+  for (int n = 0; n < S::kOT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, (qb + 1) * S::kRows) : Tk;
+  const int n_tiles = (t_end + kKeys - 1) / kKeys;
+
+  auto stage = [&](int tile, int buf) {
+    float* ks = stages + buf * S::kStage;
+    float* vs = ks + S::kKTile;
+    float* oks = vs + S::kVTile;
+    const int k0 = tile * kKeys;
+    stage_cols<S::kW, S::kThreads>(ks, kStride, kb + col0, pos_stride, k0,
+                                   kKeys, Tk, n_cols, tid);
+    stage_cols<kSlab, S::kThreads>(vs, kVStride, v_src, pos_stride, k0,
+                                   kKeys, Tk, v_cols, tid);
+    for (int j = tid; j < kKeys; j += S::kThreads)
+      oks[j] = key_flag(key_mask, b, Tk, k0 + j);
+    tf32x3::cp_async_commit();
+  };
+  if (n_tiles > 0) {  // one group: q and the first key tile
+    stage_cols<S::kW, S::kThreads>(
+        q_s, kStride, q + (size_t)b * Tq * pos_stride + head + col0,
+        pos_stride, qb * S::kRows, S::kRows, Tq, n_cols, tid);
+    stage(0, 0);
+  }
+  const float* qw = q_s + warp * 16 * kStride;
+  auto q_frag = [&](int kk) {
+    return tf32x3::load_a(qw + 8 * kk, kStride, g, t);
+  };
+  auto xi = [&](int) { return warp * 32 + lane; };
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) {
+      stage(it + 1, (it + 1) & 1);  // its buffer was freed at it - 1's end
+      tf32x3::cp_async_wait<1>();
+    } else {
+      tf32x3::cp_async_wait<0>();
+    }
+    float* ks = stages + (it & 1) * S::kStage;
+    float* vs = ks + S::kKTile;
+    const float* oks = vs + S::kVTile;
+    tf32x3::split_tile<S::kW, S::kThreads>(ks, k_lo, kStride, kKeys, tid);
+    tf32x3::split_tile<kSlab, S::kThreads>(vs, v_lo, kVStride, kKeys, tid);
+    // the tile is split and has landed for every warp; any of its keys
+    // real and unmasked (the cluster's answer too)
+    const bool any = __syncthreads_or(tid < kKeys && oks[tid] > 0.f);
+    if (any) {
+      const int k0 = it * kKeys;
+      // the warp's rows are real and, causal, not every key of the tile
+      // follows its last row (the same warp of every block)
+      const bool active = row0 < Tq && !(causal && k0 > row0 + 15);
+      float* xb = x_s + (ex & 1) * S::kX;
+      if (active) {
+        // this block's partial S = Q K^T over its kS slabs, in order
+        float p[1][4];
+        const tf32x3::SplitTile kt{ks, k_lo};
+        slab_product<kS>(p, q_frag, kt, kStride, g, t);
+        reinterpret_cast<float4*>(xb)[xi(0)] = f4(p[0]);
+      }
+      cluster.sync();  // every block's partial is written
+      ++ex;
+      share_if<kSplit>(cluster, xb, S::kX / 4, C, S::kThreads, tid);
+      if (active) {
+        float s[1][4];
+        sum_or_gather<kSplit>(s, cluster, xb, S::kX / 4, C, xi);
+        const bool diag = causal && k0 + kKeys - 1 > row0;
+        float cmax[2] = {kNeg, kNeg};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 2 * t + (e & 1);
+          const int r = e >> 1;
+          const bool ok = oks[col] > 0.f && (!diag || k0 + col <= rows[r]);
+          s[0][e] = ok ? s[0][e] * sm_scale : -INFINITY;
+          cmax[r] = fmaxf(cmax[r], s[0][e]);
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 1));
+          cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 2));
+          const float m_new = fmaxf(m[r], cmax[r]);
+          alpha[r] = expf(m[r] - m_new);  // 0 on the row's first real key
+          m[r] = m_new;
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int n = 0; n < S::kOT; ++n) {
+          o[n][0] *= alpha[0];
+          o[n][1] *= alpha[0];
+          o[n][2] *= alpha[1];
+          o[n][3] *= alpha[1];
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = expf(s[0][e] - m[e >> 1]);  // masked: exactly 0
+          s[0][e] = pe;
+          l[e >> 1] += pe;
+        }
+        // O += P V over the output slab
+        const tf32x3::SplitTile vt{vs, v_lo};
+        tf32x3::tile_product<1, S::kOT, 1>(o, s, vt, kVStride, g, t);
+      }
+    }
+    __syncthreads();  // every warp is done with buffer it & 1 and the lo
+  }
+  if (n_tiles > 0) cluster.sync();  // no block leaves while a peer reads
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (ocol >= hd) return;  // the last block's missing slab
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Tq) continue;
+    float* o_row = out + (size_t)b * Tq * pos_stride + head + ocol +
+                   (size_t)rows[r] * pos_stride;
+#pragma unroll
+    for (int n = 0; n < S::kOT; ++n) {
+      float2 val = make_float2(0.f, 0.f);
+      if (l[r] > 0.f)
+        val = make_float2(o[n][2 * r] / l[r], o[n][2 * r + 1] / l[r]);
+      *reinterpret_cast<float2*>(o_row + 8 * n + 2 * t) = val;
+    }
+    if (lse != nullptr && t == 0 && ocol == 0)  // one block, pass 0
+      lse[((size_t)b * Tq + rows[r]) * nh + h] =
+          l[r] > 0.f ? m[r] + logf(l[r]) : INFINITY;
+  }
+}
+
+template <int kS>
+struct SlabsDkvF32 {
+  static constexpr int kWarps = kS == 2 ? 4 : 2;
+  static constexpr int kStages = kS <= 3 ? 2 : 1;  // query tiles in flight
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kKeys = 16 * kWarps;
+  static constexpr int kQ = 8;               // query rows per tile
+  static constexpr int kW = kS * kSlab;      // the block's columns
+  static constexpr int kStride = kW + 4;     // floats per shared row
+  static constexpr int kDT = kSlab / 8;      // 8-wide tiles of dK, dV
+  static constexpr int kKV = 2 * kKeys * kStride;
+  static constexpr int kTile = kQ * kStride;
+  // q, dO (hi after the split), then lse, D, a row flag (+ kQ of padding)
+  static constexpr int kStage = 2 * kTile + 4 * kQ;
+  static constexpr int kX = 2 * kWarps * 4 * 32;  // floats of a buffer
+  static constexpr size_t kSmem =
+      (kKV + kStages * kStage + 2 * kTile + 2 * kX) * sizeof(float);
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+// grid (C' * ceil(Tk / kKeys), nh, B) in clusters of (C', 1, 1);
+// SlabsDkvF32<kS>::kThreads threads, kSmem bytes of dynamic shared
+// memory; dK and dV of output slab `pass`.  Every block sums the C'
+// partials (the one-slab f32 dK/dV's exchange: dK and dV hold 128
+// registers a thread)
+template <int kS>
+__global__ void __launch_bounds__(SlabsDkvF32<kS>::kThreads, 1)
+flash_bwd_dkv_slabs_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    const float* __restrict__ key_mask, float* __restrict__ dk,
+    float* __restrict__ dv, int Tq, int Tk, int nh, int hd, int causal,
+    float sm_scale, int pass) {
+  using D = SlabsDkvF32<kS>;
+  constexpr int kQ = D::kQ, kStride = D::kStride;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * D::kW;
+  const int ocol = col0 + pass * kSlab;
+  const int n_cols = min(D::kW, hd - col0);
+  float* ks = smem;
+  float* vs = smem + D::kKeys * kStride;
+  float* stages = smem + D::kKV;
+  float* q_lo = stages + D::kStages * D::kStage;
+  float* do_lo = q_lo + D::kTile;
+  float* x_s = do_lo + D::kTile;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const size_t pos_stride = (size_t)nh * hd;
+  const size_t base = (size_t)b * Tk * pos_stride + (size_t)h * hd + col0;
+  const size_t q_base = (size_t)b * Tq * pos_stride + (size_t)h * hd + col0;
+  const size_t row_base = (size_t)b * Tq * nh + h;  // lse/dsum of (b, 0, h)
+  const int key0 = kb * D::kKeys + warp * 16;       // the warp's first key
+  const int keys[2] = {key0 + g, key0 + g + 8};
+  bool kok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kok[r] = key_ok(key_mask, b, Tk, keys[r]);
+
+  float dka[D::kDT][4], dva[D::kDT][4];
+#pragma unroll
+  for (int n = 0; n < D::kDT; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.f;
+  }
+  // no key of the block is attended: zeros (the whole cluster agrees)
+  const bool any = __syncthreads_or(kok[0] || kok[1]);
+  // causal (Tq == Tk): a row before the block's first key attends none
+  const int q_begin = causal ? kb * D::kKeys : 0;
+  const int n_tiles = any ? (Tq - q_begin + kQ - 1) / kQ : 0;
+
+  auto stage_q = [&](int tile, int buf) {
+    float* qs = stages + buf * D::kStage;
+    float* dos = qs + D::kTile;
+    float* lse_s = dos + D::kTile;
+    float* d_s = lse_s + kQ;
+    float* rok_s = d_s + kQ;
+    const int q0 = q_begin + tile * kQ;
+    stage_cols<D::kW, D::kThreads>(qs, kStride, q + q_base, pos_stride, q0,
+                                   kQ, Tq, n_cols, tid);
+    stage_cols<D::kW, D::kThreads>(dos, kStride, dout + q_base, pos_stride,
+                                   q0, kQ, Tq, n_cols, tid);
+    for (int i = tid; i < kQ; i += D::kThreads) {
+      const int row = q0 + i;
+      float lv = 0.f, d = 0.f;
+      bool ok = false;
+      if (row < Tq) {
+        lv = lse[row_base + (size_t)row * nh];
+        d = dsum[row_base + (size_t)row * nh];
+        ok = isfinite(lv);
+      }
+      lse_s[i] = ok ? lv : 0.f;
+      d_s[i] = d;
+      rok_s[i] = ok ? 1.f : 0.f;  // a real row with a key to attend
+    }
+    tf32x3::cp_async_commit();
+  };
+
+  if (n_tiles > 0) {
+    stage_cols<D::kW, D::kThreads>(ks, kStride, k + base, pos_stride,
+                                   kb * D::kKeys, D::kKeys, Tk, n_cols, tid);
+    stage_cols<D::kW, D::kThreads>(vs, kStride, v + base, pos_stride,
+                                   kb * D::kKeys, D::kKeys, Tk, n_cols, tid);
+    stage_q(0, 0);  // one group: K, V and the first query tile
+  }
+  const float* kw = ks + warp * 16 * kStride;
+  const float* vw = vs + warp * 16 * kStride;
+  auto k_frag = [&](int kk) {
+    return tf32x3::load_a(kw + 8 * kk, kStride, g, t);
+  };
+  auto v_frag = [&](int kk) {
+    return tf32x3::load_a(vw + 8 * kk, kStride, g, t);
+  };
+  auto xi = [&](int j) { return (warp * 2 + j) * 32 + lane; };
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    if constexpr (D::kStages == 2) {
+      if (it + 1 < n_tiles) {
+        stage_q(it + 1, (it + 1) & 1);
+        tf32x3::cp_async_wait<1>();
+      } else {
+        tf32x3::cp_async_wait<0>();
+      }
+    } else {
+      tf32x3::cp_async_wait<0>();  // copied at the end of tile it - 1
+    }
+    float* qs = stages + (D::kStages == 2 ? it & 1 : 0) * D::kStage;
+    float* dos = qs + D::kTile;
+    tf32x3::split_tile<D::kW, D::kThreads>(qs, q_lo, kStride, kQ, tid);
+    tf32x3::split_tile<D::kW, D::kThreads>(dos, do_lo, kStride, kQ, tid);
+    __syncthreads();
+
+    const int q0 = q_begin + it * kQ;
+    // the warp's keys are real and, causal, not every row of the tile
+    // precedes its first key (the same warp of every block)
+    const bool active = key0 < Tk && (!causal || q0 + kQ - 1 >= key0);
+    float* xb = x_s + (ex & 1) * D::kX;
+    float p[1][4], ds[1][4];
+    if (active) {
+      // this block's partial S^T = K Q^T and dP^T = V dO^T over its kS
+      // slabs, in order
+      const tf32x3::SplitTile qt{qs, q_lo}, dot{dos, do_lo};
+      slab_product<kS>(p, k_frag, qt, kStride, g, t);
+      slab_product<kS>(ds, v_frag, dot, kStride, g, t);
+      reinterpret_cast<float4*>(xb)[xi(0)] = f4(p[0]);
+      reinterpret_cast<float4*>(xb)[xi(1)] = f4(ds[0]);
+    }
+    cluster.sync();
+    ++ex;
+    if (active) {
+      // S^T summed, P^T = exp(S^T * scale - lse); exactly 0 where the
+      // pair is masked or the row has no key to attend
+      sum_partials<1>(p, cluster, xb, C, xi);
+      const float* lse_s = dos + D::kTile;
+      const float* d_s = lse_s + kQ;
+      const float* rok_s = d_s + kQ;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 2 * t + (e & 1);
+        const int r = e >> 1;
+        const bool ok =
+            kok[r] && rok_s[col] > 0.f && (!causal || keys[r] <= q0 + col);
+        p[0][e] = ok ? expf(p[0][e] * sm_scale - lse_s[col]) : 0.f;
+      }
+      // dV += P^T dO over the output slab
+      const tf32x3::SplitTile qt{qs + pass * kSlab, q_lo + pass * kSlab};
+      const tf32x3::SplitTile dot{dos + pass * kSlab, do_lo + pass * kSlab};
+      tf32x3::tile_product<1, D::kDT, 1>(dva, p, dot, kStride, g, t);
+      // dP^T summed, dS^T = P^T (dP^T - D) and dK += dS^T Q
+      sum_partials<1>(ds, cluster, xb, C, [&](int) { return xi(1); });
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ds[0][e] = p[0][e] * (ds[0][e] - d_s[2 * t + (e & 1)]);
+      tf32x3::tile_product<1, D::kDT, 1>(dka, ds, qt, kStride, g, t);
+    }
+    __syncthreads();  // every warp is done with the tile's buffer and lo
+    if constexpr (D::kStages == 1)
+      if (it + 1 < n_tiles) stage_q(it + 1, 0);
+  }
+  if (n_tiles > 0) cluster.sync();  // no block leaves while a peer reads
+
+  if (ocol >= hd) return;  // the last block's missing slab
+  const size_t o_base = base - col0 + ocol;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (keys[r] >= Tk) continue;
+    float* dk_row = dk + o_base + (size_t)keys[r] * pos_stride;
+    float* dv_row = dv + o_base + (size_t)keys[r] * pos_stride;
+#pragma unroll
+    for (int n = 0; n < D::kDT; ++n) {
+      *reinterpret_cast<float2*>(dk_row + 8 * n + 2 * t) = make_float2(
+          dka[n][2 * r] * sm_scale, dka[n][2 * r + 1] * sm_scale);
+      *reinterpret_cast<float2*>(dv_row + 8 * n + 2 * t) =
+          make_float2(dva[n][2 * r], dva[n][2 * r + 1]);
+    }
+  }
+}
+
+template <int kS>
+struct SlabsFwdBf16 {
+  static constexpr int kThreads = 128;  // one warpgroup
+  static constexpr int kRows = 64;
+  static constexpr int kKeys = 32;      // keys per tile
+  static constexpr int kQ = SlabTile::bytes(kRows);  // one slab of q
+  static constexpr int kK = SlabTile::bytes(kKeys);  // one slab of a K or V
+  static constexpr int kStage = (kS + 1) * kK;        // K (kS slabs), V
+  // a buffer: each thread's S registers, as float4 [kKeys / 8][threads]
+  static constexpr int kXFloats = kThreads * kKeys / 2;
+  static constexpr int kXOff = kS * kQ + 2 * kStage;
+  static constexpr int kBarOff = kXOff + 2 * kXFloats * 4;
+  static constexpr size_t kSmem = kBarOff + 3 * 8 + 1024;
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+// grid (C' * ceil(Tq / 64), nh, B) in clusters of (C', 1, 1);
+// SlabsFwdBf16<kS>::kThreads threads, kSmem bytes of dynamic shared
+// memory; the maps' boxes are 64 rows (q) and 32 rows (k, v); output
+// slab `pass`; the exchange split in two (every such cluster has more
+// than 8 blocks)
+template <int kS>
+__global__ void __launch_bounds__(SlabsFwdBf16<kS>::kThreads, 1)
+flash_fwd_slabs_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const float* __restrict__ key_mask,
+                            bf16* __restrict__ out, float* __restrict__ lse,
+                            int Tq, int Tk, int nh, int hd, int causal,
+                            float sm_scale, int pass) {
+  using S = SlabsFwdBf16<kS>;
+  constexpr int kKeys = S::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;                 // kS slabs of q
+  unsigned char* tiles = smem + kS * S::kQ;  // stage s: K's kS slabs, V
+  float* x_s = reinterpret_cast<float*>(smem + S::kXOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::kBarOff);
+  uint64_t* q_bar = full + 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * kS * kSlab;
+  const int ocol = col0 + pass * kSlab;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const int r_blk = qb * S::kRows;          // the block's first row
+  const int q_row = r_blk + 16 * warp + g;
+  const int rows[2] = {q_row, q_row + 8};   // this thread's rows of O
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, r_blk + S::kRows) : Tk;
+  const int n_tiles = (t_end + kKeys - 1) / kKeys;
+  // thread 0: tile it's K (kS slabs) and V (the output slab) into its
+  // stage; boxes past hd (the last block's missing slab) are zero-filled
+  auto issue = [&](int it) {
+    const int s = it & 1;
+    unsigned char* ks = tiles + s * S::kStage;
+    tma::mbar_arrive_tx(&full[s], S::kStage);
+#pragma unroll
+    for (int j = 0; j < kS; ++j)
+      wg::load_tile<kSlab>(ks + j * S::kK, &k_map, kKeys, it * kKeys, h, b,
+                           &full[s], col0 + j * kSlab);
+    wg::load_tile<kSlab>(ks + kS * S::kK, &v_map, kKeys, it * kKeys, h, b,
+                         &full[s], ocol);
+  };
+  if (tid == 0) {
+    tma::mbar_init(&full[0], 1);
+    tma::mbar_init(&full[1], 1);
+    tma::mbar_init(q_bar, 1);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma::mbar_arrive_tx(q_bar, kS * S::kQ);
+#pragma unroll
+    for (int j = 0; j < kS; ++j)
+      wg::load_tile<kSlab>(qs + j * S::kQ, &q_map, S::kRows, r_blk, h, b,
+                           q_bar, col0 + j * kSlab);
+    if (n_tiles > 0) issue(0);
+  }
+
+  const float scale_l2 = sm_scale * kLog2e;
+  float oa[kSlab / 2];
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) oa[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // log2 units; this thread's
+  tma::mbar_wait(q_bar, 0);
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it & 1;
+    // the next tile's stage was freed by the barrier ending tile it - 1
+    if (tid == 0 && it + 1 < n_tiles) issue(it + 1);
+    const int k0 = it * kKeys;
+    // bit 2 i + e: key k0 + 8 i + 2 t + e (this thread's columns of S) is
+    // real and unmasked
+    uint32_t okb = 0;
+#pragma unroll
+    for (int i = 0; i < kKeys / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        okb |= (uint32_t)key_ok(key_mask, b, Tk, k0 + 8 * i + 2 * t + e)
+               << (2 * i + e);
+    const bool any = __syncthreads_or(okb != 0);  // the cluster's too
+    tma::mbar_wait(&full[s], (it >> 1) & 1);
+    if (any) {
+      const unsigned char* ks = tiles + s * S::kStage;
+      const unsigned char* vs = ks + kS * S::kK;
+      // causal: every key of the tile follows the block's last row
+      const bool active = r_blk < Tq && !(causal && k0 > r_blk + 63);
+      float* xb = x_s + (ex & 1) * S::kXFloats;
+      auto xi = [&](int i) { return i * S::kThreads + tid; };
+      float sa[kKeys / 2];  // S, then P
+      if (active) {
+        // this block's partial S = Q K^T over its kS slabs, in order
+        wg::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kS; ++j)
+#pragma unroll
+          for (int kk = 0; kk < kSlab / 16; ++kk)
+            wg::Mma<kKeys>::ss(
+                sa, wg::desc_k<kSlab>(qs + j * S::kQ, S::kRows, 0, kk),
+                wg::desc_k<kSlab>(ks + j * S::kK, kKeys, 0, kk),
+                j > 0 || kk > 0);
+        wg::commit();
+        wg::wait<0>();
+        wg::keep(sa);
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i)
+          reinterpret_cast<float4*>(xb)[xi(i)] = f4(sa + 4 * i);
+      }
+      cluster.sync();  // every block's partial is written
+      ++ex;
+      share_if<true>(cluster, xb, S::kXFloats / 4, C, S::kThreads, tid);
+      if (active) {
+        float sum[kKeys / 8][4];
+        sum_or_gather<true>(sum, cluster, xb, S::kXFloats / 4, C, xi);
+        // mask and scale (log2 units), the tile's max over this thread's
+        // columns
+        const bool diag = causal && k0 + kKeys - 1 > r_blk;
+        float cmax[2] = {kNeg, kNeg};
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, c = 8 * i + 2 * t + (e & 1);
+            const bool ok = ((okb >> (2 * i + (e & 1))) & 1) &&
+                            (!diag || k0 + c <= rows[r]);
+            const float x = ok ? sum[i][e] * scale_l2 : -INFINITY;
+            sa[4 * i + e] = x;
+            cmax[r] = fmaxf(cmax[r], x);
+          }
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 1));
+          cmax[r] = fmaxf(cmax[r], __shfl_xor_sync(0xffffffffu, cmax[r], 2));
+          const float m_new = fmaxf(m[r], cmax[r]);
+          alpha[r] = ex2(m[r] - m_new);  // 0 on the row's first real key
+          m[r] = m_new;
+          l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int i = 0; i < kSlab / 2; ++i) oa[i] *= alpha[(i >> 1) & 1];
+#pragma unroll
+        for (int i = 0; i < kKeys / 2; ++i) {
+          const float p = ex2(sa[i] - m[(i >> 1) & 1]);  // masked: exactly 0
+          sa[i] = p;
+          l[(i >> 1) & 1] += p;  // the unrounded P, as the library sums it
+        }
+        uint32_t pf[kKeys / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wg::a_frag(pf[kk], sa, kk);  // P rounded to bf16
+        wg::wgmma_fence();
+        // O += P V over the tile's keys (the output slab)
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wg::Mma<kSlab>::rs(oa, pf[kk], wg::desc_mn<kSlab>(vs, kKeys, kk, 0),
+                             1);
+        wg::commit();
+        wg::wait<0>();
+        wg::keep(oa);
+        wg::keep(pf);
+      }
+    }
+    __syncthreads();  // stage s is free for tile it + 2
+  }
+  cluster.sync();  // no block leaves while a peer reads its partials
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if (ocol >= hd) return;  // the last block's missing slab
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) {
+    const float li = l[(i >> 1) & 1];
+    oa[i] = li > 0.f ? oa[i] / li : 0.f;  // no key to attend: zeros
+  }
+  const size_t pos_stride = (size_t)nh * hd;
+  store_rows<kSlab>(out + (size_t)b * Tq * pos_stride + (size_t)h * hd + ocol,
+                    pos_stride, rows, Tq, oa, t);
+  if (lse != nullptr && t == 0 && ocol == 0) {  // one block, pass 0
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (rows[r] < Tq)
+        lse[((size_t)b * Tq + rows[r]) * nh + h] =
+            l[r] > 0.f ? m[r] / kLog2e + logf(l[r]) : INFINITY;
+  }
+}
+
+template <int kS>
+struct SlabsDkvBf16 {
+  static constexpr int kThreads = 128;  // one warpgroup
+  static constexpr int kKeys = 64;
+  static constexpr int kQ = 32;         // query rows per tile
+  static constexpr int kStages = kS <= 3 ? 2 : 1;  // query tiles in flight
+  static constexpr int kKV = SlabTile::bytes(kKeys);  // one slab of K or V
+  static constexpr int kTile = SlabTile::bytes(kQ);   // one slab of q or dO
+  static constexpr int kStage = 2 * kS * kTile;       // q, dO (kS slabs)
+  // a buffer: each thread's S^T and dP^T registers, float4 [kQ / 4][threads]
+  static constexpr int kXFloats = kThreads * kQ;
+  // K, V, the stages of q and dO, the tile's lse and D, the buffers
+  static constexpr int kRowsOff = 2 * kS * kKV + kStages * kStage;
+  static constexpr int kXOff = kRowsOff + 2 * kQ * 4;
+  static constexpr int kBarOff = kXOff + 2 * kXFloats * 4;
+  static constexpr size_t kSmem = kBarOff + 3 * 8 + 1024;
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+// grid (C' * ceil(Tk / 64), nh, B) in clusters of (C', 1, 1);
+// SlabsDkvBf16<kS>::kThreads threads, kSmem bytes of dynamic shared
+// memory; the maps' boxes are 32 rows (q, dO) and 64 rows (k, v); dK and
+// dV of output slab `pass`; the exchange split in two
+template <int kS>
+__global__ void __launch_bounds__(SlabsDkvBf16<kS>::kThreads, 1)
+flash_bwd_dkv_slabs_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    const float* __restrict__ key_mask, bf16* __restrict__ dk,
+    bf16* __restrict__ dv, int Tq, int Tk, int nh, int hd, int causal,
+    float sm_scale, int pass) {
+  using D = SlabsDkvBf16<kS>;
+  constexpr int kQ = D::kQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ks = smem;                   // kS slabs of K
+  unsigned char* vs = smem + kS * D::kKV;     // and of V
+  unsigned char* tiles = smem + 2 * kS * D::kKV;  // stage s: q, then dO
+  float* rows_s = reinterpret_cast<float*>(smem + D::kRowsOff);  // lse, D
+  float* x_s = reinterpret_cast<float*>(smem + D::kXOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + D::kBarOff);
+  uint64_t* kv_bar = full + 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * kS * kSlab;
+  const int ocol = col0 + pass * kSlab;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int kb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const size_t pos_stride = (size_t)nh * hd;
+  const size_t o_base = (size_t)b * Tk * pos_stride + (size_t)h * hd + ocol;
+  const size_t row_base = (size_t)b * Tq * nh + h;
+  const int kw = kb * D::kKeys;           // the block's first key
+  const int key0 = kw + 16 * warp + g;
+  const int keys[2] = {key0, key0 + 8};   // this thread's rows of dK, dV
+  bool kok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) kok[r] = key_ok(key_mask, b, Tk, keys[r]);
+  float dka[kSlab / 2], dva[kSlab / 2];
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) dka[i] = dva[i] = 0.f;
+  // no key of the block is attended: zeros (the whole cluster agrees)
+  if (!__syncthreads_or(kok[0] || kok[1])) {
+    if (ocol < hd) {
+      store_rows<kSlab>(dk + o_base, pos_stride, keys, Tk, dka, t);
+      store_rows<kSlab>(dv + o_base, pos_stride, keys, Tk, dva, t);
+    }
+    return;
+  }
+  // causal (Tq == Tk): a row before the block's first key attends none
+  const int q_begin = causal ? kw : 0;
+  const int n_tiles = (Tq - q_begin + kQ - 1) / kQ;
+  // thread 0: tile it's q and dO (kS slabs each; boxes past hd
+  // zero-filled) into its stage
+  auto issue = [&](int it) {
+    const int s = D::kStages == 2 ? it & 1 : 0;
+    const int q0 = q_begin + it * kQ;
+    unsigned char* qs = tiles + s * D::kStage;
+    tma::mbar_arrive_tx(&full[s], D::kStage);
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      wg::load_tile<kSlab>(qs + j * D::kTile, &q_map, kQ, q0, h, b, &full[s],
+                           col0 + j * kSlab);
+      wg::load_tile<kSlab>(qs + (kS + j) * D::kTile, &do_map, kQ, q0, h, b,
+                           &full[s], col0 + j * kSlab);
+    }
+  };
+  if (tid == 0) {
+    tma::mbar_init(&full[0], 1);
+    tma::mbar_init(&full[1], 1);
+    tma::mbar_init(kv_bar, 1);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma::mbar_arrive_tx(kv_bar, 2 * kS * D::kKV);
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      wg::load_tile<kSlab>(ks + j * D::kKV, &k_map, D::kKeys, kw, h, b,
+                           kv_bar, col0 + j * kSlab);
+      wg::load_tile<kSlab>(vs + j * D::kKV, &v_map, D::kKeys, kw, h, b,
+                           kv_bar, col0 + j * kSlab);
+    }
+    if (n_tiles > 0) issue(0);
+  }
+
+  const float scale_l2 = sm_scale * kLog2e;
+  tma::mbar_wait(kv_bar, 0);
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = D::kStages == 2 ? it & 1 : 0;
+    if constexpr (D::kStages == 2)
+      if (tid == 0 && it + 1 < n_tiles) issue(it + 1);
+    const int q0 = q_begin + it * kQ;
+    if (tid < kQ) {  // the tile's lse (log2 units; +inf: no key) and D
+      const int row = q0 + tid;
+      float lv = INFINITY, d = 0.f;
+      if (row < Tq) {
+        const float x = lse[row_base + (size_t)row * nh];
+        if (isfinite(x)) lv = x * kLog2e;
+        d = dsum[row_base + (size_t)row * nh];
+      }
+      rows_s[tid] = lv;
+      rows_s[kQ + tid] = d;
+    }
+    tma::mbar_wait(&full[s], D::kStages == 2 ? (it >> 1) & 1 : it & 1);
+    const unsigned char* qs = tiles + s * D::kStage;
+    const unsigned char* dos = qs + kS * D::kTile;
+    // causal: every row of the tile precedes the block's first key
+    const bool active = kw < Tk && !(causal && q0 + kQ - 1 < kw);
+    float* xb = x_s + (ex & 1) * D::kXFloats;
+    auto xi = [&](int i) { return i * D::kThreads + tid; };
+    float sa[kQ / 2], pa[kQ / 2];  // S^T then P^T; dP^T then dS^T
+    if (active) {
+      // this block's partial S^T = K Q^T and dP^T = V dO^T over its kS
+      // slabs, in order
+      wg::wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < kS; ++j)
+#pragma unroll
+        for (int kk = 0; kk < kSlab / 16; ++kk)
+          wg::Mma<kQ>::ss(sa,
+                          wg::desc_k<kSlab>(ks + j * D::kKV, D::kKeys, 0, kk),
+                          wg::desc_k<kSlab>(qs + j * D::kTile, kQ, 0, kk),
+                          j > 0 || kk > 0);
+#pragma unroll
+      for (int j = 0; j < kS; ++j)
+#pragma unroll
+        for (int kk = 0; kk < kSlab / 16; ++kk)
+          wg::Mma<kQ>::ss(pa,
+                          wg::desc_k<kSlab>(vs + j * D::kKV, D::kKeys, 0, kk),
+                          wg::desc_k<kSlab>(dos + j * D::kTile, kQ, 0, kk),
+                          j > 0 || kk > 0);
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(sa);
+      wg::keep(pa);
+#pragma unroll
+      for (int i = 0; i < kQ / 8; ++i) {
+        reinterpret_cast<float4*>(xb)[xi(i)] = f4(sa + 4 * i);
+        reinterpret_cast<float4*>(xb)[xi(kQ / 8 + i)] = f4(pa + 4 * i);
+      }
+    }
+    cluster.sync();  // every block's partials (and the tile's rows) are in
+    ++ex;
+    share_if<true>(cluster, xb, D::kXFloats / 4, C, D::kThreads, tid);
+    if (active) {
+      float sum[kQ / 4][4];
+      sum_or_gather<true>(sum, cluster, xb, D::kXFloats / 4, C, xi);
+      // P^T = exp(S^T * scale - lse), dS^T = P^T (dP^T - D) * scale
+      const bool diag = causal && q0 < kw + D::kKeys - 1;
+#pragma unroll
+      for (int i = 0; i < kQ / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1, c = 8 * i + 2 * t + (e & 1);
+          const float lv = rows_s[c], d = rows_s[kQ + c];
+          const bool ok =
+              kok[r] && lv != INFINITY && (!diag || keys[r] <= q0 + c);
+          const float p = ok ? ex2(fmaf(sum[i][e], scale_l2, -lv)) : 0.f;
+          sa[4 * i + e] = p;
+          pa[4 * i + e] = p * (sum[kQ / 8 + i][e] - d) * sm_scale;
+        }
+      }
+      uint32_t pf[kQ / 16][4], df[kQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk) {
+        wg::a_frag(pf[kk], sa, kk);  // P^T rounded to bf16
+        wg::a_frag(df[kk], pa, kk);  // dS^T rounded to bf16
+      }
+      const unsigned char* q_out = qs + pass * D::kTile;  // output slab
+      const unsigned char* do_out = dos + pass * D::kTile;
+      wg::wgmma_fence();
+      // dV += P^T dO, dK += dS^T Q over the tile's queries (the output
+      // slab)
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk)
+        wg::Mma<kSlab>::rs(dva, pf[kk], wg::desc_mn<kSlab>(do_out, kQ, kk, 0),
+                           1);
+#pragma unroll
+      for (int kk = 0; kk < kQ / 16; ++kk)
+        wg::Mma<kSlab>::rs(dka, df[kk], wg::desc_mn<kSlab>(q_out, kQ, kk, 0),
+                           1);
+      wg::commit();
+      wg::wait<0>();
+      wg::keep(dva);
+      wg::keep(dka);
+      wg::keep(pf);
+      wg::keep(df);
+    }
+    __syncthreads();  // the stage and the rows are free for the next tiles
+    if constexpr (D::kStages == 1)
+      if (tid == 0 && it + 1 < n_tiles) issue(it + 1);
+  }
+  cluster.sync();  // no block leaves while a peer reads its partials
+  if (ocol >= hd) return;  // the last block's missing slab
+  store_rows<kSlab>(dk + o_base, pos_stride, keys, Tk, dka, t);
+  store_rows<kSlab>(dv + o_base, pos_stride, keys, Tk, dva, t);
+}
+
+// ---------------------------------------------------------------------------
+// The SIMT forms (the dQ above head dim 2048; every kind at any wide head
+// dim behind the _simt entry points).
 
 // shared memory of each kernel, in floats: the chunks share their space
 // with the slab the product reads after them
@@ -2025,6 +2959,9 @@ flash_bwd_dq_wide_kernel(const E* __restrict__ q, const E* __restrict__ k,
 // ts_flash_wide_active_clusters name them
 enum Kind { kFwd = 0, kDkv = 1, kDq = 2 };
 
+// the most slabs a block of the multi-slab forms owns: hd 8192
+constexpr int kMaxSlabs = 4;
+
 // what every entry point checks: positive sizes within the grid's axes, a
 // head dim that is a multiple of the slab, causal only on whole blocks
 bool bad_shape(int B, int Tq, int Tk, int nh, int hd, int causal) {
@@ -2033,8 +2970,22 @@ bool bad_shape(int B, int Tq, int Tk, int nh, int hd, int causal) {
          (long long)nh * (hd / kSlab) > 65535 || (causal && Tq != Tk);
 }
 
-// do the cluster forms take this head dim: up to 16 blocks, every kind
-bool clustered(int hd) { return hd / kSlab <= kMaxClusterNP; }
+// the slabs a block of the cluster forms owns at head dim hd (1 up to
+// 2048), and the cluster's blocks C' = ceil(C / slabs)
+int slabs_of(int hd) {
+  return (hd / kSlab + kMaxClusterNP - 1) / kMaxClusterNP;
+}
+int blocks_of(int hd) {
+  const int s = slabs_of(hd);
+  return (hd / kSlab + s - 1) / s;
+}
+
+// does the entry point of `kind` take its cluster form at this head dim:
+// the forward and dK/dV up to 16 blocks of kMaxSlabs slabs (hd 8192),
+// the dQ up to 16 blocks of one (2048); the SIMT form above
+bool clustered(int kind, int hd) {
+  return hd / kSlab <= kMaxClusterNP * (kind == kDq ? 1 : kMaxSlabs);
+}
 
 // the smallest cluster at which the f32 forward splits its exchange over
 // the cluster (share_if); below it every block sums all C partials.  On
@@ -2102,14 +3053,14 @@ cudaError_t active_clusters(Kernel kernel, ClusterCheck& chk, int threads,
 }
 
 // Launch `kernel` over (C * n_blocks, nh, B) blocks of `threads` threads
-// in clusters of (C, 1, 1), C = hd / 128, with `smem` bytes of dynamic
-// shared memory.  At first use per device and C: active_clusters, and an
-// error (no launch) where not one cluster fits
+// in clusters of (C, 1, 1) (hd / 128 blocks, or blocks_of(hd) for the
+// multi-slab forms), with `smem` bytes of dynamic shared memory.  At
+// first use per device and C: active_clusters, and an error (no launch)
+// where not one cluster fits
 template <typename... KArgs, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(KArgs...), ClusterCheck& chk,
                            int threads, size_t smem, int n_blocks, int B,
-                           int nh, int hd, void* stream, Args... args) {
-  const int C = hd / kSlab;
+                           int nh, int C, void* stream, Args... args) {
   cudaError_t err;
   const unsigned bit = device_bit(&err);
   if (err != cudaSuccess) return err;
@@ -2199,7 +3150,7 @@ int launch_fwd_f32(const void* q, const void* k, const void* v,
   const auto kernel = fwd_f32_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
       kernel, *chk, S::kThreads, S::kSmem, (Tq + S::kRows - 1) / S::kRows, B,
-      nh, hd, stream, static_cast<const float*>(q),
+      nh, hd / kSlab, stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v), key_mask,
       static_cast<float*>(out), lse, Tq, Tk, nh, hd, causal, sm_scale);
 }
@@ -2219,7 +3170,7 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v,
   const auto kernel = fwd_bf16_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
       kernel, *chk, kBf16Threads, S::kSmem, (Tq + kBf16Rows - 1) / kBf16Rows,
-      B, nh, hd, stream, maps[0], maps[1], maps[2], key_mask,
+      B, nh, hd / kSlab, stream, maps[0], maps[1], maps[2], key_mask,
       static_cast<bf16*>(out), lse, Tq, Tk, nh, hd, causal, sm_scale);
 }
 
@@ -2233,7 +3184,7 @@ int launch_dkv_f32(const void* q, const void* k, const void* v,
   const auto kernel = dkv_f32_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
       kernel, *chk, D::kThreads, D::kSmem, (Tk + D::kKeys - 1) / D::kKeys, B,
-      nh, hd, stream, static_cast<const float*>(q),
+      nh, hd / kSlab, stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, dsum, key_mask,
       static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk, nh, hd,
@@ -2256,7 +3207,7 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
   const auto kernel = dkv_bf16_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
       kernel, *chk, kBf16Threads, D::kSmem, (Tk + kBf16Rows - 1) / kBf16Rows,
-      B, nh, hd, stream, maps[0], maps[1], maps[2], maps[3], lse, dsum,
+      B, nh, hd / kSlab, stream, maps[0], maps[1], maps[2], maps[3], lse, dsum,
       key_mask, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk, nh,
       hd, causal, sm_scale);
 }
@@ -2270,7 +3221,7 @@ int launch_dq_f32(const void* q, const void* k, const void* v,
   const auto kernel = dq_f32_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
       kernel, *chk, D::kThreads, D::kSmem, (Tq + D::kRows - 1) / D::kRows, B,
-      nh, hd, stream, static_cast<const float*>(q),
+      nh, hd / kSlab, stream, static_cast<const float*>(q),
       static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), lse, dsum, key_mask,
       static_cast<float*>(dq), Tq, Tk, nh, hd, causal, sm_scale);
@@ -2291,8 +3242,175 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
   const auto kernel = dq_bf16_kernel(hd / kSlab, chk);
   return (int)launch_cluster(
       kernel, *chk, kBf16Threads, D::kSmem, (Tq + kBf16Rows - 1) / kBf16Rows,
-      B, nh, hd, stream, maps[0], maps[1], maps[2], maps[3], lse, dsum,
+      B, nh, hd / kSlab, stream, maps[0], maps[1], maps[2], maps[3], lse, dsum,
       key_mask, static_cast<bf16*>(dq), Tq, Tk, nh, hd, causal, sm_scale);
+}
+
+// The multi-slab forms' kernels for kS slabs a block and a cluster of C
+// blocks (9 to 16), and the checks their launches keep: the f32 forward's
+// split exchange from kF32SplitFrom blocks as its one-slab form's; the
+// bf16 forms split at every such size; the f32 dK/dV never
+template <int kS>
+auto fwd_f32_slabs_kernel(int C, ClusterCheck*& chk) {
+  static ClusterCheck one, split;
+  chk = C >= kF32SplitFrom ? &split : &one;
+  return C >= kF32SplitFrom ? &flash_fwd_slabs_f32_kernel<kS, true>
+                            : &flash_fwd_slabs_f32_kernel<kS, false>;
+}
+template <int kS>
+auto fwd_bf16_slabs_kernel(int, ClusterCheck*& chk) {
+  static ClusterCheck one;
+  chk = &one;
+  return &flash_fwd_slabs_bf16_kernel<kS>;
+}
+template <int kS>
+auto dkv_f32_slabs_kernel(int, ClusterCheck*& chk) {
+  static ClusterCheck one;
+  chk = &one;
+  return &flash_bwd_dkv_slabs_f32_kernel<kS>;
+}
+template <int kS>
+auto dkv_bf16_slabs_kernel(int, ClusterCheck*& chk) {
+  static ClusterCheck one;
+  chk = &one;
+  return &flash_bwd_dkv_slabs_bf16_kernel<kS>;
+}
+
+// A multi-slab launch: one per pass (the block's output slab), all with
+// the same cluster of blocks_of(hd) blocks
+template <int kS, typename Kernel, typename... Args>
+int launch_passes(Kernel kernel, ClusterCheck& chk, int threads,
+                  size_t smem, int n_blocks, int B, int nh, int hd,
+                  void* stream, Args... args) {
+  for (int pass = 0; pass < kS; ++pass) {
+    const cudaError_t err =
+        launch_cluster(kernel, chk, threads, smem, n_blocks, B, nh,
+                       blocks_of(hd), stream, args..., pass);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+template <int kS>
+int launch_fwd_f32_slabs(const void* q, const void* k, const void* v,
+                         const float* key_mask, void* out, float* lse, int B,
+                         int Tq, int Tk, int nh, int hd, int causal,
+                         float sm_scale, void* stream) {
+  using S = SlabsFwdF32<kS>;
+  ClusterCheck* chk;
+  const auto kernel = fwd_f32_slabs_kernel<kS>(blocks_of(hd), chk);
+  return launch_passes<kS>(
+      kernel, *chk, S::kThreads, S::kSmem, (Tq + S::kRows - 1) / S::kRows, B,
+      nh, hd, stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v), key_mask,
+      static_cast<float*>(out), lse, Tq, Tk, nh, hd, causal, sm_scale);
+}
+
+template <int kS>
+int launch_fwd_bf16_slabs(const void* q, const void* k, const void* v,
+                          const float* key_mask, void* out, float* lse,
+                          int B, int Tq, int Tk, int nh, int hd, int causal,
+                          float sm_scale, void* stream) {
+  using S = SlabsFwdBf16<kS>;
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int lens[3] = {Tq, Tk, Tk};
+  const int rows[3] = {S::kRows, S::kKeys, S::kKeys};
+  cudaError_t err = make_maps(maps, ptrs, lens, rows, 3, B, nh, hd);
+  if (err != cudaSuccess) return (int)err;
+  ClusterCheck* chk;
+  const auto kernel = fwd_bf16_slabs_kernel<kS>(blocks_of(hd), chk);
+  return launch_passes<kS>(
+      kernel, *chk, S::kThreads, S::kSmem, (Tq + S::kRows - 1) / S::kRows, B,
+      nh, hd, stream, maps[0], maps[1], maps[2], key_mask,
+      static_cast<bf16*>(out), lse, Tq, Tk, nh, hd, causal, sm_scale);
+}
+
+template <int kS>
+int launch_dkv_f32_slabs(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* dsum, const float* key_mask, void* dk,
+                         void* dv, int B, int Tq, int Tk, int nh, int hd,
+                         int causal, float sm_scale, void* stream) {
+  using D = SlabsDkvF32<kS>;
+  ClusterCheck* chk;
+  const auto kernel = dkv_f32_slabs_kernel<kS>(blocks_of(hd), chk);
+  return launch_passes<kS>(
+      kernel, *chk, D::kThreads, D::kSmem, (Tk + D::kKeys - 1) / D::kKeys, B,
+      nh, hd, stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, dsum, key_mask,
+      static_cast<float*>(dk), static_cast<float*>(dv), Tq, Tk, nh, hd,
+      causal, sm_scale);
+}
+
+template <int kS>
+int launch_dkv_bf16_slabs(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* dsum, const float* key_mask, void* dk,
+                          void* dv, int B, int Tq, int Tk, int nh, int hd,
+                          int causal, float sm_scale, void* stream) {
+  using D = SlabsDkvBf16<kS>;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  const int lens[4] = {Tq, Tk, Tk, Tq};
+  const int rows[4] = {D::kQ, D::kKeys, D::kKeys, D::kQ};
+  cudaError_t err = make_maps(maps, ptrs, lens, rows, 4, B, nh, hd);
+  if (err != cudaSuccess) return (int)err;
+  ClusterCheck* chk;
+  const auto kernel = dkv_bf16_slabs_kernel<kS>(blocks_of(hd), chk);
+  return launch_passes<kS>(
+      kernel, *chk, D::kThreads, D::kSmem, (Tk + D::kKeys - 1) / D::kKeys, B,
+      nh, hd, stream, maps[0], maps[1], maps[2], maps[3], lse, dsum,
+      key_mask, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Tq, Tk, nh,
+      hd, causal, sm_scale);
+}
+
+// The cluster form of the forward (dK/dV) at head dim hd: the one-slab
+// form up to 2048, else the instance of slabs_of(hd) slabs a block
+int launch_fwd_cluster(bool bf16, const void* q, const void* k,
+                       const void* v, const float* key_mask, void* out,
+                       float* lse, int B, int Tq, int Tk, int nh, int hd,
+                       int causal, float sm_scale, void* stream) {
+  decltype(&launch_fwd_f32) fn;
+  switch (slabs_of(hd)) {
+    case 1:
+      fn = bf16 ? launch_fwd_bf16 : launch_fwd_f32;
+      break;
+    case 2:
+      fn = bf16 ? &launch_fwd_bf16_slabs<2> : &launch_fwd_f32_slabs<2>;
+      break;
+    case 3:
+      fn = bf16 ? &launch_fwd_bf16_slabs<3> : &launch_fwd_f32_slabs<3>;
+      break;
+    default:
+      fn = bf16 ? &launch_fwd_bf16_slabs<4> : &launch_fwd_f32_slabs<4>;
+  }
+  return fn(q, k, v, key_mask, out, lse, B, Tq, Tk, nh, hd, causal, sm_scale,
+            stream);
+}
+
+int launch_dkv_cluster(bool bf16, const void* q, const void* k,
+                       const void* v, const void* dout, const float* lse,
+                       const float* dsum, const float* key_mask, void* dk,
+                       void* dv, int B, int Tq, int Tk, int nh, int hd,
+                       int causal, float sm_scale, void* stream) {
+  decltype(&launch_dkv_f32) fn;
+  switch (slabs_of(hd)) {
+    case 1:
+      fn = bf16 ? launch_dkv_bf16 : launch_dkv_f32;
+      break;
+    case 2:
+      fn = bf16 ? &launch_dkv_bf16_slabs<2> : &launch_dkv_f32_slabs<2>;
+      break;
+    case 3:
+      fn = bf16 ? &launch_dkv_bf16_slabs<3> : &launch_dkv_f32_slabs<3>;
+      break;
+    default:
+      fn = bf16 ? &launch_dkv_bf16_slabs<4> : &launch_dkv_f32_slabs<4>;
+  }
+  return fn(q, k, v, dout, lse, dsum, key_mask, dk, dv, B, Tq, Tk, nh, hd,
+            causal, sm_scale, stream);
 }
 
 // the clusters of C blocks of `pick`'s kernel resident at once, or a
@@ -2314,10 +3432,9 @@ int launch_fwd(const void* q, const void* k, const void* v,
                int Tk, int nh, int hd, int causal, float sm_scale,
                void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(hd) && !simt)
-    return (sizeof(E) == 2 ? launch_fwd_bf16 : launch_fwd_f32)(
-        q, k, v, key_mask, out, lse, B, Tq, Tk, nh, hd, causal, sm_scale,
-        stream);
+  if (clustered(kFwd, hd) && !simt)
+    return launch_fwd_cluster(sizeof(E) == 2, q, k, v, key_mask, out, lse, B,
+                              Tq, Tk, nh, hd, causal, sm_scale, stream);
   static unsigned smem_set = 0;  // per instantiation and device
   cudaError_t err = tf32x3::allow_smem(flash_fwd_wide_kernel<E>,
                                        kFwdSmem * sizeof(float), smem_set);
@@ -2337,10 +3454,10 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                void* dk, void* dv, int B, int Tq, int Tk, int nh, int hd,
                int causal, float sm_scale, void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(hd) && !simt)
-    return (sizeof(E) == 2 ? launch_dkv_bf16 : launch_dkv_f32)(
-        q, k, v, dout, lse, dsum, key_mask, dk, dv, B, Tq, Tk, nh, hd,
-        causal, sm_scale, stream);
+  if (clustered(kDkv, hd) && !simt)
+    return launch_dkv_cluster(sizeof(E) == 2, q, k, v, dout, lse, dsum,
+                              key_mask, dk, dv, B, Tq, Tk, nh, hd, causal,
+                              sm_scale, stream);
   static unsigned smem_set = 0;
   cudaError_t err = tf32x3::allow_smem(flash_bwd_dkv_wide_kernel<E>,
                                        kDkvSmem * sizeof(float), smem_set);
@@ -2361,7 +3478,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               void* dq, int B, int Tq, int Tk, int nh, int hd, int causal,
               float sm_scale, void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(hd) && !simt)
+  if (clustered(kDq, hd) && !simt)
     return (sizeof(E) == 2 ? launch_dq_bf16 : launch_dq_f32)(
         q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk, nh, hd, causal,
         sm_scale, stream);
@@ -2508,11 +3625,20 @@ extern "C" int ts_flash_wide_bwd_dq_simt_bf16(
 }
 
 // The form the entry point of `kind` (0 the forward, 1 dK/dV, 2 dQ) takes
-// at head dim hd without simt: 1 the cluster form, 0 the SIMT form; -1
-// where no wide kernel takes hd
-extern "C" int ts_flash_wide_form(int kind, int hd) {
-  if (kind < kFwd || kind > kDq || hd <= 0 || hd % kSlab != 0) return -1;
-  return clustered(hd) ? 1 : 0;
+// at head dim hd without simt: 1 a cluster form (one slab a block or
+// several), 0 the SIMT form; -1 where no wide kernel takes hd.  Where
+// `slabs` and `blocks` are not null, the form's geometry: the slabs a
+// block owns (the kernel launches a call makes, one per slab: 1 up to
+// 2048) and the blocks of its cluster; 0 and 0 for the SIMT form (one
+// launch) and where no wide kernel takes hd
+extern "C" int ts_flash_wide_form(int kind, int hd, int* slabs,
+                                  int* blocks) {
+  const int form = kind < kFwd || kind > kDq || hd <= 0 || hd % kSlab != 0
+                       ? -1
+                       : clustered(kind, hd) ? 1 : 0;
+  if (slabs) *slabs = form == 1 ? slabs_of(hd) : 0;
+  if (blocks) *blocks = form == 1 ? blocks_of(hd) : 0;
+  return form;
 }
 
 // How many clusters of C blocks of the cluster form of `kind` (as
@@ -2541,6 +3667,45 @@ extern "C" int ts_flash_wide_active_clusters(int kind, int bf16, int C) {
                        ClusterDqF32::kSmem, C);
     default:
       return active_of(dq_bf16_kernel, kBf16Threads, ClusterDqBf16::kSmem, C);
+  }
+}
+
+// The clusters of C blocks of the multi-slab form of `kind` (kFwd or
+// kDkv) with kS slabs a block resident at once, as active_of
+template <int kS>
+int active_slabs(int kind, bool bf16, int C) {
+  if (kind == kFwd)
+    return bf16 ? active_of(fwd_bf16_slabs_kernel<kS>,
+                            SlabsFwdBf16<kS>::kThreads,
+                            SlabsFwdBf16<kS>::kSmem, C)
+                : active_of(fwd_f32_slabs_kernel<kS>,
+                            SlabsFwdF32<kS>::kThreads,
+                            SlabsFwdF32<kS>::kSmem, C);
+  return bf16 ? active_of(dkv_bf16_slabs_kernel<kS>,
+                          SlabsDkvBf16<kS>::kThreads,
+                          SlabsDkvBf16<kS>::kSmem, C)
+              : active_of(dkv_f32_slabs_kernel<kS>,
+                          SlabsDkvF32<kS>::kThreads,
+                          SlabsDkvF32<kS>::kSmem, C);
+}
+
+// As ts_flash_wide_active_clusters for the cluster form a launch of
+// `kind` takes at head dim hd: its instance (one slab a block, or
+// slabs_of(hd)) at its cluster size (hd / 128, or blocks_of(hd)); a
+// negative cudaError_t where hd has no cluster form
+extern "C" int ts_flash_wide_active_clusters_at(int kind, int bf16, int hd) {
+  if (ts_flash_wide_form(kind, hd, nullptr, nullptr) != 1)
+    return -(int)cudaErrorInvalidValue;
+  const int C = blocks_of(hd);
+  switch (slabs_of(hd)) {
+    case 1:
+      return ts_flash_wide_active_clusters(kind, bf16, C);
+    case 2:
+      return active_slabs<2>(kind, bf16 != 0, C);
+    case 3:
+      return active_slabs<3>(kind, bf16 != 0, C);
+    default:
+      return active_slabs<4>(kind, bf16 != 0, C);
   }
 }
 

@@ -63,11 +63,14 @@ flash_attention_wide.cu take any multiple of 128 and run every head dim
 above 256: up to 2048 the forward, dK/dV and dQ (the library's rule,
 ``ts_flash_wide_form``) are a thread block cluster of hd / 128 blocks
 on the tensor cores, each block a 128-column slab, their partial S (and
-dP) summed over the cluster once per tile; above 2048 SIMT kernels that
-keep one 128-column slab of the output a block
-and form S over the whole head dim in 32-column chunks (``simt=True``
-takes those for the forward, dK/dV and dQ at any wide head dim, to time
-the cluster forms against them). On the
+dP) summed over the cluster once per tile; above 2048, up to 8192, the
+forward and dK/dV are clusters of at most 16 blocks each owning 2 to 4
+slabs (``_wide_geometry``; one kernel launch per output slab a block
+owns, inside the one C call), and the dQ, and above 8192 every kind, is
+a SIMT kernel that keeps one 128-column slab of the output a block and
+forms S over the whole head dim in 32-column chunks (``simt=True``
+takes the SIMT kernels for the forward, dK/dV and dQ at any wide head
+dim, to time the cluster forms against them). On the
 card any other head dim is zero-padded to the next of 32, 128, 256 or,
 above 256, to the next multiple of 128 on the way in (q, k, v, and for
 the backward out and dO) and the outputs and gradients are sliced back:
@@ -82,13 +85,15 @@ above head dim 256 kernels/flash_attention_wide.cu; f32 tensors to their
 f32 forms, bf16 tensors to their bf16 forms, a mix raises), or the
 wrapper raises.  There is no fallback from one to the other.
 ``launches``, ``launches_bwd_dkv`` and ``launches_bwd_dq`` count kernel
-launches of every form, ``launches_bf16``, ``launches_bwd_dkv_bf16`` and
+launches of every form (one a call, but a multi-slab cluster form's
+call launches its kernel once per slab a block owns:
+``_wide_launches``), ``launches_bf16``, ``launches_bwd_dkv_bf16`` and
 ``launches_bwd_dq_bf16`` those of the bf16 forms, ``launches_wide``,
 ``launches_bwd_dkv_wide`` and ``launches_bwd_dq_wide`` those of the wide
 kernels (either dtype), ``launches_wide_cluster``,
 ``launches_bwd_dkv_wide_cluster`` and ``launches_bwd_dq_wide_cluster``
-those of the wide kernels' cluster forms (the form each launch took, as
-the library reports it: ``_cluster_form``), ``launches_block``,
+those of the wide kernels' cluster forms (the form each call took, as
+the library reports it: ``_wide_launches``), ``launches_block``,
 ``launches_bwd_dkv_block``
 and ``launches_bwd_dq_block`` those on a block of query rows shorter
 than the keys (Tq != Tk).  ``flash_attention`` takes the Function only
@@ -115,7 +120,8 @@ HEAD_DIMS = (32, 128, 256)
 WIDE_STEP = 128
 
 #: kernel launches so far (one per forward on CUDA tensors, one per
-#: backward for each backward kernel), and of those the launches of the
+#: backward for each backward kernel; a multi-slab cluster form's call
+#: launches its kernel once per slab), and of those the launches of the
 #: bf16 forms; set them to 0 before a run whose launches are to be counted
 launches = 0
 launches_bwd_dkv = 0
@@ -269,13 +275,32 @@ def _is_wide(width: int) -> bool:
     return width > HEAD_DIMS[-1]
 
 
-def _cluster_form(kind: str, width: int, simt: bool = False) -> bool:
-    """Does the wide kernel ``kind`` ("fwd", "dkv" or "dq") launch its
-    cluster form at a padded head dim ``width`` above 256: never with
-    ``simt``, else as the library's own dispatch decides
-    (``ts_flash_wide_form``: every kind up to 2048)."""
-    return not simt and _load_wide_library().ts_flash_wide_form(
-        WIDE_KINDS.index(kind), width) == 1
+def _wide_geometry(kind: str, width: int) -> Tuple[int, int]:
+    """(slabs a block owns, blocks of the cluster) of the cluster form the
+    wide kernel ``kind`` ("fwd", "dkv" or "dq") takes at a padded head
+    dim ``width`` above 256, as the library's own dispatch decides
+    (``ts_flash_wide_form``): (1, width / 128) up to 2048, above it up to
+    8192 (ceil(C / 16), ceil(C / slabs)) for the forward and dK/dV, C =
+    width / 128; (0, 0) for the SIMT form (the dQ above 2048, every kind
+    above 8192).  Raises ValueError where no wide kernel takes
+    ``width``."""
+    slabs, blocks = ctypes.c_int(), ctypes.c_int()
+    form = _load_wide_library().ts_flash_wide_form(
+        WIDE_KINDS.index(kind), width, ctypes.byref(slabs),
+        ctypes.byref(blocks))
+    if form < 0:
+        raise ValueError(f"no wide flash kernel takes head dim {width}")
+    return slabs.value, blocks.value
+
+
+def _wide_launches(kind: str, width: int, simt: bool = False
+                   ) -> Tuple[int, bool]:
+    """(kernel launches, cluster form?) of one call of the wide kernel
+    ``kind`` at a padded head dim ``width``: with ``simt`` or where the
+    library takes the SIMT form, one launch of it; else its cluster form,
+    launched once per slab a block owns (``_wide_geometry``)."""
+    slabs = 0 if simt else _wide_geometry(kind, width)[0]
+    return max(slabs, 1), slabs > 0
 
 
 def _pad_head_dim(width: int, *xs: torch.Tensor):
@@ -343,9 +368,12 @@ def _load_wide_library() -> ctypes.CDLL:
         lib.ts_flash_wide_error_string.restype = ctypes.c_char_p
         lib.ts_flash_wide_error_string.argtypes = [ctypes.c_int]
         lib.ts_flash_wide_form.restype = ctypes.c_int
-        lib.ts_flash_wide_form.argtypes = [ctypes.c_int] * 2
+        lib.ts_flash_wide_form.argtypes = [ctypes.c_int] * 2 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
         lib.ts_flash_wide_active_clusters.restype = ctypes.c_int
         lib.ts_flash_wide_active_clusters.argtypes = [ctypes.c_int] * 3
+        lib.ts_flash_wide_active_clusters_at.restype = ctypes.c_int
+        lib.ts_flash_wide_active_clusters_at.argtypes = [ctypes.c_int] * 3
         _wide_lib = lib
     return _wide_lib
 
@@ -356,7 +384,7 @@ def _entry(kind: str, bf16: bool, wide: bool, simt: bool = False):
     library's above head dim 256, else flash_attention's (the forward)
     or flash_attention_bwd's; the _bf16 entry for bf16 operands.
     ``simt`` (the wide kernels only) takes the SIMT design the cluster
-    forms replaced (``_cluster_form``), for timing them against it; no path
+    forms replaced (``_wide_launches``), for timing them against it; no path
     of the port sets it."""
     if simt and not wide:
         raise ValueError("only the wide kernels have a SIMT form")
@@ -440,11 +468,12 @@ def _flash_cuda(q, k, v, key_mask, causal, sm_scale, with_lse=False,
     if err != 0:
         raise RuntimeError("flash attention kernel launch failed: "
                            + error_string(err).decode())
-    launches += 1
-    launches_bf16 += bf16
-    launches_wide += wide
-    launches_wide_cluster += wide and _cluster_form("fwd", width, simt)
-    launches_block += Tq != Tk
+    n, cluster = _wide_launches("fwd", width, simt) if wide else (1, False)
+    launches += n
+    launches_bf16 += bf16 * n
+    launches_wide += wide * n
+    launches_wide_cluster += cluster * n
+    launches_block += (Tq != Tk) * n
     if width != hd:
         out = out[..., :hd].contiguous()
     return (out, lse) if with_lse else out
@@ -472,11 +501,12 @@ def _bwd_dkv_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale,
     if err != 0:
         raise RuntimeError("flash attention dK/dV kernel launch failed: "
                            + error_string(err).decode())
-    launches_bwd_dkv += 1
-    launches_bwd_dkv_bf16 += bf16
-    launches_bwd_dkv_wide += wide
-    launches_bwd_dkv_wide_cluster += wide and _cluster_form("dkv", hd, simt)
-    launches_bwd_dkv_block += Tq != k.shape[1]
+    n, cluster = _wide_launches("dkv", hd, simt) if wide else (1, False)
+    launches_bwd_dkv += n
+    launches_bwd_dkv_bf16 += bf16 * n
+    launches_bwd_dkv_wide += wide * n
+    launches_bwd_dkv_wide_cluster += cluster * n
+    launches_bwd_dkv_block += (Tq != k.shape[1]) * n
     return dk, dv
 
 
@@ -502,11 +532,12 @@ def _bwd_dq_cuda(q, k, v, do, lse, dsum, key_mask, causal, sm_scale,
     if err != 0:
         raise RuntimeError("flash attention dQ kernel launch failed: "
                            + error_string(err).decode())
-    launches_bwd_dq += 1
-    launches_bwd_dq_bf16 += bf16
-    launches_bwd_dq_wide += wide
-    launches_bwd_dq_wide_cluster += wide and _cluster_form("dq", hd, simt)
-    launches_bwd_dq_block += Tq != k.shape[1]
+    n, cluster = _wide_launches("dq", hd, simt) if wide else (1, False)
+    launches_bwd_dq += n
+    launches_bwd_dq_bf16 += bf16 * n
+    launches_bwd_dq_wide += wide * n
+    launches_bwd_dq_wide_cluster += cluster * n
+    launches_bwd_dq_block += (Tq != k.shape[1]) * n
     return dq
 
 
