@@ -56,15 +56,15 @@ device or without the port's sources beside it.  Phases, each fatal:
         (HMMA.16816), no spill, no wgmma serialized by ptxas;
      f. the wide flash kernels (head dims above 256, f32 and bf16:
         forward, dK/dV, dQ; the cluster forms on the tensor cores up to
-        head dim 2048, the forward's and dK/dV's multi-slab cluster forms
-        above it) against their plain versions
+        head dim 2048, their multi-slab cluster forms above it) against
+        their plain versions
         at 16 x 400 x 1 x 384, 512, 1024, 1152, 1536, 2048, 2304 and
         4096 (key mask) and 16 x 100 x 1 x 512, 1152, 1536, 2048 and
         2304 (causal), a rerun
         the same bits, each launch's form counted, timed beside the SIMT
         forward, dK/dV and dQ they replaced (the cluster forms at least
         WIDE_MIN_GAIN times faster at head dim 512, WIDE16_MIN_GAIN at
-        1152, the multi-slab forward and dK/dV WIDE16_MIN_GAIN at 2304
+        1152, the multi-slab forward, dK/dV and dQ WIDE16_MIN_GAIN at 2304
         and 4096) and scaled_dot_product_attention with the backend it took
         (phase_flash_wide); their SASS and ptxas report
         (wide_flash_sass): 0 bytes of spill in every one of
@@ -75,9 +75,9 @@ device or without the port's sources beside it.  Phases, each fatal:
         encoder's form; QUERY_BLOCK_CASES, both dtypes) against its plain
         version, timed beside scaled_dot_product_attention on the block
         (phase_flash_query_block); every launch form of the parent (Tq =
-        Tk; the redesigned wide forward, dK/dV and dQ aside, the dQ's
-        digests taken from its SIMT form) giving the parent's output
-        digests (FLASH_PARENT_DIGESTS, phase_flash_digests);
+        Tk; the redesigned wide forward, dK/dV and dQ aside, the wide
+        kernels' digests taken from their SIMT forms) giving the parent's
+        output digests (FLASH_PARENT_DIGESTS, phase_flash_digests);
      g. the fused kernels' slab forms (D in slabs: 16 x 4 x 400 x 2400
         and 4 x 1 x 400 x 4096 f32, 16 x 4 x 400 x 4096 bf16; the
         backward at 16 x 1 x 400 x 2400, 4 x 1 x 400 x 4096 and bf16
@@ -159,8 +159,8 @@ device or without the port's sources beside it.  Phases, each fatal:
      search and a train step against the CPU), head dim 1152 at 2 + 2
      layers (the forward's, dK/dV's and dQ's 9-block clusters: a
      decode, 3 train steps in each dtype, the first loss against the
-     CPU's) and head dim 2304 at full width (the forward's and dK/dV's 9
-     blocks of 2 slabs each, one launch per slab, the SIMT dQ: a decode
+     CPU's) and head dim 2304 at full width (the forward's, dK/dV's and
+     dQ's 9 blocks of 2 slabs each, one launch per slab: a decode
      at 6 + 6 layers, about 1.0 B parameters, and 3 train steps in each
      dtype at 2 + 2 layers and 100 encoder steps, the first loss against
      the CPU's); the
@@ -833,8 +833,10 @@ def fused_digests(fa):
 #: bf16 kernels at head dims 32, 128 and 256, masked and causal; the wide
 #: dQ's SIMT form (``simt=True``, the design of its digests) at 512; the
 #: SIMT wide forward, dK/dV and dQ at 1152 (``simt=True``: the default of
-#: all three there is now a 9-block cluster).  The wide forward, dK/dV
-#: and dQ at 384-2048 are new designs (the cluster forms),
+#: all three there is now a 9-block cluster); the SIMT dQ at 2176 (key
+#: mask) and 4224 (causal), the parent's default there (``simt=True``:
+#: the default is now the multi-slab cluster).  The wide forward, dK/dV
+#: and dQ at 384-8192 are new designs (the cluster forms),
 #: held to their plain versions by phase_flash_wide and
 #: phase_flash_query_block instead
 FLASH_ALL = ("fwd", "fwd_lse", "dkv", "dq")
@@ -846,6 +848,10 @@ FLASH_DIGEST_CASES = (
     + [(2, 130, 1, 512, c, dt, ("dq",)) for c in (False, True)
        for dt in ("float32", "bfloat16")]
     + [(2, 70, 1, 1152, False, dt, FLASH_ALL)
+       for dt in ("float32", "bfloat16")]
+    + [(2, 100, 1, 2176, False, dt, ("dq",))
+       for dt in ("float32", "bfloat16")]
+    + [(2, 130, 1, 4224, True, dt, ("dq",))
        for dt in ("float32", "bfloat16")])
 FLASH_PARENT_DIGESTS = {
     "fwd 3x200x2x32 mask float32": "ad16a6f9c7496633",
@@ -908,6 +914,10 @@ FLASH_PARENT_DIGESTS = {
     "fwd_lse 2x70x1x1152 mask bfloat16": "1d6023ce745f6e39",
     "dkv 2x70x1x1152 mask bfloat16": "b920ba590c6ff079",
     "dq 2x70x1x1152 mask bfloat16": "23dd75e9f511d651",
+    "dq 2x100x1x2176 mask float32": "f570e8af72fff165",
+    "dq 2x100x1x2176 mask bfloat16": "8b99c0e6777d78af",
+    "dq 2x130x1x4224 causal float32": "abc50e805eb8f106",
+    "dq 2x130x1x4224 causal bfloat16": "c3eaa68b91685a16",
 }
 
 
@@ -944,14 +954,14 @@ FLASH_C16_DIGESTS = {
 }
 
 
-#: the multi-slab cluster forms of the forward and dK/dV above head dim
-#: 2048 (2176 with a key mask: 9 blocks of 2 slabs, the last block one;
-#: 4224 causal: 11 blocks of 3), through their default launch: their
-#: digests (FLASH_SLAB_DIGESTS) are the bits they gave on an H100 (NVIDIA
-#: H100 80GB HBM3) when they were added, printed by
-#: scripts/torch_flash_bench.py --which digests ("slabs"), held from then
-#: on
-FLASH_SLAB_KERNELS = ("fwd", "fwd_lse", "dkv")
+#: the multi-slab cluster forms above head dim 2048 (2176 with a key
+#: mask: 9 blocks of 2 slabs, the last block one; 4224 causal: 11 blocks
+#: of 3), through their default launch: their digests
+#: (FLASH_SLAB_DIGESTS) are the bits they gave on an H100 (NVIDIA H100
+#: 80GB HBM3) when they were added (the forward's and dK/dV's, then the
+#: dQ's), printed by scripts/torch_flash_bench.py --which digests
+#: ("slabs"), held from then on
+FLASH_SLAB_KERNELS = ("fwd", "fwd_lse", "dkv", "dq")
 FLASH_SLAB_DIGEST_CASES = (
     [(2, 100, 1, 2176, False, dt, FLASH_SLAB_KERNELS)
      for dt in ("float32", "bfloat16")]
@@ -970,6 +980,10 @@ FLASH_SLAB_DIGESTS = {
     "fwd 2x130x1x4224 causal bfloat16": "8c77e704522e1d44",
     "fwd_lse 2x130x1x4224 causal bfloat16": "6a31c6677de23fbd",
     "dkv 2x130x1x4224 causal bfloat16": "304d495098b7aad9",
+    "dq 2x100x1x2176 mask float32": "73c135eab795b854",
+    "dq 2x100x1x2176 mask bfloat16": "123ad49a79c490b3",
+    "dq 2x130x1x4224 causal float32": "e227fe3865e4097e",
+    "dq 2x130x1x4224 causal bfloat16": "f8cd46f251243290",
 }
 
 
@@ -1698,11 +1712,10 @@ def phase_flash_bf16(seed):
 #: and 16 blocks, the encoder's and the decoder's shapes at head dims
 #: 1152, 1536 and 2048: (B, T, nh, hd, causal)
 #: the largest head dim at which each wide kernel takes its cluster form,
-#: as this script expects the library's dispatch to choose: the forward
-#: and dK/dV at every head dim the wide kernels take (a cluster of hd /
-#: 128 blocks up to 2048, above it at most 16 blocks owning up to 4
-#: slabs each), the dQ up to 2048 (16 blocks)
-CLUSTER_UP_TO = dict(fwd=8192, dkv=8192, dq=2048)
+#: as this script expects the library's dispatch to choose: every kind up
+#: to 8192 (a cluster of hd / 128 blocks up to 2048, above it at most 16
+#: blocks owning up to 4 slabs each; the SIMT forms above)
+CLUSTER_UP_TO = dict(fwd=8192, dkv=8192, dq=8192)
 
 
 def expected_geometry(kind, hd):
@@ -1725,7 +1738,8 @@ WIDE_FLASH_CASES = [(16, 400, 1, 384, False), (16, 400, 1, 512, False),
                     (16, 400, 1, 2304, False), (16, 400, 1, 4096, False),
                     (16, 100, 1, 2304, True)]
 #: the multi-slab forms' gate: at least WIDE16_MIN_GAIN times faster than
-#: the SIMT forward and dK/dV at these shapes (B, T, nh, hd), both dtypes
+#: the SIMT forward, dK/dV and dQ at these shapes (B, T, nh, hd), both
+#: dtypes
 WIDE_SLAB_GATED = ((16, 400, 1, 2304), (16, 400, 1, 4096))
 
 
@@ -1748,9 +1762,8 @@ def phase_flash_wide(seed):
     """The wide kernels (head dims above 256; kernels/
     flash_attention_wide.cu: the forward, dK/dV and dQ up to head dim
     2048, a cluster of hd / 128 blocks on the tensor cores,
-    3xTF32 mma.sync in f32 and wgmma in bf16; above 2048 the forward's
-    and dK/dV's clusters of blocks owning several slabs, the dQ's SIMT
-    form) against their plain
+    3xTF32 mma.sync in f32 and wgmma in bf16; above 2048 clusters of
+    blocks owning several slabs) against their plain
     versions at WIDE_FLASH_CASES, in f32 and bf16: out (the serving
     form), lse (the training form), dq, dk and dv; f32 within ATTN_TOL *
     max(1,
@@ -1759,13 +1772,12 @@ def phase_flash_wide(seed):
     with +inf on the same rows; the empty article's outputs zeros; a
     rerun the same bits.  The SIMT forward, dK/dV and dQ the cluster
     forms replaced (the first design, still built for head dims above
-    2048: ``simt=True``) are held to the same plain versions and timed
+    8192: ``simt=True``) are held to the same plain versions and timed
     in this call beside them: the cluster forms at least WIDE_MIN_GAIN
     times faster at 16 x 400 x 1 x 512 in both dtypes, the forward's,
     dK/dV's and dQ's 9-block clusters at least WIDE16_MIN_GAIN times at
-    16 x 400 x 1 x 1152, the multi-slab forward and dK/dV at
-    WIDE_SLAB_GATED (the dQ's SIMT form is its default there and is timed
-    once).  Times: the forward
+    16 x 400 x 1 x 1152, the multi-slab forward, dK/dV and dQ at
+    WIDE_SLAB_GATED.  Times: the forward
     (serving form), the dK/dV and dQ kernels, the SIMT forward, dK/dV and
     dQ,
     the plain forward and whole backward, and
@@ -1873,10 +1885,9 @@ def phase_flash_wide(seed):
             simt_dkv_ms = time_cuda(lambda: fl._bwd_dkv_cuda(
                 q, k, v, do, lse, dsum, mask, causal, scale, simt=True), 5,
                 flush)
-            # the dQ's SIMT form is its default above CLUSTER_UP_TO
-            dq_simt_ms = dq_ms if hd > CLUSTER_UP_TO["dq"] else time_cuda(
-                lambda: fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, causal,
-                                        scale, simt=True), 5, flush)
+            dq_simt_ms = time_cuda(lambda: fl._bwd_dq_cuda(
+                q, k, v, do, lse, dsum, mask, causal, scale, simt=True), 5,
+                flush)
             after = launch_counts()
             # the form each timed launch took (the cluster counters count
             # the launches the library's dispatch sent to a cluster form)
@@ -1950,14 +1961,15 @@ def phase_flash_wide(seed):
                       f"times faster than the SIMT one at {row}")
             if (B, T, nh, hd) in WIDE_SLAB_GATED:
                 check(row["gain"] >= WIDE16_MIN_GAIN
-                      and row["dkv_gain"] >= WIDE16_MIN_GAIN,
+                      and row["dkv_gain"] >= WIDE16_MIN_GAIN
+                      and row["dq_gain"] >= WIDE16_MIN_GAIN,
                       f"a multi-slab cluster form less than "
                       f"{WIDE16_MIN_GAIN} times faster than the SIMT one at "
                       f"{row}")
             for kernel, names in (("forward", ("out", "serve_out")),
                                   ("dkv", ("dk", "dv")), ("dq", ("dq",))):
                 # past hd 1024: the 16-block forms'; past 2048 the
-                # multi-slab forms' (and the SIMT dQ's)
+                # multi-slab forms'
                 key = (tag, kernel) + (
                     ("past2048",) if hd > 2048 else
                     ("past1024",) if hd > 1024 else ())
@@ -1994,7 +2006,9 @@ WIDE_FLASH_KERNELS = dict(
     fwd_slabs_f32="flash_fwd_slabs_f32_kernel",
     fwd_slabs_bf16="flash_fwd_slabs_bf16_kernel",
     dkv_slabs_f32="flash_bwd_dkv_slabs_f32_kernel",
-    dkv_slabs_bf16="flash_bwd_dkv_slabs_bf16_kernel")
+    dkv_slabs_bf16="flash_bwd_dkv_slabs_bf16_kernel",
+    dq_slabs_f32="flash_bwd_dq_slabs_f32_kernel",
+    dq_slabs_bf16="flash_bwd_dq_slabs_bf16_kernel")
 
 
 #: the wide kernels' instantiations wide_flash_sass names: the cluster
@@ -2010,16 +2024,20 @@ WIDE_FLASH_INSTANCES = {
     "fwd_simt_f32", "fwd_simt_bf16", "dkv_simt_f32", "dkv_simt_bf16",
     "dq_simt_f32", "dq_simt_bf16"} | {
     # the multi-slab forms, per slabs a block ("_s2" .. "_s4"); the f32
-    # forward's split exchange from kF32SplitFrom blocks ("_split")
+    # forward's split exchange from kF32SplitFrom blocks and the f32 dQ's
+    # from kF32DqSplitFrom ("_split": every cluster of 3 and 4 slabs a
+    # block has 11 blocks or more, so the dQ's one-sum instance is built
+    # at 2 slabs only)
     f"{k}_s{n}{x}" for n in (2, 3, 4) for k, x in (
         ("fwd_slabs_f32", ""), ("fwd_slabs_f32", "_split"),
         ("fwd_slabs_bf16", ""), ("dkv_slabs_f32", ""),
-        ("dkv_slabs_bf16", ""))}
+        ("dkv_slabs_bf16", ""), ("dq_slabs_f32", "_split"),
+        ("dq_slabs_bf16", ""))} | {"dq_slabs_f32_s2"}
 #: the multi-slab instances per (kernel, dtype)
 WIDE_SLAB_INSTANCES = {
     (key, tag): tuple(sorted(n for n in WIDE_FLASH_INSTANCES
                              if n.startswith(f"{k}_slabs_{tag}_")))
-    for key, k in (("forward", "fwd"), ("dkv", "dkv"))
+    for key, k in (("forward", "fwd"), ("dkv", "dkv"), ("dq", "dq"))
     for tag in ("f32", "bf16")}
 #: the instances the forms past 8 blocks run, per (kernel, dtype): the f32
 #: forward one-sum to 14 blocks and split past them, the f32 dK/dV one-sum
@@ -2093,8 +2111,8 @@ def wide_flash_sass():
 #: 2, half the rows): the transformer's reference encoder (16 x 400, 8
 #: heads of 32), the long-context shape (4 x 2048 x 8 x 128), head dim
 #: 256, the wide cluster forms at head dim 512 and at 1152 the 9-block
-#: clusters and at 2304 the forward's and dK/dV's multi-slab clusters
-#: (timed beside their SIMT forms): (B, Tq, Tk, nh, hd)
+#: clusters and at 2304 the multi-slab clusters (timed beside their SIMT
+#: forms): (B, Tq, Tk, nh, hd)
 QUERY_BLOCK_CASES = [(16, 200, 400, 8, 32), (4, 1024, 2048, 8, 128),
                      (16, 200, 400, 2, 256), (16, 200, 400, 1, 512),
                      (16, 200, 400, 1, 1152), (16, 200, 400, 1, 2304)]
@@ -2113,9 +2131,7 @@ def phase_flash_query_block(seed):
     and backward on the same block and bounds from this run's mask
     (flash_bound_ms, flash_bwd_bounds with Tk); past head dim 1024 the
     SIMT forward, dK/dV and dQ timed too, the cluster forms at least
-    WIDE16_MIN_GAIN times faster (past 2048 the forward and dK/dV: the
-    dQ's default there is its SIMT form, timed once).  Returns ({(dtype,
-    shape): row},
+    WIDE16_MIN_GAIN times faster.  Returns ({(dtype, shape): row},
     {(dtype, kernel): largest error})."""
     import torch
     import torch.nn.functional as F
@@ -2192,8 +2208,7 @@ def phase_flash_query_block(seed):
                     simt_dkv_ms=time_cuda(lambda: fl._bwd_dkv_cuda(
                         q, k, v, do, lse, dsum, mask, False, scale,
                         simt=True), 5, flush),
-                    dq_simt_ms=dq_ms if hd > CLUSTER_UP_TO["dq"] else
-                    time_cuda(lambda: fl._bwd_dq_cuda(
+                    dq_simt_ms=time_cuda(lambda: fl._bwd_dq_cuda(
                         q, k, v, do, lse, dsum, mask, False, scale,
                         simt=True), 5, flush))
                 simt.update(gain=simt["simt_ms"] / ms,
@@ -2225,8 +2240,7 @@ def phase_flash_query_block(seed):
                        dq_bound_by=bounds["dq"][1], **simt)
             print("flash_query_block " + json.dumps(row))
             check(not simt or min(
-                simt["gain"], simt["dkv_gain"],
-                simt["dq_gain"] if hd <= CLUSTER_UP_TO["dq"] else np.inf)
+                simt["gain"], simt["dkv_gain"], simt["dq_gain"])
                 >= WIDE16_MIN_GAIN,
                   f"query block: a 16-block cluster form less than "
                   f"{WIDE16_MIN_GAIN} times faster than the SIMT one at "
@@ -2253,7 +2267,8 @@ def phase_flash_digests():
     """Every flash launch form the parent took (as many query rows as
     keys) gives the parent's output bits: flash_digests at
     FLASH_DIGEST_CASES equal to FLASH_PARENT_DIGESTS (the f32 and bf16
-    kernels, the wide SIMT forms at head dims 512 and 1152); and the
+    kernels, the wide SIMT forms at head dims 512 and 1152, the SIMT dQ
+    at 2176 and 4224); and the
     clusters past 8 blocks give the bits recorded when they were added
     (FLASH_C16_DIGESTS at FLASH_C16_DIGEST_CASES), and so do the
     multi-slab forms above head dim 2048 (FLASH_SLAB_DIGESTS at
@@ -3676,9 +3691,8 @@ HD512_BF16_FLAGS = dict(compute_dtype="bfloat16", loss_chunk=10)
 #: HD1152_CUT's depth)
 HD1152_WIDTHS = dict(hidden_dim=1152, num_heads=1, ffn_dim=4608)
 #: head dim 2304 at the transformer's full depth (6 + 6 layers, about 1.0
-#: B parameters): the forward's and dK/dV's multi-slab clusters (9 blocks
-#: of 2 slabs) beside the SIMT dQ; --hidden_dim=2304 --num_heads=1, FFN 4
-#: x 2304
+#: B parameters): the forward's, dK/dV's and dQ's multi-slab clusters (9
+#: blocks of 2 slabs); --hidden_dim=2304 --num_heads=1, FFN 4 x 2304
 HD2304_WIDTHS = dict(hidden_dim=2304, num_heads=1, ffn_dim=9216)
 #: the depth of the head-dim-1152 path on the card (its decode and its 3
 #: train steps a dtype, the first of which is held to the CPU's step) and
@@ -3905,10 +3919,10 @@ def phase_wide_heads(seed, device="cuda", cpu_steps=None):
         depth (6 + 6 layers, about 1.0 B parameters; 6 wide forward
         calls per batch, every one the multi-slab cluster form of 2
         slabs a block, so 12 launches), and 3 train steps in f32 and 3
-        under HD512_BF16_FLAGS at HD2304_CPU_CUT's depth (4 forward and 4
-        dK/dV calls per step of the multi-slab forms, 8 launches each,
-        and 4 dQ launches of the SIMT form), the first step's loss held
-        to the CPU's in both dtypes.
+        under HD512_BF16_FLAGS at HD2304_CPU_CUT's depth (4 forward, 4
+        dK/dV and 4 dQ calls per step, each of the multi-slab forms: 8
+        launches each), the first step's loss held to the CPU's in both
+        dtypes.
 
     The --device=cpu reference steps are ``cpu_steps``' (CpuSteps; run
     here when it is None).  (device="cpu" rehearses the control flow
@@ -6938,16 +6952,17 @@ def main(argv=None) -> int:
                              "(sum_share, then gather_sums behind a second "
                              "barrier)")))
             kernels.append(entry)
-    # past head dim 2048: the forward's and dK/dV's clusters whose blocks
-    # own several slabs, on the head-dim-2304 main paths (phase_wide_heads:
-    # the decode at full depth, the 3-step runs at HD2304_CPU_CUT's), each
-    # call launching its kernel once per slab (``launches``; ``calls``
-    # the wrapper's calls); the dQ there is its SIMT form
+    # past head dim 2048: the clusters whose blocks own several slabs, on
+    # the head-dim-2304 main paths (phase_wide_heads: the decode at full
+    # depth, the 3-step runs at HD2304_CPU_CUT's), each call launching its
+    # kernel once per slab (``launches``; ``calls`` the wrapper's calls);
+    # ``parent_ms`` the SIMT form each replaced, timed in this run
     hd2304_runs = dict(f32=[wide["hd2304_train_f32_card"]],
                        bf16=[wide["hd2304_train_bf16_card"]])
     for key, counter, library in (
             ("forward", "flash_forward", "_flash_attention_kernel"),
-            ("dkv", "flash_bwd_dkv", "_flash_attention_bwd_dkv")):
+            ("dkv", "flash_bwd_dkv", "_flash_attention_bwd_dkv"),
+            ("dq", "flash_bwd_dq", "_flash_attention_bwd_dq")):
         for tag in ("f32", "bf16"):
             head = fw_rows[(tag, "16x400x1x2304")]
             ms, bound, by, plain, lib = (
@@ -6960,7 +6975,8 @@ def main(argv=None) -> int:
             if key == "forward" and tag == "f32":
                 launched += wide["hd2304_decode"]["wide_cluster_launches"]
             suffix = "" if key == "forward" else f"_bwd_{key}"
-            simt = "simt_ms" if key == "forward" else "simt_dkv_ms"
+            simt = {"forward": "simt_ms", "dkv": "simt_dkv_ms",
+                    "dq": "dq_simt_ms"}[key]
             entry = dict(
                 name="flash_attention_wide_slabs" + suffix
                 + ("_bf16" if tag == "bf16" else ""),
@@ -6989,36 +7005,8 @@ def main(argv=None) -> int:
                         "on the tensor cores, then over the cluster as the "
                         "one-slab forms exchange it; one pass (launch) per "
                         "output slab a block owns, each forming S again"),
-                added="PR 28")
+                added="PR 29" if key == "dq" else "PR 28")
             kernels.append(entry)
-    # and the dQ's SIMT form, which the head-dim-2304 train steps take
-    for tag in ("f32", "bf16"):
-        head = fw_rows[(tag, "16x400x1x2304")]
-        kernels.append(dict(
-            name="flash_attention_wide_simt_bwd_dq"
-            + ("_bf16" if tag == "bf16" else ""),
-            route="cuda", source=wide_src,
-            replaces=("textsummarization_on_flink_tpu/models/transformer.py"
-                      ":285 (library _flash_attention_bwd_dq at head dims "
-                      "above 2048, padded to a multiple of 128)"),
-            launches=sum(r["launches"]["flash_bwd_dq_wide"]
-                         for r in hd2304_runs[tag]),
-            max_abs_err=fw_worst[(tag, "dq", "past2048")],
-            ms=head["dq_ms"], plain_ms=head["bwd_plain_ms"],
-            bound_ms=head["dq_bound_ms"], bound_by=head["dq_bound_by"],
-            library_ms=head["bwd_library_ms"],
-            library_backend=head["library_backend"], shape=head["shape"],
-            sass=fw_sass[f"dq_simt_{tag}"],
-            shapes=[dict(shape=r["shape"], causal=r["causal"],
-                         ms=r["dq_ms"], plain_ms=r["bwd_plain_ms"],
-                         library_ms=r["bwd_library_ms"],
-                         bound_ms=r["dq_bound_ms"],
-                         bound_by=r["dq_bound_by"])
-                    for (t, _), r in fw_rows.items()
-                    if t == tag and _row_hd(r) > 2048],
-            design=("SIMT FMA: a block per 64 rows and (head, 128-column "
-                    "slab), S and dP over the whole head dim in 32-column "
-                    "chunks (the redesign above 2048 is the next slice)")))
     # the query-block forms (Tq < Tk: one sp rank's block of the
     # encoder's queries against every key; their own counters, each
     # launch also counted in its kernel's total above): the transformer's

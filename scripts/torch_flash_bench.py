@@ -30,7 +30,9 @@ call times the SIMT design beside the cluster forms; ``--head-dims HD
 ...`` times those head dims only: WIDE_FLASH_CASES' cases at them, and
 16x400x1xHD with a key mask where the cases have none; ``--kernels K
 ...`` times those of forward, forward_lse, bwd_dkv, bwd_dq and their
-``_simt`` forms only.
+``_simt`` forms only.  Each cluster form's line also has
+``active_clusters``: the clusters of its instance resident at once on
+the card (``ts_flash_wide_active_clusters_at``).
 ``--which digests`` prints one JSON line of chip_smoke.flash_digests:
 the digests of every flash kernel's outputs at the launch forms with as
 many query rows as keys (chip_smoke.FLASH_DIGEST_CASES, inputs made with
@@ -77,6 +79,8 @@ BWD = LSE + [(4, 2048, 8, 128, False), (4, 2048, 8, 128, True)]
 BF16 = [(16, 400, 8, 32, False), (16, 100, 8, 32, True),
         (4, 2048, 8, 128, False), (4, 2048, 8, 128, True),
         (16, 400, 2, 256, False)]
+#: the wide library's kind (fl.WIDE_KINDS) of each timed kernel
+KIND = dict(forward="fwd", forward_lse="fwd", bwd_dkv="dkv", bwd_dq="dq")
 
 
 def main(argv=None) -> int:
@@ -219,8 +223,16 @@ def bench_wide(args, chip_smoke, fl, flush, emit):
             for kernel, fn in runs:
                 if args.kernels and kernel not in args.kernels:
                     continue
+                extra = {}
+                if not kernel.endswith("_simt"):
+                    # the clusters of the launch's instance resident at once
+                    extra["active_clusters"] = (
+                        fl._load_wide_library()
+                        .ts_flash_wide_active_clusters_at(
+                            fl.WIDE_KINDS.index(KIND[kernel]),
+                            dtype == torch.bfloat16, hd))
                 emit(kernel, shape, chip_smoke.time_cuda(fn, args.iters,
-                                                         flush))
+                                                         flush), **extra)
 
 
 def bench_bf16(args, chip_smoke, fl, flush, emit):

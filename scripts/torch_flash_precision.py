@@ -3,9 +3,10 @@
 f32 version's.
 
     python3 scripts/torch_flash_precision.py [--seed N] [--long]
-        [--json PATH]
+        [--head-dims HD ...] [--json PATH]
 
-Needs one CUDA card.  For head dims 32 and 128, q and k of std 1 (unit
+Needs one CUDA card.  For head dims 32 and 128 (or --head-dims': above
+256 the wide kernels, e.g. 6272 8192), q and k of std 1 (unit
 scale) and 2 (|s| up to ~20, as in a trained model), causal off (with a
 ragged key mask, article 1 empty) and on, at 3 articles x 200 positions x
 2 heads, and with --long also at chip_smoke.py's long-context shape
@@ -93,6 +94,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--long", action="store_true",
                     help="also the 4 x 2048 x 8 x 128 shape")
+    ap.add_argument("--head-dims", type=int, nargs="+", default=[32, 128],
+                    help="the head dims of the 3 x 200 x 2 cases")
     ap.add_argument("--json", default=None,
                     help="also write the rows to this file")
     args = ap.parse_args(argv)
@@ -106,7 +109,7 @@ def main(argv=None) -> int:
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     resolve_device("cuda")  # TF32 off for the plain version's products
-    cases = [(hd, qk_std, causal, 3, 200, 2) for hd in (32, 128)
+    cases = [(hd, qk_std, causal, 3, 200, 2) for hd in args.head_dims
              for qk_std in (1.0, 2.0) for causal in (False, True)]
     if args.long:
         cases += [(128, 1.0, causal, 4, 2048, 8) for causal in (False, True)]

@@ -3,8 +3,9 @@ parameter seeds: for each hidden size (one head, 1 + 1 layers, T_enc 40,
 the test's config) and seed, the JAX package's and the port's f32 and
 bf16 losses and gradients on the test's batch, printed one JSON line per
 case: JAX's own bf16-to-f32 loss distance, the port's, the port's bf16
-loss from JAX's, their ratio (the test bounds it by BF16_GAP_FACTOR, 4)
-and the same ratio for the gradient as a whole in the L2 norm.  With
+loss from JAX's, their ratio (the test bounds the ratio of their means
+over seeds 0-5 by BF16_GAP_FACTOR, 4) and the same ratio for the
+gradient as a whole in the L2 norm (the test bounds it at seed 3).  With
 ``--outputs``, instead, each forward output of forward_train (JAX's
 run eagerly, op by op; the test's runs under jax.jit) and the L2
 distances between the four runs of it.
@@ -12,7 +13,8 @@ distances between the four runs of it.
     JAX_PLATFORMS=cpu python tests/_bf16_seed_spread.py 2304,1152 0,1,2,3
     JAX_PLATFORMS=cpu python tests/_bf16_seed_spread.py 2304 3 --outputs
 
-The test takes seed 3 (``_train_case``); about 10 s a case on a CPU."""
+The test's loss rule takes seeds 0-5 (``BF16_SEEDS``), its gradient
+rule seed 3 (``GRAD_SEED``); about 10 s a case on a CPU."""
 
 import json
 import os

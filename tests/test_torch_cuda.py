@@ -1659,9 +1659,9 @@ def test_flash_wide_16_block_clusters_repeat_their_bits_on_card(
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-#: the multi-slab cluster forms of the forward and dK/dV: (slabs a block,
-#: blocks) (2, 9) with the last block owning one slab, (2, 9), (2, 12),
-#: (2, 16), (3, 11) and (3, 16)
+#: the multi-slab cluster forms of the forward, dK/dV and dQ: (slabs a
+#: block, blocks) (2, 9) with the last block owning one slab, (2, 9), (2,
+#: 12), (2, 16), (3, 11) and (3, 16)
 MULTI_SLAB_HEAD_DIMS = (2176, 2304, 3072, 4096, 4224, 6144)
 
 
@@ -1671,11 +1671,11 @@ MULTI_SLAB_HEAD_DIMS = (2176, 2304, 3072, 4096, 4224, 6144)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_wide_multi_slab_clusters_match_simt_and_plain_on_card(
         hd, tq, tk, causal, dtype):
-    """The forward (with and without lse) and dK/dV above head dim 2048,
-    clusters whose blocks own 2 or 3 slabs, each held to the plain
+    """The forward (with and without lse), dK/dV and dQ above head dim
+    2048, clusters whose blocks own 2 or 3 slabs, each held to the plain
     versions and to the SIMT forms (``simt=True``) they replace
-    (``_held_to``; dK/dV on the plain lse and D); lse within 1e-5 *
-    max(1, |lse|), +inf on the same rows; the serving forward (no lse)
+    (``_held_to``; dK/dV and dQ on the plain lse and D); lse within 1e-5
+    * max(1, |lse|), +inf on the same rows; the serving forward (no lse)
     bit-equal to the training one; the new forms' kernel launches (one
     per slab a block owns) counted by the cluster counters, the SIMT
     forms' not."""
@@ -1694,7 +1694,8 @@ def test_flash_wide_multi_slab_clusters_match_simt_and_plain_on_card(
                                scale)
     dsum = torch.sum(do.float() * want_out.float(), dim=-1)
     counters = ("launches_wide", "launches_wide_cluster",
-                "launches_bwd_dkv_wide", "launches_bwd_dkv_wide_cluster")
+                "launches_bwd_dkv_wide", "launches_bwd_dkv_wide_cluster",
+                "launches_bwd_dq_wide", "launches_bwd_dq_wide_cluster")
     before = [getattr(fl, c) for c in counters]
     got = {}
     for simt in (False, True):
@@ -1702,15 +1703,17 @@ def test_flash_wide_multi_slab_clusters_match_simt_and_plain_on_card(
                                   with_lse=True, simt=simt)
         dk, dv = fl._bwd_dkv_cuda(q, k, v, do, lse_p, dsum, mask, causal,
                                   scale, simt=simt)
+        dq = fl._bwd_dq_cuda(q, k, v, do, lse_p, dsum, mask, causal, scale,
+                             simt=simt)
         torch.cuda.synchronize()
         assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
         fin = torch.isfinite(lse_p)
         assert float((lse - lse_p)[fin].abs().max()) <= 1e-5 * max(
             1.0, float(lse_p[fin].abs().max()))
         for got_x, want_x in ((out, want_out), (dk, want[1]),
-                              (dv, want[2])):
+                              (dv, want[2]), (dq, want[0])):
             _held_to(got_x, want_x, dtype)
-        got[simt] = (out, dk, dv)
+        got[simt] = (out, dk, dv, dq)
     for new_x, simt_x in zip(got[False], got[True]):
         _held_to(new_x, simt_x, dtype)
     serve = fl._flash_cuda(q, k, v, mask, causal, scale)
@@ -1719,11 +1722,75 @@ def test_flash_wide_multi_slab_clusters_match_simt_and_plain_on_card(
     # a multi-slab call launches its kernel once per slab a block owns
     s = -(-hd // 128 // 16)
     assert [getattr(fl, c) - b for c, b in zip(counters, before)] == [
-        2 * s + 1, 2 * s, s + 1, s]
+        2 * s + 1, 2 * s, s + 1, s, s + 1, s]
+
+
+#: the multi-slab forms at 4 slabs a block: (4, 13) with the last block
+#: owning one slab of four, and (4, 16) at hd 8192, the largest
+FOUR_SLAB_HEAD_DIMS = (6272, 8192)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", (2176, 4224))
+@pytest.mark.parametrize("hd", FOUR_SLAB_HEAD_DIMS)
+@pytest.mark.parametrize("tq,tk,causal", WIDE_CLUSTER_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wide_four_slab_clusters_match_float64_on_card(
+        hd, tq, tk, causal, dtype):
+    """The forward (with lse), dK/dV and dQ at 4 slabs a block: f32 held
+    within 1e-5 * max(1, |value|) of the plain version in float64 (at
+    these head dims the plain f32 version itself strays past that bound
+    from float64 (PERF.md), so it is no yardstick; the backward's
+    float64 reference takes the plain f32 out for D and float64's lse, the
+    kernels the plain f32 lse and D), bf16 held to the plain bf16
+    version (``_held_to``); lse within 1e-5 * max(1, |lse|), +inf on the
+    same rows; one launch per slab, counted by the cluster counters."""
+    from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
+
+    _need_cuda()
+    q, k, v, mask = _flash_inputs(3, tk, 2, hd, seed=tq + hd)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    q = q[:, tk - tq:].contiguous()
+    scale = hd ** -0.5
+    g = torch.Generator(device="cuda").manual_seed(tq + hd)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    want_out = fl._flash_plain(q, k, v, mask, causal, scale)
+    lse_p = fl._flash_lse_plain(q, k, mask, causal, scale)
+    dsum = torch.sum(do.float() * want_out.float(), dim=-1)
+    if dtype == torch.float32:
+        q64, k64, v64, do64, out64 = (x.double() for x in (q, k, v, do,
+                                                           want_out))
+        m64 = mask.double()
+        want_out = fl._flash_plain(q64, k64, v64, m64, causal, scale)
+        want = fl._flash_bwd_plain(q64, k64, v64, out64, fl._flash_lse_plain(
+            q64, k64, m64, causal, scale), do64, m64, causal, scale)
+    else:
+        want = fl._flash_bwd_plain(q, k, v, want_out, lse_p, do, mask,
+                                   causal, scale)
+    counters = ("launches_wide_cluster", "launches_bwd_dkv_wide_cluster",
+                "launches_bwd_dq_wide_cluster")
+    before = [getattr(fl, c) for c in counters]
+    out, lse = fl._flash_cuda(q, k, v, mask, causal, scale, with_lse=True)
+    dk, dv = fl._bwd_dkv_cuda(q, k, v, do, lse_p, dsum, mask, causal, scale)
+    dq = fl._bwd_dq_cuda(q, k, v, do, lse_p, dsum, mask, causal, scale)
+    torch.cuda.synchronize()
+    assert [getattr(fl, c) - b for c, b in zip(counters, before)] == [4] * 3
+    assert torch.equal(torch.isinf(lse), torch.isinf(lse_p))
+    fin = torch.isfinite(lse_p)
+    assert float((lse - lse_p)[fin].abs().max()) <= 1e-5 * max(
+        1.0, float(lse_p[fin].abs().max()))
+    for got_x, want_x in ((out, want_out), (dk, want[1]), (dv, want[2]),
+                          (dq, want[0])):
+        if dtype == torch.float32:
+            assert got_x.shape == want_x.shape and got_x.dtype == dtype
+            err = float((got_x.double() - want_x).abs().max())
+            assert err <= 1e-5 * max(1.0, float(want_x.abs().max())), err
+            assert not got_x[1].any()
+        else:
+            _held_to(got_x, want_x, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", (2176, 4224, 6272))
 @pytest.mark.parametrize("tq,tk,causal", [(200, 200, False),
                                           (130, 130, True),
                                           (100, 200, False)])
@@ -1731,8 +1798,9 @@ def test_flash_wide_multi_slab_clusters_match_simt_and_plain_on_card(
 def test_flash_wide_multi_slab_clusters_repeat_their_bits_on_card(
         hd, tq, tk, causal, dtype):
     """Sums over the slabs in order, then over the ranks, no atomics: two
-    runs of the multi-slab forward (with lse) and dK/dV on the same inputs
-    give the same bits, with a key mask, causal, and on a query block."""
+    runs of the multi-slab forward (with lse), dK/dV and dQ on the same
+    inputs give the same bits, with a key mask, causal, and on a query
+    block."""
     from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 
     _need_cuda()
@@ -1747,16 +1815,17 @@ def test_flash_wide_multi_slab_clusters_repeat_their_bits_on_card(
     g = torch.Generator(device="cuda").manual_seed(hd)
     do = torch.randn(out.shape, generator=g, device="cuda").to(dtype)
     dsum = torch.sum(do.float() * out.float(), dim=-1)
-    first, second = (fl._bwd_dkv_cuda(q, k, v, do, lse, dsum, mask, causal,
-                                      scale) for _ in range(2))
+    first, second = ((*fl._bwd_dkv_cuda(q, k, v, do, lse, dsum, mask,
+                                        causal, scale),
+                      fl._bwd_dq_cuda(q, k, v, do, lse, dsum, mask, causal,
+                                      scale)) for _ in range(2))
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 #: the largest head dim at which each wide kernel takes its cluster form:
-#: the forward and dK/dV in clusters of up to 16 blocks owning up to 4
-#: slabs each, the dQ in clusters of up to 16 one-slab blocks
-CLUSTER_UP_TO = dict(fwd=8192, dkv=8192, dq=2048)
+#: every kind in clusters of up to 16 blocks owning up to 4 slabs each
+CLUSTER_UP_TO = dict(fwd=8192, dkv=8192, dq=8192)
 
 
 @pytest.mark.cuda
@@ -1850,8 +1919,8 @@ QUERY_BLOCKS = ((50, 100), (33, 100), (65, 130), (200, 400))
 def test_flash_query_block_matches_plain_on_card(hd, tq, tk, dtype):
     """Every flash kernel (forward with and without lse, dK/dV, dQ; f32,
     bf16 and wide, the cluster forms up to hd 1024; at 1152 the 9-block
-    clusters; at 2304 the forward's and dK/dV's 9-block clusters of two
-    slabs a block beside the SIMT dQ) on a block of Tq query
+    clusters; at 2304 the 9-block clusters of two slabs a block) on a
+    block of Tq query
     rows (rows [Tq, 2 Tq) of the article's queries) against all Tk keys,
     a ragged key mask and article 1 fully masked: f32 within 1e-5 of the
     plain versions relative to each output's size, bf16 within
@@ -1874,10 +1943,10 @@ def test_flash_query_block_matches_plain_on_card(hd, tq, tk, dtype):
     out, lse = fl._flash_cuda(q, k, v, mask, False, scale, with_lse=True)
     got = fl._flash_bwd_cuda(q, k, v, out, lse, do, mask, False, scale)
     torch.cuda.synchronize()
-    # above 2048 the forward's and dK/dV's calls launch once per slab
+    # above 2048 each call launches its kernel once per slab
     s = -(-hd // 128 // 16) if hd > 256 else 1
     assert [getattr(fl, c) - b for c, b in zip(counters, before)] == [
-        2 * s, s, 1, 2 * s, s, 1]
+        2 * s, s, s, 2 * s, s, s]
     assert torch.equal(serve, out)
     want_out = fl._flash_plain(q, k, v, mask, False, scale)
     lse_p = fl._flash_lse_plain(q, k, mask, False, scale)

@@ -45,8 +45,8 @@ from textsummarization_on_flink_tpu_torch.ops import flash_attention as fl
 B, TK, NH = 3, 24, 2
 HEAD_DIMS = (32, 128, 256, 384)
 #: clusters of 10 and 15 blocks on the card (hd / 128), the dQ's too;
-#: above 2048 the forward's and dK/dV's clusters whose blocks own 2 slabs
-#: (2176: 9 blocks, the last with one; 2304: 9) and 3 (4224: 11 blocks)
+#: above 2048 the clusters whose blocks own 2 slabs (2176: 9 blocks, the
+#: last with one; 2304: 9) and 3 (4224: 11 blocks)
 CLUSTER_HEAD_DIMS = (1280, 1920, 2176, 2304, 4224)
 RATIOS = (2, 3)  # Tq = TK / ratio
 DTYPES = (torch.float32, torch.bfloat16)

@@ -95,13 +95,13 @@
 //     block's last row (forward, dQ) or before its first key (dK/dV) are
 //     never visited.  No atomics: two runs give the same bits.
 //
-// Above head dim 2048 the forward and dK/dV take the multi-slab cluster
-// forms (their section below: a block owns up to 4 slabs, up to hd
-// 8192), and the dQ, and above 8192 every kind, the simple form, SIMT FMA
-// at the 67 TFLOP/s f32 rate, each block forming S (and dP) over the
-// whole head dim for one 128-wide slab of its output (the SIMT forms
-// also stay behind the _simt entry points at any head dim, the design
-// the cluster forms replaced, for timing them against it):
+// Above head dim 2048 the forward, dK/dV and dQ take the multi-slab
+// cluster forms (their section below: a block owns up to 4 slabs, up to
+// hd 8192), and above 8192 every kind the simple form, SIMT FMA at the
+// 67 TFLOP/s f32 rate, each block forming S (and dP) over the whole head
+// dim for one 128-wide slab of its output (the SIMT forms also stay
+// behind the _simt entry points at any head dim, the design the cluster
+// forms replaced, for timing them against it):
 //
 //   * 256 threads (16 x 16) a block; the block owns 64 rows (query rows
 //     in the forward and dQ, keys in dK/dV) and walks 64-wide tiles of
@@ -1612,8 +1612,8 @@ flash_bwd_dq_cluster_bf16_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// The multi-slab cluster forms of the forward and dK/dV (head dims above
-// 128 * kMaxClusterNP = 2048).
+// The multi-slab cluster forms of the forward, dK/dV and dQ (head dims
+// above 128 * kMaxClusterNP = 2048).
 //
 // Sixteen blocks is the largest cluster, so past 2048 a block owns kS =
 // ceil(C / 16) slabs (C = hd / 128) and the cluster holds C' = ceil(C /
@@ -1624,7 +1624,9 @@ flash_bwd_dq_cluster_bf16_kernel(
 // multi-slab cluster has 9 to 16 blocks); only the product each block
 // forms before it grows: its partial S (and dP) is the sum over its kS
 // slabs, one product chain over the slabs in order, so the exchange
-// moves what it moves at C' blocks, whatever kS is.
+// moves what it moves at C' blocks, whatever kS is (the dQ's exchange is
+// its one-slab form's at C' blocks: f32 one sum at 9 blocks and split
+// from kF32DqSplitFrom, bf16 split).
 //
 // The outputs take passes (one launch each, `pass` = 0 .. kS - 1): pass p
 // keeps slab p of the block's output in registers (the accumulators of
@@ -1633,10 +1635,13 @@ flash_bwd_dq_cluster_bf16_kernel(
 // slabs again, the identical sums in every pass (the forward's pass p
 // sees pass 0's S bits; pass 0 writes the lse).  So the products on the
 // S side cost kS times over: at kS = 2 each block does 3 slab-products a
-// tile and pass where the one-slab forms do 2.
+// tile and pass where the one-slab forms do 2 (the dQ 5 where its
+// one-slab form does 3: S, dP over 2 slabs each, dS K over the output
+// slab).
 //
 // Shared memory: the operand a block keeps for the whole loop (q in the
-// forward, K and V in dK/dV) and the tiles of the other one are staged
+// forward, K and V in dK/dV, q and dO in the dQ) and the tiles of the
+// other one are staged
 // over all kS slabs in rows of 128 kS columns, so they grow with kS; the
 // geometry shrinks with kS to keep 4 slabs (hd 8192, the largest the
 // forms take: clustered sends larger head dims to the SIMT forms) within
@@ -1656,7 +1661,17 @@ flash_bwd_dq_cluster_bf16_kernel(
 //     bytes (two blocks an SM at kS 2);
 //   * bf16 dK/dV: one warpgroup of 64 keys, query tiles of 32 rows, K and
 //     V copied once over kS slabs, q and dO (kS slabs each) through a
-//     2-stage ring, single at kS 4: 165,144 / 230,680 / 230,680 bytes.
+//     2-stage ring, single at kS 4: 165,144 / 230,680 / 230,680 bytes;
+//   * f32 dQ: key tiles of 8 keys (K and V over kS slabs, split once,
+//     dS K reading the output slab's columns of the split K tile), q and
+//     dO staged once over kS slabs and split at use; 32 query rows (2
+//     warps), the key tiles single-buffered at kS 2 (103,968 bytes: two
+//     blocks an SM) and 4 (202,272), double at kS 3 (177,984): 64 rows
+//     at kS 2 (one block an SM) timed slower (PERF.md);
+//   * bf16 dQ: one warpgroup of 64 query rows, q and dO copied once (kS
+//     boxes of 128 columns each), K and V tiles of 32 keys (kS slabs
+//     each) through a 2-stage ring, single at kS 4: 164,888 / 230,424 /
+//     230,424 bytes.
 
 // rows [r0, r0 + n_rows) of a [T, nh, hd] head view (row r at src + r *
 // row_stride; src at the block's first column), columns [0, W) into a
@@ -2540,8 +2555,414 @@ flash_bwd_dkv_slabs_bf16_kernel(
   store_rows<kSlab>(dv + o_base, pos_stride, keys, Tk, dva, t);
 }
 
+template <int kS>
+struct SlabsDqF32 {
+  static constexpr int kWarps = 2;
+  static constexpr int kStages = kS == 3 ? 2 : 1;  // K tiles
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;
+  static constexpr int kKeys = 8;            // keys per tile
+  static constexpr int kW = kS * kSlab;      // the block's columns
+  static constexpr int kStride = kW + 4;     // floats per shared row
+  static constexpr int kDT = kSlab / 8;      // 8-wide tiles of dQ
+  static constexpr int kQD = 2 * kRows * kStride;   // q, dO
+  static constexpr int kTile = kKeys * kStride;
+  static constexpr int kStage = 2 * kTile + kKeys;  // K, V (hi), key flags
+  static constexpr int kX = 2 * kWarps * 4 * 32;   // floats of a buffer
+  static constexpr size_t kSmem =
+      (kQD + kStages * kStage + 2 * kTile + 2 * kX) * sizeof(float);
+  static_assert(kStage % 4 == 0, "16-byte aligned stages");
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+// grid (C' * ceil(Tq / kRows), nh, B) in clusters of (C', 1, 1);
+// SlabsDqF32<kS>::kThreads threads, kSmem bytes of dynamic shared memory;
+// dQ of output slab `pass`.  Per key tile: each warp forms its partial S
+// = Q K^T and dP = dO V^T over the block's kS slabs and writes both;
+// after a cluster barrier (kSplit: share_if's exchange) it sums the
+// cluster's, forms P = exp(S * scale - lse) and dS = P (dP - D), and adds
+// dS K over the output slab to dQ
+template <int kS, bool kSplit>
+__global__ void __launch_bounds__(SlabsDqF32<kS>::kThreads, 1)
+flash_bwd_dq_slabs_f32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    const float* __restrict__ key_mask, float* __restrict__ dq, int Tq,
+    int Tk, int nh, int hd, int causal, float sm_scale, int pass) {
+  using D = SlabsDqF32<kS>;
+  constexpr int kKeys = D::kKeys, kStride = D::kStride;
+  extern __shared__ __align__(16) float smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * D::kW;
+  const int ocol = col0 + pass * kSlab;
+  const int n_cols = min(D::kW, hd - col0);
+  float* q_s = smem;
+  float* do_s = q_s + D::kRows * kStride;
+  float* stages = smem + D::kQD;              // K, V, key flags
+  float* k_lo = stages + D::kStages * D::kStage;  // lo parts of the tile
+  float* v_lo = k_lo + D::kTile;
+  float* x_s = v_lo + D::kTile;               // the two exchange buffers
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const size_t pos_stride = (size_t)nh * hd;
+  const size_t base = (size_t)b * Tq * pos_stride + (size_t)h * hd + col0;
+  const size_t k_base = (size_t)b * Tk * pos_stride + (size_t)h * hd + col0;
+  const size_t row_base = (size_t)b * Tq * nh + h;  // lse/dsum of (b, 0, h)
+  const int row0 = qb * D::kRows + warp * 16;       // the warp's first row
+  const int rows[2] = {row0 + g, row0 + g + 8};
+
+  float l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+  bool rok[2] = {false, false};  // a real row with a key to attend
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] < Tq) {
+      l[r] = lse[row_base + (size_t)rows[r] * nh];
+      dd[r] = dsum[row_base + (size_t)rows[r] * nh];
+      rok[r] = isfinite(l[r]);
+      if (!rok[r]) l[r] = 0.f;
+    }
+  }
+  float dqa[D::kDT][4];
+#pragma unroll
+  for (int n = 0; n < D::kDT; ++n)
+    dqa[n][0] = dqa[n][1] = dqa[n][2] = dqa[n][3] = 0.f;
+  // no row of the block attends a key: zeros (the whole cluster agrees)
+  const bool any_row = __syncthreads_or(rok[0] || rok[1]);
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, (qb + 1) * D::kRows) : Tk;
+  const int n_tiles = any_row ? (t_end + kKeys - 1) / kKeys : 0;
+
+  auto stage = [&](int tile, int buf) {
+    float* ks = stages + buf * D::kStage;
+    float* vs = ks + D::kTile;
+    float* oks = vs + D::kTile;
+    const int k0 = tile * kKeys;
+    stage_cols<D::kW, D::kThreads>(ks, kStride, k + k_base, pos_stride, k0,
+                                   kKeys, Tk, n_cols, tid);
+    stage_cols<D::kW, D::kThreads>(vs, kStride, v + k_base, pos_stride, k0,
+                                   kKeys, Tk, n_cols, tid);
+    for (int j = tid; j < kKeys; j += D::kThreads)
+      oks[j] = key_flag(key_mask, b, Tk, k0 + j);
+    tf32x3::cp_async_commit();
+  };
+  if (n_tiles > 0) {  // one group: q, dO and the first key tile
+    stage_cols<D::kW, D::kThreads>(q_s, kStride, q + base, pos_stride,
+                                   qb * D::kRows, D::kRows, Tq, n_cols, tid);
+    stage_cols<D::kW, D::kThreads>(do_s, kStride, dout + base, pos_stride,
+                                   qb * D::kRows, D::kRows, Tq, n_cols, tid);
+    stage(0, 0);
+  }
+  const float* qw = q_s + warp * 16 * kStride;
+  const float* dow = do_s + warp * 16 * kStride;
+  auto q_frag = [&](int kk) {
+    return tf32x3::load_a(qw + 8 * kk, kStride, g, t);
+  };
+  auto do_frag = [&](int kk) {
+    return tf32x3::load_a(dow + 8 * kk, kStride, g, t);
+  };
+  auto xi = [&](int j) { return (warp * 2 + j) * 32 + lane; };
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    if constexpr (D::kStages == 2) {
+      if (it + 1 < n_tiles) {
+        stage(it + 1, (it + 1) & 1);  // its buffer was freed at it - 1's end
+        tf32x3::cp_async_wait<1>();
+      } else {
+        tf32x3::cp_async_wait<0>();
+      }
+    } else {
+      tf32x3::cp_async_wait<0>();  // copied at the end of tile it - 1
+    }
+    float* ks = stages + (D::kStages == 2 ? it & 1 : 0) * D::kStage;
+    float* vs = ks + D::kTile;
+    const float* oks = vs + D::kTile;
+    // the tile is split and has landed for every warp; any of its keys
+    // real and unmasked (the cluster's answer too)
+    tf32x3::split_tile<D::kW, D::kThreads>(ks, k_lo, kStride, kKeys, tid);
+    tf32x3::split_tile<D::kW, D::kThreads>(vs, v_lo, kStride, kKeys, tid);
+    const bool any = __syncthreads_or(tid < kKeys && oks[tid] > 0.f);
+    if (any) {
+      const int k0 = it * kKeys;
+      // the warp's rows are real and, causal, not every key of the tile
+      // follows its last row (the same warp of every block)
+      const bool active = row0 < Tq && !(causal && k0 > row0 + 15);
+      float* xb = x_s + (ex & 1) * D::kX;
+      float p[1][4], ds[1][4];
+      if (active) {
+        // this block's partial S = Q K^T and dP = dO V^T over its kS
+        // slabs, in order
+        const tf32x3::SplitTile kt{ks, k_lo}, vt{vs, v_lo};
+        slab_product<kS>(p, q_frag, kt, kStride, g, t);
+        slab_product<kS>(ds, do_frag, vt, kStride, g, t);
+        reinterpret_cast<float4*>(xb)[xi(0)] = f4(p[0]);
+        reinterpret_cast<float4*>(xb)[xi(1)] = f4(ds[0]);
+      }
+      cluster.sync();  // every block's partials are written
+      ++ex;
+      share_if<kSplit>(cluster, xb, D::kX / 4, C, D::kThreads, tid);
+      if (active) {
+        // S and dP summed, P = exp(S * scale - lse) (exactly 0 where the
+        // pair is masked or the row has no key to attend), dS = P (dP -
+        // D); dQ += dS K over the output slab's columns of the tile
+        float sd[2][4];
+        sum_or_gather<kSplit>(sd, cluster, xb, D::kX / 4, C, xi);
+        const bool diag = causal && k0 + kKeys - 1 > row0;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 2 * t + (e & 1);
+          const int r = e >> 1;
+          const bool ok =
+              rok[r] && oks[col] > 0.f && (!diag || k0 + col <= rows[r]);
+          const float pv = ok ? expf(sd[0][e] * sm_scale - l[r]) : 0.f;
+          ds[0][e] = pv * (sd[1][e] - dd[r]);
+        }
+        const tf32x3::SplitTile ko{ks + pass * kSlab, k_lo + pass * kSlab};
+        tf32x3::tile_product<1, D::kDT, 1>(dqa, ds, ko, kStride, g, t);
+      }
+    }
+    __syncthreads();  // every warp is done with the tile's buffer and lo
+    if constexpr (D::kStages == 1)
+      if (it + 1 < n_tiles) stage(it + 1, 0);
+  }
+  if (n_tiles > 0) cluster.sync();  // no block leaves while a peer reads
+
+  if (ocol >= hd) return;  // the last block's missing slab
+  const size_t o_base = base - col0 + ocol;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Tq) continue;
+    float* dq_row = dq + o_base + (size_t)rows[r] * pos_stride;
+#pragma unroll
+    for (int n = 0; n < D::kDT; ++n)
+      *reinterpret_cast<float2*>(dq_row + 8 * n + 2 * t) = make_float2(
+          dqa[n][2 * r] * sm_scale, dqa[n][2 * r + 1] * sm_scale);
+  }
+}
+
+template <int kS>
+struct SlabsDqBf16 {
+  static constexpr int kThreads = 128;  // one warpgroup
+  static constexpr int kRows = 64;
+  static constexpr int kKeys = 32;      // keys per tile
+  static constexpr int kStages = kS <= 3 ? 2 : 1;    // key tiles in flight
+  static constexpr int kQ = SlabTile::bytes(kRows);  // one slab of q or dO
+  static constexpr int kK = SlabTile::bytes(kKeys);  // one slab of K or V
+  static constexpr int kStage = 2 * kS * kK;          // K, V (kS slabs)
+  // a buffer: each thread's S and dP registers, float4 [kKeys / 4][threads]
+  static constexpr int kXFloats = kThreads * kKeys;
+  static constexpr int kXOff = 2 * kS * kQ + kStages * kStage;
+  static constexpr int kBarOff = kXOff + 2 * kXFloats * 4;
+  static constexpr size_t kSmem = kBarOff + 3 * 8 + 1024;
+  static_assert(kSmem <= 232448, "227 KB of shared memory a block");
+};
+
+// grid (C' * ceil(Tq / 64), nh, B) in clusters of (C', 1, 1);
+// SlabsDqBf16<kS>::kThreads threads, kSmem bytes of dynamic shared
+// memory; the maps' boxes are 64 rows (q, dO) and 32 rows (k, v); dQ of
+// output slab `pass`; the exchange split in two.  Per key tile: the
+// warpgroup forms its partial S = Q K^T and dP = dO V^T over the block's
+// kS slabs and writes both; after a cluster barrier the block sums its
+// share of the cluster's partials, and after a second one reads the sums,
+// forms dS = P (dP - D) * scale in registers, rounds it to bf16 and adds
+// dS K over the output slab to dQ, K from the staged tile S read
+template <int kS>
+__global__ void __launch_bounds__(SlabsDqBf16<kS>::kThreads, 1)
+flash_bwd_dq_slabs_bf16_kernel(
+    const __grid_constant__ CUtensorMap q_map,
+    const __grid_constant__ CUtensorMap k_map,
+    const __grid_constant__ CUtensorMap v_map,
+    const __grid_constant__ CUtensorMap do_map,
+    const float* __restrict__ lse, const float* __restrict__ dsum,
+    const float* __restrict__ key_mask, bf16* __restrict__ dq, int Tq,
+    int Tk, int nh, int hd, int causal, float sm_scale, int pass) {
+  using D = SlabsDqBf16<kS>;
+  constexpr int kKeys = D::kKeys;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;                     // kS slabs of q
+  unsigned char* dos = smem + kS * D::kQ;       // and of dO
+  unsigned char* tiles = smem + 2 * kS * D::kQ;  // stage s: K's, V's slabs
+  float* x_s = reinterpret_cast<float*>(smem + D::kXOff);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + D::kBarOff);
+  uint64_t* qd_bar = full + 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int col0 = (int)cluster.block_rank() * kS * kSlab;
+  const int ocol = col0 + pass * kSlab;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qb = blockIdx.x / C, h = blockIdx.y, b = blockIdx.z;
+  const size_t pos_stride = (size_t)nh * hd;
+  const size_t o_base = (size_t)b * Tq * pos_stride + (size_t)h * hd + ocol;
+  const size_t row_base = (size_t)b * Tq * nh + h;
+  const int r_blk = qb * D::kRows;          // the block's first row
+  const int q_row = r_blk + 16 * warp + g;
+  const int rows[2] = {q_row, q_row + 8};   // this thread's rows of dQ
+  float l[2] = {INFINITY, INFINITY}, dd[2] = {0.f, 0.f};  // lse * log2 e, D
+  bool rok[2] = {false, false};  // a real row with a key to attend
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (rows[r] >= Tq) continue;
+    const float x = lse[row_base + (size_t)rows[r] * nh];
+    rok[r] = isfinite(x);
+    if (rok[r]) l[r] = x * kLog2e;
+    dd[r] = dsum[row_base + (size_t)rows[r] * nh];
+  }
+  float dqa[kSlab / 2];
+#pragma unroll
+  for (int i = 0; i < kSlab / 2; ++i) dqa[i] = 0.f;
+  // no row of the block attends a key: zeros (the whole cluster agrees)
+  if (!__syncthreads_or(rok[0] || rok[1])) {
+    if (ocol < hd)
+      store_rows<kSlab>(dq + o_base, pos_stride, rows, Tq, dqa, t);
+    return;
+  }
+  // causal (Tq == Tk): keys past the block's last row are never attended
+  const int t_end = causal ? min(Tk, r_blk + D::kRows) : Tk;
+  const int n_tiles = (t_end + kKeys - 1) / kKeys;
+  // thread 0: tile it's K and V (kS slabs each; boxes past hd
+  // zero-filled) into its stage
+  auto issue = [&](int it) {
+    const int s = D::kStages == 2 ? it & 1 : 0;
+    unsigned char* ks = tiles + s * D::kStage;
+    tma::mbar_arrive_tx(&full[s], D::kStage);
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      wg::load_tile<kSlab>(ks + j * D::kK, &k_map, kKeys, it * kKeys, h, b,
+                           &full[s], col0 + j * kSlab);
+      wg::load_tile<kSlab>(ks + (kS + j) * D::kK, &v_map, kKeys, it * kKeys,
+                           h, b, &full[s], col0 + j * kSlab);
+    }
+  };
+  if (tid == 0) {
+    tma::mbar_init(&full[0], 1);
+    tma::mbar_init(&full[1], 1);
+    tma::mbar_init(qd_bar, 1);
+    tma::mbar_fence_init();
+  }
+  __syncthreads();
+  if (tid == 0) {
+    tma::mbar_arrive_tx(qd_bar, 2 * kS * D::kQ);
+#pragma unroll
+    for (int j = 0; j < kS; ++j) {
+      wg::load_tile<kSlab>(qs + j * D::kQ, &q_map, D::kRows, r_blk, h, b,
+                           qd_bar, col0 + j * kSlab);
+      wg::load_tile<kSlab>(dos + j * D::kQ, &do_map, D::kRows, r_blk, h, b,
+                           qd_bar, col0 + j * kSlab);
+    }
+    issue(0);
+  }
+
+  const float scale_l2 = sm_scale * kLog2e;
+  tma::mbar_wait(qd_bar, 0);
+  int ex = 0;
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = D::kStages == 2 ? it & 1 : 0;
+    // the next tile's stage was freed by the barrier ending tile it - 1
+    if constexpr (D::kStages == 2)
+      if (tid == 0 && it + 1 < n_tiles) issue(it + 1);
+    const int k0 = it * kKeys;
+    // bit 2 i + e: key k0 + 8 i + 2 t + e (this thread's columns of S) is
+    // real and unmasked
+    uint32_t okb = 0;
+#pragma unroll
+    for (int i = 0; i < kKeys / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        okb |= (uint32_t)key_ok(key_mask, b, Tk, k0 + 8 * i + 2 * t + e)
+               << (2 * i + e);
+    const bool any = __syncthreads_or(okb != 0);  // the cluster's too
+    tma::mbar_wait(&full[s], D::kStages == 2 ? (it >> 1) & 1 : it & 1);
+    if (any) {
+      const unsigned char* ks = tiles + s * D::kStage;
+      const unsigned char* vs = ks + kS * D::kK;
+      // causal: every key of the tile follows the block's last row
+      const bool active = r_blk < Tq && !(causal && k0 > r_blk + 63);
+      float* xb = x_s + (ex & 1) * D::kXFloats;
+      auto xi = [&](int i) { return i * D::kThreads + tid; };
+      float sa[kKeys / 2], pa[kKeys / 2];  // S, dP; then dS in pa
+      if (active) {
+        // this block's partial S = Q K^T and dP = dO V^T over its kS
+        // slabs, in order
+        wg::wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kS; ++j)
+#pragma unroll
+          for (int kk = 0; kk < kSlab / 16; ++kk)
+            wg::Mma<kKeys>::ss(
+                sa, wg::desc_k<kSlab>(qs + j * D::kQ, D::kRows, 0, kk),
+                wg::desc_k<kSlab>(ks + j * D::kK, kKeys, 0, kk),
+                j > 0 || kk > 0);
+#pragma unroll
+        for (int j = 0; j < kS; ++j)
+#pragma unroll
+          for (int kk = 0; kk < kSlab / 16; ++kk)
+            wg::Mma<kKeys>::ss(
+                pa, wg::desc_k<kSlab>(dos + j * D::kQ, D::kRows, 0, kk),
+                wg::desc_k<kSlab>(vs + j * D::kK, kKeys, 0, kk),
+                j > 0 || kk > 0);
+        wg::commit();
+        wg::wait<0>();
+        wg::keep(sa);
+        wg::keep(pa);
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i) {
+          reinterpret_cast<float4*>(xb)[xi(i)] = f4(sa + 4 * i);
+          reinterpret_cast<float4*>(xb)[xi(kKeys / 8 + i)] = f4(pa + 4 * i);
+        }
+      }
+      cluster.sync();  // every block's partials are written
+      ++ex;
+      share_if<true>(cluster, xb, D::kXFloats / 4, C, D::kThreads, tid);
+      if (active) {
+        float sum[kKeys / 4][4];
+        sum_or_gather<true>(sum, cluster, xb, D::kXFloats / 4, C, xi);
+        // P = exp(S * scale - lse), dS = P (dP - D) * scale
+        const bool diag = causal && k0 + kKeys - 1 > r_blk;
+#pragma unroll
+        for (int i = 0; i < kKeys / 8; ++i) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1, c = 8 * i + 2 * t + (e & 1);
+            const bool ok = rok[r] && ((okb >> (2 * i + (e & 1))) & 1) &&
+                            (!diag || k0 + c <= rows[r]);
+            const float p = ok ? ex2(fmaf(sum[i][e], scale_l2, -l[r])) : 0.f;
+            pa[4 * i + e] = p * (sum[kKeys / 8 + i][e] - dd[r]) * sm_scale;
+          }
+        }
+        uint32_t df[kKeys / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wg::a_frag(df[kk], pa, kk);  // dS rounded to bf16
+        const unsigned char* k_out = ks + pass * D::kK;  // the output slab
+        wg::wgmma_fence();
+        // dQ += dS K over the tile's keys (the output slab)
+#pragma unroll
+        for (int kk = 0; kk < kKeys / 16; ++kk)
+          wg::Mma<kSlab>::rs(dqa, df[kk],
+                             wg::desc_mn<kSlab>(k_out, kKeys, kk, 0), 1);
+        wg::commit();
+        wg::wait<0>();
+        wg::keep(dqa);
+        wg::keep(df);
+      }
+    }
+    __syncthreads();  // the stage is free for the next tiles
+    if constexpr (D::kStages == 1)
+      if (tid == 0 && it + 1 < n_tiles) issue(it + 1);
+  }
+  cluster.sync();  // no block leaves while a peer reads its partials
+  if (ocol >= hd) return;  // the last block's missing slab
+  store_rows<kSlab>(dq + o_base, pos_stride, rows, Tq, dqa, t);
+}
+
 // ---------------------------------------------------------------------------
-// The SIMT forms (the dQ above head dim 2048; every kind at any wide head
+// The SIMT forms (every kind above head dim 8192, and at any wide head
 // dim behind the _simt entry points).
 
 // shared memory of each kernel, in floats: the chunks share their space
@@ -2980,12 +3401,9 @@ int blocks_of(int hd) {
   return (hd / kSlab + s - 1) / s;
 }
 
-// does the entry point of `kind` take its cluster form at this head dim:
-// the forward and dK/dV up to 16 blocks of kMaxSlabs slabs (hd 8192),
-// the dQ up to 16 blocks of one (2048); the SIMT form above
-bool clustered(int kind, int hd) {
-  return hd / kSlab <= kMaxClusterNP * (kind == kDq ? 1 : kMaxSlabs);
-}
+// does an entry point take its cluster form at this head dim: every kind
+// up to 16 blocks of kMaxSlabs slabs (hd 8192); the SIMT form above
+bool clustered(int hd) { return hd / kSlab <= kMaxClusterNP * kMaxSlabs; }
 
 // the smallest cluster at which the f32 forward splits its exchange over
 // the cluster (share_if); below it every block sums all C partials.  On
@@ -3248,8 +3666,9 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
 
 // The multi-slab forms' kernels for kS slabs a block and a cluster of C
 // blocks (9 to 16), and the checks their launches keep: the f32 forward's
-// split exchange from kF32SplitFrom blocks as its one-slab form's; the
-// bf16 forms split at every such size; the f32 dK/dV never
+// split exchange from kF32SplitFrom blocks and the f32 dQ's from
+// kF32DqSplitFrom as their one-slab forms'; the bf16 forms split at every
+// such size; the f32 dK/dV never
 template <int kS>
 auto fwd_f32_slabs_kernel(int C, ClusterCheck*& chk) {
   static ClusterCheck one, split;
@@ -3274,6 +3693,27 @@ auto dkv_bf16_slabs_kernel(int, ClusterCheck*& chk) {
   static ClusterCheck one;
   chk = &one;
   return &flash_bwd_dkv_slabs_bf16_kernel<kS>;
+}
+// from 3 slabs a block every cluster has 11 blocks or more: the one-sum
+// instance is built at 2 slabs only (at 9 blocks it beat the split one
+// by 4-5%, PERF.md)
+template <int kS>
+auto dq_f32_slabs_kernel(int C, ClusterCheck*& chk) {
+  static ClusterCheck one, split;
+  if constexpr (kS == 2) {
+    if (C < kF32DqSplitFrom) {
+      chk = &one;
+      return &flash_bwd_dq_slabs_f32_kernel<kS, false>;
+    }
+  }
+  chk = &split;
+  return &flash_bwd_dq_slabs_f32_kernel<kS, true>;
+}
+template <int kS>
+auto dq_bf16_slabs_kernel(int, ClusterCheck*& chk) {
+  static ClusterCheck one;
+  chk = &one;
+  return &flash_bwd_dq_slabs_bf16_kernel<kS>;
 }
 
 // A multi-slab launch: one per pass (the block's output slab), all with
@@ -3366,8 +3806,47 @@ int launch_dkv_bf16_slabs(const void* q, const void* k, const void* v,
       hd, causal, sm_scale);
 }
 
-// The cluster form of the forward (dK/dV) at head dim hd: the one-slab
-// form up to 2048, else the instance of slabs_of(hd) slabs a block
+template <int kS>
+int launch_dq_f32_slabs(const void* q, const void* k, const void* v,
+                        const void* dout, const float* lse, const float* dsum,
+                        const float* key_mask, void* dq, int B, int Tq,
+                        int Tk, int nh, int hd, int causal, float sm_scale,
+                        void* stream) {
+  using D = SlabsDqF32<kS>;
+  ClusterCheck* chk;
+  const auto kernel = dq_f32_slabs_kernel<kS>(blocks_of(hd), chk);
+  return launch_passes<kS>(
+      kernel, *chk, D::kThreads, D::kSmem, (Tq + D::kRows - 1) / D::kRows, B,
+      nh, hd, stream, static_cast<const float*>(q),
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), lse, dsum, key_mask,
+      static_cast<float*>(dq), Tq, Tk, nh, hd, causal, sm_scale);
+}
+
+template <int kS>
+int launch_dq_bf16_slabs(const void* q, const void* k, const void* v,
+                         const void* dout, const float* lse,
+                         const float* dsum, const float* key_mask, void* dq,
+                         int B, int Tq, int Tk, int nh, int hd, int causal,
+                         float sm_scale, void* stream) {
+  using D = SlabsDqBf16<kS>;
+  CUtensorMap maps[4];
+  const void* ptrs[4] = {q, k, v, dout};
+  const int lens[4] = {Tq, Tk, Tk, Tq};
+  const int rows[4] = {D::kRows, D::kKeys, D::kKeys, D::kRows};
+  cudaError_t err = make_maps(maps, ptrs, lens, rows, 4, B, nh, hd);
+  if (err != cudaSuccess) return (int)err;
+  ClusterCheck* chk;
+  const auto kernel = dq_bf16_slabs_kernel<kS>(blocks_of(hd), chk);
+  return launch_passes<kS>(
+      kernel, *chk, D::kThreads, D::kSmem, (Tq + D::kRows - 1) / D::kRows, B,
+      nh, hd, stream, maps[0], maps[1], maps[2], maps[3], lse, dsum,
+      key_mask, static_cast<bf16*>(dq), Tq, Tk, nh, hd, causal, sm_scale);
+}
+
+// The cluster form of the forward (dK/dV, dQ) at head dim hd: the
+// one-slab form up to 2048, else the instance of slabs_of(hd) slabs a
+// block
 int launch_fwd_cluster(bool bf16, const void* q, const void* k,
                        const void* v, const float* key_mask, void* out,
                        float* lse, int B, int Tq, int Tk, int nh, int hd,
@@ -3413,6 +3892,29 @@ int launch_dkv_cluster(bool bf16, const void* q, const void* k,
             causal, sm_scale, stream);
 }
 
+int launch_dq_cluster(bool bf16, const void* q, const void* k,
+                      const void* v, const void* dout, const float* lse,
+                      const float* dsum, const float* key_mask, void* dq,
+                      int B, int Tq, int Tk, int nh, int hd, int causal,
+                      float sm_scale, void* stream) {
+  decltype(&launch_dq_f32) fn;
+  switch (slabs_of(hd)) {
+    case 1:
+      fn = bf16 ? launch_dq_bf16 : launch_dq_f32;
+      break;
+    case 2:
+      fn = bf16 ? &launch_dq_bf16_slabs<2> : &launch_dq_f32_slabs<2>;
+      break;
+    case 3:
+      fn = bf16 ? &launch_dq_bf16_slabs<3> : &launch_dq_f32_slabs<3>;
+      break;
+    default:
+      fn = bf16 ? &launch_dq_bf16_slabs<4> : &launch_dq_f32_slabs<4>;
+  }
+  return fn(q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk, nh, hd, causal,
+            sm_scale, stream);
+}
+
 // the clusters of C blocks of `pick`'s kernel resident at once, or a
 // negative cudaError_t
 template <typename Pick>
@@ -3432,7 +3934,7 @@ int launch_fwd(const void* q, const void* k, const void* v,
                int Tk, int nh, int hd, int causal, float sm_scale,
                void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(kFwd, hd) && !simt)
+  if (clustered(hd) && !simt)
     return launch_fwd_cluster(sizeof(E) == 2, q, k, v, key_mask, out, lse, B,
                               Tq, Tk, nh, hd, causal, sm_scale, stream);
   static unsigned smem_set = 0;  // per instantiation and device
@@ -3454,7 +3956,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                void* dk, void* dv, int B, int Tq, int Tk, int nh, int hd,
                int causal, float sm_scale, void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(kDkv, hd) && !simt)
+  if (clustered(hd) && !simt)
     return launch_dkv_cluster(sizeof(E) == 2, q, k, v, dout, lse, dsum,
                               key_mask, dk, dv, B, Tq, Tk, nh, hd, causal,
                               sm_scale, stream);
@@ -3478,10 +3980,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               void* dq, int B, int Tq, int Tk, int nh, int hd, int causal,
               float sm_scale, void* stream, bool simt = false) {
   if (bad_shape(B, Tq, Tk, nh, hd, causal)) return (int)cudaErrorInvalidValue;
-  if (clustered(kDq, hd) && !simt)
-    return (sizeof(E) == 2 ? launch_dq_bf16 : launch_dq_f32)(
-        q, k, v, dout, lse, dsum, key_mask, dq, B, Tq, Tk, nh, hd, causal,
-        sm_scale, stream);
+  if (clustered(hd) && !simt)
+    return launch_dq_cluster(sizeof(E) == 2, q, k, v, dout, lse, dsum,
+                             key_mask, dq, B, Tq, Tk, nh, hd, causal,
+                             sm_scale, stream);
   static unsigned smem_set = 0;
   cudaError_t err = tf32x3::allow_smem(flash_bwd_dq_wide_kernel<E>,
                                        kDqSmem * sizeof(float), smem_set);
@@ -3568,7 +4070,7 @@ extern "C" int ts_flash_wide_bwd_dq_bf16(const void* q, const void* k,
 // The SIMT forward, dK/dV and dQ at every wide head dim, with the
 // signatures of ts_flash_wide(_bf16), ts_flash_wide_bwd_dkv(_bf16) and
 // ts_flash_wide_bwd_dq(_bf16): the design the cluster forms replaced up
-// to head dim 2048, timed beside them (chip_smoke.py phase_flash_wide);
+// to head dim 8192, timed beside them (chip_smoke.py phase_flash_wide);
 // no path of the port calls them
 extern "C" int ts_flash_wide_simt(const void* q, const void* k,
                                   const void* v, const float* key_mask,
@@ -3635,7 +4137,7 @@ extern "C" int ts_flash_wide_form(int kind, int hd, int* slabs,
                                   int* blocks) {
   const int form = kind < kFwd || kind > kDq || hd <= 0 || hd % kSlab != 0
                        ? -1
-                       : clustered(kind, hd) ? 1 : 0;
+                       : clustered(hd) ? 1 : 0;
   if (slabs) *slabs = form == 1 ? slabs_of(hd) : 0;
   if (blocks) *blocks = form == 1 ? blocks_of(hd) : 0;
   return form;
@@ -3670,8 +4172,8 @@ extern "C" int ts_flash_wide_active_clusters(int kind, int bf16, int C) {
   }
 }
 
-// The clusters of C blocks of the multi-slab form of `kind` (kFwd or
-// kDkv) with kS slabs a block resident at once, as active_of
+// The clusters of C blocks of the multi-slab form of `kind` with kS
+// slabs a block resident at once, as active_of
 template <int kS>
 int active_slabs(int kind, bool bf16, int C) {
   if (kind == kFwd)
@@ -3681,12 +4183,18 @@ int active_slabs(int kind, bool bf16, int C) {
                 : active_of(fwd_f32_slabs_kernel<kS>,
                             SlabsFwdF32<kS>::kThreads,
                             SlabsFwdF32<kS>::kSmem, C);
-  return bf16 ? active_of(dkv_bf16_slabs_kernel<kS>,
-                          SlabsDkvBf16<kS>::kThreads,
-                          SlabsDkvBf16<kS>::kSmem, C)
-              : active_of(dkv_f32_slabs_kernel<kS>,
-                          SlabsDkvF32<kS>::kThreads,
-                          SlabsDkvF32<kS>::kSmem, C);
+  if (kind == kDkv)
+    return bf16 ? active_of(dkv_bf16_slabs_kernel<kS>,
+                            SlabsDkvBf16<kS>::kThreads,
+                            SlabsDkvBf16<kS>::kSmem, C)
+                : active_of(dkv_f32_slabs_kernel<kS>,
+                            SlabsDkvF32<kS>::kThreads,
+                            SlabsDkvF32<kS>::kSmem, C);
+  return bf16 ? active_of(dq_bf16_slabs_kernel<kS>,
+                          SlabsDqBf16<kS>::kThreads,
+                          SlabsDqBf16<kS>::kSmem, C)
+              : active_of(dq_f32_slabs_kernel<kS>, SlabsDqF32<kS>::kThreads,
+                          SlabsDqF32<kS>::kSmem, C);
 }
 
 // As ts_flash_wide_active_clusters for the cluster form a launch of

@@ -64,10 +64,10 @@ above 256: up to 2048 the forward, dK/dV and dQ (the library's rule,
 ``ts_flash_wide_form``) are a thread block cluster of hd / 128 blocks
 on the tensor cores, each block a 128-column slab, their partial S (and
 dP) summed over the cluster once per tile; above 2048, up to 8192, the
-forward and dK/dV are clusters of at most 16 blocks each owning 2 to 4
-slabs (``_wide_geometry``; one kernel launch per output slab a block
-owns, inside the one C call), and the dQ, and above 8192 every kind, is
-a SIMT kernel that keeps one 128-column slab of the output a block and
+forward, dK/dV and dQ are clusters of at most 16 blocks each owning 2
+to 4 slabs (``_wide_geometry``; one kernel launch per output slab a
+block owns, inside the one C call), and above 8192 every kind is a
+SIMT kernel that keeps one 128-column slab of the output a block and
 forms S over the whole head dim in 32-column chunks (``simt=True``
 takes the SIMT kernels for the forward, dK/dV and dQ at any wide head
 dim, to time the cluster forms against them). On the
@@ -280,10 +280,9 @@ def _wide_geometry(kind: str, width: int) -> Tuple[int, int]:
     wide kernel ``kind`` ("fwd", "dkv" or "dq") takes at a padded head
     dim ``width`` above 256, as the library's own dispatch decides
     (``ts_flash_wide_form``): (1, width / 128) up to 2048, above it up to
-    8192 (ceil(C / 16), ceil(C / slabs)) for the forward and dK/dV, C =
-    width / 128; (0, 0) for the SIMT form (the dQ above 2048, every kind
-    above 8192).  Raises ValueError where no wide kernel takes
-    ``width``."""
+    8192 (ceil(C / 16), ceil(C / slabs)), C = width / 128; (0, 0) for the
+    SIMT form (every kind above 8192).  Raises ValueError where no wide
+    kernel takes ``width``."""
     slabs, blocks = ctypes.c_int(), ctypes.c_int()
     form = _load_wide_library().ts_flash_wide_form(
         WIDE_KINDS.index(kind), width, ctypes.byref(slabs),
